@@ -7,14 +7,18 @@ Phases (a failing phase fails the script; none is caught):
 1. device: the card's name and count, its power limit from nvidia-smi,
    and the TF32 switches (off: the port computes in fp32 like the JAX
    package);
-2. build: every CUDA kernel of the serving path, from the sources in
-   this checkout (paddle_tpu_torch/ops/kernels/csrc), one nvcc each, all
-   started together;
+2. build: every CUDA kernel of the serving and training paths, from the
+   sources in this checkout (paddle_tpu_torch/ops/kernels/csrc), one
+   nvcc each, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes, with its time, the plain version's time,
-   one PyTorch library call's time as a yardstick, and the least time the
-   card could take (the larger of bytes / 3.35 TB/s and fp32 operations
-   / 67 TFLOP/s, the H100 SXM data-sheet peaks);
+   its path's shapes (the xent pair also at edge cases: label smoothing
+   on and off, ignored rows, an out-of-range label, odd N and V, bf16
+   logits; their dx is held element by element, and planted faults, a
+   dropped eps/V term and a shifted lse, must fail that check), with
+   its time, the plain version's time, one PyTorch library
+   call's time as a yardstick, and the least time the card could take
+   (the larger of bytes / 3.35 TB/s and fp32 operations / 67 TFLOP/s,
+   the H100 SXM data-sheet peaks);
 4. slice: Transformer-base (d_model 512, 8 heads, 6+6 layers, d_inner
    2048, vocab 30000), random weights from a seed, built with the port's
    layers as the KV-cached incremental decode program at prompt lengths
@@ -32,12 +36,30 @@ Phases (a failing phase fails the script; none is caught):
    and of the encoder plus one step (so one decode step's time), and
    one batch under torch.profiler (the card's busy time, its idle share
    and the kernels that took most of it).
+5. train: Transformer-base's training program (transformer.build_program:
+   vocab 32000, seq 256, dropout 0, Adam under noam decay), random
+   weights from a seed and random token ids, batch 64 in fp32. Parity on
+   the first 2 rows against the same program and weights on the CPU:
+   the step-1 loss, named grads (fetched by their @GRAD names) and
+   Adam's first moment, first against the CPU run as it is, then
+   against the CPU run with its FFN ReLU masks pinned to the card's
+   (an FFN unit within rounding of zero flips its mask between any two
+   fp32 runs); the phase prints the flips per layer. A TF32 control
+   must exceed every grad limit. Then 5 Adam steps on the full batch
+   through the kernels (launch counters: xent forward and backward once
+   a step, layer_norm 30 times; its grad takes the plain version's vjp
+   and launches nothing), the loss finite at each: the step time (best
+   of 3 after a warm-up), tokens/s, peak memory, and one step under
+   torch.profiler.
 
-The second-to-last line lists the kernels as JSON; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script exits 2
-and prints no result.
+The second-to-last line lists the kernels as JSON, each with its
+launches on the serving (`served`) and training (`trained`) paths; the
+last line is {"ok": true, "device": {...}}. Without a CUDA device the
+script exits 2 and prints no result.
 """
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -51,11 +73,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import paddle_tpu_torch as pf  # noqa: E402
 from paddle_tpu_torch import unique_name  # noqa: E402
+from paddle_tpu_torch.core import registry  # noqa: E402
 from paddle_tpu_torch.inference import serving  # noqa: E402
 from paddle_tpu_torch.models import decode_engine  # noqa: E402
+from paddle_tpu_torch.models import transformer  # noqa: E402
 from paddle_tpu_torch.ops.kernels import attention as KA  # noqa: E402
 from paddle_tpu_torch.ops.kernels import build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import layer_norm as KL  # noqa: E402
+from paddle_tpu_torch.ops.kernels import xent as KX  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # fp32 outside the tensor cores
@@ -69,6 +94,37 @@ SEED = 2026
 MODEL = dict(d_model=512, n_heads=8, n_layers=6, d_inner=2048,
              vocab=30000, max_out_len=32, start_id=0, end_id=1)
 BATCH = 8
+# the repo's training configuration (bench.py bench_transformer) in
+# fp32 at half its batch: fp32 activations take twice bf16's bytes
+TRAIN = dict(seq_len=256, vocab=32000, d_model=512, n_heads=8, n_layers=6,
+             d_inner=2048, dropout_rate=0.0, learning_rate=2.0,
+             warmup_steps=8000)
+TRAIN_BATCH = 64
+TRAIN_STEPS = 5
+LABEL_SMOOTH = 0.1            # transformer()'s default
+XENT_TOL = 1e-5               # fp32 sums over V in another order
+# xent dx element by element, |dx - plain| <= atol + rtol |plain|
+# (rtol, atol), since most |dx| at V = 32000 are ~1e-6 or below. fp32:
+# the two lse differ by ~1e-6 relative, and atol covers p - eps/V
+# cancelling; bf16: two roundings of a value may fall an ulp (at most
+# 2^-7 relative) apart
+DX_TOL = {torch.float32: (1e-4, 1e-9), torch.bfloat16: (2 ** -7, 1e-9)}
+# planted faults the dx check must reject: the lse shifted by this
+DX_LSE_SHIFT = {torch.float32: 1e-3, torch.bfloat16: 0.05}
+# card vs CPU, fp32 through 12 layers: the loss relative, the grads
+# and Adam's first moment norm-wise (|a-b|/|b|). logits.w's grad lies
+# above every ReLU and agrees to ~1e-6. The others lie below the FFN
+# ReLUs, where a pre-activation within rounding of zero flips its mask
+# between any two fp32 runs: one flip among the 1M units of a layer
+# moves these grads by ~1e-4. So they are held to TRAIN_GRADS against
+# the CPU run as it is, and to PINNED_GRADS against the CPU run with
+# its ReLU masks pinned to the card's: there sound runs read at most
+# 1.4e-6 and the TF32 control 8e-4 or more.
+LOSS_RTOL = 1e-5
+TRAIN_GRADS = {"logits.w": 1e-5, "src_word_emb": 1e-3,
+               "tgt_word_emb": 1e-3, "enc0_a_ln.w": 1e-3,
+               "dec0_a_ln.w": 1e-3}
+PINNED_GRADS = dict.fromkeys(TRAIN_GRADS, 1e-5)
 
 
 def log(*a):
@@ -247,7 +303,127 @@ def phase_kernels():
          (1, 8, 256, 1024, 64, True),      # tq < tk, bottom-right
          (1, 8, 1024, 256, 64, True)],     # tq > tk: fully masked rows
         (BATCH, 8, 1024, 64))
+    entries.update(_xent_entries())
     return entries
+
+
+def _xent_case(n, v, dtype, seed, ignored=True, out_of_range=False):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(n, v, device="cuda", generator=g) * 2).to(dtype)
+    lab = torch.randint(0, v, (n,), device="cuda", generator=g)
+    if ignored:
+        lab[::7] = -100
+    if out_of_range:
+        lab[1] = v + 3
+    dloss = torch.rand(n, device="cuda", generator=g)
+    return x, lab, dloss
+
+
+def _dx_ratio(got, want):
+    """The largest |got - want| / (atol + rtol |want|) of DX_TOL for
+    want's dtype: at most 1 passes."""
+    rtol, atol = DX_TOL[want.dtype]
+    w = want.float()
+    return float(((got.float() - w).abs() / (atol + rtol * w.abs())).max())
+
+
+def _xent_faults(x, lab, dloss, eps, wdx):
+    """The plain backward `wdx` with a planted fault: each (what, dx)."""
+    g = torch.where(lab == -100, torch.zeros_like(dloss), dloss)[:, None]
+    shift = DX_LSE_SHIFT[wdx.dtype]
+    sm = torch.softmax(x.float(), dim=1)
+    yield (f"lse off by {shift:g}", (wdx.float() + math.expm1(-shift)
+                                      * sm * g).to(wdx.dtype))
+    del sm
+    if eps:
+        yield ("eps/V term dropped",
+               (wdx.float() + eps / x.shape[1] * g).to(wdx.dtype))
+
+
+def _xent_entries():
+    """Both xent kernels against their plain versions: the training
+    path's [B*256, 32000] fp32 logits, then edge cases."""
+    n_main = TRAIN_BATCH * TRAIN["seq_len"]
+    cases = [(n_main, TRAIN["vocab"], torch.float32, LABEL_SMOOTH, False,
+              False),
+             (n_main, TRAIN["vocab"], torch.float32, 0.0, True, True),
+             (33, 1000, torch.float32, LABEL_SMOOTH, True, True),
+             (64, TRAIN["vocab"], torch.bfloat16, LABEL_SMOOTH, True, True)]
+    errs = {"fwd": [], "bwd": []}
+    for i, (n, v, dtype, eps, ignored, oor) in enumerate(cases):
+        x, lab, dloss = _xent_case(n, v, dtype, 30 + i, ignored, oor)
+        loss, lse = KX.xent_forward(x, lab, eps)
+        dx = KX.xent_backward(x, lab, dloss, eps)
+        wloss, wlse = KX.xent_forward_plain(x, lab, eps)
+        wdx = KX.xent_backward_plain(x, lab, dloss, eps)
+        torch.cuda.synchronize()
+        ef = max(max_err(loss, wloss), max_err(lse, wlse))
+        eb = max_err(dx, wdx)
+        rb = _dx_ratio(dx, wdx)
+        finite = bool(torch.isfinite(loss).all() and torch.isfinite(dx).all())
+        rtol, atol = DX_TOL[dtype]
+        log(f"  xent [{n},{v}] {str(dtype)[6:]} eps={eps} ignored={ignored} "
+            f"out_of_range={oor}: forward max_abs_err {ef:.3e} (tol "
+            f"{XENT_TOL:g}); backward max_abs_err {eb:.3e}, worst "
+            f"|dx - plain| / ({atol:g} + {rtol:g}|plain|) {rb:.3e} (<= 1 "
+            f"passes) finite {finite}")
+        assert finite and ef <= XENT_TOL and rb <= 1, (ef, rb)
+        for fault, bad in _xent_faults(x, lab, dloss, eps, wdx):
+            rf = _dx_ratio(bad, wdx)
+            log(f"    planted fault, {fault}: worst ratio {rf:.3e} "
+                f"(must exceed 1)")
+            assert rf > 1, f"the dx check cannot see a {fault}"
+            del bad
+        errs["fwd"].append(ef)
+        if dtype == torch.float32:
+            errs["bwd"].append(eb)
+    del x, lab, dloss, loss, lse, dx, wloss, wlse, wdx
+    x, lab, dloss = _xent_case(n_main, TRAIN["vocab"], torch.float32, 30,
+                               ignored=False)
+    eps = LABEL_SMOOTH
+    n, v = x.shape
+    fwd_ms = time_ms(lambda: KX.xent_forward(x, lab, eps))
+    bwd_ms = time_ms(lambda: KX.xent_backward(x, lab, dloss, eps))
+    fwd_plain = time_ms(lambda: KX.xent_forward_plain(x, lab, eps), iters=5)
+    bwd_plain = time_ms(lambda: KX.xent_backward_plain(x, lab, dloss, eps),
+                        iters=5)
+
+    def lib_fwd():
+        return torch.nn.functional.cross_entropy(
+            x, lab, reduction="none", label_smoothing=eps,
+            ignore_index=-100)
+
+    xr = x.detach().requires_grad_()
+    lib_loss = torch.nn.functional.cross_entropy(
+        xr, lab, reduction="none", label_smoothing=eps, ignore_index=-100)
+    lib_dx = torch.autograd.grad(lib_loss, xr, dloss, retain_graph=True)[0]
+    torch.cuda.synchronize()
+    want_dx = KX.xent_backward_plain(x, lab, dloss, eps)
+    log(f"  xent library F.cross_entropy vs plain: forward max_abs_err "
+        f"{max_err(lib_fwd(), KX.xent_forward_plain(x, lab, eps)[0]):.3e}, "
+        f"backward {max_err(lib_dx, want_dx):.3e}")
+    del want_dx
+    fwd_lib = time_ms(lib_fwd)
+    bwd_lib = time_ms(lambda: torch.autograd.grad(lib_loss, xr, dloss,
+                                                  retain_graph=True))
+    # each input read once, each output written once; operations per
+    # element: forward max/exp/sum/add, backward that pass plus exp,
+    # subtract, multiply
+    fwd_b = bound_ms(4 * n * v + 8 * n + 8 * n, 5 * n * v)
+    bwd_b = bound_ms(4 * n * v + 8 * n + 4 * n + 4 * n * v, 9 * n * v)
+    out = {}
+    for name, ms, plain_ms, lib_ms, (bms, by), err in (
+            ("xent_forward", fwd_ms, fwd_plain, fwd_lib, fwd_b,
+             max(errs["fwd"])),
+            ("xent_backward", bwd_ms, bwd_plain, bwd_lib, bwd_b,
+             max(errs["bwd"]))):
+        log(f"  {name} [{n},{v}] fp32 eps={eps}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library F.cross_entropy {lib_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                         shape=[n, v])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -316,49 +492,57 @@ def _wall_s(exe, prog, fetch, scope, src, reps=3):
     return best
 
 
-def _profile(exe, prog, out, one, lname, scope, src, steps):
-    """Where one batch's time goes: the decode step's time from the
-    whole program against its one-step unrolled copy, then one batch
-    under torch.profiler for the card's busy time and top kernels."""
+def _device_profile(tag, run):
+    """`run()` once under torch.profiler: its wall time, the card's busy
+    time (device-side activities: kernels, copies, memsets), the idle
+    share and the kernels that took most of it. Returns (run's result,
+    the numbers)."""
     from torch.profiler import ProfilerActivity, profile
 
-    full = _wall_s(exe, prog, out, scope, src)
-    first = _wall_s(exe, one, lname, scope, src)
-    step_ms = (full - first) / max(steps - 1, 1) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        exe.run(prog, feed={"src_ids": src}, fetch_list=[out], scope=scope)
+        out = run()
         torch.cuda.synchronize()
-        prof_wall_ms = (time.monotonic() - t0) * 1e3
-    # device-side activities (kernels, copies, memsets)
+        wall_ms = (time.monotonic() - t0) * 1e3
     acts = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.time_range.elapsed_us() for e in acts) / 1e3
     by_name = {}
     for e in acts:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    res = dict(batch_ms=full * 1e3, step_ms=step_ms,
-               encoder_ms=first * 1e3 - step_ms,
-               profiled_wall_ms=prof_wall_ms,
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    res = dict(profiled_wall_ms=wall_ms,
                device_busy_ms=busy_ms if acts else None,
-               idle_share=1 - busy_ms / prof_wall_ms if acts else None,
+               idle_share=1 - busy_ms / wall_ms if acts else None,
                device_activities=len(acts),
                top_kernels_ms={n[:60]: ms for n, ms in top})
-    log(f"profile: batch {res['batch_ms']:.1f} ms, one decode step "
-        f"{step_ms:.2f} ms, encoder + set-up {res['encoder_ms']:.1f} ms")
     if acts:
-        log(f"profile: profiled batch wall {prof_wall_ms:.1f} ms, device "
-            f"busy {busy_ms:.1f} ms, idle share {res['idle_share']:.3f}, "
+        log(f"{tag}: profiled wall {wall_ms:.1f} ms, device busy "
+            f"{busy_ms:.1f} ms, idle share {res['idle_share']:.3f}, "
             f"{len(acts)} device activities")
         for n, ms in top:
             log(f"  {ms:8.2f} ms  {n[:90]}")
     else:
-        log("profile: the profiler recorded no device time; device busy "
-            "time not measured")
-    return res
+        log(f"{tag}: the profiler recorded no device time; device busy "
+            f"time not measured")
+    return out, res
+
+
+def _profile(exe, prog, out, one, lname, scope, src, steps):
+    """Where one batch's time goes: the decode step's time from the
+    whole program against its one-step unrolled copy, then one batch
+    under torch.profiler."""
+    full = _wall_s(exe, prog, out, scope, src)
+    first = _wall_s(exe, one, lname, scope, src)
+    step_ms = (full - first) / max(steps - 1, 1) * 1e3
+    log(f"profile: batch {full * 1e3:.1f} ms, one decode step "
+        f"{step_ms:.2f} ms, encoder + set-up {first * 1e3 - step_ms:.1f} ms")
+    _, res = _device_profile("profile", lambda: exe.run(
+        prog, feed={"src_ids": src}, fetch_list=[out], scope=scope))
+    return dict(batch_ms=full * 1e3, step_ms=step_ms,
+                encoder_ms=first * 1e3 - step_ms, **res)
 
 
 def phase_slice(card_name, card):
@@ -477,6 +661,214 @@ def phase_slice(card_name, card):
     return launches, served
 
 
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@contextlib.contextmanager
+def _relu_masks(masks):
+    """While open, the relu op takes its mask from `masks` (input var
+    name -> bool array) in place of its input's sign; relu_grad
+    recomputes relu under its vjp, so its mask is pinned too. None:
+    relu as it is."""
+    if masks is None:
+        yield
+        return
+    info = registry.get_op_info("relu")
+    kernel = info.kernel
+
+    def pinned(ctx):
+        x = ctx.input("X")
+        m = torch.from_numpy(masks[ctx.op.inputs["X"][0]]).to(x.device)
+        return x * m.to(x.dtype)
+
+    info.kernel = pinned
+    try:
+        yield
+    finally:
+        info.kernel = kernel
+
+
+def phase_train(card_name, card):
+    t0 = time.monotonic()
+    with unique_name.guard():
+        main, startup, cost = transformer.build_program(**TRAIN)
+    ops = [op.type for op in main.global_block.ops]
+    log(f"train: built the training program in "
+        f"{time.monotonic() - t0:.2f} s ({len(ops)} ops, "
+        f"{ops.count('adam')} adam, startup "
+        f"{len(startup.global_block.ops)} ops)")
+    names = [n for n, v in startup.global_block.vars.items()
+             if v.persistable]
+    startup.random_seed = SEED
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    cpu = pf.Executor(pf.CPUPlace())
+    scope0 = pf.Scope()
+    t0 = time.monotonic()
+    gpu.run(startup, scope=scope0)
+    torch.cuda.synchronize()
+    state0 = pf.scope_to_numpy(scope0, names)
+    del scope0
+    n_params = sum(int(np.prod(v.shape)) for v in main.all_parameters())
+    log(f"train: startup on the card {time.monotonic() - t0:.2f} s; "
+        f"{len(main.all_parameters())} parameters, {n_params} values, "
+        f"{len(names)} persistables with the optimizer state, seed {SEED}")
+
+    def fresh(place):
+        sc = pf.Scope()
+        pf.load_numpy_params(sc, state0, place)
+        return sc
+
+    rs = np.random.RandomState(SEED)
+    shape = (TRAIN_BATCH, TRAIN["seq_len"])
+    feed = {k: rs.randint(0, TRAIN["vocab"], shape).astype("int64")
+            for k in ("src_ids", "tgt_ids", "label")}
+    small = {k: v[:2] for k, v in feed.items()}
+
+    # parity: step 1 on the first 2 rows, card against CPU, same weights
+    m1 = {n.split("_moment1")[0]: n for n in names if "_moment1" in n}
+    ops_ = main.global_block.ops
+    relu_in = [op.inputs["X"][0] for op in ops_ if op.type == "relu"]
+    # each FFN ReLU's layer, from its bias (enc0_fc1.b -> enc0)
+    bias_of = {op.outputs["Out"][0]: op.inputs["Y"][0] for op in ops_
+               if op.type == "elementwise_add"}
+    layer = [bias_of[x].split("_fc")[0] for x in relu_in]
+    fetch = [cost.name] + [g + "@GRAD" for g in TRAIN_GRADS] + \
+        [m1[g] for g in TRAIN_GRADS] + relu_in
+    k = len(TRAIN_GRADS)
+
+    def cpu_step(pin=None):
+        """The step on the CPU; `pin`: a card run whose ReLU masks the
+        CPU run takes."""
+        masks = None if pin is None else {
+            x: pre > 0 for x, pre in zip(relu_in, pin[1 + 2 * k:])}
+        with _relu_masks(masks):
+            return cpu.run(main, feed=small, fetch_list=fetch,
+                           scope=fresh(pf.CPUPlace()))
+
+    def errs(run, ref):
+        """loss rel err, then {grad: (grad err, Moment1 err)}."""
+        loss = abs(float(run[0][0]) - float(ref[0][0])) / abs(
+            float(ref[0][0]))
+        return loss, {g: (_rel(run[1 + i], ref[1 + i]),
+                          _rel(run[1 + k + i], ref[1 + k + i]))
+                      for i, g in enumerate(TRAIN_GRADS)}
+
+    t0 = time.monotonic()
+    ref = cpu_step()
+    cpu_s = time.monotonic() - t0
+    got = gpu.run(main, feed=small, fetch_list=fetch,
+                  scope=fresh(pf.CUDAPlace(0)))
+    pinned = cpu_step(pin=got)
+    loss_err, grad_errs = errs(got, ref)
+    pin_loss, pin_errs = errs(got, pinned)
+    # FFN units whose ReLU mask differs between the two runs, per layer,
+    # and the largest |pre-activation| among them
+    flips = [(g > 0) != (c > 0) for g, c in zip(got[1 + 2 * k:],
+                                                ref[1 + 2 * k:])]
+    n_flips = int(sum(f.sum() for f in flips))
+    flips_by_layer = {}
+    for name, f in zip(layer, flips):
+        flips_by_layer[name] = int(f.sum())
+    flip_max = max([float(np.abs(c[f]).max()) for f, c in
+                    zip(flips, ref[1 + 2 * k:]) if f.any()], default=0.0)
+    m1_vs_g = max(_rel(got[1 + k + i], 0.1 * got[1 + i]) for i in range(k))
+    log(f"train parity (2 rows, step 1; CPU run {cpu_s:.1f} s): loss card "
+        f"{float(got[0][0]):.7f} CPU {float(ref[0][0]):.7f}, rel err "
+        f"{loss_err:.3e}, against the CPU with the card's ReLU masks "
+        f"{pin_loss:.3e} (tol {LOSS_RTOL:g})")
+    log(f"train parity: {n_flips} of {sum(f.size for f in flips)} FFN "
+        f"ReLU units flip between card and CPU, |pre-activation| at most "
+        f"{flip_max:.3e}; per layer {flips_by_layer}")
+    for g in TRAIN_GRADS:
+        log(f"train parity: {g}@GRAD norm-wise {grad_errs[g][0]:.3e}, "
+            f"Moment1 {grad_errs[g][1]:.3e} (tol {TRAIN_GRADS[g]:g}); "
+            f"ReLU masks pinned: {pin_errs[g][0]:.3e}, Moment1 "
+            f"{pin_errs[g][1]:.3e} (tol {PINNED_GRADS[g]:g})")
+    log(f"train parity: Moment1 vs (1-beta1)g on the card {m1_vs_g:.3e}")
+    assert np.isfinite(got[0]).all() and loss_err <= LOSS_RTOL, loss_err
+    assert pin_loss <= LOSS_RTOL, pin_loss
+    for g, tol in TRAIN_GRADS.items():
+        assert max(grad_errs[g]) <= tol, (g, grad_errs[g], tol)
+    for g, tol in PINNED_GRADS.items():
+        assert max(pin_errs[g]) <= tol, (g, pin_errs[g], tol)
+    assert m1_vs_g <= 1e-6, m1_vs_g
+    # the control: TF32 on, against the CPU run as it is and against the
+    # CPU run with the TF32 run's masks
+    tf_scope = fresh(pf.CUDAPlace(0))  # CUDAPlace.device() sets TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf = gpu.run(main, feed=small, fetch_list=fetch, scope=tf_scope)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf_loss, tf_errs = errs(tf, ref)
+    _, tf_pin_errs = errs(tf, cpu_step(pin=tf))
+    log(f"train parity: control with TF32 on: loss rel err {tf_loss:.3e}; "
+        f"grads norm-wise " + ", ".join(
+            f"{g} {e[0]:.3e}" for g, e in tf_errs.items())
+        + "; ReLU masks pinned " + ", ".join(
+            f"{g} {e[0]:.3e}" for g, e in tf_pin_errs.items()))
+    for g, tol in TRAIN_GRADS.items():
+        assert tf_errs[g][0] > tol, f"the {g} check cannot see TF32"
+    for g, tol in PINNED_GRADS.items():
+        assert tf_pin_errs[g][0] > tol, \
+            f"the pinned {g} check cannot see TF32"
+    m1_errs = {g: e[1] for g, e in grad_errs.items()}
+    grad_errs = {g: e[0] for g, e in grad_errs.items()}
+    tf_grad = {g: e[0] for g, e in tf_errs.items()}
+    tf_pinned = {g: e[0] for g, e in tf_pin_errs.items()}
+
+    # the main path: full-batch Adam steps through the kernels
+    scope = fresh(pf.CUDAPlace(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (KX.xent_forward, KX.xent_backward, KL.layer_norm,
+               KA.sdpa_short, KA.flash_attention)
+    for kern in kernels:
+        kern.launches = 0
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        if step == TRAIN_STEPS - 1:
+            loss, prof = _device_profile("train profile", lambda: gpu.run(
+                main, feed=feed, fetch_list=[cost], scope=scope)[0])
+        else:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            loss = gpu.run(main, feed=feed, fetch_list=[cost],
+                           scope=scope)[0]
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        losses.append(float(loss[0]))
+        assert np.isfinite(loss).all(), (step, loss)
+    counts = {kern.__name__: kern.launches for kern in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    n_ln = ops.count("layer_norm")
+    want = {"xent_forward": TRAIN_STEPS, "xent_backward": TRAIN_STEPS,
+            "layer_norm": n_ln * TRAIN_STEPS, "sdpa_short": 0,
+            "flash_attention": 0}
+    log(f"train: {TRAIN_STEPS} Adam steps at batch {TRAIN_BATCH}, losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + f"; launches {counts} "
+        f"(layer_norm: {n_ln} forward ops a step; their grads launch "
+        f"nothing)")
+    assert counts == want, (counts, want)
+    best = min(times[1:])
+    tokens = TRAIN_BATCH * TRAIN["seq_len"]
+    res = dict(batch=TRAIN_BATCH, losses=losses, warmup_step_s=times[0],
+               step_ms=best * 1e3, step_ms_all=[t * 1e3 for t in times],
+               target_tokens_per_s=tokens / best, peak_memory_bytes=peak,
+               loss_rel_err=loss_err, grad_errs=grad_errs,
+               moment1_errs=m1_errs, relu_flips=n_flips,
+               relu_flips_by_layer=flips_by_layer,
+               pinned_loss_rel_err=pin_loss, pinned_errs=pin_errs,
+               tf32_grad_errs=tf_grad, tf32_pinned_grad_errs=tf_pinned,
+               tf32_loss_err=tf_loss, profile=prof)
+    log(f"train: step {best * 1e3:.1f} ms (best of {len(times) - 1} after "
+        f"a {times[0]:.2f} s warm-up step), {tokens / best:.0f} target "
+        f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB on {card_name} "
+        f"({card})")
+    return counts, res
+
+
 def main():
     name, count, card = phase_device()
     log("phase build")
@@ -484,7 +876,9 @@ def main():
     log("phase kernels")
     entries = phase_kernels()
     log("phase slice")
-    launches, served = phase_slice(name, card)
+    served_launches, served = phase_slice(name, card)
+    log("phase train")
+    trained_launches, trained = phase_train(name, card)
     meta = {
         "layer_norm": ("paddle_tpu_torch/ops/kernels/csrc/layer_norm.cu",
                        "paddle_tpu/ops/pallas/layer_norm.py:64"),
@@ -493,18 +887,26 @@ def main():
         "flash_attention": (
             "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu",
             "paddle_tpu/ops/pallas/attention.py:104"),
+        "xent_forward": ("paddle_tpu_torch/ops/kernels/csrc/xent.cu",
+                         "paddle_tpu/ops/pallas/xent.py:75"),
+        "xent_backward": ("paddle_tpu_torch/ops/kernels/csrc/xent.cu",
+                          "paddle_tpu/ops/pallas/xent.py:123"),
     }
     line = []
     for kname, (src, replaces) in meta.items():
         e = entries[kname]
+        on_paths = dict(served=served_launches.get(kname, 0),
+                        trained=trained_launches.get(kname, 0))
+        assert sum(on_paths.values()) > 0, f"{kname} never launched"
         line.append(dict(name=kname, route="cuda", source=src,
-                         replaces=replaces, launches=launches[kname],
-                         max_abs_err=e["max_abs_err"], ms=e["ms"],
-                         plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
-                         bound_by=e["bound_by"],
+                         replaces=replaces, launches=sum(on_paths.values()),
+                         **on_paths, max_abs_err=e["max_abs_err"],
+                         ms=e["ms"], plain_ms=e["plain_ms"],
+                         bound_ms=e["bound_ms"], bound_by=e["bound_by"],
                          library_ms=e["library_ms"], shape=e["shape"],
                          ok=True))
     log(json.dumps({"served": served}))
+    log(json.dumps({"trained": trained}))
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name,

@@ -8,9 +8,14 @@ hot paths through CUDA kernels written for Hopper (ops/kernels/).
     import paddle_tpu_torch as fluid
     exe = fluid.Executor()              # CUDAPlace(0); raises with no card
     exe = fluid.Executor(fluid.CPUPlace())  # host, plain versions
+
+Training follows the reference's flow: build with ``layers``, call
+``fluid.optimizer.Adam(...).minimize(loss)`` (append_backward plus the
+optimizer ops), run the startup program, then ``exe.run(main, feed,
+fetch_list)`` once per step.
 """
 from . import ops  # noqa: F401  (registers every op)
-from . import layers, unique_name  # noqa: F401
+from . import backward, layers, optimizer, unique_name  # noqa: F401
 from .core.executor import CPUPlace, CUDAPlace, Executor  # noqa: F401
 from .core.program import (Program, default_main_program,  # noqa: F401
                            default_startup_program, program_guard)

@@ -131,6 +131,17 @@ def _state_inputs(block, feed_names):
     return state_in
 
 
+def _read_names(block, fetch_names):
+    """Names a run reads after they are written: op inputs, fetches and
+    persistables (committed to the scope). An op output outside this set
+    may go unmaterialized (``OpContext.output_needed``)."""
+    read = set(fetch_names)
+    for op in block.ops:
+        read.update(op.input_arg_names)
+    read.update(n for n, v in block.vars.items() if v.persistable)
+    return read
+
+
 class Executor:
     """fluid.Executor parity (reference python/paddle/fluid/executor.py:451)."""
 
@@ -171,13 +182,16 @@ class Executor:
             env[name] = self._committed(scope, name)
         # sampling ops seed from the program's seed (0 when unset)
         run_seed = program.random_seed or 0
+        needed = _read_names(block, fetch_names)
         written = []
         with torch.no_grad():
             for op in block.ops:
                 if op.type in _SKIP_OP_TYPES:
                     continue
-                run_op(op, env, self.device, run_seed)
+                run_op(op, env, self.device, run_seed, needed)
                 written.extend(op.output_arg_names)
+        # persistable writes (parameters and optimizer state updated by
+        # the optimizer ops, the step counter) replace the scope's values
         for name in dict.fromkeys(written):
             var = block._find_var_recursive(name)
             if var is not None and var.persistable:

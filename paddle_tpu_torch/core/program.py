@@ -17,6 +17,14 @@ import numpy as np
 
 from .types import VarType, as_datatype
 
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    """The name of `name`'s gradient (reference framework.py
+    grad_var_name)."""
+    return name + GRAD_SUFFIX
+
 
 class Variable:
     """A named slot in a Block (reference framework.py:327).
@@ -164,6 +172,12 @@ class Block:
     def has_var(self, name):
         return self._find_var_recursive(name) is not None
 
+    def var(self, name) -> Variable:
+        v = self._find_var_recursive(name)
+        if v is None:
+            raise KeyError(f"Variable {name!r} not found in block {self.idx}")
+        return v
+
     def _find_var_recursive(self, name):
         blk = self
         while blk is not None:
@@ -230,6 +244,9 @@ class Program:
         self.blocks.append(blk)
         self.current_block_idx = blk.idx
         return blk
+
+    def all_parameters(self) -> List[Variable]:
+        return list(self._parameters.values())
 
     def rollback(self):
         self.current_block_idx = self.current_block().parent_idx

@@ -1,17 +1,23 @@
-"""Op registry: forward kernels and build-time shape inference.
+"""Op registry: kernels, build-time shape inference and grad-op makers.
 
-Counterpart of the forward half of ``paddle_tpu/core/registry.py``
-(reference op_registry.h:197-270, shape_inference.h). A kernel is a
-plain function ``fn(ctx) -> {out_slot: tensor | [tensors]}`` over torch
-tensors. The Executor calls it once per op per run.
+Counterpart of ``paddle_tpu/core/registry.py`` (reference
+op_registry.h:197-270, shape_inference.h, grad_op_desc_maker.h). A
+kernel is a plain function ``fn(ctx) -> {out_slot: tensor | [tensors]}``
+over torch tensors. The Executor calls it once per op per run.
+
+Gradients are derived as in the JAX package: every differentiable op
+gets a ``<type>_grad`` op whose kernel recomputes the forward on the
+saved inputs under ``torch.func.vjp`` and applies the output
+cotangents; ops whose grads differ (sparse embedding, the fused
+softmax cross-entropy) register their own grad makers.
 
 Shape inference is generic, as in the JAX package: the kernel runs on
 ``device="meta"`` tensors at two probe batch sizes, and an output dim
 that moves with the probe is a batch dim (-1). A meta tensor has a
 shape and a dtype but no storage, so this launches nothing; every
 kernel wrapper answers a meta input with an empty output of the right
-shape. Grad makers and the sharding, index and acquire rule tables of
-the JAX registry are not part of this package yet.
+shape. The sharding, index and acquire rule tables of the JAX registry
+are not part of this package yet.
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from .program import Block, Operator
+from .program import GRAD_SUFFIX, Block, Operator, grad_var_name
 from .types import as_datatype, to_torch_dtype
 
 # placeholder input name meaning "no value" (registry.py EMPTY_VAR)
@@ -31,10 +37,13 @@ META = torch.device("meta")
 
 class OpInfo:
     def __init__(self, type: str, kernel: Callable,
-                 infer_shape: Optional[Callable] = None):
+                 infer_shape: Optional[Callable] = None,
+                 grad_maker=None, differentiable: bool = True):
         self.type = type
         self.kernel = kernel
         self.infer_shape = infer_shape
+        self.grad_maker = grad_maker
+        self.differentiable = differentiable
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
@@ -53,17 +62,27 @@ def is_registered(type: str) -> bool:
 
 class OpContext:
     """What a kernel sees: resolved inputs, attrs, the device that
-    creation ops allocate on, and the run's seed for sampling ops."""
+    creation ops allocate on, the run's seed for sampling ops, and which
+    outputs a later op or a fetch reads (``needed``; None: all)."""
 
-    __slots__ = ("op", "attrs", "_inputs", "device", "seed")
+    __slots__ = ("op", "attrs", "_inputs", "device", "seed", "_needed")
 
     def __init__(self, op: Operator, inputs: Dict[str, List],
-                 device: torch.device, seed: int = 0):
+                 device: torch.device, seed: int = 0, needed=None):
         self.op = op
         self.attrs = op.attrs
         self._inputs = inputs
         self.device = device
         self.seed = seed
+        self._needed = needed
+
+    def output_needed(self, slot) -> bool:
+        """Whether anything reads an output of `slot`. A kernel may skip
+        an unread output, as XLA dead-codes it in the JAX package (the
+        [N, V] Softmax of softmax_with_cross_entropy)."""
+        if self._needed is None:
+            return True
+        return any(n in self._needed for n in self.op.outputs.get(slot, ()))
 
     def input(self, slot, idx=0):
         vals = self._inputs.get(slot)
@@ -88,11 +107,14 @@ class OpContext:
         return g
 
 
-def register_op(type: str, *, infer_shape=None):
+def register_op(type: str, *, infer_shape=None, grad_maker=None,
+                differentiable=True):
     """Decorator: register ``fn(ctx) -> {out_slot: value|[values]}``."""
 
     def deco(fn):
-        _REGISTRY[type] = OpInfo(type, fn, infer_shape=infer_shape)
+        _REGISTRY[type] = OpInfo(
+            type, fn, infer_shape=infer_shape, grad_maker=grad_maker,
+            differentiable=differentiable)
         return fn
 
     return deco
@@ -119,8 +141,9 @@ def _normalize_outputs(op: Operator, raw) -> Dict[str, List]:
 
 
 def run_op(op: Operator, env: Dict, device: torch.device,
-           seed: int = 0) -> None:
-    """Execute one op against an env of name -> tensor; write outputs."""
+           seed: int = 0, needed=None) -> None:
+    """Execute one op against an env of name -> tensor; write outputs.
+    `needed`: the names a later op or a fetch reads (None: all)."""
     info = get_op_info(op.type)
     inputs: Dict[str, List] = {}
     for slot, names in op.inputs.items():
@@ -135,7 +158,7 @@ def run_op(op: Operator, env: Dict, device: torch.device,
             else:
                 vals.append(env[n])
         inputs[slot] = vals
-    ctx = OpContext(op, inputs, device, seed)
+    ctx = OpContext(op, inputs, device, seed, needed)
     outs = _normalize_outputs(op, info.kernel(ctx))
     for slot, names in op.outputs.items():
         vals = outs.get(slot)
@@ -205,3 +228,101 @@ def infer_shape_for_op(op: Operator, block: Block) -> None:
             var.shape = tuple(da if da == db else -1
                               for da, db in zip(ta.shape, tb.shape))
             var.dtype = as_datatype(ta.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Generic grad machinery: <type>_grad derived through torch.func.vjp.
+# ---------------------------------------------------------------------------
+def make_vjp_grad_kernel(fwd_type: str, fwd_kernel=None):
+    """The kernel of `<fwd_type>_grad` (registry.py:565 in the JAX
+    package).
+
+    The grad op's inputs are the forward inputs plus `<slot>@GRAD` for
+    each forward output slot; its outputs are `<slot>@GRAD` for each
+    differentiable forward input slot. The forward is recomputed inside
+    the vjp on the saved inputs. Integer and other non-float inputs get
+    no gradient. ``torch.func.vjp`` differentiates even under the
+    Executor's ``torch.no_grad()``: a function transform sets its own
+    grad mode. `fwd_kernel` recomputes the forward in place of the
+    registered kernel: an op whose kernel launches a CUDA kernel gives
+    its plain version here, whose vjp is the op's gradient.
+    """
+
+    def kernel(ctx: OpContext):
+        fwd = fwd_kernel or get_op_info(fwd_type).kernel
+        fwd_op = ctx.attr("__fwd_op__")
+        fwd_inputs = {s: ctx.inputs(s) for s in fwd_op.inputs}
+        diff_paths, diff_leaves, const = [], [], {}
+        for slot, vals in fwd_inputs.items():
+            for i, v in enumerate(vals):
+                if v is not None and v.is_floating_point():
+                    diff_paths.append((slot, i))
+                    diff_leaves.append(v)
+                else:
+                    const[(slot, i)] = v
+
+        def f(*leaves):
+            ins = {s: [None] * len(v) for s, v in fwd_inputs.items()}
+            for (s, i), v in const.items():
+                ins[s][i] = v
+            for (s, i), v in zip(diff_paths, leaves):
+                ins[s][i] = v
+            inner = OpContext(fwd_op, ins, ctx.device, ctx.seed)
+            return _normalize_outputs(fwd_op, fwd(inner))
+
+        outs, vjp_fn = torch.func.vjp(f, *diff_leaves)
+        cots = {}
+        for slot, vals in outs.items():
+            gs = ctx.inputs(slot + GRAD_SUFFIX)
+            slot_cots = []
+            for i, v in enumerate(vals):
+                g = gs[i] if i < len(gs) else None
+                if g is None or not v.is_floating_point():
+                    g = torch.zeros_like(v)
+                elif g.dtype != v.dtype:
+                    g = g.to(v.dtype)
+                slot_cots.append(g)
+            cots[slot] = slot_cots
+        grads = vjp_fn(cots)
+        result: Dict[str, List] = {}
+        for (slot, i), g in zip(diff_paths, grads):
+            names = fwd_op.inputs[slot]
+            result.setdefault(slot + GRAD_SUFFIX, [None] * len(names))[i] = g
+        return {s: v for s, v in result.items()
+                if any(x is not None for x in v)}
+
+    return kernel
+
+
+def default_grad_maker(op: Operator, no_grad_set=frozenset()):
+    """The grad op desc of `op` (reference grad_op_desc_maker.h): a list
+    of Operators, not yet appended to any block."""
+    info = get_op_info(op.type)
+    if not info.differentiable:
+        return []
+    grad_type = op.type + "_grad"
+    if not is_registered(grad_type):
+        register_op(grad_type, differentiable=False)(
+            make_vjp_grad_kernel(op.type))
+    inputs = {s: list(v) for s, v in op.inputs.items()}
+    for slot, names in op.outputs.items():
+        inputs[slot + GRAD_SUFFIX] = [grad_var_name(n) for n in names]
+    outputs = {}
+    for slot, names in op.inputs.items():
+        grads = [grad_var_name(n) for n in names]
+        if all(g in no_grad_set or n in no_grad_set
+               for g, n in zip(grads, names)):
+            continue
+        outputs[slot + GRAD_SUFFIX] = grads
+    if not outputs:
+        return []
+    attrs = dict(op.attrs)
+    attrs["__fwd_op__"] = op
+    return [Operator(op.block, grad_type, inputs, outputs, attrs)]
+
+
+def make_grad_ops(op: Operator, no_grad_set=frozenset()):
+    info = get_op_info(op.type)
+    if info.grad_maker is not None:
+        return info.grad_maker(op, no_grad_set)
+    return default_grad_maker(op, no_grad_set)

@@ -74,6 +74,20 @@ class LayerHelper:
             dtype=as_datatype(dtype) if dtype else None,
             stop_gradient=stop_gradient)
 
+    def create_global_variable(self, shape, dtype, persistable=False,
+                               name=None, stop_gradient=True):
+        return self.main_program.global_block.create_var(
+            name=name or unique_name.generate(f"{self.name}.global"),
+            shape=shape, dtype=as_datatype(dtype), persistable=persistable,
+            stop_gradient=stop_gradient)
+
+    def set_variable_initializer(self, var, initializer):
+        """Append `var`'s init op to the startup program."""
+        sblock = self.startup_program.global_block
+        svar = sblock.create_var(name=var.name, shape=var.shape,
+                                 dtype=var.dtype, persistable=True)
+        initializer(svar, sblock)
+
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         return self.block.append_op(type, inputs, outputs, attrs)
 

@@ -1,7 +1,9 @@
-"""The layers API of the serving slice (reference
-python/paddle/fluid/layers)."""
+"""The layers API of the port (reference python/paddle/fluid/layers)."""
 from .control_flow import *  # noqa: F401,F403
 from .io import data  # noqa: F401
+from .learning_rate_scheduler import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
+from .ops import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
-from . import control_flow, io, nn, tensor  # noqa: F401
+from . import (control_flow, io, learning_rate_scheduler, nn,  # noqa: F401
+               ops, tensor)

@@ -1,5 +1,5 @@
-"""NN layers (reference python/paddle/fluid/layers/nn.py; the serving
-slice's subset of paddle_tpu/layers/nn.py). Each function appends ops
+"""NN layers (reference python/paddle/fluid/layers/nn.py; the port's
+subset of paddle_tpu/layers/nn.py). Each function appends ops
 to the default main program through LayerHelper."""
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ __all__ = [
     "matmul", "reshape", "transpose", "split", "unsqueeze", "scale",
     "cast", "argmax", "reduce_sum", "increment", "elementwise_add",
     "elementwise_sub", "elementwise_mul", "elementwise_max",
-    "elementwise_min",
+    "elementwise_min", "softmax_with_cross_entropy", "mean",
 ]
 
 
@@ -22,8 +22,8 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
        act=None, is_test=False, name=None):
     """Fully-connected (reference layers/nn.py fc): out = act(X W + b)."""
     if isinstance(input, (list, tuple)):
-        raise NotImplementedError("fc over several inputs needs the sum "
-                                  "op, which this package does not have")
+        raise NotImplementedError("fc over several inputs is not ported "
+                                  "yet")
     helper = LayerHelper("fc", input=input, param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
     in_features = int(np.prod(input.shape[num_flatten_dims:]))
@@ -89,6 +89,37 @@ def attention(q, k, v, causal=False, scale=None, dropout_rate=0.0,
                      {"causal": causal, "scale": scale,
                       "dropout_rate": dropout_rate,
                       "is_test": is_test, "layout": layout})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1,
+                               label_smooth_eps=0.0):
+    """Fused softmax + cross-entropy over the last axis; Loss is
+    [..., 1]. Hard labels ([..., 1] int) go to the xent kernels."""
+    if axis not in (-1, len(logits.shape) - 1):
+        raise NotImplementedError(
+            "softmax_with_cross_entropy: only the last axis")
+    helper = LayerHelper("softmax_with_cross_entropy", input=logits)
+    loss = helper.create_variable_for_type_inference(logits.dtype)
+    sm = helper.create_variable_for_type_inference(logits.dtype)
+    helper.append_op("softmax_with_cross_entropy",
+                     {"Logits": logits, "Label": label},
+                     {"Loss": loss, "Softmax": sm},
+                     {"soft_label": soft_label,
+                      "ignore_index": ignore_index,
+                      "label_smooth_eps": label_smooth_eps})
+    if return_softmax:
+        return loss, sm
+    return loss
+
+
+def mean(x, name=None):
+    """The mean of all elements, shape [1]."""
+    helper = LayerHelper("mean", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("mean", {"X": x}, {"Out": out}, {})
     return out
 
 

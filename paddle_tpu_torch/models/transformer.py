@@ -1,11 +1,14 @@
-"""Transformer base building blocks, inference branches only (the port's
-counterpart of paddle_tpu/models/transformer.py; reference
+"""Transformer base (the port's counterpart of
+paddle_tpu/models/transformer.py; reference
 tests/unittests/dist_transformer.py and the WMT en-de base config:
-d_model=512, 8 heads, 6+6 layers, ffn 2048).
+d_model=512, 8 heads, 6+6 layers, ffn 2048, Adam + noam decay).
 
-Parameter names are the JAX package's explicit ones, so weights carry
-over between the two packages by name. The fused attention/ffn block
-path and the training ``build_program`` belong to later slices.
+The building blocks serve both the decode programs (is_test=True) and
+the training program ``build_program``. Parameter names are the JAX
+package's explicit ones, so weights carry over between the two packages
+by name. Dropout is not ported yet: a nonzero dropout rate outside
+is_test raises rather than train without it. The fused attention/ffn
+block path and the recompute option belong to later slices.
 """
 from __future__ import annotations
 
@@ -35,10 +38,17 @@ def _attn_proj_attr(name, tag, d_model):
         initializer=XavierInitializer(fan_in=d_model, fan_out=d_model))
 
 
+def _refuse_dropout(dropout_rate, is_test):
+    if dropout_rate and not is_test:
+        raise NotImplementedError(
+            f"dropout_rate={dropout_rate}: dropout is not ported yet (it "
+            f"comes with the bf16-AMP-and-dropout slice); train with "
+            f"dropout_rate=0.0")
+
+
 def multi_head_attention(q_in, kv_in, d_model, n_heads, dropout_rate,
-                         causal=False, is_test=True, name=None):
-    if not is_test:
-        raise NotImplementedError("training attention is a later slice")
+                         causal=False, is_test=False, name=None):
+    _refuse_dropout(dropout_rate, is_test)
     head_dim = d_model // n_heads
 
     def _proj_attr(tag):
@@ -68,6 +78,7 @@ def multi_head_attention(q_in, kv_in, d_model, n_heads, dropout_rate,
 
 
 def _ffn(x, d_model, d_inner, dropout_rate, is_test, name=None):
+    _refuse_dropout(dropout_rate, is_test)
     h = layers.fc(x, d_inner, num_flatten_dims=2, act="relu",
                   param_attr=f"{name}_fc1.w" if name else None,
                   bias_attr=f"{name}_fc1.b" if name else None)
@@ -77,6 +88,7 @@ def _ffn(x, d_model, d_inner, dropout_rate, is_test, name=None):
 
 
 def _add_norm(x, residual, dropout_rate, is_test, name=None):
+    _refuse_dropout(dropout_rate, is_test)
     return layers.layer_norm(layers.elementwise_add(x, residual),
                              begin_norm_axis=2,
                              param_attr=f"{name}_ln.w" if name else None,
@@ -96,8 +108,27 @@ def encoder_layer(x, d_model, n_heads, d_inner, dropout_rate, is_test,
                      name=f"{name}_b" if name else None)
 
 
+def decoder_layer(x, enc_out, d_model, n_heads, d_inner, dropout_rate,
+                  is_test, name=None):
+    self_attn = multi_head_attention(x, x, d_model, n_heads, dropout_rate,
+                                     causal=True, is_test=is_test,
+                                     name=f"{name}_self" if name else None)
+    x = _add_norm(self_attn, x, dropout_rate, is_test,
+                  name=f"{name}_a" if name else None)
+    cross = multi_head_attention(x, enc_out, d_model, n_heads, dropout_rate,
+                                 is_test=is_test,
+                                 name=f"{name}_cross" if name else None)
+    x = _add_norm(cross, x, dropout_rate, is_test,
+                  name=f"{name}_b" if name else None)
+    ffn = _ffn(x, d_model, d_inner, dropout_rate, is_test,
+               name=f"{name}" if name else None)
+    return _add_norm(ffn, x, dropout_rate, is_test,
+                     name=f"{name}_c" if name else None)
+
+
 def _embed(ids, vocab_size, d_model, max_len, dropout_rate, is_test,
            emb_name):
+    _refuse_dropout(dropout_rate, is_test)
     emb = layers.embedding(ids, size=[vocab_size, d_model],
                            param_attr=ParamAttr(name=emb_name))
     emb = layers.scale(emb, scale=d_model ** 0.5)
@@ -106,3 +137,61 @@ def _embed(ids, vocab_size, d_model, max_len, dropout_rate, is_test,
         else max_len
     pos = layers.assign(pos_table[:seq_len])
     return layers.elementwise_add(emb, pos, axis=1)
+
+
+def transformer(src_ids, tgt_ids, label, src_vocab=30000, tgt_vocab=30000,
+                max_len=256, d_model=512, n_heads=8, n_layers=6,
+                d_inner=2048, dropout_rate=0.1, is_test=False,
+                label_smooth_eps=0.1, name_prefix=""):
+    """Returns (avg_cost, logits). src_ids/tgt_ids: [B,T] int64; label:
+    [B,T] int64 next-token targets. ``name_prefix`` prefixes every
+    parameter name."""
+    p = name_prefix
+    enc = _embed(src_ids, src_vocab, d_model, max_len, dropout_rate,
+                 is_test, f"{p}src_word_emb")
+    for li in range(n_layers):
+        enc = encoder_layer(enc, d_model, n_heads, d_inner, dropout_rate,
+                            is_test, name=f"{p}enc{li}")
+    dec = _embed(tgt_ids, tgt_vocab, d_model, max_len, dropout_rate,
+                 is_test, f"{p}tgt_word_emb")
+    for li in range(n_layers):
+        dec = decoder_layer(dec, enc, d_model, n_heads, d_inner,
+                            dropout_rate, is_test, name=f"{p}dec{li}")
+    logits = layers.fc(dec, tgt_vocab, num_flatten_dims=2, bias_attr=False,
+                       param_attr=f"{p}logits.w")
+    # smoothing fused into the loss: never an [B,T,V] one-hot
+    cost = layers.softmax_with_cross_entropy(
+        logits, layers.unsqueeze(label, [2]),
+        label_smooth_eps=label_smooth_eps)
+    return layers.mean(cost), logits
+
+
+def build_program(batch_size=None, seq_len=64, d_model=512, n_heads=8,
+                  n_layers=6, d_inner=2048, vocab=30000, learning_rate=2.0,
+                  warmup_steps=4000, with_optimizer=True, dropout_rate=0.1,
+                  name_prefix=""):
+    """(main, startup, avg_cost): the training program, fed src_ids,
+    tgt_ids and label ([B, seq_len] int64), with Adam (beta1 0.9, beta2
+    0.997, eps 1e-9) under noam_decay(d_model, warmup_steps). As in the
+    JAX package, noam_decay sets the rate and `learning_rate` is not
+    read."""
+    import paddle_tpu_torch as fluid
+
+    main = fluid.Program()
+    startup = fluid.Program()
+    with fluid.program_guard(main, startup):
+        src = layers.data("src_ids", shape=[seq_len], dtype="int64")
+        tgt = layers.data("tgt_ids", shape=[seq_len], dtype="int64")
+        label = layers.data("label", shape=[seq_len], dtype="int64")
+        avg_cost, _ = transformer(
+            src, tgt, label, src_vocab=vocab, tgt_vocab=vocab,
+            max_len=max(seq_len, 256), d_model=d_model, n_heads=n_heads,
+            n_layers=n_layers, d_inner=d_inner, dropout_rate=dropout_rate,
+            name_prefix=name_prefix)
+        if with_optimizer:
+            lr = layers.learning_rate_scheduler.noam_decay(d_model,
+                                                           warmup_steps)
+            opt = fluid.optimizer.Adam(learning_rate=lr, beta1=0.9,
+                                       beta2=0.997, epsilon=1e-9)
+            opt.minimize(avg_cost)
+    return main, startup, avg_cost

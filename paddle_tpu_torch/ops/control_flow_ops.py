@@ -15,7 +15,7 @@ def _no_infer(op, block):
     return None
 
 
-@register_op("while", infer_shape=_no_infer)
+@register_op("while", infer_shape=_no_infer, differentiable=False)
 def while_op(ctx):
     """inputs: Condition (bool, carried: the body must update it),
     X = externals (read-only), Init = carried initial values.

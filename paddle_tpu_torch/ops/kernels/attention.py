@@ -5,7 +5,9 @@
 Both take q, k, v as [B, H, T, D] fp32. ``sdpa_short`` holds each query
 tile's whole score row on chip (tq == tk, T <= 512, d in {64, 128});
 ``flash_attention`` streams keys with an online softmax (any tq, tk;
-d in {64, 128, 256}), causal masking bottom-right aligned.
+d in {64, 128, 256}), causal masking bottom-right aligned. Their
+backward kernels are not ported yet, so on the card differentiating
+either raises (``ForwardOnly``).
 """
 from __future__ import annotations
 
@@ -59,6 +61,29 @@ def _check_qkv(name, q, k, v, head_dims):
         raise ValueError(f"{name}: head dim {q.shape[3]} not in {head_dims}")
 
 
+class ForwardOnly(torch.autograd.Function):
+    """A forward kernel whose backward kernel is not ported yet. Its
+    output is written through ``data_ptr()`` and has no graph, so
+    differentiating it would give missing or zero gradients without an
+    error; this Function raises instead."""
+
+    @staticmethod
+    def forward(launch, q, k, v, scale, causal):
+        return launch(q, k, v, scale, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.name = inputs[0].__name__.strip("_").removesuffix("_launch")
+
+    @staticmethod
+    def backward(ctx, dout):
+        raise NotImplementedError(
+            f"{ctx.name}: the attention backward kernels (#3/#4 flash "
+            f"dq and dk/dv, #6 sdpa_short) are not ported yet; training "
+            f"on the card at T > 256 waits for the long-sequence "
+            f"training slice")
+
+
 def sdpa_short(q, k, v, scale, causal=False):
     """q,k,v: [B,H,T,D] (same T) -> [B,H,T,D]."""
     if q.device.type == "meta":
@@ -67,6 +92,10 @@ def sdpa_short(q, k, v, scale, causal=False):
         return sdpa_short_plain(q, k, v, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"sdpa_short: no kernel for device {q.device}")
+    return ForwardOnly.apply(_sdpa_short_launch, q, k, v, scale, causal)
+
+
+def _sdpa_short_launch(q, k, v, scale, causal):
     _check_qkv("sdpa_short", q, k, v, SDPA_HEAD_DIMS)
     b, h, t, d = q.shape
     if k.shape[2] != t or not 1 <= t <= SDPA_MAX_T:
@@ -89,6 +118,11 @@ def flash_attention(q, k, v, scale, causal=False):
         return flash_attention_plain(q, k, v, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return ForwardOnly.apply(_flash_attention_launch, q, k, v, scale,
+                             causal)
+
+
+def _flash_attention_launch(q, k, v, scale, causal):
     _check_qkv("flash_attention", q, k, v, FLASH_HEAD_DIMS)
     b, h, tq, d = q.shape
     out = torch.empty_like(q)

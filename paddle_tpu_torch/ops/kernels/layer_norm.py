@@ -5,7 +5,9 @@ all three kernels of the slice share one build route).
 
 Both return ``(y, mean, var)``: y in x's dtype, and the fp32 per-row
 mean and (biased) variance that the layer_norm op outputs as Mean and
-Variance.
+Variance. On the card the kernel is differentiable: ``LayerNormFn``
+gives it the plain version's vjp as its backward, as the JAX package
+does.
 """
 from __future__ import annotations
 
@@ -41,16 +43,9 @@ def _kernel():
     return fn
 
 
-def layer_norm(x, scale, bias, eps=1e-5):
-    """x [N,D] fp32 or bf16; scale/bias [D] of x's dtype."""
+def _launch(x, scale, bias, eps):
+    """Checks the CUDA inputs and launches the kernel."""
     n, d = x.shape
-    if x.device.type == "meta":
-        stat = torch.empty(n, dtype=torch.float32, device=x.device)
-        return torch.empty_like(x), stat, torch.empty_like(stat)
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, scale, bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm: no kernel for device {x.device}")
     require_cuda_inputs("layer_norm", (x, scale, bias),
                         (torch.float32, torch.bfloat16))
     if scale.dtype != x.dtype or bias.dtype != x.dtype \
@@ -71,6 +66,47 @@ def layer_norm(x, scale, bias, eps=1e-5):
     layer_norm.launches += 1
     check_launch("layer_norm", err)
     return y, mean, var
+
+
+class LayerNormFn(torch.autograd.Function):
+    """The kernel's forward with the plain version's vjp as its backward
+    (the JAX package's ``custom_vjp`` around ``_ln_impl``, whose backward
+    is ``jax.vjp`` of ``_ln_ref``). Written with ``setup_context`` so
+    that ``torch.func.vjp`` can differentiate through it: a vjp through
+    the bare launch would see an output with no graph. The layer_norm
+    grad op does not come through here; it takes the plain version's
+    vjp directly and launches nothing."""
+
+    @staticmethod
+    def forward(launch, x, scale, bias, eps):
+        return launch(x, scale, bias, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, x, scale, bias, eps = inputs
+        ctx.save_for_backward(x, scale, bias)
+        ctx.eps = eps
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        x, scale, bias = ctx.saved_tensors
+        _, vjp = torch.func.vjp(
+            lambda a, s, b: layer_norm_plain(a, s, b, ctx.eps), x, scale,
+            bias)
+        return (None, *vjp((dy, dmean, dvar)), None)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """x [N,D] fp32 or bf16; scale/bias [D] of x's dtype."""
+    n, d = x.shape
+    if x.device.type == "meta":
+        stat = torch.empty(n, dtype=torch.float32, device=x.device)
+        return torch.empty_like(x), stat, torch.empty_like(stat)
+    if x.device.type == "cpu":
+        return layer_norm_plain(x, scale, bias, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm: no kernel for device {x.device}")
+    return LayerNormFn.apply(_launch, x, scale, bias, eps)
 
 
 layer_norm.launches = 0

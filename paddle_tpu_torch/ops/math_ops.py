@@ -1,8 +1,8 @@
 """Dense math, elementwise ops with fluid axis broadcasting, relu,
-reduce_sum and comparisons: the serving slice's subset of
+rsqrt, reduce_sum, mean and comparisons: the port's subset of
 ``paddle_tpu/ops/math_ops.py`` (reference mul_op.cc, matmul_op.cc,
-elementwise_op_function.h, activation_op.cc, reduce_ops/,
-compare_op.cc).
+elementwise_op_function.h, activation_op.cc, reduce_ops/, mean_op.cc,
+compare_op.cc). Their grads come from the generic vjp maker.
 
 The matrix products go to ``torch.matmul``, as the JAX package leaves
 them to XLA; TF32 is off wherever the port runs on the card.
@@ -84,6 +84,11 @@ def relu(ctx):
     return torch.relu(ctx.input("X"))
 
 
+@register_op("rsqrt")
+def rsqrt(ctx):
+    return torch.rsqrt(ctx.input("X"))
+
+
 @register_op("reduce_sum")
 def reduce_sum(ctx):
     x = ctx.input("X")
@@ -94,11 +99,17 @@ def reduce_sum(ctx):
     return torch.sum(x, dim=dims, keepdim=ctx.attr("keep_dim", False))
 
 
+@register_op("mean")
+def mean(ctx):
+    """Output shape [1], as fluid's mean_op.cc."""
+    return torch.mean(ctx.input("X")).reshape(1)
+
+
 def _cmp(fn, type_name):
     def kernel(ctx):
         return fn(ctx.input("X"), ctx.input("Y"))
 
-    register_op(type_name)(kernel)
+    register_op(type_name, differentiable=False)(kernel)
 
 
 _cmp(torch.lt, "less_than")

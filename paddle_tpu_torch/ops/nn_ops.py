@@ -1,26 +1,30 @@
-"""NN ops of the serving slice: layer_norm, softmax, lookup_table and
-attention (the subset of ``paddle_tpu/ops/nn_ops.py`` the path runs;
-reference layer_norm_op.cc, softmax_op.cc, lookup_table_op.cc).
+"""NN ops of the serving and training slices: layer_norm, softmax,
+softmax_with_cross_entropy, lookup_table and attention (the subset of
+``paddle_tpu/ops/nn_ops.py`` the paths run; reference layer_norm_op.cc,
+softmax_op.cc, softmax_with_cross_entropy_op.cc, lookup_table_op.cc).
 
-layer_norm and attention route to the hand-written kernels in
-``ops/kernels``; each kernel wrapper launches on a CUDA tensor and runs
-its plain version on a CPU one.
+layer_norm, attention and softmax_with_cross_entropy (hard labels) route
+to the hand-written kernels in ``ops/kernels``; each kernel wrapper
+launches on a CUDA tensor and runs its plain version on a CPU one.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core.registry import register_op
+from ..core.program import Operator, grad_var_name
+from ..core.registry import make_vjp_grad_kernel, register_op
 from .kernels import attention as K_attn
 from .kernels import layer_norm as K_ln
 from .kernels import reference_attention
+from .kernels import xent as K_xent
 
 
-@register_op("layer_norm")
-def layer_norm(ctx):
+def _layer_norm(ctx, affine):
     """Statistics in fp32 whatever the input dtype (nn_ops.py:410 in the
-    JAX package); Mean and Variance are [lead]."""
+    JAX package); Mean and Variance are [lead]. `affine` computes the
+    rows when both Scale and Bias are given: the kernel wrapper or its
+    plain version."""
     x = ctx.input("X")
     eps = ctx.attr("epsilon", 1e-5)
     begin = ctx.attr("begin_norm_axis", 1)
@@ -28,8 +32,8 @@ def layer_norm(ctx):
     x2 = x.reshape(lead, -1)
     scale, bias = ctx.input("Scale"), ctx.input("Bias")
     if scale is not None and bias is not None:
-        y, mean, var = K_ln.layer_norm(x2.contiguous(), scale.reshape(-1),
-                                       bias.reshape(-1), eps)
+        y, mean, var = affine(x2.contiguous(), scale.reshape(-1),
+                              bias.reshape(-1), eps)
         return {"Y": y.reshape(x.shape), "Mean": mean, "Variance": var}
     x2f = x2.float()
     mean = x2f.mean(dim=1, keepdim=True)
@@ -43,12 +47,53 @@ def layer_norm(ctx):
             "Mean": mean.reshape(lead), "Variance": var.reshape(lead)}
 
 
+@register_op("layer_norm")
+def layer_norm(ctx):
+    return _layer_norm(ctx, K_ln.layer_norm)
+
+
+# The grad recomputes the forward with the plain version and takes its
+# vjp, as the JAX package's custom_vjp does: a vjp through the kernel
+# would launch it and throw its output away.
+register_op("layer_norm_grad", differentiable=False)(make_vjp_grad_kernel(
+    "layer_norm", lambda ctx: _layer_norm(ctx, K_ln.layer_norm_plain)))
+
+
 @register_op("softmax")
 def softmax(ctx):
     return torch.softmax(ctx.input("X"), dim=ctx.attr("axis", -1))
 
 
-@register_op("lookup_table")
+def _lookup_grad_maker(op, no_grad_set=frozenset()):
+    """The embedding grad is a scatter-add into a dense [V, D] grad
+    (nn_ops.py `_lookup_grad_maker` in the JAX package)."""
+    w = op.inputs["W"][0]
+    if w in no_grad_set:
+        return []
+    inputs = {"W": op.inputs["W"], "Ids": op.inputs["Ids"],
+              "Out@GRAD": [grad_var_name(n) for n in op.outputs["Out"]]}
+    return [Operator(op.block, "lookup_table_grad", inputs,
+                     {"W@GRAD": [grad_var_name(w)]}, dict(op.attrs))]
+
+
+@register_op("lookup_table_grad", differentiable=False)
+def _lookup_grad_kernel(ctx):
+    w = ctx.input("W")
+    ids = ctx.input("Ids")
+    dy = ctx.input("Out@GRAD")
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids[..., 0]
+    flat_ids = ids.reshape(-1).long()
+    flat_dy = dy.reshape(-1, w.shape[-1])
+    padding_idx = ctx.attr("padding_idx", -1)
+    if padding_idx is not None and padding_idx >= 0:
+        flat_dy = flat_dy * (flat_ids != padding_idx).to(
+            flat_dy.dtype)[:, None]
+    return {"W@GRAD": torch.zeros_like(w).index_add_(0, flat_ids,
+                                                     flat_dy.to(w.dtype))}
+
+
+@register_op("lookup_table", grad_maker=_lookup_grad_maker)
 def lookup_table(ctx):
     w = ctx.input("W")
     ids = ctx.input("Ids")
@@ -58,6 +103,84 @@ def lookup_table(ctx):
     padding_idx = ctx.attr("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = out * (ids != padding_idx).to(w.dtype)[..., None]
+    return out
+
+
+def _hard_labels(logits, label):
+    """[..., V] logits and [..., 1] or [...] labels as [N, V] and [N]."""
+    lab = label[..., 0] if label.dim() == logits.dim() else label
+    v = logits.shape[-1]
+    return logits.reshape(-1, v).contiguous(), lab.reshape(-1)
+
+
+def _swce_grad_maker(op, no_grad_set=frozenset()):
+    """The grad is recomputed from the saved Logits, so the forward's
+    Softmax output need not exist (nn_ops.py `_swce_grad_maker` in the
+    JAX package)."""
+    inputs = {"Logits": op.inputs["Logits"], "Label": op.inputs["Label"],
+              "Loss@GRAD": [grad_var_name(n) for n in op.outputs["Loss"]]}
+    outputs = {"Logits@GRAD": [grad_var_name(n)
+                               for n in op.inputs["Logits"]]}
+    return [Operator(op.block, "softmax_with_cross_entropy_grad", inputs,
+                     outputs, dict(op.attrs))]
+
+
+@register_op("softmax_with_cross_entropy_grad", differentiable=False)
+def _swce_grad_kernel(ctx):
+    """(softmax - target)·dloss in the logits' dtype. Hard labels go to
+    the xent backward kernel; soft labels stay plain PyTorch, as they
+    stay plain jnp in the JAX package."""
+    logits = ctx.input("Logits")
+    label = ctx.input("Label")
+    dloss = ctx.input("Loss@GRAD")
+    if dloss is None:
+        dloss = torch.ones(logits.shape[:-1] + (1,), dtype=torch.float32,
+                           device=logits.device)
+    eps = ctx.attr("label_smooth_eps", 0.0)
+    if not ctx.attr("soft_label", False):
+        l2, lab1 = _hard_labels(logits, label)
+        dx = K_xent.xent_backward(l2, lab1, dloss.reshape(-1), eps=eps,
+                                  ignore_index=ctx.attr("ignore_index",
+                                                        -100))
+        return {"Logits@GRAD": dx.reshape(logits.shape)}
+    lf = logits.float()
+    vocab = lf.shape[-1]
+    target = label.float()
+    if eps:
+        target = target * (1.0 - eps) + eps / vocab
+    d = dloss.float()
+    grad = torch.softmax(lf, dim=-1) * d - target * d
+    return {"Logits@GRAD": grad.to(logits.dtype)}
+
+
+@register_op("softmax_with_cross_entropy", grad_maker=_swce_grad_maker)
+def softmax_with_cross_entropy(ctx):
+    """loss = lse(logits) - logits[label], with label smoothing and
+    ignore_index; Loss is [..., 1]. Hard labels go to the xent forward
+    kernel. The Softmax output, an [N, V] fp32 buffer, is computed only
+    when something reads it: the JAX package leaves it to XLA to
+    dead-code, and at Transformer-base's [16384, 32000] it would be
+    2.1 GB a step."""
+    logits = ctx.input("Logits")
+    label = ctx.input("Label")
+    eps = ctx.attr("label_smooth_eps", 0.0)
+    lead = logits.shape[:-1] + (1,)
+    if not ctx.attr("soft_label", False):
+        l2, lab1 = _hard_labels(logits, label)
+        loss, lse = K_xent.xent_forward(
+            l2, lab1, eps=eps, ignore_index=ctx.attr("ignore_index", -100))
+        out = {"Loss": loss.reshape(lead)}
+        if ctx.output_needed("Softmax"):
+            out["Softmax"] = torch.exp(logits.float() - lse.reshape(lead))
+        return out
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1, keepdim=True)
+    loss = lse - torch.sum(label.float() * lf, dim=-1, keepdim=True)
+    if eps:
+        loss = (1.0 - eps) * loss + eps * (lse - lf.mean(-1, keepdim=True))
+    out = {"Loss": loss}
+    if ctx.output_needed("Softmax"):
+        out["Softmax"] = torch.exp(lf - lse)
     return out
 
 
@@ -94,15 +217,18 @@ def _route(qh, kh, vh):
 @register_op("attention")
 def attention(ctx):
     """layout attr: 'bhtd' (default) or 'bthd' ([B,T,H,D] straight from
-    the head-split reshape). Inference only: a nonzero dropout rate
-    outside is_test is refused until the training slice."""
+    the head-split reshape). A nonzero dropout rate outside is_test is
+    refused: dropout comes with the AMP-and-dropout slice. On the card
+    the grad of a kernel-routed call (T > 256) raises until the
+    attention backward kernels are ported."""
     q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
     scale = ctx.attr("scale", None)
     causal = ctx.attr("causal", False)
     layout = ctx.attr("layout", "bhtd")
     if ctx.attr("dropout_rate", 0.0) and not ctx.attr("is_test", False):
         raise NotImplementedError(
-            "attention: dropout is part of the training slice")
+            "attention: dropout is not ported yet (it comes with the "
+            "bf16-AMP-and-dropout slice); pass dropout_rate=0.0")
     if scale is None:
         scale = q.shape[-1] ** -0.5
 

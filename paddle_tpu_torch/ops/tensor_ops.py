@@ -1,7 +1,8 @@
-"""Tensor creation / manipulation ops: the serving slice's subset of
+"""Tensor creation / manipulation ops: the port's subset of
 ``paddle_tpu/ops/tensor_ops.py`` (reference fill_constant_op.cc,
-uniform_random_op.cc, reshape_op.cc, transpose_op.cc, split_op.cc,
-cast_op.cc, assign_op.cc, scale_op.cc, range_op.cc, arg_max, ...).
+fill_any_like_op.cc, uniform_random_op.cc, reshape_op.cc,
+transpose_op.cc, split_op.cc, sum_op.cc, cast_op.cc, assign_op.cc,
+scale_op.cc, range_op.cc, arg_max, ...).
 
 Creation ops allocate on ``ctx.device``; at build time that is the meta
 device, so shape inference allocates nothing.
@@ -15,7 +16,7 @@ from ..core.registry import register_op
 from ..core.types import to_torch_dtype
 
 
-@register_op("fill_constant")
+@register_op("fill_constant", differentiable=False)
 def fill_constant(ctx):
     shape = [int(s) for s in ctx.attr("shape", [1])]
     return torch.full(shape, ctx.attr("value", 0.0),
@@ -23,7 +24,14 @@ def fill_constant(ctx):
                       device=ctx.device)
 
 
-@register_op("uniform_random")
+@register_op("fill_any_like", differentiable=False)
+def fill_any_like(ctx):
+    """The loss-grad seed of append_backward: ones like the loss."""
+    x = ctx.input("X")
+    return torch.full_like(x, ctx.attr("value", 0.0))
+
+
+@register_op("uniform_random", differentiable=False)
 def uniform_random(ctx):
     """Draws on the CPU from the op's seeded generator, then moves:
     the same seed gives the same weights on every device. A nonzero
@@ -48,7 +56,7 @@ def assign(ctx):
     return ctx.input("X")
 
 
-@register_op("assign_value")
+@register_op("assign_value", differentiable=False)
 def assign_value(ctx):
     vals = np.asarray(ctx.attr("values"))
     dtype = to_torch_dtype(ctx.attr("dtype", "float32"))
@@ -131,7 +139,18 @@ def split(ctx):
     return {"Out": list(torch.split(x, sections, dim=axis))}
 
 
-@register_op("range")
+@register_op("sum")
+def sum_op(ctx):
+    """Elementwise sum of the X list: how append_backward adds the
+    partial grads of a var read by several ops."""
+    xs = [x for x in ctx.inputs("X") if x is not None]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return out
+
+
+@register_op("range", differentiable=False)
 def range_op(ctx):
     """Static bounds from attrs, computed on the host in float64 and
     cast to the declared dtype (as the JAX package does)."""
@@ -146,12 +165,12 @@ def range_op(ctx):
     return torch.from_numpy(vals).to(device=ctx.device, dtype=dtype)
 
 
-@register_op("arg_max")
+@register_op("arg_max", differentiable=False)
 def arg_max(ctx):
     return torch.argmax(ctx.input("X"), dim=ctx.attr("axis", -1))
 
 
-@register_op("fill_constant_batch_size_like")
+@register_op("fill_constant_batch_size_like", differentiable=False)
 def fill_constant_batch_size_like(ctx):
     ref = ctx.input("Input")
     shape = list(ctx.attr("shape"))

@@ -4,6 +4,12 @@ The port does not reproduce the JAX package's initializer RNG. A parity
 run instead initializes the JAX program, hands its parameters over by
 name (every parameter of the decode program has an explicit name), and
 runs both. numpy is the only format the two packages share.
+
+The same two functions carry a training program's optimizer state (Adam
+moments, beta powers, the learning-rate step counter): every
+persistable of its startup program. Their names (``<param>_moment1_0``,
+...) agree in both packages when each builds under a fresh
+``unique_name.guard()``.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ def load_numpy_params(scope: Scope, params: Dict[str, np.ndarray],
     if hasattr(device, "device"):
         device = device.device()
     for name, arr in params.items():
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        t = torch.from_numpy(np.array(arr))  # a copy the scope owns
         scope._set(name, t.to(device))
 
 

@@ -45,6 +45,12 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "import paddle_tpu_torch.inference.serving\n"
         "import paddle_tpu_torch.models.decode_engine\n"
         "import paddle_tpu_torch.ops.kernels.build\n"
+        "import paddle_tpu_torch.ops.kernels.xent\n"
+        "import paddle_tpu_torch.ops.optimizer_ops\n"
+        "import paddle_tpu_torch.backward\n"
+        "import paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.layers.learning_rate_scheduler\n"
+        "import paddle_tpu_torch.models.transformer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"

@@ -16,8 +16,11 @@ import torch
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import attention as KA
 from paddle_tpu_torch.ops.kernels import layer_norm as KL
+from paddle_tpu_torch.ops.kernels import xent as KX
 
 ATOL = 1e-5
+# the reference's own xent test limit (tests/test_pallas_attention.py)
+XENT_TOL = dict(rtol=2e-6, atol=2e-6)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,6 +117,50 @@ def test_reference_attention_matches_paddle_tpu(jax_ref, tq, tk, causal):
                                    rtol=0, atol=ATOL)
 
 
+def _xent_inputs(n, v, seed):
+    r = np.random.RandomState(seed)
+    x = (r.randn(n, v) * 2).astype("float32")
+    lab = r.randint(0, v, (n,)).astype("int64")
+    lab[::7] = -100  # ignored rows
+    g = r.rand(n).astype("float32")
+    return x, lab, g
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_xent_plain_matches_pallas_interpret(jax_ref, eps):
+    from paddle_tpu.ops.pallas import attention as jattn
+    from paddle_tpu.ops.pallas import xent as jxent
+
+    x, lab, g = _xent_inputs(64, 256, seed=17)
+    jattn.force_interpret(True)
+    try:
+        wloss, wlse = jxent.xent_forward(x, lab.astype("int32"), eps=eps)
+        wdx = jxent.xent_backward(x, lab.astype("int32"), g, eps=eps)
+    finally:
+        jattn.force_interpret(False)
+    tx, tlab, tg = map(torch.from_numpy, (x, lab, g))
+    loss, lse = KX.xent_forward_plain(tx, tlab, eps)
+    dx = KX.xent_backward_plain(tx, tlab, tg, eps)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(wloss), **XENT_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(wlse), **XENT_TOL)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(wdx), **XENT_TOL)
+    assert (loss.numpy()[lab == -100] == 0).all()
+    assert (dx.numpy()[lab == -100] == 0).all()
+
+
+def test_xent_plain_out_of_range_label_picks_zero():
+    """A label outside [0, V) matches no column (the TPU kernel's
+    `cols == lab` compare): the loss is lse, the grad is softmax·g."""
+    x = torch.from_numpy(_randn(3, 10, seed=18))
+    lab = torch.tensor([2, 10, -5])
+    loss, lse = KX.xent_forward_plain(x, lab)
+    torch.testing.assert_close(loss[1:], lse[1:], rtol=0, atol=0)
+    dx = KX.xent_backward_plain(x, lab, torch.ones(3))
+    # exp(x - lse) against softmax's exp / sum: an ulp apart
+    torch.testing.assert_close(dx[1:], torch.softmax(x[1:], 1), rtol=0,
+                               atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # wrapper dispatch on the CPU and the meta device
 # ---------------------------------------------------------------------------
@@ -135,6 +182,15 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch():
         KA.flash_attention_plain(q, k, v, 0.125, True), rtol=0, atol=0)
     assert (KL.layer_norm.launches, KA.sdpa_short.launches,
             KA.flash_attention.launches) == before
+    x, lab, g = map(torch.from_numpy, _xent_inputs(8, 40, seed=19))
+    before = KX.xent_forward.launches, KX.xent_backward.launches
+    for got, want in zip(KX.xent_forward(x, lab, 0.1),
+                         KX.xent_forward_plain(x, lab, 0.1)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(KX.xent_backward(x, lab, g, 0.1),
+                               KX.xent_backward_plain(x, lab, g, 0.1),
+                               rtol=0, atol=0)
+    assert (KX.xent_forward.launches, KX.xent_backward.launches) == before
 
 
 def test_wrappers_answer_meta_with_shapes_only():
@@ -148,6 +204,11 @@ def test_wrappers_answer_meta_with_shapes_only():
     assert KA.flash_attention(q, q, q, 0.125).shape == q.shape
     assert KA.sdpa_short(q[:, :, :512], q[:, :, :512], q[:, :, :512],
                          0.125).shape == (7, 8, 512, 64)
+    x = torch.empty(7, 32000, device=meta)
+    lab = torch.empty(7, dtype=torch.int64, device=meta)
+    loss, lse = KX.xent_forward(x, lab)
+    assert loss.shape == lse.shape == (7,) and loss.dtype == torch.float32
+    assert KX.xent_backward(x, lab, loss).shape == x.shape
 
 
 # ---------------------------------------------------------------------------
@@ -245,3 +306,91 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = _cuda_randn(cuda, 1, 1, 64, 32)
     with pytest.raises(ValueError):
         KA.flash_attention(q, q, q, 0.125)  # d 32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,v,eps,dtype", [
+    (512, 32000, 0.1, torch.float32), (512, 32000, 0.0, torch.float32),
+    (33, 1000, 0.1, torch.float32), (64, 32000, 0.1, torch.bfloat16)])
+def test_xent_kernels_match_plain(cuda, n, v, eps, dtype):
+    x, lab, g = _xent_inputs(n, v, seed=20)
+    lab[1] = v + 3  # out of range: picks 0, matches no column
+    x = torch.from_numpy(x).to(cuda, dtype)
+    lab, g = torch.from_numpy(lab).to(cuda), torch.from_numpy(g).to(cuda)
+    before = KX.xent_forward.launches, KX.xent_backward.launches
+    loss, lse = KX.xent_forward(x, lab, eps)
+    dx = KX.xent_backward(x, lab, g, eps)
+    torch.cuda.synchronize()
+    assert (KX.xent_forward.launches, KX.xent_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    wloss, wlse = KX.xent_forward_plain(x, lab, eps)
+    wdx = KX.xent_backward_plain(x, lab, g, eps)
+    # fp32 sums over V in another order: 1e-5 on a loss of ~12
+    torch.testing.assert_close(loss, wloss, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse, wlse, rtol=0, atol=1e-5)
+    assert dx.dtype == dtype
+    # element by element, since most |dx| are ~1e-6 or below. fp32: lse
+    # differs by ~1e-6 relative from the other sum order, and 1e-9
+    # covers p - eps/V cancelling; bf16: the two roundings of a value
+    # may fall an ulp (at most 2^-7 relative) apart
+    rtol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(dx.float(), wdx.float(), rtol=rtol, atol=1e-9)
+    assert (dx[lab == -100] == 0).all() and (loss[lab == -100] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [384, 1024])
+def test_attention_grad_raises_on_the_card_where_a_kernel_ran(cuda, t):
+    """sdpa_short (256 < T <= 512) and flash (T > 512) have no backward
+    kernel yet: the attention grad op raises instead of returning the
+    zero or missing grads of an output without a graph."""
+    import paddle_tpu_torch as pf
+    from paddle_tpu_torch.core import registry
+
+    prog = pf.Program()
+    blk = prog.global_block
+    for n in ("Q", "K", "V"):
+        blk.create_var(name=n, shape=(1, t, 2, 64), dtype="float32")
+    op = blk.append_op("attention", {"Q": "Q", "K": "K", "V": "V"},
+                       {"Out": "O"}, {"causal": True, "scale": 0.125,
+                                      "layout": "bthd"})
+    (gop,) = registry.make_grad_ops(op)
+    env = {n: _cuda_randn(cuda, 1, t, 2, 64, seed=i)
+           for i, n in enumerate(("Q", "K", "V", "O@GRAD"))}
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="#6"):
+        registry.run_op(gop, env, cuda)
+
+
+@pytest.mark.gpu
+def test_layer_norm_grad_launches_no_kernel(cuda):
+    """The layer_norm grad op takes the plain version's vjp on the card
+    too: it launches no layer_norm kernel and agrees with the CPU."""
+    import paddle_tpu_torch as pf
+    from paddle_tpu_torch.core import registry
+
+    prog = pf.Program()
+    blk = prog.global_block
+    blk.create_var(name="X", shape=(64, 512), dtype="float32")
+    for n in ("S", "B"):
+        blk.create_var(name=n, shape=(512,), dtype="float32")
+    op = blk.append_op("layer_norm", {"X": "X", "Scale": "S", "Bias": "B"},
+                       {"Y": "Y", "Mean": "M", "Variance": "V"},
+                       {"epsilon": 1e-5, "begin_norm_axis": 1})
+    (gop,) = registry.make_grad_ops(op)
+    env = {"X": _cuda_randn(cuda, 64, 512, seed=4) * 3 + 0.5,
+           "S": _cuda_randn(cuda, 512, seed=5),
+           "B": _cuda_randn(cuda, 512, seed=6),
+           "Y@GRAD": _cuda_randn(cuda, 64, 512, seed=7)}
+    cpu_env = {n: t.cpu() for n, t in env.items()}
+    gop.inputs["Mean@GRAD"] = gop.inputs["Variance@GRAD"] = \
+        [registry.EMPTY_VAR]
+    before = KL.layer_norm.launches
+    with torch.no_grad():
+        registry.run_op(gop, env, cuda)
+        registry.run_op(gop, cpu_env, torch.device("cpu"))
+    torch.cuda.synchronize()
+    assert KL.layer_norm.launches == before
+    for n in ("X@GRAD", "S@GRAD", "B@GRAD"):
+        # fp32, sums over 512 columns or 64 rows in another order
+        torch.testing.assert_close(env[n].cpu(), cpu_env[n], rtol=1e-5,
+                                   atol=1e-5)
