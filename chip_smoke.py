@@ -14,11 +14,16 @@ Phases (a failing phase fails the script; none is caught):
    its path's shapes (the xent pair also at edge cases: label smoothing
    on and off, ignored rows, an out-of-range label, odd N and V, bf16
    logits; their dx is held element by element, and planted faults, a
-   dropped eps/V term and a shifted lse, must fail that check), with
-   its time, the plain version's time, one PyTorch library
-   call's time as a yardstick, and the least time the card could take
-   (the larger of bytes / 3.35 TB/s and fp32 operations / 67 TFLOP/s,
-   the H100 SXM data-sheet peaks);
+   dropped eps/V term and a shifted lse, must fail that check; the
+   attention forwards also with the residuals their backward kernels
+   read, saved P and lse, and the three attention backward kernels at
+   the training shapes, causal and not, flash also at d 128 and 256,
+   tq < tk and rows that see no key, each grad held against the largest
+   |plain| of it, which planted faults, an lse off by 1e-3, a dropped
+   delta and a P off by 1e-3, must fail), with its time, the plain
+   version's time, one PyTorch library call's time as a yardstick, and
+   the least time the card could take (the larger of bytes / 3.35 TB/s
+   and fp32 operations / 67 TFLOP/s, the H100 SXM data-sheet peaks);
 4. slice: Transformer-base (d_model 512, 8 heads, 6+6 layers, d_inner
    2048, vocab 30000), random weights from a seed, built with the port's
    layers as the KV-cached incremental decode program at prompt lengths
@@ -36,9 +41,12 @@ Phases (a failing phase fails the script; none is caught):
    and of the encoder plus one step (so one decode step's time), and
    one batch under torch.profiler (the card's busy time, its idle share
    and the kernels that took most of it).
-5. train: Transformer-base's training program (transformer.build_program:
-   vocab 32000, seq 256, dropout 0, Adam under noam decay), random
-   weights from a seed and random token ids, batch 64 in fp32. Parity on
+5-7. train: Transformer-base's training program (transformer.build_program:
+   vocab 32000, dropout 0, Adam under noam decay), random weights from a
+   seed and random token ids, in fp32 at 16384 target tokens a step:
+   seq 256 at batch 64 (plain attention), seq 512 at batch 32 (every
+   attention op on sdpa_short and its backward kernel) and seq 1024 at
+   batch 16 (flash and its dq and dk/dv kernels). Each phase: parity on
    the first 2 rows against the same program and weights on the CPU:
    the step-1 loss, named grads (fetched by their @GRAD names) and
    Adam's first moment, first against the CPU run as it is, then
@@ -47,14 +55,17 @@ Phases (a failing phase fails the script; none is caught):
    fp32 runs); the phase prints the flips per layer. A TF32 control
    must exceed every grad limit. Then 5 Adam steps on the full batch
    through the kernels (launch counters: xent forward and backward once
-   a step, layer_norm 30 times; its grad takes the plain version's vjp
-   and launches nothing), the loss finite at each: the step time (best
-   of 3 after a warm-up), tokens/s, peak memory, and one step under
-   torch.profiler.
+   a step, layer_norm 30 times, its grad taking the plain version's vjp
+   and launching nothing; at seq 512 and 1024 each of the 18 attention
+   ops launches its forward kernel twice a step, in the forward op and
+   in its grad op's recompute, and its backward kernel(s) once), the
+   loss finite at each: the step time (best of 3 after a warm-up),
+   tokens/s, peak memory, and one step under torch.profiler.
 
-The second-to-last line lists the kernels as JSON, each with its
-launches on the serving (`served`) and training (`trained`) paths; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device the
+The script prints its whole wall time; the second-to-last line lists
+the kernels as JSON, each with its launches on the serving (`served`)
+and training (`trained`, the three phases together) paths; the last
+line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result.
 """
 import contextlib
@@ -86,6 +97,14 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # fp32 outside the tensor cores
 LN_TOL = 1e-5                 # fp32, summation order
 ATTN_TOL = 2e-5               # fp32, summation order over T keys
+P_TOL = 1e-6                  # saved P (values <= 1): fp32 rounding
+LSE_TOL = 1e-5                # lse (~|s| + log T): fp32, summation order
+# the attention backward kernels against their plain versions on the same
+# inputs, max |got - plain| over the largest |plain| of each grad: fp32
+# sums over up to 1024 keys or queries in another order, about sqrt(n)
+# roundings of the largest term (~2e-6 of it); planted faults (lse off by
+# 1e-3, P off by 1e-3 relative, delta dropped) read 1e-3 of it or more
+ATTN_BWD_RTOL = 1e-5
 # fp32 through 12 layers, CPU vs card summation order: the sound runs
 # read at most 7.9e-7; the same step with TF32 on must read above this
 LOGITS_TOL = 1e-5
@@ -96,10 +115,14 @@ MODEL = dict(d_model=512, n_heads=8, n_layers=6, d_inner=2048,
 BATCH = 8
 # the repo's training configuration (bench.py bench_transformer) in
 # fp32 at half its batch: fp32 activations take twice bf16's bytes
-TRAIN = dict(seq_len=256, vocab=32000, d_model=512, n_heads=8, n_layers=6,
+TRAIN = dict(vocab=32000, d_model=512, n_heads=8, n_layers=6,
              d_inner=2048, dropout_rate=0.0, learning_rate=2.0,
              warmup_steps=8000)
-TRAIN_BATCH = 64
+# (seq_len, batch): 16384 target tokens a step at each length. 256 takes
+# the plain attention composition, 512 sdpa_short (all 18 attention ops:
+# tq == tk), 1024 flash
+TRAIN_RUNS = ((256, 64), (512, 32), (1024, 16))
+TRAIN_TOKENS = 16384
 TRAIN_STEPS = 5
 LABEL_SMOOTH = 0.1            # transformer()'s default
 XENT_TOL = 1e-5               # fp32 sums over V in another order
@@ -125,6 +148,25 @@ TRAIN_GRADS = {"logits.w": 1e-5, "src_word_emb": 1e-3,
                "tgt_word_emb": 1e-3, "enc0_a_ln.w": 1e-3,
                "dec0_a_ln.w": 1e-3}
 PINNED_GRADS = dict.fromkeys(TRAIN_GRADS, 1e-5)
+
+_CSRC = "paddle_tpu_torch/ops/kernels/csrc/"
+_PALLAS = "paddle_tpu/ops/pallas/"
+# each kernel of the line before the last: its source and the TPU kernel
+# it replaces
+KERNEL_META = {
+    "layer_norm": (_CSRC + "layer_norm.cu", _PALLAS + "layer_norm.py:64"),
+    "sdpa_short": (_CSRC + "sdpa_short.cu", _PALLAS + "attention.py:429"),
+    "flash_attention": (_CSRC + "flash_attention.cu",
+                        _PALLAS + "attention.py:104"),
+    "xent_forward": (_CSRC + "xent.cu", _PALLAS + "xent.py:75"),
+    "xent_backward": (_CSRC + "xent.cu", _PALLAS + "xent.py:123"),
+    "sdpa_short_bwd": (_CSRC + "sdpa_short_bwd.cu",
+                       _PALLAS + "attention.py:471"),
+    "flash_bwd_dq": (_CSRC + "flash_attention_bwd.cu",
+                     _PALLAS + "attention.py:197"),
+    "flash_bwd_dkv": (_CSRC + "flash_attention_bwd.cu",
+                      _PALLAS + "attention.py:216"),
+}
 
 
 def log(*a):
@@ -264,6 +306,217 @@ def _attn_entry(name, kern, plain, cases, main_shape):
                 shape=list(main_shape))
 
 
+def _randn_like(x, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(x.shape, device="cuda", generator=g)
+
+
+def _bwd_ratio(got, want):
+    """max |got - want| over the largest |want|, the worst of the three
+    grads: at most ATTN_BWD_RTOL passes."""
+    return max(float((a - w).abs().max()) / float(w.abs().max())
+               for a, w in zip(got, want))
+
+
+def _lib_grad_ms(q, k, v, g, scale):
+    """The library's backward: torch's fused SDPA forward (math backend
+    forbidden) under autograd, then only its backward is timed. It
+    computes dq, dk and dv together."""
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    out = _lib_sdpa(qr, kr, vr, scale)
+    lib = torch.autograd.grad(out, (qr, kr, vr), g, retain_graph=True)
+    torch.cuda.synchronize()
+    ms = time_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), g,
+                                             retain_graph=True), iters=10)
+    return ms, lib
+
+
+def _lib_residual_ms(q, k, v, scale):
+    """torch's fused SDPA forward as it runs under autograd (it then also
+    keeps its per-row logsumexp for the backward)."""
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    return time_ms(lambda: _lib_sdpa(qr, kr, vr, scale), iters=10)
+
+
+def _attn_bwd_entries():
+    """The residual forwards and the three backward kernels against their
+    plain versions on the same inputs: the training path's shapes
+    ([32,8,512,64] sdpa_short, [16,8,1024,64] flash), causal and not;
+    flash also at d 128 and 256, tq < tk, and tq > tk (rows that see no
+    key). Planted faults must fail the check: the backward fed an lse
+    off by 1e-3, a dropped delta, or a P off by 1e-3 relative. Then
+    times at the main shapes, non-causal."""
+    out = {}
+    b512, b1024 = TRAIN_TOKENS // 512, TRAIN_TOKENS // 1024
+    errs = {"sdpa_short_bwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+    ratios = {n: [] for n in errs}
+    res_errs = {"sdpa_short": [], "flash_attention": []}
+    for i, (b, h, t, d, causal) in enumerate((
+            (b512, 8, 512, 64, False), (b512, 8, 512, 64, True),
+            (2, 4, 384, 128, True))):
+        q, k, v = _qkv(b, h, t, t, d, seed=40 + i)
+        g = _randn_like(q, 50 + i)
+        scale = d ** -0.5
+        o, p = KA._sdpa_short_launch(q, k, v, scale, causal, True)
+        wo, wp = KA.sdpa_short_plain(q, k, v, scale, causal, save_p=True)
+        got = KA.sdpa_short_bwd(q, k, v, p, g, scale, causal)
+        want = KA.sdpa_short_bwd_plain(q, k, v, p, g, scale)
+        torch.cuda.synchronize()
+        eo, ep = max_err(o, wo), max_err(p, wp)
+        r = _bwd_ratio(got, want)
+        bad = KA.sdpa_short_bwd(q, k, v, p * (1 - 1e-3), g, scale, causal)
+        rf = _bwd_ratio(bad, want)
+        log(f"  sdpa_short+P [{b},{h},{t},{d}] causal={causal}: out "
+            f"max_abs_err {eo:.3e} (tol {ATTN_TOL:g}), P {ep:.3e} (tol "
+            f"{P_TOL:g}); sdpa_short_bwd worst |d - plain| / max|plain| "
+            f"{r:.3e} (tol {ATTN_BWD_RTOL:g}); planted fault, P off by "
+            f"1e-3: {rf:.3e} (must exceed the tol)")
+        assert eo <= ATTN_TOL and ep <= P_TOL, (eo, ep)
+        assert all(torch.isfinite(x).all() for x in got)
+        assert r <= ATTN_BWD_RTOL, r
+        assert rf > ATTN_BWD_RTOL, "the sdpa_short_bwd check cannot see P"
+        res_errs["sdpa_short"].append(max(eo, ep))
+        errs["sdpa_short_bwd"].append(max(max_err(a, w)
+                                          for a, w in zip(got, want)))
+        ratios["sdpa_short_bwd"].append(r)
+        del q, k, v, g, o, p, wo, wp, got, want, bad
+    for i, (b, h, tq, tk, d, causal) in enumerate((
+            (b1024, 8, 1024, 1024, 64, False),
+            (b1024, 8, 1024, 1024, 64, True),
+            (2, 4, 1024, 1024, 128, True), (1, 2, 600, 600, 256, True),
+            (1, 8, 256, 1024, 64, True),     # tq < tk, bottom-right
+            (1, 8, 1024, 256, 64, True))):   # rows 0..767 see no key
+        q, k, v = _qkv(b, h, tq, tk, d, seed=60 + i)
+        g = _randn_like(q, 70 + i)
+        scale = d ** -0.5
+        o, lse = KA._flash_attention_launch(q, k, v, scale, causal, True)
+        wo, wlse = KA.flash_attention_plain(q, k, v, scale, causal,
+                                            with_lse=True)
+        delta = KA.flash_delta(o, g)
+
+        def kernels(lse_, delta_):
+            return (KA.flash_bwd_dq(q, k, v, g, lse_, delta_, scale, causal),
+                    *KA.flash_bwd_dkv(q, k, v, g, lse_, delta_, scale,
+                                      causal))
+
+        got = kernels(lse, delta)
+        wdq = KA.flash_bwd_dq_plain(q, k, v, g, lse, delta, scale, causal)
+        want = (wdq, *KA.flash_bwd_dkv_plain(q, k, v, g, lse, delta, scale,
+                                             causal))
+        torch.cuda.synchronize()
+        eo, el = max_err(o, wo), max_err(lse, wlse)
+        r_dq, r_dkv = _bwd_ratio(got[:1], want[:1]), _bwd_ratio(got[1:],
+                                                              want[1:])
+        faults = {"lse off by 1e-3": _bwd_ratio(kernels(lse + 1e-3, delta),
+                                                want),
+                  "delta dropped": _bwd_ratio(
+                      kernels(lse, torch.zeros_like(delta)), want)}
+        log(f"  flash+lse [{b},{h},{tq},{tk},{d}] causal={causal}: out "
+            f"max_abs_err {eo:.3e} (tol {ATTN_TOL:g}), lse {el:.3e} (tol "
+            f"{LSE_TOL:g}); worst |d - plain| / max|plain|: flash_bwd_dq "
+            f"{r_dq:.3e}, flash_bwd_dkv {r_dkv:.3e} (tol {ATTN_BWD_RTOL:g});"
+            f" planted faults " + ", ".join(f"{n}: {x:.3e}"
+                                            for n, x in faults.items())
+            + " (must exceed the tol)")
+        assert eo <= ATTN_TOL and el <= LSE_TOL, (eo, el)
+        assert all(torch.isfinite(x).all() for x in got)
+        assert r_dq <= ATTN_BWD_RTOL and r_dkv <= ATTN_BWD_RTOL, (r_dq,
+                                                                 r_dkv)
+        for n, x in faults.items():
+            assert x > ATTN_BWD_RTOL, f"the flash backward check cannot " \
+                f"see {n}"
+        if causal and tq > tk:  # rows that see no key: no dq
+            assert (got[0][:, :, :tq - tk] == 0).all()
+        res_errs["flash_attention"].append(max(eo, el))
+        errs["flash_bwd_dq"].append(max_err(got[0], want[0]))
+        errs["flash_bwd_dkv"].append(max(max_err(a, w) for a, w in
+                                         zip(got[1:], want[1:])))
+        ratios["flash_bwd_dq"].append(r_dq)
+        ratios["flash_bwd_dkv"].append(r_dkv)
+        del q, k, v, g, o, lse, wo, wlse, delta, got, want, wdq
+
+    # times at the training shapes, non-causal. Bounds: each input read
+    # once, each output written once; operations: the products (2 flops
+    # a multiply-add) the function needs, plus ~5 a score for the
+    # softmax or its derivative
+    for name, (b, t) in (("sdpa_short", (b512, 512)),
+                         ("flash_attention", (b1024, 1024))):
+        h, d = 8, 64
+        q, k, v = _qkv(b, h, t, t, d, seed=1)
+        g = _randn_like(q, 2)
+        scale = d ** -0.5
+        n_td, n_tt = b * h * t * d, b * h * t * t
+        lib_ms, lib = _lib_grad_ms(q, k, v, g, scale)
+        if name == "sdpa_short":
+            _, p = KA._sdpa_short_launch(q, k, v, scale, False, True)
+            want = KA.sdpa_short_bwd_plain(q, k, v, p, g, scale)
+            log(f"  sdpa_short_bwd library sdpa backward vs plain: worst "
+                f"|d - plain| / max|plain| {_bwd_ratio(lib, want):.3e}")
+            del want
+            fwd = (lambda: KA._sdpa_short_launch(q, k, v, scale, False,
+                                                 True),
+                   lambda: KA.sdpa_short_plain(q, k, v, scale, False,
+                                               save_p=True),
+                   4 * (4 * n_td + n_tt))
+            kerns = {"sdpa_short_bwd": (
+                lambda: KA.sdpa_short_bwd(q, k, v, p, g, scale),
+                lambda: KA.sdpa_short_bwd_plain(q, k, v, p, g, scale),
+                4 * (7 * n_td + n_tt), 8 * n_tt * d + 4 * n_tt,
+                "dv = P^T dO, dP = dO v^T, dq = ds k, dk = ds^T q")}
+        else:
+            o, lse = KA._flash_attention_launch(q, k, v, scale, False, True)
+            delta = KA.flash_delta(o, g)
+            want = KA.flash_attention_bwd_plain(q, k, v, o, lse, g, scale,
+                                                False)
+            log(f"  flash backward library sdpa backward vs plain: worst "
+                f"|d - plain| / max|plain| {_bwd_ratio(lib, want):.3e}")
+            del want
+            fwd = (lambda: KA._flash_attention_launch(q, k, v, scale, False,
+                                                      True),
+                   lambda: KA.flash_attention_plain(q, k, v, scale, False,
+                                                    with_lse=True),
+                   4 * (4 * n_td + b * h * t))
+            kerns = {
+                "flash_bwd_dq": (
+                    lambda: KA.flash_bwd_dq(q, k, v, g, lse, delta, scale),
+                    lambda: KA.flash_bwd_dq_plain(q, k, v, g, lse, delta,
+                                                  scale, False),
+                    4 * (5 * n_td + 2 * b * h * t),
+                    6 * n_tt * d + 5 * n_tt, "S, dP = dO v^T, dq = ds k"),
+                "flash_bwd_dkv": (
+                    lambda: KA.flash_bwd_dkv(q, k, v, g, lse, delta, scale),
+                    lambda: KA.flash_bwd_dkv_plain(q, k, v, g, lse, delta,
+                                                   scale, False),
+                    4 * (6 * n_td + 2 * b * h * t),
+                    8 * n_tt * d + 5 * n_tt,
+                    "S, dP = dO v^T, dv = P^T dO, dk = ds^T q")}
+        # the forward with its residual, as the grad op's recompute runs it
+        ms = time_ms(fwd[0])
+        plain_ms = time_ms(fwd[1], iters=5)
+        res_lib = _lib_residual_ms(q, k, v, scale)
+        bms, by = bound_ms(fwd[2], n_tt * (4 * d + 5))
+        log(f"  {name} with its residual [{b},{h},{t},{d}] non-causal: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library sdpa "
+            f"under autograd {res_lib:.4f} ms, bound {bms:.4f} ms ({by})")
+        out[name] = dict(max_abs_err=max(res_errs[name]), ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=res_lib, shape=[b, h, t, d])
+        for kname, (kern, plain, nbytes, flops, products) in kerns.items():
+            ms = time_ms(kern)
+            plain_ms = time_ms(plain, iters=5)
+            bms, by = bound_ms(nbytes, flops)
+            log(f"  {kname} [{b},{h},{t},{d}] non-causal: kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, library sdpa backward (dq, "
+                f"dk and dv) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+                f"products {products})")
+            out[kname] = dict(max_abs_err=max(errs[kname]),
+                              max_rel_err=max(ratios[kname]), ms=ms,
+                              plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                              library_ms=lib_ms, shape=[b, h, t, d])
+        del q, k, v, g, lib
+    return out
+
+
 def phase_kernels():
     entries = {}
     # layer_norm: encoder rows at prompt 1024, a decoder step, ragged D
@@ -304,6 +557,10 @@ def phase_kernels():
          (1, 8, 1024, 256, 64, True)],     # tq > tk: fully masked rows
         (BATCH, 8, 1024, 64))
     entries.update(_xent_entries())
+    residual = _attn_bwd_entries()
+    for name in ("sdpa_short", "flash_attention"):
+        entries[name]["residual"] = residual.pop(name)
+    entries.update(residual)
     return entries
 
 
@@ -343,7 +600,7 @@ def _xent_faults(x, lab, dloss, eps, wdx):
 def _xent_entries():
     """Both xent kernels against their plain versions: the training
     path's [B*256, 32000] fp32 logits, then edge cases."""
-    n_main = TRAIN_BATCH * TRAIN["seq_len"]
+    n_main = TRAIN_TOKENS
     cases = [(n_main, TRAIN["vocab"], torch.float32, LABEL_SMOOTH, False,
               False),
              (n_main, TRAIN["vocab"], torch.float32, 0.0, True, True),
@@ -689,12 +946,17 @@ def _relu_masks(masks):
         info.kernel = kernel
 
 
-def phase_train(card_name, card):
+def phase_train(card_name, card, seq_len, batch):
+    """Transformer-base's training program at `seq_len` and `batch`:
+    2-row parity against the CPU, then TRAIN_STEPS Adam steps on the card
+    through the kernels. Returns (launches by kernel, results)."""
+    tag = f"train T={seq_len}"
     t0 = time.monotonic()
     with unique_name.guard():
-        main, startup, cost = transformer.build_program(**TRAIN)
+        main, startup, cost = transformer.build_program(seq_len=seq_len,
+                                                        **TRAIN)
     ops = [op.type for op in main.global_block.ops]
-    log(f"train: built the training program in "
+    log(f"{tag}: built the training program in "
         f"{time.monotonic() - t0:.2f} s ({len(ops)} ops, "
         f"{ops.count('adam')} adam, startup "
         f"{len(startup.global_block.ops)} ops)")
@@ -710,7 +972,7 @@ def phase_train(card_name, card):
     state0 = pf.scope_to_numpy(scope0, names)
     del scope0
     n_params = sum(int(np.prod(v.shape)) for v in main.all_parameters())
-    log(f"train: startup on the card {time.monotonic() - t0:.2f} s; "
+    log(f"{tag}: startup on the card {time.monotonic() - t0:.2f} s; "
         f"{len(main.all_parameters())} parameters, {n_params} values, "
         f"{len(names)} persistables with the optimizer state, seed {SEED}")
 
@@ -720,7 +982,7 @@ def phase_train(card_name, card):
         return sc
 
     rs = np.random.RandomState(SEED)
-    shape = (TRAIN_BATCH, TRAIN["seq_len"])
+    shape = (batch, seq_len)
     feed = {k: rs.randint(0, TRAIN["vocab"], shape).astype("int64")
             for k in ("src_ids", "tgt_ids", "label")}
     small = {k: v[:2] for k, v in feed.items()}
@@ -773,19 +1035,19 @@ def phase_train(card_name, card):
     flip_max = max([float(np.abs(c[f]).max()) for f, c in
                     zip(flips, ref[1 + 2 * k:]) if f.any()], default=0.0)
     m1_vs_g = max(_rel(got[1 + k + i], 0.1 * got[1 + i]) for i in range(k))
-    log(f"train parity (2 rows, step 1; CPU run {cpu_s:.1f} s): loss card "
+    log(f"{tag} parity (2 rows, step 1; CPU run {cpu_s:.1f} s): loss card "
         f"{float(got[0][0]):.7f} CPU {float(ref[0][0]):.7f}, rel err "
         f"{loss_err:.3e}, against the CPU with the card's ReLU masks "
         f"{pin_loss:.3e} (tol {LOSS_RTOL:g})")
-    log(f"train parity: {n_flips} of {sum(f.size for f in flips)} FFN "
+    log(f"{tag} parity: {n_flips} of {sum(f.size for f in flips)} FFN "
         f"ReLU units flip between card and CPU, |pre-activation| at most "
         f"{flip_max:.3e}; per layer {flips_by_layer}")
     for g in TRAIN_GRADS:
-        log(f"train parity: {g}@GRAD norm-wise {grad_errs[g][0]:.3e}, "
+        log(f"{tag} parity: {g}@GRAD norm-wise {grad_errs[g][0]:.3e}, "
             f"Moment1 {grad_errs[g][1]:.3e} (tol {TRAIN_GRADS[g]:g}); "
             f"ReLU masks pinned: {pin_errs[g][0]:.3e}, Moment1 "
             f"{pin_errs[g][1]:.3e} (tol {PINNED_GRADS[g]:g})")
-    log(f"train parity: Moment1 vs (1-beta1)g on the card {m1_vs_g:.3e}")
+    log(f"{tag} parity: Moment1 vs (1-beta1)g on the card {m1_vs_g:.3e}")
     assert np.isfinite(got[0]).all() and loss_err <= LOSS_RTOL, loss_err
     assert pin_loss <= LOSS_RTOL, pin_loss
     for g, tol in TRAIN_GRADS.items():
@@ -803,7 +1065,7 @@ def phase_train(card_name, card):
         torch.backends.cuda.matmul.allow_tf32 = False
     tf_loss, tf_errs = errs(tf, ref)
     _, tf_pin_errs = errs(tf, cpu_step(pin=tf))
-    log(f"train parity: control with TF32 on: loss rel err {tf_loss:.3e}; "
+    log(f"{tag} parity: control with TF32 on: loss rel err {tf_loss:.3e}; "
         f"grads norm-wise " + ", ".join(
             f"{g} {e[0]:.3e}" for g, e in tf_errs.items())
         + "; ReLU masks pinned " + ", ".join(
@@ -823,13 +1085,14 @@ def phase_train(card_name, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels = (KX.xent_forward, KX.xent_backward, KL.layer_norm,
-               KA.sdpa_short, KA.flash_attention)
+               KA.sdpa_short, KA.sdpa_short_bwd, KA.flash_attention,
+               KA.flash_bwd_dq, KA.flash_bwd_dkv)
     for kern in kernels:
         kern.launches = 0
     losses, times = [], []
     for step in range(TRAIN_STEPS):
         if step == TRAIN_STEPS - 1:
-            loss, prof = _device_profile("train profile", lambda: gpu.run(
+            loss, prof = _device_profile(f"{tag} profile", lambda: gpu.run(
                 main, feed=feed, fetch_list=[cost], scope=scope)[0])
         else:
             torch.cuda.synchronize()
@@ -842,19 +1105,28 @@ def phase_train(card_name, card):
         assert np.isfinite(loss).all(), (step, loss)
     counts = {kern.__name__: kern.launches for kern in kernels}
     peak = torch.cuda.max_memory_allocated()
-    n_ln = ops.count("layer_norm")
-    want = {"xent_forward": TRAIN_STEPS, "xent_backward": TRAIN_STEPS,
-            "layer_norm": n_ln * TRAIN_STEPS, "sdpa_short": 0,
-            "flash_attention": 0}
-    log(f"train: {TRAIN_STEPS} Adam steps at batch {TRAIN_BATCH}, losses "
+    n_ln, n_attn = ops.count("layer_norm"), ops.count("attention")
+    want = dict.fromkeys(counts, 0)
+    want.update(xent_forward=TRAIN_STEPS, xent_backward=TRAIN_STEPS,
+                layer_norm=n_ln * TRAIN_STEPS)
+    # a routed attention op launches its forward kernel in the forward op
+    # and again, with its residual, in its grad op's recompute
+    if 256 < seq_len <= 512:
+        want.update(sdpa_short=2 * n_attn * TRAIN_STEPS,
+                    sdpa_short_bwd=n_attn * TRAIN_STEPS)
+    elif seq_len > 512:
+        want.update(flash_attention=2 * n_attn * TRAIN_STEPS,
+                    flash_bwd_dq=n_attn * TRAIN_STEPS,
+                    flash_bwd_dkv=n_attn * TRAIN_STEPS)
+    log(f"{tag}: {TRAIN_STEPS} Adam steps at batch {batch}, losses "
         + ", ".join(f"{x:.6f}" for x in losses) + f"; launches {counts} "
         f"(layer_norm: {n_ln} forward ops a step; their grads launch "
         f"nothing)")
     assert counts == want, (counts, want)
     best = min(times[1:])
-    tokens = TRAIN_BATCH * TRAIN["seq_len"]
-    res = dict(batch=TRAIN_BATCH, losses=losses, warmup_step_s=times[0],
-               step_ms=best * 1e3, step_ms_all=[t * 1e3 for t in times],
+    tokens = batch * seq_len
+    res = dict(seq_len=seq_len, batch=batch, losses=losses,
+               warmup_step_s=times[0], step_ms=best * 1e3, step_ms_all=[t * 1e3 for t in times],
                target_tokens_per_s=tokens / best, peak_memory_bytes=peak,
                loss_rel_err=loss_err, grad_errs=grad_errs,
                moment1_errs=m1_errs, relu_flips=n_flips,
@@ -862,7 +1134,7 @@ def phase_train(card_name, card):
                pinned_loss_rel_err=pin_loss, pinned_errs=pin_errs,
                tf32_grad_errs=tf_grad, tf32_pinned_grad_errs=tf_pinned,
                tf32_loss_err=tf_loss, profile=prof)
-    log(f"train: step {best * 1e3:.1f} ms (best of {len(times) - 1} after "
+    log(f"{tag}: step {best * 1e3:.1f} ms (best of {len(times) - 1} after "
         f"a {times[0]:.2f} s warm-up step), {tokens / best:.0f} target "
         f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB on {card_name} "
         f"({card})")
@@ -870,6 +1142,7 @@ def phase_train(card_name, card):
 
 
 def main():
+    t_start = time.monotonic()
     name, count, card = phase_device()
     log("phase build")
     phase_build()
@@ -877,36 +1150,32 @@ def main():
     entries = phase_kernels()
     log("phase slice")
     served_launches, served = phase_slice(name, card)
-    log("phase train")
-    trained_launches, trained = phase_train(name, card)
-    meta = {
-        "layer_norm": ("paddle_tpu_torch/ops/kernels/csrc/layer_norm.cu",
-                       "paddle_tpu/ops/pallas/layer_norm.py:64"),
-        "sdpa_short": ("paddle_tpu_torch/ops/kernels/csrc/sdpa_short.cu",
-                       "paddle_tpu/ops/pallas/attention.py:429"),
-        "flash_attention": (
-            "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu",
-            "paddle_tpu/ops/pallas/attention.py:104"),
-        "xent_forward": ("paddle_tpu_torch/ops/kernels/csrc/xent.cu",
-                         "paddle_tpu/ops/pallas/xent.py:75"),
-        "xent_backward": ("paddle_tpu_torch/ops/kernels/csrc/xent.cu",
-                          "paddle_tpu/ops/pallas/xent.py:123"),
-    }
+    trained_launches = dict.fromkeys(KERNEL_META, 0)
+    trained = {}
+    for seq_len, batch in TRAIN_RUNS:
+        log(f"phase train T={seq_len}")
+        counts, trained[seq_len] = phase_train(name, card, seq_len, batch)
+        trained[seq_len]["launches"] = counts
+        for kname, n in counts.items():
+            trained_launches[kname] += n
     line = []
-    for kname, (src, replaces) in meta.items():
+    for kname, (src, replaces) in KERNEL_META.items():
         e = entries[kname]
         on_paths = dict(served=served_launches.get(kname, 0),
-                        trained=trained_launches.get(kname, 0))
+                        trained=trained_launches[kname])
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
+        extra = {x: e[x] for x in ("max_rel_err", "residual") if x in e}
         line.append(dict(name=kname, route="cuda", source=src,
                          replaces=replaces, launches=sum(on_paths.values()),
                          **on_paths, max_abs_err=e["max_abs_err"],
                          ms=e["ms"], plain_ms=e["plain_ms"],
                          bound_ms=e["bound_ms"], bound_by=e["bound_by"],
                          library_ms=e["library_ms"], shape=e["shape"],
-                         ok=True))
+                         **extra, ok=True))
     log(json.dumps({"served": served}))
     log(json.dumps({"trained": trained}))
+    log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall in all on "
+        f"{name} ({card})")
     log(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": name,

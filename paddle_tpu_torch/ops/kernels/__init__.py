@@ -16,21 +16,28 @@ through the kernels.
 import torch
 
 
-def reference_attention(q, k, v, scale, causal):
-    """Masked-softmax attention oracle: q,k,v [B,H,T,D] -> [B,H,T,D]
-    (``paddle_tpu/ops/pallas/__init__.py`` reference_attention).
+def causal_keep(tq, tk, device):
+    """The bottom-right aligned causal mask [tq, tk]: query i sees keys
+    <= i + tk - tq."""
+    return torch.ones((tq, tk), dtype=torch.bool, device=device).tril(tk - tq)
 
-    Masking uses finfo.min (not -inf) so a fully masked row yields a
-    uniform distribution instead of NaN. Causal masking is bottom-right
-    aligned: query i sees keys <= i + tk - tq.
-    """
+
+def masked_logits(q, k, scale, causal):
+    """fp32 scores [B,H,tq,tk] of q,k [B,H,T,D]; a key hidden by the
+    causal mask scores finfo.min (not -inf), so a row that sees no key
+    gets a uniform distribution instead of NaN."""
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
-        tq, tk = logits.shape[-2], logits.shape[-1]
-        mask = torch.ones((tq, tk), dtype=torch.bool,
-                          device=logits.device).tril(tk - tq)
-        logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
-    weights = torch.softmax(logits, dim=-1)
+        keep = causal_keep(*logits.shape[-2:], logits.device)
+        logits = logits.masked_fill(~keep, torch.finfo(logits.dtype).min)
+    return logits
+
+
+def reference_attention(q, k, v, scale, causal):
+    """Masked-softmax attention oracle: q,k,v [B,H,T,D] -> [B,H,T,D]
+    (``paddle_tpu/ops/pallas/__init__.py`` reference_attention), with
+    `masked_logits`' finfo.min masking."""
+    weights = torch.softmax(masked_logits(q, k, scale, causal), dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", weights,
                         v.float()).to(q.dtype)
 
@@ -56,3 +63,16 @@ def require_cuda_inputs(name, tensors, dtypes):
             raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def storage_tensor(t):
+    """`t` with torch.func's wrappers taken off: the tensor whose data a
+    kernel can be pointed at. An autograd.Function's saved tensors reach
+    its backward wrapped when the Function runs under ``torch.func.vjp``
+    (the grad ops' derivation), and a wrapper has no storage, so a
+    backward that launches a kernel takes its inputs through this."""
+    from torch._C import _functorch
+
+    while _functorch.is_functorch_wrapped_tensor(t):
+        t = _functorch.get_unwrapped(t)
+    return t

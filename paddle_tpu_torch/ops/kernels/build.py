@@ -23,7 +23,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("layer_norm", "sdpa_short", "flash_attention", "xent")
+SOURCES = ("layer_norm", "sdpa_short", "sdpa_short_bwd", "flash_attention",
+           "flash_attention_bwd", "xent")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,15 +2,17 @@
 //
 // Replaces: paddle_tpu/ops/pallas/attention.py `_flash_fwd_impl` /
 // `_fwd_kernel` (the Pallas TPU kernel behind `flash_attention`, routed
-// from ops/nn_ops.py `attention` for T > 512, d in {64, 128, 256}). The
-// per-row logsumexp that the TPU kernel writes for its backward is not
-// written: inference does not read it.
+// from ops/nn_ops.py `attention` for T > 512, d in {64, 128, 256}). Like
+// the TPU kernel it also writes the per-row logsumexp that the backward
+// kernels (flash_attention_bwd.cu) read, when given somewhere to write
+// it; the inference path passes none and writes only the output.
 //
 // Computes out = softmax(scale * q k^T [+ causal mask]) v for q [BH, tq, D],
 // k, v [BH, tk, D]. Causal masking is bottom-right aligned: query i sees
 // keys <= i + tk - tq. Masked scores take -FLT_MAX, as in
 // `reference_attention`, so a fully masked row (tq > tk) yields the
-// uniform average of v instead of NaN.
+// uniform average of v instead of NaN; its logsumexp, -FLT_MAX + log(tk),
+// rounds to -FLT_MAX.
 //
 // What bounds it on an H100: operations. At the slice's shape
 // [8, 8, 1024, 64] it does 4*BH*tq*tk*D = 17.2 GFLOP on 67 MB of inputs
@@ -43,7 +45,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int tq, int tk, float scale, int causal) {
+                     float* __restrict__ lse, int tq, int tk, float scale,
+                     int causal) {
   extern __shared__ float smem[];
   float* qs = smem;                   // [kBQ][D]
   float* ks = qs + kBQ * D;           // [kBK][D + 1], padded
@@ -146,11 +149,13 @@ __global__ void __launch_bounds__(kThreads)
     const int r = r0 + j * kRowStride;
     if (q0 + r < tq) ob[(int64_t)(q0 + r) * D + col] = acc[j] / l_s[r];
   }
+  if (lse != nullptr && tid < kBQ && q0 + tid < tq)
+    lse[(int64_t)bh * tq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
-           int64_t bh, int tq, int tk, float scale, int causal,
+           float* lse, int64_t bh, int tq, int tk, float scale, int causal,
            cudaStream_t s) {
   const size_t bytes = sizeof(float) * (kBQ * D + kBK * (D + 1) + kBK * D +
                                         kBQ * (kBK + 1) + 3 * kBQ);
@@ -159,34 +164,35 @@ int launch(const float* q, const float* k, const float* v, float* o,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((tq + kBQ - 1) / kBQ, (unsigned)bh);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, s>>>(q, k, v, o, tq, tk, scale,
-                                                    causal);
+  flash_fwd_kernel<D><<<grid, kThreads, bytes, s>>>(q, k, v, o, lse, tq, tk,
+                                                    scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o: fp32 device pointers, contiguous [bh, tq, d]; k, v: [bh, tk, d];
-// d in {64, 128, 256}. Returns cudaGetLastError() of the launch (or of
+// lse: fp32 [bh, tq], or null to skip it; d in {64, 128, 256}. Returns cudaGetLastError() of the launch (or of
 // the shared-memory attribute call); 1 (cudaErrorInvalidValue) for a
 // shape the kernel does not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int64_t bh, int tq,
-                                   int tk, int d, float scale, int causal,
-                                   void* stream) {
+                                   const void* v, void* o, void* lse,
+                                   int64_t bh, int tq, int tk, int d,
+                                   float scale, int causal, void* stream) {
   if (tq < 1 || tk < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
+  float* lf = static_cast<float*>(lse);
   switch (d) {
     case 64:
-      return launch<64>(qf, kf, vf, of, bh, tq, tk, scale, causal, s);
+      return launch<64>(qf, kf, vf, of, lf, bh, tq, tk, scale, causal, s);
     case 128:
-      return launch<128>(qf, kf, vf, of, bh, tq, tk, scale, causal, s);
+      return launch<128>(qf, kf, vf, of, lf, bh, tq, tk, scale, causal, s);
     case 256:
-      return launch<256>(qf, kf, vf, of, bh, tq, tk, scale, causal, s);
+      return launch<256>(qf, kf, vf, of, lf, bh, tq, tk, scale, causal, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,8 +3,12 @@
 // Replaces: paddle_tpu/ops/pallas/attention.py `_sdpa_short_fwd_impl`
 // (the Pallas TPU kernel behind `sdpa_short`, routed from
 // ops/nn_ops.py `attention` for tq == tk, 256 < T <= 512, d in {64, 128}).
-// Inference only: the bf16 probabilities that the TPU kernel saves for
-// its backward (save_p=True) are not written.
+// Given somewhere to write them, it also saves the normalized
+// probabilities P [BH, T, T] that the backward kernel
+// (sdpa_short_bwd.cu) reads, as `_sdpa_short_fwd_impl(save_p=True)`
+// does; the inference path passes none. P is saved in fp32, not the TPU
+// kernel's bf16: the port's inputs are fp32 and its gradient parity is
+// held to 1e-5, which a bf16 P (2^-8 relative) would break.
 //
 // Computes out = softmax(scale * q k^T [+ causal mask]) v for q, k, v
 // [BH, T, D], tq == tk. The causal mask is `_causal_mask` (query i sees
@@ -40,7 +44,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
     sdpa_short_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
-                      int t, float scale, int causal) {
+                      float* __restrict__ p_out, int t, float scale,
+                      int causal) {
   extern __shared__ float smem[];
   constexpr int kTile = kBK * (D + 1);  // padded: conflict-free columns
   float* qs = smem;                     // [kBQ][D]
@@ -108,7 +113,13 @@ __global__ void __launch_bounds__(kThreads)
     }
     for (int off = 16; off > 0; off >>= 1)
       l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (lane == 0) inv_l[r] = 1.f / l;
+    const float il = 1.f / l;
+    if (lane == 0) inv_l[r] = il;
+    if (p_out != nullptr && q0 + r < t) {
+      // skipped causal tiles hold masked keys: their probability is 0
+      float* pr = p_out + ((int64_t)bh * t + q0 + r) * t;
+      for (int c = lane; c < t; c += 32) pr[c] = c < ncols ? sr[c] * il : 0.f;
+    }
   }
 
   // pass 3: out = p v; thread owns column `col` of rows r0 + j*rstride
@@ -142,7 +153,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
-           int64_t bh, int t, float scale, int causal, cudaStream_t s) {
+           float* p, int64_t bh, int t, float scale, int causal,
+           cudaStream_t s) {
   const size_t bytes =
       sizeof(float) * (kBQ * D + kBQ * kMaxT + kBK * (D + 1) + kBQ);
   cudaError_t err = cudaFuncSetAttribute(
@@ -150,7 +162,7 @@ int launch(const float* q, const float* k, const float* v, float* o,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t + kBQ - 1) / kBQ, (unsigned)bh);
-  sdpa_short_kernel<D><<<grid, kThreads, bytes, s>>>(q, k, v, o, t, scale,
+  sdpa_short_kernel<D><<<grid, kThreads, bytes, s>>>(q, k, v, o, p, t, scale,
                                                      causal);
   return (int)cudaGetLastError();
 }
@@ -158,23 +170,24 @@ int launch(const float* q, const float* k, const float* v, float* o,
 }  // namespace
 
 // q, k, v, o: fp32 device pointers, contiguous [bh, t, d], t <= 512,
-// d in {64, 128}. Returns cudaGetLastError() of the launch (or of the
+// d in {64, 128}; p: fp32 [bh, t, t], or null to skip it. Returns cudaGetLastError() of the launch (or of the
 // shared-memory attribute call); 1 (cudaErrorInvalidValue) for a shape
 // the kernel does not take.
 extern "C" int sdpa_short_fwd(const void* q, const void* k, const void* v,
-                              void* o, int64_t bh, int t, int d, float scale,
-                              int causal, void* stream) {
+                              void* o, void* p, int64_t bh, int t, int d,
+                              float scale, int causal, void* stream) {
   if (t < 1 || t > kMaxT) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(o);
+  float* pf = static_cast<float*>(p);
   switch (d) {
     case 64:
-      return launch<64>(qf, kf, vf, of, bh, t, scale, causal, s);
+      return launch<64>(qf, kf, vf, of, pf, bh, t, scale, causal, s);
     case 128:
-      return launch<128>(qf, kf, vf, of, bh, t, scale, causal, s);
+      return launch<128>(qf, kf, vf, of, pf, bh, t, scale, causal, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -218,9 +218,11 @@ def _route(qh, kh, vh):
 def attention(ctx):
     """layout attr: 'bhtd' (default) or 'bthd' ([B,T,H,D] straight from
     the head-split reshape). A nonzero dropout rate outside is_test is
-    refused: dropout comes with the AMP-and-dropout slice. On the card
-    the grad of a kernel-routed call (T > 256) raises until the
-    attention backward kernels are ported."""
+    refused: dropout comes with the AMP-and-dropout slice. On the card a
+    kernel-routed call (T > 256) is differentiable: attention_grad's
+    vjp recompute launches the forward kernel again with its residual
+    (P or lse) and then the backward kernel(s), as `jax.vjp` of the op
+    re-runs `_flash_fwd` in the JAX package."""
     q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
     scale = ctx.attr("scale", None)
     causal = ctx.attr("causal", False)

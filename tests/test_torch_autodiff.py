@@ -86,6 +86,26 @@ GRAD_CASES = {
                       "V": [_randn((2, 7, 2, 8), 16)]},
         {"Out": 1}, {"causal": False, "scale": 8 ** -0.5,
                      "dropout_rate": 0.0, "layout": "bthd"}, ["Out0"]),
+    # routed shapes (head dim 64, fp32): 256 < T <= 512 with tq == tk
+    # takes sdpa_short, T > 512 flash; on the CPU their plain versions
+    "attention_sdpa_short_causal": (
+        "attention", {"Q": [_randn((1, 264, 2, 64), 26)],
+                      "K": [_randn((1, 264, 2, 64), 27)],
+                      "V": [_randn((1, 264, 2, 64), 28)]},
+        {"Out": 1}, {"causal": True, "scale": 0.125, "dropout_rate": 0.0,
+                     "layout": "bthd"}, ["Out0"]),
+    "attention_flash_causal": (
+        "attention", {"Q": [_randn((1, 520, 2, 64), 29)],
+                      "K": [_randn((1, 520, 2, 64), 31)],
+                      "V": [_randn((1, 520, 2, 64), 32)]},
+        {"Out": 1}, {"causal": True, "scale": 0.125, "dropout_rate": 0.0,
+                     "layout": "bthd"}, ["Out0"]),
+    "attention_flash_cross": (
+        "attention", {"Q": [_randn((1, 520, 2, 64), 33)],
+                      "K": [_randn((1, 600, 2, 64), 34)],
+                      "V": [_randn((1, 600, 2, 64), 35)]},
+        {"Out": 1}, {"causal": False, "scale": 0.125, "dropout_rate": 0.0,
+                     "layout": "bthd"}, ["Out0"]),
     "split": ("split", {"X": [_randn((2, 3, 12), 17)]}, {"Out": 3},
               {"num": 3, "sections": [], "axis": 2}, ["Out0", "Out2"]),
     "relu": ("relu", {"X": [_randn((3, 7), 18, 1.0, 0.05)]}, {"Out": 1}, {},
@@ -312,11 +332,127 @@ def test_layer_norm_grad_recomputes_with_the_plain_version(monkeypatch):
     test_grad_op_matches_reference("layer_norm")
 
 
-def test_forward_only_attention_kernel_raises_when_differentiated():
-    q = torch.from_numpy(_randn((1, 2, 8, 16), 65))
+# ---------------------------------------------------------------------------
+# the attention kernels' autograd Functions, with their launches replaced
+# by the plain versions (the kernels run only on the card)
+# ---------------------------------------------------------------------------
+def _plain_launches(monkeypatch):
+    """Replace the forward launches and the backward wrappers by their
+    plain versions, recording each call: ("fwd", residual?) or ("bwd",).
+    Like a kernel launch, each reads the storage of its tensors (a
+    tensor wrapped by torch.func has none)."""
+    calls = []
+
+    def touch(args):
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                a.data_ptr()
+
+    def sdpa(q, k, v, scale, causal, save_p):
+        touch((q, k, v))
+        calls.append(("fwd", save_p))
+        return KA.sdpa_short_plain(q, k, v, scale, causal, save_p=save_p)
+
+    def flash(q, k, v, scale, causal, with_lse):
+        touch((q, k, v))
+        calls.append(("fwd", with_lse))
+        return KA.flash_attention_plain(q, k, v, scale, causal,
+                                        with_lse=with_lse)
+
+    def bwd(plain):
+        def run(*a):
+            touch(a)
+            calls.append(("bwd",))
+            return plain(*a)
+        return run
+
+    monkeypatch.setattr(KA, "_sdpa_short_launch", sdpa)
+    monkeypatch.setattr(KA, "_flash_attention_launch", flash)
+    monkeypatch.setattr(KA, "sdpa_short_bwd", bwd(KA.sdpa_short_bwd_plain))
+    monkeypatch.setattr(KA, "flash_attention_bwd",
+                        bwd(KA.flash_attention_bwd_plain))
+    return calls
+
+
+_FNS = {"sdpa_short": (KA.SdpaShortFn, "_sdpa_short_launch", 6, 6),
+        "flash": (KA.FlashAttentionFn, "_flash_attention_launch", 8, 4)}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", sorted(_FNS))
+def test_attention_function_vjp_matches_reference(monkeypatch, kind, causal):
+    """`torch.func.vjp` through the card's path (`_on_card`) under the
+    Executor's no_grad: the forward launch writes its residual once, the
+    backward launch runs once per vjp, and the grads are the vjp of
+    `reference_attention` (flash with tq > tk causal: rows that see no
+    key). Without a vjp the same path is the primal launch, with no
+    residual."""
+    calls = _plain_launches(monkeypatch)
+    fn, launch, tq, tk = _FNS[kind]
+    q = torch.from_numpy(_randn((2, 2, tq, 16), 70))
+    k = torch.from_numpy(_randn((2, 2, tk, 16), 71))
+    v = torch.from_numpy(_randn((2, 2, tk, 16), 72))
+    g = torch.from_numpy(_randn((2, 2, tq, 16), 73))
+
+    def on_card(a, b, c):
+        return KA._on_card(fn, getattr(KA, launch), a, b, c, 0.25, causal)
+
     with torch.no_grad():
-        out, vjp = torch.func.vjp(
-            lambda a: KA.ForwardOnly.apply(KA.flash_attention_plain, a, q,
-                                           q, 0.25, True), q)
-        with pytest.raises(NotImplementedError, match="#3/#4"):
-            vjp(torch.ones_like(out))
+        primal = on_card(q, k, v)
+        assert calls == [("fwd", False)]
+        out, vjp = torch.func.vjp(on_card, q, k, v)
+        assert calls[1:] == [("fwd", True)]
+        got = vjp(g)
+        assert calls[2:] == [("bwd",)]
+        want_out, want_vjp = torch.func.vjp(
+            lambda a, b, c: KA.reference_attention(a, b, c, 0.25, causal),
+            q, k, v)
+        want = want_vjp(g)
+    torch.testing.assert_close(primal, want_out, rtol=0, atol=0)
+    torch.testing.assert_close(out, want_out, rtol=0, atol=0)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, b, **TOL, msg=name)
+
+
+@pytest.mark.parametrize("case", ["attention_sdpa_short_causal",
+                                  "attention_flash_causal",
+                                  "attention_flash_cross"])
+def test_attention_op_through_the_kernel_path(monkeypatch, case):
+    """The attention op and its grad op as the Executor runs them (under
+    no_grad), with the wrappers sent down their card path and the
+    launches replaced by the plain versions: the forward op launches the
+    primal kernel with no residual; the grad op recomputes the forward
+    with its residual and runs the backward once; the grads equal the
+    reference's grad op."""
+    op_type, inputs, outputs, attrs, cot_outs = GRAD_CASES[case]
+    jop = _build_op(jf, op_type, inputs, outputs, attrs)
+    pop = _build_op(pf, op_type, inputs, outputs, attrs)
+    calls = _plain_launches(monkeypatch)
+    monkeypatch.setattr(KA, "sdpa_short", lambda *a: KA._on_card(
+        KA.SdpaShortFn, KA._sdpa_short_launch, *a))
+    monkeypatch.setattr(KA, "flash_attention", lambda *a: KA._on_card(
+        KA.FlashAttentionFn, KA._flash_attention_launch, *a))
+    env = {f"{s}{i}": torch.from_numpy(a) for s, arrs in inputs.items()
+           for i, a in enumerate(arrs)}
+    with torch.no_grad():
+        p_registry.run_op(pop, env, CPU)
+    assert calls == [("fwd", False)]
+    fwd_env = {f"{s}{i}": _jax_array(a) for s, arrs in inputs.items()
+               for i, a in enumerate(arrs)}
+    j_registry.run_op(jop, fwd_env)
+    np.testing.assert_allclose(env["Out0"].numpy(),
+                               np.asarray(fwd_env["Out0"]), **TOL)
+    cots = {"Out0": _randn(np.shape(fwd_env["Out0"]), 74)}
+    want = _run_grads(jf, j_registry, _jax_array, jop, inputs, cots,
+                      lambda op, env: j_registry.run_op(op, env))
+
+    def run(op, env):
+        with torch.no_grad():
+            p_registry.run_op(op, env, CPU)
+
+    got = _run_grads(pf, p_registry, torch.from_numpy, pop, inputs, cots,
+                     run)
+    assert calls[1:] == [("fwd", True), ("bwd",)]
+    assert sorted(got) == sorted(want) and want
+    for n in want:
+        np.testing.assert_allclose(got[n], want[n], err_msg=n, **TOL)

@@ -101,6 +101,142 @@ def test_flash_plain_matches_pallas_interpret(jax_ref, tq, tk, causal):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("tq,tk,causal", [(64, 64, False), (64, 64, True),
+                                          (32, 64, True)])
+def test_flash_lse_plain_matches_pallas_interpret(jax_ref, tq, tk, causal):
+    """The per-row logsumexp that the forward writes for the backward
+    (`_flash_fwd_impl`'s second output)."""
+    from paddle_tpu.ops.pallas import attention as jattn
+
+    q = _randn(1, 2, tq, 64, seed=7)
+    k, v = _randn(1, 2, tk, 64, seed=8), _randn(1, 2, tk, 64, seed=9)
+    jattn.force_interpret(True)
+    try:
+        want_out, want_lse = jattn._flash_fwd_impl(q, k, v, 0.125, causal)
+    finally:
+        jattn.force_interpret(False)
+    out, lse = KA.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                        0.125, causal, with_lse=True)
+    assert lse.shape == (1, 2, tq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(64, 64, False), (64, 64, True),
+                                          (32, 64, True)])
+def test_flash_bwd_plain_matches_pallas_interpret(jax_ref, tq, tk, causal):
+    """(dq, dk, dv) from the same (q, k, v, out, lse, g) as
+    `_flash_bwd_impl` (its `_bwd_dq_kernel` and `_bwd_dkv_kernel`)."""
+    from paddle_tpu.ops.pallas import attention as jattn
+
+    q, g = _randn(1, 2, tq, 64, seed=7), _randn(1, 2, tq, 64, seed=10)
+    k, v = _randn(1, 2, tk, 64, seed=8), _randn(1, 2, tk, 64, seed=9)
+    jattn.force_interpret(True)
+    try:
+        out, lse = jattn._flash_fwd_impl(q, k, v, 0.125, causal)
+        want = jattn._flash_bwd_impl(q, k, v, out, lse, g, 0.125, causal)
+    finally:
+        jattn.force_interpret(False)
+    got = KA.flash_attention_bwd_plain(
+        *map(torch.from_numpy, (q, k, v, np.array(out), np.array(lse), g)),
+        0.125, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=ATOL, err_msg=name)
+
+
+def _sdpa_interpret(causal, seed=4):
+    """[1,8,264,64] inputs, `_sdpa_short_fwd_impl(save_p=True)` and
+    `_sdpa_short_bwd_impl` in interpret mode: (q, k, v, g, out, bf16 P,
+    (dq, dk, dv))."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.pallas import attention as jattn
+
+    # B*H is a multiple of 8: the TPU kernels group 8 and 4 heads a program
+    q, k, v, g = (_randn(1, 8, 264, 64, seed=seed + i) for i in range(4))
+    jattn.force_interpret(True)
+    try:
+        out, p = jattn._sdpa_short_fwd_impl(q, k, v, 0.125, causal,
+                                            save_p=True)
+        grads = jattn._sdpa_short_bwd_impl(q, k, v, p, g, 0.125, causal)
+    finally:
+        jattn.force_interpret(False)
+    return q, k, v, g, out, np.array(p.astype(jnp.float32)), grads
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_short_p_plain_matches_pallas_interpret(jax_ref, causal):
+    """The saved probabilities: the TPU kernel rounds them to bf16, the
+    port keeps fp32, so they agree within half a bf16 ulp (bf16 keeps 8
+    significant bits: 2^-8 relative), plus 1e-6 for the two fp32
+    softmaxes' summation order."""
+    q, k, v, _, out, want_p, _ = _sdpa_interpret(causal)
+    got, p = KA.sdpa_short_plain(*map(torch.from_numpy, (q, k, v)), 0.125,
+                                 causal, save_p=True)
+    assert p.shape == (8, 264, 264) and p.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(out), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(p.numpy(), want_p, rtol=2 ** -8 + 1e-6,
+                               atol=0)
+    if causal:
+        assert (p.numpy()[:, np.triu_indices(264, 1)[0],
+                          np.triu_indices(264, 1)[1]] == 0).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_short_bwd_plain_matches_pallas_interpret(jax_ref, causal):
+    """(dq, dk, dv) from the same bf16 P, cast to fp32 on the port's
+    side, so only the summation order differs."""
+    q, k, v, g, _, p, want = _sdpa_interpret(causal, seed=20)
+    got = KA.sdpa_short_bwd_plain(*map(torch.from_numpy, (q, k, v, p, g)),
+                                  0.125, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("kind,tq,tk,causal", [
+    ("flash", 8, 4, True),      # rows 0..3 see no key
+    ("flash", 6, 6, False), ("flash", 5, 9, True),
+    ("sdpa_short", 6, 6, True), ("sdpa_short", 6, 6, False)])
+def test_attention_bwd_plain_matches_autograd(kind, tq, tk, causal):
+    """Each plain backward is the gradient of the port's forward,
+    `reference_attention` (finfo.min masking) under torch autograd,
+    fully masked rows included: there dv takes g / tk and dq and the
+    row's share of dk are 0."""
+    q = torch.from_numpy(_randn(2, 2, tq, 16, seed=30))
+    k = torch.from_numpy(_randn(2, 2, tk, 16, seed=31))
+    v = torch.from_numpy(_randn(2, 2, tk, 16, seed=32))
+    g = torch.from_numpy(_randn(2, 2, tq, 16, seed=33))
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(
+        K.reference_attention(qr, kr, vr, 0.25, causal), (qr, kr, vr), g)
+    if kind == "flash":
+        out, lse = KA.flash_attention_plain(q, k, v, 0.25, causal,
+                                            with_lse=True)
+        got = KA.flash_attention_bwd_plain(q, k, v, out, lse, g, 0.25,
+                                           causal)
+    else:
+        _, p = KA.sdpa_short_plain(q, k, v, 0.25, causal, save_p=True)
+        got = KA.sdpa_short_bwd_plain(q, k, v, p, g, 0.25, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=name)
+    if tq > tk and causal:
+        # a cotangent on the blind rows alone: every key's dv is their
+        # sum / tk, and no other grad moves
+        gb = torch.zeros_like(g)
+        gb[:, :, :tq - tk] = g[:, :, :tq - tk]
+        dq, dk, dv = KA.flash_attention_bwd_plain(q, k, v, out, lse, gb,
+                                                  0.25, causal)
+        assert (dq == 0).all() and (dk == 0).all()
+        torch.testing.assert_close(
+            dv, gb.sum(2, keepdim=True).expand_as(dv) / tk, rtol=0,
+            atol=1e-7)
+
+
 @pytest.mark.parametrize("tq,tk,causal", [(6, 6, False), (6, 6, True),
                                           (8, 4, True)])
 def test_reference_attention_matches_paddle_tpu(jax_ref, tq, tk, causal):
@@ -209,6 +345,37 @@ def test_wrappers_answer_meta_with_shapes_only():
     loss, lse = KX.xent_forward(x, lab)
     assert loss.shape == lse.shape == (7,) and loss.dtype == torch.float32
     assert KX.xent_backward(x, lab, loss).shape == x.shape
+
+
+def test_backward_wrappers_run_plain_on_cpu_and_answer_meta():
+    """The backward wrappers dispatch like the forward ones: the plain
+    version on the CPU with no launch counted, shapes alone on meta."""
+    q, k, v, g = (torch.from_numpy(_randn(1, 2, 40, 64, seed=i))
+                  for i in range(40, 44))
+    before = (KA.sdpa_short_bwd.launches, KA.flash_bwd_dq.launches,
+              KA.flash_bwd_dkv.launches)
+    _, p = KA.sdpa_short_plain(q, k, v, 0.125, True, save_p=True)
+    for got, want in zip(KA.sdpa_short_bwd(q, k, v, p, g, 0.125, True),
+                         KA.sdpa_short_bwd_plain(q, k, v, p, g, 0.125)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    out, lse = KA.flash_attention_plain(q, k, v, 0.125, True, with_lse=True)
+    delta = KA.flash_delta(out, g)
+    got = (KA.flash_bwd_dq(q, k, v, g, lse, delta, 0.125, True),
+           *KA.flash_bwd_dkv(q, k, v, g, lse, delta, 0.125, True))
+    for a, b in zip(got, KA.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                                      0.125, True)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (KA.sdpa_short_bwd.launches, KA.flash_bwd_dq.launches,
+            KA.flash_bwd_dkv.launches) == before
+    meta = torch.device("meta")
+    q = torch.empty(7, 8, 1024, 64, device=meta)
+    lse = torch.empty(7, 8, 1024, device=meta)
+    assert KA.flash_bwd_dq(q, q, q, q, lse, lse, 0.125).shape == q.shape
+    assert all(x.shape == q.shape for x in KA.flash_bwd_dkv(
+        q, q, q, q, lse, lse, 0.125))
+    p = torch.empty(56, 1024, 1024, device=meta)
+    assert all(x.shape == q.shape for x in KA.sdpa_short_bwd(
+        q, q, q, p, q, 0.125))
 
 
 # ---------------------------------------------------------------------------
@@ -338,12 +505,73 @@ def test_xent_kernels_match_plain(cuda, n, v, eps, dtype):
     assert (dx[lab == -100] == 0).all() and (loss[lab == -100] == 0).all()
 
 
+# the backward kernels against their plain versions: fp32 sums over up to
+# 1024 keys or queries in another order, about sqrt(n) roundings of the
+# largest term, 2e-6 of the largest grad; the limit is 1e-5 of it. A
+# planted fault (lse off by 1e-3) moves the grads by ~1e-3 of it.
+BWD_RTOL = 1e-5
+
+
+def _close_to_scale(got, want, rtol=BWD_RTOL):
+    scale = float(want.abs().max())
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= rtol * scale, (
+        float((got - want).abs().max()), scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,d,causal", [
+    (2, 8, 512, 64, False), (2, 8, 512, 64, True), (1, 4, 300, 128, True)])
+def test_sdpa_short_residual_and_bwd_kernels_match_plain(cuda, b, h, t, d,
+                                                         causal):
+    q, k, v, g = (_cuda_randn(cuda, b, h, t, d, seed=s)
+                  for s in (7, 8, 9, 10))
+    out, p = KA._sdpa_short_launch(q, k, v, d ** -0.5, causal, True)
+    wout, wp = KA.sdpa_short_plain(q, k, v, d ** -0.5, causal, save_p=True)
+    torch.testing.assert_close(out, wout, rtol=0, atol=2e-5)
+    torch.testing.assert_close(p, wp, rtol=0, atol=1e-6)
+    before = KA.sdpa_short_bwd.launches
+    got = KA.sdpa_short_bwd(q, k, v, p, g, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert KA.sdpa_short_bwd.launches == before + 1
+    for a, w in zip(got, KA.sdpa_short_bwd_plain(q, k, v, p, g, d ** -0.5)):
+        _close_to_scale(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,d,causal", [
+    (2, 8, 1024, 1024, 64, False), (2, 8, 1024, 1024, 64, True),
+    (1, 4, 96, 1024, 64, True), (1, 2, 100, 40, 128, True),
+    (1, 2, 600, 600, 256, True)])
+def test_flash_residual_and_bwd_kernels_match_plain(cuda, b, h, tq, tk, d,
+                                                    causal):
+    q, g = (_cuda_randn(cuda, b, h, tq, d, seed=s) for s in (10, 13))
+    k = _cuda_randn(cuda, b, h, tk, d, seed=11)
+    v = _cuda_randn(cuda, b, h, tk, d, seed=12)
+    scale = d ** -0.5
+    out, lse = KA._flash_attention_launch(q, k, v, scale, causal, True)
+    wout, wlse = KA.flash_attention_plain(q, k, v, scale, causal,
+                                          with_lse=True)
+    torch.testing.assert_close(out, wout, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lse, wlse, rtol=1e-6, atol=1e-5)
+    before = KA.flash_bwd_dq.launches, KA.flash_bwd_dkv.launches
+    got = KA.flash_attention_bwd(q, k, v, out, lse, g, scale, causal)
+    torch.cuda.synchronize()
+    assert (KA.flash_bwd_dq.launches, KA.flash_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for a, w in zip(got, KA.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                                      scale, causal)):
+        _close_to_scale(a, w)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("t", [384, 1024])
-def test_attention_grad_raises_on_the_card_where_a_kernel_ran(cuda, t):
-    """sdpa_short (256 < T <= 512) and flash (T > 512) have no backward
-    kernel yet: the attention grad op raises instead of returning the
-    zero or missing grads of an output without a graph."""
+def test_attention_grad_on_the_card_matches_plain(cuda, t):
+    """sdpa_short (256 < T <= 512) and flash (T > 512): the attention
+    grad op on the card recomputes the forward kernel with its residual
+    and launches the backward kernel(s); its grads equal the same grad
+    op on the CPU, which takes the plain versions. The forward op, under
+    no_grad as the Executor runs it, launches the primal kernel once."""
     import paddle_tpu_torch as pf
     from paddle_tpu_torch.core import registry
 
@@ -357,8 +585,22 @@ def test_attention_grad_raises_on_the_card_where_a_kernel_ran(cuda, t):
     (gop,) = registry.make_grad_ops(op)
     env = {n: _cuda_randn(cuda, 1, t, 2, 64, seed=i)
            for i, n in enumerate(("Q", "K", "V", "O@GRAD"))}
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="#6"):
+    cpu_env = {n: x.cpu() for n, x in env.items()}
+    fwd = KA.sdpa_short if t <= 512 else KA.flash_attention
+    bwd = (KA.sdpa_short_bwd,) if t <= 512 else (KA.flash_bwd_dq,
+                                                 KA.flash_bwd_dkv)
+    before = fwd.launches, [k.launches for k in bwd]
+    with torch.no_grad():
+        registry.run_op(op, env, cuda)
+        torch.cuda.synchronize()
+        assert fwd.launches == before[0] + 1
         registry.run_op(gop, env, cuda)
+        registry.run_op(gop, cpu_env, torch.device("cpu"))
+    torch.cuda.synchronize()
+    assert fwd.launches == before[0] + 2
+    assert [k.launches for k in bwd] == [n + 1 for n in before[1]]
+    for n in ("Q@GRAD", "K@GRAD", "V@GRAD"):
+        _close_to_scale(env[n].cpu(), cpu_env[n])
 
 
 @pytest.mark.gpu

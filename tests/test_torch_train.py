@@ -165,6 +165,44 @@ def test_adam_training_matches_reference(adam_pair):
     assert (KX.xent_forward.launches, KX.xent_backward.launches) == launches
 
 
+# long sequences: head dim 64 and fp32, so the port routes every attention
+# op of the program to a kernel wrapper (on the CPU its plain version):
+# seq 264 to sdpa_short (tq == tk in (256, 512]), seq 520 to flash
+LONG_CFG = dict(d_model=128, n_heads=2, n_layers=1, d_inner=256, vocab=256,
+                dropout_rate=0.0)
+LONG_BATCH = 2
+LONG_STEPS = 3
+
+
+@pytest.mark.parametrize("seq_len", [264, 520])
+def test_long_sequence_training_matches_reference(seq_len):
+    """Adam steps of a d128, 2-head, 1+1-layer Transformer at a routed
+    length against the JAX package's composition path: losses within
+    1e-5 relative, every parameter's step-1 grad within 1e-5 norm-wise."""
+    p = _pair(lambda pkg, T: T.build_program(
+        seq_len=seq_len, warmup_steps=WARMUP, **LONG_CFG))
+    rs = np.random.RandomState(seq_len)
+    feed = {k: rs.randint(0, LONG_CFG["vocab"], (LONG_BATCH, seq_len))
+            .astype("int64") for k in ("src_ids", "tgt_ids", "label")}
+    params = [v.name for v in p["pmain"].all_parameters()]
+    fetch = [p["jcost"].name] + [g + "@GRAD" for g in params]
+    jl, pl = [], []
+    for step in range(LONG_STEPS):
+        jout = p["jexe"].run(p["jmain"], feed=feed,
+                             fetch_list=fetch if step == 0 else [p["jcost"]],
+                             scope=p["jscope"])
+        pout = p["pexe"].run(p["pmain"], feed=feed,
+                             fetch_list=fetch if step == 0 else [p["pcost"]],
+                             scope=p["pscope"])
+        jl.append(float(np.asarray(jout[0]).reshape(())))
+        pl.append(float(np.asarray(pout[0]).reshape(())))
+        if step == 0:
+            for name, a, b in zip(fetch[1:], pout[1:], jout[1:]):
+                assert _rel(a, np.asarray(b)) <= 1e-5, name
+    np.testing.assert_allclose(pl, jl, rtol=1e-5, atol=0)
+    assert jl[-1] < jl[0], jl
+
+
 def _sgd_program(pkg, T):
     main, startup = pkg.Program(), pkg.Program()
     with pkg.program_guard(main, startup):
