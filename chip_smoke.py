@@ -20,8 +20,15 @@ Phases (a failing phase fails the script; none is caught):
    the training shapes, causal and not, flash also at d 128 and 256,
    tq < tk and rows that see no key, each grad held against the largest
    |plain| of it, which planted faults, an lse off by 1e-3, a dropped
-   delta and a P off by 1e-3, must fail), with its time, the plain
-   version's time, one PyTorch library call's time as a yardstick, and
+   delta and a P off by 1e-3, must fail; the fused-block kernels,
+   attention_block with its saved P and its backward, ffn_block and its
+   backward, at the training shape, causal and not, and at a small one,
+   each output and grad held against the largest |plain| of it, which
+   planted faults, a P off by 1e-3, dWo computed from g transposed, b1
+   left out of the FFN backward's recompute and the ReLU mask inverted on
+   one column, must fail), with its time, the plain version's time, one
+   PyTorch library call's time as a yardstick (for the fused blocks, the
+   composition of library calls that computes the same function), and
    the least time the card could take (the larger of bytes / 3.35 TB/s
    and fp32 operations / 67 TFLOP/s, the H100 SXM data-sheet peaks);
 4. slice: Transformer-base (d_model 512, 8 heads, 6+6 layers, d_inner
@@ -41,8 +48,9 @@ Phases (a failing phase fails the script; none is caught):
    and of the encoder plus one step (so one decode step's time), and
    one batch under torch.profiler (the card's busy time, its idle share
    and the kernels that took most of it).
-5-7. train: Transformer-base's training program (transformer.build_program:
-   vocab 32000, dropout 0, Adam under noam decay), random weights from a
+5-7. train: Transformer-base's training program (transformer.build_program
+   with PADDLE_TPU_FUSE_ATTN_BLOCK cleared: vocab 32000, dropout 0, Adam
+   under noam decay), random weights from a
    seed and random token ids, in fp32 at 16384 target tokens a step:
    seq 256 at batch 64 (plain attention), seq 512 at batch 32 (every
    attention op on sdpa_short and its backward kernel) and seq 1024 at
@@ -61,10 +69,24 @@ Phases (a failing phase fails the script; none is caught):
    in its grad op's recompute, and its backward kernel(s) once), the
    loss finite at each: the step time (best of 3 after a warm-up),
    tokens/s, peak memory, and one step under torch.profiler.
+8. train fused: phase 5's configuration built with
+   PADDLE_TPU_FUSE_ATTN_BLOCK=1 set around transformer.build_program:
+   each of the 12 self-attention sub-layers is one attention_block op and
+   each of the 12 FFNs one ffn_block op (the 6 cross-attention ops stay
+   attention ops, on the plain composition at seq 256). Parity on 2 rows
+   against the CPU: the loss, logits.w and the grads above every FFN ReLU
+   within 1e-5, the grads below them within 1e-3 (the ReLU masks live
+   inside the kernels: the phase reports the units whose pre-activation
+   has another sign on the card), and a planted fault, the decoder's
+   causal flag dropped in the card's run, must fail every grad limit.
+   Then 5 Adam steps through the fused kernels (each op launches its
+   forward kernel twice a step, in the forward op and, attention_block
+   saving P, in its grad op's recompute, and its backward kernel once),
+   timed and profiled as phases 5-7, beside phase 5's unfused step.
 
 The script prints its whole wall time; the second-to-last line lists
 the kernels as JSON, each with its launches on the serving (`served`)
-and training (`trained`, the three phases together) paths; the last
+and training (`trained`, phases 5-8 together) paths; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result.
 """
@@ -89,7 +111,9 @@ from paddle_tpu_torch.inference import serving  # noqa: E402
 from paddle_tpu_torch.models import decode_engine  # noqa: E402
 from paddle_tpu_torch.models import transformer  # noqa: E402
 from paddle_tpu_torch.ops.kernels import attention as KA  # noqa: E402
+from paddle_tpu_torch.ops.kernels import attention_block as KAB  # noqa: E402
 from paddle_tpu_torch.ops.kernels import build  # noqa: E402
+from paddle_tpu_torch.ops.kernels import ffn_block as KFF  # noqa: E402
 from paddle_tpu_torch.ops.kernels import layer_norm as KL  # noqa: E402
 from paddle_tpu_torch.ops.kernels import xent as KX  # noqa: E402
 
@@ -148,6 +172,32 @@ TRAIN_GRADS = {"logits.w": 1e-5, "src_word_emb": 1e-3,
                "tgt_word_emb": 1e-3, "enc0_a_ln.w": 1e-3,
                "dec0_a_ln.w": 1e-3}
 PINNED_GRADS = dict.fromkeys(TRAIN_GRADS, 1e-5)
+# phase 8, the fused-block path (PADDLE_TPU_FUSE_ATTN_BLOCK=1, read when
+# the program is built): card vs CPU norm-wise. logits.w and the grads of
+# the last decoder layer's FFN output and add-norm lie above every FFN
+# ReLU (1e-5); the others below them, where a unit within rounding of
+# zero flips between two fp32 runs and moves them by ~1e-4 (phase 5's
+# unpinned limit, 1e-3). The ReLU
+# masks live inside the ffn_block kernels, so nothing is pinned here: the
+# phase reports the units whose pre-activation, recomputed in float64
+# from each run's fetched ffn_block input, has another sign on the card
+# than on the CPU.
+FUSE_KNOB = "PADDLE_TPU_FUSE_ATTN_BLOCK"
+FUSED_GRADS = {"logits.w": 1e-5, "dec5_c_ln.w": 1e-5, "dec5_fc2.w": 1e-5,
+               "dec5_fc2.b": 1e-5, "dec5_fc1.w": 1e-3,
+               "dec5_self_qkv.w": 1e-3, "dec0_self_out.w": 1e-3,
+               "enc0_self_qkv.w": 1e-3, "enc0_fc1.b": 1e-3,
+               "src_word_emb": 1e-3, "tgt_word_emb": 1e-3}
+# the fused-block kernels against their plain versions: each output and
+# grad, max |got - plain| over its largest |plain| (the products sum over
+# up to B*T = 16384 rows in another order); planted faults must exceed it
+FUSED_RTOL = 1e-5
+# the training program's kernels, whose launches every training phase
+# counts
+TRAIN_KERNELS = (KX.xent_forward, KX.xent_backward, KL.layer_norm,
+                 KA.sdpa_short, KA.sdpa_short_bwd, KA.flash_attention,
+                 KA.flash_bwd_dq, KA.flash_bwd_dkv, KAB.attention_block,
+                 KAB.attention_block_bwd, KFF.ffn_block, KFF.ffn_block_bwd)
 
 _CSRC = "paddle_tpu_torch/ops/kernels/csrc/"
 _PALLAS = "paddle_tpu/ops/pallas/"
@@ -166,6 +216,12 @@ KERNEL_META = {
                      _PALLAS + "attention.py:197"),
     "flash_bwd_dkv": (_CSRC + "flash_attention_bwd.cu",
                       _PALLAS + "attention.py:216"),
+    "attention_block": (_CSRC + "attention_block.cu",
+                        _PALLAS + "attention_block.py:163"),
+    "attention_block_bwd": (_CSRC + "attention_block.cu",
+                            _PALLAS + "attention_block.py:228"),
+    "ffn_block": (_CSRC + "ffn_block.cu", _PALLAS + "ffn_block.py:108"),
+    "ffn_block_bwd": (_CSRC + "ffn_block.cu", _PALLAS + "ffn_block.py:157"),
 }
 
 
@@ -517,6 +573,217 @@ def _attn_bwd_entries():
     return out
 
 
+def _fused_inputs(b, t, d, f, seed):
+    """x and the cotangent g [b, t, d], the attention block's Wqkv and Wo
+    and the FFN's W1, b1, W2, b2, scaled as Xavier-like initial weights."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    return dict(x=r(b, t, d), g=r(b, t, d), wqkv=r(d, 3 * d, scale=d ** -0.5),
+                wo=r(d, d, scale=d ** -0.5), w1=r(d, f, scale=d ** -0.5),
+                b1=r(f, scale=0.1), w2=r(f, d, scale=f ** -0.5),
+                b2=r(d, scale=0.1))
+
+
+def _lib_attention_block(x, wqkv, wo, h, scale):
+    """The attention block as library calls: cuBLAS products around
+    torch's fused SDPA (math backend forbidden). Timed only."""
+    b, t, d = x.shape
+    q, k, v = (z.reshape(b, t, h, -1).transpose(1, 2)
+               for z in (x @ wqkv).split(d, dim=2))
+    return _lib_sdpa(q, k, v, scale).transpose(1, 2).reshape(b, t, d) @ wo
+
+
+def _lib_ffn(x, w1, b1, w2, b2):
+    """The FFN block as library calls: addmm, relu, addmm. Timed only."""
+    x2 = x.reshape(-1, x.shape[-1])
+    return torch.addmm(b2, torch.relu(torch.addmm(b1, x2, w1)),
+                       w2).reshape(x.shape)
+
+
+def _ffn_bwd_mask_flipped(x, w1, b1, w2, g, col):
+    """The plain FFN backward with the ReLU's mask inverted on hidden
+    column `col`: a planted fault for the grad check."""
+    d = w1.shape[0]
+    x2, g2 = x.reshape(-1, d), g.reshape(-1, d)
+    pre = x2 @ w1 + b1
+    mask = pre > 0
+    mask[:, col] = ~mask[:, col]
+    dh = torch.where(mask, g2 @ w2.T, 0.0)
+    return ((dh @ w1.T).reshape(x.shape), x2.T @ dh, dh.sum(0),
+            torch.relu(pre).T @ g2, g2.sum(0))
+
+
+def _fused_entries():
+    """The fused-block kernels against their plain versions: the training
+    path's shape (B 64, T 256, D 512, H 8, F 2048), causal and not, and a
+    small one (B 3, T 16, D 64, H 2: Dh 32, F 96). Each output and grad
+    within FUSED_RTOL of its largest |plain|, saved P within P_TOL.
+    Planted faults must fail the grad check: P off by 1e-3, dWo computed
+    from g transposed (dWo^T), b1 left out of the FFN backward's
+    recompute, the ReLU mask inverted on one hidden column. Then times at
+    the training shape, non-causal, beside each kernel's bound (its
+    products, 2 flops a multiply-add, over 67 TFLOP/s, against its bytes
+    over 3.35 TB/s), its plain version and its composition of library
+    calls (no single PyTorch call computes these functions)."""
+    errs = {n: [] for n in ("attention_block", "attention_block_bwd",
+                            "ffn_block", "ffn_block_bwd")}
+    p_errs = []
+    bt, t_, d_, h_, f_ = TRAIN_TOKENS // 256, 256, 512, 8, 2048
+    for i, (b, t, d, h, f, causal) in enumerate((
+            (bt, t_, d_, h_, f_, False), (bt, t_, d_, h_, f_, True),
+            (3, 16, 64, 2, 96, True))):
+        a = _fused_inputs(b, t, d, f, seed=80 + i)
+        x, g, wqkv, wo = a["x"], a["g"], a["wqkv"], a["wo"]
+        scale = (d // h) ** -0.5
+        out, p = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal,
+                                             True)
+        got = KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale, causal)
+        wout, wp = KAB.attention_block_fwd_plain(x, wqkv, wo, h, scale,
+                                                 causal, save_p=True)
+        want = KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h, scale)
+        torch.cuda.synchronize()
+        r_out, ep = _bwd_ratio((out,), (wout,)), max_err(p, wp)
+        r = _bwd_ratio(got, want)
+        faults = {
+            "P off by 1e-3": _bwd_ratio(KAB.attention_block_bwd(
+                x, wqkv, wo, p * (1 - 1e-3), g, h, scale, causal), want),
+            "dWo from g transposed": _bwd_ratio(
+                (*got[:2], got[2].T.contiguous()), want)}
+        log(f"  attention_block+P [{b},{t},{d}] H {h} causal={causal}: out "
+            f"|d - plain| / max|plain| {r_out:.3e} (tol {FUSED_RTOL:g}), P "
+            f"max_abs_err {ep:.3e} (tol {P_TOL:g}); attention_block_bwd "
+            f"worst {r:.3e} (tol {FUSED_RTOL:g}); planted faults "
+            + ", ".join(f"{n}: {e:.3e}" for n, e in faults.items())
+            + " (must exceed the tol)")
+        assert all(torch.isfinite(z).all() for z in (out, *got))
+        assert r_out <= FUSED_RTOL and ep <= P_TOL and r <= FUSED_RTOL, (
+            r_out, ep, r)
+        for n, e in faults.items():
+            assert e > FUSED_RTOL, f"the attention_block_bwd check cannot " \
+                f"see {n}"
+        errs["attention_block"].append((max_err(out, wout), r_out))
+        errs["attention_block_bwd"].append(
+            (max(max_err(z, w) for z, w in zip(got, want)), r))
+        p_errs.append(ep)
+        del out, p, got, wout, wp, want
+        if causal and d == d_:
+            continue  # the FFN has no causal form
+        w1, b1, w2, b2 = a["w1"], a["b1"], a["w2"], a["b2"]
+        out = KFF.ffn_block(x, w1, b1, w2, b2)
+        got = KFF.ffn_block_bwd(x, w1, b1, w2, g)
+        wout = KFF.ffn_block_plain(x, w1, b1, w2, b2)
+        want = KFF.ffn_block_bwd_plain(x, w1, b1, w2, g)
+        torch.cuda.synchronize()
+        r_out, r = _bwd_ratio((out,), (wout,)), _bwd_ratio(got, want)
+        faults = {
+            "b1 left out of the recompute": _bwd_ratio(KFF.ffn_block_bwd(
+                x, w1, torch.zeros_like(b1), w2, g), want),
+            "ReLU mask inverted on one column": _bwd_ratio(
+                _ffn_bwd_mask_flipped(x, w1, b1, w2, g, f // 3), want)}
+        log(f"  ffn_block [{b},{t},{d}] F {f}: out |d - plain| / "
+            f"max|plain| {r_out:.3e} (tol {FUSED_RTOL:g}); ffn_block_bwd "
+            f"worst {r:.3e} (tol {FUSED_RTOL:g}); planted faults "
+            + ", ".join(f"{n}: {e:.3e}" for n, e in faults.items())
+            + " (must exceed the tol)")
+        assert all(torch.isfinite(z).all() for z in (out, *got))
+        assert r_out <= FUSED_RTOL and r <= FUSED_RTOL, (r_out, r)
+        for n, e in faults.items():
+            assert e > FUSED_RTOL, f"the ffn_block_bwd check cannot see {n}"
+        errs["ffn_block"].append((max_err(out, wout), r_out))
+        errs["ffn_block_bwd"].append(
+            (max(max_err(z, w) for z, w in zip(got, want)), r))
+        del a, out, got, wout, want
+
+    # times at the training shape, non-causal
+    a = _fused_inputs(bt, t_, d_, f_, seed=90)
+    x, g, wqkv, wo = a["x"], a["g"], a["wqkv"], a["wo"]
+    w1, b1, w2, b2 = a["w1"], a["b1"], a["w2"], a["b2"]
+    b, t, d, h, f = bt, t_, d_, h_, f_
+    scale = (d // h) ** -0.5
+    n_x, n_p, n_h = b * t * d, b * h * t * t, b * t * f
+    gemm = 2 * b * t * d  # flops of one product of the rows by a [d, 1]
+    _, p = KAB._attention_block_launch(x, wqkv, wo, h, scale, False, True)
+    tracked = {k: v.detach().requires_grad_() for k, v in a.items()
+               if k != "g"}
+    lib_attn = _lib_attention_block(tracked["x"], tracked["wqkv"],
+                                    tracked["wo"], h, scale)
+    lib_ffn = _lib_ffn(*(tracked[k] for k in ("x", "w1", "b1", "w2", "b2")))
+    attn_in = (tracked["x"], tracked["wqkv"], tracked["wo"])
+    ffn_in = tuple(tracked[k] for k in ("x", "w1", "b1", "w2", "b2"))
+    plain_attn = KAB.attention_block_plain(x, wqkv, wo, h, scale, False)
+    plain_ffn = KFF.ffn_block_plain(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    log(f"  fused library compositions vs plain: attention block "
+        f"{_bwd_ratio((lib_attn.detach(),), (plain_attn,)):.3e}, ffn block "
+        f"{_bwd_ratio((lib_ffn.detach(),), (plain_ffn,)):.3e} "
+        f"(|d - plain| / max|plain|)")
+    del plain_attn, plain_ffn
+    attn_fwd_flops = gemm * 4 * d + 4 * n_p * (d // h)
+    cases = {
+        "attention_block": (
+            lambda: KAB._attention_block_launch(x, wqkv, wo, h, scale, False,
+                                                False),
+            lambda: KAB.attention_block_plain(x, wqkv, wo, h, scale, False),
+            lambda: _lib_attention_block(x, wqkv, wo, h, scale),
+            4 * (2 * n_x + 4 * d * d), attn_fwd_flops,
+            "x Wqkv, cuBLAS; SDPA (efficient attention); ctx Wo, cuBLAS"),
+        "attention_block_residual": (
+            lambda: KAB._attention_block_launch(x, wqkv, wo, h, scale, False,
+                                                True),
+            lambda: KAB.attention_block_fwd_plain(x, wqkv, wo, h, scale,
+                                                  False, save_p=True),
+            lambda: _lib_attention_block(*attn_in, h, scale),
+            4 * (2 * n_x + 4 * d * d + n_p), attn_fwd_flops,
+            "the same under autograd"),
+        "attention_block_bwd": (
+            lambda: KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale),
+            lambda: KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h,
+                                                  scale),
+            lambda: torch.autograd.grad(lib_attn, attn_in, g,
+                                        retain_graph=True),
+            4 * (3 * n_x + 8 * d * d + n_p),
+            gemm * (3 * 3 * d + 2 * d) + 5 * 2 * n_p * (d // h),
+            "the autograd backward of that composition"),
+        "ffn_block": (
+            lambda: KFF._ffn_block_launch(x, w1, b1, w2, b2),
+            lambda: KFF.ffn_block_plain(x, w1, b1, w2, b2),
+            lambda: _lib_ffn(x, w1, b1, w2, b2),
+            4 * (2 * n_x + 2 * d * f + f + d), 2 * gemm * f,
+            "addmm, relu, addmm (cuBLAS)"),
+        "ffn_block_bwd": (
+            lambda: KFF.ffn_block_bwd(x, w1, b1, w2, g),
+            lambda: KFF.ffn_block_bwd_plain(x, w1, b1, w2, g),
+            lambda: torch.autograd.grad(lib_ffn, ffn_in, g,
+                                        retain_graph=True),
+            4 * (3 * n_x + 4 * d * f + 2 * f + d), 5 * gemm * f,
+            "the autograd backward of that composition"),
+    }
+    out = {}
+    for name, (kern, plain, lib, nbytes, flops, label) in cases.items():
+        ms = time_ms(kern, iters=10)
+        plain_ms = time_ms(plain, iters=5)
+        lib_ms = time_ms(lib, iters=10)
+        bms, by = bound_ms(nbytes, flops)
+        log(f"  {name} [{b},{t},{d}] H {h} F {f} non-causal: kernel "
+            f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, library composition ({label}) "
+            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+            f"{flops / 1e9:.2f} GFLOP)")
+        base = name.replace("_residual", "")
+        out[name] = dict(max_abs_err=max(e[0] for e in errs[base]),
+                         max_rel_err=max(e[1] for e in errs[base]), ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib_ms,
+                         library=f"composition: {label}",
+                         shape=[b, t, d, h, f])
+    out["attention_block"]["p_max_abs_err"] = max(p_errs)
+    out["attention_block"]["residual"] = out.pop("attention_block_residual")
+    return out
+
+
 def phase_kernels():
     entries = {}
     # layer_norm: encoder rows at prompt 1024, a decoder step, ragged D
@@ -561,6 +828,7 @@ def phase_kernels():
     for name in ("sdpa_short", "flash_attention"):
         entries[name]["residual"] = residual.pop(name)
     entries.update(residual)
+    entries.update(_fused_entries())
     return entries
 
 
@@ -946,15 +1214,23 @@ def _relu_masks(masks):
         info.kernel = kernel
 
 
-def phase_train(card_name, card, seq_len, batch):
-    """Transformer-base's training program at `seq_len` and `batch`:
-    2-row parity against the CPU, then TRAIN_STEPS Adam steps on the card
-    through the kernels. Returns (launches by kernel, results)."""
-    tag = f"train T={seq_len}"
+def _train_setup(tag, seq_len, batch, fused=False):
+    """Transformer-base's training program at `seq_len`, built with the
+    fused-block switch (FUSE_KNOB) set or cleared around the build, its
+    startup run on the card once, and the feeds: `batch` rows of random
+    token ids and their first 2 rows for the parity step."""
+    prev = os.environ.pop(FUSE_KNOB, None)
+    if fused:
+        os.environ[FUSE_KNOB] = "1"
     t0 = time.monotonic()
-    with unique_name.guard():
-        main, startup, cost = transformer.build_program(seq_len=seq_len,
-                                                        **TRAIN)
+    try:
+        with unique_name.guard():
+            main, startup, cost = transformer.build_program(seq_len=seq_len,
+                                                            **TRAIN)
+    finally:
+        os.environ.pop(FUSE_KNOB, None)
+        if prev is not None:
+            os.environ[FUSE_KNOB] = prev
     ops = [op.type for op in main.global_block.ops]
     log(f"{tag}: built the training program in "
         f"{time.monotonic() - t0:.2f} s ({len(ops)} ops, "
@@ -964,7 +1240,6 @@ def phase_train(card_name, card, seq_len, batch):
              if v.persistable]
     startup.random_seed = SEED
     gpu = pf.Executor(pf.CUDAPlace(0))
-    cpu = pf.Executor(pf.CPUPlace())
     scope0 = pf.Scope()
     t0 = time.monotonic()
     gpu.run(startup, scope=scope0)
@@ -982,20 +1257,98 @@ def phase_train(card_name, card, seq_len, batch):
         return sc
 
     rs = np.random.RandomState(SEED)
-    shape = (batch, seq_len)
-    feed = {k: rs.randint(0, TRAIN["vocab"], shape).astype("int64")
-            for k in ("src_ids", "tgt_ids", "label")}
-    small = {k: v[:2] for k, v in feed.items()}
+    feed = {k: rs.randint(0, TRAIN["vocab"], (batch, seq_len)).astype(
+        "int64") for k in ("src_ids", "tgt_ids", "label")}
+    return dict(main=main, cost=cost, ops=ops, names=names, state0=state0,
+                gpu=gpu, cpu=pf.Executor(pf.CPUPlace()), fresh=fresh,
+                feed=feed, small={k: v[:2] for k, v in feed.items()},
+                m1={n.split("_moment1")[0]: n for n in names
+                    if "_moment1" in n})
+
+
+def _parity_errs(run, ref, grads):
+    """Loss relative error, then {grad: (grad err, Moment1 err)}
+    norm-wise, for fetches [loss, grads..., their Moment1s..., ...]."""
+    k = len(grads)
+    loss = abs(float(run[0][0]) - float(ref[0][0])) / abs(float(ref[0][0]))
+    return loss, {g: (_rel(run[1 + i], ref[1 + i]),
+                      _rel(run[1 + k + i], ref[1 + k + i]))
+                  for i, g in enumerate(grads)}
+
+
+def _train_steps(tag, s, seq_len, batch, want, card_name, card):
+    """The main path: TRAIN_STEPS full-batch Adam steps on the card from
+    the seeded weights, every launch counter set to 0 just before and
+    read just after (they must equal `want`), the loss finite at each:
+    the step time (best of the steps after the first, the last step
+    profiled), target tokens/s and peak memory."""
+    gpu, main, cost, feed = s["gpu"], s["main"], s["cost"], s["feed"]
+    scope = s["fresh"](pf.CUDAPlace(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in TRAIN_KERNELS:
+        kern.launches = 0
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        if step == TRAIN_STEPS - 1:
+            loss, prof = _device_profile(f"{tag} profile", lambda: gpu.run(
+                main, feed=feed, fetch_list=[cost], scope=scope)[0])
+        else:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            loss = gpu.run(main, feed=feed, fetch_list=[cost],
+                           scope=scope)[0]
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        losses.append(float(loss[0]))
+        assert np.isfinite(loss).all(), (step, loss)
+    counts = {kern.__name__: kern.launches for kern in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag}: {TRAIN_STEPS} Adam steps at batch {batch}, losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + f"; launches {counts} "
+        f"(layer_norm: {s['ops'].count('layer_norm')} forward ops a step; "
+        f"their grads launch nothing)")
+    assert counts == want, (counts, want)
+    best = min(times[1:])
+    tokens = batch * seq_len
+    log(f"{tag}: step {best * 1e3:.1f} ms (best of {len(times) - 1} after "
+        f"a {times[0]:.2f} s warm-up step), {tokens / best:.0f} target "
+        f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB on {card_name} "
+        f"({card})")
+    return counts, dict(seq_len=seq_len, batch=batch, losses=losses,
+                        warmup_step_s=times[0], step_ms=best * 1e3,
+                        step_ms_all=[t * 1e3 for t in times],
+                        target_tokens_per_s=tokens / best,
+                        peak_memory_bytes=peak, profile=prof)
+
+
+def _want_counts(**per_step):
+    """Every training kernel's launches over TRAIN_STEPS steps: 0 unless
+    given per step."""
+    want = {kern.__name__: 0 for kern in TRAIN_KERNELS}
+    for name, n in per_step.items():
+        want[name] = n * TRAIN_STEPS
+    return want
+
+
+def phase_train(card_name, card, seq_len, batch):
+    """Transformer-base's training program at `seq_len` and `batch`:
+    2-row parity against the CPU, then TRAIN_STEPS Adam steps on the card
+    through the kernels. Returns (launches by kernel, results)."""
+    tag = f"train T={seq_len}"
+    s = _train_setup(tag, seq_len, batch)
+    main, names, gpu, cpu, fresh = (s[k] for k in ("main", "names", "gpu",
+                                                   "cpu", "fresh"))
+    ops, small, m1 = s["ops"], s["small"], s["m1"]
 
     # parity: step 1 on the first 2 rows, card against CPU, same weights
-    m1 = {n.split("_moment1")[0]: n for n in names if "_moment1" in n}
     ops_ = main.global_block.ops
     relu_in = [op.inputs["X"][0] for op in ops_ if op.type == "relu"]
     # each FFN ReLU's layer, from its bias (enc0_fc1.b -> enc0)
     bias_of = {op.outputs["Out"][0]: op.inputs["Y"][0] for op in ops_
                if op.type == "elementwise_add"}
     layer = [bias_of[x].split("_fc")[0] for x in relu_in]
-    fetch = [cost.name] + [g + "@GRAD" for g in TRAIN_GRADS] + \
+    fetch = [s["cost"].name] + [g + "@GRAD" for g in TRAIN_GRADS] + \
         [m1[g] for g in TRAIN_GRADS] + relu_in
     k = len(TRAIN_GRADS)
 
@@ -1009,12 +1362,7 @@ def phase_train(card_name, card, seq_len, batch):
                            scope=fresh(pf.CPUPlace()))
 
     def errs(run, ref):
-        """loss rel err, then {grad: (grad err, Moment1 err)}."""
-        loss = abs(float(run[0][0]) - float(ref[0][0])) / abs(
-            float(ref[0][0]))
-        return loss, {g: (_rel(run[1 + i], ref[1 + i]),
-                          _rel(run[1 + k + i], ref[1 + k + i]))
-                      for i, g in enumerate(TRAIN_GRADS)}
+        return _parity_errs(run, ref, TRAIN_GRADS)
 
     t0 = time.monotonic()
     ref = cpu_step()
@@ -1075,69 +1423,135 @@ def phase_train(card_name, card, seq_len, batch):
     for g, tol in PINNED_GRADS.items():
         assert tf_pin_errs[g][0] > tol, \
             f"the pinned {g} check cannot see TF32"
-    m1_errs = {g: e[1] for g, e in grad_errs.items()}
-    grad_errs = {g: e[0] for g, e in grad_errs.items()}
-    tf_grad = {g: e[0] for g, e in tf_errs.items()}
-    tf_pinned = {g: e[0] for g, e in tf_pin_errs.items()}
 
-    # the main path: full-batch Adam steps through the kernels
-    scope = fresh(pf.CUDAPlace(0))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels = (KX.xent_forward, KX.xent_backward, KL.layer_norm,
-               KA.sdpa_short, KA.sdpa_short_bwd, KA.flash_attention,
-               KA.flash_bwd_dq, KA.flash_bwd_dkv)
-    for kern in kernels:
-        kern.launches = 0
-    losses, times = [], []
-    for step in range(TRAIN_STEPS):
-        if step == TRAIN_STEPS - 1:
-            loss, prof = _device_profile(f"{tag} profile", lambda: gpu.run(
-                main, feed=feed, fetch_list=[cost], scope=scope)[0])
-        else:
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            loss = gpu.run(main, feed=feed, fetch_list=[cost],
-                           scope=scope)[0]
-            torch.cuda.synchronize()
-            times.append(time.monotonic() - t0)
-        losses.append(float(loss[0]))
-        assert np.isfinite(loss).all(), (step, loss)
-    counts = {kern.__name__: kern.launches for kern in kernels}
-    peak = torch.cuda.max_memory_allocated()
-    n_ln, n_attn = ops.count("layer_norm"), ops.count("attention")
-    want = dict.fromkeys(counts, 0)
-    want.update(xent_forward=TRAIN_STEPS, xent_backward=TRAIN_STEPS,
-                layer_norm=n_ln * TRAIN_STEPS)
-    # a routed attention op launches its forward kernel in the forward op
-    # and again, with its residual, in its grad op's recompute
+    # the main path: full-batch Adam steps through the kernels. A routed
+    # attention op launches its forward kernel in the forward op and
+    # again, with its residual, in its grad op's recompute
+    n_attn = ops.count("attention")
+    per_step = dict(xent_forward=1, xent_backward=1,
+                    layer_norm=ops.count("layer_norm"))
     if 256 < seq_len <= 512:
-        want.update(sdpa_short=2 * n_attn * TRAIN_STEPS,
-                    sdpa_short_bwd=n_attn * TRAIN_STEPS)
+        per_step.update(sdpa_short=2 * n_attn, sdpa_short_bwd=n_attn)
     elif seq_len > 512:
-        want.update(flash_attention=2 * n_attn * TRAIN_STEPS,
-                    flash_bwd_dq=n_attn * TRAIN_STEPS,
-                    flash_bwd_dkv=n_attn * TRAIN_STEPS)
-    log(f"{tag}: {TRAIN_STEPS} Adam steps at batch {batch}, losses "
-        + ", ".join(f"{x:.6f}" for x in losses) + f"; launches {counts} "
-        f"(layer_norm: {n_ln} forward ops a step; their grads launch "
-        f"nothing)")
-    assert counts == want, (counts, want)
-    best = min(times[1:])
-    tokens = batch * seq_len
-    res = dict(seq_len=seq_len, batch=batch, losses=losses,
-               warmup_step_s=times[0], step_ms=best * 1e3, step_ms_all=[t * 1e3 for t in times],
-               target_tokens_per_s=tokens / best, peak_memory_bytes=peak,
-               loss_rel_err=loss_err, grad_errs=grad_errs,
-               moment1_errs=m1_errs, relu_flips=n_flips,
-               relu_flips_by_layer=flips_by_layer,
+        per_step.update(flash_attention=2 * n_attn, flash_bwd_dq=n_attn,
+                        flash_bwd_dkv=n_attn)
+    counts, res = _train_steps(tag, s, seq_len, batch,
+                               _want_counts(**per_step), card_name, card)
+    res.update(loss_rel_err=loss_err,
+               grad_errs={g: e[0] for g, e in grad_errs.items()},
+               moment1_errs={g: e[1] for g, e in grad_errs.items()},
+               relu_flips=n_flips, relu_flips_by_layer=flips_by_layer,
                pinned_loss_rel_err=pin_loss, pinned_errs=pin_errs,
-               tf32_grad_errs=tf_grad, tf32_pinned_grad_errs=tf_pinned,
-               tf32_loss_err=tf_loss, profile=prof)
-    log(f"{tag}: step {best * 1e3:.1f} ms (best of {len(times) - 1} after "
-        f"a {times[0]:.2f} s warm-up step), {tokens / best:.0f} target "
-        f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB on {card_name} "
-        f"({card})")
+               tf32_grad_errs={g: e[0] for g, e in tf_errs.items()},
+               tf32_pinned_grad_errs={g: e[0]
+                                      for g, e in tf_pin_errs.items()},
+               tf32_loss_err=tf_loss)
+    return counts, res
+
+
+def phase_train_fused(card_name, card, unfused):
+    """Transformer-base's training program at seq 256, batch 64 (phase 5's
+    configuration), built with PADDLE_TPU_FUSE_ATTN_BLOCK=1: every
+    self-attention sub-layer is one attention_block op and every FFN one
+    ffn_block op. 2-row parity against the CPU, a planted fault that must
+    fail it (the decoder's causal flag dropped in the card's run), then
+    TRAIN_STEPS Adam steps on the card through the fused kernels, set
+    beside phase 5's unfused step (`unfused`). Returns (launches by
+    kernel, results)."""
+    seq_len, batch = TRAIN_RUNS[0]
+    tag = f"train fused T={seq_len}"
+    s = _train_setup(tag, seq_len, batch, fused=True)
+    main, gpu, cpu, fresh = s["main"], s["gpu"], s["cpu"], s["fresh"]
+    ops, small, state0 = s["ops"], s["small"], s["state0"]
+    n_layers = TRAIN["n_layers"]
+    n_ab, n_ffn = ops.count("attention_block"), ops.count("ffn_block")
+    log(f"{tag}: {n_ab} attention_block, {n_ffn} ffn_block, "
+        f"{ops.count('attention')} attention (cross) ops, "
+        f"{ops.count('relu')} relu")
+    assert (n_ab, n_ffn, ops.count("attention")) == (
+        2 * n_layers, 2 * n_layers, n_layers) and "relu" not in ops
+
+    # parity: step 1 on the first 2 rows, card against CPU, same weights
+    ffn_ops = [op for op in main.global_block.ops if op.type == "ffn_block"]
+    ffn_x = [op.inputs["X"][0] for op in ffn_ops]
+    fetch = [s["cost"].name] + [g + "@GRAD" for g in FUSED_GRADS] + \
+        [s["m1"][g] for g in FUSED_GRADS] + ffn_x
+    k = len(FUSED_GRADS)
+    t0 = time.monotonic()
+    ref = cpu.run(main, feed=small, fetch_list=fetch,
+                  scope=fresh(pf.CPUPlace()))
+    cpu_s = time.monotonic() - t0
+    got = gpu.run(main, feed=small, fetch_list=fetch,
+                  scope=fresh(pf.CUDAPlace(0)))
+    loss_err, grad_errs = _parity_errs(got, ref, FUSED_GRADS)
+    # FFN units whose pre-activation, recomputed in float64 from each
+    # run's ffn_block input, has another sign on the card than on the CPU
+    flips_by_layer, n_flips, flip_max = {}, 0, 0.0
+    for op, xg, xc in zip(ffn_ops, got[1 + 2 * k:], ref[1 + 2 * k:]):
+        w1 = state0[op.inputs["W1"][0]].astype("float64")
+        b1 = state0[op.inputs["B1"][0]].astype("float64")
+        pg = xg.reshape(-1, w1.shape[0]).astype("float64") @ w1 + b1
+        pc = xc.reshape(-1, w1.shape[0]).astype("float64") @ w1 + b1
+        f = (pg > 0) != (pc > 0)
+        flips_by_layer[op.inputs["W1"][0].split("_fc1")[0]] = int(f.sum())
+        n_flips += int(f.sum())
+        if f.any():
+            flip_max = max(flip_max, float(np.abs(pc[f]).max()))
+    log(f"{tag} parity (2 rows, step 1; CPU run {cpu_s:.1f} s): loss card "
+        f"{float(got[0][0]):.7f} CPU {float(ref[0][0]):.7f}, rel err "
+        f"{loss_err:.3e} (tol {LOSS_RTOL:g})")
+    log(f"{tag} parity: {n_flips} FFN units' float64 pre-activations from "
+        f"the fetched ffn_block inputs differ in sign between card and CPU, "
+        f"|pre-activation| at most {flip_max:.3e}; per layer "
+        f"{flips_by_layer}")
+    for g, tol in FUSED_GRADS.items():
+        log(f"{tag} parity: {g}@GRAD norm-wise {grad_errs[g][0]:.3e}, "
+            f"Moment1 {grad_errs[g][1]:.3e} (tol {tol:g})")
+    assert np.isfinite(got[0]).all() and loss_err <= LOSS_RTOL, loss_err
+    for g, tol in FUSED_GRADS.items():
+        assert max(grad_errs[g]) <= tol, (g, grad_errs[g], tol)
+    # the control: the decoder's causal flag dropped in the card's run
+    dec = [op for op in main.global_block.ops
+           if op.type == "attention_block" and op.attrs["causal"]]
+    assert len(dec) == n_layers
+    for op in dec:
+        op.attrs["causal"] = False
+    try:
+        bad = gpu.run(main, feed=small, fetch_list=fetch,
+                      scope=fresh(pf.CUDAPlace(0)))
+    finally:
+        for op in dec:
+            op.attrs["causal"] = True
+    bad_loss, bad_errs = _parity_errs(bad, ref, FUSED_GRADS)
+    log(f"{tag} parity: control with the decoder's causal flag dropped on "
+        f"the card: loss rel err {bad_loss:.3e}; grads norm-wise "
+        + ", ".join(f"{g} {e[0]:.3e}" for g, e in bad_errs.items()))
+    for g, tol in FUSED_GRADS.items():
+        assert bad_errs[g][0] > tol, f"the {g} check cannot see the fault"
+
+    # the main path. Each attention_block op launches the forward kernel
+    # in the forward op and again, saving P, in its grad op's recompute,
+    # then the backward kernel; each ffn_block op likewise
+    counts, res = _train_steps(tag, s, seq_len, batch, _want_counts(
+        xent_forward=1, xent_backward=1, layer_norm=ops.count("layer_norm"),
+        attention_block=2 * n_ab, attention_block_bwd=n_ab,
+        ffn_block=2 * n_ffn, ffn_block_bwd=n_ffn), card_name, card)
+    fp, up = res["profile"], unfused["profile"]
+    log(f"{tag}: fused step {res['step_ms']:.1f} ms against phase 5's "
+        f"unfused {unfused['step_ms']:.1f} ms "
+        f"({res['target_tokens_per_s']:.0f} against "
+        f"{unfused['target_tokens_per_s']:.0f} target tokens/s); "
+        f"device busy {fp['device_busy_ms']} against {up['device_busy_ms']} "
+        f"ms, idle share {fp['idle_share']} against {up['idle_share']}; "
+        f"peak {res['peak_memory_bytes'] / 2 ** 30:.2f} against "
+        f"{unfused['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    res.update(loss_rel_err=loss_err,
+               grad_errs={g: e[0] for g, e in grad_errs.items()},
+               moment1_errs={g: e[1] for g, e in grad_errs.items()},
+               relu_flips=n_flips, relu_flips_by_layer=flips_by_layer,
+               causal_dropped_loss_err=bad_loss,
+               causal_dropped_grad_errs={g: e[0]
+                                         for g, e in bad_errs.items()})
     return counts, res
 
 
@@ -1158,13 +1572,20 @@ def main():
         trained[seq_len]["launches"] = counts
         for kname, n in counts.items():
             trained_launches[kname] += n
+    log("phase train fused")
+    counts, trained["fused"] = phase_train_fused(name, card,
+                                                 trained[TRAIN_RUNS[0][0]])
+    trained["fused"]["launches"] = counts
+    for kname, n in counts.items():
+        trained_launches[kname] += n
     line = []
     for kname, (src, replaces) in KERNEL_META.items():
         e = entries[kname]
         on_paths = dict(served=served_launches.get(kname, 0),
                         trained=trained_launches[kname])
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
-        extra = {x: e[x] for x in ("max_rel_err", "residual") if x in e}
+        extra = {x: e[x] for x in ("max_rel_err", "residual", "library",
+                                   "p_max_abs_err") if x in e}
         line.append(dict(name=kname, route="cuda", source=src,
                          replaces=replaces, launches=sum(on_paths.values()),
                          **on_paths, max_abs_err=e["max_abs_err"],

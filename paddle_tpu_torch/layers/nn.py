@@ -8,6 +8,7 @@ import numpy as np
 from ..core.types import as_datatype
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
 __all__ = [
     "fc", "embedding", "layer_norm", "attention", "softmax", "relu",
@@ -15,6 +16,7 @@ __all__ = [
     "cast", "argmax", "reduce_sum", "increment", "elementwise_add",
     "elementwise_sub", "elementwise_mul", "elementwise_max",
     "elementwise_min", "softmax_with_cross_entropy", "mean",
+    "attention_block", "ffn_block",
 ]
 
 
@@ -89,6 +91,57 @@ def attention(q, k, v, causal=False, scale=None, dropout_rate=0.0,
                      {"causal": causal, "scale": scale,
                       "dropout_rate": dropout_rate,
                       "is_test": is_test, "layout": layout})
+    return out
+
+
+def attention_block(x, n_heads, causal=False, scale=None,
+                    param_attr_qkv=None, param_attr_out=None, name=None):
+    """The whole self-attention sub-layer as one op (no dropout, no
+    projection biases, the residual outside), in place of the
+    qkv-fc/split/reshape/attention/reshape/out-fc sequence: the entry point
+    of the attention_block kernels. models/transformer routes
+    multi_head_attention here under PADDLE_TPU_FUSE_ATTN_BLOCK=1."""
+    helper = LayerHelper("attention_block", input=x,
+                         param_attr=param_attr_qkv, name=name)
+    d = int(x.shape[-1])
+    if d % n_heads:
+        raise ValueError(f"attention_block: d_model {d} not divisible by "
+                         f"n_heads {n_heads}")
+    w_qkv = helper.create_parameter(ParamAttr._to_attr(param_attr_qkv),
+                                    [d, 3 * d], x.dtype)
+    w_o = helper.create_parameter(ParamAttr._to_attr(param_attr_out),
+                                  [d, d], x.dtype)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        "attention_block", {"X": x, "WQKV": w_qkv, "WO": w_o}, {"Out": out},
+        {"n_heads": int(n_heads),
+         "scale": float(scale if scale is not None
+                        else (d // n_heads) ** -0.5),
+         "causal": bool(causal)})
+    return out
+
+
+def ffn_block(x, d_inner, param_attr_fc1=None, bias_attr_fc1=None,
+              param_attr_fc2=None, bias_attr_fc2=None, name=None):
+    """The whole position-wise MLP (relu between two fcs, no dropout) as
+    one op, in place of the mul/add/relu/mul/add sequence: the entry point
+    of the ffn_block kernels. models/transformer routes _ffn here under
+    PADDLE_TPU_FUSE_ATTN_BLOCK=1."""
+    helper = LayerHelper("ffn_block", input=x, param_attr=param_attr_fc1,
+                         name=name)
+    d = int(x.shape[-1])
+    w1 = helper.create_parameter(ParamAttr._to_attr(param_attr_fc1),
+                                 [d, d_inner], x.dtype)
+    b1 = helper.create_parameter(ParamAttr._to_attr(bias_attr_fc1),
+                                 [d_inner], x.dtype, is_bias=True)
+    w2 = helper.create_parameter(ParamAttr._to_attr(param_attr_fc2),
+                                 [d_inner, d], x.dtype)
+    b2 = helper.create_parameter(ParamAttr._to_attr(bias_attr_fc2), [d],
+                                 x.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("ffn_block",
+                     {"X": x, "W1": w1, "B1": b1, "W2": w2, "B2": b2},
+                     {"Out": out}, {})
     return out
 
 

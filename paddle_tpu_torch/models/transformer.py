@@ -7,10 +7,17 @@ The building blocks serve both the decode programs (is_test=True) and
 the training program ``build_program``. Parameter names are the JAX
 package's explicit ones, so weights carry over between the two packages
 by name. Dropout is not ported yet: a nonzero dropout rate outside
-is_test raises rather than train without it. The fused attention/ffn
-block path and the recompute option belong to later slices.
+is_test raises rather than train without it. The recompute option
+belongs to a later slice.
+
+PADDLE_TPU_FUSE_ATTN_BLOCK=1, read at build time as in the JAX package,
+builds each self-attention sub-layer of a training program (not is_test,
+dropout 0) as one ``attention_block`` op and each FFN as one
+``ffn_block`` op, with the same parameters; decode builds stay unfused.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -54,6 +61,15 @@ def multi_head_attention(q_in, kv_in, d_model, n_heads, dropout_rate,
     def _proj_attr(tag):
         return _attn_proj_attr(name, tag, d_model)
 
+    if (q_in is kv_in and not is_test and dropout_rate == 0.0
+            and os.environ.get("PADDLE_TPU_FUSE_ATTN_BLOCK") == "1"):
+        # the whole sub-layer as one op: same parameters (names, Xavier
+        # fans), same math
+        return layers.attention_block(
+            q_in, n_heads, causal=causal,
+            param_attr_qkv=_proj_attr("qkv"),
+            param_attr_out=f"{name}_out.w" if name else None, name=name)
+
     if q_in is kv_in:
         qkv = layers.fc(q_in, 3 * d_model, num_flatten_dims=2,
                         bias_attr=False, param_attr=_proj_attr("qkv"))
@@ -79,6 +95,14 @@ def multi_head_attention(q_in, kv_in, d_model, n_heads, dropout_rate,
 
 def _ffn(x, d_model, d_inner, dropout_rate, is_test, name=None):
     _refuse_dropout(dropout_rate, is_test)
+    if (not is_test and dropout_rate == 0.0
+            and os.environ.get("PADDLE_TPU_FUSE_ATTN_BLOCK") == "1"):
+        return layers.ffn_block(
+            x, d_inner,
+            param_attr_fc1=f"{name}_fc1.w" if name else None,
+            bias_attr_fc1=f"{name}_fc1.b" if name else None,
+            param_attr_fc2=f"{name}_fc2.w" if name else None,
+            bias_attr_fc2=f"{name}_fc2.b" if name else None, name=name)
     h = layers.fc(x, d_inner, num_flatten_dims=2, act="relu",
                   param_attr=f"{name}_fc1.w" if name else None,
                   bias_attr=f"{name}_fc1.b" if name else None)

@@ -65,6 +65,19 @@ def require_cuda_inputs(name, tensors, dtypes):
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def on_card(fn, primal, *args):
+    """A kernel wrapper's CUDA path. Under a vjp (grad mode on and an
+    input tracked, as `torch.func.vjp` in the grad op makes it) the
+    differentiable autograd.Function `fn`, whose forward writes the
+    residual its backward reads; else the primal launch
+    ``primal(*args, False)``, which writes none (the Executor's forward
+    op runs under `no_grad`)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return fn.apply(*args)[0]
+    return primal(*args, False)
+
+
 def storage_tensor(t):
     """`t` with torch.func's wrappers taken off: the tensor whose data a
     kernel can be pointed at. An autograd.Function's saved tensors reach

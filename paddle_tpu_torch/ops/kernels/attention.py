@@ -24,7 +24,7 @@ import torch
 
 from . import (causal_keep, check_launch, current_stream, masked_logits,
                reference_attention, require_cuda_inputs, storage_tensor)
-from .build import library
+from . import on_card as _on_card
 
 SDPA_MAX_T = 512
 SDPA_HEAD_DIMS = (64, 128)
@@ -119,6 +119,8 @@ def _kernel(name, entry, n_ptrs, n_ints):
     """The C entry point `entry` of library `name` with its signature
     declared: (`n_ptrs` pointers, bh, `n_ints` ints of sizes, scale,
     causal, stream)."""
+    from .build import library
+
     fn = getattr(library(name), entry)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int64] + \
         [ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_int,
@@ -149,18 +151,6 @@ def _check_like(name, tensors, shapes):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: got shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
-
-
-def _on_card(fn, primal, q, k, v, scale, causal):
-    """A kernel wrapper's CUDA path. Under a vjp (grad mode on and an
-    input tracked, as `torch.func.vjp` in the grad op makes it) the
-    differentiable Function, whose forward writes the residual; else the
-    primal launch, which writes none (the Executor's forward op runs
-    under `no_grad`)."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return fn.apply(q, k, v, scale, causal)[0]
-    return primal(q, k, v, scale, causal, False)
 
 
 # ---------------------------------------------------------------------------

@@ -5,15 +5,17 @@ it in seconds without PyTorch's headers. The first call to
 :func:`library` compiles every source, one ``nvcc`` per source, all
 started together, into ``build/torch_kernels/`` at the root of the
 checkout, and loads the results. A library's file name carries a hash
-of its source and flags, so a later process reuses an up-to-date build
-and an edited source is built anew. Nothing here runs at import: the
-CPU tests import every module, and this machine may have no ``nvcc``.
+of its source, the ``csrc/`` headers it includes and the flags, so a
+later process reuses an up-to-date build and an edited source or header
+is built anew. Nothing here runs at import: the CPU tests import every
+module, and this machine may have no ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,10 +26,11 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("layer_norm", "sdpa_short", "sdpa_short_bwd", "flash_attention",
-           "flash_attention_bwd", "xent")
+           "flash_attention_bwd", "xent", "attention_block", "ffn_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(rb'^[ \t]*#include[ \t]+"([^"]+)"', re.M)
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per source: seconds its nvcc took in this process (0.0 when an
@@ -51,7 +54,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha1(src)
+    for header in _INCLUDE.findall(src):  # the csrc/*.cuh it includes
+        h.update((CSRC / header.decode()).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 

@@ -17,7 +17,6 @@ import functools
 import torch
 
 from . import check_launch, current_stream, require_cuda_inputs
-from .build import library
 
 
 def layer_norm_plain(x, scale, bias, eps=1e-5):
@@ -35,6 +34,8 @@ def layer_norm_plain(x, scale, bias, eps=1e-5):
 def _kernel():
     """The C entry point with its signature declared, built on first
     use (the decode loop launches this hundreds of times a batch)."""
+    from .build import library
+
     fn = library("layer_norm").layer_norm_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int,

@@ -20,7 +20,6 @@ import functools
 import torch
 
 from . import check_launch, current_stream, require_cuda_inputs
-from .build import library
 
 
 def _target_parts(logits, label):
@@ -59,6 +58,8 @@ def xent_backward_plain(logits, label, dloss, eps=0.0, ignore_index=-100):
 def _kernel(direction):
     """The C entry point `xent_<direction>` with its signature declared:
     (four pointers, n, v, eps, ignore_index, bf16, stream)."""
+    from .build import library
+
     fn = getattr(library("xent"), f"xent_{direction}")
     fn.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int64,

@@ -1,11 +1,13 @@
 """NN ops of the serving and training slices: layer_norm, softmax,
-softmax_with_cross_entropy, lookup_table and attention (the subset of
-``paddle_tpu/ops/nn_ops.py`` the paths run; reference layer_norm_op.cc,
-softmax_op.cc, softmax_with_cross_entropy_op.cc, lookup_table_op.cc).
+softmax_with_cross_entropy, lookup_table, attention and the fused
+attention_block and ffn_block (the subset of ``paddle_tpu/ops/nn_ops.py``
+the paths run; reference layer_norm_op.cc, softmax_op.cc,
+softmax_with_cross_entropy_op.cc, lookup_table_op.cc).
 
-layer_norm, attention and softmax_with_cross_entropy (hard labels) route
-to the hand-written kernels in ``ops/kernels``; each kernel wrapper
-launches on a CUDA tensor and runs its plain version on a CPU one.
+layer_norm, attention, attention_block, ffn_block and
+softmax_with_cross_entropy (hard labels) route to the hand-written kernels
+in ``ops/kernels``; each kernel wrapper launches on a CUDA tensor and runs
+its plain version on a CPU one.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import torch
 from ..core.program import Operator, grad_var_name
 from ..core.registry import make_vjp_grad_kernel, register_op
 from .kernels import attention as K_attn
+from .kernels import attention_block as K_ab
+from .kernels import ffn_block as K_ffn
 from .kernels import layer_norm as K_ln
 from .kernels import reference_attention
 from .kernels import xent as K_xent
@@ -248,3 +252,43 @@ def attention(ctx):
     if layout == "bthd":
         return _sdpa(q, k, v, scale, causal)
     return reference_attention(q, k, v, scale, causal)
+
+
+@register_op("ffn_block")
+def ffn_block(ctx):
+    """The whole position-wise MLP sub-layer as one op, relu(x W1 + b1) W2
+    + b2 (nn_ops.py `ffn_block_op` in the JAX package). Shapes the kernels
+    take go to the kernel wrapper, others to the plain composition, by
+    shape alone. Its grad comes from the generic vjp, which on the card
+    runs the forward kernel and then the backward kernel."""
+    x = ctx.input("X")
+    args = (x, ctx.input("W1"), ctx.input("B1"), ctx.input("W2"),
+            ctx.input("B2"))
+    if K_ffn.usable(x, args[1]):
+        return {"Out": K_ffn.ffn_block(*(a.contiguous() for a in args))}
+    return {"Out": K_ffn.ffn_block_plain(*args)}
+
+
+@register_op("attention_block")
+def attention_block(ctx):
+    """The whole self-attention sub-layer as one op: x Wqkv -> split-heads
+    attention -> merge -> Wo (nn_ops.py `attention_block_op` in the JAX
+    package), in place of the seven ops multi_head_attention otherwise
+    emits. Shapes the kernels take go to the kernel wrapper, others to the
+    plain composition, by shape alone. Its grad comes from the generic
+    vjp, which on the card runs the forward kernel with P saved and then
+    the backward kernel (no exp)."""
+    x, wqkv, wo = ctx.input("X"), ctx.input("WQKV"), ctx.input("WO")
+    n_heads = int(ctx.attr("n_heads"))
+    scale = ctx.attr("scale", None)
+    if scale is None:
+        scale = (x.shape[-1] // n_heads) ** -0.5
+    causal = bool(ctx.attr("causal", False))
+    if K_ab.usable(x, wqkv, n_heads):
+        out = K_ab.attention_block(x.contiguous(), wqkv.contiguous(),
+                                   wo.contiguous(), n_heads, float(scale),
+                                   causal)
+    else:
+        out = K_ab.attention_block_plain(x, wqkv, wo, n_heads, float(scale),
+                                         causal)
+    return {"Out": out}

@@ -46,6 +46,8 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "import paddle_tpu_torch.models.decode_engine\n"
         "import paddle_tpu_torch.ops.kernels.build\n"
         "import paddle_tpu_torch.ops.kernels.xent\n"
+        "import paddle_tpu_torch.ops.kernels.attention_block\n"
+        "import paddle_tpu_torch.ops.kernels.ffn_block\n"
         "import paddle_tpu_torch.ops.optimizer_ops\n"
         "import paddle_tpu_torch.backward\n"
         "import paddle_tpu_torch.optimizer\n"

@@ -15,6 +15,8 @@ import torch
 
 from paddle_tpu_torch.ops import kernels as K
 from paddle_tpu_torch.ops.kernels import attention as KA
+from paddle_tpu_torch.ops.kernels import attention_block as KAB
+from paddle_tpu_torch.ops.kernels import ffn_block as KFF
 from paddle_tpu_torch.ops.kernels import layer_norm as KL
 from paddle_tpu_torch.ops.kernels import xent as KX
 
@@ -636,3 +638,114 @@ def test_layer_norm_grad_launches_no_kernel(cuda):
         # fp32, sums over 512 columns or 64 rows in another order
         torch.testing.assert_close(env[n].cpu(), cpu_env[n], rtol=1e-5,
                                    atol=1e-5)
+
+
+# the fused-block kernels against their plain versions: each output and
+# grad within 1e-5 of its largest |plain| (BWD_RTOL; the products sum over
+# up to B*T = 16384 rows in another order), saved P within 1e-6. Shapes:
+# odd batches, heads of 16, 24, 32 and 64, widths that are not multiples
+# of the 128-wide product tiles, and Transformer-base's width.
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,d,h,causal", [
+    (3, 16, 64, 2, True), (3, 8, 64, 4, False), (2, 72, 192, 8, True),
+    (4, 256, 512, 8, True), (4, 256, 512, 8, False), (1, 512, 256, 2,
+                                                       True)])
+def test_attention_block_kernels_match_plain(cuda, b, t, d, h, causal):
+    x, g = (_cuda_randn(cuda, b, t, d, seed=s) for s in (40, 41))
+    wqkv = _cuda_randn(cuda, d, 3 * d, seed=42) / d ** 0.5
+    wo = _cuda_randn(cuda, d, d, seed=43) / d ** 0.5
+    scale = (d // h) ** -0.5
+    before = KAB.attention_block.launches, KAB.attention_block_bwd.launches
+    out, p = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal, True)
+    primal = KAB.attention_block(x, wqkv, wo, h, scale, causal)
+    got = KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale, causal)
+    torch.cuda.synchronize()
+    assert (KAB.attention_block.launches,
+            KAB.attention_block_bwd.launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    wout, wp = KAB.attention_block_fwd_plain(x, wqkv, wo, h, scale, causal,
+                                             save_p=True)
+    _close_to_scale(out, wout)
+    torch.testing.assert_close(primal, out, rtol=0, atol=0)
+    torch.testing.assert_close(p, wp, rtol=0, atol=1e-6)
+    for a, w in zip(got, KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h,
+                                                       scale)):
+        _close_to_scale(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,d,f", [
+    (3, 16, 64, 96), (2, 40, 24, 40), (64, 256, 512, 2048)])
+def test_ffn_block_kernels_match_plain(cuda, b, t, d, f):
+    x, g = (_cuda_randn(cuda, b, t, d, seed=s) for s in (44, 45))
+    w1 = _cuda_randn(cuda, d, f, seed=46) / d ** 0.5
+    b1 = _cuda_randn(cuda, f, seed=47) * 0.1
+    w2 = _cuda_randn(cuda, f, d, seed=48) / f ** 0.5
+    b2 = _cuda_randn(cuda, d, seed=49) * 0.1
+    before = KFF.ffn_block.launches, KFF.ffn_block_bwd.launches
+    out = KFF.ffn_block(x, w1, b1, w2, b2)
+    got = KFF.ffn_block_bwd(x, w1, b1, w2, g)
+    torch.cuda.synchronize()
+    assert (KFF.ffn_block.launches, KFF.ffn_block_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close_to_scale(out, KFF.ffn_block_plain(x, w1, b1, w2, b2))
+    for a, w in zip(got, KFF.ffn_block_bwd_plain(x, w1, b1, w2, g)):
+        _close_to_scale(a, w)
+
+
+@pytest.mark.gpu
+def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = _cuda_randn(cuda, 2, 16, 512)
+    w = _cuda_randn(cuda, 512, 1536)
+    wo = _cuda_randn(cuda, 512, 512)
+    with pytest.raises(ValueError):
+        KAB.attention_block(x, w, wo, 2, 0.1)       # head width 256
+    with pytest.raises(TypeError):
+        KAB.attention_block(x.double(), w.double(), wo.double(), 8, 0.1)
+    with pytest.raises(ValueError):
+        KFF.ffn_block(x, w, _cuda_randn(cuda, 1536), w.t().contiguous(),
+                      _cuda_randn(cuda, 256))       # b2 of the wrong width
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", ["attention_block", "ffn_block"])
+def test_fused_grad_ops_on_the_card_match_the_cpu(cuda, block):
+    """The fused op and its grad op as the Executor runs them on the card:
+    the forward op launches the forward kernel once; the grad op
+    recomputes it (attention_block: saving P) and launches the backward
+    kernel once; the grads equal the same grad op on the CPU, which takes
+    the plain versions."""
+    import paddle_tpu_torch as pf
+    from paddle_tpu_torch.core import registry
+
+    b, t, d, f = 4, 64, 128, 256
+    if block == "attention_block":
+        shapes = {"X": (b, t, d), "WQKV": (d, 3 * d), "WO": (d, d)}
+        attrs = {"n_heads": 4, "scale": 32 ** -0.5, "causal": True}
+        kern = (KAB.attention_block, KAB.attention_block_bwd)
+    else:
+        shapes = {"X": (b, t, d), "W1": (d, f), "B1": (f,), "W2": (f, d),
+                  "B2": (d,)}
+        attrs = {}
+        kern = (KFF.ffn_block, KFF.ffn_block_bwd)
+    blk = pf.Program().global_block
+    for n, shape in shapes.items():
+        blk.create_var(name=n, shape=shape, dtype="float32")
+    op = blk.append_op(block, {n: n for n in shapes}, {"Out": "Out"}, attrs)
+    (gop,) = registry.make_grad_ops(op)
+    env = {n: _cuda_randn(cuda, *shape, seed=i) / (shape[0] ** 0.5
+                                                   if len(shape) == 2 else 1)
+           for i, (n, shape) in enumerate(shapes.items())}
+    env["Out@GRAD"] = _cuda_randn(cuda, b, t, d, seed=9)
+    cpu_env = {n: x.cpu() for n, x in env.items()}
+    before = [k.launches for k in kern]
+    with torch.no_grad():
+        registry.run_op(op, env, cuda)
+        torch.cuda.synchronize()
+        assert [k.launches for k in kern] == [before[0] + 1, before[1]]
+        registry.run_op(gop, env, cuda)
+        registry.run_op(gop, cpu_env, torch.device("cpu"))
+    torch.cuda.synchronize()
+    assert [k.launches for k in kern] == [before[0] + 2, before[1] + 1]
+    for n in shapes:
+        _close_to_scale(env[n + "@GRAD"].cpu(), cpu_env[n + "@GRAD"])
