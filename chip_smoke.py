@@ -26,7 +26,11 @@ Phases (a failing phase fails the script; none is caught):
    each output and grad held against the largest |plain| of it, which
    planted faults, a P off by 1e-3, dWo computed from g transposed, b1
    left out of the FFN backward's recompute and the ReLU mask inverted on
-   one column, must fail), with its time, the plain version's time, one
+   one column, must fail; the paged decode-attention kernel at the paged
+   serving shape with steps spread over the buffer, one lane at step -1
+   and unallocated pages at block 0, at a small shape and at Dh 128,
+   which planted faults, the step off by one and page p+1 read for page
+   p, must fail), with its time, the plain version's time, one
    PyTorch library call's time as a yardstick (for the fused blocks, the
    composition of library calls that computes the same function), and
    the least time the card could take (the larger of bytes / 3.35 TB/s
@@ -83,10 +87,25 @@ Phases (a failing phase fails the script; none is caught):
    forward kernel twice a step, in the forward op and, attention_block
    saving P, in its grad op's recompute, and its backward kernel once),
    timed and profiled as phases 5-7, beside phase 5's unfused step.
+9. paged serve: Transformer-base through build_decode_step_program with
+   the paged cache (16 lanes, 256 blocks of 16 positions, 16 prompt
+   entries, prompts and buffers of 256 tokens) under
+   PagedContinuousGenerationServer(steps_per_tick=8): 32 threaded
+   submits, 8 shared prompts 3 times each and 8 unique ones, then the
+   same requests through the dense ContinuousGenerationServer on the
+   same 16 lanes. The paged decode-attention kernel must launch n_layers
+   times a tick (the device's tick counter); the copies of a shared
+   prompt give one row; the tokens must equal the CPU whole-loop decode
+   (build_incremental_decode_program, plain versions) on 8 distinct
+   prompts and the dense leg on every request, under phase 4's tie
+   rule; the block pool and the prompt entries drain. Requests/s,
+   tokens/s and latency of both legs, and one burst of the paged server
+   under torch.profiler.
 
 The script prints its whole wall time; the second-to-last line lists
-the kernels as JSON, each with its launches on the serving (`served`)
-and training (`trained`, phases 5-8 together) paths; the last
+the kernels as JSON, each with its launches on the serving (`served`),
+training (`trained`, phases 5-8 together) and paged serving
+(`served_paged`, phase 9) paths; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result.
 """
@@ -115,6 +134,7 @@ from paddle_tpu_torch.ops.kernels import attention_block as KAB  # noqa: E402
 from paddle_tpu_torch.ops.kernels import build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import ffn_block as KFF  # noqa: E402
 from paddle_tpu_torch.ops.kernels import layer_norm as KL  # noqa: E402
+from paddle_tpu_torch.ops.kernels import paged_attention as KPA  # noqa: E402
 from paddle_tpu_torch.ops.kernels import xent as KX  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -192,6 +212,14 @@ FUSED_GRADS = {"logits.w": 1e-5, "dec5_c_ln.w": 1e-5, "dec5_fc2.w": 1e-5,
 # grad, max |got - plain| over its largest |plain| (the products sum over
 # up to B*T = 16384 rows in another order); planted faults must exceed it
 FUSED_RTOL = 1e-5
+# phase 9, the paged serving path: Transformer-base (MODEL) through
+# build_decode_step_program with the paged cache, 16 lanes; 32 requests
+# of 256-token prompts, 8 shared prompts sent 3 times each and 8 unique
+# ones (bench.py bench_paged's shared-prefix shape at full width)
+PAGED = dict(seq_len=256, max_out_len=256, n_slots=16, block_size=16,
+             n_blocks=256, n_prompt_entries=16, steps_per_tick=8)
+PAGED_SHARED, PAGED_REPEATS, PAGED_UNIQUE = 8, 3, 8
+PAGED_CPU_ROWS = 8   # distinct prompts held against the CPU whole loop
 # the training program's kernels, whose launches every training phase
 # counts
 TRAIN_KERNELS = (KX.xent_forward, KX.xent_backward, KL.layer_norm,
@@ -222,6 +250,8 @@ KERNEL_META = {
                             _PALLAS + "attention_block.py:228"),
     "ffn_block": (_CSRC + "ffn_block.cu", _PALLAS + "ffn_block.py:108"),
     "ffn_block_bwd": (_CSRC + "ffn_block.cu", _PALLAS + "ffn_block.py:157"),
+    "paged_decode_attention": (_CSRC + "paged_attention.cu",
+                               _PALLAS + "paged_attention.py:81"),
 }
 
 
@@ -784,6 +814,130 @@ def _fused_entries():
     return out
 
 
+def _paged_inputs(r, h, d, bs, np_pages, nb, steps, seed, distinct=True):
+    """q, pools, a block table and steps on the card. Lane i's pages up
+    to its step own blocks no other lane owns (blocks 1, 2, ... in
+    order; with distinct=False they wrap around the pool), its pages
+    past the step point at block 0, unallocated; a lane at step -1 owns
+    all its pages."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(r, h, d, device="cuda", generator=g)
+    pk = torch.randn(nb, bs, h, d, device="cuda", generator=g)
+    pv = torch.randn(nb, bs, h, d, device="cuda", generator=g)
+    tab = np.zeros((r, np_pages), np.int32)
+    nxt = 1
+    for i, st in enumerate(steps):
+        for p in range(np_pages if st < 0 else min(np_pages,
+                                                   st // bs + 1)):
+            tab[i, p] = nxt % nb
+            nxt += 1
+    assert nxt <= nb or not distinct, "the pool cannot hold the tables"
+    return (q, pk, pv, torch.from_numpy(tab).cuda(),
+            torch.tensor(steps, dtype=torch.int64, device="cuda"))
+
+
+def _lib_paged(q, pk, pv, tab, step, scale):
+    """The yardstick: the pages gathered to a dense [R,H,T,Dh] view,
+    then torch's fused SDPA (math backend forbidden) with the additive
+    step mask. The port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    r, h, d = q.shape
+    t = tab.shape[1] * pk.shape[1]
+    k = pk[tab.long()].reshape(r, t, h, d).transpose(1, 2)
+    v = pv[tab.long()].reshape(r, t, h, d).transpose(1, 2)
+    pos = torch.arange(t, device=q.device)
+    mask = torch.zeros(r, 1, 1, t, device=q.device).masked_fill(
+        (pos[None, :] > step[:, None]).reshape(r, 1, 1, t), float("-inf"))
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, scale=scale)[:, :, 0]
+
+
+def _paged_work(q, tab, step, bs):
+    """Bytes and operations one call needs on these inputs: K and V of
+    each lane's visible positions (all NP*BS at a negative step), q, the
+    output, the table and the steps; per visible position and head 2 Dh
+    flops each for q.k and p v, plus ~5 for the softmax."""
+    r, h, d = q.shape
+    t = tab.shape[1] * bs
+    st = step.cpu().numpy()
+    vis = int(np.where(st < 0, t, np.minimum(st + 1, t)).sum())
+    nbytes = 2 * vis * h * d * 4 + 2 * r * h * d * 4 + tab.numel() * 4 \
+        + r * 8
+    return nbytes, vis * h * (4 * d + 5)
+
+
+def _paged_entries():
+    """Kernel #9 against its plain version: the paged serving shape (R 17
+    lanes, H 8, Dh 64, BS 16, NP 16, NB 256) with steps spread over
+    0..255, tables that share no block, unallocated pages at block 0 and
+    one lane at step -1; a small shape (R 3, H 2, Dh 16, BS 8, NP 4);
+    and Dh 128. Output within ATTN_TOL. Planted faults must fail the
+    check: the step off by one (positions < step, not <= step) and page
+    p+1 read in place of page p. Then times at the serving shape with
+    every lane at step 255 (the most one tick reads) beside the bound
+    (this run's bytes over 3.35 TB/s), the plain version and the
+    yardstick (gather + SDPA)."""
+    errs = []
+    serve = (17, 8, 64, 16, 16, 256)
+    spread = [-1] + [int(x) for x in np.linspace(0, 255, 16)]
+    for (r, h, d, bs, np_pages, nb), steps in (
+            (serve, spread), ((3, 2, 16, 8, 4, 16), [0, 8, 31]),
+            ((5, 4, 128, 16, 8, 48), [-1, 15, 16, 77, 127])):
+        q, pk, pv, tab, st = _paged_inputs(r, h, d, bs, np_pages, nb,
+                                           steps, seed=r + d)
+        scale = d ** -0.5
+        got = KPA.paged_decode_attention(q, pk, pv, tab, st, scale)
+        want = KPA.paged_decode_attention_plain(q, pk, pv, tab, st, scale)
+        shifted = tab.clone()
+        shifted[:, :-1] = tab[:, 1:]
+        faults = {
+            "step off by one": max_err(KPA.paged_decode_attention(
+                q, pk, pv, tab, st - 1, scale), want),
+            "page p+1 read for p": max_err(KPA.paged_decode_attention(
+                q, pk, pv, shifted, st, scale), want)}
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        log(f"  paged_decode_attention R {r} H {h} Dh {d} BS {bs} NP "
+            f"{np_pages} NB {nb}: max_abs_err {err:.3e} (tol "
+            f"{ATTN_TOL:g}); planted faults "
+            + ", ".join(f"{n}: {e:.3e}" for n, e in faults.items())
+            + " (must exceed the tol)")
+        assert bool(torch.isfinite(got).all()) and err <= ATTN_TOL, err
+        for n, e in faults.items():
+            assert e > ATTN_TOL, f"the paged check cannot see {n}"
+        errs.append(err)
+    r, h, d, bs, np_pages, nb = serve
+    q, pk, pv, tab, st = _paged_inputs(r, h, d, bs, np_pages, nb,
+                                       [255] * r, seed=5, distinct=False)
+    scale = d ** -0.5
+    lib = _lib_paged(q, pk, pv, tab, st, scale)
+    torch.cuda.synchronize()
+    log(f"  paged_decode_attention library gather + SDPA vs plain: "
+        f"max_abs_err "
+        f"{max_err(lib, KPA.paged_decode_attention_plain(q, pk, pv, tab, st, scale)):.3e}")
+    ms = time_ms(lambda: KPA.paged_decode_attention(q, pk, pv, tab, st,
+                                                    scale), iters=50)
+    plain_ms = time_ms(lambda: KPA.paged_decode_attention_plain(
+        q, pk, pv, tab, st, scale), iters=20)
+    lib_ms = time_ms(lambda: _lib_paged(q, pk, pv, tab, st, scale),
+                     iters=20)
+    nbytes, flops = _paged_work(q, tab, st, bs)
+    bms, by = bound_ms(nbytes, flops)
+    log(f"  paged_decode_attention R {r} H {h} Dh {d} BS {bs} NP "
+        f"{np_pages}, every lane at step 255: kernel {ms:.4f} ms "
+        f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, library "
+        f"gather + SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+        f"{nbytes / 1e6:.1f} MB)")
+    return {"paged_decode_attention": dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms,
+        library="gather to [R,H,T,Dh] + SDPA with the step mask",
+        shape=[r, h, d, bs, np_pages, nb])}
+
+
 def phase_kernels():
     entries = {}
     # layer_norm: encoder rows at prompt 1024, a decoder step, ragged D
@@ -829,6 +983,7 @@ def phase_kernels():
         entries[name]["residual"] = residual.pop(name)
     entries.update(residual)
     entries.update(_fused_entries())
+    entries.update(_paged_entries())
     return entries
 
 
@@ -1017,11 +1172,12 @@ def _wall_s(exe, prog, fetch, scope, src, reps=3):
     return best
 
 
-def _device_profile(tag, run):
+def _device_profile(tag, run, match=None):
     """`run()` once under torch.profiler: its wall time, the card's busy
     time (device-side activities: kernels, copies, memsets), the idle
-    share and the kernels that took most of it. Returns (run's result,
-    the numbers)."""
+    share and the kernels that took most of it, and (`match`) the device
+    time of the activities whose name holds that string. Returns (run's
+    result, the numbers)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1043,6 +1199,9 @@ def _device_profile(tag, run):
                idle_share=1 - busy_ms / wall_ms if acts else None,
                device_activities=len(acts),
                top_kernels_ms={n[:60]: ms for n, ms in top})
+    if match is not None:
+        res["matched_ms"] = sum(ms for n, ms in by_name.items()
+                                if match in n)
     if acts:
         log(f"{tag}: profiled wall {wall_ms:.1f} ms, device busy "
             f"{busy_ms:.1f} ms, idle share {res['idle_share']:.3f}, "
@@ -1555,6 +1714,258 @@ def phase_train_fused(card_name, card, unfused):
     return counts, res
 
 
+def _serve_continuous(srv, prompts):
+    """All `prompts` submitted from their own threads to a server built
+    with start=False; the server starts once every request is queued.
+    Returns (rows in request order, stats, wall seconds)."""
+    results = [None] * len(prompts)
+
+    def call(i):
+        results[i] = srv.submit(prompts[i]).result(timeout=900)
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(prompts))]
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 60
+        while srv.stats()["requests"] < len(prompts):
+            assert time.monotonic() < deadline, "requests never queued"
+            time.sleep(0.005)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        srv.start()
+        for t in threads:
+            t.join(900)
+            assert not t.is_alive(), "a request did not return"
+        wall = time.monotonic() - t0
+        st = srv.stats()
+    finally:
+        srv.close()
+    return np.stack(results), st, wall
+
+
+def _profile_paged_burst(srv, prompts):
+    """One decode burst of the paged server under torch.profiler, driven
+    from this thread: a first cycle admits a full pool of requests and
+    runs steps_per_tick ticks, the second cycle (admitting nothing, a
+    burst of steps_per_tick ticks over every lane) is profiled. The
+    server is then closed."""
+    for p in prompts:
+        srv.submit(p)
+    try:
+        for profiled in (False, True):
+            failures = []
+            with srv._cv:
+                admits = srv._plan_admissions_locked(failures)
+                n, m, run = srv._plan_burst_locked(admits, False, failures)
+            assert run and not failures and bool(admits) != profiled
+            if not profiled:
+                srv._cycle(admits, n, m)
+                continue
+            t0 = srv._devtel.totals["tel_ticks"]
+            n0 = KPA.paged_decode_attention.launches
+            _, res = _device_profile("paged serve: one burst",
+                                     lambda: srv._cycle(admits, n, m),
+                                     match="paged_decode")
+    finally:
+        srv.close()
+    paged_ms = res.pop("matched_ms")
+    res.update(ticks=srv._devtel.totals["tel_ticks"] - t0,
+               paged_launches=KPA.paged_decode_attention.launches - n0,
+               paged_kernel_ms=paged_ms,
+               paged_share=(paged_ms / res["device_busy_ms"]
+                            if res["device_busy_ms"] else None))
+    log(f"paged serve: the profiled burst ran {res['ticks']} ticks of "
+        f"{len(prompts)} lanes; paged_decode_attention {paged_ms:.3f} ms "
+        f"in {res['paged_launches']} launches, share of the busy time "
+        f"{res['paged_share']}")
+    return res
+
+
+def _tie_margin(cpu, prog, lname, scope, src, pos):
+    """The CPU run's top-2 logit margin at the step that emits position
+    `pos` of the prompt `src`."""
+    lgt = cpu.run(_unrolled(prog, pos), feed={"src_ids": src[None]},
+                  fetch_list=[lname], scope=scope)[0][0]
+    top2 = np.sort(lgt)[-2:]
+    return float(top2[1] - top2[0])
+
+
+def _rows_agree(tag, got, want, tie):
+    """Rows equal, or first diverging where tie(row, pos) reports a CPU
+    top-2 logit margin below LOGITS_TOL. Returns the number of ties."""
+    ties = 0
+    for r in range(len(got)):
+        diff = np.nonzero(got[r] != want[r])[0]
+        if not len(diff):
+            continue
+        pos = int(diff[0])
+        margin = tie(r, pos)
+        log(f"{tag}: row {r} diverges at position {pos}: CPU top-2 "
+            f"logit margin {margin:.3e}")
+        assert margin < LOGITS_TOL, f"{tag}: token mismatch is not a tie"
+        ties += 1
+    return ties
+
+
+def phase_paged(card_name, card):
+    """Transformer-base served through the paged continuous-batching
+    server: build_decode_step_program with the paged cache (16 lanes,
+    256 blocks of 16, 16 prompt entries, prompts and buffers of 256),
+    PagedContinuousGenerationServer(steps_per_tick=8), 32 threaded
+    submits (8 shared prompts 3 times each, 8 unique ones). Kernel #9
+    must launch n_layers times a tick; the tokens must equal the CPU
+    whole-loop decode on 8 of the distinct prompts and the dense
+    ContinuousGenerationServer leg on the card (same 16 lanes, same
+    requests), under the tie rule; the pool must drain. Returns
+    (launches by kernel over both legs, results)."""
+    cfg = dict(MODEL, seq_len=PAGED["seq_len"],
+               max_out_len=PAGED["max_out_len"])
+    L = MODEL["n_layers"]
+    t0 = time.monotonic()
+    cache = decode_engine.CacheConfig(
+        layout="paged", block_size=PAGED["block_size"],
+        n_blocks=PAGED["n_blocks"],
+        n_prompt_entries=PAGED["n_prompt_entries"])
+    with unique_name.guard():
+        paged = decode_engine.build_decode_step_program(
+            n_slots=PAGED["n_slots"], state_prefix="@pg/", cache=cache,
+            **cfg)
+    with unique_name.guard():
+        dense = decode_engine.build_decode_step_program(
+            n_slots=PAGED["n_slots"], state_prefix="@cb/", **cfg)
+    with unique_name.guard():
+        whole, startup, _, out = \
+            decode_engine.build_incremental_decode_program(**cfg)
+    n_ops = sum(len(b.ops) for b in paged.serves[0].blocks)
+    log(f"paged serve: built the paged and dense bundles and the whole-"
+        f"loop program in {time.monotonic() - t0:.1f} s (paged key-0 "
+        f"serve: {n_ops} ops); KV state paged "
+        f"{paged.kv_state_bytes() / 2 ** 20:.1f} MiB, dense "
+        f"{dense.kv_state_bytes() / 2 ** 20:.1f} MiB")
+    params = [v.name for v in startup.global_block.vars.values()
+              if v.persistable]
+    startup.random_seed = SEED
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    cpu = pf.Executor(pf.CPUPlace())
+    gscope = pf.Scope()
+    gpu.run(startup, scope=gscope)
+    cscope = pf.Scope()
+    pf.load_numpy_params(cscope, pf.scope_to_numpy(gscope, params),
+                         pf.CPUPlace())
+    rng = np.random.RandomState(SEED + 9)
+    S = PAGED["seq_len"]
+    shared = rng.randint(2, MODEL["vocab"], (PAGED_SHARED, S))
+    unique = rng.randint(2, MODEL["vocab"], (PAGED_UNIQUE, S))
+    distinct = np.concatenate([shared, unique]).astype(np.int64)
+    ids = np.concatenate([np.repeat(np.arange(PAGED_SHARED),
+                                    PAGED_REPEATS),
+                          PAGED_SHARED + np.arange(PAGED_UNIQUE)])
+    ids = ids[rng.permutation(len(ids))]
+    prompts = distinct[ids]
+
+    legs = {}
+    launches = {}
+    for leg in ("paged", "dense"):
+        for k in (KL.layer_norm, KPA.paged_decode_attention, KA.sdpa_short,
+                  KA.flash_attention):
+            k.launches = 0
+        if leg == "paged":
+            srv = serving.PagedContinuousGenerationServer(
+                paged, executor=gpu, scope=gscope,
+                steps_per_tick=PAGED["steps_per_tick"], start=False)
+        else:
+            srv = serving.ContinuousGenerationServer(
+                dense, executor=gpu, scope=gscope,
+                steps_per_tick=PAGED["steps_per_tick"], start=False)
+        pool = srv.pool_stats if leg == "paged" else None
+        toks, st, wall = _serve_continuous(srv, prompts)
+        counts = {k.__name__: k.launches
+                  for k in (KL.layer_norm, KPA.paged_decode_attention,
+                            KA.sdpa_short, KA.flash_attention)}
+        tel = st["device_telemetry"]
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        rps, tps = len(prompts) / wall, st["tokens"] / wall
+        log(f"paged serve, {leg} leg: {len(prompts)} requests in "
+            f"{wall:.2f} s, {rps:.2f} requests/s, {tps:.1f} tokens/s, p50 "
+            f"latency {st['latency_ms']['p50']} ms, ttft p50 "
+            f"{st['ttft_ms']['p50']} ms; {st['ticks']} dispatches, "
+            f"{tel['ticks']} ticks, mean live lanes "
+            f"{tel['mean_live_lanes']}; launches {counts} on {card_name} "
+            f"({card})")
+        assert st["completed"] == len(prompts)
+        assert counts["layer_norm"] > 0, "layer_norm never launched"
+        assert counts["sdpa_short"] == counts["flash_attention"] == 0
+        if leg == "paged":
+            assert counts["paged_decode_attention"] == L * tel["ticks"], \
+                (counts, tel["ticks"])
+            ps = pool()
+            log(f"paged serve: pool {ps}")
+            assert ps["blocks_in_use"] == 0 \
+                and ps["prompt_entries_in_use"] == 0, ps
+            assert ps["prefix_misses"] + ps["prefix_hits"] \
+                + ps["cow_copies"] == len(prompts)
+            assert ps["prefix_hits"] > 0 and tel["admitted_hit"] > 0
+        else:
+            assert counts["paged_decode_attention"] == 0
+            ps = None
+        legs[leg] = dict(requests_per_s=rps, tokens_per_s=tps,
+                         wall_s=wall, p50_ms=st["latency_ms"]["p50"],
+                         ttft_p50_ms=st["ttft_ms"]["p50"],
+                         dispatches=st["ticks"], ticks=tel["ticks"],
+                         tokens=st["tokens"], launches=counts, pool=ps,
+                         toks=toks)
+    # where a tick's time goes: one burst of the paged server, profiled
+    # (after the launch counts above were read)
+    legs["paged"]["profile"] = _profile_paged_burst(
+        serving.PagedContinuousGenerationServer(
+            paged, executor=gpu, scope=gscope,
+            steps_per_tick=PAGED["steps_per_tick"], start=False),
+        distinct[:PAGED["n_slots"]])
+
+    # every served copy of a shared prompt is the same row (miss and
+    # hit admissions), on both legs
+    for leg in legs.values():
+        for i in range(PAGED_SHARED):
+            rows = leg["toks"][ids == i]
+            assert (rows == rows[0]).all(), "a prompt-cache hit moved tokens"
+    # against the CPU whole-loop decode on 8 distinct prompts
+    pick = list(range(PAGED_CPU_ROWS // 2)) + list(
+        PAGED_SHARED + np.arange(PAGED_CPU_ROWS // 2))
+    t0 = time.monotonic()
+    ref = cpu.run(whole, feed={"src_ids": distinct[pick]},
+                  fetch_list=[out], scope=cscope)[0]
+    ref = serving.apply_eos_sentinel(ref, MODEL["end_id"])
+    cpu_s = time.monotonic() - t0
+    lname = _logits_name(whole)
+    first = {i: int(np.nonzero(ids == i)[0][0]) for i in pick}
+
+    def tie(prompt_of_row):
+        return lambda r, pos: _tie_margin(cpu, whole, lname, cscope,
+                                          distinct[prompt_of_row(r)], pos)
+
+    paged_rows = legs["paged"]["toks"][[first[i] for i in pick]]
+    ties_cpu = _rows_agree("paged serve vs CPU", paged_rows, ref,
+                           tie(lambda r: pick[r]))
+    ties_dense = _rows_agree("paged serve vs dense leg",
+                             legs["paged"]["toks"], legs["dense"]["toks"],
+                             tie(lambda r: ids[r]))
+    steps = int(serving.count_generated_tokens(
+        legs["paged"]["toks"], MODEL["end_id"]).max())
+    log(f"paged serve: tokens equal the CPU whole loop in "
+        f"{PAGED_CPU_ROWS - ties_cpu}/{PAGED_CPU_ROWS} rows ({ties_cpu} "
+        f"ties; CPU run {cpu_s:.1f} s) and the dense leg in "
+        f"{len(prompts) - ties_dense}/{len(prompts)} ({ties_dense} ties); "
+        f"longest generation {steps} tokens")
+    for leg in legs.values():
+        del leg["toks"]
+    return launches, dict(legs=legs, ties_cpu=ties_cpu,
+                          ties_dense=ties_dense, cpu_s=cpu_s,
+                          longest=steps)
+
+
 def main():
     t_start = time.monotonic()
     name, count, card = phase_device()
@@ -1578,11 +1989,14 @@ def main():
     trained["fused"]["launches"] = counts
     for kname, n in counts.items():
         trained_launches[kname] += n
+    log("phase paged serve")
+    paged_launches, paged = phase_paged(name, card)
     line = []
     for kname, (src, replaces) in KERNEL_META.items():
         e = entries[kname]
         on_paths = dict(served=served_launches.get(kname, 0),
-                        trained=trained_launches[kname])
+                        trained=trained_launches[kname],
+                        served_paged=paged_launches.get(kname, 0))
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
         extra = {x: e[x] for x in ("max_rel_err", "residual", "library",
                                    "p_max_abs_err") if x in e}
@@ -1595,6 +2009,7 @@ def main():
                          **extra, ok=True))
     log(json.dumps({"served": served}))
     log(json.dumps({"trained": trained}))
+    log(json.dumps({"paged": paged}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall in all on "
         f"{name} ({card})")
     log(json.dumps({"kernels": line}))

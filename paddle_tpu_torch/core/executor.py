@@ -4,9 +4,11 @@ Counterpart of ``paddle_tpu/core/executor.py``. The JAX package traces a
 whole Block into one XLA computation; this port runs the reference
 Fluid design instead (framework/executor.cc:377): each op's kernel is
 called in program order on the place's device, and control-flow ops
-interpret their sub-blocks the same way. The executable and prepared
-caches, the on-disk compile cache, native builds, ``run_steps`` and
-sharding of the JAX package have no counterpart here yet.
+interpret their sub-blocks the same way. ``Executor.prepare`` binds a
+program to its fetch list once, as the serving loops run the same
+programs over and over. The executable caches, the on-disk compile
+cache, native builds, ``run_steps`` and sharding of the JAX package
+have no counterpart here yet.
 
 ``Executor()`` with no place runs on the card (``CUDAPlace(0)``). With
 no card it raises and names ``CPUPlace()``; it never carries on on the
@@ -143,7 +145,16 @@ def _read_names(block, fetch_names):
 
 
 class Executor:
-    """fluid.Executor parity (reference python/paddle/fluid/executor.py:451)."""
+    """fluid.Executor parity (reference python/paddle/fluid/executor.py:451).
+
+    ``compile_count``, ``cache_hit_count``, ``disk_load_count`` and
+    ``cache_evict_count`` stay 0: an interpreting executor compiles
+    nothing, and the servers' stats keep the JAX package's keys."""
+
+    compile_count = 0
+    cache_hit_count = 0
+    disk_load_count = 0
+    cache_evict_count = 0
 
     def __init__(self, place=None):
         self.place = place if place is not None else CUDAPlace(0)
@@ -164,41 +175,82 @@ class Executor:
             fetch_list=None, scope: Optional[Scope] = None,
             return_numpy: bool = True):
         program = program or default_main_program()
-        scope = scope or global_scope()
         feed = dict(feed or {})
-        fetch_names = _to_fetch_names(fetch_list)
-        block = program.global_block
-        for name in fetch_names:
-            if not block.has_var(name) and name not in feed:
-                raise KeyError(
-                    f"fetch target {name!r} does not exist in the "
-                    f"program")
+        return self.prepare(program, feed, fetch_list, scope).run(
+            feed, return_numpy=return_numpy)
+
+    def prepare(self, program: Program, feed=None, fetch_list=None,
+                scope: Optional[Scope] = None) -> "PreparedProgram":
+        """A handle that runs `program` with this fetch list against
+        `scope` (``paddle_tpu/core/executor.py:1313``): the names the
+        block reads from the scope and the outputs anything reads are
+        found once, here, not at every run. `feed` names the feeds: a
+        dict, or a list of (name, shape, dtype) as a decode bundle's
+        ``serve_feed_spec`` gives it."""
+        if isinstance(feed, dict):
+            feed_names = list(feed)
+        else:
+            feed_names = [f[0] if isinstance(f, (tuple, list)) else f
+                          for f in (feed or ())]
+        return PreparedProgram(self, program, feed_names,
+                               _to_fetch_names(fetch_list),
+                               scope or global_scope())
+
+    def _run_block(self, prepared, feed, return_numpy):
+        block = prepared.block
+        scope = prepared.scope
         env: Dict[str, torch.Tensor] = {}
         for name, value in feed.items():
             t = _coerce_feed(block, name, value, self.device)
             _check_feed_shape(block, name, t)
             env[name] = t
-        for name in _state_inputs(block, feed):
-            env[name] = self._committed(scope, name)
-        # sampling ops seed from the program's seed (0 when unset)
-        run_seed = program.random_seed or 0
-        needed = _read_names(block, fetch_names)
-        written = []
+        for name in prepared.state_in:
+            if name not in env:
+                env[name] = self._committed(scope, name)
         with torch.no_grad():
-            for op in block.ops:
-                if op.type in _SKIP_OP_TYPES:
-                    continue
-                run_op(op, env, self.device, run_seed, needed)
-                written.extend(op.output_arg_names)
+            for op in prepared.ops:
+                run_op(op, env, self.device, prepared.seed,
+                       prepared.needed)
         # persistable writes (parameters and optimizer state updated by
-        # the optimizer ops, the step counter) replace the scope's values
-        for name in dict.fromkeys(written):
-            var = block._find_var_recursive(name)
-            if var is not None and var.persistable:
-                scope._set(name, env[name])
+        # the optimizer ops, the step counter, a decode bundle's slot
+        # state) replace the scope's values
+        for name in prepared.persistable_out:
+            scope._set(name, env[name])
         fetches = [env[n] if n in env else self._committed(scope, n)
-                   for n in fetch_names]
+                   for n in prepared.fetch_names]
         if return_numpy:
             return [f.detach().cpu().numpy() for f in fetches]
         return fetches
 
+
+class PreparedProgram:
+    """One program bound to a fetch list and a scope
+    (``Executor.prepare``); ``run(feed)`` interprets it."""
+
+    def __init__(self, exe: Executor, program: Program, feed_names,
+                 fetch_names: List[str], scope: Scope):
+        block = program.global_block
+        for name in fetch_names:
+            if not block.has_var(name) and name not in feed_names:
+                raise KeyError(
+                    f"fetch target {name!r} does not exist in the "
+                    f"program")
+        self.exe = exe
+        self.block = block
+        self.scope = scope
+        self.fetch_names = fetch_names
+        self.ops = [op for op in block.ops
+                    if op.type not in _SKIP_OP_TYPES]
+        self.state_in = _state_inputs(block, feed_names)
+        self.needed = _read_names(block, fetch_names)
+        # sampling ops seed from the program's seed (0 when unset)
+        self.seed = program.random_seed or 0
+        written = dict.fromkeys(n for op in self.ops
+                                for n in op.output_arg_names)
+        self.persistable_out = [
+            n for n in written
+            if (v := block._find_var_recursive(n)) is not None
+            and v.persistable]
+
+    def run(self, feed=None, return_numpy: bool = True):
+        return self.exe._run_block(self, dict(feed or {}), return_numpy)

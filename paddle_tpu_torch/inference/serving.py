@@ -1,5 +1,5 @@
-"""InferenceServer and GenerationServer: batched, bucketed serving
-(the serving slice's subset of paddle_tpu/inference/serving.py).
+"""Serving front ends (the port's subset of
+paddle_tpu/inference/serving.py).
 
 * ``InferenceServer`` — a thread-safe request queue; one batcher thread
   forms micro-batches up to ``max_batch_size`` rows or ``max_wait_ms``
@@ -11,10 +11,20 @@
   KV-cached incremental decode program
   (models/decode_engine.build_incremental_decode_program), so a
   T-token generation is one program run and one readback.
+* ``ContinuousGenerationServer`` — iteration-level scheduling over a
+  fixed slot pool (models/decode_engine.build_decode_step_program):
+  queued prompts are admitted into free slots and every live lane
+  advances in one fused dispatch, and finished lanes retire at once.
+* ``PagedContinuousGenerationServer`` — the same scheduler over the
+  paged KV layout: host-allocated block tables over a shared pool,
+  prefix-cache admission (a repeated prompt is encoded once), lane
+  pausing and recompute-preemption under pool pressure, and the named
+  retryable ``BlockPoolExhausted``.
 
-The continuous and paged servers, sequence-length buckets, AOT warmup
-(there is nothing to compile ahead), and the observability spans and
-metrics providers belong to later slices.
+Sequence-length buckets, AOT warmup (there is nothing to compile
+ahead), streaming replies, chat sessions, speculation, chunked and
+disaggregated prefill, and the observability spans and metrics
+providers belong to later slices.
 """
 from __future__ import annotations
 
@@ -26,10 +36,14 @@ from concurrent import futures
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..core.executor import CUDAPlace, Executor
 from ..core.scope import global_scope
-from ..models.decode_engine import ServingUnavailable
+from ..models.decode_engine import (BlockPoolExhausted, HostBlockPool,
+                                    PromptPrefixCache, ServingUnavailable)
+from ..observability import devtel as obs_devtel
+from ..observability.metrics import Histogram
 
 
 def default_batch_buckets(max_batch_size: int) -> List[int]:
@@ -465,3 +479,898 @@ def apply_eos_sentinel(tokens: np.ndarray,
     pos = np.arange(toks.shape[1])[None, :]
     toks[pos > first[:, None]] = -1
     return toks
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching over a slot pool (dense and paged KV).
+# ---------------------------------------------------------------------------
+class RequestCancelled(ServingUnavailable):
+    """The outcome of ``reply.cancel()``: the request was torn down
+    (dequeued, or its lane retired at the next burst boundary with its
+    blocks and prompt entry released). Not retryable."""
+
+    retryable = False
+
+
+class DeadlineExceeded(ServingUnavailable):
+    """A request's ``deadline_ms`` expired while it was queued or still
+    decoding; it was torn down as a cancel is. Not retryable as it is."""
+
+    retryable = False
+
+
+class GenerationReply(futures.Future):
+    """Whole-response future of one continuous-batching request, whose
+    ``cancel()`` goes through the server: the lane retires at the next
+    burst boundary and releases what it holds, and the reply fails with
+    ``RequestCancelled``. True when the cancel was taken, False when
+    the outcome was already decided."""
+
+    _gen_server = None
+    _gen_req = None
+
+    def cancel(self):
+        srv, req = self._gen_server, self._gen_req
+        if srv is not None and req is not None:
+            return srv._cancel_request(req, "cancelled")
+        return super().cancel()
+
+
+class _GenRequest:
+    __slots__ = ("src", "reply", "t_arrival", "t_first", "t_admit",
+                 "deadline", "cancel_reason", "finalized")
+
+    def __init__(self, src, reply, deadline=None):
+        self.src = src
+        self.reply = reply
+        self.t_arrival = time.monotonic()
+        self.t_first = None  # when its first token landed
+        self.t_admit = None  # when a slot admitted it
+        self.deadline = deadline  # absolute time.monotonic() instant
+        # the one-way teardown mark ("cancelled" | "deadline"), and the
+        # scheduler's commit, under its lock, that the outcome is decided
+        self.cancel_reason = None
+        self.finalized = False
+
+
+class ContinuousGenerationServer:
+    """Continuous-batching generation over a fixed slot pool
+    (``serving.py:1109`` in the JAX package; iteration-level scheduling
+    as in Orca, slot-based KV as in vLLM).
+
+    Wraps a ``build_decode_step_program`` bundle: KV caches, token
+    buffers, per-lane step counters and the active mask live as
+    persistable scope state on the executor's device, and the host loops
+    over fused scheduler cycles, each one run of a ``bundle.serves``
+    program:
+
+      admit   FIFO: up to A oldest queued prompts fill free slots (A from
+              the power-of-two admission ladder; padded rows land on
+              the dustbin lane);
+      step    the same run then advances every live lane up to
+              ``steps_per_tick`` tokens in a device While that exits
+              early when lanes go idle (or, with ``exit_on_retire``, the
+              moment one retires);
+      retire  lanes whose active flag dropped (EOS, or the buffer is
+              full) are read back, sentinel-normalized
+              (``apply_eos_sentinel``) and their futures fulfilled; the
+              slot is free for the next arrival at once.
+
+    Greedy parity: a lane's row equals the whole-loop decode of the same
+    prompt, whatever the admission order or slot: the step's math is
+    the whole-loop body and every op is row-wise.
+
+    Cancellation (``reply.cancel()``) and ``deadline_ms`` tear a request
+    down at the next planning pass or burst boundary. Left out of this
+    slice, and raising where a caller asks for them: streaming replies
+    (``stream`` / ``stream_cb``), chat sessions and n-best fan-out (they
+    need the radix serves, which the port's bundles do not build), the
+    admit_select hook, the adaptive speculation controller, request
+    traces, the cost model, and the metrics providers.
+    """
+
+    def __init__(self, bundle, executor=None, scope=None,
+                 steps_per_tick: Optional[int] = None,
+                 drain_steps: Optional[int] = None,
+                 exit_on_retire: bool = False, start: bool = True):
+        if type(self) is ContinuousGenerationServer \
+                and bundle.cache.layout != "dense":
+            raise ValueError(
+                f"ContinuousGenerationServer serves DENSE bundles; this "
+                f"bundle's KV layout is {bundle.cache.layout!r} -- use "
+                f"PagedContinuousGenerationServer")
+        self.bundle = bundle
+        self.executor = executor or Executor(CUDAPlace(0))
+        self.scope = scope or global_scope()
+        # steps_per_tick bounds the burst while requests queue (a
+        # retired lane's slot refills only at the next cycle);
+        # drain_steps bounds the empty-queue burst
+        self.steps_per_tick = int(steps_per_tick) \
+            if steps_per_tick is not None else 8
+        self.drain_steps = int(drain_steps) if drain_steps is not None \
+            else bundle.max_out_len
+        self.exit_on_retire = bool(exit_on_retire)
+        self.n_slots = bundle.n_slots
+        self._end_id = bundle.end_id
+        bundle.init_slot_state(self.scope, self.executor.device)
+        self._devtel = obs_devtel.DeviceTelemetry(bundle)
+        st = bundle.state
+        self._fetches = [st["tok_buf"], st["step"], st["active"],
+                         st["finished"]] + self._devtel.fetch_names
+        self._serves = {
+            key: self.executor.prepare(
+                prog, feed=bundle.serve_feed_spec(key),
+                fetch_list=self._fetches, scope=self.scope)
+            for key, prog in bundle.serves.items()}
+        self._admit_buckets = sorted(
+            {k for k in self._serves if isinstance(k, int) and k > 0}
+            | {k[1] for k in self._serves if isinstance(k, tuple)})
+        # the radix tier needs ("radix", A) serves, which the port's
+        # bundles do not build: off, as in the JAX package for a bundle
+        # without them
+        self._radix_ok = any(isinstance(k, tuple) and k[0] == "radix"
+                             for k in self._serves)
+        self._warmed_compiles = 0
+        # lanes the paged scheduler parked for lack of a KV block
+        # (always empty on the dense server); retirement skips them
+        self._paused: set = set()
+
+        self._cv = threading.Condition()
+        self._queue: "collections.deque[_GenRequest]" = \
+            collections.deque()
+        self._lanes: List[Optional[_GenRequest]] = [None] * self.n_slots
+        self._running = False
+        self._closed = False
+        self._accepting = True
+        self._busy = False      # a fused cycle is mid-dispatch
+        self._thread: Optional[threading.Thread] = None
+
+        self._n_requests = 0
+        self._n_done = 0
+        self._n_tokens = 0
+        self._n_ticks = 0
+        self._occ_sum = 0.0
+        self._n_cancelled = 0
+        self._n_deadline = 0
+        self._latencies = Histogram("paddle_tpu_request_latency_ms")
+        self._ttft = Histogram("paddle_tpu_request_ttft_ms")
+        self._per_token = Histogram("paddle_tpu_per_token_ms")
+        self._t_first_arrival = None
+        self._t_last_done = None
+        self._t_start = time.monotonic()
+        self._t_window = self._t_start
+        if start:
+            self.start()
+
+    # --- lifecycle ----------------------------------------------------
+    def start(self):
+        with self._cv:
+            if self._running:
+                return
+            self._running = True
+            self._closed = False
+            self._accepting = True
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def quiesce(self):
+        """Stop accepting (submit raises ServerQuiesced); queued prompts
+        and live lanes run to completion. Idempotent."""
+        with self._cv:
+            self._accepting = False
+
+    def drain(self, timeout: Optional[float] = 60.0) -> bool:
+        """Block until the queue is empty, every lane retired and no
+        cycle is mid-dispatch. True when drained, False on timeout."""
+        deadline = None if timeout is None \
+            else time.monotonic() + timeout
+        with self._cv:
+            def dirty():
+                return (self._queue or self._busy
+                        or any(l is not None for l in self._lanes))
+
+            while self._running and dirty():
+                if deadline is None:
+                    self._cv.wait()
+                    continue
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cv.wait(left)
+            return not dirty()
+
+    def close(self, timeout: float = 5.0):
+        with self._cv:
+            self._running = False
+            self._closed = True
+            self._accepting = False
+            pending = list(self._queue)
+            self._queue.clear()
+            for slot, r in enumerate(self._lanes):
+                if r is not None:
+                    self._release_lane(slot, r)
+                    pending.append(r)
+            self._lanes = [None] * self.n_slots
+            for r in pending:
+                r.finalized = True
+            self._cv.notify_all()
+        for r in pending:
+            try:
+                r.reply.set_exception(ServerClosed(
+                    "ContinuousGenerationServer closed"))
+            except futures.InvalidStateError:
+                pass
+        if self._thread is not None:
+            self._thread.join(timeout)
+            self._thread = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # --- request path -------------------------------------------------
+    def submit(self, src_ids, seed=None, session_id=None,
+               extend_tokens=None, n_best=1, stream=False, stream_cb=None,
+               deadline_ms=None):
+        """Enqueue one prompt row of exactly seq_len tokens; returns a
+        ``GenerationReply``. ``deadline_ms`` is a completion budget from
+        now: a request still queued or decoding past it is torn down and
+        fails with ``DeadlineExceeded``. ``seed`` is accepted and unused
+        (greedy bundles draw nothing). ``session_id``, ``extend_tokens``
+        and ``n_best > 1`` need the radix tier and raise, as in the JAX
+        package on a bundle without it; ``stream`` / ``stream_cb`` are
+        not ported yet."""
+        arr = np.asarray(src_ids)
+        if arr.ndim == 1:
+            arr = arr[None]
+        if arr.shape != (1, self.bundle.seq_len):
+            raise ValueError(
+                f"continuous generation takes one prompt row of exactly "
+                f"seq_len={self.bundle.seq_len} tokens; got shape "
+                f"{tuple(np.asarray(src_ids).shape)}")
+        arr = arr.astype(np.int64)
+        n_best = int(n_best)
+        if n_best < 1:
+            raise ValueError(f"n_best must be >= 1, got {n_best}")
+        if (session_id is not None or n_best > 1) and not self._radix_ok:
+            raise ValueError(
+                "session_id/n_best need the radix serve tier, which the "
+                "port's bundles do not build yet")
+        if extend_tokens is not None and session_id is None:
+            raise ValueError(
+                "extend_tokens extends an existing chat session; pass "
+                "session_id")
+        if stream or stream_cb is not None:
+            raise NotImplementedError(
+                "streaming replies are not ported yet (a later slice "
+                "of the serving port); submit without stream")
+        if deadline_ms is not None and deadline_ms <= 0:
+            raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
+        deadline = (time.monotonic() + float(deadline_ms) / 1e3
+                    if deadline_ms is not None else None)
+        reply = GenerationReply()
+        req = _GenRequest(arr, reply, deadline=deadline)
+        reply._gen_server = self
+        reply._gen_req = req
+        with self._cv:
+            if self._closed:
+                raise ServerClosed("ContinuousGenerationServer is closed")
+            if not self._accepting:
+                raise ServerQuiesced(
+                    "ContinuousGenerationServer is quiesced (draining); "
+                    "retry against its replacement")
+            self._queue.append(req)
+            self._n_requests += 1
+            if self._t_first_arrival is None:
+                self._t_first_arrival = req.t_arrival
+            self._cv.notify_all()
+        return reply
+
+    def generate(self, src_ids, timeout: Optional[float] = 120.0,
+                 seed=None):
+        """One prompt row in, one sentinel-normalized [max_out_len] row
+        out."""
+        return self.submit(src_ids, seed=seed).result(timeout)
+
+    # --- cancellation and deadlines -----------------------------------
+    def _cancel_request(self, req, reason: str) -> bool:
+        """Mark the request under the scheduler lock and wake the loop;
+        the scheduler thread releases its state. False when the outcome
+        was already decided."""
+        with self._cv:
+            if req is None or req.finalized:
+                return False
+            if req.cancel_reason is None:
+                req.cancel_reason = reason
+            self._cv.notify_all()
+        return True
+
+    def _expired_locked(self, req, now: float) -> Optional[str]:
+        reason = req.cancel_reason
+        if reason is None and req.deadline is not None \
+                and now > req.deadline:
+            reason = req.cancel_reason = "deadline"
+        return reason
+
+    def _count_cancel_locked(self, reason: str):
+        if reason == "deadline":
+            self._n_deadline += 1
+        else:
+            self._n_cancelled += 1
+
+    def _shed_cancelled_locked(self, now: float):
+        """Drop cancelled and expired requests from the queue before
+        admission; returns the (req, reason) pairs to fail outside the
+        lock."""
+        out = []
+        kept = collections.deque()
+        for req in self._queue:
+            reason = self._expired_locked(req, now)
+            if reason is None:
+                kept.append(req)
+            else:
+                req.finalized = True
+                self._count_cancel_locked(reason)
+                out.append((req, reason))
+        self._queue = kept
+        return out
+
+    def _cancel_lane_locked(self, slot, req, reason: str):
+        """Burst-boundary teardown of a live lane: its holds go back
+        through _release_lane, as at retirement."""
+        req.finalized = True
+        self._release_lane(slot, req)
+        self._lanes[slot] = None
+        self._paused.discard(slot)
+        self._count_cancel_locked(reason)
+
+    @staticmethod
+    def _finalize_cancelled(cancels):
+        for req, reason in cancels:
+            exc = DeadlineExceeded(
+                "deadline_ms expired before completion; request torn "
+                "down") if reason == "deadline" else RequestCancelled(
+                "request cancelled by client")
+            try:
+                req.reply.set_exception(exc)
+            except futures.InvalidStateError:
+                pass
+
+    # --- scheduler ----------------------------------------------------
+    def _plan_admissions_locked(self, failures):
+        """FIFO admission into free slots, lowest slot first, at most
+        the largest admission bucket a cycle. Called under _cv;
+        `failures` collects (req, exc) pairs to fail outside the lock."""
+        admits = []
+        t_admit = time.monotonic()
+        for slot in range(self.n_slots):
+            if not self._queue or len(admits) >= self._admit_buckets[-1]:
+                break
+            if self._lanes[slot] is None:
+                req = self._queue.popleft()
+                self._lanes[slot] = req
+                req.t_admit = t_admit
+                admits.append((slot, req))
+        return admits
+
+    def _plan_burst_locked(self, admits, drain, failures):
+        """(n_steps, min_active, run) for the coming cycle."""
+        occupied = sum(l is not None for l in self._lanes)
+        if not occupied:
+            return 0, 0, False
+        n = self.drain_steps if drain else self.steps_per_tick
+        m = occupied - 1 if (self.exit_on_retire and not drain) else 0
+        return n, max(0, m), True
+
+    def _admission_feed(self, admits):
+        """(serve key, feeds) of this cycle's admissions; padded rows
+        repeat the last prompt and land on the dustbin lane."""
+        A = _bucket_for(len(admits), self._admit_buckets,
+                        "admission batch")
+        feed = {
+            "src_ids": np.concatenate(
+                [req.src for _, req in admits]
+                + [admits[-1][1].src] * (A - len(admits)), axis=0),
+            "slots": np.array(
+                [slot for slot, _ in admits]
+                + [self.bundle.dustbin] * (A - len(admits)), np.int64)}
+        return A, feed
+
+    def _pre_dispatch(self):
+        """Hook: publish host-owned state just before the dispatch."""
+
+    def _post_dispatch(self, outs):
+        """Hook: absorb fetched state right after a dispatch."""
+
+    def _release_lane(self, slot, req):
+        """Hook: a lane stopped serving `req` (retired, cancelled or
+        failed)."""
+
+    @staticmethod
+    def _fail_requests(failures):
+        for req, exc in failures:
+            try:
+                req.reply.set_exception(exc)
+            except futures.InvalidStateError:
+                pass
+
+    def _loop(self):
+        while True:
+            failures = []
+            with self._cv:
+                while self._running and not self._queue \
+                        and all(l is None for l in self._lanes):
+                    self._cv.wait()
+                if not self._running:
+                    return
+                cancels = self._shed_cancelled_locked(time.monotonic())
+                admits = self._plan_admissions_locked(failures)
+                drain = not self._queue
+                n_steps, min_active, run = self._plan_burst_locked(
+                    admits, drain, failures)
+                if run:
+                    self._busy = True
+            # futures' done-callbacks run synchronously: never under
+            # the scheduler lock
+            self._finalize_cancelled(cancels)
+            self._fail_requests(failures)
+            if run:
+                try:
+                    self._cycle(admits, n_steps, min_active)
+                finally:
+                    with self._cv:
+                        self._busy = False
+                        self._cv.notify_all()
+
+    def _cycle(self, admits, n_steps, min_active):
+        """One fused dispatch: admit the planned prompts, then decode
+        ticks over every live lane until n_steps ran or the live-lane
+        count drops to min_active; then retire."""
+        feed = {"n_steps": np.array([n_steps], np.int64),
+                "min_active": np.array([max(0, min_active)], np.int64)}
+        key = 0
+        if admits:
+            key, extra = self._admission_feed(admits)
+            feed.update(extra)
+        self._pre_dispatch()
+        try:
+            outs = self._serves[key].run(feed, return_numpy=True)
+            if self._devtel.active:
+                with self._cv:
+                    self._devtel.absorb(outs[4:])
+        except BaseException as e:
+            with self._cv:
+                lanes = [(slot, r) for slot, r in enumerate(self._lanes)
+                         if r is not None]
+                for slot, r in lanes:
+                    r.finalized = True
+                    self._release_lane(slot, r)
+                self._lanes = [None] * self.n_slots
+            self._fail_requests([(r, e) for _, r in lanes])
+            return
+        self._post_dispatch(outs)
+        tok_buf, _step, active = outs[:3]
+        done_t = time.monotonic()
+        retired, cancels = [], []
+        with self._cv:
+            occupied = 0
+            for slot in range(self.n_slots):
+                req = self._lanes[slot]
+                if req is None:
+                    continue
+                occupied += 1
+                if req.t_first is None:
+                    req.t_first = done_t  # its first token just landed
+                retiring = active[slot] == 0 and slot not in self._paused
+                reason = self._expired_locked(req, done_t)
+                if reason is not None and not retiring:
+                    # a finished result wins over a same-burst cancel
+                    self._cancel_lane_locked(slot, req, reason)
+                    cancels.append((req, reason))
+                    continue
+                if not retiring:
+                    continue
+                toks = apply_eos_sentinel(tok_buf[slot:slot + 1],
+                                          self._end_id)[0]
+                ntok = int(count_generated_tokens(toks[None],
+                                                  self._end_id)[0])
+                lat = (done_t - req.t_arrival) * 1e3
+                self._latencies.observe(lat)
+                self._ttft.observe((req.t_first - req.t_arrival) * 1e3)
+                if ntok:
+                    self._per_token.observe(lat / ntok)
+                    self._n_tokens += ntok
+                self._n_done += 1
+                self._t_last_done = done_t
+                req.finalized = True
+                self._release_lane(slot, req)
+                self._lanes[slot] = None
+                retired.append((req, toks))
+            self._n_ticks += 1
+            self._occ_sum += occupied / self.n_slots
+        for req, toks in retired:
+            try:
+                req.reply.set_result(toks)
+            except futures.InvalidStateError:
+                pass
+        self._finalize_cancelled(cancels)
+
+    # --- observability ------------------------------------------------
+    def _host_tel_locked(self, reset: bool) -> dict:
+        """Host-side supplement to stats()['device_telemetry'] (the
+        paged server's allocation counters). Called under _cv."""
+        return {}
+
+    def stats(self, reset: bool = False) -> dict:
+        """Atomic snapshot; reset=True zeroes the window counters under
+        the scheduler lock (uptime_s keeps counting)."""
+        exe = self.executor
+        with self._cv:
+            now = time.monotonic()
+            done_span = (
+                self._t_last_done - self._t_first_arrival
+                if self._t_last_done is not None
+                and self._t_first_arrival is not None else None)
+            occ = (self._occ_sum / self._n_ticks
+                   if self._n_ticks else None)
+            snap = {
+                "requests": self._n_requests,
+                "completed": self._n_done,
+                "queue_depth": len(self._queue),
+                "slots": self.n_slots,
+                "slot_occupancy": round(occ, 4) if occ else None,
+                "ticks": self._n_ticks,
+                "steps_per_tick": self.steps_per_tick,
+                "uptime_s": round(now - self._t_start, 3),
+                "window_s": round(now - self._t_window, 3),
+                "compile_count": exe.compile_count,
+                "cache_hit_count": exe.cache_hit_count,
+                "disk_load_count": exe.disk_load_count,
+                "cache_evict_count": exe.cache_evict_count,
+                "warmed_compiles": self._warmed_compiles,
+                "latency_ms": self._latencies.percentile_dict(),
+                "ttft_ms": self._ttft.percentile_dict(),
+                "per_token_ms": self._per_token.percentile_dict(),
+                "tokens": self._n_tokens,
+                "retired_per_s": (round(self._n_done / done_span, 1)
+                                  if done_span else None),
+                "cancelled": self._n_cancelled,
+                "deadline_expired": self._n_deadline,
+            }
+            if self._devtel.active:
+                dt = self._devtel.stats_dict(self._devtel.window())
+                dt.update(self._host_tel_locked(reset))
+                snap["device_telemetry"] = dt
+            if reset:
+                self._n_requests = self._n_done = 0
+                self._n_tokens = self._n_ticks = 0
+                self._occ_sum = 0.0
+                self._latencies.clear()
+                self._ttft.clear()
+                self._per_token.clear()
+                self._devtel.rebase()
+                self._t_first_arrival = None
+                self._t_last_done = None
+                self._t_window = now
+            return snap
+
+
+class PagedContinuousGenerationServer(ContinuousGenerationServer):
+    """Continuous batching over the paged KV layout
+    (``serving.py:2458`` in the JAX package; vLLM-style block tables
+    and prefix reuse). The base scheduler's fused admit-and-burst
+    cycles and immediate retirement carry over; this subclass adds the
+    host side of paging:
+
+    * block allocation: a lane starts with one block from the
+      ``HostBlockPool`` and grows lazily as it crosses block boundaries
+      (``_plan_burst_locked`` caps each burst at the coverage it could
+      allocate), so a short request holds one block, not maxT positions;
+    * prefix-cache admission: prompts are classified hit / partial /
+      miss against the ``PromptPrefixCache``; hits admit through the
+      encoder-free ``("hit", A)`` serves, misses and partials encode
+      once into an entry later hits reuse. One admission flavor a
+      cycle; a duplicate cold prompt in one batch waits a cycle and
+      comes back a hit;
+    * pressure: admission waits; a lane that cannot get its next block
+      is paused for the cycle (its active flag host-masked, so it
+      writes nothing); when every live lane is blocked the youngest is
+      recompute-preempted (blocks freed, request re-queued at the
+      front; greedy decode re-decodes it byte-identically). Only a lone
+      request that outgrows the whole pool fails, with the named
+      retryable ``BlockPoolExhausted``: never a hang.
+
+    FIFO admission. ``radix_reuse``
+    is accepted and, with no radix serves in the bundle, changes
+    nothing, as in the JAX package. ``chunked_prefill=True`` and a
+    ``prefill_worker`` raise NotImplementedError: chunked prefill and
+    its disaggregated worker belong to a later slice.
+    """
+
+    # how deep past the queue head the tier-grouped admission scan
+    # looks for batch-compatible requests
+    _ADMIT_SCAN_DEPTH = 64
+
+    def __init__(self, bundle, radix_reuse=True, chunked_prefill=None,
+                 prefill_worker=None, **kwargs):
+        cache = getattr(bundle, "cache", None)
+        if cache is None or cache.layout != "paged":
+            raise ValueError(
+                "PagedContinuousGenerationServer needs a bundle built "
+                "with CacheConfig(layout='paged') -- for dense bundles "
+                "use ContinuousGenerationServer")
+        if chunked_prefill or prefill_worker is not None:
+            raise NotImplementedError(
+                "chunked prefill and the disaggregated prefill worker "
+                "are not ported yet (a later slice of the serving "
+                "port); serve with chunked_prefill=None and no "
+                "prefill_worker")
+        self._radix_reuse = bool(radix_reuse)
+        self.cache = cache
+        self._bs = cache.block_size
+        self._blocks = HostBlockPool(cache.n_blocks)
+        self._prefix = PromptPrefixCache(cache.n_prompt_entries,
+                                         cache.block_size)
+        rows = bundle.n_slots + 1
+        self._tab = np.zeros((rows, cache.pages(bundle.max_out_len)),
+                             np.int32)
+        self._pref = np.full((rows,), cache.n_prompt_entries, np.int32)
+        self._lane_blocks = [[] for _ in range(bundle.n_slots)]
+        self._lane_entry: List[Optional[int]] = [None] * bundle.n_slots
+        self._lane_step = np.zeros((rows,), np.int64)
+        self._admit_tier = None
+        self._pause_events = 0  # lanes parked for >= 1 cycle
+        self._preemptions = 0   # recompute-preempted lanes
+        self._blocks_hwm = 0
+        self._entries_hwm = 0
+        self._pause_base = 0
+        self._preempt_base = 0
+        super().__init__(bundle, **kwargs)
+
+    def _plan_admissions_locked(self, failures):
+        admits = []
+        self._admit_tier = None
+        if not self._queue:
+            return admits
+        t_admit = time.monotonic()
+        free_slots = [s for s in range(self.n_slots)
+                      if self._lanes[s] is None]
+        max_A = self._admit_buckets[-1]
+        seen_cold = set()
+        blocked_reason = None
+        taken = []
+        # one admission flavor a cycle, set by the queue head (it always
+        # ships first); the batch fills with same-flavor requests from
+        # deeper in the queue
+        for pos, req in enumerate(self._queue):
+            if pos >= self._ADMIT_SCAN_DEPTH or not free_slots \
+                    or len(admits) >= max_A:
+                break
+            prompt = tuple(int(x) for x in req.src.reshape(-1))
+            tier, _entry = self._prefix.lookup(prompt)
+            flavor = "hit" if tier == "hit" else "miss"
+            if self._admit_tier is None:
+                self._admit_tier = flavor
+            if flavor != self._admit_tier:
+                continue  # next cycle's flavor
+            if flavor == "miss" and prompt in seen_cold:
+                # a duplicate cold prompt would alias the entry write;
+                # it comes back a hit next cycle
+                continue
+            # admission watermark: one spare block must remain per
+            # already-live lane, or growth turns into preempt/re-admit
+            # thrash
+            live_now = self.n_slots - len(free_slots)
+            if self._blocks.free_count - 1 < live_now:
+                blocked_reason = ("free KV blocks below the live-lane "
+                                  "watermark")
+                break
+            blk = self._blocks.alloc()
+            if blk is None:
+                blocked_reason = "no free KV block"
+                break
+            if flavor == "hit":
+                entry = self._prefix.acquire_hit(prompt)
+            else:
+                entry = self._prefix.acquire_fresh(
+                    prompt, partial=(tier == "partial"))
+                if entry is None:
+                    self._blocks.free([blk])
+                    blocked_reason = "every prompt entry is pinned"
+                    break
+                seen_cold.add(prompt)
+            slot = free_slots.pop(0)
+            taken.append(req)
+            self._lane_blocks[slot] = [blk]
+            self._lane_entry[slot] = entry
+            self._lane_step[slot] = 0
+            self._tab[slot, :] = 0
+            self._tab[slot, 0] = blk
+            self._pref[slot] = entry
+            self._lanes[slot] = req
+            req.t_admit = t_admit
+            admits.append((slot, req))
+        if taken:
+            taken_ids = {id(r) for r in taken}
+            self._queue = collections.deque(
+                r for r in self._queue if id(r) not in taken_ids)
+        if blocked_reason and not admits \
+                and all(l is None for l in self._lanes):
+            # nothing in flight can ever free a block or an entry: fail
+            # the head with the named retryable error instead of hanging
+            req = self._queue.popleft()
+            failures.append((req, BlockPoolExhausted(
+                f"cannot admit prompt: {blocked_reason} with the pool "
+                f"otherwise idle (n_blocks={self._blocks.n_blocks}, "
+                f"n_prompt_entries={self._prefix.n_entries}); retryable "
+                f"against a larger pool")))
+        return admits
+
+    def _admission_feed(self, admits):
+        tier = self._admit_tier
+        A = _bucket_for(len(admits), self._admit_buckets,
+                        "admission batch")
+        feed = {"slots": np.array(
+            [slot for slot, _ in admits]
+            + [self.bundle.dustbin] * (A - len(admits)), np.int64)}
+        if tier == "miss":
+            feed["src_ids"] = np.concatenate(
+                [req.src for _, req in admits]
+                + [admits[-1][1].src] * (A - len(admits)), axis=0)
+            # padded rows write the dustbin entry (index E)
+            feed["prompt_slots"] = np.array(
+                [self._lane_entry[slot] for slot, _ in admits]
+                + [self.cache.n_prompt_entries] * (A - len(admits)),
+                np.int64)
+        return (tier, A), feed
+
+    # --- burst planning: coverage, pausing, exhaustion -----------------
+    def _grow_blocks_locked(self, slot, upto_pos):
+        need = upto_pos // self._bs + 1
+        blocks = self._lane_blocks[slot]
+        while len(blocks) < need:
+            b = self._blocks.alloc()
+            if b is None:
+                return
+            self._tab[slot, len(blocks)] = b
+            blocks.append(b)
+
+    def _free_lane_locked(self, slot):
+        # decref from refcount 1 is the strict free; newest block first
+        for b in reversed(self._lane_blocks[slot]):
+            self._blocks.decref(b)
+        self._lane_blocks[slot] = []
+        if self._lane_entry[slot] is not None:
+            self._prefix.release(self._lane_entry[slot])
+            self._lane_entry[slot] = None
+        self._paused.discard(slot)
+
+    def _plan_burst_locked(self, admits, drain, failures):
+        n_steps, min_active, run = super()._plan_burst_locked(
+            admits, drain, failures)
+        if not run:
+            return n_steps, min_active, run
+        maxT = self.bundle.max_out_len
+        while True:
+            live = [s for s in range(self.n_slots)
+                    if self._lanes[s] is not None]
+            if not live:
+                self._paused = set()
+                break
+            k = n_steps
+            blocked = []
+            for s in live:
+                st = int(self._lane_step[s])
+                # a K-tick burst writes KV at positions st..st+K-1
+                self._grow_blocks_locked(s, min(st + n_steps - 1,
+                                                maxT - 1))
+                covered = len(self._lane_blocks[s]) * self._bs
+                coverable = n_steps if covered >= maxT else covered - st
+                if coverable <= 0:
+                    blocked.append(s)
+                else:
+                    k = min(k, coverable)
+            if blocked and len(blocked) == len(live):
+                # every live lane sits at a block boundary with an empty
+                # free list: preempt the youngest by recompute
+                victim = max(blocked,
+                             key=lambda s: self._lanes[s].t_admit or 0)
+                req = self._lanes[victim]
+                self._free_lane_locked(victim)
+                self._lanes[victim] = None
+                if len(live) == 1:
+                    # a lone lane owns every block in use and still
+                    # cannot advance: re-running it cannot do better
+                    failures.append((req, BlockPoolExhausted(
+                        f"KV block pool exhausted mid-generation "
+                        f"(n_blocks={self._blocks.n_blocks}, the request "
+                        f"alone outgrows the pool); request evicted -- "
+                        f"retryable against a larger pool")))
+                    continue
+                self._preemptions += 1
+                req.t_admit = None
+                req.t_first = None
+                self._queue.appendleft(req)
+                continue
+            self._pause_events += len(set(blocked) - self._paused)
+            self._paused = set(blocked)
+            n_steps = k
+            break
+        if self.exit_on_retire and not drain:
+            live_unpaused = sum(
+                1 for s in range(self.n_slots)
+                if self._lanes[s] is not None and s not in self._paused)
+            min_active = max(0, live_unpaused - 1)
+        self._blocks_hwm = max(self._blocks_hwm, self._blocks.in_use)
+        self._entries_hwm = max(self._entries_hwm, self._prefix.in_use)
+        return n_steps, min_active, True
+
+    def _pre_dispatch(self):
+        """Publish the host-owned block table, prompt refs and the
+        pause mask just before the dispatch (a prepared run reads the
+        scope at every call, so this is the whole host-to-device
+        channel)."""
+        names = self.bundle.state
+        dev = self.executor.device
+        act = np.zeros((self.n_slots + 1,), np.int64)
+        for s in range(self.n_slots):
+            if self._lanes[s] is not None and s not in self._paused:
+                act[s] = 1
+        # paused, retired and idle lanes read 0 (a gated pool write is
+        # the exclusivity contract); admitted lanes are raised by the
+        # admission body inside the same dispatch
+        for name, val in ((names["block_tab"], self._tab),
+                          (names["prompt_ref"], self._pref),
+                          (names["active"], act)):
+            self.scope._set(name, torch.from_numpy(val.copy()).to(dev))
+
+    def _post_dispatch(self, outs):
+        self._lane_step = np.asarray(outs[1]).astype(np.int64).copy()
+
+    def _release_lane(self, slot, req):
+        self._free_lane_locked(slot)
+
+    # --- observability ------------------------------------------------
+    def pool_stats(self) -> dict:
+        """Block-pool and prefix-cache counters."""
+        with self._cv:
+            return {
+                "layout": "paged",
+                "block_size": self._bs,
+                "n_blocks": self._blocks.n_blocks,
+                "blocks_in_use": self._blocks.in_use,
+                "blocks_free": self._blocks.free_count,
+                "prompt_entries": self._prefix.n_entries,
+                "prompt_entries_in_use": self._prefix.in_use,
+                "prefix_hits": self._prefix.hits,
+                "prefix_misses": self._prefix.misses,
+                # partial-tier admissions encode anew: each is a copy
+                "cow_copies": self._prefix.partials,
+                "evictions": self._prefix.evictions,
+                "paused_lanes": len(self._paused),
+                "pause_events": self._pause_events,
+                "preemptions": self._preemptions,
+                "chunked_prefill": False,
+            }
+
+    def _host_tel_locked(self, reset: bool) -> dict:
+        out = {
+            "blocks_hwm": self._blocks_hwm,
+            "prompt_entries_hwm": self._entries_hwm,
+            "pause_events": self._pause_events - self._pause_base,
+            "preemptions": self._preemptions - self._preempt_base,
+        }
+        if reset:
+            # the next window's mark starts at the current residency
+            self._blocks_hwm = self._blocks.in_use
+            self._entries_hwm = self._prefix.in_use
+            self._pause_base = self._pause_events
+            self._preempt_base = self._preemptions
+        return out
+
+    def stats(self, reset: bool = False) -> dict:
+        st = super().stats(reset=reset)
+        st["block_pool"] = self.pool_stats()
+        return st

@@ -16,7 +16,8 @@ __all__ = [
     "cast", "argmax", "reduce_sum", "increment", "elementwise_add",
     "elementwise_sub", "elementwise_mul", "elementwise_max",
     "elementwise_min", "softmax_with_cross_entropy", "mean",
-    "attention_block", "ffn_block",
+    "attention_block", "ffn_block", "gather", "expand",
+    "masked_pool_write", "paged_decode_attention",
 ]
 
 
@@ -295,4 +296,63 @@ def increment(x, value=1.0, in_place=True):
         helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("increment", {"X": x}, {"Out": out},
                      {"step": value})
+    return out
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("gather", {"X": input, "Index": index},
+                     {"Out": out}, {})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("expand", {"X": x}, {"Out": out},
+                     {"expand_times": list(expand_times)})
+    return out
+
+
+def masked_pool_write(pool, new, index, gate=None, leading_dims=1,
+                      exclusive_via=None, name=None):
+    """Write rows into a shared decode KV pool in place (the op's Out
+    is the pool var itself; ops/paged_ops.py). ``exclusive_via`` names
+    why the rows cannot alias: "block_table" (per-lane blocks from the
+    host free list; needs ``gate`` so idle, dustbin and paused lanes
+    write nothing), "host_indices" (host-deduplicated admission
+    targets) or "cow_dst" (fresh exclusive blocks of a copy)."""
+    if exclusive_via not in ("block_table", "host_indices", "cow_dst"):
+        raise ValueError(
+            f"masked_pool_write needs exclusive_via='block_table', "
+            f"'host_indices' or 'cow_dst' (got {exclusive_via!r}): "
+            f"shared-pool writes must declare why row indices cannot "
+            f"alias")
+    if exclusive_via == "block_table" and gate is None:
+        raise ValueError(
+            "masked_pool_write(exclusive_via='block_table') needs a "
+            "gate: ungated lane writes through a block table let "
+            "idle/dustbin lanes scribble over other requests' KV")
+    helper = LayerHelper("masked_pool_write", input=pool, name=name)
+    inputs = {"Pool": pool, "New": new, "Index": index}
+    if gate is not None:
+        inputs["Gate"] = gate
+    helper.append_op("masked_pool_write", inputs, {"Out": pool},
+                     {"leading_dims": int(leading_dims),
+                      "exclusive_via": exclusive_via})
+    return pool
+
+
+def paged_decode_attention(q, pool_k, pool_v, block_tab, step, scale=1.0,
+                           name=None):
+    """Single-query attention of q [R,H,1,Dh] over each lane's cache
+    positions <= step [R] in the shared pools [NB,BS,H,Dh], through the
+    block table [R,NP] (ops/paged_ops.py). Returns [R,H,1,Dh]."""
+    helper = LayerHelper("paged_decode_attention", input=q, name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    helper.append_op("paged_decode_attention",
+                     {"Q": q, "PoolK": pool_k, "PoolV": pool_v,
+                      "BlockTab": block_tab, "Step": step},
+                     {"Out": out}, {"scale": float(scale)})
     return out

@@ -1,21 +1,49 @@
-"""KV-cached incremental greedy decode: the serving slice's subset of
+"""The decode engine: the port's subset of
 paddle_tpu/models/decode_engine.py (reference
-tests/unittests/dist_transformer.py:1498 fast_decode).
+tests/unittests/dist_transformer.py:1498 fast_decode; the slot-pool and
+paged serving discipline of Orca and vLLM).
 
-``build_incremental_decode_program`` builds the same Program as the JAX
-package's builder of that name: an encoder pass, per-layer cross K/V,
-then a ``while`` loop that embeds one token, runs the cached decoder
-stack, and emits the greedy token with EOS freezing. Parameter names
-are the same explicit ones, so weights carry over by name. The
-``sharding=`` argument, the paged/span caches and the slot-pool
-builders belong to later slices.
+* ``build_incremental_decode_program`` builds the same Program as the
+  JAX package's builder of that name: an encoder pass, per-layer cross
+  K/V, then a ``while`` loop that embeds one token, runs the cached
+  decoder stack, and emits the greedy token with EOS freezing.
+* ``build_decode_step_program`` builds the slot-pool bundle that the
+  continuous servers (inference/serving.py) run: admission programs, a
+  one-token step over every lane, and the fused serve programs (an
+  admission followed by a decode-burst While), over a dense per-lane KV
+  cache or a paged one (``CacheConfig``: a shared block pool per layer
+  addressed through host-allocated block tables, and a refcounted pool
+  of prompt entries for the cross K/V).
+* ``HostBlockPool`` and ``PromptPrefixCache`` are the host allocators
+  of the paged layout; the device only reads the tables they fill.
+
+Parameter names are the JAX package's explicit ones, so weights carry
+over by name. One place differs on purpose: the paged step's
+self-attention. The JAX package gathers a dense [R,H,maxT,Dh] view of
+each lane's pages and runs the biased softmax over it; the port runs
+one ``paged_decode_attention`` op a layer instead (kernel #9 on the
+card), which computes the same function without the view. Sampling,
+speculative drafts, tensor-parallel sharding, chunked prefill, the
+radix tier, the COW and probe programs and the beam front belong to
+later slices.
 """
 from __future__ import annotations
 
+import types
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
 from .. import layers
 from ..core.program import Program, program_guard
+from ..observability import devtel
+from ..ops.kernels import paged_attention as KPA
 from ..param_attr import ParamAttr
-from . import transformer as T
+
+# name mark of the shared pool persistables (the JAX package's checker
+# PTA110 keys on it; the port keeps the names identical)
+POOL_MARK = "@POOL"
 
 # fixed-name whole-loop tick counter (observability/devtel.py in the JAX
 # package): fetch it to read how many iterations the early exit allowed
@@ -117,13 +145,64 @@ class _DenseLaneCache:
         return self.kc, self.vc
 
 
+class _PagedLaneCache:
+    """Per-layer paged self-KV access. Writes go through
+    ``masked_pool_write`` into the shared ``[NB, BS, H, Dh]`` pool at
+    each lane's block-table cell, gated by the active mask so idle,
+    dustbin and paused lanes never touch the pool.
+
+    ``routed`` (decided by shape alone, ``paged_attention.usable``):
+    ``update`` only writes, and ``cached_decoder_step`` attends with one
+    ``paged_decode_attention`` op over the pools through ``block_tab``
+    and ``step``. Otherwise ``update`` also gathers every lane's maxT
+    positions back into the dense ``[R, H, maxT, Dh]`` view through
+    ``flat_pos`` and the step attends over it as the JAX package does;
+    cells a lane has not written hold stale pool values, which the
+    validity bias masks exactly as the dense layout masks its zeros."""
+
+    def __init__(self, pool_k, pool_v, write_idx, gate, rows, n_heads,
+                 head_dim, maxT, n_cells, block_tab, step, flat_pos=None):
+        self.pool_k, self.pool_v = pool_k, pool_v
+        self.write_idx, self.gate = write_idx, gate
+        self.rows, self.maxT = rows, maxT
+        self.n_heads, self.head_dim = n_heads, head_dim
+        self.n_cells = n_cells            # NB * BS
+        self.block_tab, self.step = block_tab, step
+        self.flat_pos = flat_pos          # [rows*maxT] int32, or None
+        self.routed = flat_pos is None
+
+    def _view(self, pool):
+        flat = layers.reshape(pool, [self.n_cells,
+                                     self.n_heads * self.head_dim])
+        rows_kv = layers.gather(flat, self.flat_pos)
+        return layers.transpose(
+            layers.reshape(rows_kv, [self.rows, self.maxT,
+                                     self.n_heads, self.head_dim]),
+            perm=[0, 2, 1, 3])
+
+    def write(self, kh, vh):
+        for pool, new in ((self.pool_k, kh), (self.pool_v, vh)):
+            layers.masked_pool_write(
+                pool,
+                layers.reshape(new, [0, self.n_heads, self.head_dim]),
+                self.write_idx, gate=self.gate, leading_dims=2,
+                exclusive_via="block_table")
+
+    def update(self, kh, vh):
+        self.write(kh, vh)
+        return self._view(self.pool_k), self._view(self.pool_v)
+
+
 def cached_decoder_step(x, caches, cross_kv, att_bias, d_model,
                         n_heads, d_inner, prefix=""):
     """One KV-cached decoder-stack step over a [R,1,D] row batch.
     ``caches``: per-layer cache-access objects; ``cross_kv``: per-layer
     (ck, cv) [R,H,S,Dh] encoder projections; ``att_bias``: the 0/-1e9
-    validity bias added to the [R,H,1,maxT] scores. Returns the [R,1,D]
-    hidden rows after all layers."""
+    validity bias added to the [R,H,1,maxT] scores (None when every
+    cache is a routed paged cache, which masks by its step). Returns
+    the [R,1,D] hidden rows after all layers."""
+    from . import transformer as T
+
     q = 1
     head_dim = d_model // n_heads
     scale = head_dim ** -0.5
@@ -136,12 +215,18 @@ def cached_decoder_step(x, caches, cross_kv, att_bias, d_model,
         qh = heads_of(qv, q, n_heads, head_dim)
         kh = heads_of(k, q, n_heads, head_dim)
         vh = heads_of(v, q, n_heads, head_dim)
-        kc, vc = cache.update(kh, vh)
-        scores = layers.scale(
-            layers.matmul(qh, kc, transpose_y=True), scale=scale)
-        scores = layers.elementwise_add(scores, att_bias)
-        probs = layers.softmax(scores, axis=-1)
-        ctx = layers.matmul(probs, vc)
+        if getattr(cache, "routed", False):
+            cache.write(kh, vh)
+            ctx = layers.paged_decode_attention(
+                qh, cache.pool_k, cache.pool_v, cache.block_tab,
+                cache.step, scale=scale)
+        else:
+            kc, vc = cache.update(kh, vh)
+            scores = layers.scale(
+                layers.matmul(qh, kc, transpose_y=True), scale=scale)
+            scores = layers.elementwise_add(scores, att_bias)
+            probs = layers.softmax(scores, axis=-1)
+            ctx = layers.matmul(probs, vc)
         ctx = layers.reshape(
             layers.transpose(ctx, perm=[0, 2, 1, 3]), [0, q, d_model])
         attn_out = layers.fc(ctx, d_model, num_flatten_dims=2,
@@ -183,6 +268,8 @@ def build_incremental_decode_program(seq_len=16, max_out_len=16,
     K/V (written at position t) and precomputed cross-attention K/V.
 
     Returns (program, startup, feeds, out_ids_var)."""
+    from . import transformer as T
+
     head_dim = d_model // n_heads
     maxT = max_out_len
 
@@ -273,3 +360,959 @@ class ServingUnavailable(RuntimeError):
 
     retryable = False
     retry_after_ms = None
+
+
+class BlockPoolExhausted(ServingUnavailable):
+    """The shared KV block pool (or the prompt-entry pool) cannot
+    satisfy an allocation and nothing in flight can ever free one.
+    Retryable: the caller may resubmit once other requests retire, or
+    against a larger pool. Raised instead of hanging the scheduler;
+    transient pressure queues or pauses lanes instead."""
+
+    retryable = True
+    retry_after_ms = 50.0
+
+
+class AdmissionInfeasible(ServingUnavailable):
+    """The serving configuration, not the load, can never admit the
+    request. Not retryable."""
+
+    retryable = False
+
+
+class BlockLifetimeError(ValueError):
+    """A host-allocator call broke the block lifetime ``free ->
+    exclusive(lane) -> shared(refcount > 1) -> free``: freeing an
+    unallocated or already-freed block, or releasing a zero-ref prompt
+    entry. The state is left unchanged."""
+
+
+# ---------------------------------------------------------------------------
+# The slot-pool bundle (continuous batching), dense or paged.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class CacheConfig:
+    """KV cache layout of a slot-pool decode bundle
+    (``decode_engine.py:154`` in the JAX package).
+
+    ``dense``: per-lane ``[rows, H, maxT, Dh]`` self-KV and ``[rows, H,
+    seq_len, Dh]`` cross-KV buffers, reserved whole for every admitted
+    request.
+
+    ``paged``: the self-KV of every layer lives in one shared pool of
+    ``n_blocks`` blocks of ``block_size`` positions (``[n_blocks,
+    block_size, H, Dh]``), addressed through per-lane int32 block-table
+    rows that the host allocates (``HostBlockPool``); the cross-KV lives
+    in a pool of ``n_prompt_entries`` whole-prompt entries (+1 dustbin),
+    shared and refcounted across lanes with identical prompts
+    (``PromptPrefixCache``), so a repeated prompt is encoded once.
+    ``chunk_tokens`` > 0 (chunked prefill) validates as in the JAX
+    package, but ``build_decode_step_program`` refuses it: chunked
+    prefill belongs to a later slice.
+    """
+
+    layout: str = "dense"
+    block_size: int = 8
+    n_blocks: int = 0
+    n_prompt_entries: int = 0
+    chunk_tokens: int = 0
+
+    def validate(self, max_out_len: int):
+        if self.layout not in ("dense", "paged"):
+            raise ValueError(f"unknown KV layout {self.layout!r}")
+        if self.layout == "paged":
+            if self.block_size < 1 or self.n_blocks < 1 \
+                    or self.n_prompt_entries < 1:
+                raise ValueError(
+                    f"paged layout needs block_size/n_blocks/"
+                    f"n_prompt_entries >= 1, got {self}")
+            if max_out_len % self.block_size != 0:
+                raise ValueError(
+                    f"block_size={self.block_size} must divide "
+                    f"max_out_len={max_out_len} (the pages of a lane "
+                    f"cover exactly the dense [maxT] positions)")
+        if self.chunk_tokens < 0:
+            raise ValueError(
+                f"chunk_tokens must be >= 0, got {self.chunk_tokens}")
+        if self.chunk_tokens and self.layout != "paged":
+            raise ValueError(
+                "chunked prefill needs the paged layout (chunks land "
+                "in the shared prompt-entry pool)")
+        if self.chunk_tokens == 1:
+            raise ValueError(
+                "chunk_tokens == 1 is rejected (the JAX package's "
+                "chunked==monolithic parity needs C >= 2)")
+
+    @property
+    def chunked(self) -> bool:
+        return self.layout == "paged" and self.chunk_tokens > 0
+
+    def pages(self, max_out_len: int) -> int:
+        return max_out_len // self.block_size
+
+    def token(self) -> tuple:
+        """Content identity of the layout: two servers differing only
+        in KV layout are not the same model."""
+        if self.layout == "dense":
+            return ("dense",)
+        tok = ("paged", self.block_size, self.n_blocks,
+               self.n_prompt_entries)
+        if self.chunk_tokens:
+            tok = tok + ("chunk", self.chunk_tokens)
+        return tok
+
+
+class DecodeStepBundle:
+    """Program set for slot-pool continuous batching
+    (``decode_engine.py:972`` in the JAX package).
+
+    All per-slot decode state is persistable scope state shared by the
+    programs: KV caches, token buffers, per-lane step counters, the
+    finished and active masks, and (paged) the host-owned block table,
+    prompt refs and teacher-forcing horizon. The pool holds ``n_slots``
+    schedulable lanes plus one dustbin row (index ``n_slots``) that
+    absorbs the padded rows of a bucketed admission; it decodes garbage
+    harmlessly, its paged pool writes are gated off, and it is never
+    scheduled.
+
+    * ``prefills[A]``: one admission program per bucket size A (feeds
+      ``src_ids`` [A, seq_len], ``slots`` [A] and, paged,
+      ``prompt_slots`` [A]); paged bundles also carry ``hit_prefills[A]``,
+      encoder-free admissions of prompts whose entry is cached.
+    * ``step``: no feeds; advances every lane one token.
+    * ``serves[key]``: the fused scheduler-cycle programs, an admission
+      body (absent at key 0) followed by a While that runs the step
+      body until ``n_steps`` ticks ran or the live-lane count drops to
+      ``min_active`` (both fed as [1] int64). Keys are admission buckets
+      (ints) for dense bundles and ``("hit"|"miss", A)`` plus 0 for
+      paged ones; ``serve_feed_spec(key)`` names each feed signature.
+      The port builds no ``("radix", A)`` serves, so a server's radix
+      tier stays off, as it does in the JAX package for a bundle
+      without them.
+
+    ``state`` maps logical names to scope var names;
+    ``init_slot_state(scope, device)`` seeds the pool. ``startup`` holds
+    the parameter initializers only: serving runs against a scope that
+    already holds the weights.
+    """
+
+    def __init__(self, prefills, step, serves, startup, state, n_slots,
+                 seq_len, max_out_len, start_id, end_id, cache=None,
+                 hit_prefills=None):
+        self.prefills = dict(prefills)
+        self.prefill = self.prefills[min(self.prefills)]
+        self.hit_prefills = dict(hit_prefills or {})
+        self.step = step
+        self.serves = dict(serves)
+        self.startup = startup
+        self.state = dict(state)
+        self.n_slots = n_slots
+        self.dustbin = n_slots
+        self.seq_len = seq_len
+        self.max_out_len = max_out_len
+        self.start_id = start_id
+        self.end_id = end_id
+        self.cache = cache or CacheConfig()
+        self._state_specs: Dict[str, tuple] = {}
+
+    def programs(self):
+        """Every program of the bundle, in a stable order (prefills, hit
+        prefills, step, serves)."""
+        out = [p for _a, p in sorted(self.prefills.items())]
+        out += [p for _a, p in sorted(self.hit_prefills.items())]
+        out.append(self.step)
+        out += [p for _k, p in sorted(self.serves.items(),
+                                      key=lambda kv: str(kv[0]))]
+        return out
+
+    def cache_token(self) -> tuple:
+        """Content identity for the servers (the KV layout; sampling and
+        drafts, which would extend it, are not ported)."""
+        return self.cache.token()
+
+    def serve_feed_spec(self, key) -> List[tuple]:
+        """Feed signature (name, shape, dtype) of ``serves[key]``."""
+        feed = [("n_steps", (1,), "int64"),
+                ("min_active", (1,), "int64")]
+        if key == 0:
+            return feed
+        tier, A = key if isinstance(key, tuple) else ("miss", key)
+        pre = []
+        if tier == "miss":
+            pre.append(("src_ids", (A, self.seq_len), "int64"))
+        pre.append(("slots", (A,), "int64"))
+        if tier == "miss" and self.cache.layout == "paged":
+            pre.append(("prompt_slots", (A,), "int64"))
+        return pre + feed
+
+    def kv_state_bytes(self) -> int:
+        """Persistable KV bytes of the bundle (self and cross KV with the
+        table and prompt-ref state; token and flag buffers excluded)."""
+        total = 0
+        for name, (shape, dt) in self._state_specs.items():
+            short = name.split("/")[-1]
+            if short.startswith(("self_", "cross_", "block_tab",
+                                 "prompt_ref")):
+                total += int(np.prod(shape)) * np.dtype(dt).itemsize
+        return total
+
+    def init_slot_state(self, scope, device="cpu"):
+        """Seed the pool state in `scope` on `device` (idle slots:
+        finished=1, active=0, so they step harmlessly until admitted;
+        paged prompt refs point every lane at the dustbin entry)."""
+        import torch
+
+        for name, (shape, dt) in self._state_specs.items():
+            if name == self.state["finished"]:
+                val = np.ones(shape, dt)
+            elif name == self.state.get("prompt_ref"):
+                val = np.full(shape, self.cache.n_prompt_entries, dt)
+            else:
+                val = np.zeros(shape, dt)
+            scope._set(name, torch.from_numpy(val).to(device))
+
+
+def _slot_state_specs(prefix, rows, maxT, seq_len, n_heads, head_dim,
+                      n_layers, cache, vocab=None):
+    """name -> (shape, dtype) of every slot-state persistable
+    (``decode_engine.py:1223`` in the JAX package, without the sampling
+    and draft state)."""
+    specs = {
+        f"{prefix}tok_buf": ((rows, maxT), "int64"),
+        f"{prefix}step": ((rows,), "int64"),
+        f"{prefix}finished": ((rows,), "int64"),
+        f"{prefix}active": ((rows,), "int64"),
+    }
+    specs.update(devtel.counter_specs(prefix, cache.layout == "paged",
+                                      chunked=cache.chunked))
+    if cache.layout == "dense":
+        for li in range(n_layers):
+            specs[f"{prefix}self_k{li}"] = (
+                (rows, n_heads, maxT, head_dim), "float32")
+            specs[f"{prefix}self_v{li}"] = (
+                (rows, n_heads, maxT, head_dim), "float32")
+            specs[f"{prefix}cross_k{li}"] = (
+                (rows, n_heads, seq_len, head_dim), "float32")
+            specs[f"{prefix}cross_v{li}"] = (
+                (rows, n_heads, seq_len, head_dim), "float32")
+        return specs
+    NP = cache.pages(maxT)
+    E = cache.n_prompt_entries
+    specs[f"{prefix}block_tab"] = ((rows, NP), "int32")
+    specs[f"{prefix}prompt_ref"] = ((rows,), "int32")
+    # teacher-forcing horizon per lane: while step+1 < prefill_until a
+    # lane replays its token-buffer history (KV written, the emitted
+    # token dropped, EOS never latched). 0, the default, makes every
+    # tick a real decode tick.
+    specs[f"{prefix}prefill_until"] = ((rows,), "int64")
+    if vocab is not None:
+        # the JAX package's probe-step output (one softmax row a lane,
+        # read by its beam front); declared so both packages hold the
+        # same slot state, though the port builds no probe program yet
+        specs[f"{prefix}probe_probs"] = ((rows, vocab), "float32")
+    for li in range(n_layers):
+        specs[f"{prefix}self_k{li}{POOL_MARK}"] = (
+            (cache.n_blocks, cache.block_size, n_heads, head_dim),
+            "float32")
+        specs[f"{prefix}self_v{li}{POOL_MARK}"] = (
+            (cache.n_blocks, cache.block_size, n_heads, head_dim),
+            "float32")
+        # +1: the dustbin entry padded admission rows write into
+        specs[f"{prefix}cross_k{li}{POOL_MARK}"] = (
+            (E + 1, n_heads, seq_len, head_dim), "float32")
+        specs[f"{prefix}cross_v{li}{POOL_MARK}"] = (
+            (E + 1, n_heads, seq_len, head_dim), "float32")
+    return specs
+
+
+def _declare_slot_state(block, specs):
+    """Declare the persistable slot-state vars in a program's global
+    block: every program binds the same scope values by name."""
+    return {name: block.create_var(name=name, shape=shape, dtype=dt,
+                                   persistable=True, stop_gradient=True)
+            for name, (shape, dt) in specs.items()}
+
+
+def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
+                              n_heads=4, n_layers=2, d_inner=128,
+                              vocab=1000, start_id=0, end_id=1,
+                              n_slots=8, admit_buckets=None,
+                              state_prefix="@cb/", cache=None,
+                              sampling=None, draft=None, sharding=None):
+    """Build the slot-pool continuous-batching bundle
+    (``decode_engine.py:1747`` in the JAX package; see
+    DecodeStepBundle). The step's per-layer math is the whole-loop
+    program's (``cached_decoder_step``) with the scalar loop counter
+    replaced by a per-lane counter vector, so a lane decodes token for
+    token what ``build_incremental_decode_program`` decodes.
+
+    ``admit_buckets`` bounds the admission specializations (default:
+    1, 2, 4, ... capped at n_slots); padded rows of a bucket land on
+    the dustbin lane. ``cache`` (CacheConfig) selects the KV layout.
+    Greedy only: ``sampling``, ``draft`` and ``sharding``, and a cache
+    with ``chunk_tokens > 0``, raise NotImplementedError.
+
+    Returns a DecodeStepBundle.
+    """
+    from . import transformer as T
+
+    for what, val in (("sampling", sampling), ("draft", draft),
+                      ("sharding", sharding)):
+        if val is not None:
+            raise NotImplementedError(
+                f"build_decode_step_program({what}=...): sampled "
+                f"emission, speculative drafts and tensor-parallel "
+                f"sharding are not ported yet (later slices of the "
+                f"serving port); build a greedy bundle")
+    cache = cache or CacheConfig()
+    cache.validate(max_out_len)
+    if cache.chunk_tokens:
+        raise NotImplementedError(
+            f"CacheConfig(chunk_tokens={cache.chunk_tokens}): chunked "
+            f"prefill is not ported yet (a later slice of the serving "
+            f"port); build with chunk_tokens=0")
+    paged = cache.layout == "paged"
+    head_dim = d_model // n_heads
+    maxT = max_out_len
+    rows = n_slots + 1  # + the dustbin lane for padded admissions
+    if admit_buckets is None:
+        admit_buckets, b = [], 1
+        while b < n_slots:
+            admit_buckets.append(b)
+            b *= 2
+        admit_buckets.append(n_slots)
+    admit_buckets = sorted(set(int(a) for a in admit_buckets))
+    if admit_buckets[0] < 1 or admit_buckets[-1] > n_slots:
+        raise ValueError(
+            f"admit_buckets {admit_buckets} must lie in "
+            f"[1, n_slots={n_slots}]")
+    specs = _slot_state_specs(state_prefix, rows, maxT, seq_len,
+                              n_heads, head_dim, n_layers, cache,
+                              vocab=vocab if paged else None)
+    if paged:
+        NP, BS, NB = cache.pages(maxT), cache.block_size, cache.n_blocks
+        E = cache.n_prompt_entries
+        # the paged step's self-attention takes kernel #9 when its
+        # shapes fit, decided here by shape alone; else the JAX
+        # package's gather-view composition
+        routed = KPA.usable(
+            types.SimpleNamespace(shape=(rows, n_heads, head_dim)),
+            types.SimpleNamespace(shape=(NB, BS, n_heads, head_dim)),
+            types.SimpleNamespace(shape=(rows, NP)))
+
+    def _tel_add(sv, logical, delta):
+        """var = var + delta on a device counter (skipped for counters
+        this layout does not carry)."""
+        var = sv.get(f"{state_prefix}{logical}{devtel.TEL_MARK}")
+        if var is None:
+            return
+        layers.assign(layers.elementwise_add(var, delta), output=var)
+
+    def _lane_onehots(slots, A):
+        lane_range = layers.cast(layers.range(0, rows, 1), "int64")
+        # [A, rows] one-hot per admitted prompt; padded rows all point
+        # at the dustbin, whose multiplicity min() clamps
+        oh = layers.cast(
+            layers.equal(lane_range, layers.reshape(slots, [A, 1])),
+            "float32")
+        any_f = layers.elementwise_min(
+            layers.reduce_sum(oh, dim=0),
+            layers.fill_constant([rows], "float32", 1.0))
+        any_i = layers.cast(any_f, "int64")
+        keep_f = layers.elementwise_sub(
+            layers.fill_constant([rows], "float32", 1.0), any_f)
+        keep_i = layers.elementwise_sub(
+            layers.fill_constant([rows], "int64", 1.0), any_i)
+        return oh, any_f, any_i, keep_f, keep_i
+
+    def _reset_lane_state(sv, any_i, keep_i, tier="miss"):
+        # token buffer rows: start_id at position 0, zeros elsewhere
+        positions = layers.cast(layers.range(0, maxT, 1), "int64")
+        start_col = layers.cast(
+            layers.equal(positions,
+                         layers.fill_constant([1], "int64", 0.0)),
+            "int64")
+        row_init = layers.cast(
+            layers.scale(start_col, scale=float(start_id)), "int64")
+        any_col = layers.reshape(any_i, [rows, 1])
+        keep_col = layers.reshape(keep_i, [rows, 1])
+        tok_buf = sv[f"{state_prefix}tok_buf"]
+        layers.assign(layers.elementwise_add(
+            layers.elementwise_mul(tok_buf, keep_col),
+            layers.elementwise_mul(any_col, row_init)), output=tok_buf)
+        stepv = sv[f"{state_prefix}step"]
+        layers.assign(layers.elementwise_mul(stepv, keep_i),
+                      output=stepv)
+        fin = sv[f"{state_prefix}finished"]
+        layers.assign(layers.elementwise_mul(fin, keep_i), output=fin)
+        pfu = sv.get(f"{state_prefix}prefill_until")
+        if pfu is not None:
+            layers.assign(layers.elementwise_mul(pfu, keep_i),
+                          output=pfu)
+        act = sv[f"{state_prefix}active"]
+        # the dustbin lane never activates: it must not hold the serve
+        # While open nor count against min_active
+        valid = layers.assign((np.arange(rows) < n_slots).astype("int64"))
+        layers.assign(layers.elementwise_add(
+            layers.elementwise_mul(act, keep_i),
+            layers.elementwise_mul(any_i, valid)), output=act)
+        _tel_add(sv, f"tel_admit_{tier}",
+                 layers.reduce_sum(layers.elementwise_mul(any_i, valid),
+                                   keep_dim=True))
+
+    def _encode_prompts(A):
+        src = layers.data("src_ids", shape=[A, seq_len], dtype="int64",
+                          append_batch_size=False)
+        enc = T._embed(src, vocab, d_model, max(seq_len, maxT), 0.0,
+                       True, "src_word_emb")
+        for li in range(n_layers):
+            enc = T.encoder_layer(enc, d_model, n_heads, d_inner, 0.0,
+                                  is_test=True, name=f"enc{li}")
+        return src, enc
+
+    def _cross_proj(enc, li):
+        kvp = layers.fc(enc, 2 * d_model, num_flatten_dims=2,
+                        bias_attr=False,
+                        param_attr=T._attn_proj_attr(
+                            f"dec{li}_cross", "kv", d_model))
+        k, v = layers.split(kvp, 2, dim=2)
+        return (heads_of(k, seq_len, n_heads, head_dim),
+                heads_of(v, seq_len, n_heads, head_dim))
+
+    def _admit_body_dense(sv, A):
+        _, enc = _encode_prompts(A)
+        slots = layers.data("slots", shape=[A], dtype="int64",
+                            append_batch_size=False)
+        oh, _, any_i, keep_f, keep_i = _lane_onehots(slots, A)
+        keep4 = layers.reshape(keep_f, [rows, 1, 1, 1])
+        ohT = layers.transpose(oh, perm=[1, 0])  # [rows, A]
+        flat = n_heads * seq_len * head_dim
+        for li in range(n_layers):
+            kh, vh = _cross_proj(enc, li)
+            for var, new in ((sv[f"{state_prefix}cross_k{li}"], kh),
+                             (sv[f"{state_prefix}cross_v{li}"], vh)):
+                # one-hot matmul scatter: row a of `new` lands on lane
+                # slots[a]; other lanes keep their value through keep4
+                scat = layers.reshape(
+                    layers.matmul(ohT, layers.reshape(new, [A, flat])),
+                    [rows, n_heads, seq_len, head_dim])
+                layers.assign(layers.elementwise_add(
+                    layers.elementwise_mul(var, keep4), scat),
+                    output=var)
+            for var in (sv[f"{state_prefix}self_k{li}"],
+                        sv[f"{state_prefix}self_v{li}"]):
+                layers.assign(layers.elementwise_mul(var, keep4),
+                              output=var)
+        _reset_lane_state(sv, any_i, keep_i)
+
+    def _admit_body_paged_miss(sv, A):
+        """Cold-prompt admission: encode, write the cross-KV into the
+        fed prompt-pool entries (host-distinct; padded rows aim at the
+        dustbin entry E), reset the lanes. Fresh lanes need no self-pool
+        zeroing: every position <= step is written before it is read."""
+        _, enc = _encode_prompts(A)
+        slots = layers.data("slots", shape=[A], dtype="int64",
+                            append_batch_size=False)
+        pslots = layers.data("prompt_slots", shape=[A], dtype="int64",
+                             append_batch_size=False)
+        for li in range(n_layers):
+            kh, vh = _cross_proj(enc, li)
+            for var, new in (
+                    (sv[f"{state_prefix}cross_k{li}{POOL_MARK}"], kh),
+                    (sv[f"{state_prefix}cross_v{li}{POOL_MARK}"], vh)):
+                layers.masked_pool_write(var, new, pslots,
+                                         leading_dims=1,
+                                         exclusive_via="host_indices")
+        _, _, any_i, _, keep_i = _lane_onehots(slots, A)
+        _reset_lane_state(sv, any_i, keep_i)
+
+    def _admit_body_paged_hit(sv, A):
+        """Prefix-hit admission: the prompt's cross-KV entry is already
+        pooled (its refcount bumped by the host), so admission is a lane
+        reset only: no encoder, no pool write."""
+        slots = layers.data("slots", shape=[A], dtype="int64",
+                            append_batch_size=False)
+        _, _, any_i, _, keep_i = _lane_onehots(slots, A)
+        _reset_lane_state(sv, any_i, keep_i, tier="hit")
+
+    admit_bodies = {"miss": _admit_body_paged_miss if paged
+                    else _admit_body_dense}
+    if paged:
+        admit_bodies["hit"] = _admit_body_paged_hit
+
+    prefills, hit_prefills = {}, {}
+    startup = None
+    for A in admit_buckets:
+        prog, st = Program(), Program()
+        with program_guard(prog, st):
+            admit_bodies["miss"](
+                _declare_slot_state(prog.global_block, specs), A)
+        prefills[A] = prog
+        startup = startup or st
+        if paged:
+            hprog = Program()
+            with program_guard(hprog, Program()):
+                admit_bodies["hit"](
+                    _declare_slot_state(hprog.global_block, specs), A)
+            hit_prefills[A] = hprog
+
+    def _step_body(sv):
+        """One token over every lane (the standalone step program and
+        the serve programs' While share it)."""
+        tok_buf = sv[f"{state_prefix}tok_buf"]
+        stepv = sv[f"{state_prefix}step"]
+        fin = sv[f"{state_prefix}finished"]
+        act = sv[f"{state_prefix}active"]
+        # one tick ran; the occupancy integral reads act before this
+        # tick's retirements
+        _tel_add(sv, "tel_ticks", layers.fill_constant([1], "int64", 1.0))
+        _tel_add(sv, "tel_occupancy", layers.reduce_sum(act,
+                                                        keep_dim=True))
+        positions = layers.cast(layers.range(0, maxT, 1), "int64")
+        pos_table = layers.assign(
+            T._position_encoding(max(seq_len, maxT), d_model)[:maxT])
+        step2 = layers.reshape(stepv, [rows, 1])            # [R,1]
+        t_mask = layers.cast(layers.equal(positions, step2),
+                             "float32")                     # [R,maxT]
+        cur_tok = layers.reduce_sum(
+            layers.elementwise_mul(tok_buf, layers.cast(t_mask, "int64")),
+            dim=1, keep_dim=True)                           # [R,1]
+        x = layers.embedding(cur_tok, size=[vocab, d_model],
+                             param_attr=ParamAttr(name="tgt_word_emb"))
+        x = layers.unsqueeze(x, [1])                        # [R,1,D]
+        x = layers.scale(x, scale=d_model ** 0.5)
+        pos_t = layers.matmul(t_mask, pos_table)            # [R,D]
+        x = layers.elementwise_add(x, layers.unsqueeze(pos_t, [1]))
+        att_bias = None
+        if not paged or not routed:
+            # per-lane attention validity: positions past the step
+            posf = layers.cast(positions, "float32")
+            att_bias = layers.reshape(
+                layers.scale(layers.cast(layers.greater_than(
+                    posf, layers.cast(step2, "float32")), "float32"),
+                    scale=-1e9),
+                [rows, 1, 1, maxT])
+        if not paged:
+            write_mask = layers.reshape(t_mask, [rows, 1, maxT, 1])
+            keep_mask = layers.reshape(
+                layers.elementwise_sub(
+                    layers.fill_constant([rows, maxT], "float32", 1.0),
+                    t_mask),
+                [rows, 1, maxT, 1])
+            caches = [_DenseLaneCache(sv[f"{state_prefix}self_k{li}"],
+                                      sv[f"{state_prefix}self_v{li}"],
+                                      write_mask, keep_mask)
+                      for li in range(n_layers)]
+            cross_kv = [(sv[f"{state_prefix}cross_k{li}"],
+                         sv[f"{state_prefix}cross_v{li}"])
+                        for li in range(n_layers)]
+        else:
+            # cell of position p through the host-owned block table:
+            # tab[lane, p // BS] * BS + p % BS
+            tab = sv[f"{state_prefix}block_tab"]
+            tabf = layers.cast(tab, "float32")              # [R,NP]
+            offs = layers.assign(np.arange(BS, dtype="float32"))
+            flat_pos = None
+            if not routed:
+                base = layers.expand(
+                    layers.unsqueeze(layers.scale(tabf, scale=float(BS)),
+                                     [2]),
+                    [1, 1, BS])                             # [R,NP,BS]
+                flat_posf = layers.elementwise_add(base, offs, axis=2)
+                flat_pos = layers.cast(
+                    layers.reshape(flat_posf, [rows * maxT]), "int32")
+            # the current position's page and offset from t_mask
+            t_pages = layers.reshape(t_mask, [rows, NP, BS])
+            page_oh = layers.reduce_sum(t_pages, dim=2)     # [R,NP]
+            off_oh = layers.reduce_sum(t_pages, dim=1)      # [R,BS]
+            cur_block = layers.reduce_sum(
+                layers.elementwise_mul(tabf, page_oh), dim=1)
+            cur_off = layers.reduce_sum(
+                layers.elementwise_mul(off_oh, offs), dim=1)
+            write_idx = layers.cast(
+                layers.elementwise_add(
+                    layers.scale(cur_block, scale=float(BS)), cur_off),
+                "int32")                                    # [R]
+            # idle, dustbin and paused lanes (act=0) must not write the
+            # shared pool
+            gate = layers.cast(act, "float32")
+            caches = [_PagedLaneCache(
+                sv[f"{state_prefix}self_k{li}{POOL_MARK}"],
+                sv[f"{state_prefix}self_v{li}{POOL_MARK}"],
+                write_idx, gate, rows, n_heads, head_dim, maxT, NB * BS,
+                tab, stepv, flat_pos=flat_pos) for li in range(n_layers)]
+            pref = sv[f"{state_prefix}prompt_ref"]
+            cross_kv = []
+            for li in range(n_layers):
+                pair = []
+                for tag in ("k", "v"):
+                    pool = sv[f"{state_prefix}cross_{tag}{li}{POOL_MARK}"]
+                    flat = layers.reshape(
+                        pool, [E + 1, n_heads * seq_len * head_dim])
+                    got = layers.gather(flat, pref)         # [R, HSD]
+                    pair.append(layers.reshape(
+                        got, [rows, n_heads, seq_len, head_dim]))
+                cross_kv.append(tuple(pair))
+        x = cached_decoder_step(x, caches, cross_kv, att_bias, d_model,
+                                n_heads, d_inner)
+        logits_v = layers.fc(layers.reshape(x, [0, d_model]), vocab,
+                             bias_attr=False, param_attr="logits.w")
+        # per-lane greedy emit (emit_token_step vectorized over lane
+        # counters; same freeze and write semantics)
+        ones_n = layers.fill_constant([rows], "int64", 1.0)
+        tok = layers.cast(layers.argmax(logits_v, axis=-1), "int64")
+        not_fin = layers.elementwise_sub(ones_n, fin)
+        tok = layers.elementwise_add(
+            layers.elementwise_mul(tok, not_fin),
+            layers.cast(layers.scale(fin, scale=float(end_id)), "int64"))
+        # teacher forcing: while step+1 < prefill_until the lane replays
+        # its history; the emitted token does not land and EOS does not
+        # latch (prefill_until is 0 outside the radix tier)
+        emit_flag = ones_n
+        if paged:
+            forcing = layers.elementwise_mul(
+                act, layers.cast(layers.less_than(
+                    layers.elementwise_add(stepv, ones_n),
+                    sv[f"{state_prefix}prefill_until"]), "int64"))
+            emit_flag = layers.elementwise_sub(ones_n, forcing)
+        # the EOS latch only counts lanes that advanced this tick: a
+        # host-paused lane decodes a garbage token it redoes on resume
+        new_fin = layers.elementwise_max(
+            fin, layers.elementwise_mul(
+                layers.elementwise_mul(act, emit_flag),
+                layers.cast(layers.equal(
+                    tok, layers.fill_constant([1], "int64",
+                                              float(end_id))),
+                    "int64")))
+        next2 = layers.reshape(layers.elementwise_add(stepv, ones_n),
+                               [rows, 1])
+        next_mask = layers.cast(layers.equal(positions, next2), "int64")
+        next_mask = layers.elementwise_mul(
+            next_mask, layers.reshape(emit_flag, [rows, 1]))
+        keep_tok = layers.elementwise_sub(
+            layers.fill_constant([rows, maxT], "int64", 1.0), next_mask)
+        new_step = layers.elementwise_add(stepv, act)
+        layers.assign(layers.elementwise_add(
+            layers.elementwise_mul(tok_buf, keep_tok),
+            layers.elementwise_mul(next_mask,
+                                   layers.reshape(tok, [rows, 1]))),
+            output=tok_buf)
+        layers.assign(new_step, output=stepv)
+        # lanes deactivate on EOS or a full buffer; the host retires a
+        # lane the moment its active flag drops
+        room = layers.cast(layers.less_than(
+            new_step, layers.fill_constant([1], "int64",
+                                           float(maxT - 1))), "int64")
+        new_act = layers.elementwise_mul(
+            layers.elementwise_mul(
+                act, layers.elementwise_sub(ones_n, new_fin)), room)
+        layers.assign(new_act, output=act)
+        layers.assign(new_fin, output=fin)
+
+    step_prog = Program()
+    with program_guard(step_prog, Program()):
+        _step_body(_declare_slot_state(step_prog.global_block, specs))
+
+    def _serve_program(tier, A):
+        """[admission +] a decode-burst While: the loop exits when
+        n_steps ticks ran or the live-lane count drops to min_active."""
+        prog = Program()
+        with program_guard(prog, Program()):
+            sv = _declare_slot_state(prog.global_block, specs)
+            if A > 0:
+                admit_bodies[tier](sv, A)
+            n_steps = layers.data("n_steps", shape=[1], dtype="int64",
+                                  append_batch_size=False)
+            min_active = layers.data("min_active", shape=[1],
+                                     dtype="int64",
+                                     append_batch_size=False)
+            act = sv[f"{state_prefix}active"]
+            k = layers.fill_constant([1], "int64", 0)
+
+            def _serve_cond(cond=None):
+                # ticks remain and live lanes exceed the exit threshold
+                return layers.greater_than(
+                    layers.elementwise_min(
+                        layers.elementwise_sub(n_steps, k),
+                        layers.elementwise_sub(
+                            layers.reduce_sum(act, keep_dim=True),
+                            min_active)),
+                    layers.fill_constant([1], "int64", 0.0), cond=cond)
+
+            cond = _serve_cond()
+            w = layers.While(cond)
+            with w.block():
+                _step_body(sv)
+                layers.increment(k, 1)
+                _serve_cond(cond=cond)
+            # classify this burst's exit once: ran all n_steps ticks >
+            # every lane idle > live dropped to min_active
+            ran_out = layers.cast(layers.equal(k, n_steps), "int64")
+            live = layers.reduce_sum(act, keep_dim=True)
+            idle = layers.cast(
+                layers.equal(live,
+                             layers.fill_constant([1], "int64", 0.0)),
+                "int64")
+            one = layers.fill_constant([1], "int64", 1.0)
+            not_ran = layers.elementwise_sub(one, ran_out)
+            _tel_add(sv, "tel_exit_n_steps", ran_out)
+            _tel_add(sv, "tel_exit_all_idle",
+                     layers.elementwise_mul(not_ran, idle))
+            _tel_add(sv, "tel_exit_min_active",
+                     layers.elementwise_mul(
+                         not_ran, layers.elementwise_sub(one, idle)))
+        return prog
+
+    serves = {0: _serve_program("miss", 0)}
+    for A in admit_buckets:
+        if paged:
+            serves[("miss", A)] = _serve_program("miss", A)
+            serves[("hit", A)] = _serve_program("hit", A)
+        else:
+            serves[A] = _serve_program("miss", A)
+
+    state = {"tok_buf": f"{state_prefix}tok_buf",
+             "step": f"{state_prefix}step",
+             "finished": f"{state_prefix}finished",
+             "active": f"{state_prefix}active"}
+    if paged:
+        state["block_tab"] = f"{state_prefix}block_tab"
+        state["prompt_ref"] = f"{state_prefix}prompt_ref"
+        state["prefill_until"] = f"{state_prefix}prefill_until"
+    state.update(devtel.state_entries(state_prefix, paged))
+    bundle = DecodeStepBundle(prefills, step_prog, serves, startup, state,
+                              n_slots, seq_len, maxT, start_id, end_id,
+                              cache=cache, hit_prefills=hit_prefills)
+    bundle._state_specs = dict(specs)
+    return bundle
+
+
+# ---------------------------------------------------------------------------
+# Host-side allocation of the paged layout.
+# ---------------------------------------------------------------------------
+class HostBlockPool:
+    """Free list over the ``n_blocks`` shared self-KV blocks, run as a
+    typestate machine on per-block refcounts: ``free -> exclusive
+    (refcount 1, one lane) -> shared (refcount > 1, read-only) ->
+    free``. Invalid transitions raise ``BlockLifetimeError`` instead of
+    corrupting the free list (a double-freed block would be handed to
+    two lanes)."""
+
+    def __init__(self, n_blocks: int):
+        self.n_blocks = int(n_blocks)
+        self._free = list(range(self.n_blocks))
+        self._state = ["free"] * self.n_blocks
+        self._refs = [0] * self.n_blocks
+
+    def alloc(self) -> Optional[int]:
+        if not self._free:
+            return None
+        b = self._free.pop()
+        self._state[b] = "exclusive"
+        self._refs[b] = 1
+        return b
+
+    def free(self, blocks):
+        """Single-owner free, legal only from 'exclusive'; checked for
+        every block before any is freed."""
+        blocks = list(blocks)
+        seen = set()
+        for b in blocks:
+            if not 0 <= b < self.n_blocks:
+                raise BlockLifetimeError(
+                    f"free of block {b} outside the pool "
+                    f"[0, {self.n_blocks})")
+            if self._state[b] != "exclusive" or b in seen:
+                state = ("freed-in-this-call" if b in seen
+                         else repr(self._state[b]))
+                raise BlockLifetimeError(
+                    f"free of block {b} in typestate {state} (legal only "
+                    f"from 'exclusive'): double-free/unallocated/shared "
+                    f"free would hand one block to two lanes")
+            seen.add(b)
+        for b in blocks:
+            self._state[b] = "free"
+            self._refs[b] = 0
+            self._free.append(b)
+
+    def incref(self, block: int) -> int:
+        """A new reader adopts the block: 1 -> 2 is exclusive -> shared."""
+        if not 0 <= block < self.n_blocks:
+            raise BlockLifetimeError(
+                f"incref of block {block} outside the pool "
+                f"[0, {self.n_blocks})")
+        if self._refs[block] <= 0:
+            raise BlockLifetimeError(
+                f"incref of block {block} in typestate "
+                f"{self._state[block]!r} (refcount 0): a freed block "
+                f"may be re-handed to another lane at any alloc")
+        self._refs[block] += 1
+        self._state[block] = "shared"
+        return self._refs[block]
+
+    def decref(self, block: int) -> int:
+        """Drop one reference; at 0 the block returns to the free list."""
+        if not 0 <= block < self.n_blocks:
+            raise BlockLifetimeError(
+                f"decref of block {block} outside the pool "
+                f"[0, {self.n_blocks})")
+        if self._refs[block] <= 0:
+            raise BlockLifetimeError(
+                f"decref of block {block} at refcount "
+                f"{self._refs[block]}: refcounts never go negative")
+        self._refs[block] -= 1
+        if self._refs[block] == 0:
+            self._state[block] = "free"
+            self._free.append(block)
+        elif self._refs[block] == 1:
+            self._state[block] = "exclusive"
+        return self._refs[block]
+
+    def refcount(self, block: int) -> int:
+        return self._refs[block]
+
+    def writable(self, block: int) -> bool:
+        """A device write into the block is legal only at refcount 1."""
+        return self._refs[block] == 1
+
+    def typestate(self, block: int) -> str:
+        return self._state[block]
+
+    def live_blocks(self) -> set:
+        return {b for b, s in enumerate(self._state) if s != "free"}
+
+    def shared_blocks(self) -> set:
+        return {b for b, s in enumerate(self._state) if s == "shared"}
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        return self.n_blocks - len(self._free)
+
+
+class PromptPrefixCache:
+    """Refcounted exact-prompt cache over the cross-KV entry pool. The
+    encoder is bidirectional, so a cross-KV entry depends on the whole
+    prompt and only a full match reuses it; a prompt whose leading
+    chunk matches a cached one is the ``partial`` tier, encoded anew
+    like a miss and counted as a copy. Entries are pinned while a lane
+    refers to them; unpinned entries stay cached and are evicted, least
+    recently used first, only when a miss needs a slot."""
+
+    def __init__(self, n_entries: int, chunk_tokens: int):
+        self.n_entries = int(n_entries)
+        self.chunk = max(1, int(chunk_tokens))
+        self._free = list(range(self.n_entries))
+        self._by_prompt: Dict[tuple, int] = {}
+        self._entry_prompt: Dict[int, tuple] = {}
+        self._refs: Dict[int, int] = {}
+        self._lru: Dict[tuple, None] = {}      # insertion-ordered
+        self._heads: Dict[tuple, int] = {}     # first chunk -> count
+        self.hits = 0
+        self.misses = 0
+        self.partials = 0       # exposed as cow_copies
+        self.evictions = 0
+
+    def _head(self, prompt: tuple) -> tuple:
+        return prompt[:self.chunk]
+
+    def lookup(self, prompt: tuple) -> Tuple[str, Optional[int]]:
+        """('hit', entry), ('partial', None) or ('miss', None); no
+        counter or refcount moves."""
+        entry = self._by_prompt.get(prompt)
+        if entry is not None:
+            return "hit", entry
+        if self._heads.get(self._head(prompt)):
+            return "partial", None
+        return "miss", None
+
+    def acquire_hit(self, prompt: tuple) -> int:
+        entry = self._by_prompt[prompt]
+        self._refs[entry] = self._refs.get(entry, 0) + 1
+        self._lru.pop(prompt, None)
+        self._lru[prompt] = None
+        self.hits += 1
+        return entry
+
+    def acquire_fresh(self, prompt: tuple,
+                      partial: bool = False) -> Optional[int]:
+        """An entry for a cold prompt: a free one, else the least
+        recently used unpinned one (evicted). None when every entry is
+        pinned."""
+        if self._free:
+            entry = self._free.pop()
+        else:
+            victim = next((p for p in self._lru
+                           if self._refs.get(self._by_prompt[p], 0) == 0),
+                          None)
+            if victim is None:
+                return None
+            entry = self._by_prompt.pop(victim)
+            self._lru.pop(victim, None)
+            self._entry_prompt.pop(entry, None)
+            self._drop_head(victim)
+            self.evictions += 1
+        self._by_prompt[prompt] = entry
+        self._entry_prompt[entry] = prompt
+        self._refs[entry] = 1
+        self._lru[prompt] = None
+        head = self._head(prompt)
+        self._heads[head] = self._heads.get(head, 0) + 1
+        if partial:
+            self.partials += 1
+        else:
+            self.misses += 1
+        return entry
+
+    def _drop_head(self, prompt):
+        head = self._head(prompt)
+        self._heads[head] -= 1
+        if not self._heads[head]:
+            del self._heads[head]
+
+    def release(self, entry: int):
+        refs = self._refs.get(entry, 0)
+        if refs <= 0:
+            raise BlockLifetimeError(
+                f"release of prompt entry {entry} at refcount {refs}: "
+                f"a double release would unpin an entry another lane "
+                f"still attends to")
+        self._refs[entry] = refs - 1
+
+    def invalidate(self, entry: int):
+        """Forget an unpinned entry's prompt and free its slot (an
+        abandoned, part-written prefill must never be hit)."""
+        if self._refs.get(entry, 0) > 0:
+            raise BlockLifetimeError(
+                f"invalidate of prompt entry {entry} at refcount "
+                f"{self._refs[entry]}: release every ref first")
+        prompt = self._entry_prompt.pop(entry, None)
+        if prompt is None:
+            return
+        del self._by_prompt[prompt]
+        self._lru.pop(prompt, None)
+        self._drop_head(prompt)
+        self._refs.pop(entry, None)
+        self._free.append(entry)
+
+    def refcount(self, entry: int) -> int:
+        return self._refs.get(entry, 0)
+
+    def is_shared(self, entry: int) -> bool:
+        return self.refcount(entry) > 1
+
+    def writable(self, entry: int) -> bool:
+        return self.refcount(entry) <= 1
+
+    def typestate(self, entry: int) -> str:
+        refs = self.refcount(entry)
+        if refs == 0:
+            return "free"
+        return "exclusive" if refs == 1 else "shared"
+
+    @property
+    def in_use(self) -> int:
+        return sum(1 for r in self._refs.values() if r > 0)

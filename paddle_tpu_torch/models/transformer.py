@@ -24,6 +24,11 @@ import numpy as np
 from .. import layers, unique_name
 from ..initializer import XavierInitializer
 from ..param_attr import ParamAttr
+# re-exports, as the JAX module makes them: the decode builders live in
+# decode_engine
+from .decode_engine import (CacheConfig, DecodeStepBundle,  # noqa: F401
+                            build_decode_step_program,
+                            build_incremental_decode_program)
 
 
 def _position_encoding(max_len, d_model):

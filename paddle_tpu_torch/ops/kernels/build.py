@@ -26,7 +26,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("layer_norm", "sdpa_short", "sdpa_short_bwd", "flash_attention",
-           "flash_attention_bwd", "xent", "attention_block", "ffn_block")
+           "flash_attention_bwd", "xent", "attention_block", "ffn_block",
+           "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,7 +2,8 @@
 ``paddle_tpu/ops/tensor_ops.py`` (reference fill_constant_op.cc,
 fill_any_like_op.cc, uniform_random_op.cc, reshape_op.cc,
 transpose_op.cc, split_op.cc, sum_op.cc, cast_op.cc, assign_op.cc,
-scale_op.cc, range_op.cc, arg_max, ...).
+scale_op.cc, range_op.cc, arg_max, gather_op.cc, expand_op.cc,
+...).
 
 Creation ops allocate on ``ctx.device``; at build time that is the meta
 device, so shape inference allocates nothing.
@@ -188,3 +189,21 @@ def increment(ctx):
     if not x.is_floating_point() and float(step).is_integer():
         step = int(step)  # an integer counter stays an integer
     return x + step
+
+
+@register_op("gather")
+def gather(ctx):
+    """Rows of X at Index along axis 0 (reference gather_op.cc;
+    ``paddle_tpu/ops/tensor_ops.py`` gather). Index is an integer slot,
+    so the generic vjp treats it as a constant: it gets no gradient,
+    as the JAX package's stop-gradient slot gives none."""
+    idx = ctx.input("Index").reshape(-1).to(torch.int64)
+    return torch.index_select(ctx.input("X"), 0, idx)
+
+
+@register_op("expand")
+def expand(ctx):
+    """Tile X `expand_times` times along each axis (reference
+    expand_op.cc; ``jnp.tile`` in the JAX package)."""
+    return ctx.input("X").repeat(*[int(t) for t in
+                                   ctx.attr("expand_times")])

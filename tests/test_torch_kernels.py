@@ -749,3 +749,44 @@ def test_fused_grad_ops_on_the_card_match_the_cpu(cuda, block):
     assert [k.launches for k in kern] == [before[0] + 2, before[1] + 1]
     for n in shapes:
         _close_to_scale(env[n + "@GRAD"].cpu(), cpu_env[n + "@GRAD"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,h,d,bs,np_pages,nb", [
+    (3, 2, 16, 8, 4, 16),         # the CPU tests' shape
+    (5, 4, 128, 16, 8, 48),       # Dh 128
+    (17, 8, 64, 16, 16, 256),     # the paged serving shape
+    (4, 2, 40, 8, 4, 16),         # Dh not a multiple of 32
+])
+def test_paged_attention_kernel_matches_plain(cuda, r, h, d, bs, np_pages,
+                                              nb):
+    """Kernel #9 against its plain version: lanes at steps spread over
+    the buffer, tables sharing no block with unallocated pages at block
+    0, and one lane at step -1 (the uniform average over its cells)."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as KPA
+
+    rng = np.random.RandomState(r + d)
+    t = np_pages * bs
+    steps = rng.randint(0, t, size=r)
+    steps[0], steps[-1] = -1, t - 1
+    tab = np.zeros((r, np_pages), np.int32)
+    free = list(rng.permutation(np.arange(1, nb)))
+    for i, st in enumerate(steps):
+        used = np_pages if st < 0 else st // bs + 1
+        for p in range(min(used, len(free))):
+            tab[i, p] = free.pop()
+    q = _cuda_randn(cuda, r, h, d, seed=1)
+    pk = _cuda_randn(cuda, nb, bs, h, d, seed=2)
+    pv = _cuda_randn(cuda, nb, bs, h, d, seed=3)
+    tab_t = torch.from_numpy(tab).to(cuda)
+    step_t = torch.from_numpy(steps).to(cuda)
+    before = KPA.paged_decode_attention.launches
+    got = KPA.paged_decode_attention(q, pk, pv, tab_t, step_t, d ** -0.5)
+    torch.cuda.synchronize()
+    assert KPA.paged_decode_attention.launches == before + 1
+    want = KPA.paged_decode_attention_plain(q, pk, pv, tab_t, step_t,
+                                            d ** -0.5)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    with pytest.raises(ValueError, match="no kernel"):
+        KPA.paged_decode_attention(q, pk[:, :4].contiguous(),
+                                   pv[:, :4].contiguous(), tab_t, step_t)
