@@ -18,9 +18,15 @@ Phases (a failing phase fails the script; none is caught):
    attention forwards also with the residuals their backward kernels
    read, saved P and lse, and the three attention backward kernels at
    the training shapes, causal and not, flash also at d 128 and 256,
-   tq < tk and rows that see no key, each grad held against the largest
-   |plain| of it, which planted faults, an lse off by 1e-3, a dropped
-   delta and a P off by 1e-3, must fail; the fused-block kernels,
+   tq < tk, rows that see no key and ragged tiles, each grad held
+   against the largest |plain| of it, which planted faults, an lse off
+   by 1e-3, a dropped delta and a P off by 1e-3, must fail, and so must
+   the plain flash backward run on TF32-rounded q, k, v and dO (a kernel
+   that dropped the small half of its split-TF32 products); a second
+   launch of the flash backward kernels on the same inputs must give
+   identical bits, and they and the library's backward are also timed
+   causal; the library backward's own error against the plain version
+   is recorded; the fused-block kernels,
    attention_block with its saved P and its backward, ffn_block and its
    backward, at the training shape, causal and not, and at a small one,
    each output and grad held against the largest |plain| of it, which
@@ -139,6 +145,7 @@ from paddle_tpu_torch.ops.kernels import xent as KX  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # fp32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12      # TF32 on the tensor cores, dense
 LN_TOL = 1e-5                 # fp32, summation order
 ATTN_TOL = 2e-5               # fp32, summation order over T keys
 P_TOL = 1e-6                  # saved P (values <= 1): fp32 rounding
@@ -321,7 +328,9 @@ def phase_build():
                     for n in build.SOURCES))
     for name in build.SOURCES:
         for line in build.PTXAS_LOG.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:
+                log(f"  ptxas {name}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
@@ -346,7 +355,7 @@ def _qkv(b, h, tq, tk, d, seed):
     return q, k, v
 
 
-def _lib_sdpa(q, k, v, scale):
+def _lib_sdpa(q, k, v, scale, causal=False):
     """torch's fused SDPA with the math backend forbidden: the
     yardstick. The port never calls it."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -355,7 +364,7 @@ def _lib_sdpa(q, k, v, scale):
                       SDPBackend.FLASH_ATTENTION,
                       SDPBackend.CUDNN_ATTENTION]):
         return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, scale=scale)
+            q, k, v, scale=scale, is_causal=causal)
 
 
 def _attn_entry(name, kern, plain, cases, main_shape):
@@ -404,12 +413,21 @@ def _bwd_ratio(got, want):
                for a, w in zip(got, want))
 
 
-def _lib_grad_ms(q, k, v, g, scale):
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero, as cvt.rna.tf32.f32 rounds): the operand a kernel would see if
+    it dropped the small half of its split-TF32 products."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _lib_grad_ms(q, k, v, g, scale, causal=False):
     """The library's backward: torch's fused SDPA forward (math backend
     forbidden) under autograd, then only its backward is timed. It
-    computes dq, dk and dv together."""
+    computes dq, dk and dv together. Its causal mask is top-left
+    aligned, the port's bottom-right: the same where tq == tk."""
     qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
-    out = _lib_sdpa(qr, kr, vr, scale)
+    out = _lib_sdpa(qr, kr, vr, scale, causal)
     lib = torch.autograd.grad(out, (qr, kr, vr), g, retain_graph=True)
     torch.cuda.synchronize()
     ms = time_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), g,
@@ -428,10 +446,13 @@ def _attn_bwd_entries():
     """The residual forwards and the three backward kernels against their
     plain versions on the same inputs: the training path's shapes
     ([32,8,512,64] sdpa_short, [16,8,1024,64] flash), causal and not;
-    flash also at d 128 and 256, tq < tk, and tq > tk (rows that see no
-    key). Planted faults must fail the check: the backward fed an lse
-    off by 1e-3, a dropped delta, or a P off by 1e-3 relative. Then
-    times at the main shapes, non-causal."""
+    flash also at d 128 and 256, tq < tk, tq > tk (rows that see no
+    key) and ragged tiles. Planted faults must fail the check: the
+    backward fed an lse off by 1e-3, a dropped delta, or a P off by 1e-3
+    relative; so must the TF32 control, the plain flash backward on
+    TF32-rounded operands. The flash kernels must repeat bit for bit.
+    Then times at the main shapes, non-causal, and for flash causal too,
+    with the library backward's error against the plain version."""
     out = {}
     b512, b1024 = TRAIN_TOKENS // 512, TRAIN_TOKENS // 1024
     errs = {"sdpa_short_bwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
@@ -466,12 +487,17 @@ def _attn_bwd_entries():
                                           for a, w in zip(got, want)))
         ratios["sdpa_short_bwd"].append(r)
         del q, k, v, g, o, p, wo, wp, got, want, bad
+    tf32_controls = []
     for i, (b, h, tq, tk, d, causal) in enumerate((
             (b1024, 8, 1024, 1024, 64, False),
             (b1024, 8, 1024, 1024, 64, True),
             (2, 4, 1024, 1024, 128, True), (1, 2, 600, 600, 256, True),
             (1, 8, 256, 1024, 64, True),     # tq < tk, bottom-right
-            (1, 8, 1024, 256, 64, True))):   # rows 0..767 see no key
+            (1, 8, 1024, 256, 64, True),     # rows 0..767 see no key
+            # ragged tiles: the last key and query tiles cut short, tq <
+            # tk by a part tile, tq > tk at D 128
+            (1, 4, 600, 600, 64, False), (1, 4, 600, 600, 64, True),
+            (1, 4, 1000, 1024, 64, True), (1, 2, 1024, 600, 128, True))):
         q, k, v = _qkv(b, h, tq, tk, d, seed=60 + i)
         g = _randn_like(q, 70 + i)
         scale = d ** -0.5
@@ -486,6 +512,7 @@ def _attn_bwd_entries():
                                       causal))
 
         got = kernels(lse, delta)
+        again = kernels(lse, delta)
         wdq = KA.flash_bwd_dq_plain(q, k, v, g, lse, delta, scale, causal)
         want = (wdq, *KA.flash_bwd_dkv_plain(q, k, v, g, lse, delta, scale,
                                              causal))
@@ -493,19 +520,32 @@ def _attn_bwd_entries():
         eo, el = max_err(o, wo), max_err(lse, wlse)
         r_dq, r_dkv = _bwd_ratio(got[:1], want[:1]), _bwd_ratio(got[1:],
                                                               want[1:])
+        repeat = all(torch.equal(a, b_) for a, b_ in zip(got, again))
         faults = {"lse off by 1e-3": _bwd_ratio(kernels(lse + 1e-3, delta),
                                                 want),
                   "delta dropped": _bwd_ratio(
                       kernels(lse, torch.zeros_like(delta)), want)}
+        # the control: the plain backward on TF32-rounded operands
+        tq_, tk_, tv_, tg_ = (_tf32(x) for x in (q, k, v, g))
+        tf32_ratio = _bwd_ratio(
+            (KA.flash_bwd_dq_plain(tq_, tk_, tv_, tg_, lse, delta, scale,
+                                   causal),
+             *KA.flash_bwd_dkv_plain(tq_, tk_, tv_, tg_, lse, delta, scale,
+                                     causal)), want)
+        del tq_, tk_, tv_, tg_
         log(f"  flash+lse [{b},{h},{tq},{tk},{d}] causal={causal}: out "
             f"max_abs_err {eo:.3e} (tol {ATTN_TOL:g}), lse {el:.3e} (tol "
             f"{LSE_TOL:g}); worst |d - plain| / max|plain|: flash_bwd_dq "
             f"{r_dq:.3e}, flash_bwd_dkv {r_dkv:.3e} (tol {ATTN_BWD_RTOL:g});"
-            f" planted faults " + ", ".join(f"{n}: {x:.3e}"
-                                            for n, x in faults.items())
-            + " (must exceed the tol)")
+            f" a second launch bit-identical {repeat}; planted faults "
+            + ", ".join(f"{n}: {x:.3e}" for n, x in faults.items())
+            + f"; TF32 control {tf32_ratio:.3e} (these must exceed the tol)")
         assert eo <= ATTN_TOL and el <= LSE_TOL, (eo, el)
         assert all(torch.isfinite(x).all() for x in got)
+        assert repeat, "the flash backward kernels are not deterministic"
+        assert tf32_ratio > ATTN_BWD_RTOL, \
+            "the flash backward check cannot see TF32 rounding"
+        tf32_controls.append(tf32_ratio)
         assert r_dq <= ATTN_BWD_RTOL and r_dkv <= ATTN_BWD_RTOL, (r_dq,
                                                                  r_dkv)
         for n, x in faults.items():
@@ -519,7 +559,7 @@ def _attn_bwd_entries():
                                          zip(got[1:], want[1:])))
         ratios["flash_bwd_dq"].append(r_dq)
         ratios["flash_bwd_dkv"].append(r_dkv)
-        del q, k, v, g, o, lse, wo, wlse, delta, got, want, wdq
+        del q, k, v, g, o, lse, wo, wlse, delta, got, again, want, wdq
 
     # times at the training shapes, non-causal. Bounds: each input read
     # once, each output written once; operations: the products (2 flops
@@ -536,8 +576,9 @@ def _attn_bwd_entries():
         if name == "sdpa_short":
             _, p = KA._sdpa_short_launch(q, k, v, scale, False, True)
             want = KA.sdpa_short_bwd_plain(q, k, v, p, g, scale)
+            lib_err = _bwd_ratio(lib, want)
             log(f"  sdpa_short_bwd library sdpa backward vs plain: worst "
-                f"|d - plain| / max|plain| {_bwd_ratio(lib, want):.3e}")
+                f"|d - plain| / max|plain| {lib_err:.3e}")
             del want
             fwd = (lambda: KA._sdpa_short_launch(q, k, v, scale, False,
                                                  True),
@@ -554,25 +595,37 @@ def _attn_bwd_entries():
             delta = KA.flash_delta(o, g)
             want = KA.flash_attention_bwd_plain(q, k, v, o, lse, g, scale,
                                                 False)
+            lib_err = _bwd_ratio(lib, want)
             log(f"  flash backward library sdpa backward vs plain: worst "
-                f"|d - plain| / max|plain| {_bwd_ratio(lib, want):.3e}")
+                f"|d - plain| / max|plain| {lib_err:.3e}")
             del want
             fwd = (lambda: KA._flash_attention_launch(q, k, v, scale, False,
                                                       True),
                    lambda: KA.flash_attention_plain(q, k, v, scale, False,
                                                     with_lse=True),
                    4 * (4 * n_td + b * h * t))
+            # the causal lse and delta: a third of the training step's
+            # flash backward launches are the decoder's causal ones
+            o_c, lse_c = KA._flash_attention_launch(q, k, v, scale, True,
+                                                    True)
+            res = {False: (lse, delta), True: (lse_c, KA.flash_delta(o_c,
+                                                                     g))}
+            lib_causal_ms, _ = _lib_grad_ms(q, k, v, g, scale, True)
+            del o_c
             kerns = {
                 "flash_bwd_dq": (
-                    lambda: KA.flash_bwd_dq(q, k, v, g, lse, delta, scale),
-                    lambda: KA.flash_bwd_dq_plain(q, k, v, g, lse, delta,
-                                                  scale, False),
+                    lambda c=False: KA.flash_bwd_dq(q, k, v, g, *res[c],
+                                                    scale, c),
+                    lambda c=False: KA.flash_bwd_dq_plain(q, k, v, g,
+                                                          *res[c], scale, c),
                     4 * (5 * n_td + 2 * b * h * t),
                     6 * n_tt * d + 5 * n_tt, "S, dP = dO v^T, dq = ds k"),
                 "flash_bwd_dkv": (
-                    lambda: KA.flash_bwd_dkv(q, k, v, g, lse, delta, scale),
-                    lambda: KA.flash_bwd_dkv_plain(q, k, v, g, lse, delta,
-                                                   scale, False),
+                    lambda c=False: KA.flash_bwd_dkv(q, k, v, g, *res[c],
+                                                     scale, c),
+                    lambda c=False: KA.flash_bwd_dkv_plain(q, k, v, g,
+                                                           *res[c], scale,
+                                                           c),
                     4 * (6 * n_td + 2 * b * h * t),
                     8 * n_tt * d + 5 * n_tt,
                     "S, dP = dO v^T, dv = P^T dO, dk = ds^T q")}
@@ -598,7 +651,29 @@ def _attn_bwd_entries():
             out[kname] = dict(max_abs_err=max(errs[kname]),
                               max_rel_err=max(ratios[kname]), ms=ms,
                               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                              library_ms=lib_ms, shape=[b, h, t, d])
+                              library_ms=lib_ms, library_rel_err=lib_err,
+                              shape=[b, h, t, d])
+            if name != "flash_attention":
+                continue
+            # split TF32: three TF32 products for each fp32 product (the
+            # products' 2 flops a multiply-add, 2 * n_tt * d each)
+            n_prod = (flops - 5 * n_tt) // (2 * n_tt * d)
+            tf32_bms = 3 * 2 * n_prod * n_tt * d / TF32_FLOP_PER_S * 1e3
+            # causal: the kernels skip the tiles above the diagonal; the
+            # function needs the t (t + 1) / 2 seen entries of each head
+            seen = b * h * t * (t + 1) // 2
+            cms = time_ms(lambda: kern(True))
+            cplain_ms = time_ms(lambda: plain(True), iters=5)
+            cbms, cby = bound_ms(nbytes, flops * seen // n_tt)
+            log(f"  {kname} [{b},{h},{t},{d}] split-TF32 bound "
+                f"{tf32_bms:.4f} ms (3 x the products at 495 TFLOP/s); "
+                f"causal: kernel {cms:.4f} ms, plain {cplain_ms:.4f} ms, "
+                f"library sdpa backward {lib_causal_ms:.4f} ms, bound "
+                f"{cbms:.4f} ms ({cby})")
+            out[kname].update(
+                tf32x3_bound_ms=tf32_bms, tf32_control=min(tf32_controls),
+                causal=dict(ms=cms, plain_ms=cplain_ms, bound_ms=cbms,
+                            bound_by=cby, library_ms=lib_causal_ms))
         del q, k, v, g, lib
     return out
 
@@ -1999,7 +2074,9 @@ def main():
                         served_paged=paged_launches.get(kname, 0))
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
         extra = {x: e[x] for x in ("max_rel_err", "residual", "library",
-                                   "p_max_abs_err") if x in e}
+                                   "p_max_abs_err", "library_rel_err",
+                                   "tf32x3_bound_ms", "tf32_control",
+                                   "causal") if x in e}
         line.append(dict(name=kname, route="cuda", source=src,
                          replaces=replaces, launches=sum(on_paths.values()),
                          **on_paths, max_abs_err=e["max_abs_err"],

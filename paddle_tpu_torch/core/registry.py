@@ -38,12 +38,15 @@ META = torch.device("meta")
 class OpInfo:
     def __init__(self, type: str, kernel: Callable,
                  infer_shape: Optional[Callable] = None,
-                 grad_maker=None, differentiable: bool = True):
+                 grad_maker=None, differentiable: bool = True,
+                 stop_gradient_slots=()):
         self.type = type
         self.kernel = kernel
         self.infer_shape = infer_shape
         self.grad_maker = grad_maker
         self.differentiable = differentiable
+        # input slots that take no gradient whatever their dtype
+        self.stop_gradient_slots = tuple(stop_gradient_slots)
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
@@ -108,13 +111,16 @@ class OpContext:
 
 
 def register_op(type: str, *, infer_shape=None, grad_maker=None,
-                differentiable=True):
-    """Decorator: register ``fn(ctx) -> {out_slot: value|[values]}``."""
+                differentiable=True, stop_gradient_slots=()):
+    """Decorator: register ``fn(ctx) -> {out_slot: value|[values]}``.
+    `stop_gradient_slots`: input slots whose grad op declares and
+    computes no gradient (an index, a label)."""
 
     def deco(fn):
         _REGISTRY[type] = OpInfo(
             type, fn, infer_shape=infer_shape, grad_maker=grad_maker,
-            differentiable=differentiable)
+            differentiable=differentiable,
+            stop_gradient_slots=stop_gradient_slots)
         return fn
 
     return deco
@@ -249,13 +255,15 @@ def make_vjp_grad_kernel(fwd_type: str, fwd_kernel=None):
     """
 
     def kernel(ctx: OpContext):
-        fwd = fwd_kernel or get_op_info(fwd_type).kernel
+        info = get_op_info(fwd_type)
+        fwd = fwd_kernel or info.kernel
         fwd_op = ctx.attr("__fwd_op__")
         fwd_inputs = {s: ctx.inputs(s) for s in fwd_op.inputs}
         diff_paths, diff_leaves, const = [], [], {}
         for slot, vals in fwd_inputs.items():
+            keep = slot not in info.stop_gradient_slots
             for i, v in enumerate(vals):
-                if v is not None and v.is_floating_point():
+                if keep and v is not None and v.is_floating_point():
                     diff_paths.append((slot, i))
                     diff_leaves.append(v)
                 else:
@@ -309,6 +317,8 @@ def default_grad_maker(op: Operator, no_grad_set=frozenset()):
         inputs[slot + GRAD_SUFFIX] = [grad_var_name(n) for n in names]
     outputs = {}
     for slot, names in op.inputs.items():
+        if slot in info.stop_gradient_slots:
+            continue
         grads = [grad_var_name(n) for n in names]
         if all(g in no_grad_set or n in no_grad_set
                for g, n in zip(grads, names)):

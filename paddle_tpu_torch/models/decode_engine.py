@@ -556,10 +556,12 @@ class DecodeStepBundle:
                 total += int(np.prod(shape)) * np.dtype(dt).itemsize
         return total
 
-    def init_slot_state(self, scope, device="cpu"):
-        """Seed the pool state in `scope` on `device` (idle slots:
-        finished=1, active=0, so they step harmlessly until admitted;
-        paged prompt refs point every lane at the dustbin entry)."""
+    def init_slot_state(self, scope, device="cuda"):
+        """Seed the pool state in `scope` on `device`: the card unless
+        the caller names another, as ``Executor()`` runs on
+        ``CUDAPlace(0)``. Idle slots: finished=1, active=0, so they step
+        harmlessly until admitted; paged prompt refs point every lane at
+        the dustbin entry."""
         import torch
 
         for name, (shape, dt) in self._state_specs.items():

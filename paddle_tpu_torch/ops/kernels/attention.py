@@ -270,6 +270,9 @@ def _check_flash_bwd(name, q, k, v, g, lse, delta):
     _check_qkv(name, q, k, v, FLASH_HEAD_DIMS)
     _check_like(name, (q, g, lse, delta), (q.shape, q.shape, q.shape[:3],
                                            q.shape[:3]))
+    if any(t.data_ptr() % 16 for t in (q, k, v, g)):
+        raise ValueError(f"{name}: q, k, v and dO must start on a 16-byte "
+                         f"boundary (the kernels copy 16-byte rows)")
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, scale, causal=False):

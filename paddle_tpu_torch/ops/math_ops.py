@@ -101,8 +101,12 @@ def reduce_sum(ctx):
 
 @register_op("mean")
 def mean(ctx):
-    """Output shape [1], as fluid's mean_op.cc."""
-    return torch.mean(ctx.input("X")).reshape(1)
+    """Output shape [1], as fluid's mean_op.cc. An integer or bool X
+    gives float32, as ``jnp.mean`` promotes it."""
+    x = ctx.input("X")
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return torch.mean(x).reshape(1)
 
 
 def _cmp(fn, type_name):

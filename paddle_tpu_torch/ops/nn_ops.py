@@ -164,7 +164,14 @@ def softmax_with_cross_entropy(ctx):
     kernel. The Softmax output, an [N, V] fp32 buffer, is computed only
     when something reads it: the JAX package leaves it to XLA to
     dead-code, and at Transformer-base's [16384, 32000] it would be
-    2.1 GB a step."""
+    2.1 GB a step.
+
+    A hard label outside [0, V) that is not ignore_index picks no
+    logit, so its loss is the lse: the rule of the Pallas kernel
+    (``paddle_tpu/ops/pallas/xent.py``, ``cols == lab``), on both
+    devices. The JAX package's XLA path (``take_along_axis``) instead
+    gives NaN for a label >= V and wraps a negative one, so its CPU
+    loss is no oracle for such labels."""
     logits = ctx.input("Logits")
     label = ctx.input("Label")
     eps = ctx.attr("label_smooth_eps", 0.0)

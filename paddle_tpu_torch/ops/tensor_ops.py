@@ -191,14 +191,35 @@ def increment(ctx):
     return x + step
 
 
-@register_op("gather")
+def _take_fill(dtype):
+    """What ``jnp.take``'s default "fill" mode puts at an out-of-range
+    index: NaN for a float, the most negative value for a signed
+    integer, the largest for an unsigned one, True for a bool."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.min if info.min < 0 else info.max
+
+
+@register_op("gather", stop_gradient_slots=("Index",))
 def gather(ctx):
-    """Rows of X at Index along axis 0 (reference gather_op.cc;
-    ``paddle_tpu/ops/tensor_ops.py`` gather). Index is an integer slot,
-    so the generic vjp treats it as a constant: it gets no gradient,
-    as the JAX package's stop-gradient slot gives none."""
-    idx = ctx.input("Index").reshape(-1).to(torch.int64)
-    return torch.index_select(ctx.input("X"), 0, idx)
+    """Rows of X at Index along axis 0, shaped Index.shape +
+    X.shape[1:] (reference gather_op.cc; ``paddle_tpu/ops/tensor_ops.py``
+    gather, ``jnp.take``). As there, an index in [-N, 0) counts from the
+    end and any other index outside [0, N) reads the fill value of
+    `_take_fill`: clamped indices and a ``torch.where``, so the card
+    needs no device assert and no host sync."""
+    x = ctx.input("X")
+    idx = ctx.input("Index").to(torch.int64)
+    n = x.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    rows = torch.index_select(x, 0, torch.where(valid, idx, 0).reshape(-1))
+    rows = rows.reshape(*idx.shape, *x.shape[1:])
+    valid = valid.reshape(*idx.shape, *[1] * (x.dim() - 1))
+    return torch.where(valid, rows, _take_fill(x.dtype))
 
 
 @register_op("expand")

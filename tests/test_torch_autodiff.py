@@ -137,6 +137,12 @@ GRAD_CASES = {
         {"soft_label": True, "label_smooth_eps": 0.1}, ["Loss0"]),
     "mean": ("mean", {"X": [_randn((3, 4), 23)]}, {"Out": 1}, {},
              ["Out0"]),
+    # Index [4, 1] keeps its shape; a repeated row sums its grads, -1
+    # counts from the end and 7 reads the fill value, which passes none
+    "gather": ("gather", {"X": [_randn((5, 3), 36)],
+                          "Index": [np.array([[1], [-1], [1], [7]],
+                                             "int64")]},
+               {"Out": 1}, {}, ["Out0"]),
 }
 
 
@@ -201,14 +207,32 @@ def test_grad_op_matches_reference(case):
 
 
 def test_integer_inputs_take_no_gradient():
-    """lookup_table's Ids and the swce Label are integers: neither
-    package emits a grad output for them."""
-    for case in ("lookup_table", "softmax_with_cross_entropy_hard"):
+    """lookup_table's Ids, the swce Label and gather's Index are
+    integers: neither package emits a grad output for them (gather's
+    Index is a stop-gradient slot in both registries). gather's lone
+    grad op then runs in both packages and gives the same X@GRAD."""
+    for case in ("lookup_table", "softmax_with_cross_entropy_hard",
+                 "gather"):
         op_type, inputs, outputs, attrs, _ = GRAD_CASES[case]
         pop = _build_op(pf, op_type, inputs, outputs, attrs)
+        jop = _build_op(jf, op_type, inputs, outputs, attrs)
         (gop,) = p_registry.make_grad_ops(pop)
-        assert list(gop.outputs) == [
-            s + "@GRAD" for s in inputs if s not in ("Ids", "Label")]
+        (jgop,) = j_registry.make_grad_ops(jop)
+        want = [s + "@GRAD" for s in inputs
+                if s not in ("Ids", "Label", "Index")]
+        assert list(gop.outputs) == list(jgop.outputs) == want, case
+    op_type, inputs, outputs, attrs, _ = GRAD_CASES["gather"]
+    cots = {"Out0": _randn((4, 1, 3), 37)}
+    got = _run_grads(pf, p_registry, torch.from_numpy,
+                     _build_op(pf, op_type, inputs, outputs, attrs),
+                     inputs, cots,
+                     lambda op, env: p_registry.run_op(op, env, CPU))
+    want = _run_grads(jf, j_registry, _jax_array,
+                      _build_op(jf, op_type, inputs, outputs, attrs),
+                      inputs, cots,
+                      lambda op, env: j_registry.run_op(op, env))
+    assert sorted(got) == sorted(want) == ["X0@GRAD"]
+    np.testing.assert_allclose(got["X0@GRAD"], want["X0@GRAD"], **TOL)
 
 
 def test_adam_and_sum_ops_match_reference():

@@ -540,16 +540,28 @@ def test_sdpa_short_residual_and_bwd_kernels_match_plain(cuda, b, h, t, d,
         _close_to_scale(a, w)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,h,tq,tk,d,causal", [
+FLASH_BWD_CASES = [
     (2, 8, 1024, 1024, 64, False), (2, 8, 1024, 1024, 64, True),
     (1, 4, 96, 1024, 64, True), (1, 2, 100, 40, 128, True),
-    (1, 2, 600, 600, 256, True)])
-def test_flash_residual_and_bwd_kernels_match_plain(cuda, b, h, tq, tk, d,
-                                                    causal):
+    (1, 2, 600, 600, 256, True),
+    # ragged tiles: a last key and query tile cut short, tq < tk by a
+    # part tile, and tq > tk (rows that see no key) at D 128
+    (1, 4, 600, 600, 64, False), (1, 4, 600, 600, 64, True),
+    (1, 4, 1000, 1024, 64, True), (1, 2, 1024, 600, 128, True)]
+
+
+def _flash_bwd_inputs(cuda, b, h, tq, tk, d, causal):
     q, g = (_cuda_randn(cuda, b, h, tq, d, seed=s) for s in (10, 13))
     k = _cuda_randn(cuda, b, h, tk, d, seed=11)
     v = _cuda_randn(cuda, b, h, tk, d, seed=12)
+    return q, k, v, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,d,causal", FLASH_BWD_CASES)
+def test_flash_residual_and_bwd_kernels_match_plain(cuda, b, h, tq, tk, d,
+                                                    causal):
+    q, k, v, g = _flash_bwd_inputs(cuda, b, h, tq, tk, d, causal)
     scale = d ** -0.5
     out, lse = KA._flash_attention_launch(q, k, v, scale, causal, True)
     wout, wlse = KA.flash_attention_plain(q, k, v, scale, causal,
@@ -564,6 +576,25 @@ def test_flash_residual_and_bwd_kernels_match_plain(cuda, b, h, tq, tk, d,
     for a, w in zip(got, KA.flash_attention_bwd_plain(q, k, v, out, lse, g,
                                                       scale, causal)):
         _close_to_scale(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,d,causal", [
+    (2, 8, 1024, 1024, 64, True), (1, 2, 1024, 600, 128, True),
+    (1, 2, 600, 600, 256, False)])
+def test_flash_bwd_kernels_are_deterministic(cuda, b, h, tq, tk, d, causal):
+    """Each block writes only its own rows, with no atomics, in a fixed
+    order: two launches on the same inputs give identical bits."""
+    q, k, v, g = _flash_bwd_inputs(cuda, b, h, tq, tk, d, causal)
+    scale = d ** -0.5
+    out, lse = KA._flash_attention_launch(q, k, v, scale, causal, True)
+    delta = KA.flash_delta(out, g)
+    runs = [(KA.flash_bwd_dq(q, k, v, g, lse, delta, scale, causal),
+             *KA.flash_bwd_dkv(q, k, v, g, lse, delta, scale, causal))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.gpu

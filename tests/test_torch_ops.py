@@ -104,6 +104,19 @@ CASES = [
      {"Input": {"x": _i(0, 9, 3, 5)}}, {"Out": 1},
      {"shape": [-1, 2, 4], "dtype": "float32", "value": 0.5,
       "input_dim_idx": 0, "output_dim_idx": 0}),
+    # gather keeps Index's shape: [4, 1] rows of [5, 3] give [4, 1, 3]
+    ("gather_index_2d", "gather",
+     {"X": {"x": _f(5, 3)}, "Index": {"i": _i(0, 5, 4, 1)}}, {"Out": 1},
+     {}),
+    # jnp.take's "fill" mode: -1 counts from the end, 7 >= N reads the
+    # fill value, NaN for a float X and the most negative value of the
+    # type for a signed integer X (-2**31 for int32)
+    ("gather_out_of_range", "gather",
+     {"X": {"x": _f(5, 3)},
+      "Index": {"i": np.array([-1, 0, 7], "int64")}}, {"Out": 1}, {}),
+    ("gather_out_of_range_int", "gather",
+     {"X": {"x": _i(-9, 9, 5, 3).astype("int32")},
+      "Index": {"i": np.array([-1, 0, 7, -6], "int64")}}, {"Out": 1}, {}),
     ("greater_than", "greater_than",
      {"X": {"x": _f(5)}, "Y": {"y": _f(1)}}, {"Out": 1}, {}),
     ("increment", "increment", {"X": {"x": _i(0, 9, 1)}}, {"Out": 1},
@@ -135,6 +148,8 @@ CASES = [
      {"X": {"x": _f(2, 2, 1, 4)}, "Y": {"y": _f(2, 2, 4, 6)}},
      {"Out": 1}, {"transpose_X": False, "transpose_Y": False,
                   "alpha": 1.0}),
+    # an integer X: float32, as jnp.mean promotes it
+    ("mean_int", "mean", {"X": {"x": _i(0, 9, 3, 4)}}, {"Out": 1}, {}),
     ("mul", "mul", {"X": {"x": _f(2, 3, 4)}, "Y": {"y": _f(4, 5)}},
      {"Out": 1}, {"x_num_col_dims": 2, "y_num_col_dims": 1}),
     ("range", "range", {}, {"Out": 1},
@@ -206,6 +221,28 @@ def test_op_matches_paddle_tpu(case):
     assert len(jout) == len(pout)
     for i, (j, p) in enumerate(zip(jout, pout)):
         _assert_same(j, p, f"{cid} output {i}")
+
+
+def test_gather_and_integer_mean_declare_their_outputs_at_build_time():
+    """Build-time inference: gather's output is Index.shape +
+    X.shape[1:], the mean of an integer var a float32 [1], in both
+    packages, for a fixed and a batch (-1) leading dim."""
+    for pkg in (jf, pf):
+        prog = pkg.Program()
+        blk = prog.global_block
+        blk.create_var(name="x", shape=(5, 3), dtype="float32")
+        blk.create_var(name="i", shape=(4, 1), dtype="int64")
+        blk.create_var(name="n", shape=(3, 4), dtype="int64")
+        blk.append_op("gather", {"X": ["x"], "Index": ["i"]},
+                      {"Out": ["o"]}, {})
+        blk.append_op("mean", {"X": ["n"]}, {"Out": ["m"]}, {})
+        assert tuple(blk.var("o").shape) == (4, 1, 3), pkg.__name__
+        assert tuple(blk.var("m").shape) == (1,), pkg.__name__
+        assert blk.var("m").dtype.name == "FP32", pkg.__name__
+        with pkg.program_guard(pkg.Program(), pkg.Program()):
+            x = pkg.layers.data("x", shape=[3], dtype="float32")
+            i = pkg.layers.data("i", shape=[1], dtype="int64")
+            assert tuple(pkg.layers.gather(x, i).shape) == (-1, 1, 3)
 
 
 def _while_program(pkg):

@@ -70,12 +70,20 @@ def _run_both(op_type, inputs, attrs):
     return np.asarray(p), np.asarray(j)
 
 
-@pytest.mark.parametrize("shape,idx", [((6, 5), [4, 0, 0, 2]),
-                                       ((3, 2, 4), [2, 1])])
+@pytest.mark.parametrize("shape,idx", [
+    ((6, 5), [4, 0, 0, 2]), ((3, 2, 4), [2, 1]),
+    ((5, 3), [[1], [4], [0], [1]]),    # Index [4, 1] -> [4, 1, 3]
+    ((5, 3), [-1, 0, 7]),              # wraps -1; 7 reads NaN
+    ((5, 2, 2), [[-5, 5], [3, -6]]),   # both edges, 2-D Index
+])
 def test_gather_matches_jax(shape, idx):
+    """Out is Index.shape + X.shape[1:]; an index in [-N, 0) counts from
+    the end and any other outside [0, N) reads jnp.take's fill value
+    (NaN for float X: assert_array_equal matches NaN with NaN)."""
     x = np.random.RandomState(0).randn(*shape).astype("float32")
     p, j = _run_both("gather", {"X": x,
                                 "Index": np.array(idx, np.int32)}, {})
+    assert p.shape == j.shape == np.array(idx).shape + shape[1:]
     np.testing.assert_array_equal(p, j)
 
 
@@ -269,6 +277,23 @@ def test_op_types_differ_by_the_paged_attention_substitution(bundles):
     assert j - p == dropped and p - j == Counter()
 
 
+def test_init_slot_state_places_state_on_the_given_device(bundles):
+    """The pool state lands on the device the caller names, and by
+    default on the card, as ``Executor()`` runs on ``CUDAPlace(0)``
+    (meta stands in for a second device here: it needs no card)."""
+    import inspect
+
+    _, pb, _ = bundles
+    default = inspect.signature(pb.init_slot_state).parameters["device"]
+    assert torch.device(default.default).type == "cuda"
+    for device in ("cpu", "meta"):
+        scope = pf.Scope()
+        pb.init_slot_state(scope, device)
+        for name, (shape, _) in pb._state_specs.items():
+            t = scope._get(name)
+            assert t.device.type == device and tuple(t.shape) == shape
+
+
 def test_step_program_ticks_match_jax(bundles):
     """One miss admission of two prompts, then 10 ticks of the step
     program in both packages from the same state: token buffers, steps
@@ -282,7 +307,7 @@ def test_step_program_ticks_match_jax(bundles):
     pscope = pf.Scope()
     pf.load_numpy_params(pscope, params, pf.CPUPlace())
     pexe = pf.Executor(pf.CPUPlace())
-    pb.init_slot_state(pscope)
+    pb.init_slot_state(pscope, "cpu")
     tab = np.array([[0, 1, 2, 3], [4, 5, 6, 7], [0, 0, 0, 0]], np.int32)
     pref = np.array([1, 0, E], np.int32)
     jscope._set(PREFIX + "block_tab", tab)
