@@ -26,13 +26,19 @@ Phases (a failing phase fails the script; none is caught):
    launch of the flash backward kernels on the same inputs must give
    identical bits, and they and the library's backward are also timed
    causal; the library backward's own error against the plain version
-   is recorded; the fused-block kernels,
+   is recorded; the flash forward, split TF32 too, must repeat bit for
+   bit with and without lse, and the plain forward on TF32-rounded q, k
+   and v must fail its output and lse limits; the fused-block kernels,
    attention_block with its saved P and its backward, ffn_block and its
-   backward, at the training shape, causal and not, and at a small one,
-   each output and grad held against the largest |plain| of it, which
-   planted faults, a P off by 1e-3, dWo computed from g transposed, b1
-   left out of the FFN backward's recompute and the ReLU mask inverted on
-   one column, must fail; the paged decode-attention kernel at the paged
+   backward, at the training shape, causal and not, at a small one, at
+   T 512 causal and at Dh 128 with T 200, each output and grad held
+   against the largest |plain| of it, which planted faults, a P off by
+   1e-3, dWo computed from g transposed, b1 left out of the FFN
+   backward's recompute and the ReLU mask inverted on one column, must
+   fail; the attention_block backward, split TF32 on the tensor cores,
+   must repeat bit for bit and its TF32 control, the plain backward on
+   TF32-rounded x, Wqkv, Wo, P and g, must fail; the paged
+   decode-attention kernel at the paged
    serving shape with steps spread over the buffer, one lane at step -1
    and unallocated pages at block 0, at a small shape and at Dh 128,
    which planted faults, the step off by one and page p+1 read for page
@@ -40,7 +46,9 @@ Phases (a failing phase fails the script; none is caught):
    PyTorch library call's time as a yardstick (for the fused blocks, the
    composition of library calls that computes the same function), and
    the least time the card could take (the larger of bytes / 3.35 TB/s
-   and fp32 operations / 67 TFLOP/s, the H100 SXM data-sheet peaks);
+   and fp32 operations / 67 TFLOP/s, the H100 SXM data-sheet peaks;
+   for the split-TF32 kernels also three times their products over 495
+   TFLOP/s, with their TFLOP/s);
 4. slice: Transformer-base (d_model 512, 8 heads, 6+6 layers, d_inner
    2048, vocab 30000), random weights from a seed, built with the port's
    layers as the KV-cached incremental decode program at prompt lengths
@@ -367,7 +375,15 @@ def _lib_sdpa(q, k, v, scale, causal=False):
             q, k, v, scale=scale, is_causal=causal)
 
 
-def _attn_entry(name, kern, plain, cases, main_shape):
+def _tf32x3_ms(product_flops):
+    """The split-TF32 bound: three TF32 products for each fp32 product,
+    at 495 TFLOP/s."""
+    return 3 * product_flops / TF32_FLOP_PER_S * 1e3
+
+
+def _attn_entry(name, kern, plain, cases, main_shape, tf32=False):
+    """`tf32`: the kernel computes on the tensor cores in split TF32; its
+    timing line also gives the split-TF32 bound and TFLOP/s."""
     errs = []
     for (b, h, tq, tk, d, causal) in cases:
         q, k, v = _qkv(b, h, tq, tk, d, seed=tq + d + causal)
@@ -393,12 +409,19 @@ def _attn_entry(name, kern, plain, cases, main_shape):
     nbytes = 4 * q.numel() * 4
     flops = b * h * t * t * (4 * d + 5)  # QK^T, PV, softmax
     bms, by = bound_ms(nbytes, flops)
+    extra, note = {}, ""
+    if tf32:
+        products = 4 * b * h * t * t * d
+        extra = dict(tf32x3_bound_ms=_tf32x3_ms(products),
+                     tflops=products / ms / 1e9)
+        note = (f"; split-TF32 bound {extra['tf32x3_bound_ms']:.4f} ms, "
+                f"{extra['tflops']:.2f} TFLOP/s of fp32 products")
     log(f"  {name} {list(main_shape)} non-causal: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library sdpa {lib_ms:.4f} ms, "
-        f"bound {bms:.4f} ms ({by})")
+        f"bound {bms:.4f} ms ({by}){note}")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                shape=list(main_shape))
+                shape=list(main_shape), **extra)
 
 
 def _randn_like(x, seed):
@@ -449,8 +472,9 @@ def _attn_bwd_entries():
     flash also at d 128 and 256, tq < tk, tq > tk (rows that see no
     key) and ragged tiles. Planted faults must fail the check: the
     backward fed an lse off by 1e-3, a dropped delta, or a P off by 1e-3
-    relative; so must the TF32 control, the plain flash backward on
-    TF32-rounded operands. The flash kernels must repeat bit for bit.
+    relative; so must the TF32 controls, the plain flash backward and
+    forward on TF32-rounded operands. The flash kernels, forward (with
+    and without lse) and backward, must repeat bit for bit.
     Then times at the main shapes, non-causal, and for flash causal too,
     with the library backward's error against the plain version."""
     out = {}
@@ -487,7 +511,7 @@ def _attn_bwd_entries():
                                           for a, w in zip(got, want)))
         ratios["sdpa_short_bwd"].append(r)
         del q, k, v, g, o, p, wo, wp, got, want, bad
-    tf32_controls = []
+    tf32_controls, fwd_tf32_controls = [], []
     for i, (b, h, tq, tk, d, causal) in enumerate((
             (b1024, 8, 1024, 1024, 64, False),
             (b1024, 8, 1024, 1024, 64, True),
@@ -505,6 +529,17 @@ def _attn_bwd_entries():
         wo, wlse = KA.flash_attention_plain(q, k, v, scale, causal,
                                             with_lse=True)
         delta = KA.flash_delta(o, g)
+        # the forward (#2), split TF32: a second launch, with and without
+        # lse, gives the same bits; the control is the plain forward on
+        # TF32-rounded q, k, v
+        o2, lse2 = KA._flash_attention_launch(q, k, v, scale, causal, True)
+        fwd_repeat = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                      and torch.equal(KA._flash_attention_launch(
+                          q, k, v, scale, causal, False), o))
+        to, tlse = KA.flash_attention_plain(_tf32(q), _tf32(k), _tf32(v),
+                                            scale, causal, with_lse=True)
+        fwd_tf32 = (max_err(to, wo), max_err(tlse, wlse))
+        del o2, lse2, to, tlse
 
         def kernels(lse_, delta_):
             return (KA.flash_bwd_dq(q, k, v, g, lse_, delta_, scale, causal),
@@ -535,12 +570,19 @@ def _attn_bwd_entries():
         del tq_, tk_, tv_, tg_
         log(f"  flash+lse [{b},{h},{tq},{tk},{d}] causal={causal}: out "
             f"max_abs_err {eo:.3e} (tol {ATTN_TOL:g}), lse {el:.3e} (tol "
-            f"{LSE_TOL:g}); worst |d - plain| / max|plain|: flash_bwd_dq "
+            f"{LSE_TOL:g}), a second launch (with lse and without) "
+            f"bit-identical {fwd_repeat}, TF32 control out {fwd_tf32[0]:.3e}"
+            f" lse {fwd_tf32[1]:.3e} (must exceed the tols); worst "
+            f"|d - plain| / max|plain|: flash_bwd_dq "
             f"{r_dq:.3e}, flash_bwd_dkv {r_dkv:.3e} (tol {ATTN_BWD_RTOL:g});"
             f" a second launch bit-identical {repeat}; planted faults "
             + ", ".join(f"{n}: {x:.3e}" for n, x in faults.items())
             + f"; TF32 control {tf32_ratio:.3e} (these must exceed the tol)")
         assert eo <= ATTN_TOL and el <= LSE_TOL, (eo, el)
+        assert fwd_repeat, "the flash forward kernel is not deterministic"
+        assert fwd_tf32[0] > ATTN_TOL and fwd_tf32[1] > LSE_TOL, \
+            "the flash forward check cannot see TF32 rounding"
+        fwd_tf32_controls.append(fwd_tf32)
         assert all(torch.isfinite(x).all() for x in got)
         assert repeat, "the flash backward kernels are not deterministic"
         assert tf32_ratio > ATTN_BWD_RTOL, \
@@ -634,12 +676,21 @@ def _attn_bwd_entries():
         plain_ms = time_ms(fwd[1], iters=5)
         res_lib = _lib_residual_ms(q, k, v, scale)
         bms, by = bound_ms(fwd[2], n_tt * (4 * d + 5))
+        extra, note = {}, ""
+        if name == "flash_attention":
+            extra = dict(tf32x3_bound_ms=_tf32x3_ms(4 * n_tt * d),
+                         tflops=4 * n_tt * d / ms / 1e9,
+                         tf32_control=[min(c[0] for c in fwd_tf32_controls),
+                                       min(c[1] for c in fwd_tf32_controls)])
+            note = (f"; split-TF32 bound {extra['tf32x3_bound_ms']:.4f} ms,"
+                    f" {extra['tflops']:.2f} TFLOP/s of fp32 products")
         log(f"  {name} with its residual [{b},{h},{t},{d}] non-causal: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library sdpa "
-            f"under autograd {res_lib:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"under autograd {res_lib:.4f} ms, bound {bms:.4f} ms "
+            f"({by}){note}")
         out[name] = dict(max_abs_err=max(res_errs[name]), ms=ms,
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         library_ms=res_lib, shape=[b, h, t, d])
+                         library_ms=res_lib, shape=[b, h, t, d], **extra)
         for kname, (kern, plain, nbytes, flops, products) in kerns.items():
             ms = time_ms(kern)
             plain_ms = time_ms(plain, iters=5)
@@ -658,7 +709,7 @@ def _attn_bwd_entries():
             # split TF32: three TF32 products for each fp32 product (the
             # products' 2 flops a multiply-add, 2 * n_tt * d each)
             n_prod = (flops - 5 * n_tt) // (2 * n_tt * d)
-            tf32_bms = 3 * 2 * n_prod * n_tt * d / TF32_FLOP_PER_S * 1e3
+            tf32_bms = _tf32x3_ms(2 * n_prod * n_tt * d)
             # causal: the kernels skip the tiles above the diagonal; the
             # function needs the t (t + 1) / 2 seen entries of each head
             seen = b * h * t * (t + 1) // 2
@@ -723,12 +774,16 @@ def _ffn_bwd_mask_flipped(x, w1, b1, w2, g, col):
 
 def _fused_entries():
     """The fused-block kernels against their plain versions: the training
-    path's shape (B 64, T 256, D 512, H 8, F 2048), causal and not, and a
-    small one (B 3, T 16, D 64, H 2: Dh 32, F 96). Each output and grad
-    within FUSED_RTOL of its largest |plain|, saved P within P_TOL.
-    Planted faults must fail the grad check: P off by 1e-3, dWo computed
-    from g transposed (dWo^T), b1 left out of the FFN backward's
-    recompute, the ReLU mask inverted on one hidden column. Then times at
+    path's shape (B 64, T 256, D 512, H 8, F 2048), causal and not, a
+    small one (B 3, T 16, D 64, H 2: Dh 32, F 96), T at its limit (B 1,
+    T 512, causal) and Dh 128 with a ragged T (B 2, T 200, D 256, H 2, F
+    1024). Each output and grad within FUSED_RTOL of its largest |plain|,
+    saved P within P_TOL; the attention_block backward repeats bit for
+    bit. Planted faults must fail the grad check: P off by 1e-3, dWo
+    computed from g transposed (dWo^T), b1 left out of the FFN backward's
+    recompute, the ReLU mask inverted on one hidden column; so must the
+    TF32 control, the plain attention_block backward on TF32-rounded
+    operands. Then times at
     the training shape, non-causal, beside each kernel's bound (its
     products, 2 flops a multiply-add, over 67 TFLOP/s, against its bytes
     over 3.35 TB/s), its plain version and its composition of library
@@ -737,43 +792,56 @@ def _fused_entries():
                             "ffn_block", "ffn_block_bwd")}
     p_errs = []
     bt, t_, d_, h_, f_ = TRAIN_TOKENS // 256, 256, 512, 8, 2048
+    tf32_controls = []
     for i, (b, t, d, h, f, causal) in enumerate((
             (bt, t_, d_, h_, f_, False), (bt, t_, d_, h_, f_, True),
-            (3, 16, 64, 2, 96, True))):
+            (3, 16, 64, 2, 96, True),
+            (1, 512, d_, h_, f_, True),    # T at its limit
+            (2, 200, 256, 2, 1024, False))):  # Dh 128, ragged T
         a = _fused_inputs(b, t, d, f, seed=80 + i)
         x, g, wqkv, wo = a["x"], a["g"], a["wqkv"], a["wo"]
         scale = (d // h) ** -0.5
         out, p = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal,
                                              True)
         got = KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale, causal)
+        again = KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale, causal)
         wout, wp = KAB.attention_block_fwd_plain(x, wqkv, wo, h, scale,
                                                  causal, save_p=True)
         want = KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h, scale)
         torch.cuda.synchronize()
         r_out, ep = _bwd_ratio((out,), (wout,)), max_err(p, wp)
         r = _bwd_ratio(got, want)
+        repeat = all(torch.equal(z, y) for z, y in zip(got, again))
         faults = {
             "P off by 1e-3": _bwd_ratio(KAB.attention_block_bwd(
                 x, wqkv, wo, p * (1 - 1e-3), g, h, scale, causal), want),
             "dWo from g transposed": _bwd_ratio(
-                (*got[:2], got[2].T.contiguous()), want)}
+                (*got[:2], got[2].T.contiguous()), want),
+            # the control: the plain backward on TF32-rounded operands
+            # (what a kernel that dropped its products' small halves
+            # would compute)
+            "TF32 control": _bwd_ratio(KAB.attention_block_bwd_plain(
+                *(_tf32(z) for z in (x, wqkv, wo, p, g)), h, scale), want)}
         log(f"  attention_block+P [{b},{t},{d}] H {h} causal={causal}: out "
             f"|d - plain| / max|plain| {r_out:.3e} (tol {FUSED_RTOL:g}), P "
             f"max_abs_err {ep:.3e} (tol {P_TOL:g}); attention_block_bwd "
-            f"worst {r:.3e} (tol {FUSED_RTOL:g}); planted faults "
+            f"worst {r:.3e} (tol {FUSED_RTOL:g}), a second launch "
+            f"bit-identical {repeat}; planted faults "
             + ", ".join(f"{n}: {e:.3e}" for n, e in faults.items())
             + " (must exceed the tol)")
         assert all(torch.isfinite(z).all() for z in (out, *got))
         assert r_out <= FUSED_RTOL and ep <= P_TOL and r <= FUSED_RTOL, (
             r_out, ep, r)
+        assert repeat, "the attention_block backward is not deterministic"
         for n, e in faults.items():
             assert e > FUSED_RTOL, f"the attention_block_bwd check cannot " \
                 f"see {n}"
+        tf32_controls.append(faults["TF32 control"])
         errs["attention_block"].append((max_err(out, wout), r_out))
         errs["attention_block_bwd"].append(
             (max(max_err(z, w) for z, w in zip(got, want)), r))
         p_errs.append(ep)
-        del out, p, got, wout, wp, want
+        del out, p, got, again, wout, wp, want
         if causal and d == d_:
             continue  # the FFN has no causal form
         w1, b1, w2, b2 = a["w1"], a["b1"], a["w2"], a["b2"]
@@ -872,18 +940,24 @@ def _fused_entries():
         plain_ms = time_ms(plain, iters=5)
         lib_ms = time_ms(lib, iters=10)
         bms, by = bound_ms(nbytes, flops)
+        extra, note = {}, ""
+        if name == "attention_block_bwd":  # split TF32 on the tensor cores
+            extra = dict(tf32x3_bound_ms=_tf32x3_ms(flops),
+                         tf32_control=min(tf32_controls))
+            note = f", split-TF32 bound {extra['tf32x3_bound_ms']:.4f} ms"
         log(f"  {name} [{b},{t},{d}] H {h} F {f} non-causal: kernel "
             f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
             f"{plain_ms:.4f} ms, library composition ({label}) "
             f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
-            f"{flops / 1e9:.2f} GFLOP)")
+            f"{flops / 1e9:.2f} GFLOP){note}")
         base = name.replace("_residual", "")
         out[name] = dict(max_abs_err=max(e[0] for e in errs[base]),
                          max_rel_err=max(e[1] for e in errs[base]), ms=ms,
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          library_ms=lib_ms,
                          library=f"composition: {label}",
-                         shape=[b, t, d, h, f])
+                         shape=[b, t, d, h, f], tflops=flops / ms / 1e9,
+                         **extra)
     out["attention_block"]["p_max_abs_err"] = max(p_errs)
     out["attention_block"]["residual"] = out.pop("attention_block_residual")
     return out
@@ -1051,7 +1125,7 @@ def phase_kernels():
          (BATCH, 8, 1024, 1024, 64, True),
          (1, 8, 256, 1024, 64, True),      # tq < tk, bottom-right
          (1, 8, 1024, 256, 64, True)],     # tq > tk: fully masked rows
-        (BATCH, 8, 1024, 64))
+        (BATCH, 8, 1024, 64), tf32=True)
     entries.update(_xent_entries())
     residual = _attn_bwd_entries()
     for name in ("sdpa_short", "flash_attention"):
@@ -2075,8 +2149,8 @@ def main():
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
         extra = {x: e[x] for x in ("max_rel_err", "residual", "library",
                                    "p_max_abs_err", "library_rel_err",
-                                   "tf32x3_bound_ms", "tf32_control",
-                                   "causal") if x in e}
+                                   "tf32x3_bound_ms", "tflops",
+                                   "tf32_control", "causal") if x in e}
         line.append(dict(name=kname, route="cuda", source=src,
                          replaces=replaces, launches=sum(on_paths.values()),
                          **on_paths, max_abs_err=e["max_abs_err"],

@@ -37,7 +37,7 @@ from . import (check_launch, current_stream, masked_logits, on_card,
 
 MAX_T = 512
 MAX_HEAD_DIM = 128
-# the weight gradients' row slices (tile_gemm.cuh), 16 MB
+# the backward's weight gradients' row slices (tile_mma.cuh), 16 MB
 WORKSPACE_FLOATS = 1 << 22
 
 

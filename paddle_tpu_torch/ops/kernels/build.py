@@ -5,10 +5,11 @@ it in seconds without PyTorch's headers. The first call to
 :func:`library` compiles every source, one ``nvcc`` per source, all
 started together, into ``build/torch_kernels/`` at the root of the
 checkout, and loads the results. A library's file name carries a hash
-of its source, the ``csrc/`` headers it includes and the flags, so a
-later process reuses an up-to-date build and an edited source or header
-is built anew. Nothing here runs at import: the CPU tests import every
-module, and this machine may have no ``nvcc``.
+of its source, the ``csrc/`` headers it includes (directly or through
+another header) and the flags, so a later process reuses an up-to-date
+build and an edited source or header is built anew. Nothing here runs
+at import: the CPU tests import every module, and a machine without a
+card may have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -54,11 +55,26 @@ def nvcc_path() -> str:
     return found
 
 
+def _sources(name: str) -> List[bytes]:
+    """The text of ``csrc/<name>.cu`` and of every ``csrc/`` header it
+    includes, directly or through another header, each once, in the order
+    first reached."""
+    texts, seen, todo = [], set(), [f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = (CSRC / path).read_bytes()
+        texts.append(text)
+        todo.extend(reversed([h.decode() for h in _INCLUDE.findall(text)]))
+    return texts
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha1(src)
-    for header in _INCLUDE.findall(src):  # the csrc/*.cuh it includes
-        h.update((CSRC / header.decode()).read_bytes())
+    h = hashlib.sha1()
+    for text in _sources(name):
+        h.update(text)
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 

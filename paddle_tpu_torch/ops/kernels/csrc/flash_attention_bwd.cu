@@ -35,19 +35,12 @@
 // fp32 adds.
 //
 // What the design does about it:
-// - Split TF32. The port's gradients are held to fp32 (1e-5 of the
-//   largest |grad|), which one TF32 product (11-bit significands) misses
-//   by two orders. Each fp32 operand x is split into big = tf32(x) and
-//   small = tf32(x - big) (rounded to nearest, ties away, with two integer
-//   instructions), and a product is small*big + big*small + big*big
-//   (small*small, ~2^-22 of it, dropped): three mma.sync.m16n8k8 TF32
-//   products for each fp32 product.
-// - Round-to-nearest sums. The three products of one 8-deep step go into
-//   a fresh fragment that is then added to the running sum with an fp32
-//   add. The tensor cores' own accumulation truncates: chaining the steps
-//   through it, even only the 8 steps of S and dP at D = 64, moves the
-//   grads by several times the fp32 error, and chaining every product
-//   fails the 1e-5 gate.
+// - Split TF32 (split_tf32.cuh): three mma.sync.m16n8k8 TF32 products
+//   for each fp32 product, each 8-deep step summed in a fresh fragment and
+//   added to the running sum in fp32. Chaining the steps through the
+//   tensor cores' truncating accumulator, even only the 8 steps of S and
+//   dP at D = 64, moves the grads by several times the fp32 error, and
+//   chaining every product fails the 1e-5 gate.
 // - Register-resident softmax derivative. S and dP come out as mma
 //   accumulator fragments; P and ds are computed on them in fp32 registers
 //   and fed straight back as the A operand of the next product (ds k for
@@ -88,182 +81,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_tf32.cuh"
+
 namespace {
 
-constexpr int kPad = 4;  // row padding, floats: conflict-free fragments
-
-// ---------------------------------------------------------------------------
-// split-TF32 products on mma.sync.m16n8k8 (PTX ISA fragment layouts; lane
-// = 4 g + t):
-//   A 16x8: a0 (row g, k t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
-//   B 8x8:  b0 (k t, col g), b1 (k t+4, col g)
-//   C 16x8: c0 (row g, col 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
-// ---------------------------------------------------------------------------
-template <int N>
-struct Operand {  // N tf32 registers of a fragment, split
-  uint32_t big[N], small[N];
-};
-using OpA = Operand<4>;
-using OpB = Operand<2>;
-
-// x rounded to TF32, to nearest with ties away from zero: what
-// cvt.rna.tf32.f32 gives for a finite x, in two integer instructions,
-// fewer than the cvt compiles to (the operands here are always finite)
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-template <int N>
-__device__ __forceinline__ void split(Operand<N>& o, int i, float x) {
-  o.big[i] = to_tf32(x);
-  o.small[i] = to_tf32(x - __uint_as_float(o.big[i]));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc += a b to about fp32 accuracy (see the note at the top)
-__device__ __forceinline__ void mma3(float (&acc)[4], const OpA& a,
-                                     const OpB& b) {
-  float t[4];
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(t[0]), "=f"(t[1]), "=f"(t[2]), "=f"(t[3])
-      : "r"(a.small[0]), "r"(a.small[1]), "r"(a.small[2]), "r"(a.small[3]),
-        "r"(b.big[0]), "r"(b.big[1]), "f"(0.f));
-  mma(t, a.big, b.small);
-  mma(t, a.big, b.big);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i] += t[i];
-}
-
-// A = M[m0:m0+16, k0:k0+8] of a row-major M (row stride ld) at p = &M[m0][k0]
-__device__ __forceinline__ OpA load_a(const float* p, int ld, int g, int t) {
-  OpA a;
-  split(a, 0, p[g * ld + t]);
-  split(a, 1, p[(g + 8) * ld + t]);
-  split(a, 2, p[g * ld + t + 4]);
-  split(a, 3, p[(g + 8) * ld + t + 4]);
-  return a;
-}
-
-// A from an accumulator fragment, k permuted: slot t <- column 2t, slot
-// t+4 <- column 2t+1
-__device__ __forceinline__ OpA acc_as_a(const float (&c)[4]) {
-  OpA a;
-  split(a, 0, c[0]);
-  split(a, 1, c[2]);
-  split(a, 2, c[1]);
-  split(a, 3, c[3]);
-  return a;
-}
-
-// A B operand comes from a tile split once as it lands (split_rows): its
-// big halves in place, its small halves at the same offsets in a second
-// buffer; hi and lo point at the same element of each.
-__device__ __forceinline__ void pick(OpB& b, int i, const float* hi,
-                                     const float* lo, int at) {
-  b.big[i] = __float_as_uint(hi[at]);
-  b.small[i] = __float_as_uint(lo[at]);
-}
-
-// B = M^T for a row-major M [n][k] at &M[n0][k0]: B(k, n) = M[n][k]
-__device__ __forceinline__ OpB load_b_t(const float* hi, const float* lo,
-                                        int ld, int g, int t) {
-  OpB b;
-  pick(b, 0, hi, lo, g * ld + t);
-  pick(b, 1, hi, lo, g * ld + t + 4);
-  return b;
-}
-
-// B = M for a row-major M [k][n] at &M[k0][n0], k permuted as in acc_as_a
-__device__ __forceinline__ OpB load_b_perm(const float* hi, const float* lo,
-                                           int ld, int g, int t) {
-  OpB b;
-  pick(b, 0, hi, lo, 2 * t * ld + g);
-  pick(b, 1, hi, lo, (2 * t + 1) * ld + g);
-  return b;
-}
-
-// ---------------------------------------------------------------------------
-// cp.async staging
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool in) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// rows [r0, r0 + N) of a row-major [*, D] matrix g into s [N][D + kPad];
-// rows at or past `limit` are zero-filled
-template <int D, int N, int THREADS>
-__device__ __forceinline__ void load_rows(float* s, const float* g, int r0,
-                                          int limit, int tid) {
-  constexpr int kChunks = D / 4;  // 16-byte chunks a row
-  static_assert(N * kChunks % THREADS == 0, "whole rounds of chunks");
-#pragma unroll
-  for (int n = 0; n < N * kChunks / THREADS; ++n) {
-    const int i = tid + n * THREADS;
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool in = r0 + r < limit;
-    cp16(s + r * (D + kPad) + c, g + (int64_t)(in ? r0 + r : 0) * D + c, in);
-  }
-}
-
-// after load_rows<D, N, THREADS> into s has landed: each thread splits
-// the chunks it copied itself (so no barrier is needed first), the big
-// halves in place and the small ones into lo
-template <int D, int N, int THREADS>
-__device__ __forceinline__ void split_rows(float* s, float* lo, int tid) {
-  constexpr int kChunks = D / 4;
-#pragma unroll
-  for (int n = 0; n < N * kChunks / THREADS; ++n) {
-    const int i = tid + n * THREADS;
-    const int at = i / kChunks * (D + kPad) + (i % kChunks) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(s + at);
-    Operand<4> o;
-    split(o, 0, x.x);
-    split(o, 1, x.y);
-    split(o, 2, x.z);
-    split(o, 3, x.w);
-    *reinterpret_cast<uint4*>(s + at) =
-        make_uint4(o.big[0], o.big[1], o.big[2], o.big[3]);
-    *reinterpret_cast<uint4*>(lo + at) =
-        make_uint4(o.small[0], o.small[1], o.small[2], o.small[3]);
-  }
-}
-
-template <int N, int THREADS>
-__device__ __forceinline__ void load_vec(float* s, const float* g, int r0,
-                                         int limit, int tid) {
-  static_assert(N <= THREADS, "one entry a thread");
-  if (tid < N) {
-    const bool in = r0 + tid < limit;
-    cp4(s + tid, g + (in ? r0 + tid : 0), in);
-  }
-}
+using namespace split_tf32;
 
 // P and ds of one (query qi, key kj) entry, from its raw score s, dp =
 // dO_qi . v_kj and the query row's lse and delta; blind_p = 1 / tk.

@@ -185,6 +185,47 @@ def test_attention_block_bwd_plain_is_the_reference_vjp(causal):
         _close_to_scale(a.numpy(), b, name=name)
 
 
+def _row_sums(x, wqkv, wo, g, p):
+    """On the same P [B,H,T,T]: the reference's row = sum(dP * P)
+    (`_bwd_impl`'s jnp expression, dP = dctx v^T per head) and the
+    backward kernel's delta = rowsum(dctx * ctx) with ctx = P v (torch):
+    both [B,H,T]."""
+    d = x.shape[-1]
+    dh = d // HEADS
+    xj, wj, woj, gj, pj = map(jnp.asarray, (x, wqkv, wo, g, p))
+    qkv, dctx = xj @ wj, gj @ woj.T
+    rows = []
+    for h in range(HEADS):
+        vh = qkv[..., 2 * d + h * dh:2 * d + (h + 1) * dh]
+        dpn = dctx[..., h * dh:(h + 1) * dh] @ jnp.swapaxes(vh, -1, -2)
+        rows.append(jnp.sum(dpn * pj[:, h], axis=-1))
+    want = np.stack([np.asarray(r) for r in rows], axis=1)
+    xt, wt, wot, gt, pt = _t(x, wqkv, wo, g, p)
+    ctx = pt @ KAB._heads((xt @ wt).split(d, dim=2)[2], HEADS)
+    got = (KAB._heads(gt @ wot.T, HEADS) * ctx).sum(-1)
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_row_sum_is_the_references(interpret, causal):
+    """The attention_block backward kernel takes the reference's row sum
+    rowsum(dP * P) (`_bwd_impl`, attention_block.py:214) as
+    rowsum(dctx * ctx), ctx = P v recomputed from the same P, so that it
+    needs no T-wide row of dP. The two agree within fp32 rounding on the
+    port's plain forward's P and on the JAX kernel's own saved P
+    (interpret mode, bf16, widened)."""
+    x, wqkv, wo, g = _attn_inputs(seed=5)
+    _, p_port = KAB.attention_block_fwd_plain(*_t(x, wqkv, wo), HEADS,
+                                              SCALE, causal, save_p=True)
+    _, p_jax = JAB._fwd_impl(jnp.asarray(x), jnp.asarray(wqkv),
+                             jnp.asarray(wo), HEADS, SCALE, causal,
+                             save_p=True)
+    for p in (p_port.numpy(), np.asarray(p_jax.astype(jnp.float32))):
+        got, want = _row_sums(x, wqkv, wo, g, p)
+        assert got.shape == want.shape == (4, HEADS, 16)
+        _close_to_scale(got, want, rtol=1e-6, name="row")
+
+
 def test_usable_takes_base_width_the_reference_refuses(interpret):
     """The reference's VMEM estimate refuses Transformer-base's width
     (d 512; ffn_block at every shape); the port keeps only the structural

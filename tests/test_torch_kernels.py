@@ -381,6 +381,47 @@ def test_backward_wrappers_run_plain_on_cpu_and_answer_meta():
 
 
 # ---------------------------------------------------------------------------
+# the build: a library's name hashes every header it reaches (no nvcc)
+# ---------------------------------------------------------------------------
+def test_build_target_hashes_headers_included_by_headers(tmp_path,
+                                                         monkeypatch):
+    """Editing a header that only another header includes names a new
+    library, so no stale build is loaded; a header reached twice, or in
+    a cycle, is read once."""
+    from paddle_tpu_torch.ops.kernels import build
+
+    (tmp_path / "k.cu").write_text(
+        '#include <stdint.h>\n#include "outer.cuh"\n#include "outer.cuh"\n')
+    (tmp_path / "outer.cuh").write_text(
+        '#pragma once\n#include "inner.cuh"\n#include "outer.cuh"\n')
+    (tmp_path / "inner.cuh").write_text(
+        '#pragma once\n#include "outer.cuh"\nint inner = 1;\n')
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [t.splitlines()[-1] for t in build._sources("k")] == [
+        b'#include "outer.cuh"', b'#include "outer.cuh"',
+        b"int inner = 1;"]
+    before = build._target("k")
+    assert build._target("k") == before
+    (tmp_path / "inner.cuh").write_text(
+        '#pragma once\n#include "outer.cuh"\nint inner = 2;\n')
+    assert build._target("k") != before
+
+
+def test_kernel_sources_reach_the_shared_headers():
+    from paddle_tpu_torch.ops.kernels import build
+
+    def headers(name):
+        return {t for t in build._sources(name)[1:]}
+
+    split = (build.CSRC / "split_tf32.cuh").read_bytes()
+    mma = (build.CSRC / "tile_mma.cuh").read_bytes()
+    assert headers("flash_attention") == headers("flash_attention_bwd") == {
+        split}
+    assert headers("attention_block") == {
+        split, mma, (build.CSRC / "tile_gemm.cuh").read_bytes()}
+
+
+# ---------------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -458,6 +499,39 @@ def test_flash_kernel_matches_plain(cuda, b, h, tq, tk, d, causal):
     torch.testing.assert_close(
         got, KA.flash_attention_plain(q, k, v, d ** -0.5, causal), rtol=0,
         atol=2e-5)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero): the operand a split-TF32 kernel would see if it dropped the
+    small halves of its products."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_repeats_and_beats_a_tf32_control(cuda, causal):
+    """The forward runs in split TF32 on the tensor cores: a second launch
+    gives identical bits, with lse and without, and the plain forward on
+    TF32-rounded q, k, v fails the limits that the kernel passes."""
+    q, k, v = (_cuda_randn(cuda, 2, 8, 1024, 64, seed=s) for s in (10, 11,
+                                                                  12))
+    runs = [KA._flash_attention_launch(q, k, v, 0.125, causal, True)
+            for _ in range(2)]
+    primal = KA._flash_attention_launch(q, k, v, 0.125, causal, False)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(primal, runs[0][0])
+    want, wlse = KA.flash_attention_plain(q, k, v, 0.125, causal,
+                                          with_lse=True)
+    assert float((runs[0][0] - want).abs().max()) <= 2e-5
+    assert float((runs[0][1] - wlse).abs().max()) <= 1e-5
+    tout, tlse = KA.flash_attention_plain(_tf32(q), _tf32(k), _tf32(v),
+                                          0.125, causal, with_lse=True)
+    assert float((tout - want).abs().max()) > 2e-5
+    assert float((tlse - wlse).abs().max()) > 1e-5
 
 
 @pytest.mark.gpu
@@ -680,7 +754,8 @@ def test_layer_norm_grad_launches_no_kernel(cuda):
 @pytest.mark.parametrize("b,t,d,h,causal", [
     (3, 16, 64, 2, True), (3, 8, 64, 4, False), (2, 72, 192, 8, True),
     (4, 256, 512, 8, True), (4, 256, 512, 8, False), (1, 512, 256, 2,
-                                                       True)])
+                                                       True),
+    (1, 512, 512, 8, True), (2, 200, 256, 2, False)])
 def test_attention_block_kernels_match_plain(cuda, b, t, d, h, causal):
     x, g = (_cuda_randn(cuda, b, t, d, seed=s) for s in (40, 41))
     wqkv = _cuda_randn(cuda, d, 3 * d, seed=42) / d ** 0.5
@@ -699,6 +774,61 @@ def test_attention_block_kernels_match_plain(cuda, b, t, d, h, causal):
     _close_to_scale(out, wout)
     torch.testing.assert_close(primal, out, rtol=0, atol=0)
     torch.testing.assert_close(p, wp, rtol=0, atol=1e-6)
+    for a, w in zip(got, KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h,
+                                                       scale)):
+        _close_to_scale(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_block_bwd_repeats_and_beats_a_tf32_control(cuda,
+                                                              causal):
+    """The backward runs in split TF32 on the tensor cores: a second launch
+    gives identical bits, and the plain backward on TF32-rounded x, Wqkv,
+    Wo, P and g fails the 1e-5 limit that the kernel passes."""
+    b, t, d, h = 4, 256, 512, 8
+    x, g = (_cuda_randn(cuda, b, t, d, seed=s) for s in (50, 51))
+    wqkv = _cuda_randn(cuda, d, 3 * d, seed=52) / d ** 0.5
+    wo = _cuda_randn(cuda, d, d, seed=53) / d ** 0.5
+    scale = (d // h) ** -0.5
+    _, p = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal, True)
+    runs = [KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale, causal)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+    want = KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h, scale)
+    for a, w in zip(runs[0], want):
+        _close_to_scale(a, w)
+    tf32 = KAB.attention_block_bwd_plain(
+        *(_tf32(z) for z in (x, wqkv, wo, p, g)), h, scale)
+    assert max(float((a - w).abs().max()) / float(w.abs().max())
+               for a, w in zip(tf32, want)) > BWD_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,causal", [(13, True), (20, False)])
+def test_attention_block_bwd_c_entry_takes_any_t(cuda, t, causal):
+    """The C entry takes any T <= 512, which the wrapper (T % 8 == 0)
+    never passes: at T 13 the rows of P are not 16-byte aligned and the
+    products copy them 4 bytes at a time; at T 20 the tiles are ragged."""
+    b, d, h = 2, 64, 2
+    x, g = (_cuda_randn(cuda, b, t, d, seed=s) for s in (54, 55))
+    wqkv = _cuda_randn(cuda, d, 3 * d, seed=56) / d ** 0.5
+    wo = _cuda_randn(cuda, d, d, seed=57) / d ** 0.5
+    scale = (d // h) ** -0.5
+    _, p = KAB.attention_block_fwd_plain(x, wqkv, wo, h, scale, causal,
+                                         save_p=True)
+    got = [torch.empty_like(z) for z in (x, wqkv, wo)]
+    scratch = [x.new_empty(b * t, 3 * d), x.new_empty(b * t, d),
+               x.new_empty(b * t, d), x.new_empty(b * t, 3 * d),
+               x.new_empty(b * h, t), x.new_empty(KAB.WORKSPACE_FLOATS)]
+    err = KAB._kernel("attention_block_bwd", 14, True)(
+        *(z.data_ptr() for z in (x, wqkv, wo, p, g, *got, *scratch)),
+        KAB.WORKSPACE_FLOATS, b, t, d, h, scale, int(causal),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
     for a, w in zip(got, KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h,
                                                        scale)):
         _close_to_scale(a, w)
