@@ -17,18 +17,21 @@ Phases (a failing phase fails the script; none is caught):
    dropped eps/V term and a shifted lse, must fail that check; the
    attention forwards also with the residuals their backward kernels
    read, saved P and lse, and the three attention backward kernels at
-   the training shapes, causal and not, flash also at d 128 and 256,
+   the training shapes, causal and not, sdpa_short also at d 128,
+   ragged tiles and T 13 (odd rows of P), flash also at d 128 and 256,
    tq < tk, rows that see no key and ragged tiles, each grad held
    against the largest |plain| of it, which planted faults, an lse off
    by 1e-3, a dropped delta and a P off by 1e-3, must fail, and so must
-   the plain flash backward run on TF32-rounded q, k, v and dO (a kernel
-   that dropped the small half of its split-TF32 products); a second
-   launch of the flash backward kernels on the same inputs must give
-   identical bits, and they and the library's backward are also timed
-   causal; the library backward's own error against the plain version
-   is recorded; the flash forward, split TF32 too, must repeat bit for
-   bit with and without lse, and the plain forward on TF32-rounded q, k
-   and v must fail its output and lse limits; the fused-block kernels,
+   the plain backwards run on TF32-rounded operands (a kernel that
+   dropped the small half of its split-TF32 products); a second launch
+   of each attention backward kernel on the same inputs must give
+   identical bits, and they, the forwards with their residuals and the
+   library's calls are also timed causal; the library backward's own
+   error against the plain version is recorded; both attention
+   forwards, split TF32 too, must repeat bit for bit with their
+   residual and without (sdpa_short's output without P must equal its
+   output with P), and the plain forwards on TF32-rounded q, k and v
+   must fail their output and residual limits; the fused-block kernels,
    attention_block with its saved P and its backward, ffn_block and its
    backward, at the training shape, causal and not, at a small one, at
    T 512 causal and at Dh 128 with T 200, each output and grad held
@@ -47,8 +50,9 @@ Phases (a failing phase fails the script; none is caught):
    composition of library calls that computes the same function), and
    the least time the card could take (the larger of bytes / 3.35 TB/s
    and fp32 operations / 67 TFLOP/s, the H100 SXM data-sheet peaks;
-   for the split-TF32 kernels also three times their products over 495
-   TFLOP/s, with their TFLOP/s);
+   for the split-TF32 kernels, every attention kernel and #11, also
+   three times their function's products over 495 TFLOP/s, with their
+   TFLOP/s);
 4. slice: Transformer-base (d_model 512, 8 heads, 6+6 layers, d_inner
    2048, vocab 30000), random weights from a seed, built with the port's
    layers as the KV-cached incremental decode program at prompt lengths
@@ -124,9 +128,11 @@ line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result.
 """
 import contextlib
+import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -458,59 +464,96 @@ def _lib_grad_ms(q, k, v, g, scale, causal=False):
     return ms, lib
 
 
-def _lib_residual_ms(q, k, v, scale):
+def _lib_residual_ms(q, k, v, scale, causal=False):
     """torch's fused SDPA forward as it runs under autograd (it then also
     keeps its per-row logsumexp for the backward)."""
     qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
-    return time_ms(lambda: _lib_sdpa(qr, kr, vr, scale), iters=10)
+    return time_ms(lambda: _lib_sdpa(qr, kr, vr, scale, causal), iters=10)
 
 
 def _attn_bwd_entries():
     """The residual forwards and the three backward kernels against their
     plain versions on the same inputs: the training path's shapes
     ([32,8,512,64] sdpa_short, [16,8,1024,64] flash), causal and not;
-    flash also at d 128 and 256, tq < tk, tq > tk (rows that see no
-    key) and ragged tiles. Planted faults must fail the check: the
-    backward fed an lse off by 1e-3, a dropped delta, or a P off by 1e-3
-    relative; so must the TF32 controls, the plain flash backward and
-    forward on TF32-rounded operands. The flash kernels, forward (with
-    and without lse) and backward, must repeat bit for bit.
-    Then times at the main shapes, non-causal, and for flash causal too,
-    with the library backward's error against the plain version."""
+    sdpa_short also at d 128, ragged tiles and T 13; flash also at d 128
+    and 256, tq < tk, tq > tk (rows that see no key) and ragged tiles.
+    Planted faults must fail the check: the backward fed an lse off by
+    1e-3, a dropped delta, or a P off by 1e-3 relative; so must the TF32
+    controls, the plain backwards and forwards on TF32-rounded operands.
+    Every kernel, forward (with and without its residual) and backward,
+    must repeat bit for bit, and sdpa_short's output must not change
+    with P. Then times at the main shapes, causal and not, with the
+    library backward's error against the plain version."""
     out = {}
     b512, b1024 = TRAIN_TOKENS // 512, TRAIN_TOKENS // 1024
     errs = {"sdpa_short_bwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
     ratios = {n: [] for n in errs}
     res_errs = {"sdpa_short": [], "flash_attention": []}
+    sdpa_tf32, sdpa_fwd_tf32 = [], []
     for i, (b, h, t, d, causal) in enumerate((
             (b512, 8, 512, 64, False), (b512, 8, 512, 64, True),
-            (2, 4, 384, 128, True))):
+            (2, 4, 384, 128, True),
+            # ragged tiles; T 13: odd rows of P, which the forward stores a
+            # float at a time and the backward's O = P v copies 4 bytes at
+            # a time (the wrapper passes any T <= 512 to the C entries)
+            (1, 4, 264, 64, True), (1, 2, 300, 128, False),
+            (1, 2, 13, 64, True))):
         q, k, v = _qkv(b, h, t, t, d, seed=40 + i)
         g = _randn_like(q, 50 + i)
         scale = d ** -0.5
         o, p = KA._sdpa_short_launch(q, k, v, scale, causal, True)
         wo, wp = KA.sdpa_short_plain(q, k, v, scale, causal, save_p=True)
+        # the forward (#5), split TF32: a second launch with P and two
+        # without give the same bits, and the out without P is the out
+        # with P; the control is the plain forward on TF32-rounded q, k, v
+        o2, p2 = KA._sdpa_short_launch(q, k, v, scale, causal, True)
+        primal = [KA._sdpa_short_launch(q, k, v, scale, causal, False)
+                  for _ in range(2)]
+        fwd_repeat = (torch.equal(o, o2) and torch.equal(p, p2)
+                      and torch.equal(primal[0], primal[1])
+                      and torch.equal(primal[0], o))
+        to, tp = KA.sdpa_short_plain(_tf32(q), _tf32(k), _tf32(v), scale,
+                                     causal, save_p=True)
+        fwd_tf32 = (max_err(to, wo), max_err(tp, wp))
+        del o2, p2, primal, to, tp
         got = KA.sdpa_short_bwd(q, k, v, p, g, scale, causal)
+        again = KA.sdpa_short_bwd(q, k, v, p, g, scale, causal)
         want = KA.sdpa_short_bwd_plain(q, k, v, p, g, scale)
         torch.cuda.synchronize()
         eo, ep = max_err(o, wo), max_err(p, wp)
         r = _bwd_ratio(got, want)
+        repeat = all(torch.equal(a, b_) for a, b_ in zip(got, again))
         bad = KA.sdpa_short_bwd(q, k, v, p * (1 - 1e-3), g, scale, causal)
         rf = _bwd_ratio(bad, want)
+        tf32_ratio = _bwd_ratio(KA.sdpa_short_bwd_plain(
+            *(_tf32(x) for x in (q, k, v, p, g)), scale), want)
         log(f"  sdpa_short+P [{b},{h},{t},{d}] causal={causal}: out "
             f"max_abs_err {eo:.3e} (tol {ATTN_TOL:g}), P {ep:.3e} (tol "
-            f"{P_TOL:g}); sdpa_short_bwd worst |d - plain| / max|plain| "
-            f"{r:.3e} (tol {ATTN_BWD_RTOL:g}); planted fault, P off by "
-            f"1e-3: {rf:.3e} (must exceed the tol)")
+            f"{P_TOL:g}), a second launch (with P and without, and the out "
+            f"without P against the out with it) bit-identical "
+            f"{fwd_repeat}, TF32 control out {fwd_tf32[0]:.3e} P "
+            f"{fwd_tf32[1]:.3e} (must exceed the tols); sdpa_short_bwd "
+            f"worst |d - plain| / max|plain| {r:.3e} (tol "
+            f"{ATTN_BWD_RTOL:g}), a second launch bit-identical {repeat}; "
+            f"planted fault, P off by 1e-3: {rf:.3e}; TF32 control "
+            f"{tf32_ratio:.3e} (these must exceed the tol)")
         assert eo <= ATTN_TOL and ep <= P_TOL, (eo, ep)
+        assert fwd_repeat, "the sdpa_short forward is not deterministic"
+        assert fwd_tf32[0] > ATTN_TOL and fwd_tf32[1] > P_TOL, \
+            "the sdpa_short forward check cannot see TF32 rounding"
         assert all(torch.isfinite(x).all() for x in got)
         assert r <= ATTN_BWD_RTOL, r
+        assert repeat, "the sdpa_short backward is not deterministic"
         assert rf > ATTN_BWD_RTOL, "the sdpa_short_bwd check cannot see P"
+        assert tf32_ratio > ATTN_BWD_RTOL, \
+            "the sdpa_short_bwd check cannot see TF32 rounding"
+        sdpa_fwd_tf32.append(fwd_tf32)
+        sdpa_tf32.append(tf32_ratio)
         res_errs["sdpa_short"].append(max(eo, ep))
         errs["sdpa_short_bwd"].append(max(max_err(a, w)
                                           for a, w in zip(got, want)))
         ratios["sdpa_short_bwd"].append(r)
-        del q, k, v, g, o, p, wo, wp, got, want, bad
+        del q, k, v, g, o, p, wo, wp, got, again, want, bad
     tf32_controls, fwd_tf32_controls = [], []
     for i, (b, h, tq, tk, d, causal) in enumerate((
             (b1024, 8, 1024, 1024, 64, False),
@@ -603,10 +646,16 @@ def _attn_bwd_entries():
         ratios["flash_bwd_dkv"].append(r_dkv)
         del q, k, v, g, o, lse, wo, wlse, delta, got, again, want, wdq
 
-    # times at the training shapes, non-causal. Bounds: each input read
-    # once, each output written once; operations: the products (2 flops
-    # a multiply-add) the function needs, plus ~5 a score for the
-    # softmax or its derivative
+    # times at the training shapes, non-causal and causal. Bounds: each
+    # input read once, each output written once; operations: the products
+    # (2 flops a multiply-add) the function needs, plus ~5 a score for the
+    # softmax or its derivative; in split TF32, three TF32 products for
+    # each of the function's fp32 products. Causal: the kernels skip the
+    # tiles above the diagonal, and the function needs the t (t + 1) / 2
+    # seen entries of each head
+    controls = {"sdpa_short": sdpa_fwd_tf32, "flash_attention":
+                fwd_tf32_controls, "sdpa_short_bwd": sdpa_tf32,
+                "flash_bwd_dq": tf32_controls, "flash_bwd_dkv": tf32_controls}
     for name, (b, t) in (("sdpa_short", (b512, 512)),
                          ("flash_attention", (b1024, 1024))):
         h, d = 8, 64
@@ -614,46 +663,45 @@ def _attn_bwd_entries():
         g = _randn_like(q, 2)
         scale = d ** -0.5
         n_td, n_tt = b * h * t * d, b * h * t * t
+        seen = b * h * t * (t + 1) // 2
         lib_ms, lib = _lib_grad_ms(q, k, v, g, scale)
+        lib_causal_ms, _ = _lib_grad_ms(q, k, v, g, scale, True)
+        # per kernel: (kernel, plain, bytes, flops, the function's
+        # products, the products the kernel runs, what they are); a call
+        # takes causal
         if name == "sdpa_short":
-            _, p = KA._sdpa_short_launch(q, k, v, scale, False, True)
-            want = KA.sdpa_short_bwd_plain(q, k, v, p, g, scale)
-            lib_err = _bwd_ratio(lib, want)
-            log(f"  sdpa_short_bwd library sdpa backward vs plain: worst "
-                f"|d - plain| / max|plain| {lib_err:.3e}")
-            del want
-            fwd = (lambda: KA._sdpa_short_launch(q, k, v, scale, False,
-                                                 True),
-                   lambda: KA.sdpa_short_plain(q, k, v, scale, False,
-                                               save_p=True),
-                   4 * (4 * n_td + n_tt))
+            res = {c: KA._sdpa_short_launch(q, k, v, scale, c, True)[1]
+                   for c in (False, True)}
+            want = KA.sdpa_short_bwd_plain(q, k, v, res[False], g, scale)
+            fwd = (lambda c=False: KA._sdpa_short_launch(q, k, v, scale, c,
+                                                         True),
+                   lambda c=False: KA.sdpa_short_plain(q, k, v, scale, c,
+                                                       save_p=True),
+                   4 * (4 * n_td + n_tt), 2, 3)
             kerns = {"sdpa_short_bwd": (
-                lambda: KA.sdpa_short_bwd(q, k, v, p, g, scale),
-                lambda: KA.sdpa_short_bwd_plain(q, k, v, p, g, scale),
-                4 * (7 * n_td + n_tt), 8 * n_tt * d + 4 * n_tt,
-                "dv = P^T dO, dP = dO v^T, dq = ds k, dk = ds^T q")}
+                lambda c=False: KA.sdpa_short_bwd(q, k, v, res[c], g, scale,
+                                                  c),
+                lambda c=False: KA.sdpa_short_bwd_plain(q, k, v, res[c], g,
+                                                        scale),
+                4 * (7 * n_td + n_tt), 8 * n_tt * d + 4 * n_tt, 4, 6,
+                "dv = P^T dO, dP = dO v^T, dq = ds k, dk = ds^T q; the "
+                "kernel also forms O = P v and dP^T")}
         else:
             o, lse = KA._flash_attention_launch(q, k, v, scale, False, True)
-            delta = KA.flash_delta(o, g)
             want = KA.flash_attention_bwd_plain(q, k, v, o, lse, g, scale,
                                                 False)
-            lib_err = _bwd_ratio(lib, want)
-            log(f"  flash backward library sdpa backward vs plain: worst "
-                f"|d - plain| / max|plain| {lib_err:.3e}")
-            del want
-            fwd = (lambda: KA._flash_attention_launch(q, k, v, scale, False,
-                                                      True),
-                   lambda: KA.flash_attention_plain(q, k, v, scale, False,
-                                                    with_lse=True),
-                   4 * (4 * n_td + b * h * t))
+            fwd = (lambda c=False: KA._flash_attention_launch(
+                       q, k, v, scale, c, True),
+                   lambda c=False: KA.flash_attention_plain(
+                       q, k, v, scale, c, with_lse=True),
+                   4 * (4 * n_td + b * h * t), 2, 2)
             # the causal lse and delta: a third of the training step's
-            # flash backward launches are the decoder's causal ones
+            # backward launches are the decoder's causal ones
             o_c, lse_c = KA._flash_attention_launch(q, k, v, scale, True,
                                                     True)
-            res = {False: (lse, delta), True: (lse_c, KA.flash_delta(o_c,
-                                                                     g))}
-            lib_causal_ms, _ = _lib_grad_ms(q, k, v, g, scale, True)
-            del o_c
+            res = {False: (lse, KA.flash_delta(o, g)),
+                   True: (lse_c, KA.flash_delta(o_c, g))}
+            del o, o_c
             kerns = {
                 "flash_bwd_dq": (
                     lambda c=False: KA.flash_bwd_dq(q, k, v, g, *res[c],
@@ -661,7 +709,8 @@ def _attn_bwd_entries():
                     lambda c=False: KA.flash_bwd_dq_plain(q, k, v, g,
                                                           *res[c], scale, c),
                     4 * (5 * n_td + 2 * b * h * t),
-                    6 * n_tt * d + 5 * n_tt, "S, dP = dO v^T, dq = ds k"),
+                    6 * n_tt * d + 5 * n_tt, 3, 3,
+                    "S, dP = dO v^T, dq = ds k"),
                 "flash_bwd_dkv": (
                     lambda c=False: KA.flash_bwd_dkv(q, k, v, g, *res[c],
                                                      scale, c),
@@ -669,63 +718,66 @@ def _attn_bwd_entries():
                                                            *res[c], scale,
                                                            c),
                     4 * (6 * n_td + 2 * b * h * t),
-                    8 * n_tt * d + 5 * n_tt,
+                    8 * n_tt * d + 5 * n_tt, 4, 4,
                     "S, dP = dO v^T, dv = P^T dO, dk = ds^T q")}
+        lib_err = _bwd_ratio(lib, want)
+        log(f"  {name} backward: library sdpa backward vs plain: worst "
+            f"|d - plain| / max|plain| {lib_err:.3e}")
+        del want
+
+        def timed(kern, plain, nbytes, flops, n_fn, n_run, c):
+            """Kernel and plain ms, the fp32 bound and its kind, the
+            split-TF32 bound, and the TFLOP/s of the function's and of the
+            run products."""
+            ms = time_ms(lambda: kern(c))
+            plain_ms = time_ms(lambda: plain(c), iters=5)
+            frac = seen / n_tt if c else 1.0
+            bms, by = bound_ms(nbytes, flops * frac)
+            fn, run = (2 * n * n_tt * d * frac for n in (n_fn, n_run))
+            return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                        tf32x3_bound_ms=_tf32x3_ms(fn),
+                        tflops=fn / ms / 1e9, run_tflops=run / ms / 1e9)
+
+        def note(x):
+            return (f"kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} "
+                    f"ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}), "
+                    f"split-TF32 bound {x['tf32x3_bound_ms']:.4f} ms, "
+                    f"{x['tflops']:.2f} TFLOP/s of the function's fp32 "
+                    f"products ({x['run_tflops']:.2f} of those run)")
+
         # the forward with its residual, as the grad op's recompute runs it
-        ms = time_ms(fwd[0])
-        plain_ms = time_ms(fwd[1], iters=5)
-        res_lib = _lib_residual_ms(q, k, v, scale)
-        bms, by = bound_ms(fwd[2], n_tt * (4 * d + 5))
-        extra, note = {}, ""
-        if name == "flash_attention":
-            extra = dict(tf32x3_bound_ms=_tf32x3_ms(4 * n_tt * d),
-                         tflops=4 * n_tt * d / ms / 1e9,
-                         tf32_control=[min(c[0] for c in fwd_tf32_controls),
-                                       min(c[1] for c in fwd_tf32_controls)])
-            note = (f"; split-TF32 bound {extra['tf32x3_bound_ms']:.4f} ms,"
-                    f" {extra['tflops']:.2f} TFLOP/s of fp32 products")
+        kern, plain, nbytes, n_fn, n_run = fwd
+        e, ec = (timed(kern, plain, nbytes, n_tt * (4 * d + 5), n_fn, n_run,
+                       c) for c in (False, True))
+        ec["library_ms"] = _lib_residual_ms(q, k, v, scale, True)
+        e["library_ms"] = _lib_residual_ms(q, k, v, scale)
         log(f"  {name} with its residual [{b},{h},{t},{d}] non-causal: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library sdpa "
-            f"under autograd {res_lib:.4f} ms, bound {bms:.4f} ms "
-            f"({by}){note}")
-        out[name] = dict(max_abs_err=max(res_errs[name]), ms=ms,
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         library_ms=res_lib, shape=[b, h, t, d], **extra)
-        for kname, (kern, plain, nbytes, flops, products) in kerns.items():
-            ms = time_ms(kern)
-            plain_ms = time_ms(plain, iters=5)
-            bms, by = bound_ms(nbytes, flops)
-            log(f"  {kname} [{b},{h},{t},{d}] non-causal: kernel {ms:.4f} "
-                f"ms, plain {plain_ms:.4f} ms, library sdpa backward (dq, "
-                f"dk and dv) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
-                f"products {products})")
+            f"{note(e)}, library sdpa under autograd {e['library_ms']:.4f} "
+            f"ms; causal: {note(ec)}, library {ec['library_ms']:.4f} ms")
+        ctl = controls[name]
+        out[name] = dict(max_abs_err=max(res_errs[name]),
+                         shape=[b, h, t, d], causal=ec,
+                         tf32_control=[min(c[0] for c in ctl),
+                                       min(c[1] for c in ctl)], **e)
+        for kname, (kern, plain, nbytes, flops, n_fn, n_run,
+                    products) in kerns.items():
+            e, ec = (timed(kern, plain, nbytes, flops, n_fn, n_run, c)
+                     for c in (False, True))
+            e["library_ms"], ec["library_ms"] = lib_ms, lib_causal_ms
+            # the kernels of one launch (a backward may run several)
+            _, prof = _device_profile(f"  {kname} one call, non-causal",
+                                      kern)
+            e["kernels_ms"] = prof["port_kernels_ms"]
+            log(f"  {kname} [{b},{h},{t},{d}] ({products}) non-causal: "
+                f"{note(e)}, library sdpa backward (dq, dk and dv) "
+                f"{lib_ms:.4f} ms; causal: {note(ec)}, library "
+                f"{lib_causal_ms:.4f} ms")
             out[kname] = dict(max_abs_err=max(errs[kname]),
-                              max_rel_err=max(ratios[kname]), ms=ms,
-                              plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                              library_ms=lib_ms, library_rel_err=lib_err,
-                              shape=[b, h, t, d])
-            if name != "flash_attention":
-                continue
-            # split TF32: three TF32 products for each fp32 product (the
-            # products' 2 flops a multiply-add, 2 * n_tt * d each)
-            n_prod = (flops - 5 * n_tt) // (2 * n_tt * d)
-            tf32_bms = _tf32x3_ms(2 * n_prod * n_tt * d)
-            # causal: the kernels skip the tiles above the diagonal; the
-            # function needs the t (t + 1) / 2 seen entries of each head
-            seen = b * h * t * (t + 1) // 2
-            cms = time_ms(lambda: kern(True))
-            cplain_ms = time_ms(lambda: plain(True), iters=5)
-            cbms, cby = bound_ms(nbytes, flops * seen // n_tt)
-            log(f"  {kname} [{b},{h},{t},{d}] split-TF32 bound "
-                f"{tf32_bms:.4f} ms (3 x the products at 495 TFLOP/s); "
-                f"causal: kernel {cms:.4f} ms, plain {cplain_ms:.4f} ms, "
-                f"library sdpa backward {lib_causal_ms:.4f} ms, bound "
-                f"{cbms:.4f} ms ({cby})")
-            out[kname].update(
-                tf32x3_bound_ms=tf32_bms, tf32_control=min(tf32_controls),
-                causal=dict(ms=cms, plain_ms=cplain_ms, bound_ms=cbms,
-                            bound_by=cby, library_ms=lib_causal_ms))
-        del q, k, v, g, lib
+                              max_rel_err=max(ratios[kname]),
+                              library_rel_err=lib_err, shape=[b, h, t, d],
+                              tf32_control=min(controls[kname]), causal=ec,
+                              **e)
+        del q, k, v, g, lib, res
     return out
 
 
@@ -1118,7 +1170,7 @@ def phase_kernels():
     entries["sdpa_short"] = _attn_entry(
         "sdpa_short", KA.sdpa_short, KA.sdpa_short_plain,
         [(BATCH, 8, 512, 512, 64, False), (BATCH, 8, 512, 512, 64, True)],
-        (BATCH, 8, 512, 64))
+        (BATCH, 8, 512, 64), tf32=True)
     entries["flash_attention"] = _attn_entry(
         "flash_attention", KA.flash_attention, KA.flash_attention_plain,
         [(BATCH, 8, 1024, 1024, 64, False),
@@ -1321,12 +1373,36 @@ def _wall_s(exe, prog, fetch, scope, src, reps=3):
     return best
 
 
+@functools.cache
+def _port_kernel_names():
+    """The __global__ functions the port's CUDA sources (csrc/) define,
+    and the namespaces they define: the rest of a profile is PyTorch's
+    and its libraries'."""
+    names, spaces = set(), {""}
+    for f in build.CSRC.glob("*.cu*"):
+        text = f.read_text()
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+            r"(\w+)\s*\(", text))
+        spaces.update(re.findall(r"^namespace (\w+) \{", text, re.M))
+    return names, spaces
+
+
+def _port_kernel(name):
+    """The short name of one of the port's kernels, or None."""
+    n = name[5:] if name.startswith("void ") else name
+    n = n.replace("(anonymous namespace)::", "").split("(")[0]
+    space, _, ident = n.split("<")[0].rpartition("::")
+    names, spaces = _port_kernel_names()
+    return n if ident in names and space in spaces else None
+
+
 def _device_profile(tag, run, match=None):
     """`run()` once under torch.profiler: its wall time, the card's busy
     time (device-side activities: kernels, copies, memsets), the idle
-    share and the kernels that took most of it, and (`match`) the device
-    time of the activities whose name holds that string. Returns (run's
-    result, the numbers)."""
+    share, the kernels that took most of it, every kernel of the port's
+    with its launches, and (`match`) the device time of the activities
+    whose name holds that string. Returns (run's result, the numbers)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1343,11 +1419,20 @@ def _device_profile(tag, run, match=None):
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    port = {}  # short name: [ms, launches]
+    for e in acts:
+        n = _port_kernel(e.name)
+        if n is not None:
+            x = port.setdefault(n, [0.0, 0])
+            x[0] += e.time_range.elapsed_us() / 1e3
+            x[1] += 1
     res = dict(profiled_wall_ms=wall_ms,
                device_busy_ms=busy_ms if acts else None,
                idle_share=1 - busy_ms / wall_ms if acts else None,
                device_activities=len(acts),
-               top_kernels_ms={n[:60]: ms for n, ms in top})
+               top_kernels_ms={n[:60]: ms for n, ms in top},
+               port_kernels_ms={n: ms for n, (ms, _) in port.items()},
+               port_kernel_launches={n: c for n, (_, c) in port.items()})
     if match is not None:
         res["matched_ms"] = sum(ms for n, ms in by_name.items()
                                 if match in n)
@@ -1357,6 +1442,9 @@ def _device_profile(tag, run, match=None):
             f"{len(acts)} device activities")
         for n, ms in top:
             log(f"  {ms:8.2f} ms  {n[:90]}")
+        if port:
+            log(f"  the port's kernels: " + ", ".join(
+                f"{n} {ms:.2f} ms ({c})" for n, (ms, c) in port.items()))
     else:
         log(f"{tag}: the profiler recorded no device time; device busy "
             f"time not measured")
@@ -2150,7 +2238,8 @@ def main():
         extra = {x: e[x] for x in ("max_rel_err", "residual", "library",
                                    "p_max_abs_err", "library_rel_err",
                                    "tf32x3_bound_ms", "tflops",
-                                   "tf32_control", "causal") if x in e}
+                                   "tf32_control", "causal", "kernels_ms")
+                 if x in e}
         line.append(dict(name=kname, route="cuda", source=src,
                          replaces=replaces, launches=sum(on_paths.values()),
                          **on_paths, max_abs_err=e["max_abs_err"],

@@ -3,10 +3,13 @@
 (backward), with their plain PyTorch versions (counterpart of
 ``paddle_tpu/ops/pallas/attention.py``).
 
-All take q, k, v as [B, H, T, D] fp32. ``sdpa_short`` holds each query
-tile's whole score row on chip (tq == tk, T <= 512, d in {64, 128});
-``flash_attention`` streams keys with an online softmax (any tq, tk;
-d in {64, 128, 256}), causal masking bottom-right aligned.
+All take q, k, v as [B, H, T, D] fp32. Both forwards run one body, an
+online softmax over streamed keys on the tensor cores
+(``csrc/flash_fwd.cuh``): ``sdpa_short`` at tq == tk <= 512, d in
+{64, 128}, ``flash_attention`` at any tq, tk, d in {64, 128, 256},
+causal masking bottom-right aligned. ``sdpa_short``'s backward runs the
+attention stages it shares with the attention block's backward
+(``csrc/attn_bwd_from_p.cuh``).
 
 On the card both are differentiable, as the JAX package's ``custom_vjp``
 pair is: under a vjp the forward kernel also writes the residual its
@@ -143,6 +146,14 @@ def _check_qkv(name, q, k, v, head_dims):
         raise ValueError(f"{name}: head dim {q.shape[3]} not in {head_dims}")
 
 
+def _check_aligned(name, tensors, what):
+    """The kernels copy 16-byte rows with cp.async: a view that does not
+    start on a 16-byte boundary would fault on the card."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: {what} must start on a 16-byte boundary "
+                         f"(the kernels copy 16-byte rows)")
+
+
 def _check_like(name, tensors, shapes):
     """Backward inputs beside q, k, v: fp32, contiguous, on q's device,
     of the shapes the kernels index them by."""
@@ -173,6 +184,7 @@ def _sdpa_short_launch(q, k, v, scale, causal, save_p):
     if k.shape[2] != t or not 1 <= t <= SDPA_MAX_T:
         raise ValueError(f"sdpa_short: needs tq == tk <= {SDPA_MAX_T}, got "
                          f"{t} and {k.shape[2]}")
+    _check_aligned("sdpa_short", (q, k, v), "q, k and v")
     out = torch.empty_like(q)
     p = torch.empty(b * h, t, t, dtype=torch.float32,
                     device=q.device) if save_p else None
@@ -200,13 +212,16 @@ def sdpa_short_bwd(q, k, v, p, g, scale, causal=False):
                          f"got {t} and {k.shape[2]}")
     _check_like("sdpa_short_bwd", (q, p, g), (q.shape, (b * h, t, t),
                                               q.shape))
+    _check_aligned("sdpa_short_bwd", (q, k, v, p, g), "q, k, v, P and dO")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    # scratch: delta, and O = P v, from which the kernel takes delta
     rowsum = torch.empty(b * h, t, dtype=torch.float32, device=q.device)
-    err = _kernel("sdpa_short_bwd", "sdpa_short_bwd", 9, 2)(
+    o = torch.empty_like(q)
+    err = _kernel("sdpa_short_bwd", "sdpa_short_bwd", 10, 2)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
         g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        rowsum.data_ptr(), b * h, t, d, float(scale), int(bool(causal)),
-        current_stream(q))
+        rowsum.data_ptr(), o.data_ptr(), b * h, t, d, float(scale),
+        int(bool(causal)), current_stream(q))
     sdpa_short_bwd.launches += 1
     check_launch("sdpa_short_bwd", err)
     return dq, dk, dv
@@ -253,6 +268,7 @@ def flash_attention(q, k, v, scale, causal=False):
 
 def _flash_attention_launch(q, k, v, scale, causal, with_lse):
     _check_qkv("flash_attention", q, k, v, FLASH_HEAD_DIMS)
+    _check_aligned("flash_attention", (q, k, v), "q, k and v")
     b, h, tq, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, h, tq, dtype=torch.float32,
@@ -270,9 +286,7 @@ def _check_flash_bwd(name, q, k, v, g, lse, delta):
     _check_qkv(name, q, k, v, FLASH_HEAD_DIMS)
     _check_like(name, (q, g, lse, delta), (q.shape, q.shape, q.shape[:3],
                                            q.shape[:3]))
-    if any(t.data_ptr() % 16 for t in (q, k, v, g)):
-        raise ValueError(f"{name}: q, k, v and dO must start on a 16-byte "
-                         f"boundary (the kernels copy 16-byte rows)")
+    _check_aligned(name, (q, k, v, g), "q, k, v and dO")
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, scale, causal=False):

@@ -37,22 +37,21 @@
 // - Forward: the projections are the shared SIMT product of tile_gemm.cuh;
 //   the attention stage takes one block per (batch*head, 16-row query
 //   tile) with the tile's whole score row (16 x T, T <= 512) in shared
-//   memory, as sdpa_short.cu does, and reads q, k and v in place from the
-//   qkv rows, with no transpose pass.
+//   memory, and reads q, k and v in place from the qkv rows, with no
+//   transpose pass.
 // - Backward: every product runs on the tensor cores in split TF32
 //   (split_tf32.cuh). The six dense products (qkv, ctx = P v per head,
 //   dWo, dctx, dWqkv, dx: 94.5 of the 116 GFLOP) go through tile_mma.cuh;
 //   a weight gradient is one product over all B*T rows, split along the
 //   rows into slices summed in a fixed order. The attention stages are
-//   two grids in the form of flash_attention_bwd.cu, reading the saved P
-//   instead of recomputing it: dq (with delta) per 64-row query tile,
-//   streaming keys, then dk and dv per 64-key tile, streaming queries.
-//   delta is taken as rowsum(dctx ctx), equal to rowsum(dP P) since P's
-//   rows are normalized and ctx = P v is recomputed from the same P: so
-//   neither grid holds a T-wide row of dP, and each streams its tiles
-//   once. Both form dP (or dP^T) as accumulator fragments and feed dS,
-//   P^T and dS^T straight back as A operands. Each writes only its own
-//   columns of dqkv; no atomics, so two launches give identical bits.
+//   the two grids of attn_bwd_from_p.cuh, which sdpa_short_bwd.cu also
+//   runs, reading the saved P instead of recomputing it: dq (with delta)
+//   per 64-row query tile, streaming keys, then dk and dv per 64-key tile,
+//   streaming queries. delta is taken as rowsum(dctx ctx), equal to
+//   rowsum(dP P) since ctx = P v is recomputed from the same P: so neither
+//   grid holds a T-wide row of dP. Here they read q, k and v inside the
+//   qkv rows and write each head's columns of dqkv; no atomics, so two
+//   launches give identical bits.
 // Dh is any multiple of 8 up to 128 (the backward's stages round it up to
 // 32, 64 or 128 and zero-fill the rest). Keeping qkv and ctx out of device
 // memory, the forward on the tensor cores and wgmma are the later steps for
@@ -60,12 +59,11 @@
 #include <float.h>
 #include <math.h>
 
+#include "attn_bwd_from_p.cuh"
 #include "tile_gemm.cuh"
 #include "tile_mma.cuh"
 
 namespace {
-
-using namespace split_tf32;
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 16;      // query rows per block (forward)
@@ -197,301 +195,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------------------
-// The backward's attention stages, split TF32 on the tensor cores
-// (split_tf32.cuh), from the saved P: no exp. DP is the head width Dh
-// rounded up to 32, 64 or 128; the columns past Dh are zero-filled as they
-// land and never written.
-// ---------------------------------------------------------------------------
-
-// Grid 1: dq, and delta = rowsum(dP * P) into `delta`, per (64-row query
-// tile, b*H+h); 4 warps of 16 rows; dctx resident, k and v streamed.
-template <int DP>
-struct DqTile {
-  static constexpr int R = 64;                   // query rows a block
-  static constexpr int C = DP == 128 ? 16 : 32;  // keys a streamed tile
-  static constexpr int kThreads = 32 * R / 16;
-  static constexpr size_t kSmem =
-      sizeof(float) * (R * (DP + kPad) + 6 * C * (DP + kPad) + R);
-};
-
-template <int DP>
-__global__ void __launch_bounds__(DqTile<DP>::kThreads)
-    attn_bwd_dq_kernel(const float* __restrict__ qkv,
-                       const float* __restrict__ p,
-                       const float* __restrict__ ctx,
-                       const float* __restrict__ dctx,
-                       float* __restrict__ dqkv, float* __restrict__ delta,
-                       Shape s) {
-  using T = DqTile<DP>;
-  constexpr int R = T::R, C = T::C, LD = DP + kPad, NT = C / 8, ND = DP / 8;
-  constexpr int kThreads = T::kThreads;
-  static_assert(kThreads == 2 * R, "two threads a row for delta");
-  extern __shared__ __align__(16) float smem[];
-  float* gs = smem;                // dctx [R][LD]
-  float* ring = gs + R * LD;       // stage st: k [C][LD], then v [C][LD]
-  float* klo = ring + 4 * C * LD;  // small halves: k [C][LD], v [C][LD]
-  float* vlo = klo + C * LD;
-  float* dl_s = vlo + C * LD;      // delta [R]
-
-  const int dh = s.dh, t = s.t, d = s.d, d3 = 3 * s.d;
-  const int bh = blockIdx.y, b = bh / s.h, hh = bh % s.h;
-  const int q0 = blockIdx.x * R;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, gr = lane / 4, tc = lane % 4;
-  const int m0 = tid / 32 * 16;  // this warp's rows within the block
-  const float* kb = qkv + (int64_t)b * t * d3 + d + hh * dh;
-  const float* vb = kb + d;
-  const float* pb = p + (int64_t)bh * t * t;
-  const int64_t head = (int64_t)b * t * d + hh * dh;  // in ctx and dctx
-
-  load_tile<DP, R, kThreads>(gs, dctx + head, d, q0, t, dh, tid);
-  // P is 0 past the block's last row under causal masking, and a warp
-  // skips the tiles past its own last row
-  const int kend = s.causal ? min(t, q0 + R) : t;
-  const int ntiles = (kend + C - 1) / C;
-  const int warp_last = q0 + m0 + 15;
-  load_tile<DP, C, kThreads>(ring, kb, d3, 0, t, dh, tid);
-  load_tile<DP, C, kThreads>(ring + C * LD, vb, d3, 0, t, dh, tid);
-  cp_commit();
-
-  // delta = rowsum(dP * P) = rowsum(dctx * ctx), as ctx = P v: the same
-  // quantity as flash's delta and the reference's row sum, without a
-  // T-wide row of dP. Two threads a row, every other 4-column chunk each.
-  {
-    const int r = tid / 2, row = q0 + r;
-    float sum = 0.f;
-    if (row < t) {
-      const int64_t at = head + (int64_t)row * d;
-      for (int c = tid % 2 * 4; c < dh; c += 8) {
-        const float4 x = *reinterpret_cast<const float4*>(dctx + at + c);
-        const float4 y = *reinterpret_cast<const float4*>(ctx + at + c);
-        sum = fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, fmaf(x.w, y.w,
-                                                                sum))));
-      }
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if (tid % 2 == 0) {
-      dl_s[r] = sum;
-      if (row < t) delta[(int64_t)bh * t + row] = sum;
-    }
-  }
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const float* gw = gs + m0 * LD;
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    float* ks = ring + (kt & 1) * 2 * C * LD;
-    float* vs = ks + C * LD;
-    if (kt + 1 < ntiles) {
-      float* nk = ring + ((kt + 1) & 1) * 2 * C * LD;
-      load_tile<DP, C, kThreads>(nk, kb, d3, (kt + 1) * C, t, dh, tid);
-      load_tile<DP, C, kThreads>(nk + C * LD, vb, d3, (kt + 1) * C, t, dh,
-                                 tid);
-    }
-    cp_commit();
-    cp_wait<1>();  // this tile (and dctx) have landed
-    split_rows<DP, C, kThreads>(ks, klo, tid);
-    split_rows<DP, C, kThreads>(vs, vlo, tid);
-    __syncthreads();
-    if (!(s.causal && kt * C > warp_last)) {
-      // this tile's P as accumulator fragments: (row gr | gr+8, key 2tc |
-      // 2tc+1), read before the product so the loads overlap it
-      float pf[NT][4], dp[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = q0 + m0 + gr + (i >> 1) * 8;
-          const int key = kt * C + j * 8 + 2 * tc + (i & 1);
-          pf[j][i] = row < t && key < t ? pb[(int64_t)row * t + key] : 0.f;
-          dp[j][i] = 0.f;
-        }
-      // dP = dctx v^T
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 8) {
-        const OpA a = load_a(gw + kk, LD, gr, tc);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int at = j * 8 * LD + kk;
-          mma3(dp[j], a, load_b_t(vs + at, vlo + at, LD, gr, tc));
-        }
-      }
-      // dS = P (dP - delta), then dq += dS k
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dp[j][i] = pf[j][i] * (dp[j][i] - dl_s[m0 + gr + (i >> 1) * 8]);
-        const OpA a = acc_as_a(dp[j]);
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          const int at = j * 8 * LD + n * 8;
-          mma3(acc[n], a, load_b_perm(ks + at, klo + at, LD, gr, tc));
-        }
-      }
-    }
-    __syncthreads();  // the next iteration refills this stage
-  }
-  cp_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + m0 + gr + h * 8;
-    if (row >= t) continue;
-    float* out = dqkv + ((int64_t)b * t + row) * d3 + hh * dh + 2 * tc;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      if (n * 8 < dh)
-        *reinterpret_cast<float2*>(out + n * 8) = make_float2(
-            acc[n][2 * h] * s.scale, acc[n][2 * h + 1] * s.scale);
-  }
-}
-
-// Grid 2: dk and dv per (64-key tile, b*H+h); v resident, 32-row query
-// tiles of q, dctx and delta streamed. Warp w owns keys 16 (w / SPLIT) and
-// output columns (w % SPLIT) DP / SPLIT. It forms dP^T = v dctx^T and
-// dS^T = P^T (dP^T - delta) as accumulator fragments (keys as rows) and
-// feeds P^T and dS^T back as the A operands of dv += P^T dctx and
-// dk += dS^T q.
-template <int DP>
-struct DkvTile {
-  static constexpr int C = 64;  // keys a block
-  static constexpr int R = 32;  // queries a streamed tile
-  // at Dh 128 two warps share 16 keys: a thread's registers do not hold
-  // both [16, 128] accumulators
-  static constexpr int SPLIT = DP == 128 ? 2 : 1;
-  static constexpr int kThreads = 32 * (C / 16) * SPLIT;
-  static constexpr size_t kSmem =
-      sizeof(float) * (C * (DP + kPad) + 6 * R * (DP + kPad) + 2 * R);
-};
-
-template <int DP>
-__global__ void __launch_bounds__(DkvTile<DP>::kThreads)
-    attn_bwd_dkv_kernel(const float* __restrict__ qkv,
-                        const float* __restrict__ p,
-                        const float* __restrict__ dctx,
-                        const float* __restrict__ delta,
-                        float* __restrict__ dqkv, Shape s) {
-  using T = DkvTile<DP>;
-  constexpr int R = T::R, C = T::C, LD = DP + kPad, NT = R / 8;
-  constexpr int NO = DP / T::SPLIT / 8;  // output column tiles a warp
-  constexpr int kThreads = T::kThreads;
-  extern __shared__ __align__(16) float smem[];
-  float* vs = smem;                // [C][LD]
-  float* ring = vs + C * LD;       // stage st: q [R][LD], then dctx [R][LD]
-  float* qlo = ring + 4 * R * LD;  // small halves: q [R][LD], dctx [R][LD]
-  float* glo = qlo + R * LD;
-  float* vec = glo + R * LD;       // stage st: delta [R]
-
-  const int dh = s.dh, t = s.t, d = s.d, d3 = 3 * s.d;
-  const int bh = blockIdx.y, b = bh / s.h, hh = bh % s.h;
-  const int k0 = blockIdx.x * C;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, gr = lane / 4, tc = lane % 4;
-  const int warp = tid / 32;
-  const int m0 = warp / T::SPLIT * 16;      // this warp's keys in the block
-  const int c0 = warp % T::SPLIT * NO * 8;  // and its output columns
-  const float* qb = qkv + (int64_t)b * t * d3 + hh * dh;
-  const float* gb = dctx + (int64_t)b * t * d + hh * dh;
-  const float* db = delta + (int64_t)bh * t;
-  const float* pb = p + (int64_t)bh * t * t;
-
-  auto fetch = [&](int qt, int st) {
-    float* qs_ = ring + st * 2 * R * LD;
-    load_tile<DP, R, kThreads>(qs_, qb, d3, qt, t, dh, tid);
-    load_tile<DP, R, kThreads>(qs_ + R * LD, gb, d, qt, t, dh, tid);
-    load_vec<R, kThreads>(vec + st * R, db, qt, t, tid);
-  };
-
-  load_tile<DP, C, kThreads>(vs, qb + 2 * d, d3, k0, t, dh, tid);
-  // under causal masking, query rows before k0 have P = 0 on these keys,
-  // and a warp skips the tiles before its own first key
-  int qt = s.causal ? k0 / R * R : 0;
-  fetch(qt, 0);
-  cp_commit();
-  const int warp_first = k0 + m0;
-
-  float dk_acc[NO][4], dv_acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
-  const float* vw = vs + m0 * LD;
-
-  for (int st = 0; qt < t; st ^= 1) {
-    const int nxt = qt + R;
-    if (nxt < t) fetch(nxt, st ^ 1);
-    cp_commit();
-    cp_wait<1>();  // this tile (and v) have landed
-    float* qs = ring + st * 2 * R * LD;
-    float* gs = qs + R * LD;
-    split_rows<DP, R, kThreads>(qs, qlo, tid);
-    split_rows<DP, R, kThreads>(gs, glo, tid);
-    __syncthreads();
-    const float* dl = vec + st * R;
-    if (!(s.causal && qt + R - 1 < warp_first)) {
-      // P^T as accumulator fragments: (key gr | gr+8, query 2tc | 2tc+1)
-      float pf[NT][4], dp[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = qt + j * 8 + 2 * tc + (i & 1);
-          const int kj = k0 + m0 + gr + (i >> 1) * 8;
-          pf[j][i] = qi < t && kj < t ? pb[(int64_t)qi * t + kj] : 0.f;
-          dp[j][i] = 0.f;
-        }
-      // dP^T = v dctx^T
-#pragma unroll
-      for (int kk = 0; kk < DP; kk += 8) {
-        const OpA a = load_a(vw + kk, LD, gr, tc);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int at = j * 8 * LD + kk;
-          mma3(dp[j], a, load_b_t(gs + at, glo + at, LD, gr, tc));
-        }
-      }
-      // dS^T = P^T (dP^T - delta); dv += P^T dctx, dk += dS^T q
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          dp[j][i] = pf[j][i] * (dp[j][i] - dl[j * 8 + 2 * tc + (i & 1)]);
-        const OpA ap = acc_as_a(pf[j]);
-        const OpA ads = acc_as_a(dp[j]);
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          const int at = j * 8 * LD + c0 + n * 8;
-          mma3(dv_acc[n], ap, load_b_perm(gs + at, glo + at, LD, gr, tc));
-          mma3(dk_acc[n], ads, load_b_perm(qs + at, qlo + at, LD, gr, tc));
-        }
-      }
-    }
-    __syncthreads();  // the next iteration refills this stage
-    qt = nxt;
-  }
-  cp_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + m0 + gr + h * 8;
-    if (key >= t) continue;
-    float* out = dqkv + ((int64_t)b * t + key) * d3 + hh * dh + c0 + 2 * tc;
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      if (c0 + n * 8 >= dh) continue;
-      *reinterpret_cast<float2*>(out + d + n * 8) = make_float2(
-          dk_acc[n][2 * h] * s.scale, dk_acc[n][2 * h + 1] * s.scale);
-      *reinterpret_cast<float2*>(out + 2 * d + n * 8) =
-          make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
-    }
-  }
-}
-
 size_t fwd_smem(const Shape& s) {
   const int ts = (s.t + kBK - 1) / kBK * kBK;
   return sizeof(float) *
@@ -532,27 +235,40 @@ using tile_gemm::params;
     if (e_ != cudaSuccess) return (int)e_;       \
   } while (0)
 
-// the backward's attention stages at head width DP: dq and delta, then dk
-// and dv, into dqkv
-template <int DP>
+// the backward's attention stages (attn_bwd_from_p.cuh) on the rows of
+// qkv and dqkv: head (b, h) at columns h Dh, D + h Dh and 2D + h Dh of
+// token rows 3D apart, and of ctx and dctx D apart
 cudaError_t attention_stages(const float* qkv, const float* p,
                              const float* ctx, const float* dctx, float* dqkv,
                              float* delta, const Shape& s, cudaStream_t st) {
-  using Q = DqTile<DP>;
-  using KV = DkvTile<DP>;
+  namespace ab = attn_bwd_from_p;
+  const int64_t d = s.d, d3 = 3 * d, dh = s.dh, t = s.t;
+  const ab::Rows<const float> q = {qkv, t * d3, dh, (int)d3};
+  const ab::Rows<float> dq = {dqkv, t * d3, dh, (int)d3};
+  ab::Args a;
+  a.q = q;
+  a.k = q;
+  a.k.base += d;
+  a.v = q;
+  a.v.base += 2 * d;
+  a.g = {dctx, t * d, dh, (int)d};
+  a.o = {ctx, t * d, dh, (int)d};
+  a.dq = dq;
+  a.dk = dq;
+  a.dk.base += d;
+  a.dv = dq;
+  a.dv.base += 2 * d;
+  a.p = p;
+  a.delta = delta;
+  a.heads = s.h;
+  a.t = s.t;
+  a.dh = s.dh;
+  a.scale = s.scale;
+  a.causal = s.causal;
   const unsigned bh = (unsigned)(s.rows / s.t * s.h);
-  cudaError_t err = allow_smem(attn_bwd_dq_kernel<DP>, Q::kSmem);
-  if (err == cudaSuccess)
-    err = allow_smem(attn_bwd_dkv_kernel<DP>, KV::kSmem);
-  if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<DP><<<dim3((s.t + Q::R - 1) / Q::R, bh), Q::kThreads,
-                           Q::kSmem, st>>>(qkv, p, ctx, dctx, dqkv, delta, s);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<DP><<<dim3((s.t + KV::C - 1) / KV::C, bh),
-                            KV::kThreads, KV::kSmem, st>>>(qkv, p, dctx,
-                                                            delta, dqkv, s);
-  return cudaGetLastError();
+  return s.dh <= 32   ? ab::run<32>(a, bh, st)
+         : s.dh <= 64 ? ab::run<64>(a, bh, st)
+                      : ab::run<128>(a, bh, st);
 }
 
 }  // namespace
@@ -641,12 +357,7 @@ extern "C" int attention_block_bwd(
                      1, nullptr, 0, st));
   // dq, dk, dv into dqkv, delta into rowsum
   float* delta = static_cast<float*>(rowsum);
-  RETURN_IF(dh <= 32   ? attention_stages<32>(qkvf, pf, ctxf, dctxf, dqkvf,
-                                                delta, s, st)
-            : dh <= 64 ? attention_stages<64>(qkvf, pf, ctxf, dctxf, dqkvf,
-                                                delta, s, st)
-                       : attention_stages<128>(qkvf, pf, ctxf, dctxf, dqkvf,
-                                               delta, s, st));
+  RETURN_IF(attention_stages(qkvf, pf, ctxf, dctxf, dqkvf, delta, s, st));
   // dWqkv = x^T dqkv; dx = dqkv Wqkv^T
   RETURN_IF(tm::gemm(true, false,
                      tm::params(d, 3 * d, s.rows, xf, d, dqkvf, 3 * d,

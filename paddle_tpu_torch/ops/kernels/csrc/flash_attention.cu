@@ -21,242 +21,17 @@
 // on the tensor cores in split TF32 (three TF32 products for each fp32
 // one at 495 TFLOP/s), against 0.02 ms for the bytes.
 //
-// What the design does about it (the recipe of flash_attention_bwd.cu):
-// - Split TF32 (split_tf32.cuh): S = q k^T and O += P v are
-//   mma.sync.m16n8k8 TF32 products, three for each fp32 product, each
-//   8-deep step summed in a fresh fragment and added in fp32.
-// - One block per (bh, 64 query rows), 4 warps; each warp owns 16 rows
-//   for the whole key loop and keeps the online-softmax state (row max m,
-//   a partial denominator l, the [16, D] output accumulator) in registers.
-//   At D = 64 the warp's q rows also stay in registers, split once (64
-//   registers); at D = 128 and 256 they stay in shared memory and are
-//   split where they are read. At D = 256 two warps share 16 rows, each
-//   owning half of the output columns and both computing the same S: one
-//   thread's registers cannot hold a [16, 256] accumulator beside S.
-// - K and V come through a two-stage ring filled by cp.async with 16-byte
-//   copies (32 keys a tile at D = 64, 16 at 128 and 256), so the next tile
-//   loads while this one is multiplied. Each tile is split once as it
-//   lands, by the threads that copied it: big halves in place, small
-//   halves into a second buffer. Rows are padded to D + 4 floats, so every
-//   fragment read hits 32 distinct banks. Ragged rows are zero-filled.
-// - The softmax runs on the S accumulator fragments: a thread holds two
-//   rows (g and g + 8), and the row max is taken over the quad that shares
-//   them with two __shfl_xor_sync; the scale and the masks are applied
-//   without branches. P goes straight back as the A operand of P v
-//   (permuted k index, V read in the same order): P never touches shared
-//   memory. The denominators stay partial per thread until the end.
-// - Causal tiles past the block's last visible key are not fetched, and a
-//   warp skips the products of a tile that none of its rows can see.
-// - Deterministic: every block writes only its own rows, with no atomics,
-//   and sums in a fixed order, so two launches give identical bits.
-//
-// A later lever: wgmma takes TF32 operands only K-major. S = q k^T
-// already is (q and k both run along D); P v would need V transposed as it
-// lands.
+// What the design does about it: the split-TF32 online-softmax body of
+// flash_fwd.cuh (which sdpa_short.cu also instantiates): one block per
+// (bh, 64 query rows), 4 warps of 16 rows, both products on
+// mma.sync.m16n8k8 in split TF32, K and V through a two-stage cp.async
+// ring split as they land, the softmax on the accumulator fragments and P
+// fed straight back as the A operand of P v; causal tiles past a block's
+// or a warp's last visible key are skipped.
 #include <cuda_runtime.h>
-#include <float.h>
-#include <math.h>
 #include <stdint.h>
 
-#include "split_tf32.cuh"
-
-namespace {
-
-using namespace split_tf32;
-
-template <int D>
-struct FwdTile {
-  static constexpr int R = 64;                    // query rows a block
-  static constexpr int SPLIT = D == 256 ? 2 : 1;  // warps sharing 16 rows
-  static constexpr int C = D == 64 ? 32 : 16;     // keys a streamed tile
-  static constexpr bool kQInRegs = D == 64;
-  static constexpr int kThreads = 32 * (R / 16) * SPLIT;
-  // at D = 64 three blocks an SM (68 KB of shared memory each), the
-  // registers capped to fit; at D = 128 and 256 stating one block ran
-  // faster on the card than leaving the bound out
-  static constexpr int kMinBlocks = D == 64 ? 3 : 1;
-  static constexpr size_t kSmem =
-      sizeof(float) * (R * (D + kPad) + 6 * C * (D + kPad));
-};
-
-template <int D>
-__global__ void __launch_bounds__(FwdTile<D>::kThreads,
-                                  FwdTile<D>::kMinBlocks)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int tq, int tk, float scale,
-                     int causal) {
-  using T = FwdTile<D>;
-  constexpr int R = T::R, C = T::C, LD = D + kPad, NT = C / 8, ND = D / 8;
-  constexpr int NO = ND / T::SPLIT;  // output column tiles a warp
-  constexpr int kThreads = T::kThreads;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                // [R][LD]
-  float* ring = qs + R * LD;       // stage st: k [C][LD], then v [C][LD]
-  float* klo = ring + 4 * C * LD;  // small halves: k [C][LD], v [C][LD]
-  float* vlo = klo + C * LD;
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * R;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, gr = lane / 4, tc = lane % 4;
-  const int warp = tid / 32;
-  const int m0 = warp / T::SPLIT * 16;      // this warp's rows in the block
-  const int c0 = warp % T::SPLIT * NO * 8;  // and its output columns
-  const int offset = tk - tq;
-  const float* kb = k + (int64_t)bh * tk * D;
-  const float* vb = v + (int64_t)bh * tk * D;
-
-  // With no fully masked row in the block, keys past the last row's
-  // horizon add exp(-FLT_MAX - m) = 0 and are not fetched; likewise a warp
-  // whose rows all see a key skips the tiles past its own last row.
-  int kend = tk;
-  if (causal && q0 + offset >= 0) kend = min(tk, q0 + R + offset);
-  const int ntiles = (kend + C - 1) / C;
-  const bool warp_skips = causal && q0 + m0 + offset >= 0;
-  const int warp_last = q0 + m0 + 15 + offset;  // its last row's horizon
-
-  load_rows<D, R, kThreads>(qs, q + (int64_t)bh * tq * D, q0, tq, tid);
-  load_rows<D, C, kThreads>(ring, kb, 0, tk, tid);
-  load_rows<D, C, kThreads>(ring + C * LD, vb, 0, tk, tid);
-  cp_commit();
-
-  float acc[NO][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const float* qw = qs + m0 * LD;
-  OpA aq[T::kQInRegs ? ND : 1];
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    float* ks = ring + (kt & 1) * 2 * C * LD;
-    float* vs = ks + C * LD;
-    if (kt + 1 < ntiles) {
-      float* nk = ring + ((kt + 1) & 1) * 2 * C * LD;
-      load_rows<D, C, kThreads>(nk, kb, (kt + 1) * C, tk, tid);
-      load_rows<D, C, kThreads>(nk + C * LD, vb, (kt + 1) * C, tk, tid);
-    }
-    cp_commit();
-    cp_wait<1>();  // this tile (and q) have landed
-    split_rows<D, C, kThreads>(ks, klo, tid);
-    split_rows<D, C, kThreads>(vs, vlo, tid);
-    __syncthreads();
-    if constexpr (T::kQInRegs) {
-      if (kt == 0) {
-#pragma unroll
-        for (int kk = 0; kk < ND; ++kk)
-          aq[kk] = load_a(qw + kk * 8, LD, gr, tc);
-      }
-    }
-    if (!(warp_skips && kt * C > warp_last)) {
-      // S = q k^T: c0..c3 are (row gr | gr+8, key 2tc | 2tc+1)
-      float s[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < ND; ++kk) {
-        OpA a;
-        if constexpr (T::kQInRegs)
-          a = aq[kk];
-        else
-          a = load_a(qw + kk * 8, LD, gr, tc);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int at = j * 8 * LD + kk * 8;
-          mma3(s[j], a, load_b_t(ks + at, klo + at, LD, gr, tc));
-        }
-      }
-      // scale and masks; the row max over the quad that holds the row
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = kt * C + j * 8 + 2 * tc + (i & 1);
-          const int qi = q0 + m0 + gr + (i >> 1) * 8;
-          const float x = key >= tk ? -INFINITY  // tile padding, not a key
-                          : causal && key > qi + offset ? -FLT_MAX
-                                                        : s[j][i] * scale;
-          s[j][i] = x;
-          mx[i >> 1] = fmaxf(mx[i >> 1], x);
-        }
-      float corr[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        // every tile holds a key, so m_new is finite; corr is 0 at first
-        const float m_new = fmaxf(m[h], mx[h]);
-        corr[h] = __expf(m[h] - m_new);
-        m[h] = m_new;
-        l[h] *= corr[h];
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = __expf(s[j][i] - m[i >> 1]);
-          s[j][i] = p;
-          l[i >> 1] += p;
-        }
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        acc[n][0] *= corr[0];
-        acc[n][1] *= corr[0];
-        acc[n][2] *= corr[1];
-        acc[n][3] *= corr[1];
-      }
-      // O += P v over this warp's output columns
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const OpA a = acc_as_a(s[j]);
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          const int at = j * 8 * LD + c0 + n * 8;
-          mma3(acc[n], a, load_b_perm(vs + at, vlo + at, LD, gr, tc));
-        }
-      }
-    }
-    __syncthreads();  // the next iteration refills this stage
-  }
-  cp_wait<0>();
-
-  float* ob = o + (int64_t)bh * tq * D;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    const int row = q0 + m0 + gr + h * 8;
-    if (row >= tq) continue;
-    const float inv = 1.f / l[h];
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<float2*>(ob + (int64_t)row * D + c0 + n * 8 +
-                                 2 * tc) =
-          make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
-    if (lse != nullptr && c0 == 0 && tc == 0)
-      lse[(int64_t)bh * tq + row] = m[h] + logf(l[h]);
-  }
-}
-
-template <int D>
-int launch(const float* q, const float* k, const float* v, float* o,
-           float* lse, int64_t bh, int tq, int tk, float scale, int causal,
-           cudaStream_t s) {
-  using T = FwdTile<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((tq + T::R - 1) / T::R, (unsigned)bh);
-  flash_fwd_kernel<D><<<grid, T::kThreads, T::kSmem, s>>>(
-      q, k, v, o, lse, tq, tk, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "flash_fwd.cuh"
 
 // q, o: fp32 device pointers, contiguous [bh, tq, d], 16-byte aligned
 // (cp.async and float2 stores); k, v: [bh, tk, d]; lse: fp32 [bh, tq], or
@@ -276,11 +51,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   float* lf = static_cast<float*>(lse);
   switch (d) {
     case 64:
-      return launch<64>(qf, kf, vf, of, lf, bh, tq, tk, scale, causal, s);
+      return flash_fwd::launch<64, false>(qf, kf, vf, of, lf, nullptr, bh, tq,
+                                          tk, scale, causal, s);
     case 128:
-      return launch<128>(qf, kf, vf, of, lf, bh, tq, tk, scale, causal, s);
+      return flash_fwd::launch<128, false>(qf, kf, vf, of, lf, nullptr, bh,
+                                           tq, tk, scale, causal, s);
     case 256:
-      return launch<256>(qf, kf, vf, of, lf, bh, tq, tk, scale, causal, s);
+      return flash_fwd::launch<256, false>(qf, kf, vf, of, lf, nullptr, bh,
+                                           tq, tk, scale, causal, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,7 @@
 // A tiled fp32 matrix product on Hopper's tensor cores (sm_90a), in split
-// TF32 (split_tf32.cuh), for the fused-block kernels (attention_block.cu's
-// backward; the other fused kernels still take tile_gemm.cuh's SIMT
-// product).
+// TF32 (split_tf32.cuh), for attention_block.cu's backward and for the
+// O = P v that sdpa_short_bwd.cu takes delta from (the other fused kernels
+// still take tile_gemm.cuh's SIMT product).
 //
 //   C = op(A) op(B)
 //
@@ -292,8 +292,8 @@ cudaError_t by_width(const Params& p, int batches, cudaStream_t s) {
                    : launch<TA, TB, 128>(p, batches, s);
 }
 
-// The products the attention block's backward takes; another combination
-// is refused.
+// The products the attention block's backward and sdpa_short_bwd.cu take;
+// another combination is refused.
 inline cudaError_t dispatch(bool ta, bool tb, const Params& p, int batches,
                             cudaStream_t s) {
   if (!ta && !tb) return by_width<false, false>(p, batches, s);

@@ -200,6 +200,43 @@ def test_sdpa_short_bwd_plain_matches_pallas_interpret(jax_ref, causal):
                                    atol=ATOL, err_msg=name)
 
 
+def _stages_bwd(q, k, v, p, g, scale):
+    """sdpa_short_bwd.cu's formulation in plain torch: O = P v by one
+    product, delta = rowsum(dO O), then the algebra of the attention
+    stages it shares with the attention block (attn_bwd_from_p.cuh)."""
+    delta = (g * (p @ v)).sum(-1, keepdim=True)
+    dp = g @ v.transpose(-1, -2)
+    ds = p * (dp - delta)
+    return (ds @ k * scale, ds.transpose(-1, -2) @ q * scale,
+            p.transpose(-1, -2) @ g)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_short_bwd_formulation_matches_pallas_interpret(jax_ref,
+                                                             causal):
+    """The backward kernel takes rowsum(dP P) as rowsum(dO (P v)), which
+    the TPU kernel never forms: the same quantity, since both are
+    sum_k P_ik sum_d dO_id v_kd. The formulation, on the port's fp32 P,
+    against `_sdpa_short_bwd_impl` in interpret mode on the same P at
+    [2,4,384,64], within the suite's 1e-5 (summation order only)."""
+    from paddle_tpu.ops.pallas import attention as jattn
+
+    q, k, v, g = (_randn(2, 4, 384, 64, seed=30 + i) for i in range(4))
+    _, p = KA.sdpa_short_plain(*map(torch.from_numpy, (q, k, v)), 0.125,
+                               causal, save_p=True)
+    p = p.numpy()
+    jattn.force_interpret(True)
+    try:
+        want = jattn._sdpa_short_bwd_impl(q, k, v, p, g, 0.125, causal)
+    finally:
+        jattn.force_interpret(False)
+    got = _stages_bwd(*(torch.from_numpy(x) for x in (
+        q, k, v, p.reshape(2, 4, 384, 384), g)), 0.125)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=ATOL, err_msg=name)
+
+
 @pytest.mark.parametrize("kind,tq,tk,causal", [
     ("flash", 8, 4, True),      # rows 0..3 see no key
     ("flash", 6, 6, False), ("flash", 5, 9, True),
@@ -413,12 +450,17 @@ def test_kernel_sources_reach_the_shared_headers():
     def headers(name):
         return {t for t in build._sources(name)[1:]}
 
-    split = (build.CSRC / "split_tf32.cuh").read_bytes()
-    mma = (build.CSRC / "tile_mma.cuh").read_bytes()
-    assert headers("flash_attention") == headers("flash_attention_bwd") == {
-        split}
-    assert headers("attention_block") == {
-        split, mma, (build.CSRC / "tile_gemm.cuh").read_bytes()}
+    split, mma, gemm, fwd, bwd = (
+        (build.CSRC / f"{n}.cuh").read_bytes()
+        for n in ("split_tf32", "tile_mma", "tile_gemm", "flash_fwd",
+                  "attn_bwd_from_p"))
+    # both forwards run one body, and the sdpa_short backward runs the
+    # attention block's stages
+    assert headers("flash_attention") == headers("sdpa_short") == {split,
+                                                                   fwd}
+    assert headers("flash_attention_bwd") == {split}
+    assert headers("sdpa_short_bwd") == {split, mma, bwd}
+    assert headers("attention_block") == {split, mma, gemm, bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -597,7 +639,11 @@ def _close_to_scale(got, want, rtol=BWD_RTOL):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,t,d,causal", [
-    (2, 8, 512, 64, False), (2, 8, 512, 64, True), (1, 4, 300, 128, True)])
+    (2, 8, 512, 64, False), (2, 8, 512, 64, True), (1, 4, 300, 128, True),
+    # ragged tiles, and T 13: odd rows of P, stored a float at a time and
+    # read by the O = P v product 4 bytes at a time
+    (1, 4, 264, 64, True), (1, 2, 300, 128, False), (1, 2, 13, 64, True),
+    (2, 3, 13, 128, False)])
 def test_sdpa_short_residual_and_bwd_kernels_match_plain(cuda, b, h, t, d,
                                                          causal):
     q, k, v, g = (_cuda_randn(cuda, b, h, t, d, seed=s)
@@ -612,6 +658,74 @@ def test_sdpa_short_residual_and_bwd_kernels_match_plain(cuda, b, h, t, d,
     assert KA.sdpa_short_bwd.launches == before + 1
     for a, w in zip(got, KA.sdpa_short_bwd_plain(q, k, v, p, g, d ** -0.5)):
         _close_to_scale(a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_short_kernels_repeat_and_beat_a_tf32_control(cuda, causal):
+    """Both kernels run in split TF32 on the tensor cores. The forward:
+    a second launch gives identical bits, with P and without, and the
+    output without P is the output with P; the plain forward on
+    TF32-rounded q, k, v fails the limits (2e-5 out, 1e-6 P) that the
+    kernel passes. The backward: a second launch gives identical bits, and
+    the plain backward on TF32-rounded q, k, v, P and dO fails the 1e-5
+    limit that the kernel passes."""
+    q, k, v, g = (_cuda_randn(cuda, 2, 8, 512, 64, seed=s)
+                  for s in (14, 15, 16, 17))
+    runs = [KA._sdpa_short_launch(q, k, v, 0.125, causal, True)
+            for _ in range(2)]
+    primal = [KA._sdpa_short_launch(q, k, v, 0.125, causal, False)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(primal[0], primal[1])
+    assert torch.equal(primal[0], runs[0][0])
+    out, p = runs[0]
+    want, wp = KA.sdpa_short_plain(q, k, v, 0.125, causal, save_p=True)
+    assert float((out - want).abs().max()) <= 2e-5
+    assert float((p - wp).abs().max()) <= 1e-6
+    tout, tp = KA.sdpa_short_plain(_tf32(q), _tf32(k), _tf32(v), 0.125,
+                                   causal, save_p=True)
+    assert float((tout - want).abs().max()) > 2e-5
+    assert float((tp - wp).abs().max()) > 1e-6
+
+    grads = [KA.sdpa_short_bwd(q, k, v, p, g, 0.125, causal)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*grads):
+        assert torch.equal(a, b_)
+    wgrads = KA.sdpa_short_bwd_plain(q, k, v, p, g, 0.125)
+    for a, w in zip(grads[0], wgrads):
+        _close_to_scale(a, w)
+    tf32 = KA.sdpa_short_bwd_plain(*(_tf32(z) for z in (q, k, v, p, g)),
+                                   0.125)
+    assert max(float((a - w).abs().max()) / float(w.abs().max())
+               for a, w in zip(tf32, wgrads)) > BWD_RTOL
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_refuse_views_off_a_16_byte_boundary(cuda):
+    """The forwards and backwards copy 16-byte rows with cp.async: a
+    contiguous view that starts 4 bytes into its storage is refused before
+    a launch, where the card would fault on it."""
+    t, d = 64, 64
+    q = _cuda_randn(cuda, 1, 1, t, d, seed=18)
+    off = torch.empty(t * d + 1, device=cuda)[1:].view(1, 1, t, d)
+    off.copy_(q)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    p = torch.softmax(torch.zeros(1, t, t, device=cuda), -1)
+    before = KA.sdpa_short.launches, KA.flash_attention.launches, \
+        KA.sdpa_short_bwd.launches
+    for call in (lambda: KA._sdpa_short_launch(off, q, q, 0.125, False,
+                                               False),
+                 lambda: KA._flash_attention_launch(q, q, off, 0.125, False,
+                                                    False),
+                 lambda: KA.sdpa_short_bwd(q, q, q, p, off, 0.125)):
+        with pytest.raises(ValueError, match="16-byte"):
+            call()
+    assert (KA.sdpa_short.launches, KA.flash_attention.launches,
+            KA.sdpa_short_bwd.launches) == before
 
 
 FLASH_BWD_CASES = [
