@@ -35,12 +35,15 @@ Phases (a failing phase fails the script; none is caught):
    attention_block with its saved P and its backward, ffn_block and its
    backward, at the training shape, causal and not, at a small one, at
    T 512 causal and at Dh 128 with T 200, each output and grad held
-   against the largest |plain| of it, which planted faults, a P off by
+   against the largest |plain| of it, which planted faults, the
+   attention_block forward with the causal flag dropped, a P off by
    1e-3, dWo computed from g transposed, b1 left out of the FFN
    backward's recompute and the ReLU mask inverted on one column, must
-   fail; the attention_block backward, split TF32 on the tensor cores,
-   must repeat bit for bit and its TF32 control, the plain backward on
-   TF32-rounded x, Wqkv, Wo, P and g, must fail; the paged
+   fail; the attention_block forward and backward and the ffn_block
+   backward, split TF32 on the tensor cores, must repeat bit for bit
+   (the attention_block forward's output the same bits with P and
+   without) and their TF32 controls, the plain versions on TF32-rounded
+   operands, must fail; the paged
    decode-attention kernel at the paged
    serving shape with steps spread over the buffer, one lane at step -1
    and unallocated pages at block 0, at a small shape and at Dh 128,
@@ -50,7 +53,8 @@ Phases (a failing phase fails the script; none is caught):
    composition of library calls that computes the same function), and
    the least time the card could take (the larger of bytes / 3.35 TB/s
    and fp32 operations / 67 TFLOP/s, the H100 SXM data-sheet peaks;
-   for the split-TF32 kernels, every attention kernel and #11, also
+   for the split-TF32 kernels, every attention kernel, the
+   attention_block forward and backward and the ffn_block backward, also
    three times their function's products over 495 TFLOP/s, with their
    TFLOP/s);
 4. slice: Transformer-base (d_model 512, 8 heads, 6+6 layers, d_inner
@@ -99,7 +103,9 @@ Phases (a failing phase fails the script; none is caught):
    against the CPU: the loss, logits.w and the grads above every FFN ReLU
    within 1e-5, the grads below them within 1e-3 (the ReLU masks live
    inside the kernels: the phase reports the units whose pre-activation
-   has another sign on the card), and a planted fault, the decoder's
+   has another sign on the card, and the units whose mask differs
+   between the ffn_block forward kernel and its backward's recompute on
+   the card's inputs), and a planted fault, the decoder's
    causal flag dropped in the card's run, must fail every grad limit.
    Then 5 Adam steps through the fused kernels (each op launches its
    forward kernel twice a step, in the forward op and, attention_block
@@ -795,6 +801,23 @@ def _fused_inputs(b, t, d, f, seed):
                 b2=r(d, scale=0.1))
 
 
+def _attention_block_p_f64(x, wqkv, h, scale, causal):
+    """The saved P [B, H, T, T] of the attention block's plain composition
+    (`attention_block_fwd_plain`) evaluated in float64: what the kernel's
+    split-TF32 P is held to. Its fp32 plain version rounds x Wqkv over D
+    terms in another order and lies as far from this as the kernel does
+    (about 1e-6 at the training shape), so the two fp32 results differ by
+    the sum of their roundings."""
+    b, t, d = x.shape
+    q, k = (z.reshape(b, t, h, -1).transpose(1, 2)
+            for z in (x.double() @ wqkv.double()).split(d, dim=2)[:2])
+    s = q @ k.transpose(-1, -2) * scale
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+        s = s.masked_fill(~keep, torch.finfo(s.dtype).min)
+    return torch.softmax(s, dim=-1)
+
+
 def _lib_attention_block(x, wqkv, wo, h, scale):
     """The attention block as library calls: cuBLAS products around
     torch's fused SDPA (math backend forbidden). Timed only."""
@@ -811,17 +834,73 @@ def _lib_ffn(x, w1, b1, w2, b2):
                        w2).reshape(x.shape)
 
 
+def _ffn_bwd_with_mask(x, w1, b1, w2, g, mask):
+    """The plain FFN backward with the ReLU's mask given ([rows, F]
+    bool) in place of its own (pre > 0)."""
+    d = w1.shape[0]
+    x2, g2 = x.reshape(-1, d), g.reshape(-1, d)
+    dh = torch.where(mask, g2 @ w2.T, 0.0)
+    return ((dh @ w1.T).reshape(x.shape), x2.T @ dh, dh.sum(0),
+            torch.relu(x2 @ w1 + b1).T @ g2, g2.sum(0))
+
+
 def _ffn_bwd_mask_flipped(x, w1, b1, w2, g, col):
     """The plain FFN backward with the ReLU's mask inverted on hidden
     column `col`: a planted fault for the grad check."""
     d = w1.shape[0]
-    x2, g2 = x.reshape(-1, d), g.reshape(-1, d)
-    pre = x2 @ w1 + b1
-    mask = pre > 0
+    mask = x.reshape(-1, d) @ w1 + b1 > 0
     mask[:, col] = ~mask[:, col]
-    dh = torch.where(mask, g2 @ w2.T, 0.0)
-    return ((dh @ w1.T).reshape(x.shape), x2.T @ dh, dh.sum(0),
-            torch.relu(pre).T @ g2, g2.sum(0))
+    return _ffn_bwd_with_mask(x, w1, b1, w2, g, mask)
+
+
+def _ffn_bwd_kernel(x, w1, b1, w2, g):
+    """The FFN backward kernel through its C entry, with the scratch
+    hidden kept: (the five grads, the ReLU mask its recompute took). The
+    scratch ends as dh = (g W2^T)[mask], so the mask is dh != 0 wherever
+    g W2^T is not 0, and where it is 0 dh is 0 under either mask."""
+    d, f = w1.shape
+    n = x.numel() // d
+    grads = (torch.empty_like(x), torch.empty_like(w1), torch.empty_like(b1),
+             torch.empty_like(w2), x.new_empty(d))
+    h = x.new_empty(n, f)
+    ws = x.new_empty(max(KFF.WORKSPACE_FLOATS, f))
+    assert KFF._kernel("ffn_block_bwd", 12, True)(
+        *(z.data_ptr() for z in (x, w1, b1, w2, g, *grads, h, ws)),
+        ws.numel(), n, d, f, torch.cuda.current_stream().cuda_stream) == 0
+    return grads, h != 0
+
+
+def _relu_flips(x, w1, b1, mask):
+    """Hidden units where `mask` differs from the plain recompute's
+    (pre > 0), and the largest |pre-activation| among them, recomputed in
+    float64: a unit within rounding of zero takes either mask in two fp32
+    computations that round differently."""
+    d = w1.shape[0]
+    x2 = x.reshape(-1, d)
+    flips = mask != (x2 @ w1 + b1 > 0)
+    pre = x2.double() @ w1.double() + b1.double()
+    top = float(pre.abs().max())
+    return int(flips.sum()), (float(pre[flips].abs().max())
+                              if bool(flips.any()) else 0.0), top
+
+
+def _fwd_bwd_mask_flips(x, w1, b1, w2):
+    """Hidden units of x [n, d] whose ReLU mask differs between the FFN
+    forward kernel (#12, SIMT products) and the backward kernel's
+    recompute (#13, split TF32): #12's hidden h > 0 against #13's mask
+    under a cotangent of ones (dh = the sum of W2's row where the mask
+    is on). Through the C entries, whose scratch hidden is the caller's."""
+    n, d = x.shape
+    f = w1.shape[1]
+    assert float(w2.double().sum(1).abs().min()) > 1e-5, \
+        "a row of W2 sums to 0: dh cannot show the mask there"
+    h = x.new_empty(n, f)
+    assert KFF._kernel("ffn_block_fwd", 7, False)(
+        *(z.data_ptr() for z in (x, w1, b1, w2, x.new_zeros(d),
+                                 torch.empty_like(x), h)),
+        n, d, f, torch.cuda.current_stream().cuda_stream) == 0
+    _, mask = _ffn_bwd_kernel(x, w1, b1, w2, torch.ones_like(x))
+    return int(((h > 0) != mask).sum())
 
 
 def _fused_entries():
@@ -829,22 +908,31 @@ def _fused_entries():
     path's shape (B 64, T 256, D 512, H 8, F 2048), causal and not, a
     small one (B 3, T 16, D 64, H 2: Dh 32, F 96), T at its limit (B 1,
     T 512, causal) and Dh 128 with a ragged T (B 2, T 200, D 256, H 2, F
-    1024). Each output and grad within FUSED_RTOL of its largest |plain|,
-    saved P within P_TOL; the attention_block backward repeats bit for
-    bit. Planted faults must fail the grad check: P off by 1e-3, dWo
-    computed from g transposed (dWo^T), b1 left out of the FFN backward's
-    recompute, the ReLU mask inverted on one hidden column; so must the
-    TF32 control, the plain attention_block backward on TF32-rounded
-    operands. Then times at
-    the training shape, non-causal, beside each kernel's bound (its
-    products, 2 flops a multiply-add, over 67 TFLOP/s, against its bytes
-    over 3.35 TB/s), its plain version and its composition of library
-    calls (no single PyTorch call computes these functions)."""
+    1024). Each output and grad within FUSED_RTOL of its largest |plain|
+    (the FFN backward's with the plain ReLU masks pinned to the kernel's
+    recompute, the units that flip within rounding of zero), saved P
+    within P_TOL of the plain composition in float64; the attention_block
+    backward repeats bit for bit, and so do the attention_block forward
+    (its output the same bits with P and without) and the ffn_block
+    backward, the three kernels that run in split TF32. Planted faults must fail the checks: the
+    attention_block forward with the causal flag dropped in the causal
+    cases; P off by 1e-3, dWo computed from g transposed (dWo^T), b1 left
+    out of the FFN backward's recompute, the ReLU mask inverted on one
+    hidden column; so must the TF32 controls, the plain attention_block
+    forward (out and P) and backward and ffn_block backward on
+    TF32-rounded operands. Then times at the training shape, non-causal,
+    beside each kernel's bound (its products, 2 flops a multiply-add,
+    over 67 TFLOP/s, against its bytes over 3.35 TB/s; for the split-TF32
+    kernels also three times the products' flops over 495 TFLOP/s), its
+    plain version and its composition of library calls (no single PyTorch
+    call computes these functions)."""
     errs = {n: [] for n in ("attention_block", "attention_block_bwd",
                             "ffn_block", "ffn_block_bwd")}
     p_errs = []
     bt, t_, d_, h_, f_ = TRAIN_TOKENS // 256, 256, 512, 8, 2048
-    tf32_controls = []
+    tf32_controls = {n: [] for n in ("attention_block", "attention_block_bwd",
+                                     "ffn_block_bwd")}
+    ffn_flips = []  # (units, largest |pre-activation|, unpinned ratio)
     for i, (b, t, d, h, f, causal) in enumerate((
             (bt, t_, d_, h_, f_, False), (bt, t_, d_, h_, f_, True),
             (3, 16, 64, 2, 96, True),
@@ -855,13 +943,33 @@ def _fused_entries():
         scale = (d // h) ** -0.5
         out, p = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal,
                                              True)
-        got = KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale, causal)
-        again = KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale, causal)
         wout, wp = KAB.attention_block_fwd_plain(x, wqkv, wo, h, scale,
                                                  causal, save_p=True)
+        # the forward (#10), split TF32: a second launch with P and one
+        # without give the same bits as the first; the control is the plain
+        # forward on TF32-rounded x, Wqkv and Wo
+        out2, p2 = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal,
+                                               True)
+        primal = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal,
+                                             False)
+        fwd_repeat = (torch.equal(out, out2) and torch.equal(p, p2)
+                      and torch.equal(primal, out))
+        tout, tp = KAB.attention_block_fwd_plain(
+            *(_tf32(z) for z in (x, wqkv, wo)), h, scale, causal,
+            save_p=True)
+        fwd_tf32 = (_bwd_ratio((tout,), (wout,)), max_err(tp, wp))
+        fwd_faults = {} if not causal else {
+            "causal flag dropped": _bwd_ratio((KAB._attention_block_launch(
+                x, wqkv, wo, h, scale, False, False),), (wout,))}
+        del out2, p2, primal, tout, tp
+        p64 = _attention_block_p_f64(x, wqkv, h, scale, causal)
+        ep, ep_plain = (float((z.double() - p64).abs().max()) for z in (p, wp))
+        del p64
+        got = KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale, causal)
+        again = KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale, causal)
         want = KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h, scale)
         torch.cuda.synchronize()
-        r_out, ep = _bwd_ratio((out,), (wout,)), max_err(p, wp)
+        r_out = _bwd_ratio((out,), (wout,))
         r = _bwd_ratio(got, want)
         repeat = all(torch.equal(z, y) for z, y in zip(got, again))
         faults = {
@@ -876,7 +984,15 @@ def _fused_entries():
                 *(_tf32(z) for z in (x, wqkv, wo, p, g)), h, scale), want)}
         log(f"  attention_block+P [{b},{t},{d}] H {h} causal={causal}: out "
             f"|d - plain| / max|plain| {r_out:.3e} (tol {FUSED_RTOL:g}), P "
-            f"max_abs_err {ep:.3e} (tol {P_TOL:g}); attention_block_bwd "
+            f"max_abs_err against the plain version in float64 {ep:.3e} "
+            f"(tol {P_TOL:g}; the fp32 plain version's own {ep_plain:.3e}, "
+            f"the kernel's against it {max_err(p, wp):.3e}), a second "
+            f"launch (with P and without) bit-identical {fwd_repeat}, TF32 "
+            f"control out "
+            f"{fwd_tf32[0]:.3e} P {fwd_tf32[1]:.3e}"
+            + "".join(f", planted fault {n}: out {e:.3e}"
+                      for n, e in fwd_faults.items())
+            + f" (these must exceed the tols); attention_block_bwd "
             f"worst {r:.3e} (tol {FUSED_RTOL:g}), a second launch "
             f"bit-identical {repeat}; planted faults "
             + ", ".join(f"{n}: {e:.3e}" for n, e in faults.items())
@@ -884,11 +1000,17 @@ def _fused_entries():
         assert all(torch.isfinite(z).all() for z in (out, *got))
         assert r_out <= FUSED_RTOL and ep <= P_TOL and r <= FUSED_RTOL, (
             r_out, ep, r)
+        assert fwd_repeat, "the attention_block forward is not deterministic"
+        assert fwd_tf32[0] > FUSED_RTOL and fwd_tf32[1] > P_TOL, \
+            "the attention_block forward check cannot see TF32 rounding"
+        for n, e in fwd_faults.items():
+            assert e > FUSED_RTOL, f"the attention_block check cannot see {n}"
         assert repeat, "the attention_block backward is not deterministic"
         for n, e in faults.items():
             assert e > FUSED_RTOL, f"the attention_block_bwd check cannot " \
                 f"see {n}"
-        tf32_controls.append(faults["TF32 control"])
+        tf32_controls["attention_block"].append(fwd_tf32)
+        tf32_controls["attention_block_bwd"].append(faults["TF32 control"])
         errs["attention_block"].append((max_err(out, wout), r_out))
         errs["attention_block_bwd"].append(
             (max(max_err(z, w) for z, w in zip(got, want)), r))
@@ -899,28 +1021,51 @@ def _fused_entries():
         w1, b1, w2, b2 = a["w1"], a["b1"], a["w2"], a["b2"]
         out = KFF.ffn_block(x, w1, b1, w2, b2)
         got = KFF.ffn_block_bwd(x, w1, b1, w2, g)
+        again, kmask = _ffn_bwd_kernel(x, w1, b1, w2, g)
         wout = KFF.ffn_block_plain(x, w1, b1, w2, b2)
-        want = KFF.ffn_block_bwd_plain(x, w1, b1, w2, g)
+        # the grads are held against the plain backward with its ReLU
+        # masks pinned to the kernel's recompute: the two round the
+        # pre-activation differently, and a unit within rounding of zero
+        # that takes the other mask moves the grads below it by ~1e-2 of
+        # their largest (PERF.md section 2). Such units must lie within
+        # FUSED_RTOL of the largest |pre-activation| of zero.
+        n_flips, flip_max, pre_max = _relu_flips(x, w1, b1, kmask)
+        want = _ffn_bwd_with_mask(x, w1, b1, w2, g, kmask)
+        unpinned = _bwd_ratio(got, KFF.ffn_block_bwd_plain(x, w1, b1, w2, g))
         torch.cuda.synchronize()
         r_out, r = _bwd_ratio((out,), (wout,)), _bwd_ratio(got, want)
+        repeat = all(torch.equal(z, y) for z, y in zip(got, again))
         faults = {
             "b1 left out of the recompute": _bwd_ratio(KFF.ffn_block_bwd(
                 x, w1, torch.zeros_like(b1), w2, g), want),
             "ReLU mask inverted on one column": _bwd_ratio(
-                _ffn_bwd_mask_flipped(x, w1, b1, w2, g, f // 3), want)}
+                _ffn_bwd_mask_flipped(x, w1, b1, w2, g, f // 3), want),
+            # the backward (#13) runs in split TF32: the control is the
+            # plain backward on TF32-rounded operands
+            "TF32 control": _bwd_ratio(KFF.ffn_block_bwd_plain(
+                *(_tf32(z) for z in (x, w1, b1, w2, g))), want)}
         log(f"  ffn_block [{b},{t},{d}] F {f}: out |d - plain| / "
             f"max|plain| {r_out:.3e} (tol {FUSED_RTOL:g}); ffn_block_bwd "
-            f"worst {r:.3e} (tol {FUSED_RTOL:g}); planted faults "
+            f"{n_flips} of {kmask.numel()} ReLU units take the other mask "
+            f"than the plain recompute's, |pre-activation| at most "
+            f"{flip_max:.3e} (limit {FUSED_RTOL * pre_max:.3e}); worst "
+            f"{r:.3e} with the plain masks pinned to the kernel's (tol "
+            f"{FUSED_RTOL:g}), {unpinned:.3e} unpinned; a second launch "
+            f"bit-identical {repeat}; planted faults "
             + ", ".join(f"{n}: {e:.3e}" for n, e in faults.items())
             + " (must exceed the tol)")
         assert all(torch.isfinite(z).all() for z in (out, *got))
         assert r_out <= FUSED_RTOL and r <= FUSED_RTOL, (r_out, r)
+        assert flip_max <= FUSED_RTOL * pre_max, (n_flips, flip_max)
+        assert repeat, "the ffn_block backward is not deterministic"
         for n, e in faults.items():
             assert e > FUSED_RTOL, f"the ffn_block_bwd check cannot see {n}"
+        tf32_controls["ffn_block_bwd"].append(faults["TF32 control"])
         errs["ffn_block"].append((max_err(out, wout), r_out))
         errs["ffn_block_bwd"].append(
             (max(max_err(z, w) for z, w in zip(got, want)), r))
-        del a, out, got, wout, want
+        ffn_flips.append((n_flips, flip_max, unpinned))
+        del a, out, got, again, kmask, wout, want
 
     # times at the training shape, non-causal
     a = _fused_inputs(bt, t_, d_, f_, seed=90)
@@ -993,9 +1138,12 @@ def _fused_entries():
         lib_ms = time_ms(lib, iters=10)
         bms, by = bound_ms(nbytes, flops)
         extra, note = {}, ""
-        if name == "attention_block_bwd":  # split TF32 on the tensor cores
+        if name != "ffn_block":  # split TF32 on the tensor cores
+            ctl = tf32_controls[name.replace("_residual", "")]
             extra = dict(tf32x3_bound_ms=_tf32x3_ms(flops),
-                         tf32_control=min(tf32_controls))
+                         tf32_control=(min(ctl) if name.endswith("bwd") else
+                                       [min(c[0] for c in ctl),
+                                        min(c[1] for c in ctl)]))
             note = f", split-TF32 bound {extra['tf32x3_bound_ms']:.4f} ms"
         log(f"  {name} [{b},{t},{d}] H {h} F {f} non-causal: kernel "
             f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
@@ -1010,6 +1158,8 @@ def _fused_entries():
                          library=f"composition: {label}",
                          shape=[b, t, d, h, f], tflops=flops / ms / 1e9,
                          **extra)
+    out["ffn_block_bwd"]["relu_flips"] = [x[0] for x in ffn_flips]
+    out["ffn_block_bwd"]["unpinned_rel_err"] = max(x[2] for x in ffn_flips)
     out["attention_block"]["p_max_abs_err"] = max(p_errs)
     out["attention_block"]["residual"] = out.pop("attention_block_residual")
     return out
@@ -1893,6 +2043,18 @@ def phase_train_fused(card_name, card, unfused):
         n_flips += int(f.sum())
         if f.any():
             flip_max = max(flip_max, float(np.abs(pc[f]).max()))
+    # the same units' masks on the card: #12's forward against #13's
+    # recompute, from the card run's ffn_block inputs and the step's
+    # weights
+    kflips_by_layer = {}
+    for op, xg in zip(ffn_ops, got[1 + 2 * k:]):
+        w1, b1, w2 = (torch.from_numpy(state0[op.inputs[n][0]]).cuda()
+                      for n in ("W1", "B1", "W2"))
+        kflips_by_layer[op.inputs["W1"][0].split("_fc1")[0]] = \
+            _fwd_bwd_mask_flips(
+                torch.from_numpy(xg).cuda().reshape(-1, w1.shape[0]), w1,
+                b1, w2)
+    n_kflips = sum(kflips_by_layer.values())
     log(f"{tag} parity (2 rows, step 1; CPU run {cpu_s:.1f} s): loss card "
         f"{float(got[0][0]):.7f} CPU {float(ref[0][0]):.7f}, rel err "
         f"{loss_err:.3e} (tol {LOSS_RTOL:g})")
@@ -1900,6 +2062,10 @@ def phase_train_fused(card_name, card, unfused):
         f"the fetched ffn_block inputs differ in sign between card and CPU, "
         f"|pre-activation| at most {flip_max:.3e}; per layer "
         f"{flips_by_layer}")
+    log(f"{tag} parity: {n_kflips} FFN units take one ReLU mask in the "
+        f"forward kernel (#12, SIMT) and the other in the backward kernel's "
+        f"recompute (#13, split TF32) on the card's inputs; per layer "
+        f"{kflips_by_layer}")
     for g, tol in FUSED_GRADS.items():
         log(f"{tag} parity: {g}@GRAD norm-wise {grad_errs[g][0]:.3e}, "
             f"Moment1 {grad_errs[g][1]:.3e} (tol {tol:g})")
@@ -1945,6 +2111,8 @@ def phase_train_fused(card_name, card, unfused):
                grad_errs={g: e[0] for g, e in grad_errs.items()},
                moment1_errs={g: e[1] for g, e in grad_errs.items()},
                relu_flips=n_flips, relu_flips_by_layer=flips_by_layer,
+               fwd_bwd_mask_flips=n_kflips,
+               fwd_bwd_mask_flips_by_layer=kflips_by_layer,
                causal_dropped_loss_err=bad_loss,
                causal_dropped_grad_errs={g: e[0]
                                          for g, e in bad_errs.items()})
@@ -2238,7 +2406,8 @@ def main():
         extra = {x: e[x] for x in ("max_rel_err", "residual", "library",
                                    "p_max_abs_err", "library_rel_err",
                                    "tf32x3_bound_ms", "tflops",
-                                   "tf32_control", "causal", "kernels_ms")
+                                   "tf32_control", "causal", "kernels_ms",
+                                   "relu_flips", "unpinned_rel_err")
                  if x in e}
         line.append(dict(name=kname, route="cuda", source=src,
                          replaces=replaces, launches=sum(on_paths.values()),

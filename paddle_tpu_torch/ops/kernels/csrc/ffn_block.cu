@@ -18,22 +18,36 @@
 // D 512, F 2048) the forward is 69 GFLOP and the backward 172 GFLOP on
 // 75 MB and 147 MB of inputs and outputs: over 900 flops a byte, far above
 // the 20 at which fp32 outside the tensor cores (67 TFLOP/s) meets the
-// memory (3.35 TB/s).
+// memory (3.35 TB/s). On the fp32 units the backward takes 2.56 ms; on
+// the tensor cores in split TF32 (three TF32 products for each fp32 one
+// at 495 TFLOP/s) 1.04 ms.
 //
 // What the design does about it: the TPU kernel keeps W1 and W2 (8 MiB of
 // fp32 here) resident in VMEM and the [T, F] hidden on chip; a Hopper
 // block has 227 KB of shared memory. So each entry point runs its products
-// in sequence on the caller's stream through the shared SIMT product of
-// tile_gemm.cuh, its epilogues doing the bias, the ReLU and the ReLU's
-// mask, with the hidden [N, F] (134 MB) in device memory from the caller's
-// allocator. The backward writes dh over h in place (the mask epilogue
-// reads each element of h before it writes the same element of dh), so it
-// holds one [N, F] buffer. The weight gradients are one product over all
-// N rows each, split along the rows into slices summed in a fixed order,
-// and db1, db2 a column sum in a fixed order: deterministic, no atomics.
-// Keeping the hidden out of device memory and tensor cores are the later
-// steps for speed.
+// in sequence on the caller's stream, with the hidden [N, F] (134 MB) in
+// device memory from the caller's allocator.
+// - Backward: the five products run on the tensor cores in split TF32
+//   through tile_mma.cuh, its epilogues doing the bias and the ReLU of the
+//   recomputed hidden and the ReLU's mask on dh. dh is written over h in
+//   place (a block of the mask product stages its tile of h in shared
+//   memory before it writes any of dh), so the backward holds one [N, F]
+//   buffer. The weight gradients
+//   are one product over all N rows each, split along the rows into slices
+//   summed in a fixed order, and db1, db2 tile_mma.cuh's column sum in a
+//   fixed order: deterministic, no atomics.
+// - Forward: tile_gemm.cuh's SIMT product, its epilogues doing the bias
+//   and the ReLU of the hidden and the output's bias.
+// The forward and the backward's recompute therefore round the
+// pre-activation x W1 + b1 differently (fp32 FMA chains against split-TF32
+// products), and a unit within rounding of zero can take one ReLU mask in
+// the forward and the other in the backward: the same kind of flip that
+// separates any two fp32 runs, as the card's from the CPU's. It ends when
+// the forward moves to tile_mma.cuh too. Keeping the hidden out of device
+// memory and wgmma are the later steps for speed.
+#include "split_tf32.cuh"
 #include "tile_gemm.cuh"
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -42,15 +56,6 @@ namespace {
     const cudaError_t e_ = (err);                \
     if (e_ != cudaSuccess) return (int)e_;       \
   } while (0)
-
-// h = relu(x W1 + b1)
-cudaError_t hidden(const float* x, const float* w1, const float* b1,
-                   float* h, int64_t n, int d, int f, cudaStream_t st) {
-  using namespace tile_gemm;
-  Params p = params(n, f, d, x, d, w1, f, h, f);
-  p.bias = b1;
-  return gemm(false, false, kBiasRelu, p, 1, nullptr, 0, st);
-}
 
 }  // namespace
 
@@ -62,21 +67,25 @@ extern "C" int ffn_block_fwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* out,
                              void* h, int64_t n, int d, int f, void* stream) {
   if (n < 1 || d < 1 || f < 1) return (int)cudaErrorInvalidValue;
-  using namespace tile_gemm;
+  namespace tg = tile_gemm;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* hf = static_cast<float*>(h);
-  RETURN_IF(hidden(static_cast<const float*>(x), static_cast<const float*>(w1),
-                   static_cast<const float*>(b1), hf, n, d, f, st));
-  Params p = params(n, d, f, hf, f, static_cast<const float*>(w2), d,
-                    static_cast<float*>(out), d);
+  // h = relu(x W1 + b1)
+  tg::Params p = tg::params(n, f, d, static_cast<const float*>(x), d,
+                            static_cast<const float*>(w1), f, hf, f);
+  p.bias = static_cast<const float*>(b1);
+  RETURN_IF(tg::gemm(tg::kBiasRelu, p, st));
+  // out = h W2 + b2
+  p = tg::params(n, d, f, hf, f, static_cast<const float*>(w2), d,
+                 static_cast<float*>(out), d);
   p.bias = static_cast<const float*>(b2);
-  return (int)gemm(false, false, kBias, p, 1, nullptr, 0, st);
+  return (int)tg::gemm(tg::kBias, p, st);
 }
 
 // Backward. x, g (the output's cotangent), dx [n, d]; w1, dw1 [d, f]; b1,
-// db1 [f]; w2, dw2 [f, d]; db2 [d]: fp32 device pointers, contiguous.
-// Scratch: h [n, f]; ws (ws_floats values, at least 128 * f) for the
-// weight gradients' row slices and the column sums. Returns as
+// db1 [f]; w2, dw2 [f, d]; db2 [d]: fp32 device pointers, contiguous,
+// 16-byte aligned. Scratch: h [n, f]; ws (ws_floats values, at least f)
+// for the weight gradients' row slices and the column sums. Returns as
 // ffn_block_fwd.
 extern "C" int ffn_block_bwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* g, void* dx,
@@ -85,30 +94,38 @@ extern "C" int ffn_block_bwd(const void* x, const void* w1, const void* b1,
                              int d, int f, void* stream) {
   if (n < 1 || d < 1 || f < 1 || ws == nullptr)
     return (int)cudaErrorInvalidValue;
-  using namespace tile_gemm;
+  namespace tm = tile_mma;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* w1f = static_cast<const float*>(w1);
   const float* gf = static_cast<const float*>(g);
   float* hf = static_cast<float*>(h);
   float* wsf = static_cast<float*>(ws);
-  RETURN_IF(hidden(xf, w1f, static_cast<const float*>(b1), hf, n, d, f, st));
+  // h = relu(x W1 + b1), recomputed
+  tm::Params p = tm::params(n, f, d, xf, d, w1f, f, hf, f);
+  p.bias = static_cast<const float*>(b1);
+  RETURN_IF(tm::gemm<tm::kBiasRelu>(false, false, p, 1, nullptr, 0, st));
   // dW2 = h^T g; db2 = sum g
-  RETURN_IF(gemm(true, false, kNone,
-                 params(f, d, n, hf, f, gf, d, static_cast<float*>(dw2), d),
-                 1, wsf, ws_floats, st));
-  RETURN_IF(colsum(gf, static_cast<float*>(db2), n, d, wsf, ws_floats, st));
+  RETURN_IF(tm::gemm(true, false,
+                     tm::params(f, d, n, hf, f, gf, d,
+                                static_cast<float*>(dw2), d),
+                     1, wsf, ws_floats, st));
+  RETURN_IF(
+      tm::colsum(gf, static_cast<float*>(db2), n, d, wsf, ws_floats, st));
   // dh = (g W2^T) [h > 0], over h
-  Params p = params(n, f, d, gf, d, static_cast<const float*>(w2), d, hf, f);
+  p = tm::params(n, f, d, gf, d, static_cast<const float*>(w2), d, hf, f);
   p.mask = hf;
   p.ldm = f;
-  RETURN_IF(gemm(false, true, kMask, p, 1, nullptr, 0, st));
+  RETURN_IF(tm::gemm<tm::kMask>(false, true, p, 1, nullptr, 0, st));
   // dW1 = x^T dh; db1 = sum dh; dx = dh W1^T
-  RETURN_IF(gemm(true, false, kNone,
-                 params(d, f, n, xf, d, hf, f, static_cast<float*>(dw1), f),
-                 1, wsf, ws_floats, st));
-  RETURN_IF(colsum(hf, static_cast<float*>(db1), n, f, wsf, ws_floats, st));
-  return (int)gemm(false, true, kNone,
-                   params(n, d, f, hf, f, w1f, f, static_cast<float*>(dx), d),
-                   1, nullptr, 0, st);
+  RETURN_IF(tm::gemm(true, false,
+                     tm::params(d, f, n, xf, d, hf, f,
+                                static_cast<float*>(dw1), f),
+                     1, wsf, ws_floats, st));
+  RETURN_IF(
+      tm::colsum(hf, static_cast<float*>(db1), n, f, wsf, ws_floats, st));
+  return (int)tm::gemm(false, true,
+                       tm::params(n, d, f, hf, f, w1f, f,
+                                  static_cast<float*>(dx), d),
+                       1, nullptr, 0, st);
 }

@@ -1,14 +1,27 @@
 // The split-TF32 online-softmax attention forward for Hopper (sm_90a), fp32
 // in and out: the body that flash_attention.cu (#2, any tq and tk, d 64,
-// 128 or 256, optionally the per-row logsumexp) and sdpa_short.cu (#5,
-// tq == tk <= 512, d 64 or 128, optionally the normalized P) instantiate.
+// 128 or 256, optionally the per-row logsumexp), sdpa_short.cu (#5, tq ==
+// tk <= 512, d 64 or 128, optionally the normalized P) and the
+// attention_block forward (#10, attention_block.cu: head widths up to 64
+// on d 64, up to 128 on d 128, optionally P) instantiate.
 //
 // Computes out = softmax(scale * q k^T [+ causal mask]) v for q [BH, tq, D],
-// k, v [BH, tk, D]. Causal masking is bottom-right aligned: query i sees
-// keys <= i + tk - tq (for tq == tk, keys <= i). Masked scores take
-// -FLT_MAX, as in `reference_attention`, so a fully masked row (tq > tk)
-// yields the uniform average of v instead of NaN; its logsumexp,
-// -FLT_MAX + log(tk), rounds to -FLT_MAX.
+// k, v [BH, tk, D]. Each operand may be a view (Layout: a base per head
+// and a 32-bit row stride), so that attention_block.cu (#10) reads q, k
+// and v in place inside its [B*T, 3D] qkv rows and writes each head's
+// columns of its context; only the first dh <= D columns exist, the rest
+// zero-filled as they land (they add nothing to a score, the scale being
+// given) and not written. #2 and #5 pass contiguous [BH, T, D] tensors,
+// for which the body is instantiated with the view's arithmetic folded to
+// constants (kViews false): behind runtime strides the D-64 instance,
+// capped at 168 registers for three blocks an SM, spilled more in its P
+// sweep and ran slower on the card.
+//
+// Causal masking is bottom-right aligned: query i sees keys <= i + tk - tq
+// (for tq == tk, keys <= i). Masked scores take -FLT_MAX, as in
+// `reference_attention`, so a fully masked row (tq > tk) yields the
+// uniform average of v instead of NaN; its logsumexp, -FLT_MAX + log(tk),
+// rounds to -FLT_MAX.
 //
 // The design (the recipe of flash_attention_bwd.cu):
 // - Split TF32 (split_tf32.cuh): S = q k^T and O += P v are
@@ -78,14 +91,27 @@ struct FwdTile {
       sizeof(float) * (R * (D + kPad) + 6 * C * (D + kPad));
 };
 
-// lse: [BH, tq], or null; p_out: [BH, tq, tk], written only with kSaveP
-template <int D, bool kSaveP>
+// The views of q, k, v and o (operands 0-3) across heads: head bh's rows
+// of operand i start at its pointer + (bh / heads) * outer[i] + (bh %
+// heads) * inner[i], ld[i] floats apart (a 32-bit stride, which keeps the
+// address arithmetic in fewer registers); only their first dh columns
+// exist.
+struct Layout {
+  int64_t outer[4], inner[4];
+  int ld[4];
+  int heads, dh;
+};
+
+// kViews: q, k, v and o lie as `lay` says; else they are contiguous [BH, t,
+// D] (lay unused), so that the address arithmetic of #2 and #5 stays
+// compile-time constants and their pointers __restrict__
+template <int D, bool kSaveP, bool kViews>
 __global__ void __launch_bounds__(FwdTile<D>::kThreads,
                                   FwdTile<D>::kMinBlocks)
     fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
                float* __restrict__ lse, float* __restrict__ p_out, int tq,
-               int tk, float scale, int causal) {
+               int tk, float scale, int causal, const Layout lay) {
   using T = FwdTile<D>;
   constexpr int R = T::R, C = T::C, LD = D + kPad, NT = C / 8, ND = D / 8;
   constexpr int NO = ND / T::SPLIT;  // output column tiles a warp
@@ -99,14 +125,31 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * R;
+  const int dh = kViews ? lay.dh : D;
   const int tid = threadIdx.x;
   const int lane = tid % 32, gr = lane / 4, tc = lane % 4;
   const int warp = tid / 32;
   const int m0 = warp / T::SPLIT * 16;      // this warp's rows in the block
   const int c0 = warp % T::SPLIT * NO * 8;  // and its output columns
   const int offset = tk - tq;
-  const float* kb = k + (int64_t)bh * tk * D;
-  const float* vb = v + (int64_t)bh * tk * D;
+  // head bh's rows of operand i (t of them), and their stride
+  auto rows = [&](auto* x, int i, int t) {
+    return kViews ? x + (int64_t)(bh / lay.heads) * lay.outer[i] +
+                        (int64_t)(bh % lay.heads) * lay.inner[i]
+                  : x + (int64_t)bh * t * D;
+  };
+  auto ld = [&](int i) { return kViews ? lay.ld[i] : D; };
+  const float* kb = rows(k, 1, tk);
+  const float* vb = rows(v, 2, tk);
+  // key rows [k0, k0 + C) of K into stage st's k slot (and of V into its
+  // v slot)
+  auto load_k = [&](float* st, int k0) {
+    load_tile<D, C, kThreads>(st, kb, ld(1), k0, tk, dh, tid);
+  };
+  auto load_kv = [&](float* st, int k0) {
+    load_k(st, k0);
+    load_tile<D, C, kThreads>(st + C * LD, vb, ld(2), k0, tk, dh, tid);
+  };
 
   // With no fully masked row in the block, keys past the last row's
   // horizon add exp(-FLT_MAX - m) = 0 and are not fetched; likewise a warp
@@ -117,9 +160,8 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
   const bool warp_skips = causal && q0 + m0 + offset >= 0;
   const int warp_last = q0 + m0 + 15 + offset;  // its last row's horizon
 
-  load_rows<D, R, kThreads>(qs, q + (int64_t)bh * tq * D, q0, tq, tid);
-  load_rows<D, C, kThreads>(ring, kb, 0, tk, tid);
-  load_rows<D, C, kThreads>(ring + C * LD, vb, 0, tk, tid);
+  load_tile<D, R, kThreads>(qs, rows(q, 0, tq), ld(0), q0, tq, dh, tid);
+  load_kv(ring, 0);
   cp_commit();
 
   float acc[NO][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -165,11 +207,8 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
   for (int kt = 0; kt < ntiles; ++kt) {
     float* ks = ring + (kt & 1) * 2 * C * LD;
     float* vs = ks + C * LD;
-    if (kt + 1 < ntiles) {
-      float* nk = ring + ((kt + 1) & 1) * 2 * C * LD;
-      load_rows<D, C, kThreads>(nk, kb, (kt + 1) * C, tk, tid);
-      load_rows<D, C, kThreads>(nk + C * LD, vb, (kt + 1) * C, tk, tid);
-    }
+    if (kt + 1 < ntiles)
+      load_kv(ring + ((kt + 1) & 1) * 2 * C * LD, (kt + 1) * C);
     cp_commit();
     cp_wait<1>();  // this tile (and q) have landed
     split_rows<D, C, kThreads>(ks, klo, tid);
@@ -232,7 +271,7 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
   }
   cp_wait<0>();
 
-  float* ob = o + (int64_t)bh * tq * D;
+  float* ob = rows(o, 3, tq);
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -243,9 +282,10 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
     if (row >= tq) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<float2*>(ob + (int64_t)row * D + c0 + n * 8 +
-                                 2 * tc) =
-          make_float2(acc[n][2 * h] * inv[h], acc[n][2 * h + 1] * inv[h]);
+      if (c0 + n * 8 < dh)
+        *reinterpret_cast<float2*>(ob + (int64_t)row * ld(3) + c0 +
+                                   n * 8 + 2 * tc) =
+            make_float2(acc[n][2 * h] * inv[h], acc[n][2 * h + 1] * inv[h]);
     if (lse != nullptr && c0 == 0 && tc == 0)
       lse[(int64_t)bh * tq + row] = m[h] + logf(l[h]);
   }
@@ -255,13 +295,12 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
     // barrier freed them)
     float* pb = p_out + (int64_t)bh * tq * tk;
     const bool pairs = tk % 2 == 0;  // rows of P 8-byte aligned
-    load_rows<D, C, kThreads>(ring, kb, 0, tk, tid);
+    load_k(ring, 0);
     cp_commit();
     for (int kt = 0; kt < ntiles; ++kt) {
       float* ks = ring + (kt & 1) * 2 * C * LD;
       if (kt + 1 < ntiles)
-        load_rows<D, C, kThreads>(ring + ((kt + 1) & 1) * 2 * C * LD, kb,
-                                  (kt + 1) * C, tk, tid);
+        load_k(ring + ((kt + 1) & 1) * 2 * C * LD, (kt + 1) * C);
       cp_commit();
       cp_wait<1>();
       split_rows<D, C, kThreads>(ks, klo, tid);
@@ -312,21 +351,32 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
   }
 }
 
-// Launches the forward on stream s; returns cudaGetLastError() of the
-// launch (or of the shared-memory attribute call).
+// Launches the forward over `bh` heads on stream s, on operands laid out
+// as `lay` says (kViews) or contiguous [bh, t, D] (lay unused); returns
+// cudaGetLastError() of the launch (or of the shared-memory attribute
+// call).
+template <int D, bool kSaveP, bool kViews>
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, float* p, int64_t bh, int tq, int tk, float scale,
+           int causal, const Layout& lay, cudaStream_t s) {
+  using T = FwdTile<D>;
+  auto* kernel = fwd_kernel<D, kSaveP, kViews>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((tq + T::R - 1) / T::R, (unsigned)bh);
+  kernel<<<grid, T::kThreads, T::kSmem, s>>>(q, k, v, o, lse, p, tq, tk,
+                                             scale, causal, lay);
+  return (int)cudaGetLastError();
+}
+
+// The same on contiguous q, o [bh, tq, D] and k, v [bh, tk, D].
 template <int D, bool kSaveP>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* lse, float* p, int64_t bh, int tq, int tk, float scale,
            int causal, cudaStream_t s) {
-  using T = FwdTile<D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<D, kSaveP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((tq + T::R - 1) / T::R, (unsigned)bh);
-  fwd_kernel<D, kSaveP><<<grid, T::kThreads, T::kSmem, s>>>(
-      q, k, v, o, lse, p, tq, tk, scale, causal);
-  return (int)cudaGetLastError();
+  return launch<D, kSaveP, false>(q, k, v, o, lse, p, bh, tq, tk, scale,
+                                  causal, Layout{}, s);
 }
 
 }  // namespace flash_fwd

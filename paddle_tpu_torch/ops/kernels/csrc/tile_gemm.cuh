@@ -1,17 +1,16 @@
-// A tiled fp32 SIMT matrix product for Hopper (sm_90a), shared by the
-// fused-block kernels (attention_block.cu, ffn_block.cu), with the
-// deterministic column sum those kernels' bias grads need.
+// A tiled fp32 SIMT matrix product for Hopper (sm_90a): the FFN block's
+// forward (ffn_block.cu), the last of the port's kernels whose products
+// run outside the tensor cores (the others take tile_mma.cuh's split-TF32
+// product).
 //
-//   C = alpha * op(A) op(B)  [+ bias] [relu] [* (mask > 0)]
+//   C = alpha * op(A) op(B)  [+ bias] [relu]
 //
 // op(A) is [m, k]: A(i, kk) = a[i * lda + kk], or a[kk * lda + i] when A
 // is transposed; op(B) is [k, n]: B(kk, j) = b[kk * ldb + j], or
-// b[j * ldb + kk] when B is transposed. Leading dimensions let a product
-// read a column slice of a wider row (one head's q, k or v inside a
-// [rows, 3D] qkv buffer). A batch of products runs over blockIdx.z: batch
-// z takes the offsets (z / inner) * outer_stride + (z % inner) *
-// inner_stride of each operand, so a [B, H] grid of per-head products can
-// address heads inside token rows.
+// b[j * ldb + kk] when B is transposed. The FFN forward takes the two
+// products without transposes, one with the bias, one with the bias and
+// the ReLU; the kernel's other forms (transposes, batches over blockIdx.z,
+// slices along k) are not instantiated.
 //
 // What bounds it on an H100: operations. Each block computes a 128 x 128
 // tile of C from 8-deep slices of A and B staged in shared memory (two
@@ -19,13 +18,8 @@
 // multiplied), and each of its 256 threads keeps an 8 x 8 sub-tile of C in
 // registers: 64 fused multiply-adds for every 16 values it reads from
 // shared memory. It runs on the fp32 units (67 TFLOP/s), not the tensor
-// cores; TF32 or bf16 wgmma is the later step for speed.
-//
-// A product whose tile grid is too small to fill the card and whose depth
-// is large (a weight gradient: [512, 1536] over 16384 rows) is split along
-// k into slices that write their partial products to a workspace; a second
-// pass sums the slices in their fixed order. The result is deterministic:
-// no atomics, the same order on every run.
+// cores; moving the FFN forward onto tile_mma.cuh is the next step, and
+// then this file goes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,10 +38,8 @@ constexpr int kPad = 4;   // keeps the transposing stores conflict-free
 constexpr int kThreads = 256;
 
 enum Epilogue {
-  kNone = 0,
   kBias = 1,      // + bias[j]
   kBiasRelu = 2,  // max(. + bias[j], 0)
-  kMask = 3,      // kept where mask(i, j) > 0, else 0
 };
 
 struct Params {
@@ -60,8 +52,6 @@ struct Params {
   int64_t ldc;
   float alpha;
   const float* bias;  // [n]
-  const float* mask;  // mask(i, j) = mask[i * ldm + j]
-  int64_t ldm;
   int inner;  // batch z -> (z / inner, z % inner)
   int64_t a_outer, a_inner, b_outer, b_inner, c_outer, c_inner;
   int splits;       // > 1: slice s of k writes c + s * m * n (ldc == n)
@@ -192,35 +182,9 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(Params p) {
       float v = p.alpha * acc[i][j];
       if (EPI == kBias || EPI == kBiasRelu) v += p.bias[col];
       if (EPI == kBiasRelu) v = fmaxf(v, 0.f);
-      if (EPI == kMask && !(p.mask[row * p.ldm + col] > 0.f)) v = 0.f;
       c[row * p.ldc + col] = v;
     }
   }
-}
-
-// c[idx] = sum over s of ws[s * mn + idx], in the order of s
-__global__ void __launch_bounds__(kThreads)
-    sum_slices_kernel(const float* __restrict__ ws, float* __restrict__ c,
-                      int64_t mn, int splits) {
-  for (int64_t idx = (int64_t)blockIdx.x * kThreads + threadIdx.x; idx < mn;
-       idx += (int64_t)gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int sp = 0; sp < splits; ++sp) s += ws[sp * mn + idx];
-    c[idx] = s;
-  }
-}
-
-inline int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        count <= 0)
-      count = 132;
-  }
-  return count;
 }
 
 template <bool TA, bool TB, int EPI>
@@ -232,16 +196,10 @@ cudaError_t launch(Params p, int batches, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The products the fused blocks take; another combination is refused.
-inline cudaError_t dispatch(bool ta, bool tb, int epi, const Params& p,
-                            int batches, cudaStream_t s) {
-  if (!ta && !tb && epi == kNone) return launch<false, false, kNone>(p, batches, s);
-  if (!ta && !tb && epi == kBias) return launch<false, false, kBias>(p, batches, s);
-  if (!ta && !tb && epi == kBiasRelu)
-    return launch<false, false, kBiasRelu>(p, batches, s);
-  if (ta && !tb && epi == kNone) return launch<true, false, kNone>(p, batches, s);
-  if (!ta && tb && epi == kNone) return launch<false, true, kNone>(p, batches, s);
-  if (!ta && tb && epi == kMask) return launch<false, true, kMask>(p, batches, s);
+// The products the FFN forward takes; another combination is refused.
+inline cudaError_t dispatch(int epi, const Params& p, cudaStream_t s) {
+  if (epi == kBias) return launch<false, false, kBias>(p, 1, s);
+  if (epi == kBiasRelu) return launch<false, false, kBiasRelu>(p, 1, s);
   return cudaErrorInvalidValue;
 }
 
@@ -264,94 +222,11 @@ inline Params params(int64_t m, int64_t n, int64_t k, const float* a,
   return p;
 }
 
-// One product C = op(A) op(B) with epilogue `epi`, `batches` of them over
-// the strides in p. An unbatched product with no epilogue and a contiguous
-// C whose tile grid fills less than two blocks a multiprocessor is split
-// along k when `ws` (ws_floats values) can hold the slices: at most 16
-// slices, none shallower than 512.
-inline cudaError_t gemm(bool ta, bool tb, int epi, Params p, int batches,
-                        float* ws, int64_t ws_floats, cudaStream_t s) {
-  if (p.m <= 0 || p.n <= 0 || p.k <= 0 || batches <= 0 ||
-      (epi == kMask && p.mask == nullptr) ||
-      ((epi == kBias || epi == kBiasRelu) && p.bias == nullptr))
+// One product C = A B + bias [relu] (epilogue `epi`) on stream s.
+inline cudaError_t gemm(int epi, const Params& p, cudaStream_t s) {
+  if (p.m <= 0 || p.n <= 0 || p.k <= 0 || p.bias == nullptr)
     return cudaErrorInvalidValue;
-  const int64_t tiles = ((p.m + kBM - 1) / kBM) * ((p.n + kBN - 1) / kBN);
-  int64_t splits = 1;
-  if (batches == 1 && epi == kNone && p.ldc == p.n && ws != nullptr) {
-    splits = (2 * sm_count() + tiles - 1) / tiles;
-    splits = imin(splits, 16);
-    splits = imin(splits, p.k / 512);
-    splits = imin(splits, ws_floats / (p.m * p.n));
-  }
-  if (splits < 2) return dispatch(ta, tb, epi, p, batches, s);
-  p.k_chunk = ((p.k + splits - 1) / splits + kBK - 1) / kBK * kBK;
-  p.splits = (int)((p.k + p.k_chunk - 1) / p.k_chunk);
-  float* c = p.c;
-  p.c = ws;
-  cudaError_t err = dispatch(ta, tb, epi, p, 1, s);
-  if (err != cudaSuccess) return err;
-  const int64_t mn = p.m * p.n;
-  const int64_t blocks = imin((mn + kThreads - 1) / kThreads, 4096);
-  sum_slices_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(ws, c, mn,
-                                                          p.splits);
-  return cudaGetLastError();
-}
-
-// out[j] = sum over rows i of a[i * cols + j], deterministic. Pass 1: each
-// block sums 32 columns over a chunk of rows (8 row lanes of 32 threads,
-// then the 8 lane sums in order) into ws[chunk * cols + j]; pass 2 sums
-// the chunks in order.
-constexpr int kSumCols = 32;
-constexpr int kSumLanes = kThreads / kSumCols;
-
-__global__ void __launch_bounds__(kThreads)
-    colsum_chunks_kernel(const float* __restrict__ a, float* __restrict__ ws,
-                         int64_t rows, int64_t cols, int64_t chunk) {
-  __shared__ float part[kSumLanes][kSumCols + 1];
-  const int lane_c = threadIdx.x % kSumCols, lane_r = threadIdx.x / kSumCols;
-  const int64_t col = (int64_t)blockIdx.x * kSumCols + lane_c;
-  const int64_t r0 = (int64_t)blockIdx.y * chunk;
-  const int64_t r1 = imin(rows, r0 + chunk);
-  float s = 0.f;
-  if (col < cols)
-    for (int64_t r = r0 + lane_r; r < r1; r += kSumLanes) s += a[r * cols + col];
-  part[lane_r][lane_c] = s;
-  __syncthreads();
-  if (lane_r == 0 && col < cols) {
-    float t = 0.f;
-    for (int l = 0; l < kSumLanes; ++l) t += part[l][lane_c];
-    ws[blockIdx.y * cols + col] = t;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    colsum_total_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                        int64_t cols, int64_t chunks) {
-  const int64_t col = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (col >= cols) return;
-  float t = 0.f;
-  for (int64_t ch = 0; ch < chunks; ++ch) t += ws[ch * cols + col];
-  out[col] = t;
-}
-
-inline cudaError_t colsum(const float* a, float* out, int64_t rows,
-                          int64_t cols, float* ws, int64_t ws_floats,
-                          cudaStream_t s) {
-  if (rows <= 0 || cols <= 0 || ws == nullptr || ws_floats < cols)
-    return cudaErrorInvalidValue;
-  int64_t chunk = 128;
-  while (chunk < rows && (rows + chunk - 1) / chunk * cols > ws_floats)
-    chunk *= 2;
-  const int64_t chunks = (rows + chunk - 1) / chunk;
-  if (chunks > 65535) return cudaErrorInvalidValue;
-  colsum_chunks_kernel<<<dim3((unsigned)((cols + kSumCols - 1) / kSumCols),
-                              (unsigned)chunks),
-                         kThreads, 0, s>>>(a, ws, rows, cols, chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  colsum_total_kernel<<<(unsigned)((cols + kThreads - 1) / kThreads), kThreads,
-                        0, s>>>(ws, out, cols, chunks);
-  return cudaGetLastError();
+  return dispatch(epi, p, s);
 }
 
 }  // namespace tile_gemm

@@ -1,29 +1,37 @@
 // A tiled fp32 matrix product on Hopper's tensor cores (sm_90a), in split
-// TF32 (split_tf32.cuh), for attention_block.cu's backward and for the
-// O = P v that sdpa_short_bwd.cu takes delta from (the other fused kernels
-// still take tile_gemm.cuh's SIMT product).
+// TF32 (split_tf32.cuh), with the deterministic column sum: the products
+// of the attention block's forward and backward, of the FFN block's
+// backward (the bias and ReLU of its hidden and the ReLU's mask on dh are
+// epilogues here) and the O = P v that sdpa_short_bwd.cu takes delta from.
+// The FFN block's forward still takes tile_gemm.cuh's SIMT product.
 //
-//   C = op(A) op(B)
+//   C = op(A) op(B)  [relu(. + bias[j]) | kept where mask(i, j) > 0]
 //
-// The contract of tile_gemm.cuh without its epilogues: op(A) is [m, k]:
-// A(i, kk) = a[i * lda + kk], or a[kk * lda + i] when A is transposed;
-// op(B) is [k, n]: B(kk, j) = b[kk * ldb + j], or b[j * ldb + kk] when B
-// is transposed. Leading dimensions let a product read a column slice of
-// a wider row (one head's v inside a [rows, 3D] qkv buffer). A batch of
-// products runs over blockIdx.z: batch z takes the offsets (z / inner) *
-// outer_stride + (z % inner) * inner_stride of each operand, so a [B, H]
-// grid of per-head products can address heads inside token rows. A
-// product whose tile grid is too small to fill the card and whose depth is
-// large (a weight gradient: [512, 1536] over 16384 rows) is split along k
-// into slices that write their partial products to a workspace; a second
-// pass sums the slices in their fixed order. No atomics: two launches give
-// identical bits.
+// op(A) is [m, k]: A(i, kk) = a[i * lda + kk], or a[kk * lda + i] when A
+// is transposed; op(B) is [k, n]: B(kk, j) = b[kk * ldb + j], or
+// b[j * ldb + kk] when B is transposed. Leading dimensions let a product
+// read a column slice of a wider row (one head's v inside a [rows, 3D] qkv
+// buffer). A batch of products runs over blockIdx.z: batch z takes the
+// offsets (z / inner) * outer_stride + (z % inner) * inner_stride of each
+// operand, so a [B, H] grid of per-head products can address heads inside
+// token rows. A product whose tile grid is too small to fill the card and
+// whose depth is large (a weight gradient: [512, 1536] over 16384 rows) is
+// split along k into slices that write their partial products to a
+// workspace; a second pass sums the slices in their fixed order. No
+// atomics: two launches give identical bits. The epilogues (a template
+// parameter, so the product without one compiles as if they did not
+// exist) take an unsplit, unbatched product whose A is not transposed:
+// kBiasRelu gives max(c + bias[j], 0); kMask keeps c where mask(i, j) =
+// mask[i * ldm + j] > 0, else 0. A block stages its whole tile of the
+// mask in shared memory before any of its threads writes C, so the mask
+// may be C itself (dh written over h in place).
 //
 // What bounds it on an H100: operations. The attention block's backward
 // runs six of these products at the training shape (B*T 16384, D 512):
 // 94.5 GFLOP, 1.41 ms on the fp32 units (67 TFLOP/s), 0.57 ms on the
 // tensor cores in split TF32 (three TF32 products for each fp32 one at
-// 495 TFLOP/s).
+// 495 TFLOP/s); the FFN block's backward five (F 2048): 171.8 GFLOP,
+// 2.56 ms and 1.04 ms.
 //
 // What the design does about it: a block of 8 warps computes a 128 x 128
 // tile of C (128 x 64 where n <= 64, as for one head's context), each warp
@@ -55,6 +63,12 @@ namespace tile_mma {
 using split_tf32::OpA;
 using split_tf32::OpB;
 
+enum Epilogue {
+  kNone = 0,
+  kBiasRelu = 1,  // max(. + bias[j], 0)
+  kMask = 2,      // kept where mask(i, j) > 0, else 0
+};
+
 __host__ __device__ inline int64_t imin(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
@@ -76,7 +90,19 @@ struct Params {
   int splits;       // > 1: slice s of k writes c + s * m * n (ldc == n)
   int64_t k_chunk;  // depth of one slice
   int vec_a, vec_b;  // 16-byte copies of A, B (set by gemm)
+  const float* bias;  // [n], kBiasRelu
+  const float* mask;  // mask(i, j) = mask[i * ldm + j], kMask
+  int64_t ldm;
+  int vec_m;  // 16-byte copies of the mask (set by gemm)
 };
+
+// c's epilogue, e the element's bias or mask
+template <int EPI>
+__device__ __forceinline__ float epilogue(float c, float e) {
+  if constexpr (EPI == kBiasRelu) return fmaxf(c + e, 0.f);
+  if constexpr (EPI == kMask) return e > 0.f ? c : 0.f;
+  return c;
+}
 
 // The staged slice of one operand: ROWS x COLS floats in the operand's
 // own layout, rows padded to LD.
@@ -126,7 +152,7 @@ struct Tiles {
       sizeof(float) * 3 * (A::kFloats + B::kFloats);
 };
 
-template <bool TA, bool TB, int BN>
+template <bool TA, bool TB, int BN, int EPI>
 __global__ void __launch_bounds__(kThreads, 2) mma_kernel(Params p) {
   using T = Tiles<TA, TB, BN>;
   using SA = typename T::A;
@@ -232,17 +258,47 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(Params p) {
   }
   split_tf32::cp_wait<0>();
 
+  // kMask: the block's tile of the mask, staged whole in the ring (free
+  // since the loop's last barrier) before any thread stores to C, which
+  // it may be
+  using SM = Slice<kBM, BN, false>;
+  static_assert(SM::kFloats <= 2 * (SA::kFloats + SB::kFloats), "fits");
+  if constexpr (EPI == kMask) {
+    load_slice<SM>(ring, p.mask + m0 * p.ldm + n0, p.ldm, p.m - m0,
+                   p.n - n0, p.vec_m, tid);
+    split_tf32::cp_commit();
+    split_tf32::cp_wait<0>();
+    __syncthreads();
+  }
+
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int64_t row = m0 + wm + i * 16 + gr + h * 8;
+      const int r = wm + i * 16 + gr + h * 8;
+      const int64_t row = m0 + r;
       if (row >= p.m) continue;
+      // the epilogue's operand of each element of this row
+      float e[NT][2] = {};
+      if constexpr (EPI != kNone) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int cl = wn + j * 8 + 2 * tc + u;
+            e[j][u] = EPI == kMask        ? ring[r * SM::LD + cl]
+                      : n0 + cl < p.n ? p.bias[n0 + cl]
+                                      : 0.f;
+          }
+      }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int64_t col = n0 + wn + j * 8 + 2 * tc;
-        if (col < p.n) c[row * p.ldc + col] = acc[i][j][2 * h];
-        if (col + 1 < p.n) c[row * p.ldc + col + 1] = acc[i][j][2 * h + 1];
+        if (col < p.n)
+          c[row * p.ldc + col] = epilogue<EPI>(acc[i][j][2 * h], e[j][0]);
+        if (col + 1 < p.n)
+          c[row * p.ldc + col + 1] =
+              epilogue<EPI>(acc[i][j][2 * h + 1], e[j][1]);
       }
     }
 }
@@ -272,33 +328,35 @@ inline int sm_count() {
   return count;
 }
 
-template <bool TA, bool TB, int BN>
+template <bool TA, bool TB, int BN, int EPI>
 cudaError_t launch(const Params& p, int batches, cudaStream_t s) {
   using T = Tiles<TA, TB, BN>;
   const cudaError_t err = cudaFuncSetAttribute(
-      mma_kernel<TA, TB, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::kSmem);
+      mma_kernel<TA, TB, BN, EPI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((p.n + BN - 1) / BN),
                   (unsigned)((p.m + kBM - 1) / kBM),
                   (unsigned)(p.splits > 1 ? p.splits : batches));
-  mma_kernel<TA, TB, BN><<<grid, kThreads, T::kSmem, s>>>(p);
+  mma_kernel<TA, TB, BN, EPI><<<grid, kThreads, T::kSmem, s>>>(p);
   return cudaGetLastError();
 }
 
-template <bool TA, bool TB>
+template <bool TA, bool TB, int EPI>
 cudaError_t by_width(const Params& p, int batches, cudaStream_t s) {
-  return p.n <= 64 ? launch<TA, TB, 64>(p, batches, s)
-                   : launch<TA, TB, 128>(p, batches, s);
+  return p.n <= 64 ? launch<TA, TB, 64, EPI>(p, batches, s)
+                   : launch<TA, TB, 128, EPI>(p, batches, s);
 }
 
-// The products the attention block's backward and sdpa_short_bwd.cu take;
-// another combination is refused.
-inline cudaError_t dispatch(bool ta, bool tb, const Params& p, int batches,
-                            cudaStream_t s) {
-  if (!ta && !tb) return by_width<false, false>(p, batches, s);
-  if (ta && !tb) return by_width<true, false>(p, batches, s);
-  if (!ta && tb) return by_width<false, true>(p, batches, s);
+// The products the kernels take; another combination is refused. An
+// epilogue takes an A that is not transposed (rows of C are rows of A).
+template <int EPI>
+cudaError_t dispatch(bool ta, bool tb, const Params& p, int batches,
+                     cudaStream_t s) {
+  if (!ta && !tb) return by_width<false, false, EPI>(p, batches, s);
+  if (!ta && tb) return by_width<false, true, EPI>(p, batches, s);
+  if constexpr (EPI == kNone)
+    if (ta && !tb) return by_width<true, false, EPI>(p, batches, s);
   return cudaErrorInvalidValue;
 }
 
@@ -328,36 +386,103 @@ inline int aligned16(const float* x, int64_t ld, int64_t outer,
          outer % 4 == 0 && inner % 4 == 0;
 }
 
-// One product C = op(A) op(B), `batches` of them over the strides in p. An
-// unbatched product with a contiguous C whose tile grid fills less than
-// two blocks a multiprocessor is split along k when `ws` (ws_floats
-// values) can hold the slices: at most 16 slices, none shallower than 512.
+// One product C = op(A) op(B) with epilogue EPI, `batches` of them over
+// the strides in p. An unbatched product with no epilogue and a
+// contiguous C whose tile grid fills less than two blocks a
+// multiprocessor is split along k when `ws` (ws_floats values) can hold
+// the slices: at most 16 slices, none shallower than 512.
+template <int EPI = kNone>
 inline cudaError_t gemm(bool ta, bool tb, Params p, int batches, float* ws,
                         int64_t ws_floats, cudaStream_t s) {
-  if (p.m <= 0 || p.n <= 0 || p.k <= 0 || batches <= 0)
+  if (p.m <= 0 || p.n <= 0 || p.k <= 0 || batches <= 0 ||
+      (EPI != kNone && batches != 1) ||
+      (EPI == kMask && p.mask == nullptr) ||
+      (EPI == kBiasRelu && p.bias == nullptr))
     return cudaErrorInvalidValue;
   p.vec_a = aligned16(p.a, p.lda, p.a_outer, p.a_inner);
   p.vec_b = aligned16(p.b, p.ldb, p.b_outer, p.b_inner);
+  p.vec_m = aligned16(p.mask, p.ldm, 0, 0);
   const int64_t bn = p.n <= 64 ? 64 : 128;
   const int64_t tiles = ((p.m + kBM - 1) / kBM) * ((p.n + bn - 1) / bn);
   int64_t splits = 1;
-  if (batches == 1 && p.ldc == p.n && ws != nullptr) {
+  if (EPI == kNone && batches == 1 && p.ldc == p.n && ws != nullptr) {
     splits = (2 * sm_count() + tiles - 1) / tiles;
     splits = imin(splits, 16);
     splits = imin(splits, p.k / 512);
     splits = imin(splits, ws_floats / (p.m * p.n));
   }
-  if (splits < 2) return dispatch(ta, tb, p, batches, s);
+  if (splits < 2) return dispatch<EPI>(ta, tb, p, batches, s);
   p.k_chunk = ((p.k + splits - 1) / splits + kBK - 1) / kBK * kBK;
   p.splits = (int)((p.k + p.k_chunk - 1) / p.k_chunk);
   float* c = p.c;
   p.c = ws;
-  cudaError_t err = dispatch(ta, tb, p, 1, s);
+  cudaError_t err = dispatch<EPI>(ta, tb, p, 1, s);
   if (err != cudaSuccess) return err;
   const int64_t mn = p.m * p.n;
   const int64_t blocks = imin((mn + kThreads - 1) / kThreads, 4096);
   sum_slices_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(ws, c, mn,
                                                           p.splits);
+  return cudaGetLastError();
+}
+
+// out[j] = sum over rows i of a[i * cols + j], deterministic. Pass 1: each
+// block sums 32 columns over a chunk of rows (8 row lanes of 32 threads,
+// then the 8 lane sums in order) into ws[chunk * cols + j]; pass 2 sums
+// the chunks in order.
+constexpr int kSumCols = 32;
+constexpr int kSumLanes = kThreads / kSumCols;
+
+__global__ void __launch_bounds__(kThreads)
+    colsum_chunks_kernel(const float* __restrict__ a, float* __restrict__ ws,
+                         int64_t rows, int64_t cols, int64_t chunk) {
+  __shared__ float part[kSumLanes][kSumCols + 1];
+  const int lane_c = threadIdx.x % kSumCols, lane_r = threadIdx.x / kSumCols;
+  const int64_t col = (int64_t)blockIdx.x * kSumCols + lane_c;
+  const int64_t r0 = (int64_t)blockIdx.y * chunk;
+  const int64_t r1 = imin(rows, r0 + chunk);
+  float s = 0.f;
+  if (col < cols)
+    for (int64_t r = r0 + lane_r; r < r1; r += kSumLanes)
+      s += a[r * cols + col];
+  part[lane_r][lane_c] = s;
+  __syncthreads();
+  if (lane_r == 0 && col < cols) {
+    float t = 0.f;
+    for (int l = 0; l < kSumLanes; ++l) t += part[l][lane_c];
+    ws[blockIdx.y * cols + col] = t;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    colsum_total_kernel(const float* __restrict__ ws, float* __restrict__ out,
+                        int64_t cols, int64_t chunks) {
+  const int64_t col = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (col >= cols) return;
+  float t = 0.f;
+  for (int64_t ch = 0; ch < chunks; ++ch) t += ws[ch * cols + col];
+  out[col] = t;
+}
+
+// The column sums of a [rows, cols] a into out [cols], through ws
+// (ws_floats values, at least cols): chunks of 128 rows or, where ws
+// cannot hold a row of sums for each, of a power of two more.
+inline cudaError_t colsum(const float* a, float* out, int64_t rows,
+                          int64_t cols, float* ws, int64_t ws_floats,
+                          cudaStream_t s) {
+  if (rows <= 0 || cols <= 0 || ws == nullptr || ws_floats < cols)
+    return cudaErrorInvalidValue;
+  int64_t chunk = 128;
+  while (chunk < rows && (rows + chunk - 1) / chunk * cols > ws_floats)
+    chunk *= 2;
+  const int64_t chunks = (rows + chunk - 1) / chunk;
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  colsum_chunks_kernel<<<dim3((unsigned)((cols + kSumCols - 1) / kSumCols),
+                              (unsigned)chunks),
+                         kThreads, 0, s>>>(a, ws, rows, cols, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  colsum_total_kernel<<<(unsigned)((cols + kThreads - 1) / kThreads), kThreads,
+                        0, s>>>(ws, out, cols, chunks);
   return cudaGetLastError();
 }
 

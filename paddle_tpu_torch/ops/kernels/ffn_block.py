@@ -27,7 +27,7 @@ import torch
 from . import check_launch, current_stream, require_cuda_inputs, \
     storage_tensor
 
-# the weight gradients' row slices and the column sums (tile_gemm.cuh)
+# the weight gradients' row slices and the column sums (tile_mma.cuh)
 WORKSPACE_FLOATS = 1 << 22
 
 

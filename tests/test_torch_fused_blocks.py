@@ -170,6 +170,54 @@ def test_ffn_block_plain_matches_pallas_interpret(interpret):
                                    atol=1e-5, err_msg=name)
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero, as the card's split-TF32 kernels round the big half of an
+    operand): what a kernel that dropped its products' small halves would
+    compute on."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_rounding_matches_the_bit_pattern():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -(1.0 + 2 ** -12), 3.0 + 2 ** -20])
+    assert _tf32(x).tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9, -1.0,
+                                 3.0]
+
+
+FUSED_RTOL = 1e-5  # the card's gate on the fused kernels' outputs, grads
+
+
+@pytest.mark.parametrize("case", ["attention_fwd", "attention_fwd_causal",
+                                  "ffn_bwd"])
+def test_tf32_control_fails_the_fused_gate(case):
+    """The card holds the split-TF32 attention_block forward and ffn_block
+    backward to FUSED_RTOL of the largest |plain| against their plain
+    versions. That gate must see TF32 rounding: the plain versions on
+    TF32-rounded operands exceed it against fp32 at a small shape, so a
+    kernel that dropped the small halves of its products would fail."""
+    b, t, d, h, f = 2, 16, 64, 2, 96
+    if case.startswith("attention"):
+        x, wqkv, wo, _ = _t(*_attn_inputs(b, t, d, seed=11))
+        causal = case.endswith("causal")
+        scale = (d // h) ** -0.5
+        want, wp = KAB.attention_block_fwd_plain(x, wqkv, wo, h, scale,
+                                                 causal, save_p=True)
+        got, p = KAB.attention_block_fwd_plain(
+            *map(_tf32, (x, wqkv, wo)), h, scale, causal, save_p=True)
+        pairs = [(got, want)]
+        assert float((p - wp).abs().max()) > 1e-6  # the card's P gate
+    else:
+        x, w1, b1, w2, _, g = _t(*_ffn_inputs(b, t, d, f, seed=12))
+        want = KFF.ffn_block_bwd_plain(x, w1, b1, w2, g)
+        got = KFF.ffn_block_bwd_plain(*map(_tf32, (x, w1, b1, w2, g)))
+        pairs = list(zip(got, want))
+    worst = max(float((a - w).abs().max()) / float(w.abs().max())
+                for a, w in pairs)
+    assert worst > FUSED_RTOL, worst
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_block_bwd_plain_is_the_reference_vjp(causal):
     """The plain backward fed the plain forward's fp32 P is the vjp of

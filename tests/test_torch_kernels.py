@@ -454,13 +454,15 @@ def test_kernel_sources_reach_the_shared_headers():
         (build.CSRC / f"{n}.cuh").read_bytes()
         for n in ("split_tf32", "tile_mma", "tile_gemm", "flash_fwd",
                   "attn_bwd_from_p"))
-    # both forwards run one body, and the sdpa_short backward runs the
-    # attention block's stages
+    # the three forwards run one body, the sdpa_short backward runs the
+    # attention block's stages, and only the FFN block's forward still
+    # takes the SIMT product
     assert headers("flash_attention") == headers("sdpa_short") == {split,
                                                                    fwd}
     assert headers("flash_attention_bwd") == {split}
     assert headers("sdpa_short_bwd") == {split, mma, bwd}
-    assert headers("attention_block") == {split, mma, gemm, bwd}
+    assert headers("attention_block") == {split, mma, fwd, bwd}
+    assert headers("ffn_block") == {split, mma, gemm}
 
 
 # ---------------------------------------------------------------------------
@@ -894,6 +896,66 @@ def test_attention_block_kernels_match_plain(cuda, b, t, d, h, causal):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("t", [200, 512])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_block_fwd_across_head_widths(cuda, dh, t, causal):
+    """The forward's attention stage runs Dh <= 64 on the flash body's
+    D-64 instance and Dh <= 128 on its D-128 one, the columns past Dh
+    zero-filled: out and P against the plain version at a ragged T and at
+    T's limit; out is the same bits with P and without, and on a second
+    launch."""
+    b, h = 2, 2
+    d = h * dh
+    x = _cuda_randn(cuda, b, t, d, seed=60)
+    wqkv = _cuda_randn(cuda, d, 3 * d, seed=61) / d ** 0.5
+    wo = _cuda_randn(cuda, d, d, seed=62) / d ** 0.5
+    scale = dh ** -0.5
+    out, p = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal, True)
+    out2, p2 = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal,
+                                           True)
+    primal = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal,
+                                         False)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(p, p2)
+    assert torch.equal(primal, out)
+    wout, wp = KAB.attention_block_fwd_plain(x, wqkv, wo, h, scale, causal,
+                                             save_p=True)
+    _close_to_scale(out, wout)
+    torch.testing.assert_close(p, wp, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_block_fwd_beats_a_tf32_control_and_its_causal_flag(
+        cuda, causal):
+    """The forward runs in split TF32 on the tensor cores: the plain
+    forward on TF32-rounded x, Wqkv and Wo fails the limits on out and P
+    that the kernel passes; in the causal case, the kernel with the flag
+    dropped fails them too."""
+    b, t, d, h = 4, 256, 512, 8
+    x = _cuda_randn(cuda, b, t, d, seed=63)
+    wqkv = _cuda_randn(cuda, d, 3 * d, seed=64) / d ** 0.5
+    wo = _cuda_randn(cuda, d, d, seed=65) / d ** 0.5
+    scale = (d // h) ** -0.5
+    out, p = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal, True)
+    wout, wp = KAB.attention_block_fwd_plain(x, wqkv, wo, h, scale, causal,
+                                             save_p=True)
+    _close_to_scale(out, wout)
+    torch.testing.assert_close(p, wp, rtol=0, atol=1e-6)
+    tout, tp = KAB.attention_block_fwd_plain(
+        *(_tf32(z) for z in (x, wqkv, wo)), h, scale, causal, save_p=True)
+    assert float((tout - wout).abs().max()) > BWD_RTOL * float(
+        wout.abs().max())
+    assert float((tp - wp).abs().max()) > 1e-6
+    if causal:
+        bad = KAB._attention_block_launch(x, wqkv, wo, h, scale, False,
+                                          False)
+        assert float((bad - wout).abs().max()) > BWD_RTOL * float(
+            wout.abs().max())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_block_bwd_repeats_and_beats_a_tf32_control(cuda,
                                                               causal):
@@ -948,9 +1010,39 @@ def test_attention_block_bwd_c_entry_takes_any_t(cuda, t, causal):
         _close_to_scale(a, w)
 
 
+def _ffn_bwd_pinned(x, w1, b1, w2, g):
+    """The plain FFN backward with its ReLU mask pinned to the one the
+    backward kernel's split-TF32 recompute took, after checking that they
+    differ only at units within rounding of zero (1e-5 of the largest
+    |pre-activation|, float64): the two round the pre-activation
+    differently, and one unit that takes the other mask moves the grads
+    below it by ~1e-2 of their largest. The kernel's mask comes through
+    its C entry, whose scratch hidden ends as dh = (g W2^T)[mask] (no
+    element of g W2^T is 0 at these random inputs)."""
+    d, f = w1.shape
+    n = x.numel() // d
+    h = x.new_empty(n, f)
+    ws = x.new_empty(max(KFF.WORKSPACE_FLOATS, f))
+    grads = [torch.empty_like(z) for z in (x, w1, b1, w2)] + [x.new_empty(d)]
+    assert KFF._kernel("ffn_block_bwd", 12, True)(
+        *(z.data_ptr() for z in (x, w1, b1, w2, g, *grads, h, ws)),
+        ws.numel(), n, d, f, torch.cuda.current_stream().cuda_stream) == 0
+    x2, g2 = x.reshape(n, d), g.reshape(n, d)
+    mask = h != 0
+    pre = x2.double() @ w1.double() + b1.double()
+    flips = mask != (x2 @ w1 + b1 > 0)
+    if bool(flips.any()):
+        assert float(pre[flips].abs().max()) <= BWD_RTOL * float(
+            pre.abs().max())
+    dh = torch.where(mask, g2 @ w2.T, 0.0)
+    return ((dh @ w1.T).reshape(x.shape), x2.T @ dh, dh.sum(0),
+            torch.relu(x2 @ w1 + b1).T @ g2, g2.sum(0))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,d,f", [
-    (3, 16, 64, 96), (2, 40, 24, 40), (64, 256, 512, 2048)])
+    (3, 16, 64, 96), (2, 40, 24, 40), (64, 256, 512, 2048),
+    (4, 64, 512, 1000)])   # F not a multiple of the 128-wide tiles
 def test_ffn_block_kernels_match_plain(cuda, b, t, d, f):
     x, g = (_cuda_randn(cuda, b, t, d, seed=s) for s in (44, 45))
     w1 = _cuda_randn(cuda, d, f, seed=46) / d ** 0.5
@@ -964,8 +1056,31 @@ def test_ffn_block_kernels_match_plain(cuda, b, t, d, f):
     assert (KFF.ffn_block.launches, KFF.ffn_block_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     _close_to_scale(out, KFF.ffn_block_plain(x, w1, b1, w2, b2))
-    for a, w in zip(got, KFF.ffn_block_bwd_plain(x, w1, b1, w2, g)):
+    for a, w in zip(got, _ffn_bwd_pinned(x, w1, b1, w2, g)):
         _close_to_scale(a, w)
+
+
+@pytest.mark.gpu
+def test_ffn_block_bwd_repeats_and_beats_a_tf32_control(cuda):
+    """The backward runs its five products in split TF32 on the tensor
+    cores: a second launch gives identical bits, and the plain backward on
+    TF32-rounded x, W1, b1, W2 and g fails the 1e-5 limit that the kernel
+    passes."""
+    b, t, d, f = 8, 256, 512, 2048
+    x, g = (_cuda_randn(cuda, b, t, d, seed=s) for s in (66, 67))
+    w1 = _cuda_randn(cuda, d, f, seed=68) / d ** 0.5
+    b1 = _cuda_randn(cuda, f, seed=69) * 0.1
+    w2 = _cuda_randn(cuda, f, d, seed=70) / f ** 0.5
+    runs = [KFF.ffn_block_bwd(x, w1, b1, w2, g) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+    want = _ffn_bwd_pinned(x, w1, b1, w2, g)
+    for a, w in zip(runs[0], want):
+        _close_to_scale(a, w)
+    tf32 = KFF.ffn_block_bwd_plain(*(_tf32(z) for z in (x, w1, b1, w2, g)))
+    assert max(float((a - w).abs().max()) / float(w.abs().max())
+               for a, w in zip(tf32, want)) > BWD_RTOL
 
 
 @pytest.mark.gpu
