@@ -39,24 +39,29 @@ Phases (a failing phase fails the script; none is caught):
    attention_block forward with the causal flag dropped, a P off by
    1e-3, dWo computed from g transposed, b1 left out of the FFN
    backward's recompute and the ReLU mask inverted on one column, must
-   fail; the attention_block forward and backward and the ffn_block
-   backward, split TF32 on the tensor cores, must repeat bit for bit
-   (the attention_block forward's output the same bits with P and
-   without) and their TF32 controls, the plain versions on TF32-rounded
-   operands, must fail; the paged
-   decode-attention kernel at the paged
-   serving shape with steps spread over the buffer, one lane at step -1
-   and unallocated pages at block 0, at a small shape and at Dh 128,
-   which planted faults, the step off by one and page p+1 read for page
-   p, must fail), with its time, the plain version's time, one
+   fail, and so must the ffn_block forward with b2 left out; the
+   fused-block kernels, split TF32 on the tensor cores, must repeat bit
+   for bit (the attention_block forward's output the same bits with P
+   and without) and their TF32 controls, the plain versions on
+   TF32-rounded operands, must fail; at the training shape no FFN unit
+   may take one ReLU mask in the ffn_block forward's hidden and the
+   other in its backward's recompute; the paged decode-attention kernel
+   at the paged serving shape with steps spread over the buffer, one
+   lane at step -1 and unallocated pages at block 0, and with every
+   lane's step on a page boundary, with every step inside the first
+   chunk of positions, at a small shape, at Dh 128 and 256 and for one
+   lane alone at T 1024, and for two lanes at T 1024, one at step -1,
+   each case
+   repeating bit for bit, which planted faults, the step off by one and
+   page p+1 read for page p, must fail, timed with the L2 warm and
+   cold), with its time, the plain version's time, one
    PyTorch library call's time as a yardstick (for the fused blocks, the
    composition of library calls that computes the same function), and
    the least time the card could take (the larger of bytes / 3.35 TB/s
    and fp32 operations / 67 TFLOP/s, the H100 SXM data-sheet peaks;
-   for the split-TF32 kernels, every attention kernel, the
-   attention_block forward and backward and the ffn_block backward, also
-   three times their function's products over 495 TFLOP/s, with their
-   TFLOP/s);
+   for the split-TF32 kernels, every attention kernel and the four
+   fused-block kernels, also three times their function's products over
+   495 TFLOP/s, with their TFLOP/s);
 4. slice: Transformer-base (d_model 512, 8 heads, 6+6 layers, d_inner
    2048, vocab 30000), random weights from a seed, built with the port's
    layers as the KV-cached incremental decode program at prompt lengths
@@ -103,7 +108,7 @@ Phases (a failing phase fails the script; none is caught):
    against the CPU: the loss, logits.w and the grads above every FFN ReLU
    within 1e-5, the grads below them within 1e-3 (the ReLU masks live
    inside the kernels: the phase reports the units whose pre-activation
-   has another sign on the card, and the units whose mask differs
+   has another sign on the card, and asserts that no unit's mask differs
    between the ffn_block forward kernel and its backward's recompute on
    the card's inputs), and a planted fault, the decoder's
    causal flag dropped in the card's run, must fail every grad limit.
@@ -303,6 +308,29 @@ def time_ms(fn, iters=20, warmup=3):
     t1.record()
     t1.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def time_cold_ms(fn, iters=50, clean=False):
+    """Mean device ms of one call with a cold L2: before each call a
+    128 MB write evicts the 50 MB L2 (`clean`: then a read of the same
+    128 MB, so that no dirty line's write-back competes with the call's
+    reads) and a sleep kernel covers the host's enqueue; CUDA events
+    bracket the call alone, so each time includes one launch's latency
+    on the device."""
+    flush = torch.empty(32 * 2 ** 20, device="cuda")
+    fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for e0, e1 in ev:
+        flush.fill_(1.0)
+        if clean:
+            flush.amax()
+        torch.cuda._sleep(200_000)  # ~0.1 ms of GPU clock cycles
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in ev) / iters
 
 
 def bound_ms(nbytes, flops):
@@ -886,10 +914,11 @@ def _relu_flips(x, w1, b1, mask):
 
 def _fwd_bwd_mask_flips(x, w1, b1, w2):
     """Hidden units of x [n, d] whose ReLU mask differs between the FFN
-    forward kernel (#12, SIMT products) and the backward kernel's
-    recompute (#13, split TF32): #12's hidden h > 0 against #13's mask
-    under a cotangent of ones (dh = the sum of W2's row where the mask
-    is on). Through the C entries, whose scratch hidden is the caller's."""
+    forward kernel (#12) and the backward kernel's recompute (#13), which
+    compute the hidden with one code path and must agree on every unit:
+    #12's hidden h > 0 against #13's mask under a cotangent of ones (dh =
+    the sum of W2's row where the mask is on). Through the C entries,
+    whose scratch hidden is the caller's."""
     n, d = x.shape
     f = w1.shape[1]
     assert float(w2.double().sum(1).abs().min()) > 1e-5, \
@@ -911,28 +940,30 @@ def _fused_entries():
     1024). Each output and grad within FUSED_RTOL of its largest |plain|
     (the FFN backward's with the plain ReLU masks pinned to the kernel's
     recompute, the units that flip within rounding of zero), saved P
-    within P_TOL of the plain composition in float64; the attention_block
-    backward repeats bit for bit, and so do the attention_block forward
-    (its output the same bits with P and without) and the ffn_block
-    backward, the three kernels that run in split TF32. Planted faults must fail the checks: the
+    within P_TOL of the plain composition in float64. All four run in
+    split TF32 and repeat bit for bit (the attention_block forward's
+    output the same bits with P and without); at the training shape the
+    ffn_block forward's hidden and its backward's recompute take the same
+    ReLU mask on every unit. Planted faults must fail the checks: the
     attention_block forward with the causal flag dropped in the causal
-    cases; P off by 1e-3, dWo computed from g transposed (dWo^T), b1 left
-    out of the FFN backward's recompute, the ReLU mask inverted on one
-    hidden column; so must the TF32 controls, the plain attention_block
-    forward (out and P) and backward and ffn_block backward on
-    TF32-rounded operands. Then times at the training shape, non-causal,
-    beside each kernel's bound (its products, 2 flops a multiply-add,
-    over 67 TFLOP/s, against its bytes over 3.35 TB/s; for the split-TF32
-    kernels also three times the products' flops over 495 TFLOP/s), its
-    plain version and its composition of library calls (no single PyTorch
-    call computes these functions)."""
+    cases; P off by 1e-3, dWo computed from g transposed (dWo^T), b2 left
+    out of the FFN forward, b1 left out of the FFN backward's recompute,
+    the ReLU mask inverted on one hidden column; so must the TF32
+    controls, the plain versions of all four on TF32-rounded operands.
+    Then times at the training shape, non-causal, beside each kernel's
+    bound (its products, 2 flops a multiply-add, over 67 TFLOP/s,
+    against its bytes over 3.35 TB/s), three times the products' flops
+    over 495 TFLOP/s (the split-TF32 bound), its plain version and its
+    composition of library calls (no single PyTorch call computes these
+    functions)."""
     errs = {n: [] for n in ("attention_block", "attention_block_bwd",
                             "ffn_block", "ffn_block_bwd")}
     p_errs = []
     bt, t_, d_, h_, f_ = TRAIN_TOKENS // 256, 256, 512, 8, 2048
     tf32_controls = {n: [] for n in ("attention_block", "attention_block_bwd",
-                                     "ffn_block_bwd")}
+                                     "ffn_block", "ffn_block_bwd")}
     ffn_flips = []  # (units, largest |pre-activation|, unpinned ratio)
+    fwd_bwd_flips = None  # #12's hidden against #13's recompute
     for i, (b, t, d, h, f, causal) in enumerate((
             (bt, t_, d_, h_, f_, False), (bt, t_, d_, h_, f_, True),
             (3, 16, 64, 2, 96, True),
@@ -1020,6 +1051,10 @@ def _fused_entries():
             continue  # the FFN has no causal form
         w1, b1, w2, b2 = a["w1"], a["b1"], a["w2"], a["b2"]
         out = KFF.ffn_block(x, w1, b1, w2, b2)
+        # the forward (#12), split TF32: a second launch gives the same
+        # bits; the control is the plain forward on TF32-rounded operands;
+        # the planted fault leaves b2 out
+        fwd_repeat = torch.equal(KFF.ffn_block(x, w1, b1, w2, b2), out)
         got = KFF.ffn_block_bwd(x, w1, b1, w2, g)
         again, kmask = _ffn_bwd_kernel(x, w1, b1, w2, g)
         wout = KFF.ffn_block_plain(x, w1, b1, w2, b2)
@@ -1034,6 +1069,15 @@ def _fused_entries():
         unpinned = _bwd_ratio(got, KFF.ffn_block_bwd_plain(x, w1, b1, w2, g))
         torch.cuda.synchronize()
         r_out, r = _bwd_ratio((out,), (wout,)), _bwd_ratio(got, want)
+        fwd_faults = {
+            "b2 left out": _bwd_ratio((KFF.ffn_block(
+                x, w1, b1, w2, torch.zeros_like(b2)),), (wout,)),
+            "TF32 control": _bwd_ratio((KFF.ffn_block_plain(
+                *(_tf32(z) for z in (x, w1, b1, w2, b2))),), (wout,))}
+        # at the training shape: no unit takes one ReLU mask in #12's
+        # hidden and the other in #13's recompute
+        kflips = (_fwd_bwd_mask_flips(x.reshape(-1, d), w1, b1, w2)
+                  if (b, t, d, f) == (bt, t_, d_, f_) else None)
         repeat = all(torch.equal(z, y) for z, y in zip(got, again))
         faults = {
             "b1 left out of the recompute": _bwd_ratio(KFF.ffn_block_bwd(
@@ -1045,7 +1089,14 @@ def _fused_entries():
             "TF32 control": _bwd_ratio(KFF.ffn_block_bwd_plain(
                 *(_tf32(z) for z in (x, w1, b1, w2, g))), want)}
         log(f"  ffn_block [{b},{t},{d}] F {f}: out |d - plain| / "
-            f"max|plain| {r_out:.3e} (tol {FUSED_RTOL:g}); ffn_block_bwd "
+            f"max|plain| {r_out:.3e} (tol {FUSED_RTOL:g}), a second launch "
+            f"bit-identical {fwd_repeat}; planted faults "
+            + ", ".join(f"{n}: {e:.3e}" for n, e in fwd_faults.items())
+            + " (must exceed the tol)"
+            + ("" if kflips is None else
+               f"; {kflips} units take one ReLU mask in the forward's "
+               f"hidden and the other in the backward's recompute")
+            + f"; ffn_block_bwd "
             f"{n_flips} of {kmask.numel()} ReLU units take the other mask "
             f"than the plain recompute's, |pre-activation| at most "
             f"{flip_max:.3e} (limit {FUSED_RTOL * pre_max:.3e}); worst "
@@ -1056,15 +1107,23 @@ def _fused_entries():
             + " (must exceed the tol)")
         assert all(torch.isfinite(z).all() for z in (out, *got))
         assert r_out <= FUSED_RTOL and r <= FUSED_RTOL, (r_out, r)
+        assert fwd_repeat, "the ffn_block forward is not deterministic"
+        for n, e in fwd_faults.items():
+            assert e > FUSED_RTOL, f"the ffn_block check cannot see {n}"
+        assert kflips in (None, 0), f"{kflips} units flip between the " \
+            f"ffn_block forward's hidden and the backward's recompute"
         assert flip_max <= FUSED_RTOL * pre_max, (n_flips, flip_max)
         assert repeat, "the ffn_block backward is not deterministic"
         for n, e in faults.items():
             assert e > FUSED_RTOL, f"the ffn_block_bwd check cannot see {n}"
+        tf32_controls["ffn_block"].append(fwd_faults["TF32 control"])
         tf32_controls["ffn_block_bwd"].append(faults["TF32 control"])
         errs["ffn_block"].append((max_err(out, wout), r_out))
         errs["ffn_block_bwd"].append(
             (max(max_err(z, w) for z, w in zip(got, want)), r))
         ffn_flips.append((n_flips, flip_max, unpinned))
+        if kflips is not None:
+            fwd_bwd_flips = kflips
         del a, out, got, again, kmask, wout, want
 
     # times at the training shape, non-causal
@@ -1137,27 +1196,29 @@ def _fused_entries():
         plain_ms = time_ms(plain, iters=5)
         lib_ms = time_ms(lib, iters=10)
         bms, by = bound_ms(nbytes, flops)
-        extra, note = {}, ""
-        if name != "ffn_block":  # split TF32 on the tensor cores
-            ctl = tf32_controls[name.replace("_residual", "")]
-            extra = dict(tf32x3_bound_ms=_tf32x3_ms(flops),
-                         tf32_control=(min(ctl) if name.endswith("bwd") else
-                                       [min(c[0] for c in ctl),
-                                        min(c[1] for c in ctl)]))
-            note = f", split-TF32 bound {extra['tf32x3_bound_ms']:.4f} ms"
+        # all five run in split TF32 on the tensor cores; the
+        # attention_block forward's control is a pair (out, P)
+        base = name.replace("_residual", "")
+        ctl = tf32_controls[base]
+        tf32_bound = _tf32x3_ms(flops)
         log(f"  {name} [{b},{t},{d}] H {h} F {f} non-causal: kernel "
             f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
             f"{plain_ms:.4f} ms, library composition ({label}) "
             f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
-            f"{flops / 1e9:.2f} GFLOP){note}")
-        base = name.replace("_residual", "")
+            f"{flops / 1e9:.2f} GFLOP), split-TF32 bound {tf32_bound:.4f} "
+            f"ms")
         out[name] = dict(max_abs_err=max(e[0] for e in errs[base]),
                          max_rel_err=max(e[1] for e in errs[base]), ms=ms,
                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          library_ms=lib_ms,
                          library=f"composition: {label}",
                          shape=[b, t, d, h, f], tflops=flops / ms / 1e9,
-                         **extra)
+                         tf32x3_bound_ms=tf32_bound,
+                         tf32_control=([min(c[0] for c in ctl),
+                                        min(c[1] for c in ctl)]
+                                       if isinstance(ctl[0], tuple)
+                                       else min(ctl)))
+    out["ffn_block"]["fwd_bwd_mask_flips"] = fwd_bwd_flips
     out["ffn_block_bwd"]["relu_flips"] = [x[0] for x in ffn_flips]
     out["ffn_block_bwd"]["unpinned_rel_err"] = max(x[2] for x in ffn_flips)
     out["attention_block"]["p_max_abs_err"] = max(p_errs)
@@ -1224,23 +1285,39 @@ def _paged_entries():
     """Kernel #9 against its plain version: the paged serving shape (R 17
     lanes, H 8, Dh 64, BS 16, NP 16, NB 256) with steps spread over
     0..255, tables that share no block, unallocated pages at block 0 and
-    one lane at step -1; a small shape (R 3, H 2, Dh 16, BS 8, NP 4);
-    and Dh 128. Output within ATTN_TOL. Planted faults must fail the
-    check: the step off by one (positions < step, not <= step) and page
-    p+1 read in place of page p. Then times at the serving shape with
-    every lane at step 255 (the most one tick reads) beside the bound
-    (this run's bytes over 3.35 TB/s), the plain version and the
-    yardstick (gather + SDPA)."""
+    one lane at step -1, with every lane's step on a page boundary, and
+    with the steps -1 and 0, 4, ..., 60, inside the kernel's first chunk
+    of 64 positions; a small shape (R 3, H 2, Dh 16, BS 8, NP 4); Dh 128;
+    Dh 256; one lane alone at T 1024 (R*H 8) at step 1023; two lanes at T
+    1024, one at step -1 (the average over 1024 cells, 16 chunks) and one
+    at step 517. Output within ATTN_TOL, and the same bits on a second
+    launch. Planted faults must fail the check: the step off by one
+    (positions < step, not <= step) and page p+1 read in place of page
+    p. Then times at the
+    serving shape with every lane at step 255 (the most one tick reads)
+    and at steps 15, 63 and 127, warm (the pools, 16.8 MB, stay in the
+    50 MB L2 between back-to-back launches) and cold (the L2 flushed
+    before each launch by a 128 MB write, or by the write and a read of
+    it, and the launch timed alone; a one-element fill timed so shows
+    what timing a launch alone adds), beside the bound (this run's bytes
+    over 3.35 TB/s), the plain version and the yardstick (gather + SDPA)."""
     errs = []
     serve = (17, 8, 64, 16, 16, 256)
     spread = [-1] + [int(x) for x in np.linspace(0, 255, 16)]
+    boundary = [min(255, 16 * i - i % 2) for i in range(17)]
+    first_chunk = [-1] + list(range(0, 64, 4))
+    long_lane = (1, 8, 64, 16, 64, 80)
     for (r, h, d, bs, np_pages, nb), steps in (
-            (serve, spread), ((3, 2, 16, 8, 4, 16), [0, 8, 31]),
-            ((5, 4, 128, 16, 8, 48), [-1, 15, 16, 77, 127])):
+            (serve, spread), (serve, boundary), (serve, first_chunk),
+            ((3, 2, 16, 8, 4, 16), [0, 8, 31]),
+            ((5, 4, 128, 16, 8, 48), [-1, 15, 16, 77, 127]),
+            ((3, 2, 256, 16, 8, 32), [-1, 40, 127]),
+            (long_lane, [1023]), ((2, 8, 64, 16, 64, 160), [-1, 517])):
         q, pk, pv, tab, st = _paged_inputs(r, h, d, bs, np_pages, nb,
                                            steps, seed=r + d)
         scale = d ** -0.5
         got = KPA.paged_decode_attention(q, pk, pv, tab, st, scale)
+        again = KPA.paged_decode_attention(q, pk, pv, tab, st, scale)
         want = KPA.paged_decode_attention_plain(q, pk, pv, tab, st, scale)
         shifted = tab.clone()
         shifted[:, :-1] = tab[:, 1:]
@@ -1251,42 +1328,71 @@ def _paged_entries():
                 q, pk, pv, shifted, st, scale), want)}
         torch.cuda.synchronize()
         err = max_err(got, want)
+        repeat = torch.equal(got, again)
         log(f"  paged_decode_attention R {r} H {h} Dh {d} BS {bs} NP "
-            f"{np_pages} NB {nb}: max_abs_err {err:.3e} (tol "
-            f"{ATTN_TOL:g}); planted faults "
+            f"{np_pages} NB {nb}, steps "
+            f"{steps if len(steps) < 8 else 'from ' + str(steps[:4])}: "
+            f"max_abs_err {err:.3e} (tol {ATTN_TOL:g}), a second launch "
+            f"bit-identical {repeat}; planted faults "
             + ", ".join(f"{n}: {e:.3e}" for n, e in faults.items())
             + " (must exceed the tol)")
         assert bool(torch.isfinite(got).all()) and err <= ATTN_TOL, err
+        assert repeat, "the paged kernel is not deterministic"
         for n, e in faults.items():
             assert e > ATTN_TOL, f"the paged check cannot see {n}"
         errs.append(err)
-    r, h, d, bs, np_pages, nb = serve
-    q, pk, pv, tab, st = _paged_inputs(r, h, d, bs, np_pages, nb,
-                                       [255] * r, seed=5, distinct=False)
-    scale = d ** -0.5
+
+    def timed(shape, steps, tag):
+        r, h, d, bs, np_pages, nb = shape
+        q, pk, pv, tab, st = _paged_inputs(r, h, d, bs, np_pages, nb,
+                                           steps, seed=5, distinct=False)
+        scale = d ** -0.5
+        run = lambda: KPA.paged_decode_attention(q, pk, pv, tab, st, scale)
+        res = dict(ms=time_ms(run, iters=50), cold_ms=time_cold_ms(run),
+                   cold_clean_ms=time_cold_ms(run, clean=True),
+                   shape=list(shape))
+        nbytes, flops = _paged_work(q, tab, st, bs)
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops)
+        log(f"  paged_decode_attention R {r} H {h} Dh {d} BS {bs} NP "
+            f"{np_pages}, {tag}: kernel warm L2 {res['ms']:.4f} ms "
+            f"({nbytes / res['ms'] / 1e6:.1f} GB/s), cold L2 (one launch "
+            f"alone) {res['cold_ms']:.4f} ms "
+            f"({nbytes / res['cold_ms'] / 1e6:.1f} GB/s), with no dirty "
+            f"line in the L2 {res['cold_clean_ms']:.4f} ms, bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']}, "
+            f"{nbytes / 1e6:.1f} MB)")
+        return res, (q, pk, pv, tab, st, scale)
+
+    # what timing one launch alone adds: a one-element fill timed so
+    tiny = torch.zeros(1, device="cuda")
+    launch_alone_ms = time_cold_ms(tiny.zero_)
+    log(f"  a one-element fill timed as a launch alone with a cold L2: "
+        f"{launch_alone_ms:.4f} ms")
+
+    # a decode tick's lanes sit anywhere from step 0 to 255: the time
+    # of a call with every lane at a few steps below the longest
+    by_step = {}
+    for step in (15, 63, 127):
+        res, _ = timed(serve, [step] * serve[0],
+                       f"every lane at step {step}")
+        by_step[step] = dict(ms=res["ms"], bound_ms=res["bound_ms"])
+    main, (q, pk, pv, tab, st, scale) = timed(
+        serve, [255] * serve[0], "every lane at step 255")
     lib = _lib_paged(q, pk, pv, tab, st, scale)
     torch.cuda.synchronize()
     log(f"  paged_decode_attention library gather + SDPA vs plain: "
         f"max_abs_err "
         f"{max_err(lib, KPA.paged_decode_attention_plain(q, pk, pv, tab, st, scale)):.3e}")
-    ms = time_ms(lambda: KPA.paged_decode_attention(q, pk, pv, tab, st,
-                                                    scale), iters=50)
     plain_ms = time_ms(lambda: KPA.paged_decode_attention_plain(
         q, pk, pv, tab, st, scale), iters=20)
     lib_ms = time_ms(lambda: _lib_paged(q, pk, pv, tab, st, scale),
                      iters=20)
-    nbytes, flops = _paged_work(q, tab, st, bs)
-    bms, by = bound_ms(nbytes, flops)
-    log(f"  paged_decode_attention R {r} H {h} Dh {d} BS {bs} NP "
-        f"{np_pages}, every lane at step 255: kernel {ms:.4f} ms "
-        f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, library "
-        f"gather + SDPA {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
-        f"{nbytes / 1e6:.1f} MB)")
+    log(f"  paged_decode_attention at the serving shape: plain "
+        f"{plain_ms:.4f} ms, library gather + SDPA {lib_ms:.4f} ms")
     return {"paged_decode_attention": dict(
-        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms,
+        max_abs_err=max(errs), plain_ms=plain_ms, library_ms=lib_ms,
         library="gather to [R,H,T,Dh] + SDPA with the step mask",
-        shape=[r, h, d, bs, np_pages, nb])}
+        launch_alone_ms=launch_alone_ms, by_step=by_step, **main)}
 
 
 def phase_kernels():
@@ -2045,7 +2151,8 @@ def phase_train_fused(card_name, card, unfused):
             flip_max = max(flip_max, float(np.abs(pc[f]).max()))
     # the same units' masks on the card: #12's forward against #13's
     # recompute, from the card run's ffn_block inputs and the step's
-    # weights
+    # weights. The two compute the hidden with one code path: no unit
+    # may differ
     kflips_by_layer = {}
     for op, xg in zip(ffn_ops, got[1 + 2 * k:]):
         w1, b1, w2 = (torch.from_numpy(state0[op.inputs[n][0]]).cuda()
@@ -2063,13 +2170,14 @@ def phase_train_fused(card_name, card, unfused):
         f"|pre-activation| at most {flip_max:.3e}; per layer "
         f"{flips_by_layer}")
     log(f"{tag} parity: {n_kflips} FFN units take one ReLU mask in the "
-        f"forward kernel (#12, SIMT) and the other in the backward kernel's "
-        f"recompute (#13, split TF32) on the card's inputs; per layer "
+        f"forward kernel (#12) and the other in the backward kernel's "
+        f"recompute (#13) on the card's inputs (must be 0); per layer "
         f"{kflips_by_layer}")
     for g, tol in FUSED_GRADS.items():
         log(f"{tag} parity: {g}@GRAD norm-wise {grad_errs[g][0]:.3e}, "
             f"Moment1 {grad_errs[g][1]:.3e} (tol {tol:g})")
     assert np.isfinite(got[0]).all() and loss_err <= LOSS_RTOL, loss_err
+    assert n_kflips == 0, kflips_by_layer
     for g, tol in FUSED_GRADS.items():
         assert max(grad_errs[g]) <= tol, (g, grad_errs[g], tol)
     # the control: the decoder's causal flag dropped in the card's run
@@ -2214,21 +2322,12 @@ def _rows_agree(tag, got, want, tie):
     return ties
 
 
-def phase_paged(card_name, card):
-    """Transformer-base served through the paged continuous-batching
-    server: build_decode_step_program with the paged cache (16 lanes,
-    256 blocks of 16, 16 prompt entries, prompts and buffers of 256),
-    PagedContinuousGenerationServer(steps_per_tick=8), 32 threaded
-    submits (8 shared prompts 3 times each, 8 unique ones). Kernel #9
-    must launch n_layers times a tick; the tokens must equal the CPU
-    whole-loop decode on 8 of the distinct prompts and the dense
-    ContinuousGenerationServer leg on the card (same 16 lanes, same
-    requests), under the tie rule; the pool must drain. Returns
-    (launches by kernel over both legs, results)."""
+def _paged_programs():
+    """Phase 9's programs: the paged and dense decode-step bundles (16
+    lanes, 256 blocks of 16, 16 prompt entries, prompts and buffers of
+    256) and the whole-loop decode program with its startup and output."""
     cfg = dict(MODEL, seq_len=PAGED["seq_len"],
                max_out_len=PAGED["max_out_len"])
-    L = MODEL["n_layers"]
-    t0 = time.monotonic()
     cache = decode_engine.CacheConfig(
         layout="paged", block_size=PAGED["block_size"],
         n_blocks=PAGED["n_blocks"],
@@ -2243,22 +2342,20 @@ def phase_paged(card_name, card):
     with unique_name.guard():
         whole, startup, _, out = \
             decode_engine.build_incremental_decode_program(**cfg)
-    n_ops = sum(len(b.ops) for b in paged.serves[0].blocks)
-    log(f"paged serve: built the paged and dense bundles and the whole-"
-        f"loop program in {time.monotonic() - t0:.1f} s (paged key-0 "
-        f"serve: {n_ops} ops); KV state paged "
-        f"{paged.kv_state_bytes() / 2 ** 20:.1f} MiB, dense "
-        f"{dense.kv_state_bytes() / 2 ** 20:.1f} MiB")
-    params = [v.name for v in startup.global_block.vars.values()
-              if v.persistable]
+    return paged, dense, whole, startup, out
+
+
+def _paged_weights(exe, startup):
+    """Phase 9's random weights (seed SEED) in a fresh scope of `exe`'s."""
     startup.random_seed = SEED
-    gpu = pf.Executor(pf.CUDAPlace(0))
-    cpu = pf.Executor(pf.CPUPlace())
-    gscope = pf.Scope()
-    gpu.run(startup, scope=gscope)
-    cscope = pf.Scope()
-    pf.load_numpy_params(cscope, pf.scope_to_numpy(gscope, params),
-                         pf.CPUPlace())
+    scope = pf.Scope()
+    exe.run(startup, scope=scope)
+    return scope
+
+
+def _paged_requests():
+    """Phase 9's requests: the distinct prompts [16, 256] (8 shared, 8
+    unique) and the prompt of each of the 32 requests, shuffled."""
     rng = np.random.RandomState(SEED + 9)
     S = PAGED["seq_len"]
     shared = rng.randint(2, MODEL["vocab"], (PAGED_SHARED, S))
@@ -2267,7 +2364,38 @@ def phase_paged(card_name, card):
     ids = np.concatenate([np.repeat(np.arange(PAGED_SHARED),
                                     PAGED_REPEATS),
                           PAGED_SHARED + np.arange(PAGED_UNIQUE)])
-    ids = ids[rng.permutation(len(ids))]
+    return distinct, ids[rng.permutation(len(ids))]
+
+
+def phase_paged(card_name, card):
+    """Transformer-base served through the paged continuous-batching
+    server: build_decode_step_program with the paged cache (16 lanes,
+    256 blocks of 16, 16 prompt entries, prompts and buffers of 256),
+    PagedContinuousGenerationServer(steps_per_tick=8), 32 threaded
+    submits (8 shared prompts 3 times each, 8 unique ones). Kernel #9
+    must launch n_layers times a tick; the tokens must equal the CPU
+    whole-loop decode on 8 of the distinct prompts and the dense
+    ContinuousGenerationServer leg on the card (same 16 lanes, same
+    requests), under the tie rule; the pool must drain. Returns
+    (launches by kernel over both legs, results)."""
+    L = MODEL["n_layers"]
+    t0 = time.monotonic()
+    paged, dense, whole, startup, out = _paged_programs()
+    n_ops = sum(len(b.ops) for b in paged.serves[0].blocks)
+    log(f"paged serve: built the paged and dense bundles and the whole-"
+        f"loop program in {time.monotonic() - t0:.1f} s (paged key-0 "
+        f"serve: {n_ops} ops); KV state paged "
+        f"{paged.kv_state_bytes() / 2 ** 20:.1f} MiB, dense "
+        f"{dense.kv_state_bytes() / 2 ** 20:.1f} MiB")
+    params = [v.name for v in startup.global_block.vars.values()
+              if v.persistable]
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    cpu = pf.Executor(pf.CPUPlace())
+    gscope = _paged_weights(gpu, startup)
+    cscope = pf.Scope()
+    pf.load_numpy_params(cscope, pf.scope_to_numpy(gscope, params),
+                         pf.CPUPlace())
+    distinct, ids = _paged_requests()
     prompts = distinct[ids]
 
     legs = {}
@@ -2407,7 +2535,10 @@ def main():
                                    "p_max_abs_err", "library_rel_err",
                                    "tf32x3_bound_ms", "tflops",
                                    "tf32_control", "causal", "kernels_ms",
-                                   "relu_flips", "unpinned_rel_err")
+                                   "relu_flips", "unpinned_rel_err",
+                                   "fwd_bwd_mask_flips", "cold_ms",
+                                   "cold_clean_ms", "launch_alone_ms",
+                                   "by_step")
                  if x in e}
         line.append(dict(name=kname, route="cuda", source=src,
                          replaces=replaces, launches=sum(on_paths.values()),

@@ -18,35 +18,33 @@
 // D 512, F 2048) the forward is 69 GFLOP and the backward 172 GFLOP on
 // 75 MB and 147 MB of inputs and outputs: over 900 flops a byte, far above
 // the 20 at which fp32 outside the tensor cores (67 TFLOP/s) meets the
-// memory (3.35 TB/s). On the fp32 units the backward takes 2.56 ms; on
-// the tensor cores in split TF32 (three TF32 products for each fp32 one
-// at 495 TFLOP/s) 1.04 ms.
+// memory (3.35 TB/s). On the fp32 units the forward takes 1.03 ms and the
+// backward 2.56 ms; on the tensor cores in split TF32 (three TF32
+// products for each fp32 one at 495 TFLOP/s) 0.42 ms and 1.04 ms.
 //
 // What the design does about it: the TPU kernel keeps W1 and W2 (8 MiB of
 // fp32 here) resident in VMEM and the [T, F] hidden on chip; a Hopper
 // block has 227 KB of shared memory. So each entry point runs its products
-// in sequence on the caller's stream, with the hidden [N, F] (134 MB) in
-// device memory from the caller's allocator.
-// - Backward: the five products run on the tensor cores in split TF32
-//   through tile_mma.cuh, its epilogues doing the bias and the ReLU of the
-//   recomputed hidden and the ReLU's mask on dh. dh is written over h in
-//   place (a block of the mask product stages its tile of h in shared
-//   memory before it writes any of dh), so the backward holds one [N, F]
-//   buffer. The weight gradients
-//   are one product over all N rows each, split along the rows into slices
-//   summed in a fixed order, and db1, db2 tile_mma.cuh's column sum in a
-//   fixed order: deterministic, no atomics.
-// - Forward: tile_gemm.cuh's SIMT product, its epilogues doing the bias
-//   and the ReLU of the hidden and the output's bias.
-// The forward and the backward's recompute therefore round the
-// pre-activation x W1 + b1 differently (fp32 FMA chains against split-TF32
-// products), and a unit within rounding of zero can take one ReLU mask in
-// the forward and the other in the backward: the same kind of flip that
-// separates any two fp32 runs, as the card's from the CPU's. It ends when
-// the forward moves to tile_mma.cuh too. Keeping the hidden out of device
-// memory and wgmma are the later steps for speed.
+// in sequence on the caller's stream, on the tensor cores in split TF32
+// through tile_mma.cuh, with the hidden [N, F] (134 MB) in device memory
+// from the caller's allocator.
+// - Both entry points compute the hidden relu(x W1 + b1) with one helper
+//   (`hidden`: tile_mma.cuh's bias + ReLU epilogue), so the backward's
+//   recompute has the forward's bits and every ReLU unit takes the same
+//   mask in both.
+// - Forward: the hidden, then out = h W2 + b2 (the bias epilogue).
+// - Backward: the hidden recomputed, then four products, tile_mma.cuh's
+//   epilogue doing the ReLU's mask on dh. dh is written over h in place (a
+//   block of the mask product stages its tile of h in shared memory before
+//   it writes any of dh), so the backward holds one [N, F] buffer. The
+//   weight gradients are one product over all N rows each, split along
+//   the rows into slices summed in a fixed order, and db1, db2 tile_mma.cuh's
+//   column sum in a fixed order: deterministic, no atomics.
+// Writing the hidden and reading it back costs about 0.08 ms of HBM time
+// against the forward's 1.03 ms fp32 bound; keeping it on chip needs one
+// kernel for both products with an output accumulator of [64-128 rows,
+// D] in registers, and wgmma: the later steps for speed.
 #include "split_tf32.cuh"
-#include "tile_gemm.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -59,6 +57,17 @@ namespace {
 
 }  // namespace
 
+// h [n, f] = relu(x W1 + b1): the forward's hidden and the backward's
+// recompute, one code path so that the two have the same bits
+static cudaError_t hidden(const float* x, const float* w1, const float* b1,
+                          float* h, int64_t n, int d, int f,
+                          cudaStream_t st) {
+  tile_mma::Params p = tile_mma::params(n, f, d, x, d, w1, f, h, f);
+  p.bias = b1;
+  return tile_mma::gemm<tile_mma::kBiasRelu>(false, false, p, 1, nullptr, 0,
+                                             st);
+}
+
 // Forward. x, out [n, d]; w1 [d, f]; b1 [f]; w2 [f, d]; b2 [d]: fp32
 // device pointers, contiguous; h [n, f]: scratch. Returns the first CUDA
 // error of the launches, or 1 (cudaErrorInvalidValue) for a shape the
@@ -67,19 +76,17 @@ extern "C" int ffn_block_fwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* out,
                              void* h, int64_t n, int d, int f, void* stream) {
   if (n < 1 || d < 1 || f < 1) return (int)cudaErrorInvalidValue;
-  namespace tg = tile_gemm;
+  namespace tm = tile_mma;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* hf = static_cast<float*>(h);
-  // h = relu(x W1 + b1)
-  tg::Params p = tg::params(n, f, d, static_cast<const float*>(x), d,
-                            static_cast<const float*>(w1), f, hf, f);
-  p.bias = static_cast<const float*>(b1);
-  RETURN_IF(tg::gemm(tg::kBiasRelu, p, st));
+  RETURN_IF(hidden(static_cast<const float*>(x),
+                   static_cast<const float*>(w1),
+                   static_cast<const float*>(b1), hf, n, d, f, st));
   // out = h W2 + b2
-  p = tg::params(n, d, f, hf, f, static_cast<const float*>(w2), d,
-                 static_cast<float*>(out), d);
+  tm::Params p = tm::params(n, d, f, hf, f, static_cast<const float*>(w2), d,
+                            static_cast<float*>(out), d);
   p.bias = static_cast<const float*>(b2);
-  return (int)tg::gemm(tg::kBias, p, st);
+  return (int)tm::gemm<tm::kBias>(false, false, p, 1, nullptr, 0, st);
 }
 
 // Backward. x, g (the output's cotangent), dx [n, d]; w1, dw1 [d, f]; b1,
@@ -102,9 +109,8 @@ extern "C" int ffn_block_bwd(const void* x, const void* w1, const void* b1,
   float* hf = static_cast<float*>(h);
   float* wsf = static_cast<float*>(ws);
   // h = relu(x W1 + b1), recomputed
-  tm::Params p = tm::params(n, f, d, xf, d, w1f, f, hf, f);
-  p.bias = static_cast<const float*>(b1);
-  RETURN_IF(tm::gemm<tm::kBiasRelu>(false, false, p, 1, nullptr, 0, st));
+  RETURN_IF(
+      hidden(xf, w1f, static_cast<const float*>(b1), hf, n, d, f, st));
   // dW2 = h^T g; db2 = sum g
   RETURN_IF(tm::gemm(true, false,
                      tm::params(f, d, n, hf, f, gf, d,
@@ -113,7 +119,8 @@ extern "C" int ffn_block_bwd(const void* x, const void* w1, const void* b1,
   RETURN_IF(
       tm::colsum(gf, static_cast<float*>(db2), n, d, wsf, ws_floats, st));
   // dh = (g W2^T) [h > 0], over h
-  p = tm::params(n, f, d, gf, d, static_cast<const float*>(w2), d, hf, f);
+  tm::Params p =
+      tm::params(n, f, d, gf, d, static_cast<const float*>(w2), d, hf, f);
   p.mask = hf;
   p.ldm = f;
   RETURN_IF(tm::gemm<tm::kMask>(false, true, p, 1, nullptr, 0, st));

@@ -1,11 +1,12 @@
 // A tiled fp32 matrix product on Hopper's tensor cores (sm_90a), in split
 // TF32 (split_tf32.cuh), with the deterministic column sum: the products
 // of the attention block's forward and backward, of the FFN block's
-// backward (the bias and ReLU of its hidden and the ReLU's mask on dh are
-// epilogues here) and the O = P v that sdpa_short_bwd.cu takes delta from.
-// The FFN block's forward still takes tile_gemm.cuh's SIMT product.
+// forward and backward (the bias and ReLU of its hidden, the output's bias
+// and the ReLU's mask on dh are epilogues here) and the O = P v that
+// sdpa_short_bwd.cu takes delta from.
 //
-//   C = op(A) op(B)  [relu(. + bias[j]) | kept where mask(i, j) > 0]
+//   C = op(A) op(B)  [relu(. + bias[j]) | . + bias[j] |
+//                     kept where mask(i, j) > 0]
 //
 // op(A) is [m, k]: A(i, kk) = a[i * lda + kk], or a[kk * lda + i] when A
 // is transposed; op(B) is [k, n]: B(kk, j) = b[kk * ldb + j], or
@@ -21,10 +22,10 @@
 // atomics: two launches give identical bits. The epilogues (a template
 // parameter, so the product without one compiles as if they did not
 // exist) take an unsplit, unbatched product whose A is not transposed:
-// kBiasRelu gives max(c + bias[j], 0); kMask keeps c where mask(i, j) =
-// mask[i * ldm + j] > 0, else 0. A block stages its whole tile of the
-// mask in shared memory before any of its threads writes C, so the mask
-// may be C itself (dh written over h in place).
+// kBiasRelu gives max(c + bias[j], 0); kBias c + bias[j]; kMask keeps c
+// where mask(i, j) = mask[i * ldm + j] > 0, else 0. A block stages its
+// whole tile of the mask in shared memory before any of its threads writes
+// C, so the mask may be C itself (dh written over h in place).
 //
 // What bounds it on an H100: operations. The attention block's backward
 // runs six of these products at the training shape (B*T 16384, D 512):
@@ -67,6 +68,7 @@ enum Epilogue {
   kNone = 0,
   kBiasRelu = 1,  // max(. + bias[j], 0)
   kMask = 2,      // kept where mask(i, j) > 0, else 0
+  kBias = 3,      // . + bias[j]
 };
 
 __host__ __device__ inline int64_t imin(int64_t a, int64_t b) {
@@ -90,7 +92,7 @@ struct Params {
   int splits;       // > 1: slice s of k writes c + s * m * n (ldc == n)
   int64_t k_chunk;  // depth of one slice
   int vec_a, vec_b;  // 16-byte copies of A, B (set by gemm)
-  const float* bias;  // [n], kBiasRelu
+  const float* bias;  // [n], kBiasRelu and kBias
   const float* mask;  // mask(i, j) = mask[i * ldm + j], kMask
   int64_t ldm;
   int vec_m;  // 16-byte copies of the mask (set by gemm)
@@ -101,6 +103,7 @@ template <int EPI>
 __device__ __forceinline__ float epilogue(float c, float e) {
   if constexpr (EPI == kBiasRelu) return fmaxf(c + e, 0.f);
   if constexpr (EPI == kMask) return e > 0.f ? c : 0.f;
+  if constexpr (EPI == kBias) return c + e;
   return c;
 }
 
@@ -397,7 +400,7 @@ inline cudaError_t gemm(bool ta, bool tb, Params p, int batches, float* ws,
   if (p.m <= 0 || p.n <= 0 || p.k <= 0 || batches <= 0 ||
       (EPI != kNone && batches != 1) ||
       (EPI == kMask && p.mask == nullptr) ||
-      (EPI == kBiasRelu && p.bias == nullptr))
+      ((EPI == kBiasRelu || EPI == kBias) && p.bias == nullptr))
     return cudaErrorInvalidValue;
   p.vec_a = aligned16(p.a, p.lda, p.a_outer, p.a_inner);
   p.vec_b = aligned16(p.b, p.ldb, p.b_outer, p.b_inner);

@@ -15,8 +15,8 @@ serving never differentiates it.
 
 Where the kernel runs: ``usable`` keeps the reference's structural
 conditions (pool heads and head dim equal q's, Dh % 8 == 0, BS % 8 == 0,
-one table row per lane) and the kernel's own limit Dh <= 256 (up to 8
-floats a lane in registers). The reference's TPU gate and its
+one table row per lane) and the kernel's own limit Dh <= 256 (a chunk of
+positions and q's slices sized by Dh). The reference's TPU gate and its
 ``PADDLE_TPU_DISABLE_PAGED_ATTN`` switch have no counterpart: on a CUDA
 tensor the wrapper launches the kernel or raises.
 """
@@ -93,6 +93,10 @@ def _launch(q, pool_k, pool_v, block_tab, step, scale):
             f"{tuple(pool_k.shape)} / {q.shape[0]} lanes")
     require_cuda_inputs("paged_decode_attention", (q, pool_k, pool_v),
                         (torch.float32,))
+    if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
+        raise ValueError("paged_decode_attention: the pools must start on "
+                         "a 16-byte boundary (the kernel copies 16-byte "
+                         "rows)")
     tab = block_tab.to(torch.int32).contiguous()
     st = step.to(torch.int64).contiguous()
     for t in (tab, st):
@@ -100,12 +104,12 @@ def _launch(q, pool_k, pool_v, block_tab, step, scale):
             raise ValueError(f"paged_decode_attention: index on "
                              f"{t.device}, q on {q.device}")
     r, h, d = q.shape
-    nb, bs = pool_k.shape[:2]
+    bs, n_pages = pool_k.shape[1], tab.shape[1]
     out = torch.empty_like(q)
     err = _kernel()(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(),
-        st.data_ptr(), out.data_ptr(), r, h, d, bs, tab.shape[1],
-        float(scale), current_stream(q))
+        st.data_ptr(), out.data_ptr(), r, h, d, bs, n_pages, float(scale),
+        current_stream(q))
     paged_decode_attention.launches += 1
     check_launch("paged_decode_attention", err)
     return out

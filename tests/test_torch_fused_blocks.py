@@ -190,13 +190,14 @@ FUSED_RTOL = 1e-5  # the card's gate on the fused kernels' outputs, grads
 
 
 @pytest.mark.parametrize("case", ["attention_fwd", "attention_fwd_causal",
-                                  "ffn_bwd"])
+                                  "ffn_fwd", "ffn_bwd"])
 def test_tf32_control_fails_the_fused_gate(case):
     """The card holds the split-TF32 attention_block forward and ffn_block
-    backward to FUSED_RTOL of the largest |plain| against their plain
-    versions. That gate must see TF32 rounding: the plain versions on
-    TF32-rounded operands exceed it against fp32 at a small shape, so a
-    kernel that dropped the small halves of its products would fail."""
+    forward and backward to FUSED_RTOL of the largest |plain| against
+    their plain versions. That gate must see TF32 rounding: the plain
+    versions on TF32-rounded operands exceed it against fp32 at a small
+    shape, so a kernel that dropped the small halves of its products would
+    fail."""
     b, t, d, h, f = 2, 16, 64, 2, 96
     if case.startswith("attention"):
         x, wqkv, wo, _ = _t(*_attn_inputs(b, t, d, seed=11))
@@ -208,6 +209,10 @@ def test_tf32_control_fails_the_fused_gate(case):
             *map(_tf32, (x, wqkv, wo)), h, scale, causal, save_p=True)
         pairs = [(got, want)]
         assert float((p - wp).abs().max()) > 1e-6  # the card's P gate
+    elif case == "ffn_fwd":
+        x, w1, b1, w2, b2, _ = _t(*_ffn_inputs(b, t, d, f, seed=12))
+        pairs = [(KFF.ffn_block_plain(*map(_tf32, (x, w1, b1, w2, b2))),
+                  KFF.ffn_block_plain(x, w1, b1, w2, b2))]
     else:
         x, w1, b1, w2, _, g = _t(*_ffn_inputs(b, t, d, f, seed=12))
         want = KFF.ffn_block_bwd_plain(x, w1, b1, w2, g)

@@ -450,19 +450,23 @@ def test_kernel_sources_reach_the_shared_headers():
     def headers(name):
         return {t for t in build._sources(name)[1:]}
 
-    split, mma, gemm, fwd, bwd = (
+    split, mma, fwd, bwd = (
         (build.CSRC / f"{n}.cuh").read_bytes()
-        for n in ("split_tf32", "tile_mma", "tile_gemm", "flash_fwd",
-                  "attn_bwd_from_p"))
+        for n in ("split_tf32", "tile_mma", "flash_fwd", "attn_bwd_from_p"))
     # the three forwards run one body, the sdpa_short backward runs the
-    # attention block's stages, and only the FFN block's forward still
-    # takes the SIMT product
+    # attention block's stages, both FFN products run on the split-TF32
+    # product, and the paged kernel takes the cp.async staging; the SIMT
+    # product (tile_gemm.cuh) is gone
     assert headers("flash_attention") == headers("sdpa_short") == {split,
                                                                    fwd}
     assert headers("flash_attention_bwd") == {split}
     assert headers("sdpa_short_bwd") == {split, mma, bwd}
     assert headers("attention_block") == {split, mma, fwd, bwd}
-    assert headers("ffn_block") == {split, mma, gemm}
+    assert headers("ffn_block") == {split, mma}
+    assert headers("paged_attention") == {split}
+    assert not (build.CSRC / "tile_gemm.cuh").exists()
+    for name in build.SOURCES:
+        assert b"tile_gemm" not in b"".join(build._sources(name)), name
 
 
 # ---------------------------------------------------------------------------
@@ -1084,6 +1088,60 @@ def test_ffn_block_bwd_repeats_and_beats_a_tf32_control(cuda):
 
 
 @pytest.mark.gpu
+def test_ffn_block_fwd_repeats_and_beats_a_tf32_control(cuda):
+    """The forward runs both products in split TF32 on the tensor cores: a
+    second launch gives identical bits, and the plain forward on
+    TF32-rounded x, W1, b1, W2 and b2 fails the 1e-5 limit that the
+    kernel passes."""
+    b, t, d, f = 8, 256, 512, 2048
+    x = _cuda_randn(cuda, b, t, d, seed=71)
+    w1 = _cuda_randn(cuda, d, f, seed=72) / d ** 0.5
+    b1 = _cuda_randn(cuda, f, seed=73) * 0.1
+    w2 = _cuda_randn(cuda, f, d, seed=74) / f ** 0.5
+    b2 = _cuda_randn(cuda, d, seed=75) * 0.1
+    runs = [KFF.ffn_block(x, w1, b1, w2, b2) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
+    want = KFF.ffn_block_plain(x, w1, b1, w2, b2)
+    _close_to_scale(runs[0], want)
+    tf32 = KFF.ffn_block_plain(*(_tf32(z) for z in (x, w1, b1, w2, b2)))
+    assert float((tf32 - want).abs().max()) > BWD_RTOL * float(
+        want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,d,f", [(64, 256, 512, 2048),
+                                     (4, 64, 512, 1000)])
+def test_ffn_block_fwd_hidden_is_the_bwd_recompute(cuda, b, t, d, f):
+    """The forward's hidden and the backward's recompute run one code path:
+    no ReLU unit takes one mask in the forward (its scratch hidden h > 0)
+    and the other in the backward (its scratch dh = (g W2^T)[mask] under a
+    cotangent of ones, nonzero wherever the mask is on since no row of W2
+    sums to 0), through the C entries."""
+    n = b * t
+    x = _cuda_randn(cuda, n, d, seed=76)
+    w1 = _cuda_randn(cuda, d, f, seed=77) / d ** 0.5
+    b1 = _cuda_randn(cuda, f, seed=78) * 0.1
+    w2 = _cuda_randn(cuda, f, d, seed=79) / f ** 0.5
+    assert float(w2.double().sum(1).abs().min()) > 1e-5
+    stream = torch.cuda.current_stream().cuda_stream
+    h = x.new_empty(n, f)
+    assert KFF._kernel("ffn_block_fwd", 7, False)(
+        *(z.data_ptr() for z in (x, w1, b1, w2, x.new_zeros(d),
+                                 torch.empty_like(x), h)),
+        n, d, f, stream) == 0
+    dh = x.new_empty(n, f)
+    ws = x.new_empty(max(KFF.WORKSPACE_FLOATS, f))
+    grads = [torch.empty_like(z) for z in (x, w1, b1, w2)] + [x.new_empty(d)]
+    assert KFF._kernel("ffn_block_bwd", 12, True)(
+        *(z.data_ptr() for z in (x, w1, b1, w2, torch.ones_like(x), *grads,
+                                 dh, ws)),
+        ws.numel(), n, d, f, stream) == 0
+    torch.cuda.synchronize()
+    assert int(((h > 0) != (dh != 0)).sum()) == 0
+
+
+@pytest.mark.gpu
 def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = _cuda_randn(cuda, 2, 16, 512)
     w = _cuda_randn(cuda, 512, 1536)
@@ -1141,24 +1199,45 @@ def test_fused_grad_ops_on_the_card_match_the_cpu(cuda, block):
         _close_to_scale(env[n + "@GRAD"].cpu(), cpu_env[n + "@GRAD"])
 
 
+def _paged_steps(rng, kind, r, bs, t):
+    """Lane steps: "spread", random over the buffer with the first lane at
+    -1 (the uniform average) and the last at T - 1; "boundary", every lane
+    on a page boundary, the first cell of a page or the last, from 0 to
+    T - 1; "first", the first lane at -1, the others inside the kernel's
+    first chunk of 64 positions (0, 4, 8, ...)."""
+    if kind == "boundary":
+        return np.array([min(t - 1, bs * i - i % 2) for i in range(r)])
+    if kind == "first":
+        return np.array([-1] + [min(t - 1, 4 * i) for i in range(r - 1)])
+    steps = rng.randint(0, t, size=r)
+    steps[0], steps[-1] = -1, t - 1
+    return steps
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("r,h,d,bs,np_pages,nb", [
-    (3, 2, 16, 8, 4, 16),         # the CPU tests' shape
-    (5, 4, 128, 16, 8, 48),       # Dh 128
-    (17, 8, 64, 16, 16, 256),     # the paged serving shape
-    (4, 2, 40, 8, 4, 16),         # Dh not a multiple of 32
+@pytest.mark.parametrize("r,h,d,bs,np_pages,nb,kind", [
+    (3, 2, 16, 8, 4, 16, "spread"),        # the CPU tests' shape
+    (5, 4, 128, 16, 8, 48, "spread"),      # Dh 128
+    (17, 8, 64, 16, 16, 256, "spread"),    # the paged serving shape
+    (4, 2, 40, 8, 4, 16, "spread"),        # Dh not a multiple of 32
+    (1, 8, 64, 16, 64, 80, "spread"),      # one lane, T 1024: R*H = 8
+    (2, 8, 64, 16, 64, 160, "spread"),     # step -1 over T 1024
+    (3, 2, 256, 16, 8, 32, "spread"),      # Dh 256
+    (17, 8, 64, 16, 16, 256, "boundary"),  # steps on page boundaries
+    (17, 8, 64, 16, 16, 256, "first"),     # steps inside the first chunk
 ])
 def test_paged_attention_kernel_matches_plain(cuda, r, h, d, bs, np_pages,
-                                              nb):
+                                              nb, kind):
     """Kernel #9 against its plain version: lanes at steps spread over
-    the buffer, tables sharing no block with unallocated pages at block
-    0, and one lane at step -1 (the uniform average over its cells)."""
+    the buffer (one lane at step -1, the uniform average over its cells)
+    or on page boundaries or inside the first chunk, tables sharing no
+    block with unallocated pages at block 0; one lane alone with a long
+    context. A second launch gives identical bits."""
     from paddle_tpu_torch.ops.kernels import paged_attention as KPA
 
     rng = np.random.RandomState(r + d)
     t = np_pages * bs
-    steps = rng.randint(0, t, size=r)
-    steps[0], steps[-1] = -1, t - 1
+    steps = _paged_steps(rng, kind, r, bs, t)
     tab = np.zeros((r, np_pages), np.int32)
     free = list(rng.permutation(np.arange(1, nb)))
     for i, st in enumerate(steps):
@@ -1172,11 +1251,19 @@ def test_paged_attention_kernel_matches_plain(cuda, r, h, d, bs, np_pages,
     step_t = torch.from_numpy(steps).to(cuda)
     before = KPA.paged_decode_attention.launches
     got = KPA.paged_decode_attention(q, pk, pv, tab_t, step_t, d ** -0.5)
+    again = KPA.paged_decode_attention(q, pk, pv, tab_t, step_t, d ** -0.5)
     torch.cuda.synchronize()
-    assert KPA.paged_decode_attention.launches == before + 1
+    assert KPA.paged_decode_attention.launches == before + 2
+    assert torch.equal(got, again)
     want = KPA.paged_decode_attention_plain(q, pk, pv, tab_t, step_t,
                                             d ** -0.5)
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
     with pytest.raises(ValueError, match="no kernel"):
         KPA.paged_decode_attention(q, pk[:, :4].contiguous(),
                                    pv[:, :4].contiguous(), tab_t, step_t)
+    # a pool view off a 16-byte boundary is refused before a launch
+    off = torch.empty(pk.numel() + 1, device=cuda)[1:].view(pk.shape)
+    off.copy_(pk)
+    with pytest.raises(ValueError, match="16-byte"):
+        KPA.paged_decode_attention(q, off, pv, tab_t, step_t)
+    assert KPA.paged_decode_attention.launches == before + 2

@@ -180,6 +180,57 @@ def test_paged_attention_plain_matches_reference(steps):
         np.testing.assert_allclose(got[r].numpy(), cells, atol=1e-6)
 
 
+def _chunked_paged(q, pk, pv, tab, steps, scale, chunk):
+    """Kernel #9's algorithm (csrc/paged_attention.cu) in plain torch: each
+    lane's visible positions (all NP*BS at a negative step, scored 0)
+    walked a chunk at a time through the block table, the softmax state
+    (m, l, acc) rescaled once a chunk."""
+    r, h, d = q.shape
+    bs = pk.shape[1]
+    t = tab.shape[1] * bs
+    flat_k, flat_v = pk.reshape(-1, h, d), pv.reshape(-1, h, d)
+    out = torch.empty_like(q)
+    for i in range(r):
+        st = int(steps[i])
+        n = t if st < 0 or st + 1 >= t else st + 1
+        m = torch.full((h,), -float("inf"))
+        l, acc = torch.zeros(h), torch.zeros(h, d)
+        for c0 in range(0, n, chunk):
+            pos = torch.arange(c0, min(c0 + chunk, n))
+            cells = tab[i, pos // bs].long() * bs + pos % bs
+            k, v = flat_k[cells], flat_v[cells]           # [c, h, d]
+            sc = (torch.zeros(h, len(pos)) if st < 0 else
+                  torch.einsum("hd,chd->hc", q[i], k) * scale)
+            m_new = torch.maximum(m, sc.max(-1).values)
+            corr = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[:, None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[:, None] + torch.einsum("hc,chd->hd", p, v)
+            m = m_new
+        out[i] = acc / l[:, None]
+    return out
+
+
+@pytest.mark.parametrize("chunk", [BS, 4 * BS, 64])
+def test_chunked_paged_formulation_matches_reference(chunk):
+    """The kernel's chunked online softmax (64 positions a chunk at this
+    head dim) gives the reference function's output, and the port's
+    plain version that the wrapper runs on the CPU, within 1e-6 at steps
+    -1, 0, BS - 1, BS and T - 1."""
+    from paddle_tpu.ops.pallas import paged_attention as jpa
+
+    t = NP * BS
+    steps = [-1, 0, BS - 1, BS, t - 1]
+    q, pk, pv, tab, st = _paged_case(5, 2, 16, BS, NP, 16, steps, seed=7)
+    want = np.asarray(jpa.paged_decode_attention_reference(
+        q, pk, pv, tab, st.astype(np.int32), scale=0.25))
+    args = [torch.from_numpy(a) for a in (q, pk, pv, tab)]
+    got = _chunked_paged(*args, st, 0.25, chunk)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    plain = KPA.paged_decode_attention(*args, torch.from_numpy(st), 0.25)
+    np.testing.assert_allclose(plain.numpy(), want, rtol=0, atol=1e-6)
+
+
 def test_paged_attention_wrapper_dispatch():
     q, pk, pv, tab, st = _paged_case(3, 2, 16, BS, NP, 16, [3, 9, 20],
                                      seed=1)
