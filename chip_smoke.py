@@ -13,8 +13,15 @@ Phases (a failing phase fails the script; none is caught):
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's shapes (the xent pair also at edge cases: label smoothing
    on and off, ignored rows, an out-of-range label, odd N and V, bf16
-   logits; their dx is held element by element, and planted faults, a
-   dropped eps/V term and a shifted lse, must fail that check; the
+   logits, rows off a 16-byte boundary (V 1001 fp32, 1003 bf16), the
+   MNIST head (V 10), eight CTAs a row (V 300000) and a row too wide to
+   stage (V 524288, the backward's streamed body); their dx is held
+   element by element and must repeat bit for bit on a second launch,
+   and planted faults, a dropped eps/V term, a shifted lse and an lse
+   from the first half of the row only, must fail that check; the
+   backward is timed at the training shape in fp32 and bf16, at each
+   cluster size (1, 2, 4, 8 CTAs a row) and in its streamed body,
+   beside a copy of the same bytes; the
    attention forwards also with the residuals their backward kernels
    read, saved P and lse, and the three attention backward kernels at
    the training shapes, causal and not, sdpa_short also at d 128,
@@ -62,6 +69,10 @@ Phases (a failing phase fails the script; none is caught):
    for the split-TF32 kernels, every attention kernel and the four
    fused-block kernels, also three times their function's products over
    495 TFLOP/s, with their TFLOP/s);
+   lookup_table: the op and its grad op on the card with ids out of
+   range and negative, against the CPU (NaN rows in the same places, the
+   same W@GRAD), then a kernel launch that must still run and agree: the
+   CUDA context survived;
 4. slice: Transformer-base (d_model 512, 8 heads, 6+6 layers, d_inner
    2048, vocab 30000), random weights from a seed, built with the port's
    layers as the KV-cached incremental decode program at prompt lengths
@@ -139,6 +150,7 @@ line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result.
 """
 import contextlib
+import ctypes
 import functools
 import json
 import math
@@ -210,6 +222,9 @@ XENT_TOL = 1e-5               # fp32 sums over V in another order
 DX_TOL = {torch.float32: (1e-4, 1e-9), torch.bfloat16: (2 ** -7, 1e-9)}
 # planted faults the dx check must reject: the lse shifted by this
 DX_LSE_SHIFT = {torch.float32: 1e-3, torch.bfloat16: 0.05}
+# the xent backward's cluster sizes (CTAs a row), each timed at the
+# training shape in fp32 and bf16
+XENT_CLUSTERS = (1, 2, 4, 8)
 # card vs CPU, fp32 through 12 layers: the loss relative, the grads
 # and Adam's first moment norm-wise (|a-b|/|b|). logits.w's grad lies
 # above every ReLU and agrees to ~1e-6. The others lie below the FFN
@@ -1468,43 +1483,135 @@ def _xent_faults(x, lab, dloss, eps, wdx):
     """The plain backward `wdx` with a planted fault: each (what, dx)."""
     g = torch.where(lab == -100, torch.zeros_like(dloss), dloss)[:, None]
     shift = DX_LSE_SHIFT[wdx.dtype]
-    sm = torch.softmax(x.float(), dim=1)
+    xf = x.float()
+    sm = torch.softmax(xf, dim=1)
     yield (f"lse off by {shift:g}", (wdx.float() + math.expm1(-shift)
                                       * sm * g).to(wdx.dtype))
-    del sm
+    # what a cluster that merged only its first CTAs' (max, sum) pairs
+    # would write
+    half = torch.logsumexp(xf[:, :max(1, x.shape[1] // 2)], dim=1,
+                           keepdim=True)
+    yield ("lse from the first half of the row only",
+           (wdx.float() + (torch.exp(xf - half) - sm) * g).to(wdx.dtype))
+    del sm, xf, half
     if eps:
         yield ("eps/V term dropped",
                (wdx.float() + eps / x.shape[1] * g).to(wdx.dtype))
 
 
+def _xent_plan(v):
+    """The cluster size and body that `xent_bwd` takes for rows of v
+    columns: (CTAs a row, "staged" or "streamed")."""
+    fn = build.library("xent").xent_bwd_plan
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    cluster, staged = ctypes.c_int(), ctypes.c_int()
+    fn(v, ctypes.byref(cluster), ctypes.byref(staged))
+    return cluster.value, "staged" if staged.value else "streamed"
+
+
+def _xent_bwd_with(x, lab, dloss, eps, cluster, staged):
+    """The xent backward kernel at a given cluster size and body, called
+    past the wrapper (its launch counter does not move): for timing the
+    cluster sizes."""
+    fn = build.library("xent").xent_bwd_with
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dx = torch.empty_like(x)
+    err = fn(x.data_ptr(), lab.data_ptr(), dloss.data_ptr(), dx.data_ptr(),
+             x.shape[0], x.shape[1], eps, -100,
+             int(x.dtype == torch.bfloat16), cluster, int(staged),
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"xent_bwd_with cluster {cluster}: CUDA error {err}"
+    return dx
+
+
+def _xent_timing(n, v, dtype, eps):
+    """The backward at [n, v] in `dtype`: the wrapper's time, every
+    cluster size's (staged) and the streamed body's at the chosen size,
+    the bound (each input read once, dx written once) and the library's
+    backward (F.cross_entropy under autograd), all in ms."""
+    x, lab, dloss = _xent_case(n, v, dtype, 30, ignored=False)
+    cluster, body = _xent_plan(v)
+    ms = time_ms(lambda: KX.xent_backward(x, lab, dloss, eps))
+    by_cluster = {c: time_ms(lambda: _xent_bwd_with(x, lab, dloss, eps, c,
+                                                    True))
+                  for c in XENT_CLUSTERS}
+    streamed = time_ms(lambda: _xent_bwd_with(x, lab, dloss, eps, cluster,
+                                              False))
+    # what the card's memory gives a read and a write of the same bytes
+    copy = torch.empty_like(x)
+    copy_ms = time_ms(lambda: copy.copy_(x))
+    del copy
+    xr = x.detach().requires_grad_()
+    lib_loss = torch.nn.functional.cross_entropy(
+        xr, lab, reduction="none", label_smoothing=eps, ignore_index=-100)
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib_loss, xr, dloss,
+                                                 retain_graph=True))
+    del lib_loss, xr
+    esize = x.element_size()
+    bms, by = bound_ms(2 * esize * n * v + 8 * n + 4 * n, 9 * n * v)
+    log(f"  xent_backward [{n},{v}] {str(dtype)[6:]} eps={eps}: kernel "
+        f"{ms:.4f} ms ({cluster} CTAs a row, {body}), bound {bms:.4f} ms "
+        f"({by}), library F.cross_entropy backward {lib_ms:.4f} ms, a "
+        f"copy of x (torch copy_) {copy_ms:.4f} ms; staged at 1/2/4/8 "
+        f"CTAs a row "
+        + " / ".join(f"{by_cluster[c]:.4f}" for c in XENT_CLUSTERS)
+        + f" ms; streamed at {cluster} {streamed:.4f} ms")
+    return dict(ms=ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                copy_ms=copy_ms, cluster=cluster, body=body, shape=[n, v],
+                cluster_ms={str(c): t for c, t in by_cluster.items()},
+                streamed_ms=streamed)
+
+
 def _xent_entries():
     """Both xent kernels against their plain versions: the training
-    path's [B*256, 32000] fp32 logits, then edge cases."""
+    path's [B*256, 32000] fp32 logits, then edge cases; the backward's
+    dx must repeat bit for bit on a second launch."""
     n_main = TRAIN_TOKENS
     cases = [(n_main, TRAIN["vocab"], torch.float32, LABEL_SMOOTH, False,
               False),
              (n_main, TRAIN["vocab"], torch.float32, 0.0, True, True),
              (33, 1000, torch.float32, LABEL_SMOOTH, True, True),
-             (64, TRAIN["vocab"], torch.bfloat16, LABEL_SMOOTH, True, True)]
+             (64, TRAIN["vocab"], torch.bfloat16, LABEL_SMOOTH, True, True),
+             # rows that start off a 16-byte boundary: fp32 V % 4, bf16
+             # V % 8
+             (64, 1001, torch.float32, LABEL_SMOOTH, True, True),
+             (64, 1003, torch.bfloat16, LABEL_SMOOTH, True, True),
+             (64, 10, torch.float32, 0.0, True, True),   # the MNIST head
+             # eight CTAs a row with the widest staged slices, then a row
+             # too wide for them: the streamed body
+             (64, 300000, torch.float32, LABEL_SMOOTH, True, True),
+             (64, 524288, torch.float32, LABEL_SMOOTH, True, True)]
     errs = {"fwd": [], "bwd": []}
+    bodies = set()
     for i, (n, v, dtype, eps, ignored, oor) in enumerate(cases):
         x, lab, dloss = _xent_case(n, v, dtype, 30 + i, ignored, oor)
         loss, lse = KX.xent_forward(x, lab, eps)
         dx = KX.xent_backward(x, lab, dloss, eps)
+        again = KX.xent_backward(x, lab, dloss, eps)
         wloss, wlse = KX.xent_forward_plain(x, lab, eps)
         wdx = KX.xent_backward_plain(x, lab, dloss, eps)
         torch.cuda.synchronize()
         ef = max(max_err(loss, wloss), max_err(lse, wlse))
         eb = max_err(dx, wdx)
         rb = _dx_ratio(dx, wdx)
+        same = bool(torch.equal(dx, again))
         finite = bool(torch.isfinite(loss).all() and torch.isfinite(dx).all())
         rtol, atol = DX_TOL[dtype]
+        plan = _xent_plan(v)
+        bodies.add(plan[1])
         log(f"  xent [{n},{v}] {str(dtype)[6:]} eps={eps} ignored={ignored} "
             f"out_of_range={oor}: forward max_abs_err {ef:.3e} (tol "
-            f"{XENT_TOL:g}); backward max_abs_err {eb:.3e}, worst "
-            f"|dx - plain| / ({atol:g} + {rtol:g}|plain|) {rb:.3e} (<= 1 "
-            f"passes) finite {finite}")
-        assert finite and ef <= XENT_TOL and rb <= 1, (ef, rb)
+            f"{XENT_TOL:g}); backward ({plan[0]} CTAs a row, {plan[1]}) "
+            f"max_abs_err {eb:.3e}, worst |dx - plain| / ({atol:g} + "
+            f"{rtol:g}|plain|) {rb:.3e} (<= 1 passes) finite {finite}, "
+            f"second launch bit for bit {same}")
+        assert finite and ef <= XENT_TOL and rb <= 1 and same, (ef, rb, same)
+        del again
         for fault, bad in _xent_faults(x, lab, dloss, eps, wdx):
             rf = _dx_ratio(bad, wdx)
             log(f"    planted fault, {fault}: worst ratio {rf:.3e} "
@@ -1514,13 +1621,13 @@ def _xent_entries():
         errs["fwd"].append(ef)
         if dtype == torch.float32:
             errs["bwd"].append(eb)
+    assert bodies == {"staged", "streamed"}, bodies
     del x, lab, dloss, loss, lse, dx, wloss, wlse, wdx
     x, lab, dloss = _xent_case(n_main, TRAIN["vocab"], torch.float32, 30,
                                ignored=False)
     eps = LABEL_SMOOTH
     n, v = x.shape
     fwd_ms = time_ms(lambda: KX.xent_forward(x, lab, eps))
-    bwd_ms = time_ms(lambda: KX.xent_backward(x, lab, dloss, eps))
     fwd_plain = time_ms(lambda: KX.xent_forward_plain(x, lab, eps), iters=5)
     bwd_plain = time_ms(lambda: KX.xent_backward_plain(x, lab, dloss, eps),
                         iters=5)
@@ -1533,34 +1640,80 @@ def _xent_entries():
     xr = x.detach().requires_grad_()
     lib_loss = torch.nn.functional.cross_entropy(
         xr, lab, reduction="none", label_smoothing=eps, ignore_index=-100)
-    lib_dx = torch.autograd.grad(lib_loss, xr, dloss, retain_graph=True)[0]
+    lib_dx = torch.autograd.grad(lib_loss, xr, dloss)[0]
     torch.cuda.synchronize()
     want_dx = KX.xent_backward_plain(x, lab, dloss, eps)
     log(f"  xent library F.cross_entropy vs plain: forward max_abs_err "
         f"{max_err(lib_fwd(), KX.xent_forward_plain(x, lab, eps)[0]):.3e}, "
         f"backward {max_err(lib_dx, want_dx):.3e}")
-    del want_dx
+    del want_dx, lib_dx, lib_loss, xr
     fwd_lib = time_ms(lib_fwd)
-    bwd_lib = time_ms(lambda: torch.autograd.grad(lib_loss, xr, dloss,
-                                                  retain_graph=True))
+    del x, lab, dloss
+    bwd = _xent_timing(n, v, torch.float32, eps)
+    bwd_bf16 = _xent_timing(n, v, torch.bfloat16, eps)
     # each input read once, each output written once; operations per
-    # element: forward max/exp/sum/add, backward that pass plus exp,
-    # subtract, multiply
+    # element: max/exp/sum/add
     fwd_b = bound_ms(4 * n * v + 8 * n + 8 * n, 5 * n * v)
-    bwd_b = bound_ms(4 * n * v + 8 * n + 4 * n + 4 * n * v, 9 * n * v)
-    out = {}
-    for name, ms, plain_ms, lib_ms, (bms, by), err in (
-            ("xent_forward", fwd_ms, fwd_plain, fwd_lib, fwd_b,
-             max(errs["fwd"])),
-            ("xent_backward", bwd_ms, bwd_plain, bwd_lib, bwd_b,
-             max(errs["bwd"]))):
-        log(f"  {name} [{n},{v}] fp32 eps={eps}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library F.cross_entropy {lib_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by})")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                         shape=[n, v])
+    log(f"  xent_forward [{n},{v}] fp32 eps={eps}: kernel {fwd_ms:.4f} ms, "
+        f"plain {fwd_plain:.4f} ms, library F.cross_entropy {fwd_lib:.4f} "
+        f"ms, bound {fwd_b[0]:.4f} ms ({fwd_b[1]})")
+    log(f"  xent_backward [{n},{v}] fp32 eps={eps}: plain {bwd_plain:.4f} "
+        f"ms")
+    out = dict(xent_forward=dict(
+        max_abs_err=max(errs["fwd"]), ms=fwd_ms, plain_ms=fwd_plain,
+        bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=fwd_lib,
+        shape=[n, v]))
+    bf16 = {k: bwd_bf16[k] for k in ("ms", "bound_ms", "library_ms",
+                                     "copy_ms", "cluster", "cluster_ms",
+                                     "streamed_ms")}
+    out["xent_backward"] = dict(max_abs_err=max(errs["bwd"]),
+                                plain_ms=bwd_plain, **bwd, bf16=bf16)
     return out
+
+
+def phase_lookup_table():
+    """lookup_table and its grad op on the card with ids out of range
+    (11 and -11 over 10 rows) and a negative id (-1, the last row),
+    against the same ops on the CPU: NaN rows in the same places, the
+    other rows and W@GRAD equal. Then a kernel launch and a check on its
+    result: an out-of-range index asserting on the device would have left
+    the CUDA context unusable."""
+    rs = np.random.RandomState(SEED)
+    w = rs.randn(10, 3).astype("float32")
+    ids = np.array([[11], [-1], [3], [-11], [0], [3]], "int64")
+    cot = rs.randn(len(ids), 3).astype("float32")
+    prog = pf.Program()
+    blk = prog.global_block
+    blk.create_var(name="w", shape=w.shape, dtype="float32")
+    blk.create_var(name="ids", shape=ids.shape, dtype="int64")
+    op = blk.append_op("lookup_table", {"W": ["w"], "Ids": ["ids"]},
+                       {"Out": ["out"]}, {"padding_idx": -1})
+    got = {}
+    for dev in ("cuda", "cpu"):
+        env = {"w": torch.from_numpy(w).to(dev),
+               "ids": torch.from_numpy(ids).to(dev),
+               "out@GRAD": torch.from_numpy(cot).to(dev)}
+        registry.run_op(op, env, torch.device(dev))
+        for gop in registry.make_grad_ops(op):
+            registry.run_op(gop, env, torch.device(dev))
+        got[dev] = (env["out"].cpu().numpy(), env["w@GRAD"].cpu().numpy())
+    torch.cuda.synchronize()
+    (out, dw), (wout, wdw) = got["cuda"], got["cpu"]
+    nan_rows = np.isnan(out).all(axis=1)
+    log(f"  lookup_table on the card: NaN rows {np.flatnonzero(nan_rows)} "
+        f"(CPU {np.flatnonzero(np.isnan(wout).all(axis=1))}), W@GRAD rows "
+        f"touched {np.flatnonzero(np.abs(dw).sum(axis=1))}")
+    assert out.shape == wout.shape == (len(ids), 3)
+    assert np.array_equal(np.isnan(out), np.isnan(wout))
+    assert list(np.flatnonzero(nan_rows)) == [0, 3]
+    np.testing.assert_array_equal(out[~nan_rows], wout[~nan_rows])
+    np.testing.assert_array_equal(out[1], w[9])
+    np.testing.assert_allclose(dw, wdw, rtol=0, atol=1e-6)
+    assert set(np.flatnonzero(np.abs(dw).sum(axis=1))) == {0, 3, 9}
+    x, s, b, err = _ln_case(64, 512, seed=5)
+    log(f"  after it, layer_norm [64,512] on the card: max_abs_err "
+        f"{err:.3e} (tol {LN_TOL:g})")
+    assert err <= LN_TOL, err
 
 
 # ---------------------------------------------------------------------------
@@ -2506,6 +2659,8 @@ def main():
     phase_build()
     log("phase kernels")
     entries = phase_kernels()
+    log("phase lookup_table")
+    phase_lookup_table()
     log("phase slice")
     served_launches, served = phase_slice(name, card)
     trained_launches = dict.fromkeys(KERNEL_META, 0)
@@ -2538,7 +2693,9 @@ def main():
                                    "relu_flips", "unpinned_rel_err",
                                    "fwd_bwd_mask_flips", "cold_ms",
                                    "cold_clean_ms", "launch_alone_ms",
-                                   "by_step")
+                                   "by_step", "cluster", "body",
+                                   "copy_ms",
+                                   "cluster_ms", "streamed_ms", "bf16")
                  if x in e}
         line.append(dict(name=kname, route="cuda", source=src,
                          replaces=replaces, launches=sum(on_paths.values()),

@@ -96,6 +96,8 @@ def reduce_sum(ctx):
         dims = tuple(range(x.dim()))
     else:
         dims = tuple(d % x.dim() for d in ctx.attr("dim", [0]))
+        if not dims:  # jnp.sum(x, axis=()) sums over no axis
+            return x
     return torch.sum(x, dim=dims, keepdim=ctx.attr("keep_dim", False))
 
 

@@ -22,6 +22,7 @@ from .kernels import ffn_block as K_ffn
 from .kernels import layer_norm as K_ln
 from .kernels import reference_attention
 from .kernels import xent as K_xent
+from .tensor_ops import _take_fill
 
 
 def _layer_norm(ctx, affine):
@@ -80,34 +81,49 @@ def _lookup_grad_maker(op, no_grad_set=frozenset()):
                      {"W@GRAD": [grad_var_name(w)]}, dict(op.attrs))]
 
 
+def _lookup_rows(ctx, v):
+    """Ids as int64 with a trailing 1 dropped, those ids clamped into
+    [0, V) and whether each named a row: an id in [-V, 0) counts from
+    the end, any other outside [0, V) names none (``jnp.take``'s fill
+    mode in the forward, ``.at[ids].add`` in the grad). Clamping and
+    masking need no device assert and no host sync on the card."""
+    ids = ctx.input("Ids").long()
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids[..., 0]
+    wrapped = torch.where(ids < 0, ids + v, ids)
+    valid = (wrapped >= 0) & (wrapped < v)
+    return ids, torch.where(valid, wrapped, 0), valid
+
+
+def _padding_keep(ctx, ids, dtype):
+    """1 where the raw id is not `padding_idx` (an id of -1 or None
+    pads nothing), as a column of `dtype`; None when nothing pads."""
+    padding_idx = ctx.attr("padding_idx", -1)
+    if padding_idx is None or padding_idx < 0:
+        return None
+    return (ids != padding_idx).to(dtype)[..., None]
+
+
 @register_op("lookup_table_grad", differentiable=False)
 def _lookup_grad_kernel(ctx):
     w = ctx.input("W")
-    ids = ctx.input("Ids")
-    dy = ctx.input("Out@GRAD")
-    if ids.dim() >= 2 and ids.shape[-1] == 1:
-        ids = ids[..., 0]
-    flat_ids = ids.reshape(-1).long()
-    flat_dy = dy.reshape(-1, w.shape[-1])
-    padding_idx = ctx.attr("padding_idx", -1)
-    if padding_idx is not None and padding_idx >= 0:
-        flat_dy = flat_dy * (flat_ids != padding_idx).to(
-            flat_dy.dtype)[:, None]
-    return {"W@GRAD": torch.zeros_like(w).index_add_(0, flat_ids,
-                                                     flat_dy.to(w.dtype))}
+    ids, rows, valid = _lookup_rows(ctx, w.shape[0])
+    dy = ctx.input("Out@GRAD").reshape(*ids.shape, w.shape[-1]).to(w.dtype)
+    dy = torch.where(valid[..., None], dy, 0)
+    pad = _padding_keep(ctx, ids, w.dtype)
+    if pad is not None:
+        dy = dy * pad
+    return {"W@GRAD": torch.zeros_like(w).index_add_(
+        0, rows.reshape(-1), dy.reshape(-1, w.shape[-1]))}
 
 
 @register_op("lookup_table", grad_maker=_lookup_grad_maker)
 def lookup_table(ctx):
     w = ctx.input("W")
-    ids = ctx.input("Ids")
-    if ids.dim() >= 2 and ids.shape[-1] == 1:
-        ids = ids[..., 0]
-    out = w[ids.long()]
-    padding_idx = ctx.attr("padding_idx", -1)
-    if padding_idx is not None and padding_idx >= 0:
-        out = out * (ids != padding_idx).to(w.dtype)[..., None]
-    return out
+    ids, rows, valid = _lookup_rows(ctx, w.shape[0])
+    out = torch.where(valid[..., None], w[rows], _take_fill(w.dtype))
+    pad = _padding_keep(ctx, ids, w.dtype)
+    return out if pad is None else out * pad
 
 
 def _hard_labels(logits, label):

@@ -225,6 +225,8 @@ def gather(ctx):
 @register_op("expand")
 def expand(ctx):
     """Tile X `expand_times` times along each axis (reference
-    expand_op.cc; ``jnp.tile`` in the JAX package)."""
-    return ctx.input("X").repeat(*[int(t) for t in
-                                   ctx.attr("expand_times")])
+    expand_op.cc; ``jnp.tile`` in the JAX package). Fewer times than
+    axes take leading 1s, as ``jnp.tile`` pads them."""
+    x = ctx.input("X")
+    times = [int(t) for t in ctx.attr("expand_times")]
+    return x.repeat(*[1] * (x.dim() - len(times)), *times)

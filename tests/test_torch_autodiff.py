@@ -117,6 +117,16 @@ GRAD_CASES = {
                      {"W": [_randn((10, 4), 20)],
                       "Ids": [np.array([[1, 3, 1], [9, 0, 3]], "int64")]},
                      {"Out": 1}, {"padding_idx": -1}, ["Out0"]),
+    # 7 is out of range: its row reads NaN and its grad adds nothing; -1
+    # wraps to row 5. Only rows 1 and 5 of W@GRAD are nonzero
+    "lookup_table_out_of_range": (
+        "lookup_table", {"W": [_randn((6, 4), 38)],
+                         "Ids": [np.array([1, 7, -1], "int64")]},
+        {"Out": 1}, {"padding_idx": -1}, ["Out0"]),
+    # dim [] without reduce_all: the identity, so its grad is the cotangent
+    "reduce_sum_no_dim": ("reduce_sum", {"X": [_randn((3, 4), 39)]},
+                          {"Out": 1}, {"dim": [], "keep_dim": False,
+                                       "reduce_all": False}, ["Out0"]),
     "softmax_with_cross_entropy_smooth": (
         "softmax_with_cross_entropy",
         {"Logits": [_randn((2, 3, 16), 21, 2.0)], "Label": [_LABEL]},

@@ -602,7 +602,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,v,eps,dtype", [
     (512, 32000, 0.1, torch.float32), (512, 32000, 0.0, torch.float32),
-    (33, 1000, 0.1, torch.float32), (64, 32000, 0.1, torch.bfloat16)])
+    (33, 1000, 0.1, torch.float32), (64, 32000, 0.1, torch.bfloat16),
+    # rows off a 16-byte boundary (fp32 V % 4, bf16 V % 8), the MNIST
+    # head, eight CTAs a row with the widest staged slices, and a row too
+    # wide for them (the backward's streamed body)
+    (64, 1001, 0.1, torch.float32), (64, 1003, 0.1, torch.bfloat16),
+    (64, 10, 0.0, torch.float32), (64, 300000, 0.1, torch.float32),
+    (64, 524288, 0.1, torch.float32)])
 def test_xent_kernels_match_plain(cuda, n, v, eps, dtype):
     x, lab, g = _xent_inputs(n, v, seed=20)
     lab[1] = v + 3  # out of range: picks 0, matches no column
@@ -627,6 +633,24 @@ def test_xent_kernels_match_plain(cuda, n, v, eps, dtype):
     rtol = 1e-4 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(dx.float(), wdx.float(), rtol=rtol, atol=1e-9)
     assert (dx[lab == -100] == 0).all() and (loss[lab == -100] == 0).all()
+    # the row's (max, sum) pairs merge in a fixed order: the same bits
+    assert torch.equal(KX.xent_backward(x, lab, g, eps), dx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xent_backward_logits_out_of_phase_with_dx(cuda, dtype):
+    """Logits one row into a bigger tensor at V 1001 start 4 (fp32) or 2
+    (bf16) bytes past a 16-byte boundary, the fresh dx on one: the
+    backward writes such rows column by column."""
+    x, lab, g = _xent_inputs(65, 1001, seed=21)
+    x = torch.from_numpy(x).to(cuda, dtype)[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    lab, g = torch.from_numpy(lab[1:]).to(cuda), torch.from_numpy(g[1:]).to(cuda)
+    dx = KX.xent_backward(x, lab, g, 0.1)
+    wdx = KX.xent_backward_plain(x, lab, g, 0.1)
+    rtol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(dx.float(), wdx.float(), rtol=rtol, atol=1e-9)
 
 
 # the backward kernels against their plain versions: fp32 sums over up to

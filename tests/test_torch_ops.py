@@ -96,6 +96,9 @@ CASES = [
      {"axis": -1}),
     ("equal", "equal", {"X": {"x": _i(0, 4, 6)}, "Y": {"y": _i(2, 3, 1)}},
      {"Out": 1}, {}),
+    # fewer expand_times than dims: leading 1s, as jnp.tile pads them
+    ("expand_short_times", "expand", {"X": {"x": _f(2, 3)}}, {"Out": 1},
+     {"expand_times": [2]}),
     ("fill_constant_float", "fill_constant", {}, {"Out": 1},
      {"shape": [2, 3], "dtype": "float32", "value": 1.5}),
     ("fill_constant_int", "fill_constant", {}, {"Out": 1},
@@ -141,6 +144,16 @@ CASES = [
     ("lookup_table_padding", "lookup_table",
      {"Ids": {"ids": _i(0, 4, 3, 5)}, "W": {"w": _f(4, 6)}},
      {"Out": 1}, {"padding_idx": 2}),
+    # jnp.take's "fill" mode: 11 >= V reads a NaN row, -1 counts from
+    # the end
+    ("lookup_table_out_of_range", "lookup_table",
+     {"Ids": {"ids": np.array([[11], [-1], [3]], "int64")},
+      "W": {"w": _f(10, 3)}}, {"Out": 1}, {"padding_idx": -1}),
+    # the padding mask reads the raw ids: -2 reads row 2 (== padding_idx)
+    # unmasked, 2 itself gives zeros, 5 a NaN row
+    ("lookup_table_padding_negative_id", "lookup_table",
+     {"Ids": {"ids": np.array([[2], [-2], [-1], [5], [1]], "int64")},
+      "W": {"w": _f(4, 6)}}, {"Out": 1}, {"padding_idx": 2}),
     ("matmul", "matmul",
      {"X": {"x": _f(2, 3, 4)}, "Y": {"y": _f(2, 5, 4)}}, {"Out": 1},
      {"transpose_X": False, "transpose_Y": True, "alpha": 0.5}),
@@ -158,6 +171,12 @@ CASES = [
      {"Out": 1}, {"dim": [1], "keep_dim": True, "reduce_all": False}),
     ("reduce_sum_all_int", "reduce_sum", {"X": {"x": _i(0, 3, 4, 2)}},
      {"Out": 1}, {"dim": [0], "keep_dim": True, "reduce_all": True}),
+    # dim [] without reduce_all sums over no axis: X unchanged, as
+    # jnp.sum(x, axis=()), whatever keep_dim says
+    ("reduce_sum_no_dim", "reduce_sum", {"X": {"x": _f(3, 4)}},
+     {"Out": 1}, {"dim": [], "keep_dim": False, "reduce_all": False}),
+    ("reduce_sum_no_dim_keep", "reduce_sum", {"X": {"x": _f(3, 4)}},
+     {"Out": 1}, {"dim": [], "keep_dim": True, "reduce_all": False}),
     ("relu", "relu", {"X": {"x": _f(4, 5)}}, {"Out": 1}, {}),
     ("reshape2", "reshape2", {"X": {"x": _f(2, 3, 4)}}, {"Out": 1},
      {"shape": [0, -1, 2]}),
