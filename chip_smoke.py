@@ -72,7 +72,11 @@ Phases (a failing phase fails the script; none is caught):
    lookup_table: the op and its grad op on the card with ids out of
    range and negative, against the CPU (NaN rows in the same places, the
    same W@GRAD), then a kernel launch that must still run and agree: the
-   CUDA context survived;
+   CUDA context survived; step key: a program of one uniform_random op
+   draws anew on each run of one scope on the card, run_steps on it
+   names why it runs eagerly (a CPU generator's draw, which a graph's
+   replay would repeat) and returns on the card what three runs draw,
+   and a kernel launched after it agrees with its plain version;
 4. slice: Transformer-base (d_model 512, 8 heads, 6+6 layers, d_inner
    2048, vocab 30000), random weights from a seed, built with the port's
    layers as the KV-cached incremental decode program at prompt lengths
@@ -110,7 +114,24 @@ Phases (a failing phase fails the script; none is caught):
    ops launches its forward kernel twice a step, in the forward op and
    in its grad op's recompute, and its backward kernel(s) once), the
    loss finite at each: the step time (best of 3 after a warm-up),
-   tokens/s, peak memory, and one step under torch.profiler.
+   tokens/s, peak memory allocated and reserved, and one step under
+   torch.profiler. Then the run_steps leg: the same 5 steps from a fresh
+   scope with the same weights and feed through Executor.run_steps, whose
+   first call runs step 1 eagerly, captures one step in a CUDA graph and
+   replays it; its losses must match the eager leg's within 1e-6
+   relative; a second call from the seeded weights loaded into the same
+   scope must capture nothing (compile_count) and match too, and is
+   timed (its wall time / 5 is the step time); a third, from the seeded
+   weights again, runs under torch.profiler (busy ms a step, idle share)
+   and must match too. The launch counters must read two steps' launches
+   after the first call (step 1 eager, the capture recording each launch
+   once) and not move at a replay; the profiled call's trace must hold
+   every kernel of the eager profiled step's, none more than 5 times as
+   often (the profiler loses some records of a replay: what it missed is
+   logged). The `kernels` line's launches are the eager legs' counters.
+   After phase 7, phase 5's configuration at the
+   bench's batch, 128 (bench.py:218), eager and run_steps legs without
+   the parity step.
 8. train fused: phase 5's configuration built with
    PADDLE_TPU_FUSE_ATTN_BLOCK=1 set around transformer.build_program:
    each of the 12 self-attention sub-layers is one attention_block op and
@@ -126,7 +147,8 @@ Phases (a failing phase fails the script; none is caught):
    Then 5 Adam steps through the fused kernels (each op launches its
    forward kernel twice a step, in the forward op and, attention_block
    saving P, in its grad op's recompute, and its backward kernel once),
-   timed and profiled as phases 5-7, beside phase 5's unfused step.
+   timed and profiled as phases 5-7 with its run_steps leg, beside phase
+   5's unfused step.
 9. paged serve: Transformer-base through build_decode_step_program with
    the paged cache (16 lanes, 256 blocks of 16 positions, 16 prompt
    entries, prompts and buffers of 256 tokens) under
@@ -210,6 +232,9 @@ TRAIN = dict(vocab=32000, d_model=512, n_heads=8, n_layers=6,
 # the plain attention composition, 512 sdpa_short (all 18 attention ops:
 # tq == tk), 1024 flash
 TRAIN_RUNS = ((256, 64), (512, 32), (1024, 16))
+# bench.py:218's batch at seq 256, in fp32: it fits once the Executor
+# frees each intermediate after its last reader (30.57 GiB eager)
+BENCH_BATCH = 128
 TRAIN_TOKENS = 16384
 TRAIN_STEPS = 5
 LABEL_SMOOTH = 0.1            # transformer()'s default
@@ -235,6 +260,11 @@ XENT_CLUSTERS = (1, 2, 4, 8)
 # its ReLU masks pinned to the card's: there sound runs read at most
 # 1.4e-6 and the TF32 control 8e-4 or more.
 LOSS_RTOL = 1e-5
+# the run_steps legs (K steps through a captured CUDA graph) against the
+# eager legs' losses: the JAX package's own run_steps pin
+# (tests/test_run_steps.py); the embedding grads sum by atomics, so the
+# bits may differ
+STEPS_RTOL = 1e-6
 TRAIN_GRADS = {"logits.w": 1e-5, "src_word_emb": 1e-3,
                "tgt_word_emb": 1e-3, "enc0_a_ln.w": 1e-3,
                "dec0_a_ln.w": 1e-3}
@@ -1716,6 +1746,42 @@ def phase_lookup_table():
     assert err <= LN_TOL, err
 
 
+def phase_step_key():
+    """The step key on the card: a program of one uniform_random op draws
+    anew on each run of one scope; run_steps on it names why it runs
+    eagerly (a draw on a CPU generator would repeat on every replay of a
+    graph) and returns on the card what three run calls draw; a kernel
+    launched afterwards agrees with its plain version."""
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    prog = pf.Program()
+    prog.random_seed = SEED
+    prog.global_block.append_op(
+        "uniform_random", {}, {"Out": ["u"]},
+        {"shape": [4096], "dtype": "float32", "min": -1.0, "max": 1.0,
+         "seed": 0})
+
+    def draws(scope, n):
+        return [gpu.run(prog, fetch_list=["u"], scope=scope,
+                        return_numpy=False)[0] for _ in range(n)]
+
+    a, b = draws(pf.Scope(), 2)
+    want = torch.stack(draws(pf.Scope(), 3))
+    got = gpu.run_steps(prog, feed={}, fetch_list=["u"], steps=3,
+                        scope=pf.Scope(), return_numpy=False)[0]
+    reason = gpu.last_run_steps_fallback
+    torch.cuda.synchronize()
+    log(f"  step key: two runs differ in {int((a != b).sum())} of "
+        f"{a.numel()} values; run_steps: {reason!r}; on {got.device}, "
+        f"equal to three runs: {bool(torch.equal(got, want))}")
+    assert a.is_cuda and not torch.equal(a, b)
+    assert reason is not None and "uniform_random" in reason, reason
+    assert got.is_cuda and torch.equal(got, want)
+    x, s, b, err = _ln_case(64, 512, seed=6)
+    log(f"  after it, layer_norm [64,512] on the card: max_abs_err "
+        f"{err:.3e} (tol {LN_TOL:g})")
+    assert err <= LN_TOL, err
+
+
 # ---------------------------------------------------------------------------
 def _unrolled(prog, steps):
     """`prog` with its while op replaced by `steps` passes of its body,
@@ -2086,10 +2152,13 @@ def _train_steps(tag, s, seq_len, batch, want, card_name, card):
     the seeded weights, every launch counter set to 0 just before and
     read just after (they must equal `want`), the loss finite at each:
     the step time (best of the steps after the first, the last step
-    profiled), target tokens/s and peak memory."""
+    profiled), target tokens/s and peak memory. Then the same steps
+    through Executor.run_steps (`_run_steps_leg`). Returns (the eager
+    leg's launches by kernel, results)."""
     gpu, main, cost, feed = s["gpu"], s["main"], s["cost"], s["feed"]
     scope = s["fresh"](pf.CUDAPlace(0))
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for kern in TRAIN_KERNELS:
         kern.launches = 0
@@ -2109,6 +2178,8 @@ def _train_steps(tag, s, seq_len, batch, want, card_name, card):
         assert np.isfinite(loss).all(), (step, loss)
     counts = {kern.__name__: kern.launches for kern in TRAIN_KERNELS}
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
+    del scope
     log(f"{tag}: {TRAIN_STEPS} Adam steps at batch {batch}, losses "
         + ", ".join(f"{x:.6f}" for x in losses) + f"; launches {counts} "
         f"(layer_norm: {s['ops'].count('layer_norm')} forward ops a step; "
@@ -2118,13 +2189,149 @@ def _train_steps(tag, s, seq_len, batch, want, card_name, card):
     tokens = batch * seq_len
     log(f"{tag}: step {best * 1e3:.1f} ms (best of {len(times) - 1} after "
         f"a {times[0]:.2f} s warm-up step), {tokens / best:.0f} target "
-        f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB on {card_name} "
+        f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB allocated, "
+        f"{peak_reserved / 2 ** 30:.2f} GiB reserved on {card_name} "
         f"({card})")
-    return counts, dict(seq_len=seq_len, batch=batch, losses=losses,
-                        warmup_step_s=times[0], step_ms=best * 1e3,
-                        step_ms_all=[t * 1e3 for t in times],
-                        target_tokens_per_s=tokens / best,
-                        peak_memory_bytes=peak, profile=prof)
+    steps = _run_steps_leg(tag, s, tokens, want, losses,
+                           prof["port_kernel_launches"])
+    log(f"{tag}: run_steps against eager: step {steps['step_ms']:.1f} "
+        f"against {best * 1e3:.1f} ms, {steps['target_tokens_per_s']:.0f} "
+        f"against {tokens / best:.0f} target tokens/s; busy "
+        f"{steps['busy_ms_per_step']} against {prof['device_busy_ms']} ms "
+        f"a step, idle share {steps['profile']['idle_share']} against "
+        f"{prof['idle_share']}; peak allocated "
+        f"{steps['peak_memory_bytes'] / 2 ** 30:.2f} against "
+        f"{peak / 2 ** 30:.2f} GiB, reserved "
+        f"{steps['peak_reserved_bytes'] / 2 ** 30:.2f} against "
+        f"{peak_reserved / 2 ** 30:.2f} GiB (the capturing call: "
+        f"{steps['capture_peak_memory_bytes'] / 2 ** 30:.2f} allocated, "
+        f"{steps['capture_peak_reserved_bytes'] / 2 ** 30:.2f} reserved; "
+        f"a replay's memory lies in the graph's pool, counted reserved, "
+        f"not allocated) on {card_name} ({card})")
+    return counts, dict(
+        seq_len=seq_len, batch=batch, losses=losses,
+        warmup_step_s=times[0], step_ms=best * 1e3,
+        step_ms_all=[t * 1e3 for t in times],
+        target_tokens_per_s=tokens / best, peak_memory_bytes=peak,
+        peak_reserved_bytes=peak_reserved, profile=prof, run_steps=steps)
+
+
+def _run_steps_leg(tag, s, tokens, want, eager_losses, eager_step_trace):
+    """The main path through Executor.run_steps: TRAIN_STEPS steps a call
+    from a fresh scope with the same seeded weights and feed as the eager
+    leg. The first call runs step 1 eagerly, captures one step in a CUDA
+    graph and replays it; the second, timed, and the third, under
+    torch.profiler, start again from the seeded weights loaded into the
+    same scope (the graph's buffers take them) and must capture nothing.
+    Each call's losses must match the eager leg's within STEPS_RTOL.
+
+    Launches, measured two ways. The wrappers' counters, set to 0 before
+    the first call, must read two steps' worth of `want` after it (the
+    eager step 1 launches each kernel, the capture records each launch
+    into the graph once) and must not move over the other calls (a replay
+    runs no wrapper). The third call's trace must hold every kernel of
+    the port's that the eager leg's profiled step did
+    (`eager_step_trace`), and none more than TRAIN_STEPS times as often:
+    the profiler loses some records of a graph replay, so the trace is a
+    lower bound (what it missed is logged).
+
+    Returns the results: the step time (the timed call's wall time /
+    TRAIN_STEPS), target tokens/s, busy ms a step and idle share, the
+    launches, peak memory allocated and reserved over the capturing call
+    and over the timed one."""
+    gpu, main, cost, feed = s["gpu"], s["main"], s["cost"], s["feed"]
+    scope = s["fresh"](pf.CUDAPlace(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    compiles = gpu.compile_count
+    for kern in TRAIN_KERNELS:
+        kern.launches = 0
+    assert all(n % TRAIN_STEPS == 0 for n in want.values()), want
+    two_steps = {k: 2 * n // TRAIN_STEPS for k, n in want.items()}
+
+    def counters():
+        return {kern.__name__: kern.launches for kern in TRAIN_KERNELS}
+
+    def call():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = gpu.run_steps(main, feed=feed, fetch_list=[cost],
+                            steps=TRAIN_STEPS, scope=scope)[0]
+        torch.cuda.synchronize()
+        assert gpu.last_run_steps_fallback is None, \
+            gpu.last_run_steps_fallback
+        assert gpu.compile_count == compiles + 1, gpu.compile_count
+        assert np.isfinite(out).all(), out
+        assert counters() == two_steps, (counters(), two_steps)
+        return out.reshape(-1), time.monotonic() - t0
+
+    def reload():
+        pf.load_numpy_params(scope, s["state0"], pf.CUDAPlace(0))
+        torch.cuda.synchronize()
+
+    first, capture_s = call()
+    peak_capture = (torch.cuda.max_memory_allocated(),
+                    torch.cuda.max_memory_reserved())
+    reload()
+    torch.cuda.reset_peak_memory_stats()
+    second, wall_s = call()
+    peak_replay = (torch.cuda.max_memory_allocated(),
+                   torch.cuda.max_memory_reserved())
+    reload()
+    (third, _), prof = _device_profile(f"{tag} run_steps profile", call)
+    runs = (first, second, third)
+    errs = [max(abs(float(a) - b) / abs(b)
+                for a, b in zip(run, eager_losses)) for run in runs]
+    bitwise = [bool(np.array_equal(run.astype("float64"), eager_losses))
+               for run in runs]
+    trace = prof["port_kernel_launches"]
+    ran = {n: TRAIN_STEPS * c for n, c in eager_step_trace.items()}
+    missed = {n: ran[n] - trace.get(n, 0) for n in ran
+              if trace.get(n, 0) != ran[n]}
+    step_ms = wall_s / TRAIN_STEPS * 1e3
+    busy = prof["device_busy_ms"]
+    log(f"{tag} run_steps: capturing call {capture_s:.2f} s (step 1 eager, "
+        f"one step captured, {TRAIN_STEPS - 1} replays); losses "
+        + ", ".join(f"{x:.6f}" for x in first) + f"; rel err against the "
+        f"eager leg {', '.join(f'{e:.3e}' for e in errs)} (tol "
+        f"{STEPS_RTOL:g}; capturing, timed and profiled calls, the last "
+        f"two from the seeded weights in the same scope, capturing "
+        f"nothing), the same bits: {bitwise}; the timed call "
+        f"{wall_s * 1e3:.1f} ms; the wrappers' counters over the three "
+        f"calls {counters()} (step 1 and the capture); the profiled "
+        f"call's trace by kernel {trace}, short of {TRAIN_STEPS} x the "
+        f"eager step's by {missed or 0}")
+    assert max(errs) <= STEPS_RTOL, errs
+    assert eager_step_trace, "the eager step's trace holds no kernel"
+    assert set(trace) == set(ran) and all(
+        0 < trace[n] <= ran[n] for n in ran), (trace, ran)
+    return dict(
+        losses=[float(x) for x in first], loss_rel_errs=errs,
+        bit_identical=bitwise, capture_call_s=capture_s,
+        call_ms=wall_s * 1e3, step_ms=step_ms,
+        target_tokens_per_s=tokens / (step_ms / 1e3),
+        busy_ms_per_step=None if busy is None else busy / TRAIN_STEPS,
+        capture_call_launches=counters(), trace_launches=trace,
+        trace_missed=missed,
+        peak_memory_bytes=peak_replay[0], peak_reserved_bytes=peak_replay[1],
+        capture_peak_memory_bytes=peak_capture[0],
+        capture_peak_reserved_bytes=peak_capture[1], profile=prof)
+
+
+def _train_per_step(ops, seq_len):
+    """Each unfused training kernel's launches a step: a routed attention
+    op launches its forward kernel in the forward op and again, with its
+    residual, in its grad op's recompute, then its backward kernel(s)."""
+    n_attn = ops.count("attention")
+    per_step = dict(xent_forward=1, xent_backward=1,
+                    layer_norm=ops.count("layer_norm"))
+    if 256 < seq_len <= 512:
+        per_step.update(sdpa_short=2 * n_attn, sdpa_short_bwd=n_attn)
+    elif seq_len > 512:
+        per_step.update(flash_attention=2 * n_attn, flash_bwd_dq=n_attn,
+                        flash_bwd_dkv=n_attn)
+    return per_step
 
 
 def _want_counts(**per_step):
@@ -2229,19 +2436,10 @@ def phase_train(card_name, card, seq_len, batch):
         assert tf_pin_errs[g][0] > tol, \
             f"the pinned {g} check cannot see TF32"
 
-    # the main path: full-batch Adam steps through the kernels. A routed
-    # attention op launches its forward kernel in the forward op and
-    # again, with its residual, in its grad op's recompute
-    n_attn = ops.count("attention")
-    per_step = dict(xent_forward=1, xent_backward=1,
-                    layer_norm=ops.count("layer_norm"))
-    if 256 < seq_len <= 512:
-        per_step.update(sdpa_short=2 * n_attn, sdpa_short_bwd=n_attn)
-    elif seq_len > 512:
-        per_step.update(flash_attention=2 * n_attn, flash_bwd_dq=n_attn,
-                        flash_bwd_dkv=n_attn)
-    counts, res = _train_steps(tag, s, seq_len, batch,
-                               _want_counts(**per_step), card_name, card)
+    # the main path: full-batch Adam steps through the kernels
+    counts, res = _train_steps(
+        tag, s, seq_len, batch, _want_counts(**_train_per_step(ops, seq_len)),
+        card_name, card)
     res.update(loss_rel_err=loss_err,
                grad_errs={g: e[0] for g, e in grad_errs.items()},
                moment1_errs={g: e[1] for g, e in grad_errs.items()},
@@ -2252,6 +2450,20 @@ def phase_train(card_name, card, seq_len, batch):
                                       for g, e in tf_pin_errs.items()},
                tf32_loss_err=tf_loss)
     return counts, res
+
+
+def phase_train_bench_batch(card_name, card):
+    """Phase 5's configuration at the bench's batch (BENCH_BATCH): the
+    eager steps and the run_steps leg, without the CPU parity step
+    (phase 5 holds this program and seq against the CPU). Returns
+    (launches by kernel, results)."""
+    seq_len = TRAIN_RUNS[0][0]
+    tag = f"train T={seq_len} B={BENCH_BATCH}"
+    s = _train_setup(tag, seq_len, BENCH_BATCH)
+    return _train_steps(
+        tag, s, seq_len, BENCH_BATCH,
+        _want_counts(**_train_per_step(s["ops"], seq_len)), card_name,
+        card)
 
 
 def phase_train_fused(card_name, card, unfused):
@@ -2661,6 +2873,8 @@ def main():
     entries = phase_kernels()
     log("phase lookup_table")
     phase_lookup_table()
+    log("phase step key")
+    phase_step_key()
     log("phase slice")
     served_launches, served = phase_slice(name, card)
     trained_launches = dict.fromkeys(KERNEL_META, 0)
@@ -2671,6 +2885,11 @@ def main():
         trained[seq_len]["launches"] = counts
         for kname, n in counts.items():
             trained_launches[kname] += n
+    log(f"phase train T={TRAIN_RUNS[0][0]} B={BENCH_BATCH}")
+    counts, trained["bench_batch"] = phase_train_bench_batch(name, card)
+    trained["bench_batch"]["launches"] = counts
+    for kname, n in counts.items():
+        trained_launches[kname] += n
     log("phase train fused")
     counts, trained["fused"] = phase_train_fused(name, card,
                                                  trained[TRAIN_RUNS[0][0]])

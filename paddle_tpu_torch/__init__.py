@@ -12,11 +12,13 @@ hot paths through CUDA kernels written for Hopper (ops/kernels/).
 Training follows the reference's flow: build with ``layers``, call
 ``fluid.optimizer.Adam(...).minimize(loss)`` (append_backward plus the
 optimizer ops), run the startup program, then ``exe.run(main, feed,
-fetch_list)`` once per step.
+fetch_list)`` once per step, or ``exe.run_steps(main, feed, fetch_list,
+steps=K)`` for K steps at once (on the card, one step captured in a CUDA
+graph and replayed).
 """
 from . import ops  # noqa: F401  (registers every op)
 from . import backward, layers, optimizer, unique_name  # noqa: F401
-from .core.executor import CPUPlace, CUDAPlace, Executor  # noqa: F401
+from .core.executor import CPUPlace, CUDAPlace, Executor, seed  # noqa: F401
 from .core.program import (Program, default_main_program,  # noqa: F401
                            default_startup_program, program_guard)
 from .core.scope import (Scope, _reset_global_scope,  # noqa: F401

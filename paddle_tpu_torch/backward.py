@@ -79,6 +79,8 @@ def append_backward(loss: Variable, parameter_list=None, no_grad_set=None,
         {"value": 1.0, OP_ROLE_KEY: "backward"}))
     produced: Set[str] = {loss_grad}
     _backward_over(op_path, block, no_grad, produced)
+    # the grad ops went into block.ops directly, not through insert_op
+    program._version += 1
 
     if parameter_list is not None:
         params = [p if isinstance(p, Variable)

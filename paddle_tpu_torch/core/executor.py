@@ -4,10 +4,30 @@ Counterpart of ``paddle_tpu/core/executor.py``. The JAX package traces a
 whole Block into one XLA computation; this port runs the reference
 Fluid design instead (framework/executor.cc:377): each op's kernel is
 called in program order on the place's device, and control-flow ops
-interpret their sub-blocks the same way. ``Executor.prepare`` binds a
-program to its fetch list once, as the serving loops run the same
-programs over and over. The executable caches, the on-disk compile
-cache, native builds, ``run_steps`` and sharding of the JAX package
+interpret their sub-blocks the same way.
+
+* ``Executor.run`` keeps a ``PreparedProgram`` per (program uid and
+  version, feed specs, fetch names, scope), so a step walks the block's
+  analysis once, not at every call; an entry of an older version of the
+  program goes when the new one comes. A prepared program frees each
+  intermediate after its last reader (``_last_use_plan_py``, as the JAX
+  package plans it).
+* ``Executor.run_steps`` runs K steps of one program with the
+  reference's contract (stacked ``[K, ...]`` fetches, the K-th step's
+  persistables in the scope). On the card it runs step 1 eagerly, then
+  captures one step in a CUDA graph and replays it for the rest, so a
+  step costs the host one replay in place of every op's dispatch; a
+  later call with the same key replays every step and captures nothing
+  (``compile_count`` counts captures). An executor's graphs share one
+  memory pool, and a program keeps one captured step a scope: capturing
+  it for another key drops the older graph. A program whose step cannot be
+  captured (a ``while`` reading its condition on the host, a draw on a
+  CPU generator) runs K eager steps on the card, with the reason in
+  ``last_run_steps_fallback``. On the CPU every step is eager.
+* The scope's step key (``RNG_VAR``) advances once per step, and sampling
+  ops seed from it, so every run draws anew (``seed`` restarts it).
+
+The on-disk compile cache, native builds and sharding of the JAX package
 have no counterpart here yet.
 
 ``Executor()`` with no place runs on the card (``CUDAPlace(0)``). With
@@ -16,18 +36,35 @@ CPU unless asked to.
 """
 from __future__ import annotations
 
+import warnings
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from .program import Program, Variable, default_main_program
-from .registry import EMPTY_VAR, is_registered, run_op
+from .program import Block, Program, Variable, default_main_program
+from .registry import (EMPTY_VAR, get_op_info, is_registered, run_op,
+                       splitmix64)
 from .scope import Scope, global_scope
 from .types import to_torch_dtype
 
 # feed/fetch are plumbing, never kernels
 _SKIP_OP_TYPES = ("feed", "fetch")
+
+# the scope's step key: a 0-d int64 tensor on the host
+RNG_VAR = "@RNG@"
+
+_global_seed = [0]
+
+
+def seed(s: int):
+    """Set the global seed (``paddle_tpu.seed``): a scope running a
+    program with no ``random_seed`` starts its step key from it. Drops
+    the global scope's step key, so its draws start again."""
+    _global_seed[0] = int(s)
+    global_scope()._vars.pop(RNG_VAR, None)
+
 
 def _init_cuda_context():
     """The JAX package computes in float32; TF32 would change the
@@ -98,6 +135,17 @@ def _coerce_feed(block, name, val, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _feed_specs(feed) -> List[tuple]:
+    """(name, shape, dtype) of each feed value, as the cache keys take
+    them."""
+    specs = []
+    for name, val in feed.items():
+        if not isinstance(val, (np.ndarray, torch.Tensor)):
+            val = np.asarray(val)
+        specs.append((name, tuple(val.shape), str(val.dtype)))
+    return specs
+
+
 def _to_fetch_names(fetch_list) -> List[str]:
     names = []
     if fetch_list is None:
@@ -144,21 +192,69 @@ def _read_names(block, fetch_names):
     return read
 
 
+def _last_use_plan_py(block, feed_names, fetch_names):
+    """For each op of `block`, the names whose last reader or writer it
+    is (``paddle_tpu/core/executor.py`` ``_last_use_plan_py``): a run
+    may drop them right after it. Feeds, fetches and persistables are
+    never dropped."""
+    protect = set(feed_names) | set(fetch_names)
+    last_use = {}
+    for i, op in enumerate(block.ops):
+        for n in op.input_arg_names:
+            last_use[n] = i
+        for n in op.output_arg_names:
+            last_use[n] = i
+    plan = [[] for _ in block.ops]
+    for name, i in last_use.items():
+        if name == EMPTY_VAR or name in protect:
+            continue
+        var = block._find_var_recursive(name)
+        if var is not None and var.persistable:
+            continue
+        plan[i].append(name)
+    return [sorted(p) for p in plan]
+
+
+def _capture_fallback_reason(program) -> Optional[str]:
+    """Why one step of `program` cannot be captured in a CUDA graph
+    (``_scan_fallback_reason`` in the JAX package), or None."""
+    for op in program.global_block.ops:
+        if any(isinstance(v, Block) for v in op.attrs.values()):
+            return (f"op {op.type!r} reads its condition back to the "
+                    f"host every iteration, which a CUDA graph cannot "
+                    f"replay")
+        if is_registered(op.type) and get_op_info(op.type).needs_rng:
+            return (f"op {op.type!r} draws on a CPU generator; a "
+                    f"captured draw would repeat on every replay")
+    return None
+
+
 class Executor:
     """fluid.Executor parity (reference python/paddle/fluid/executor.py:451).
 
-    ``compile_count``, ``cache_hit_count``, ``disk_load_count`` and
-    ``cache_evict_count`` stay 0: an interpreting executor compiles
-    nothing, and the servers' stats keep the JAX package's keys."""
+    ``compile_count`` counts the steps captured in CUDA graphs (the
+    port's counterpart of an XLA compile: serving never captures),
+    ``cache_hit_count`` the calls that found their PreparedProgram
+    cached. ``disk_load_count`` and ``cache_evict_count`` stay 0: the
+    port has no disk cache, and an entry leaves the cache only with its
+    scope or when its program's `_version` moves on."""
 
-    compile_count = 0
-    cache_hit_count = 0
     disk_load_count = 0
     cache_evict_count = 0
 
     def __init__(self, place=None):
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
+        self.compile_count = 0
+        self.cache_hit_count = 0
+        self.last_run_steps_fallback: Optional[str] = None
+        self._cache: Dict[tuple, PreparedProgram] = {}
+        self._warned = set()
+        self._stream = None  # the side stream of warm-ups and captures
+        self._pool = None  # the memory pool every captured graph shares
+        # (program uid, scope uid): the prepared program whose captured
+        # step is alive for them
+        self._capture_owner: Dict[tuple, weakref.ref] = {}
 
     def _committed(self, scope: Scope, name: str) -> torch.Tensor:
         v = scope._get(name)
@@ -174,31 +270,145 @@ class Executor:
     def run(self, program: Optional[Program] = None, feed=None,
             fetch_list=None, scope: Optional[Scope] = None,
             return_numpy: bool = True):
+        """One step, through the PreparedProgram cached for this program,
+        feed specs, fetch list and scope."""
         program = program or default_main_program()
+        scope = scope or global_scope()
         feed = dict(feed or {})
-        return self.prepare(program, feed, fetch_list, scope).run(
-            feed, return_numpy=return_numpy)
+        fetch_names = _to_fetch_names(fetch_list)
+        key = self._block_cache_key(program, _feed_specs(feed),
+                                    fetch_names, scope)
+        prepared = self._prepared(key, scope, lambda: PreparedProgram(
+            self, program, list(feed), fetch_names, scope))
+        return prepared.run(feed, return_numpy=return_numpy)
+
+    def run_steps(self, program: Optional[Program] = None, feed=None,
+                  fetch_list=None, steps: Optional[int] = None,
+                  scope: Optional[Scope] = None,
+                  return_numpy: bool = True):
+        """K steps of `program` (``paddle_tpu/core/executor.py``
+        ``run_steps``), equal to K ``run`` calls: the step key advances
+        once a step and the K-th step's persistables end in the scope.
+
+        `feed` is one dict (the same batch every step; `steps` required)
+        or a list of K dicts binding the same names, stacked and staged
+        on the device with one transfer a name. Returns one stacked
+        ``[K, ...]`` value per fetch: numpy arrays, or with
+        ``return_numpy=False`` tensors on the place's device.
+
+        On the card the first call runs step 1 eagerly on a side stream,
+        captures one step in a CUDA graph on it and replays the graph for
+        the rest; a later call under the same key replays all K. A step
+        that cannot be captured runs eagerly on the card, with the reason
+        in ``last_run_steps_fallback`` (None otherwise) and warned once
+        per program and reason; any other failure to capture raises. On
+        the CPU every step is eager."""
+        program = program or default_main_program()
+        scope = scope or global_scope()
+        stacked = isinstance(feed, (list, tuple))
+        if stacked:
+            feed = [dict(f) for f in feed]
+            if not feed:
+                raise ValueError("run_steps: empty feed list")
+            if steps is None:
+                steps = len(feed)
+            if int(steps) != len(feed):
+                raise ValueError(
+                    f"run_steps: steps={steps} but {len(feed)} feed "
+                    f"dicts were given")
+            names0 = set(feed[0])
+            if any(set(f) != names0 for f in feed):
+                raise ValueError(
+                    "run_steps: all per-step feed dicts must bind the "
+                    "same variable names")
+        else:
+            feed = dict(feed or {})
+            if steps is None:
+                raise ValueError(
+                    "run_steps: steps=K is required when feeding one "
+                    "dict (pass a list of K dicts for per-step batches)")
+        steps = int(steps)
+        if steps < 1:
+            raise ValueError(f"run_steps: steps must be >= 1, got {steps}")
+        first = feed[0] if stacked else feed
+        fetch_names = _to_fetch_names(fetch_list)
+        key = self._block_cache_key(program, _feed_specs(first),
+                                    fetch_names, scope) + (steps, stacked)
+        prepared = self._prepared(key, scope, lambda: PreparedProgram(
+            self, program, list(first), fetch_names, scope, steps=steps))
+        return self._run_steps(prepared, feed, stacked, return_numpy)
 
     def prepare(self, program: Program, feed=None, fetch_list=None,
-                scope: Optional[Scope] = None) -> "PreparedProgram":
+                scope: Optional[Scope] = None,
+                steps: Optional[int] = None) -> "PreparedProgram":
         """A handle that runs `program` with this fetch list against
         `scope` (``paddle_tpu/core/executor.py:1313``): the names the
-        block reads from the scope and the outputs anything reads are
-        found once, here, not at every run. `feed` names the feeds: a
-        dict, or a list of (name, shape, dtype) as a decode bundle's
-        ``serve_feed_spec`` gives it."""
+        block reads from the scope, the outputs anything reads and the
+        last-use plan are found once, here, not at every run. `feed`
+        names the feeds: a dict, or a list of (name, shape, dtype) as a
+        decode bundle's ``serve_feed_spec`` gives it. With `steps` = K,
+        ``run(feed)`` runs K steps on one feed dict as ``run_steps`` does
+        (on the card, through one captured graph kept by the handle),
+        and ``fallback_reason`` names why a step would not be captured.
+        The handle holds `scope` weakly, as the executor's cache does:
+        the caller keeps it."""
         if isinstance(feed, dict):
             feed_names = list(feed)
         else:
             feed_names = [f[0] if isinstance(f, (tuple, list)) else f
                           for f in (feed or ())]
+        if steps is not None and int(steps) < 1:
+            raise ValueError(f"prepare: steps must be >= 1, got {steps}")
         return PreparedProgram(self, program, feed_names,
                                _to_fetch_names(fetch_list),
-                               scope or global_scope())
+                               scope or global_scope(),
+                               steps=None if steps is None else int(steps))
 
-    def _run_block(self, prepared, feed, return_numpy):
-        block = prepared.block
+    # --- the program cache ---------------------------------------------
+    @staticmethod
+    def _block_cache_key(program, feed_specs, fetch_names, scope):
+        """(``_block_cache_key`` in the JAX package, with the scope the
+        prepared program binds.) A `_version` bump misses."""
+        return (program._uid, program._version, tuple(sorted(feed_specs)),
+                tuple(fetch_names), scope._uid)
+
+    def _prepared(self, key, scope, make):
+        """The PreparedProgram cached under `key`, or `make()`'s, kept
+        in the cache until `scope` is gone (with it go the tensors of a
+        captured step) or the program's `_version` moves on: a new entry
+        drops those of the program's older versions for this scope."""
+        prepared = self._cache.get(key)
+        if prepared is not None:
+            self.cache_hit_count += 1
+            return prepared
+        uid, version, scope_uid = key[0], key[1], key[4]
+        for old in [k for k in self._cache if k[0] == uid
+                    and k[4] == scope_uid and k[1] != version]:
+            del self._cache[old]
+        prepared = self._cache[key] = make()
+        weakref.finalize(scope, _forget, weakref.ref(self), key)
+        return prepared
+
+    # --- one step --------------------------------------------------------
+    def _step_key(self, prepared) -> int:
+        """This step's key; the scope's advances once. A scope with no
+        key starts from the program's seed, or the global seed when the
+        program has none."""
         scope = prepared.scope
+        k = scope._get(RNG_VAR)
+        if k is not None:
+            key = int(k)
+        elif prepared.program.random_seed is not None:
+            key = int(prepared.program.random_seed)
+        else:
+            key = _global_seed[0]
+        scope._set(RNG_VAR, torch.tensor(splitmix64(key) >> 1))
+        return key
+
+    def _stage(self, prepared, feed) -> Dict[str, torch.Tensor]:
+        """The env before the first op: the feeds, coerced and on the
+        device, and the values the block reads from the scope."""
+        block = prepared.block
         env: Dict[str, torch.Tensor] = {}
         for name, value in feed.items():
             t = _coerce_feed(block, name, value, self.device)
@@ -206,11 +416,23 @@ class Executor:
             env[name] = t
         for name in prepared.state_in:
             if name not in env:
-                env[name] = self._committed(scope, name)
+                env[name] = self._committed(prepared.scope, name)
+        return env
+
+    def _step(self, prepared, env, key):
+        """The block's ops over `env`, each value dropped after its last
+        reader."""
         with torch.no_grad():
-            for op in prepared.ops:
+            for op, dead in zip(prepared.ops, prepared.frees):
                 run_op(op, env, self.device, prepared.seed,
-                       prepared.needed)
+                       prepared.needed, key)
+                for n in dead:
+                    env.pop(n, None)
+
+    def _run_block(self, prepared, feed, return_numpy):
+        env = self._stage(prepared, feed)
+        self._step(prepared, env, self._step_key(prepared))
+        scope = prepared.scope
         # persistable writes (parameters and optimizer state updated by
         # the optimizer ops, the step counter, a decode bundle's slot
         # state) replace the scope's values
@@ -222,35 +444,247 @@ class Executor:
             return [f.detach().cpu().numpy() for f in fetches]
         return fetches
 
+    # --- K steps ---------------------------------------------------------
+    def _run_steps(self, prepared, feed, stacked, return_numpy):
+        reason = prepared.fallback_reason
+        self.last_run_steps_fallback = reason
+        if reason is not None:
+            tok = (prepared.program._uid, reason)
+            if tok not in self._warned:
+                self._warned.add(tok)
+                warnings.warn(f"run_steps: eager steps: {reason}")
+        staged = self._stage_feeds(prepared.block, feed, stacked)
+        if self.device.type == "cuda" and reason is None:
+            outs = self._graph_steps(prepared, staged, stacked)
+        else:
+            outs = self._eager_steps(prepared, staged, stacked)
+        if return_numpy:
+            return [o.cpu().numpy() for o in outs]
+        return outs
+
+    def _stage_feeds(self, block, feed, stacked):
+        """The feeds on the device: each stacked ``[K, ...]`` from a list
+        of K dicts, moved with one transfer."""
+        if not stacked:
+            staged = {n: _coerce_feed(block, n, v, self.device)
+                      for n, v in feed.items()}
+            for n, t in staged.items():
+                _check_feed_shape(block, n, t)
+            return staged
+        staged = {}
+        for name in feed[0]:
+            cols = [f[name] for f in feed]
+            if all(isinstance(c, torch.Tensor) for c in cols):
+                t = torch.stack(cols)
+            else:
+                t = torch.from_numpy(np.stack([np.asarray(c) for c in cols]))
+            t = _coerce_feed(block, name, t, self.device)
+            _check_feed_shape(block, name, t[0])
+            staged[name] = t
+        return staged
+
+    def _eager_steps(self, prepared, staged, stacked):
+        per_step = [
+            self._run_block(prepared, {n: t[k] for n, t in staged.items()}
+                            if stacked else staged, return_numpy=False)
+            for k in range(prepared.steps)]
+        return [torch.stack(col) for col in zip(*per_step)]
+
+    def _graph_steps(self, prepared, staged, stacked):
+        steps = prepared.steps
+        cap = prepared.captured
+        first = 0
+        if cap is None:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+                self._pool = torch.cuda.graph_pool_handle()
+            self._drop_older_capture(prepared)
+            side = self._stream
+            feed0 = {n: t[0] for n, t in staged.items()} if stacked \
+                else staged
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                warm = self._run_block(prepared, feed0, return_numpy=False)
+                cap = _CapturedStep(self, prepared, feed0, side,
+                                    self._pool)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            prepared.captured = cap
+            self.compile_count += 1
+            first = 1
+        else:
+            cap.load(self, prepared, staged, stacked)
+        outs = [torch.empty((steps, *f.shape), dtype=f.dtype,
+                            device=self.device) for f in cap.fetches]
+        if first:
+            for o, w in zip(outs, warm):
+                o[0].copy_(w)
+        for k in range(first, steps):
+            if stacked:
+                for n, buf in cap.feeds.items():
+                    buf.copy_(staged[n][k])
+            cap.graph.replay()
+            for o, f in zip(outs, cap.fetches):
+                o[k].copy_(f)
+            self._step_key(prepared)
+        for n in prepared.persistable_out:
+            prepared.scope._set(n, cap.state[n])
+        return outs
+
+    def _drop_older_capture(self, prepared):
+        """Before `prepared` captures: the captured step its program has
+        for this scope under another key (another feed shape, `steps`,
+        version) goes, with its buffers, so a program holds one."""
+        owner = (prepared.program._uid, prepared.scope._uid)
+        ref = self._capture_owner.get(owner)
+        old = ref() if ref is not None else None
+        if old is not None and old is not prepared:
+            old.captured = None
+        self._capture_owner[owner] = weakref.ref(prepared)
+
+
+def _forget(exe_ref, key):
+    exe = exe_ref()
+    if exe is not None:
+        exe._cache.pop(key, None)
+
+
+class _CapturedStep:
+    """One step of a prepared program captured in a CUDA graph on
+    `stream`, right after the eager warm-up step that built and loaded
+    the kernels, set their attributes and made cuBLAS's workspace for
+    the stream. The graph reads static buffers: the feeds and every
+    scope value the block reads, which hold the scope's state after the
+    warm-up; it ends by copying each new persistable into its buffer.
+
+    The graph allocates from `pool`, which the executor's other graphs
+    share: what they leave there is overwritten at their replays. So
+    every value that outlives a replay is a buffer made outside the
+    pool (the feeds, the state, every persistable the step writes), and
+    the fetches, which do lie in the pool, are copied out right after
+    each replay."""
+
+    def __init__(self, exe, prepared, feed, stream, pool):
+        scope = prepared.scope
+        self.feeds = {n: t.clone() for n, t in feed.items()}
+        # the persistables the warm-up wrote (a fed one too: its feed
+        # buffer must keep the feed), and a fetch the block neither reads
+        # nor writes, are read from the scope like the block's inputs
+        names = list(dict.fromkeys(prepared.state_in + [
+            n for n in prepared.fetch_names if n not in prepared.written]
+            + prepared.persistable_out))
+        self.state = {n: exe._committed(scope, n).clone() for n in names
+                      if n not in self.feeds
+                      or n in prepared.persistable_out}
+        bufs = {self.state[n].untyped_storage().data_ptr()
+                for n in prepared.persistable_out}
+
+        def own(t):
+            """`t`, or a copy where it lies in a buffer that the copies
+            at the end of the step overwrite (an op may return its input
+            or a view of it)."""
+            return t.clone() if t.untyped_storage().data_ptr() in bufs \
+                else t
+
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+            env = {**self.state, **self.feeds}
+            exe._step(prepared, env, key=0)
+            self.fetches = [own(env[n]) for n in prepared.fetch_names]
+            new = {n: own(env[n]) for n in prepared.persistable_out
+                   if env[n] is not self.state[n]}
+            for n, t in new.items():
+                self.state[n].copy_(t)
+
+    def load(self, exe, prepared, staged, stacked):
+        """Before a later call: the feeds and the scope's values into the
+        static buffers, where they are not already those buffers."""
+        for n, buf in self.feeds.items():
+            src = staged[n][0] if stacked else staged[n]
+            if src.shape != buf.shape or src.dtype != buf.dtype:
+                raise ValueError(
+                    f"run_steps: feed {n!r} is {tuple(src.shape)} "
+                    f"{src.dtype}, the captured step takes "
+                    f"{tuple(buf.shape)} {buf.dtype}; prepare again for "
+                    f"another shape")
+            if not stacked:
+                buf.copy_(src)
+        for n, buf in self.state.items():
+            v = exe._committed(prepared.scope, n)
+            if v is buf:
+                continue
+            if v.shape != buf.shape or v.dtype != buf.dtype:
+                raise ValueError(
+                    f"run_steps: scope value {n!r} is {tuple(v.shape)} "
+                    f"{v.dtype}, the captured step takes "
+                    f"{tuple(buf.shape)} {buf.dtype}")
+            buf.copy_(v)
+
 
 class PreparedProgram:
     """One program bound to a fetch list and a scope
-    (``Executor.prepare``); ``run(feed)`` interprets it."""
+    (``Executor.prepare``); ``run(feed)`` interprets it, or with `steps`
+    runs K steps as ``Executor.run_steps`` does. A program edited since
+    (its `_version` moved) is analysed again at the next run."""
 
     def __init__(self, exe: Executor, program: Program, feed_names,
-                 fetch_names: List[str], scope: Scope):
+                 fetch_names: List[str], scope: Scope,
+                 steps: Optional[int] = None):
+        self.exe = exe
+        self.program = program
+        self.feed_names = list(feed_names)
+        self.fetch_names = fetch_names
+        self.steps = steps
+        self._scope = weakref.ref(scope)
+        self._bind()
+
+    def _bind(self):
+        program = self.program
         block = program.global_block
-        for name in fetch_names:
-            if not block.has_var(name) and name not in feed_names:
+        for name in self.fetch_names:
+            if not block.has_var(name) and name not in self.feed_names:
                 raise KeyError(
                     f"fetch target {name!r} does not exist in the "
                     f"program")
-        self.exe = exe
+        self.version = program._version
         self.block = block
-        self.scope = scope
-        self.fetch_names = fetch_names
         self.ops = [op for op in block.ops
                     if op.type not in _SKIP_OP_TYPES]
-        self.state_in = _state_inputs(block, feed_names)
-        self.needed = _read_names(block, fetch_names)
+        self.state_in = _state_inputs(block, self.feed_names)
+        self.needed = _read_names(block, self.fetch_names)
+        # each op's names to drop after it; a skipped op's pass to the
+        # next op that runs
+        self.frees, pending = [], []
+        for op, dead in zip(block.ops, _last_use_plan_py(
+                block, self.feed_names, self.fetch_names)):
+            pending += dead
+            if op.type not in _SKIP_OP_TYPES:
+                self.frees.append(pending)
+                pending = []
         # sampling ops seed from the program's seed (0 when unset)
         self.seed = program.random_seed or 0
         written = dict.fromkeys(n for op in self.ops
                                 for n in op.output_arg_names)
+        self.written = set(written)
         self.persistable_out = [
             n for n in written
             if (v := block._find_var_recursive(n)) is not None
             and v.persistable]
+        self.fallback_reason = _capture_fallback_reason(program)
+        self.captured: Optional[_CapturedStep] = None
+
+    @property
+    def scope(self) -> Scope:
+        scope = self._scope()
+        if scope is None:
+            raise RuntimeError(
+                "the scope this program was prepared against is gone: "
+                "keep a reference to it while the handle runs")
+        return scope
 
     def run(self, feed=None, return_numpy: bool = True):
-        return self.exe._run_block(self, dict(feed or {}), return_numpy)
+        if self.program._version != self.version:
+            self._bind()
+        feed = dict(feed or {})
+        if self.steps is None:
+            return self.exe._run_block(self, feed, return_numpy)
+        return self.exe._run_steps(self, feed, False, return_numpy)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import itertools
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -187,15 +188,29 @@ class Block:
         return None
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
+        return self.insert_op(len(self.ops), type, inputs, outputs, attrs)
+
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        return self.insert_op(0, type, inputs, outputs, attrs)
+
+    def insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
+        """Every change to the op list bumps the program's `_version`,
+        which the Executor's cache keys on."""
         inputs = _normalize_io(inputs)
         outputs = _normalize_io(outputs)
         op = Operator(self, type, inputs, outputs, attrs)
-        self.ops.append(op)
+        self.ops.insert(index, op)
+        self.program._version += 1
         # infer shapes for outputs eagerly so later layers can read .shape
         from .registry import infer_shape_for_op
 
         infer_shape_for_op(op, self)
         return op
+
+    def _remove_op(self, index):
+        """Drop the op at `index` (reference framework.py Block._remove_op)."""
+        del self.ops[index]
+        self.program._version += 1
 
 def _normalize_io(io) -> Dict[str, List[str]]:
     """Accept {slot: Variable | name | list of either} and normalize."""
@@ -220,13 +235,21 @@ def _normalize_io(io) -> Dict[str, List[str]]:
     return out
 
 
+_program_uid_counter = itertools.count()
+
+
 class Program:
-    """A whole trainable/executable program (reference framework.py:2660)."""
+    """A whole trainable/executable program (reference framework.py:2660).
+
+    `_uid` (process-unique) and `_version` (bumped by every op insert or
+    removal) identify what the Executor caches for it."""
 
     def __init__(self):
         self.blocks: List[Block] = [Block(self, 0)]
         self.current_block_idx = 0
         self._parameters: Dict[str, Variable] = {}
+        self._version = 0
+        self._uid = next(_program_uid_counter)
         self._seed = None
 
     # --- structure ---------------------------------------------------------
@@ -297,6 +320,7 @@ class Program:
                          for n in self._parameters if n in p.global_block.vars}
         p.current_block_idx = 0
         p._seed = self._seed
+        p._version = self._version
         return p
 
     def __repr__(self):

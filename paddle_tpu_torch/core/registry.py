@@ -39,7 +39,7 @@ class OpInfo:
     def __init__(self, type: str, kernel: Callable,
                  infer_shape: Optional[Callable] = None,
                  grad_maker=None, differentiable: bool = True,
-                 stop_gradient_slots=()):
+                 stop_gradient_slots=(), needs_rng: bool = False):
         self.type = type
         self.kernel = kernel
         self.infer_shape = infer_shape
@@ -47,6 +47,8 @@ class OpInfo:
         self.differentiable = differentiable
         # input slots that take no gradient whatever their dtype
         self.stop_gradient_slots = tuple(stop_gradient_slots)
+        # draws from OpContext.generator()
+        self.needs_rng = needs_rng
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
@@ -65,18 +67,22 @@ def is_registered(type: str) -> bool:
 
 class OpContext:
     """What a kernel sees: resolved inputs, attrs, the device that
-    creation ops allocate on, the run's seed for sampling ops, and which
-    outputs a later op or a fetch reads (``needed``; None: all)."""
+    creation ops allocate on, the program's seed and the step key for
+    sampling ops, and which outputs a later op or a fetch reads
+    (``needed``; None: all)."""
 
-    __slots__ = ("op", "attrs", "_inputs", "device", "seed", "_needed")
+    __slots__ = ("op", "attrs", "_inputs", "device", "seed", "key",
+                 "_needed")
 
     def __init__(self, op: Operator, inputs: Dict[str, List],
-                 device: torch.device, seed: int = 0, needed=None):
+                 device: torch.device, seed: int = 0, needed=None,
+                 key: int = 0):
         self.op = op
         self.attrs = op.attrs
         self._inputs = inputs
         self.device = device
         self.seed = seed
+        self.key = key
         self._needed = needed
 
     def output_needed(self, slot) -> bool:
@@ -100,27 +106,51 @@ class OpContext:
         return self.attrs.get(name, default)
 
     def generator(self) -> torch.Generator:
-        """A CPU generator for this op: seeded from the run's seed and
-        the op's structural uid, so identical program builds draw
-        identical values whatever the op order or the device (sampling
-        ops draw on the CPU and move the result)."""
+        """A CPU generator for this op, seeded from the program's seed,
+        the step key (which the Executor advances every step) and the
+        op's structural uid: each step and each op draws anew, and
+        identical program builds under one seed draw identical values
+        whatever the device (sampling ops draw on the CPU and move the
+        result). Counterpart of ``OpContext.rng`` in the JAX package,
+        ``fold_in(step_key, uid)``."""
         g = torch.Generator()
-        g.manual_seed((int(self.seed) * 1000003 + self.op._uid)
-                      % (2 ** 63))
+        g.manual_seed(mix64(self.seed, self.key, self.op._uid))
         return g
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def splitmix64(x: int) -> int:
+    """One step of SplitMix64 (Steele, Lea and Flood, 2014): a bijection
+    of 64-bit integers whose outputs pass BigCrush."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def mix64(*vals: int) -> int:
+    """A 64-bit hash of the integers `vals`, in order."""
+    h = 0
+    for v in vals:
+        h = splitmix64(h ^ (int(v) & _MASK64))
+    return h
+
+
 def register_op(type: str, *, infer_shape=None, grad_maker=None,
-                differentiable=True, stop_gradient_slots=()):
+                differentiable=True, stop_gradient_slots=(),
+                needs_rng=False):
     """Decorator: register ``fn(ctx) -> {out_slot: value|[values]}``.
     `stop_gradient_slots`: input slots whose grad op declares and
-    computes no gradient (an index, a label)."""
+    computes no gradient (an index, a label). `needs_rng`: the kernel
+    draws from ``ctx.generator()``."""
 
     def deco(fn):
         _REGISTRY[type] = OpInfo(
             type, fn, infer_shape=infer_shape, grad_maker=grad_maker,
             differentiable=differentiable,
-            stop_gradient_slots=stop_gradient_slots)
+            stop_gradient_slots=stop_gradient_slots, needs_rng=needs_rng)
         return fn
 
     return deco
@@ -147,9 +177,10 @@ def _normalize_outputs(op: Operator, raw) -> Dict[str, List]:
 
 
 def run_op(op: Operator, env: Dict, device: torch.device,
-           seed: int = 0, needed=None) -> None:
+           seed: int = 0, needed=None, key: int = 0) -> None:
     """Execute one op against an env of name -> tensor; write outputs.
-    `needed`: the names a later op or a fetch reads (None: all)."""
+    `needed`: the names a later op or a fetch reads (None: all); `seed`
+    and `key`: the program's seed and the step key."""
     info = get_op_info(op.type)
     inputs: Dict[str, List] = {}
     for slot, names in op.inputs.items():
@@ -164,7 +195,7 @@ def run_op(op: Operator, env: Dict, device: torch.device,
             else:
                 vals.append(env[n])
         inputs[slot] = vals
-    ctx = OpContext(op, inputs, device, seed, needed)
+    ctx = OpContext(op, inputs, device, seed, needed, key)
     outs = _normalize_outputs(op, info.kernel(ctx))
     for slot, names in op.outputs.items():
         vals = outs.get(slot)
@@ -275,7 +306,8 @@ def make_vjp_grad_kernel(fwd_type: str, fwd_kernel=None):
                 ins[s][i] = v
             for (s, i), v in zip(diff_paths, leaves):
                 ins[s][i] = v
-            inner = OpContext(fwd_op, ins, ctx.device, ctx.seed)
+            inner = OpContext(fwd_op, ins, ctx.device, ctx.seed,
+                              key=ctx.key)
             return _normalize_outputs(fwd_op, fwd(inner))
 
         outs, vjp_fn = torch.func.vjp(f, *diff_leaves)

@@ -10,14 +10,19 @@ bus once.
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import Dict, Optional
 
 import torch
+
+_scope_uid_counter = itertools.count()
 
 
 class Scope:
     def __init__(self):
         self._vars: Dict[str, torch.Tensor] = {}
+        # process-unique identity for the Executor's cache keys
+        self._uid = next(_scope_uid_counter)
 
     def _get(self, name) -> Optional[torch.Tensor]:
         return self._vars.get(name)

@@ -32,11 +32,12 @@ def fill_any_like(ctx):
     return torch.full_like(x, ctx.attr("value", 0.0))
 
 
-@register_op("uniform_random", differentiable=False)
+@register_op("uniform_random", differentiable=False, needs_rng=True)
 def uniform_random(ctx):
-    """Draws on the CPU from the op's seeded generator, then moves:
-    the same seed gives the same weights on every device. A nonzero
-    ``seed`` attr pins the draw, as in the JAX package."""
+    """Draws on the CPU from the op's generator (the program's seed, the
+    step key, the op's uid), then moves: the same seed gives the same
+    weights on every device, and each run of a program draws anew. A
+    nonzero ``seed`` attr pins the draw, as in the JAX package."""
     shape = [int(s) for s in ctx.attr("shape")]
     dtype = to_torch_dtype(ctx.attr("dtype", "float32"))
     if ctx.device.type == "meta":
@@ -57,13 +58,30 @@ def assign(ctx):
     return ctx.input("X")
 
 
+def _constant(ctx, make):
+    """A value fixed by the op's attributes, made by `make()` on
+    ``ctx.device`` once per op and device and reused by every later run.
+    A run copies nothing from the host for it, so a step that holds the
+    op can be captured in a CUDA graph (a pageable host-to-device copy
+    cannot be). Sharing one tensor is safe: ops allocate their outputs
+    (only ``masked_pool_write`` writes its input, a pool, in place)."""
+    made = ctx.op.__dict__.setdefault("_constants", {})
+    t = made.get(ctx.device)
+    if t is None:
+        t = made[ctx.device] = make()
+    return t
+
+
 @register_op("assign_value", differentiable=False)
 def assign_value(ctx):
-    vals = np.asarray(ctx.attr("values"))
-    dtype = to_torch_dtype(ctx.attr("dtype", "float32"))
-    shape = ctx.attr("shape", list(vals.shape))
-    return torch.from_numpy(np.ascontiguousarray(vals)).to(
-        device=ctx.device, dtype=dtype).reshape(shape)
+    def make():
+        vals = np.asarray(ctx.attr("values"))
+        dtype = to_torch_dtype(ctx.attr("dtype", "float32"))
+        shape = ctx.attr("shape", list(vals.shape))
+        return torch.from_numpy(np.ascontiguousarray(vals)).to(
+            device=ctx.device, dtype=dtype).reshape(shape)
+
+    return _constant(ctx, make)
 
 
 @register_op("cast")
@@ -160,10 +178,14 @@ def range_op(ctx):
         raise NotImplementedError(
             "range: tensor-valued Start/End/Step are not supported; "
             "pass python scalars")
-    vals = np.arange(float(start), float(ctx.attr("end")),
-                     float(ctx.attr("step")))
-    dtype = to_torch_dtype(ctx.attr("dtype", "float32"))
-    return torch.from_numpy(vals).to(device=ctx.device, dtype=dtype)
+
+    def make():
+        vals = np.arange(float(start), float(ctx.attr("end")),
+                         float(ctx.attr("step")))
+        dtype = to_torch_dtype(ctx.attr("dtype", "float32"))
+        return torch.from_numpy(vals).to(device=ctx.device, dtype=dtype)
+
+    return _constant(ctx, make)
 
 
 @register_op("arg_max", differentiable=False)
