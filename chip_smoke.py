@@ -6,7 +6,8 @@ Phases (a failing phase fails the script; none is caught):
 
 1. device: the card's name and count, its power limit from nvidia-smi,
    and the TF32 switches (off: the port computes in fp32 like the JAX
-   package);
+   package) and cuBLAS's bf16 reduced-precision reductions (off: a bf16
+   product accumulates in fp32);
 2. build: every CUDA kernel of the serving and training paths, from the
    sources in this checkout (paddle_tpu_torch/ops/kernels/csrc), one
    nvcc each, all started together;
@@ -69,6 +70,15 @@ Phases (a failing phase fails the script; none is caught):
    for the split-TF32 kernels, every attention kernel and the four
    fused-block kernels, also three times their function's products over
    495 TFLOP/s, with their TFLOP/s);
+   the attention kernels #2-#6 also in bf16 (AMP) at the training
+   shapes, causal and not: outputs, the saved bf16 P, the fp32 lse and
+   the grads within 2^-8 of the largest |plain| in at most 5% of the
+   elements, no further from a float64 oracle than twice the plain
+   version, the same bits on a second launch; planted faults (the flash
+   backward fed lse + 1e-2, the causal flag dropped, #6's dS as one bf16
+   term) must fail; each timed beside its bf16 bound (bytes / 3.35 TB/s
+   against products / 989 TFLOP/s) and the library's flash SDPA in bf16,
+   in each kernel's `bf16` field of the kernels line;
    lookup_table: the op and its grad op on the card with ids out of
    range and negative, against the CPU (NaN rows in the same places, the
    same W@GRAD), then a kernel launch that must still run and agree: the
@@ -76,7 +86,9 @@ Phases (a failing phase fails the script; none is caught):
    draws anew on each run of one scope on the card, run_steps on it
    names why it runs eagerly (a CPU generator's draw, which a graph's
    replay would repeat) and returns on the card what three runs draw,
-   and a kernel launched after it agrees with its plain version;
+   and a kernel launched after it agrees with its plain version, and a
+   dropout op's masks on the card equal the CPU's over two steps (the
+   device step key's draw is int64 SplitMix64 on both);
 4. slice: Transformer-base (d_model 512, 8 heads, 6+6 layers, d_inner
    2048, vocab 30000), random weights from a seed, built with the port's
    layers as the KV-cached incremental decode program at prompt lengths
@@ -113,7 +125,8 @@ Phases (a failing phase fails the script; none is caught):
    and launching nothing; at seq 512 and 1024 each of the 18 attention
    ops launches its forward kernel twice a step, in the forward op and
    in its grad op's recompute, and its backward kernel(s) once), the
-   loss finite at each: the step time (best of 3 after a warm-up),
+   loss finite at each: the step time (best of 2 after a warm-up; the
+   last 2 steps run under the profiler),
    tokens/s, peak memory allocated and reserved, and one step under
    torch.profiler. Then the run_steps leg: the same 5 steps from a fresh
    scope with the same weights and feed through Executor.run_steps, whose
@@ -131,7 +144,24 @@ Phases (a failing phase fails the script; none is caught):
    logged). The `kernels` line's launches are the eager legs' counters.
    After phase 7, phase 5's configuration at the
    bench's batch, 128 (bench.py:218), eager and run_steps legs without
-   the parity step.
+   the parity step. Then the bf16 legs under amp.amp_guard(True): the
+   bench's own settings (seq 256, batch 128, vocab 32000, Adam under
+   noam_decay(512, 8000), dropout 0), seq 512 / batch 32 and 1024 /
+   batch 16 (#5/#6 and #2-#4 in bf16): each a 2-row step-1 parity
+   against the port's CPU run under AMP (the loss, and the first encoder
+   and decoder attention outputs within the bf16 kernels' gate, which
+   the card's step with AMP off must fail), then the eager and run_steps
+   legs as above (one capture each, the launch counters as predicted,
+   peak memory). Then the dropout leg: phase 5's configuration at
+   dropout 0.1. Step 1 on 2 rows against the port's CPU run from the
+   same weights, program seed and step key: the loss, the first dropout
+   op's Out and the first attention op's Out (dropout on P) within 1e-5,
+   which the CPU run from another step key must fail for both Outs.
+   Then captured through run_steps (no eager reason), K replayed steps
+   equal to K Executor.run steps within 1e-6, the first dropout op's
+   mask other at every step, the losses other than phase 5's by more
+   than 1e-6; one eager step's mask draws timed alone, for their share
+   of the step.
 8. train fused: phase 5's configuration built with
    PADDLE_TPU_FUSE_ATTN_BLOCK=1 set around transformer.build_program:
    each of the 12 self-attention sub-layers is one attention_block op and
@@ -189,8 +219,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import paddle_tpu_torch as pf  # noqa: E402
-from paddle_tpu_torch import unique_name  # noqa: E402
+from paddle_tpu_torch import amp, unique_name  # noqa: E402
 from paddle_tpu_torch.core import registry  # noqa: E402
+from paddle_tpu_torch.core.executor import RNG_VAR  # noqa: E402
 from paddle_tpu_torch.inference import serving  # noqa: E402
 from paddle_tpu_torch.models import decode_engine  # noqa: E402
 from paddle_tpu_torch.models import transformer  # noqa: E402
@@ -205,6 +236,7 @@ from paddle_tpu_torch.ops.kernels import xent as KX  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # fp32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12      # TF32 on the tensor cores, dense
+BF16_FLOP_PER_S = 989e12      # bf16 on the tensor cores, dense
 LN_TOL = 1e-5                 # fp32, summation order
 ATTN_TOL = 2e-5               # fp32, summation order over T keys
 P_TOL = 1e-6                  # saved P (values <= 1): fp32 rounding
@@ -219,6 +251,26 @@ ATTN_BWD_RTOL = 1e-5
 # read at most 7.9e-7; the same step with TF32 on must read above this
 LOGITS_TOL = 1e-5
 SEED = 2026
+# the bf16 attention kernels against their plain versions on the same
+# bf16 inputs: both compute in fp32 and round once, so at most one bf16
+# ulp apart (2^-8 of the largest |plain|), in the few elements whose
+# fp32 values straddle a rounding boundary; an fp32 intermediate fed to
+# a product as one bf16 term (dS in #6) moves a large share of them
+BF16_REL = 2 ** -8
+BF16_SHARE = 0.05
+# the bf16 training legs' step-1 parity, card against the CPU under AMP
+# on 2 rows: the first encoder and decoder attention outputs (bf16) in at
+# most 5% of the elements, as the kernels' gate, and within 2^-6 of the
+# largest |CPU| (their q, k and v already carry the few 1-ulp flips of
+# the products before them, which move an output by more than one
+# rounding: 4.76e-3 read at seq 256); the same step with AMP off (fp32
+# outputs, every element other) fails it
+AMP_ACT_REL = 2 ** -6
+AMP_ACT_SHARE = 0.05
+# (seq_len, batch) of the bf16 legs: the bench's own (bench.py:211-233,
+# seq 256 at batch 128), then #5/#6 and #2-#4 in bf16
+BF16_RUNS = ((256, 128), (512, 32), (1024, 16))
+DROPOUT_RATE = 0.1            # Transformer-base's
 
 MODEL = dict(d_model=512, n_heads=8, n_layers=6, d_inner=2048,
              vocab=30000, max_out_len=32, start_id=0, end_id=1)
@@ -405,10 +457,14 @@ def phase_device():
     log(f"device: {name} x{count}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(card)
+    mm = torch.backends.cuda.matmul
+    bf16_red = mm.allow_bf16_reduced_precision_reduction
     log(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn {torch.backends.cudnn.allow_tf32}")
+        f"cudnn {torch.backends.cudnn.allow_tf32}; bf16 reduced-precision "
+        f"reductions {bf16_red}")
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    assert not bf16_red
     return name, count, card
 
 
@@ -572,9 +628,9 @@ def _attn_bwd_entries():
     for i, (b, h, t, d, causal) in enumerate((
             (b512, 8, 512, 64, False), (b512, 8, 512, 64, True),
             (2, 4, 384, 128, True),
-            # ragged tiles; T 13: odd rows of P, which the forward stores a
-            # float at a time and the backward's O = P v copies 4 bytes at
-            # a time (the wrapper passes any T <= 512 to the C entries)
+            # ragged tiles; T 13: odd rows of P, which the forward stores
+            # and the backward reads a float at a time (the wrapper passes
+            # any T <= 512 to the C entries)
             (1, 4, 264, 64, True), (1, 2, 300, 128, False),
             (1, 2, 13, 64, True))):
         q, k, v = _qkv(b, h, t, t, d, seed=40 + i)
@@ -764,7 +820,8 @@ def _attn_bwd_entries():
                                                         scale),
                 4 * (7 * n_td + n_tt), 8 * n_tt * d + 4 * n_tt, 4, 6,
                 "dv = P^T dO, dP = dO v^T, dq = ds k, dk = ds^T q; the "
-                "kernel also forms O = P v and dP^T")}
+                "kernel also forms dP a second time (delta's sweep) and "
+                "dP^T")}
         else:
             o, lse = KA._flash_attention_launch(q, k, v, scale, False, True)
             want = KA.flash_attention_bwd_plain(q, k, v, o, lse, g, scale,
@@ -1484,6 +1541,8 @@ def phase_kernels():
     for name in ("sdpa_short", "flash_attention"):
         entries[name]["residual"] = residual.pop(name)
     entries.update(residual)
+    for name, e in _bf16_line(_attn_bf16_entries()).items():
+        entries[name]["bf16"] = e
     entries.update(_fused_entries())
     entries.update(_paged_entries())
     return entries
@@ -1776,6 +1835,7 @@ def phase_step_key():
     assert a.is_cuda and not torch.equal(a, b)
     assert reason is not None and "uniform_random" in reason, reason
     assert got.is_cuda and torch.equal(got, want)
+    _dropout_mask_parity()
     x, s, b, err = _ln_case(64, 512, seed=6)
     log(f"  after it, layer_norm [64,512] on the card: max_abs_err "
         f"{err:.3e} (tol {LN_TOL:g})")
@@ -1872,22 +1932,35 @@ def _port_kernel(name):
     return n if ident in names and space in spaces else None
 
 
+PROFILE_WARMUP = 32  # sleep kernels run under the profiler before `run`
+
+
 def _device_profile(tag, run, match=None):
     """`run()` once under torch.profiler: its wall time, the card's busy
     time (device-side activities: kernels, copies, memsets), the idle
     share, the kernels that took most of it, every kernel of the port's
     with its launches, and (`match`) the device time of the activities
-    whose name holds that string. Returns (run's result, the numbers)."""
+    whose name holds that string. Returns (run's result, the numbers).
+
+    The profiler can miss the first activities after it starts (an eager
+    fused step's first 25, in one call), so PROFILE_WARMUP short sleep
+    kernels and 20 ms of host time come first; they are left out of
+    every number, and how many of them were recorded is kept."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_WARMUP):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+        time.sleep(0.02)
         t0 = time.monotonic()
         out = run()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     acts = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    warm = sum("spin_kernel" in e.name for e in acts)
+    acts = [e for e in acts if "spin_kernel" not in e.name]
     busy_ms = sum(e.time_range.elapsed_us() for e in acts) / 1e3
     by_name = {}
     for e in acts:
@@ -1904,7 +1977,7 @@ def _device_profile(tag, run, match=None):
     res = dict(profiled_wall_ms=wall_ms,
                device_busy_ms=busy_ms if acts else None,
                idle_share=1 - busy_ms / wall_ms if acts else None,
-               device_activities=len(acts),
+               device_activities=len(acts), warmup_recorded=warm,
                top_kernels_ms={n[:60]: ms for n, ms in top},
                port_kernels_ms={n: ms for n, (ms, _) in port.items()},
                port_kernel_launches={n: c for n, (_, c) in port.items()})
@@ -1914,7 +1987,8 @@ def _device_profile(tag, run, match=None):
     if acts:
         log(f"{tag}: profiled wall {wall_ms:.1f} ms, device busy "
             f"{busy_ms:.1f} ms, idle share {res['idle_share']:.3f}, "
-            f"{len(acts)} device activities")
+            f"{len(acts)} device activities (and {warm} of the "
+            f"{PROFILE_WARMUP} warm-up kernels)")
         for n, ms in top:
             log(f"  {ms:8.2f} ms  {n[:90]}")
         if port:
@@ -2085,19 +2159,20 @@ def _relu_masks(masks):
         info.kernel = kernel
 
 
-def _train_setup(tag, seq_len, batch, fused=False):
-    """Transformer-base's training program at `seq_len`, built with the
-    fused-block switch (FUSE_KNOB) set or cleared around the build, its
-    startup run on the card once, and the feeds: `batch` rows of random
-    token ids and their first 2 rows for the parity step."""
+def _train_setup(tag, seq_len, batch, fused=False, dropout_rate=0.0):
+    """Transformer-base's training program at `seq_len` (at
+    `dropout_rate`), built with the fused-block switch (FUSE_KNOB) set or
+    cleared around the build, its startup run on the card once, and the
+    feeds: `batch` rows of random token ids and their first 2 rows for
+    the parity step."""
     prev = os.environ.pop(FUSE_KNOB, None)
     if fused:
         os.environ[FUSE_KNOB] = "1"
     t0 = time.monotonic()
     try:
         with unique_name.guard():
-            main, startup, cost = transformer.build_program(seq_len=seq_len,
-                                                            **TRAIN)
+            main, startup, cost = transformer.build_program(
+                seq_len=seq_len, **dict(TRAIN, dropout_rate=dropout_rate))
     finally:
         os.environ.pop(FUSE_KNOB, None)
         if prev is not None:
@@ -2151,10 +2226,12 @@ def _train_steps(tag, s, seq_len, batch, want, card_name, card):
     """The main path: TRAIN_STEPS full-batch Adam steps on the card from
     the seeded weights, every launch counter set to 0 just before and
     read just after (they must equal `want`), the loss finite at each:
-    the step time (best of the steps after the first, the last step
-    profiled), target tokens/s and peak memory. Then the same steps
-    through Executor.run_steps (`_run_steps_leg`). Returns (the eager
-    leg's launches by kernel, results)."""
+    the step time (best of the steps after the first but the last two),
+    target tokens/s and peak memory; the last two steps run under the
+    profiler, each kernel's launches a step taken as the larger count of
+    the two (the profiler may lose a record of either). Then the same
+    steps through Executor.run_steps (`_run_steps_leg`). Returns (the
+    eager leg's launches by kernel, results)."""
     gpu, main, cost, feed = s["gpu"], s["main"], s["cost"], s["feed"]
     scope = s["fresh"](pf.CUDAPlace(0))
     torch.cuda.synchronize()
@@ -2162,11 +2239,12 @@ def _train_steps(tag, s, seq_len, batch, want, card_name, card):
     torch.cuda.reset_peak_memory_stats()
     for kern in TRAIN_KERNELS:
         kern.launches = 0
-    losses, times = [], []
+    losses, times, profs = [], [], []
     for step in range(TRAIN_STEPS):
-        if step == TRAIN_STEPS - 1:
+        if step >= TRAIN_STEPS - 2:
             loss, prof = _device_profile(f"{tag} profile", lambda: gpu.run(
                 main, feed=feed, fetch_list=[cost], scope=scope)[0])
+            profs.append(prof["port_kernel_launches"])
         else:
             torch.cuda.synchronize()
             t0 = time.monotonic()
@@ -2176,6 +2254,8 @@ def _train_steps(tag, s, seq_len, batch, want, card_name, card):
             times.append(time.monotonic() - t0)
         losses.append(float(loss[0]))
         assert np.isfinite(loss).all(), (step, loss)
+    step_trace = {n: max(p.get(n, 0) for p in profs)
+                  for n in set().union(*profs)}
     counts = {kern.__name__: kern.launches for kern in TRAIN_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
@@ -2192,8 +2272,7 @@ def _train_steps(tag, s, seq_len, batch, want, card_name, card):
         f"tokens/s, peak memory {peak / 2 ** 30:.2f} GiB allocated, "
         f"{peak_reserved / 2 ** 30:.2f} GiB reserved on {card_name} "
         f"({card})")
-    steps = _run_steps_leg(tag, s, tokens, want, losses,
-                           prof["port_kernel_launches"])
+    steps = _run_steps_leg(tag, s, tokens, want, losses, step_trace)
     log(f"{tag}: run_steps against eager: step {steps['step_ms']:.1f} "
         f"against {best * 1e3:.1f} ms, {steps['target_tokens_per_s']:.0f} "
         f"against {tokens / best:.0f} target tokens/s; busy "
@@ -2864,6 +2943,526 @@ def phase_paged(card_name, card):
                           longest=steps)
 
 
+# ---------------------------------------------------------------------------
+# bf16 (AMP): the attention kernels #2-#6 and the training legs
+# ---------------------------------------------------------------------------
+def _bf16_gate(got, want):
+    """(max |got - want| over the largest |want|, the share of elements
+    whose values differ): both compute in fp32 from the same bf16 inputs
+    and round once, so they differ by at most one bf16 ulp, in the few
+    elements whose fp32 values straddle a rounding boundary."""
+    g, w = got.float(), want.float()
+    return (float((g - w).abs().max()) / float(w.abs().max()),
+            float((g != w).float().mean()))
+
+
+def _bf16_ok(got, want):
+    rel, share = _bf16_gate(got, want)
+    return (bool(torch.isfinite(got.float()).all()) and rel <= BF16_REL
+            and share <= BF16_SHARE)
+
+
+def _f64_attention(q, k, v, scale, causal):
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * scale
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=s.device).tril(s.shape[-1] - s.shape[-2])
+        s = s.masked_fill(~keep, torch.finfo(s.dtype).min)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.double())
+
+
+def _f64_flash_grads(q, k, v, g, scale, causal):
+    """The attention's grads in float64, by autograd."""
+    qkv = [x.double().requires_grad_() for x in (q, k, v)]
+    out = _f64_attention(*qkv, scale, causal)
+    return torch.autograd.grad(out, qkv, g.double())
+
+
+def _f64_sdpa_bwd(q, k, v, p, g, scale, single_bf16_ds=False):
+    """sdpa_short's backward from the saved P in float64; with
+    `single_bf16_ds` dS rounded to one bf16 term before its products (a
+    kernel that did not split it)."""
+    q, k, v, p, g = (x.double() for x in (q, k, v, p, g))
+    p = p.reshape(*q.shape[:2], *p.shape[-2:])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    if single_bf16_ds:
+        ds = ds.to(torch.bfloat16).double()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale, dv)
+
+
+def _f64_ratio(got, want, oracle):
+    """How much further `got` lies from the float64 oracle than the plain
+    version does: at most 2 passes."""
+    g = float((got.double() - oracle).abs().max())
+    w = float((want.double() - oracle).abs().max())
+    return g / max(w, 1e-30)
+
+
+def _bf16_bound_ms(nbytes, products):
+    """The bf16 bound: bytes over 3.35 TB/s against the products over
+    989 TFLOP/s (bf16 dense, the data sheet's)."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = products / BF16_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _lib_sdpa_bf16(q, k, v, scale, causal=False):
+    """torch's fused SDPA in bf16, its flash backend alone: the
+    yardstick. The port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=scale, is_causal=causal)
+
+
+def _attn_bf16_entries():
+    """#2-#6 on bf16 q, k, v and dO at the training path's shapes
+    ([32,8,512,64] sdpa_short, [16,8,1024,64] flash), causal and not:
+    outputs, the saved bf16 P and the grads within BF16_REL of their
+    plain versions in at most BF16_SHARE of the elements, lse within
+    LSE_TOL; each no further from a float64 oracle than twice the plain
+    version is; a second launch the same bits. Planted faults must fail
+    the gate: the flash backward fed an lse off by 1e-2, the forwards and
+    the flash backward launched with the causal flag dropped, and #6's dS
+    as one bf16 term. Then each kernel's time beside its bf16 bound, its
+    plain version and the library's flash SDPA (forward; its backward,
+    which computes dq, dk and dv together, beside the backward
+    kernels)."""
+    out = {n: dict(errs=[], ratios=[]) for n in (
+        "sdpa_short", "sdpa_short_bwd", "flash_attention", "flash_bwd_dq",
+        "flash_bwd_dkv")}
+    bf = torch.bfloat16
+    for kind, (b, h, t, d) in (("sdpa_short", (TRAIN_TOKENS // 512, 8, 512,
+                                               64)),
+                               ("flash", (TRAIN_TOKENS // 1024, 8, 1024,
+                                          64))):
+        for causal in (False, True):
+            q, k, v = (x.to(bf) for x in _qkv(b, h, t, t, d, seed=70 + t))
+            g = _randn_like(q, 71 + t).to(bf)
+            scale = d ** -0.5
+            oracle = _f64_attention(q, k, v, scale, causal)
+            if kind == "sdpa_short":
+                runs = [KA._sdpa_short_launch(q, k, v, scale, causal, True)
+                        for _ in range(2)]
+                primal = KA._sdpa_short_launch(q, k, v, scale, causal,
+                                               False)
+                o, p = runs[0]
+                wo, wp = KA.sdpa_short_plain(q, k, v, scale, causal,
+                                             save_p=True)
+                grads = [KA.sdpa_short_bwd(q, k, v, p, g, scale, causal)
+                         for _ in range(2)]
+                wgrads = KA.sdpa_short_bwd_plain(q, k, v, p, g, scale)
+                f64 = _f64_sdpa_bwd(q, k, v, p, g, scale)
+                single = [x.to(bf) for x in _f64_sdpa_bwd(
+                    q, k, v, p, g, scale, single_bf16_ds=True)]
+                faults = {"dS as one bf16 term": not all(
+                    _bf16_ok(a, w) for a, w in zip(single[:2], wgrads[:2]))}
+                res_ok = _bf16_ok(p, wp)
+                res_gate = _bf16_gate(p, wp)
+                bwd_names = ("sdpa_short_bwd",) * 3
+            else:
+                runs = [KA._flash_attention_launch(q, k, v, scale, causal,
+                                                   True) for _ in range(2)]
+                primal = KA._flash_attention_launch(q, k, v, scale, causal,
+                                                    False)
+                o, p = runs[0]
+                wo, wp = KA.flash_attention_plain(q, k, v, scale, causal,
+                                                  with_lse=True)
+                grads = [KA.flash_attention_bwd(q, k, v, o, p, g, scale,
+                                                causal) for _ in range(2)]
+                wgrads = KA.flash_attention_bwd_plain(q, k, v, o, p, g,
+                                                      scale, causal)
+                f64 = _f64_flash_grads(q, k, v, g, scale, causal)
+                bad = KA.flash_attention_bwd(q, k, v, o, p + 1e-2, g, scale,
+                                             causal)
+                faults = {"lse + 1e-2": not all(
+                    _bf16_ok(a, w) for a, w in zip(bad, wgrads))}
+                if causal:
+                    bad = KA.flash_attention_bwd(q, k, v, o, p, g, scale,
+                                                 False)
+                    faults["bwd causal dropped"] = not all(
+                        _bf16_ok(a, w) for a, w in zip(bad, wgrads))
+                res_gate = (max_err(p, wp), 0.0)
+                res_ok = res_gate[0] <= LSE_TOL
+                bwd_names = ("flash_bwd_dq", "flash_bwd_dkv",
+                             "flash_bwd_dkv")
+            if causal:
+                launch = KA._sdpa_short_launch if kind == "sdpa_short" \
+                    else KA._flash_attention_launch
+                faults["fwd causal dropped"] = not _bf16_ok(
+                    launch(q, k, v, scale, False, False), wo)
+            torch.cuda.synchronize()
+            fname = "sdpa_short" if kind == "sdpa_short" \
+                else "flash_attention"
+            repeat = (torch.equal(runs[0][0], runs[1][0])
+                      and torch.equal(runs[0][1], runs[1][1])
+                      and torch.equal(primal, o)
+                      and all(torch.equal(a, b_)
+                              for a, b_ in zip(*grads)))
+            fwd_gate = _bf16_gate(o, wo)
+            fwd_ratio = _f64_ratio(o, wo, oracle)
+            bwd = [(n, _bf16_gate(a, w), _f64_ratio(a, w, f))
+                   for n, a, w, f in zip(("dq", "dk", "dv"), grads[0],
+                                         wgrads, f64)]
+            log(f"  {fname} bf16 [{b},{h},{t},{d}] causal={causal}: out "
+                f"rel {fwd_gate[0]:.3e} share {fwd_gate[1]:.4f} (tol "
+                f"{BF16_REL:.3e}, {BF16_SHARE}), {fwd_ratio:.2f}x the plain "
+                f"version's distance to float64; residual "
+                f"{res_gate[0]:.3e} share {res_gate[1]:.4f}; grads "
+                + ", ".join(f"{n} rel {gt[0]:.3e} share {gt[1]:.4f} "
+                            f"{r:.2f}x" for n, gt, r in bwd)
+                + f"; the same bits twice {repeat}; planted faults fail "
+                f"{faults}")
+            assert _bf16_ok(o, wo) and res_ok, (fwd_gate, res_gate)
+            assert fwd_ratio <= 2.0, fwd_ratio
+            for (n, gt, r), a, w in zip(bwd, grads[0], wgrads):
+                assert _bf16_ok(a, w) and r <= 2.0, (n, gt, r)
+            assert repeat and all(faults.values()), (repeat, faults)
+            out[fname]["errs"].append(max_err(o, wo))
+            out[fname]["ratios"].append(fwd_ratio)
+            for name, (_, gt, r), a, w in zip(bwd_names, bwd, grads[0],
+                                              wgrads):
+                out[name]["errs"].append(max_err(a, w))
+                out[name]["ratios"].append(r)
+            del runs, grads, wgrads, f64, oracle
+            if kind == "sdpa_short":
+                del single
+    return out | _bf16_timing()
+
+
+def _bf16_timing():
+    """Times at the main shapes, non-causal, in bf16: each kernel, its
+    plain version, its bf16 bound and the library's flash SDPA."""
+    bf = torch.bfloat16
+    res = {}
+    for kind, (b, h, t, d) in (("sdpa_short", (TRAIN_TOKENS // 512, 8, 512,
+                                               64)),
+                               ("flash", (TRAIN_TOKENS // 1024, 8, 1024,
+                                          64))):
+        q, k, v = (x.to(bf) for x in _qkv(b, h, t, t, d, seed=80 + t))
+        g = _randn_like(q, 81 + t).to(bf)
+        scale = d ** -0.5
+        n = q.numel()
+        products = 2 * b * h * t * t * d  # one [t, t] x [t, d] product
+        lib_ms = time_ms(lambda: _lib_sdpa_bf16(q, k, v, scale))
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        lo = _lib_sdpa_bf16(qr, kr, vr, scale)
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            lo, (qr, kr, vr), g, retain_graph=True), iters=10)
+        if kind == "sdpa_short":
+            names = ("sdpa_short", "sdpa_short_bwd")
+            fwd = (lambda: KA._sdpa_short_launch(q, k, v, scale, False,
+                                                 False))
+            fwd_res = (lambda: KA._sdpa_short_launch(q, k, v, scale, False,
+                                                     True))
+            _, p = fwd_res()
+            calls = {"sdpa_short_bwd": (
+                lambda: KA.sdpa_short_bwd(q, k, v, p, g, scale),
+                lambda: KA.sdpa_short_bwd_plain(q, k, v, p, g, scale),
+                2 * (7 * n + b * h * t * t), 4 * products)}
+            plain = (lambda: KA.sdpa_short_plain(q, k, v, scale, False))
+            res_bytes = 2 * b * h * t * t
+        else:
+            names = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")
+            fwd = (lambda: KA._flash_attention_launch(q, k, v, scale,
+                                                      False, False))
+            fwd_res = (lambda: KA._flash_attention_launch(q, k, v, scale,
+                                                          False, True))
+            o, lse = fwd_res()
+            delta = KA.flash_delta(o, g)
+            lse_b = 2 * 4 * b * h * t  # lse and delta, fp32
+            calls = {
+                "flash_bwd_dq": (
+                    lambda: KA.flash_bwd_dq(q, k, v, g, lse, delta, scale),
+                    lambda: KA.flash_bwd_dq_plain(q, k, v, g, lse, delta,
+                                                  scale, False),
+                    2 * 5 * n + lse_b, 3 * products),
+                "flash_bwd_dkv": (
+                    lambda: KA.flash_bwd_dkv(q, k, v, g, lse, delta, scale),
+                    lambda: KA.flash_bwd_dkv_plain(q, k, v, g, lse, delta,
+                                                   scale, False),
+                    2 * 6 * n + lse_b, 4 * products)}
+            plain = (lambda: KA.flash_attention_plain(q, k, v, scale,
+                                                      False))
+            res_bytes = 4 * b * h * t
+        ms, plain_ms = time_ms(fwd), time_ms(plain)
+        res_ms = time_ms(fwd_res)
+        bms, by = _bf16_bound_ms(2 * 4 * n, 2 * products)
+        rbms, _ = _bf16_bound_ms(2 * 4 * n + res_bytes, 2 * products)
+        res[names[0]] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, library_ms=lib_ms,
+                             residual_ms=res_ms, residual_bound_ms=rbms,
+                             shape=[b, h, t, d])
+        log(f"  {names[0]} bf16 [{b},{h},{t},{d}] non-causal: kernel "
+            f"{ms:.4f} ms (with its residual {res_ms:.4f}), plain "
+            f"{plain_ms:.4f} ms, library flash sdpa {lib_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}; with the residual {rbms:.4f})")
+        for name, (kern, pl, nbytes, prods) in calls.items():
+            kms, kpl = time_ms(kern, iters=10), time_ms(pl, iters=5)
+            bms, by = _bf16_bound_ms(nbytes, prods)
+            res[name] = dict(ms=kms, plain_ms=kpl, bound_ms=bms,
+                             bound_by=by, library_ms=lib_bwd_ms,
+                             library="flash sdpa backward (dq, dk, dv)",
+                             shape=[b, h, t, d])
+            log(f"  {name} bf16 [{b},{h},{t},{d}] non-causal: kernel "
+                f"{kms:.4f} ms, plain {kpl:.4f} ms, library flash sdpa "
+                f"backward (dq, dk and dv) {lib_bwd_ms:.4f} ms, bound "
+                f"{bms:.4f} ms ({by})")
+        del q, k, v, g, qr, kr, vr, lo
+    return {"timing": res}
+
+
+def _bf16_line(raw):
+    """Each kernel's `bf16` field of the kernels line (its launches are
+    added by the bf16 training legs)."""
+    timing = raw.pop("timing")
+    return {n: dict(max_abs_err=max(e["errs"]),
+                    f64_ratio=max(e["ratios"]), **timing[n])
+            for n, e in raw.items()}
+
+
+def _amp_first_acts(main):
+    """The outputs of the first attention op (encoder self-attention) and
+    of the first causal one (decoder self-attention)."""
+    ops = [op for op in main.global_block.ops if op.type == "attention"]
+    causal = next(op for op in ops if op.attrs.get("causal"))
+    return [ops[0].outputs["Out"][0], causal.outputs["Out"][0]]
+
+
+def phase_train_bf16(card_name, card, seq_len, batch):
+    """Transformer-base's training program under amp.amp_guard(True)
+    (bf16 AMP) at `seq_len` and `batch`: the bench's own settings at seq
+    256 and batch 128 (vocab 32000, Adam under noam_decay(512, 8000),
+    dropout 0), and seq 512 / batch 32 and 1024 / batch 16, where #5/#6
+    and #2-#4 run in bf16. Step-1 parity on the first 2 rows against the
+    port's CPU run under AMP: the two first attention ops' outputs (the
+    encoder's and the decoder's causal self-attention, on the kernels at
+    512 and 1024) within AMP_ACT_REL of the largest |CPU| in at most
+    AMP_ACT_SHARE of the elements, and the loss within LOSS_RTOL; the
+    control, the card's step with AMP off, must fail the activation
+    gate. Then the eager leg and the run_steps leg (`_train_steps`) under
+    AMP, the launches counted as predicted. Returns (launches by kernel,
+    results)."""
+    tag = f"train bf16 T={seq_len} B={batch}"
+    s = _train_setup(tag, seq_len, batch)
+    main, gpu, cpu, fresh, small = (s[k] for k in ("main", "gpu", "cpu",
+                                                   "fresh", "small"))
+    fetch = [s["cost"].name] + _amp_first_acts(main)
+    t0 = time.monotonic()
+    with amp.amp_guard(True):
+        ref = cpu.run(main, feed=small, fetch_list=fetch,
+                      scope=fresh(pf.CPUPlace()), return_numpy=False)
+        cpu_s = time.monotonic() - t0
+        got = gpu.run(main, feed=small, fetch_list=fetch,
+                      scope=fresh(pf.CUDAPlace(0)), return_numpy=False)
+    off = gpu.run(main, feed=small, fetch_list=fetch,
+                  scope=fresh(pf.CUDAPlace(0)), return_numpy=False)
+
+    def gates(run):
+        loss = abs(float(run[0]) - float(ref[0])) / abs(float(ref[0]))
+        acts = [_bf16_gate(a.cpu(), w) for a, w in zip(run[1:], ref[1:])]
+        ok = loss <= LOSS_RTOL and all(
+            rel <= AMP_ACT_REL and share <= AMP_ACT_SHARE
+            for rel, share in acts)
+        return ok, loss, acts
+
+    ok, loss, acts = gates(got)
+    ctl_ok, ctl_loss, ctl_acts = gates(off)
+    log(f"{tag} parity (2 rows, step 1, CPU under AMP {cpu_s:.1f} s): loss "
+        f"card {float(got[0]):.7f} CPU {float(ref[0]):.7f} rel "
+        f"{loss:.3e} (tol {LOSS_RTOL:g}); first attention outputs "
+        f"(encoder, decoder causal) {got[1].dtype}: "
+        + ", ".join(f"rel {r:.3e} share {sh:.4f}" for r, sh in acts)
+        + f" (tol {AMP_ACT_REL:.3e}, {AMP_ACT_SHARE}); control, AMP off "
+        f"({off[1].dtype}): loss rel {ctl_loss:.3e}, "
+        + ", ".join(f"rel {r:.3e} share {sh:.4f}" for r, sh in ctl_acts)
+        + f", passes: {ctl_ok}")
+    assert got[1].dtype == torch.bfloat16 and off[1].dtype == torch.float32
+    assert ok, (loss, acts)
+    assert not ctl_ok, "the bf16 parity gate cannot see AMP switched off"
+    with amp.amp_guard(True):
+        counts, res = _train_steps(
+            tag, s, seq_len, batch,
+            _want_counts(**_train_per_step(s["ops"], seq_len)), card_name,
+            card)
+    res.update(parity_loss_rel_err=loss, parity_acts=acts,
+               control_loss_rel_err=ctl_loss, control_acts=ctl_acts)
+    return counts, res
+
+
+def _dropout_mask_parity():
+    """A dropout op's keep mask on the card equals the CPU's for the same
+    program seed, op and step key (int64 SplitMix64 on both)."""
+    prog = pf.Program()
+    prog.random_seed = SEED
+    blk = prog.global_block
+    blk.create_var(name="x", shape=(64, 4096), dtype="float32")
+    blk.append_op("dropout", {"X": ["x"]}, {"Out": ["y"], "Mask": ["m"]},
+                  {"dropout_prob": 0.1, "is_test": False, "seed": 0,
+                   "dropout_implementation": "upscale_in_train"})
+    x = np.ones((64, 4096), np.float32)
+    masks = []
+    for place in (pf.CUDAPlace(0), pf.CPUPlace()):
+        exe, scope = pf.Executor(place), pf.Scope()
+        masks.append([exe.run(prog, feed={"x": x}, fetch_list=["m"],
+                              scope=scope)[0] for _ in range(2)])
+    same = all(np.array_equal(a, b) for a, b in zip(*masks))
+    log(f"  dropout: the card's masks equal the CPU's over two steps "
+        f"{same}; kept {masks[0][0].mean():.4f} (0.9); steps differ "
+        f"{not np.array_equal(masks[0][0], masks[0][1])}")
+    assert same and not np.array_equal(masks[0][0], masks[0][1])
+
+
+def _dropout_parity(tag, s):
+    """Step 1 of the dropout program on the first 2 rows, card against
+    the port's CPU run from the same weights, program seed and step key,
+    so from the same masks: the loss within LOSS_RTOL, and the first
+    dropout op's Out and the first attention op's Out (its dropout on P)
+    within LOSS_RTOL of their largest |CPU|. The control, the CPU step
+    from another step key (the same weights, other masks), must fail
+    both activation gates. Returns the errors."""
+    ops = s["main"].global_block.ops
+    drop = next(op.outputs["Out"][0] for op in ops if op.type == "dropout")
+    attn = next(op.outputs["Out"][0] for op in ops if op.type == "attention"
+                and op.attrs.get("dropout_rate"))
+    fetch = [s["cost"].name, drop, attn]
+
+    def cpu_step(key=None):
+        scope = s["fresh"](pf.CPUPlace())
+        if key is not None:
+            scope._set(RNG_VAR, torch.tensor(key))
+        return s["cpu"].run(s["main"], feed=s["small"], fetch_list=fetch,
+                            scope=scope)
+
+    def errs(run, ref):
+        loss = abs(float(run[0][0]) - float(ref[0][0])) / abs(
+            float(ref[0][0]))
+        return [loss] + [float(np.abs(a - b).max() / np.abs(b).max())
+                         for a, b in zip(run[1:], ref[1:])]
+
+    ref = cpu_step()
+    got = s["gpu"].run(s["main"], feed=s["small"], fetch_list=fetch,
+                       scope=s["fresh"](pf.CUDAPlace(0)))
+    ctl = cpu_step(key=SEED + 1)
+    err, ctl_err = errs(got, ref), errs(got, ctl)
+    log(f"{tag} parity (2 rows, step 1, against the CPU from the same "
+        f"step key): loss card {float(got[0][0]):.7f} CPU "
+        f"{float(ref[0][0]):.7f} rel {err[0]:.3e}; the first dropout op's "
+        f"Out {err[1]:.3e}, the first attention op's Out {err[2]:.3e} of "
+        f"the largest |CPU| (tol {LOSS_RTOL:g}); control, the CPU from "
+        f"another key: loss {ctl_err[0]:.3e}, Outs {ctl_err[1]:.3e}, "
+        f"{ctl_err[2]:.3e}")
+    assert all(e <= LOSS_RTOL for e in err), err
+    assert all(e > LOSS_RTOL for e in ctl_err[1:]), \
+        f"the dropout parity cannot see other masks: {ctl_err}"
+    return dict(parity_errs=err, control_errs=ctl_err)
+
+
+def _draw_ms(calls):
+    """Device ms of one step's mask draws (`registry.keep_bits`, as
+    recorded in one eager step), replayed alone at the step's shapes."""
+    draw = registry.keep_bits
+    return time_ms(lambda: [draw(*c) for c in calls], iters=3, warmup=1)
+
+
+def phase_train_dropout(card_name, card, no_dropout):
+    """Transformer-base at dropout 0.1 (every dropout site of the JAX
+    package's model: embeddings, attention P, FFN hidden, before each
+    add-norm), seq 256, batch 64, fp32, through run_steps: step-1 parity
+    on 2 rows against the CPU (`_dropout_parity`), the step captured (no
+    eager reason), K replayed steps equal K Executor.run steps within
+    STEPS_RTOL, two successive calls draw other masks (the first dropout
+    op's Mask fetched at every step differs from step to step), and the
+    losses differ from the dropout-0 leg's (`no_dropout`, phase 5: the
+    same weights and feed). The mask draws of one eager step are
+    recorded and timed alone, for their share of the step."""
+    seq_len, batch = TRAIN_RUNS[0]
+    tag = f"train dropout T={seq_len} B={batch}"
+    s = _train_setup(tag, seq_len, batch, dropout_rate=DROPOUT_RATE)
+    main, gpu, cost, feed = s["main"], s["gpu"], s["cost"], s["feed"]
+    parity = _dropout_parity(tag, s)
+    mask = next(op.outputs["Mask"][0] for op in main.global_block.ops
+                if op.type == "dropout")
+    n_drop = sum(op.type == "dropout" for op in main.global_block.ops)
+    n_attn = sum(op.type == "attention"
+                 and bool(op.attrs.get("dropout_rate"))
+                 for op in main.global_block.ops)
+    scope = s["fresh"](pf.CUDAPlace(0))
+    draws, real = [], registry.keep_bits
+
+    def recording(*a):
+        draws.append(a)
+        return real(*a)
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    eager = []
+    for i in range(2 * TRAIN_STEPS):
+        registry.keep_bits = recording if i == 0 else real
+        try:
+            eager.append(gpu.run(main, feed=feed, fetch_list=[cost],
+                                 scope=scope)[0])
+        finally:
+            registry.keep_bits = real
+    torch.cuda.synchronize()
+    eager_s = (time.monotonic() - t0) / (2 * TRAIN_STEPS)
+    eager = np.concatenate(eager)
+    draw_ms = _draw_ms(draws)
+    n_drawn = sum(math.prod(a[2]) for a in draws)
+    scope = s["fresh"](pf.CUDAPlace(0))
+    compiles = gpu.compile_count
+    calls, walls = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        calls.append(gpu.run_steps(main, feed=feed, fetch_list=[cost, mask],
+                                   steps=TRAIN_STEPS, scope=scope,
+                                   return_numpy=False))
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        assert gpu.last_run_steps_fallback is None
+    assert gpu.compile_count == compiles + 1, gpu.compile_count
+    got = torch.cat([c[0].reshape(-1) for c in calls]).cpu().numpy()
+    masks = torch.cat([c[1] for c in calls])
+    err = float(np.max(np.abs(got - eager) / np.abs(eager)))
+    differ = [not torch.equal(masks[i], masks[i + 1])
+              for i in range(len(masks) - 1)]
+    base = np.array(no_dropout["losses"])
+    log(f"{tag}: {n_drop} dropout ops and {n_attn} attention ops with "
+        f"dropout {DROPOUT_RATE}; captured (fallback None, one capture); "
+        f"{2 * TRAIN_STEPS} replayed-call losses "
+        + ", ".join(f"{x:.6f}" for x in got) + f" against as many "
+        f"Executor.run steps, rel err {err:.3e} (tol {STEPS_RTOL:g}), the "
+        f"same bits {bool(np.array_equal(got, eager))}; the first mask "
+        f"differs between successive steps {differ}, kept share "
+        f"{float(masks.float().mean()):.4f}; the dropout-0 leg's losses "
+        + ", ".join(f"{x:.6f}" for x in base) + f"; eager step "
+        f"{eager_s * 1e3:.1f} ms, run_steps step "
+        f"{walls[1] / TRAIN_STEPS * 1e3:.1f} ms (the second call) on "
+        f"{card_name} ({card})")
+    log(f"{tag}: one step's {len(draws)} mask draws ({n_drawn} elements) "
+        f"take {draw_ms:.2f} ms alone, {draw_ms / (eager_s * 1e3):.3f} of "
+        f"the eager step and {draw_ms / (walls[1] / TRAIN_STEPS * 1e3):.3f}"
+        f" of the run_steps step on {card_name} ({card})")
+    assert err <= STEPS_RTOL, err
+    assert all(differ), differ
+    # at random weights the loss sits near log(V) at both rates: other
+    # by more than the run-to-run gate at every step
+    moved = np.abs(got[:TRAIN_STEPS] - base) / np.abs(base)
+    assert (moved > STEPS_RTOL).all(), moved
+    return dict(losses=got.tolist(), eager_losses=eager.tolist(),
+                rel_err=err, masks_differ=differ,
+                eager_step_ms=eager_s * 1e3,
+                run_steps_step_ms=walls[1] / TRAIN_STEPS * 1e3,
+                dropout_ops=n_drop, attention_dropout_ops=n_attn,
+                draws=len(draws), drawn_elements=n_drawn, draw_ms=draw_ms,
+                **parity)
+
+
 def main():
     t_start = time.monotonic()
     name, count, card = phase_device()
@@ -2890,6 +3489,21 @@ def main():
     trained["bench_batch"]["launches"] = counts
     for kname, n in counts.items():
         trained_launches[kname] += n
+    bf16_launches = dict.fromkeys(KERNEL_META, 0)
+    for seq_len, batch in BF16_RUNS:
+        log(f"phase train bf16 T={seq_len} B={batch}")
+        counts, res = phase_train_bf16(name, card, seq_len, batch)
+        res["launches"] = counts
+        trained[f"bf16_{seq_len}"] = res
+        for kname, n in counts.items():
+            trained_launches[kname] += n
+            bf16_launches[kname] += n
+    for kname, e in entries.items():
+        if "bf16" in e and kname in bf16_launches:
+            e["bf16"]["launches"] = bf16_launches[kname]
+    log("phase train dropout")
+    trained["dropout"] = phase_train_dropout(name, card,
+                                             trained[TRAIN_RUNS[0][0]])
     log("phase train fused")
     counts, trained["fused"] = phase_train_fused(name, card,
                                                  trained[TRAIN_RUNS[0][0]])

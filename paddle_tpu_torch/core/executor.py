@@ -25,7 +25,14 @@ interpret their sub-blocks the same way.
   CPU generator) runs K eager steps on the card, with the reason in
   ``last_run_steps_fallback``. On the CPU every step is eager.
 * The scope's step key (``RNG_VAR``) advances once per step, and sampling
-  ops seed from it, so every run draws anew (``seed`` restarts it).
+  ops seed from it, so every run draws anew (``seed`` restarts it). An op
+  that draws on the device (``dropout``, ``attention`` with dropout)
+  reads a copy of the key that lives on the device and advances there,
+  inside the step, with the host's arithmetic: a captured step draws
+  anew at every replay, and replays draw what eager steps draw.
+* The AMP state (``paddle_tpu_torch.amp``) is part of the cache keys: a
+  program prepared or captured with AMP on never runs with it off, nor
+  the other way round.
 
 The on-disk compile cache, native builds and sharding of the JAX package
 have no counterpart here yet.
@@ -43,9 +50,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import amp
 from .program import Block, Program, Variable, default_main_program
-from .registry import (EMPTY_VAR, get_op_info, is_registered, run_op,
-                       splitmix64)
+from .registry import (EMPTY_VAR, advance_key_t, get_op_info, is_registered,
+                       run_op, splitmix64)
 from .scope import Scope, global_scope
 from .types import to_torch_dtype
 
@@ -64,14 +72,18 @@ def seed(s: int):
     the global scope's step key, so its draws start again."""
     _global_seed[0] = int(s)
     global_scope()._vars.pop(RNG_VAR, None)
+    global_scope()._device_key = None
 
 
 def _init_cuda_context():
     """The JAX package computes in float32; TF32 would change the
     digits of every product, so both switches are off wherever the
-    port runs on the card."""
+    port runs on the card. Under AMP a bf16 product accumulates in fp32
+    (the JAX package's contract), so cuBLAS may not reduce in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
 
 
 class CPUPlace:
@@ -133,6 +145,13 @@ def _coerce_feed(block, name, val, device) -> torch.Tensor:
                 == want.is_floating_point:
             t = t.to(want)
     return t.to(device)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A fetch as numpy; numpy has no bf16, so a bf16 value (under AMP)
+    comes back widened to float32, which holds it exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _feed_specs(feed) -> List[tuple]:
@@ -217,16 +236,25 @@ def _last_use_plan_py(block, feed_names, fetch_names):
 
 def _capture_fallback_reason(program) -> Optional[str]:
     """Why one step of `program` cannot be captured in a CUDA graph
-    (``_scan_fallback_reason`` in the JAX package), or None."""
+    (``_scan_fallback_reason`` in the JAX package), or None. An op that
+    draws from the device step key is captured."""
     for op in program.global_block.ops:
         if any(isinstance(v, Block) for v in op.attrs.values()):
             return (f"op {op.type!r} reads its condition back to the "
                     f"host every iteration, which a CUDA graph cannot "
                     f"replay")
-        if is_registered(op.type) and get_op_info(op.type).needs_rng:
+        if is_registered(op.type) and get_op_info(op.type).host_rng:
             return (f"op {op.type!r} draws on a CPU generator; a "
                     f"captured draw would repeat on every replay")
     return None
+
+
+def _draws_on_device(program) -> bool:
+    """Whether an op of `program` draws from the device step key."""
+    return any(is_registered(op.type)
+               and (info := get_op_info(op.type)).needs_rng
+               and not info.host_rng
+               for blk in program.blocks for op in blk.ops)
 
 
 class Executor:
@@ -368,9 +396,10 @@ class Executor:
     @staticmethod
     def _block_cache_key(program, feed_specs, fetch_names, scope):
         """(``_block_cache_key`` in the JAX package, with the scope the
-        prepared program binds.) A `_version` bump misses."""
+        prepared program binds.) A `_version` bump misses, and so does a
+        change of the AMP state."""
         return (program._uid, program._version, tuple(sorted(feed_specs)),
-                tuple(fetch_names), scope._uid)
+                tuple(fetch_names), scope._uid, amp.state_token())
 
     def _prepared(self, key, scope, make):
         """The PreparedProgram cached under `key`, or `make()`'s, kept
@@ -390,20 +419,34 @@ class Executor:
         return prepared
 
     # --- one step --------------------------------------------------------
-    def _step_key(self, prepared) -> int:
-        """This step's key; the scope's advances once. A scope with no
-        key starts from the program's seed, or the global seed when the
-        program has none."""
-        scope = prepared.scope
-        k = scope._get(RNG_VAR)
+    @staticmethod
+    def _current_key(prepared) -> int:
+        """The key of the scope's next step. A scope with no key starts
+        from the program's seed, or the global seed when the program has
+        none."""
+        k = prepared.scope._get(RNG_VAR)
         if k is not None:
-            key = int(k)
-        elif prepared.program.random_seed is not None:
-            key = int(prepared.program.random_seed)
-        else:
-            key = _global_seed[0]
-        scope._set(RNG_VAR, torch.tensor(splitmix64(key) >> 1))
+            return int(k)
+        if prepared.program.random_seed is not None:
+            return int(prepared.program.random_seed)
+        return _global_seed[0]
+
+    def _step_key(self, prepared) -> int:
+        """This step's key; the scope's advances once."""
+        key = self._current_key(prepared)
+        prepared.scope._set(RNG_VAR, torch.tensor(splitmix64(key) >> 1))
         return key
+
+    def _device_key(self, scope, key: int) -> torch.Tensor:
+        """The step key `key` as a 0-d int64 tensor on the device: the one
+        the scope's last step advanced on the device when it holds that
+        key, else a copy from the host (the first step, or after
+        ``seed``)."""
+        held = scope._device_key
+        if held is not None and held[0] == key \
+                and held[1].device == self.device:
+            return held[1]
+        return torch.tensor(key, dtype=torch.int64, device=self.device)
 
     def _stage(self, prepared, feed) -> Dict[str, torch.Tensor]:
         """The env before the first op: the feeds, coerced and on the
@@ -419,20 +462,26 @@ class Executor:
                 env[name] = self._committed(prepared.scope, name)
         return env
 
-    def _step(self, prepared, env, key):
+    def _step(self, prepared, env, key, dkey=None):
         """The block's ops over `env`, each value dropped after its last
         reader."""
         with torch.no_grad():
             for op, dead in zip(prepared.ops, prepared.frees):
                 run_op(op, env, self.device, prepared.seed,
-                       prepared.needed, key)
+                       prepared.needed, key, dkey)
                 for n in dead:
                     env.pop(n, None)
 
     def _run_block(self, prepared, feed, return_numpy):
         env = self._stage(prepared, feed)
-        self._step(prepared, env, self._step_key(prepared))
         scope = prepared.scope
+        key = self._step_key(prepared)
+        dkey = self._device_key(scope, key) if prepared.draws else None
+        self._step(prepared, env, key, dkey)
+        if dkey is not None:
+            # the device's copy advances on the device, with no host copy
+            scope._device_key = (splitmix64(key) >> 1,
+                                 advance_key_t(dkey))
         # persistable writes (parameters and optimizer state updated by
         # the optimizer ops, the step counter, a decode bundle's slot
         # state) replace the scope's values
@@ -441,7 +490,7 @@ class Executor:
         fetches = [env[n] if n in env else self._committed(scope, n)
                    for n in prepared.fetch_names]
         if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
+            return [_to_numpy(f) for f in fetches]
         return fetches
 
     # --- K steps ---------------------------------------------------------
@@ -459,7 +508,7 @@ class Executor:
         else:
             outs = self._eager_steps(prepared, staged, stacked)
         if return_numpy:
-            return [o.cpu().numpy() for o in outs]
+            return [_to_numpy(o) for o in outs]
         return outs
 
     def _stage_feeds(self, block, feed, stacked):
@@ -513,6 +562,11 @@ class Executor:
             first = 1
         else:
             cap.load(self, prepared, staged, stacked)
+        scope = prepared.scope
+        if cap.key is not None:
+            # the graph advances its key buffer at each replay
+            cap.key.copy_(self._device_key(scope,
+                                           self._current_key(prepared)))
         outs = [torch.empty((steps, *f.shape), dtype=f.dtype,
                             device=self.device) for f in cap.fetches]
         if first:
@@ -526,8 +580,10 @@ class Executor:
             for o, f in zip(outs, cap.fetches):
                 o[k].copy_(f)
             self._step_key(prepared)
+        if cap.key is not None:
+            scope._device_key = (self._current_key(prepared), cap.key)
         for n in prepared.persistable_out:
-            prepared.scope._set(n, cap.state[n])
+            scope._set(n, cap.state[n])
         return outs
 
     def _drop_older_capture(self, prepared):
@@ -585,15 +641,21 @@ class _CapturedStep:
             return t.clone() if t.untyped_storage().data_ptr() in bufs \
                 else t
 
+        # the device step key the ops draw from, advanced at the end of
+        # the step (set before each call's replays)
+        self.key = torch.zeros((), dtype=torch.int64, device=exe.device) \
+            if prepared.draws else None
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=pool, stream=stream):
             env = {**self.state, **self.feeds}
-            exe._step(prepared, env, key=0)
+            exe._step(prepared, env, key=0, dkey=self.key)
             self.fetches = [own(env[n]) for n in prepared.fetch_names]
             new = {n: own(env[n]) for n in prepared.persistable_out
                    if env[n] is not self.state[n]}
             for n, t in new.items():
                 self.state[n].copy_(t)
+            if self.key is not None:
+                self.key.copy_(advance_key_t(self.key))
 
     def load(self, exe, prepared, staged, stacked):
         """Before a later call: the feeds and the scope's values into the
@@ -670,6 +732,8 @@ class PreparedProgram:
             if (v := block._find_var_recursive(n)) is not None
             and v.persistable]
         self.fallback_reason = _capture_fallback_reason(program)
+        self.draws = _draws_on_device(program)
+        self.amp = amp.state_token()
         self.captured: Optional[_CapturedStep] = None
 
     @property
@@ -682,7 +746,8 @@ class PreparedProgram:
         return scope
 
     def run(self, feed=None, return_numpy: bool = True):
-        if self.program._version != self.version:
+        if self.program._version != self.version \
+                or amp.state_token() != self.amp:
             self._bind()
         feed = dict(feed or {})
         if self.steps is None:

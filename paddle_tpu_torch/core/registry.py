@@ -26,6 +26,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from .. import amp
 from .program import GRAD_SUFFIX, Block, Operator, grad_var_name
 from .types import as_datatype, to_torch_dtype
 
@@ -39,7 +40,8 @@ class OpInfo:
     def __init__(self, type: str, kernel: Callable,
                  infer_shape: Optional[Callable] = None,
                  grad_maker=None, differentiable: bool = True,
-                 stop_gradient_slots=(), needs_rng: bool = False):
+                 stop_gradient_slots=(), needs_rng: bool = False,
+                 host_rng: bool = False):
         self.type = type
         self.kernel = kernel
         self.infer_shape = infer_shape
@@ -47,8 +49,11 @@ class OpInfo:
         self.differentiable = differentiable
         # input slots that take no gradient whatever their dtype
         self.stop_gradient_slots = tuple(stop_gradient_slots)
-        # draws from OpContext.generator()
-        self.needs_rng = needs_rng
+        # draws random numbers: from OpContext.keep_mask (on the device,
+        # from the step key the Executor keeps there) or, with
+        # `host_rng`, from OpContext.generator() (a CPU generator)
+        self.needs_rng = needs_rng or host_rng
+        self.host_rng = host_rng
 
 
 _REGISTRY: Dict[str, OpInfo] = {}
@@ -68,22 +73,25 @@ def is_registered(type: str) -> bool:
 class OpContext:
     """What a kernel sees: resolved inputs, attrs, the device that
     creation ops allocate on, the program's seed and the step key for
-    sampling ops, and which outputs a later op or a fetch reads
-    (``needed``; None: all)."""
+    sampling ops (``key`` on the host, ``dkey`` a 0-d int64 tensor on the
+    device), and which outputs a later op or a fetch reads (``needed``;
+    None: all)."""
 
     __slots__ = ("op", "attrs", "_inputs", "device", "seed", "key",
-                 "_needed")
+                 "dkey", "_needed", "_rng_calls")
 
     def __init__(self, op: Operator, inputs: Dict[str, List],
                  device: torch.device, seed: int = 0, needed=None,
-                 key: int = 0):
+                 key: int = 0, dkey: Optional[torch.Tensor] = None):
         self.op = op
         self.attrs = op.attrs
         self._inputs = inputs
         self.device = device
         self.seed = seed
         self.key = key
+        self.dkey = dkey
         self._needed = needed
+        self._rng_calls = 0
 
     def output_needed(self, slot) -> bool:
         """Whether anything reads an output of `slot`. A kernel may skip
@@ -117,6 +125,37 @@ class OpContext:
         g.manual_seed(mix64(self.seed, self.key, self.op._uid))
         return g
 
+    def keep_mask(self, shape, keep_prob: float, dtype: torch.dtype,
+                  device: torch.device, seed: int = 0) -> torch.Tensor:
+        """A keep mask of `shape` in `dtype` on `device`, 1 with
+        probability `keep_prob`, drawn on the device with no host round
+        trip, so a CUDA graph can capture it (``OpContext.rng`` in the JAX
+        package). Each element is a pure function of (program seed, step
+        key, op uid, call index, element index): the Executor advances the
+        step key inside each step, so every step draws anew and a replayed
+        step draws what the same step run eagerly draws; an op's vjp
+        recompute (the same uid, calls counted from 0) draws its forward's
+        mask again. A nonzero `seed` (the op's attr) pins the draw in place
+        of the program seed and step key."""
+        call = self._rng_calls
+        self._rng_calls += 1
+        if device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=device)
+        if seed:
+            # a fill, not a host copy: capturable
+            key = torch.full((), _signed(mix64(seed, 0)), dtype=torch.int64,
+                             device=device)
+            salt = mix64(self.op._uid, call)
+        else:
+            if self.dkey is None:
+                raise RuntimeError(
+                    f"op {self.op.type!r} draws on the device but was run "
+                    f"without a device step key (run it through the "
+                    f"Executor)")
+            key = self.dkey.to(device)
+            salt = mix64(self.seed, self.op._uid, call)
+        return keep_bits(key, salt, shape, keep_prob).to(dtype)
+
 
 _MASK64 = (1 << 64) - 1
 
@@ -138,19 +177,67 @@ def mix64(*vals: int) -> int:
     return h
 
 
+def _signed(x: int) -> int:
+    """A 64-bit pattern as the int64 that holds it."""
+    x &= _MASK64
+    return x - (1 << 64) if x >> 63 else x
+
+
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """The logical right shift of the int64 bit patterns in `x`."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def splitmix64_t(x: torch.Tensor) -> torch.Tensor:
+    """`splitmix64` on int64 tensors, element by element: the same bit
+    patterns, with the products wrapping mod 2^64 as int64 products do."""
+    x = x + _signed(0x9E3779B97F4A7C15)
+    x = (x ^ _shr(x, 30)) * _signed(0xBF58476D1CE4E5B9)
+    x = (x ^ _shr(x, 27)) * _signed(0x94D049BB133111EB)
+    return x ^ _shr(x, 31)
+
+
+def advance_key_t(key: torch.Tensor) -> torch.Tensor:
+    """The next step key from a 0-d int64 device tensor: what the
+    Executor's host-side ``_step_key`` computes, ``splitmix64(key) >>
+    1``, in device arithmetic (capturable)."""
+    return _shr(splitmix64_t(key), 1)
+
+
+def keep_bits(key: torch.Tensor, salt: int, shape, keep_prob: float
+              ) -> torch.Tensor:
+    """A bool keep mask of `shape`: element i keeps where the top 24 bits
+    of SplitMix64(splitmix64(key ^ salt) + i * golden) fall below
+    `keep_prob` * 2^24 (SplitMix64's own stream, started from the key
+    mixed with the salt). `key` is a 0-d int64 tensor on the mask's
+    device; the arithmetic is int64 tensor ops, so the same key gives the
+    same mask on the CPU and on the card."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    base = splitmix64_t(key ^ _signed(salt))
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    z = splitmix64_t(base + idx * _signed(0x9E3779B97F4A7C15))
+    thresh = int(round(float(keep_prob) * (1 << 24)))
+    return (_shr(z, 40) < thresh).reshape(tuple(shape))
+
+
 def register_op(type: str, *, infer_shape=None, grad_maker=None,
                 differentiable=True, stop_gradient_slots=(),
-                needs_rng=False):
+                needs_rng=False, host_rng=False):
     """Decorator: register ``fn(ctx) -> {out_slot: value|[values]}``.
     `stop_gradient_slots`: input slots whose grad op declares and
     computes no gradient (an index, a label). `needs_rng`: the kernel
-    draws from ``ctx.generator()``."""
+    draws from ``ctx.keep_mask`` (the device step key); `host_rng`: from
+    ``ctx.generator()``, a CPU generator, which a CUDA graph cannot
+    capture."""
 
     def deco(fn):
         _REGISTRY[type] = OpInfo(
             type, fn, infer_shape=infer_shape, grad_maker=grad_maker,
             differentiable=differentiable,
-            stop_gradient_slots=stop_gradient_slots, needs_rng=needs_rng)
+            stop_gradient_slots=stop_gradient_slots, needs_rng=needs_rng,
+            host_rng=host_rng)
         return fn
 
     return deco
@@ -177,10 +264,14 @@ def _normalize_outputs(op: Operator, raw) -> Dict[str, List]:
 
 
 def run_op(op: Operator, env: Dict, device: torch.device,
-           seed: int = 0, needed=None, key: int = 0) -> None:
+           seed: int = 0, needed=None, key: int = 0,
+           dkey: Optional[torch.Tensor] = None) -> None:
     """Execute one op against an env of name -> tensor; write outputs.
-    `needed`: the names a later op or a fetch reads (None: all); `seed`
-    and `key`: the program's seed and the step key."""
+    `needed`: the names a later op or a fetch reads (None: all); `seed`,
+    `key` and `dkey`: the program's seed and the step key, on the host
+    and on the device. While AMP is on (``paddle_tpu_torch.amp``) the
+    op's inputs are cast by its policy first (``run_op`` in the JAX
+    package)."""
     info = get_op_info(op.type)
     inputs: Dict[str, List] = {}
     for slot, names in op.inputs.items():
@@ -195,7 +286,9 @@ def run_op(op: Operator, env: Dict, device: torch.device,
             else:
                 vals.append(env[n])
         inputs[slot] = vals
-    ctx = OpContext(op, inputs, device, seed, needed, key)
+    if amp.enabled():
+        inputs = amp.cast_op_inputs(op.type, inputs)
+    ctx = OpContext(op, inputs, device, seed, needed, key, dkey)
     outs = _normalize_outputs(op, info.kernel(ctx))
     for slot, names in op.outputs.items():
         vals = outs.get(slot)
@@ -306,8 +399,10 @@ def make_vjp_grad_kernel(fwd_type: str, fwd_kernel=None):
                 ins[s][i] = v
             for (s, i), v in zip(diff_paths, leaves):
                 ins[s][i] = v
+            # the forward's uid and the same step keys: a sampling op's
+            # recompute draws the forward's values again
             inner = OpContext(fwd_op, ins, ctx.device, ctx.seed,
-                              key=ctx.key)
+                              key=ctx.key, dkey=ctx.dkey)
             return _normalize_outputs(fwd_op, fwd(inner))
 
         outs, vjp_fn = torch.func.vjp(f, *diff_leaves)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import itertools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,6 +23,9 @@ class Scope:
         self._vars: Dict[str, torch.Tensor] = {}
         # process-unique identity for the Executor's cache keys
         self._uid = next(_scope_uid_counter)
+        # (host step key, the same key as a 0-d int64 device tensor): the
+        # copy that device-side draws read, advanced on the device
+        self._device_key: Optional[Tuple[int, torch.Tensor]] = None
 
     def _get(self, name) -> Optional[torch.Tensor]:
         return self._vars.get(name)

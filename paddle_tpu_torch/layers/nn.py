@@ -17,7 +17,7 @@ __all__ = [
     "elementwise_sub", "elementwise_mul", "elementwise_max",
     "elementwise_min", "softmax_with_cross_entropy", "mean",
     "attention_block", "ffn_block", "gather", "expand",
-    "masked_pool_write", "paged_decode_attention",
+    "masked_pool_write", "paged_decode_attention", "dropout",
 ]
 
 
@@ -143,6 +143,20 @@ def ffn_block(x, d_inner, param_attr_fc1=None, bias_attr_fc1=None,
     helper.append_op("ffn_block",
                      {"X": x, "W1": w1, "B1": b1, "W2": w2, "B2": b2},
                      {"Out": out}, {})
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """reference layers/nn.py dropout: Out and a Mask of x's dtype (the
+    grad reads the Mask); a `seed` pins the draw."""
+    helper = LayerHelper("dropout", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("dropout", {"X": x}, {"Out": out, "Mask": mask},
+                     {"dropout_prob": dropout_prob, "is_test": is_test,
+                      "seed": seed or 0,
+                      "dropout_implementation": dropout_implementation})
     return out
 
 

@@ -6,14 +6,16 @@ d_model=512, 8 heads, 6+6 layers, ffn 2048, Adam + noam decay).
 The building blocks serve both the decode programs (is_test=True) and
 the training program ``build_program``. Parameter names are the JAX
 package's explicit ones, so weights carry over between the two packages
-by name. Dropout is not ported yet: a nonzero dropout rate outside
-is_test raises rather than train without it. The recompute option
-belongs to a later slice.
+by name. A nonzero dropout rate outside is_test adds the JAX package's
+dropout ops: after the embeddings, on each attention's P, on the FFN
+hidden and before each add-norm, all ``upscale_in_train``. The recompute
+option belongs to a later slice.
 
 PADDLE_TPU_FUSE_ATTN_BLOCK=1, read at build time as in the JAX package,
 builds each self-attention sub-layer of a training program (not is_test,
 dropout 0) as one ``attention_block`` op and each FFN as one
-``ffn_block`` op, with the same parameters; decode builds stay unfused.
+``ffn_block`` op, with the same parameters; decode builds and a nonzero
+dropout rate stay unfused.
 """
 from __future__ import annotations
 
@@ -50,17 +52,8 @@ def _attn_proj_attr(name, tag, d_model):
         initializer=XavierInitializer(fan_in=d_model, fan_out=d_model))
 
 
-def _refuse_dropout(dropout_rate, is_test):
-    if dropout_rate and not is_test:
-        raise NotImplementedError(
-            f"dropout_rate={dropout_rate}: dropout is not ported yet (it "
-            f"comes with the bf16-AMP-and-dropout slice); train with "
-            f"dropout_rate=0.0")
-
-
 def multi_head_attention(q_in, kv_in, d_model, n_heads, dropout_rate,
                          causal=False, is_test=False, name=None):
-    _refuse_dropout(dropout_rate, is_test)
     head_dim = d_model // n_heads
 
     def _proj_attr(tag):
@@ -91,7 +84,8 @@ def multi_head_attention(q_in, kv_in, d_model, n_heads, dropout_rate,
 
     q, k, v = split_heads(q), split_heads(k), split_heads(v)
     ctx = layers.attention(q, k, v, causal=causal,
-                           scale=head_dim ** -0.5, dropout_rate=0.0,
+                           scale=head_dim ** -0.5,
+                           dropout_rate=0.0 if is_test else dropout_rate,
                            layout="bthd")
     ctx = layers.reshape(ctx, [0, 0, d_model])
     return layers.fc(ctx, d_model, num_flatten_dims=2, bias_attr=False,
@@ -99,7 +93,6 @@ def multi_head_attention(q_in, kv_in, d_model, n_heads, dropout_rate,
 
 
 def _ffn(x, d_model, d_inner, dropout_rate, is_test, name=None):
-    _refuse_dropout(dropout_rate, is_test)
     if (not is_test and dropout_rate == 0.0
             and os.environ.get("PADDLE_TPU_FUSE_ATTN_BLOCK") == "1"):
         return layers.ffn_block(
@@ -111,13 +104,18 @@ def _ffn(x, d_model, d_inner, dropout_rate, is_test, name=None):
     h = layers.fc(x, d_inner, num_flatten_dims=2, act="relu",
                   param_attr=f"{name}_fc1.w" if name else None,
                   bias_attr=f"{name}_fc1.b" if name else None)
+    if dropout_rate and not is_test:
+        h = layers.dropout(h, dropout_rate,
+                           dropout_implementation="upscale_in_train")
     return layers.fc(h, d_model, num_flatten_dims=2,
                      param_attr=f"{name}_fc2.w" if name else None,
                      bias_attr=f"{name}_fc2.b" if name else None)
 
 
 def _add_norm(x, residual, dropout_rate, is_test, name=None):
-    _refuse_dropout(dropout_rate, is_test)
+    if dropout_rate and not is_test:
+        x = layers.dropout(x, dropout_rate,
+                           dropout_implementation="upscale_in_train")
     return layers.layer_norm(layers.elementwise_add(x, residual),
                              begin_norm_axis=2,
                              param_attr=f"{name}_ln.w" if name else None,
@@ -157,7 +155,6 @@ def decoder_layer(x, enc_out, d_model, n_heads, d_inner, dropout_rate,
 
 def _embed(ids, vocab_size, d_model, max_len, dropout_rate, is_test,
            emb_name):
-    _refuse_dropout(dropout_rate, is_test)
     emb = layers.embedding(ids, size=[vocab_size, d_model],
                            param_attr=ParamAttr(name=emb_name))
     emb = layers.scale(emb, scale=d_model ** 0.5)
@@ -165,7 +162,11 @@ def _embed(ids, vocab_size, d_model, max_len, dropout_rate, is_test,
     seq_len = emb.shape[1] if emb.shape[1] and emb.shape[1] > 0 \
         else max_len
     pos = layers.assign(pos_table[:seq_len])
-    return layers.elementwise_add(emb, pos, axis=1)
+    emb = layers.elementwise_add(emb, pos, axis=1)
+    if dropout_rate and not is_test:
+        emb = layers.dropout(emb, dropout_rate,
+                             dropout_implementation="upscale_in_train")
+    return emb
 
 
 def transformer(src_ids, tgt_ids, label, src_vocab=30000, tgt_vocab=30000,

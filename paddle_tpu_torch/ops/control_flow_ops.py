@@ -32,5 +32,5 @@ def while_op(ctx):
             f"external — the loop body must update it")
     while bool(env[cond_name].reshape(())):
         for op in sub.ops:
-            run_op(op, env, ctx.device, ctx.seed, key=ctx.key)
+            run_op(op, env, ctx.device, ctx.seed, key=ctx.key, dkey=ctx.dkey)
     return {"Out": [env[n] for n in carried]}

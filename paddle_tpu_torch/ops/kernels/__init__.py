@@ -65,6 +65,16 @@ def require_cuda_inputs(name, tensors, dtypes):
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def require_fp32_block(name, x):
+    """The fused-block kernels (#10-#13) have no bf16 instance yet: a
+    bf16 call on the card raises instead of computing the composition."""
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{name}: the bf16 kernel is not ported yet; run the fused "
+            f"program in fp32 (outside amp_guard), or build it without "
+            f"PADDLE_TPU_FUSE_ATTN_BLOCK")
+
+
 def on_card(fn, primal, *args):
     """A kernel wrapper's CUDA path. Under a vjp (grad mode on and an
     input tracked, as `torch.func.vjp` in the grad op makes it) the

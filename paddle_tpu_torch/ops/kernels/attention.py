@@ -3,9 +3,12 @@
 (backward), with their plain PyTorch versions (counterpart of
 ``paddle_tpu/ops/pallas/attention.py``).
 
-All take q, k, v as [B, H, T, D] fp32. Both forwards run one body, an
-online softmax over streamed keys on the tensor cores
-(``csrc/flash_fwd.cuh``): ``sdpa_short`` at tq == tk <= 512, d in
+All take q, k, v as [B, H, T, D], all fp32 or all bf16 (the TPU kernels'
+contract under AMP: fp32 accumulation, fp32 lse and delta, outputs and
+grads in the input dtype, sdpa_short's saved P in the input dtype). Each
+C entry point has a ``_bf16`` twin built from the same body. Both
+forwards run one body, an online softmax over streamed keys on the
+tensor cores (``csrc/flash_fwd.cuh``): ``sdpa_short`` at tq == tk <= 512, d in
 {64, 128}, ``flash_attention`` at any tq, tk, d in {64, 128, 256},
 causal masking bottom-right aligned. ``sdpa_short``'s backward runs the
 attention stages it shares with the attention block's backward
@@ -32,24 +35,29 @@ from . import on_card as _on_card
 SDPA_MAX_T = 512
 SDPA_HEAD_DIMS = (64, 128)
 FLASH_HEAD_DIMS = (64, 128, 256)
+# the dtypes the kernels take, all of q, k, v alike
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def sdpa_short_plain(q, k, v, scale, causal, save_p=False):
     """The sdpa_short kernel's function (`_sdpa_short_fwd_impl`, tq ==
     tk): `reference_attention`, whose bottom-right causal mask is
-    `_causal_mask` (query i sees keys <= i) when tq == tk. With `save_p`
-    it also returns the normalized probabilities, [B*H, T, T] fp32."""
+    `_causal_mask` (query i sees keys <= i) when tq == tk; the output
+    from the fp32 P. With `save_p` it also returns the normalized
+    probabilities [B*H, T, T] in q's dtype (bf16 under AMP, as the TPU
+    kernel saves them)."""
     out = reference_attention(q, k, v, scale, causal)
     if not save_p:
         return out
     p = torch.softmax(masked_logits(q, k, scale, causal), dim=-1)
-    return out, p.reshape(-1, *p.shape[-2:])
+    return out, p.reshape(-1, *p.shape[-2:]).to(q.dtype)
 
 
 def sdpa_short_bwd_plain(q, k, v, p, g, scale, causal=False):
     """`_sdpa_short_bwd_impl`: (dq, dk, dv) from the saved P [B*H, T, T]
-    and the output's cotangent g, with no exp. `causal` only lets the
-    kernel skip the tiles where P is 0."""
+    and the output's cotangent g, with no exp, in fp32 and returned in
+    q's dtype. `causal` only lets the kernel skip the tiles where P is
+    0."""
     b, h, t, d = q.shape
     p = p.reshape(b, h, t, t).float()
     g = g.float()
@@ -58,7 +66,7 @@ def sdpa_short_bwd_plain(q, k, v, p, g, scale, causal=False):
     ds = p * (dp - (dp * p).sum(-1, keepdim=True))
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
-    return dq, dk, dv
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def flash_attention_plain(q, k, v, scale, causal, with_lse=False):
@@ -92,16 +100,19 @@ def _flash_p_ds(q, k, v, g, lse, delta, scale, causal):
 
 
 def flash_bwd_dq_plain(q, k, v, g, lse, delta, scale, causal):
-    """`_bwd_dq_kernel`: dq from lse and delta = rowsum(g * out)."""
+    """`_bwd_dq_kernel`: dq from lse and delta = rowsum(g * out), in q's
+    dtype."""
     _, ds = _flash_p_ds(q, k, v, g, lse, delta, scale, causal)
-    return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+            * scale).to(q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, g, lse, delta, scale, causal):
-    """`_bwd_dkv_kernel`: (dk, dv) from lse and delta."""
+    """`_bwd_dkv_kernel`: (dk, dv) from lse and delta, in q's dtype."""
     p, ds = _flash_p_ds(q, k, v, g, lse, delta, scale, causal)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
-    return dk, torch.einsum("bhqk,bhqd->bhkd", p, g.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
 
 
 def flash_delta(out, g):
@@ -118,12 +129,14 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, scale, causal):
 
 
 @functools.cache
-def _kernel(name, entry, n_ptrs, n_ints):
-    """The C entry point `entry` of library `name` with its signature
-    declared: (`n_ptrs` pointers, bh, `n_ints` ints of sizes, scale,
-    causal, stream)."""
+def _kernel(name, entry, n_ptrs, n_ints, dtype=torch.float32):
+    """The C entry point `entry` of library `name` (its ``_bf16`` twin
+    for bf16 operands) with its signature declared: (`n_ptrs` pointers,
+    bh, `n_ints` ints of sizes, scale, causal, stream)."""
     from .build import library
 
+    if dtype == torch.bfloat16:
+        entry += "_bf16"
     fn = getattr(library(name), entry)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int64] + \
         [ctypes.c_int] * n_ints + [ctypes.c_float, ctypes.c_int,
@@ -137,7 +150,10 @@ def _ptr(t):
 
 
 def _check_qkv(name, q, k, v, head_dims):
-    require_cuda_inputs(name, (q, k, v), (torch.float32,))
+    require_cuda_inputs(name, (q, k, v), DTYPES)
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"{name}: q, k, v are {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}; the kernels take one dtype")
     if q.dim() != 4 or k.shape != v.shape or q.shape[:2] != k.shape[:2] \
             or q.shape[3] != k.shape[3]:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -154,11 +170,13 @@ def _check_aligned(name, tensors, what):
                          f"(the kernels copy 16-byte rows)")
 
 
-def _check_like(name, tensors, shapes):
-    """Backward inputs beside q, k, v: fp32, contiguous, on q's device,
-    of the shapes the kernels index them by."""
-    require_cuda_inputs(name, tensors, (torch.float32,))
-    for t, shape in zip(tensors, shapes):
+def _check_like(name, tensors, shapes, dtypes):
+    """Backward inputs beside q, k, v: contiguous, on q's device, of the
+    shapes and dtypes the kernels index them by."""
+    require_cuda_inputs(name, tensors, DTYPES)
+    for t, shape, dtype in zip(tensors, shapes, dtypes):
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: got dtype {t.dtype}, expected {dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: got shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
@@ -186,9 +204,9 @@ def _sdpa_short_launch(q, k, v, scale, causal, save_p):
                          f"{t} and {k.shape[2]}")
     _check_aligned("sdpa_short", (q, k, v), "q, k and v")
     out = torch.empty_like(q)
-    p = torch.empty(b * h, t, t, dtype=torch.float32,
+    p = torch.empty(b * h, t, t, dtype=q.dtype,
                     device=q.device) if save_p else None
-    err = _kernel("sdpa_short", "sdpa_short_fwd", 5, 2)(
+    err = _kernel("sdpa_short", "sdpa_short_fwd", 5, 2, q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(p),
         b * h, t, d, float(scale), int(bool(causal)), current_stream(q))
     sdpa_short.launches += 1
@@ -205,23 +223,26 @@ def sdpa_short_bwd(q, k, v, p, g, scale, causal=False):
         return sdpa_short_bwd_plain(q, k, v, p, g, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"sdpa_short_bwd: no kernel for device {q.device}")
+    return _sdpa_short_bwd_launch(q, k, v, p, g, scale, causal)
+
+
+def _sdpa_short_bwd_launch(q, k, v, p, g, scale, causal):
     _check_qkv("sdpa_short_bwd", q, k, v, SDPA_HEAD_DIMS)
     b, h, t, d = q.shape
     if k.shape[2] != t or not 1 <= t <= SDPA_MAX_T:
         raise ValueError(f"sdpa_short_bwd: needs tq == tk <= {SDPA_MAX_T}, "
                          f"got {t} and {k.shape[2]}")
     _check_like("sdpa_short_bwd", (q, p, g), (q.shape, (b * h, t, t),
-                                              q.shape))
+                                              q.shape), (q.dtype,) * 3)
     _check_aligned("sdpa_short_bwd", (q, k, v, p, g), "q, k, v, P and dO")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    # scratch: delta, and O = P v, from which the kernel takes delta
+    # scratch: delta, rowsum(dP P), which the kernel sums itself
     rowsum = torch.empty(b * h, t, dtype=torch.float32, device=q.device)
-    o = torch.empty_like(q)
-    err = _kernel("sdpa_short_bwd", "sdpa_short_bwd", 10, 2)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
-        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        rowsum.data_ptr(), o.data_ptr(), b * h, t, d, float(scale),
-        int(bool(causal)), current_stream(q))
+    ptrs = (q, k, v, p, g, dq, dk, dv, rowsum)
+    err = _kernel("sdpa_short_bwd", "sdpa_short_bwd", len(ptrs), 2,
+                  q.dtype)(*(x.data_ptr() for x in ptrs), b * h, t, d,
+                           float(scale), int(bool(causal)),
+                           current_stream(q))
     sdpa_short_bwd.launches += 1
     check_launch("sdpa_short_bwd", err)
     return dq, dk, dv
@@ -273,7 +294,7 @@ def _flash_attention_launch(q, k, v, scale, causal, with_lse):
     out = torch.empty_like(q)
     lse = torch.empty(b, h, tq, dtype=torch.float32,
                       device=q.device) if with_lse else None
-    err = _kernel("flash_attention", "flash_attention_fwd", 5, 3)(
+    err = _kernel("flash_attention", "flash_attention_fwd", 5, 3, q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _ptr(lse), b * h, tq, k.shape[2], d, float(scale),
         int(bool(causal)), current_stream(q))
@@ -285,7 +306,8 @@ def _flash_attention_launch(q, k, v, scale, causal, with_lse):
 def _check_flash_bwd(name, q, k, v, g, lse, delta):
     _check_qkv(name, q, k, v, FLASH_HEAD_DIMS)
     _check_like(name, (q, g, lse, delta), (q.shape, q.shape, q.shape[:3],
-                                           q.shape[:3]))
+                                           q.shape[:3]),
+                (q.dtype, q.dtype, torch.float32, torch.float32))
     _check_aligned(name, (q, k, v, g), "q, k, v and dO")
 
 
@@ -297,10 +319,15 @@ def flash_bwd_dq(q, k, v, g, lse, delta, scale, causal=False):
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dq: no kernel for device {q.device}")
+    return _flash_bwd_dq_launch(q, k, v, g, lse, delta, scale, causal)
+
+
+def _flash_bwd_dq_launch(q, k, v, g, lse, delta, scale, causal):
     _check_flash_bwd("flash_bwd_dq", q, k, v, g, lse, delta)
     b, h, tq, d = q.shape
     dq = torch.empty_like(q)
-    err = _kernel("flash_attention_bwd", "flash_attention_bwd_dq", 7, 3)(
+    err = _kernel("flash_attention_bwd", "flash_attention_bwd_dq", 7, 3,
+                  q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, tq,
         k.shape[2], d, float(scale), int(bool(causal)), current_stream(q))
@@ -317,10 +344,15 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, scale, causal=False):
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv: no kernel for device {q.device}")
+    return _flash_bwd_dkv_launch(q, k, v, g, lse, delta, scale, causal)
+
+
+def _flash_bwd_dkv_launch(q, k, v, g, lse, delta, scale, causal):
     _check_flash_bwd("flash_bwd_dkv", q, k, v, g, lse, delta)
     b, h, tq, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _kernel("flash_attention_bwd", "flash_attention_bwd_dkv", 8, 3)(
+    err = _kernel("flash_attention_bwd", "flash_attention_bwd_dkv", 8, 3,
+                  q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b * h, tq, k.shape[2], d, float(scale), int(bool(causal)),

@@ -18,12 +18,16 @@ forward op makes it under ``no_grad``, writes no P.
 
 Where the kernels run: ``usable`` keeps the reference's structural
 conditions (3-D x, Wqkv [D, 3D], D % H == 0, 8 <= T <= 512, T % 8 == 0,
-D/H % 8 == 0, fp32) and the kernels' own limit D/H <= 128 (the backward's
-shared memory and registers). It drops the reference's batch grouping
-and its VMEM estimate against 12 MiB, a TPU condition that refuses
-Transformer-base's width (D 512 at batch 64, T 256: on a TPU the op then
-computes the reference composition). So on the card these kernels run at
-full width, where the TPU would not run its own.
+D/H % 8 == 0, x and Wqkv both fp32 or both bf16) and the kernels' own
+limit D/H <= 128 (the backward's shared memory and registers). It drops
+the reference's batch grouping and its VMEM estimate against 12 MiB, a
+TPU condition that refuses Transformer-base's width (D 512 at batch 64,
+T 256: on a TPU the op then computes the reference composition). So on
+the card these kernels run at full width, where the TPU would not run
+its own. The kernels take fp32 only: their bf16 instances are not
+ported yet, so on the card a bf16 call (as AMP makes it: the op is on
+the WHITE list) raises NotImplementedError and never runs the plain
+version.
 """
 from __future__ import annotations
 
@@ -33,12 +37,14 @@ import functools
 import torch
 
 from . import (check_launch, current_stream, masked_logits, on_card,
-               require_cuda_inputs, storage_tensor)
+               require_cuda_inputs, require_fp32_block, storage_tensor)
 
 MAX_T = 512
 MAX_HEAD_DIM = 128
 # the backward's weight gradients' row slices (tile_mma.cuh), 16 MB
 WORKSPACE_FLOATS = 1 << 22
+# the dtypes the JAX package's gate takes; the kernels take fp32 only
+BLOCK_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def usable(x, w_qkv, n_heads) -> bool:
@@ -51,7 +57,7 @@ def usable(x, w_qkv, n_heads) -> bool:
     dh = d // n_heads
     return (8 <= t <= MAX_T and t % 8 == 0 and dh % 8 == 0
             and dh <= MAX_HEAD_DIM
-            and x.dtype == w_qkv.dtype == torch.float32)
+            and x.dtype == w_qkv.dtype and x.dtype in BLOCK_DTYPES)
 
 
 def _heads(z, n_heads):
@@ -123,6 +129,7 @@ def _kernel(entry, n_ptrs, with_workspace):
 def _check(name, x, wqkv, wo, n_heads, more=(), shapes=()):
     """The CUDA path's checks: fp32, contiguous, on x's device, the shapes
     the kernels index them by and take."""
+    require_fp32_block(name, x)
     require_cuda_inputs(name, (x, wqkv, wo, *more), (torch.float32,))
     if not usable(x, wqkv, n_heads):
         raise ValueError(

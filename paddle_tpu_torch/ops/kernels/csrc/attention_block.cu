@@ -111,7 +111,7 @@ cudaError_t attention_stages(const float* qkv, const float* p,
   const int64_t d = s.d, d3 = 3 * d, dh = s.dh, t = s.t;
   const ab::Rows<const float> q = {qkv, t * d3, dh, (int)d3};
   const ab::Rows<float> dq = {dqkv, t * d3, dh, (int)d3};
-  ab::Args a;
+  ab::Args<float> a;
   a.q = q;
   a.k = q;
   a.k.base += d;

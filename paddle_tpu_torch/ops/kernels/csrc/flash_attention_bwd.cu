@@ -1,6 +1,9 @@
-// Flash-attention backward for Hopper (sm_90a), fp32 in and out: two
-// kernels, the FlashAttention-2 recipe, with every product on the tensor
-// cores in split TF32.
+// Flash-attention backward for Hopper (sm_90a), fp32 or bf16 in and out:
+// two kernels, the FlashAttention-2 recipe, with every product on the
+// tensor cores, in split TF32 for fp32 inputs and in bf16 for bf16 inputs
+// (split_bf16.cuh: q k^T and dO v^T one bf16 MMA a step, P and ds, fp32
+// intermediates, split into two bf16 parts for P^T dO, ds k and ds^T q;
+// lse and delta fp32; the grads rounded to bf16 once, at the end).
 //
 // Replaces: paddle_tpu/ops/pallas/attention.py `_flash_bwd_impl`, its
 // `_bwd_dq_kernel` (dq, a grid over query tiles) and `_bwd_dkv_kernel`
@@ -74,18 +77,31 @@
 // - Deterministic: every block writes only its own rows, with no atomics,
 //   and sums in a fixed order, so two launches give identical bits.
 //
+// In bf16 the 52 and 69 GFLOP take 0.053 and 0.070 ms at 989 TFLOP/s, on
+// 84 and 101 MB (0.025 and 0.030 ms): the products still bound them. The
+// dq kernel at D 256 streams 16 keys a tile in bf16 (8 in fp32): a bf16
+// step is 16 keys deep.
+//
 // Registers a thread and bytes of spill stores (ptxas -v for sm_90a, as
 // chip_smoke.py's build phase prints them): dq 98 (D 64, none), 183 (128,
 // none), 254 (256, 16 bytes); dk/dv 168 (64, capped for three blocks an
 // SM: 8 bytes), 255 (128: 8 bytes), 255 (256: 184 bytes).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "split_bf16.cuh"
 #include "split_tf32.cuh"
 
 namespace {
 
-using namespace split_tf32;
+using attn_mma::Mma;
+using split_tf32::cp_commit;
+using split_tf32::cp_wait;
+using split_tf32::load_rows;
+using split_tf32::load_vec;
 
 // P and ds of one (query qi, key kj) entry, from its raw score s, dp =
 // dO_qi . v_kj and the query row's lse and delta; blind_p = 1 / tk.
@@ -108,39 +124,44 @@ __device__ __forceinline__ void p_and_ds(float s, float scale, float dp,
 // dq: one block per (bh, R-row query tile), 4 warps of 16 rows; q, dO,
 // lse and delta resident, C-key tiles of k and v streamed.
 // ---------------------------------------------------------------------------
-template <int D>
+template <typename E, int D>
 struct DqTile {
   static constexpr int R = 64;  // query rows a block
   // keys a streamed tile: at D = 64, 16 keys keep a block at 61 KB of
   // shared memory, three blocks an SM; at D = 256, 8 keep the S and dP
   // fragments (C / 2 registers) beside the dq accumulator (D / 2) within a
-  // thread's registers and the block within shared memory
-  static constexpr int C = D == 64 ? 16 : D == 128 ? 32 : 8;
+  // thread's registers and the block within shared memory (16 in bf16,
+  // one 16-deep step)
+  static constexpr int C =
+      D == 64 ? 16 : D == 128 ? 32 : std::is_same<E, float>::value ? 8 : 16;
   static constexpr int kThreads = 32 * R / 16;
+  static constexpr int LD = D + Mma<E>::kPad;
   static constexpr size_t kSmem =
-      sizeof(float) * (2 * R * (D + kPad) + 6 * C * (D + kPad) + 2 * R);
+      sizeof(E) * (2 * R * LD + (4 + 2 * Mma<E>::kLo) * C * LD) +
+      sizeof(float) * 2 * R;
 };
 
-template <int D>
-__global__ void __launch_bounds__(DqTile<D>::kThreads)
-    flash_bwd_dq_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ g,
+template <typename E, int D>
+__global__ void __launch_bounds__(DqTile<E, D>::kThreads)
+    flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                        const E* __restrict__ v, const E* __restrict__ g,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        float* __restrict__ dq, int tq, int tk, float scale,
+                        E* __restrict__ dq, int tq, int tk, float scale,
                         int causal) {
-  using T = DqTile<D>;
-  constexpr int R = T::R, C = T::C, LD = D + kPad, NT = C / 8, ND = D / 8;
+  using T = DqTile<E, D>;
+  using M = Mma<E>;
+  constexpr int R = T::R, C = T::C, LD = T::LD, NT = C / 8, ND = D / 8;
+  constexpr int KS = M::kK, KJ = KS / 8;
   constexpr int kThreads = T::kThreads;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // [R][LD]
-  float* gs = qs + R * LD;          // [R][LD]
-  float* ring = gs + R * LD;        // stage st: k [C][LD], then v [C][LD]
-  float* klo = ring + 4 * C * LD;   // small halves: k [C][LD], v [C][LD]
-  float* vlo = klo + C * LD;
-  float* lse_s = vlo + C * LD;      // [R]
+  static_assert(NT % KJ == 0, "whole steps over a key tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* qs = reinterpret_cast<E*>(smem_raw);  // [R][LD]
+  E* gs = qs + R * LD;              // [R][LD]
+  E* ring = gs + R * LD;            // stage st: k [C][LD], then v [C][LD]
+  E* klo = ring + 4 * C * LD;       // fp32: small halves, k and v [C][LD]
+  E* vlo = klo + M::kLo * C * LD;
+  float* lse_s = reinterpret_cast<float*>(vlo + M::kLo * C * LD);  // [R]
   float* dl_s = lse_s + R;          // [R]
 
   const int bh = blockIdx.y;
@@ -149,11 +170,11 @@ __global__ void __launch_bounds__(DqTile<D>::kThreads)
   const int lane = tid % 32, gr = lane / 4, tc = lane % 4;
   const int m0 = tid / 32 * 16;  // this warp's rows within the block
   const float blind_p = 1.f / tk;
-  const float* kb = k + (int64_t)bh * tk * D;
-  const float* vb = v + (int64_t)bh * tk * D;
+  const E* kb = k + (int64_t)bh * tk * D;
+  const E* vb = v + (int64_t)bh * tk * D;
 
-  load_rows<D, R, kThreads>(qs, q + (int64_t)bh * tq * D, q0, tq, tid);
-  load_rows<D, R, kThreads>(gs, g + (int64_t)bh * tq * D, q0, tq, tid);
+  load_rows<D, R, kThreads, LD>(qs, q + (int64_t)bh * tq * D, q0, tq, tid);
+  load_rows<D, R, kThreads, LD>(gs, g + (int64_t)bh * tq * D, q0, tq, tid);
   load_vec<R, kThreads>(lse_s, lse + (int64_t)bh * tq, q0, tq, tid);
   load_vec<R, kThreads>(dl_s, delta + (int64_t)bh * tq, q0, tq, tid);
 
@@ -162,8 +183,8 @@ __global__ void __launch_bounds__(DqTile<D>::kThreads)
   if (causal) kend = max(0, min(tk, q0 + R + tk - tq));
   const int ntiles = (kend + C - 1) / C;
   if (ntiles > 0) {
-    load_rows<D, C, kThreads>(ring, kb, 0, tk, tid);
-    load_rows<D, C, kThreads>(ring + C * LD, vb, 0, tk, tid);
+    load_rows<D, C, kThreads, LD>(ring, kb, 0, tk, tid);
+    load_rows<D, C, kThreads, LD>(ring + C * LD, vb, 0, tk, tid);
   }
   cp_commit();
 
@@ -171,21 +192,21 @@ __global__ void __launch_bounds__(DqTile<D>::kThreads)
 #pragma unroll
   for (int n = 0; n < ND; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const float* qw = qs + m0 * LD;
-  const float* gw = gs + m0 * LD;
+  const E* qw = qs + m0 * LD;
+  const E* gw = gs + m0 * LD;
 
   for (int kt = 0; kt < ntiles; ++kt) {
-    float* ks = ring + (kt & 1) * 2 * C * LD;
-    float* vs = ks + C * LD;
+    E* ks = ring + (kt & 1) * 2 * C * LD;
+    E* vs = ks + C * LD;
     if (kt + 1 < ntiles) {
-      float* nk = ring + ((kt + 1) & 1) * 2 * C * LD;
-      load_rows<D, C, kThreads>(nk, kb, (kt + 1) * C, tk, tid);
-      load_rows<D, C, kThreads>(nk + C * LD, vb, (kt + 1) * C, tk, tid);
+      E* nk = ring + ((kt + 1) & 1) * 2 * C * LD;
+      load_rows<D, C, kThreads, LD>(nk, kb, (kt + 1) * C, tk, tid);
+      load_rows<D, C, kThreads, LD>(nk + C * LD, vb, (kt + 1) * C, tk, tid);
     }
     cp_commit();
     cp_wait<1>();  // this tile (and the resident rows) have landed
-    split_rows<D, C, kThreads>(ks, klo, tid);
-    split_rows<D, C, kThreads>(vs, vlo, tid);
+    M::template split_rows<D, C, kThreads, LD>(ks, klo, tid);
+    M::template split_rows<D, C, kThreads, LD>(vs, vlo, tid);
     __syncthreads();
 
     float s[NT][4], dp[NT][4];
@@ -194,14 +215,14 @@ __global__ void __launch_bounds__(DqTile<D>::kThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D; kk += 8) {
-      const OpA aq = load_a(qw + kk, LD, gr, tc);
-      const OpA ag = load_a(gw + kk, LD, gr, tc);
+    for (int kk = 0; kk < D; kk += KS) {
+      const typename M::A aq = M::load_a(qw + kk, LD, gr, tc);
+      const typename M::A ag = M::load_a(gw + kk, LD, gr, tc);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int at = j * 8 * LD + kk;
-        mma3(s[j], aq, load_b_t(ks + at, klo + at, LD, gr, tc));
-        mma3(dp[j], ag, load_b_t(vs + at, vlo + at, LD, gr, tc));
+        M::mma(s[j], aq, M::load_b_t(ks + at, klo + at, LD, gr, tc));
+        M::mma(dp[j], ag, M::load_b_t(vs + at, vlo + at, LD, gr, tc));
       }
     }
     // ds on the fragments: c0..c3 are (row gr | gr+8, key 2tc | 2tc+1)
@@ -216,29 +237,29 @@ __global__ void __launch_bounds__(DqTile<D>::kThreads)
                  p, ds);
         s[j][i] = ds;
       }
-    // dq += ds k
+    // dq += ds k, KJ key tiles a step
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const OpA a = acc_as_a(s[j]);
+    for (int j = 0; j < NT; j += KJ) {
+      const typename M::AccA a = M::acc_as_a(s + j);
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         const int at = j * 8 * LD + n * 8;
-        mma3(acc[n], a, load_b_perm(ks + at, klo + at, LD, gr, tc));
+        M::mma(acc[n], a, M::load_b_acc(ks + at, klo + at, LD, gr, tc));
       }
     }
     __syncthreads();  // the next iteration refills this stage
   }
   cp_wait<0>();
 
-  float* dqb = dq + (int64_t)bh * tq * D;
+  E* dqb = dq + (int64_t)bh * tq * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = q0 + m0 + gr + h * 8;
     if (row >= tq) continue;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<float2*>(dqb + (int64_t)row * D + n * 8 + 2 * tc) =
-          make_float2(acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+      M::store2(dqb + (int64_t)row * D + n * 8 + 2 * tc,
+                acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
   }
 }
 
@@ -247,42 +268,46 @@ __global__ void __launch_bounds__(DqTile<D>::kThreads)
 // tiles of q, dO, lse and delta streamed. Warp w owns keys 16 (w / SPLIT)
 // and output columns (w % SPLIT) D / SPLIT.
 // ---------------------------------------------------------------------------
-template <int D>
+template <typename E, int D>
 struct DkvTile {
   static constexpr int C = D == 256 ? 32 : 64;  // keys a block
   static constexpr int R = D == 128 ? 32 : 16;  // queries a streamed tile
   static constexpr int SPLIT = D == 64 ? 1 : 2;  // warps sharing 16 keys
   static constexpr int kThreads = 32 * (C / 16) * SPLIT;
-  // at D = 64 three blocks an SM (61 KB of shared memory each), with the
-  // registers capped to fit: more warps to hide the products' latency
-  // outweigh the few spills
+  // at D = 64 three blocks an SM (61 KB of shared memory each in fp32),
+  // with the registers capped to fit: more warps to hide the products'
+  // latency outweigh the few spills
   static constexpr int kMinBlocks = D == 64 ? 3 : 1;
+  static constexpr int LD = D + Mma<E>::kPad;
   static constexpr size_t kSmem =
-      sizeof(float) * (2 * C * (D + kPad) + 6 * R * (D + kPad) + 4 * R);
+      sizeof(E) * (2 * C * LD + (4 + 2 * Mma<E>::kLo) * R * LD) +
+      sizeof(float) * 4 * R;
 };
 
-template <int D>
-__global__ void __launch_bounds__(DkvTile<D>::kThreads,
-                                  DkvTile<D>::kMinBlocks)
-    flash_bwd_dkv_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ g,
+template <typename E, int D>
+__global__ void __launch_bounds__(DkvTile<E, D>::kThreads,
+                                  DkvTile<E, D>::kMinBlocks)
+    flash_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                         const E* __restrict__ v, const E* __restrict__ g,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int tq, int tk, float scale, int causal) {
-  using T = DkvTile<D>;
-  constexpr int R = T::R, C = T::C, LD = D + kPad, NT = R / 8;
+                         E* __restrict__ dk, E* __restrict__ dv, int tq,
+                         int tk, float scale, int causal) {
+  using T = DkvTile<E, D>;
+  using M = Mma<E>;
+  constexpr int R = T::R, C = T::C, LD = T::LD, NT = R / 8;
+  constexpr int KS = M::kK, KJ = KS / 8;
   constexpr int NO = D / T::SPLIT / 8;  // output column tiles a warp
   constexpr int kThreads = T::kThreads;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                  // [C][LD]
-  float* vs = ks + C * LD;           // [C][LD]
-  float* ring = vs + C * LD;         // stage st: q [R][LD], then dO [R][LD]
-  float* qlo = ring + 4 * R * LD;    // small halves: q [R][LD], dO [R][LD]
-  float* glo = qlo + R * LD;
-  float* vec = glo + R * LD;         // stage st: lse [R], then delta [R]
+  static_assert(NT % KJ == 0, "whole steps over a query tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* ks = reinterpret_cast<E*>(smem_raw);  // [C][LD]
+  E* vs = ks + C * LD;               // [C][LD]
+  E* ring = vs + C * LD;             // stage st: q [R][LD], then dO [R][LD]
+  E* qlo = ring + 4 * R * LD;        // fp32: small halves, q and dO [R][LD]
+  E* glo = qlo + M::kLo * R * LD;
+  // stage st: lse [R], then delta [R]
+  float* vec = reinterpret_cast<float*>(glo + M::kLo * R * LD);
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * C;
@@ -293,8 +318,8 @@ __global__ void __launch_bounds__(DkvTile<D>::kThreads,
   const int c0 = warp % T::SPLIT * NO * 8;   // and its output columns
   const int offset = tk - tq;
   const float blind_p = 1.f / tk;
-  const float* qb = q + (int64_t)bh * tq * D;
-  const float* gb = g + (int64_t)bh * tq * D;
+  const E* qb = q + (int64_t)bh * tq * D;
+  const E* gb = g + (int64_t)bh * tq * D;
   const float* lb = lse + (int64_t)bh * tq;
   const float* db = delta + (int64_t)bh * tq;
 
@@ -307,15 +332,15 @@ __global__ void __launch_bounds__(DkvTile<D>::kThreads,
     return qt;
   };
   auto fetch = [&](int qt, int st) {
-    float* qs_ = ring + st * 2 * R * LD;
-    load_rows<D, R, kThreads>(qs_, qb, qt, tq, tid);
-    load_rows<D, R, kThreads>(qs_ + R * LD, gb, qt, tq, tid);
+    E* qs_ = ring + st * 2 * R * LD;
+    load_rows<D, R, kThreads, LD>(qs_, qb, qt, tq, tid);
+    load_rows<D, R, kThreads, LD>(qs_ + R * LD, gb, qt, tq, tid);
     load_vec<R, kThreads>(vec + st * 2 * R, lb, qt, tq, tid);
     load_vec<R, kThreads>(vec + st * 2 * R + R, db, qt, tq, tid);
   };
 
-  load_rows<D, C, kThreads>(ks, k + (int64_t)bh * tk * D, k0, tk, tid);
-  load_rows<D, C, kThreads>(vs, v + (int64_t)bh * tk * D, k0, tk, tid);
+  load_rows<D, C, kThreads, LD>(ks, k + (int64_t)bh * tk * D, k0, tk, tid);
+  load_rows<D, C, kThreads, LD>(vs, v + (int64_t)bh * tk * D, k0, tk, tid);
   int qt = next_tile(0);
   if (qt < tq) fetch(qt, 0);
   cp_commit();
@@ -325,18 +350,18 @@ __global__ void __launch_bounds__(DkvTile<D>::kThreads,
   for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) dk_acc[n][i] = dv_acc[n][i] = 0.f;
-  const float* kw = ks + m0 * LD;
-  const float* vw = vs + m0 * LD;
+  const E* kw = ks + m0 * LD;
+  const E* vw = vs + m0 * LD;
 
   for (int st = 0; qt < tq; st ^= 1) {
     const int nxt = next_tile(qt + R);
     if (nxt < tq) fetch(nxt, st ^ 1);
     cp_commit();
     cp_wait<1>();  // this tile (and the resident keys) have landed
-    float* qs = ring + st * 2 * R * LD;
-    float* gs = qs + R * LD;
-    split_rows<D, R, kThreads>(qs, qlo, tid);
-    split_rows<D, R, kThreads>(gs, glo, tid);
+    E* qs = ring + st * 2 * R * LD;
+    E* gs = qs + R * LD;
+    M::template split_rows<D, R, kThreads, LD>(qs, qlo, tid);
+    M::template split_rows<D, R, kThreads, LD>(gs, glo, tid);
     __syncthreads();
     const float* lse_s = vec + st * 2 * R;
     const float* dl_s = lse_s + R;
@@ -347,14 +372,14 @@ __global__ void __launch_bounds__(DkvTile<D>::kThreads,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-    for (int kk = 0; kk < D; kk += 8) {
-      const OpA ak = load_a(kw + kk, LD, gr, tc);
-      const OpA av = load_a(vw + kk, LD, gr, tc);
+    for (int kk = 0; kk < D; kk += KS) {
+      const typename M::A ak = M::load_a(kw + kk, LD, gr, tc);
+      const typename M::A av = M::load_a(vw + kk, LD, gr, tc);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int at = j * 8 * LD + kk;
-        mma3(s[j], ak, load_b_t(qs + at, qlo + at, LD, gr, tc));
-        mma3(dp[j], av, load_b_t(gs + at, glo + at, LD, gr, tc));
+        M::mma(s[j], ak, M::load_b_t(qs + at, qlo + at, LD, gr, tc));
+        M::mma(dp[j], av, M::load_b_t(gs + at, glo + at, LD, gr, tc));
       }
     }
     // P^T and ds^T on the fragments: (key gr | gr+8, query 2tc | 2tc+1)
@@ -370,16 +395,17 @@ __global__ void __launch_bounds__(DkvTile<D>::kThreads,
         s[j][i] = p;
         dp[j][i] = ds;
       }
-    // dv += P^T dO, dk += ds^T q over this warp's output columns
+    // dv += P^T dO, dk += ds^T q over this warp's output columns, KJ query
+    // tiles a step
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const OpA ap = acc_as_a(s[j]);
-      const OpA ads = acc_as_a(dp[j]);
+    for (int j = 0; j < NT; j += KJ) {
+      const typename M::AccA ap = M::acc_as_a(s + j);
+      const typename M::AccA ads = M::acc_as_a(dp + j);
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
         const int at = j * 8 * LD + c0 + n * 8;
-        mma3(dv_acc[n], ap, load_b_perm(gs + at, glo + at, LD, gr, tc));
-        mma3(dk_acc[n], ads, load_b_perm(qs + at, qlo + at, LD, gr, tc));
+        M::mma(dv_acc[n], ap, M::load_b_acc(gs + at, glo + at, LD, gr, tc));
+        M::mma(dk_acc[n], ads, M::load_b_acc(qs + at, qlo + at, LD, gr, tc));
       }
     }
     __syncthreads();  // the next iteration refills this stage
@@ -387,8 +413,8 @@ __global__ void __launch_bounds__(DkvTile<D>::kThreads,
   }
   cp_wait<0>();
 
-  float* dkb = dk + (int64_t)bh * tk * D;
-  float* dvb = dv + (int64_t)bh * tk * D;
+  E* dkb = dk + (int64_t)bh * tk * D;
+  E* dvb = dv + (int64_t)bh * tk * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = k0 + m0 + gr + h * 8;
@@ -396,17 +422,18 @@ __global__ void __launch_bounds__(DkvTile<D>::kThreads,
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       const int64_t at = (int64_t)key * D + c0 + n * 8 + 2 * tc;
-      *reinterpret_cast<float2*>(dkb + at) = make_float2(
-          dk_acc[n][2 * h] * scale, dk_acc[n][2 * h + 1] * scale);
-      *reinterpret_cast<float2*>(dvb + at) =
-          make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+      M::store2(dkb + at, dk_acc[n][2 * h] * scale,
+                dk_acc[n][2 * h + 1] * scale);
+      M::store2(dvb + at, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
     }
   }
 }
 
+template <typename E>
 struct Args {
-  const float *q, *k, *v, *g, *lse, *delta;
-  float *dq, *dk, *dv;
+  const E *q, *k, *v, *g;
+  const float *lse, *delta;
+  E *dq, *dk, *dv;
   int64_t bh;
   int tq, tk;
   float scale;
@@ -414,58 +441,59 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
-int launch_dq(const Args& a) {
-  using T = DqTile<D>;
+template <typename E, int D>
+int launch_dq(const Args<E>& a) {
+  using T = DqTile<E, D>;
+  auto* kernel = flash_bwd_dq_kernel<E, D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.tq + T::R - 1) / T::R, (unsigned)a.bh);
-  flash_bwd_dq_kernel<D><<<grid, T::kThreads, T::kSmem, a.stream>>>(
+  kernel<<<grid, T::kThreads, T::kSmem, a.stream>>>(
       a.q, a.k, a.v, a.g, a.lse, a.delta, a.dq, a.tq, a.tk, a.scale,
       a.causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv(const Args& a) {
-  using T = DkvTile<D>;
+template <typename E, int D>
+int launch_dkv(const Args<E>& a) {
+  using T = DkvTile<E, D>;
+  auto* kernel = flash_bwd_dkv_kernel<E, D>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.tk + T::C - 1) / T::C, (unsigned)a.bh);
-  flash_bwd_dkv_kernel<D><<<grid, T::kThreads, T::kSmem, a.stream>>>(
+  kernel<<<grid, T::kThreads, T::kSmem, a.stream>>>(
       a.q, a.k, a.v, a.g, a.lse, a.delta, a.dk, a.dv, a.tq, a.tk, a.scale,
       a.causal);
   return (int)cudaGetLastError();
 }
 
-template <int (*F64)(const Args&), int (*F128)(const Args&),
-          int (*F256)(const Args&)>
-int by_head_dim(const Args& a, int d) {
+// the dq (kDq) or the dk/dv launch at head width d
+template <typename E, bool kDq>
+int by_head_dim(const Args<E>& a, int d) {
   if (a.tq < 1 || a.tk < 1) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 64:
-      return F64(a);
+      return kDq ? launch_dq<E, 64>(a) : launch_dkv<E, 64>(a);
     case 128:
-      return F128(a);
+      return kDq ? launch_dq<E, 128>(a) : launch_dkv<E, 128>(a);
     case 256:
-      return F256(a);
+      return kDq ? launch_dq<E, 256>(a) : launch_dkv<E, 256>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-Args make_args(const void* q, const void* k, const void* v, const void* g,
-               const void* lse, const void* delta, int64_t bh, int tq, int tk,
-               float scale, int causal, void* stream) {
-  Args a{};
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.g = static_cast<const float*>(g);
+template <typename E>
+Args<E> make_args(const void* q, const void* k, const void* v, const void* g,
+                  const void* lse, const void* delta, int64_t bh, int tq,
+                  int tk, float scale, int causal, void* stream) {
+  Args<E> a{};
+  a.q = static_cast<const E*>(q);
+  a.k = static_cast<const E*>(k);
+  a.v = static_cast<const E*>(v);
+  a.g = static_cast<const E*>(g);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.bh = bh;
@@ -477,24 +505,45 @@ Args make_args(const void* q, const void* k, const void* v, const void* g,
   return a;
 }
 
+template <typename E>
+int bwd_dq(const void* q, const void* k, const void* v, const void* g,
+           const void* lse, const void* delta, void* dq, int64_t bh, int tq,
+           int tk, int d, float scale, int causal, void* stream) {
+  Args<E> a = make_args<E>(q, k, v, g, lse, delta, bh, tq, tk, scale, causal,
+                           stream);
+  a.dq = static_cast<E*>(dq);
+  return by_head_dim<E, true>(a, d);
+}
+
+template <typename E>
+int bwd_dkv(const void* q, const void* k, const void* v, const void* g,
+            const void* lse, const void* delta, void* dk, void* dv,
+            int64_t bh, int tq, int tk, int d, float scale, int causal,
+            void* stream) {
+  Args<E> a = make_args<E>(q, k, v, g, lse, delta, bh, tq, tk, scale, causal,
+                           stream);
+  a.dk = static_cast<E*>(dk);
+  a.dv = static_cast<E*>(dv);
+  return by_head_dim<E, false>(a, d);
+}
+
 }  // namespace
 
-// All pointers fp32 device pointers, contiguous: q, g (dO), dq [bh, tq, d];
-// k, v, dk, dv [bh, tk, d]; lse, delta [bh, tq]. q, k, v, g, dq, dk and dv
-// 16-byte aligned (cp.async and float2 stores). d in {64, 128, 256}.
-// Each returns cudaGetLastError() of its launch (or of the shared-memory
-// attribute call); 1 (cudaErrorInvalidValue) for a shape the kernels do not
-// take.
+// Contiguous device pointers: q, g (dO), dq [bh, tq, d]; k, v, dk, dv
+// [bh, tk, d], all fp32 (flash_attention_bwd_dq/_dkv) or all bf16 (the
+// _bf16 entries); lse, delta fp32 [bh, tq]. q, k, v, g, dq, dk and dv
+// 16-byte aligned (cp.async and pair stores). d in {64, 128, 256}. Each
+// returns cudaGetLastError() of its launch (or of the shared-memory
+// attribute call); 1 (cudaErrorInvalidValue) for a shape the kernels do
+// not take.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* g,
                                       const void* lse, const void* delta,
                                       void* dq, int64_t bh, int tq, int tk,
                                       int d, float scale, int causal,
                                       void* stream) {
-  Args a = make_args(q, k, v, g, lse, delta, bh, tq, tk, scale, causal,
-                     stream);
-  a.dq = static_cast<float*>(dq);
-  return by_head_dim<launch_dq<64>, launch_dq<128>, launch_dq<256>>(a, d);
+  return bwd_dq<float>(q, k, v, g, lse, delta, dq, bh, tq, tk, d, scale,
+                       causal, stream);
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
@@ -503,9 +552,28 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* dk, void* dv, int64_t bh, int tq,
                                        int tk, int d, float scale, int causal,
                                        void* stream) {
-  Args a = make_args(q, k, v, g, lse, delta, bh, tq, tk, scale, causal,
-                     stream);
-  a.dk = static_cast<float*>(dk);
-  a.dv = static_cast<float*>(dv);
-  return by_head_dim<launch_dkv<64>, launch_dkv<128>, launch_dkv<256>>(a, d);
+  return bwd_dkv<float>(q, k, v, g, lse, delta, dk, dv, bh, tq, tk, d,
+                        scale, causal, stream);
+}
+
+extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
+                                           const void* v, const void* g,
+                                           const void* lse,
+                                           const void* delta, void* dq,
+                                           int64_t bh, int tq, int tk, int d,
+                                           float scale, int causal,
+                                           void* stream) {
+  return bwd_dq<__nv_bfloat16>(q, k, v, g, lse, delta, dq, bh, tq, tk, d,
+                               scale, causal, stream);
+}
+
+extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k,
+                                            const void* v, const void* g,
+                                            const void* lse,
+                                            const void* delta, void* dk,
+                                            void* dv, int64_t bh, int tq,
+                                            int tk, int d, float scale,
+                                            int causal, void* stream) {
+  return bwd_dkv<__nv_bfloat16>(q, k, v, g, lse, delta, dk, dv, bh, tq, tk,
+                                d, scale, causal, stream);
 }

@@ -1,9 +1,18 @@
-// The split-TF32 online-softmax attention forward for Hopper (sm_90a), fp32
-// in and out: the body that flash_attention.cu (#2, any tq and tk, d 64,
-// 128 or 256, optionally the per-row logsumexp), sdpa_short.cu (#5, tq ==
-// tk <= 512, d 64 or 128, optionally the normalized P) and the
-// attention_block forward (#10, attention_block.cu: head widths up to 64
-// on d 64, up to 128 on d 128, optionally P) instantiate.
+// The online-softmax attention forward for Hopper (sm_90a), in fp32 (split
+// TF32) or bf16 (E, the element type of q, k, v, o and P; split_bf16.cuh):
+// the body that flash_attention.cu (#2, any tq and tk, d 64, 128 or 256,
+// optionally the per-row logsumexp), sdpa_short.cu (#5, tq == tk <= 512, d
+// 64 or 128, optionally the normalized P) and the attention_block forward
+// (#10, attention_block.cu, fp32 only: head widths up to 64 on d 64, up to
+// 128 on d 128, optionally P) instantiate.
+//
+// In bf16: S = q k^T is one bf16 MMA a step (its products exact in fp32,
+// as after the TPU kernel's upcast); P, an fp32 intermediate, enters P v
+// split into two bf16 parts (two MMAs); the lse stays fp32, the output and
+// the saved P are rounded to bf16 once, at the end. The scale multiplies
+// the fp32 scores, where the TPU kernel multiplies its fp32 q before the
+// product (attention.py:131): the same up to fp32 rounding, a power of two
+// at d 64 and 256 exact either way.
 //
 // Computes out = softmax(scale * q k^T [+ causal mask]) v for q [BH, tq, D],
 // k, v [BH, tk, D]. Each operand may be a view (Layout: a base per head
@@ -70,13 +79,23 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "split_bf16.cuh"
 #include "split_tf32.cuh"
 
 namespace flash_fwd {
 
-using namespace split_tf32;
+using attn_mma::Mma;
+using split_tf32::cp_commit;
+using split_tf32::cp_wait;
+using split_tf32::load_tile;
 
-template <int D>
+// a pointer parameter that does not take part in deducing E
+template <typename T>
+struct Same {
+  using type = T;
+};
+
+template <typename E, int D>
 struct FwdTile {
   static constexpr int R = 64;                    // query rows a block
   static constexpr int SPLIT = D == 256 ? 2 : 1;  // warps sharing 16 rows
@@ -87,8 +106,11 @@ struct FwdTile {
   // registers capped to fit; at D = 128 and 256 stating one block ran
   // faster on the card than leaving the bound out
   static constexpr int kMinBlocks = D == 64 ? 3 : 1;
+  static constexpr int LD = D + Mma<E>::kPad;  // a staged row, elements
+  // q [R][LD]; a two-stage ring of k and v tiles [C][LD]; in fp32 their
+  // small halves
   static constexpr size_t kSmem =
-      sizeof(float) * (R * (D + kPad) + 6 * C * (D + kPad));
+      sizeof(E) * (R * LD + (4 + 2 * Mma<E>::kLo) * C * LD);
 };
 
 // The views of q, k, v and o (operands 0-3) across heads: head bh's rows
@@ -105,23 +127,29 @@ struct Layout {
 // kViews: q, k, v and o lie as `lay` says; else they are contiguous [BH, t,
 // D] (lay unused), so that the address arithmetic of #2 and #5 stays
 // compile-time constants and their pointers __restrict__
-template <int D, bool kSaveP, bool kViews>
-__global__ void __launch_bounds__(FwdTile<D>::kThreads,
-                                  FwdTile<D>::kMinBlocks)
-    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o,
-               float* __restrict__ lse, float* __restrict__ p_out, int tq,
+template <typename E, int D, bool kSaveP, bool kViews>
+__global__ void __launch_bounds__(FwdTile<E, D>::kThreads,
+                                  FwdTile<E, D>::kMinBlocks)
+    fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
+               const E* __restrict__ v, E* __restrict__ o,
+               float* __restrict__ lse, E* __restrict__ p_out, int tq,
                int tk, float scale, int causal, const Layout lay) {
-  using T = FwdTile<D>;
-  constexpr int R = T::R, C = T::C, LD = D + kPad, NT = C / 8, ND = D / 8;
-  constexpr int NO = ND / T::SPLIT;  // output column tiles a warp
+  using T = FwdTile<E, D>;
+  using M = Mma<E>;
+  constexpr int R = T::R, C = T::C, LD = T::LD, NT = C / 8;
+  constexpr int KS = M::kK, KJ = KS / 8;  // a step's depth, in 8-col tiles
+  constexpr int NK = D / KS;              // steps over the head width
+  constexpr int NO = D / 8 / T::SPLIT;    // output column tiles a warp
   constexpr int kThreads = T::kThreads;
   static_assert(!kSaveP || T::SPLIT == 1, "one warp writes a row of P");
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                // [R][LD]
-  float* ring = qs + R * LD;       // stage st: k [C][LD], then v [C][LD]
-  float* klo = ring + 4 * C * LD;  // small halves: k [C][LD], v [C][LD]
-  float* vlo = klo + C * LD;
+  static_assert(NT % KJ == 0, "whole steps over a key tile");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* smem = reinterpret_cast<E*>(smem_raw);
+  E* qs = smem;                // [R][LD]
+  E* ring = qs + R * LD;       // stage st: k [C][LD], then v [C][LD]
+  // fp32: small halves, k [C][LD] and v [C][LD]; bf16: none (unread)
+  E* klo = ring + 4 * C * LD;
+  E* vlo = klo + M::kLo * C * LD;
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * R;
@@ -139,16 +167,16 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
                   : x + (int64_t)bh * t * D;
   };
   auto ld = [&](int i) { return kViews ? lay.ld[i] : D; };
-  const float* kb = rows(k, 1, tk);
-  const float* vb = rows(v, 2, tk);
+  const E* kb = rows(k, 1, tk);
+  const E* vb = rows(v, 2, tk);
   // key rows [k0, k0 + C) of K into stage st's k slot (and of V into its
   // v slot)
-  auto load_k = [&](float* st, int k0) {
-    load_tile<D, C, kThreads>(st, kb, ld(1), k0, tk, dh, tid);
+  auto load_k = [&](E* st, int k0) {
+    load_tile<D, C, kThreads, LD>(st, kb, ld(1), k0, tk, dh, tid);
   };
-  auto load_kv = [&](float* st, int k0) {
+  auto load_kv = [&](E* st, int k0) {
     load_k(st, k0);
-    load_tile<D, C, kThreads>(st + C * LD, vb, ld(2), k0, tk, dh, tid);
+    load_tile<D, C, kThreads, LD>(st + C * LD, vb, ld(2), k0, tk, dh, tid);
   };
 
   // With no fully masked row in the block, keys past the last row's
@@ -160,7 +188,7 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
   const bool warp_skips = causal && q0 + m0 + offset >= 0;
   const int warp_last = q0 + m0 + 15 + offset;  // its last row's horizon
 
-  load_tile<D, R, kThreads>(qs, rows(q, 0, tq), ld(0), q0, tq, dh, tid);
+  load_tile<D, R, kThreads, LD>(qs, rows(q, 0, tq), ld(0), q0, tq, dh, tid);
   load_kv(ring, 0);
   cp_commit();
 
@@ -168,28 +196,28 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
 #pragma unroll
   for (int n = 0; n < NO; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const float* qw = qs + m0 * LD;
-  OpA aq[T::kQInRegs ? ND : 1];
+  const E* qw = qs + m0 * LD;
+  typename M::A aq[T::kQInRegs ? NK : 1];
 
   // S = q k^T of the warp's rows on key tile kt (staged at ks, its small
   // halves in klo), scaled and masked: c0..c3 are (row gr | gr+8, key 2tc
   // | 2tc+1)
-  auto scores = [&](float (&s)[NT][4], const float* ks, int kt) {
+  auto scores = [&](float (&s)[NT][4], const E* ks, int kt) {
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < ND; ++kk) {
-      OpA a;
+    for (int kk = 0; kk < NK; ++kk) {
+      typename M::A a;
       if constexpr (T::kQInRegs)
         a = aq[kk];
       else
-        a = load_a(qw + kk * 8, LD, gr, tc);
+        a = M::load_a(qw + kk * KS, LD, gr, tc);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const int at = j * 8 * LD + kk * 8;
-        mma3(s[j], a, load_b_t(ks + at, klo + at, LD, gr, tc));
+        const int at = j * 8 * LD + kk * KS;
+        M::mma(s[j], a, M::load_b_t(ks + at, klo + at, LD, gr, tc));
       }
     }
 #pragma unroll
@@ -205,20 +233,20 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
   };
 
   for (int kt = 0; kt < ntiles; ++kt) {
-    float* ks = ring + (kt & 1) * 2 * C * LD;
-    float* vs = ks + C * LD;
+    E* ks = ring + (kt & 1) * 2 * C * LD;
+    E* vs = ks + C * LD;
     if (kt + 1 < ntiles)
       load_kv(ring + ((kt + 1) & 1) * 2 * C * LD, (kt + 1) * C);
     cp_commit();
     cp_wait<1>();  // this tile (and q) have landed
-    split_rows<D, C, kThreads>(ks, klo, tid);
-    split_rows<D, C, kThreads>(vs, vlo, tid);
+    M::template split_rows<D, C, kThreads, LD>(ks, klo, tid);
+    M::template split_rows<D, C, kThreads, LD>(vs, vlo, tid);
     __syncthreads();
     if constexpr (T::kQInRegs) {
       if (kt == 0) {
 #pragma unroll
-        for (int kk = 0; kk < ND; ++kk)
-          aq[kk] = load_a(qw + kk * 8, LD, gr, tc);
+        for (int kk = 0; kk < NK; ++kk)
+          aq[kk] = M::load_a(qw + kk * KS, LD, gr, tc);
       }
     }
     if (!(warp_skips && kt * C > warp_last)) {
@@ -256,14 +284,14 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
         acc[n][2] *= corr[1];
         acc[n][3] *= corr[1];
       }
-      // O += P v over this warp's output columns
+      // O += P v over this warp's output columns, KJ key tiles a step
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const OpA a = acc_as_a(s[j]);
+      for (int j = 0; j < NT; j += KJ) {
+        const typename M::AccA a = M::acc_as_a(s + j);
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
           const int at = j * 8 * LD + c0 + n * 8;
-          mma3(acc[n], a, load_b_perm(vs + at, vlo + at, LD, gr, tc));
+          M::mma(acc[n], a, M::load_b_acc(vs + at, vlo + at, LD, gr, tc));
         }
       }
     }
@@ -271,7 +299,7 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
   }
   cp_wait<0>();
 
-  float* ob = rows(o, 3, tq);
+  E* ob = rows(o, 3, tq);
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -283,9 +311,8 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       if (c0 + n * 8 < dh)
-        *reinterpret_cast<float2*>(ob + (int64_t)row * ld(3) + c0 +
-                                   n * 8 + 2 * tc) =
-            make_float2(acc[n][2 * h] * inv[h], acc[n][2 * h + 1] * inv[h]);
+        M::store2(ob + (int64_t)row * ld(3) + c0 + n * 8 + 2 * tc,
+                  acc[n][2 * h] * inv[h], acc[n][2 * h + 1] * inv[h]);
     if (lse != nullptr && c0 == 0 && tc == 0)
       lse[(int64_t)bh * tq + row] = m[h] + logf(l[h]);
   }
@@ -293,17 +320,17 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
   if constexpr (kSaveP) {
     // the P sweep: K alone through the ring's k slots (the key loop's last
     // barrier freed them)
-    float* pb = p_out + (int64_t)bh * tq * tk;
-    const bool pairs = tk % 2 == 0;  // rows of P 8-byte aligned
+    E* pb = p_out + (int64_t)bh * tq * tk;
+    const bool pairs = tk % 2 == 0;  // rows of P aligned for pair stores
     load_k(ring, 0);
     cp_commit();
     for (int kt = 0; kt < ntiles; ++kt) {
-      float* ks = ring + (kt & 1) * 2 * C * LD;
+      E* ks = ring + (kt & 1) * 2 * C * LD;
       if (kt + 1 < ntiles)
         load_k(ring + ((kt + 1) & 1) * 2 * C * LD, (kt + 1) * C);
       cp_commit();
       cp_wait<1>();
-      split_rows<D, C, kThreads>(ks, klo, tid);
+      M::template split_rows<D, C, kThreads, LD>(ks, klo, tid);
       __syncthreads();
       float s[NT][4];
       if (!(warp_skips && kt * C > warp_last)) {
@@ -323,17 +350,16 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
       for (int h = 0; h < 2; ++h) {
         const int row = q0 + m0 + gr + h * 8;
         if (row >= tq) continue;
-        float* pr = pb + (int64_t)row * tk;
+        E* pr = pb + (int64_t)row * tk;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           const int key = kt * C + j * 8 + 2 * tc;
           if (key >= tk) continue;
           if (pairs) {
-            *reinterpret_cast<float2*>(pr + key) =
-                make_float2(s[j][2 * h], s[j][2 * h + 1]);
+            M::store2(pr + key, s[j][2 * h], s[j][2 * h + 1]);
           } else {
-            pr[key] = s[j][2 * h];
-            if (key + 1 < tk) pr[key + 1] = s[j][2 * h + 1];
+            pr[key] = E(s[j][2 * h]);
+            if (key + 1 < tk) pr[key + 1] = E(s[j][2 * h + 1]);
           }
         }
       }
@@ -345,7 +371,7 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
     if (width > 0) {
       for (int i = tid; i < R * width; i += kThreads) {
         const int row = q0 + i / width;
-        if (row < tq) pb[(int64_t)row * tk + k1 + i % width] = 0.f;
+        if (row < tq) pb[(int64_t)row * tk + k1 + i % width] = M::zero();
       }
     }
   }
@@ -355,12 +381,12 @@ __global__ void __launch_bounds__(FwdTile<D>::kThreads,
 // as `lay` says (kViews) or contiguous [bh, t, D] (lay unused); returns
 // cudaGetLastError() of the launch (or of the shared-memory attribute
 // call).
-template <int D, bool kSaveP, bool kViews>
-int launch(const float* q, const float* k, const float* v, float* o,
-           float* lse, float* p, int64_t bh, int tq, int tk, float scale,
-           int causal, const Layout& lay, cudaStream_t s) {
-  using T = FwdTile<D>;
-  auto* kernel = fwd_kernel<D, kSaveP, kViews>;
+template <int D, bool kSaveP, bool kViews, typename E>
+int launch(const E* q, const E* k, const E* v, E* o, float* lse,
+           typename Same<E>::type* p, int64_t bh, int tq, int tk,
+           float scale, int causal, const Layout& lay, cudaStream_t s) {
+  using T = FwdTile<E, D>;
+  auto* kernel = fwd_kernel<E, D, kSaveP, kViews>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (err != cudaSuccess) return (int)err;
@@ -371,10 +397,10 @@ int launch(const float* q, const float* k, const float* v, float* o,
 }
 
 // The same on contiguous q, o [bh, tq, D] and k, v [bh, tk, D].
-template <int D, bool kSaveP>
-int launch(const float* q, const float* k, const float* v, float* o,
-           float* lse, float* p, int64_t bh, int tq, int tk, float scale,
-           int causal, cudaStream_t s) {
+template <int D, bool kSaveP, typename E>
+int launch(const E* q, const E* k, const E* v, E* o, float* lse,
+           typename Same<E>::type* p, int64_t bh, int tq, int tk,
+           float scale, int causal, cudaStream_t s) {
   return launch<D, kSaveP, false>(q, k, v, o, lse, p, bh, tq, tk, scale,
                                   causal, Layout{}, s);
 }

@@ -1,5 +1,6 @@
-// Short-sequence fused attention forward for Hopper (sm_90a), fp32 in and
-// out, both products on the tensor cores in split TF32.
+// Short-sequence fused attention forward for Hopper (sm_90a), fp32 or bf16
+// in and out, both products on the tensor cores (split TF32 for fp32; bf16
+// with P split into two bf16 parts for bf16).
 //
 // Replaces: paddle_tpu/ops/pallas/attention.py `_sdpa_short_fwd_impl`
 // (the Pallas TPU kernel behind `sdpa_short`, routed from
@@ -7,9 +8,10 @@
 // Given somewhere to write them, it also saves the normalized
 // probabilities P [BH, T, T] that the backward kernel
 // (sdpa_short_bwd.cu) reads, as `_sdpa_short_fwd_impl(save_p=True)`
-// does; the inference path passes none. P is saved in fp32, not the TPU
-// kernel's bf16: the port's inputs are fp32 and its gradient parity is
-// held to 1e-5, which a bf16 P (2^-8 relative) would break.
+// does; the inference path passes none. P is saved in the input's type:
+// bf16 for bf16 inputs, as the TPU kernel saves it, and fp32 for fp32
+// inputs, where the TPU kernel still saves bf16: the port's fp32 gradient
+// parity is held to 1e-5, which a bf16 P (2^-8 relative) would break.
 //
 // Computes out = softmax(scale * q k^T [+ causal mask]) v for q, k, v
 // [BH, T, D], tq == tk. The causal mask is `_causal_mask` (query i sees
@@ -22,18 +24,22 @@
 // one at 495 TFLOP/s), against 0.010 ms for the bytes. With P at the
 // training shape [32, 8, 512, 64], the 268 MB of P make the bytes the
 // bound: 0.12 ms for 402 MB, against 0.10 ms for the products in split
-// TF32.
+// TF32. In bf16 at the training shape with P, the bytes: 201 MB (a bf16
+// P of 134 MB), 0.060 ms, against 0.017 ms for the two products at 989
+// TFLOP/s.
 //
 // What the design does about it: the TPU kernel holds a whole [T, T]
 // score block per head in VMEM; a Hopper block cannot. So this is the
 // flash forward's body (flash_fwd.cuh, shared with flash_attention.cu) at
 // tq == tk: one block per (bh, 64 query rows), 4 warps of 16 rows, an
 // online softmax over 32-key (D 64) or 16-key (D 128) tiles streamed
-// through a cp.async ring, both products on mma.sync.m16n8k8 in split
-// TF32, the scores never leaving registers. With P asked for, one more
+// through a cp.async ring, both products on mma.sync (m16n8k8 in split
+// TF32; m16n8k16 in bf16, P split into two bf16 parts), the scores never
+// leaving registers. With P asked for, one more
 // sweep over the K tiles after the key loop recomputes S (a third product)
 // and writes P = exp(S - m) / l with the final row max and denominator;
 // the output does not change with it.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,10 +49,9 @@ namespace {
 
 constexpr int kMaxT = 512;
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, float* o,
-           float* p, int64_t bh, int t, float scale, int causal,
-           cudaStream_t s) {
+template <int D, typename E>
+int launch(const E* q, const E* k, const E* v, E* o, E* p, int64_t bh,
+           int t, float scale, int causal, cudaStream_t s) {
   return p != nullptr
              ? flash_fwd::launch<D, true>(q, k, v, o, nullptr, p, bh, t, t,
                                           scale, causal, s)
@@ -54,29 +59,43 @@ int launch(const float* q, const float* k, const float* v, float* o,
                                            t, t, scale, causal, s);
 }
 
-}  // namespace
-
-// q, k, v, o: fp32 device pointers, contiguous [bh, t, d], 16-byte
-// aligned, 1 <= t <= 512, d in {64, 128}; p: fp32 [bh, t, t] (8-byte
-// aligned; any t), or null to skip it. Returns cudaGetLastError() of the
-// launch (or of the shared-memory attribute call); 1
-// (cudaErrorInvalidValue) for a shape the kernel does not take.
-extern "C" int sdpa_short_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* p, int64_t bh, int t, int d,
-                              float scale, int causal, void* stream) {
+template <typename E>
+int fwd(const void* q, const void* k, const void* v, void* o, void* p,
+        int64_t bh, int t, int d, float scale, int causal, void* stream) {
   if (t < 1 || t > kMaxT) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  float* of = static_cast<float*>(o);
-  float* pf = static_cast<float*>(p);
+  const E* qe = static_cast<const E*>(q);
+  const E* ke = static_cast<const E*>(k);
+  const E* ve = static_cast<const E*>(v);
+  E* oe = static_cast<E*>(o);
+  E* pe = static_cast<E*>(p);
   switch (d) {
     case 64:
-      return launch<64>(qf, kf, vf, of, pf, bh, t, scale, causal, s);
+      return launch<64>(qe, ke, ve, oe, pe, bh, t, scale, causal, s);
     case 128:
-      return launch<128>(qf, kf, vf, of, pf, bh, t, scale, causal, s);
+      return launch<128>(qe, ke, ve, oe, pe, bh, t, scale, causal, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// q, k, v, o: device pointers, contiguous [bh, t, d], 16-byte aligned,
+// 1 <= t <= 512, d in {64, 128}; p: [bh, t, t] (4-byte aligned; any t), or
+// null to skip it; all fp32 (sdpa_short_fwd) or all bf16
+// (sdpa_short_fwd_bf16). Returns cudaGetLastError() of the launch (or of
+// the shared-memory attribute call); 1 (cudaErrorInvalidValue) for a shape
+// the kernel does not take.
+extern "C" int sdpa_short_fwd(const void* q, const void* k, const void* v,
+                              void* o, void* p, int64_t bh, int t, int d,
+                              float scale, int causal, void* stream) {
+  return fwd<float>(q, k, v, o, p, bh, t, d, scale, causal, stream);
+}
+
+extern "C" int sdpa_short_fwd_bf16(const void* q, const void* k,
+                                   const void* v, void* o, void* p,
+                                   int64_t bh, int t, int d, float scale,
+                                   int causal, void* stream) {
+  return fwd<__nv_bfloat16>(q, k, v, o, p, bh, t, d, scale, causal, stream);
 }

@@ -1,5 +1,6 @@
-// Short-sequence attention backward for Hopper (sm_90a), fp32 in and out,
-// every product on the tensor cores in split TF32.
+// Short-sequence attention backward for Hopper (sm_90a), fp32 or bf16 in
+// and out, every product on the tensor cores (split TF32 for fp32; bf16,
+// with dS split into two bf16 parts, for bf16).
 //
 // Replaces: paddle_tpu/ops/pallas/attention.py `_sdpa_short_bwd_impl`
 // (the backward of `sdpa_short`, routed from ops/nn_ops.py `attention` for
@@ -9,9 +10,10 @@
 // that the forward saved (sdpa_short.cu), with no exp:
 //   dv = P^T dO;  dP = dO v^T;  ds = P * (dP - rowsum(dP * P));
 //   dq = scale ds k;  dk = scale ds^T q.
-// P is fp32 here (the TPU kernel saves bf16): the port's inputs are fp32,
-// and a bf16 P moves dq by up to 8e-3 against fp32, far outside the
-// port's 1e-5 gradient parity.
+// P comes in the inputs' type. For fp32 inputs it is fp32 (the TPU kernel
+// saves bf16): a bf16 P moves dq by up to 8e-3 against fp32, far outside
+// the port's 1e-5 gradient parity. For bf16 inputs it is bf16, as on the
+// TPU.
 //
 // What bounds it on an H100: operations. At the training shape
 // [32, 8, 512, 64] the function is four products, 2*BH*T*T*D flops each
@@ -28,55 +30,47 @@
 // [BH, T, D] rows: one grid for dq per 64-row query tile streaming keys,
 // one for dk and dv per 64-key tile streaming queries, each on
 // mma.sync.m16n8k8 in split TF32, P read from device memory beside the
-// products, tiles where a causal P is 0 skipped, no atomics. Those stages
-// take rowsum(dP * P) as rowsum(dO * O) with O = P v, so neither holds a
-// T-wide row of dP. O is computed here first, by one batched split-TF32
-// product over the heads (tile_mma.cuh) into a [BH, T, D] scratch that the
-// caller allocates: the kernel stays a function of (q, k, v, P, dO), and
-// does not take the forward's output, which the TPU kernel does not take
-// either. The other way, a first sweep of the dq grid over the key tiles
-// summing dP * P, costs the same product and saves the scratch (33.5 MB at
-// the training shape), but needs a second loop in the shared stages that
-// the attention block does not run; the product is one call to tested
-// code. So the function's four products become six (O, dP and dq, then
-// dP^T, dv and dk), 51.5 GFLOP at the training shape, and P is read three
-// times.
+// products, tiles where a causal P is 0 skipped, no atomics. Neither holds
+// a T-wide row of dP, so the dq grid takes delta = rowsum(dP P), as the
+// TPU kernel takes it, in a first sweep over the key tiles that forms dP
+// and sums dP P into each row. So the function's four products become six
+// (dP, then dP and dq, then dP^T, dv and dk), 51.5 GFLOP at the training
+// shape, and P is read three times. The kernel is a function of (q, k, v,
+// P, dO) with no scratch but delta: it does not take the forward's
+// output, which the TPU kernel does not take either. In bf16 the products
+// are bf16 MMAs with dS split into two parts (0.035 ms for the function's
+// 34.4 GFLOP at 989 TFLOP/s, against 0.10 ms for its 336 MB with a bf16
+// P: the bytes bound it).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attn_bwd_from_p.cuh"
-#include "tile_mma.cuh"
 
 namespace {
 
 constexpr int kMaxT = 512;
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* p, const float* g, float* dq, float* dk,
-                   float* dv, float* rowsum, float* o, int bh, int t,
-                   float scale, int causal, cudaStream_t st) {
-  namespace ab = attn_bwd_from_p;
-  namespace tm = tile_mma;
+namespace ab = attn_bwd_from_p;
+
+// delta from rowsum(dP P) inside the stages (a.o.base stays null)
+template <int D, typename E>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* p, const void* g, void* dq, void* dk,
+                   void* dv, void* rowsum, int bh, int t, float scale,
+                   int causal, cudaStream_t st) {
   const int64_t head = (int64_t)t * D;
-  // O = P v, one product per head: P [T, T] times v [T, D]
-  tm::Params pv = tm::params(t, D, t, p, t, v, D, o, D);
-  pv.a_outer = (int64_t)t * t;
-  pv.b_outer = head;
-  pv.c_outer = head;
-  cudaError_t err = tm::gemm(false, false, pv, bh, nullptr, 0, st);
-  if (err != cudaSuccess) return err;
-  ab::Args a;
-  a.q = {q, head, 0, D};
-  a.k = {k, head, 0, D};
-  a.v = {v, head, 0, D};
-  a.g = {g, head, 0, D};
-  a.o = {o, head, 0, D};
-  a.dq = {dq, head, 0, D};
-  a.dk = {dk, head, 0, D};
-  a.dv = {dv, head, 0, D};
-  a.p = p;
-  a.delta = rowsum;
+  ab::Args<E> a;
+  a.q = {static_cast<const E*>(q), head, 0, D};
+  a.k = {static_cast<const E*>(k), head, 0, D};
+  a.v = {static_cast<const E*>(v), head, 0, D};
+  a.g = {static_cast<const E*>(g), head, 0, D};
+  a.o = {nullptr, head, 0, D};
+  a.dq = {static_cast<E*>(dq), head, 0, D};
+  a.dk = {static_cast<E*>(dk), head, 0, D};
+  a.dv = {static_cast<E*>(dv), head, 0, D};
+  a.p = static_cast<const E*>(p);
+  a.delta = static_cast<float*>(rowsum);
   a.heads = 1;
   a.t = t;
   a.dh = D;
@@ -85,40 +79,49 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   return ab::run<D>(a, (unsigned)bh, st);
 }
 
+template <typename E>
+int entry(const void* q, const void* k, const void* v, const void* p,
+          const void* g, void* dq, void* dk, void* dv, void* rowsum,
+          int64_t bh, int t, int d, float scale, int causal, void* stream) {
+  if (t < 1 || t > kMaxT || bh < 1 || bh > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return (int)launch<64, E>(q, k, v, p, g, dq, dk, dv, rowsum, (int)bh,
+                                t, scale, causal, s);
+    case 128:
+      return (int)launch<128, E>(q, k, v, p, g, dq, dk, dv, rowsum,
+                                 (int)bh, t, scale, causal, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q, k, v, g (dO), dq, dk, dv: fp32 device pointers, contiguous
 // [bh, t, d], 16-byte aligned, t <= 512, d in {64, 128}; p: fp32
 // [bh, t, t] (any t: its rows need not be 16-byte aligned); rowsum: fp32
-// [bh, t] and o: fp32 [bh, t, d], 16-byte aligned, scratch. Returns the
-// first CUDA error of the launches (or of the shared-memory attribute
-// calls); 1 (cudaErrorInvalidValue) for a shape the kernels do not take.
+// [bh, t] scratch. Returns the first CUDA error of the launches (or of the
+// shared-memory attribute calls); 1 (cudaErrorInvalidValue) for a shape
+// the kernels do not take.
 extern "C" int sdpa_short_bwd(const void* q, const void* k, const void* v,
                               const void* p, const void* g, void* dq,
-                              void* dk, void* dv, void* rowsum, void* o,
-                              int64_t bh, int t, int d, float scale,
-                              int causal, void* stream) {
-  if (t < 1 || t > kMaxT || bh < 1 || bh > 65535)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* pf = static_cast<const float*>(p);
-  const float* gf = static_cast<const float*>(g);
-  float* dqf = static_cast<float*>(dq);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
-  float* rf = static_cast<float*>(rowsum);
-  float* of = static_cast<float*>(o);
-  switch (d) {
-    case 64:
-      return (int)launch<64>(qf, kf, vf, pf, gf, dqf, dkf, dvf, rf, of,
-                             (int)bh, t, scale, causal, s);
-    case 128:
-      return (int)launch<128>(qf, kf, vf, pf, gf, dqf, dkf, dvf, rf, of,
-                              (int)bh, t, scale, causal, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                              void* dk, void* dv, void* rowsum, int64_t bh,
+                              int t, int d, float scale, int causal,
+                              void* stream) {
+  return entry<float>(q, k, v, p, g, dq, dk, dv, rowsum, bh, t, d, scale,
+                      causal, stream);
+}
+
+// The same in bf16: q, k, v, g, dq, dk, dv and p bf16; rowsum fp32.
+extern "C" int sdpa_short_bwd_bf16(const void* q, const void* k,
+                                   const void* v, const void* p,
+                                   const void* g, void* dq, void* dk,
+                                   void* dv, void* rowsum, int64_t bh, int t,
+                                   int d, float scale, int causal,
+                                   void* stream) {
+  return entry<__nv_bfloat16>(q, k, v, p, g, dq, dk, dv, rowsum, bh, t, d,
+                              scale, causal, stream);
 }

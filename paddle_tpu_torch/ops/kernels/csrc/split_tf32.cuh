@@ -164,7 +164,7 @@ __device__ __forceinline__ OpB load_b_perm(const float* hi, const float* lo,
 // ---------------------------------------------------------------------------
 // 16 bytes to shared memory, of which the first `bytes` (0-16) are read
 // from src and the rest zero-filled
-__device__ __forceinline__ void cp16n(float* dst, const float* src,
+__device__ __forceinline__ void cp16n(void* dst, const void* src,
                                       int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
@@ -172,7 +172,7 @@ __device__ __forceinline__ void cp16n(float* dst, const float* src,
                : "memory");
 }
 
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool in) {
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool in) {
   cp16n(dst, src, in ? 16 : 0);
 }
 
@@ -193,28 +193,31 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // rows [r0, r0 + N) of a row-major matrix g (row stride ld) into s [N][LD],
-// columns [0, width) of each (width a multiple of 4, the row starts 16-byte
-// aligned) and zeros in [width, D); rows at or past `limit` are zero-filled
-template <int D, int N, int THREADS, int LD = D + kPad>
-__device__ __forceinline__ void load_tile(float* s, const float* g,
-                                          int64_t ld, int r0, int limit,
-                                          int width, int tid) {
-  constexpr int kChunks = D / 4;  // 16-byte chunks a row
+// columns [0, width) of each (width a multiple of a 16-byte chunk, the row
+// starts 16-byte aligned) and zeros in [width, D); rows at or past `limit`
+// are zero-filled. E is the element type (fp32 or bf16).
+template <int D, int N, int THREADS, int LD, typename E>
+__device__ __forceinline__ void load_tile(E* s, const E* g, int64_t ld,
+                                          int r0, int limit, int width,
+                                          int tid) {
+  constexpr int kVec = 16 / sizeof(E);  // elements a 16-byte chunk
+  constexpr int kChunks = D / kVec;     // 16-byte chunks a row
   static_assert(N * kChunks % THREADS == 0, "whole rounds of chunks");
+  static_assert(LD * sizeof(E) % 16 == 0, "rows on 16-byte boundaries");
 #pragma unroll
   for (int n = 0; n < N * kChunks / THREADS; ++n) {
     const int i = tid + n * THREADS;
-    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const int r = i / kChunks, c = (i % kChunks) * kVec;
     const bool in = r0 + r < limit && c < width;
     cp16(s + r * LD + c, g + (in ? (r0 + r) * ld + c : 0), in);
   }
 }
 
 // rows [r0, r0 + N) of a contiguous row-major [*, D] matrix
-template <int D, int N, int THREADS>
-__device__ __forceinline__ void load_rows(float* s, const float* g, int r0,
+template <int D, int N, int THREADS, int LD, typename E>
+__device__ __forceinline__ void load_rows(E* s, const E* g, int r0,
                                           int limit, int tid) {
-  load_tile<D, N, THREADS>(s, g, D, r0, limit, D, tid);
+  load_tile<D, N, THREADS, LD>(s, g, D, r0, limit, D, tid);
 }
 
 // after load_tile<D, N, THREADS, LD> into s has landed: each thread splits

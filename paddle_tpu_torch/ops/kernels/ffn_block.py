@@ -10,12 +10,16 @@ differentiable, as the JAX package's ``custom_vjp`` is: the backward
 kernel recomputes the hidden from x and takes all five gradients.
 
 Where the kernels run: ``usable`` keeps the reference's structural
-conditions (3-D x, W1 [D, F], T, D and F multiples of 8, fp32) and drops
+conditions (3-D x, W1 [D, F], T, D and F multiples of 8, x and W1 both
+fp32 or both bf16) and drops
 its batch grouping and its VMEM estimate against 12 MiB, a TPU condition
 that refuses Transformer-base's width at every shape (D 512, F 2048: the
 weights alone take most of it; on a TPU the op then computes the
 reference composition). The kernels take any width, so on the card they
-run at full width, where the TPU would not run its own.
+run at full width, where the TPU would not run its own. The kernels take
+fp32 only: their bf16 instances are not ported yet, so on the card a bf16
+call (as AMP makes it: the op is on the WHITE list) raises
+NotImplementedError and never runs the plain version.
 """
 from __future__ import annotations
 
@@ -25,10 +29,12 @@ import functools
 import torch
 
 from . import check_launch, current_stream, require_cuda_inputs, \
-    storage_tensor
+    require_fp32_block, storage_tensor
 
 # the weight gradients' row slices and the column sums (tile_mma.cuh)
 WORKSPACE_FLOATS = 1 << 22
+# the dtypes the JAX package's gate takes; the kernels take fp32 only
+BLOCK_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def usable(x, w1) -> bool:
@@ -38,7 +44,7 @@ def usable(x, w1) -> bool:
     _, t, d = x.shape
     f = w1.shape[1]
     return (w1.shape[0] == d and t % 8 == 0 and d % 8 == 0 and f % 8 == 0
-            and x.dtype == w1.dtype == torch.float32)
+            and x.dtype == w1.dtype and x.dtype in BLOCK_DTYPES)
 
 
 def ffn_block_plain(x, w1, b1, w2, b2):
@@ -78,6 +84,7 @@ def _check(name, x, w1, b1, w2, last, last_is_bias):
     """The CUDA path's checks: fp32, contiguous, on x's device, and the
     shapes against x [..., D] and W1 [D, F]; `last` is b2 [D]
     (`last_is_bias`) or g shaped like x. Returns (rows, D, F)."""
+    require_fp32_block(name, x)
     require_cuda_inputs(name, (x, w1, b1, w2, last), (torch.float32,))
     if w1.dim() != 2 or x.shape[-1] != w1.shape[0]:
         raise ValueError(f"{name}: x {tuple(x.shape)} and w1 "

@@ -1,8 +1,8 @@
 """NN ops of the serving and training slices: layer_norm, softmax,
-softmax_with_cross_entropy, lookup_table, attention and the fused
+softmax_with_cross_entropy, lookup_table, dropout, attention and the fused
 attention_block and ffn_block (the subset of ``paddle_tpu/ops/nn_ops.py``
 the paths run; reference layer_norm_op.cc, softmax_op.cc,
-softmax_with_cross_entropy_op.cc, lookup_table_op.cc).
+softmax_with_cross_entropy_op.cc, lookup_table_op.cc, dropout_op.cc).
 
 layer_norm, attention, attention_block, ffn_block and
 softmax_with_cross_entropy (hard labels) route to the hand-written kernels
@@ -211,27 +211,89 @@ def softmax_with_cross_entropy(ctx):
     return out
 
 
-def _sdpa(q, k, v, scale, causal):
-    """The plain masked-softmax composition on [B,T,H,D] inputs (the
-    JAX package's `_sdpa` without dropout): fp32 scores, finfo.min
-    masking, bottom-right causal alignment."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+# --------------------------------------------------------------------------
+# dropout (the mask saved for the grad, reference dropout_op.cc)
+# --------------------------------------------------------------------------
+def _dropout_grad_maker(op, no_grad_set=frozenset()):
+    """dropout_grad reads the forward's Mask, never a redraw (nn_ops.py
+    `_dropout_grad_maker` in the JAX package)."""
+    inputs = {"Mask": op.outputs["Mask"],
+              "Out@GRAD": [grad_var_name(n) for n in op.outputs["Out"]]}
+    outputs = {"X@GRAD": [grad_var_name(n) for n in op.inputs["X"]]}
+    return [Operator(op.block, "dropout_grad", inputs, outputs,
+                     dict(op.attrs))]
+
+
+@register_op("dropout_grad", differentiable=False)
+def _dropout_grad_kernel(ctx):
+    dy = ctx.input("Out@GRAD")
+    mask = ctx.input("Mask")
+    p = ctx.attr("dropout_prob", 0.5)
+    impl = ctx.attr("dropout_implementation", "downgrade_in_infer")
+    if ctx.attr("is_test", False):
+        if impl == "upscale_in_train":
+            return {"X@GRAD": dy}
+        return {"X@GRAD": dy * (1.0 - p)}
+    if impl == "upscale_in_train":
+        return {"X@GRAD": dy * mask * (1.0 / max(1.0 - p, 1e-8))}
+    return {"X@GRAD": dy * mask}
+
+
+@register_op("dropout", grad_maker=_dropout_grad_maker, needs_rng=True)
+def dropout(ctx):
+    """Out = X * Mask (/ (1 - p) with upscale_in_train); Mask in X's
+    dtype, 1 with probability 1 - p, drawn on X's device from the device
+    step key (``OpContext.keep_mask``), so a captured step draws anew at
+    each replay; a nonzero `seed` attr pins the draw. At is_test, X (or
+    X (1 - p)) and a Mask of ones."""
+    x = ctx.input("X")
+    p = ctx.attr("dropout_prob", 0.5)
+    impl = ctx.attr("dropout_implementation", "downgrade_in_infer")
+    if ctx.attr("is_test", False):
+        out = x if impl == "upscale_in_train" else x * (1.0 - p)
+        return {"Out": out, "Mask": torch.ones_like(x)}
+    keep = ctx.keep_mask(x.shape, 1.0 - p, x.dtype, x.device,
+                         seed=ctx.attr("seed", 0))
+    if impl == "upscale_in_train":
+        out = x * keep / max(1.0 - p, 1e-8)
+    else:
+        out = x * keep
+    return {"Out": out, "Mask": keep}
+
+
+def _sdpa(q, k, v, scale, causal, layout, keep=None, rate=0.0):
+    """The plain masked-softmax composition (the JAX package's `_sdpa`):
+    fp32 scores, finfo.min masking, bottom-right causal alignment; P
+    rounded to the input dtype before the P v product, which accumulates
+    in fp32 (``p.astype(q.dtype)``, ``preferred_element_type=float32``).
+    With `keep`, a [B,H,tq,tk] keep mask, dropout on P after the softmax
+    (P keep / (1 - rate))."""
+    if layout == "bthd":
+        qk, pv = "bqhd,bkhd->bhqk", "bhqk,bkhd->bqhd"
+    else:
+        qk, pv = "bhqd,bhkd->bhqk", "bhqk,bhkd->bhqd"
+    s = torch.einsum(qk, q.float(), k.float()) * scale
     if causal:
         tq, tk = s.shape[-2], s.shape[-1]
-        keep = torch.ones((tq, tk), dtype=torch.bool,
+        mask = torch.ones((tq, tk), dtype=torch.bool,
                           device=s.device).tril(tk - tq)
-        s = s.masked_fill(~keep, torch.finfo(s.dtype).min)
+        s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    if keep is not None:
+        p = p * keep / (1.0 - rate)
+    return torch.einsum(pv, p.to(q.dtype).float(), v.float()).to(q.dtype)
 
 
 def _route(qh, kh, vh):
     """Which kernel takes these [B,H,T,D] shapes (nn_ops.py:1034-1061 in
     the JAX package, without the TPU tile conditions): 'sdpa_short',
-    'flash', or None for the plain composition."""
+    'flash', or None for the plain composition. The kernels take q, k, v
+    all fp32 or all bf16, as `usable` and `sdpa_usable` ask for matching
+    dtypes; a routed call on the card launches the kernel or raises."""
     tq, d = qh.shape[2], qh.shape[3]
     tk = kh.shape[2]
-    if not (qh.dtype == kh.dtype == vh.dtype == torch.float32):
+    if not (qh.dtype == kh.dtype == vh.dtype
+            and qh.dtype in K_attn.DTYPES):
         return None
     if tq == tk and 256 < tq <= K_attn.SDPA_MAX_T \
             and d in K_attn.SDPA_HEAD_DIMS:
@@ -241,23 +303,24 @@ def _route(qh, kh, vh):
     return None
 
 
-@register_op("attention")
+@register_op("attention", needs_rng=True)
 def attention(ctx):
     """layout attr: 'bhtd' (default) or 'bthd' ([B,T,H,D] straight from
-    the head-split reshape). A nonzero dropout rate outside is_test is
-    refused: dropout comes with the AMP-and-dropout slice. On the card a
-    kernel-routed call (T > 256) is differentiable: attention_grad's
-    vjp recompute launches the forward kernel again with its residual
-    (P or lse) and then the backward kernel(s), as `jax.vjp` of the op
-    re-runs `_flash_fwd` in the JAX package."""
+    the head-split reshape). On the card a kernel-routed call (T > 256,
+    fp32 or bf16) is differentiable: attention_grad's vjp recompute
+    launches the forward kernel again with its residual (P or lse) and
+    then the backward kernel(s), as `jax.vjp` of the op re-runs
+    `_flash_fwd` in the JAX package. A nonzero `dropout_rate` outside
+    is_test takes the inline composition with the keep mask on P after
+    the softmax and no kernel, as in the JAX package; the mask comes
+    from the device step key, and the grad op's recompute draws the
+    forward's mask again."""
     q, k, v = ctx.input("Q"), ctx.input("K"), ctx.input("V")
     scale = ctx.attr("scale", None)
     causal = ctx.attr("causal", False)
     layout = ctx.attr("layout", "bhtd")
-    if ctx.attr("dropout_rate", 0.0) and not ctx.attr("is_test", False):
-        raise NotImplementedError(
-            "attention: dropout is not ported yet (it comes with the "
-            "bf16-AMP-and-dropout slice); pass dropout_rate=0.0")
+    rate = 0.0 if ctx.attr("is_test", False) \
+        else ctx.attr("dropout_rate", 0.0)
     if scale is None:
         scale = q.shape[-1] ** -0.5
 
@@ -265,6 +328,11 @@ def attention(ctx):
         return x.transpose(1, 2) if layout == "bthd" else x
 
     qh, kh, vh = to_bhtd(q), to_bhtd(k), to_bhtd(v)
+    if rate:
+        b, h, tq, tk = qh.shape[0], qh.shape[1], qh.shape[2], kh.shape[2]
+        keep = ctx.keep_mask((b, h, tq, tk), 1.0 - rate, torch.float32,
+                             q.device)
+        return to_bhtd(_sdpa(qh, kh, vh, scale, causal, "bhtd", keep, rate))
     route = _route(qh, kh, vh)
     if route is not None:
         kern = K_attn.sdpa_short if route == "sdpa_short" \
@@ -273,17 +341,18 @@ def attention(ctx):
                    float(scale), bool(causal))
         return to_bhtd(out)
     if layout == "bthd":
-        return _sdpa(q, k, v, scale, causal)
+        return _sdpa(q, k, v, scale, causal, "bthd")
     return reference_attention(q, k, v, scale, causal)
 
 
 @register_op("ffn_block")
 def ffn_block(ctx):
     """The whole position-wise MLP sub-layer as one op, relu(x W1 + b1) W2
-    + b2 (nn_ops.py `ffn_block_op` in the JAX package). Shapes the kernels
-    take go to the kernel wrapper, others to the plain composition, by
-    shape alone. Its grad comes from the generic vjp, which on the card
-    runs the forward kernel and then the backward kernel."""
+    + b2 (nn_ops.py `ffn_block_op` in the JAX package). Shapes and dtypes
+    the JAX package's gate takes (fp32 or bf16) go to the kernel wrapper,
+    others to the plain composition; on the card a bf16 call raises, as
+    the kernels take fp32 only. Its grad comes from the generic vjp, which
+    on the card runs the forward kernel and then the backward kernel."""
     x = ctx.input("X")
     args = (x, ctx.input("W1"), ctx.input("B1"), ctx.input("W2"),
             ctx.input("B2"))
@@ -297,10 +366,11 @@ def attention_block(ctx):
     """The whole self-attention sub-layer as one op: x Wqkv -> split-heads
     attention -> merge -> Wo (nn_ops.py `attention_block_op` in the JAX
     package), in place of the seven ops multi_head_attention otherwise
-    emits. Shapes the kernels take go to the kernel wrapper, others to the
-    plain composition, by shape alone. Its grad comes from the generic
-    vjp, which on the card runs the forward kernel with P saved and then
-    the backward kernel (no exp)."""
+    emits. Shapes and dtypes the JAX package's gate takes (fp32 or bf16)
+    go to the kernel wrapper, others to the plain composition; on the card
+    a bf16 call raises, as the kernels take fp32 only. Its grad comes
+    from the generic vjp, which on the card runs the forward kernel with P
+    saved and then the backward kernel (no exp)."""
     x, wqkv, wo = ctx.input("X"), ctx.input("WQKV"), ctx.input("WO")
     n_heads = int(ctx.attr("n_heads"))
     scale = ctx.attr("scale", None)

@@ -32,7 +32,7 @@ def fill_any_like(ctx):
     return torch.full_like(x, ctx.attr("value", 0.0))
 
 
-@register_op("uniform_random", differentiable=False, needs_rng=True)
+@register_op("uniform_random", differentiable=False, host_rng=True)
 def uniform_random(ctx):
     """Draws on the CPU from the op's generator (the program's seed, the
     step key, the op's uid), then moves: the same seed gives the same
@@ -89,11 +89,22 @@ def cast(ctx):
     return ctx.input("X").to(to_torch_dtype(ctx.attr("out_dtype")))
 
 
+def _weak_scalar(v, x):
+    """The Python scalar `v` as JAX applies it to an array `x` of a
+    floating dtype narrower than fp32: rounded to that dtype."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(float(v), dtype=x.dtype))
+    return v
+
+
 @register_op("scale")
 def scale(ctx):
+    """x * scale + bias (or (x + bias) * scale). The attrs reach a bf16 x
+    rounded to bf16 first, as JAX's weak typing rounds a Python scalar
+    to the array's dtype in the JAX package."""
     x = ctx.input("X")
-    s = ctx.attr("scale", 1.0)
-    b = ctx.attr("bias", 0.0)
+    s = _weak_scalar(ctx.attr("scale", 1.0), x)
+    b = _weak_scalar(ctx.attr("bias", 0.0), x)
     if ctx.attr("bias_after_scale", True):
         return x * s + b
     return (x + b) * s

@@ -201,9 +201,11 @@ def test_sdpa_short_bwd_plain_matches_pallas_interpret(jax_ref, causal):
 
 
 def _stages_bwd(q, k, v, p, g, scale):
-    """sdpa_short_bwd.cu's formulation in plain torch: O = P v by one
-    product, delta = rowsum(dO O), then the algebra of the attention
-    stages it shares with the attention block (attn_bwd_from_p.cuh)."""
+    """The formulation of the attention stages (attn_bwd_from_p.cuh) with
+    the forward's O, as the attention block's backward gives it: delta =
+    rowsum(dO O), then the algebra of the stages that sdpa_short_bwd.cu
+    shares with the attention block (sdpa_short_bwd.cu gives no O and
+    takes delta as rowsum(dP P), as the plain version does)."""
     delta = (g * (p @ v)).sum(-1, keepdim=True)
     dp = g @ v.transpose(-1, -2)
     ds = p * (dp - delta)
@@ -214,8 +216,8 @@ def _stages_bwd(q, k, v, p, g, scale):
 @pytest.mark.parametrize("causal", [False, True])
 def test_sdpa_short_bwd_formulation_matches_pallas_interpret(jax_ref,
                                                              causal):
-    """The backward kernel takes rowsum(dP P) as rowsum(dO (P v)), which
-    the TPU kernel never forms: the same quantity, since both are
+    """The attention stages given O take rowsum(dP P) as rowsum(dO (P v)),
+    which the TPU kernel never forms: the same quantity, since both are
     sum_k P_ik sum_d dO_id v_kd. The formulation, on the port's fp32 P,
     against `_sdpa_short_bwd_impl` in interpret mode on the same P at
     [2,4,384,64], within the suite's 1e-5 (summation order only)."""
@@ -450,18 +452,21 @@ def test_kernel_sources_reach_the_shared_headers():
     def headers(name):
         return {t for t in build._sources(name)[1:]}
 
-    split, mma, fwd, bwd = (
+    split, mma, fwd, bwd, bf16 = (
         (build.CSRC / f"{n}.cuh").read_bytes()
-        for n in ("split_tf32", "tile_mma", "flash_fwd", "attn_bwd_from_p"))
+        for n in ("split_tf32", "tile_mma", "flash_fwd", "attn_bwd_from_p",
+                  "split_bf16"))
     # the three forwards run one body, the sdpa_short backward runs the
-    # attention block's stages, both FFN products run on the split-TF32
+    # attention block's stages (with no O = P v product of its own), both
+    # FFN products run on the split-TF32
     # product, and the paged kernel takes the cp.async staging; the SIMT
-    # product (tile_gemm.cuh) is gone
-    assert headers("flash_attention") == headers("sdpa_short") == {split,
-                                                                   fwd}
-    assert headers("flash_attention_bwd") == {split}
-    assert headers("sdpa_short_bwd") == {split, mma, bwd}
-    assert headers("attention_block") == {split, mma, fwd, bwd}
+    # product (tile_gemm.cuh) is gone; the attention bodies take their
+    # operands through split_bf16.cuh's traits (fp32 or bf16)
+    assert headers("flash_attention") == headers("sdpa_short") == {
+        split, fwd, bf16}
+    assert headers("flash_attention_bwd") == {split, bf16}
+    assert headers("sdpa_short_bwd") == {split, bwd, bf16}
+    assert headers("attention_block") == {split, mma, fwd, bwd, bf16}
     assert headers("ffn_block") == {split, mma}
     assert headers("paged_attention") == {split}
     assert not (build.CSRC / "tile_gemm.cuh").exists()
@@ -670,8 +675,8 @@ def _close_to_scale(got, want, rtol=BWD_RTOL):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,t,d,causal", [
     (2, 8, 512, 64, False), (2, 8, 512, 64, True), (1, 4, 300, 128, True),
-    # ragged tiles, and T 13: odd rows of P, stored a float at a time and
-    # read by the O = P v product 4 bytes at a time
+    # ragged tiles, and T 13: odd rows of P, stored and read a float at
+    # a time
     (1, 4, 264, 64, True), (1, 2, 300, 128, False), (1, 2, 13, 64, True),
     (2, 3, 13, 128, False)])
 def test_sdpa_short_residual_and_bwd_kernels_match_plain(cuda, b, h, t, d,
@@ -1291,3 +1296,323 @@ def test_paged_attention_kernel_matches_plain(cuda, r, h, d, bs, np_pages,
     with pytest.raises(ValueError, match="16-byte"):
         KPA.paged_decode_attention(q, off, pv, tab_t, step_t)
     assert KPA.paged_decode_attention.launches == before + 2
+
+
+# ---------------------------------------------------------------------------
+# bf16 (AMP) contracts of the attention kernels #2-#6
+# ---------------------------------------------------------------------------
+# Both the kernel and its plain version compute in fp32 from the same bf16
+# inputs and round the result to bf16 once, so they differ by at most one
+# bf16 ulp of an element (2^-8 of the largest |plain|), and only where
+# their fp32 values straddle a rounding boundary: in few elements. An
+# fp32 intermediate fed to a product as a single bf16 term (P in P v, dS
+# in dS k) moves the fp32 values by ~2^-9 relative before the rounding,
+# so a share of the elements of that order differs.
+BF16_REL = 2 ** -8
+BF16_SHARE = 0.05
+
+
+def _bf16_gate(got, want):
+    """(max |got - want| over the largest |want|, the share of elements
+    whose values differ)."""
+    g, w = got.float(), want.float()
+    return (float((g - w).abs().max()) / float(w.abs().max()),
+            float((g != w).float().mean()))
+
+
+def _bf16_passes(got, want):
+    rel, share = _bf16_gate(got, want)
+    return bool(torch.isfinite(got.float()).all()) and rel <= BF16_REL \
+        and share <= BF16_SHARE
+
+
+def _bf16(x):
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def _attention_f64(q, k, v, scale, causal):
+    """The attention function in float64 (masked scores at finfo.min)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * scale
+    if causal:
+        keep = K.causal_keep(*s.shape[-2:], s.device)
+        s = s.masked_fill(~keep, torch.finfo(s.dtype).min)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.double())
+
+
+def _sdpa_bwd_f64(q, k, v, p, g, scale, single_bf16_ds=False):
+    """`sdpa_short_bwd_plain` in float64 from the same P; with
+    `single_bf16_ds` dS is rounded to one bf16 term before its products,
+    the control of a kernel that did not split it."""
+    q, k, v, p, g = (x.double() for x in (q, k, v, p, g))
+    p = p.reshape(*q.shape[:2], *p.shape[-2:])
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, v)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    if single_bf16_ds:
+        ds = ds.to(torch.bfloat16).double()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", ds, q) * scale, dv)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_short_bf16_plain_matches_pallas_interpret(jax_ref, causal):
+    """#5 and #6 in bf16: the Pallas kernels in interpret mode on bf16
+    q, k, v and dO, their P saved in bf16; the port's plain versions on
+    the same bf16 values give bf16 outputs and a bf16 P, each within one
+    bf16 rounding of the kernel's."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.pallas import attention as jattn
+
+    q, k, v, g = (_randn(1, 8, 264, 64, seed=30 + i) for i in range(4))
+    jq, jk, jv, jg = (jnp.asarray(x, dtype=jnp.bfloat16)
+                      for x in (q, k, v, g))
+    jattn.force_interpret(True)
+    try:
+        out, p = jattn._sdpa_short_fwd_impl(jq, jk, jv, 0.125, causal,
+                                            save_p=True)
+        grads = jattn._sdpa_short_bwd_impl(jq, jk, jv, p, jg, 0.125,
+                                           causal)
+    finally:
+        jattn.force_interpret(False)
+    tq, tk, tv, tg = map(_bf16, (q, k, v, g))
+    got, tp = KA.sdpa_short_plain(tq, tk, tv, 0.125, causal, save_p=True)
+    assert got.dtype == tp.dtype == torch.bfloat16
+    assert tp.shape == (8, 264, 264)
+    for a, w in ((got, out), (tp, p)):
+        w = torch.from_numpy(np.array(w.astype(jnp.float32)))
+        assert _bf16_passes(a, w), _bf16_gate(a, w)
+    wp = _bf16(np.asarray(p.astype(jnp.float32)))
+    mine = KA.sdpa_short_bwd_plain(tq, tk, tv, wp, tg, 0.125, causal)
+    for name, a, w in zip(("dq", "dk", "dv"), mine, grads):
+        assert a.dtype == torch.bfloat16, name
+        w = torch.from_numpy(np.array(w.astype(jnp.float32)))
+        assert _bf16_passes(a, w), (name, _bf16_gate(a, w))
+
+
+@pytest.mark.parametrize("tq,tk,causal", [(64, 64, False), (64, 64, True),
+                                          (32, 64, True)])
+def test_flash_bf16_plain_matches_pallas_interpret(jax_ref, tq, tk, causal):
+    """#2-#4 in bf16: output, fp32 lse and the grads from the same
+    (q, k, v, out, lse, dO) against `_flash_fwd_impl` and
+    `_flash_bwd_impl` in interpret mode on bf16 inputs."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.pallas import attention as jattn
+
+    q, g = _randn(1, 2, tq, 64, seed=40), _randn(1, 2, tq, 64, seed=41)
+    k, v = _randn(1, 2, tk, 64, seed=42), _randn(1, 2, tk, 64, seed=43)
+    jq, jk, jv, jg = (jnp.asarray(x, dtype=jnp.bfloat16)
+                      for x in (q, k, v, g))
+    jattn.force_interpret(True)
+    try:
+        out, lse = jattn._flash_fwd_impl(jq, jk, jv, 0.125, causal)
+        want = jattn._flash_bwd_impl(jq, jk, jv, out, lse, jg, 0.125,
+                                     causal)
+    finally:
+        jattn.force_interpret(False)
+    tq_, tk_, tv_, tg_ = map(_bf16, (q, k, v, g))
+    got, glse = KA.flash_attention_plain(tq_, tk_, tv_, 0.125, causal,
+                                         with_lse=True)
+    assert got.dtype == torch.bfloat16 and glse.dtype == torch.float32
+    wout = torch.from_numpy(np.asarray(out.astype(jnp.float32)))
+    assert _bf16_passes(got, wout), _bf16_gate(got, wout)
+    np.testing.assert_allclose(glse.numpy(), np.asarray(lse), rtol=0,
+                               atol=ATOL)
+    mine = KA.flash_attention_bwd_plain(
+        tq_, tk_, tv_, _bf16(np.asarray(out.astype(jnp.float32))),
+        torch.from_numpy(np.asarray(lse)), tg_, 0.125, causal)
+    for name, a, w in zip(("dq", "dk", "dv"), mine, want):
+        assert a.dtype == torch.bfloat16, name
+        w = torch.from_numpy(np.array(w.astype(jnp.float32)))
+        assert _bf16_passes(a, w), (name, _bf16_gate(a, w))
+
+
+def test_bf16_launch_raises_when_the_kernels_cannot_be_built(monkeypatch):
+    """A bf16 launch takes no plain path when its kernel is missing: with
+    the build failing, each launch function raises before any launch."""
+    from paddle_tpu_torch.ops.kernels import build
+
+    def fail(name):
+        raise RuntimeError("CUDA kernel build failed: (stand-in)")
+
+    monkeypatch.setattr(build, "library", fail)
+    KA._kernel.cache_clear()
+    q = torch.zeros(1, 1, 300, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 300)
+    p = torch.zeros(1, 300, 300, dtype=torch.bfloat16)
+    before = [w.launches for w in (KA.sdpa_short, KA.sdpa_short_bwd,
+                                   KA.flash_attention, KA.flash_bwd_dq,
+                                   KA.flash_bwd_dkv)]
+    calls = [lambda: KA._sdpa_short_launch(q, q, q, 0.125, True, True),
+             lambda: KA._flash_attention_launch(q, q, q, 0.125, True, True),
+             lambda: KA._sdpa_short_bwd_launch(q, q, q, p, q, 0.125, True),
+             lambda: KA._flash_bwd_dq_launch(q, q, q, q, lse, lse, 0.125,
+                                             True),
+             lambda: KA._flash_bwd_dkv_launch(q, q, q, q, lse, lse, 0.125,
+                                              True)]
+    try:
+        for call in calls:
+            with pytest.raises(RuntimeError, match="build failed"):
+                call()
+    finally:
+        KA._kernel.cache_clear()
+    assert [w.launches for w in (KA.sdpa_short, KA.sdpa_short_bwd,
+                                 KA.flash_attention, KA.flash_bwd_dq,
+                                 KA.flash_bwd_dkv)] == before
+
+
+BF16_FWD_CASES = [
+    ("sdpa_short", 2, 8, 512, 512, 64, False),
+    ("sdpa_short", 2, 8, 512, 512, 64, True),
+    ("sdpa_short", 1, 4, 300, 300, 128, True),
+    ("sdpa_short", 1, 2, 13, 13, 64, True),
+    ("flash", 2, 8, 1024, 1024, 64, False),
+    ("flash", 2, 8, 1024, 1024, 64, True),
+    ("flash", 1, 4, 96, 1024, 64, True),
+    ("flash", 1, 2, 100, 40, 128, True),
+    ("flash", 1, 2, 600, 600, 256, True),
+    ("flash", 1, 4, 1000, 1024, 64, True)]
+
+
+def _bf16_inputs(cuda, b, h, tq, tk, d):
+    q, g = (_cuda_randn(cuda, b, h, tq, d, seed=s, dtype=torch.bfloat16)
+            for s in (50, 53))
+    k, v = (_cuda_randn(cuda, b, h, tk, d, seed=s, dtype=torch.bfloat16)
+            for s in (51, 52))
+    return q, k, v, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,b,h,tq,tk,d,causal", BF16_FWD_CASES)
+def test_bf16_attention_kernels_match_plain(cuda, kind, b, h, tq, tk, d,
+                                            causal):
+    """#2-#6 on bf16 q, k, v and dO: outputs, P and grads in bf16, lse in
+    fp32; each within one bf16 rounding of its plain version in few
+    elements, no further from a float64 oracle than twice the plain
+    version is, and the same bits on a second launch; the launch counters
+    move by one a call."""
+    q, k, v, g = _bf16_inputs(cuda, b, h, tq, tk, d)
+    scale = d ** -0.5
+    if kind == "sdpa_short":
+        fwd, bwd = KA.sdpa_short, (KA.sdpa_short_bwd,)
+        before = fwd.launches, [w.launches for w in bwd]
+        runs = [KA._sdpa_short_launch(q, k, v, scale, causal, True)
+                for _ in range(2)]
+        out, res = runs[0]
+        wout, wres = KA.sdpa_short_plain(q, k, v, scale, causal,
+                                         save_p=True)
+        grads = [KA.sdpa_short_bwd(q, k, v, res, g, scale, causal)
+                 for _ in range(2)]
+        wgrads = KA.sdpa_short_bwd_plain(q, k, v, res, g, scale, causal)
+        f64 = _sdpa_bwd_f64(q, k, v, res, g, scale)
+        assert res.dtype == torch.bfloat16 and _bf16_passes(res, wres), \
+            _bf16_gate(res, wres)
+    else:
+        fwd, bwd = KA.flash_attention, (KA.flash_bwd_dq, KA.flash_bwd_dkv)
+        before = fwd.launches, [w.launches for w in bwd]
+        runs = [KA._flash_attention_launch(q, k, v, scale, causal, True)
+                for _ in range(2)]
+        out, res = runs[0]
+        wout, wres = KA.flash_attention_plain(q, k, v, scale, causal,
+                                              with_lse=True)
+        grads = [KA.flash_attention_bwd(q, k, v, out, res, g, scale, causal)
+                 for _ in range(2)]
+        wgrads = KA.flash_attention_bwd_plain(q, k, v, out, res, g, scale,
+                                              causal)
+        qr, kr, vr = (x.double().requires_grad_() for x in (q, k, v))
+        f64 = torch.autograd.grad(_attention_f64(qr, kr, vr, scale, causal),
+                                  (qr, kr, vr), g.double())
+        assert res.dtype == torch.float32
+        torch.testing.assert_close(res, wres, rtol=1e-6, atol=1e-5)
+    torch.cuda.synchronize()
+    assert fwd.launches == before[0] + 2
+    assert [w.launches for w in bwd] == [n + 2 for n in before[1]]
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert _bf16_passes(out, wout), _bf16_gate(out, wout)
+    oracle = _attention_f64(q, k, v, scale, causal)
+    assert max_err_f64(out, oracle) <= 2 * max_err_f64(wout, oracle)
+    for name, a, a2, w, o in zip(("dq", "dk", "dv"), grads[0], grads[1],
+                                 wgrads, f64):
+        assert a.dtype == torch.bfloat16, name
+        assert torch.equal(a, a2), name
+        assert _bf16_passes(a, w), (name, _bf16_gate(a, w))
+        assert max_err_f64(a, o) <= 2 * max_err_f64(w, o), name
+
+
+def max_err_f64(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_attention_kernels_fail_planted_faults(cuda, causal):
+    """The bf16 gate catches what it is for: the flash backward fed an lse
+    off by 1e-2, either forward or backward launched with the causal flag
+    dropped (causal cases), and #6's dS taken as a single bf16 term (the
+    plain version so computed, against the float64 oracle)."""
+    q, k, v, g = _bf16_inputs(cuda, 2, 8, 1024, 1024, 64)
+    out, lse = KA._flash_attention_launch(q, k, v, 0.125, causal, True)
+    want = KA.flash_attention_bwd_plain(q, k, v, out, lse, g, 0.125, causal)
+    bad = KA.flash_attention_bwd(q, k, v, out, lse + 1e-2, g, 0.125, causal)
+    assert not all(_bf16_passes(a, w) for a, w in zip(bad, want))
+    if causal:
+        wout = KA.flash_attention_plain(q, k, v, 0.125, True)
+        assert not _bf16_passes(KA.flash_attention(q, k, v, 0.125, False),
+                                wout)
+        bad = KA.flash_attention_bwd(q, k, v, out, lse, g, 0.125, False)
+        assert not all(_bf16_passes(a, w) for a, w in zip(bad, want))
+    q, k, v, g = _bf16_inputs(cuda, 2, 8, 512, 512, 64)
+    _, p = KA._sdpa_short_launch(q, k, v, 0.125, causal, True)
+    want = KA.sdpa_short_bwd_plain(q, k, v, p, g, 0.125, causal)
+    single = [x.to(torch.bfloat16) for x in _sdpa_bwd_f64(
+        q, k, v, p, g, 0.125, single_bf16_ds=True)]
+    assert not all(_bf16_passes(a, w) for a, w in zip(single[:2],
+                                                      want[:2]))
+    if causal:
+        bad = KA.sdpa_short_bwd(q, k, v, p, g, 0.125, False)
+        got = KA.sdpa_short_bwd(q, k, v, p, g, 0.125, True)
+        assert all(_bf16_passes(a, w) for a, w in zip(got, want))
+        # the flag only skips tiles where P is 0: the same grads
+        assert all(_bf16_passes(a, w) for a, w in zip(bad, want))
+
+
+@pytest.mark.gpu
+def test_bf16_routed_attention_launches_the_kernel(cuda, monkeypatch):
+    """The attention op on bf16 q, k, v at T 384 (sdpa_short) and 1024
+    (flash) launches the bf16 kernel, never the plain composition; with
+    the kernels' build failing it raises."""
+    import paddle_tpu_torch as pf
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.ops.kernels import build
+
+    for t, wrapper in ((384, KA.sdpa_short), (1024, KA.flash_attention)):
+        blk = pf.Program().global_block
+        for n in ("Q", "K", "V"):
+            blk.create_var(name=n, shape=(1, t, 2, 64), dtype="bfloat16")
+        op = blk.append_op("attention", {"Q": "Q", "K": "K", "V": "V"},
+                           {"Out": "O"}, {"causal": True, "scale": 0.125,
+                                          "layout": "bthd"})
+        env = {n: _cuda_randn(cuda, 1, t, 2, 64, seed=i,
+                              dtype=torch.bfloat16)
+               for i, n in enumerate(("Q", "K", "V"))}
+        before = wrapper.launches
+        with torch.no_grad():
+            registry.run_op(op, env, cuda)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert env["O"].dtype == torch.bfloat16
+        want = KA.flash_attention_plain(
+            *(env[n].transpose(1, 2) for n in ("Q", "K", "V")), 0.125, True)
+        assert _bf16_passes(env["O"].transpose(1, 2), want)
+    monkeypatch.setattr(build, "library", lambda name: (_ for _ in ()).throw(
+        RuntimeError("CUDA kernel build failed: (stand-in)")))
+    KA._kernel.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="build failed"):
+            with torch.no_grad():
+                registry.run_op(op, env, cuda)
+    finally:
+        KA._kernel.cache_clear()

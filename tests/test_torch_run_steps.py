@@ -629,3 +629,84 @@ def test_captures_share_a_pool_and_a_program_keeps_one(cuda):
                                    atol=0)
     for g, e in zip(graph, eager):
         _assert_close_state(_state(g, names), _state(e, names), names)
+
+
+@pytest.mark.gpu
+def test_captured_dropout_steps_match_eager_steps(cuda):
+    """The training program at dropout 0.1 is captured (no eager
+    reason): K captured steps draw the masks K eager steps draw, since
+    the graph advances its device step key with the host's arithmetic;
+    losses and persistables within 1e-6 relative of eager (bit-identical
+    where no atomics reorder a sum), two replayed calls differ from each
+    other (each replay draws anew), and the losses differ from the
+    dropout-0 program's."""
+    cfg = {**CFG, "dropout_rate": 0.1}
+    with p_unique_name.guard():
+        main, startup, cost = PT.build_program(**cfg)
+    startup.random_seed = 5
+    main.random_seed = 9
+    names = [n for n, v in startup.global_block.vars.items()
+             if v.persistable]
+    init = pf.Scope()
+    pf.Executor(pf.CPUPlace()).run(startup, scope=init)
+    pair = dict(state=_state(init, names))
+    feed = _distinct_feed(3)
+    exe = pf.Executor(pf.CUDAPlace(0))
+    eager_scope, graph_scope = _scope(pair, cuda), _scope(pair, cuda)
+    eager = [exe.run(main, feed=feed, fetch_list=[cost],
+                     scope=eager_scope)[0] for _ in range(2 * STEPS)]
+    got = [exe.run_steps(main, feed=feed, fetch_list=[cost], steps=STEPS,
+                         scope=graph_scope)[0] for _ in range(2)]
+    assert exe.last_run_steps_fallback is None
+    assert exe.compile_count == 1
+    got = np.concatenate(got)
+    np.testing.assert_allclose(got, np.stack(eager), rtol=1e-6, atol=0)
+    _assert_close_state(_state(graph_scope, names),
+                        _state(eager_scope, names), names)
+    assert not np.array_equal(got[:STEPS], got[STEPS:])
+    plain = _trained()
+    base = exe.run(plain["pmain"], feed=feed, fetch_list=[plain["pcost"]],
+                   scope=_scope(plain, cuda))[0]
+    assert not np.allclose(base, got[0], rtol=1e-6, atol=0)
+    print("captured dropout losses bit-identical to eager:",
+          np.array_equal(got, np.stack(eager)))
+
+
+@pytest.mark.gpu
+def test_amp_fused_blocks_raise_on_the_card(cuda, monkeypatch):
+    """Built with PADDLE_TPU_FUSE_ATTN_BLOCK=1 and run under AMP, the
+    attention_block and ffn_block ops get bf16 inputs, which their
+    kernels (#10-#13, fp32 only until their bf16 slice) do not take: the
+    step raises NotImplementedError and launches none of them, and never
+    computes the plain composition in their place; in fp32 the same step
+    launches all four."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops.kernels import attention_block as KAB
+    from paddle_tpu_torch.ops.kernels import ffn_block as KFF
+
+    monkeypatch.setenv("PADDLE_TPU_FUSE_ATTN_BLOCK", "1")
+    with p_unique_name.guard():
+        main, startup, cost = PT.build_program(**CFG)
+    types = [op.type for op in main.global_block.ops]
+    assert "attention_block" in types and "ffn_block" in types
+    startup.random_seed = 5
+    exe = pf.Executor(pf.CUDAPlace(0))
+    feed = _distinct_feed(4)
+    kern = (KAB.attention_block, KAB.attention_block_bwd, KFF.ffn_block,
+            KFF.ffn_block_bwd)
+    for on in (False, True):
+        scope = pf.Scope()
+        exe.run(startup, scope=scope)
+        before = [k.launches for k in kern]
+        with amp.amp_guard(on):
+            if on:
+                with pytest.raises(NotImplementedError, match="bf16"):
+                    exe.run(main, feed=feed, fetch_list=[cost],
+                            scope=scope)
+            else:
+                loss = exe.run(main, feed=feed, fetch_list=[cost],
+                               scope=scope)[0]
+                assert np.isfinite(loss).all()
+        moved = [k.launches - b for k, b in zip(kern, before)]
+        assert all(m == 0 for m in moved) if on else all(
+            m > 0 for m in moved), moved

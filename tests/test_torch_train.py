@@ -236,6 +236,16 @@ def test_sgd_training_matches_reference():
 
 
 def test_dropout_is_refused_not_dropped():
-    with p_unique_name.guard(), pytest.raises(NotImplementedError,
-                                              match="dropout"):
-        PT.build_program(**dict(CFG, dropout_rate=0.1))
+    """A nonzero dropout rate is never dropped: the port refused it until
+    dropout was ported, and now builds the JAX package's program, its
+    dropout ops (and their grads) and attention dropout included."""
+    cfg = dict(CFG, dropout_rate=0.1)
+    with p_unique_name.guard():
+        pmain, _, _ = PT.build_program(warmup_steps=WARMUP, **cfg)
+    with j_unique_name.guard():
+        jmain, _, _ = JT.build_program(warmup_steps=WARMUP, **cfg)
+    assert _op_list(pmain) == _op_list(jmain)
+    types = [op.type for op in pmain.global_block.ops]
+    assert "dropout" in types and "dropout_grad" in types
+    assert all(op.attrs["dropout_rate"] == 0.1
+               for op in pmain.global_block.ops if op.type == "attention")
