@@ -78,7 +78,21 @@ Phases (a failing phase fails the script; none is caught):
    backward fed lse + 1e-2, the causal flag dropped, #6's dS as one bf16
    term) must fail; each timed beside its bf16 bound (bytes / 3.35 TB/s
    against products / 989 TFLOP/s) and the library's flash SDPA in bf16,
-   in each kernel's `bf16` field of the kernels line;
+   in each kernel's `bf16` field of the kernels line; the fused-block
+   kernels #10-#13 also in bf16 (AMP) at the training shape (x
+   [64,256,512], H 8, F 2048), the attention block causal and not:
+   outputs and grads within one bf16 ulp at the largest |plain| (2^-8 to
+   2^-7 of it) in at most 5% of the elements and no further from a
+   float64 oracle than twice the plain version (the FFN backward's ReLU
+   masks pinned to the forward kernel's hidden, the flips bounded, no
+   unit with two masks between #12 and #13), P fp32, the same bits on a second launch; planted faults (the
+   attention_block forward with the causal flag dropped, the FFN
+   backward with dh as one bf16 term) must fail; each timed beside its
+   bound (bytes / 3.35 TB/s against the products as run, an fp32 operand
+   counting twice and two fp32 operands three times, / 989 TFLOP/s) and
+   the library's composition in bf16 (cuBLAS products around
+   F.scaled_dot_product_attention; addmm, relu, addmm), forward and
+   under autograd;
    lookup_table: the op and its grad op on the card with ids out of
    range and negative, against the CPU (NaN rows in the same places, the
    same W@GRAD), then a kernel launch that must still run and agree: the
@@ -161,7 +175,23 @@ Phases (a failing phase fails the script; none is caught):
    equal to K Executor.run steps within 1e-6, the first dropout op's
    mask other at every step, the losses other than phase 5's by more
    than 1e-6; one eager step's mask draws timed alone, for their share
-   of the step.
+   of the step. After phase 8: the bench's fused Transformer
+   (bench_transformer_fused: seq 256, batch 128, PADDLE_TPU_FUSE_ATTN_BLOCK=1)
+   under AMP, #10-#13 in bf16, as the bf16 legs above, its parity
+   gate also failing with the decoder's causal flag dropped on the card,
+   set beside the unfused bf16 leg and phase 8. Last, phase 5's
+   configuration with recompute, clipping and weight decay
+   (transformer(checkpoints=ck) under
+   RecomputeOptimizer(Adam(noam_decay, regularization=L2Decay(1e-4))) and
+   set_gradient_clip(GradientClipByGlobalNorm(c)), c half the smaller
+   step-1 global gradient norm the card reads on 2 rows and on the full
+   batch): step-1 parity on 2 rows against the CPU by phase 5's gates
+   (the recomputed ReLUs pinned with their forwards), the clip's scale
+   below 1 on both, then the eager and run_steps legs (replays within
+   1e-6), the same program without recompute for its eager peak memory
+   (must be higher) and losses (within 1e-5), and its dropout-0.1
+   variant on 2 rows, whose recomputed dropout mask and attention output
+   (dropout on P) must equal their forwards' bit for bit.
 8. train fused: phase 5's configuration built with
    PADDLE_TPU_FUSE_ATTN_BLOCK=1 set around transformer.build_program:
    each of the 12 self-attention sub-layers is one attention_block op and
@@ -271,6 +301,12 @@ AMP_ACT_SHARE = 0.05
 # seq 256 at batch 128), then #5/#6 and #2-#4 in bf16
 BF16_RUNS = ((256, 128), (512, 32), (1024, 16))
 DROPOUT_RATE = 0.1            # Transformer-base's
+# the recompute leg: Adam's weight decay (L2Decay's coefficient), and its
+# global-norm clip, set at run time to this share of the smaller step-1
+# global gradient norm that the card reads (2 rows and the full batch),
+# so that the clip scales in the parity step and in the main path
+RECOMPUTE_L2 = 1e-4
+CLIP_BELOW = 0.5
 
 MODEL = dict(d_model=512, n_heads=8, n_layers=6, d_inner=2048,
              vocab=30000, max_out_len=32, start_id=0, end_id=1)
@@ -964,37 +1000,46 @@ def _lib_ffn(x, w1, b1, w2, b2):
                        w2).reshape(x.shape)
 
 
-def _ffn_bwd_with_mask(x, w1, b1, w2, g, mask):
-    """The plain FFN backward with the ReLU's mask given ([rows, F]
-    bool) in place of its own (pre > 0)."""
+def _ffn_bwd_with_mask(x, w1, b1, w2, g, mask, dh_bf16=False):
+    """The plain FFN backward (fp32 arithmetic, the grads in the inputs'
+    dtype) with the ReLU's mask given ([rows, F] bool) in place of its
+    own (pre > 0); with `dh_bf16`, dh rounded to one bf16 term before
+    its products: what a bf16 kernel that dropped the low part of that
+    fp32 intermediate would compute (a planted fault)."""
     d = w1.shape[0]
-    x2, g2 = x.reshape(-1, d), g.reshape(-1, d)
-    dh = torch.where(mask, g2 @ w2.T, 0.0)
-    return ((dh @ w1.T).reshape(x.shape), x2.T @ dh, dh.sum(0),
-            torch.relu(x2 @ w1 + b1).T @ g2, g2.sum(0))
+    x2, g2 = x.reshape(-1, d).float(), g.reshape(-1, d).float()
+    w1f, w2f = w1.float(), w2.float()
+    dh = torch.where(mask, g2 @ w2f.T, 0.0)
+    if dh_bf16:
+        dh = dh.to(torch.bfloat16).float()
+    return ((dh @ w1f.T).reshape(x.shape).to(x.dtype),
+            (x2.T @ dh).to(w1.dtype), dh.sum(0).to(b1.dtype),
+            (torch.relu(x2 @ w1f + b1.float()).T @ g2).to(w2.dtype),
+            g2.sum(0).to(w2.dtype))
 
 
 def _ffn_bwd_mask_flipped(x, w1, b1, w2, g, col):
     """The plain FFN backward with the ReLU's mask inverted on hidden
     column `col`: a planted fault for the grad check."""
     d = w1.shape[0]
-    mask = x.reshape(-1, d) @ w1 + b1 > 0
+    mask = x.reshape(-1, d).float() @ w1.float() + b1.float() > 0
     mask[:, col] = ~mask[:, col]
     return _ffn_bwd_with_mask(x, w1, b1, w2, g, mask)
 
 
 def _ffn_bwd_kernel(x, w1, b1, w2, g):
-    """The FFN backward kernel through its C entry, with the scratch
-    hidden kept: (the five grads, the ReLU mask its recompute took). The
-    scratch ends as dh = (g W2^T)[mask], so the mask is dh != 0 wherever
-    g W2^T is not 0, and where it is 0 dh is 0 under either mask."""
+    """The FFN backward kernel (x's dtype's instance) through its C
+    entry, with the fp32 scratch hidden kept: (the five grads, the ReLU
+    mask its recompute took). The scratch ends as dh = (g W2^T)[mask], so
+    the mask is dh != 0 wherever g W2^T is not 0, and where it is 0 dh
+    is 0 under either mask."""
     d, f = w1.shape
     n = x.numel() // d
     grads = (torch.empty_like(x), torch.empty_like(w1), torch.empty_like(b1),
              torch.empty_like(w2), x.new_empty(d))
-    h = x.new_empty(n, f)
-    ws = x.new_empty(max(KFF.WORKSPACE_FLOATS, f))
-    assert KFF._kernel("ffn_block_bwd", 12, True)(
+    h = torch.empty(n, f, device=x.device)
+    ws = torch.empty(max(KFF.WORKSPACE_FLOATS, f), device=x.device)
+    assert KFF._kernel("ffn_block_bwd", 12, True, x.dtype)(
         *(z.data_ptr() for z in (x, w1, b1, w2, g, *grads, h, ws)),
         ws.numel(), n, d, f, torch.cuda.current_stream().cuda_stream) == 0
     return grads, h != 0
@@ -1007,11 +1052,25 @@ def _relu_flips(x, w1, b1, mask):
     computations that round differently."""
     d = w1.shape[0]
     x2 = x.reshape(-1, d)
-    flips = mask != (x2 @ w1 + b1 > 0)
+    flips = mask != (x2.float() @ w1.float() + b1.float() > 0)
     pre = x2.double() @ w1.double() + b1.double()
     top = float(pre.abs().max())
     return int(flips.sum()), (float(pre[flips].abs().max())
                               if bool(flips.any()) else 0.0), top
+
+
+def _ffn_fwd_hidden(x, w1, b1, w2):
+    """The FFN forward kernel's (#12, x's dtype's instance) fp32 hidden
+    relu(x W1 + b1) for x [n, d], through its C entry, whose scratch
+    hidden is the caller's."""
+    n, d = x.shape
+    f = w1.shape[1]
+    h = torch.empty(n, f, device=x.device)
+    assert KFF._kernel("ffn_block_fwd", 7, False, x.dtype)(
+        *(z.data_ptr() for z in (x, w1, b1, w2, x.new_zeros(d),
+                                 torch.empty_like(x), h)),
+        n, d, f, torch.cuda.current_stream().cuda_stream) == 0
+    return h
 
 
 def _fwd_bwd_mask_flips(x, w1, b1, w2):
@@ -1021,15 +1080,9 @@ def _fwd_bwd_mask_flips(x, w1, b1, w2):
     #12's hidden h > 0 against #13's mask under a cotangent of ones (dh =
     the sum of W2's row where the mask is on). Through the C entries,
     whose scratch hidden is the caller's."""
-    n, d = x.shape
-    f = w1.shape[1]
     assert float(w2.double().sum(1).abs().min()) > 1e-5, \
         "a row of W2 sums to 0: dh cannot show the mask there"
-    h = x.new_empty(n, f)
-    assert KFF._kernel("ffn_block_fwd", 7, False)(
-        *(z.data_ptr() for z in (x, w1, b1, w2, x.new_zeros(d),
-                                 torch.empty_like(x), h)),
-        n, d, f, torch.cuda.current_stream().cuda_stream) == 0
+    h = _ffn_fwd_hidden(x, w1, b1, w2)
     _, mask = _ffn_bwd_kernel(x, w1, b1, w2, torch.ones_like(x))
     return int(((h > 0) != mask).sum())
 
@@ -1544,6 +1597,8 @@ def phase_kernels():
     for name, e in _bf16_line(_attn_bf16_entries()).items():
         entries[name]["bf16"] = e
     entries.update(_fused_entries())
+    for name, e in _fused_bf16_entries().items():
+        entries[name]["bf16"] = e
     entries.update(_paged_entries())
     return entries
 
@@ -2148,9 +2203,10 @@ def _relu_masks(masks):
     kernel = info.kernel
 
     def pinned(ctx):
+        # a recomputed relu (input `<name>@RECOMP<i>`) takes its forward's
         x = ctx.input("X")
-        m = torch.from_numpy(masks[ctx.op.inputs["X"][0]]).to(x.device)
-        return x * m.to(x.dtype)
+        m = torch.from_numpy(masks[ctx.op.inputs["X"][0].split("@")[0]])
+        return x * m.to(x.device, x.dtype)
 
     info.kernel = pinned
     try:
@@ -2159,20 +2215,22 @@ def _relu_masks(masks):
         info.kernel = kernel
 
 
-def _train_setup(tag, seq_len, batch, fused=False, dropout_rate=0.0):
+def _train_setup(tag, seq_len, batch, fused=False, dropout_rate=0.0,
+                 build=None):
     """Transformer-base's training program at `seq_len` (at
-    `dropout_rate`), built with the fused-block switch (FUSE_KNOB) set or
-    cleared around the build, its startup run on the card once, and the
-    feeds: `batch` rows of random token ids and their first 2 rows for
-    the parity step."""
+    `dropout_rate`), built (by `build()`, or build_program) with the
+    fused-block switch (FUSE_KNOB) set or cleared around the build, its
+    startup run on the card once, and the feeds: `batch` rows of random
+    token ids and their first 2 rows for the parity step."""
     prev = os.environ.pop(FUSE_KNOB, None)
     if fused:
         os.environ[FUSE_KNOB] = "1"
     t0 = time.monotonic()
     try:
         with unique_name.guard():
-            main, startup, cost = transformer.build_program(
-                seq_len=seq_len, **dict(TRAIN, dropout_rate=dropout_rate))
+            main, startup, cost = build() if build else \
+                transformer.build_program(
+                    seq_len=seq_len, **dict(TRAIN, dropout_rate=dropout_rate))
     finally:
         os.environ.pop(FUSE_KNOB, None)
         if prev is not None:
@@ -2962,6 +3020,27 @@ def _bf16_ok(got, want):
             and share <= BF16_SHARE)
 
 
+def _bf16_ulps(got, want):
+    """(max |got - want| in bf16 ulps of the largest |want|, the share of
+    elements that differ). Both sides round fp32 values once, so an
+    element whose two fp32 values straddle a rounding boundary moves by
+    one ulp of itself, at most one ulp of the largest |want|: 2^-8 to
+    2^-7 of it, by where it lies in its binade (2^-8 of the largest alone
+    is less than that ulp when the largest lies below the next power of
+    two)."""
+    g, w = got.float(), want.float()
+    top = float(w.abs().max())
+    ulp = 2.0 ** (math.frexp(top)[1] - 8) if top > 0 else 2.0 ** -133
+    return (float((g - w).abs().max()) / ulp,
+            float((g != w).float().mean()))
+
+
+def _bf16_ulp_ok(got, want):
+    ulps, share = _bf16_ulps(got, want)
+    return (bool(torch.isfinite(got.float()).all()) and ulps <= 1.0
+            and share <= BF16_SHARE)
+
+
 def _f64_attention(q, k, v, scale, causal):
     s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * scale
     if causal:
@@ -3225,33 +3304,282 @@ def _bf16_line(raw):
             for n, e in raw.items()}
 
 
-def _amp_first_acts(main):
-    """The outputs of the first attention op (encoder self-attention) and
+def _attention_block_f64(x, wqkv, wo, p, g, h, scale, causal):
+    """The attention block in float64 from the same inputs: (its P, its
+    output, and its grads from the saved P `p`), the oracle of the bf16
+    gate's distance check."""
+    b, t, d = x.shape
+    xd, wq, wod, gd = (z.double() for z in (x, wqkv, wo, g))
+    q, k, v = (z.reshape(b, t, h, -1).transpose(1, 2)
+               for z in (xd @ wq).split(d, dim=2))
+    merge = lambda z: z.transpose(1, 2).reshape(b, t, -1)  # noqa: E731
+    p64 = _attention_block_p_f64(x, wqkv, h, scale, causal)
+    out = merge(p64 @ v) @ wod
+    p = p.double()
+    dwo = merge(p @ v).reshape(-1, d).T @ gd.reshape(-1, d)
+    dctx = (gd @ wod.T).reshape(b, t, h, -1).transpose(1, 2)
+    dv = p.transpose(-1, -2) @ dctx
+    dp = dctx @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dqkv = torch.cat([merge(ds @ k * scale),
+                      merge(ds.transpose(-1, -2) @ q * scale), merge(dv)],
+                     dim=2)
+    return p64, out, (dqkv @ wq.T,
+                      xd.reshape(-1, d).T @ dqkv.reshape(-1, 3 * d), dwo)
+
+
+def _ffn_block_f64(x, w1, b1, w2, b2, g, mask):
+    """The FFN block's output and grads in float64, the backward's ReLU
+    mask pinned to `mask`."""
+    d = w1.shape[0]
+    x2, g2 = x.reshape(-1, d).double(), g.reshape(-1, d).double()
+    w1d, w2d = w1.double(), w2.double()
+    pre = x2 @ w1d + b1.double()
+    out = (torch.relu(pre) @ w2d + b2.double()).reshape(x.shape)
+    dh = torch.where(mask, g2 @ w2d.T, 0.0)
+    return out, ((dh @ w1d.T).reshape(x.shape), x2.T @ dh, dh.sum(0),
+                 (torch.relu(pre) * mask).T @ g2, g2.sum(0))
+
+
+def _fused_bf16_entries():
+    """#10-#13 on bf16 x, weights and g at the training shape (x
+    [64,256,512], H 8, F 2048), causal and not for the attention block:
+    each output and grad within one bf16 rounding of its plain version
+    (one ulp at its largest |plain|, `_bf16_ulps`) in at most BF16_SHARE
+    of the elements, and no further from the float64 oracle than twice the
+    plain version is (the FFN backward's ReLU masks pinned to the
+    forward kernel's hidden, which #13 recomputes with one code path, the
+    units whose mask differs from the plain recompute's within FUSED_RTOL
+    of the largest |pre-activation| of zero); saved P fp32 within P_TOL of the
+    plain composition in float64; a second launch the same bits (the
+    attention_block forward's output the same with P and without).
+    Planted faults must fail the gate: the attention_block forward with
+    the causal flag dropped, and the FFN backward with dh entered as one
+    bf16 term (a plain control: what a kernel that dropped the low part
+    of that fp32 intermediate computes). Then times, non-causal: each kernel beside
+    its bf16 bound (bytes over 3.35 TB/s against the products as the
+    kernels run them, an fp32 operand counting twice and two three
+    times, over 989 TFLOP/s), its plain version and the library's
+    composition in bf16 (`_lib_attention_block`: cuBLAS products around
+    F.scaled_dot_product_attention; `_lib_ffn`: addmm, relu, addmm),
+    forward and under autograd."""
+    bf = torch.bfloat16
+    b, t, d, h, f = TRAIN_TOKENS // 256, 256, 512, 8, 2048
+    scale = (d // h) ** -0.5
+    out = {n: dict(errs=[], ratios=[]) for n in (
+        "attention_block", "attention_block_bwd", "ffn_block",
+        "ffn_block_bwd")}
+    for causal in (False, True):
+        a = {k: v.to(bf) for k, v in _fused_inputs(b, t, d, f,
+                                                   seed=100 + causal).items()}
+        x, g, wqkv, wo = a["x"], a["g"], a["wqkv"], a["wo"]
+        runs = [KAB._attention_block_launch(x, wqkv, wo, h, scale, causal,
+                                            True) for _ in range(2)]
+        primal = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal,
+                                             False)
+        o, p = runs[0]
+        wout, wp = KAB.attention_block_fwd_plain(x, wqkv, wo, h, scale,
+                                                 causal, save_p=True)
+        grads = [KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale, causal)
+                 for _ in range(2)]
+        wgrads = KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h, scale)
+        p64, o64, g64 = _attention_block_f64(x, wqkv, wo, p, g, h, scale,
+                                             causal)
+        p_err = float((p.double() - p64).abs().max())
+        faults = {}
+        if causal:
+            faults["fwd causal dropped"] = not _bf16_ulp_ok(
+                KAB._attention_block_launch(x, wqkv, wo, h, scale, False,
+                                            False), wout)
+        torch.cuda.synchronize()
+        repeat = (torch.equal(runs[0][0], runs[1][0])
+                  and torch.equal(runs[0][1], runs[1][1])
+                  and torch.equal(primal, o)
+                  and all(torch.equal(u, v) for u, v in zip(*grads)))
+        fwd_gate, fwd_ratio = _bf16_ulps(o, wout), _f64_ratio(o, wout, o64)
+        bwd = [(n, _bf16_ulps(u, w), _f64_ratio(u, w, r))
+               for n, u, w, r in zip(("dx", "dwqkv", "dwo"), grads[0],
+                                     wgrads, g64)]
+        log(f"  attention_block bf16 [{b},{t},{d}] H {h} causal={causal}: "
+            f"out {fwd_gate[0]:.2f} ulps share {fwd_gate[1]:.4f} (tol 1 ulp, "
+            f"{BF16_SHARE}; {_bf16_gate(o, wout)[0]:.3e} of the largest "
+            f"|plain|), {fwd_ratio:.2f}x the plain "
+            f"version's distance to float64; P ({p.dtype}) against the "
+            f"plain composition in float64 {p_err:.3e} (tol {P_TOL:g}), "
+            f"the kernel's against the fp32 plain version's "
+            f"{max_err(p, wp):.3e}; attention_block_bwd "
+            + ", ".join(f"{n} {gt[0]:.2f} ulps share {gt[1]:.4f} {r:.2f}x"
+                        for n, gt, r in bwd)
+            + f"; the same bits twice {repeat}; planted faults fail "
+            f"{faults}")
+        assert o.dtype == bf and p.dtype == torch.float32
+        assert _bf16_ulp_ok(o, wout) and fwd_ratio <= 2.0, (fwd_gate, fwd_ratio)
+        assert p_err <= P_TOL, p_err
+        for (n, gt, r), u, w in zip(bwd, grads[0], wgrads):
+            assert u.dtype == bf and _bf16_ulp_ok(u, w) and r <= 2.0, (n, gt, r)
+        assert repeat and all(faults.values()), (repeat, faults)
+        out["attention_block"]["errs"].append(max_err(o, wout))
+        out["attention_block"]["ratios"].append(fwd_ratio)
+        out["attention_block_bwd"]["errs"].append(
+            max(max_err(u, w) for u, w in zip(grads[0], wgrads)))
+        out["attention_block_bwd"]["ratios"].append(max(r for *_, r in bwd))
+        del runs, primal, o, p, grads, wgrads, p64, o64, g64
+        if causal:
+            continue  # the FFN has no causal form
+        w1, b1, w2, b2 = a["w1"], a["b1"], a["w2"], a["b2"]
+        fo = [KFF._ffn_block_launch(x, w1, b1, w2, b2) for _ in range(2)]
+        wfo = KFF.ffn_block_plain(x, w1, b1, w2, b2)
+        fg, _ = _ffn_bwd_kernel(x, w1, b1, w2, g)
+        fg2 = KFF.ffn_block_bwd(x, w1, b1, w2, g)
+        # the kernels' ReLU mask: #12's hidden, which #13's recompute
+        # repeats bit for bit (kflips below). #13's scratch (dh) shows it
+        # only where g W2^T is not 0, and with bf16 operands that sum can
+        # cancel to an exact 0
+        kmask = _ffn_fwd_hidden(x.reshape(-1, d), w1, b1, w2) > 0
+        n_flips, flip_max, pre_max = _relu_flips(x, w1, b1, kmask)
+        wfg = _ffn_bwd_with_mask(x, w1, b1, w2, g, kmask)
+        single = _ffn_bwd_with_mask(x, w1, b1, w2, g, kmask, dh_bf16=True)
+        fo64, fg64 = _ffn_block_f64(x, w1, b1, w2, b2, g, kmask)
+        kflips = _fwd_bwd_mask_flips(x.reshape(-1, d), w1, b1, w2)
+        torch.cuda.synchronize()
+        repeat = torch.equal(fo[0], fo[1]) and all(
+            torch.equal(u, v) for u, v in zip(fg, fg2))
+        ffaults = {"dh as one bf16 term": not all(
+            _bf16_ulp_ok(u, w) for u, w in zip(single[:2], wfg[:2]))}
+        fgate, fratio = _bf16_ulps(fo[0], wfo), _f64_ratio(fo[0], wfo, fo64)
+        fbwd = [(n, _bf16_ulps(u, w), _f64_ratio(u, w, r))
+                for n, u, w, r in zip(("dx", "dw1", "db1", "dw2", "db2"),
+                                      fg, wfg, fg64)]
+        log(f"  ffn_block bf16 [{b},{t},{d}] F {f}: out {fgate[0]:.2f} ulps "
+            f"share {fgate[1]:.4f} ({_bf16_gate(fo[0], wfo)[0]:.3e} of the "
+            f"largest |plain|), {fratio:.2f}x the plain version's "
+            f"distance to float64; {kflips} units take one ReLU mask in "
+            f"the forward's hidden and the other in the backward's "
+            f"recompute; ffn_block_bwd {n_flips} of {kmask.numel()} ReLU "
+            f"units take the other mask than the plain recompute's, "
+            f"|pre-activation| at most {flip_max:.3e} (limit "
+            f"{FUSED_RTOL * pre_max:.3e}); with the plain masks pinned to "
+            f"the kernel's "
+            + ", ".join(f"{n} {gt[0]:.2f} ulps share {gt[1]:.4f} {r:.2f}x"
+                        for n, gt, r in fbwd)
+            + f"; the same bits twice {repeat}; planted faults fail "
+            f"{ffaults}")
+        assert fo[0].dtype == bf and _bf16_ulp_ok(fo[0], wfo) and fratio <= 2.0
+        for (n, gt, r), u, w in zip(fbwd, fg, wfg):
+            assert u.dtype == bf and _bf16_ulp_ok(u, w) and r <= 2.0, (n, gt, r)
+        assert kflips == 0, kflips
+        assert flip_max <= FUSED_RTOL * pre_max, (n_flips, flip_max)
+        assert repeat and all(ffaults.values()), (repeat, ffaults)
+        out["ffn_block"]["errs"].append(max_err(fo[0], wfo))
+        out["ffn_block"]["ratios"].append(fratio)
+        out["ffn_block_bwd"]["errs"].append(
+            max(max_err(u, w) for u, w in zip(fg, wfg)))
+        out["ffn_block_bwd"]["ratios"].append(max(r for *_, r in fbwd))
+        out["ffn_block_bwd"]["relu_flips"] = n_flips
+        del fo, wfo, fg, fg2, wfg, single, fo64, fg64, kmask
+
+    # times at the training shape, non-causal
+    a = {k: v.to(bf) for k, v in _fused_inputs(b, t, d, f, seed=110).items()}
+    x, g, wqkv, wo = a["x"], a["g"], a["wqkv"], a["wo"]
+    w1, b1, w2, b2 = a["w1"], a["b1"], a["w2"], a["b2"]
+    _, p = KAB._attention_block_launch(x, wqkv, wo, h, scale, False, True)
+    tracked = {k: v.detach().requires_grad_() for k, v in a.items()
+               if k != "g"}
+    attn_in = (tracked["x"], tracked["wqkv"], tracked["wo"])
+    ffn_in = tuple(tracked[k] for k in ("x", "w1", "b1", "w2", "b2"))
+    lib_attn = _lib_attention_block(*attn_in, h, scale)
+    lib_ffn = _lib_ffn(*ffn_in)
+    n_x, n_p, gemm = b * t * d, b * h * t * t, 2 * b * t * d
+    att = 2 * n_p * (d // h)  # one [T, T] x [T, Dh] product, all heads
+    cases = {
+        # x Wqkv 1 term, q k^T and P v split TF32 (3), ctx Wo 2
+        "attention_block": (
+            lambda: KAB._attention_block_launch(x, wqkv, wo, h, scale,
+                                                False, False),
+            lambda: KAB.attention_block_plain(x, wqkv, wo, h, scale, False),
+            lambda: _lib_attention_block(x, wqkv, wo, h, scale),
+            2 * (2 * n_x + 4 * d * d),
+            gemm * 3 * d + 3 * 2 * att + 2 * gemm * d,
+            "x Wqkv, cuBLAS; SDPA (flash); ctx Wo, cuBLAS"),
+        # qkv 1, ctx = P v 3, dWo 2, dctx 1, the five attention-stage
+        # products (dP and dq; dP^T, dv and dk) 3, dWqkv 2, dx 2
+        "attention_block_bwd": (
+            lambda: KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale),
+            lambda: KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h,
+                                                  scale),
+            lambda: torch.autograd.grad(lib_attn, attn_in, g,
+                                        retain_graph=True),
+            2 * (3 * n_x + 8 * d * d) + 4 * n_p,
+            gemm * 3 * d + 3 * att + 2 * gemm * d + gemm * d
+            + 5 * 3 * att + 2 * 2 * gemm * 3 * d,
+            "the autograd backward of that composition"),
+        # x W1 1, h W2 2
+        "ffn_block": (
+            lambda: KFF._ffn_block_launch(x, w1, b1, w2, b2),
+            lambda: KFF.ffn_block_plain(x, w1, b1, w2, b2),
+            lambda: _lib_ffn(x, w1, b1, w2, b2),
+            2 * (2 * n_x + 2 * d * f + f + d), gemm * f + 2 * gemm * f,
+            "addmm, relu, addmm (cuBLAS)"),
+        # hidden 1, dW2 2, dh 1, dW1 2, dx 2
+        "ffn_block_bwd": (
+            lambda: KFF.ffn_block_bwd(x, w1, b1, w2, g),
+            lambda: KFF.ffn_block_bwd_plain(x, w1, b1, w2, g),
+            lambda: torch.autograd.grad(lib_ffn, ffn_in, g,
+                                        retain_graph=True),
+            2 * (3 * n_x + 4 * d * f + 2 * f + d), 8 * gemm * f,
+            "the autograd backward of that composition"),
+    }
+    for name, (kern, plain, lib, nbytes, prods, label) in cases.items():
+        ms = time_ms(kern, iters=10)
+        plain_ms = time_ms(plain, iters=5)
+        lib_ms = time_ms(lib, iters=10)
+        bms, by = _bf16_bound_ms(nbytes, prods)
+        log(f"  {name} bf16 [{b},{t},{d}] H {h} F {f} non-causal: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library ({label}) "
+            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"{prods / 1e9:.2f} G products-as-run flops)")
+        out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, library_ms=lib_ms,
+                         library=f"composition: {label}",
+                         shape=[b, t, d, h, f])
+    res = {}
+    for name, e in out.items():
+        errs, ratios = e.pop("errs"), e.pop("ratios")
+        res[name] = dict(max_abs_err=max(errs), f64_ratio=max(ratios), **e)
+    return res
+
+
+def _amp_first_acts(main, op_type="attention"):
+    """The outputs of the first `op_type` op (encoder self-attention) and
     of the first causal one (decoder self-attention)."""
-    ops = [op for op in main.global_block.ops if op.type == "attention"]
+    ops = [op for op in main.global_block.ops if op.type == op_type]
     causal = next(op for op in ops if op.attrs.get("causal"))
     return [ops[0].outputs["Out"][0], causal.outputs["Out"][0]]
 
 
-def phase_train_bf16(card_name, card, seq_len, batch):
+def phase_train_bf16(card_name, card, seq_len, batch, fused=False):
     """Transformer-base's training program under amp.amp_guard(True)
     (bf16 AMP) at `seq_len` and `batch`: the bench's own settings at seq
     256 and batch 128 (vocab 32000, Adam under noam_decay(512, 8000),
     dropout 0), and seq 512 / batch 32 and 1024 / batch 16, where #5/#6
-    and #2-#4 run in bf16. Step-1 parity on the first 2 rows against the
-    port's CPU run under AMP: the two first attention ops' outputs (the
-    encoder's and the decoder's causal self-attention, on the kernels at
-    512 and 1024) within AMP_ACT_REL of the largest |CPU| in at most
-    AMP_ACT_SHARE of the elements, and the loss within LOSS_RTOL; the
-    control, the card's step with AMP off, must fail the activation
-    gate. Then the eager leg and the run_steps leg (`_train_steps`) under
-    AMP, the launches counted as predicted. Returns (launches by kernel,
+    and #2-#4 run in bf16; with `fused`, built with FUSE_KNOB set (the
+    bench's bench_transformer_fused: #10-#13 in bf16). Step-1 parity on
+    the first 2 rows against the port's CPU run under AMP: the two first
+    self-attention ops' outputs (the encoder's and the decoder's causal
+    one; attention ops, on the kernels at 512 and 1024, or attention_block
+    ops) within AMP_ACT_REL of the largest |CPU| in at most AMP_ACT_SHARE
+    of the elements, and the loss within LOSS_RTOL; the control, the
+    card's step with AMP off, must fail the activation gate, and so must,
+    fused, the card's step with the decoder's causal flag dropped. Then
+    the eager leg and the run_steps leg (`_train_steps`) under AMP, the
+    launches counted as predicted. Returns (launches by kernel,
     results)."""
-    tag = f"train bf16 T={seq_len} B={batch}"
-    s = _train_setup(tag, seq_len, batch)
+    tag = f"train bf16{' fused' if fused else ''} T={seq_len} B={batch}"
+    s = _train_setup(tag, seq_len, batch, fused=fused)
     main, gpu, cpu, fresh, small = (s[k] for k in ("main", "gpu", "cpu",
                                                    "fresh", "small"))
-    fetch = [s["cost"].name] + _amp_first_acts(main)
+    block = "attention_block" if fused else "attention"
+    fetch = [s["cost"].name] + _amp_first_acts(main, block)
     t0 = time.monotonic()
     with amp.amp_guard(True):
         ref = cpu.run(main, feed=small, fetch_list=fetch,
@@ -3274,7 +3602,7 @@ def phase_train_bf16(card_name, card, seq_len, batch):
     ctl_ok, ctl_loss, ctl_acts = gates(off)
     log(f"{tag} parity (2 rows, step 1, CPU under AMP {cpu_s:.1f} s): loss "
         f"card {float(got[0]):.7f} CPU {float(ref[0]):.7f} rel "
-        f"{loss:.3e} (tol {LOSS_RTOL:g}); first attention outputs "
+        f"{loss:.3e} (tol {LOSS_RTOL:g}); first {block} outputs "
         f"(encoder, decoder causal) {got[1].dtype}: "
         + ", ".join(f"rel {r:.3e} share {sh:.4f}" for r, sh in acts)
         + f" (tol {AMP_ACT_REL:.3e}, {AMP_ACT_SHARE}); control, AMP off "
@@ -3284,14 +3612,45 @@ def phase_train_bf16(card_name, card, seq_len, batch):
     assert got[1].dtype == torch.bfloat16 and off[1].dtype == torch.float32
     assert ok, (loss, acts)
     assert not ctl_ok, "the bf16 parity gate cannot see AMP switched off"
-    with amp.amp_guard(True):
-        counts, res = _train_steps(
-            tag, s, seq_len, batch,
-            _want_counts(**_train_per_step(s["ops"], seq_len)), card_name,
-            card)
-    res.update(parity_loss_rel_err=loss, parity_acts=acts,
+    res = dict(parity_loss_rel_err=loss, parity_acts=acts,
                control_loss_rel_err=ctl_loss, control_acts=ctl_acts)
-    return counts, res
+    ops = s["ops"]
+    if fused:
+        # the planted fault: the decoder's causal flag dropped on the card
+        dec = [op for op in main.global_block.ops
+               if op.type == block and op.attrs["causal"]]
+        for op in dec:
+            op.attrs["causal"] = False
+        try:
+            with amp.amp_guard(True):
+                bad = gpu.run(main, feed=small, fetch_list=fetch,
+                              scope=fresh(pf.CUDAPlace(0)),
+                              return_numpy=False)
+        finally:
+            for op in dec:
+                op.attrs["causal"] = True
+        bad_ok, bad_loss, bad_acts = gates(bad)
+        log(f"{tag} parity: planted fault, the decoder's causal flag "
+            f"dropped on the card ({len(dec)} ops): loss rel "
+            f"{bad_loss:.3e}, "
+            + ", ".join(f"rel {r:.3e} share {sh:.4f}" for r, sh in bad_acts)
+            + f", passes: {bad_ok}")
+        assert not bad_ok, "the bf16 parity gate cannot see the fault"
+        res.update(causal_dropped_loss_rel_err=bad_loss,
+                   causal_dropped_acts=bad_acts)
+        n_ab, n_ffn = ops.count("attention_block"), ops.count("ffn_block")
+        want = _want_counts(
+            xent_forward=1, xent_backward=1,
+            layer_norm=ops.count("layer_norm"), attention_block=2 * n_ab,
+            attention_block_bwd=n_ab, ffn_block=2 * n_ffn,
+            ffn_block_bwd=n_ffn)
+    else:
+        want = _want_counts(**_train_per_step(ops, seq_len))
+    with amp.amp_guard(True):
+        counts, steps = _train_steps(tag, s, seq_len, batch, want,
+                                     card_name, card)
+    steps.update(res)
+    return counts, steps
 
 
 def _dropout_mask_parity():
@@ -3463,54 +3822,295 @@ def phase_train_dropout(card_name, card, no_dropout):
                 **parity)
 
 
+def _recompute_program(dropout_rate=0.0, recompute=True, clip_norm=1e30):
+    """Transformer-base's training program at seq 256 built as
+    build_program builds it, with gradient clipping and weight decay:
+    transformer(checkpoints=ck) under
+    RecomputeOptimizer(Adam(noam_decay, regularization=L2Decay)) with
+    set_gradient_clip(GradientClipByGlobalNorm(clip_norm)); without
+    `recompute`, the same under Adam alone. Returns (main, startup,
+    cost)."""
+    seq_len, cfg = TRAIN_RUNS[0][0], TRAIN
+    main, startup = pf.Program(), pf.Program()
+    with pf.program_guard(main, startup):
+        src, tgt, label = (pf.layers.data(n, shape=[seq_len], dtype="int64")
+                           for n in ("src_ids", "tgt_ids", "label"))
+        ck = [] if recompute else None
+        cost, _ = transformer.transformer(
+            src, tgt, label, src_vocab=cfg["vocab"], tgt_vocab=cfg["vocab"],
+            max_len=max(seq_len, 256), d_model=cfg["d_model"],
+            n_heads=cfg["n_heads"], n_layers=cfg["n_layers"],
+            d_inner=cfg["d_inner"], dropout_rate=dropout_rate,
+            checkpoints=ck)
+        lr = pf.layers.learning_rate_scheduler.noam_decay(
+            cfg["d_model"], cfg["warmup_steps"])
+        opt = pf.optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.997,
+                                epsilon=1e-9,
+                                regularization=pf.L2Decay(RECOMPUTE_L2))
+        pf.set_gradient_clip(pf.GradientClipByGlobalNorm(clip_norm))
+        if recompute:
+            opt = pf.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(ck)
+        opt.minimize(cost)
+    return main, startup, cost
+
+
+def _clip_vars(main):
+    """(the global norm's var, the clip scale's var, the fill_constant op
+    that writes clip_norm) of the program's global-norm group."""
+    blk = main.global_block
+    gnorm = next(n for n in blk.vars if n.endswith("@GNORM"))
+    cn = next(op for op in blk.ops if op.type == "fill_constant"
+              and op.outputs["Out"][0] == gnorm + "@CN")
+    return gnorm, gnorm + "@SCALE", cn
+
+
+def _recomputed_dropout_masks(card_name):
+    """The recompute program at dropout 0.1, step 1 on 2 rows on the
+    card: the first dropout op's Mask against its recomputed clone's, and
+    the first attention op with dropout (P's dropout, drawn in the op)'s
+    Out against its clone's, which reads recomputed q, k and v: both
+    equal bit for bit when the clone draws its forward's mask."""
+    with unique_name.guard():
+        main, startup, cost = _recompute_program(DROPOUT_RATE)
+    ops = main.global_block.ops
+    fwd = [op for op in ops if op.attrs.get("op_role") != "backward"]
+    drop = next(op for op in fwd if op.type == "dropout")
+    attn = next(op for op in fwd if op.type == "attention"
+                and op.attrs.get("dropout_rate"))
+    pairs = []
+    for op, slot in ((drop, "Mask"), (attn, "Out")):
+        name = op.outputs[slot][0]
+        clone = next(c for c in ops if c is not op and c._uid == op._uid
+                     and c.type == op.type
+                     and c.outputs[slot][0].startswith(name + "@RECOMP"))
+        pairs += [name, clone.outputs[slot][0]]
+    startup.random_seed = SEED
+    exe, scope = pf.Executor(pf.CUDAPlace(0)), pf.Scope()
+    exe.run(startup, scope=scope)
+    rs = np.random.RandomState(SEED)
+    feed = {k: rs.randint(0, TRAIN["vocab"], (2, TRAIN_RUNS[0][0])).astype(
+        "int64") for k in ("src_ids", "tgt_ids", "label")}
+    got = exe.run(main, feed=feed, fetch_list=[cost] + pairs, scope=scope)
+    same = [bool(np.array_equal(got[1 + 2 * i], got[2 + 2 * i]))
+            for i in range(2)]
+    kept = float(got[1].mean())
+    log(f"train recompute dropout {DROPOUT_RATE}: {pairs[0]} and its "
+        f"recompute {pairs[1]} equal {same[0]} (kept {kept:.4f}); "
+        f"{pairs[2]} and its recompute {pairs[3]} equal {same[1]}; loss "
+        f"{float(got[0][0]):.6f} on {card_name}")
+    assert all(same) and 0.85 < kept < 0.95, (same, kept)
+    return dict(mask_equal=same[0], attention_out_equal=same[1], kept=kept)
+
+
+def phase_train_recompute(card_name, card):
+    """Phase 5's configuration (seq 256, batch 64, fp32) with activation
+    checkpointing, gradient clipping and weight decay
+    (`_recompute_program`): every layer's output a checkpoint, the rest
+    recomputed in the backward. The global-norm clip is set to CLIP_BELOW
+    of the smaller step-1 global gradient norm the card reads on 2 rows
+    and on the full batch. Step-1 parity on 2 rows against the port's CPU
+    run by phase 5's gates (the loss, the grads and Adam's first moment,
+    unpinned and with the CPU's FFN ReLU masks, forward and recomputed,
+    pinned to the card's); the clip scales on both (scale < 1). Then the
+    eager and run_steps legs (`_train_steps`: the captured replays within
+    STEPS_RTOL of the eager steps), and the same program without
+    recompute, eager, for its peak memory and losses; last, the dropout
+    variant's recomputed masks (`_recomputed_dropout_masks`). Returns
+    (launches by kernel, results)."""
+    seq_len, batch = TRAIN_RUNS[0]
+    tag = f"train recompute+clip+L2 T={seq_len} B={batch}"
+    s = _train_setup(tag, seq_len, batch, build=_recompute_program)
+    main, gpu, cpu, fresh = s["main"], s["gpu"], s["cpu"], s["fresh"]
+    ops, small, m1 = s["ops"], s["small"], s["m1"]
+    gnorm, scale_var, cn = _clip_vars(main)
+    n_ck = 2 * TRAIN["n_layers"]
+    log(f"{tag}: {ops.count('optimization_barrier')} optimization_barrier "
+        f"ops, {sum('@RECOMP' in n for op in main.global_block.ops for n in op.output_arg_names)} "
+        f"recomputed values, {n_ck} checkpoints; clip {gnorm}, weight decay "
+        f"L2 {RECOMPUTE_L2}")
+    # the step-1 global gradient norms, on 2 rows and on the full batch
+    norms = [float(gpu.run(main, feed=f, fetch_list=[gnorm],
+                           scope=fresh(pf.CUDAPlace(0)))[0][0])
+             for f in (small, s["feed"])]
+    clip_norm = CLIP_BELOW * min(norms)
+    cn.attrs["value"] = clip_norm
+
+    blk_ops = main.global_block.ops
+    relu_in = [op.inputs["X"][0] for op in blk_ops
+               if op.type == "relu" and op.attrs.get("op_role") != "backward"]
+    fetch = [s["cost"].name] + [g + "@GRAD" for g in TRAIN_GRADS] + \
+        [m1[g] for g in TRAIN_GRADS] + [gnorm, scale_var] + relu_in
+    k = len(TRAIN_GRADS)
+
+    def cpu_step(pin=None):
+        masks = None if pin is None else {
+            x: pre > 0 for x, pre in zip(relu_in, pin[3 + 2 * k:])}
+        with _relu_masks(masks):
+            return cpu.run(main, feed=small, fetch_list=fetch,
+                           scope=fresh(pf.CPUPlace()))
+
+    t0 = time.monotonic()
+    ref = cpu_step()
+    cpu_s = time.monotonic() - t0
+    got = gpu.run(main, feed=small, fetch_list=fetch,
+                  scope=fresh(pf.CUDAPlace(0)))
+    pinned = cpu_step(pin=got)
+    loss_err, grad_errs = _parity_errs(got, ref, TRAIN_GRADS)
+    pin_loss, pin_errs = _parity_errs(got, pinned, TRAIN_GRADS)
+    scales = [float(r[2 + 2 * k][0]) for r in (ref, got)]
+    log(f"{tag} parity (2 rows, step 1; CPU run {cpu_s:.1f} s): loss card "
+        f"{float(got[0][0]):.7f} CPU {float(ref[0][0]):.7f}, rel err "
+        f"{loss_err:.3e}, against the CPU with the card's ReLU masks "
+        f"{pin_loss:.3e} (tol {LOSS_RTOL:g}); global gradient norm card "
+        f"{norms[0]:.6f} (full batch {norms[1]:.6f}), CPU "
+        f"{float(ref[1 + 2 * k][0]):.6f}; clip_norm {clip_norm:.6f}, the "
+        f"clip's scale CPU {scales[0]:.6f} card {scales[1]:.6f}")
+    for g in TRAIN_GRADS:
+        log(f"{tag} parity: {g}@GRAD norm-wise {grad_errs[g][0]:.3e}, "
+            f"Moment1 {grad_errs[g][1]:.3e} (tol {TRAIN_GRADS[g]:g}); "
+            f"ReLU masks pinned: {pin_errs[g][0]:.3e}, Moment1 "
+            f"{pin_errs[g][1]:.3e} (tol {PINNED_GRADS[g]:g})")
+    assert np.isfinite(got[0]).all() and loss_err <= LOSS_RTOL, loss_err
+    assert pin_loss <= LOSS_RTOL, pin_loss
+    for g, tol in TRAIN_GRADS.items():
+        assert max(grad_errs[g]) <= tol, (g, grad_errs[g], tol)
+    for g, tol in PINNED_GRADS.items():
+        assert max(pin_errs[g]) <= tol, (g, pin_errs[g], tol)
+    assert all(x < 1 for x in scales), f"the clip did not scale: {scales}"
+
+    # the main path; the loss head (the tail after the last checkpoint)
+    # is recomputed too, so xent_forward launches twice a step
+    counts, res = _train_steps(tag, s, seq_len, batch, _want_counts(
+        xent_forward=ops.count("softmax_with_cross_entropy"),
+        xent_backward=1, layer_norm=ops.count("layer_norm")), card_name,
+        card)
+    # the same program without recompute, eager, from the same weights
+    with unique_name.guard():
+        plain, _, plain_cost = _recompute_program(recompute=False,
+                                                  clip_norm=clip_norm)
+    scope = fresh(pf.CUDAPlace(0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain_losses, plain_times = [], []
+    for _ in range(3):
+        t0 = time.monotonic()
+        plain_losses.append(float(gpu.run(plain, feed=s["feed"],
+                                          fetch_list=[plain_cost],
+                                          scope=scope)[0][0]))
+        torch.cuda.synchronize()
+        plain_times.append(time.monotonic() - t0)
+    plain_peak = torch.cuda.max_memory_allocated()
+    del scope
+    same = max(abs(a - b) / abs(b)
+               for a, b in zip(res["losses"], plain_losses))
+    log(f"{tag}: eager peak allocated {res['peak_memory_bytes'] / 2 ** 30:.2f}"
+        f" GiB with recompute against {plain_peak / 2 ** 30:.2f} GiB "
+        f"without (the same program and weights; "
+        f"{1 - res['peak_memory_bytes'] / plain_peak:.3f} less); eager step "
+        f"{res['step_ms']:.1f} ms against {min(plain_times[1:]) * 1e3:.1f} "
+        f"ms without; run_steps step {res['run_steps']['step_ms']:.1f} ms; "
+        f"losses without recompute "
+        + ", ".join(f"{x:.6f}" for x in plain_losses)
+        + f", rel err against the recompute leg's {same:.3e} on {card_name} "
+        f"({card})")
+    assert res["peak_memory_bytes"] < plain_peak
+    assert same <= LOSS_RTOL, same
+    res.update(loss_rel_err=loss_err,
+               grad_errs={g: e[0] for g, e in grad_errs.items()},
+               moment1_errs={g: e[1] for g, e in grad_errs.items()},
+               pinned_loss_rel_err=pin_loss,
+               pinned_errs={g: e[0] for g, e in pin_errs.items()},
+               global_norms=norms, clip_norm=clip_norm, clip_scales=scales,
+               no_recompute_peak_memory_bytes=plain_peak,
+               no_recompute_step_ms=min(plain_times[1:]) * 1e3,
+               no_recompute_losses=plain_losses,
+               dropout=_recomputed_dropout_masks(card_name))
+    return counts, res
+
+
 def main():
     t_start = time.monotonic()
+
+    def phase(name):
+        log(f"phase {name} at {time.monotonic() - t_start:.1f} s")
+
     name, count, card = phase_device()
-    log("phase build")
+    phase("build")
     phase_build()
-    log("phase kernels")
+    phase("kernels")
     entries = phase_kernels()
-    log("phase lookup_table")
+    phase("lookup_table")
     phase_lookup_table()
-    log("phase step key")
+    phase("step key")
     phase_step_key()
-    log("phase slice")
+    phase("slice")
     served_launches, served = phase_slice(name, card)
     trained_launches = dict.fromkeys(KERNEL_META, 0)
     trained = {}
     for seq_len, batch in TRAIN_RUNS:
-        log(f"phase train T={seq_len}")
+        phase(f"train T={seq_len}")
         counts, trained[seq_len] = phase_train(name, card, seq_len, batch)
         trained[seq_len]["launches"] = counts
         for kname, n in counts.items():
             trained_launches[kname] += n
-    log(f"phase train T={TRAIN_RUNS[0][0]} B={BENCH_BATCH}")
+    phase(f"train T={TRAIN_RUNS[0][0]} B={BENCH_BATCH}")
     counts, trained["bench_batch"] = phase_train_bench_batch(name, card)
     trained["bench_batch"]["launches"] = counts
     for kname, n in counts.items():
         trained_launches[kname] += n
     bf16_launches = dict.fromkeys(KERNEL_META, 0)
     for seq_len, batch in BF16_RUNS:
-        log(f"phase train bf16 T={seq_len} B={batch}")
+        phase(f"train bf16 T={seq_len} B={batch}")
         counts, res = phase_train_bf16(name, card, seq_len, batch)
         res["launches"] = counts
         trained[f"bf16_{seq_len}"] = res
         for kname, n in counts.items():
             trained_launches[kname] += n
             bf16_launches[kname] += n
-    for kname, e in entries.items():
-        if "bf16" in e and kname in bf16_launches:
-            e["bf16"]["launches"] = bf16_launches[kname]
-    log("phase train dropout")
+    phase("train dropout")
     trained["dropout"] = phase_train_dropout(name, card,
                                              trained[TRAIN_RUNS[0][0]])
-    log("phase train fused")
+    phase("train fused")
     counts, trained["fused"] = phase_train_fused(name, card,
                                                  trained[TRAIN_RUNS[0][0]])
     trained["fused"]["launches"] = counts
     for kname, n in counts.items():
         trained_launches[kname] += n
-    log("phase paged serve")
+    seq_len, batch = BF16_RUNS[0]
+    phase(f"train bf16 fused T={seq_len} B={batch}")
+    counts, res = phase_train_bf16(name, card, seq_len, batch, fused=True)
+    res["launches"] = counts
+    trained["bf16_fused"] = res
+    for kname, n in counts.items():
+        trained_launches[kname] += n
+        bf16_launches[kname] += n
+    unfused, fp32 = trained[f"bf16_{seq_len}"], trained["fused"]
+    log(f"train bf16 fused T={seq_len} B={batch}: run_steps step "
+        f"{res['run_steps']['step_ms']:.1f} ms, eager "
+        f"{res['step_ms']:.1f} ms, idle share "
+        f"{res['run_steps']['profile']['idle_share']} (eager "
+        f"{res['profile']['idle_share']}), peak allocated "
+        f"{res['peak_memory_bytes'] / 2 ** 30:.2f} GiB eager, "
+        f"{res['run_steps']['capture_peak_memory_bytes'] / 2 ** 30:.2f} GiB "
+        f"the capturing call; beside the unfused bf16 leg at the same "
+        f"settings: {unfused['run_steps']['step_ms']:.1f} ms, eager "
+        f"{unfused['step_ms']:.1f} ms, "
+        f"{unfused['peak_memory_bytes'] / 2 ** 30:.2f} GiB, and the fp32 "
+        f"fused leg (T={TRAIN_RUNS[0][0]} B={TRAIN_RUNS[0][1]}): "
+        f"{fp32['run_steps']['step_ms']:.1f} ms, eager "
+        f"{fp32['step_ms']:.1f} ms, "
+        f"{fp32['peak_memory_bytes'] / 2 ** 30:.2f} GiB on {name} ({card})")
+    for kname, e in entries.items():
+        if "bf16" in e and kname in bf16_launches:
+            e["bf16"]["launches"] = bf16_launches[kname]
+    phase("train recompute")
+    counts, trained["recompute"] = phase_train_recompute(name, card)
+    trained["recompute"]["launches"] = counts
+    for kname, n in counts.items():
+        trained_launches[kname] += n
+    phase("paged serve")
     paged_launches, paged = phase_paged(name, card)
     line = []
     for kname, (src, replaces) in KERNEL_META.items():

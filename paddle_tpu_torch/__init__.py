@@ -10,18 +10,25 @@ hot paths through CUDA kernels written for Hopper (ops/kernels/).
     exe = fluid.Executor(fluid.CPUPlace())  # host, plain versions
 
 Training follows the reference's flow: build with ``layers``, call
-``fluid.optimizer.Adam(...).minimize(loss)`` (append_backward plus the
-optimizer ops), run the startup program, then ``exe.run(main, feed,
+``fluid.optimizer.Adam(...).minimize(loss)`` (append_backward, the
+gradient clips of ``clip`` and the weight decay of ``regularizer``, then
+the optimizer ops; ``optimizer.RecomputeOptimizer`` for activation
+checkpointing), run the startup program, then ``exe.run(main, feed,
 fetch_list)`` once per step, or ``exe.run_steps(main, feed, fetch_list,
 steps=K)`` for K steps at once (on the card, one step captured in a CUDA
 graph and replayed).
 """
 from . import ops  # noqa: F401  (registers every op)
-from . import backward, layers, optimizer, unique_name  # noqa: F401
+from . import (backward, clip, layers, optimizer,  # noqa: F401
+               regularizer, unique_name)
 from .core.executor import CPUPlace, CUDAPlace, Executor, seed  # noqa: F401
 from .core.program import (Program, default_main_program,  # noqa: F401
                            default_startup_program, program_guard)
 from .core.scope import (Scope, _reset_global_scope,  # noqa: F401
                          global_scope, scope_guard)
+from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,  # noqa: F401
+                   GradientClipByNorm, GradientClipByValue,
+                   set_gradient_clip)
 from .param_attr import ParamAttr  # noqa: F401
+from .regularizer import L1Decay, L2Decay  # noqa: F401
 from .weights import load_numpy_params, scope_to_numpy  # noqa: F401

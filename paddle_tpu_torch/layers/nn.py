@@ -17,7 +17,8 @@ __all__ = [
     "elementwise_sub", "elementwise_mul", "elementwise_max",
     "elementwise_min", "softmax_with_cross_entropy", "mean",
     "attention_block", "ffn_block", "gather", "expand",
-    "masked_pool_write", "paged_decode_attention", "dropout",
+    "masked_pool_write", "paged_decode_attention", "dropout", "clip",
+    "clip_by_norm", "elementwise_div",
 ]
 
 
@@ -206,6 +207,16 @@ def relu(x, name=None):
     return _single("relu", x, name=name)
 
 
+def clip(x, min, max, name=None):
+    """x limited to [min, max]."""
+    return _single("clip", x, {"min": min, "max": max}, name=name)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    """x scaled down to L2 norm max_norm where its norm is larger."""
+    return _single("clip_by_norm", x, {"max_norm": max_norm}, name=name)
+
+
 def _make_elementwise(op_type):
     def layer(x, y, axis=-1, act=None, name=None):
         helper = LayerHelper(op_type, input=x, act=act, name=name)
@@ -221,6 +232,7 @@ def _make_elementwise(op_type):
 elementwise_add = _make_elementwise("elementwise_add")
 elementwise_sub = _make_elementwise("elementwise_sub")
 elementwise_mul = _make_elementwise("elementwise_mul")
+elementwise_div = _make_elementwise("elementwise_div")
 elementwise_max = _make_elementwise("elementwise_max")
 elementwise_min = _make_elementwise("elementwise_min")
 

@@ -8,8 +8,9 @@ the training program ``build_program``. Parameter names are the JAX
 package's explicit ones, so weights carry over between the two packages
 by name. A nonzero dropout rate outside is_test adds the JAX package's
 dropout ops: after the embeddings, on each attention's P, on the FFN
-hidden and before each add-norm, all ``upscale_in_train``. The recompute
-option belongs to a later slice.
+hidden and before each add-norm, all ``upscale_in_train``.
+``build_program(recompute=True)`` keeps each layer's output as a
+checkpoint and recomputes the rest in the backward (RecomputeOptimizer).
 
 PADDLE_TPU_FUSE_ATTN_BLOCK=1, read at build time as in the JAX package,
 builds each self-attention sub-layer of a training program (not is_test,
@@ -172,21 +173,26 @@ def _embed(ids, vocab_size, d_model, max_len, dropout_rate, is_test,
 def transformer(src_ids, tgt_ids, label, src_vocab=30000, tgt_vocab=30000,
                 max_len=256, d_model=512, n_heads=8, n_layers=6,
                 d_inner=2048, dropout_rate=0.1, is_test=False,
-                label_smooth_eps=0.1, name_prefix=""):
+                label_smooth_eps=0.1, checkpoints=None, name_prefix=""):
     """Returns (avg_cost, logits). src_ids/tgt_ids: [B,T] int64; label:
-    [B,T] int64 next-token targets. ``name_prefix`` prefixes every
-    parameter name."""
+    [B,T] int64 next-token targets. When `checkpoints` is a list, each
+    layer's output is appended to it (for RecomputeOptimizer).
+    ``name_prefix`` prefixes every parameter name."""
     p = name_prefix
     enc = _embed(src_ids, src_vocab, d_model, max_len, dropout_rate,
                  is_test, f"{p}src_word_emb")
     for li in range(n_layers):
         enc = encoder_layer(enc, d_model, n_heads, d_inner, dropout_rate,
                             is_test, name=f"{p}enc{li}")
+        if checkpoints is not None:
+            checkpoints.append(enc)
     dec = _embed(tgt_ids, tgt_vocab, d_model, max_len, dropout_rate,
                  is_test, f"{p}tgt_word_emb")
     for li in range(n_layers):
         dec = decoder_layer(dec, enc, d_model, n_heads, d_inner,
                             dropout_rate, is_test, name=f"{p}dec{li}")
+        if checkpoints is not None:
+            checkpoints.append(dec)
     logits = layers.fc(dec, tgt_vocab, num_flatten_dims=2, bias_attr=False,
                        param_attr=f"{p}logits.w")
     # smoothing fused into the loss: never an [B,T,V] one-hot
@@ -199,12 +205,13 @@ def transformer(src_ids, tgt_ids, label, src_vocab=30000, tgt_vocab=30000,
 def build_program(batch_size=None, seq_len=64, d_model=512, n_heads=8,
                   n_layers=6, d_inner=2048, vocab=30000, learning_rate=2.0,
                   warmup_steps=4000, with_optimizer=True, dropout_rate=0.1,
-                  name_prefix=""):
+                  recompute=False, name_prefix=""):
     """(main, startup, avg_cost): the training program, fed src_ids,
     tgt_ids and label ([B, seq_len] int64), with Adam (beta1 0.9, beta2
-    0.997, eps 1e-9) under noam_decay(d_model, warmup_steps). As in the
-    JAX package, noam_decay sets the rate and `learning_rate` is not
-    read."""
+    0.997, eps 1e-9) under noam_decay(d_model, warmup_steps); with
+    `recompute`, inside a RecomputeOptimizer that keeps every layer's
+    output and recomputes the rest. As in the JAX package, noam_decay sets
+    the rate and `learning_rate` is not read."""
     import paddle_tpu_torch as fluid
 
     main = fluid.Program()
@@ -213,15 +220,19 @@ def build_program(batch_size=None, seq_len=64, d_model=512, n_heads=8,
         src = layers.data("src_ids", shape=[seq_len], dtype="int64")
         tgt = layers.data("tgt_ids", shape=[seq_len], dtype="int64")
         label = layers.data("label", shape=[seq_len], dtype="int64")
+        ck = [] if recompute else None
         avg_cost, _ = transformer(
             src, tgt, label, src_vocab=vocab, tgt_vocab=vocab,
             max_len=max(seq_len, 256), d_model=d_model, n_heads=n_heads,
             n_layers=n_layers, d_inner=d_inner, dropout_rate=dropout_rate,
-            name_prefix=name_prefix)
+            checkpoints=ck, name_prefix=name_prefix)
         if with_optimizer:
             lr = layers.learning_rate_scheduler.noam_decay(d_model,
                                                            warmup_steps)
             opt = fluid.optimizer.Adam(learning_rate=lr, beta1=0.9,
                                        beta2=0.997, epsilon=1e-9)
+            if recompute:
+                opt = fluid.optimizer.RecomputeOptimizer(opt)
+                opt._set_checkpoints(ck)
             opt.minimize(avg_cost)
     return main, startup, avg_cost

@@ -65,14 +65,25 @@ def require_cuda_inputs(name, tensors, dtypes):
             raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def require_fp32_block(name, x):
-    """The fused-block kernels (#10-#13) have no bf16 instance yet: a
-    bf16 call on the card raises instead of computing the composition."""
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{name}: the bf16 kernel is not ported yet; run the fused "
-            f"program in fp32 (outside amp_guard), or build it without "
-            f"PADDLE_TPU_FUSE_ATTN_BLOCK")
+def require_block_inputs(name, tensors, fp32=()):
+    """The fused-block kernels' (#10-#13) checks: `tensors` all fp32 or
+    all bf16 (x's dtype, the first's), `fp32` (a saved P) fp32, each
+    contiguous and on one device; bf16 ones (the products' operands: not
+    a bias) 16-byte aligned, since the kernels stage bf16 rows in 16-byte
+    copies only."""
+    dtype = tensors[0].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {dtype} is neither float32 nor "
+                        f"bfloat16")
+    if dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: bf16 inputs must start on a 16-byte "
+                         f"boundary")
+    for t in fp32:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype} of the saved P is "
+                            f"not float32")
+    require_cuda_inputs(name, tensors, (dtype,))
+    require_cuda_inputs(name, (*tensors, *fp32), (dtype, torch.float32))
 
 
 def on_card(fn, primal, *args):

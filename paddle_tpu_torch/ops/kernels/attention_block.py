@@ -12,9 +12,17 @@ into H heads of D/H; no projection biases, no residual. On the card
 ``attention_block`` is differentiable, as the JAX package's
 ``custom_vjp`` is: under a vjp the forward kernel also writes the
 normalized P, and the backward kernel takes the gradients from it with no
-exp. P is fp32 (the TPU kernel saves bf16, which the port's 1e-5
-gradient parity would not hold). The primal call, as the Executor's
-forward op makes it under ``no_grad``, writes no P.
+exp. P is fp32, for bf16 inputs too (the TPU kernel saves bf16, which
+the port's 1e-5 gradient parity would not hold; at Transformer-base's
+width the JAX package's gate refuses its kernel and it differentiates
+`attention_block_reference`, whose P is fp32). The primal call, as the
+Executor's forward op makes it under ``no_grad``, writes no P.
+
+bf16 (as AMP calls the op: it is on the WHITE list): x, Wqkv, Wo and g
+bf16, every product computed in fp32 and the intermediates (qkv, ctx, P,
+dctx, dqkv) kept fp32, as the TPU kernel upcasts; out, dx and the weight
+gradients rounded once to bf16. The plain versions compute the same
+contract and stay the CPU path.
 
 Where the kernels run: ``usable`` keeps the reference's structural
 conditions (3-D x, Wqkv [D, 3D], D % H == 0, 8 <= T <= 512, T % 8 == 0,
@@ -37,13 +45,13 @@ import functools
 import torch
 
 from . import (check_launch, current_stream, masked_logits, on_card,
-               require_cuda_inputs, require_fp32_block, storage_tensor)
+               require_block_inputs, storage_tensor)
 
 MAX_T = 512
 MAX_HEAD_DIM = 128
 # the backward's weight gradients' row slices (tile_mma.cuh), 16 MB
 WORKSPACE_FLOATS = 1 << 22
-# the dtypes the JAX package's gate takes; the kernels take fp32 only
+# the dtypes the JAX package's gate takes, and the kernels
 BLOCK_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -113,12 +121,14 @@ def attention_block_bwd_plain(x, wqkv, wo, p, g, n_heads, scale,
 
 
 @functools.cache
-def _kernel(entry, n_ptrs, with_workspace):
-    """The C entry point `entry` with its signature declared: (`n_ptrs`
-    pointers, [workspace size,] b, t, d, h, scale, causal, stream)."""
+def _kernel(entry, n_ptrs, with_workspace, dtype=torch.float32):
+    """The C entry point `entry` (its `_bf16` instance for bf16 `dtype`)
+    with its signature declared: (`n_ptrs` pointers, [workspace size,] b,
+    t, d, h, scale, causal, stream)."""
     from .build import library
 
-    fn = getattr(library("attention_block"), entry)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    fn = getattr(library("attention_block"), entry + suffix)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + (
         [ctypes.c_int64] if with_workspace else []) + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -126,22 +136,27 @@ def _kernel(entry, n_ptrs, with_workspace):
     return fn
 
 
-def _check(name, x, wqkv, wo, n_heads, more=(), shapes=()):
-    """The CUDA path's checks: fp32, contiguous, on x's device, the shapes
-    the kernels index them by and take."""
-    require_fp32_block(name, x)
-    require_cuda_inputs(name, (x, wqkv, wo, *more), (torch.float32,))
+def _check(name, x, wqkv, wo, n_heads, p=None, g=None):
+    """The CUDA path's checks: x, Wqkv, Wo (and g) all fp32 or all bf16, P
+    fp32, contiguous, on x's device, the shapes the kernels index them by
+    and take."""
+    require_block_inputs(name, (x, wqkv, wo) + ((g,) if g is not None
+                                                else ()),
+                         fp32=() if p is None else (p,))
     if not usable(x, wqkv, n_heads):
         raise ValueError(
             f"{name}: x {tuple(x.shape)}, wqkv {tuple(wqkv.shape)} with "
             f"{n_heads} heads: needs [B,T,D], [D,3D], 8 <= T <= {MAX_T}, "
             f"T % 8 == 0, D/H % 8 == 0, D/H <= {MAX_HEAD_DIM}")
-    b, _, d = x.shape
+    b, t, d = x.shape
     if b * n_heads > 65535:
         raise ValueError(f"{name}: B*H = {b * n_heads} > 65535")
-    for t, shape in ((wo, (d, d)), *zip(more, shapes)):
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: got shape {tuple(t.shape)}, "
+    shapes = [(wo, (d, d))]
+    if p is not None:
+        shapes += [(p, (b, n_heads, t, t)), (g, tuple(x.shape))]
+    for a, shape in shapes:
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{name}: got shape {tuple(a.shape)}, "
                              f"expected {tuple(shape)}")
 
 
@@ -163,9 +178,10 @@ def _attention_block_launch(x, wqkv, wo, n_heads, scale, causal, save_p):
     out = torch.empty_like(x)
     p = torch.empty(b, n_heads, t, t, dtype=torch.float32,
                     device=x.device) if save_p else None
-    qkv = x.new_empty(b * t, 3 * d)
-    ctx = x.new_empty(b * t, d)
-    err = _kernel("attention_block_fwd", 7, False)(
+    f32 = dict(dtype=torch.float32, device=x.device)
+    qkv = torch.empty(b * t, 3 * d, **f32)
+    ctx = torch.empty(b * t, d, **f32)
+    err = _kernel("attention_block_fwd", 7, False, x.dtype)(
         x.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), out.data_ptr(),
         0 if p is None else p.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
         b, t, d, n_heads, float(scale), int(bool(causal)), current_stream(x))
@@ -187,14 +203,14 @@ def attention_block_bwd(x, wqkv, wo, p, g, n_heads, scale, causal=False):
         raise ValueError(f"attention_block_bwd: no kernel for device "
                          f"{x.device}")
     b, t, d = x.shape
-    _check("attention_block_bwd", x, wqkv, wo, n_heads, (p, g),
-           ((b, n_heads, t, t), x.shape))
+    _check("attention_block_bwd", x, wqkv, wo, n_heads, p, g)
     dx, dwqkv, dwo = (torch.empty_like(a) for a in (x, wqkv, wo))
-    qkv, dqkv = x.new_empty(b * t, 3 * d), x.new_empty(b * t, 3 * d)
-    ctx, dctx = x.new_empty(b * t, d), x.new_empty(b * t, d)
-    rowsum = x.new_empty(b * n_heads, t)
-    ws = x.new_empty(WORKSPACE_FLOATS)
-    err = _kernel("attention_block_bwd", 14, True)(
+    f32 = dict(dtype=torch.float32, device=x.device)
+    qkv, dqkv = (torch.empty(b * t, 3 * d, **f32) for _ in range(2))
+    ctx, dctx = (torch.empty(b * t, d, **f32) for _ in range(2))
+    rowsum = torch.empty(b * n_heads, t, **f32)
+    ws = torch.empty(WORKSPACE_FLOATS, **f32)
+    err = _kernel("attention_block_bwd", 14, True, x.dtype)(
         *(a.data_ptr() for a in (x, wqkv, wo, p, g, dx, dwqkv, dwo, qkv, ctx,
                                  dctx, dqkv, rowsum, ws)),
         WORKSPACE_FLOATS, b, t, d, n_heads, float(scale), int(bool(causal)),

@@ -1,5 +1,5 @@
-// The whole self-attention sub-layer for Hopper (sm_90a), fp32: forward
-// and backward.
+// The whole self-attention sub-layer for Hopper (sm_90a), in fp32 and in
+// bf16: forward and backward.
 //
 // Replaces: paddle_tpu/ops/pallas/attention_block.py `_fwd_impl` (forward,
 // optionally saving P) and `_bwd_impl` (backward from the saved P), the
@@ -58,6 +58,18 @@
 //   T-wide row of dP. Here they read q, k and v inside the qkv rows and
 //   write each head's columns of dqkv; no atomics, so two launches give
 //   identical bits.
+// - bf16 (the `_bf16` entry points, as AMP calls the op: it is on the
+//   WHITE list): x, Wqkv, Wo and g are bf16 in memory and every product
+//   computes in fp32, as the TPU kernel upcasts them. The intermediates
+//   qkv, ctx, P, dctx and dqkv stay fp32, so the attention stages run
+//   their fp32 instances unchanged; P stays fp32 (the TPU kernel saves
+//   bf16; on Transformer-base's width its VMEM gate refuses the kernel and
+//   the JAX package differentiates `attention_block_reference`, whose P is
+//   fp32). out and dx are rounded once to bf16, the weight gradients are
+//   fp32 sums of row slices in a fixed order rounded once to bf16. Per
+//   product (tile_mma.cuh's element types): x Wqkv and g Wo^T take two
+//   bf16 operands, ctx Wo and dqkv Wqkv^T an fp32 and a bf16 one, x^T dqkv
+//   a bf16 and an fp32 one, ctx^T g an fp32 and a bf16 one; P v two fp32.
 // Dh is any multiple of 8 up to 128 (the backward's stages round it up to
 // 32, 64 or 128 and zero-fill the rest). Keeping qkv and ctx out of device
 // memory and wgmma are the later steps for speed.
@@ -165,70 +177,47 @@ cudaError_t attention_stage(const float* qkv, float* ctx, float* p,
                                                 lay, st));
 }
 
-}  // namespace
-
-// Forward. x [B*T, D], wqkv [D, 3D], wo [D, D], out [B*T, D]: fp32 device
-// pointers, contiguous, 16-byte aligned; p: fp32 [B, H, T, T] (8-byte
-// aligned), or null to skip it; qkv [B*T, 3D] and ctx [B*T, D]: scratch,
-// 16-byte aligned. T <= 512; D / H a multiple of 8 up to 128. Returns the
-// first CUDA error of the launches, or 1 (cudaErrorInvalidValue) for a
-// shape the kernels do not take.
-extern "C" int attention_block_fwd(const void* x, const void* wqkv,
-                                   const void* wo, void* out, void* p,
-                                   void* qkv, void* ctx, int b, int t, int d,
-                                   int h, float scale, int causal,
-                                   void* stream) {
+template <typename E>
+int fwd(const void* x, const void* wqkv, const void* wo, void* out, void* p,
+        void* qkv, void* ctx, int b, int t, int d, int h, float scale,
+        int causal, void* stream) {
   namespace tm = tile_mma;
   if (bad_shape(b, t, d, h)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Shape s = shape(b, t, d, h, scale, causal);
   float* qkvf = static_cast<float*>(qkv);
   float* ctxf = static_cast<float*>(ctx);
-  RETURN_IF(tm::gemm(false, false,
-                     tm::params(s.rows, 3 * d, d, static_cast<const float*>(x),
-                                d, static_cast<const float*>(wqkv), 3 * d,
-                                qkvf, 3 * d),
-                     1, nullptr, 0, st));
+  RETURN_IF((tm::gemm<false, false, tm::kNone, E, E, float>(
+      tm::params(s.rows, 3 * d, d, x, d, wqkv, 3 * d, qkvf, 3 * d), 1,
+      nullptr, 0, st)));
   float* pf = static_cast<float*>(p);
   RETURN_IF(s.dh <= 64 ? attention_stage<64>(qkvf, ctxf, pf, s, st)
                        : attention_stage<128>(qkvf, ctxf, pf, s, st));
-  return (int)tm::gemm(false, false,
-                       tm::params(s.rows, d, d, ctxf, d,
-                                  static_cast<const float*>(wo), d,
-                                  static_cast<float*>(out), d),
-                       1, nullptr, 0, st);
+  return (int)tm::gemm<false, false, tm::kNone, float, E, E>(
+      tm::params(s.rows, d, d, ctxf, d, wo, d, out, d), 1, nullptr, 0, st);
 }
 
-// Backward. x, g (the output's cotangent), dx [B*T, D]; wqkv, dwqkv [D,
-// 3D]; wo, dwo [D, D]; p [B, H, T, T] as the forward saved it: fp32 device
-// pointers, contiguous, 16-byte aligned. Scratch: qkv, dqkv [B*T, 3D];
-// ctx, dctx [B*T, D]; rowsum [B*H, T] (delta); ws (ws_floats values) for
-// the weight gradients' row slices, or null. Returns as
-// attention_block_fwd.
-extern "C" int attention_block_bwd(
-    const void* x, const void* wqkv, const void* wo, const void* p,
-    const void* g, void* dx, void* dwqkv, void* dwo, void* qkv, void* ctx,
-    void* dctx, void* dqkv, void* rowsum, void* ws, int64_t ws_floats, int b,
-    int t, int d, int h, float scale, int causal, void* stream) {
+template <typename E>
+int bwd(const void* x, const void* wqkv, const void* wo, const void* p,
+        const void* g, void* dx, void* dwqkv, void* dwo, void* qkv,
+        void* ctx, void* dctx, void* dqkv, void* rowsum, void* ws,
+        int64_t ws_floats, int b, int t, int d, int h, float scale,
+        int causal, void* stream) {
   namespace tm = tile_mma;
   if (bad_shape(b, t, d, h)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Shape s = shape(b, t, d, h, scale, causal);
   const int dh = s.dh;
-  const float* xf = static_cast<const float*>(x);
-  const float* wqkvf = static_cast<const float*>(wqkv);
   const float* pf = static_cast<const float*>(p);
-  const float* gf = static_cast<const float*>(g);
   float* qkvf = static_cast<float*>(qkv);
   float* ctxf = static_cast<float*>(ctx);
   float* dctxf = static_cast<float*>(dctx);
   float* dqkvf = static_cast<float*>(dqkv);
   float* wsf = static_cast<float*>(ws);
   // qkv = x Wqkv
-  RETURN_IF(tm::gemm(false, false,
-                     tm::params(s.rows, 3 * d, d, xf, d, wqkvf, 3 * d, qkvf,
-                                3 * d),
-                     1, nullptr, 0, st));
+  RETURN_IF((tm::gemm<false, false, tm::kNone, E, E, float>(
+      tm::params(s.rows, 3 * d, d, x, d, wqkv, 3 * d, qkvf, 3 * d), 1,
+      nullptr, 0, st)));
   // ctx = P v, one product per (b, h): P [T, T] times v [T, Dh] (row
   // stride 3D inside qkv), into the head's columns of ctx
   tm::Params pv = tm::params(t, dh, t, pf, t, qkvf + 2 * d, 3 * d, ctxf, d);
@@ -239,26 +228,76 @@ extern "C" int attention_block_bwd(
   pv.b_inner = dh;
   pv.c_outer = (int64_t)t * d;
   pv.c_inner = dh;
-  RETURN_IF(tm::gemm(false, false, pv, b * h, nullptr, 0, st));
+  RETURN_IF((tm::gemm<false, false, tm::kNone, float, float, float>(
+      pv, b * h, nullptr, 0, st)));
   // dWo = ctx^T g; dctx = g Wo^T
-  RETURN_IF(tm::gemm(true, false,
-                     tm::params(d, d, s.rows, ctxf, d, gf, d,
-                                static_cast<float*>(dwo), d),
-                     1, wsf, ws_floats, st));
-  RETURN_IF(tm::gemm(false, true,
-                     tm::params(s.rows, d, d, gf, d,
-                                static_cast<const float*>(wo), d, dctxf, d),
-                     1, nullptr, 0, st));
+  RETURN_IF((tm::gemm<true, false, tm::kNone, float, E, E>(
+      tm::params(d, d, s.rows, ctxf, d, g, d, dwo, d), 1, wsf, ws_floats,
+      st)));
+  RETURN_IF((tm::gemm<false, true, tm::kNone, E, E, float>(
+      tm::params(s.rows, d, d, g, d, wo, d, dctxf, d), 1, nullptr, 0, st)));
   // dq, dk, dv into dqkv, delta into rowsum
   float* delta = static_cast<float*>(rowsum);
   RETURN_IF(attention_stages(qkvf, pf, ctxf, dctxf, dqkvf, delta, s, st));
   // dWqkv = x^T dqkv; dx = dqkv Wqkv^T
-  RETURN_IF(tm::gemm(true, false,
-                     tm::params(d, 3 * d, s.rows, xf, d, dqkvf, 3 * d,
-                                static_cast<float*>(dwqkv), 3 * d),
-                     1, wsf, ws_floats, st));
-  return (int)tm::gemm(false, true,
-                       tm::params(s.rows, d, 3 * d, dqkvf, 3 * d, wqkvf,
-                                  3 * d, static_cast<float*>(dx), d),
-                       1, nullptr, 0, st);
+  RETURN_IF((tm::gemm<true, false, tm::kNone, E, float, E>(
+      tm::params(d, 3 * d, s.rows, x, d, dqkvf, 3 * d, dwqkv, 3 * d), 1, wsf,
+      ws_floats, st)));
+  return (int)tm::gemm<false, true, tm::kNone, float, E, E>(
+      tm::params(s.rows, d, 3 * d, dqkvf, 3 * d, wqkv, 3 * d, dx, d), 1,
+      nullptr, 0, st);
+}
+
+}  // namespace
+
+// Forward. x [B*T, D], wqkv [D, 3D], wo [D, D], out [B*T, D]: device
+// pointers, contiguous, 16-byte aligned, fp32 (`attention_block_fwd`) or
+// bf16 (`attention_block_fwd_bf16`); p: fp32 [B, H, T, T] (8-byte
+// aligned), or null to skip it; qkv [B*T, 3D] and ctx [B*T, D]: fp32
+// scratch, 16-byte aligned. T <= 512; D / H a multiple of 8 up to 128.
+// Returns the first CUDA error of the launches, or 1
+// (cudaErrorInvalidValue) for a shape the kernels do not take.
+extern "C" int attention_block_fwd(const void* x, const void* wqkv,
+                                   const void* wo, void* out, void* p,
+                                   void* qkv, void* ctx, int b, int t, int d,
+                                   int h, float scale, int causal,
+                                   void* stream) {
+  return fwd<float>(x, wqkv, wo, out, p, qkv, ctx, b, t, d, h, scale, causal,
+                    stream);
+}
+
+extern "C" int attention_block_fwd_bf16(const void* x, const void* wqkv,
+                                        const void* wo, void* out, void* p,
+                                        void* qkv, void* ctx, int b, int t,
+                                        int d, int h, float scale,
+                                        int causal, void* stream) {
+  return fwd<tile_mma::bf16>(x, wqkv, wo, out, p, qkv, ctx, b, t, d, h,
+                             scale, causal, stream);
+}
+
+// Backward. x, g (the output's cotangent), dx [B*T, D]; wqkv, dwqkv [D,
+// 3D]; wo, dwo [D, D]: device pointers, contiguous, 16-byte aligned, fp32
+// (`attention_block_bwd`) or bf16 (`attention_block_bwd_bf16`); p [B, H,
+// T, T] as the forward saved it, fp32. Scratch, fp32: qkv, dqkv [B*T, 3D];
+// ctx, dctx [B*T, D]; rowsum [B*H, T] (delta); ws (ws_floats values) for
+// the weight gradients' row slices, or null. Returns as
+// attention_block_fwd.
+extern "C" int attention_block_bwd(
+    const void* x, const void* wqkv, const void* wo, const void* p,
+    const void* g, void* dx, void* dwqkv, void* dwo, void* qkv, void* ctx,
+    void* dctx, void* dqkv, void* rowsum, void* ws, int64_t ws_floats, int b,
+    int t, int d, int h, float scale, int causal, void* stream) {
+  return bwd<float>(x, wqkv, wo, p, g, dx, dwqkv, dwo, qkv, ctx, dctx, dqkv,
+                    rowsum, ws, ws_floats, b, t, d, h, scale, causal,
+                    stream);
+}
+
+extern "C" int attention_block_bwd_bf16(
+    const void* x, const void* wqkv, const void* wo, const void* p,
+    const void* g, void* dx, void* dwqkv, void* dwo, void* qkv, void* ctx,
+    void* dctx, void* dqkv, void* rowsum, void* ws, int64_t ws_floats, int b,
+    int t, int d, int h, float scale, int causal, void* stream) {
+  return bwd<tile_mma::bf16>(x, wqkv, wo, p, g, dx, dwqkv, dwo, qkv, ctx,
+                             dctx, dqkv, rowsum, ws, ws_floats, b, t, d, h,
+                             scale, causal, stream);
 }

@@ -1,5 +1,5 @@
-// The whole position-wise MLP sub-layer for Hopper (sm_90a), fp32: forward
-// and backward.
+// The whole position-wise MLP sub-layer for Hopper (sm_90a), in fp32 and in
+// bf16: forward and backward.
 //
 // Replaces: paddle_tpu/ops/pallas/ffn_block.py `_fwd_impl` (forward) and
 // `_bwd_impl` (backward), the Pallas TPU kernels behind the `ffn_block` op
@@ -40,6 +40,15 @@
 //   weight gradients are one product over all N rows each, split along
 //   the rows into slices summed in a fixed order, and db1, db2 tile_mma.cuh's
 //   column sum in a fixed order: deterministic, no atomics.
+// - bf16 (the `_bf16` entry points, as AMP calls the op: it is on the
+//   WHITE list): x, the weights, the biases and g are bf16 in memory and
+//   every product computes in fp32, as the TPU kernel upcasts them; the
+//   hidden h and dh stay fp32 in device memory; out and dx are rounded
+//   once to bf16, and the weight and bias gradients are fp32 sums (the
+//   row slices and column chunks in a fixed order) rounded once to bf16.
+//   Per product (tile_mma.cuh's element types): x W1 and g W2^T take two
+//   bf16 operands, h W2 and dh W1^T an fp32 and a bf16 one, x^T dh a bf16
+//   and an fp32 one, h^T g an fp32 and a bf16 one.
 // Writing the hidden and reading it back costs about 0.08 ms of HBM time
 // against the forward's 1.03 ms fp32 bound; keeping it on chip needs one
 // kernel for both products with an output accumulator of [64-128 rows,
@@ -49,90 +58,117 @@
 
 namespace {
 
+namespace tm = tile_mma;
+using tm::bf16;
+
 #define RETURN_IF(err)                           \
   do {                                           \
     const cudaError_t e_ = (err);                \
     if (e_ != cudaSuccess) return (int)e_;       \
   } while (0)
 
-}  // namespace
-
-// h [n, f] = relu(x W1 + b1): the forward's hidden and the backward's
-// recompute, one code path so that the two have the same bits
-static cudaError_t hidden(const float* x, const float* w1, const float* b1,
-                          float* h, int64_t n, int d, int f,
-                          cudaStream_t st) {
-  tile_mma::Params p = tile_mma::params(n, f, d, x, d, w1, f, h, f);
+// h [n, f] = relu(x W1 + b1) in fp32: the forward's hidden and the
+// backward's recompute, one code path so that the two have the same bits
+template <typename E>
+cudaError_t hidden(const E* x, const E* w1, const E* b1, float* h,
+                   int64_t n, int d, int f, cudaStream_t st) {
+  tm::Params p = tm::params(n, f, d, x, d, w1, f, h, f);
   p.bias = b1;
-  return tile_mma::gemm<tile_mma::kBiasRelu>(false, false, p, 1, nullptr, 0,
-                                             st);
+  return tm::gemm<false, false, tm::kBiasRelu, E, E, float>(p, 1, nullptr, 0,
+                                                            st);
 }
 
-// Forward. x, out [n, d]; w1 [d, f]; b1 [f]; w2 [f, d]; b2 [d]: fp32
-// device pointers, contiguous; h [n, f]: scratch. Returns the first CUDA
-// error of the launches, or 1 (cudaErrorInvalidValue) for a shape the
-// kernels do not take.
+template <typename E>
+int fwd(const void* x, const void* w1, const void* b1, const void* w2,
+        const void* b2, void* out, void* h, int64_t n, int d, int f,
+        void* stream) {
+  if (n < 1 || d < 1 || f < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* hf = static_cast<float*>(h);
+  RETURN_IF(hidden(static_cast<const E*>(x), static_cast<const E*>(w1),
+                   static_cast<const E*>(b1), hf, n, d, f, st));
+  // out = h W2 + b2
+  tm::Params p = tm::params(n, d, f, hf, f, w2, d, out, d);
+  p.bias = b2;
+  return (int)tm::gemm<false, false, tm::kBias, float, E, E>(p, 1, nullptr,
+                                                             0, st);
+}
+
+template <typename E>
+int bwd(const void* x, const void* w1, const void* b1, const void* w2,
+        const void* g, void* dx, void* dw1, void* db1, void* dw2, void* db2,
+        void* h, void* ws, int64_t ws_floats, int64_t n, int d, int f,
+        void* stream) {
+  if (n < 1 || d < 1 || f < 1 || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const E* xe = static_cast<const E*>(x);
+  const E* ge = static_cast<const E*>(g);
+  float* hf = static_cast<float*>(h);
+  float* wsf = static_cast<float*>(ws);
+  // h = relu(x W1 + b1), recomputed
+  RETURN_IF(hidden(xe, static_cast<const E*>(w1), static_cast<const E*>(b1),
+                   hf, n, d, f, st));
+  // dW2 = h^T g; db2 = sum g
+  RETURN_IF((tm::gemm<true, false, tm::kNone, float, E, E>(
+      tm::params(f, d, n, hf, f, ge, d, dw2, d), 1, wsf, ws_floats, st)));
+  RETURN_IF(tm::colsum(ge, static_cast<E*>(db2), n, d, wsf, ws_floats, st));
+  // dh = (g W2^T) [h > 0], over h
+  tm::Params p = tm::params(n, f, d, ge, d, w2, d, hf, f);
+  p.mask = hf;
+  p.ldm = f;
+  RETURN_IF((tm::gemm<false, true, tm::kMask, E, E, float>(p, 1, nullptr, 0,
+                                                           st)));
+  // dW1 = x^T dh; db1 = sum dh; dx = dh W1^T
+  RETURN_IF((tm::gemm<true, false, tm::kNone, E, float, E>(
+      tm::params(d, f, n, xe, d, hf, f, dw1, f), 1, wsf, ws_floats, st)));
+  RETURN_IF(tm::colsum(static_cast<const float*>(hf), static_cast<E*>(db1),
+                       n, f, wsf, ws_floats, st));
+  return (int)tm::gemm<false, true, tm::kNone, float, E, E>(
+      tm::params(n, d, f, hf, f, w1, f, dx, d), 1, nullptr, 0, st);
+}
+
+}  // namespace
+
+// Forward. x, out [n, d]; w1 [d, f]; b1 [f]; w2 [f, d]; b2 [d]: device
+// pointers, contiguous, fp32 (`ffn_block_fwd`) or bf16
+// (`ffn_block_fwd_bf16`, 16-byte aligned); h [n, f]: fp32 scratch. Returns
+// the first CUDA error of the launches, or 1 (cudaErrorInvalidValue) for a
+// shape the kernels do not take.
 extern "C" int ffn_block_fwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* out,
                              void* h, int64_t n, int d, int f, void* stream) {
-  if (n < 1 || d < 1 || f < 1) return (int)cudaErrorInvalidValue;
-  namespace tm = tile_mma;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* hf = static_cast<float*>(h);
-  RETURN_IF(hidden(static_cast<const float*>(x),
-                   static_cast<const float*>(w1),
-                   static_cast<const float*>(b1), hf, n, d, f, st));
-  // out = h W2 + b2
-  tm::Params p = tm::params(n, d, f, hf, f, static_cast<const float*>(w2), d,
-                            static_cast<float*>(out), d);
-  p.bias = static_cast<const float*>(b2);
-  return (int)tm::gemm<tm::kBias>(false, false, p, 1, nullptr, 0, st);
+  return fwd<float>(x, w1, b1, w2, b2, out, h, n, d, f, stream);
+}
+
+extern "C" int ffn_block_fwd_bf16(const void* x, const void* w1,
+                                  const void* b1, const void* w2,
+                                  const void* b2, void* out, void* h,
+                                  int64_t n, int d, int f, void* stream) {
+  return fwd<bf16>(x, w1, b1, w2, b2, out, h, n, d, f, stream);
 }
 
 // Backward. x, g (the output's cotangent), dx [n, d]; w1, dw1 [d, f]; b1,
-// db1 [f]; w2, dw2 [f, d]; db2 [d]: fp32 device pointers, contiguous,
-// 16-byte aligned. Scratch: h [n, f]; ws (ws_floats values, at least f)
-// for the weight gradients' row slices and the column sums. Returns as
+// db1 [f]; w2, dw2 [f, d]; db2 [d]: device pointers, contiguous, 16-byte
+// aligned, fp32 (`ffn_block_bwd`) or bf16 (`ffn_block_bwd_bf16`).
+// Scratch, fp32: h [n, f]; ws (ws_floats values, at least f) for the
+// weight gradients' row slices and the column sums. Returns as
 // ffn_block_fwd.
 extern "C" int ffn_block_bwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* g, void* dx,
                              void* dw1, void* db1, void* dw2, void* db2,
                              void* h, void* ws, int64_t ws_floats, int64_t n,
                              int d, int f, void* stream) {
-  if (n < 1 || d < 1 || f < 1 || ws == nullptr)
-    return (int)cudaErrorInvalidValue;
-  namespace tm = tile_mma;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* w1f = static_cast<const float*>(w1);
-  const float* gf = static_cast<const float*>(g);
-  float* hf = static_cast<float*>(h);
-  float* wsf = static_cast<float*>(ws);
-  // h = relu(x W1 + b1), recomputed
-  RETURN_IF(
-      hidden(xf, w1f, static_cast<const float*>(b1), hf, n, d, f, st));
-  // dW2 = h^T g; db2 = sum g
-  RETURN_IF(tm::gemm(true, false,
-                     tm::params(f, d, n, hf, f, gf, d,
-                                static_cast<float*>(dw2), d),
-                     1, wsf, ws_floats, st));
-  RETURN_IF(
-      tm::colsum(gf, static_cast<float*>(db2), n, d, wsf, ws_floats, st));
-  // dh = (g W2^T) [h > 0], over h
-  tm::Params p =
-      tm::params(n, f, d, gf, d, static_cast<const float*>(w2), d, hf, f);
-  p.mask = hf;
-  p.ldm = f;
-  RETURN_IF(tm::gemm<tm::kMask>(false, true, p, 1, nullptr, 0, st));
-  // dW1 = x^T dh; db1 = sum dh; dx = dh W1^T
-  RETURN_IF(tm::gemm(true, false,
-                     tm::params(d, f, n, xf, d, hf, f,
-                                static_cast<float*>(dw1), f),
-                     1, wsf, ws_floats, st));
-  RETURN_IF(
-      tm::colsum(hf, static_cast<float*>(db1), n, f, wsf, ws_floats, st));
-  return (int)tm::gemm(false, true,
-                       tm::params(n, d, f, hf, f, w1f, f,
-                                  static_cast<float*>(dx), d),
-                       1, nullptr, 0, st);
+  return bwd<float>(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, h, ws,
+                    ws_floats, n, d, f, stream);
+}
+
+extern "C" int ffn_block_bwd_bf16(const void* x, const void* w1,
+                                  const void* b1, const void* w2,
+                                  const void* g, void* dx, void* dw1,
+                                  void* db1, void* dw2, void* db2, void* h,
+                                  void* ws, int64_t ws_floats, int64_t n,
+                                  int d, int f, void* stream) {
+  return bwd<bf16>(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, h, ws,
+                   ws_floats, n, d, f, stream);
 }

@@ -17,9 +17,13 @@ that refuses Transformer-base's width at every shape (D 512, F 2048: the
 weights alone take most of it; on a TPU the op then computes the
 reference composition). The kernels take any width, so on the card they
 run at full width, where the TPU would not run its own. The kernels take
-fp32 only: their bf16 instances are not ported yet, so on the card a bf16
-call (as AMP makes it: the op is on the WHITE list) raises
-NotImplementedError and never runs the plain version.
+fp32 and bf16 (every input of one dtype).
+
+bf16 (as AMP calls the op: it is on the WHITE list): x, the weights, the
+biases and g bf16, every product computed in fp32 and the hidden h and dh
+kept fp32, as the TPU kernel upcasts; out, dx and the weight and bias
+gradients rounded once to bf16. The plain versions compute the same
+contract and stay the CPU path.
 """
 from __future__ import annotations
 
@@ -28,12 +32,12 @@ import functools
 
 import torch
 
-from . import check_launch, current_stream, require_cuda_inputs, \
-    require_fp32_block, storage_tensor
+from . import check_launch, current_stream, require_block_inputs, \
+    require_cuda_inputs, storage_tensor
 
 # the weight gradients' row slices and the column sums (tile_mma.cuh)
 WORKSPACE_FLOATS = 1 << 22
-# the dtypes the JAX package's gate takes; the kernels take fp32 only
+# the dtypes the JAX package's gate takes, and the kernels
 BLOCK_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -67,12 +71,14 @@ def ffn_block_bwd_plain(x, w1, b1, w2, g):
 
 
 @functools.cache
-def _kernel(entry, n_ptrs, with_workspace):
-    """The C entry point `entry` with its signature declared: (`n_ptrs`
-    pointers, [workspace size,] rows, d, f, stream)."""
+def _kernel(entry, n_ptrs, with_workspace, dtype=torch.float32):
+    """The C entry point `entry` (its `_bf16` instance for bf16 `dtype`)
+    with its signature declared: (`n_ptrs` pointers, [workspace size,]
+    rows, d, f, stream)."""
     from .build import library
 
-    fn = getattr(library("ffn_block"), entry)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
+    fn = getattr(library("ffn_block"), entry + suffix)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + (
         [ctypes.c_int64] if with_workspace else []) + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -81,11 +87,13 @@ def _kernel(entry, n_ptrs, with_workspace):
 
 
 def _check(name, x, w1, b1, w2, last, last_is_bias):
-    """The CUDA path's checks: fp32, contiguous, on x's device, and the
-    shapes against x [..., D] and W1 [D, F]; `last` is b2 [D]
-    (`last_is_bias`) or g shaped like x. Returns (rows, D, F)."""
-    require_fp32_block(name, x)
-    require_cuda_inputs(name, (x, w1, b1, w2, last), (torch.float32,))
+    """The CUDA path's checks: all fp32 or all bf16, contiguous, on x's
+    device, and the shapes against x [..., D] and W1 [D, F]; `last` is b2
+    [D] (`last_is_bias`) or g shaped like x. Returns (rows, D, F)."""
+    biases = (b1, last) if last_is_bias else (b1,)
+    require_block_inputs(name, (x, w1, w2) + (() if last_is_bias
+                                              else (last,)))
+    require_cuda_inputs(name, (x, *biases), (x.dtype,))
     if w1.dim() != 2 or x.shape[-1] != w1.shape[0]:
         raise ValueError(f"{name}: x {tuple(x.shape)} and w1 "
                          f"{tuple(w1.shape)} are not [..., D] and [D, F]")
@@ -120,8 +128,8 @@ def _on_card(*args):
 def _ffn_block_launch(x, w1, b1, w2, b2):
     n, d, f = _check("ffn_block", x, w1, b1, w2, b2, True)
     out = torch.empty_like(x)
-    h = x.new_empty(n, f)
-    err = _kernel("ffn_block_fwd", 7, False)(
+    h = torch.empty(n, f, dtype=torch.float32, device=x.device)
+    err = _kernel("ffn_block_fwd", 7, False, x.dtype)(
         *(a.data_ptr() for a in (x, w1, b1, w2, b2, out, h)), n, d, f,
         current_stream(x))
     ffn_block.launches += 1
@@ -143,10 +151,11 @@ def ffn_block_bwd(x, w1, b1, w2, g):
     n, d, f = _check("ffn_block_bwd", x, w1, b1, w2, g, False)
     dx, dw1, db1, dw2 = (torch.empty_like(a) for a in (x, w1, b1, w2))
     db2 = x.new_empty(d)
-    h = x.new_empty(n, f)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    h = torch.empty(n, f, **f32)
     ws_floats = max(WORKSPACE_FLOATS, f)
-    ws = x.new_empty(ws_floats)
-    err = _kernel("ffn_block_bwd", 12, True)(
+    ws = torch.empty(ws_floats, **f32)
+    err = _kernel("ffn_block_bwd", 12, True, x.dtype)(
         *(a.data_ptr() for a in (x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, h,
                                  ws)), ws_floats, n, d, f, current_stream(x))
     ffn_block_bwd.launches += 1

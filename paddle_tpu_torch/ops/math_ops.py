@@ -1,8 +1,9 @@
 """Dense math, elementwise ops with fluid axis broadcasting, relu,
-rsqrt, reduce_sum, mean and comparisons: the port's subset of
-``paddle_tpu/ops/math_ops.py`` (reference mul_op.cc, matmul_op.cc,
-elementwise_op_function.h, activation_op.cc, reduce_ops/, mean_op.cc,
-compare_op.cc). Their grads come from the generic vjp maker.
+rsqrt, sqrt, sign, reduce_sum, squared_l2_norm, mean and comparisons:
+the port's subset of ``paddle_tpu/ops/math_ops.py`` (reference
+mul_op.cc, matmul_op.cc, elementwise_op_function.h, activation_op.cc,
+reduce_ops/, squared_l2_norm_op.cc, mean_op.cc, compare_op.cc). Their
+grads come from the generic vjp maker; sign has none.
 
 The matrix products go to ``torch.matmul``, as the JAX package leaves
 them to XLA; TF32 is off wherever the port runs on the card.
@@ -75,6 +76,7 @@ def _ew(fn):
 register_op("elementwise_add")(_ew(torch.add))
 register_op("elementwise_sub")(_ew(torch.sub))
 register_op("elementwise_mul")(_ew(torch.mul))
+register_op("elementwise_div")(_ew(torch.div))
 register_op("elementwise_min")(_ew(torch.minimum))
 register_op("elementwise_max")(_ew(torch.maximum))
 
@@ -87,6 +89,24 @@ def relu(ctx):
 @register_op("rsqrt")
 def rsqrt(ctx):
     return torch.rsqrt(ctx.input("X"))
+
+
+@register_op("sqrt")
+def sqrt(ctx):
+    return torch.sqrt(ctx.input("X"))
+
+
+@register_op("sign", differentiable=False)
+def sign(ctx):
+    """-1, 0 or 1 (0 at 0, as ``jnp.sign``)."""
+    return torch.sign(ctx.input("X"))
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm(ctx):
+    """The sum of squares of every element, shape [1]."""
+    x = ctx.input("X")
+    return torch.sum(x * x).reshape(1)
 
 
 @register_op("reduce_sum")

@@ -3,7 +3,7 @@
 fill_any_like_op.cc, uniform_random_op.cc, reshape_op.cc,
 transpose_op.cc, split_op.cc, sum_op.cc, cast_op.cc, assign_op.cc,
 scale_op.cc, range_op.cc, arg_max, gather_op.cc, expand_op.cc,
-...).
+clip_op.cc, clip_by_norm_op.cc, ...).
 
 Creation ops allocate on ``ctx.device``; at build time that is the meta
 device, so shape inference allocates nothing.
@@ -263,3 +263,24 @@ def expand(ctx):
     x = ctx.input("X")
     times = [int(t) for t in ctx.attr("expand_times")]
     return x.repeat(*[1] * (x.dim() - len(times)), *times)
+
+
+@register_op("clip")
+def clip(ctx):
+    """x limited to [min, max], as ``jnp.clip``: max(x, min) then min(.,
+    max), so at a bound the gradient splits half and half as JAX's does
+    (``torch.clamp`` passes all of it)."""
+    x = ctx.input("X")
+    lo = torch.full_like(x, ctx.attr("min"))
+    hi = torch.full_like(x, ctx.attr("max"))
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+@register_op("clip_by_norm")
+def clip_by_norm(ctx):
+    """x scaled by max_norm / |x| where its L2 norm exceeds max_norm; at
+    or below it (a zero x too), x itself."""
+    x = ctx.input("X")
+    max_norm = ctx.attr("max_norm")
+    norm = torch.sqrt(torch.sum(x * x))
+    return torch.where(norm > max_norm, x * (max_norm / norm), x)

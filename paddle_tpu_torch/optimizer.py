@@ -1,11 +1,12 @@
 """Optimizers (reference python/paddle/fluid/optimizer.py; the port's
-subset of paddle_tpu/optimizer.py: the Optimizer pipeline, SGD and Adam).
+subset of paddle_tpu/optimizer.py: the Optimizer pipeline, SGD, Adam and
+RecomputeOptimizer).
 
-minimize() = append_backward + one optimizer op per parameter, the
-reference's pipeline (optimizer.py:424). The optimizer ops name each
-parameter and accumulator as both input and output, so the Executor
-commits their new values to the scope. Gradient clipping and
-regularization are not ported yet and raise.
+minimize() = append_backward + gradient clipping + regularization + one
+optimizer op per parameter, the reference's pipeline (optimizer.py:424,
+303, 361, 212). The optimizer ops name each parameter and accumulator as
+both input and output, so the Executor commits their new values to the
+scope.
 """
 from __future__ import annotations
 
@@ -13,18 +14,20 @@ from collections import defaultdict
 
 from . import unique_name
 from .backward import append_backward
+from .clip import append_gradient_clip_ops, error_clip_callback
 from .core.program import Variable, default_main_program
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
+from .regularizer import append_regularization_ops
 
-__all__ = ["SGD", "Adam", "SGDOptimizer", "AdamOptimizer", "Optimizer"]
+__all__ = ["SGD", "Adam", "SGDOptimizer", "AdamOptimizer",
+           "RecomputeOptimizer", "Optimizer"]
 
 
 class Optimizer:
     def __init__(self, learning_rate, regularization=None, name=None):
-        if regularization is not None:
-            raise NotImplementedError("regularization is not ported yet")
         self._learning_rate = learning_rate
+        self.regularization = regularization
         self._name = name
         self._accumulators = defaultdict(dict)
         self._learning_rate_map = {}
@@ -85,16 +88,15 @@ class Optimizer:
     # --- pipeline (reference optimizer.py:424 minimize) -------------------
     def backward(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, callbacks=None):
-        return append_backward(loss, parameter_list, no_grad_set, callbacks)
+        return append_backward(loss, parameter_list, no_grad_set,
+                               callbacks or [error_clip_callback])
 
     def apply_gradients(self, params_grads):
+        """Clip, then regularize, then one optimizer op per pair."""
         params_grads = sorted(params_grads, key=lambda x: x[0].name)
-        for p, _ in params_grads:
-            if getattr(p, "error_clip", None) is not None \
-                    or getattr(p, "regularizer", None) is not None:
-                raise NotImplementedError(
-                    f"{p.name}: gradient clipping and regularization are "
-                    f"not ported yet")
+        params_grads = append_gradient_clip_ops(params_grads)
+        params_grads = append_regularization_ops(params_grads,
+                                                 self.regularization)
         return self._create_optimization_pass(params_grads)
 
     def _create_optimization_pass(self, parameters_and_grads):
@@ -164,6 +166,51 @@ class AdamOptimizer(Optimizer):
              "Beta1PowOut": b1p, "Beta2PowOut": b2p},
             {"beta1": self._beta1, "beta2": self._beta2,
              "epsilon": self._epsilon, "op_role": "optimize"})
+
+
+class RecomputeOptimizer(Optimizer):
+    """Activation checkpointing around another optimizer (``paddle_tpu``
+    optimizer.py RecomputeOptimizer): only the checkpoints given to
+    ``_set_checkpoints`` stay live from the forward into the backward;
+    the activations between them are recomputed in the backward region
+    (``backward._recompute_plan``). The inner optimizer clips,
+    regularizes and updates.
+
+        opt = RecomputeOptimizer(Adam(1e-3))
+        opt._set_checkpoints([layer1_out, layer2_out])
+        opt.minimize(loss)
+    """
+
+    def __init__(self, inner_optimizer):
+        # before super(): __getattr__ must never recurse on a half-built
+        # instance
+        self.__dict__["_inner"] = inner_optimizer
+        super().__init__(learning_rate=inner_optimizer._learning_rate,
+                         regularization=inner_optimizer.regularization)
+        self._checkpoints = None
+
+    def __getattr__(self, name):
+        # the wrapped optimizer's interface: accumulators, type, ...
+        inner = self.__dict__.get("_inner")
+        if inner is None:
+            raise AttributeError(name)
+        return getattr(inner, name)
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = list(checkpoints)
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        if not self._checkpoints:
+            raise ValueError(
+                "RecomputeOptimizer: call _set_checkpoints([...]) with the "
+                "activations to keep before minimize()")
+        return append_backward(loss, parameter_list, no_grad_set,
+                               callbacks or [error_clip_callback],
+                               checkpoints=self._checkpoints)
+
+    def apply_gradients(self, params_grads):
+        return self._inner.apply_gradients(params_grads)
 
 
 # fluid exposes both Foo and FooOptimizer names

@@ -290,13 +290,14 @@ FUSED_CASES = {
 
 
 @pytest.mark.parametrize("block", sorted(FUSED_CASES))
-def test_amp_fused_blocks_reach_their_wrappers_and_refuse_bf16_on_card(
+def test_amp_fused_blocks_reach_their_wrappers_in_bf16_and_launch_on_card(
         block, monkeypatch):
     """Under AMP the fused ops (WHITE list) get bf16 inputs and route to
-    their kernel wrappers, as the JAX package's gate takes bf16; the
-    wrappers' card path raises for bf16 (the kernels #10-#13 take fp32
-    only until their bf16 slice) before it builds or launches anything,
-    so the card never computes the composition in their place."""
+    their kernel wrappers, as the JAX package's gate takes bf16; on the
+    CPU the wrapper computes the plain version's contract (fp32
+    arithmetic, one rounding to bf16). Where a card is present, the
+    wrapper's card path launches the bf16 kernel (#10 or #12: the launch
+    counter moves) and never the plain version in its place."""
     from paddle_tpu_torch.core import registry as preg
     from paddle_tpu_torch.ops.kernels import attention_block as KAB
     from paddle_tpu_torch.ops.kernels import ffn_block as KFF
@@ -319,11 +320,25 @@ def test_amp_fused_blocks_reach_their_wrappers_and_refuse_bf16_on_card(
     assert seen == [torch.bfloat16]
     assert env["Out"].dtype == torch.bfloat16
     args = [env[n].to(torch.bfloat16) for n in shapes]
-    with pytest.raises(NotImplementedError, match="bf16 kernel"):
-        if block == "attention_block":
-            KAB._attention_block_launch(*args, 2, 0.25, True, False)
-        else:
-            KFF._ffn_block_launch(*args)
+    if block == "attention_block":
+        want = KAB.attention_block_plain(*args, 2, 0.25, True)
+    else:
+        want = KFF.ffn_block_plain(*args)
+    assert torch.equal(env["Out"], want)
+    if not torch.cuda.is_available():
+        return
+    launches = real.launches
+    cuda_args = [a.cuda() for a in args]
+    if block == "attention_block":
+        got = KAB._attention_block_launch(*cuda_args, 2, 0.25, True, False)
+    else:
+        got = KFF._ffn_block_launch(*cuda_args)
+    torch.cuda.synchronize()
+    assert real.launches == launches + 1
+    assert got.dtype == torch.bfloat16
+    # one bf16 rounding apart: at most an ulp of the element, 2^-7 of it
+    g, w = got.cpu().float(), want.float()
+    assert float((g - w).abs().max()) <= 2 ** -7 * float(w.abs().max())
 
 
 # --------------------------------------------------------------------------
