@@ -87,12 +87,18 @@ Phases (a failing phase fails the script; none is caught):
    masks pinned to the forward kernel's hidden, the flips bounded, no
    unit with two masks between #12 and #13), P fp32, the same bits on a second launch; planted faults (the
    attention_block forward with the causal flag dropped, the FFN
-   backward with dh as one bf16 term) must fail; each timed beside its
+   backward with dh as one bf16 term, the FFN with h as one bf16 term:
+   #12 and #13 keep h and dh as hi + lo bf16 planes on wgmma) must fail;
+   each timed beside its
    bound (bytes / 3.35 TB/s against the products as run, an fp32 operand
-   counting twice and two fp32 operands three times, / 989 TFLOP/s) and
+   counting twice and two fp32 operands three times, / 989 TFLOP/s), its
+   TFLOP/s as run and
    the library's composition in bf16 (cuBLAS products around
    F.scaled_dot_product_attention; addmm, relu, addmm), forward and
-   under autograd;
+   under autograd, #12 and #13 also at the bench's batch (x
+   [128,256,512]); the FFN kernels' ptxas registers and spills; their
+   engine's six operand layouts against float64 at a ragged shape and
+   at depth 32768, where one accumulator for all of k must fail;
    lookup_table: the op and its grad op on the card with ids out of
    range and negative, against the CPU (NaN rows in the same places, the
    same W@GRAD), then a kernel launch that must still run and agree: the
@@ -1030,9 +1036,10 @@ def _ffn_bwd_mask_flipped(x, w1, b1, w2, g, col):
 def _ffn_bwd_kernel(x, w1, b1, w2, g):
     """The FFN backward kernel (x's dtype's instance) through its C
     entry, with the fp32 scratch hidden kept: (the five grads, the ReLU
-    mask its recompute took). The scratch ends as dh = (g W2^T)[mask], so
-    the mask is dh != 0 wherever g W2^T is not 0, and where it is 0 dh
-    is 0 under either mask."""
+    mask its recompute took). The scratch ends as dh = (g W2^T)[mask]
+    (bf16: its hi and lo planes, read as hi + lo), so the mask is dh != 0
+    wherever g W2^T is not 0, and where it is 0 dh is 0 under either
+    mask."""
     d, f = w1.shape
     n = x.numel() // d
     grads = (torch.empty_like(x), torch.empty_like(w1), torch.empty_like(b1),
@@ -1042,7 +1049,17 @@ def _ffn_bwd_kernel(x, w1, b1, w2, g):
     assert KFF._kernel("ffn_block_bwd", 12, True, x.dtype)(
         *(z.data_ptr() for z in (x, w1, b1, w2, g, *grads, h, ws)),
         ws.numel(), n, d, f, torch.cuda.current_stream().cuda_stream) == 0
-    return grads, h != 0
+    return grads, _scratch_values(h, x.dtype) != 0
+
+
+def _scratch_values(h, dtype):
+    """The fp32 values the FFN kernels keep in their scratch h [n, f]:
+    fp32 itself, or (the bf16 instances) hi + lo of its two bf16
+    planes."""
+    if dtype != torch.bfloat16:
+        return h
+    hi, lo = KFF.scratch_planes(h, *h.shape)
+    return hi.float() + lo.float()
 
 
 def _relu_flips(x, w1, b1, mask):
@@ -1062,7 +1079,7 @@ def _relu_flips(x, w1, b1, mask):
 def _ffn_fwd_hidden(x, w1, b1, w2):
     """The FFN forward kernel's (#12, x's dtype's instance) fp32 hidden
     relu(x W1 + b1) for x [n, d], through its C entry, whose scratch
-    hidden is the caller's."""
+    hidden is the caller's (bf16: hi + lo of its two planes)."""
     n, d = x.shape
     f = w1.shape[1]
     h = torch.empty(n, f, device=x.device)
@@ -1070,7 +1087,7 @@ def _ffn_fwd_hidden(x, w1, b1, w2):
         *(z.data_ptr() for z in (x, w1, b1, w2, x.new_zeros(d),
                                  torch.empty_like(x), h)),
         n, d, f, torch.cuda.current_stream().cuda_stream) == 0
-    return h
+    return _scratch_values(h, x.dtype)
 
 
 def _fwd_bwd_mask_flips(x, w1, b1, w2):
@@ -3341,6 +3358,78 @@ def _ffn_block_f64(x, w1, b1, w2, b2, g, mask):
                  (torch.relu(pre) * mask).T @ g2, g2.sum(0))
 
 
+def _ffn_gate_ok(got, wfo, wfg, fo64, fg64):
+    """The bf16 FFN gate on (out, (dx, dw1, db1, dw2, db2)): each within
+    one ulp at its largest |plain| in at most BF16_SHARE of the elements
+    and no further from float64 than twice the plain version."""
+    out, grads = got
+    return all(_bf16_ulp_ok(u, w) and _f64_ratio(u, w, r) <= 2.0
+               for u, w, r in zip((out, *grads), (wfo, *wfg),
+                                  (fo64, *fg64)))
+
+
+# one product of the bf16 FFN kernels' engine against float64, over the
+# largest row-by-column sum of |products| (tests/test_torch_fused_bf16.py):
+# the engine's fresh accumulator every 256 terms keeps well inside it at
+# depth 32768; one wgmma accumulator over all of them must not (a control)
+PRODUCT_REL = 2 ** -21
+
+
+def _ffn_layouts():
+    """Each of the six operand layouts of the bf16 FFN kernels' products
+    (`KFF.PRODUCT_LAYOUTS`), unsplit into fp32, against float64 on the
+    operands' exact values, at a ragged shape (m 200, n 72, k 40) and at
+    the depth of a weight gradient at batch 128 before its split (k
+    32768); at that depth also with one accumulator for all of k, which
+    must fail. Returns {case: largest error}."""
+    res = {}
+    for m, n, k, group in ((200, 72, 40, 4), (128, 256, 32768, 4),
+                           (128, 256, 32768, 0)):
+        errs = []
+        for layout, (_, ta, tb, _, _) in enumerate(KFF.PRODUCT_LAYOUTS):
+            gen = torch.Generator(device="cuda").manual_seed(layout)
+            a = torch.randn(m, k, device="cuda", generator=gen)
+            b = torch.randn(k, n, device="cuda", generator=gen)
+            am, bm = KFF.layout_operands(layout, a, b)
+            got = KFF.product_bf16(layout, am, bm, m, n, k, group)
+            a64, b64 = am.double().sum(0), bm.double().sum(0)
+            a64, b64 = a64.T if ta else a64, b64 if tb else b64.T
+            errs.append(float((got.double() - a64 @ b64).abs().max())
+                        / float((a64.abs() @ b64.abs()).max()))
+            if layout == 0:  # torch.matmul's fp32 product, for scale
+                fp32 = float(((a64.float() @ b64.float()).double()
+                              - a64 @ b64).abs().max()) / float(
+                    (a64.abs() @ b64.abs()).max())
+        what = (f"a fresh accumulator every {64 * group} terms" if group
+                else "one accumulator (the control)")
+        log(f"  bf16 FFN engine's six operand layouts [m {m}, n {n}, k "
+            f"{k}], {what}, against float64: "
+            + ", ".join(f"{KFF.PRODUCT_LAYOUTS[i][0]} {e:.2e}"
+                        for i, e in enumerate(errs))
+            + f" of the largest sum |a b| (tol {PRODUCT_REL:.2e}; "
+            f"torch.matmul in fp32 on x W1's operands {fp32:.2e})")
+        if group:
+            assert max(errs) <= PRODUCT_REL, errs
+        else:
+            assert min(errs) > PRODUCT_REL, errs
+        res[f"k {k}" + ("" if group else ", one accumulator")] = (
+            max(errs) if group else min(errs))
+    return res
+
+
+def _wgmma_ptxas():
+    """ptxas's registers, spills and static shared memory for each
+    instance of the bf16 FFN kernels' product (ffn_block.cu's build)."""
+    out, name = {}, None
+    for line in build.PTXAS_LOG.get("ffn_block", "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            name = name if "wgmma_bf16" in name else None
+        elif name and ("registers" in line or "spill" in line):
+            out.setdefault(name, []).append(line.split(" : ")[-1].strip())
+    return {n: "; ".join(v) for n, v in out.items()}
+
+
 def _fused_bf16_entries():
     """#10-#13 on bf16 x, weights and g at the training shape (x
     [64,256,512], H 8, F 2048), causal and not for the attention block:
@@ -3439,13 +3528,21 @@ def _fused_bf16_entries():
         n_flips, flip_max, pre_max = _relu_flips(x, w1, b1, kmask)
         wfg = _ffn_bwd_with_mask(x, w1, b1, w2, g, kmask)
         single = _ffn_bwd_with_mask(x, w1, b1, w2, g, kmask, dh_bf16=True)
+        # the kernels' design on the plain side (h and dh as hi + lo bf16
+        # planes), and with h as one bf16 term: a planted fault
+        planes2 = KFF.ffn_block_planes_plain(x, w1, b1, w2, b2, g)
+        h_single = KFF.ffn_block_planes_plain(x, w1, b1, w2, b2, g,
+                                              h_terms=1)
         fo64, fg64 = _ffn_block_f64(x, w1, b1, w2, b2, g, kmask)
         kflips = _fwd_bwd_mask_flips(x.reshape(-1, d), w1, b1, w2)
         torch.cuda.synchronize()
         repeat = torch.equal(fo[0], fo[1]) and all(
             torch.equal(u, v) for u, v in zip(fg, fg2))
         ffaults = {"dh as one bf16 term": not all(
-            _bf16_ulp_ok(u, w) for u, w in zip(single[:2], wfg[:2]))}
+            _bf16_ulp_ok(u, w) for u, w in zip(single[:2], wfg[:2])),
+            "h as one bf16 term": not _ffn_gate_ok(h_single, wfo, wfg,
+                                                   fo64, fg64)}
+        planes_ok = _ffn_gate_ok(planes2, wfo, wfg, fo64, fg64)
         fgate, fratio = _bf16_ulps(fo[0], wfo), _f64_ratio(fo[0], wfo, fo64)
         fbwd = [(n, _bf16_ulps(u, w), _f64_ratio(u, w, r))
                 for n, u, w, r in zip(("dx", "dw1", "db1", "dw2", "db2"),
@@ -3463,7 +3560,8 @@ def _fused_bf16_entries():
             + ", ".join(f"{n} {gt[0]:.2f} ulps share {gt[1]:.4f} {r:.2f}x"
                         for n, gt, r in fbwd)
             + f"; the same bits twice {repeat}; planted faults fail "
-            f"{ffaults}")
+            f"{ffaults}; the plain version with h and dh as hi + lo "
+            f"planes (unpinned) passes the gate {planes_ok}")
         assert fo[0].dtype == bf and _bf16_ulp_ok(fo[0], wfo) and fratio <= 2.0
         for (n, gt, r), u, w in zip(fbwd, fg, wfg):
             assert u.dtype == bf and _bf16_ulp_ok(u, w) and r <= 2.0, (n, gt, r)
@@ -3476,7 +3574,7 @@ def _fused_bf16_entries():
             max(max_err(u, w) for u, w in zip(fg, wfg)))
         out["ffn_block_bwd"]["ratios"].append(max(r for *_, r in fbwd))
         out["ffn_block_bwd"]["relu_flips"] = n_flips
-        del fo, wfo, fg, fg2, wfg, single, fo64, fg64, kmask
+        del fo, wfo, fg, fg2, wfg, single, fo64, fg64, kmask, planes2, h_single
 
     # times at the training shape, non-causal
     a = {k: v.to(bf) for k, v in _fused_inputs(b, t, d, f, seed=110).items()}
@@ -3535,13 +3633,53 @@ def _fused_bf16_entries():
         lib_ms = time_ms(lib, iters=10)
         bms, by = _bf16_bound_ms(nbytes, prods)
         log(f"  {name} bf16 [{b},{t},{d}] H {h} F {f} non-causal: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library ({label}) "
+            f"{ms:.4f} ms, {prods / ms / 1e9:.1f} TFLOP/s as run, plain "
+            f"{plain_ms:.4f} ms, library ({label}) "
             f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
             f"{prods / 1e9:.2f} G products-as-run flops)")
         out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                          bound_by=by, library_ms=lib_ms,
                          library=f"composition: {label}",
-                         shape=[b, t, d, h, f])
+                         tflops=prods / ms / 1e9, shape=[b, t, d, h, f])
+    del cases, tracked, attn_in, ffn_in, lib_attn, lib_ffn, p
+    # #12 and #13 at the bench's batch (bench.py bench_transformer_fused:
+    # x [128, 256, 512]), with the same byte and product counts
+    bb = 2 * b
+    a = {k: v.to(bf) for k, v in _fused_inputs(bb, t, d, f, seed=111).items()
+         if k not in ("wqkv", "wo")}
+    x, g, w1, b1, w2, b2 = (a[k] for k in ("x", "g", "w1", "b1", "w2", "b2"))
+    ffn_in = tuple(a[k].detach().requires_grad_()
+                   for k in ("x", "w1", "b1", "w2", "b2"))
+    lib_ffn = _lib_ffn(*ffn_in)
+    n_x, gemm = bb * t * d, 2 * bb * t * d
+    for name, kern, lib, nbytes, prods in (
+            ("ffn_block", lambda: KFF._ffn_block_launch(x, w1, b1, w2, b2),
+             lambda: _lib_ffn(x, w1, b1, w2, b2),
+             2 * (2 * n_x + 2 * d * f + f + d), 3 * gemm * f),
+            ("ffn_block_bwd", lambda: KFF.ffn_block_bwd(x, w1, b1, w2, g),
+             lambda: torch.autograd.grad(lib_ffn, ffn_in, g,
+                                         retain_graph=True),
+             2 * (3 * n_x + 4 * d * f + 2 * f + d), 8 * gemm * f)):
+        ms = time_ms(kern, iters=10)
+        lib_ms = time_ms(lib, iters=10)
+        bms, by = _bf16_bound_ms(nbytes, prods)
+        log(f"  {name} bf16 [{bb},{t},{d}] F {f} (the bench's batch): "
+            f"kernel {ms:.4f} ms, {prods / ms / 1e9:.1f} TFLOP/s as run, "
+            f"library {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"{prods / 1e9:.2f} G products-as-run flops)")
+        out[name]["bench_batch"] = dict(shape=[bb, t, d, f], ms=ms,
+                                        library_ms=lib_ms, bound_ms=bms,
+                                        bound_by=by,
+                                        tflops=prods / ms / 1e9)
+    del a, ffn_in, lib_ffn
+    ptxas = _wgmma_ptxas()
+    for kname, line in ptxas.items():
+        log(f"  ptxas ffn_block {kname}: {line}")
+    for name in ("ffn_block", "ffn_block_bwd"):
+        out[name]["design"] = ("wgmma.mma_async m64n128k16 fed by TMA, h "
+                               "and dh as bf16 hi/lo planes "
+                               "(csrc/wgmma_bf16.cuh)")
+    out["ffn_block"].update(ptxas=ptxas, layouts_rel_err=_ffn_layouts())
     res = {}
     for name, e in out.items():
         errs, ratios = e.pop("errs"), e.pop("ratios")

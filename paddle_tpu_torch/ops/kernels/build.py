@@ -36,7 +36,8 @@ _INCLUDE = re.compile(rb'^[ \t]*#include[ \t]+"([^"]+)"', re.M)
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per source: seconds its nvcc took in this process (0.0 when an
-# up-to-date library was reused) and what ptxas reported
+# up-to-date library was reused) and what ptxas reported (kept beside the
+# library, so a reused one has it too)
 BUILD_SECONDS: Dict[str, float] = {}
 PTXAS_LOG: Dict[str, str] = {}
 
@@ -100,11 +101,15 @@ def _build_all() -> None:
             failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n"
                           f"{log}")
             continue
+        out.with_suffix(".ptxas").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     for name in SOURCES:
         BUILD_SECONDS.setdefault(name, 0.0)
+        log = _target(name).with_suffix(".ptxas")
+        if name not in PTXAS_LOG and log.exists():
+            PTXAS_LOG[name] = log.read_text()
         _LIBS[name] = ctypes.CDLL(str(_target(name)))
 
 

@@ -20,45 +20,56 @@
 // the 20 at which fp32 outside the tensor cores (67 TFLOP/s) meets the
 // memory (3.35 TB/s). On the fp32 units the forward takes 1.03 ms and the
 // backward 2.56 ms; on the tensor cores in split TF32 (three TF32
-// products for each fp32 one at 495 TFLOP/s) 0.42 ms and 1.04 ms.
+// products for each fp32 one at 495 TFLOP/s) 0.42 ms and 1.04 ms. In bf16
+// the products as run (h and dh as two bf16 terms) are 103.1 and 274.9
+// GFLOP: 0.104 ms and 0.278 ms at 989 TFLOP/s.
 //
 // What the design does about it: the TPU kernel keeps W1 and W2 (8 MiB of
 // fp32 here) resident in VMEM and the [T, F] hidden on chip; a Hopper
 // block has 227 KB of shared memory. So each entry point runs its products
-// in sequence on the caller's stream, on the tensor cores in split TF32
-// through tile_mma.cuh, with the hidden [N, F] (134 MB) in device memory
-// from the caller's allocator.
+// in sequence on the caller's stream, with the hidden [N, F] (134 MB) in
+// device memory from the caller's allocator.
 // - Both entry points compute the hidden relu(x W1 + b1) with one helper
-//   (`hidden`: tile_mma.cuh's bias + ReLU epilogue), so the backward's
+//   (`hidden`, `hidden_bf16`: a bias + ReLU epilogue), so the backward's
 //   recompute has the forward's bits and every ReLU unit takes the same
 //   mask in both.
 // - Forward: the hidden, then out = h W2 + b2 (the bias epilogue).
-// - Backward: the hidden recomputed, then four products, tile_mma.cuh's
-//   epilogue doing the ReLU's mask on dh. dh is written over h in place (a
-//   block of the mask product stages its tile of h in shared memory before
-//   it writes any of dh), so the backward holds one [N, F] buffer. The
-//   weight gradients are one product over all N rows each, split along
-//   the rows into slices summed in a fixed order, and db1, db2 tile_mma.cuh's
-//   column sum in a fixed order: deterministic, no atomics.
+// - Backward: the hidden recomputed, then four products, an epilogue
+//   doing the ReLU's mask on dh. dh is written over h in place, so the
+//   backward holds one [N, F] buffer. The weight gradients are one product
+//   over all N rows each, split along the rows into slices summed in a
+//   fixed order, and db1, db2 column sums in a fixed order: deterministic,
+//   no atomics.
+// - fp32 (`ffn_block_fwd`, `ffn_block_bwd`): the products on the tensor
+//   cores in split TF32 through tile_mma.cuh, h and dh fp32; a block of the
+//   mask product stages its tile of h in shared memory before it writes
+//   any of dh.
 // - bf16 (the `_bf16` entry points, as AMP calls the op: it is on the
 //   WHITE list): x, the weights, the biases and g are bf16 in memory and
-//   every product computes in fp32, as the TPU kernel upcasts them; the
-//   hidden h and dh stay fp32 in device memory; out and dx are rounded
-//   once to bf16, and the weight and bias gradients are fp32 sums (the
-//   row slices and column chunks in a fixed order) rounded once to bf16.
-//   Per product (tile_mma.cuh's element types): x W1 and g W2^T take two
-//   bf16 operands, h W2 and dh W1^T an fp32 and a bf16 one, x^T dh a bf16
-//   and an fp32 one, h^T g an fp32 and a bf16 one.
+//   every product computes on their exact values with fp32 accumulation,
+//   as the TPU kernel upcasts them; out and dx are rounded once to bf16,
+//   and the weight and bias gradients are fp32 sums (the row slices and
+//   column chunks in a fixed order) rounded once to bf16. The products run
+//   on wgmma fed by TMA through wgmma_bf16.cuh, which keeps the fp32 h and
+//   dh in the same scratch as two bf16 planes, hi [N, F] then lo [N, F]
+//   (hi + lo within 2^-17 of the value), each product with a planed
+//   operand running hi and lo into one fp32 accumulator. Each product
+//   reads its operands as they lie: x W1 (x K-major, W1 MN-major), h W2
+//   (planed h K-major, W2 MN-major), h^T g (planed h and g MN-major),
+//   g W2^T (g and W2 K-major), x^T dh (x and planed dh MN-major), dh W1^T
+//   (planed dh and W1 K-major). The ReLU mask of dh is hi + lo > 0, read
+//   from the h planes by the thread that then writes the dh planes there.
 // Writing the hidden and reading it back costs about 0.08 ms of HBM time
-// against the forward's 1.03 ms fp32 bound; keeping it on chip needs one
-// kernel for both products with an output accumulator of [64-128 rows,
-// D] in registers, and wgmma: the later steps for speed.
+// each way; keeping it on chip needs one kernel for both products with an
+// output accumulator of [64-128 rows, D] in registers: a later step.
 #include "split_tf32.cuh"
 #include "tile_mma.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 namespace tm = tile_mma;
+namespace wg = wgmma_bf16;
 using tm::bf16;
 
 #define RETURN_IF(err)                           \
@@ -128,13 +139,74 @@ int bwd(const void* x, const void* w1, const void* b1, const void* w2,
       tm::params(n, d, f, hf, f, w1, f, dx, d), 1, nullptr, 0, st);
 }
 
+
+// h planes [2][n, f] = relu(x W1 + b1) as hi / lo bf16: the bf16 forward's
+// hidden and the backward's recompute, one code path so that the two have
+// the same bits
+cudaError_t hidden_bf16(const bf16* x, const bf16* w1, const bf16* b1,
+                        bf16* h, int64_t n, int d, int f, cudaStream_t st) {
+  return wg::gemm<false, true, 1, 1, wg::kHidden>(
+      {x, d, n, 1}, {w1, f, d, 1}, n, f, d, h, f, n * f, b1, nullptr, 0, st);
+}
+
+int fwd_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+             const void* b2, void* out, void* h, int64_t n, int d, int f,
+             void* stream) {
+  if (n < 1 || d < 1 || f < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* hp = static_cast<bf16*>(h);
+  RETURN_IF(hidden_bf16(static_cast<const bf16*>(x),
+                        static_cast<const bf16*>(w1),
+                        static_cast<const bf16*>(b1), hp, n, d, f, st));
+  // out = h W2 + b2
+  return (int)wg::gemm<false, true, 2, 1, wg::kBias>(
+      {hp, f, n, 2}, {w2, d, f, 1}, n, d, f, out, d, 0,
+      static_cast<const bf16*>(b2), nullptr, 0, st);
+}
+
+int bwd_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+             const void* g, void* dx, void* dw1, void* db1, void* dw2,
+             void* db2, void* h, void* ws, int64_t ws_floats, int64_t n,
+             int d, int f, void* stream) {
+  if (n < 1 || d < 1 || f < 1 || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xe = static_cast<const bf16*>(x);
+  const bf16* ge = static_cast<const bf16*>(g);
+  bf16* hp = static_cast<bf16*>(h);
+  float* wsf = static_cast<float*>(ws);
+  // h = relu(x W1 + b1), recomputed
+  RETURN_IF(hidden_bf16(xe, static_cast<const bf16*>(w1),
+                        static_cast<const bf16*>(b1), hp, n, d, f, st));
+  // dW2 = h^T g; db2 = sum g
+  RETURN_IF((wg::gemm<true, true, 2, 1, wg::kF32>(
+      {hp, f, n, 2}, {ge, d, n, 1}, f, d, n, dw2, d, 0, nullptr, wsf,
+      ws_floats, st)));
+  RETURN_IF(tm::colsum(ge, static_cast<bf16*>(db2), n, d, wsf, ws_floats, st));
+  // dh = (g W2^T) [h > 0], over h
+  RETURN_IF((wg::gemm<false, false, 1, 1, wg::kMask>(
+      {ge, d, n, 1}, {w2, d, f, 1}, n, f, d, hp, f, n * f, nullptr, nullptr,
+      0, st)));
+  // dW1 = x^T dh; db1 = sum dh; dx = dh W1^T
+  RETURN_IF((wg::gemm<true, true, 1, 2, wg::kF32>(
+      {xe, d, n, 1}, {hp, f, n, 2}, d, f, n, dw1, f, 0, nullptr, wsf,
+      ws_floats, st)));
+  RETURN_IF(wg::colsum_planes(hp, static_cast<bf16*>(db1), n, f, wsf,
+                              ws_floats, st));
+  return (int)wg::gemm<false, false, 2, 1, wg::kBias>(
+      {hp, f, n, 2}, {w1, f, d, 1}, n, d, f, dx, d, 0, nullptr, nullptr, 0,
+      st);
+}
+
 }  // namespace
 
 // Forward. x, out [n, d]; w1 [d, f]; b1 [f]; w2 [f, d]; b2 [d]: device
 // pointers, contiguous, fp32 (`ffn_block_fwd`) or bf16
-// (`ffn_block_fwd_bf16`, 16-byte aligned); h [n, f]: fp32 scratch. Returns
-// the first CUDA error of the launches, or 1 (cudaErrorInvalidValue) for a
-// shape the kernels do not take.
+// (`ffn_block_fwd_bf16`, 16-byte aligned); h [n, f]: fp32 scratch, whose
+// 4 bytes an element the bf16 instance takes as the hidden's hi and lo
+// planes, [n, f] bf16 each, hi first. Returns the first CUDA error of the
+// launches, or 1 (cudaErrorInvalidValue) for a shape the kernels do not
+// take.
 extern "C" int ffn_block_fwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* out,
                              void* h, int64_t n, int d, int f, void* stream) {
@@ -145,14 +217,15 @@ extern "C" int ffn_block_fwd_bf16(const void* x, const void* w1,
                                   const void* b1, const void* w2,
                                   const void* b2, void* out, void* h,
                                   int64_t n, int d, int f, void* stream) {
-  return fwd<bf16>(x, w1, b1, w2, b2, out, h, n, d, f, stream);
+  return fwd_bf16(x, w1, b1, w2, b2, out, h, n, d, f, stream);
 }
 
 // Backward. x, g (the output's cotangent), dx [n, d]; w1, dw1 [d, f]; b1,
 // db1 [f]; w2, dw2 [f, d]; db2 [d]: device pointers, contiguous, 16-byte
 // aligned, fp32 (`ffn_block_bwd`) or bf16 (`ffn_block_bwd_bf16`).
-// Scratch, fp32: h [n, f]; ws (ws_floats values, at least f) for the
-// weight gradients' row slices and the column sums. Returns as
+// Scratch, fp32: h [n, f] (hi and lo bf16 planes in the bf16 instance, as
+// in ffn_block_fwd; it ends holding dh); ws (ws_floats values, at least f)
+// for the weight gradients' row slices and the column sums. Returns as
 // ffn_block_fwd.
 extern "C" int ffn_block_bwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* g, void* dx,
@@ -169,6 +242,48 @@ extern "C" int ffn_block_bwd_bf16(const void* x, const void* w1,
                                   void* db1, void* dw2, void* db2, void* h,
                                   void* ws, int64_t ws_floats, int64_t n,
                                   int d, int f, void* stream) {
-  return bwd<bf16>(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, h, ws,
-                   ws_floats, n, d, f, stream);
+  return bwd_bf16(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, h, ws,
+                  ws_floats, n, d, f, stream);
+}
+
+namespace {
+
+template <bool TA, bool TB, int PA, int PB>
+int product(const void* a, const void* b, float* c, int64_t m, int64_t n,
+            int64_t k, int group, cudaStream_t st) {
+  if (group != 0 && group != wg::kGroup) return (int)cudaErrorInvalidValue;
+  const wg::Operand oa = TA ? wg::Operand{a, m, k, PA}
+                            : wg::Operand{a, k, m, PA};
+  const wg::Operand ob = TB ? wg::Operand{b, n, k, PB}
+                            : wg::Operand{b, k, n, PB};
+  return group == 0 ? (int)wg::gemm<TA, TB, PA, PB, wg::kF32, 0>(
+                          oa, ob, m, n, k, c, n, 0, nullptr, nullptr, 0, st)
+                    : (int)wg::gemm<TA, TB, PA, PB, wg::kF32>(
+                          oa, ob, m, n, k, c, n, 0, nullptr, nullptr, 0, st);
+}
+
+}  // namespace
+
+// One of the bf16 products' six operand layouts alone, unsplit, into fp32
+// C [m, n] (for tests against float64): 0 x W1 (A [m][k], B [k][n]), 1 h W2
+// (A two planes [m][k]), 2 h^T g (A two planes [k][m], B [k][n]), 3 g W2^T
+// (A [m][k], B [n][k]), 4 x^T dh (A [k][m], B two planes [k][n]), 5 dh W1^T
+// (A two planes [m][k], B [n][k]); planes lie hi then lo. `group`: 64-deep
+// slabs a fresh accumulator takes, the kernels' wgmma_bf16::kGroup or 0
+// (one accumulator for all of k, a control). Returns as ffn_block_fwd.
+extern "C" int ffn_block_product_bf16(int layout, const void* a,
+                                      const void* b, void* c, int64_t m,
+                                      int64_t n, int64_t k, int group,
+                                      void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* cf = static_cast<float*>(c);
+  switch (layout) {
+    case 0: return product<false, true, 1, 1>(a, b, cf, m, n, k, group, st);
+    case 1: return product<false, true, 2, 1>(a, b, cf, m, n, k, group, st);
+    case 2: return product<true, true, 2, 1>(a, b, cf, m, n, k, group, st);
+    case 3: return product<false, false, 1, 1>(a, b, cf, m, n, k, group, st);
+    case 4: return product<true, true, 1, 2>(a, b, cf, m, n, k, group, st);
+    case 5: return product<false, false, 2, 1>(a, b, cf, m, n, k, group, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

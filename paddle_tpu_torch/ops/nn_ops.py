@@ -113,8 +113,11 @@ def _lookup_grad_kernel(ctx):
     pad = _padding_keep(ctx, ids, w.dtype)
     if pad is not None:
         dy = dy * pad
-    return {"W@GRAD": torch.zeros_like(w).index_add_(
-        0, rows.reshape(-1), dy.reshape(-1, w.shape[-1]))}
+    # index_put_ with accumulate sorts the ids and sums each row's
+    # duplicates in their order: the same bits on every run, where
+    # index_add_'s atomic adds on the card sum them in any order
+    return {"W@GRAD": torch.zeros_like(w).index_put_(
+        (rows.reshape(-1),), dy.reshape(-1, w.shape[-1]), accumulate=True)}
 
 
 @register_op("lookup_table", grad_maker=_lookup_grad_maker)

@@ -26,7 +26,21 @@ Tolerances:
 - kernels against plain versions on the card: one bf16 rounding (one
   ulp at the largest |plain|) in at most 5% of the elements, the ReLU masks of
   the FFN backward pinned to the kernels' (the forward kernel's hidden,
-  which the backward recomputes with one code path).
+  which the backward recomputes with one code path), and (FFN) no further
+  from the float64 oracle than twice the plain version.
+- the FFN kernels keep h and dh as two bf16 planes (hi + lo):
+  `ffn_block_planes_plain` computes that on the CPU and must pass the
+  card's gate against ``jax.vjp(ffn_block_reference)`` (one ulp at the
+  largest |value| in at most 5% of the elements, at most twice the
+  reference's distance to float64); with either intermediate as one bf16
+  term it must fail it.
+- one product of the FFN kernels' engine, each of its six operand
+  layouts, against float64 on the planes' exact values: within
+  `PRODUCT_REL` of the largest row-by-column sum of |products| at a
+  depth of 40 (ragged), 2048 and 32768 (a weight gradient's at batch 128
+  before its split). The kernels' groups of 256 terms, each added to the
+  running sum in fp32, keep well inside it; one wgmma accumulator over
+  32768 terms must miss it (a control).
 
 The JAX package is imported inside the tests that compare with it, so
 the ``gpu`` tests also run where JAX is not installed:
@@ -46,6 +60,7 @@ BF = torch.bfloat16
 REF_SHARE = 1e-3
 KERNEL_REL = 2 ** -7
 CARD_SHARE = 0.05
+PRODUCT_REL = 2 ** -21
 KNOB = "PADDLE_TPU_FUSE_ATTN_BLOCK"
 
 
@@ -221,6 +236,71 @@ def test_ffn_block_bf16_plain_matches_pallas_interpret(jref):
         assert rel <= KERNEL_REL, (name, rel)
 
 
+def _f64_ffn(x, w1, b1, w2, b2, g, mask=None):
+    """out and the five grads in float64; the ReLU mask (pre > 0 unless
+    given) pinned for the backward."""
+    d = w1.shape[0]
+    x2, g2 = x.reshape(-1, d).double(), g.reshape(-1, d).double()
+    pre = x2 @ w1.double() + b1.double()
+    mask = pre > 0 if mask is None else mask
+    h = torch.relu(pre)
+    dh = torch.where(mask, g2 @ w2.double().T, 0.0)
+    return ((h @ w2.double() + b2.double()).reshape(x.shape),
+            (dh @ w1.double().T).reshape(x.shape), x2.T @ dh, dh.sum(0),
+            (h * mask).T @ g2, g2.sum(0))
+
+
+def _card_ok(got, want, oracle):
+    """The card's bf16 gate: one ulp at the largest |want| in at most
+    CARD_SHARE of the elements, and no further from the float64 oracle
+    than twice `want`."""
+    ulps, share = _ulps(got, want)
+    far = float((got.double() - oracle).abs().max())
+    near = float((want.double() - oracle).abs().max())
+    return ulps <= 1 and share <= CARD_SHARE and far <= 2 * max(near, 1e-30)
+
+
+@pytest.mark.parametrize("h_terms,dh_terms,ok", [(2, 2, True),
+                                                 (1, 2, False),
+                                                 (2, 1, False),
+                                                 (1, 1, False)])
+def test_ffn_block_planes_plain_against_reference_vjp(jref, h_terms,
+                                                       dh_terms, ok):
+    """h and dh as two bf16 planes (the bf16 kernels' design) pass the
+    card's gate against ``jax.vjp(ffn_block_reference)``; with either as
+    one bf16 term the gate sees it."""
+    jax, _, JFB = jref
+    import jax.numpy as jnp
+
+    x, w1, b1, w2, b2, g = _ffn_case(2, 64, 64, 128, seed=7)
+    out, grads = KFF.ffn_block_planes_plain(x, w1, b1, w2, b2, g, h_terms,
+                                            dh_terms)
+    ref, vjp = jax.vjp(JFB.ffn_block_reference,
+                       *(_to_jax(jnp, t) for t in (x, w1, b1, w2, b2)))
+    want = (ref, *vjp(_to_jax(jnp, g)))
+    oracle = _f64_ffn(x, w1, b1, w2, b2, g)
+    passed = [_card_ok(a, _from_jax(w).to(BF), o)
+              for a, w, o in zip((out, *grads), want, oracle)]
+    assert all(a.dtype == BF for a in (out, *grads))
+    assert all(passed) == ok, passed
+
+
+def test_ffn_layout_products_plain():
+    """The six operand layouts' plain products (the CPU path of
+    `product_bf16`) equal A B on the planes' values."""
+    r = np.random.RandomState(8)
+    m, n, k = 24, 16, 40
+    a = torch.from_numpy(r.randn(m, k).astype(np.float32))
+    b = torch.from_numpy(r.randn(k, n).astype(np.float32))
+    for layout, (_, _, _, pa, pb) in enumerate(KFF.PRODUCT_LAYOUTS):
+        am, bm = KFF.layout_operands(layout, a, b)
+        assert am.dtype == BF and am.shape[0] == pa and bm.shape[0] == pb
+        want = KFF.planes_sum(a, pa) @ KFF.planes_sum(b, pb)
+        got = KFF.product_bf16(layout, am, bm, m, n, k)
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max()), layout
+
+
 def test_fused_transformer_under_amp_matches_reference(tmp_path,
                                                        monkeypatch):
     """The Transformer of ``torch_amp_setup.py`` built with the fused
@@ -320,33 +400,91 @@ def test_attention_block_bf16_kernel_matches_plain(cuda, b, t, d, h,
         _card_gate(name, a, w)
 
 
+def _ffn_kernel_planes(x, w1, b1, w2, g=None):
+    """The forward kernel's hidden planes summed in fp32, or (g given) the
+    backward kernel's dh planes, through the C entries, whose scratch is
+    the caller's."""
+    d, f = w1.shape
+    n = x.numel() // d
+    h = torch.empty(n, f, device=x.device)
+    st = torch.cuda.current_stream().cuda_stream
+    if g is None:
+        assert KFF._kernel("ffn_block_fwd", 7, False, BF)(
+            *(z.data_ptr() for z in (x, w1, b1, w2, x.new_zeros(d),
+                                     torch.empty_like(x), h)),
+            n, d, f, st) == 0
+    else:
+        grads = (torch.empty_like(x), torch.empty_like(w1),
+                 torch.empty_like(b1), torch.empty_like(w2), x.new_empty(d))
+        ws = torch.empty(max(KFF.WORKSPACE_FLOATS, f), device=x.device)
+        assert KFF._kernel("ffn_block_bwd", 12, True, BF)(
+            *(z.data_ptr() for z in (x, w1, b1, w2, g, *grads, h, ws)),
+            ws.numel(), n, d, f, st) == 0
+    hi, lo = KFF.scratch_planes(h, n, f)
+    return hi.float() + lo.float()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,d,f", [(4, 16, 32, 64), (2, 200, 256, 1024),
-                                     (8, 256, 512, 2048)])
+                                     (1, 200, 40, 72), (8, 256, 512, 2048)])
 def test_ffn_block_bf16_kernel_matches_plain(cuda, b, t, d, f):
     x, w1, b1, w2, b2, g = (z.to(cuda) for z in _ffn_case(b, t, d, f,
                                                           seed=6))
     fwd0, bwd0 = KFF.ffn_block.launches, KFF.ffn_block_bwd.launches
     out = KFF._ffn_block_launch(x, w1, b1, w2, b2)
     got = KFF.ffn_block_bwd(x, w1, b1, w2, g)
+    again = (KFF._ffn_block_launch(x, w1, b1, w2, b2),
+             *KFF.ffn_block_bwd(x, w1, b1, w2, g))
     torch.cuda.synchronize()
-    assert KFF.ffn_block.launches == fwd0 + 1
-    assert KFF.ffn_block_bwd.launches == bwd0 + 1
-    _card_gate("out", out, KFF.ffn_block_plain(x, w1, b1, w2, b2))
+    assert KFF.ffn_block.launches == fwd0 + 2
+    assert KFF.ffn_block_bwd.launches == bwd0 + 2
+    assert all(torch.equal(u, v) for u, v in zip((out, *got), again))
     # the plain backward with its ReLU masks pinned to the kernels' (the
-    # forward's hidden, which the backward recomputes with one code path)
+    # forward's hidden planes, hi + lo > 0, which the backward recomputes
+    # with one code path)
     x2, g2 = x.reshape(-1, d).float(), g.reshape(-1, d).float()
-    n = x2.shape[0]
-    h = torch.empty(n, f, device=cuda)
-    assert KFF._kernel("ffn_block_fwd", 7, False, BF)(
-        *(z.data_ptr() for z in (x, w1, b1, w2, b2, torch.empty_like(x),
-                                 h)),
-        n, d, f, torch.cuda.current_stream().cuda_stream) == 0
-    mask = h > 0
+    mask = _ffn_kernel_planes(x, w1, b1, w2) > 0
+    # the backward's recompute: under a cotangent of ones dh is W2's row
+    # sum wherever its mask is on
+    assert float(w2.double().sum(1).abs().min()) > 0
+    kmask = _ffn_kernel_planes(x, w1, b1, w2, torch.ones_like(x)) != 0
+    assert int((mask != kmask).sum()) == 0
     dh = torch.where(mask, g2 @ w2.float().T, 0.0)
-    want = ((dh @ w1.float().T).reshape(x.shape).to(BF),
+    want = (KFF.ffn_block_plain(x, w1, b1, w2, b2),
+            (dh @ w1.float().T).reshape(x.shape).to(BF),
             (x2.T @ dh).to(BF), dh.sum(0).to(BF),
             (torch.relu(x2 @ w1.float() + b1.float()).T @ g2).to(BF),
             g2.sum(0).to(BF))
-    for name, a, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+    oracle = _f64_ffn(x, w1, b1, w2, b2, g, mask)
+    for name, a, w, o in zip(("out", "dx", "dw1", "db1", "dw2", "db2"),
+                             (out, *got), want, oracle):
         _card_gate(name, a, w)
+        assert _card_ok(a, w, o), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(200, 72, 40), (256, 384, 2048),
+                                   (128, 256, 32768)])
+@pytest.mark.parametrize("layout", range(6))
+def test_ffn_layout_product_against_float64(cuda, layout, m, n, k):
+    """One product of the bf16 FFN kernels' engine in each operand layout
+    (`KFF.PRODUCT_LAYOUTS`), unsplit, against float64 on the planes'
+    exact values."""
+    r = np.random.RandomState(9 + layout)
+    a = torch.from_numpy(r.randn(m, k).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(r.randn(k, n).astype(np.float32)).to(cuda)
+    am, bm = KFF.layout_operands(layout, a, b)
+    got = KFF.product_bf16(layout, am, bm, m, n, k)
+    torch.cuda.synchronize()
+    _, ta, tb, _, _ = KFF.PRODUCT_LAYOUTS[layout]
+    a64, b64 = am.double().sum(0), bm.double().sum(0)
+    a64, b64 = a64.T if ta else a64, b64 if tb else b64.T
+    want = a64 @ b64
+    scale = float((a64.abs() @ b64.abs()).max())
+    err = float((got.double() - want).abs().max()) / scale
+    assert err <= PRODUCT_REL, (KFF.PRODUCT_LAYOUTS[layout][0], err)
+    if k > 4096:
+        # one accumulator over all of k loses bits: the check sees it
+        one = KFF.product_bf16(layout, am, bm, m, n, k, group=0)
+        assert float((one.double() - want).abs().max()) / scale > \
+            PRODUCT_REL, KFF.PRODUCT_LAYOUTS[layout][0]

@@ -452,14 +452,15 @@ def test_kernel_sources_reach_the_shared_headers():
     def headers(name):
         return {t for t in build._sources(name)[1:]}
 
-    split, mma, fwd, bwd, bf16 = (
+    split, mma, fwd, bwd, bf16, wgmma = (
         (build.CSRC / f"{n}.cuh").read_bytes()
         for n in ("split_tf32", "tile_mma", "flash_fwd", "attn_bwd_from_p",
-                  "split_bf16"))
+                  "split_bf16", "wgmma_bf16"))
     # the three forwards run one body, the sdpa_short backward runs the
     # attention block's stages (with no O = P v product of its own), both
     # FFN products run on the split-TF32
-    # product, and the paged kernel takes the cp.async staging; the SIMT
+    # product in fp32 and on the wgmma engine in bf16, and the paged
+    # kernel takes the cp.async staging; the SIMT
     # product (tile_gemm.cuh) is gone; the attention bodies take their
     # operands through split_bf16.cuh's traits (fp32 or bf16)
     assert headers("flash_attention") == headers("sdpa_short") == {
@@ -467,7 +468,7 @@ def test_kernel_sources_reach_the_shared_headers():
     assert headers("flash_attention_bwd") == {split, bf16}
     assert headers("sdpa_short_bwd") == {split, bwd, bf16}
     assert headers("attention_block") == {split, mma, fwd, bwd, bf16}
-    assert headers("ffn_block") == {split, mma}
+    assert headers("ffn_block") == {split, mma, wgmma}
     assert headers("paged_attention") == {split}
     assert not (build.CSRC / "tile_gemm.cuh").exists()
     for name in build.SOURCES:

@@ -17,9 +17,11 @@ Tolerances:
 - on the card (marked ``gpu``): K steps through the captured graph
   against K eager steps, losses and every persistable 1e-6 relative
   (the JAX package's own ``run_steps`` pin, tests/test_run_steps.py),
-  on feeds whose ids are distinct within a batch: the embedding grads
-  sum by ``index_add_``'s atomics, which on repeated ids add in any
-  order, so that two eager runs can differ. Launches: the wrappers'
+  on feeds whose ids are distinct within a batch (chosen when the
+  embedding grads summed by ``index_add_``'s atomics, in any order on
+  repeated ids; they now sum each row's ids in a fixed order, which
+  `test_embedding_grad_same_bits_on_repeated_ids` holds). Launches: the
+  wrappers'
   counters exactly (a capturing call: step 1 eager and the capture's
   record of each launch; a replay runs no wrapper); a replayed call's
   profiler trace holds every kernel of K eager steps' and none more
@@ -487,8 +489,7 @@ def _trained(vocab=CFG["vocab"]):
 
 def _distinct_feed(seed, batch=BATCH, vocab=CFG["vocab"]):
     """A feed whose source and target ids are distinct within the batch:
-    each embedding row's grad then has one addend, and the atomics of
-    ``index_add_`` add it in one order."""
+    each embedding row's grad then has one addend."""
     rs = np.random.RandomState(seed)
     n = (batch, CFG["seq_len"])
     return {"src_ids": rs.permutation(vocab)[:np.prod(n)].reshape(n),
@@ -527,6 +528,47 @@ def _assert_close_state(got, want, names):
 # the kernel wrappers this small model's training step reaches (its
 # attention ops take the plain composition at seq 16)
 WRAPPERS = (KL.layer_norm, KX.xent_forward, KX.xent_backward)
+
+
+@pytest.mark.gpu
+def test_embedding_grad_same_bits_on_repeated_ids(cuda):
+    """lookup_table_grad on the card sums each row's repeated ids in a
+    fixed order: two runs give the same bits, with 32768 lookups of 50
+    rows (the bench's batch of ids, Transformer-base's width). The card's
+    and the CPU's sums lie within fp32 rounding of the float64 sum: 1e-6
+    of the largest sum of |addends| (about 650 addends a row, summed in
+    fp32 in two orders)."""
+    from paddle_tpu_torch.core import registry
+
+    prog = pf.Program()
+    blk = prog.global_block
+    v, d, n = 32000, 512, 32768
+    for name, shape, dtype in (("W", (v, d), "float32"),
+                               ("Ids", (n, 1), "int64"),
+                               ("Out@GRAD", (n, d), "float32")):
+        blk.create_var(name=name, shape=shape, dtype=dtype)
+    op = blk.append_op("lookup_table_grad",
+                       {"W": ["W"], "Ids": ["Ids"], "Out@GRAD": ["Out@GRAD"]},
+                       {"W@GRAD": ["W@GRAD"]}, {"padding_idx": -1})
+    rs = np.random.RandomState(11)
+    host = {"W": torch.zeros(v, d),
+            "Ids": torch.from_numpy(rs.randint(0, 50, (n, 1))),
+            "Out@GRAD": torch.from_numpy(rs.randn(n, d).astype(np.float32))}
+
+    def run(device):
+        env = {k: t.to(device) for k, t in host.items()}
+        registry.run_op(op, env, device)
+        return env["W@GRAD"]
+
+    first, second = run(cuda), run(cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    ids, dy = host["Ids"][:, 0], host["Out@GRAD"].double()
+    exact = torch.zeros(v, d, dtype=torch.float64).index_add_(0, ids, dy)
+    scale = float(torch.zeros(v, d, dtype=torch.float64).index_add_(
+        0, ids, dy.abs()).max())
+    for got in (first.cpu(), run(torch.device("cpu"))):
+        assert float((got.double() - exact).abs().max()) <= 1e-6 * scale
 
 
 @pytest.mark.gpu
