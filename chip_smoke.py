@@ -15,14 +15,18 @@ Phases (a failing phase fails the script; none is caught):
    its path's shapes (the xent pair also at edge cases: label smoothing
    on and off, ignored rows, an out-of-range label, odd N and V, bf16
    logits, rows off a 16-byte boundary (V 1001 fp32, 1003 bf16), the
-   MNIST head (V 10), eight CTAs a row (V 300000) and a row too wide to
+   MNIST head (V 10, at 64 rows with ignored and out-of-range labels and
+   at phase 10's [4096, 10]), eight CTAs a row (V 300000) and a row too wide to
    stage (V 524288, the backward's streamed body); their dx is held
    element by element and must repeat bit for bit on a second launch,
    and planted faults, a dropped eps/V term, a shifted lse and an lse
-   from the first half of the row only, must fail that check; the
-   backward is timed at the training shape in fp32 and bf16, at each
-   cluster size (1, 2, 4, 8 CTAs a row) and in its streamed body,
-   beside a copy of the same bytes; the
+   from the first half of the row only, must fail that check; both are
+   timed, beside their plain versions, the library's F.cross_entropy and
+   their bound, at the training shape in fp32 and bf16 (AMP's logits;
+   the `bf16` field of their entries) and at the MNIST head's [4096, 10]
+   fp32 (the `mnist` field), the backward also at each cluster size (1,
+   2, 4, 8 CTAs a row) and in its streamed body, beside a copy of the
+   same bytes; the
    attention forwards also with the residuals their backward kernels
    read, saved P and lse, and the three attention backward kernels at
    the training shapes, causal and not, sdpa_short also at d 128,
@@ -229,10 +233,31 @@ Phases (a failing phase fails the script; none is caught):
    rule; the block pool and the prompt entries drain. Requests/s,
    tokens/s and latency of both legs, and one burst of the paged server
    under torch.profiler.
+10. train mnist (before phase 9 in the run): the MNIST fc net
+   (models/mnist.py build_program(use_conv=False), 784-128-64-10,
+   BASELINE.md config 1) at bench.py bench_mnist's batch, 4096, on its
+   synthetic separable batch as [784] images, seeded weights, SGD. Step
+   1 against the CPU run of the same program (TF32 off): the loss within
+   1e-5 relative, the last fc's grads (above every ReLU) within 1e-5
+   norm-wise, the grads below a ReLU within 1e-3. Then 20 eager steps
+   (the xent kernels launch once each a step; the loss falls) and 20
+   steps through run_steps (one capture, losses within 1e-6 of the eager
+   ones; five more calls from the seeded weights capture nothing and are
+   timed on the host's clock: the median ms a step, its spread and
+   examples/s beside the card's name and power limit; another under
+   torch.profiler). Then a 5-step leg of each other
+   optimizer (Momentum with Nesterov, LarsMomentum, Adagrad, Adamax,
+   DecayedAdagrad, Adadelta, RMSProp centered with momentum, Ftrl, Adam)
+   under one of the seven schedules each, every schedule at least once:
+   the losses within 1e-5 relative of the CPU run, the rate fetched each
+   step within 1e-6 relative and moving. Phase 3 holds #7 and #8
+   against their plain versions at this phase's [4096, 10] and times
+   them there.
 
 The script prints its whole wall time; the second-to-last line lists
 the kernels as JSON, each with its launches on the serving (`served`),
-training (`trained`, phases 5-8 together) and paged serving
+training (`trained`, phases 5-8 together), MNIST training
+(`trained_mnist`, phase 10's eager SGD leg) and paged serving
 (`served_paged`, phase 9) paths; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result.
@@ -260,6 +285,7 @@ from paddle_tpu_torch.core import registry  # noqa: E402
 from paddle_tpu_torch.core.executor import RNG_VAR  # noqa: E402
 from paddle_tpu_torch.inference import serving  # noqa: E402
 from paddle_tpu_torch.models import decode_engine  # noqa: E402
+from paddle_tpu_torch.models import mnist  # noqa: E402
 from paddle_tpu_torch.models import transformer  # noqa: E402
 from paddle_tpu_torch.ops.kernels import attention as KA  # noqa: E402
 from paddle_tpu_torch.ops.kernels import attention_block as KAB  # noqa: E402
@@ -391,6 +417,44 @@ PAGED = dict(seq_len=256, max_out_len=256, n_slots=16, block_size=16,
              n_blocks=256, n_prompt_entries=16, steps_per_tick=8)
 PAGED_SHARED, PAGED_REPEATS, PAGED_UNIQUE = 8, 3, 8
 PAGED_CPU_ROWS = 8   # distinct prompts held against the CPU whole loop
+# the MNIST fc net (BASELINE.md config 1; models/mnist.py build_program
+# with use_conv=False: 784-128-64-10) at bench.py bench_mnist's batch,
+# 4096, on its synthetic separable batch (bench.py:375-377) as [784]
+# images; SGD, MNIST_STEPS steps eager and through run_steps
+MNIST_BATCH = 4096
+MNIST_STEPS = 20
+MNIST_LR = 0.1
+# run_steps calls that replay only, each timed on the host's clock: the
+# step time is their median
+MNIST_TIMED_CALLS = 5
+# the last fc's weight grad lies above every ReLU (1e-5 norm-wise); the
+# others lie below them, where a unit within rounding of zero flips its
+# mask between two fp32 runs (phase 5's unpinned 1e-3)
+MNIST_GRADS = {"fc_2.w_0": 1e-5, "fc_2.b_0": 1e-5, "fc_1.w_0": 1e-3,
+               "fc_0.w_0": 1e-3}
+# a 5-step leg of each optimizer other than SGD, each under a schedule,
+# so that every schedule runs once (Adadelta's op reads no rate: its leg
+# repeats a schedule, whose rate is fetched all the same): losses against
+# the CPU run within LOSS_RTOL, the rate within 1e-6 relative, and the
+# rate other at some step than at step 1
+MNIST_LEG_STEPS = 5
+LR_RTOL = 1e-6
+MNIST_LEGS = (
+    ("Momentum", dict(momentum=0.9, use_nesterov=True),
+     "exponential_decay", (0.1, 2, 0.5, True)),
+    ("LarsMomentum", dict(momentum=0.9, lars_coeff=0.01),
+     "natural_exp_decay", (1.0, 2, 0.5)),
+    ("Adagrad", {}, "inverse_time_decay", (0.01, 2, 0.5)),
+    ("Adamax", {}, "polynomial_decay", (0.01, 2, 1e-4, 1.5, True)),
+    ("DecayedAdagrad", {}, "piecewise_decay", ([2, 4],
+                                               [0.004, 0.002, 0.001])),
+    ("Adadelta", dict(rho=0.9), "piecewise_decay", ([3], [1.0, 0.5])),
+    ("RMSProp", dict(momentum=0.5, centered=True), "cosine_decay",
+     (0.001, 1, 8)),
+    ("Ftrl", dict(l1=1e-4, l2=1e-3), "linear_lr_warmup",
+     (0.01, 3, 0.001, 0.01)),
+    ("Adam", {}, "exponential_decay", (0.002, 3, 0.5)),
+)
 # the training program's kernels, whose launches every training phase
 # counts
 TRAIN_KERNELS = (KX.xent_forward, KX.xent_backward, KL.layer_norm,
@@ -1690,14 +1754,32 @@ def _xent_bwd_with(x, lab, dloss, eps, cluster, staged):
     return dx
 
 
-def _xent_timing(n, v, dtype, eps):
-    """The backward at [n, v] in `dtype`: the wrapper's time, every
-    cluster size's (staged) and the streamed body's at the chosen size,
-    the bound (each input read once, dx written once) and the library's
-    backward (F.cross_entropy under autograd), all in ms."""
+def _xent_timing(n, v, dtype, eps, plain_iters):
+    """Both kernels at [n, v] in `dtype`: each one's ms, its plain
+    version's (over `plain_iters` calls), the library's (F.cross_entropy,
+    and its backward under autograd) and the bound (each input read once,
+    each output written once), all in ms; for the backward also every
+    cluster size's time (staged), the streamed body's at the chosen size
+    and a copy of x's. Returns (forward, backward)."""
     x, lab, dloss = _xent_case(n, v, dtype, 30, ignored=False)
+    esize = x.element_size()
+
+    def lib_fwd():
+        return torch.nn.functional.cross_entropy(
+            x, lab, reduction="none", label_smoothing=eps,
+            ignore_index=-100)
+
+    fwd = dict(ms=time_ms(lambda: KX.xent_forward(x, lab, eps)),
+               plain_ms=time_ms(lambda: KX.xent_forward_plain(x, lab, eps),
+                                iters=plain_iters),
+               library_ms=time_ms(lib_fwd), shape=[n, v])
+    # operations per element: max/exp/sum/add
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+        esize * n * v + 8 * n + 8 * n, 5 * n * v)
     cluster, body = _xent_plan(v)
     ms = time_ms(lambda: KX.xent_backward(x, lab, dloss, eps))
+    plain_ms = time_ms(lambda: KX.xent_backward_plain(x, lab, dloss, eps),
+                       iters=plain_iters)
     by_cluster = {c: time_ms(lambda: _xent_bwd_with(x, lab, dloss, eps, c,
                                                     True))
                   for c in XENT_CLUSTERS}
@@ -1710,32 +1792,47 @@ def _xent_timing(n, v, dtype, eps):
     xr = x.detach().requires_grad_()
     lib_loss = torch.nn.functional.cross_entropy(
         xr, lab, reduction="none", label_smoothing=eps, ignore_index=-100)
+    lib_dx = torch.autograd.grad(lib_loss, xr, dloss, retain_graph=True)[0]
+    lib_errs = (max_err(lib_fwd(), KX.xent_forward_plain(x, lab, eps)[0]),
+                max_err(lib_dx, KX.xent_backward_plain(x, lab, dloss, eps)))
+    del lib_dx
     lib_ms = time_ms(lambda: torch.autograd.grad(lib_loss, xr, dloss,
                                                  retain_graph=True))
     del lib_loss, xr
-    esize = x.element_size()
     bms, by = bound_ms(2 * esize * n * v + 8 * n + 4 * n, 9 * n * v)
-    log(f"  xent_backward [{n},{v}] {str(dtype)[6:]} eps={eps}: kernel "
-        f"{ms:.4f} ms ({cluster} CTAs a row, {body}), bound {bms:.4f} ms "
-        f"({by}), library F.cross_entropy backward {lib_ms:.4f} ms, a "
-        f"copy of x (torch copy_) {copy_ms:.4f} ms; staged at 1/2/4/8 "
-        f"CTAs a row "
+    tag = f"[{n},{v}] {str(dtype)[6:]} eps={eps}"
+    log(f"  xent_forward {tag}: kernel {fwd['ms']:.4f} ms, plain "
+        f"{fwd['plain_ms']:.4f} ms, library F.cross_entropy "
+        f"{fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.6f} ms "
+        f"({fwd['bound_by']})")
+    log(f"  xent_backward {tag}: kernel {ms:.4f} ms ({cluster} CTAs a row, "
+        f"{body}), plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by}), "
+        f"library F.cross_entropy backward {lib_ms:.4f} ms, a copy of x "
+        f"(torch copy_) {copy_ms:.4f} ms; staged at 1/2/4/8 CTAs a row "
         + " / ".join(f"{by_cluster[c]:.4f}" for c in XENT_CLUSTERS)
         + f" ms; streamed at {cluster} {streamed:.4f} ms")
-    return dict(ms=ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                copy_ms=copy_ms, cluster=cluster, body=body, shape=[n, v],
-                cluster_ms={str(c): t for c, t in by_cluster.items()},
-                streamed_ms=streamed)
+    log(f"  xent library F.cross_entropy vs plain {tag}: forward "
+        f"max_abs_err {lib_errs[0]:.3e}, backward {lib_errs[1]:.3e}")
+    return fwd, dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     library_ms=lib_ms, copy_ms=copy_ms, cluster=cluster,
+                     body=body, shape=[n, v],
+                     cluster_ms={str(c): t for c, t in by_cluster.items()},
+                     streamed_ms=streamed)
 
 
 def _xent_entries():
     """Both xent kernels against their plain versions: the training
-    path's [B*256, 32000] fp32 logits, then edge cases; the backward's
-    dx must repeat bit for bit on a second launch."""
+    path's [B*256, 32000] fp32 logits, the MNIST head's [4096, 10], then
+    edge cases; the backward's dx must repeat bit for bit on a second
+    launch. Then both timed (_xent_timing) at the training shape in fp32
+    and in bf16 (AMP's logits) and at the MNIST head's."""
     n_main = TRAIN_TOKENS
     cases = [(n_main, TRAIN["vocab"], torch.float32, LABEL_SMOOTH, False,
               False),
              (n_main, TRAIN["vocab"], torch.float32, 0.0, True, True),
+             # the MNIST head as phase 10 trains it: rows of 40 bytes,
+             # each but the first off a 16-byte boundary, one CTA a row
+             (MNIST_BATCH, 10, torch.float32, 0.0, False, False),
              (33, 1000, torch.float32, LABEL_SMOOTH, True, True),
              (64, TRAIN["vocab"], torch.bfloat16, LABEL_SMOOTH, True, True),
              # rows that start off a 16-byte boundary: fp32 V % 4, bf16
@@ -1784,52 +1881,18 @@ def _xent_entries():
             errs["bwd"].append(eb)
     assert bodies == {"staged", "streamed"}, bodies
     del x, lab, dloss, loss, lse, dx, wloss, wlse, wdx
-    x, lab, dloss = _xent_case(n_main, TRAIN["vocab"], torch.float32, 30,
-                               ignored=False)
-    eps = LABEL_SMOOTH
-    n, v = x.shape
-    fwd_ms = time_ms(lambda: KX.xent_forward(x, lab, eps))
-    fwd_plain = time_ms(lambda: KX.xent_forward_plain(x, lab, eps), iters=5)
-    bwd_plain = time_ms(lambda: KX.xent_backward_plain(x, lab, dloss, eps),
-                        iters=5)
-
-    def lib_fwd():
-        return torch.nn.functional.cross_entropy(
-            x, lab, reduction="none", label_smoothing=eps,
-            ignore_index=-100)
-
-    xr = x.detach().requires_grad_()
-    lib_loss = torch.nn.functional.cross_entropy(
-        xr, lab, reduction="none", label_smoothing=eps, ignore_index=-100)
-    lib_dx = torch.autograd.grad(lib_loss, xr, dloss)[0]
-    torch.cuda.synchronize()
-    want_dx = KX.xent_backward_plain(x, lab, dloss, eps)
-    log(f"  xent library F.cross_entropy vs plain: forward max_abs_err "
-        f"{max_err(lib_fwd(), KX.xent_forward_plain(x, lab, eps)[0]):.3e}, "
-        f"backward {max_err(lib_dx, want_dx):.3e}")
-    del want_dx, lib_dx, lib_loss, xr
-    fwd_lib = time_ms(lib_fwd)
-    del x, lab, dloss
-    bwd = _xent_timing(n, v, torch.float32, eps)
-    bwd_bf16 = _xent_timing(n, v, torch.bfloat16, eps)
-    # each input read once, each output written once; operations per
-    # element: max/exp/sum/add
-    fwd_b = bound_ms(4 * n * v + 8 * n + 8 * n, 5 * n * v)
-    log(f"  xent_forward [{n},{v}] fp32 eps={eps}: kernel {fwd_ms:.4f} ms, "
-        f"plain {fwd_plain:.4f} ms, library F.cross_entropy {fwd_lib:.4f} "
-        f"ms, bound {fwd_b[0]:.4f} ms ({fwd_b[1]})")
-    log(f"  xent_backward [{n},{v}] fp32 eps={eps}: plain {bwd_plain:.4f} "
-        f"ms")
-    out = dict(xent_forward=dict(
-        max_abs_err=max(errs["fwd"]), ms=fwd_ms, plain_ms=fwd_plain,
-        bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=fwd_lib,
-        shape=[n, v]))
-    bf16 = {k: bwd_bf16[k] for k in ("ms", "bound_ms", "library_ms",
-                                     "copy_ms", "cluster", "cluster_ms",
-                                     "streamed_ms")}
-    out["xent_backward"] = dict(max_abs_err=max(errs["bwd"]),
-                                plain_ms=bwd_plain, **bwd, bf16=bf16)
-    return out
+    # (n, v, dtype, eps, the plain versions' iterations)
+    vocab = TRAIN["vocab"]
+    (fwd, bwd), (fwd_bf16, bwd_bf16), (fwd_mnist, bwd_mnist) = (
+        _xent_timing(*point) for point in (
+            (n_main, vocab, torch.float32, LABEL_SMOOTH, 5),
+            (n_main, vocab, torch.bfloat16, LABEL_SMOOTH, 5),
+            (MNIST_BATCH, 10, torch.float32, 0.0, 20)))
+    return dict(
+        xent_forward=dict(max_abs_err=max(errs["fwd"]), **fwd,
+                          bf16=fwd_bf16, mnist=fwd_mnist),
+        xent_backward=dict(max_abs_err=max(errs["bwd"]), **bwd,
+                           bf16=bwd_bf16, mnist=bwd_mnist))
 
 
 def phase_lookup_table():
@@ -4168,6 +4231,182 @@ def phase_train_recompute(card_name, card):
     return counts, res
 
 
+# ---------------------------------------------------------------------------
+def _mnist_feed():
+    """bench.py bench_mnist's synthetic separable batch (bench.py:375-377)
+    on [784] images: noise of 0.1, and 2.0 added at the pixel the label
+    names."""
+    r = np.random.RandomState(0)
+    lab = r.randint(0, 10, (MNIST_BATCH, 1)).astype(np.int64)
+    img = r.randn(MNIST_BATCH, 784).astype(np.float32) * 0.1
+    img[np.arange(MNIST_BATCH), lab[:, 0]] += 2.0
+    return {"img": img, "label": lab}
+
+
+def _mnist_program(opt=("SGD", {}), schedule=None):
+    """The MNIST fc net (models/mnist.py build_program(use_conv=False))
+    with `opt` (class name, kwargs) under the learning rate `schedule`
+    (name, args) or MNIST_LR: (main, loss, accuracy, rate or None,
+    seeded initial state)."""
+    with unique_name.guard():
+        main, startup, loss, acc = mnist.build_program(use_conv=False)
+        with pf.program_guard(main, startup):
+            lr = MNIST_LR
+            if schedule is not None:
+                lr = getattr(pf.layers, schedule[0])(*schedule[1])
+            getattr(pf.optimizer, opt[0])(learning_rate=lr,
+                                          **opt[1]).minimize(loss)
+    startup.random_seed = SEED
+    names = [n for n, v in startup.global_block.vars.items()
+             if v.persistable]
+    scope = pf.Scope()
+    pf.Executor(pf.CPUPlace()).run(startup, scope=scope)
+    return (main, loss, acc, None if schedule is None else lr,
+            pf.scope_to_numpy(scope, names))
+
+
+def _fresh(state, place):
+    sc = pf.Scope()
+    pf.load_numpy_params(sc, state, place)
+    return sc
+
+
+def _mnist_leg(opt, kw, sched, args):
+    """`opt` under the schedule `sched`(*args), MNIST_LEG_STEPS eager
+    steps on the card and on the CPU from the same seeded state: the
+    losses within LOSS_RTOL, the rate fetched each step within LR_RTOL;
+    the xent kernels launch once each a step."""
+    main, loss, _, lr, state = _mnist_program((opt, kw), (sched, args))
+    feed = _mnist_feed()
+    runs = {}
+    for where, place in (("cpu", pf.CPUPlace()), ("card", pf.CUDAPlace(0))):
+        exe, scope = pf.Executor(place), _fresh(state, place)
+        KX.xent_forward.launches = KX.xent_backward.launches = 0
+        out = [exe.run(main, feed=feed, fetch_list=[loss, lr], scope=scope)
+               for _ in range(MNIST_LEG_STEPS)]
+        runs[where] = (
+            np.array([float(o[0].reshape(-1)[0]) for o in out]),
+            np.array([float(o[1].reshape(-1)[0]) for o in out]),
+            (KX.xent_forward.launches, KX.xent_backward.launches))
+    (gl, gr, launches), (wl, wr, _) = runs["card"], runs["cpu"]
+    lerr = float(np.max(np.abs(gl - wl) / np.abs(wl)))
+    rerr = float(np.max(np.abs(gr - wr) / np.abs(wr)))
+    log(f"  {opt} under {sched}{tuple(args)}: losses "
+        + ", ".join(f"{x:.6f}" for x in gl) + f"; rate "
+        + ", ".join(f"{x:.6g}" for x in gr) + f"; rel err against the CPU "
+        f"loss {lerr:.3e} (tol {LOSS_RTOL:g}), rate {rerr:.3e} (tol "
+        f"{LR_RTOL:g}); xent launches {launches}")
+    assert np.isfinite(gl).all() and lerr <= LOSS_RTOL, (opt, lerr)
+    assert rerr <= LR_RTOL, (opt, rerr)
+    assert len(set(gr.tolist())) > 1, (opt, "the rate never moved")
+    assert launches == (MNIST_LEG_STEPS, MNIST_LEG_STEPS), launches
+    return dict(optimizer=opt, schedule=sched, losses=gl.tolist(),
+                rates=gr.tolist(), loss_rel_err=lerr, rate_rel_err=rerr)
+
+
+def phase_train_mnist(card_name, card):
+    """The MNIST fc net (784-128-64-10, BASELINE.md config 1) at batch
+    MNIST_BATCH under SGD: step 1 on the card against the CPU (the loss
+    within LOSS_RTOL, the grads by MNIST_GRADS), then MNIST_STEPS eager
+    steps (the xent kernels launch once each a step; the loss falls) and
+    one run_steps call of MNIST_STEPS steps (one capture) whose losses
+    match the eager ones within STEPS_RTOL, then MNIST_TIMED_CALLS calls
+    from the seeded weights that capture nothing and are timed; then one
+    5-step
+    leg of each other optimizer under a schedule (MNIST_LEGS). Returns
+    (launches by kernel on the eager leg, results)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    main, loss, acc, _, state = _mnist_program()
+    feed = _mnist_feed()
+    grads = [g + "@GRAD" for g in MNIST_GRADS]
+    ref = pf.Executor(pf.CPUPlace()).run(
+        main, feed=feed, fetch_list=[loss] + grads,
+        scope=_fresh(state, pf.CPUPlace()))
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    got = gpu.run(main, feed=feed, fetch_list=[loss] + grads,
+                  scope=_fresh(state, pf.CUDAPlace(0)))
+    lerr = abs(float(got[0][0]) - float(ref[0][0])) / abs(float(ref[0][0]))
+    gerrs = {g: _rel(got[1 + i], ref[1 + i]) for i, g in
+             enumerate(MNIST_GRADS)}
+    log(f"train mnist: step 1 at batch {MNIST_BATCH}, card against the "
+        f"CPU: loss {float(got[0][0]):.7f} rel err {lerr:.3e} (tol "
+        f"{LOSS_RTOL:g}); grads norm-wise "
+        + ", ".join(f"{g} {e:.3e} (tol {MNIST_GRADS[g]:g})"
+                    for g, e in gerrs.items()))
+    assert lerr <= LOSS_RTOL, lerr
+    assert all(e <= MNIST_GRADS[g] for g, e in gerrs.items()), gerrs
+    # the main path: eager steps, the counters set to 0 just before
+    scope = _fresh(state, pf.CUDAPlace(0))
+    torch.cuda.synchronize()
+    KX.xent_forward.launches = KX.xent_backward.launches = 0
+    eager = [gpu.run(main, feed=feed, fetch_list=[loss, acc], scope=scope)
+             for _ in range(MNIST_STEPS)]
+    torch.cuda.synchronize()
+    launches = {"xent_forward": KX.xent_forward.launches,
+                "xent_backward": KX.xent_backward.launches}
+    losses = np.array([float(o[0][0]) for o in eager])
+    accs = [float(o[1][0]) for o in eager]
+    log(f"train mnist eager: losses " + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; accuracy {accs[0]:.4f} -> {accs[-1]:.4f}; launches "
+        f"{launches} over {MNIST_STEPS} steps")
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert launches == dict.fromkeys(launches, MNIST_STEPS), launches
+    # run_steps: one capture, then a call that replays only, timed
+    scope = _fresh(state, pf.CUDAPlace(0))
+    compiles = gpu.compile_count
+
+    def call():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = gpu.run_steps(main, feed=feed, fetch_list=[loss],
+                            steps=MNIST_STEPS, scope=scope)[0].reshape(-1)
+        torch.cuda.synchronize()
+        assert gpu.last_run_steps_fallback is None, \
+            gpu.last_run_steps_fallback
+        assert gpu.compile_count == compiles + 1, gpu.compile_count
+        return out, time.monotonic() - t0
+
+    first, capture_s = call()
+    runs, walls = [first], []
+    for _ in range(MNIST_TIMED_CALLS):
+        pf.load_numpy_params(scope, state, pf.CUDAPlace(0))
+        out, wall_s = call()
+        runs.append(out)
+        walls.append(wall_s * 1e3)
+    errs = [float(np.max(np.abs(r - losses) / np.abs(losses)))
+            for r in runs]
+    call_ms = float(np.median(walls))
+    step_ms = call_ms / MNIST_STEPS
+    log(f"train mnist run_steps: capturing call {capture_s:.3f} s; rel err "
+        f"against the eager losses, worst of the capturing call and "
+        f"{MNIST_TIMED_CALLS} replaying calls from the seeded weights "
+        f"(capturing nothing) {max(errs):.3e} (tol {STEPS_RTOL:g}); the "
+        f"replaying calls took "
+        + ", ".join(f"{w:.3f}" for w in walls)
+        + f" ms (host clock), median {call_ms:.3f} ms: {step_ms:.4f} ms a "
+        f"step, {MNIST_BATCH / (step_ms / 1e3):.0f} examples/s, spread "
+        f"{min(walls) / MNIST_STEPS:.4f}-{max(walls) / MNIST_STEPS:.4f} ms "
+        f"a step on {card_name} ({card})")
+    assert max(errs) <= STEPS_RTOL, errs
+    assert all(r[-1] < r[0] for r in runs), runs
+    (_, _), prof = _device_profile(
+        "train mnist run_steps profile",
+        lambda: (pf.load_numpy_params(scope, state, pf.CUDAPlace(0)),
+                 call()))
+    legs = [_mnist_leg(*leg) for leg in MNIST_LEGS]
+    assert {leg[2] for leg in MNIST_LEGS} == {
+        "exponential_decay", "natural_exp_decay", "inverse_time_decay",
+        "polynomial_decay", "piecewise_decay", "cosine_decay",
+        "linear_lr_warmup"}
+    return launches, dict(
+        batch=MNIST_BATCH, steps=MNIST_STEPS, loss_rel_err=lerr,
+        grad_rel_errs=gerrs, losses=losses.tolist(), accuracy=accs,
+        run_steps_rel_errs=errs, capture_call_s=capture_s,
+        call_ms=call_ms, calls_ms=walls, step_ms=step_ms,
+        examples_per_s=MNIST_BATCH / (step_ms / 1e3), profile=prof,
+        legs=legs, card=card)
+
+
 def main():
     t_start = time.monotonic()
 
@@ -4248,6 +4487,8 @@ def main():
     trained["recompute"]["launches"] = counts
     for kname, n in counts.items():
         trained_launches[kname] += n
+    phase("train mnist")
+    mnist_launches, trained["mnist"] = phase_train_mnist(name, card)
     phase("paged serve")
     paged_launches, paged = phase_paged(name, card)
     line = []
@@ -4255,6 +4496,7 @@ def main():
         e = entries[kname]
         on_paths = dict(served=served_launches.get(kname, 0),
                         trained=trained_launches[kname],
+                        trained_mnist=mnist_launches.get(kname, 0),
                         served_paged=paged_launches.get(kname, 0))
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
         extra = {x: e[x] for x in ("max_rel_err", "residual", "library",
@@ -4266,7 +4508,8 @@ def main():
                                    "cold_clean_ms", "launch_alone_ms",
                                    "by_step", "cluster", "body",
                                    "copy_ms",
-                                   "cluster_ms", "streamed_ms", "bf16")
+                                   "cluster_ms", "streamed_ms", "bf16",
+                                   "mnist")
                  if x in e}
         line.append(dict(name=kname, route="cuda", source=src,
                          replaces=replaces, launches=sum(on_paths.values()),

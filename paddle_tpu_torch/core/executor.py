@@ -87,7 +87,12 @@ def _init_cuda_context():
 
 
 class CPUPlace:
-    """Host placement (reference platform/place.h CPUPlace)."""
+    """Host placement (reference platform/place.h CPUPlace). `device_id`
+    is taken, as the JAX package takes it, and names no other device:
+    the host is one."""
+
+    def __init__(self, device_id: int = 0):
+        self.device_id = device_id
 
     def device(self) -> torch.device:
         return torch.device("cpu")
@@ -270,13 +275,22 @@ class Executor:
     disk_load_count = 0
     cache_evict_count = 0
 
-    def __init__(self, place=None):
+    def __init__(self, place=None, donate: bool = True,
+                 cache: Optional[Dict] = None):
+        """`donate` is taken and changes nothing: the port's ops never
+        write into the tensors they read, so there is no buffer to hand
+        over (XLA's donation in the JAX package). `cache`, a dict, is
+        the program cache to share with other executors: a program one of
+        them prepared is a hit for the others of the same place. The
+        place is part of each key, so an executor of another place misses
+        and prepares its own."""
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
         self.compile_count = 0
         self.cache_hit_count = 0
         self.last_run_steps_fallback: Optional[str] = None
-        self._cache: Dict[tuple, PreparedProgram] = {}
+        self._cache: Dict[tuple, PreparedProgram] = \
+            {} if cache is None else cache
         self._warned = set()
         self._stream = None  # the side stream of warm-ups and captures
         self._pool = None  # the memory pool every captured graph shares
@@ -296,10 +310,15 @@ class Executor:
         return v
 
     def run(self, program: Optional[Program] = None, feed=None,
-            fetch_list=None, scope: Optional[Scope] = None,
-            return_numpy: bool = True):
+            fetch_list=None, feed_var_name="feed", fetch_var_name="fetch",
+            scope: Optional[Scope] = None, return_numpy: bool = True,
+            use_program_cache: bool = True):
         """One step, through the PreparedProgram cached for this program,
-        feed specs, fetch list and scope."""
+        feed specs, fetch list and scope; the reference's parameters in
+        its order. `feed_var_name` and `fetch_var_name` are taken and
+        change nothing (the port's programs hold no feed or fetch ops to
+        name). With `use_program_cache=False` the step runs through a
+        PreparedProgram made for it alone, which is not cached."""
         program = program or default_main_program()
         scope = scope or global_scope()
         feed = dict(feed or {})
@@ -307,13 +326,15 @@ class Executor:
         key = self._block_cache_key(program, _feed_specs(feed),
                                     fetch_names, scope)
         prepared = self._prepared(key, scope, lambda: PreparedProgram(
-            self, program, list(feed), fetch_names, scope))
+            self, program, list(feed), fetch_names, scope),
+            use_program_cache)
         return prepared.run(feed, return_numpy=return_numpy)
 
     def run_steps(self, program: Optional[Program] = None, feed=None,
                   fetch_list=None, steps: Optional[int] = None,
                   scope: Optional[Scope] = None,
-                  return_numpy: bool = True):
+                  return_numpy: bool = True,
+                  use_program_cache: bool = True):
         """K steps of `program` (``paddle_tpu/core/executor.py``
         ``run_steps``), equal to K ``run`` calls: the step key advances
         once a step and the K-th step's persistables end in the scope.
@@ -326,7 +347,9 @@ class Executor:
 
         On the card the first call runs step 1 eagerly on a side stream,
         captures one step in a CUDA graph on it and replays the graph for
-        the rest; a later call under the same key replays all K. A step
+        the rest; a later call under the same key replays all K (with
+        ``use_program_cache=False`` nothing is kept: each call prepares,
+        and on the card captures, anew). A step
         that cannot be captured runs eagerly on the card, with the reason
         in ``last_run_steps_fallback`` (None otherwise) and warned once
         per program and reason; any other failure to capture raises. On
@@ -363,7 +386,8 @@ class Executor:
         key = self._block_cache_key(program, _feed_specs(first),
                                     fetch_names, scope) + (steps, stacked)
         prepared = self._prepared(key, scope, lambda: PreparedProgram(
-            self, program, list(first), fetch_names, scope, steps=steps))
+            self, program, list(first), fetch_names, scope, steps=steps),
+            use_program_cache)
         return self._run_steps(prepared, feed, stacked, return_numpy)
 
     def prepare(self, program: Program, feed=None, fetch_list=None,
@@ -393,19 +417,23 @@ class Executor:
                                steps=None if steps is None else int(steps))
 
     # --- the program cache ---------------------------------------------
-    @staticmethod
-    def _block_cache_key(program, feed_specs, fetch_names, scope):
+    def _block_cache_key(self, program, feed_specs, fetch_names, scope):
         """(``_block_cache_key`` in the JAX package, with the scope the
-        prepared program binds.) A `_version` bump misses, and so does a
-        change of the AMP state."""
+        prepared program binds and this executor's device, as a shared
+        cache needs.) A `_version` bump misses, and so does a change of
+        the AMP state."""
         return (program._uid, program._version, tuple(sorted(feed_specs)),
-                tuple(fetch_names), scope._uid, amp.state_token())
+                tuple(fetch_names), scope._uid, amp.state_token(),
+                str(self.device))
 
-    def _prepared(self, key, scope, make):
+    def _prepared(self, key, scope, make, use_cache=True):
         """The PreparedProgram cached under `key`, or `make()`'s, kept
         in the cache until `scope` is gone (with it go the tensors of a
         captured step) or the program's `_version` moves on: a new entry
-        drops those of the program's older versions for this scope."""
+        drops those of the program's older versions for this scope.
+        Without `use_cache`, `make()`'s, neither looked up nor kept."""
+        if not use_cache:
+            return make()
         prepared = self._cache.get(key)
         if prepared is not None:
             self.cache_hit_count += 1

@@ -90,6 +90,12 @@ class Variable:
     def __rmul__(self, o):
         return self._binary(o, "elementwise_mul", True)
 
+    def __truediv__(self, o):
+        return self._binary(o, "elementwise_div")
+
+    def __rtruediv__(self, o):
+        return self._binary(o, "elementwise_div", True)
+
     def __neg__(self):
         from .. import layers
 

@@ -19,8 +19,13 @@ _scope_uid_counter = itertools.count()
 
 
 class Scope:
-    def __init__(self):
+    """Names to tensors. A scope made with a `parent` reads a name it
+    lacks from its parents, and writes a name where it is found, else in
+    itself (reference scope.h)."""
+
+    def __init__(self, parent: Optional["Scope"] = None):
         self._vars: Dict[str, torch.Tensor] = {}
+        self.parent = parent
         # process-unique identity for the Executor's cache keys
         self._uid = next(_scope_uid_counter)
         # (host step key, the same key as a 0-d int64 device tensor): the
@@ -28,9 +33,20 @@ class Scope:
         self._device_key: Optional[Tuple[int, torch.Tensor]] = None
 
     def _get(self, name) -> Optional[torch.Tensor]:
-        return self._vars.get(name)
+        s = self
+        while s is not None:
+            if name in s._vars:
+                return s._vars[name]
+            s = s.parent
+        return None
 
     def _set(self, name, value: torch.Tensor):
+        s = self
+        while s is not None:
+            if name in s._vars:
+                s._vars[name] = value
+                return
+            s = s.parent
         self._vars[name] = value
 
 

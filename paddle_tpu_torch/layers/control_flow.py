@@ -10,7 +10,8 @@ from __future__ import annotations
 from ..core.program import default_main_program
 from ..layer_helper import LayerHelper
 
-__all__ = ["less_than", "greater_than", "equal", "increment", "While"]
+__all__ = ["less_than", "greater_than", "equal", "less_than_value",
+           "increment", "While"]
 
 
 def _cmp_layer(op_type):
@@ -28,6 +29,13 @@ def _cmp_layer(op_type):
 less_than = _cmp_layer("less_than")
 greater_than = _cmp_layer("greater_than")
 equal = _cmp_layer("equal")
+
+
+def less_than_value(x, value: float):
+    """x < value, the value a float32 [1] constant."""
+    from . import tensor
+
+    return less_than(x, tensor.fill_constant([1], "float32", value))
 
 
 def increment(x, value=1.0, in_place=True):

@@ -18,7 +18,7 @@ __all__ = [
     "elementwise_min", "softmax_with_cross_entropy", "mean",
     "attention_block", "ffn_block", "gather", "expand",
     "masked_pool_write", "paged_decode_attention", "dropout", "clip",
-    "clip_by_norm", "elementwise_div",
+    "clip_by_norm", "elementwise_div", "elementwise_pow", "topk",
 ]
 
 
@@ -235,6 +235,18 @@ elementwise_mul = _make_elementwise("elementwise_mul")
 elementwise_div = _make_elementwise("elementwise_div")
 elementwise_max = _make_elementwise("elementwise_max")
 elementwise_min = _make_elementwise("elementwise_min")
+elementwise_pow = _make_elementwise("elementwise_pow")
+
+
+def topk(input, k, name=None):
+    """The k largest values of each row along the last axis and their
+    int32 indices (the ``top_k`` op)."""
+    helper = LayerHelper("top_k", input=input, name=name)
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op("top_k", {"X": input},
+                     {"Out": values, "Indices": indices}, {"k": k})
+    return values, indices
 
 
 def reduce_sum(input, dim=None, keep_dim=False, name=None):

@@ -32,9 +32,10 @@ the reference's batch grouping and its VMEM estimate against 12 MiB, a
 TPU condition that refuses Transformer-base's width (D 512 at batch 64,
 T 256: on a TPU the op then computes the reference composition). So on
 the card these kernels run at full width, where the TPU would not run
-its own. The kernels take fp32 only: their bf16 instances are not
-ported yet, so on the card a bf16 call (as AMP makes it: the op is on
-the WHITE list) raises NotImplementedError and never runs the plain
+its own. The kernels take fp32 and bf16 (every input of one dtype): on
+the card a bf16 call, as AMP makes it (the op is on the WHITE list),
+launches the bf16 instances (the products on ``tile_mma.cuh`` with bf16
+operands); a call the kernels refuse raises and never runs the plain
 version.
 """
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Dense math, elementwise ops with fluid axis broadcasting, relu,
-rsqrt, sqrt, sign, reduce_sum, squared_l2_norm, mean and comparisons:
-the port's subset of ``paddle_tpu/ops/math_ops.py`` (reference
-mul_op.cc, matmul_op.cc, elementwise_op_function.h, activation_op.cc,
-reduce_ops/, squared_l2_norm_op.cc, mean_op.cc, compare_op.cc). Their
-grads come from the generic vjp maker; sign has none.
+rsqrt, sqrt, exp, square, cos, floor, ceil, sign, reduce_sum,
+squared_l2_norm, mean and comparisons: the port's subset of
+``paddle_tpu/ops/math_ops.py`` (reference mul_op.cc, matmul_op.cc,
+elementwise_op_function.h, activation_op.cc, reduce_ops/,
+squared_l2_norm_op.cc, mean_op.cc, compare_op.cc). Their grads come from
+the generic vjp maker; sign, floor and ceil have none, and
+elementwise_pow's vjp takes JAX's derivative rules (`_Pow`).
 
 The matrix products go to ``torch.matmul``, as the JAX package leaves
 them to XLA; TF32 is off wherever the port runs on the card.
@@ -81,6 +83,52 @@ register_op("elementwise_min")(_ew(torch.minimum))
 register_op("elementwise_max")(_ew(torch.maximum))
 
 
+def _sum_to(g, shape):
+    """`g` summed over the axes along which `shape` was broadcast."""
+    lead = g.dim() - len(shape)
+    if lead:
+        g = g.sum(dim=tuple(range(lead)))
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and g.shape[i] != 1)
+    return g.sum(dim=dims, keepdim=True) if dims else g
+
+
+class _Pow(torch.autograd.Function):
+    """x ** y with ``jax.lax.pow``'s derivatives, which torch's differ from
+    at base 0: d/dx = y x^(y-1) (NaN at x = y = 0, where torch gives 0;
+    with an integer y, 0 where y == 0), d/dy = log(x or 1 where x == 0)
+    x^y (NaN at x = 0, y < 0, where torch gives -inf)."""
+
+    @staticmethod
+    def forward(x, y):
+        return torch.pow(x, y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, out = ctx.saved_tensors
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            yf = y.to(x.dtype)
+            jac = yf * torch.pow(x, yf - 1)
+            if not y.is_floating_point():
+                jac = torch.where(y == 0, torch.zeros_like(jac), jac)
+            dx = _sum_to(g * jac, x.shape)
+        if ctx.needs_input_grad[1]:
+            safe = torch.where(x == 0, torch.ones_like(x), x)
+            dy = _sum_to(g * (torch.log(safe) * out), y.shape)
+        return dx, dy
+
+
+@register_op("elementwise_pow")
+def elementwise_pow(ctx):
+    """x ** y, Y broadcast from `axis` (``jnp.power``)."""
+    x, y = ctx.input("X"), ctx.input("Y")
+    return _Pow.apply(x, _broadcast_y(x, y, ctx.attr("axis", -1)))
+
+
 @register_op("relu")
 def relu(ctx):
     return torch.relu(ctx.input("X"))
@@ -96,10 +144,40 @@ def sqrt(ctx):
     return torch.sqrt(ctx.input("X"))
 
 
+@register_op("exp")
+def exp(ctx):
+    return torch.exp(ctx.input("X"))
+
+
+@register_op("square")
+def square(ctx):
+    x = ctx.input("X")
+    return x * x
+
+
+@register_op("cos")
+def cos(ctx):
+    return torch.cos(ctx.input("X"))
+
+
+@register_op("floor", differentiable=False)
+def floor(ctx):
+    return torch.floor(ctx.input("X"))
+
+
+@register_op("ceil", differentiable=False)
+def ceil(ctx):
+    return torch.ceil(ctx.input("X"))
+
+
 @register_op("sign", differentiable=False)
 def sign(ctx):
-    """-1, 0 or 1 (0 at 0, as ``jnp.sign``)."""
-    return torch.sign(ctx.input("X"))
+    """-1 or 1, and X itself where X is 0, -0 or NaN, as ``jnp.sign``
+    gives them (``torch.sign`` maps NaN to 0)."""
+    x = ctx.input("X")
+    if not x.is_floating_point():
+        return torch.sign(x)
+    return torch.where((x == 0) | torch.isnan(x), x, torch.sign(x))
 
 
 @register_op("squared_l2_norm")

@@ -1,8 +1,9 @@
 """NN ops of the serving and training slices: layer_norm, softmax,
 softmax_with_cross_entropy, lookup_table, dropout, attention and the fused
-attention_block and ffn_block (the subset of ``paddle_tpu/ops/nn_ops.py``
-the paths run; reference layer_norm_op.cc, softmax_op.cc,
-softmax_with_cross_entropy_op.cc, lookup_table_op.cc, dropout_op.cc).
+attention_block and ffn_block, and the accuracy metric (the subset of
+``paddle_tpu/ops/nn_ops.py`` the paths run; reference layer_norm_op.cc,
+softmax_op.cc, softmax_with_cross_entropy_op.cc, lookup_table_op.cc,
+dropout_op.cc, metrics/accuracy_op.cc).
 
 layer_norm, attention, attention_block, ffn_block and
 softmax_with_cross_entropy (hard labels) route to the hand-written kernels
@@ -353,9 +354,10 @@ def ffn_block(ctx):
     """The whole position-wise MLP sub-layer as one op, relu(x W1 + b1) W2
     + b2 (nn_ops.py `ffn_block_op` in the JAX package). Shapes and dtypes
     the JAX package's gate takes (fp32 or bf16) go to the kernel wrapper,
-    others to the plain composition; on the card a bf16 call raises, as
-    the kernels take fp32 only. Its grad comes from the generic vjp, which
-    on the card runs the forward kernel and then the backward kernel."""
+    others to the plain composition; on the card a bf16 call launches the
+    bf16 kernels (wgmma fed by TMA), an fp32 call the split-TF32 ones.
+    Its grad comes from the generic vjp, which on the card runs the
+    forward kernel and then the backward kernel."""
     x = ctx.input("X")
     args = (x, ctx.input("W1"), ctx.input("B1"), ctx.input("W2"),
             ctx.input("B2"))
@@ -371,9 +373,10 @@ def attention_block(ctx):
     package), in place of the seven ops multi_head_attention otherwise
     emits. Shapes and dtypes the JAX package's gate takes (fp32 or bf16)
     go to the kernel wrapper, others to the plain composition; on the card
-    a bf16 call raises, as the kernels take fp32 only. Its grad comes
-    from the generic vjp, which on the card runs the forward kernel with P
-    saved and then the backward kernel (no exp)."""
+    a bf16 call launches the kernels' bf16 instances, an fp32 call their
+    split-TF32 ones. Its grad comes from the generic vjp, which on the
+    card runs the forward kernel with P saved and then the backward
+    kernel (no exp)."""
     x, wqkv, wo = ctx.input("X"), ctx.input("WQKV"), ctx.input("WO")
     n_heads = int(ctx.attr("n_heads"))
     scale = ctx.attr("scale", None)
@@ -388,3 +391,23 @@ def attention_block(ctx):
         out = K_ab.attention_block_plain(x, wqkv, wo, n_heads, float(scale),
                                          causal)
     return {"Out": out}
+
+
+@register_op("accuracy", differentiable=False)
+def accuracy(ctx):
+    """The share of rows whose Label is among their top-k Indices
+    (reference metrics/accuracy_op.cc; ``paddle_tpu/ops/nn_ops.py``
+    accuracy): Accuracy float32 [1], Correct and Total int32 [1]. Total
+    comes from the shape, so no value crosses to the host and a captured
+    step can fetch all three."""
+    indices = ctx.input("Indices")
+    label = ctx.input("Label").to(indices.dtype)
+    if label.dim() == 1:
+        label = label[:, None]
+    correct = torch.any(indices == label, dim=-1)
+    total = correct.shape[0]
+    num_correct = torch.sum(correct.to(torch.float32))
+    return {"Accuracy": (num_correct / total).reshape(1),
+            "Correct": num_correct.to(torch.int32).reshape(1),
+            "Total": torch.full((1,), total, dtype=torch.int32,
+                                device=indices.device)}

@@ -1,6 +1,10 @@
-"""Optimizer update ops: sgd and adam (the port's subset of
-``paddle_tpu/ops/optimizer_ops.py``; reference
-operators/optimizers/sgd_op.cc, adam_op.cc).
+"""Optimizer update ops: sgd, momentum, lars_momentum, adam, adamax,
+adagrad, decayed_adagrad, adadelta, rmsprop and ftrl (the port's subset
+of ``paddle_tpu/ops/optimizer_ops.py``, its formulas in the same order
+of operations; reference operators/optimizers/sgd_op.cc,
+momentum_op.cc, lars_momentum_op.cc, adam_op.cc, adamax_op.cc,
+adagrad_op.cc, decayed_adagrad_op.cc, adadelta_op.cc, rmsprop_op.cc,
+ftrl_op.cc).
 
 Optimizers are graph ops, as in the reference: each reads Param and its
 accumulators and writes ParamOut and the accumulator outs, which the
@@ -45,3 +49,146 @@ def adam(ctx):
         out["Beta1PowOut"] = b1p.reshape(1) * b1
         out["Beta2PowOut"] = b2p.reshape(1) * b2
     return out
+
+
+@register_op("momentum", differentiable=False)
+def momentum(ctx):
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    v = ctx.input("Velocity")
+    lr = ctx.input("LearningRate").reshape(())
+    mu = ctx.attr("mu")
+    v_out = mu * v + g
+    if ctx.attr("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return {"ParamOut": p_out, "VelocityOut": v_out}
+
+
+@register_op("lars_momentum", differentiable=False)
+def lars_momentum(ctx):
+    """Momentum with the layer-wise rate lr·coeff·|p| / (|g| + wd·|p|)."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    v = ctx.input("Velocity")
+    lr = ctx.input("LearningRate").reshape(())
+    mu = ctx.attr("mu")
+    lars_coeff = ctx.attr("lars_coeff", 0.001)
+    lars_wd = ctx.attr("lars_weight_decay", 0.0005)
+    p_norm = torch.sqrt(torch.sum(p * p))
+    g_norm = torch.sqrt(torch.sum(g * g))
+    local_lr = lr * lars_coeff * p_norm / (
+        g_norm + lars_wd * p_norm + 1e-9)
+    v_out = mu * v + local_lr * (g + lars_wd * p)
+    return {"ParamOut": p - v_out, "VelocityOut": v_out}
+
+
+@register_op("adamax", differentiable=False)
+def adamax(ctx):
+    """Adam under the infinity norm. Beta1Pow is read, not advanced: the
+    optimizer scales it once a step after every update
+    (``AdamaxOptimizer._finish_update``)."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    m = ctx.input("Moment")
+    inf = ctx.input("InfNorm")
+    b1p = ctx.input("Beta1Pow").reshape(())
+    lr = ctx.input("LearningRate").reshape(())
+    b1 = ctx.attr("beta1", 0.9)
+    b2 = ctx.attr("beta2", 0.999)
+    eps = ctx.attr("epsilon", 1e-8)
+    m_out = b1 * m + (1 - b1) * g
+    inf_out = torch.maximum(b2 * inf, torch.abs(g) + eps)
+    p_out = p - (lr / (1 - b1p)) * (m_out / inf_out)
+    return {"ParamOut": p_out, "MomentOut": m_out, "InfNormOut": inf_out}
+
+
+@register_op("adagrad", differentiable=False)
+def adagrad(ctx):
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    m = ctx.input("Moment")
+    lr = ctx.input("LearningRate").reshape(())
+    eps = ctx.attr("epsilon", 1e-6)
+    m_out = m + g * g
+    p_out = p - lr * g / (torch.sqrt(m_out) + eps)
+    return {"ParamOut": p_out, "MomentOut": m_out}
+
+
+@register_op("decayed_adagrad", differentiable=False)
+def decayed_adagrad(ctx):
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    m = ctx.input("Moment")
+    lr = ctx.input("LearningRate").reshape(())
+    decay = ctx.attr("decay", 0.95)
+    eps = ctx.attr("epsilon", 1e-6)
+    m_out = decay * m + (1 - decay) * g * g
+    p_out = p - lr * g / (torch.sqrt(m_out) + eps)
+    return {"ParamOut": p_out, "MomentOut": m_out}
+
+
+@register_op("adadelta", differentiable=False)
+def adadelta(ctx):
+    """No learning rate: the step is sqrt((E[dx^2] + eps) / (E[g^2] +
+    eps)) g."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    asg = ctx.input("AvgSquaredGrad")
+    asu = ctx.input("AvgSquaredUpdate")
+    rho = ctx.attr("rho", 0.95)
+    eps = ctx.attr("epsilon", 1e-6)
+    asg_out = rho * asg + (1 - rho) * g * g
+    update = -torch.sqrt((asu + eps) / (asg_out + eps)) * g
+    asu_out = rho * asu + (1 - rho) * update * update
+    return {"ParamOut": p + update, "AvgSquaredGradOut": asg_out,
+            "AvgSquaredUpdateOut": asu_out}
+
+
+@register_op("rmsprop", differentiable=False)
+def rmsprop(ctx):
+    """With `centered` the mean square less the squared mean gradient
+    (MeanGrad, advanced only then), with `momentum` a heavy ball."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    ms = ctx.input("MeanSquare")
+    mom = ctx.input("Moment")
+    lr = ctx.input("LearningRate").reshape(())
+    rho = ctx.attr("decay", 0.9)
+    eps = ctx.attr("epsilon", 1e-10)
+    mu = ctx.attr("momentum", 0.0)
+    ms_out = rho * ms + (1 - rho) * g * g
+    out = {"MeanSquareOut": ms_out}
+    if ctx.attr("centered", False):
+        mg = ctx.input("MeanGrad")
+        mg_out = rho * mg + (1 - rho) * g
+        denom = ms_out - mg_out * mg_out + eps
+        out["MeanGradOut"] = mg_out
+    else:
+        denom = ms_out + eps
+    mom_out = mu * mom + lr * g / torch.sqrt(denom)
+    out["MomentOut"] = mom_out
+    out["ParamOut"] = p - mom_out
+    return out
+
+
+@register_op("ftrl", differentiable=False)
+def ftrl(ctx):
+    """Follow the regularized leader (McMahan et al. 2013): lr_power
+    -0.5 takes square roots, any other power ``**``."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    sq = ctx.input("SquaredAccumulator")
+    lin = ctx.input("LinearAccumulator")
+    lr = ctx.input("LearningRate").reshape(())
+    l1 = ctx.attr("l1", 0.0)
+    l2 = ctx.attr("l2", 0.0)
+    lr_power = ctx.attr("lr_power", -0.5)
+    new_sq = sq + g * g
+    if lr_power == -0.5:
+        sigma = (torch.sqrt(new_sq) - torch.sqrt(sq)) / lr
+    else:
+        sigma = (new_sq ** -lr_power - sq ** -lr_power) / lr
+    lin_out = lin + g - sigma * p
+    if lr_power == -0.5:
+        x = l2 + torch.sqrt(new_sq) / lr
+    else:
+        x = l2 + new_sq ** -lr_power / lr
+    pre_shrink = (torch.sign(lin_out) * l1 - lin_out) / x
+    p_out = torch.where(torch.abs(lin_out) > l1, pre_shrink,
+                        torch.zeros_like(p))
+    return {"ParamOut": p_out, "SquaredAccumOut": new_sq,
+            "LinearAccumOut": lin_out}

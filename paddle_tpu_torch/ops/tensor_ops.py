@@ -204,6 +204,19 @@ def arg_max(ctx):
     return torch.argmax(ctx.input("X"), dim=ctx.attr("axis", -1))
 
 
+@register_op("top_k", differentiable=False)
+def top_k(ctx):
+    """The k largest of each row along the last axis, largest first, and
+    their int32 indices (``jax.lax.top_k``): equal values in the order of
+    their indices, NaN above every number. ``torch.topk`` promises no
+    order among equal values, so this sorts stably."""
+    x = ctx.input("X")
+    k = int(ctx.attr("k", 1))
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return {"Out": vals[..., :k].contiguous(),
+            "Indices": idx[..., :k].to(torch.int32)}
+
+
 @register_op("fill_constant_batch_size_like", differentiable=False)
 def fill_constant_batch_size_like(ctx):
     ref = ctx.input("Input")
@@ -217,11 +230,11 @@ def fill_constant_batch_size_like(ctx):
 
 @register_op("increment")
 def increment(ctx):
-    x = ctx.input("X")
-    step = ctx.attr("step", 1.0)
-    if not x.is_floating_point() and float(step).is_integer():
-        step = int(step)  # an integer counter stays an integer
-    return x + step
+    """X + step, promoted as ``x + step`` promotes in the JAX package: an
+    integer X with a float step gives float32, with an int step stays an
+    integer (the ``increment`` layer makes an integral step an int for an
+    integer X, so a loop counter stays a counter)."""
+    return ctx.input("X") + ctx.attr("step", 1.0)
 
 
 def _take_fill(dtype):
@@ -269,10 +282,15 @@ def expand(ctx):
 def clip(ctx):
     """x limited to [min, max], as ``jnp.clip``: max(x, min) then min(.,
     max), so at a bound the gradient splits half and half as JAX's does
-    (``torch.clamp`` passes all of it)."""
+    (``torch.clamp`` passes all of it). An integer X with a float bound
+    gives float32, as ``jnp.clip`` promotes it."""
     x = ctx.input("X")
-    lo = torch.full_like(x, ctx.attr("min"))
-    hi = torch.full_like(x, ctx.attr("max"))
+    lo, hi = ctx.attr("min"), ctx.attr("max")
+    if not x.is_floating_point() and any(isinstance(b, float)
+                                         for b in (lo, hi)):
+        x = x.to(torch.float32)
+    lo = torch.full_like(x, lo)
+    hi = torch.full_like(x, hi)
     return torch.minimum(torch.maximum(x, lo), hi)
 
 

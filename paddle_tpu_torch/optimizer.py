@@ -1,12 +1,13 @@
 """Optimizers (reference python/paddle/fluid/optimizer.py; the port's
-subset of paddle_tpu/optimizer.py: the Optimizer pipeline, SGD, Adam and
-RecomputeOptimizer).
+subset of paddle_tpu/optimizer.py: the Optimizer pipeline, SGD, Momentum,
+LarsMomentum, Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp,
+Ftrl and RecomputeOptimizer).
 
 minimize() = append_backward + gradient clipping + regularization + one
-optimizer op per parameter, the reference's pipeline (optimizer.py:424,
-303, 361, 212). The optimizer ops name each parameter and accumulator as
-both input and output, so the Executor commits their new values to the
-scope.
+optimizer op per parameter + the optimizer's `_finish_update` ops, the
+reference's pipeline (optimizer.py:424, 303, 361, 212). The optimizer ops
+name each parameter and accumulator as both input and output, so the
+Executor commits their new values to the scope.
 """
 from __future__ import annotations
 
@@ -20,8 +21,13 @@ from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
-__all__ = ["SGD", "Adam", "SGDOptimizer", "AdamOptimizer",
-           "RecomputeOptimizer", "Optimizer"]
+__all__ = ["SGD", "Momentum", "Adagrad", "Adam", "Adamax",
+           "DecayedAdagrad", "Adadelta", "RMSProp", "Ftrl",
+           "SGDOptimizer", "MomentumOptimizer", "AdagradOptimizer",
+           "AdamOptimizer", "AdamaxOptimizer",
+           "DecayedAdagradOptimizer", "AdadeltaOptimizer",
+           "RMSPropOptimizer", "FtrlOptimizer", "LarsMomentum",
+           "LarsMomentumOptimizer", "RecomputeOptimizer", "Optimizer"]
 
 
 class Optimizer:
@@ -82,6 +88,10 @@ class Optimizer:
     def _create_accumulators(self, block, parameters):
         pass
 
+    def _finish_update(self, block, parameters_and_grads):
+        """Ops appended once after every parameter's update (Adamax
+        advances its beta1 powers here)."""
+
     def _append_optimize_op(self, block, param_and_grad):
         raise NotImplementedError
 
@@ -104,9 +114,11 @@ class Optimizer:
         self._create_global_learning_rate()
         self._create_accumulators(
             block, [p for p, g in parameters_and_grads if g is not None])
-        return [self._append_optimize_op(block, pg)
-                for pg in parameters_and_grads
-                if pg[1] is not None and pg[0].trainable]
+        ops = [self._append_optimize_op(block, pg)
+               for pg in parameters_and_grads
+               if pg[1] is not None and pg[0].trainable]
+        self._finish_update(block, parameters_and_grads)
+        return ops
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
@@ -128,17 +140,93 @@ class SGDOptimizer(Optimizer):
             {"ParamOut": p}, {"op_role": "optimize"})
 
 
+class MomentumOptimizer(Optimizer):
+    type = "momentum"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            {"Param": p, "Grad": g, "Velocity": v,
+             "LearningRate": self._create_param_lr(param_and_grad)},
+            {"ParamOut": p, "VelocityOut": v},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov,
+             "op_role": "optimize"})
+
+
+class LarsMomentumOptimizer(Optimizer):
+    type = "lars_momentum"
+
+    def __init__(self, learning_rate, momentum, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "lars_momentum",
+            {"Param": p, "Grad": g, "Velocity": v,
+             "LearningRate": self._create_param_lr(param_and_grad)},
+            {"ParamOut": p, "VelocityOut": v},
+            {"mu": self._momentum, "lars_coeff": self._lars_coeff,
+             "lars_weight_decay": self._lars_weight_decay,
+             "op_role": "optimize"})
+
+
+class AdagradOptimizer(Optimizer):
+    type = "adagrad"
+
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 initial_accumulator_value=0.0, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._epsilon = epsilon
+        self._initial = initial_accumulator_value
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p, fill_value=self._initial)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            "adagrad",
+            {"Param": p, "Grad": g, "Moment": m,
+             "LearningRate": self._create_param_lr(param_and_grad)},
+            {"ParamOut": p, "MomentOut": m},
+            {"epsilon": self._epsilon, "op_role": "optimize"})
+
+
 class AdamOptimizer(Optimizer):
     """Adam (reference optimizer.py AdamOptimizer): per parameter two
-    moments and two beta-power accumulators, advanced by the adam op."""
+    moments and two beta-power accumulators, advanced by the adam op.
+    `lazy_mode` is taken and changes nothing, as in the JAX package: the
+    update is the dense one, since a grad here is always a dense tensor
+    (the reference's lazy mode updates only the rows of a sparse one)."""
 
     type = "adam"
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kwargs):
-        if lazy_mode:
-            raise NotImplementedError("Adam(lazy_mode=True) is not ported "
-                                      "yet")
         super().__init__(learning_rate, **kwargs)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
@@ -166,6 +254,156 @@ class AdamOptimizer(Optimizer):
              "Beta1PowOut": b1p, "Beta2PowOut": b2p},
             {"beta1": self._beta1, "beta2": self._beta2,
              "epsilon": self._epsilon, "op_role": "optimize"})
+
+
+class AdamaxOptimizer(Optimizer):
+    type = "adamax"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+            self._add_accumulator("inf_norm", p)
+            self._add_accumulator("beta1_pow_acc", p, shape=[1],
+                                  fill_value=self._beta1)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        inf = self._get_accumulator("inf_norm", p)
+        return block.append_op(
+            "adamax",
+            {"Param": p, "Grad": g, "Moment": m, "InfNorm": inf,
+             "Beta1Pow": self._get_accumulator("beta1_pow_acc", p),
+             "LearningRate": self._create_param_lr(param_and_grad)},
+            {"ParamOut": p, "MomentOut": m, "InfNormOut": inf},
+            {"beta1": self._beta1, "beta2": self._beta2,
+             "epsilon": self._epsilon, "op_role": "optimize"})
+
+    def _finish_update(self, block, parameters_and_grads):
+        """beta1^t -> beta1^(t+1) for each updated parameter, after all
+        the updates of the step have read it."""
+        for p, g in parameters_and_grads:
+            if g is None:
+                continue
+            b1p = self._get_accumulator("beta1_pow_acc", p)
+            block.append_op("scale", {"X": b1p}, {"Out": b1p},
+                            {"scale": self._beta1, "op_role": "optimize"})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    type = "decayed_adagrad"
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._decay, self._epsilon = decay, epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            "decayed_adagrad",
+            {"Param": p, "Grad": g, "Moment": m,
+             "LearningRate": self._create_param_lr(param_and_grad)},
+            {"ParamOut": p, "MomentOut": m},
+            {"decay": self._decay, "epsilon": self._epsilon,
+             "op_role": "optimize"})
+
+
+class AdadeltaOptimizer(Optimizer):
+    """Adadelta: its op takes no learning rate (adadelta_op.cc); the
+    `learning_rate` given is kept, as the reference keeps it."""
+
+    type = "adadelta"
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._epsilon, self._rho = epsilon, rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("avg_squared_grad", p)
+            self._add_accumulator("avg_squared_update", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        asg = self._get_accumulator("avg_squared_grad", p)
+        asu = self._get_accumulator("avg_squared_update", p)
+        return block.append_op(
+            "adadelta",
+            {"Param": p, "Grad": g, "AvgSquaredGrad": asg,
+             "AvgSquaredUpdate": asu},
+            {"ParamOut": p, "AvgSquaredGradOut": asg,
+             "AvgSquaredUpdateOut": asu},
+            {"epsilon": self._epsilon, "rho": self._rho,
+             "op_role": "optimize"})
+
+
+class RMSPropOptimizer(Optimizer):
+    type = "rmsprop"
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6,
+                 momentum=0.0, centered=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._rho, self._epsilon = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("momentum", p)
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("mean_grad", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        mom = self._get_accumulator("momentum", p)
+        ms = self._get_accumulator("mean_square", p)
+        mg = self._get_accumulator("mean_grad", p)
+        return block.append_op(
+            "rmsprop",
+            {"Param": p, "Grad": g, "Moment": mom, "MeanSquare": ms,
+             "MeanGrad": mg,
+             "LearningRate": self._create_param_lr(param_and_grad)},
+            {"ParamOut": p, "MomentOut": mom, "MeanSquareOut": ms,
+             "MeanGradOut": mg},
+            {"decay": self._rho, "epsilon": self._epsilon,
+             "momentum": self._momentum, "centered": self._centered,
+             "op_role": "optimize"})
+
+
+class FtrlOptimizer(Optimizer):
+    type = "ftrl"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self._l1, self._l2, self._lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        sq = self._get_accumulator("squared", p)
+        lin = self._get_accumulator("linear", p)
+        return block.append_op(
+            "ftrl",
+            {"Param": p, "Grad": g, "SquaredAccumulator": sq,
+             "LinearAccumulator": lin,
+             "LearningRate": self._create_param_lr(param_and_grad)},
+            {"ParamOut": p, "SquaredAccumOut": sq, "LinearAccumOut": lin},
+            {"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power,
+             "op_role": "optimize"})
 
 
 class RecomputeOptimizer(Optimizer):
@@ -215,4 +453,12 @@ class RecomputeOptimizer(Optimizer):
 
 # fluid exposes both Foo and FooOptimizer names
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer
+LarsMomentum = LarsMomentumOptimizer

@@ -130,6 +130,16 @@ def test_sign_and_sqrt_match_reference():
     _both("sqrt", {"X": np.abs(_x(4, 7))}, {}, grad_of=("X",))
 
 
+def test_sign_keeps_nan_and_negative_zero():
+    """sign gives X itself at -0.0, 0.0 and NaN, as jnp.sign does: the
+    same bits as the JAX package's (torch.sign maps NaN to 0)."""
+    x = np.array([-0.0, 0.0, np.nan, -2.0], np.float32)
+    got = _one_op(pf, "sign", {"X": x}, {})[0]
+    want = _one_op(jf, "sign", {"X": x}, {})[0]
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 def test_squared_l2_norm_has_shape_one():
     x = _x(3, 4, 5)
     out, = _both("squared_l2_norm", {"X": x}, {})

@@ -160,3 +160,88 @@ def test_startup_initializes_every_parameter_deterministically():
     assert np.abs(w).max() <= limit and w.std() > limit / 3
     np.testing.assert_array_equal(a["enc0_a_ln.w"], 1.0)
     np.testing.assert_array_equal(a["enc0_fc1.b"], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the reference's Executor, Place and Scope signatures (C16)
+# ---------------------------------------------------------------------------
+def _fc_program(pkg):
+    """x [B, 4] -> fc 3, its parameters fc_0.w_0 and fc_0.b_0."""
+    main, startup = pkg.Program(), pkg.Program()
+    with (j_unique_name if pkg is jf else p_unique_name).guard():
+        with pkg.program_guard(main, startup):
+            x = pkg.layers.data("x", shape=[4], dtype="float32")
+            y = pkg.layers.fc(x, 3)
+    return main, startup, y
+
+
+def test_executor_run_takes_the_reference_parameters_in_order():
+    """exe.run(prog, feed, fetch, "feed", "fetch", scope): the positional
+    call of the JAX package's signature, in both packages, gives the same
+    output; the scope given is the one read."""
+    feed = {"x": np.arange(8, dtype="float32").reshape(2, 4)}
+    outs = []
+    for pkg in (jf, pf):
+        main, startup, y = _fc_program(pkg)
+        scope = pkg.Scope()
+        exe = pkg.Executor(pkg.CPUPlace())
+        exe.run(startup, None, None, "feed", "fetch", scope)
+        state = {"fc_0.w_0": np.full((4, 3), 0.5, "float32"),
+                 "fc_0.b_0": np.array([1.0, 2.0, 3.0], "float32")}
+        if pkg is pf:
+            pf.load_numpy_params(scope, state, torch.device("cpu"))
+        else:
+            for n, v in state.items():
+                scope.var(n)
+                scope._set(n, v)
+        out, = exe.run(main, feed, [y], "feed", "fetch", scope, True, True)
+        outs.append(out)
+    np.testing.assert_array_equal(outs[1], outs[0])
+
+
+def test_use_program_cache_false_prepares_anew():
+    """Without the program cache every call prepares its own program and
+    nothing is kept: cache_hit_count stays 0 and the cache stays empty,
+    for run and for run_steps; with it the second call hits."""
+    main, startup, y = _fc_program(pf)
+    scope = pf.Scope()
+    exe = pf.Executor(pf.CPUPlace())
+    exe.run(startup, scope=scope, use_program_cache=False)
+    feed = {"x": np.ones((2, 4), "float32")}
+    for _ in range(2):
+        a, = exe.run(main, feed=feed, fetch_list=[y], scope=scope,
+                     use_program_cache=False)
+        s, = exe.run_steps(main, feed=feed, fetch_list=[y], steps=2,
+                           scope=scope, use_program_cache=False)
+    assert exe.cache_hit_count == 0 and not exe._cache
+    for _ in range(2):
+        b, = exe.run(main, feed=feed, fetch_list=[y], scope=scope)
+    assert exe.cache_hit_count == 1
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(s[1], a)
+
+
+def test_executor_constructor_place_and_scope_parent():
+    """Executor(place, donate, cache), CPUPlace(device_id) and
+    Scope(parent) as the JAX package takes them: a shared cache serves a
+    second executor; a child scope reads its parent's names and writes a
+    name where it is found."""
+    cache = {}
+    main, startup, y = _fc_program(pf)
+    parent = pf.Scope()
+    exe = pf.Executor(pf.CPUPlace(0), False, cache)
+    exe.run(startup, scope=parent)
+    kid = pf.Scope(parent)
+    assert parent._get("fc_0.w_0") is not None
+    assert kid._get("fc_0.w_0") is parent._get("fc_0.w_0")
+    feed = {"x": np.ones((2, 4), "float32")}
+    a, = exe.run(main, feed=feed, fetch_list=[y], scope=kid)
+    exe2 = pf.Executor(pf.CPUPlace(), donate=True, cache=cache)
+    b, = exe2.run(main, feed=feed, fetch_list=[y], scope=kid)
+    assert exe2.cache_hit_count == 1
+    np.testing.assert_array_equal(a, b)
+    assert "fc_0.w_0" not in kid._vars and "fc_0.w_0" in parent._vars
+    kid._set("fc_0.w_0", torch.zeros(4, 3))
+    assert float(parent._get("fc_0.w_0").abs().sum()) == 0.0
+    kid._set("only_here", torch.ones(1))
+    assert parent._get("only_here") is None

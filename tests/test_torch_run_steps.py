@@ -290,6 +290,37 @@ def test_program_cache_hits_and_invalidates():
     assert len(exe._cache) == n
 
 
+class _MetaPlace:
+    """A place of another device than the host's (torch's meta device,
+    where the test runs nothing)."""
+
+    def device(self):
+        return torch.device("meta")
+
+
+def test_shared_cache_keeps_each_place_apart():
+    """Executors sharing one program cache: another executor of the same
+    place hits the entry the first made; one of another place misses and
+    its entry is its own, so each runs on its own device."""
+    main, out = _scale_program()
+    cache, scope = {}, pf.Scope()
+    cpu = pf.Executor(pf.CPUPlace(), cache=cache)
+    want = cpu.run(main, feed=ONES, fetch_list=[out], scope=scope)[0]
+    meta = pf.Executor(_MetaPlace(), cache=cache)
+    key = meta._block_cache_key(main, p_executor._feed_specs(ONES),
+                                [out.name], scope)
+    assert key not in cache
+    made = meta._prepared(key, scope, lambda: "the meta place's own")
+    assert made == "the meta place's own" and meta.cache_hit_count == 0
+    assert len(cache) == 2
+    assert all(k[-1] == str(p.exe.device) for k, p in cache.items()
+               if not isinstance(p, str))
+    other = pf.Executor(pf.CPUPlace(), cache=cache)
+    got = other.run(main, feed=ONES, fetch_list=[out], scope=scope)[0]
+    assert other.cache_hit_count == 1 and len(cache) == 2
+    np.testing.assert_array_equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # the last-use plan
 # ---------------------------------------------------------------------------
@@ -671,6 +702,25 @@ def test_captures_share_a_pool_and_a_program_keeps_one(cuda):
                                    atol=0)
     for g, e in zip(graph, eager):
         _assert_close_state(_state(g, names), _state(e, names), names)
+
+
+@pytest.mark.gpu
+def test_shared_cache_runs_each_place_on_its_device(cuda):
+    """A CPU executor and a card executor sharing one program cache, on
+    one program and scope: each call runs on its own executor's device,
+    and each executor's second call hits its own entry."""
+    main, out = _scale_program()
+    cache, scope = {}, pf.Scope()
+    exes = (pf.Executor(pf.CPUPlace(), cache=cache),
+            pf.Executor(pf.CUDAPlace(0), cache=cache))
+    for _ in range(2):
+        for exe in exes:
+            got, = exe.run(main, feed=ONES, fetch_list=[out], scope=scope,
+                           return_numpy=False)
+            assert got.device.type == exe.device.type
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          np.full((2, 4), 3.0))
+    assert [e.cache_hit_count for e in exes] == [1, 1] and len(cache) == 2
 
 
 @pytest.mark.gpu
