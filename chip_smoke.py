@@ -89,14 +89,18 @@ Phases (a failing phase fails the script; none is caught):
    2^-7 of it) in at most 5% of the elements and no further from a
    float64 oracle than twice the plain version (the FFN backward's ReLU
    masks pinned to the forward kernel's hidden, the flips bounded, no
-   unit with two masks between #12 and #13), P fp32, the same bits on a second launch; planted faults (the
+   unit with two masks between #12 and #13), P fp32, the same bits on a
+   second launch; planted faults (the
    attention_block forward with the causal flag dropped, the FFN
    backward with dh as one bf16 term, the FFN with h as one bf16 term:
-   #12 and #13 keep h and dh as hi + lo bf16 planes on wgmma) must fail;
+   #12 and #13 keep h and dh as hi + lo bf16 planes on wgmma; the
+   attention block with q and k as planes in the scores, or dqkv as one
+   bf16 term: #10 and #11 keep q k^T in fp32, their other intermediates
+   as planes) must fail, and that design's plain version must pass;
    each timed beside its
-   bound (bytes / 3.35 TB/s against the products as run, an fp32 operand
-   counting twice and two fp32 operands three times, / 989 TFLOP/s), its
-   TFLOP/s as run and
+   bound (bytes / 3.35 TB/s against the function's products, each counted
+   once, / 989 TFLOP/s), its TFLOP/s, its TFLOP/s as run (a planed
+   operand counting twice, two planed or split-TF32 ones three times) and
    the library's composition in bf16 (cuBLAS products around
    F.scaled_dot_product_attention; addmm, relu, addmm), forward and
    under autograd, #12 and #13 also at the bench's batch (x
@@ -289,6 +293,7 @@ from paddle_tpu_torch.models import mnist  # noqa: E402
 from paddle_tpu_torch.models import transformer  # noqa: E402
 from paddle_tpu_torch.ops.kernels import attention as KA  # noqa: E402
 from paddle_tpu_torch.ops.kernels import attention_block as KAB  # noqa: E402
+from paddle_tpu_torch.ops.kernels import bf16_planes as KBP  # noqa: E402
 from paddle_tpu_torch.ops.kernels import build  # noqa: E402
 from paddle_tpu_torch.ops.kernels import ffn_block as KFF  # noqa: E402
 from paddle_tpu_torch.ops.kernels import layer_norm as KL  # noqa: E402
@@ -1122,7 +1127,7 @@ def _scratch_values(h, dtype):
     planes."""
     if dtype != torch.bfloat16:
         return h
-    hi, lo = KFF.scratch_planes(h, *h.shape)
+    hi, lo = KBP.scratch_planes(h, *h.shape)
     return hi.float() + lo.float()
 
 
@@ -3436,28 +3441,36 @@ def _ffn_gate_ok(got, wfo, wfg, fo64, fg64):
 # the engine's fresh accumulator every 256 terms keeps well inside it at
 # depth 32768; one wgmma accumulator over all of them must not (a control)
 PRODUCT_REL = 2 ** -21
+PLANES_REL = 2 ** -17  # hi + lo planes against the fp32 value
 
 
 def _ffn_layouts():
-    """Each of the six operand layouts of the bf16 FFN kernels' products
-    (`KFF.PRODUCT_LAYOUTS`), unsplit into fp32, against float64 on the
-    operands' exact values, at a ragged shape (m 200, n 72, k 40) and at
-    the depth of a weight gradient at batch 128 before its split (k
+    """Each of the six operand layouts of the bf16 fused blocks' products
+    (`KBP.PRODUCT_LAYOUTS`), unsplit into fp32, and the planes-only
+    epilogue (`KBP.SPLIT_LAYOUT`, x W1's layout into hi + lo planes, as
+    the attention block writes qkv and dctx; its error counted beyond
+    the planes' own rounding, 2^-17 of each value), against float64 on
+    the operands' exact values, at a ragged shape (m 200, n 72, k 40) and
+    at the depth of a weight gradient at batch 128 before its split (k
     32768); at that depth also with one accumulator for all of k, which
     must fail. Returns {case: largest error}."""
     res = {}
     for m, n, k, group in ((200, 72, 40, 4), (128, 256, 32768, 4),
                            (128, 256, 32768, 0)):
         errs = []
-        for layout, (_, ta, tb, _, _) in enumerate(KFF.PRODUCT_LAYOUTS):
+        for layout, (_, ta, tb, _, _) in enumerate(KBP.PRODUCT_LAYOUTS):
             gen = torch.Generator(device="cuda").manual_seed(layout)
             a = torch.randn(m, k, device="cuda", generator=gen)
             b = torch.randn(k, n, device="cuda", generator=gen)
-            am, bm = KFF.layout_operands(layout, a, b)
-            got = KFF.product_bf16(layout, am, bm, m, n, k, group)
+            am, bm = KBP.layout_operands(layout, a, b)
+            got = KBP.product_bf16(layout, am, bm, m, n, k, group)
             a64, b64 = am.double().sum(0), bm.double().sum(0)
             a64, b64 = a64.T if ta else a64, b64 if tb else b64.T
-            errs.append(float((got.double() - a64 @ b64).abs().max())
+            want = a64 @ b64
+            err = (got.double() - want).abs()
+            if layout == KBP.SPLIT_LAYOUT:
+                err = (err - PLANES_REL * want.abs()).clamp(min=0)
+            errs.append(float(err.max())
                         / float((a64.abs() @ b64.abs()).max()))
             if layout == 0:  # torch.matmul's fp32 product, for scale
                 fp32 = float(((a64.float() @ b64.float()).double()
@@ -3465,9 +3478,10 @@ def _ffn_layouts():
                     (a64.abs() @ b64.abs()).max())
         what = (f"a fresh accumulator every {64 * group} terms" if group
                 else "one accumulator (the control)")
-        log(f"  bf16 FFN engine's six operand layouts [m {m}, n {n}, k "
+        log(f"  bf16 engine's six operand layouts and x W1 into planes "
+            f"[m {m}, n {n}, k "
             f"{k}], {what}, against float64: "
-            + ", ".join(f"{KFF.PRODUCT_LAYOUTS[i][0]} {e:.2e}"
+            + ", ".join(f"{KBP.PRODUCT_LAYOUTS[i][0]} {e:.2e}"
                         for i, e in enumerate(errs))
             + f" of the largest sum |a b| (tol {PRODUCT_REL:.2e}; "
             f"torch.matmul in fp32 on x W1's operands {fp32:.2e})")
@@ -3482,15 +3496,57 @@ def _ffn_layouts():
 
 def _wgmma_ptxas():
     """ptxas's registers, spills and static shared memory for each
-    instance of the bf16 FFN kernels' product (ffn_block.cu's build)."""
-    out, name = {}, None
-    for line in build.PTXAS_LOG.get("ffn_block", "").splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            name = name if "wgmma_bf16" in name else None
-        elif name and ("registers" in line or "spill" in line):
-            out.setdefault(name, []).append(line.split(" : ")[-1].strip())
+    instance of the bf16 engine's product (ffn_block.cu's and
+    attention_block.cu's builds) and of the attention stages on bf16
+    planes (attention_block.cu's), keyed "source: mangled name"."""
+    out = {}
+    for src in ("ffn_block", "attention_block"):
+        name = None
+        for line in build.PTXAS_LOG.get(src, "").splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                keep = "wgmma_bf16" in name or (
+                    "attn_bwd_from_p" in name and "planes" in name)
+                name = f"{src}: {name}" if keep else None
+            elif name and ("registers" in line or "spill" in line):
+                out.setdefault(name, []).append(
+                    line.split(" : ")[-1].strip())
     return {n: "; ".join(v) for n, v in out.items()}
+
+
+def _fused_bf16_flops(b, t, d, h, f):
+    """{kernel: (bytes, flops, flops as run)} of bf16 #10-#13 at x [b, t,
+    d], H h, F f, non-causal. Bytes: each input read once, each output
+    written once (#11 also reads the saved fp32 P). Flops: the products
+    the function computes, each counted once, as the TPU kernel computes
+    them; #11 and #13 recompute the forward's qkv and ctx or h, which
+    they need and are not given. As run: the terms the bf16 kernels run
+    for each product, an operand kept as two bf16 planes counting twice
+    and two planed (or split-TF32) operands three times."""
+    n_x, n_p, gemm = b * t * d, b * h * t * t, 2 * b * t * d
+    att = 2 * n_p * (d // h)  # one [T, T] x [T, Dh] product, all heads
+    return {
+        # x Wqkv, q k^T, P v, ctx Wo; as run x Wqkv 1 term, q k^T and
+        # P v split TF32 (3), ctx Wo 2 (ctx as two bf16 planes)
+        "attention_block": (
+            2 * (2 * n_x + 4 * d * d),
+            gemm * 3 * d + 2 * att + gemm * d,
+            gemm * 3 * d + 3 * 2 * att + 2 * gemm * d),
+        # qkv, ctx = P v, dWo, dctx, the five attention-stage products (dP
+        # and dq; dP^T, dv and dk), dWqkv, dx; as run qkv 1, P v 3, dWo 2,
+        # dctx 1, the stages 3 each, dWqkv 2, dx 2
+        "attention_block_bwd": (
+            2 * (3 * n_x + 8 * d * d) + 4 * n_p,
+            3 * gemm * 3 * d + 2 * gemm * d + 5 * att,
+            gemm * 3 * d + 3 * att + 2 * gemm * d + gemm * d
+            + 5 * 3 * att + 2 * 2 * gemm * 3 * d),
+        # x W1, h W2; as run x W1 1, h W2 2
+        "ffn_block": (2 * (2 * n_x + 2 * d * f + f + d), 2 * gemm * f,
+                      3 * gemm * f),
+        # hidden, dW2, dh, dW1, dx; as run 1, 2, 1, 2, 2
+        "ffn_block_bwd": (2 * (3 * n_x + 4 * d * f + 2 * f + d),
+                          5 * gemm * f, 8 * gemm * f),
+    }
 
 
 def _fused_bf16_entries():
@@ -3508,10 +3564,15 @@ def _fused_bf16_entries():
     Planted faults must fail the gate: the attention_block forward with
     the causal flag dropped, and the FFN backward with dh entered as one
     bf16 term (a plain control: what a kernel that dropped the low part
-    of that fp32 intermediate computes). Then times, non-causal: each kernel beside
-    its bf16 bound (bytes over 3.35 TB/s against the products as the
-    kernels run them, an fp32 operand counting twice and two three
-    times, over 989 TFLOP/s), its plain version and the library's
+    of that fp32 intermediate computes); and two designs the bf16
+    attention block must not take (plain controls,
+    `attention_block_planes_plain`): q and k as two bf16 planes in the
+    scores (its P misses P_TOL) and dqkv as one bf16 term (its gradients
+    miss the gate); that design itself must pass it. Then times,
+    non-causal: each kernel beside its bf16 bound (`_fused_bf16_flops`:
+    bytes over 3.35 TB/s against the function's products over 989
+    TFLOP/s), its TFLOP/s of those products and as the kernels run them,
+    its plain version and the library's
     composition in bf16 (`_lib_attention_block`: cuBLAS products around
     F.scaled_dot_product_attention; `_lib_ffn`: addmm, relu, addmm),
     forward and under autograd."""
@@ -3543,6 +3604,23 @@ def _fused_bf16_entries():
             faults["fwd causal dropped"] = not _bf16_ulp_ok(
                 KAB._attention_block_launch(x, wqkv, wo, h, scale, False,
                                             False), wout)
+        # the bf16 kernels' design on the plain side, and two designs it
+        # must not take
+        _, pq, _ = KAB.attention_block_planes_plain(
+            x, wqkv, wo, g, h, scale, causal, qk_planes=True)
+        pq_err = float((pq.double() - p64).abs().max())
+        faults["q and k as planes: P"] = pq_err > P_TOL
+        del pq
+        abgate = lambda got: all(  # noqa: E731
+            _bf16_ulp_ok(u, w) and _f64_ratio(u, w, r) <= 2.0
+            for u, w, r in zip(got, wgrads, g64))
+        _, _, one = KAB.attention_block_planes_plain(
+            x, wqkv, wo, g, h, scale, causal, p=p, dqkv_terms=1)
+        faults["dqkv as one bf16 term"] = not abgate(one)
+        _, _, two = KAB.attention_block_planes_plain(
+            x, wqkv, wo, g, h, scale, causal, p=p)
+        planes_ok = abgate(two)
+        del one, two
         torch.cuda.synchronize()
         repeat = (torch.equal(runs[0][0], runs[1][0])
                   and torch.equal(runs[0][1], runs[1][1])
@@ -3563,13 +3641,16 @@ def _fused_bf16_entries():
             + ", ".join(f"{n} {gt[0]:.2f} ulps share {gt[1]:.4f} {r:.2f}x"
                         for n, gt, r in bwd)
             + f"; the same bits twice {repeat}; planted faults fail "
-            f"{faults}")
+            f"{faults} (q and k as planes: P {pq_err:.3e}); the plain "
+            f"version with ctx, qkv, dctx and dqkv as hi + lo planes "
+            f"passes the gate {planes_ok}")
         assert o.dtype == bf and p.dtype == torch.float32
         assert _bf16_ulp_ok(o, wout) and fwd_ratio <= 2.0, (fwd_gate, fwd_ratio)
         assert p_err <= P_TOL, p_err
         for (n, gt, r), u, w in zip(bwd, grads[0], wgrads):
             assert u.dtype == bf and _bf16_ulp_ok(u, w) and r <= 2.0, (n, gt, r)
-        assert repeat and all(faults.values()), (repeat, faults)
+        assert repeat and all(faults.values()) and planes_ok, (
+            repeat, faults, planes_ok)
         out["attention_block"]["errs"].append(max_err(o, wout))
         out["attention_block"]["ratios"].append(fwd_ratio)
         out["attention_block_bwd"]["errs"].append(
@@ -3650,99 +3731,113 @@ def _fused_bf16_entries():
     ffn_in = tuple(tracked[k] for k in ("x", "w1", "b1", "w2", "b2"))
     lib_attn = _lib_attention_block(*attn_in, h, scale)
     lib_ffn = _lib_ffn(*ffn_in)
-    n_x, n_p, gemm = b * t * d, b * h * t * t, 2 * b * t * d
-    att = 2 * n_p * (d // h)  # one [T, T] x [T, Dh] product, all heads
+    flops = _fused_bf16_flops(b, t, d, h, f)
     cases = {
-        # x Wqkv 1 term, q k^T and P v split TF32 (3), ctx Wo 2
         "attention_block": (
             lambda: KAB._attention_block_launch(x, wqkv, wo, h, scale,
                                                 False, False),
             lambda: KAB.attention_block_plain(x, wqkv, wo, h, scale, False),
             lambda: _lib_attention_block(x, wqkv, wo, h, scale),
-            2 * (2 * n_x + 4 * d * d),
-            gemm * 3 * d + 3 * 2 * att + 2 * gemm * d,
             "x Wqkv, cuBLAS; SDPA (flash); ctx Wo, cuBLAS"),
-        # qkv 1, ctx = P v 3, dWo 2, dctx 1, the five attention-stage
-        # products (dP and dq; dP^T, dv and dk) 3, dWqkv 2, dx 2
         "attention_block_bwd": (
             lambda: KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale),
             lambda: KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h,
                                                   scale),
             lambda: torch.autograd.grad(lib_attn, attn_in, g,
                                         retain_graph=True),
-            2 * (3 * n_x + 8 * d * d) + 4 * n_p,
-            gemm * 3 * d + 3 * att + 2 * gemm * d + gemm * d
-            + 5 * 3 * att + 2 * 2 * gemm * 3 * d,
             "the autograd backward of that composition"),
-        # x W1 1, h W2 2
         "ffn_block": (
             lambda: KFF._ffn_block_launch(x, w1, b1, w2, b2),
             lambda: KFF.ffn_block_plain(x, w1, b1, w2, b2),
             lambda: _lib_ffn(x, w1, b1, w2, b2),
-            2 * (2 * n_x + 2 * d * f + f + d), gemm * f + 2 * gemm * f,
             "addmm, relu, addmm (cuBLAS)"),
-        # hidden 1, dW2 2, dh 1, dW1 2, dx 2
         "ffn_block_bwd": (
             lambda: KFF.ffn_block_bwd(x, w1, b1, w2, g),
             lambda: KFF.ffn_block_bwd_plain(x, w1, b1, w2, g),
             lambda: torch.autograd.grad(lib_ffn, ffn_in, g,
                                         retain_graph=True),
-            2 * (3 * n_x + 4 * d * f + 2 * f + d), 8 * gemm * f,
             "the autograd backward of that composition"),
     }
-    for name, (kern, plain, lib, nbytes, prods, label) in cases.items():
+    for name, (kern, plain, lib, label) in cases.items():
+        nbytes, fl, as_run = flops[name]
         ms = time_ms(kern, iters=10)
         plain_ms = time_ms(plain, iters=5)
         lib_ms = time_ms(lib, iters=10)
-        bms, by = _bf16_bound_ms(nbytes, prods)
+        bms, by = _bf16_bound_ms(nbytes, fl)
         log(f"  {name} bf16 [{b},{t},{d}] H {h} F {f} non-causal: kernel "
-            f"{ms:.4f} ms, {prods / ms / 1e9:.1f} TFLOP/s as run, plain "
-            f"{plain_ms:.4f} ms, library ({label}) "
-            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
-            f"{prods / 1e9:.2f} G products-as-run flops)")
+            f"{ms:.4f} ms, {fl / ms / 1e9:.1f} TFLOP/s "
+            f"({as_run / ms / 1e9:.1f} as run), plain {plain_ms:.4f} ms, library ({label}) "
+            f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; {fl / 1e9:.2f} G "
+            f"flops, {as_run / 1e9:.2f} G as run)")
         out[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                          bound_by=by, library_ms=lib_ms,
                          library=f"composition: {label}",
-                         tflops=prods / ms / 1e9, shape=[b, t, d, h, f])
+                         tflops=fl / ms / 1e9,
+                         tflops_as_run=as_run / ms / 1e9,
+                         shape=[b, t, d, h, f])
     del cases, tracked, attn_in, ffn_in, lib_attn, lib_ffn, p
-    # #12 and #13 at the bench's batch (bench.py bench_transformer_fused:
+    # #10-#13 at the bench's batch (bench.py bench_transformer_fused:
     # x [128, 256, 512]), with the same byte and product counts
     bb = 2 * b
-    a = {k: v.to(bf) for k, v in _fused_inputs(bb, t, d, f, seed=111).items()
-         if k not in ("wqkv", "wo")}
+    a = {k: v.to(bf) for k, v in _fused_inputs(bb, t, d, f, seed=111).items()}
     x, g, w1, b1, w2, b2 = (a[k] for k in ("x", "g", "w1", "b1", "w2", "b2"))
+    wqkv, wo = a["wqkv"], a["wo"]
+    _, p = KAB._attention_block_launch(x, wqkv, wo, h, scale, False, True)
     ffn_in = tuple(a[k].detach().requires_grad_()
                    for k in ("x", "w1", "b1", "w2", "b2"))
+    attn_in = tuple(a[k].detach().requires_grad_()
+                    for k in ("x", "wqkv", "wo"))
     lib_ffn = _lib_ffn(*ffn_in)
-    n_x, gemm = bb * t * d, 2 * bb * t * d
-    for name, kern, lib, nbytes, prods in (
+    lib_attn = _lib_attention_block(*attn_in, h, scale)
+    flops = _fused_bf16_flops(bb, t, d, h, f)
+    for name, kern, lib in (
+            ("attention_block",
+             lambda: KAB._attention_block_launch(x, wqkv, wo, h, scale,
+                                                 False, False),
+             lambda: _lib_attention_block(x, wqkv, wo, h, scale)),
+            ("attention_block_bwd",
+             lambda: KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale),
+             lambda: torch.autograd.grad(lib_attn, attn_in, g,
+                                         retain_graph=True)),
             ("ffn_block", lambda: KFF._ffn_block_launch(x, w1, b1, w2, b2),
-             lambda: _lib_ffn(x, w1, b1, w2, b2),
-             2 * (2 * n_x + 2 * d * f + f + d), 3 * gemm * f),
+             lambda: _lib_ffn(x, w1, b1, w2, b2)),
             ("ffn_block_bwd", lambda: KFF.ffn_block_bwd(x, w1, b1, w2, g),
              lambda: torch.autograd.grad(lib_ffn, ffn_in, g,
-                                         retain_graph=True),
-             2 * (3 * n_x + 4 * d * f + 2 * f + d), 8 * gemm * f)):
+                                         retain_graph=True))):
+        nbytes, fl, as_run = flops[name]
         ms = time_ms(kern, iters=10)
         lib_ms = time_ms(lib, iters=10)
-        bms, by = _bf16_bound_ms(nbytes, prods)
-        log(f"  {name} bf16 [{bb},{t},{d}] F {f} (the bench's batch): "
-            f"kernel {ms:.4f} ms, {prods / ms / 1e9:.1f} TFLOP/s as run, "
-            f"library {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
-            f"{prods / 1e9:.2f} G products-as-run flops)")
+        bms, by = _bf16_bound_ms(nbytes, fl)
+        log(f"  {name} bf16 [{bb},{t},{d}] H {h} F {f} (the bench's batch): "
+            f"kernel {ms:.4f} ms, {fl / ms / 1e9:.1f} TFLOP/s "
+            f"({as_run / ms / 1e9:.1f} as run), library {lib_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}; {fl / 1e9:.2f} G flops, "
+            f"{as_run / 1e9:.2f} G as run)")
         out[name]["bench_batch"] = dict(shape=[bb, t, d, f], ms=ms,
                                         library_ms=lib_ms, bound_ms=bms,
-                                        bound_by=by,
-                                        tflops=prods / ms / 1e9)
-    del a, ffn_in, lib_ffn
+                                        bound_by=by, tflops=fl / ms / 1e9,
+                                        tflops_as_run=as_run / ms / 1e9)
+    del a, ffn_in, lib_ffn, attn_in, lib_attn, p
     ptxas = _wgmma_ptxas()
     for kname, line in ptxas.items():
-        log(f"  ptxas ffn_block {kname}: {line}")
+        log(f"  ptxas {kname}: {line}")
     for name in ("ffn_block", "ffn_block_bwd"):
         out[name]["design"] = ("wgmma.mma_async m64n128k16 fed by TMA, h "
                                "and dh as bf16 hi/lo planes "
                                "(csrc/wgmma_bf16.cuh)")
-    out["ffn_block"].update(ptxas=ptxas, layouts_rel_err=_ffn_layouts())
+    out["attention_block"]["design"] = (
+        "products on wgmma.mma_async fed by TMA (csrc/wgmma_bf16.cuh), qkv "
+        "fp32, the attention stage split TF32 (flash_fwd.cuh) writing ctx "
+        "as bf16 hi/lo planes")
+    out["attention_block_bwd"]["design"] = (
+        "products on wgmma.mma_async fed by TMA (csrc/wgmma_bf16.cuh), "
+        "qkv, ctx, dctx, dqkv as bf16 hi/lo planes, the attention stages "
+        "on mma.sync.m16n8k16 over planes (attn_bwd_from_p.cuh)")
+    out["ffn_block"].update(
+        ptxas={n: v for n, v in ptxas.items() if n.startswith("ffn")},
+        layouts_rel_err=_ffn_layouts())
+    out["attention_block_bwd"]["ptxas"] = {
+        n: v for n, v in ptxas.items() if n.startswith("attention")}
     res = {}
     for name, e in out.items():
         errs, ratios = e.pop("errs"), e.pop("ratios")

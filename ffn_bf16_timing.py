@@ -1,64 +1,193 @@
-"""Kernels #12 and #13 in bf16 (``ffn_block_fwd_bf16``,
-``ffn_block_bwd_bf16``) and the training legs around them, from one
+"""The fused blocks' bf16 kernels, #10 and #11 (``attention_block_fwd_bf16``,
+``attention_block_bwd_bf16``) and #12 and #13 (``ffn_block_fwd_bf16``,
+``ffn_block_bwd_bf16``), and the training legs around them, from one
 checkout, on one card.
 
-    python3 ffn_bf16_timing.py [--root DIR]
+    python3 ffn_bf16_timing.py [--root DIR] [--kernels-only]
 
 Imports DIR's ``chip_smoke.py`` and ``paddle_tpu_torch`` (default: this
 checkout), so that two checkouts compare in one call on one card: run
-parent, change, change, parent, each in its own process. It times #12
-and #13 at x [64, 256, 512] and at the bench's [128, 256, 512], F 2048,
-as chip_smoke.py times a kernel (CUDA events behind a sleep kernel), the
-best of 3 rounds of 10 launches. Then it runs DIR's chip_smoke.py
+parent, change, change, parent, each in its own process. It times #10
+(without P and with it), #11, #12 and #13 at x [64, 256, 512] and at the
+bench's [128, 256, 512] (H 8, F 2048), as chip_smoke.py times a kernel
+(CUDA events behind a sleep kernel), the best of 3 rounds of 10
+launches, and the host's time to enqueue one call of each, which is
+what an eager step pays on the host for it. It profiles one launch each
+of #10 (without P and with it) and #11 under torch.profiler and lists
+their device activities in launch order with their device times: the
+stages of the kernels. It hashes the outputs of every kernel built on
+the headers the bf16 attention block shares (``flash_fwd.cuh``: #2, #5,
+#10; ``attn_bwd_from_p.cuh``: #6, #11; ``split_bf16.cuh``: #2-#6 in
+bf16; ``wgmma_bf16.cuh``: #12, #13 in bf16; ``tile_mma.cuh``: #10-#13
+in fp32) on seeded inputs, so that two checkouts show which kernels kept
+their bits. Then, unless ``--kernels-only``, it runs DIR's chip_smoke.py
 training legs, each with its own gates: phase 5's fp32 leg (seq 256,
 batch 64), the bf16 leg at the bench's settings (seq 256, batch 128),
 phase 8's fp32 fused leg (seq 256, batch 64) and the bf16 fused leg (seq
 256, batch 128, #10-#13 in bf16).
 
 Prints, as its last line, one JSON object: the root, the card and its
-power limit, the kernels' ms, and per leg the captured (run_steps) and
-eager step ms, busy ms, idle share and eager peak memory.
+power limit, the kernels' ms and host us, the stages, the output
+hashes, and per leg the captured (run_steps) and eager step ms, busy
+ms, idle share and eager peak memory.
 """
 import argparse
+import hashlib
 import importlib
 import json
 import os
 import sys
+import time
 
 ap = argparse.ArgumentParser()
 ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+ap.add_argument("--kernels-only", action="store_true")
 args = ap.parse_args()
 ROOT = os.path.abspath(args.root)
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
+BF = torch.bfloat16
+T, D, H, F = 256, 512, 8, 2048
+SCALE = (D // H) ** -0.5
+
 
 def best_ms(cs, fn):
     return min(cs.time_ms(fn, iters=10) for _ in range(3))
 
 
+def host_us(fn, n=20):
+    """The host's time to enqueue one call of `fn`, in us: the mean over
+    `n` calls issued back to back after a warm call, the card left to run
+    behind them (the launches of 20 calls stay well inside the launch
+    queue), the best of 3 rounds."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def stages(run):
+    """The device activities of `run()` under torch.profiler, in launch
+    order: [(name, ms)]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    acts = sorted((e for e in prof.events()
+                   if e.device_type.name == "CUDA"),
+                  key=lambda e: e.time_range.start)
+    return [(e.name.split("(")[0][:120], e.time_range.elapsed_us() / 1e3)
+            for e in acts]
+
+
 def kernels(cs):
-    """#12 and #13 in bf16 at batch 64 and 128 (seq 256, D 512, F
-    2048)."""
-    kff = cs.KFF
+    """#10-#13 in bf16 at batch 64 and 128 (seq 256, D 512, H 8, F 2048),
+    and the stages of one launch each of #10 and #11."""
+    kab, kff = cs.KAB, cs.KFF
     res = {}
     for b in (64, 128):
-        a = {k: v.to(torch.bfloat16) for k, v in cs._fused_inputs(
-            b, 256, 512, 2048, seed=120 + b).items()}
-        x, g, w1, b1, w2, b2 = (a[k] for k in ("x", "g", "w1", "b1", "w2",
-                                               "b2"))
-        fwd = best_ms(cs, lambda: kff._ffn_block_launch(x, w1, b1, w2, b2))
-        bwd = best_ms(cs, lambda: kff.ffn_block_bwd(x, w1, b1, w2, g))
-        prods = 2 * b * 256 * 512 * 2048  # one [N, D] x [D, F] product
-        res[b] = dict(ffn_block_ms=fwd, ffn_block_bwd_ms=bwd,
-                      ffn_block_tflops=3 * prods / fwd / 1e9,
-                      ffn_block_bwd_tflops=8 * prods / bwd / 1e9)
-        cs.log(f"ffn_bf16_timing [{b},256,512] F 2048: #12 {fwd:.4f} ms "
-               f"({res[b]['ffn_block_tflops']:.1f} TFLOP/s as run), #13 "
-               f"{bwd:.4f} ms ({res[b]['ffn_block_bwd_tflops']:.1f})")
-        del a, x, g
+        a = {k: v.to(BF) for k, v in cs._fused_inputs(
+            b, T, D, F, seed=120 + b).items()}
+        x, g, wqkv, wo, w1, b1, w2, b2 = (a[k] for k in (
+            "x", "g", "wqkv", "wo", "w1", "b1", "w2", "b2"))
+        _, p = kab._attention_block_launch(x, wqkv, wo, H, SCALE, False,
+                                           True)
+        runs = {
+            "attention_block": lambda: kab._attention_block_launch(
+                x, wqkv, wo, H, SCALE, False, False),
+            "attention_block_with_p": lambda: kab._attention_block_launch(
+                x, wqkv, wo, H, SCALE, False, True),
+            "attention_block_bwd": lambda: kab.attention_block_bwd(
+                x, wqkv, wo, p, g, H, SCALE),
+            "ffn_block": lambda: kff._ffn_block_launch(x, w1, b1, w2, b2),
+            "ffn_block_bwd": lambda: kff.ffn_block_bwd(x, w1, b1, w2, g),
+        }
+        out = {f"{n}_ms": best_ms(cs, fn) for n, fn in runs.items()}
+        out |= {f"{n}_host_us": host_us(fn) for n, fn in runs.items()}
+        # the function's products, each once, and as the kernels run them
+        # (chip_smoke.py `_fused_bf16_flops`'s counts)
+        n_p, gemm = b * H * T * T, 2 * b * T * D
+        att = 2 * n_p * (D // H)
+        prods = {"attention_block": (4 * gemm * D + 2 * att,
+                                     5 * gemm * D + 6 * att),
+                 "attention_block_bwd": (11 * gemm * D + 5 * att,
+                                         18 * gemm * D + 18 * att),
+                 "ffn_block": (2 * gemm * F, 3 * gemm * F),
+                 "ffn_block_bwd": (5 * gemm * F, 8 * gemm * F)}
+        for n, (flops, as_run) in prods.items():
+            out[f"{n}_tflops"] = flops / out[f"{n}_ms"] / 1e9
+            out[f"{n}_tflops_as_run"] = as_run / out[f"{n}_ms"] / 1e9
+        out["stages"] = {n: stages(runs[n]) for n in (
+            "attention_block", "attention_block_with_p",
+            "attention_block_bwd")}
+        res[b] = out
+        cs.log(f"ffn_bf16_timing [{b},{T},{D}] H {H} F {F}: " + ", ".join(
+            f"{n} {out[n + '_ms']:.4f} ms (host {out[n + '_host_us']:.1f} "
+            f"us a call)" for n in runs))
+        for n, st in out["stages"].items():
+            cs.log(f"  stages of {n}: " + "; ".join(
+                f"{name} {ms:.4f}" for name, ms in st))
+        del a, x, g, p, runs
     return res
+
+
+def digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def bits(cs):
+    """sha256 of the outputs of the kernels built on the shared headers,
+    on seeded inputs: equal across two checkouts where a kernel kept its
+    bits."""
+    ka, kab, kff = cs.KA, cs.KAB, cs.KFF
+    out = {}
+    for dt, tag in ((torch.float32, "fp32"), (BF, "bf16")):
+        a = {k: v.to(dt) for k, v in cs._fused_inputs(
+            8, T, D, F, seed=130).items()}
+        x, g, wqkv, wo, w1, b1, w2, b2 = (a[k] for k in (
+            "x", "g", "wqkv", "wo", "w1", "b1", "w2", "b2"))
+        for causal in (False, True):
+            o, p = kab._attention_block_launch(x, wqkv, wo, H, SCALE, causal,
+                                               True)
+            out[f"#10 {tag} causal={causal}"] = digest(
+                o, p, kab._attention_block_launch(x, wqkv, wo, H, SCALE,
+                                                  causal, False))
+            out[f"#11 {tag} causal={causal}"] = digest(
+                *kab.attention_block_bwd(x, wqkv, wo, p, g, H, SCALE,
+                                         causal))
+        out[f"#12 {tag}"] = digest(kff._ffn_block_launch(x, w1, b1, w2, b2))
+        out[f"#13 {tag}"] = digest(*kff.ffn_block_bwd(x, w1, b1, w2, g))
+        q, k, v = (z.to(dt) for z in cs._qkv(4, 8, 512, 512, 64, seed=131))
+        go = cs._qkv(4, 8, 512, 512, 64, seed=132)[0].to(dt)
+        for causal in (False, True):
+            o, p = ka._sdpa_short_launch(q, k, v, 0.125, causal, True)
+            out[f"#5 {tag} causal={causal}"] = digest(o, p)
+            out[f"#6 {tag} causal={causal}"] = digest(
+                *ka.sdpa_short_bwd(q, k, v, p, go, 0.125, causal))
+            o, lse = ka._flash_attention_launch(q, k, v, 0.125, causal, True)
+            out[f"#2 {tag} causal={causal}"] = digest(o, lse)
+            delta = ka.flash_delta(o, go)
+            out[f"#3 {tag} causal={causal}"] = digest(ka.flash_bwd_dq(
+                q, k, v, go, lse, delta, 0.125, causal))
+            out[f"#4 {tag} causal={causal}"] = digest(*ka.flash_bwd_dkv(
+                q, k, v, go, lse, delta, 0.125, causal))
+    return out
 
 
 def leg(res):
@@ -79,14 +208,16 @@ def main():
     assert os.path.dirname(os.path.abspath(cs.pf.__file__)).startswith(ROOT)
     name, _, card = cs.phase_device()
     cs.phase_build()
-    out = dict(root=ROOT, card=card, kernels=kernels(cs))
-    _, fp32 = cs.phase_train(name, card, 256, 64)
-    _, bf16 = cs.phase_train_bf16(name, card, 256, 128)
-    _, fused = cs.phase_train_fused(name, card, fp32)
-    _, bf16_fused = cs.phase_train_bf16(name, card, 256, 128, fused=True)
-    out["legs"] = {"fp32 256x64": leg(fp32), "bf16 256x128": leg(bf16),
-                   "fp32 fused 256x64": leg(fused),
-                   "bf16 fused 256x128": leg(bf16_fused)}
+    out = dict(root=ROOT, card=card, kernels=kernels(cs), bits=bits(cs))
+    if not args.kernels_only:
+        _, fp32 = cs.phase_train(name, card, 256, 64)
+        _, bf16 = cs.phase_train_bf16(name, card, 256, 128)
+        _, fused = cs.phase_train_fused(name, card, fp32)
+        _, bf16_fused = cs.phase_train_bf16(name, card, 256, 128,
+                                            fused=True)
+        out["legs"] = {"fp32 256x64": leg(fp32), "bf16 256x128": leg(bf16),
+                       "fp32 fused 256x64": leg(fused),
+                       "bf16 fused 256x128": leg(bf16_fused)}
     print(json.dumps(out), flush=True)
 
 

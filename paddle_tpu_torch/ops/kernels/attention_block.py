@@ -19,10 +19,20 @@ width the JAX package's gate refuses its kernel and it differentiates
 Executor's forward op makes it under ``no_grad``, writes no P.
 
 bf16 (as AMP calls the op: it is on the WHITE list): x, Wqkv, Wo and g
-bf16, every product computed in fp32 and the intermediates (qkv, ctx, P,
-dctx, dqkv) kept fp32, as the TPU kernel upcasts; out, dx and the weight
-gradients rounded once to bf16. The plain versions compute the same
-contract and stay the CPU path.
+bf16, every product computed in fp32 on their exact values and the
+intermediates (qkv, ctx, P, dctx, dqkv) fp32 quantities, as the TPU kernel
+upcasts; out, dx and the weight gradients rounded once to bf16. The plain
+versions compute the same contract and stay the CPU path. The bf16
+kernels run their dense products on wgmma fed by TMA
+(``csrc/wgmma_bf16.cuh``, the FFN block's engine) and keep every fp32
+intermediate but the forward's qkv and the saved P as two bf16 planes,
+hi = bf16(v) and lo = bf16(v - hi), in its fp32 scratch's bytes
+(`scratch_planes`): the forward's scores q k^T take fp32 q and k (planed
+ones put P 2-6e-6 from float64, over the 1e-6 it is held to), and its
+attention stage writes ctx as planes; the backward's attention stages run
+on the planes of qkv, ctx, dctx and dqkv, the saved P and dS split into
+planes where they enter a product. `attention_block_planes_plain`
+computes what they compute.
 
 Where the kernels run: ``usable`` keeps the reference's structural
 conditions (3-D x, Wqkv [D, 3D], D % H == 0, 8 <= T <= 512, T % 8 == 0,
@@ -34,9 +44,8 @@ T 256: on a TPU the op then computes the reference composition). So on
 the card these kernels run at full width, where the TPU would not run
 its own. The kernels take fp32 and bf16 (every input of one dtype): on
 the card a bf16 call, as AMP makes it (the op is on the WHITE list),
-launches the bf16 instances (the products on ``tile_mma.cuh`` with bf16
-operands); a call the kernels refuse raises and never runs the plain
-version.
+launches the bf16 instances; a call the kernels refuse raises and never
+runs the plain version.
 """
 from __future__ import annotations
 
@@ -47,10 +56,12 @@ import torch
 
 from . import (check_launch, current_stream, masked_logits, on_card,
                require_block_inputs, storage_tensor)
+from .bf16_planes import planes_sum
 
 MAX_T = 512
 MAX_HEAD_DIM = 128
-# the backward's weight gradients' row slices (tile_mma.cuh), 16 MB
+# the backward's weight gradients' row slices (tile_mma.cuh,
+# wgmma_bf16.cuh), 16 MB
 WORKSPACE_FLOATS = 1 << 22
 # the dtypes the JAX package's gate takes, and the kernels
 BLOCK_DTYPES = (torch.float32, torch.bfloat16)
@@ -119,6 +130,44 @@ def attention_block_bwd_plain(x, wqkv, wo, p, g, n_heads, scale,
     dwqkv = xf.reshape(-1, d).T @ dqkv.reshape(-1, 3 * d)
     dx = dqkv @ wqkv.float().T
     return dx.to(x.dtype), dwqkv.to(wqkv.dtype), dwo.to(wo.dtype)
+
+
+def attention_block_planes_plain(x, wqkv, wo, g, n_heads, scale, causal,
+                                 p=None, qk_planes=False, dqkv_terms=2):
+    """#10 and #11 as the bf16 kernels compute them, every product in
+    fp32: the forward's scores from fp32 q and k, ctx kept as hi + lo
+    bf16 planes; the backward (from `p`, else the forward's own P) with
+    qkv, ctx, dctx and dqkv as planes (`dqkv_terms` 1: a kernel that
+    dropped dqkv's low plane), P and dS as planes where they enter a
+    product, delta = rowsum(dctx ctx). `qk_planes`: q and k as planes in
+    the scores too (a design that misses P's limit). Returns (out, P,
+    (dx, dwqkv, dwo))."""
+    b, t, d = x.shape
+    xf, gf, wq, wof = x.float(), g.float(), wqkv.float(), wo.float()
+    qkv = xf @ wq
+    q, k, v = (_heads(z, n_heads) for z in qkv.split(d, dim=2))
+    if qk_planes:
+        q, k = planes_sum(q), planes_sum(k)
+    p_fwd = torch.softmax(masked_logits(q, k, scale, causal), dim=-1)
+    out = (planes_sum(_merge(p_fwd @ v)) @ wof).to(x.dtype)
+    p = p_fwd if p is None else p.float()
+    q, k, v = (_heads(z, n_heads)
+               for z in planes_sum(qkv).split(d, dim=2))
+    pp = planes_sum(p)
+    ctx = planes_sum(_merge(pp @ v))
+    dctx = planes_sum(gf @ wof.T)
+    delta = _heads(dctx * ctx, n_heads).sum(-1, keepdim=True)
+    dch = _heads(dctx, n_heads)
+    dv = pp.transpose(-1, -2) @ dch
+    ds = planes_sum(p * (dch @ v.transpose(-1, -2) - delta))
+    dq = ds @ k * scale
+    dk = ds.transpose(-1, -2) @ q * scale
+    dqkv = planes_sum(torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=2),
+                      dqkv_terms)
+    dwqkv = xf.reshape(-1, d).T @ dqkv.reshape(-1, 3 * d)
+    dwo = ctx.reshape(-1, d).T @ gf.reshape(-1, d)
+    return out, p_fwd, ((dqkv @ wq.T).to(x.dtype), dwqkv.to(wqkv.dtype),
+                        dwo.to(wo.dtype))
 
 
 @functools.cache

@@ -2,14 +2,15 @@
 // (sm_90a): dq, dk and dv of one attention per (batch, head) from q, k, v,
 // the normalized P that the forward saved, the output's cotangent dO and
 // the forward's output O, with no exp. Every product runs on the tensor
-// cores, in split TF32 (split_tf32.cuh) in fp32, or in bf16 with the fp32
-// intermediate dS split into two bf16 parts (split_bf16.cuh; E is the
-// element type of q, k, v, dO, P and the grads). Two kernels take them:
+// cores, in split TF32 (split_tf32.cuh) in fp32, in bf16 with the fp32
+// intermediate dS split into two bf16 parts, or on bf16 planes
+// (split_bf16.cuh; E is the element type of q, k, v, dO, P and the grads,
+// and Mma<E> its operand traits). Two kernels take them:
 // attention_block.cu's backward (#11), which reads q, k, v inside the
 // rows of its qkv buffer and writes one dqkv buffer, and sdpa_short_bwd.cu
 // (#6), which reads and writes contiguous [BH, T, D] tensors. Each gives
-// the stages a view of every operand (Rows: a base per (b, h) and a row
-// stride).
+// the stages a view of every operand (Rows: a base per (b, h), a row
+// stride and, for planes, the distance from the hi plane to the lo one).
 //
 //   dv = P^T dO;  dP = dO v^T;  dS = P (dP - delta);
 //   dq = scale dS k;  dk = scale dS^T q
@@ -41,9 +42,19 @@
 // In bf16 (only sdpa_short_bwd.cu, #6) the saved bf16 P is exact in one
 // bf16 part, so P^T dO is one MMA a step.
 //
+// On planes (only attention_block.cu's bf16 backward, #11: E =
+// split_bf16::planes) q, k, v, dO and the grads are fp32 intermediates
+// kept as two bf16 planes, each product runs hi hi, hi lo and lo hi, and
+// the saved fp32 P and dS enter split into their planes. Grid 1 then also
+// recomputes the forward's output: its first sweep over the key tiles
+// forms O = P v for its rows, writes it as planes to the view `o` (the
+// operand of the caller's dWo = O^T dO) and takes delta = rowsum(dO O) on
+// the planes' values, in a fixed order.
+//
 // DP is the head width rounded up to 32, 64 or 128; the columns past it
-// are zero-filled as they land and never written. Every view's rows start
-// on a 16-byte boundary (cp.async copies 16 bytes); P's rows need not.
+// are zero-filled as they land and never written. Every view's rows (and
+// planes) start on a 16-byte boundary (cp.async copies 16 bytes); P's rows
+// need not.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,12 +75,14 @@ using split_tf32::load_tile;
 using split_tf32::load_vec;
 
 // One operand of head bh: its rows start at base + (bh / heads) * outer +
-// (bh % heads) * inner, `ld` elements apart.
+// (bh % heads) * inner, `ld` elements apart; on planes the lo plane lies
+// `plane` elements after the hi one.
 template <typename F>
 struct Rows {
   F* base;
   int64_t outer, inner;
   int ld;
+  int64_t plane = 0;
   __device__ __forceinline__ F* head(int bh, int heads) const {
     return base + (int64_t)(bh / heads) * outer +
            (int64_t)(bh % heads) * inner;
@@ -78,10 +91,12 @@ struct Rows {
 
 template <typename E = float>
 struct Args {
-  Rows<const E> q, k, v, g, o;  // g: dO; o: the forward's output (fp32;
-                                // base null: delta from rowsum(dP P))
+  Rows<const E> q, k, v, g;  // g: dO
+  Rows<E> o;  // the forward's output: fp32, read for delta (base null:
+              // delta from rowsum(dP P)); planes, written by grid 1
   Rows<E> dq, dk, dv;
-  const E* p;      // [BH, T, T], the normalized probabilities
+  const typename Mma<E>::PType* p;  // [BH, T, T], the normalized
+                                    // probabilities
   float* delta;    // [BH, T]: rowsum(dP P), written by grid 1
   int heads;       // the split of bh in the views above
   int t, dh;       // sequence length, head width (<= DP)
@@ -89,13 +104,35 @@ struct Args {
   int causal;      // query i sees keys <= i
 };
 
+// rows [r0, r0 + N) of a head's operand at g (row stride ld) into the
+// staged tile s: its values, or on planes the hi plane in columns [0, DP)
+// and the lo plane (`plane` elements on) in [DP, 2 DP)
+template <typename E, int DP, int N, int THREADS, int LD>
+__device__ __forceinline__ void stage(E* s, const E* g, int ld,
+                                      int64_t plane, int r0, int limit,
+                                      int width, int tid) {
+  load_tile<DP, N, THREADS, LD>(s, g, ld, r0, limit, width, tid);
+  if constexpr (Mma<E>::kPlanes == 2)
+    load_tile<DP, N, THREADS, LD>(s + DP, g + plane, ld, r0, limit, width,
+                                  tid);
+}
+
+// two neighbouring results (x, y) of a view with planes `plane` apart
+template <typename E>
+__device__ __forceinline__ void put2(E* p, int64_t plane, float x, float y) {
+  if constexpr (Mma<E>::kPlanes == 2)
+    Mma<E>::store2(p, plane, x, y);
+  else
+    Mma<E>::store2(p, x, y);
+}
+
 // Grid 1: dq, and delta into a.delta, per (64-row query tile, bh).
 template <typename E, int DP>
 struct DqTile {
   static constexpr int R = 64;                   // query rows a block
   static constexpr int C = DP == 128 ? 16 : 32;  // keys a streamed tile
   static constexpr int kThreads = 32 * R / 16;
-  static constexpr int LD = DP + Mma<E>::kPad;
+  static constexpr int LD = Mma<E>::kPlanes * DP + Mma<E>::kPad;
   static constexpr size_t kSmem =
       sizeof(E) * (R * LD + (4 + 2 * Mma<E>::kLo) * C * LD) +
       sizeof(float) * R;
@@ -127,9 +164,15 @@ __global__ void __launch_bounds__(DqTile<E, DP>::kThreads)
   const E* kb = a.k.head(bh, a.heads);
   const E* vb = a.v.head(bh, a.heads);
   const E* gb = a.g.head(bh, a.heads);
-  const E* __restrict__ pb = a.p + (int64_t)bh * t * t;
+  const typename M::PType* __restrict__ pb = a.p + (int64_t)bh * t * t;
+  auto load_k = [&](E* s, int r0) {
+    stage<E, DP, C, kThreads, LD>(s, kb, a.k.ld, a.k.plane, r0, t, dh, tid);
+  };
+  auto load_v = [&](E* s, int r0) {
+    stage<E, DP, C, kThreads, LD>(s, vb, a.v.ld, a.v.plane, r0, t, dh, tid);
+  };
 
-  load_tile<DP, R, kThreads, LD>(gs, gb, a.g.ld, q0, t, dh, tid);
+  stage<E, DP, R, kThreads, LD>(gs, gb, a.g.ld, a.g.plane, q0, t, dh, tid);
   // P is 0 past the block's last row under causal masking, and a warp
   // skips the tiles past its own last row
   const int kend = a.causal ? min(t, q0 + R) : t;
@@ -167,33 +210,81 @@ __global__ void __launch_bounds__(DqTile<E, DP>::kThreads)
     }
   };
 
+  constexpr bool kPl = M::kPlanes == 2;
   if (!std::is_same<E, float>::value || a.o.base == nullptr) {
-    // delta = rowsum(dP P): v alone through the ring's v slots
+    // delta = rowsum(dP P), or on planes O = P v and delta = rowsum(dO O):
+    // v alone through the ring's v slots
     float rs[2] = {0.f, 0.f};
-    load_tile<DP, C, kThreads, LD>(ring + C * LD, vb, a.v.ld, 0, t, dh, tid);
+    float ox[kPl ? ND : 1][4];  // planes: O, this warp's rows
+#pragma unroll
+    for (int n = 0; n < (kPl ? ND : 1); ++n)
+      ox[n][0] = ox[n][1] = ox[n][2] = ox[n][3] = 0.f;
+    load_v(ring + C * LD, 0);
     cp_commit();
     for (int kt = 0; kt < ntiles; ++kt) {
       E* vs = ring + (kt & 1) * 2 * C * LD + C * LD;
       if (kt + 1 < ntiles)
-        load_tile<DP, C, kThreads, LD>(ring + ((kt + 1) & 1) * 2 * C * LD +
-                                           C * LD,
-                                       vb, a.v.ld, (kt + 1) * C, t, dh, tid);
+        load_v(ring + ((kt + 1) & 1) * 2 * C * LD + C * LD, (kt + 1) * C);
       cp_commit();
       cp_wait<1>();  // this tile (and dO) have landed
       M::template split_rows<DP, C, kThreads, LD>(vs, vlo, tid);
       __syncthreads();
       if (!(a.causal && kt * C > warp_last)) {
-        float pf[NT][4], dp[NT][4];
+        float pf[NT][4];
         p_frags(pf, kt);
-        dp_frags(dp, vs, vlo);
+        if constexpr (kPl) {
+          // O += P v, P split into its planes, KJ key tiles a step
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
+          for (int j = 0; j < NT; j += KJ) {
+            const typename M::AccA ap = M::acc_as_a(pf + j);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) rs[i >> 1] += dp[j][i] * pf[j][i];
+            for (int n = 0; n < ND; ++n) {
+              const int at = j * 8 * LD + n * 8;
+              M::mma(ox[n], ap, M::load_b_acc(vs + at, vlo + at, LD, gr, tc));
+            }
+          }
+        } else {
+          float dp[NT][4];
+          dp_frags(dp, vs, vlo);
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) rs[i >> 1] += dp[j][i] * pf[j][i];
+        }
       }
       __syncthreads();  // the next iteration refills this stage
     }
     cp_wait<0>();
+    if constexpr (kPl) {
+      // O's planes into a.o, and rowsum(dO O) on the planes' values,
+      // each thread over its columns in order
+      using split_bf16::bf16;
+      E* ob = a.o.head(bh, a.heads);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + gr + h * 8, row = q0 + r;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          const int c = n * 8 + 2 * tc;
+          uint32_t hi, lo;
+          split_bf16::split(hi, lo, ox[n][2 * h], ox[n][2 * h + 1]);
+          if (row < t && c < dh) {
+            E* at = ob + (int64_t)row * a.o.ld + c;
+            *reinterpret_cast<uint32_t*>(at) = hi;
+            *reinterpret_cast<uint32_t*>(at + a.o.plane) = lo;
+          }
+          const bf16* gh = reinterpret_cast<const bf16*>(gs + r * LD + c);
+          const float2 oh = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&hi));
+          const float2 ol = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&lo));
+          rs[h] += (__bfloat162float(gh[0]) + __bfloat162float(gh[DP])) *
+                       (oh.x + ol.x) +
+                   (__bfloat162float(gh[1]) + __bfloat162float(gh[DP + 1])) *
+                       (oh.y + ol.y);
+        }
+      }
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
@@ -205,12 +296,12 @@ __global__ void __launch_bounds__(DqTile<E, DP>::kThreads)
       }
     }
     __syncthreads();  // the ring is free again
-    load_tile<DP, C, kThreads, LD>(ring, kb, a.k.ld, 0, t, dh, tid);
-    load_tile<DP, C, kThreads, LD>(ring + C * LD, vb, a.v.ld, 0, t, dh, tid);
+    load_k(ring, 0);
+    load_v(ring + C * LD, 0);
     cp_commit();
   } else {
-    load_tile<DP, C, kThreads, LD>(ring, kb, a.k.ld, 0, t, dh, tid);
-    load_tile<DP, C, kThreads, LD>(ring + C * LD, vb, a.v.ld, 0, t, dh, tid);
+    load_k(ring, 0);
+    load_v(ring + C * LD, 0);
     cp_commit();
     // delta = rowsum(dO O) (fp32 only): two threads a row, every other
     // 4-column chunk each
@@ -244,10 +335,8 @@ __global__ void __launch_bounds__(DqTile<E, DP>::kThreads)
     E* vs = ks + C * LD;
     if (kt + 1 < ntiles) {
       E* nk = ring + ((kt + 1) & 1) * 2 * C * LD;
-      load_tile<DP, C, kThreads, LD>(nk, kb, a.k.ld, (kt + 1) * C, t, dh,
-                                     tid);
-      load_tile<DP, C, kThreads, LD>(nk + C * LD, vb, a.v.ld, (kt + 1) * C,
-                                     t, dh, tid);
+      load_k(nk, (kt + 1) * C);
+      load_v(nk + C * LD, (kt + 1) * C);
     }
     cp_commit();
     cp_wait<1>();  // this tile (and dO) have landed
@@ -288,8 +377,8 @@ __global__ void __launch_bounds__(DqTile<E, DP>::kThreads)
 #pragma unroll
     for (int n = 0; n < ND; ++n)
       if (n * 8 < dh)
-        M::store2(out + n * 8, acc[n][2 * h] * a.scale,
-                  acc[n][2 * h + 1] * a.scale);
+        put2(out + n * 8, a.dq.plane, acc[n][2 * h] * a.scale,
+             acc[n][2 * h + 1] * a.scale);
   }
 }
 
@@ -307,7 +396,7 @@ struct DkvTile {
   // an SM fits its shared memory, and capping the registers there spills
   // (dkv_kernel_wide)
   static constexpr int kMinBlocks = 3;
-  static constexpr int LD = DP + Mma<E>::kPad;
+  static constexpr int LD = Mma<E>::kPlanes * DP + Mma<E>::kPad;
   static constexpr size_t kSmem =
       sizeof(E) * (C * LD + (4 + 2 * Mma<E>::kLo) * R * LD) +
       sizeof(float) * 2 * R;
@@ -341,18 +430,19 @@ __device__ __forceinline__ void dkv_tile(const Args<E>& a) {
   const E* qb = a.q.head(bh, a.heads);
   const E* gb = a.g.head(bh, a.heads);
   const float* db = a.delta + (int64_t)bh * t;
-  const E* __restrict__ pb = a.p + (int64_t)bh * t * t;
+  const typename M::PType* __restrict__ pb = a.p + (int64_t)bh * t * t;
 
   auto fetch = [&](int qt, int st) {
     E* qs_ = ring + st * 2 * R * LD;
-    load_tile<DP, R, kThreads, LD>(qs_, qb, a.q.ld, qt, t, dh, tid);
-    load_tile<DP, R, kThreads, LD>(qs_ + R * LD, gb, a.g.ld, qt, t, dh,
-                                   tid);
+    stage<E, DP, R, kThreads, LD>(qs_, qb, a.q.ld, a.q.plane, qt, t, dh,
+                                  tid);
+    stage<E, DP, R, kThreads, LD>(qs_ + R * LD, gb, a.g.ld, a.g.plane, qt,
+                                  t, dh, tid);
     load_vec<R, kThreads>(vec + st * R, db, qt, t, tid);
   };
 
-  load_tile<DP, C, kThreads, LD>(vs, a.v.head(bh, a.heads), a.v.ld, k0, t,
-                                 dh, tid);
+  stage<E, DP, C, kThreads, LD>(vs, a.v.head(bh, a.heads), a.v.ld,
+                                a.v.plane, k0, t, dh, tid);
   // under causal masking, query rows before k0 have P = 0 on these keys,
   // and a warp skips the tiles before its own first key
   int qt = a.causal ? k0 / R * R : 0;
@@ -436,9 +526,9 @@ __device__ __forceinline__ void dkv_tile(const Args<E>& a) {
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
       if (c0 + n * 8 >= dh) continue;
-      M::store2(dko + n * 8, dk_acc[n][2 * h] * a.scale,
-                dk_acc[n][2 * h + 1] * a.scale);
-      M::store2(dvo + n * 8, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+      put2(dko + n * 8, a.dk.plane, dk_acc[n][2 * h] * a.scale,
+           dk_acc[n][2 * h + 1] * a.scale);
+      put2(dvo + n * 8, a.dv.plane, dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
     }
   }
 }

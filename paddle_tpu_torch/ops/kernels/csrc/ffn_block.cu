@@ -21,8 +21,8 @@
 // memory (3.35 TB/s). On the fp32 units the forward takes 1.03 ms and the
 // backward 2.56 ms; on the tensor cores in split TF32 (three TF32
 // products for each fp32 one at 495 TFLOP/s) 0.42 ms and 1.04 ms. In bf16
-// the products as run (h and dh as two bf16 terms) are 103.1 and 274.9
-// GFLOP: 0.104 ms and 0.278 ms at 989 TFLOP/s.
+// the same 69 and 172 GFLOP take 0.069 ms and 0.174 ms at 989 TFLOP/s;
+// as run (h and dh as two bf16 terms) they are 103.1 and 274.9 GFLOP.
 //
 // What the design does about it: the TPU kernel keeps W1 and W2 (8 MiB of
 // fp32 here) resident in VMEM and the [T, F] hidden on chip; a Hopper
@@ -80,32 +80,28 @@ using tm::bf16;
 
 // h [n, f] = relu(x W1 + b1) in fp32: the forward's hidden and the
 // backward's recompute, one code path so that the two have the same bits
-template <typename E>
-cudaError_t hidden(const E* x, const E* w1, const E* b1, float* h,
-                   int64_t n, int d, int f, cudaStream_t st) {
+cudaError_t hidden(const float* x, const float* w1, const float* b1,
+                   float* h, int64_t n, int d, int f, cudaStream_t st) {
   tm::Params p = tm::params(n, f, d, x, d, w1, f, h, f);
   p.bias = b1;
-  return tm::gemm<false, false, tm::kBiasRelu, E, E, float>(p, 1, nullptr, 0,
-                                                            st);
+  return tm::gemm<false, false, tm::kBiasRelu>(p, 1, nullptr, 0, st);
 }
 
-template <typename E>
 int fwd(const void* x, const void* w1, const void* b1, const void* w2,
         const void* b2, void* out, void* h, int64_t n, int d, int f,
         void* stream) {
   if (n < 1 || d < 1 || f < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* hf = static_cast<float*>(h);
-  RETURN_IF(hidden(static_cast<const E*>(x), static_cast<const E*>(w1),
-                   static_cast<const E*>(b1), hf, n, d, f, st));
+  RETURN_IF(hidden(static_cast<const float*>(x),
+                   static_cast<const float*>(w1),
+                   static_cast<const float*>(b1), hf, n, d, f, st));
   // out = h W2 + b2
   tm::Params p = tm::params(n, d, f, hf, f, w2, d, out, d);
   p.bias = b2;
-  return (int)tm::gemm<false, false, tm::kBias, float, E, E>(p, 1, nullptr,
-                                                             0, st);
+  return (int)tm::gemm<false, false, tm::kBias>(p, 1, nullptr, 0, st);
 }
 
-template <typename E>
 int bwd(const void* x, const void* w1, const void* b1, const void* w2,
         const void* g, void* dx, void* dw1, void* db1, void* dw2, void* db2,
         void* h, void* ws, int64_t ws_floats, int64_t n, int d, int f,
@@ -113,29 +109,29 @@ int bwd(const void* x, const void* w1, const void* b1, const void* w2,
   if (n < 1 || d < 1 || f < 1 || ws == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const E* xe = static_cast<const E*>(x);
-  const E* ge = static_cast<const E*>(g);
+  const float* xe = static_cast<const float*>(x);
+  const float* ge = static_cast<const float*>(g);
   float* hf = static_cast<float*>(h);
   float* wsf = static_cast<float*>(ws);
   // h = relu(x W1 + b1), recomputed
-  RETURN_IF(hidden(xe, static_cast<const E*>(w1), static_cast<const E*>(b1),
-                   hf, n, d, f, st));
+  RETURN_IF(hidden(xe, static_cast<const float*>(w1),
+                   static_cast<const float*>(b1), hf, n, d, f, st));
   // dW2 = h^T g; db2 = sum g
-  RETURN_IF((tm::gemm<true, false, tm::kNone, float, E, E>(
+  RETURN_IF((tm::gemm<true, false, tm::kNone>(
       tm::params(f, d, n, hf, f, ge, d, dw2, d), 1, wsf, ws_floats, st)));
-  RETURN_IF(tm::colsum(ge, static_cast<E*>(db2), n, d, wsf, ws_floats, st));
+  RETURN_IF(tm::colsum(ge, static_cast<float*>(db2), n, d, wsf, ws_floats,
+                       st));
   // dh = (g W2^T) [h > 0], over h
   tm::Params p = tm::params(n, f, d, ge, d, w2, d, hf, f);
   p.mask = hf;
   p.ldm = f;
-  RETURN_IF((tm::gemm<false, true, tm::kMask, E, E, float>(p, 1, nullptr, 0,
-                                                           st)));
+  RETURN_IF((tm::gemm<false, true, tm::kMask>(p, 1, nullptr, 0, st)));
   // dW1 = x^T dh; db1 = sum dh; dx = dh W1^T
-  RETURN_IF((tm::gemm<true, false, tm::kNone, E, float, E>(
+  RETURN_IF((tm::gemm<true, false, tm::kNone>(
       tm::params(d, f, n, xe, d, hf, f, dw1, f), 1, wsf, ws_floats, st)));
-  RETURN_IF(tm::colsum(static_cast<const float*>(hf), static_cast<E*>(db1),
-                       n, f, wsf, ws_floats, st));
-  return (int)tm::gemm<false, true, tm::kNone, float, E, E>(
+  RETURN_IF(tm::colsum(static_cast<const float*>(hf),
+                       static_cast<float*>(db1), n, f, wsf, ws_floats, st));
+  return (int)tm::gemm<false, true, tm::kNone>(
       tm::params(n, d, f, hf, f, w1, f, dx, d), 1, nullptr, 0, st);
 }
 
@@ -210,7 +206,7 @@ int bwd_bf16(const void* x, const void* w1, const void* b1, const void* w2,
 extern "C" int ffn_block_fwd(const void* x, const void* w1, const void* b1,
                              const void* w2, const void* b2, void* out,
                              void* h, int64_t n, int d, int f, void* stream) {
-  return fwd<float>(x, w1, b1, w2, b2, out, h, n, d, f, stream);
+  return fwd(x, w1, b1, w2, b2, out, h, n, d, f, stream);
 }
 
 extern "C" int ffn_block_fwd_bf16(const void* x, const void* w1,
@@ -232,8 +228,8 @@ extern "C" int ffn_block_bwd(const void* x, const void* w1, const void* b1,
                              void* dw1, void* db1, void* dw2, void* db2,
                              void* h, void* ws, int64_t ws_floats, int64_t n,
                              int d, int f, void* stream) {
-  return bwd<float>(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, h, ws,
-                    ws_floats, n, d, f, stream);
+  return bwd(x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, h, ws, ws_floats, n,
+             d, f, stream);
 }
 
 extern "C" int ffn_block_bwd_bf16(const void* x, const void* w1,
@@ -248,42 +244,52 @@ extern "C" int ffn_block_bwd_bf16(const void* x, const void* w1,
 
 namespace {
 
-template <bool TA, bool TB, int PA, int PB>
-int product(const void* a, const void* b, float* c, int64_t m, int64_t n,
+template <bool TA, bool TB, int PA, int PB, int EPI = wg::kF32>
+int product(const void* a, const void* b, void* c, int64_t m, int64_t n,
             int64_t k, int group, cudaStream_t st) {
   if (group != 0 && group != wg::kGroup) return (int)cudaErrorInvalidValue;
   const wg::Operand oa = TA ? wg::Operand{a, m, k, PA}
                             : wg::Operand{a, k, m, PA};
   const wg::Operand ob = TB ? wg::Operand{b, n, k, PB}
                             : wg::Operand{b, k, n, PB};
-  return group == 0 ? (int)wg::gemm<TA, TB, PA, PB, wg::kF32, 0>(
-                          oa, ob, m, n, k, c, n, 0, nullptr, nullptr, 0, st)
-                    : (int)wg::gemm<TA, TB, PA, PB, wg::kF32>(
-                          oa, ob, m, n, k, c, n, 0, nullptr, nullptr, 0, st);
+  const int64_t plane = EPI == wg::kSplit ? m * n : 0;
+  return group == 0 ? (int)wg::gemm<TA, TB, PA, PB, EPI, 0>(
+                          oa, ob, m, n, k, c, n, plane, nullptr, nullptr, 0,
+                          st)
+                    : (int)wg::gemm<TA, TB, PA, PB, EPI>(
+                          oa, ob, m, n, k, c, n, plane, nullptr, nullptr, 0,
+                          st);
 }
 
 }  // namespace
 
-// One of the bf16 products' six operand layouts alone, unsplit, into fp32
-// C [m, n] (for tests against float64): 0 x W1 (A [m][k], B [k][n]), 1 h W2
+// The bf16 engine's test entry (bf16_planes.py `product_bf16`), built
+// with the FFN block: one of its products' operand layouts alone, unsplit,
+// into fp32 C
+// [m, n] (for tests against float64): 0 x W1 (A [m][k], B [k][n]), 1 h W2
 // (A two planes [m][k]), 2 h^T g (A two planes [k][m], B [k][n]), 3 g W2^T
 // (A [m][k], B [n][k]), 4 x^T dh (A [k][m], B two planes [k][n]), 5 dh W1^T
-// (A two planes [m][k], B [n][k]); planes lie hi then lo. `group`: 64-deep
-// slabs a fresh accumulator takes, the kernels' wgmma_bf16::kGroup or 0
-// (one accumulator for all of k, a control). Returns as ffn_block_fwd.
-extern "C" int ffn_block_product_bf16(int layout, const void* a,
-                                      const void* b, void* c, int64_t m,
-                                      int64_t n, int64_t k, int group,
-                                      void* stream) {
+// (A two planes [m][k], B [n][k]); 6 as 0 into C's bytes as two bf16
+// planes [m, n], hi then lo (the attention block's qkv and dctx); planes
+// lie hi then lo. The attention block's products take layouts 0 (x Wqkv),
+// 1 (ctx Wo), 2 (ctx^T g), 3 (g Wo^T), 4 (x^T dqkv) and 5 (dqkv Wqkv^T).
+// `group`: 64-deep slabs a fresh accumulator takes, the kernels'
+// wgmma_bf16::kGroup or 0 (one accumulator for all of k, a control).
+// Returns as ffn_block_fwd.
+extern "C" int wgmma_product_bf16(int layout, const void* a, const void* b,
+                                  void* c, int64_t m, int64_t n, int64_t k,
+                                  int group, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* cf = static_cast<float*>(c);
   switch (layout) {
-    case 0: return product<false, true, 1, 1>(a, b, cf, m, n, k, group, st);
-    case 1: return product<false, true, 2, 1>(a, b, cf, m, n, k, group, st);
-    case 2: return product<true, true, 2, 1>(a, b, cf, m, n, k, group, st);
-    case 3: return product<false, false, 1, 1>(a, b, cf, m, n, k, group, st);
-    case 4: return product<true, true, 1, 2>(a, b, cf, m, n, k, group, st);
-    case 5: return product<false, false, 2, 1>(a, b, cf, m, n, k, group, st);
+    case 0: return product<false, true, 1, 1>(a, b, c, m, n, k, group, st);
+    case 1: return product<false, true, 2, 1>(a, b, c, m, n, k, group, st);
+    case 2: return product<true, true, 2, 1>(a, b, c, m, n, k, group, st);
+    case 3: return product<false, false, 1, 1>(a, b, c, m, n, k, group, st);
+    case 4: return product<true, true, 1, 2>(a, b, c, m, n, k, group, st);
+    case 5: return product<false, false, 2, 1>(a, b, c, m, n, k, group, st);
+    case 6:
+      return product<false, true, 1, 1, wg::kSplit>(a, b, c, m, n, k, group,
+                                                    st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

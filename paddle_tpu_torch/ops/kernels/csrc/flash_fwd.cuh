@@ -4,7 +4,8 @@
 // optionally the per-row logsumexp), sdpa_short.cu (#5, tq == tk <= 512, d
 // 64 or 128, optionally the normalized P) and the attention_block forward
 // (#10, attention_block.cu, fp32 only: head widths up to 64 on d 64, up to
-// 128 on d 128, optionally P) instantiate.
+// 128 on d 128, optionally P; its bf16 instance writes the output as two
+// bf16 planes, kOutPlanes) instantiate.
 //
 // In bf16: S = q k^T is one bf16 MMA a step (its products exact in fp32,
 // as after the TPU kernel's upcast); P, an fp32 intermediate, enters P v
@@ -115,19 +116,22 @@ struct FwdTile {
 
 // The views of q, k, v and o (operands 0-3) across heads: head bh's rows
 // of operand i start at its pointer + (bh / heads) * outer[i] + (bh %
-// heads) * inner[i], ld[i] floats apart (a 32-bit stride, which keeps the
+// heads) * inner[i], ld[i] elements apart (a 32-bit stride, which keeps the
 // address arithmetic in fewer registers); only their first dh columns
-// exist.
+// exist. With kOutPlanes, o's elements are bf16: hi = bf16(value) at
+// those offsets, lo = bf16(value - hi) `plane` elements further.
 struct Layout {
   int64_t outer[4], inner[4];
   int ld[4];
   int heads, dh;
+  int64_t plane;
 };
 
 // kViews: q, k, v and o lie as `lay` says; else they are contiguous [BH, t,
 // D] (lay unused), so that the address arithmetic of #2 and #5 stays
-// compile-time constants and their pointers __restrict__
-template <typename E, int D, bool kSaveP, bool kViews>
+// compile-time constants and their pointers __restrict__. kOutPlanes (with
+// kViews): o holds the output as two bf16 planes (Layout)
+template <typename E, int D, bool kSaveP, bool kViews, bool kOutPlanes = false>
 __global__ void __launch_bounds__(FwdTile<E, D>::kThreads,
                                   FwdTile<E, D>::kMinBlocks)
     fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
@@ -310,9 +314,21 @@ __global__ void __launch_bounds__(FwdTile<E, D>::kThreads,
     if (row >= tq) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      if (c0 + n * 8 < dh)
-        M::store2(ob + (int64_t)row * ld(3) + c0 + n * 8 + 2 * tc,
-                  acc[n][2 * h] * inv[h], acc[n][2 * h + 1] * inv[h]);
+      if (c0 + n * 8 < dh) {
+        const int64_t at = (int64_t)row * ld(3) + c0 + n * 8 + 2 * tc;
+        if constexpr (kOutPlanes) {
+          uint32_t hi, lo;
+          split_bf16::split(hi, lo, acc[n][2 * h] * inv[h],
+                            acc[n][2 * h + 1] * inv[h]);
+          uint32_t* ow = reinterpret_cast<uint32_t*>(
+              reinterpret_cast<split_bf16::bf16*>(o) + (ob - o) + at);
+          ow[0] = hi;
+          ow[lay.plane / 2] = lo;
+        } else {
+          M::store2(ob + at, acc[n][2 * h] * inv[h],
+                    acc[n][2 * h + 1] * inv[h]);
+        }
+      }
     if (lse != nullptr && c0 == 0 && tc == 0)
       lse[(int64_t)bh * tq + row] = m[h] + logf(l[h]);
   }
@@ -378,15 +394,17 @@ __global__ void __launch_bounds__(FwdTile<E, D>::kThreads,
 }
 
 // Launches the forward over `bh` heads on stream s, on operands laid out
-// as `lay` says (kViews) or contiguous [bh, t, D] (lay unused); returns
-// cudaGetLastError() of the launch (or of the shared-memory attribute
-// call).
-template <int D, bool kSaveP, bool kViews, typename E>
+// as `lay` says (kViews; kOutPlanes: the output as two bf16 planes in o's
+// bytes) or contiguous [bh, t, D] (lay unused); returns cudaGetLastError()
+// of the launch (or of the shared-memory attribute call).
+template <int D, bool kSaveP, bool kViews, bool kOutPlanes = false,
+          typename E>
 int launch(const E* q, const E* k, const E* v, E* o, float* lse,
            typename Same<E>::type* p, int64_t bh, int tq, int tk,
            float scale, int causal, const Layout& lay, cudaStream_t s) {
   using T = FwdTile<E, D>;
-  auto* kernel = fwd_kernel<E, D, kSaveP, kViews>;
+  static_assert(!kOutPlanes || kViews, "planes through a view");
+  auto* kernel = fwd_kernel<E, D, kSaveP, kViews, kOutPlanes>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (err != cudaSuccess) return (int)err;

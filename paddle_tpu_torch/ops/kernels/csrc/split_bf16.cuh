@@ -1,7 +1,8 @@
 // bf16 products on Hopper's tensor cores (sm_90a), and the operand traits
-// that let one attention body run in fp32 (split TF32, split_tf32.cuh) or
-// in bf16: flash_fwd.cuh (#2, #5), flash_attention_bwd.cu (#3, #4) and
-// attn_bwd_from_p.cuh (#6) take their operands through Mma<E>.
+// that let one attention body run in fp32 (split TF32, split_tf32.cuh), in
+// bf16, or on bf16 planes: flash_fwd.cuh (#2, #5), flash_attention_bwd.cu
+// (#3, #4) and attn_bwd_from_p.cuh (#6, #11) take their operands through
+// Mma<E>.
 //
 // The TPU kernels take bf16 q, k, v and dO, upcast them and compute in
 // fp32 (paddle_tpu/ops/pallas/attention.py: `.astype(jnp.float32)` on
@@ -18,6 +19,15 @@
 // As in split_tf32.cuh, the MMAs of one step go into a fresh fragment
 // added to the running sum in fp32.
 //
+// Planes (Mma<split_bf16::planes>, the bf16 attention block's backward
+// stages, #11): every operand is an fp32 intermediate kept as its two bf16
+// planes, in device memory one plane `plane` elements after the other (hi
+// then lo, as wgmma_bf16.cuh's epilogues write them), in a staged row side
+// by side (hi in columns [0, DP), lo in [DP, 2 DP), one padding after
+// both). A product takes hi hi, hi lo and lo hi (lo lo, ~2^-18 of it,
+// dropped): three MMAs a 16-deep step, against split TF32's three 8-deep
+// ones. The saved fp32 P and dS enter split into their two planes.
+//
 // Fragment layouts of mma.sync.m16n8k16 .bf16 (PTX ISA; lane = 4 g + t;
 // each register holds two elements, the lower k in the low 16 bits):
 //   A 16x16: a0 (row g, k 2t..2t+1), a1 (g+8, 2t..2t+1), a2 (g, 2t+8..2t+9),
@@ -29,8 +39,9 @@
 // back into a product with no permutation, and its B operand is read in
 // its natural k order.
 //
-// Staged bf16 tiles are rows of D elements padded by 8 (16 bytes): the
-// 32-bit fragment reads g (D + 8) / 2 + t hit 32 distinct banks.
+// Staged bf16 tiles are rows of D elements (planes: 2 D) padded by 8 (16
+// bytes): the 32-bit fragment reads g (D + 8) / 2 + t hit 32 distinct
+// banks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,6 +92,13 @@ __device__ __forceinline__ uint32_t word(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// The element type of an fp32 intermediate kept as two bf16 planes (see
+// the note at the top): a bf16 of the hi plane, whose lo partner lies a
+// plane further in device memory and DP columns further in a staged row.
+struct planes {
+  bf16 x;
+};
+
 }  // namespace split_bf16
 
 // ---------------------------------------------------------------------------
@@ -97,9 +115,14 @@ __device__ __forceinline__ uint32_t word(const bf16* p) {
 //   exact_as_a(c)        A from fragments holding values exact in E (a
 //                        saved P): split TF32 in fp32, one part in bf16
 //   mma(acc, A|AccA, B)  acc += a b, in a fresh fragment added in fp32
+//   store2(p, x, y)      two neighbouring results into memory (planes:
+//                        store2(p, plane, x, y), hi at p, lo a plane on)
+//   kPlanes              values a staged row holds per column: 2 for
+//                        planes (hi, then lo DP columns on), else 1
+//   PType                the saved P's element type (planes: fp32)
 // Staged tiles: rows padded by kPad elements; in fp32 each tile is split
 // once as it lands (split_rows, its small halves in a second buffer, kLo
-// tiles of them), in bf16 it is used as it lands.
+// tiles of them), in bf16 and planes it is used as it lands.
 // ---------------------------------------------------------------------------
 namespace attn_mma {
 
@@ -114,6 +137,8 @@ struct Mma<float> {
   static constexpr int kK = 8;
   static constexpr int kPad = split_tf32::kPad;
   static constexpr int kLo = 1;  // a small-halves tile per staged tile
+  static constexpr int kPlanes = 1;  // values a staged row holds per column
+  using PType = float;               // the saved P's element type
 
   static __device__ __forceinline__ A load_a(const float* p, int ld, int g,
                                              int t) {
@@ -166,6 +191,8 @@ struct Mma<__nv_bfloat16> {
   static constexpr int kK = 16;
   static constexpr int kPad = split_bf16::kPad;
   static constexpr int kLo = 0;
+  static constexpr int kPlanes = 1;
+  using PType = bf16;
 
   static __device__ __forceinline__ A load_a(const bf16* p, int ld, int g,
                                              int t) {
@@ -224,6 +251,99 @@ struct Mma<__nv_bfloat16> {
   static __device__ __forceinline__ bf16 zero() {
     return __float2bfloat16(0.f);
   }
+};
+
+template <>
+struct Mma<split_bf16::planes> {
+  using bf16 = __nv_bfloat16;
+  using E = split_bf16::planes;
+  struct A {
+    uint32_t hi[4], lo[4];
+  };
+  using AccA = A;
+  struct B {
+    uint32_t hi[2], lo[2];
+  };
+  static constexpr int kK = 16;
+  static constexpr int kPad = split_bf16::kPad;
+  static constexpr int kLo = 0;
+  static constexpr int kPlanes = 2;
+  using PType = float;
+
+  static __device__ __forceinline__ const bf16* bits(const E* p) {
+    return reinterpret_cast<const bf16*>(p);
+  }
+  // columns from a staged row's hi value to its lo partner: the row is
+  // 2 DP + kPad wide
+  static __device__ __forceinline__ int lo_at(int ld) {
+    return (ld - kPad) / 2;
+  }
+  static __device__ __forceinline__ void a_from(uint32_t (&r)[4],
+                                                const bf16* p, int ld, int g,
+                                                int t) {
+    using split_bf16::word;
+    r[0] = word(p + g * ld + 2 * t);
+    r[1] = word(p + (g + 8) * ld + 2 * t);
+    r[2] = word(p + g * ld + 2 * t + 8);
+    r[3] = word(p + (g + 8) * ld + 2 * t + 8);
+  }
+  static __device__ __forceinline__ A load_a(const E* p, int ld, int g,
+                                             int t) {
+    A a;
+    a_from(a.hi, bits(p), ld, g, t);
+    a_from(a.lo, bits(p) + lo_at(ld), ld, g, t);
+    return a;
+  }
+  static __device__ __forceinline__ B load_b_t(const E* hi, const E*, int ld,
+                                               int g, int t) {
+    using split_bf16::word;
+    const bf16* h = bits(hi);
+    const bf16* l = h + lo_at(ld);
+    return B{{word(h + g * ld + 2 * t), word(h + g * ld + 2 * t + 8)},
+             {word(l + g * ld + 2 * t), word(l + g * ld + 2 * t + 8)}};
+  }
+  static __device__ __forceinline__ B load_b_acc(const E* hi, const E*,
+                                                 int ld, int g, int t) {
+    using split_bf16::join;
+    const bf16* h = bits(hi);
+    const bf16* l = h + lo_at(ld);
+    return B{{join(h + 2 * t * ld + g, h + (2 * t + 1) * ld + g),
+              join(h + (2 * t + 8) * ld + g, h + (2 * t + 9) * ld + g)},
+             {join(l + 2 * t * ld + g, l + (2 * t + 1) * ld + g),
+              join(l + (2 * t + 8) * ld + g, l + (2 * t + 9) * ld + g)}};
+  }
+  static __device__ __forceinline__ AccA acc_as_a(const float (*c)[4]) {
+    AccA a;
+    split_bf16::split(a.hi[0], a.lo[0], c[0][0], c[0][1]);
+    split_bf16::split(a.hi[1], a.lo[1], c[0][2], c[0][3]);
+    split_bf16::split(a.hi[2], a.lo[2], c[1][0], c[1][1]);
+    split_bf16::split(a.hi[3], a.lo[3], c[1][2], c[1][3]);
+    return a;
+  }
+  // the saved fp32 P enters as its two planes too
+  static __device__ __forceinline__ A exact_as_a(const float (*c)[4]) {
+    return acc_as_a(c);
+  }
+  static __device__ __forceinline__ void mma(float (&acc)[4], const A& a,
+                                             const B& b) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+    split_bf16::mma(t, a.lo, b.hi);
+    split_bf16::mma(t, a.hi, b.lo);
+    split_bf16::mma(t, a.hi, b.hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] += t[i];
+  }
+  template <int D, int N, int THREADS, int LD>
+  static __device__ __forceinline__ void split_rows(E*, E*, int) {}
+  // (x, y) as planes: hi at p, lo `plane` elements on
+  static __device__ __forceinline__ void store2(E* p, int64_t plane, float x,
+                                                float y) {
+    uint32_t hi, lo;
+    split_bf16::split(hi, lo, x, y);
+    *reinterpret_cast<uint32_t*>(p) = hi;
+    *reinterpret_cast<uint32_t*>(p + plane) = lo;
+  }
+  static __device__ __forceinline__ float load(const float* p) { return *p; }
 };
 
 }  // namespace attn_mma

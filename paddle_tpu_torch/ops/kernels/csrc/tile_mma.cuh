@@ -1,23 +1,11 @@
 // A tiled matrix product on Hopper's tensor cores (sm_90a), in split
 // TF32 (split_tf32.cuh), with the deterministic column sum: the products
 // of the attention block's forward and backward and of the FFN block's
-// forward and backward (the bias and ReLU of its hidden, the output's bias
-// and the ReLU's mask on dh are epilogues here), in fp32 and in bf16.
-//
-// Element types. Each operand, A and B, is fp32 or bf16 (EA, EB; the bias
-// takes B's type, the weight's), and C is fp32 or bf16 (EC): the products
-// of a bf16 block read x, the weights and the output's cotangent as bf16
-// and their fp32 intermediates (qkv, ctx, P, h, dh, dqkv, dctx) as fp32,
-// and write the output, dx and the weight gradients in bf16, each value
-// rounded once from its fp32 sum (a product split along k sums its slices
-// in fp32 and rounds at the end). A bf16 value is exact in TF32, so a bf16
-// operand has no small half: a product of two bf16 operands is one TF32
-// mma.sync a step (exact products, fp32 accumulation, as the TPU kernel's
-// upcast computes), a product of an fp32 and a bf16 operand two, and one
-// of two fp32 operands three. A bf16 slice lands through cp.async as bf16
-// in the ring and is widened to fp32, by the threads that copied it, into
-// the buffer that holds an fp32 slice's small halves: the shared memory of
-// a block is the same for every combination.
+// forward and backward in fp32 (the bias and ReLU of its hidden, the
+// output's bias and the ReLU's mask on dh are epilogues here). The fused
+// blocks' bf16 instances run their products on wgmma_bf16.cuh, which
+// takes the slices' sum (sum_slices_kernel) and the column sum from here,
+// each in fp32 and rounded once to bf16.
 //
 //   C = op(A) op(B)  [relu(. + bias[j]) | . + bias[j] |
 //                     kept where mask(i, j) > 0]
@@ -56,8 +44,7 @@
 // of shared memory each): the second block's products hide the first's
 // barriers and operand splitting. 32-deep
 // slices of A and B come through a two-stage ring filled by cp.async with
-// 16-byte copies (4-byte ones where an fp32 row start is not 16-byte
-// aligned; a bf16 operand's rows must start on 16 bytes),
+// 16-byte copies (4-byte ones where a row start is not 16-byte aligned),
 // each slice kept in the operand's own layout, as it lies in device
 // memory, and split once as it lands by the threads that copied it: big
 // halves in place, small halves into a second buffer. A slice whose rows
@@ -65,9 +52,8 @@
 // or n by 8, so that both ways of reading a fragment hit 32 distinct
 // banks; a transposed operand is read with the transposed fragment
 // pattern (load_a_t, load_b_t), not transposed in memory: cp.async lands
-// 16 bytes only in the source's own order. Each 8-deep step's products
-// (three, two or one) go into a fresh fragment added to the running sum in
-// fp32.
+// 16 bytes only in the source's own order. Each 8-deep step's three
+// products go into a fresh fragment added to the running sum in fp32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,11 +85,6 @@ constexpr int kBM = 128;  // rows of C a block computes
 constexpr int kBK = 32;   // depth of one staged slice
 constexpr int kThreads = 256;
 
-// an operand of type E is split into TF32 halves (fp32) or exact in one
-// TF32 term (bf16)
-template <typename E>
-constexpr bool kSplit = std::is_same<E, float>::value;
-
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
@@ -115,8 +96,7 @@ __device__ __forceinline__ E from_f(float x) {
     return __float2bfloat16_rn(x);
 }
 
-// The operands are fp32 or bf16 as the product's template says: a, b and
-// bias (B's type) point at EA, EB and EB values, c at EC values.
+// a, b, bias and c point at fp32 values.
 struct Params {
   int64_t m, n, k;
   const void* a;
@@ -146,8 +126,7 @@ __device__ __forceinline__ float epilogue(float c, float e) {
 }
 
 // The staged slice of one operand: ROWS x COLS floats in the operand's
-// own layout, rows padded to LD. A bf16 slice lands unpadded (rows of
-// COLS bf16 values) in the same room and is widened into this layout.
+// own layout, rows padded to LD.
 template <int ROWS, int COLS, bool ALONG_K>
 struct Slice {
   static constexpr int kRows = ROWS, kCols = COLS;
@@ -182,66 +161,6 @@ __device__ __forceinline__ void load_slice(float* s, const float* g,
   }
 }
 
-// The same for a bf16 slice, unpadded at s (row stride kCols): 16-byte
-// copies of 8 values, every row start 16-byte aligned (gemm checks).
-template <class S>
-__device__ __forceinline__ void load_slice(bf16* s, const bf16* g,
-                                           int64_t ld, int64_t nrows,
-                                           int64_t ncols, bool, int tid) {
-  constexpr int kChunks = S::kCols / 8;
-  static_assert(S::kRows * kChunks % kThreads == 0, "whole rounds");
-#pragma unroll
-  for (int n = 0; n < S::kRows * kChunks / kThreads; ++n) {
-    const int i = tid + n * kThreads;
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const int valid =
-        r < nrows ? (int)imin(8, ncols - c > 0 ? ncols - c : 0) : 0;
-    split_tf32::cp16n(s + r * S::kCols + c, valid > 0 ? g + r * ld + c : g,
-                      2 * valid);
-  }
-}
-
-// after load_slice<S> of a bf16 slice into raw has landed: each thread
-// widens the chunks it copied itself (so no barrier is needed first) into
-// the fp32 layout of S at dst
-template <class S>
-__device__ __forceinline__ void widen(const bf16* raw, float* dst, int tid) {
-  constexpr int kChunks = S::kCols / 8;
-#pragma unroll
-  for (int n = 0; n < S::kRows * kChunks / kThreads; ++n) {
-    const int i = tid + n * kThreads;
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const uint4 w = *reinterpret_cast<const uint4*>(raw + r * S::kCols + c);
-    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-    float v[8];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {  // a bf16 is the high half of its fp32
-      v[2 * e] = __uint_as_float(u[e] << 16);
-      v[2 * e + 1] = __uint_as_float(u[e] & 0xffff0000u);
-    }
-    float* d = dst + r * S::LD + c;
-    *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(d + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  }
-}
-
-// acc += a b: the products of an 8-deep step into a fresh fragment, the
-// small halves' only where the operand is split
-template <bool SA, bool SB>
-__device__ __forceinline__ void mma_step(float (&acc)[4], const OpA& a,
-                                         const OpB& b) {
-  if constexpr (SA && SB) {
-    split_tf32::mma3(acc, a, b);
-  } else {
-    float t[4] = {0.f, 0.f, 0.f, 0.f};
-    if constexpr (SA) split_tf32::mma(t, a.small, b.big);
-    if constexpr (SB) split_tf32::mma(t, a.big, b.small);
-    split_tf32::mma(t, a.big, b.big);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] += t[i];
-  }
-}
-
 template <bool TA, bool TB, int BN>
 struct Tiles {
   // A [BM][BK] along k, or [BK][BM] when transposed; B [BK][BN], or
@@ -254,17 +173,15 @@ struct Tiles {
       sizeof(float) * 3 * (A::kFloats + B::kFloats);
 };
 
-template <bool TA, bool TB, int BN, int EPI, typename EA, typename EB,
-          typename EC>
+template <bool TA, bool TB, int BN, int EPI>
 __global__ void __launch_bounds__(kThreads, 2) mma_kernel(Params p) {
   using T = Tiles<TA, TB, BN>;
   using SA = typename T::A;
   using SB = typename T::B;
-  constexpr bool kSA = kSplit<EA>, kSB = kSplit<EB>;
   constexpr int MT = T::WM / 16, NT = 4;  // fragments of a warp's sub-tile
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;  // stage st: A, then B
-  // an fp32 slice's small halves, or a bf16 slice widened
+  // the slices' small halves
   float* alo = ring + 2 * (SA::kFloats + SB::kFloats);
   float* blo = alo + SA::kFloats;
 
@@ -274,9 +191,9 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(Params p) {
   const int64_t m0 = (int64_t)blockIdx.y * kBM;
   const int64_t n0 = (int64_t)blockIdx.x * BN;
   int64_t kbeg = 0, kend = p.k;
-  const EA* a = static_cast<const EA*>(p.a);
-  const EB* b = static_cast<const EB*>(p.b);
-  EC* c = static_cast<EC*>(p.c);
+  const float* a = static_cast<const float*>(p.a);
+  const float* b = static_cast<const float*>(p.b);
+  float* c = static_cast<float*>(p.c);
   if (p.splits > 1) {
     const int s = blockIdx.z;
     kbeg = s * p.k_chunk;
@@ -292,19 +209,17 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(Params p) {
   auto fetch = [&](int64_t k0, int st) {
     float* as = ring + st * (SA::kFloats + SB::kFloats);
     float* bs = as + SA::kFloats;
-    EA* ad = reinterpret_cast<EA*>(as);
-    EB* bd = reinterpret_cast<EB*>(bs);
     if (TA)
-      load_slice<SA>(ad, a + k0 * p.lda + m0, p.lda, kend - k0, p.m - m0,
+      load_slice<SA>(as, a + k0 * p.lda + m0, p.lda, kend - k0, p.m - m0,
                      p.vec_a, tid);
     else
-      load_slice<SA>(ad, a + m0 * p.lda + k0, p.lda, p.m - m0, kend - k0,
+      load_slice<SA>(as, a + m0 * p.lda + k0, p.lda, p.m - m0, kend - k0,
                      p.vec_a, tid);
     if (TB)
-      load_slice<SB>(bd, b + n0 * p.ldb + k0, p.ldb, p.n - n0, kend - k0,
+      load_slice<SB>(bs, b + n0 * p.ldb + k0, p.ldb, p.n - n0, kend - k0,
                      p.vec_b, tid);
     else
-      load_slice<SB>(bd, b + k0 * p.ldb + n0, p.ldb, kend - k0, p.n - n0,
+      load_slice<SB>(bs, b + k0 * p.ldb + n0, p.ldb, kend - k0, p.n - n0,
                      p.vec_b, tid);
   };
 
@@ -325,26 +240,19 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(Params p) {
     split_tf32::cp_wait<1>();  // this slice has landed
     float* as = ring + st * (SA::kFloats + SB::kFloats);
     float* bs = as + SA::kFloats;
-    // the fragments' source: an fp32 slice split in place (big halves)
-    // with its small halves beside it, a bf16 slice widened
-    if constexpr (kSA)
-      split_tf32::split_rows<SA::kCols, SA::kRows, kThreads, SA::LD>(as, alo,
-                                                                     tid);
-    else
-      widen<SA>(reinterpret_cast<const bf16*>(as), alo, tid);
-    if constexpr (kSB)
-      split_tf32::split_rows<SB::kCols, SB::kRows, kThreads, SB::LD>(bs, blo,
-                                                                     tid);
-    else
-      widen<SB>(reinterpret_cast<const bf16*>(bs), blo, tid);
-    const float* ahi = kSA ? as : alo;
-    const float* bhi = kSB ? bs : blo;
+    // the fragments' source: each slice split in place (big halves) with
+    // its small halves beside it
+    split_tf32::split_rows<SA::kCols, SA::kRows, kThreads, SA::LD>(as, alo,
+                                                                   tid);
+    split_tf32::split_rows<SB::kCols, SB::kRows, kThreads, SB::LD>(bs, blo,
+                                                                   tid);
+    const float* ahi = as;
+    const float* bhi = bs;
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 8) {
       // the warp's B fragments held, its A fragments streamed: 16 + 8
-      // registers beside the 4 MT x 4 accumulator (a bf16 operand's small
-      // halves are never read)
+      // registers beside the 4 MT x 4 accumulator
       OpB bf[NT];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -369,7 +277,7 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(Params p) {
           af = split_tf32::load_a_split(ahi + at, alo + at, SA::LD, gr, tc);
         }
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_step<kSA, kSB>(acc[i][j], af, bf[j]);
+        for (int j = 0; j < NT; ++j) split_tf32::mma3(acc[i][j], af, bf[j]);
       }
     }
     __syncthreads();  // the next iteration refills this stage
@@ -389,7 +297,7 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(Params p) {
     __syncthreads();
   }
 
-  const EB* bias = static_cast<const EB*>(p.bias);
+  const float* bias = static_cast<const float*>(p.bias);
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -406,7 +314,7 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(Params p) {
           for (int u = 0; u < 2; ++u) {
             const int cl = wn + j * 8 + 2 * tc + u;
             e[j][u] = EPI == kMask        ? ring[r * SM::LD + cl]
-                      : n0 + cl < p.n ? to_f(bias[n0 + cl])
+                      : n0 + cl < p.n ? bias[n0 + cl]
                                       : 0.f;
           }
       }
@@ -414,11 +322,10 @@ __global__ void __launch_bounds__(kThreads, 2) mma_kernel(Params p) {
       for (int j = 0; j < NT; ++j) {
         const int64_t col = n0 + wn + j * 8 + 2 * tc;
         if (col < p.n)
-          c[row * p.ldc + col] =
-              from_f<EC>(epilogue<EPI>(acc[i][j][2 * h], e[j][0]));
+          c[row * p.ldc + col] = epilogue<EPI>(acc[i][j][2 * h], e[j][0]);
         if (col + 1 < p.n)
           c[row * p.ldc + col + 1] =
-              from_f<EC>(epilogue<EPI>(acc[i][j][2 * h + 1], e[j][1]));
+              epilogue<EPI>(acc[i][j][2 * h + 1], e[j][1]);
       }
     }
 }
@@ -450,25 +357,24 @@ inline int sm_count() {
   return count;
 }
 
-template <bool TA, bool TB, int BN, int EPI, typename EA, typename EB,
-          typename EC>
+template <bool TA, bool TB, int BN, int EPI>
 cudaError_t launch(const Params& p, int batches, cudaStream_t s) {
   using T = Tiles<TA, TB, BN>;
   const cudaError_t err = cudaFuncSetAttribute(
-      mma_kernel<TA, TB, BN, EPI, EA, EB, EC>,
+      mma_kernel<TA, TB, BN, EPI>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((p.n + BN - 1) / BN),
                   (unsigned)((p.m + kBM - 1) / kBM),
                   (unsigned)(p.splits > 1 ? p.splits : batches));
-  mma_kernel<TA, TB, BN, EPI, EA, EB, EC><<<grid, kThreads, T::kSmem, s>>>(p);
+  mma_kernel<TA, TB, BN, EPI><<<grid, kThreads, T::kSmem, s>>>(p);
   return cudaGetLastError();
 }
 
-template <bool TA, bool TB, int EPI, typename EA, typename EB, typename EC>
+template <bool TA, bool TB, int EPI>
 cudaError_t by_width(const Params& p, int batches, cudaStream_t s) {
-  return p.n <= 64 ? launch<TA, TB, 64, EPI, EA, EB, EC>(p, batches, s)
-                   : launch<TA, TB, 128, EPI, EA, EB, EC>(p, batches, s);
+  return p.n <= 64 ? launch<TA, TB, 64, EPI>(p, batches, s)
+                   : launch<TA, TB, 128, EPI>(p, batches, s);
 }
 
 inline Params params(int64_t m, int64_t n, int64_t k, const void* a,
@@ -489,26 +395,22 @@ inline Params params(int64_t m, int64_t n, int64_t k, const void* a,
   return p;
 }
 
-// whether every row start (and batch offset) of an operand of E values
-// is 16-byte aligned
-template <typename E>
+// whether every row start (and batch offset) of an fp32 operand is
+// 16-byte aligned
 inline int aligned16(const void* x, int64_t ld, int64_t outer,
                      int64_t inner) {
-  constexpr int64_t kVec = 16 / sizeof(E);
-  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && ld % kVec == 0 &&
-         outer % kVec == 0 && inner % kVec == 0;
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && ld % 4 == 0 &&
+         outer % 4 == 0 && inner % 4 == 0;
 }
 
 // One product C = op(A) op(B) with epilogue EPI (an epilogue takes an A
 // that is not transposed: rows of C are rows of A), `batches` of them
-// over the strides in p; A, B (and the bias) hold EA and EB values, C
-// takes EC values. An unbatched product with no epilogue and a
+// over the strides in p. An unbatched product with no epilogue and a
 // contiguous C whose tile grid fills less than two blocks a
 // multiprocessor is split along k when `ws` (ws_floats values) can hold
-// the slices: at most 16 slices, none shallower than 512; the slices are
-// fp32 and their sum is rounded once to EC. A bf16 operand's rows must
-// start on 16 bytes.
-template <bool TA, bool TB, int EPI, typename EA, typename EB, typename EC>
+// the slices: at most 16 slices, none shallower than 512, summed in
+// their fixed order.
+template <bool TA, bool TB, int EPI>
 inline cudaError_t gemm(Params p, int batches, float* ws, int64_t ws_floats,
                         cudaStream_t s) {
   static_assert(EPI == kNone || !TA, "an epilogue takes rows of A");
@@ -517,11 +419,9 @@ inline cudaError_t gemm(Params p, int batches, float* ws, int64_t ws_floats,
       (EPI == kMask && p.mask == nullptr) ||
       ((EPI == kBiasRelu || EPI == kBias) && p.bias == nullptr))
     return cudaErrorInvalidValue;
-  p.vec_a = aligned16<EA>(p.a, p.lda, p.a_outer, p.a_inner);
-  p.vec_b = aligned16<EB>(p.b, p.ldb, p.b_outer, p.b_inner);
-  p.vec_m = aligned16<float>(p.mask, p.ldm, 0, 0);
-  if ((!kSplit<EA> && !p.vec_a) || (!kSplit<EB> && !p.vec_b))
-    return cudaErrorInvalidValue;
+  p.vec_a = aligned16(p.a, p.lda, p.a_outer, p.a_inner);
+  p.vec_b = aligned16(p.b, p.ldb, p.b_outer, p.b_inner);
+  p.vec_m = aligned16(p.mask, p.ldm, 0, 0);
   const int64_t bn = p.n <= 64 ? 64 : 128;
   const int64_t tiles = ((p.m + kBM - 1) / kBM) * ((p.n + bn - 1) / bn);
   int64_t splits = 1;
@@ -531,17 +431,17 @@ inline cudaError_t gemm(Params p, int batches, float* ws, int64_t ws_floats,
     splits = imin(splits, p.k / 512);
     splits = imin(splits, ws_floats / (p.m * p.n));
   }
-  if (splits < 2) return by_width<TA, TB, EPI, EA, EB, EC>(p, batches, s);
+  if (splits < 2) return by_width<TA, TB, EPI>(p, batches, s);
   p.k_chunk = ((p.k + splits - 1) / splits + kBK - 1) / kBK * kBK;
   p.splits = (int)((p.k + p.k_chunk - 1) / p.k_chunk);
-  EC* c = static_cast<EC*>(p.c);
+  float* c = static_cast<float*>(p.c);
   p.c = ws;
-  cudaError_t err = by_width<TA, TB, EPI, EA, EB, float>(p, 1, s);
+  cudaError_t err = by_width<TA, TB, EPI>(p, 1, s);
   if (err != cudaSuccess) return err;
   const int64_t mn = p.m * p.n;
   const int64_t blocks = imin((mn + kThreads - 1) / kThreads, 4096);
-  sum_slices_kernel<EC><<<(unsigned)blocks, kThreads, 0, s>>>(ws, c, mn,
-                                                              p.splits);
+  sum_slices_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(ws, c, mn,
+                                                                 p.splits);
   return cudaGetLastError();
 }
 

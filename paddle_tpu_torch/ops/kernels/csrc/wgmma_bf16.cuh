@@ -1,9 +1,15 @@
 // A bf16 matrix product engine for Hopper (sm_90a): wgmma.mma_async fed by
-// TMA, for the bf16 instances of the FFN block (ffn_block.cu's
-// ffn_block_fwd_bf16 and ffn_block_bwd_bf16).
+// TMA, for the bf16 instances of the fused blocks: the FFN block
+// (ffn_block.cu's ffn_block_fwd_bf16 and ffn_block_bwd_bf16, all six of
+// their products) and the attention block (attention_block.cu's
+// attention_block_fwd_bf16 and attention_block_bwd_bf16: x Wqkv, ctx Wo,
+// ctx^T g, g Wo^T, x^T dqkv and dqkv Wqkv^T, each in one of the FFN's six
+// operand layouts).
 //
 // Replaces, on the bf16 path: paddle_tpu/ops/pallas/ffn_block.py
-// `_fwd_impl` and `_bwd_impl` (with ffn_block.cu, which runs its products
+// `_fwd_impl` and `_bwd_impl` and the dense products of
+// paddle_tpu/ops/pallas/attention_block.py `_fwd_impl` and `_bwd_impl`
+// (with ffn_block.cu and attention_block.cu, which run their products
 // here), whose products the TPU computes in fp32 on upcast bf16 operands.
 //
 // What bounds it on an H100: operations. At x [64, 256, 512], F 2048 the
@@ -49,8 +55,10 @@
 //   rows past m and chunks past n skipped: bias + ReLU into the h planes;
 //   the ReLU mask (hi + lo > 0, read from the h planes) into the dh planes
 //   over h in place, each thread reading the mask of exactly the chunks
-//   it then writes, all of them before its first store; bias (or none) to
-//   bf16; fp32 to a workspace of k slices.
+//   it then writes, all of them before its first store; hi/lo planes
+//   alone (the attention block's qkv and dctx); bias (or none) to bf16;
+//   fp32 to a workspace of k slices, or unsplit to C (the attention
+//   block's qkv for its forward's fp32 scores).
 // - A weight gradient (dW2 = h^T g, dW1 = x^T dh: 64 tiles over 16384-32768
 //   rows) is split along k into slices of whole slabs, as many as keep
 //   the card's SMs in one wave, each written in fp32 to the workspace and
@@ -65,8 +73,8 @@
 //   `const __grid_constant__` kernel parameters: a CUDA graph that
 //   captures a launch captures its maps by value, and its replays keep
 //   the addresses the maps hold. The dynamic shared memory attribute is
-//   set once a process, at a kernel's first launch, which run_steps makes
-//   eagerly before it captures.
+//   set once a process for each library, at a kernel's first launch,
+//   which run_steps makes eagerly before it captures.
 // What it still leaves: the [N, F] planes go through device memory (about
 // 0.08 ms each way at x [64, 256, 512], F 2048); the grid does not persist,
 // so a block's epilogue does not overlap its next tile's products, and the
@@ -98,6 +106,7 @@ enum Epilogue {
   kMask = 1,    // kept where the planes at C hold hi + lo > 0, into them
   kBias = 2,    // . (+ bias[j] where bias is given) rounded to bf16
   kF32 = 3,     // fp32, slice s of k at c + s * m * n
+  kSplit = 4,   // . into hi/lo planes
 };
 
 // ring stages: 6 of two single-plane operands, 4 with a planed one
@@ -379,7 +388,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
   constexpr int kEB = EPI == kF32 ? 4 : 2;  // bytes of an element of C
   constexpr int kPitch = kBN * kEB + (EPI == kF32 ? 32 : 16);
-  constexpr int kPlanes = EPI == kHidden || EPI == kMask ? 2 : 1;
+  constexpr int kPlanes =
+      EPI == kHidden || EPI == kMask || EPI == kSplit ? 2 : 1;
   static_assert(2 * kPlanes * 64 * kPitch <= kRingBytes, "staging fits");
   uint8_t* stage = ring + wg * kPlanes * 64 * kPitch;
   // d[4 j + 2 h + u] is C(r + 8 h, 8 j + 2 q + u) of this warpgroup's
@@ -555,15 +565,22 @@ inline cudaError_t make_map(CUtensorMap* map, const Operand& o,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// the kernel's dynamic shared memory limit, set once a process
+// the kernel's dynamic shared memory limit, set once a process in each
+// library built from this header. Internal linkage: a template's
+// function-local static is otherwise one object across every loaded
+// library (GNU unique symbols), and a second library holding the same
+// instance (ffn_block.cu and attention_block.cu both do) would launch its
+// own copy of the kernel without the attribute.
+namespace {
 template <bool TA, bool TB, int PA, int PB, int EPI, int G>
-inline cudaError_t smem_attr() {
+cudaError_t smem_attr() {
   static const cudaError_t err = cudaFuncSetAttribute(
       gemm_kernel<TA, TB, PA, PB, EPI, G>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes<PA, PB>);
   return err;
 }
+}  // namespace
 
 // C [m, n] = op(A) op(B) with epilogue EPI. a, b: A [m, k] and B [k, n] as
 // they lie (see gemm_kernel: TA, TB pick MN-major), with PA, PB planes;

@@ -27,7 +27,7 @@ versions compute the same contract and stay the CPU path. The bf16
 kernels (wgmma fed by TMA, ``csrc/wgmma_bf16.cuh``) keep h and dh as two
 bf16 planes, hi = bf16(v) and lo = bf16(v - hi), in the fp32 scratch's
 bytes: `ffn_block_planes_plain` computes what they compute, and
-`scratch_planes` reads the scratch.
+``bf16_planes.scratch_planes`` reads the scratch.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ import torch
 
 from . import check_launch, current_stream, require_block_inputs, \
     require_cuda_inputs, storage_tensor
+from .bf16_planes import planes_sum
 
 # the weight gradients' row slices and the column sums (tile_mma.cuh,
 # wgmma_bf16.cuh)
@@ -75,21 +76,6 @@ def ffn_block_bwd_plain(x, w1, b1, w2, g):
             (h.T @ g2).to(w2.dtype), g2.sum(0).to(w2.dtype))
 
 
-def _planes(v, terms):
-    """fp32 `v` as `terms` bf16 planes [terms, ...]: hi = bf16(v), then
-    (2 terms) lo = bf16(v - hi)."""
-    hi = v.to(torch.bfloat16)
-    if terms == 1:
-        return hi[None]
-    return torch.stack([hi, (v - hi.float()).to(torch.bfloat16)])
-
-
-def planes_sum(v, terms=2):
-    """fp32 `v` as the bf16 kernels keep it: the sum of its `terms` bf16
-    planes, in fp32."""
-    return _planes(v, terms).float().sum(0)
-
-
 def ffn_block_planes_plain(x, w1, b1, w2, b2, g, h_terms=2, dh_terms=2):
     """#12 and #13 as the bf16 kernels compute them: h and dh kept as
     `h_terms` and `dh_terms` bf16 planes (2: hi + lo, within 2^-17 of the
@@ -104,64 +90,6 @@ def ffn_block_planes_plain(x, w1, b1, w2, b2, g, h_terms=2, dh_terms=2):
     return out, ((dh @ w1.float().T).reshape(x.shape).to(x.dtype),
                  (x2.T @ dh).to(w1.dtype), dh.sum(0).to(b1.dtype),
                  (h.T @ g2).to(w2.dtype), g2.sum(0).to(w2.dtype))
-
-
-def scratch_planes(h, n, f):
-    """The bf16 kernels' (hi, lo) planes [n, f] in the fp32 scratch h
-    [n, f]: its bytes, hi first."""
-    return h.reshape(-1).view(torch.bfloat16).view(2, n, f).unbind(0)
-
-
-# The bf16 kernels' six products, each with its operand layout: (name, A
-# MN-major, B MN-major, planes of A, planes of B). K-major A is [m][k],
-# MN-major [k][m]; K-major B is [n][k], MN-major [k][n].
-PRODUCT_LAYOUTS = (
-    ("x W1", False, True, 1, 1),
-    ("h W2", False, True, 2, 1),
-    ("h^T g", True, True, 2, 1),
-    ("g W2^T", False, False, 1, 1),
-    ("x^T dh", True, True, 1, 2),
-    ("dh W1^T", False, False, 2, 1),
-)
-
-
-def layout_operands(layout, a, b):
-    """A [m, k] and B [k, n] (fp32) laid out as product `layout` reads
-    them: bf16 planes [P, rows, cols], contiguous, K-major or MN-major."""
-    _, ta, tb, pa, pb = PRODUCT_LAYOUTS[layout]
-    return (_planes((a.T if ta else a).contiguous(), pa).contiguous(),
-            _planes((b if tb else b.T).contiguous(), pb).contiguous())
-
-
-def product_bf16(layout, a, b, m, n, k, group=4):
-    """C [m, n] fp32 = A B from operands as `layout_operands` lays them:
-    on the card one product of the bf16 kernels' engine (unsplit; `group`
-    64-deep slabs a fresh accumulator takes, as the kernels' 4, or 0 for
-    one accumulator over all of k), on the CPU the plain product of the
-    planes' sums."""
-    _, ta, tb, _, _ = PRODUCT_LAYOUTS[layout]
-    if a.device.type == "cpu":
-        am, bm = a.float().sum(0), b.float().sum(0)
-        return (am.T if ta else am) @ (bm if tb else bm.T)
-    require_block_inputs("product_bf16", (a, b))
-    c = torch.empty(m, n, dtype=torch.float32, device=a.device)
-    check_launch("product_bf16", _product_kernel()(
-        layout, a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, group,
-        current_stream(a)))
-    return c
-
-
-@functools.cache
-def _product_kernel():
-    """The C entry `ffn_block_product_bf16` with its signature
-    declared: (layout, a, b, c, m, n, k, group, stream)."""
-    from .build import library
-
-    fn = library("ffn_block").ffn_block_product_bf16
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [
-        ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 @functools.cache

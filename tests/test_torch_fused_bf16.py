@@ -40,7 +40,18 @@ Tolerances:
   depth of 40 (ragged), 2048 and 32768 (a weight gradient's at batch 128
   before its split). The kernels' groups of 256 terms, each added to the
   running sum in fp32, keep well inside it; one wgmma accumulator over
-  32768 terms must miss it (a control).
+  32768 terms must miss it (a control). The planes-only epilogue (the
+  attention block's qkv and dctx, `SPLIT_LAYOUT`) the same, beyond the
+  planes' own rounding (2^-17 of each value).
+- the attention block's bf16 kernels keep ctx (and in the backward qkv,
+  dctx and dqkv) as two bf16 planes, the forward's scores on fp32 q and
+  k: `attention_block_planes_plain` computes that on the CPU and must
+  pass the card's gate against ``jax.vjp(attention_block_reference)``,
+  its P within `P_TOL` of float64, and stay within 2^-7 of the largest
+  |value| of the Pallas kernels in interpret mode; with q and k as planes
+  its P must miss `P_TOL`, with dqkv as one bf16 term its gradients the
+  gate. On the card the kernels hold to it and to the fp32 plain version
+  at ragged shapes, bit for bit on a second launch.
 
 The JAX package is imported inside the tests that compare with it, so
 the ``gpu`` tests also run where JAX is not installed:
@@ -54,6 +65,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops.kernels import attention_block as KAB
+from paddle_tpu_torch.ops.kernels import bf16_planes as KBP
 from paddle_tpu_torch.ops.kernels import ffn_block as KFF
 
 BF = torch.bfloat16
@@ -61,6 +73,8 @@ REF_SHARE = 1e-3
 KERNEL_REL = 2 ** -7
 CARD_SHARE = 0.05
 PRODUCT_REL = 2 ** -21
+PLANES_REL = 2 ** -17  # hi + lo against the fp32 value they stand for
+P_TOL = 1e-6  # a saved P against float64 (chip_smoke.py's)
 KNOB = "PADDLE_TPU_FUSE_ATTN_BLOCK"
 
 
@@ -285,6 +299,98 @@ def test_ffn_block_planes_plain_against_reference_vjp(jref, h_terms,
     assert all(passed) == ok, passed
 
 
+def _f64_attn(x, wqkv, wo, g, h, scale, causal):
+    """The attention block's output, P and grads in float64 (autograd of
+    `attention_block_reference`'s composition)."""
+    b, t, d = x.shape
+    xs = [z.double().requires_grad_() for z in (x, wqkv, wo)]
+    q, k, v = (z.reshape(b, t, h, -1).transpose(1, 2)
+               for z in (xs[0] @ xs[1]).split(d, dim=2))
+    s = q @ k.transpose(-1, -2) * scale
+    if causal:
+        keep = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+        s = s.masked_fill(~keep, torch.finfo(s.dtype).min)
+    p = torch.softmax(s, -1)
+    out = (p @ v).transpose(1, 2).reshape(b, t, d) @ xs[2]
+    grads = torch.autograd.grad(out, xs, g.double())
+    return out.detach(), p.detach(), grads
+
+
+PLANES_CASE = dict(b=2, t=64, d=64, h=2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_block_planes_plain_against_reference_vjp(jref, causal):
+    """ctx (and in the backward qkv, dctx, dqkv) as two bf16 planes, the
+    scores on fp32 q and k (the bf16 kernels' design), pass the card's
+    gate against ``jax.vjp(attention_block_reference)``, P within P_TOL
+    of float64."""
+    jax, JAB, _ = jref
+    import jax.numpy as jnp
+
+    b, t, d, h = PLANES_CASE.values()
+    x, wqkv, wo, g = _attn_case(b, t, d, seed=12)
+    scale = (d // h) ** -0.5
+    out, p, grads = KAB.attention_block_planes_plain(x, wqkv, wo, g, h,
+                                                     scale, causal)
+    ref, vjp = jax.vjp(
+        lambda *a: JAB.attention_block_reference(*a, h, scale, causal),
+        *(_to_jax(jnp, z) for z in (x, wqkv, wo)))
+    want = (ref, *vjp(_to_jax(jnp, g)))
+    o64, p64, g64 = _f64_attn(x, wqkv, wo, g, h, scale, causal)
+    passed = [_card_ok(a, _from_jax(w).to(BF), o)
+              for a, w, o in zip((out, *grads), want, (o64, *g64))]
+    assert all(a.dtype == BF for a in (out, *grads))
+    assert all(passed), passed
+    assert p.dtype == torch.float32
+    assert float((p.double() - p64).abs().max()) <= P_TOL
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_block_planes_plain_matches_pallas_interpret(jref, causal):
+    """The planes design against `_fwd_impl` / `_bwd_impl` in interpret
+    mode, each backward from its own forward's P (the Pallas one bf16)."""
+    _, JAB, _ = jref
+    import jax.numpy as jnp
+
+    x, wqkv, wo, g = _attn_case(seed=13)
+    jx = [_to_jax(jnp, t) for t in (x, wqkv, wo)]
+    want, want_p = JAB._fwd_impl(*jx, HEADS, SCALE, causal, save_p=True)
+    want_g = JAB._bwd_impl(*jx, want_p, _to_jax(jnp, g), HEADS, SCALE,
+                           causal)
+    out, _, grads = KAB.attention_block_planes_plain(x, wqkv, wo, g, HEADS,
+                                                     SCALE, causal)
+    for name, a, w in zip(("out", "dx", "dwqkv", "dwo"), (out, *grads),
+                          (want, *want_g)):
+        assert a.dtype == BF, name
+        rel, _ = _gate(a, _from_jax(w))
+        assert rel <= KERNEL_REL, (name, rel)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("control", ["q and k as planes",
+                                     "dqkv as one bf16 term"])
+def test_attention_block_planes_controls_fail(causal, control):
+    """Two designs the bf16 kernels must not take, planted in the plain
+    version: q and k as two planes in the scores put P over P_TOL from
+    float64; dqkv as one bf16 term moves the gradients past the card's
+    gate (against the fp32 plain version, which passes it)."""
+    b, t, d, h = PLANES_CASE.values()
+    x, wqkv, wo, g = _attn_case(b, t, d, seed=14)
+    scale = (d // h) ** -0.5
+    o64, p64, g64 = _f64_attn(x, wqkv, wo, g, h, scale, causal)
+    if control == "q and k as planes":
+        _, p, _ = KAB.attention_block_planes_plain(x, wqkv, wo, g, h, scale,
+                                                   causal, qk_planes=True)
+        assert float((p.double() - p64).abs().max()) > P_TOL
+        return
+    _, p, grads = KAB.attention_block_planes_plain(x, wqkv, wo, g, h, scale,
+                                                   causal, dqkv_terms=1)
+    want = KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h, scale)
+    assert all(_card_ok(w, w, o) for w, o in zip(want, g64))
+    assert not all(_card_ok(a, w, o) for a, w, o in zip(grads, want, g64))
+
+
 def test_ffn_layout_products_plain():
     """The six operand layouts' plain products (the CPU path of
     `product_bf16`) equal A B on the planes' values."""
@@ -292,11 +398,11 @@ def test_ffn_layout_products_plain():
     m, n, k = 24, 16, 40
     a = torch.from_numpy(r.randn(m, k).astype(np.float32))
     b = torch.from_numpy(r.randn(k, n).astype(np.float32))
-    for layout, (_, _, _, pa, pb) in enumerate(KFF.PRODUCT_LAYOUTS):
-        am, bm = KFF.layout_operands(layout, a, b)
+    for layout, (_, _, _, pa, pb) in enumerate(KBP.PRODUCT_LAYOUTS):
+        am, bm = KBP.layout_operands(layout, a, b)
         assert am.dtype == BF and am.shape[0] == pa and bm.shape[0] == pb
-        want = KFF.planes_sum(a, pa) @ KFF.planes_sum(b, pb)
-        got = KFF.product_bf16(layout, am, bm, m, n, k)
+        want = KBP.planes_sum(a, pa) @ KBP.planes_sum(b, pb)
+        got = KBP.product_bf16(layout, am, bm, m, n, k)
         assert float((got - want).abs().max()) <= 1e-5 * float(
             want.abs().max()), layout
 
@@ -420,7 +526,7 @@ def _ffn_kernel_planes(x, w1, b1, w2, g=None):
         assert KFF._kernel("ffn_block_bwd", 12, True, BF)(
             *(z.data_ptr() for z in (x, w1, b1, w2, g, *grads, h, ws)),
             ws.numel(), n, d, f, st) == 0
-    hi, lo = KFF.scratch_planes(h, n, f)
+    hi, lo = KBP.scratch_planes(h, n, f)
     return hi.float() + lo.float()
 
 
@@ -468,23 +574,85 @@ def test_ffn_block_bf16_kernel_matches_plain(cuda, b, t, d, f):
 @pytest.mark.parametrize("layout", range(6))
 def test_ffn_layout_product_against_float64(cuda, layout, m, n, k):
     """One product of the bf16 FFN kernels' engine in each operand layout
-    (`KFF.PRODUCT_LAYOUTS`), unsplit, against float64 on the planes'
+    (`KBP.PRODUCT_LAYOUTS`), unsplit, against float64 on the planes'
     exact values."""
     r = np.random.RandomState(9 + layout)
     a = torch.from_numpy(r.randn(m, k).astype(np.float32)).to(cuda)
     b = torch.from_numpy(r.randn(k, n).astype(np.float32)).to(cuda)
-    am, bm = KFF.layout_operands(layout, a, b)
-    got = KFF.product_bf16(layout, am, bm, m, n, k)
+    am, bm = KBP.layout_operands(layout, a, b)
+    got = KBP.product_bf16(layout, am, bm, m, n, k)
     torch.cuda.synchronize()
-    _, ta, tb, _, _ = KFF.PRODUCT_LAYOUTS[layout]
+    _, ta, tb, _, _ = KBP.PRODUCT_LAYOUTS[layout]
     a64, b64 = am.double().sum(0), bm.double().sum(0)
     a64, b64 = a64.T if ta else a64, b64 if tb else b64.T
     want = a64 @ b64
     scale = float((a64.abs() @ b64.abs()).max())
     err = float((got.double() - want).abs().max()) / scale
-    assert err <= PRODUCT_REL, (KFF.PRODUCT_LAYOUTS[layout][0], err)
+    assert err <= PRODUCT_REL, (KBP.PRODUCT_LAYOUTS[layout][0], err)
     if k > 4096:
         # one accumulator over all of k loses bits: the check sees it
-        one = KFF.product_bf16(layout, am, bm, m, n, k, group=0)
+        one = KBP.product_bf16(layout, am, bm, m, n, k, group=0)
         assert float((one.double() - want).abs().max()) / scale > \
-            PRODUCT_REL, KFF.PRODUCT_LAYOUTS[layout][0]
+            PRODUCT_REL, KBP.PRODUCT_LAYOUTS[layout][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,d,h,causal", [(3, 8, 64, 2, True),
+                                            (1, 264, 96, 3, True),
+                                            (2, 264, 256, 4, True),
+                                            (2, 264, 256, 2, True),
+                                            (4, 8, 512, 4, True),
+                                            (2, 264, 256, 4, False)])
+def test_attention_block_bf16_planes_kernel_matches_plain(cuda, b, t, d, h,
+                                                          causal):
+    """The bf16 kernels (products on wgmma, ctx, qkv, dctx and dqkv as
+    planes) at ragged shapes: T 8 and 264, Dh 32, 64 and 128. Within one
+    bf16 rounding of `attention_block_planes_plain` and of the fp32 plain
+    version, P within P_TOL of float64, the same bits on a second launch
+    and the output the same with P and without."""
+    x, wqkv, wo, g = (z.to(cuda) for z in _attn_case(b, t, d, seed=15))
+    scale = (d // h) ** -0.5
+    runs = [KAB._attention_block_launch(x, wqkv, wo, h, scale, causal, True)
+            for _ in range(2)]
+    primal = KAB._attention_block_launch(x, wqkv, wo, h, scale, causal,
+                                         False)
+    out, p = runs[0]
+    grads = [KAB.attention_block_bwd(x, wqkv, wo, p, g, h, scale, causal)
+             for _ in range(2)]
+    pout, _, pgrads = KAB.attention_block_planes_plain(x, wqkv, wo, g, h,
+                                                       scale, causal, p=p)
+    wout = KAB.attention_block_plain(x, wqkv, wo, h, scale, causal)
+    wgrads = KAB.attention_block_bwd_plain(x, wqkv, wo, p, g, h, scale)
+    _, p64, _ = _f64_attn(x, wqkv, wo, g, h, scale, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1]) and torch.equal(primal, out)
+    assert all(torch.equal(u, v) for u, v in zip(*grads))
+    assert float((p.double() - p64).abs().max()) <= P_TOL
+    for name, a, w, pw in zip(("out", "dx", "dwqkv", "dwo"),
+                              (out, *grads[0]), (wout, *wgrads),
+                              (pout, *pgrads)):
+        _card_gate(name, a, pw)
+        _card_gate(name, a, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(200, 72, 40), (256, 1536, 512),
+                                   (128, 256, 32768)])
+def test_split_layout_product_against_float64(cuda, m, n, k):
+    """The engine's planes-only epilogue (`SPLIT_LAYOUT`: x W1's layout,
+    C as hi + lo bf16 planes, as the attention block writes qkv and dctx)
+    against float64: within PRODUCT_REL of the largest row-by-column sum
+    of |products| beyond the planes' own rounding."""
+    r = np.random.RandomState(30)
+    a = torch.from_numpy(r.randn(m, k).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(r.randn(k, n).astype(np.float32)).to(cuda)
+    am, bm = KBP.layout_operands(KBP.SPLIT_LAYOUT, a, b)
+    got = KBP.product_bf16(KBP.SPLIT_LAYOUT, am, bm, m, n, k)
+    torch.cuda.synchronize()
+    # A K-major [m][k], B MN-major [k][n]
+    a64, b64 = am.double().sum(0), bm.double().sum(0)
+    want = a64 @ b64
+    scale = float((a64.abs() @ b64.abs()).max())
+    over = ((got.double() - want).abs() - PLANES_REL * want.abs()).clamp(0)
+    assert float(over.max()) / scale <= PRODUCT_REL

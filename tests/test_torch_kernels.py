@@ -458,7 +458,7 @@ def test_kernel_sources_reach_the_shared_headers():
                   "split_bf16", "wgmma_bf16"))
     # the three forwards run one body, the sdpa_short backward runs the
     # attention block's stages (with no O = P v product of its own), both
-    # FFN products run on the split-TF32
+    # fused blocks run their products on the split-TF32
     # product in fp32 and on the wgmma engine in bf16, and the paged
     # kernel takes the cp.async staging; the SIMT
     # product (tile_gemm.cuh) is gone; the attention bodies take their
@@ -467,7 +467,7 @@ def test_kernel_sources_reach_the_shared_headers():
         split, fwd, bf16}
     assert headers("flash_attention_bwd") == {split, bf16}
     assert headers("sdpa_short_bwd") == {split, bwd, bf16}
-    assert headers("attention_block") == {split, mma, fwd, bwd, bf16}
+    assert headers("attention_block") == {split, mma, fwd, bwd, bf16, wgmma}
     assert headers("ffn_block") == {split, mma, wgmma}
     assert headers("paged_attention") == {split}
     assert not (build.CSRC / "tile_gemm.cuh").exists()
