@@ -75,8 +75,12 @@ Phases (a failing phase fails the script; none is caught):
    fused-block kernels, also three times their function's products over
    495 TFLOP/s, with their TFLOP/s);
    the attention kernels #2-#6 also in bf16 (AMP) at the training
-   shapes, causal and not: outputs, the saved bf16 P, the fp32 lse and
-   the grads within 2^-8 of the largest |plain| in at most 5% of the
+   shapes, causal and not (#2 at d 64 and 128 and #6 on wgmma fed by
+   TMA, whose three operand forms, SS K-major, SS MN-major and RS on
+   hi/lo planes, are first held against float64 at n 64 and 128, and
+   whose ptxas registers and spills are logged): outputs, the saved
+   bf16 P, the fp32 lse and the grads within 2^-8 of the largest |plain|
+   in at most 5% of the
    elements, no further from a float64 oracle than twice the plain
    version, the same bits on a second launch; planted faults (the flash
    backward fed lse + 1e-2, the causal flag dropped, #6's dS as one bf16
@@ -3183,6 +3187,39 @@ def _lib_sdpa_bf16(q, k, v, scale, causal=False):
             q, k, v, scale=scale, is_causal=causal)
 
 
+def _attn_forms():
+    """Each operand form of bf16 #2's and #6's wgmma kernels
+    (`KA.WGMMA_FORMS`: SS with both operands K-major, SS with both
+    MN-major, RS with A's hi/lo planes from the accumulator layout and B
+    MN-major) at n 64 and 128, a [64, n] x depth-128 product, against
+    float64 on the operands' exact values (form 2's error counted beyond
+    the planes' own 2^-17 of each value), before anything else runs on
+    them. Returns {form n: error over the largest sum |a b|}."""
+    res = {}
+    for form, (fname, ta, tb, planes) in enumerate(KA.WGMMA_FORMS):
+        for n in (64, 128):
+            gen = torch.Generator(device="cuda").manual_seed(form * 1000 + n)
+            a = torch.randn(64, 128, device="cuda", generator=gen)
+            b = torch.randn(128, n, device="cuda", generator=gen)
+            am = a if planes else (a.T if ta else a).contiguous().to(
+                torch.bfloat16)
+            bm = (b if tb else b.T).contiguous().to(torch.bfloat16)
+            got = KA.wgmma_form_bf16(form, am, bm)
+            a64, b64 = am.double(), bm.double()
+            a64, b64 = a64.T if ta else a64, b64 if tb else b64.T
+            want, mag = a64 @ b64, a64.abs() @ b64.abs()
+            err = (got.double() - want).abs()
+            if planes:
+                err = (err - PLANES_REL * mag).clamp(min=0)
+            res[f"{fname} n {n}"] = float(err.max()) / float(mag.max())
+            assert torch.equal(got, KA.wgmma_form_bf16(form, am, bm))
+    log("  bf16 #2/#6 wgmma operand forms [64, n] x 128 against float64: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in res.items())
+        + f" of the largest sum |a b| (tol {PRODUCT_REL:.2e})")
+    assert max(res.values()) <= PRODUCT_REL, res
+    return res
+
+
 def _attn_bf16_entries():
     """#2-#6 on bf16 q, k, v and dO at the training path's shapes
     ([32,8,512,64] sdpa_short, [16,8,1024,64] flash), causal and not:
@@ -3196,6 +3233,7 @@ def _attn_bf16_entries():
     plain version and the library's flash SDPA (forward; its backward,
     which computes dq, dk and dv together, beside the backward
     kernels)."""
+    forms = _attn_forms()
     out = {n: dict(errs=[], ratios=[]) for n in (
         "sdpa_short", "sdpa_short_bwd", "flash_attention", "flash_bwd_dq",
         "flash_bwd_dkv")}
@@ -3295,7 +3333,29 @@ def _attn_bf16_entries():
             del runs, grads, wgrads, f64, oracle
             if kind == "sdpa_short":
                 del single
-    return out | _bf16_timing()
+    ptxas = _wgmma_ptxas()
+    for kname, line in ptxas.items():
+        if "attn_wgmma" in kname:
+            log(f"  ptxas {kname}: {line}")
+    design = {
+        "flash_attention": (
+            "d 64 and 128: wgmma.mma_async fed by TMA, a persistent block "
+            "an SM walking (bh, 128 query rows) items in two consumer "
+            "warpgroups, 128-key tiles (64 at d 128), "
+            "S = q k^T SS, P as bf16 hi/lo planes in registers for P v (RS), "
+            "V MN-major (csrc/attn_wgmma.cuh); d 256 flash_fwd.cuh's "
+            "mma.sync body"),
+        "sdpa_short_bwd": (
+            "wgmma.mma_async fed by TMA (csrc/attn_wgmma.cuh): grid 1 dq and "
+            "delta = rowsum(dP P) over 128-key tiles, dS as hi/lo planes "
+            "(RS); grid 2 dk, dv over 64-row query tiles, P^T dO SS with P "
+            "MN-major, dS^T planes (RS); P gathered by the producer warp "
+            "where T % 8 != 0")}
+    extra = {n: dict(design=d, ptxas={k: v for k, v in ptxas.items()
+                                      if k.startswith(n + ":")},
+                     forms_rel_err=forms)
+             for n, d in design.items()}
+    return out | _bf16_timing() | {"extra": extra}
 
 
 def _bf16_timing():
@@ -3383,9 +3443,10 @@ def _bf16_timing():
 def _bf16_line(raw):
     """Each kernel's `bf16` field of the kernels line (its launches are
     added by the bf16 training legs)."""
-    timing = raw.pop("timing")
+    timing, extra = raw.pop("timing"), raw.pop("extra")
     return {n: dict(max_abs_err=max(e["errs"]),
-                    f64_ratio=max(e["ratios"]), **timing[n])
+                    f64_ratio=max(e["ratios"]), **timing[n],
+                    **extra.get(n, {}))
             for n, e in raw.items()}
 
 
@@ -3497,15 +3558,18 @@ def _ffn_layouts():
 def _wgmma_ptxas():
     """ptxas's registers, spills and static shared memory for each
     instance of the bf16 engine's product (ffn_block.cu's and
-    attention_block.cu's builds) and of the attention stages on bf16
-    planes (attention_block.cu's), keyed "source: mangled name"."""
+    attention_block.cu's builds), of the attention stages on bf16 planes
+    (attention_block.cu's) and of the bf16 attention kernels on wgmma
+    (flash_attention.cu's and sdpa_short_bwd.cu's), keyed "source:
+    mangled name"."""
     out = {}
-    for src in ("ffn_block", "attention_block"):
+    for src in ("ffn_block", "attention_block", "flash_attention",
+                "sdpa_short_bwd"):
         name = None
         for line in build.PTXAS_LOG.get(src, "").splitlines():
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
-                keep = "wgmma_bf16" in name or (
+                keep = "wgmma_bf16" in name or "attn_wgmma" in name or (
                     "attn_bwd_from_p" in name and "planes" in name)
                 name = f"{src}: {name}" if keep else None
             elif name and ("registers" in line or "spill" in line):
@@ -3820,7 +3884,8 @@ def _fused_bf16_entries():
     del a, ffn_in, lib_ffn, attn_in, lib_attn, p
     ptxas = _wgmma_ptxas()
     for kname, line in ptxas.items():
-        log(f"  ptxas {kname}: {line}")
+        if "attn_wgmma" not in kname:  # logged with #2 and #6
+            log(f"  ptxas {kname}: {line}")
     for name in ("ffn_block", "ffn_block_bwd"):
         out[name]["design"] = ("wgmma.mma_async m64n128k16 fed by TMA, h "
                                "and dh as bf16 hi/lo planes "

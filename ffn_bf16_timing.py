@@ -1,9 +1,10 @@
-"""The fused blocks' bf16 kernels, #10 and #11 (``attention_block_fwd_bf16``,
-``attention_block_bwd_bf16``) and #12 and #13 (``ffn_block_fwd_bf16``,
-``ffn_block_bwd_bf16``), and the training legs around them, from one
-checkout, on one card.
+"""The bf16 kernels on wgmma: the fused blocks' #10 and #11
+(``attention_block_fwd_bf16``, ``attention_block_bwd_bf16``) and #12 and
+#13 (``ffn_block_fwd_bf16``, ``ffn_block_bwd_bf16``), the attention
+kernels #2 (``flash_attention_fwd_bf16``) and #6 (``sdpa_short_bwd_bf16``),
+and the training legs around them, from one checkout, on one card.
 
-    python3 ffn_bf16_timing.py [--root DIR] [--kernels-only]
+    python3 ffn_bf16_timing.py [--root DIR] [--kernels-only] [--legs L,...]
 
 Imports DIR's ``chip_smoke.py`` and ``paddle_tpu_torch`` (default: this
 checkout), so that two checkouts compare in one call on one card: run
@@ -15,16 +16,22 @@ launches, and the host's time to enqueue one call of each, which is
 what an eager step pays on the host for it. It profiles one launch each
 of #10 (without P and with it) and #11 under torch.profiler and lists
 their device activities in launch order with their device times: the
-stages of the kernels. It hashes the outputs of every kernel built on
-the headers the bf16 attention block shares (``flash_fwd.cuh``: #2, #5,
-#10; ``attn_bwd_from_p.cuh``: #6, #11; ``split_bf16.cuh``: #2-#6 in
-bf16; ``wgmma_bf16.cuh``: #12, #13 in bf16; ``tile_mma.cuh``: #10-#13
-in fp32) on seeded inputs, so that two checkouts show which kernels kept
-their bits. Then, unless ``--kernels-only``, it runs DIR's chip_smoke.py
-training legs, each with its own gates: phase 5's fp32 leg (seq 256,
-batch 64), the bf16 leg at the bench's settings (seq 256, batch 128),
-phase 8's fp32 fused leg (seq 256, batch 64) and the bf16 fused leg (seq
-256, batch 128, #10-#13 in bf16).
+stages of the kernels. It does the same for #2 at [16, 8, 1024, 64]
+(without lse, with it, and causal with it) and #6 at [32, 8, 512, 64]
+(and causal), the shapes of the bf16 training legs at seq 1024 and 512.
+It hashes the outputs of every kernel built on the shared headers
+(``flash_fwd.cuh``: #2, #5, #10; ``attn_bwd_from_p.cuh``: #6, #11;
+``split_bf16.cuh``: #2-#6 in bf16; ``hopper.cuh`` and
+``wgmma_bf16.cuh``: #10-#13 in bf16; ``attn_wgmma.cuh``: #2 and #6 in
+bf16; ``tile_mma.cuh``: #10-#13 in fp32) on seeded inputs (#3 and #4
+on the plain forward's out and lse), so that two checkouts show which
+kernels kept their bits. Then, unless ``--kernels-only``, it runs DIR's
+chip_smoke.py training legs, each with its own gates (``--legs`` picks
+some, by the names below): phase 5's fp32 leg (seq 256, batch 64), the
+bf16 leg at the bench's settings (seq 256, batch 128), phase 8's fp32
+fused leg (seq 256, batch 64), the bf16 fused leg (seq 256, batch 128,
+#10-#13 in bf16), the fp32 legs at seq 512 / batch 32 and 1024 / batch
+16 and the bf16 legs at the same (#5 and #6, #2-#4 in bf16).
 
 Prints, as its last line, one JSON object: the root, the card and its
 power limit, the kernels' ms and host us, the stages, the output
@@ -42,6 +49,8 @@ import time
 ap = argparse.ArgumentParser()
 ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
 ap.add_argument("--kernels-only", action="store_true")
+ap.add_argument("--legs", default=None,
+                help="comma-separated leg names (default: all)")
 args = ap.parse_args()
 ROOT = os.path.abspath(args.root)
 sys.path.insert(0, ROOT)
@@ -143,6 +152,46 @@ def kernels(cs):
     return res
 
 
+def attention(cs):
+    """bf16 #2 at [16, 8, 1024, 64] and #6 at [32, 8, 512, 64] (the bf16
+    training legs' shapes), non-causal and causal: the whole launch, the
+    host's enqueue time a call, the function's TFLOP/s and the stages of
+    one launch."""
+    ka = cs.KA
+    res = {}
+    for name, (b, t) in (("flash_attention", (16, 1024)),
+                         ("sdpa_short_bwd", (32, 512))):
+        q, k, v = (z.to(BF) for z in cs._qkv(b, 8, t, t, 64, seed=140 + t))
+        g = cs._randn_like(q, 141 + t).to(BF)
+        flops = 4 * b * 8 * t * t * 64  # the function's products
+        for causal in (False, True):
+            if name == "flash_attention":
+                runs = {"": lambda: ka._flash_attention_launch(
+                    q, k, v, 0.125, causal, False),
+                    "_with_lse": lambda: ka._flash_attention_launch(
+                        q, k, v, 0.125, causal, True)}
+            else:
+                _, p = ka._sdpa_short_launch(q, k, v, 0.125, causal, True)
+                runs = {"": lambda: ka.sdpa_short_bwd(q, k, v, p, g, 0.125,
+                                                      causal)}
+                flops = 8 * b * 8 * t * t * 64
+            tag = name + ("_causal" if causal else "")
+            for suffix, fn in runs.items():
+                ms = best_ms(cs, fn)
+                res[tag + suffix] = dict(
+                    ms=ms, host_us=host_us(fn), stages=stages(fn),
+                    tflops=None if causal else flops / ms / 1e9,
+                    shape=[b, 8, t, 64])
+                e = res[tag + suffix]
+                cs.log(f"ffn_bf16_timing {tag + suffix} bf16 [{b},8,{t},64]: "
+                       f"{ms:.4f} ms (host {e['host_us']:.1f} us a call)"
+                       + (f", {e['tflops']:.1f} TFLOP/s" if e["tflops"]
+                          else "") + "; stages: " + "; ".join(
+                           f"{n} {x:.4f}" for n, x in e["stages"]))
+        del q, k, v, g
+    return res
+
+
 def digest(*ts):
     h = hashlib.sha256()
     for t in ts:
@@ -182,11 +231,27 @@ def bits(cs):
                 *ka.sdpa_short_bwd(q, k, v, p, go, 0.125, causal))
             o, lse = ka._flash_attention_launch(q, k, v, 0.125, causal, True)
             out[f"#2 {tag} causal={causal}"] = digest(o, lse)
+            # #3 and #4 from the plain forward's out and lse, so that their
+            # hashes do not follow #2's
+            o, lse = ka.flash_attention_plain(q, k, v, 0.125, causal,
+                                              with_lse=True)
             delta = ka.flash_delta(o, go)
             out[f"#3 {tag} causal={causal}"] = digest(ka.flash_bwd_dq(
                 q, k, v, go, lse, delta, 0.125, causal))
             out[f"#4 {tag} causal={causal}"] = digest(*ka.flash_bwd_dkv(
                 q, k, v, go, lse, delta, 0.125, causal))
+        # the other head widths: #2 at d 128 and 256, #5 and #6 at d 128
+        for d in (128, 256):
+            q, k, v = (z.to(dt) for z in cs._qkv(2, 4, 300, 300, d,
+                                                 seed=133 + d))
+            go = cs._qkv(2, 4, 300, 300, d, seed=134 + d)[0].to(dt)
+            out[f"#2 {tag} d{d}"] = digest(*ka._flash_attention_launch(
+                q, k, v, d ** -0.5, True, True))
+            if d == 128:
+                o, p = ka._sdpa_short_launch(q, k, v, d ** -0.5, True, True)
+                out[f"#5 {tag} d{d}"] = digest(o, p)
+                out[f"#6 {tag} d{d}"] = digest(*ka.sdpa_short_bwd(
+                    q, k, v, p, go, d ** -0.5, True))
     return out
 
 
@@ -208,16 +273,33 @@ def main():
     assert os.path.dirname(os.path.abspath(cs.pf.__file__)).startswith(ROOT)
     name, _, card = cs.phase_device()
     cs.phase_build()
-    out = dict(root=ROOT, card=card, kernels=kernels(cs), bits=bits(cs))
+    out = dict(root=ROOT, card=card, kernels=kernels(cs),
+               attention=attention(cs), bits=bits(cs))
     if not args.kernels_only:
-        _, fp32 = cs.phase_train(name, card, 256, 64)
-        _, bf16 = cs.phase_train_bf16(name, card, 256, 128)
-        _, fused = cs.phase_train_fused(name, card, fp32)
-        _, bf16_fused = cs.phase_train_bf16(name, card, 256, 128,
-                                            fused=True)
-        out["legs"] = {"fp32 256x64": leg(fp32), "bf16 256x128": leg(bf16),
-                       "fp32 fused 256x64": leg(fused),
-                       "bf16 fused 256x128": leg(bf16_fused)}
+        fp32 = {}
+
+        def fp32_leg(t, b):
+            fp32[t] = cs.phase_train(name, card, t, b)[1]
+            return fp32[t]
+
+        legs = {
+            "fp32 256x64": lambda: fp32_leg(256, 64),
+            "bf16 256x128": lambda: cs.phase_train_bf16(name, card, 256,
+                                                        128)[1],
+            "fp32 fused 256x64": lambda: cs.phase_train_fused(
+                name, card, fp32[256] if 256 in fp32 else fp32_leg(256, 64)
+            )[1],
+            "bf16 fused 256x128": lambda: cs.phase_train_bf16(
+                name, card, 256, 128, fused=True)[1],
+            "fp32 512x32": lambda: fp32_leg(512, 32),
+            "fp32 1024x16": lambda: fp32_leg(1024, 16),
+            "bf16 512x32": lambda: cs.phase_train_bf16(name, card, 512,
+                                                       32)[1],
+            "bf16 1024x16": lambda: cs.phase_train_bf16(name, card, 1024,
+                                                        16)[1],
+        }
+        pick = args.legs.split(",") if args.legs else list(legs)
+        out["legs"] = {n: leg(legs[n]()) for n in pick}
     print(json.dumps(out), flush=True)
 
 

@@ -6,13 +6,19 @@
 All take q, k, v as [B, H, T, D], all fp32 or all bf16 (the TPU kernels'
 contract under AMP: fp32 accumulation, fp32 lse and delta, outputs and
 grads in the input dtype, sdpa_short's saved P in the input dtype). Each
-C entry point has a ``_bf16`` twin built from the same body. Both
-forwards run one body, an online softmax over streamed keys on the
-tensor cores (``csrc/flash_fwd.cuh``): ``sdpa_short`` at tq == tk <= 512, d in
-{64, 128}, ``flash_attention`` at any tq, tk, d in {64, 128, 256},
-causal masking bottom-right aligned. ``sdpa_short``'s backward runs the
+C entry point has a ``_bf16`` twin. Both forwards run one body in fp32,
+an online softmax over streamed keys on the tensor cores
+(``csrc/flash_fwd.cuh``): ``sdpa_short`` at tq == tk <= 512, d in {64,
+128}, ``flash_attention`` at any tq, tk, d in {64, 128, 256}, causal
+masking bottom-right aligned. ``sdpa_short``'s backward runs, in fp32, the
 attention stages it shares with the attention block's backward
-(``csrc/attn_bwd_from_p.cuh``).
+(``csrc/attn_bwd_from_p.cuh``). In bf16, ``flash_attention`` at d 64 and
+128 and ``sdpa_short``'s backward run their own Hopper design on wgmma
+fed by TMA (``csrc/attn_wgmma.cuh``; `flash_attention_tiles_plain` and
+`sdpa_short_bwd_tiles_plain` are its arithmetic in PyTorch);
+``flash_attention`` at d 256 keeps ``flash_fwd.cuh``'s body, a dispatch by
+d (its output accumulator leaves a wgmma consumer no registers), and
+``sdpa_short`` in bf16 keeps it at every d.
 
 On the card both are differentiable, as the JAX package's ``custom_vjp``
 pair is: under a vjp the forward kernel also writes the residual its
@@ -31,6 +37,7 @@ import torch
 from . import (causal_keep, check_launch, current_stream, masked_logits,
                reference_attention, require_cuda_inputs, storage_tensor)
 from . import on_card as _on_card
+from .bf16_planes import planes_sum
 
 SDPA_MAX_T = 512
 SDPA_HEAD_DIMS = (64, 128)
@@ -67,6 +74,128 @@ def sdpa_short_bwd_plain(q, k, v, p, g, scale, causal=False):
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+LOG2E = 1.4426950408889634
+FLT_MAX = torch.finfo(torch.float32).max
+
+
+def flash_attention_tiles_plain(q, k, v, scale, causal, key_tile=128,
+                                p_terms=2):
+    """The arithmetic of the bf16 flash forward on wgmma
+    (``csrc/attn_wgmma.cuh``), in fp32 from q's values: keys in tiles of
+    `key_tile` (128 at d 64, 64 at d 128), the online softmax on the
+    scores scaled into the log2 domain (a causally masked score
+    -FLT_MAX), P fed to P v as `p_terms` bf16 planes (2: hi and lo; 1:
+    P rounded to one bf16 term, a design that must fail the bf16 gate)
+    into a fresh accumulator a tile, out / l rounded to q's dtype once.
+    Returns (out, lse fp32 [B, H, tq]; -FLT_MAX on a fully masked
+    row)."""
+    tq, tk = q.shape[2], k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full(q.shape[:3], -torch.inf, device=q.device)
+    l = torch.zeros(q.shape[:3], device=q.device)
+    acc = torch.zeros_like(qf)
+    keep = causal_keep(tq, tk, q.device) if causal else None
+    for k0 in range(0, tk, key_tile):
+        k1 = min(tk, k0 + key_tile)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k1]) * (
+            scale * LOG2E)
+        if causal:
+            s = torch.where(keep[:, k0:k1], s, -FLT_MAX)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", planes_sum(p, p_terms), vf[:, :, k0:k1])
+        m = m_new
+    lse = torch.where(m == -FLT_MAX, -FLT_MAX, m / LOG2E + torch.log(l))
+    return (acc / l[..., None]).to(q.dtype), lse
+
+
+def sdpa_short_bwd_tiles_plain(q, k, v, p, g, scale, causal=False,
+                               key_tile=128, query_tile=64, ds_terms=2):
+    """The arithmetic of the bf16 sdpa_short backward on wgmma
+    (``csrc/attn_wgmma.cuh``), in fp32 from the bf16 values: grid 1's
+    delta = rowsum(dP P) summed over key tiles of `key_tile` in order, and
+    dq = scale dS k a tile at a time; grid 2's dk = scale dS^T q and dv =
+    P^T dO over query tiles of `query_tile`; dS enters its products as
+    `ds_terms` bf16 planes (2: hi and lo; 1: one bf16 term, a design that
+    must fail the bf16 gate). `causal` only skips tiles where P is 0.
+    Returns (dq, dk, dv) in q's dtype."""
+    b, h, t, d = q.shape
+    p = p.reshape(b, h, t, t).float()
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    delta = torch.zeros(b, h, t, device=q.device)
+    for k0 in range(0, t, key_tile):
+        sl = slice(k0, k0 + key_tile)
+        dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf[:, :, sl])
+        delta = delta + (dp * p[..., sl]).sum(-1)
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, t, key_tile):
+        sl = slice(k0, k0 + key_tile)
+        dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf[:, :, sl])
+        ds = p[..., sl] * (dp - delta[..., None])
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", planes_sum(ds, ds_terms),
+                               kf[:, :, sl])
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, t, query_tile):
+        sl = slice(q0, q0 + query_tile)
+        pt = p[:, :, sl].transpose(-1, -2)  # [keys, queries]
+        dpt = torch.einsum("bhkd,bhqd->bhkq", vf, gf[:, :, sl])
+        dst = pt * (dpt - delta[:, :, None, sl])
+        dv = dv + torch.einsum("bhkq,bhqd->bhkd", pt, gf[:, :, sl])
+        dk = dk + torch.einsum("bhkq,bhqd->bhkd", planes_sum(dst, ds_terms),
+                               qf[:, :, sl])
+    return ((dq * scale).to(q.dtype), (dk * scale).to(q.dtype),
+            dv.to(q.dtype))
+
+
+# The operand forms of csrc/attn_wgmma.cuh, each a [64, n] x depth-128
+# product as `attn_wgmma_form_bf16` runs it: (name, A MN-major, B MN-major,
+# A from registers as two planes of fp32 values).
+WGMMA_FORMS = (("SS K-major", False, False, False),
+               ("SS MN-major", True, True, False),
+               ("RS planes, B MN-major", False, True, True))
+
+
+def wgmma_form_bf16(form, a, b):
+    """C [64, n] fp32 = A B in operand form `form` (`WGMMA_FORMS`): a bf16
+    [64, 128] (form 0), [128, 64] (form 1, A^T as it lies) or fp32 [64,
+    128] (form 2: its hi/lo planes); b bf16 [n, 128] (form 0, B^T) or
+    [128, n]; n 64 or 128. On the card one launch of the form's wgmma
+    chain; on the CPU the plain product of the same operands."""
+    _, ta, tb, planes = WGMMA_FORMS[form]
+    n = b.shape[1] if tb else b.shape[0]
+    if a.device.type == "cpu":
+        am = planes_sum(a) if planes else a.float()
+        return (am.T if ta else am) @ (b.float() if tb else b.float().T)
+    require_cuda_inputs("wgmma_form_bf16", (b,), (torch.bfloat16,))
+    require_cuda_inputs("wgmma_form_bf16", (a,),
+                        (torch.float32 if planes else torch.bfloat16,))
+    if a.shape != ((64, 128) if not ta else (128, 64)) or \
+            b.shape[1 if not tb else 0] != 128 or n not in (64, 128):
+        raise ValueError(f"wgmma_form_bf16: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)} do not fit form {form}")
+    _check_aligned("wgmma_form_bf16", (a, b), "a and b")
+    c = torch.empty(64, n, dtype=torch.float32, device=a.device)
+    check_launch("wgmma_form_bf16", _form_kernel()(
+        form, n, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        current_stream(a)))
+    return c
+
+
+@functools.cache
+def _form_kernel():
+    """The C entry `attn_wgmma_form_bf16` (built with flash_attention.cu)
+    with its signature declared: (form, n, a, b, c, stream)."""
+    from .build import library
+
+    fn = library("flash_attention").attn_wgmma_form_bf16
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def flash_attention_plain(q, k, v, scale, causal, with_lse=False):
@@ -236,8 +365,10 @@ def _sdpa_short_bwd_launch(q, k, v, p, g, scale, causal):
                                               q.shape), (q.dtype,) * 3)
     _check_aligned("sdpa_short_bwd", (q, k, v, p, g), "q, k, v, P and dO")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    # scratch: delta, rowsum(dP P), which the kernel sums itself
-    rowsum = torch.empty(b * h, t, dtype=torch.float32, device=q.device)
+    # scratch: delta, rowsum(dP P), which the kernel sums itself; rows
+    # rounded up to 128 (the bf16 kernel's tiles read it by TMA)
+    rowsum = torch.empty(b * h, -(-t // 128) * 128, dtype=torch.float32,
+                         device=q.device)
     ptrs = (q, k, v, p, g, dq, dk, dv, rowsum)
     err = _kernel("sdpa_short_bwd", "sdpa_short_bwd", len(ptrs), 2,
                   q.dtype)(*(x.data_ptr() for x in ptrs), b * h, t, d,

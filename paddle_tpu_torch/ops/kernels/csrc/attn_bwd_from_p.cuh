@@ -2,13 +2,13 @@
 // (sm_90a): dq, dk and dv of one attention per (batch, head) from q, k, v,
 // the normalized P that the forward saved, the output's cotangent dO and
 // the forward's output O, with no exp. Every product runs on the tensor
-// cores, in split TF32 (split_tf32.cuh) in fp32, in bf16 with the fp32
-// intermediate dS split into two bf16 parts, or on bf16 planes
+// cores, in split TF32 (split_tf32.cuh) in fp32 or on bf16 planes
 // (split_bf16.cuh; E is the element type of q, k, v, dO, P and the grads,
 // and Mma<E> its operand traits). Two kernels take them:
-// attention_block.cu's backward (#11), which reads q, k, v inside the
-// rows of its qkv buffer and writes one dqkv buffer, and sdpa_short_bwd.cu
-// (#6), which reads and writes contiguous [BH, T, D] tensors. Each gives
+// attention_block.cu's backward (#11, fp32 and planes), which reads q, k,
+// v inside the rows of its qkv buffer and writes one dqkv buffer, and
+// sdpa_short_bwd.cu (#6 in fp32; its bf16 instance runs attn_wgmma.cuh),
+// which reads and writes contiguous [BH, T, D] tensors. Each gives
 // the stages a view of every operand (Rows: a base per (b, h), a row
 // stride and, for planes, the distance from the hi plane to the lo one).
 //
@@ -38,9 +38,6 @@
 //    dk += dS^T q.
 // Under causal masking the tiles where P is 0 are skipped. Each grid writes
 // only its own rows, with no atomics, so two launches give identical bits.
-//
-// In bf16 (only sdpa_short_bwd.cu, #6) the saved bf16 P is exact in one
-// bf16 part, so P^T dO is one MMA a step.
 //
 // On planes (only attention_block.cu's bf16 backward, #11: E =
 // split_bf16::planes) q, k, v, dO and the grads are fp32 intermediates

@@ -25,31 +25,42 @@
 // In bf16 the same work is 17.2 GFLOP at 989 TFLOP/s, 0.017 ms, on 34 MB,
 // 0.010 ms: still the products.
 //
-// What the design does about it: the online-softmax body of
-// flash_fwd.cuh (which sdpa_short.cu also instantiates): one block per
-// (bh, 64 query rows), 4 warps of 16 rows, both products on mma.sync
-// (m16n8k8 in split TF32; m16n8k16 in bf16), K and V through a two-stage cp.async
-// ring split as they land, the softmax on the accumulator fragments and P
-// fed straight back as the A operand of P v; causal tiles past a block's
-// or a warp's last visible key are skipped.
+// What the design does about it: in fp32 (and in bf16 at d 256) the
+// online-softmax body of flash_fwd.cuh (which sdpa_short.cu also
+// instantiates): one block per (bh, 64 query rows), 4 warps of 16 rows,
+// both products on mma.sync (m16n8k8 in split TF32; m16n8k16 in bf16), K
+// and V through a two-stage cp.async ring split as they land, the softmax
+// on the accumulator fragments and P fed straight back as the A operand of
+// P v; causal tiles past a block's or a warp's last visible key are
+// skipped. In bf16 at d 64 and 128 the Hopper design of attn_wgmma.cuh:
+// a persistent block an SM walking (bh, 128 query rows) items, two
+// consumer warpgroups on wgmma.mma_async fed by TMA through a ring of K
+// and V tiles (128 keys at d 64), S = q k^T SS, P's hi/lo planes as the
+// register A operand of O += P v. d 256 stays on flash_fwd.cuh's body by design: its output
+// accumulator (128 fp32 a thread for 64 rows) beside S, P's planes and a
+// fresh 64-column accumulator needs more than the 168 registers a
+// consumer thread gets; that is a dispatch by d, not a fallback.
+//
+// `attn_wgmma_form_bf16` runs one of attn_wgmma.cuh's operand forms alone
+// (a 64 x N x 128 product), for a check of its layouts against float64.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_wgmma.cuh"
 #include "flash_fwd.cuh"
 
 namespace {
 
-template <typename E>
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int64_t bh, int tq, int tk, int d, float scale, int causal,
         void* stream) {
   if (tq < 1 || tk < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const E* qe = static_cast<const E*>(q);
-  const E* ke = static_cast<const E*>(k);
-  const E* ve = static_cast<const E*>(v);
-  E* oe = static_cast<E*>(o);
+  const float* qe = static_cast<const float*>(q);
+  const float* ke = static_cast<const float*>(k);
+  const float* ve = static_cast<const float*>(v);
+  float* oe = static_cast<float*>(o);
   float* lf = static_cast<float*>(lse);
   switch (d) {
     case 64:
@@ -78,14 +89,56 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    int64_t bh, int tq, int tk, int d,
                                    float scale, int causal, void* stream) {
-  return fwd<float>(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
+  return fwd(q, k, v, o, lse, bh, tq, tk, d, scale, causal, stream);
 }
 
+// The same in bf16: d 64 and 128 on attn_wgmma.cuh (q, k, v and o on 16
+// bytes, TMA's rule), d 256 on flash_fwd.cuh's body.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         int64_t bh, int tq, int tk, int d,
                                         float scale, int causal,
                                         void* stream) {
-  return fwd<__nv_bfloat16>(q, k, v, o, lse, bh, tq, tk, d, scale, causal,
-                            stream);
+  using bf16 = __nv_bfloat16;
+  if (tq < 1 || tk < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* qe = static_cast<const bf16*>(q);
+  const bf16* ke = static_cast<const bf16*>(k);
+  const bf16* ve = static_cast<const bf16*>(v);
+  bf16* oe = static_cast<bf16*>(o);
+  float* lf = static_cast<float*>(lse);
+  switch (d) {
+    case 64:
+      return (int)attn_wgmma::fwd<64>(qe, ke, ve, oe, lf, bh, tq, tk, scale,
+                                      causal, s);
+    case 128:
+      return (int)attn_wgmma::fwd<128>(qe, ke, ve, oe, lf, bh, tq, tk, scale,
+                                       causal, s);
+    case 256:
+      return flash_fwd::launch<256, false>(qe, ke, ve, oe, lf, nullptr, bh,
+                                           tq, tk, scale, causal, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// C [64, n] fp32 = A B in operand form `form` of attn_wgmma.cuh (0: SS
+// K-major, 1: SS MN-major, 2: RS planes of an fp32 A; n 64 or 128): a
+// bf16 [64][128] (form 0), [128][64] (form 1) or fp32 [64][128] (form 2);
+// b bf16 [n][128] (form 0) or [128][n]. Returns the launch's error; 1 for
+// a form or n it does not take.
+extern "C" int attn_wgmma_form_bf16(int form, int n, const void* a,
+                                    const void* b, void* c, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* cf = static_cast<float*>(c);
+  namespace aw = attn_wgmma;
+  switch (form * 1000 + n) {
+    case 64: return (int)aw::form<64, 0>(a, b, cf, s);
+    case 128: return (int)aw::form<128, 0>(a, b, cf, s);
+    case 1064: return (int)aw::form<64, 1>(a, b, cf, s);
+    case 1128: return (int)aw::form<128, 1>(a, b, cf, s);
+    case 2064: return (int)aw::form<64, 2>(a, b, cf, s);
+    case 2128: return (int)aw::form<128, 2>(a, b, cf, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

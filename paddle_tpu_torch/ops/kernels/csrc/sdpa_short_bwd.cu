@@ -37,15 +37,24 @@
 // (dP, then dP and dq, then dP^T, dv and dk), 51.5 GFLOP at the training
 // shape, and P is read three times. The kernel is a function of (q, k, v,
 // P, dO) with no scratch but delta: it does not take the forward's
-// output, which the TPU kernel does not take either. In bf16 the products
-// are bf16 MMAs with dS split into two parts (0.035 ms for the function's
-// 34.4 GFLOP at 989 TFLOP/s, against 0.10 ms for its 336 MB with a bf16
-// P: the bytes bound it).
+// output, which the TPU kernel does not take either.
+//
+// In bf16 (`sdpa_short_bwd_bf16`) the same function runs on the Hopper
+// design of attn_wgmma.cuh: two grids of two consumer warpgroups each on
+// wgmma.mma_async fed by TMA, dq with delta = rowsum(dP P) from two sweeps
+// over 128-key tiles, dk and dv from 64-row query tiles, P's tiles read by
+// TMA where T % 8 == 0 and gathered by the producer warp into the same
+// swizzled layout at any other T, dS split into two bf16 planes in
+// registers for dS k and dS^T q. What bounds it at [32, 8, 512, 64]: the
+// function's 34.4 GFLOP at 989 TFLOP/s take 0.035 ms, its bytes (134 MB of
+// P, 117 MB of the rest) 0.075 ms; as run P is read three times (once from
+// L2) and the products are 68.7 GFLOP.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attn_bwd_from_p.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -54,22 +63,22 @@ constexpr int kMaxT = 512;
 namespace ab = attn_bwd_from_p;
 
 // delta from rowsum(dP P) inside the stages (a.o.base stays null)
-template <int D, typename E>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* p, const void* g, void* dq, void* dk,
                    void* dv, void* rowsum, int bh, int t, float scale,
                    int causal, cudaStream_t st) {
   const int64_t head = (int64_t)t * D;
-  ab::Args<E> a;
-  a.q = {static_cast<const E*>(q), head, 0, D};
-  a.k = {static_cast<const E*>(k), head, 0, D};
-  a.v = {static_cast<const E*>(v), head, 0, D};
-  a.g = {static_cast<const E*>(g), head, 0, D};
+  ab::Args<float> a;
+  a.q = {static_cast<const float*>(q), head, 0, D};
+  a.k = {static_cast<const float*>(k), head, 0, D};
+  a.v = {static_cast<const float*>(v), head, 0, D};
+  a.g = {static_cast<const float*>(g), head, 0, D};
   a.o = {nullptr, head, 0, D};
-  a.dq = {static_cast<E*>(dq), head, 0, D};
-  a.dk = {static_cast<E*>(dk), head, 0, D};
-  a.dv = {static_cast<E*>(dv), head, 0, D};
-  a.p = static_cast<const E*>(p);
+  a.dq = {static_cast<float*>(dq), head, 0, D};
+  a.dk = {static_cast<float*>(dk), head, 0, D};
+  a.dv = {static_cast<float*>(dv), head, 0, D};
+  a.p = static_cast<const float*>(p);
   a.delta = static_cast<float*>(rowsum);
   a.heads = 1;
   a.t = t;
@@ -79,49 +88,59 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return ab::run<D>(a, (unsigned)bh, st);
 }
 
-template <typename E>
-int entry(const void* q, const void* k, const void* v, const void* p,
-          const void* g, void* dq, void* dk, void* dv, void* rowsum,
-          int64_t bh, int t, int d, float scale, int causal, void* stream) {
-  if (t < 1 || t > kMaxT || bh < 1 || bh > 65535)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return (int)launch<64, E>(q, k, v, p, g, dq, dk, dv, rowsum, (int)bh,
-                                t, scale, causal, s);
-    case 128:
-      return (int)launch<128, E>(q, k, v, p, g, dq, dk, dv, rowsum,
-                                 (int)bh, t, scale, causal, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // q, k, v, g (dO), dq, dk, dv: fp32 device pointers, contiguous
 // [bh, t, d], 16-byte aligned, t <= 512, d in {64, 128}; p: fp32
 // [bh, t, t] (any t: its rows need not be 16-byte aligned); rowsum: fp32
-// [bh, t] scratch. Returns the first CUDA error of the launches (or of the
-// shared-memory attribute calls); 1 (cudaErrorInvalidValue) for a shape
-// the kernels do not take.
+// scratch of at least [bh, t]. Returns the first CUDA error of the
+// launches (or of the shared-memory attribute calls); 1
+// (cudaErrorInvalidValue) for a shape the kernels do not take.
 extern "C" int sdpa_short_bwd(const void* q, const void* k, const void* v,
                               const void* p, const void* g, void* dq,
                               void* dk, void* dv, void* rowsum, int64_t bh,
                               int t, int d, float scale, int causal,
                               void* stream) {
-  return entry<float>(q, k, v, p, g, dq, dk, dv, rowsum, bh, t, d, scale,
-                      causal, stream);
+  if (t < 1 || t > kMaxT || bh < 1 || bh > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return (int)launch<64>(q, k, v, p, g, dq, dk, dv, rowsum, (int)bh, t,
+                             scale, causal, s);
+    case 128:
+      return (int)launch<128>(q, k, v, p, g, dq, dk, dv, rowsum, (int)bh, t,
+                              scale, causal, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// The same in bf16: q, k, v, g, dq, dk, dv and p bf16; rowsum fp32.
+// The same in bf16, on attn_wgmma.cuh: q, k, v, g, dq, dk, dv and p bf16,
+// each on 16 bytes (TMA's rule); rowsum fp32 [bh, t rounded up to 128].
 extern "C" int sdpa_short_bwd_bf16(const void* q, const void* k,
                                    const void* v, const void* p,
                                    const void* g, void* dq, void* dk,
                                    void* dv, void* rowsum, int64_t bh, int t,
                                    int d, float scale, int causal,
                                    void* stream) {
-  return entry<__nv_bfloat16>(q, k, v, p, g, dq, dk, dv, rowsum, bh, t, d,
-                              scale, causal, stream);
+  using bf16 = __nv_bfloat16;
+  if (t < 1 || t > kMaxT) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *qe = static_cast<const bf16*>(q), *ke = static_cast<const bf16*>(k),
+             *ve = static_cast<const bf16*>(v), *pe = static_cast<const bf16*>(p),
+             *ge = static_cast<const bf16*>(g);
+  bf16 *dqe = static_cast<bf16*>(dq), *dke = static_cast<bf16*>(dk),
+       *dve = static_cast<bf16*>(dv);
+  float* rs = static_cast<float*>(rowsum);
+  switch (d) {
+    case 64:
+      return (int)attn_wgmma::bwd<64>(qe, ke, ve, pe, ge, dqe, dke, dve, rs,
+                                      bh, t, scale, causal, s);
+    case 128:
+      return (int)attn_wgmma::bwd<128>(qe, ke, ve, pe, ge, dqe, dke, dve, rs,
+                                       bh, t, scale, causal, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

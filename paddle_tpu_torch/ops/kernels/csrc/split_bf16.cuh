@@ -1,8 +1,9 @@
 // bf16 products on Hopper's tensor cores (sm_90a), and the operand traits
 // that let one attention body run in fp32 (split TF32, split_tf32.cuh), in
-// bf16, or on bf16 planes: flash_fwd.cuh (#2, #5), flash_attention_bwd.cu
-// (#3, #4) and attn_bwd_from_p.cuh (#6, #11) take their operands through
-// Mma<E>.
+// bf16, or on bf16 planes: flash_fwd.cuh (#2 at d 256 in bf16, #5),
+// flash_attention_bwd.cu (#3, #4) and attn_bwd_from_p.cuh (#6 in fp32,
+// #11) take their operands through Mma<E>; attn_wgmma.cuh (#2 at d 64 and
+// 128 and #6 in bf16, on wgmma) takes the hi/lo split.
 //
 // The TPU kernels take bf16 q, k, v and dO, upcast them and compute in
 // fp32 (paddle_tpu/ops/pallas/attention.py: `.astype(jnp.float32)` on
@@ -15,7 +16,7 @@
 // high part hi = bf16(x) and a low part lo = bf16(x - hi) (x - hi is exact
 // in fp32; hi + lo is within 2^-17 of x), and the product is hi b + lo b,
 // two MMAs against split TF32's three; the B operand, a bf16 input, is
-// exact in one part. A saved bf16 P (#6) is exact too and takes one MMA.
+// exact in one part.
 // As in split_tf32.cuh, the MMAs of one step go into a fresh fragment
 // added to the running sum in fp32.
 //
@@ -73,13 +74,14 @@ __device__ __forceinline__ uint32_t pack(float x, float y) {
   return bits(__floats2bfloat162_rn(x, y));
 }
 
-// (x, y) split: hi = bf16(x, y), lo = bf16 of what hi leaves
+// (x, y) split: hi = bf16(x, y), lo = bf16 of what hi leaves; hi's
+// values read back by a shift and a mask (a bf16 is the high half of its
+// fp32), two instructions where __bfloat1622float2 takes four
 __device__ __forceinline__ void split(uint32_t& hi, uint32_t& lo, float x,
                                       float y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 f = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = pack(x - f.x, y - f.y);
+  hi = pack(x, y);
+  lo = pack(x - __uint_as_float(hi << 16),
+            y - __uint_as_float(hi & 0xffff0000u));
 }
 
 // two bf16 elements that are not neighbours in memory, as one register
@@ -112,14 +114,15 @@ struct planes {
 //   load_b_acc(hi, lo, ld) B(k, n) = M[k][n] of a staged row-major
 //                        M [k][n], in the k order of acc_as_a
 //   acc_as_a(c)          AccA from fragments c[0 .. kK / 8)
-//   exact_as_a(c)        A from fragments holding values exact in E (a
-//                        saved P): split TF32 in fp32, one part in bf16
+//   exact_as_a(c)        A from fragments holding a saved P (fp32 and
+//                        planes only: split TF32, or its two planes)
 //   mma(acc, A|AccA, B)  acc += a b, in a fresh fragment added in fp32
 //   store2(p, x, y)      two neighbouring results into memory (planes:
 //                        store2(p, plane, x, y), hi at p, lo a plane on)
 //   kPlanes              values a staged row holds per column: 2 for
 //                        planes (hi, then lo DP columns on), else 1
-//   PType                the saved P's element type (planes: fp32)
+//   PType, load(p)       the saved P's element type (fp32 and planes
+//                        only: fp32) and a read of one of its values
 // Staged tiles: rows padded by kPad elements; in fp32 each tile is split
 // once as it lands (split_rows, its small halves in a second buffer, kLo
 // tiles of them), in bf16 and planes it is used as it lands.
@@ -192,7 +195,6 @@ struct Mma<__nv_bfloat16> {
   static constexpr int kPad = split_bf16::kPad;
   static constexpr int kLo = 0;
   static constexpr int kPlanes = 1;
-  using PType = bf16;
 
   static __device__ __forceinline__ A load_a(const bf16* p, int ld, int g,
                                              int t) {
@@ -220,11 +222,6 @@ struct Mma<__nv_bfloat16> {
     split_bf16::split(a.hi[3], a.lo[3], c[1][2], c[1][3]);
     return a;
   }
-  static __device__ __forceinline__ A exact_as_a(const float (*c)[4]) {
-    using split_bf16::pack;
-    return A{{pack(c[0][0], c[0][1]), pack(c[0][2], c[0][3]),
-              pack(c[1][0], c[1][1]), pack(c[1][2], c[1][3])}};
-  }
   static __device__ __forceinline__ void mma(float (&acc)[4], const A& a,
                                              const B& b) {
     float t[4] = {0.f, 0.f, 0.f, 0.f};
@@ -244,9 +241,6 @@ struct Mma<__nv_bfloat16> {
   static __device__ __forceinline__ void split_rows(bf16*, bf16*, int) {}
   static __device__ __forceinline__ void store2(bf16* p, float x, float y) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-  }
-  static __device__ __forceinline__ float load(const bf16* p) {
-    return __bfloat162float(*p);
   }
   static __device__ __forceinline__ bf16 zero() {
     return __float2bfloat16(0.f);

@@ -62,6 +62,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "split_tf32.cuh"
 
 namespace tile_mma {
@@ -344,18 +345,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-inline int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        count <= 0)
-      count = 132;
-  }
-  return count;
-}
+using hopper::sm_count;
 
 template <bool TA, bool TB, int BN, int EPI>
 cudaError_t launch(const Params& p, int batches, cudaStream_t s) {

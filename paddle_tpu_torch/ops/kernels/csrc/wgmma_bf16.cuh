@@ -86,6 +86,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "tile_mma.cuh"
 
 namespace wgmma_bf16 {
@@ -99,7 +100,6 @@ constexpr int kTileBytes = kBM * kBK * 2;      // one plane of a slab: 16 KB
 constexpr int kHalfBytes = kTileBytes / 2;     // 64 rows (or columns)
 constexpr int kRingBytes = 192 * 1024;         // one block an SM
 constexpr int kGroup = 4;  // slabs a fresh accumulator takes (256 deep)
-constexpr long long kHangCycles = 1LL << 34;   // ~9 s: a lost barrier traps
 
 enum Epilogue {
   kHidden = 0,  // relu(. + bias[j]) into hi/lo planes
@@ -126,131 +126,24 @@ struct Args {
   const bf16* bias;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// until the phase of parity `parity` has completed; traps after
-// kHangCycles, so that a barrier that never completes ends the launch
-// with an error rather than hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  if (mbar_try_wait(a, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(a, parity))
-    if (clock64() - t0 > kHangCycles) __trap();
-}
-
-// box (c0 inner, c1 outer, c2 plane) of `map` into dst, completing on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A shared-memory matrix descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets (PTX ISA, "Matrix Descriptor
-// Format"; layout type 1 in bits 62-63). K-major: 8 rows of 128 bytes
-// form a swizzle atom, SBO the stride of atoms along m or n (1024), LBO
-// unused. MN-major: a 128-byte row holds 64 values along m or n, one row
-// a k; SBO the stride of 8-deep groups along k (1024), LBO the stride of
-// 64-wide chunks along m or n.
-__device__ __forceinline__ uint64_t desc(uint32_t saddr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// tells the compiler the accumulators change here (wgmma writes them
-// asynchronously): no read of them moves across
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using hopper::desc;
+using hopper::fence_acc;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::tma_load;
+using hopper::wg_commit;
+using hopper::wg_fence;
+using hopper::wg_wait;
 
 // d += A B over one 16-deep step, m64n128k16, bf16 in, fp32 accumulation;
 // TA / TB: A / B MN-major
 template <int TA, int TB>
 __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
                                     uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+  hopper::wgmma_ss<128, TA, TB>(d, da, db, accumulate);
 }
 
 // C = op(A) op(B) [epilogue] on a 128 x 128 tile a block. A is [m, k]: the
@@ -506,64 +399,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// An operand in device memory: `planes` row-major [outer][inner] bf16
-// matrices one after the other (inner a multiple of 8, the base on 16
-// bytes: TMA's stride and address rules).
-struct Operand {
-  const void* p;
-  int64_t inner, outer;
-  int planes;
-};
-
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion,
-                              CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, fetched once through the runtime
-inline EncodeFn encode_fn() {
-  static const EncodeFn fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeFn>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// the map of `o` with boxes of 64 inner x box_outer, one plane a box,
-// the 128-byte swizzle and zero fill outside the matrix
-inline cudaError_t make_map(CUtensorMap* map, const Operand& o,
-                            int box_outer) {
-  const EncodeFn fn = encode_fn();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  if (o.inner % 8 != 0 || reinterpret_cast<uintptr_t>(o.p) % 16 != 0 ||
-      o.planes < 1)
-    return cudaErrorInvalidValue;
-  const cuuint64_t dims[3] = {(cuuint64_t)o.inner, (cuuint64_t)o.outer,
-                              (cuuint64_t)o.planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)o.inner * 2,
-                                 (cuuint64_t)(o.inner * o.outer * 2)};
-  const cuuint32_t box[3] = {(cuuint32_t)kBK, (cuuint32_t)box_outer, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(o.p), dims, strides, box, estr,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
+using hopper::make_map;
+using hopper::Operand;
 
 // the kernel's dynamic shared memory limit, set once a process in each
 // library built from this header. Internal linkage: a template's

@@ -452,23 +452,26 @@ def test_kernel_sources_reach_the_shared_headers():
     def headers(name):
         return {t for t in build._sources(name)[1:]}
 
-    split, mma, fwd, bwd, bf16, wgmma = (
+    split, mma, fwd, bwd, bf16, wgmma, hopper, attn = (
         (build.CSRC / f"{n}.cuh").read_bytes()
         for n in ("split_tf32", "tile_mma", "flash_fwd", "attn_bwd_from_p",
-                  "split_bf16", "wgmma_bf16"))
-    # the three forwards run one body, the sdpa_short backward runs the
-    # attention block's stages (with no O = P v product of its own), both
-    # fused blocks run their products on the split-TF32
-    # product in fp32 and on the wgmma engine in bf16, and the paged
-    # kernel takes the cp.async staging; the SIMT
-    # product (tile_gemm.cuh) is gone; the attention bodies take their
-    # operands through split_bf16.cuh's traits (fp32 or bf16)
-    assert headers("flash_attention") == headers("sdpa_short") == {
-        split, fwd, bf16}
+                  "split_bf16", "wgmma_bf16", "hopper", "attn_wgmma"))
+    # the three forwards run one body (#2 in bf16 at d 64 and 128 its own
+    # Hopper design, attn_wgmma.cuh), the sdpa_short backward runs the
+    # attention block's stages in fp32 (with no O = P v product of its
+    # own) and attn_wgmma.cuh in bf16, both fused blocks run their
+    # products on the split-TF32 product in fp32 and on the wgmma engine
+    # in bf16, the engine and attn_wgmma.cuh share hopper.cuh's
+    # primitives, and the paged kernel takes the cp.async staging; the
+    # SIMT product (tile_gemm.cuh) is gone; the mma.sync attention bodies
+    # take their operands through split_bf16.cuh's traits (fp32 or bf16)
+    assert headers("flash_attention") == {split, fwd, bf16, hopper, attn}
+    assert headers("sdpa_short") == {split, fwd, bf16}
     assert headers("flash_attention_bwd") == {split, bf16}
-    assert headers("sdpa_short_bwd") == {split, bwd, bf16}
-    assert headers("attention_block") == {split, mma, fwd, bwd, bf16, wgmma}
-    assert headers("ffn_block") == {split, mma, wgmma}
+    assert headers("sdpa_short_bwd") == {split, bwd, bf16, hopper, attn}
+    assert headers("attention_block") == {split, mma, fwd, bwd, bf16, wgmma,
+                                          hopper}
+    assert headers("ffn_block") == {split, mma, wgmma, hopper}
     assert headers("paged_attention") == {split}
     assert not (build.CSRC / "tile_gemm.cuh").exists()
     for name in build.SOURCES:
@@ -1473,7 +1476,17 @@ BF16_FWD_CASES = [
     ("flash", 1, 4, 96, 1024, 64, True),
     ("flash", 1, 2, 100, 40, 128, True),
     ("flash", 1, 2, 600, 600, 256, True),
-    ("flash", 1, 4, 1000, 1024, 64, True)]
+    ("flash", 1, 4, 1000, 1024, 64, True),
+    # ragged T and d 128 on #2's and #6's wgmma design: P's rows by TMA at
+    # T 264, gathered by the producer warp at 300 and 13
+    ("sdpa_short", 1, 4, 264, 264, 64, False),
+    ("sdpa_short", 1, 4, 300, 300, 64, False),
+    ("sdpa_short", 1, 4, 264, 264, 128, True),
+    ("sdpa_short", 1, 4, 300, 300, 128, False),
+    ("flash", 1, 4, 300, 264, 64, False),
+    ("flash", 1, 4, 264, 300, 128, False),
+    ("flash", 1, 4, 300, 300, 128, True),
+    ("flash", 1, 2, 200, 72, 64, True)]  # fully masked rows
 
 
 def _bf16_inputs(cuda, b, h, tq, tk, d):
