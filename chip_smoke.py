@@ -324,10 +324,10 @@ LOGITS_TOL = 1e-5
 SEED = 2026
 # the bf16 attention kernels against their plain versions on the same
 # bf16 inputs: both compute in fp32 and round once, so at most one bf16
-# ulp apart (2^-8 of the largest |plain|), in the few elements whose
-# fp32 values straddle a rounding boundary; an fp32 intermediate fed to
-# a product as one bf16 term (dS in #6) moves a large share of them
-BF16_REL = 2 ** -8
+# ulp of the largest |plain| apart (`_bf16_ulps`: 2^-8 to 2^-7 of it), in
+# the few elements whose fp32 values straddle a rounding boundary; an
+# fp32 intermediate fed to a product as one bf16 term (dS in #6, P in
+# #4's dv) moves a large share of them
 BF16_SHARE = 0.05
 # the bf16 training legs' step-1 parity, card against the CPU under AMP
 # on 2 rows: the first encoder and decoder attention outputs (bf16) in at
@@ -3095,18 +3095,10 @@ def phase_paged(card_name, card):
 # ---------------------------------------------------------------------------
 def _bf16_gate(got, want):
     """(max |got - want| over the largest |want|, the share of elements
-    whose values differ): both compute in fp32 from the same bf16 inputs
-    and round once, so they differ by at most one bf16 ulp, in the few
-    elements whose fp32 values straddle a rounding boundary."""
+    whose values differ), for the logs: the gate is `_bf16_ulp_ok`."""
     g, w = got.float(), want.float()
     return (float((g - w).abs().max()) / float(w.abs().max()),
             float((g != w).float().mean()))
-
-
-def _bf16_ok(got, want):
-    rel, share = _bf16_gate(got, want)
-    return (bool(torch.isfinite(got.float()).all()) and rel <= BF16_REL
-            and share <= BF16_SHARE)
 
 
 def _bf16_ulps(got, want):
@@ -3223,16 +3215,18 @@ def _attn_forms():
 def _attn_bf16_entries():
     """#2-#6 on bf16 q, k, v and dO at the training path's shapes
     ([32,8,512,64] sdpa_short, [16,8,1024,64] flash), causal and not:
-    outputs, the saved bf16 P and the grads within BF16_REL of their
-    plain versions in at most BF16_SHARE of the elements, lse within
-    LSE_TOL; each no further from a float64 oracle than twice the plain
-    version is; a second launch the same bits. Planted faults must fail
-    the gate: the flash backward fed an lse off by 1e-2, the forwards and
-    the flash backward launched with the causal flag dropped, and #6's dS
-    as one bf16 term. Then each kernel's time beside its bf16 bound, its
-    plain version and the library's flash SDPA (forward; its backward,
-    which computes dq, dk and dv together, beside the backward
-    kernels)."""
+    outputs, the saved bf16 P and the grads within one bf16 ulp of the
+    largest |plain| (`_bf16_ulp_ok`) in at most BF16_SHARE of the
+    elements, lse within LSE_TOL; each no further from a float64 oracle
+    than twice the plain version is; a second launch the same bits; #5's
+    output the same with P and without. Planted faults must fail the
+    gate: the flash backward fed an lse off by 1e-2, the forwards and the
+    flash backward launched with the causal flag dropped, #6's dS as one
+    bf16 term, #4's design with P^T fed to dv as one bf16 term, and #5's
+    with P normalized by the running max. Then each kernel's time beside
+    its bf16 bound, its plain version and the library's flash SDPA
+    (forward; its backward, which computes dq, dk and dv together, beside
+    the backward kernels)."""
     forms = _attn_forms()
     out = {n: dict(errs=[], ratios=[]) for n in (
         "sdpa_short", "sdpa_short_bwd", "flash_attention", "flash_bwd_dq",
@@ -3261,10 +3255,14 @@ def _attn_bf16_entries():
                 f64 = _f64_sdpa_bwd(q, k, v, p, g, scale)
                 single = [x.to(bf) for x in _f64_sdpa_bwd(
                     q, k, v, p, g, scale, single_bf16_ds=True)]
+                _, p_run = KA.sdpa_short_tiles_plain(q, k, v, scale, causal,
+                                                     p_max="running")
                 faults = {"dS as one bf16 term": not all(
-                    _bf16_ok(a, w) for a, w in zip(single[:2], wgrads[:2]))}
-                res_ok = _bf16_ok(p, wp)
-                res_gate = _bf16_gate(p, wp)
+                    _bf16_ulp_ok(a, w)
+                    for a, w in zip(single[:2], wgrads[:2])),
+                    "#5 P from the running max": not _bf16_ulp_ok(p_run, wp)}
+                res_ok = _bf16_ulp_ok(p, wp)
+                res_gate = _bf16_ulps(p, wp)
                 bwd_names = ("sdpa_short_bwd",) * 3
             else:
                 runs = [KA._flash_attention_launch(q, k, v, scale, causal,
@@ -3281,13 +3279,19 @@ def _attn_bf16_entries():
                 f64 = _f64_flash_grads(q, k, v, g, scale, causal)
                 bad = KA.flash_attention_bwd(q, k, v, o, p + 1e-2, g, scale,
                                              causal)
+                _, dv1 = KA.flash_bwd_dkv_tiles_plain(
+                    q, k, v, g, p, KA.flash_delta(o, g), scale, causal,
+                    p_terms=1)
                 faults = {"lse + 1e-2": not all(
-                    _bf16_ok(a, w) for a, w in zip(bad, wgrads))}
+                    _bf16_ulp_ok(a, w) for a, w in zip(bad, wgrads)),
+                    "#4 P^T as one bf16 term": not _bf16_ulp_ok(dv1,
+                                                                wgrads[2])}
+                del dv1
                 if causal:
                     bad = KA.flash_attention_bwd(q, k, v, o, p, g, scale,
                                                  False)
                     faults["bwd causal dropped"] = not all(
-                        _bf16_ok(a, w) for a, w in zip(bad, wgrads))
+                        _bf16_ulp_ok(a, w) for a, w in zip(bad, wgrads))
                 res_gate = (max_err(p, wp), 0.0)
                 res_ok = res_gate[0] <= LSE_TOL
                 bwd_names = ("flash_bwd_dq", "flash_bwd_dkv",
@@ -3295,7 +3299,7 @@ def _attn_bf16_entries():
             if causal:
                 launch = KA._sdpa_short_launch if kind == "sdpa_short" \
                     else KA._flash_attention_launch
-                faults["fwd causal dropped"] = not _bf16_ok(
+                faults["fwd causal dropped"] = not _bf16_ulp_ok(
                     launch(q, k, v, scale, False, False), wo)
             torch.cuda.synchronize()
             fname = "sdpa_short" if kind == "sdpa_short" \
@@ -3305,24 +3309,24 @@ def _attn_bf16_entries():
                       and torch.equal(primal, o)
                       and all(torch.equal(a, b_)
                               for a, b_ in zip(*grads)))
-            fwd_gate = _bf16_gate(o, wo)
+            fwd_gate = _bf16_ulps(o, wo)
             fwd_ratio = _f64_ratio(o, wo, oracle)
-            bwd = [(n, _bf16_gate(a, w), _f64_ratio(a, w, f))
+            bwd = [(n, _bf16_ulps(a, w), _f64_ratio(a, w, f))
                    for n, a, w, f in zip(("dq", "dk", "dv"), grads[0],
                                          wgrads, f64)]
             log(f"  {fname} bf16 [{b},{h},{t},{d}] causal={causal}: out "
-                f"rel {fwd_gate[0]:.3e} share {fwd_gate[1]:.4f} (tol "
-                f"{BF16_REL:.3e}, {BF16_SHARE}), {fwd_ratio:.2f}x the plain "
-                f"version's distance to float64; residual "
-                f"{res_gate[0]:.3e} share {res_gate[1]:.4f}; grads "
-                + ", ".join(f"{n} rel {gt[0]:.3e} share {gt[1]:.4f} "
+                f"{fwd_gate[0]:.2f} ulp of the largest, share "
+                f"{fwd_gate[1]:.4f} (tol 1 ulp, {BF16_SHARE}), "
+                f"{fwd_ratio:.2f}x the plain version's distance to float64; "
+                f"residual {res_gate[0]:.3e} share {res_gate[1]:.4f}; grads "
+                + ", ".join(f"{n} {gt[0]:.2f} ulp share {gt[1]:.4f} "
                             f"{r:.2f}x" for n, gt, r in bwd)
                 + f"; the same bits twice {repeat}; planted faults fail "
                 f"{faults}")
-            assert _bf16_ok(o, wo) and res_ok, (fwd_gate, res_gate)
+            assert _bf16_ulp_ok(o, wo) and res_ok, (fwd_gate, res_gate)
             assert fwd_ratio <= 2.0, fwd_ratio
             for (n, gt, r), a, w in zip(bwd, grads[0], wgrads):
-                assert _bf16_ok(a, w) and r <= 2.0, (n, gt, r)
+                assert _bf16_ulp_ok(a, w) and r <= 2.0, (n, gt, r)
             assert repeat and all(faults.values()), (repeat, faults)
             out[fname]["errs"].append(max_err(o, wo))
             out[fname]["ratios"].append(fwd_ratio)
@@ -3332,7 +3336,7 @@ def _attn_bf16_entries():
                 out[name]["ratios"].append(r)
             del runs, grads, wgrads, f64, oracle
             if kind == "sdpa_short":
-                del single
+                del single, p_run
     ptxas = _wgmma_ptxas()
     for kname, line in ptxas.items():
         if "attn_wgmma" in kname:
@@ -3345,16 +3349,33 @@ def _attn_bf16_entries():
             "S = q k^T SS, P as bf16 hi/lo planes in registers for P v (RS), "
             "V MN-major (csrc/attn_wgmma.cuh); d 256 flash_fwd.cuh's "
             "mma.sync body"),
+        "sdpa_short": (
+            "d 64 and 128: #2's wgmma.mma_async kernel fed by TMA "
+            "(csrc/attn_wgmma.cuh fwd_kernel) at tq == tk, no lse; with P "
+            "two grids: fwd_kernel writing its lse into a scratch, then "
+            "p_kernel on the same items and ring, S = q k^T again (SS), "
+            "P = ex2(S c - lse log2e) staged as bf16 by each warp and "
+            "written by TMA stores (2-byte stores where T % 8 != 0)"),
+        "flash_bwd_dkv": (
+            "d 64 and 128: wgmma.mma_async fed by TMA (csrc/attn_wgmma.cuh "
+            "flash_dkv_kernel): a block per (bh, 128 keys; 64 at d 128), k "
+            "and v resident, 64-row query tiles of q and dO by TMA with "
+            "their lse and delta (bulk copy where tq % 4 == 0, else "
+            "gathered), S^T and dP^T SS, P^T = ex2(S^T c - lse log2e) and "
+            "dS^T on the fragments, dv += P^T dO and dk += dS^T q as hi/lo "
+            "planes (RS) in chains of two tiles retired into fp32 sums in "
+            "shared memory; d 256 split_bf16.cuh's mma.sync body"),
         "sdpa_short_bwd": (
             "wgmma.mma_async fed by TMA (csrc/attn_wgmma.cuh): grid 1 dq and "
             "delta = rowsum(dP P) over 128-key tiles, dS as hi/lo planes "
             "(RS); grid 2 dk, dv over 64-row query tiles, P^T dO SS with P "
             "MN-major, dS^T planes (RS); P gathered by the producer warp "
             "where T % 8 != 0")}
-    extra = {n: dict(design=d, ptxas={k: v for k, v in ptxas.items()
-                                      if k.startswith(n + ":")},
-                     forms_rel_err=forms)
-             for n, d in design.items()}
+    source = {"flash_bwd_dkv": "flash_attention_bwd"}
+    extra = {n: dict(design=d, ptxas={
+        k: v for k, v in ptxas.items()
+        if k.startswith(source.get(n, n) + ":")}, forms_rel_err=forms)
+        for n, d in design.items()}
     return out | _bf16_timing() | {"extra": extra}
 
 
@@ -3560,11 +3581,11 @@ def _wgmma_ptxas():
     instance of the bf16 engine's product (ffn_block.cu's and
     attention_block.cu's builds), of the attention stages on bf16 planes
     (attention_block.cu's) and of the bf16 attention kernels on wgmma
-    (flash_attention.cu's and sdpa_short_bwd.cu's), keyed "source:
-    mangled name"."""
+    (flash_attention.cu's, sdpa_short.cu's, flash_attention_bwd.cu's and
+    sdpa_short_bwd.cu's), keyed "source: mangled name"."""
     out = {}
     for src in ("ffn_block", "attention_block", "flash_attention",
-                "sdpa_short_bwd"):
+                "sdpa_short", "flash_attention_bwd", "sdpa_short_bwd"):
         name = None
         for line in build.PTXAS_LOG.get(src, "").splitlines():
             if "Compiling entry function" in line:

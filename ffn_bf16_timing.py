@@ -1,8 +1,10 @@
 """The bf16 kernels on wgmma: the fused blocks' #10 and #11
 (``attention_block_fwd_bf16``, ``attention_block_bwd_bf16``) and #12 and
 #13 (``ffn_block_fwd_bf16``, ``ffn_block_bwd_bf16``), the attention
-kernels #2 (``flash_attention_fwd_bf16``) and #6 (``sdpa_short_bwd_bf16``),
-and the training legs around them, from one checkout, on one card.
+kernels #2 (``flash_attention_fwd_bf16``), #3 + #4
+(``flash_attention_bwd_dq_bf16``, ``flash_attention_bwd_dkv_bf16``), #5
+(``sdpa_short_fwd_bf16``) and #6 (``sdpa_short_bwd_bf16``), and the
+training legs around them, from one checkout, on one card.
 
     python3 ffn_bf16_timing.py [--root DIR] [--kernels-only] [--legs L,...]
 
@@ -17,15 +19,17 @@ what an eager step pays on the host for it. It profiles one launch each
 of #10 (without P and with it) and #11 under torch.profiler and lists
 their device activities in launch order with their device times: the
 stages of the kernels. It does the same for #2 at [16, 8, 1024, 64]
-(without lse, with it, and causal with it) and #6 at [32, 8, 512, 64]
-(and causal), the shapes of the bf16 training legs at seq 1024 and 512.
-It hashes the outputs of every kernel built on the shared headers
+(without lse, with it), #5 at [32, 8, 512, 64] (without P, with it), #6
+at [32, 8, 512, 64], #4 and #3 + #4 at [16, 8, 1024, 64], each also
+causal: the shapes of the bf16 training legs at seq 1024 and 512. It
+hashes the outputs of every kernel built on the shared headers
 (``flash_fwd.cuh``: #2, #5, #10; ``attn_bwd_from_p.cuh``: #6, #11;
 ``split_bf16.cuh``: #2-#6 in bf16; ``hopper.cuh`` and
-``wgmma_bf16.cuh``: #10-#13 in bf16; ``attn_wgmma.cuh``: #2 and #6 in
-bf16; ``tile_mma.cuh``: #10-#13 in fp32) on seeded inputs (#3 and #4
-on the plain forward's out and lse), so that two checkouts show which
-kernels kept their bits. Then, unless ``--kernels-only``, it runs DIR's
+``wgmma_bf16.cuh``: #10-#13 in bf16; ``attn_wgmma.cuh``: #2, #4, #5 and
+#6 in bf16; ``tile_mma.cuh``: #10-#13 in fp32) on seeded inputs (#3 and
+#4 on the plain forward's out and lse, and on #2's; #6 on #5's P and on
+the plain forward's), so that two checkouts show which kernels kept
+their bits. Then, unless ``--kernels-only``, it runs DIR's
 chip_smoke.py training legs, each with its own gates (``--legs`` picks
 some, by the names below): phase 5's fp32 leg (seq 256, batch 64), the
 bf16 leg at the bench's settings (seq 256, batch 128), phase 8's fp32
@@ -153,41 +157,56 @@ def kernels(cs):
 
 
 def attention(cs):
-    """bf16 #2 at [16, 8, 1024, 64] and #6 at [32, 8, 512, 64] (the bf16
-    training legs' shapes), non-causal and causal: the whole launch, the
-    host's enqueue time a call, the function's TFLOP/s and the stages of
-    one launch."""
+    """bf16 #2 at [16, 8, 1024, 64], #5 and #6 at [32, 8, 512, 64], #4 and
+    #3 + #4 at [16, 8, 1024, 64] (the bf16 training legs' shapes),
+    non-causal and causal: the whole launch, the host's enqueue time a
+    call, the function's TFLOP/s and the stages of one launch."""
     ka = cs.KA
     res = {}
+
+    def run(tag, fn, shape, flops):
+        ms = best_ms(cs, fn)
+        res[tag] = e = dict(ms=ms, host_us=host_us(fn), stages=stages(fn),
+                            tflops=None if flops is None else
+                            flops / ms / 1e9, shape=shape)
+        cs.log(f"ffn_bf16_timing {tag} bf16 {shape}: {ms:.4f} ms (host "
+               f"{e['host_us']:.1f} us a call)"
+               + (f", {e['tflops']:.1f} TFLOP/s" if e["tflops"] else "")
+               + "; stages: " + "; ".join(f"{n} {x:.4f}"
+                                          for n, x in e["stages"]))
+
     for name, (b, t) in (("flash_attention", (16, 1024)),
-                         ("sdpa_short_bwd", (32, 512))):
+                         ("sdpa_short", (32, 512))):
         q, k, v = (z.to(BF) for z in cs._qkv(b, 8, t, t, 64, seed=140 + t))
         g = cs._randn_like(q, 141 + t).to(BF)
-        flops = 4 * b * 8 * t * t * 64  # the function's products
+        unit = 2 * b * 8 * t * t * 64  # one [t, t] x [t, 64] product
+        shape = [b, 8, t, 64]
         for causal in (False, True):
+            c = "_causal" if causal else ""
+            # the function's products, non-causal only
+            fl = (lambda n: None if causal else n * unit)
             if name == "flash_attention":
-                runs = {"": lambda: ka._flash_attention_launch(
-                    q, k, v, 0.125, causal, False),
-                    "_with_lse": lambda: ka._flash_attention_launch(
-                        q, k, v, 0.125, causal, True)}
+                run(name + c, lambda: ka._flash_attention_launch(
+                    q, k, v, 0.125, causal, False), shape, fl(2))
+                run(name + c + "_with_lse", lambda: ka._flash_attention_launch(
+                    q, k, v, 0.125, causal, True), shape, fl(2))
+                o, lse = ka._flash_attention_launch(q, k, v, 0.125, causal,
+                                                    True)
+                delta = ka.flash_delta(o, g)
+                run("flash_bwd_dkv" + c, lambda: ka.flash_bwd_dkv(
+                    q, k, v, g, lse, delta, 0.125, causal), shape, fl(4))
+                run("flash_bwd_dq_dkv" + c, lambda: (
+                    ka.flash_bwd_dq(q, k, v, g, lse, delta, 0.125, causal),
+                    ka.flash_bwd_dkv(q, k, v, g, lse, delta, 0.125,
+                                     causal)), shape, fl(7))
             else:
+                run(name + c, lambda: ka._sdpa_short_launch(
+                    q, k, v, 0.125, causal, False), shape, fl(2))
+                run(name + c + "_with_p", lambda: ka._sdpa_short_launch(
+                    q, k, v, 0.125, causal, True), shape, fl(2))
                 _, p = ka._sdpa_short_launch(q, k, v, 0.125, causal, True)
-                runs = {"": lambda: ka.sdpa_short_bwd(q, k, v, p, g, 0.125,
-                                                      causal)}
-                flops = 8 * b * 8 * t * t * 64
-            tag = name + ("_causal" if causal else "")
-            for suffix, fn in runs.items():
-                ms = best_ms(cs, fn)
-                res[tag + suffix] = dict(
-                    ms=ms, host_us=host_us(fn), stages=stages(fn),
-                    tflops=None if causal else flops / ms / 1e9,
-                    shape=[b, 8, t, 64])
-                e = res[tag + suffix]
-                cs.log(f"ffn_bf16_timing {tag + suffix} bf16 [{b},8,{t},64]: "
-                       f"{ms:.4f} ms (host {e['host_us']:.1f} us a call)"
-                       + (f", {e['tflops']:.1f} TFLOP/s" if e["tflops"]
-                          else "") + "; stages: " + "; ".join(
-                           f"{n} {x:.4f}" for n, x in e["stages"]))
+                run("sdpa_short_bwd" + c, lambda: ka.sdpa_short_bwd(
+                    q, k, v, p, g, 0.125, causal), shape, fl(4))
         del q, k, v, g
     return res
 
@@ -229,8 +248,21 @@ def bits(cs):
             out[f"#5 {tag} causal={causal}"] = digest(o, p)
             out[f"#6 {tag} causal={causal}"] = digest(
                 *ka.sdpa_short_bwd(q, k, v, p, go, 0.125, causal))
+            # #6 on the plain forward's P too, so that its hash does not
+            # follow #5's
+            _, p = ka.sdpa_short_plain(q, k, v, 0.125, causal, save_p=True)
+            out[f"#6 {tag} causal={causal} on the plain P"] = digest(
+                *ka.sdpa_short_bwd(q, k, v, p, go, 0.125, causal))
+            out[f"#5 {tag} causal={causal} without P"] = digest(
+                ka._sdpa_short_launch(q, k, v, 0.125, causal, False))
             o, lse = ka._flash_attention_launch(q, k, v, 0.125, causal, True)
             out[f"#2 {tag} causal={causal}"] = digest(o, lse)
+            # #3 and #4 on #2's out and lse too
+            delta = ka.flash_delta(o, go)
+            out[f"#3 {tag} causal={causal} on #2"] = digest(ka.flash_bwd_dq(
+                q, k, v, go, lse, delta, 0.125, causal))
+            out[f"#4 {tag} causal={causal} on #2"] = digest(*ka.flash_bwd_dkv(
+                q, k, v, go, lse, delta, 0.125, causal))
             # #3 and #4 from the plain forward's out and lse, so that their
             # hashes do not follow #2's
             o, lse = ka.flash_attention_plain(q, k, v, 0.125, causal,
@@ -240,13 +272,21 @@ def bits(cs):
                 q, k, v, go, lse, delta, 0.125, causal))
             out[f"#4 {tag} causal={causal}"] = digest(*ka.flash_bwd_dkv(
                 q, k, v, go, lse, delta, 0.125, causal))
-        # the other head widths: #2 at d 128 and 256, #5 and #6 at d 128
+        # the other head widths: #2 at d 128 and 256, #4 at d 128 and 256
+        # (an odd tq at 128), #5 and #6 at d 128
         for d in (128, 256):
             q, k, v = (z.to(dt) for z in cs._qkv(2, 4, 300, 300, d,
                                                  seed=133 + d))
             go = cs._qkv(2, 4, 300, 300, d, seed=134 + d)[0].to(dt)
             out[f"#2 {tag} d{d}"] = digest(*ka._flash_attention_launch(
                 q, k, v, d ** -0.5, True, True))
+            tq = 301 if d == 128 else 300
+            qo, gq = (cs._qkv(2, 4, tq, 300, d, seed=135 + d + i)[0].to(dt)
+                      for i in range(2))
+            o, lse = ka.flash_attention_plain(qo, k, v, d ** -0.5, True,
+                                              with_lse=True)
+            out[f"#4 {tag} d{d} tq {tq}"] = digest(*ka.flash_bwd_dkv(
+                qo, k, v, gq, lse, ka.flash_delta(o, gq), d ** -0.5, True))
             if d == 128:
                 o, p = ka._sdpa_short_launch(q, k, v, d ** -0.5, True, True)
                 out[f"#5 {tag} d{d}"] = digest(o, p)

@@ -12,13 +12,16 @@ an online softmax over streamed keys on the tensor cores
 128}, ``flash_attention`` at any tq, tk, d in {64, 128, 256}, causal
 masking bottom-right aligned. ``sdpa_short``'s backward runs, in fp32, the
 attention stages it shares with the attention block's backward
-(``csrc/attn_bwd_from_p.cuh``). In bf16, ``flash_attention`` at d 64 and
-128 and ``sdpa_short``'s backward run their own Hopper design on wgmma
-fed by TMA (``csrc/attn_wgmma.cuh``; `flash_attention_tiles_plain` and
-`sdpa_short_bwd_tiles_plain` are its arithmetic in PyTorch);
-``flash_attention`` at d 256 keeps ``flash_fwd.cuh``'s body, a dispatch by
-d (its output accumulator leaves a wgmma consumer no registers), and
-``sdpa_short`` in bf16 keeps it at every d.
+(``csrc/attn_bwd_from_p.cuh``). In bf16 at d 64 and 128, ``flash_attention``,
+``sdpa_short`` (with P: the flash forward writing its lse, then a P
+kernel), the flash backward's dk/dv and ``sdpa_short``'s backward run
+their own Hopper design on wgmma fed by TMA (``csrc/attn_wgmma.cuh``;
+`flash_attention_tiles_plain`, `sdpa_short_tiles_plain`,
+`flash_bwd_dkv_tiles_plain` and `sdpa_short_bwd_tiles_plain` are its
+arithmetic in PyTorch); at d 256 ``flash_attention`` keeps
+``flash_fwd.cuh``'s body and the dk/dv kernel its ``mma.sync`` body, a
+dispatch by d (their accumulators leave a wgmma consumer no registers),
+and the flash backward's dq keeps its ``mma.sync`` body at every d.
 
 On the card both are differentiable, as the JAX package's ``custom_vjp``
 pair is: under a vjp the forward kernel also writes the residual its
@@ -80,6 +83,33 @@ LOG2E = 1.4426950408889634
 FLT_MAX = torch.finfo(torch.float32).max
 
 
+def _key_loop_tiles(q, k, v, scale, causal, key_tile, p_terms):
+    """The bf16 forward's key loop (``csrc/attn_wgmma.cuh`` `fwd_kernel`)
+    in fp32: (acc, the scaled scores s [B, H, tq, tk] in the log2 domain,
+    the final max m and sum l, the running max after each tile)."""
+    tq, tk = q.shape[2], k.shape[2]
+    qf, vf = q.float(), v.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, k.float()) * (scale * LOG2E)
+    if causal:
+        s = torch.where(causal_keep(tq, tk, q.device), s, -FLT_MAX)
+    m = torch.full(q.shape[:3], -torch.inf, device=q.device)
+    l = torch.zeros(q.shape[:3], device=q.device)
+    acc = torch.zeros_like(qf)
+    running = []
+    for k0 in range(0, tk, key_tile):
+        st = s[..., k0:k0 + key_tile]
+        m_new = torch.maximum(m, st.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(st - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", planes_sum(p, p_terms),
+            vf[:, :, k0:k0 + key_tile])
+        m = m_new
+        running.append(m)
+    return acc, s, m, l, running
+
+
 def flash_attention_tiles_plain(q, k, v, scale, causal, key_tile=128,
                                 p_terms=2):
     """The arithmetic of the bf16 flash forward on wgmma
@@ -91,27 +121,35 @@ def flash_attention_tiles_plain(q, k, v, scale, causal, key_tile=128,
     into a fresh accumulator a tile, out / l rounded to q's dtype once.
     Returns (out, lse fp32 [B, H, tq]; -FLT_MAX on a fully masked
     row)."""
-    tq, tk = q.shape[2], k.shape[2]
-    qf, kf, vf = q.float(), k.float(), v.float()
-    m = torch.full(q.shape[:3], -torch.inf, device=q.device)
-    l = torch.zeros(q.shape[:3], device=q.device)
-    acc = torch.zeros_like(qf)
-    keep = causal_keep(tq, tk, q.device) if causal else None
-    for k0 in range(0, tk, key_tile):
-        k1 = min(tk, k0 + key_tile)
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k1]) * (
-            scale * LOG2E)
-        if causal:
-            s = torch.where(keep[:, k0:k1], s, -FLT_MAX)
-        m_new = torch.maximum(m, s.amax(-1))
-        corr = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new[..., None])
-        l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bhkd->bhqd", planes_sum(p, p_terms), vf[:, :, k0:k1])
-        m = m_new
+    acc, _, m, l, _ = _key_loop_tiles(q, k, v, scale, causal, key_tile,
+                                      p_terms)
     lse = torch.where(m == -FLT_MAX, -FLT_MAX, m / LOG2E + torch.log(l))
     return (acc / l[..., None]).to(q.dtype), lse
+
+
+def sdpa_short_tiles_plain(q, k, v, scale, causal, key_tile=128,
+                           p_max="final"):
+    """The arithmetic of bf16 #5 on wgmma (``csrc/attn_wgmma.cuh``), in
+    fp32 from q's values, tq == tk: #2's key loop gives the output
+    (`flash_attention_tiles_plain`, P v on P's planes) and the lse;
+    `p_kernel` takes the scaled scores again and saves P = exp2(s - lse2)
+    with the row's final lse2 = m + log2(l) (its max m and sum l), rounded
+    to q's dtype [B*H, T, T] (causally masked entries 0).
+    `p_max="running"`: each tile's P normalized by the running max after
+    that tile and the final sum, as a single pass writing P during the
+    key loop would, a design that must fail the bf16 gate. Returns (out,
+    P)."""
+    acc, s, m, l, running = _key_loop_tiles(q, k, v, scale, causal,
+                                            key_tile, 2)
+    if p_max == "final":
+        p = torch.exp2(s - (m + torch.log2(l))[..., None])
+    else:
+        shift = torch.cat([r[..., None].expand(*r.shape, st.shape[-1])
+                           for r, st in zip(running, s.split(key_tile, -1))],
+                          -1)
+        p = torch.exp2(s - shift) / l[..., None]
+    return ((acc / l[..., None]).to(q.dtype),
+            p.reshape(-1, *p.shape[-2:]).to(q.dtype))
 
 
 def sdpa_short_bwd_tiles_plain(q, k, v, p, g, scale, causal=False,
@@ -150,6 +188,38 @@ def sdpa_short_bwd_tiles_plain(q, k, v, p, g, scale, causal=False,
                                qf[:, :, sl])
     return ((dq * scale).to(q.dtype), (dk * scale).to(q.dtype),
             dv.to(q.dtype))
+
+
+def flash_bwd_dkv_tiles_plain(q, k, v, g, lse, delta, scale, causal,
+                              query_tile=64, p_terms=2):
+    """The arithmetic of bf16 #4 on wgmma (``csrc/attn_wgmma.cuh``
+    `flash_dkv_kernel`), in fp32 from the bf16 values: P = exp2(s scale
+    log2e - lse log2e) from the forward's lse (a causally masked entry 0,
+    a row that sees no key 1/tk, found by index), dS = P (dP - delta) in
+    fp32; dv = P^T dO with P as `p_terms` bf16 planes (2: hi and lo; 1:
+    one bf16 term, a design that must fail the bf16 gate) and dk = dS^T q
+    with dS as two planes, each summed in chains of two query tiles of
+    `query_tile` (256 terms) added to the running sum; dk scaled once.
+    Returns (dk, dv) in q's dtype."""
+    tq, tk = q.shape[2], k.shape[2]
+    qf, gf = q.float(), g.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, k.float()) * (scale * LOG2E)
+    p = torch.exp2(s - lse[..., None] * LOG2E)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gf, v.float())
+              - delta[..., None])
+    if causal:
+        keep = causal_keep(tq, tk, q.device)
+        blind = torch.arange(tq, device=q.device)[:, None] < tq - tk
+        p = torch.where(keep, p, torch.where(blind, 1.0 / tk, 0.0))
+        ds = torch.where(keep, ds, 0.0)
+    dk, dv = torch.zeros_like(k.float()), torch.zeros_like(k.float())
+    for q0 in range(0, tq, 2 * query_tile):
+        sl = slice(q0, q0 + 2 * query_tile)
+        dv = dv + torch.einsum("bhqk,bhqd->bhkd",
+                               planes_sum(p[:, :, sl], p_terms), gf[:, :, sl])
+        dk = dk + torch.einsum("bhqk,bhqd->bhkd", planes_sum(ds[:, :, sl]),
+                               qf[:, :, sl])
+    return (dk * scale).to(q.dtype), dv.to(q.dtype)
 
 
 # The operand forms of csrc/attn_wgmma.cuh, each a [64, n] x depth-128
@@ -335,9 +405,13 @@ def _sdpa_short_launch(q, k, v, scale, causal, save_p):
     out = torch.empty_like(q)
     p = torch.empty(b * h, t, t, dtype=q.dtype,
                     device=q.device) if save_p else None
-    err = _kernel("sdpa_short", "sdpa_short_fwd", 5, 2, q.dtype)(
+    # scratch: in bf16, the lse from which the kernel forms P
+    lse = torch.empty(b * h, t, dtype=torch.float32, device=q.device) \
+        if save_p and q.dtype == torch.bfloat16 else None
+    err = _kernel("sdpa_short", "sdpa_short_fwd", 6, 2, q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(p),
-        b * h, t, d, float(scale), int(bool(causal)), current_stream(q))
+        _ptr(lse), b * h, t, d, float(scale), int(bool(causal)),
+        current_stream(q))
     sdpa_short.launches += 1
     check_launch("sdpa_short", err)
     return (out, p) if save_p else out

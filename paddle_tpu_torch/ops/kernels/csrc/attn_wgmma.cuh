@@ -1,26 +1,35 @@
-// The bf16 attention kernels #2 and #6 for Hopper (sm_90a), on
-// wgmma.mma_async fed by TMA (hopper.cuh): the flash forward
-// (flash_attention.cu's `flash_attention_fwd_bf16` at d 64 and 128) and
-// the short-sequence backward from the saved P (sdpa_short_bwd.cu's
-// `sdpa_short_bwd_bf16`).
+// The bf16 attention kernels #2, #4, #5 and #6 for Hopper (sm_90a), on
+// wgmma.mma_async fed by TMA (hopper.cuh), at head widths d 64 and 128:
+// - #2, the flash forward (flash_attention.cu `flash_attention_fwd_bf16`):
+//   `fwd_kernel`;
+// - #5, the short-sequence forward (sdpa_short.cu `sdpa_short_fwd_bf16`):
+//   `fwd_kernel` at tq == tk, and with P asked for, `p_kernel` after it;
+// - #4, the flash backward's dk and dv (flash_attention_bwd.cu
+//   `flash_attention_bwd_dkv_bf16`): `flash_dkv_kernel`;
+// - #6, the short-sequence backward from the saved P (sdpa_short_bwd.cu
+//   `sdpa_short_bwd_bf16`): `dq_kernel`, then `dkv_kernel`.
+// d 256 (#2 and #4 only) keeps the mma.sync bodies (flash_fwd.cuh,
+// split_bf16.cuh `Mma<E>`), a dispatch by d; fp32 inputs keep the split-TF32
+// kernels; #3 (dq) keeps split_bf16.cuh's body in bf16.
 //
 // Replaces, on the bf16 path: paddle_tpu/ops/pallas/attention.py
-// `_flash_fwd_impl` / `_fwd_kernel` (#2) and `_sdpa_short_bwd_impl` (#6),
-// which upcast their bf16 blocks and compute in fp32.
+// `_flash_fwd_impl` / `_fwd_kernel` (#2), `_bwd_dkv_kernel` (#4),
+// `_sdpa_short_fwd_impl` (#5) and `_sdpa_short_bwd_impl` (#6), which
+// upcast their bf16 blocks and compute in fp32.
 //
 // The bf16 contract of the port's attention kernels: a product of two
 // bf16 inputs (q k^T, dO v^T, v dO^T, P^T dO with the saved bf16 P) is
 // one wgmma a 16-deep step, each product exact in fp32 as after the TPU
-// kernel's upcast; an fp32 intermediate fed to a product (P in P v, dS in
-// dS k and dS^T q) enters as two bf16 planes made in registers, hi =
-// bf16(x) and lo = bf16(x - hi), within 2^-17 of x: two RS wgmmas (A from
-// registers) a step. Every
+// kernel's upcast; an fp32 intermediate fed to a product (P in P v and
+// in #4's P^T dO, dS in dS k and dS^T q) enters as two bf16 planes made
+// in registers, hi = bf16(x) and lo = bf16(x - hi), within 2^-17 of x:
+// two RS wgmmas (A from registers) a step. Every
 // wgmma chain starts in a fresh fp32 accumulator at most 256 terms deep
 // (a key or query tile, both planes counted), added to the running sum in
 // fp32 once it has retired. Sums run in a fixed order with no atomics:
 // two launches give the same bits.
 //
-// Both kernels: one block an SM, two consumer warpgroups (64 rows each)
+// Every kernel: one block an SM, two consumer warpgroups (64 rows each)
 // and one producer warp whose first thread keeps TMA loads in flight into
 // a ring of stages in shared memory behind mbarriers (a full barrier a
 // stage, completed by the producer's arrivals and TMA's transaction
@@ -33,7 +42,8 @@
 // #2, the forward (`fwd_kernel`): out = softmax(scale q k^T [+ causal
 // mask]) v for q [BH, tq, D], k, v [BH, tk, D], and the fp32 per-row lse
 // [BH, tq] that #3 and #4 read. The grid persists: a block per SM walks
-// the items (bh, 128 query rows) in a fixed order, the producer running
+// the items (bh, 128 query rows) in a fixed order (under causal masking
+// the longest items first), the producer running
 // on into the next item's q (two q buffers) and key tiles while the
 // consumers finish an item. K and V tiles of KT keys (128 at D 64; 64 at
 // D 128, whose wider output leaves no room for more) stream through a
@@ -48,6 +58,37 @@
 // its lse -FLT_MAX. Causal tiles past an item's last visible key are not
 // fetched, and a warpgroup skips the products of a tile past its own
 // rows' horizon. out / l is rounded to bf16 once.
+//
+// #5 (tq == tk <= 512, #2's causal offset tk - tq then 0): without P,
+// `fwd_kernel` with no lse. With P, two grids: `fwd_kernel` writing the lse
+// into a scratch, then `p_kernel`, P = ex2(S c - lse log2e) [BH, t, t]
+// bf16 with the row's final max and sum, on #2's persistent items and
+// ring (K tiles alone): S = q k^T again (SS), P staged by each warp in
+// one of its two tiles of shared memory and written by TMA stores that
+// drain while it computes the next tile (2-byte stores where t % 8 != 0,
+// P's rows then lying off 16 bytes); tiles past a warpgroup's causal
+// horizon written as zeros with no product. The output is #2's, the same
+// bits with P and without. Measured and given up on an H100: P swept in
+// the forward's own blocks after each item's key loop (0.1726 ms at [32,
+// 8, 512, 64], against 0.1408 for the two grids: more spills in the key
+// loop, and the sweep's products, exponentials and stores not overlapped),
+// a P grid of 64-key tiles with the next tile's S issued before this
+// tile's exponentials (its grid 0.0827 ms against 0.0689), and one of
+// 64-key tiles at two blocks an SM (0.0678, causal 0.0732 against
+// 0.0697).
+//
+// #4, the flash backward's dk and dv (`flash_dkv_kernel`): #6's grid 2
+// with P recomputed from the lse, P^T = ex2(S^T c - lse log2e): a block
+// per (bh, 128 keys at D 64, 64 at D 128), k and v resident, 64-row query
+// tiles of q and dO by TMA with their lse and delta rows (bulk copies
+// where tq % 4 == 0, else gathered by the producer warp); S^T and dP^T
+// SS in one group; P^T and dS^T on the fragments (masks by index: padding,
+// causal bottom-right, a query that sees no key P = 1 / tk and dS = 0);
+// dv += P^T dO and dk += dS^T q as two RS wgmmas each (P is an fp32
+// intermediate here, not a saved bf16 P), into chains of two query tiles
+// that retire into fp32 running sums in shared memory: a thread holds the
+// two chains and S^T, dP^T (128 registers), not two running sums besides.
+// 6 products as run against the function's 4.
 //
 // #6, the backward from the saved P (`dq_kernel`, `dkv_kernel`), as the
 // TPU kernel computes it: dv = P^T dO, dP = dO v^T, delta = rowsum(dP P),
@@ -84,7 +125,10 @@
 //
 // What bounds them on an H100 (bf16 989 TFLOP/s, 3.35 TB/s): #2 at
 // [16, 8, 1024, 64] does 34.4 GFLOP of products (51.5 as run: P v twice)
-// on 34 MB, 0.035 ms by its operations; #6 at [32, 8, 512, 64] the
+// on 34 MB, 0.035 ms by its operations; #5 at [32, 8, 512, 64] 17.2
+// GFLOP on 34 MB (0.020 ms by its bytes), with P 201 MB (0.060 ms), P's
+// 134 MB written once; #4 at [16, 8, 1024, 64] 68.7 GFLOP (103 as run),
+// 0.0695 ms by its operations; #6 at [32, 8, 512, 64] the
 // function's 34.4 GFLOP (68.7 as run: dP three times, dq and dk twice) on
 // 134 MB of P and 117 MB of the rest, 0.075 ms by its bytes (P is read
 // three times as run: 0.12 ms at the memory's rate, the second read from
@@ -225,6 +269,22 @@ __device__ __forceinline__ uint8_t* aligned(uint8_t* raw) {
 // ---------------------------------------------------------------------------
 // #2: the flash forward
 // ---------------------------------------------------------------------------
+// The items (bh, R query rows) of a persistent attention grid: item i's
+// head and first query row, i < nbh * nqt. Under causal masking the last
+// query tiles, which see the most keys, come first, heads fastest.
+struct Items {
+  int nqt, nbh, causal;
+  __device__ __forceinline__ void at(int i, int r, int& bh, int& q0) const {
+    if (causal) {
+      bh = i % nbh;
+      q0 = (nqt - 1 - i / nbh) * r;
+    } else {
+      bh = i / nqt;
+      q0 = i % nqt * r;
+    }
+  }
+};
+
 template <int D>
 struct Fwd {
   static constexpr int R = 128;                  // query rows an item
@@ -240,10 +300,12 @@ struct Fwd {
 
 // #2, persistent: block b takes the items (bh, 128 query rows) b, b + G,
 // b + 2 G, ... (G blocks, at most one an SM), item i being head i / nqt's
-// query tile i % nqt. The producer runs on into the next item's q (two q
-// buffers) and key tiles (one ring across items) while the consumers
-// finish an item, so an item's start and its epilogue overlap the
-// neighbouring items' loads.
+// query tile i % nqt; under causal masking the items with the most key
+// tiles (the last query tiles) come first, heads fastest, so that the
+// blocks' shares balance (`Items`). The producer runs on into the next
+// item's q (two q buffers) and key tiles (one ring across items) while
+// the consumers finish an item, so an item's start and its epilogue
+// overlap the neighbouring items' loads.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap mq,
@@ -273,6 +335,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   const int nqt = (tq + R - 1) / R, offset = tk - tq;
+  const Items items{nqt, nitems / nqt, causal};
   // the key tiles item (bh, q0) fetches: with no fully masked row in it,
   // keys past its last row's horizon add nothing and are not fetched
   auto tiles_of = [&](int q0) {
@@ -286,7 +349,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       int it = 0;  // key tiles issued, across items
       for (int item = blockIdx.x, k = 0; item < nitems;
            item += gridDim.x, ++k) {
-        const int bh = item / nqt, q0 = item % nqt * R, qb = k & 1;
+        int bh, q0;
+        items.at(item, R, bh, q0);
+        const int qb = k & 1;
         if (k >= 2) mbar_wait(&qempty[qb], ((k >> 1) - 1) & 1);
         mbar_expect_tx(&qfull[qb], F::kQBytes);
         uint8_t* qs = qbuf + qb * F::kQBytes;
@@ -323,7 +388,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float c = scale * kLog2e;
   int it = 0;  // key tiles consumed, across items
   for (int item = blockIdx.x, k = 0; item < nitems; item += gridDim.x, ++k) {
-    const int bh = item / nqt, q0 = item % nqt * R, qb = k & 1;
+    int bh, q0;
+    items.at(item, R, bh, q0);
+    const int qb = k & 1;
     const int ntiles = tiles_of(q0);
     const int r0 = q0 + 64 * wg;  // this warpgroup's first row
     // where its rows all see key 0, the tiles past its last row's horizon
@@ -846,6 +913,488 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// #5's P: the normalized probabilities from #2's lse
+// ---------------------------------------------------------------------------
+template <int D>
+struct Probs {
+  static constexpr int R = 128;             // query rows an item
+  static constexpr int KT = Fwd<D>::KT;     // keys a tile
+  static constexpr int NS = D / 64;
+  static constexpr int kQBytes = R * D * 2;
+  static constexpr int kTileBytes = KT * D * 2;  // a K tile
+  static constexpr int kStages = 4;
+  static constexpr int kWarpTile = 16 * KT * 2;  // a warp's rows of P's tile
+  static constexpr size_t kSmem = (size_t)2 * kQBytes +
+                                  kStages * kTileBytes +
+                                  2 * 8 * kWarpTile + 1024;
+  static_assert(kSmem <= 227 * 1024, "fits");
+};
+
+// A warp's 16 rows of a tile of P (KT / 64 swizzled boxes of [16][64] at
+// stg, or zeros where stg is null) to rows row0.. and columns col0.. of
+// the row-major [t, t] matrix pb, rows and columns at or past t skipped:
+// 16-byte chunks where the rows lie on 16 bytes (vec), else 2-byte stores
+template <int KT>
+__device__ __forceinline__ void store_rows(bf16* pb, int t, int row0,
+                                           int col0, const uint8_t* stg,
+                                           bool vec, int lane) {
+  if (vec) {
+    for (int i = lane; i < 16 * (KT / 8); i += 32) {
+      const int r = i / (KT / 8), c8 = i % (KT / 8);
+      const int row = row0 + r, col = col0 + 8 * c8;
+      if (row < t && col < t)
+        *reinterpret_cast<uint4*>(pb + (int64_t)row * t + col) =
+            stg == nullptr
+                ? make_uint4(0u, 0u, 0u, 0u)
+                : *reinterpret_cast<const uint4*>(
+                      stg + (c8 / 8) * 2048 + r * 128 +
+                      (((c8 % 8) ^ (r & 7)) << 4));
+    }
+  } else {
+    uint16_t* dst = reinterpret_cast<uint16_t*>(pb);
+    for (int i = lane; i < 16 * KT; i += 32) {
+      const int r = i / KT, cc = i % KT, row = row0 + r, col = col0 + cc;
+      if (row < t && col < t)
+        dst[(int64_t)row * t + col] =
+            stg == nullptr ? (uint16_t)0
+                           : *reinterpret_cast<const uint16_t*>(
+                                 stg + (cc / 64) * 2048 + swz(r, cc % 64));
+    }
+  }
+}
+
+// P = ex2(S c - lse log2e) for q, k [BH, t, D], lse fp32 [BH, t] (#2's,
+// from the same q, k and v), into p [BH, t, t] bf16: #2's persistent grid
+// and items, the producer streaming q (two buffers) and the item's K
+// tiles up to its causal horizon through the ring, two consumer
+// warpgroups of 64 rows forming S = q k^T (SS) a tile at a time. Each
+// warp stages its 16 rows of P as bf16 in one of its two tiles and writes
+// them by TMA stores that drain while it computes the next tile (2-byte
+// stores where t % 8 != 0); tiles past a warpgroup's horizon are written
+// as zeros, with no product. No barrier across warps after the item's q.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    p_kernel(const __grid_constant__ CUtensorMap mq,
+             const __grid_constant__ CUtensorMap mk,
+             const __grid_constant__ CUtensorMap mp,
+             const float* __restrict__ lse, bf16* __restrict__ p, int t,
+             float scale, int causal, int nitems, int p_vec) {
+  using F = Probs<D>;
+  constexpr int R = F::R, KT = F::KT, NS = F::NS, S = F::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[S], empty[S], qfull[2], qempty[2];
+  uint8_t* qbuf = aligned(smem_raw);      // q: 2 x NS slabs of [R][64]
+  uint8_t* ring = qbuf + 2 * F::kQBytes;  // stage: K (NS slabs [KT][64])
+  uint8_t* pst = ring + S * F::kTileBytes;  // a warp's two tiles of P
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&qfull[b], 1);
+      mbar_init(&qempty[b], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int nqt = (t + R - 1) / R;
+  const Items items{nqt, nitems / nqt, causal};
+  // the key tiles item (bh, q0) fetches: P is 0 past its last row
+  auto tiles_of = [&](int q0) {
+    return ((causal ? min(t, q0 + R) : t) + KT - 1) / KT;
+  };
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      int it = 0;
+      for (int item = blockIdx.x, k = 0; item < nitems;
+           item += gridDim.x, ++k) {
+        int bh, q0;
+        items.at(item, R, bh, q0);
+        const int qb = k & 1;
+        if (k >= 2) mbar_wait(&qempty[qb], ((k >> 1) - 1) & 1);
+        mbar_expect_tx(&qfull[qb], F::kQBytes);
+        uint8_t* qs = qbuf + qb * F::kQBytes;
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+#pragma unroll
+          for (int rc = 0; rc < R / 64; ++rc)
+            tma_load(qs + s * R * 128 + rc * kSlab, &mq, &qfull[qb], 64 * s,
+                     q0 + 64 * rc, bh);
+        const int ntiles = tiles_of(q0);
+        for (int j = 0; j < ntiles; ++j, ++it) {
+          const int st = it % S;
+          if (it >= S) mbar_wait(&empty[st], ((it / S) - 1) & 1);
+          mbar_expect_tx(&full[st], F::kTileBytes);
+          uint8_t* ks = ring + st * F::kTileBytes;
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+#pragma unroll
+            for (int rc = 0; rc < KT / 64; ++rc)
+              tma_load(ks + s * KT * 128 + rc * kSlab, &mk, &full[st],
+                       64 * s, j * KT + 64 * rc, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const float c = scale * kLog2e;
+  uint8_t* mine = pst + (tid / 32) * 2 * F::kWarpTile;
+  int it = 0, nst = 0;  // key tiles consumed; tiles staged
+  for (int item = blockIdx.x, k = 0; item < nitems; item += gridDim.x, ++k) {
+    int bh, q0;
+    items.at(item, R, bh, q0);
+    const int qb = k & 1, ntiles = tiles_of(q0);
+    const int r0 = q0 + 64 * wg, rw = r0 + 16 * warp;  // its first rows
+    // the tiles past the last row's horizon of its warpgroup are 0
+    const int nw = causal ? min(ntiles, (r0 + 63) / KT + 1) : ntiles;
+    float l2[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rw + g + 8 * h;
+      l2[h] = row < t ? lse[(int64_t)bh * t + row] * kLog2e : 0.f;
+    }
+    const uint64_t dq =
+        desc(smem_u32(qbuf + qb * F::kQBytes) + wg * kSlab, 16, 1024);
+    bf16* pb = p + (int64_t)bh * t * t;
+    mbar_wait(&qfull[qb], (k >> 1) & 1);
+    const int nall = (t + KT - 1) / KT;
+    for (int j = 0; j < nall; ++j) {
+      if (j >= nw) {
+        if (j < ntiles) {
+          mbar_wait(&full[it % S], (it / S) & 1);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[it % S]);
+          ++it;
+        }
+        store_rows<KT>(pb, t, rw, j * KT, nullptr, p_vec, lane);
+        continue;
+      }
+      const int st = it % S;
+      mbar_wait(&full[st], (it / S) & 1);
+      const uint64_t dk = desc(smem_u32(ring) + st * F::kTileBytes, 16,
+                               1024);
+      float s[KT / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<KT, 0, 0>(
+            s, desc_at(dq, (kk / 4) * R * 128 + (kk % 4) * 32),
+            desc_at(dk, (kk / 4) * KT * 128 + (kk % 4) * 32), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+      ++it;
+      // a key past t or past a row's horizon has P 0
+      const bool edge = (j + 1) * KT > t || (causal && (j + 1) * KT - 1 > r0);
+      // the tile staged two tiles ago has been read by its store
+      uint8_t* buf = mine + (nst++ & 1) * F::kWarpTile;
+      if (p_vec && lane == 0) hopper::bulk_wait_read<1>();
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < KT / 2; i += 2) {
+        const int h = (i >> 1) & 1, col = 8 * (i / 4) + 2 * t4;
+        float x0 = ex2(fmaf(s[i], c, -l2[h]));
+        float x1 = ex2(fmaf(s[i + 1], c, -l2[h]));
+        if (edge) {
+          const int key = j * KT + col, row = rw + g + 8 * h;
+          x0 = key < t && !(causal && key > row) ? x0 : 0.f;
+          x1 = key + 1 < t && !(causal && key + 1 > row) ? x1 : 0.f;
+        }
+        *reinterpret_cast<uint32_t*>(buf + (col / 64) * 2048 +
+                                     swz(g + 8 * h, col % 64)) =
+            pack(x0, x1);
+      }
+      if (p_vec) hopper::fence_proxy_async();  // TMA reads the tile
+      __syncwarp();
+      if (!p_vec) {
+        store_rows<KT>(pb, t, rw, j * KT, buf, false, lane);
+      } else if (lane == 0) {
+#pragma unroll
+        for (int c64 = 0; c64 < KT / 64; ++c64)
+          hopper::tma_store(&mp, buf + c64 * 2048, j * KT + 64 * c64, rw,
+                            bh);
+        hopper::bulk_commit();
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&qempty[qb]);
+  }
+  if (p_vec && lane == 0) hopper::bulk_wait<0>();  // P's last stores
+}
+
+// ---------------------------------------------------------------------------
+// #4: the flash backward's dk and dv, P recomputed from the lse
+// ---------------------------------------------------------------------------
+template <int D>
+struct FlashDkv {
+  static constexpr int NS = D / 64;
+  static constexpr bool kSplitCols = D == 128;   // a warpgroup's 64 columns
+  static constexpr int KB = D == 64 ? 128 : 64;  // keys a block
+  static constexpr int QT = 64;                  // queries a tile
+  static constexpr int kKVBytes = KB * D * 2;    // k or v, resident
+  static constexpr int kQtBytes = QT * D * 2;    // a q or a dO tile
+  static constexpr int kStage = 2 * kQtBytes;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  static constexpr int kVecBytes = kStages * 2 * QT * 4;  // lse, delta
+  // the running sums of dk and dv, fp32: [2 warpgroups][2][8][128] float4
+  static constexpr int kRunBytes = 2 * 2 * 8 * 128 * 16;
+  static constexpr size_t kSmem = (size_t)2 * kKVBytes + kStages * kStage +
+                                  kVecBytes + kRunBytes + 1024;
+  static_assert(kSmem <= 227 * 1024, "fits");
+  static_assert(kStages * kStage >= 2 * 2 * kSlab, "the ring holds dk, dv");
+};
+
+// One block per (bh, KB keys): k and v resident; 64-row query tiles of q
+// and dO stream through the ring by TMA, their rows of lse and delta
+// beside them (by bulk copy where tq % 4 == 0, else gathered by the
+// producer warp). A warpgroup takes 64 keys (at D 128 both take the same
+// 64 keys and 64 output columns each). A tile: S^T = k q^T and dP^T =
+// v dO^T (SS, one group); P^T = ex2(S^T c - lse log2e) and dS^T = P^T
+// (dP^T - delta) on the fragments; dv += P^T dO and dk += dS^T q, each as
+// two RS wgmmas (hi, lo; dO and q MN-major), one group. Those two chains
+// run into fresh accumulators over two tiles (256 terms), then retire
+// into fp32 running sums in shared memory, so that a thread holds two
+// chains and S^T, dP^T (128 registers) and not also two running sums.
+// Masking by index: a key past tk or a query past tq is padding (P = 0);
+// under causal masking (bottom-right) a masked entry has P = 0 and dS =
+// 0, and a query that sees no key (i < tq - tk) P = 1 / tk and dS = 0,
+// whatever its lse (-FLT_MAX). dk is scaled once, at the end.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dkv_kernel(const __grid_constant__ CUtensorMap mk,
+                     const __grid_constant__ CUtensorMap mv,
+                     const __grid_constant__ CUtensorMap mq,
+                     const __grid_constant__ CUtensorMap mg,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int tq, int tk, float scale,
+                     int causal, int vec_tma) {
+  using F = FlashDkv<D>;
+  constexpr int KB = F::KB, QT = F::QT, NS = F::NS, S = F::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[S], empty[S], kvbar;
+  uint8_t* kres = aligned(smem_raw);   // k: NS slabs of [KB][64]
+  uint8_t* vres = kres + F::kKVBytes;  // v: the same
+  uint8_t* ring = vres + F::kKVBytes;  // stage: q, then dO (NS slabs
+                                       // [QT][64] each)
+  float* vecs = reinterpret_cast<float*>(ring + S * F::kStage);  // [S][2][QT]
+  float4* run = reinterpret_cast<float4*>(
+      reinterpret_cast<uint8_t*>(vecs) + F::kVecBytes);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_init(&kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * KB, offset = tk - tq;
+  const int nqt = (tq + QT - 1) / QT;
+  // the first query tile at or after tile i that adds to these keys: under
+  // causal masking a tile whose last row cannot reach key k0 adds nothing,
+  // unless it holds rows that see no key (rows < -offset, all at the top)
+  auto next_tile = [&](int i) {
+    return causal && i * QT + offset >= 0 && i * QT + QT - 1 + offset < k0
+               ? max(i, (k0 - offset) / QT)
+               : i;
+  };
+
+  if (tid >= kConsumers) {
+    const int lane = tid % 32;
+    if (lane == 0) {
+      mbar_expect_tx(&kvbar, 2 * F::kKVBytes);
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int rc = 0; rc < KB / 64; ++rc) {
+          const int at = s * KB * 128 + rc * kSlab;
+          tma_load(kres + at, &mk, &kvbar, 64 * s, k0 + 64 * rc, bh);
+          tma_load(vres + at, &mv, &kvbar, 64 * s, k0 + 64 * rc, bh);
+        }
+    }
+    const float* lb = lse + (int64_t)bh * tq;
+    const float* db = delta + (int64_t)bh * tq;
+    int it = 0;
+    for (int i = next_tile(0); i < nqt; i = next_tile(i + 1), ++it) {
+      const int st = it % S, qt = i * QT, n = min(QT, tq - qt);
+      if (it >= S) mbar_wait(&empty[st], ((it / S) - 1) & 1);
+      uint8_t* qs = ring + st * F::kStage;
+      float* ls = vecs + st * 2 * QT;
+      if (!vec_tma)
+        for (int r = lane; r < QT; r += 32) {
+          ls[r] = r < n ? lb[qt + r] : 0.f;
+          ls[QT + r] = r < n ? db[qt + r] : 0.f;
+        }
+      __syncwarp();
+      if (lane != 0) {
+        mbar_arrive(&full[st]);
+        continue;
+      }
+      mbar_expect_tx(&full[st], F::kStage + (vec_tma ? 2 * n * 4 : 0));
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        tma_load(qs + s * kSlab, &mq, &full[st], 64 * s, qt, bh);
+        tma_load(qs + F::kQtBytes + s * kSlab, &mg, &full[st], 64 * s, qt,
+                 bh);
+      }
+      if (vec_tma) {
+        hopper::bulk_load(ls, lb + qt, n * 4, &full[st]);
+        hopper::bulk_load(ls + QT, db + qt, n * 4, &full[st]);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, lt = tid % 128, warp = lt / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int kb = F::kSplitCols ? 0 : 64 * wg;  // its first key in the block
+  const int cb = F::kSplitCols ? 64 * wg : 0;  // its first output column
+  const int kw0 = k0 + kb;
+  const uint32_t ka = smem_u32(kres) + (kb / 64) * kSlab;
+  const uint32_t va = smem_u32(vres) + (kb / 64) * kSlab;
+  const float c = scale * kLog2e, blind_p = 1.f / tk;
+  // its running sums: dk at [j][lt], dv at [8 + j][lt], j < 8, so that a
+  // warp's 16-byte accesses fall on distinct banks
+  float4* mine = run + wg * 16 * 128 + lt;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) mine[j * 128] = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto retire = [&](const float(&x)[32], int at) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float4 r = mine[(at + j) * 128];
+      r.x += x[4 * j];
+      r.y += x[4 * j + 1];
+      r.z += x[4 * j + 2];
+      r.w += x[4 * j + 3];
+      mine[(at + j) * 128] = r;
+    }
+  };
+  float fk[32], fv[32];  // the chains of dk and dv
+#pragma unroll
+  for (int i = 0; i < 32; ++i) fk[i] = fv[i] = 0.f;
+  mbar_wait(&kvbar, 0);
+
+  int it = 0, done = 0;  // stages consumed; tiles this warpgroup computed
+  for (int i = next_tile(0); i < nqt; i = next_tile(i + 1), ++it) {
+    const int st = it % S, qt = i * QT;
+    mbar_wait(&full[st], (it / S) & 1);
+    // every entry masked for its keys and no row that sees no key: the
+    // tile adds nothing to them
+    if (causal && qt + offset >= 0 && qt + QT - 1 + offset < kw0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+      continue;
+    }
+    const uint32_t qa = smem_u32(ring + st * F::kStage);
+    const uint32_t ga = qa + F::kQtBytes;
+    const float* ls = vecs + st * 2 * QT;
+    const float* dl = ls + QT;
+    // S^T = k q^T and dP^T = v dO^T: key rows, query columns; all K-major
+    float s[32], dp[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<64, 0, 0>(
+          s, desc(ka + (kk / 4) * KB * 128 + (kk % 4) * 32, 16, 1024),
+          desc(qa + (kk / 4) * QT * 128 + (kk % 4) * 32, 16, 1024), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<64, 0, 0>(
+          dp, desc(va + (kk / 4) * KB * 128 + (kk % 4) * 32, 16, 1024),
+          desc(ga + (kk / 4) * QT * 128 + (kk % 4) * 32, 16, 1024), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    // P^T and dS^T at (key kw0 + 16 warp + g (+ 8), query qt + 8 j + 2 t4
+    // (+ 1)), then their planes, a 16-query step at a time
+    const bool edge = qt + QT > tq || kw0 + 64 > tk ||
+                      (causal && kw0 + 63 > qt + offset);
+    uint32_t ph[QT / 16][4], pl[QT / 16][4], sh[QT / 16][4], sl[QT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+#pragma unroll
+      for (int i = 8 * kk; i < 8 * kk + 8; ++i) {
+        const int col = 8 * (i / 4) + 2 * t4 + (i & 1);
+        float p = ex2(fmaf(s[i], c, -ls[col] * kLog2e));
+        float ds = p * (dp[i] - dl[col]);
+        if (edge) {
+          const int q = qt + col, key = kw0 + 16 * warp + g + 8 * ((i >> 1) & 1);
+          const bool in = q < tq && key < tk;
+          const bool masked = causal && key > q + offset;
+          p = !in ? 0.f : masked ? (q + offset < 0 ? blind_p : 0.f) : p;
+          ds = in && !masked ? ds : 0.f;
+        }
+        s[i] = p;
+        dp[i] = ds;
+      }
+      planes_of(ph[kk], pl[kk], s, kk);
+      planes_of(sh[kk], sl[kk], dp, kk);
+    }
+    // dv += P^T dO and dk += dS^T q, two planes a step, dO and q MN-major
+    // (its 64 columns), into the chains: fresh every other tile
+    const int acc0 = done % 2;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      const uint64_t db = desc(ga + (cb / 64) * kSlab + kk * 2048, kSlab, 1024);
+      wgmma_rs<64, 1>(fv, ph[kk], db, acc0 | (kk > 0));
+      wgmma_rs<64, 1>(fv, pl[kk], db, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      const uint64_t db = desc(qa + (cb / 64) * kSlab + kk * 2048, kSlab, 1024);
+      wgmma_rs<64, 1>(fk, sh[kk], db, acc0 | (kk > 0));
+      wgmma_rs<64, 1>(fk, sl[kk], db, 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_acc(fv);
+    fence_acc(fk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (++done % 2 == 0) {
+      retire(fk, 0);
+      retire(fv, 8);
+    }
+  }
+  if (done % 2) {
+    retire(fk, 0);
+    retire(fv, 8);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 a = mine[j * 128], b = mine[(8 + j) * 128];
+    fk[4 * j] = a.x, fk[4 * j + 1] = a.y, fk[4 * j + 2] = a.z;
+    fk[4 * j + 3] = a.w;
+    fv[4 * j] = b.x, fv[4 * j + 1] = b.y, fv[4 * j + 2] = b.z;
+    fv[4 * j + 3] = b.w;
+  }
+  // every consumer is done with the ring: each stages its 64 x 64 of dk
+  // and of dv in 16 KB of it
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  uint8_t* stg = ring + wg * 2 * kSlab;
+  stage_acc(stg, fk, scale, warp, lane);
+  stage_acc(stg + kSlab, fv, 1.f, warp, lane);
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
+  const int64_t at = ((int64_t)bh * tk + kw0) * D + cb;
+  store_slab(dk + at, D, stg, tk - kw0, lt);
+  store_slab(dv + at, D, stg + kSlab, tk - kw0, lt);
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 // each kernel's dynamic shared memory limit, set once a process (internal
@@ -868,6 +1417,17 @@ cudaError_t bwd_attr() {
     const cudaError_t e = smem_attr(dq_kernel<D>, Bwd<D>::kSmem1);
     return e != cudaSuccess ? e : smem_attr(dkv_kernel<D>, Bwd<D>::kSmem2);
   }();
+  return err;
+}
+template <int D>
+cudaError_t flash_dkv_attr() {
+  static const cudaError_t err =
+      smem_attr(flash_dkv_kernel<D>, FlashDkv<D>::kSmem);
+  return err;
+}
+template <int D>
+cudaError_t p_attr() {
+  static const cudaError_t err = smem_attr(p_kernel<D>, Probs<D>::kSmem);
   return err;
 }
 }  // namespace
@@ -931,6 +1491,62 @@ cudaError_t bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* p,
   dkv_kernel<D><<<dim3((unsigned)((t + B::KB - 1) / B::KB), (unsigned)bh),
                   kThreads, B::kSmem2, st>>>(mv, mg, mq, mp, p, delta, dk, dv,
                                              t, tp, scale, causal, p_tma);
+  return cudaGetLastError();
+}
+
+// #5 with P: #2 at tq == tk == t writing its lse to the scratch lse
+// [bh, t] fp32, then P = ex2(S c - lse log2e) [bh, t, t] bf16 into p
+// (2-byte aligned; any t)
+template <int D>
+cudaError_t fwd_with_p(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                       bf16* p, float* lse, int64_t bh, int t, float scale,
+                       int causal, cudaStream_t st) {
+  cudaError_t err = fwd<D>(q, k, v, o, lse, bh, t, t, scale, causal, st);
+  if (err != cudaSuccess) return err;
+  // P's rows go by TMA where they lie on 16 bytes (t % 8 == 0)
+  const int p_vec = t % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  CUtensorMap mq, mk, mp;
+  err = map3(&mq, q, D, t, bh);
+  if (err == cudaSuccess) err = map3(&mk, k, D, t, bh);
+  // P's map (boxes of a warp's 16 rows) only where TMA takes its rows;
+  // else a copy of q's, unread
+  if (err == cudaSuccess)
+    err = p_vec ? hopper::make_map(&mp, Operand{p, t, t, (int)bh}, 16)
+                : map3(&mp, q, D, t, bh);
+  if (err == cudaSuccess) err = p_attr<D>();
+  if (err != cudaSuccess) return err;
+  const int64_t items = (int64_t)bh * ((t + Probs<D>::R - 1) / Probs<D>::R);
+  const int blocks = (int)(items < hopper::sm_count() ? items
+                                                      : hopper::sm_count());
+  p_kernel<D><<<blocks, kThreads, Probs<D>::kSmem, st>>>(
+      mq, mk, mp, lse, p, t, scale, causal, (int)items, p_vec);
+  return cudaGetLastError();
+}
+
+// #4 on contiguous q, g (dO) [bh, tq, D], k, v, dk, dv [bh, tk, D]; lse
+// and delta fp32 [bh, tq]
+template <int D>
+cudaError_t flash_dkv(const bf16* q, const bf16* k, const bf16* v,
+                      const bf16* g, const float* lse, const float* delta,
+                      bf16* dk, bf16* dv, int64_t bh, int tq, int tk,
+                      float scale, int causal, cudaStream_t st) {
+  if (tq < 1 || tk < 1 || bh < 1 || bh > 65535) return cudaErrorInvalidValue;
+  using F = FlashDkv<D>;
+  CUtensorMap mq, mk, mv, mg;
+  cudaError_t err = map3(&mq, q, D, tq, bh);
+  if (err == cudaSuccess) err = map3(&mk, k, D, tk, bh);
+  if (err == cudaSuccess) err = map3(&mv, v, D, tk, bh);
+  if (err == cudaSuccess) err = map3(&mg, g, D, tq, bh);
+  if (err == cudaSuccess) err = flash_dkv_attr<D>();
+  if (err != cudaSuccess) return err;
+  // a bulk copy takes lse's and delta's rows where they lie on 16 bytes
+  const int vec_tma = tq % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(lse) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(delta) % 16 == 0;
+  flash_dkv_kernel<D>
+      <<<dim3((unsigned)((tk + F::KB - 1) / F::KB), (unsigned)bh), kThreads,
+         F::kSmem, st>>>(mk, mv, mq, mg, lse, delta, dk, dv, tq, tk, scale,
+                         causal, vec_tma);
   return cudaGetLastError();
 }
 

@@ -82,6 +82,14 @@
 // dq kernel at D 256 streams 16 keys a tile in bf16 (8 in fp32): a bf16
 // step is 16 keys deep.
 //
+// Which design runs which instance: fp32 at every d, and bf16 dq at every
+// d, on the mma.sync kernels below; bf16 dk/dv at d 64 and 128 on
+// attn_wgmma.cuh's Hopper design (`flash_dkv_kernel`: wgmma fed by TMA,
+// P^T recomputed from the lse on the fragments, P^T and dS^T as hi/lo
+// planes for dv and dk), at d 256 on the mma.sync kernel below (its two
+// accumulators and a thread's share of S^T and dP^T exceed a wgmma
+// consumer's registers), a dispatch by d.
+//
 // Registers a thread and bytes of spill stores (ptxas -v for sm_90a, as
 // chip_smoke.py's build phase prints them): dq 98 (D 64, none), 183 (128,
 // none), 254 (256, 16 bytes); dk/dv 168 (64, capped for three blocks an
@@ -92,6 +100,7 @@
 
 #include <type_traits>
 
+#include "attn_wgmma.cuh"
 #include "split_bf16.cuh"
 #include "split_tf32.cuh"
 
@@ -567,6 +576,8 @@ extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
                                scale, causal, stream);
 }
 
+// bf16 dk/dv at d 64 and 128 on attn_wgmma.cuh's `flash_dkv_kernel` (q,
+// k, v and g on 16 bytes, TMA's rule); d 256 on the mma.sync body above
 extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k,
                                             const void* v, const void* g,
                                             const void* lse,
@@ -574,6 +585,28 @@ extern "C" int flash_attention_bwd_dkv_bf16(const void* q, const void* k,
                                             void* dv, int64_t bh, int tq,
                                             int tk, int d, float scale,
                                             int causal, void* stream) {
-  return bwd_dkv<__nv_bfloat16>(q, k, v, g, lse, delta, dk, dv, bh, tq, tk,
-                                d, scale, causal, stream);
+  using bf16 = __nv_bfloat16;
+  if (d == 64 || d == 128) {
+    const bf16* qe = static_cast<const bf16*>(q);
+    const bf16* ke = static_cast<const bf16*>(k);
+    const bf16* ve = static_cast<const bf16*>(v);
+    const bf16* ge = static_cast<const bf16*>(g);
+    const float* lf = static_cast<const float*>(lse);
+    const float* df = static_cast<const float*>(delta);
+    bf16* dke = static_cast<bf16*>(dk);
+    bf16* dve = static_cast<bf16*>(dv);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return (int)(d == 64 ? attn_wgmma::flash_dkv<64>(qe, ke, ve, ge, lf, df,
+                                                     dke, dve, bh, tq, tk,
+                                                     scale, causal, s)
+                         : attn_wgmma::flash_dkv<128>(qe, ke, ve, ge, lf, df,
+                                                      dke, dve, bh, tq, tk,
+                                                      scale, causal, s));
+  }
+  if (d != 256 || tq < 1 || tk < 1) return (int)cudaErrorInvalidValue;
+  Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(
+      q, k, v, g, lse, delta, bh, tq, tk, scale, causal, stream);
+  a.dk = static_cast<__nv_bfloat16*>(dk);
+  a.dv = static_cast<__nv_bfloat16*>(dv);
+  return launch_dkv<__nv_bfloat16, 256>(a);
 }

@@ -1,13 +1,14 @@
 // Hopper (sm_90a) primitives shared by the bf16 kernels on wgmma fed by
 // TMA: the GEMM engine of the fused blocks (wgmma_bf16.cuh, #10-#13) and
-// the attention kernels (attn_wgmma.cuh, #2 and #6).
+// the attention kernels (attn_wgmma.cuh, #2, #4, #5 and #6).
 //
 // - mbarriers: init, arrive, arrive with an expected transaction count, a
 //   wait on a phase's parity that traps after kHangCycles (a barrier that
 //   never completes ends the launch with an error rather than hanging the
 //   card).
 // - TMA: a 3-d tiled load of a tensor map's box into shared memory, and a
-//   1-d bulk copy, each completing on an mbarrier; the host side builds
+//   1-d bulk copy, each completing on an mbarrier; a 3-d tiled store of a
+//   box from shared memory, waited on by bulk group; the host side builds
 //   the maps (cuTensorMapEncodeTiled, fetched through the runtime: no
 //   -lcuda) with the 128-byte swizzle and zero fill outside the tensor.
 // - wgmma: the shared-memory matrix descriptor with the 128-byte swizzle,
@@ -124,6 +125,36 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// the box at src (shared memory, the map's swizzled layout) into box (c0
+// inner, c1 outer, c2 plane) of `map`, elements outside the tensor
+// skipped; in the bulk group of this thread's next bulk_commit
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// closes this thread's bulk group of the stores issued since the last one
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// until at most N of this thread's bulk groups are still in flight
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // `bytes` (a multiple of 16) from src (16-byte aligned) into dst,

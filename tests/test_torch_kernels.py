@@ -9,6 +9,8 @@ also run where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -456,18 +458,20 @@ def test_kernel_sources_reach_the_shared_headers():
         (build.CSRC / f"{n}.cuh").read_bytes()
         for n in ("split_tf32", "tile_mma", "flash_fwd", "attn_bwd_from_p",
                   "split_bf16", "wgmma_bf16", "hopper", "attn_wgmma"))
-    # the three forwards run one body (#2 in bf16 at d 64 and 128 its own
-    # Hopper design, attn_wgmma.cuh), the sdpa_short backward runs the
-    # attention block's stages in fp32 (with no O = P v product of its
-    # own) and attn_wgmma.cuh in bf16, both fused blocks run their
-    # products on the split-TF32 product in fp32 and on the wgmma engine
-    # in bf16, the engine and attn_wgmma.cuh share hopper.cuh's
-    # primitives, and the paged kernel takes the cp.async staging; the
-    # SIMT product (tile_gemm.cuh) is gone; the mma.sync attention bodies
-    # take their operands through split_bf16.cuh's traits (fp32 or bf16)
+    # the three forwards run one body in fp32 (#2 and #5 in bf16 at d 64
+    # and 128 their own Hopper design, attn_wgmma.cuh), the flash backward
+    # its mma.sync kernels (dk/dv in bf16 at d 64 and 128 attn_wgmma.cuh),
+    # the sdpa_short backward runs the attention block's stages in fp32
+    # (with no O = P v product of its own) and attn_wgmma.cuh in bf16,
+    # both fused blocks run their products on the split-TF32 product in
+    # fp32 and on the wgmma engine in bf16, the engine and attn_wgmma.cuh
+    # share hopper.cuh's primitives, and the paged kernel takes the
+    # cp.async staging; the SIMT product (tile_gemm.cuh) is gone; the
+    # mma.sync attention bodies take their operands through
+    # split_bf16.cuh's traits (fp32 or bf16)
     assert headers("flash_attention") == {split, fwd, bf16, hopper, attn}
-    assert headers("sdpa_short") == {split, fwd, bf16}
-    assert headers("flash_attention_bwd") == {split, bf16}
+    assert headers("sdpa_short") == {split, fwd, bf16, hopper, attn}
+    assert headers("flash_attention_bwd") == {split, bf16, hopper, attn}
     assert headers("sdpa_short_bwd") == {split, bwd, bf16, hopper, attn}
     assert headers("attention_block") == {split, mma, fwd, bwd, bf16, wgmma,
                                           hopper}
@@ -1307,27 +1311,49 @@ def test_paged_attention_kernel_matches_plain(cuda, r, h, d, bs, np_pages,
 # ---------------------------------------------------------------------------
 # Both the kernel and its plain version compute in fp32 from the same bf16
 # inputs and round the result to bf16 once, so they differ by at most one
-# bf16 ulp of an element (2^-8 of the largest |plain|), and only where
-# their fp32 values straddle a rounding boundary: in few elements. An
-# fp32 intermediate fed to a product as a single bf16 term (P in P v, dS
-# in dS k) moves the fp32 values by ~2^-9 relative before the rounding,
-# so a share of the elements of that order differs.
-BF16_REL = 2 ** -8
+# bf16 ulp of an element, at most one ulp of the largest |plain| (2^-8 to
+# 2^-7 of it, by where it lies in its binade; 2^-8 of the largest alone,
+# the gate's former measure, is less than that ulp whenever the largest
+# lies below the next power of two), and only where their fp32
+# values straddle a rounding boundary: in few elements. An fp32
+# intermediate fed to a product as a single bf16 term (P in P v, dS in dS
+# k) moves the fp32 values by ~2^-9 relative before the rounding, so a
+# share of the elements of that order differs.
 BF16_SHARE = 0.05
 
 
 def _bf16_gate(got, want):
-    """(max |got - want| over the largest |want|, the share of elements
-    whose values differ)."""
+    """(max |got - want| in bf16 ulps of the largest |want|, the share of
+    elements whose values differ)."""
     g, w = got.float(), want.float()
-    return (float((g - w).abs().max()) / float(w.abs().max()),
+    top = float(w.abs().max())
+    ulp = 2.0 ** (math.frexp(top)[1] - 8) if top > 0 else 2.0 ** -133
+    return (float((g - w).abs().max()) / ulp,
             float((g != w).float().mean()))
 
 
 def _bf16_passes(got, want):
-    rel, share = _bf16_gate(got, want)
-    return bool(torch.isfinite(got.float()).all()) and rel <= BF16_REL \
+    ulps, share = _bf16_gate(got, want)
+    return bool(torch.isfinite(got.float()).all()) and ulps <= 1.0 \
         and share <= BF16_SHARE
+
+
+def test_bf16_gate_is_one_ulp_of_the_largest():
+    """The #2-#6 gate's measure: a largest element one rounding apart
+    (0.44921875 against 0.447265625, as #4's dv read on the card: one
+    ulp, above 2^-8 of the largest), passes; two ulps fail; one ulp in
+    more than 5% of the elements fails."""
+    want = torch.tensor([0.447265625] + [0.25] * 99, dtype=torch.bfloat16)
+    got = want.clone()
+    got[0] = 0.44921875
+    assert float(got[0] - want[0]) > 2 ** -8 * 0.447265625
+    assert _bf16_passes(got, want), _bf16_gate(got, want)
+    got[0] = 0.451171875
+    assert not _bf16_passes(got, want), _bf16_gate(got, want)
+    many = want.clone()
+    many.view(torch.int16)[::10] += 1
+    assert _bf16_gate(many, want)[0] <= 1.0
+    assert not _bf16_passes(many, want)
 
 
 def _bf16(x):
@@ -1486,7 +1512,11 @@ BF16_FWD_CASES = [
     ("flash", 1, 4, 300, 264, 64, False),
     ("flash", 1, 4, 264, 300, 128, False),
     ("flash", 1, 4, 300, 300, 128, True),
-    ("flash", 1, 2, 200, 72, 64, True)]  # fully masked rows
+    ("flash", 1, 2, 200, 72, 64, True),  # fully masked rows
+    # odd tq: #4's lse and delta rows lie off 16 bytes and are gathered by
+    # its producer warp
+    ("flash", 1, 4, 301, 264, 64, True),
+    ("flash", 1, 4, 257, 300, 128, False)]
 
 
 def _bf16_inputs(cuda, b, h, tq, tk, d):
@@ -1565,13 +1595,20 @@ def max_err_f64(a, b):
 def test_bf16_attention_kernels_fail_planted_faults(cuda, causal):
     """The bf16 gate catches what it is for: the flash backward fed an lse
     off by 1e-2, either forward or backward launched with the causal flag
-    dropped (causal cases), and #6's dS taken as a single bf16 term (the
-    plain version so computed, against the float64 oracle)."""
+    dropped (causal cases), #6's dS taken as a single bf16 term (the
+    plain version so computed, against the float64 oracle), #4's design
+    with P^T fed to dv as one bf16 term and #5's with P normalized by the
+    running max (`flash_bwd_dkv_tiles_plain(p_terms=1)`,
+    `sdpa_short_tiles_plain(p_max="running")`)."""
     q, k, v, g = _bf16_inputs(cuda, 2, 8, 1024, 1024, 64)
     out, lse = KA._flash_attention_launch(q, k, v, 0.125, causal, True)
     want = KA.flash_attention_bwd_plain(q, k, v, out, lse, g, 0.125, causal)
     bad = KA.flash_attention_bwd(q, k, v, out, lse + 1e-2, g, 0.125, causal)
     assert not all(_bf16_passes(a, w) for a, w in zip(bad, want))
+    delta = KA.flash_delta(out, g)
+    _, dv1 = KA.flash_bwd_dkv_tiles_plain(q, k, v, g, lse, delta, 0.125,
+                                          causal, p_terms=1)
+    assert not _bf16_passes(dv1, want[2]), _bf16_gate(dv1, want[2])
     if causal:
         wout = KA.flash_attention_plain(q, k, v, 0.125, True)
         assert not _bf16_passes(KA.flash_attention(q, k, v, 0.125, False),
@@ -1580,6 +1617,11 @@ def test_bf16_attention_kernels_fail_planted_faults(cuda, causal):
         assert not all(_bf16_passes(a, w) for a, w in zip(bad, want))
     q, k, v, g = _bf16_inputs(cuda, 2, 8, 512, 512, 64)
     _, p = KA._sdpa_short_launch(q, k, v, 0.125, causal, True)
+    _, wp = KA.sdpa_short_plain(q, k, v, 0.125, causal, save_p=True)
+    _, p1 = KA.sdpa_short_tiles_plain(q, k, v, 0.125, causal,
+                                      p_max="running")
+    assert _bf16_passes(p, wp) and not _bf16_passes(p1, wp), \
+        _bf16_gate(p1, wp)
     want = KA.sdpa_short_bwd_plain(q, k, v, p, g, 0.125, causal)
     single = [x.to(torch.bfloat16) for x in _sdpa_bwd_f64(
         q, k, v, p, g, 0.125, single_bf16_ds=True)]
