@@ -16,15 +16,23 @@ Phases (a failing phase fails the script; none is caught):
    on and off, ignored rows, an out-of-range label, odd N and V, bf16
    logits, rows off a 16-byte boundary (V 1001 fp32, 1003 bf16), the
    MNIST head (V 10, at 64 rows with ignored and out-of-range labels and
-   at phase 10's [4096, 10]), eight CTAs a row (V 300000) and a row too wide to
+   at phase 10's [4096, 10]), the forward's plans on each side of its
+   crossovers (V 1, 31, 32, 33, fp32 4096 and 4097, bf16 8192 and 8193:
+   a group of lanes, a warp, a block a row), eight CTAs a row (V 300000) and a row too wide to
    stage (V 524288, the backward's streamed body); their dx is held
-   element by element and must repeat bit for bit on a second launch,
-   and planted faults, a dropped eps/V term, a shifted lse and an lse
-   from the first half of the row only, must fail that check; both are
+   element by element and both the loss and lse and dx must repeat bit
+   for bit on a second launch, and planted faults must fail: the loss
+   with the label read from its neighbour's column or the eps term
+   dropped, dx with a dropped eps/V term, a shifted lse or an lse
+   from the first half of the row only; both are
    timed, beside their plain versions, the library's F.cross_entropy and
    their bound, at the training shape in fp32 and bf16 (AMP's logits;
    the `bf16` field of their entries) and at the MNIST head's [4096, 10]
-   fp32 (the `mnist` field), the backward also at each cluster size (1,
+   fp32 (the `mnist` field), the forward also on a block a row at 1, 2,
+   4 and 8 16-byte loads in flight a thread and, at [4096, 10], beside
+   an empty launch of one 256-thread CTA a row and of its own grid, and
+   its plans against each other at V 10 to 32000 (`plans_ms`), the
+   backward also at each cluster size (1,
    2, 4, 8 CTAs a row) and in its streamed body, beside a copy of the
    same bytes; the
    attention forwards also with the residuals their backward kernels
@@ -75,16 +83,18 @@ Phases (a failing phase fails the script; none is caught):
    fused-block kernels, also three times their function's products over
    495 TFLOP/s, with their TFLOP/s);
    the attention kernels #2-#6 also in bf16 (AMP) at the training
-   shapes, causal and not (#2 at d 64 and 128 and #6 on wgmma fed by
-   TMA, whose three operand forms, SS K-major, SS MN-major and RS on
-   hi/lo planes, are first held against float64 at n 64 and 128, and
-   whose ptxas registers and spills are logged): outputs, the saved
-   bf16 P, the fp32 lse and the grads within 2^-8 of the largest |plain|
+   shapes, causal and not, flash also at d 128 (#2-#4 at d 64 and 128,
+   #5 and #6 on wgmma fed by TMA, csrc/attn_wgmma.cuh, whose three
+   operand forms, SS K-major, SS MN-major and RS on hi/lo planes, are
+   first held against float64 at n 64 and 128, and whose ptxas
+   registers and spills are logged): outputs, the saved bf16 P, the
+   fp32 lse and the grads within one bf16 ulp of the largest |plain|
    in at most 5% of the
    elements, no further from a float64 oracle than twice the plain
    version, the same bits on a second launch; planted faults (the flash
-   backward fed lse + 1e-2, the causal flag dropped, #6's dS as one bf16
-   term) must fail; each timed beside its bf16 bound (bytes / 3.35 TB/s
+   backward fed lse + 1e-2, the causal flag dropped, #6's dS, #4's P^T
+   and #3's dS as one bf16 term, #5's P from the running max) must
+   fail; each timed beside its bf16 bound (bytes / 3.35 TB/s
    against products / 989 TFLOP/s) and the library's flash SDPA in bf16,
    in each kernel's `bf16` field of the kernels line; the fused-block
    kernels #10-#13 also in bf16 (AMP) at the training shape (x
@@ -379,6 +389,11 @@ DX_LSE_SHIFT = {torch.float32: 1e-3, torch.bfloat16: 0.05}
 # the xent backward's cluster sizes (CTAs a row), each timed at the
 # training shape in fp32 and bf16
 XENT_CLUSTERS = (1, 2, 4, 8)
+# the xent forward's plans timed against each other at these widths (its
+# crossovers, csrc/xent.cu `fwd_lanes`), and its block a row at these
+# 16-byte loads in flight a thread, at the training shape
+XENT_PLAN_WIDTHS = (10, 32, 100, 1000, 4096, 8192, 32000)
+XENT_UNROLLS = (1, 2, 4, 8)
 # card vs CPU, fp32 through 12 layers: the loss relative, the grads
 # and Adam's first moment norm-wise (|a-b|/|b|). logits.w's grad lies
 # above every ReLU and agrees to ~1e-6. The others lie below the FFN
@@ -1722,15 +1737,105 @@ def _xent_faults(x, lab, dloss, eps, wdx):
     yield (f"lse off by {shift:g}", (wdx.float() + math.expm1(-shift)
                                       * sm * g).to(wdx.dtype))
     # what a cluster that merged only its first CTAs' (max, sum) pairs
-    # would write
-    half = torch.logsumexp(xf[:, :max(1, x.shape[1] // 2)], dim=1,
-                           keepdim=True)
-    yield ("lse from the first half of the row only",
-           (wdx.float() + (torch.exp(xf - half) - sm) * g).to(wdx.dtype))
-    del sm, xf, half
+    # would write (a row of one column has no half)
+    if x.shape[1] > 1:
+        half = torch.logsumexp(xf[:, :x.shape[1] // 2], dim=1, keepdim=True)
+        yield ("lse from the first half of the row only",
+               (wdx.float() + (torch.exp(xf - half) - sm) * g).to(wdx.dtype))
+        del half
+    del sm, xf
     if eps:
         yield ("eps/V term dropped",
                (wdx.float() + eps / x.shape[1] * g).to(wdx.dtype))
+
+
+def _xent_fwd_faults(x, lab, eps, wloss):
+    """The plain forward's loss with a planted fault: each (what, loss).
+    At V 1 every loss is 0 and no fault shows."""
+    v = x.shape[1]
+    if v == 1:
+        return
+    inside = (lab >= 0) & (lab < v)
+    yield ("label read from its neighbour's column", KX.xent_forward_plain(
+        x, torch.where(inside, (lab + 1) % v, lab), eps)[0])
+    if eps:
+        yield ("eps term dropped", KX.xent_forward_plain(x, lab, 0.0)[0])
+
+
+def _xent_fwd_plan(v, dtype):
+    """The threads a row that `xent_fwd` takes for rows of v columns: 1-32
+    lanes of a warp, or 256 (a block)."""
+    fn = build.library("xent").xent_fwd_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(v, int(dtype == torch.bfloat16))
+
+
+def _xent_fwd_with(x, lab, eps, lanes, unroll=8):
+    """The xent forward kernel on a given plan (`lanes` threads a row; a
+    block a row, 256, with `unroll` 16-byte loads in flight a thread),
+    called past the wrapper (its launch counter does not move): for
+    timing the plans."""
+    fn = build.library("xent").xent_fwd_with
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    loss = torch.empty(x.shape[0], device=x.device)
+    lse = torch.empty_like(loss)
+    err = fn(x.data_ptr(), lab.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+             x.shape[0], x.shape[1], eps, -100,
+             int(x.dtype == torch.bfloat16), lanes, unroll,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"xent_fwd_with lanes {lanes}: CUDA error {err}"
+    return loss, lse
+
+
+def _xent_empty_ms(blocks):
+    """An empty kernel's launch of `blocks` blocks of 256 threads in
+    clusters of one, as the xent backward launches its CTAs at small V,
+    timed as the kernels are."""
+    fn = build.library("xent").xent_empty
+    fn.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run():
+        err = fn(blocks, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"xent_empty: CUDA error {err}"
+    return time_ms(run, iters=50)
+
+
+def _xent_fwd_plans():
+    """The forward's plans timed against each other at the widths that set
+    its crossovers (XENT_PLAN_WIDTHS), 16384 rows, fp32 and
+    bf16, eps 0.1: the group of lanes its rule gives (V <= 32), a warp a
+    row and a block a row, each checked against the plain version first.
+    Returns {dtype: {V: {plan: ms, "chosen": lanes}}}."""
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        res[str(dtype)[6:]] = by_v = {}
+        for v in XENT_PLAN_WIDTHS:
+            x, lab, _ = _xent_case(TRAIN_TOKENS, v, dtype, 40 + v)
+            chosen = _xent_fwd_plan(v, dtype)
+            plans = {"warp": 32, "block": 256}
+            if v <= 32:
+                plans = {f"{chosen} lanes": chosen} | plans
+            wloss, wlse = KX.xent_forward_plain(x, lab, LABEL_SMOOTH)
+            row = {}
+            for name, lanes in plans.items():
+                loss, lse = _xent_fwd_with(x, lab, LABEL_SMOOTH, lanes)
+                torch.cuda.synchronize()
+                err = max(max_err(loss, wloss), max_err(lse, wlse))
+                assert err <= XENT_TOL, (v, name, err)
+                row[name] = time_ms(lambda: _xent_fwd_with(
+                    x, lab, LABEL_SMOOTH, lanes), iters=50)
+            by_v[v] = row | {"chosen": chosen}
+            log(f"  xent_forward plans [{TRAIN_TOKENS},{v}] "
+                f"{str(dtype)[6:]}: " + ", ".join(
+                    f"{n} {t:.4f} ms" for n, t in row.items())
+                + f"; xent_fwd takes {chosen} threads a row")
+            del x, lab, wloss, wlse
+    return res
 
 
 def _xent_plan(v):
@@ -1778,13 +1883,25 @@ def _xent_timing(n, v, dtype, eps, plain_iters):
             x, lab, reduction="none", label_smoothing=eps,
             ignore_index=-100)
 
+    lanes = _xent_fwd_plan(v, dtype)
     fwd = dict(ms=time_ms(lambda: KX.xent_forward(x, lab, eps)),
                plain_ms=time_ms(lambda: KX.xent_forward_plain(x, lab, eps),
                                 iters=plain_iters),
-               library_ms=time_ms(lib_fwd), shape=[n, v])
+               library_ms=time_ms(lib_fwd), shape=[n, v],
+               plan=f"{lanes} threads a row")
     # operations per element: max/exp/sum/add
     fwd["bound_ms"], fwd["bound_by"] = bound_ms(
         esize * n * v + 8 * n + 8 * n, 5 * n * v)
+    if lanes == 256:
+        # the block a row at 1, 2, 4 and 8 16-byte loads in flight a thread
+        fwd["unroll_ms"] = {str(u): time_ms(lambda: _xent_fwd_with(
+            x, lab, eps, 256, u)) for u in XENT_UNROLLS}
+    else:
+        # an empty launch of one 256-thread CTA a row (the backward's
+        # grid here) and of the forward's own grid
+        fwd["empty_ms"] = {
+            "one CTA a row": _xent_empty_ms(n),
+            "the forward's grid": _xent_empty_ms(-(-n // (256 // lanes)))}
     cluster, body = _xent_plan(v)
     ms = time_ms(lambda: KX.xent_backward(x, lab, dloss, eps))
     plain_ms = time_ms(lambda: KX.xent_backward_plain(x, lab, dloss, eps),
@@ -1810,10 +1927,15 @@ def _xent_timing(n, v, dtype, eps, plain_iters):
     del lib_loss, xr
     bms, by = bound_ms(2 * esize * n * v + 8 * n + 4 * n, 9 * n * v)
     tag = f"[{n},{v}] {str(dtype)[6:]} eps={eps}"
-    log(f"  xent_forward {tag}: kernel {fwd['ms']:.4f} ms, plain "
-        f"{fwd['plain_ms']:.4f} ms, library F.cross_entropy "
+    probe = ("; a block a row at 1/2/4/8 16-byte loads in flight "
+             + " / ".join(f"{t:.4f}" for t in fwd["unroll_ms"].values())
+             + " ms") if "unroll_ms" in fwd else (
+        "; an empty launch: " + ", ".join(
+            f"{k} {t:.4f} ms" for k, t in fwd["empty_ms"].items()))
+    log(f"  xent_forward {tag}: kernel {fwd['ms']:.4f} ms ({fwd['plan']}), "
+        f"plain {fwd['plain_ms']:.4f} ms, library F.cross_entropy "
         f"{fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.6f} ms "
-        f"({fwd['bound_by']})")
+        f"({fwd['bound_by']})" + probe)
     log(f"  xent_backward {tag}: kernel {ms:.4f} ms ({cluster} CTAs a row, "
         f"{body}), plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by}), "
         f"library F.cross_entropy backward {lib_ms:.4f} ms, a copy of x "
@@ -1849,15 +1971,27 @@ def _xent_entries():
              (64, 1001, torch.float32, LABEL_SMOOTH, True, True),
              (64, 1003, torch.bfloat16, LABEL_SMOOTH, True, True),
              (64, 10, torch.float32, 0.0, True, True),   # the MNIST head
+             # the forward's plans on each side of its crossovers: a lane
+             # a row, the widest group of lanes, a warp a row from its
+             # narrowest to its widest, a block a row
+             (64, 1, torch.float32, 0.0, True, True),
+             (64, 31, torch.bfloat16, LABEL_SMOOTH, True, True),
+             (64, 32, torch.float32, LABEL_SMOOTH, True, True),
+             (64, 33, torch.float32, LABEL_SMOOTH, True, True),
+             (64, 4096, torch.float32, LABEL_SMOOTH, True, True),
+             (64, 4097, torch.float32, LABEL_SMOOTH, True, True),
+             (64, 8192, torch.bfloat16, LABEL_SMOOTH, True, True),
+             (64, 8193, torch.bfloat16, LABEL_SMOOTH, True, True),
              # eight CTAs a row with the widest staged slices, then a row
              # too wide for them: the streamed body
              (64, 300000, torch.float32, LABEL_SMOOTH, True, True),
              (64, 524288, torch.float32, LABEL_SMOOTH, True, True)]
     errs = {"fwd": [], "bwd": []}
-    bodies = set()
+    bodies, fwd_plans = set(), set()
     for i, (n, v, dtype, eps, ignored, oor) in enumerate(cases):
         x, lab, dloss = _xent_case(n, v, dtype, 30 + i, ignored, oor)
         loss, lse = KX.xent_forward(x, lab, eps)
+        fwd_again = KX.xent_forward(x, lab, eps)
         dx = KX.xent_backward(x, lab, dloss, eps)
         again = KX.xent_backward(x, lab, dloss, eps)
         wloss, wlse = KX.xent_forward_plain(x, lab, eps)
@@ -1867,18 +2001,30 @@ def _xent_entries():
         eb = max_err(dx, wdx)
         rb = _dx_ratio(dx, wdx)
         same = bool(torch.equal(dx, again))
+        fwd_same = bool(torch.equal(loss, fwd_again[0])
+                        and torch.equal(lse, fwd_again[1]))
         finite = bool(torch.isfinite(loss).all() and torch.isfinite(dx).all())
         rtol, atol = DX_TOL[dtype]
         plan = _xent_plan(v)
         bodies.add(plan[1])
+        lanes = _xent_fwd_plan(v, dtype)
+        fwd_plans.add("lanes" if lanes < 32 else "warp" if lanes == 32
+                      else "block")
         log(f"  xent [{n},{v}] {str(dtype)[6:]} eps={eps} ignored={ignored} "
-            f"out_of_range={oor}: forward max_abs_err {ef:.3e} (tol "
-            f"{XENT_TOL:g}); backward ({plan[0]} CTAs a row, {plan[1]}) "
+            f"out_of_range={oor}: forward ({lanes} threads a row) "
+            f"max_abs_err {ef:.3e} (tol {XENT_TOL:g}), second launch bit "
+            f"for bit {fwd_same}; backward ({plan[0]} CTAs a row, {plan[1]}) "
             f"max_abs_err {eb:.3e}, worst |dx - plain| / ({atol:g} + "
             f"{rtol:g}|plain|) {rb:.3e} (<= 1 passes) finite {finite}, "
             f"second launch bit for bit {same}")
         assert finite and ef <= XENT_TOL and rb <= 1 and same, (ef, rb, same)
-        del again
+        assert fwd_same, f"xent_forward [{n},{v}]: other bits on a repeat"
+        for fault, bad in _xent_fwd_faults(x, lab, eps, wloss):
+            fe = max_err(bad, wloss)
+            log(f"    planted forward fault, {fault}: max_abs_err {fe:.3e} "
+                f"(must exceed {XENT_TOL:g})")
+            assert fe > XENT_TOL, f"the loss check cannot see a {fault}"
+        del again, fwd_again
         for fault, bad in _xent_faults(x, lab, dloss, eps, wdx):
             rf = _dx_ratio(bad, wdx)
             log(f"    planted fault, {fault}: worst ratio {rf:.3e} "
@@ -1889,7 +2035,9 @@ def _xent_entries():
         if dtype == torch.float32:
             errs["bwd"].append(eb)
     assert bodies == {"staged", "streamed"}, bodies
+    assert fwd_plans == {"lanes", "warp", "block"}, fwd_plans
     del x, lab, dloss, loss, lse, dx, wloss, wlse, wdx
+    plans = _xent_fwd_plans()
     # (n, v, dtype, eps, the plain versions' iterations)
     vocab = TRAIN["vocab"]
     (fwd, bwd), (fwd_bf16, bwd_bf16), (fwd_mnist, bwd_mnist) = (
@@ -1899,7 +2047,7 @@ def _xent_entries():
             (MNIST_BATCH, 10, torch.float32, 0.0, 20)))
     return dict(
         xent_forward=dict(max_abs_err=max(errs["fwd"]), **fwd,
-                          bf16=fwd_bf16, mnist=fwd_mnist),
+                          bf16=fwd_bf16, mnist=fwd_mnist, plans_ms=plans),
         xent_backward=dict(max_abs_err=max(errs["bwd"]), **bwd,
                            bf16=bwd_bf16, mnist=bwd_mnist))
 
@@ -3232,10 +3380,14 @@ def _attn_bf16_entries():
         "sdpa_short", "sdpa_short_bwd", "flash_attention", "flash_bwd_dq",
         "flash_bwd_dkv")}
     bf = torch.bfloat16
+    # flash also at d 128 (a quarter of the batch): #2-#4's other wgmma
+    # instance, two warpgroups on the same rows or keys
     for kind, (b, h, t, d) in (("sdpa_short", (TRAIN_TOKENS // 512, 8, 512,
                                                64)),
                                ("flash", (TRAIN_TOKENS // 1024, 8, 1024,
-                                          64))):
+                                          64)),
+                               ("flash", (TRAIN_TOKENS // 4096, 8, 1024,
+                                          128))):
         for causal in (False, True):
             q, k, v = (x.to(bf) for x in _qkv(b, h, t, t, d, seed=70 + t))
             g = _randn_like(q, 71 + t).to(bf)
@@ -3279,14 +3431,18 @@ def _attn_bf16_entries():
                 f64 = _f64_flash_grads(q, k, v, g, scale, causal)
                 bad = KA.flash_attention_bwd(q, k, v, o, p + 1e-2, g, scale,
                                              causal)
+                delta = KA.flash_delta(o, g)
                 _, dv1 = KA.flash_bwd_dkv_tiles_plain(
-                    q, k, v, g, p, KA.flash_delta(o, g), scale, causal,
-                    p_terms=1)
+                    q, k, v, g, p, delta, scale, causal, p_terms=1)
+                dq1 = KA.flash_bwd_dq_tiles_plain(
+                    q, k, v, g, p, delta, scale, causal, ds_terms=1)
                 faults = {"lse + 1e-2": not all(
                     _bf16_ulp_ok(a, w) for a, w in zip(bad, wgrads)),
                     "#4 P^T as one bf16 term": not _bf16_ulp_ok(dv1,
-                                                                wgrads[2])}
-                del dv1
+                                                                wgrads[2]),
+                    "#3 dS as one bf16 term": not _bf16_ulp_ok(dq1,
+                                                               wgrads[0])}
+                del dv1, dq1, delta
                 if causal:
                     bad = KA.flash_attention_bwd(q, k, v, o, p, g, scale,
                                                  False)
@@ -3356,6 +3512,15 @@ def _attn_bf16_entries():
             "p_kernel on the same items and ring, S = q k^T again (SS), "
             "P = ex2(S c - lse log2e) staged as bf16 by each warp and "
             "written by TMA stores (2-byte stores where T % 8 != 0)"),
+        "flash_bwd_dq": (
+            "d 64 and 128: wgmma.mma_async fed by TMA (csrc/attn_wgmma.cuh "
+            "flash_dq_kernel): #2's persistent grid of (bh, 128 query rows; "
+            "64 at d 128) items, q and dO resident (two buffers), the rows' "
+            "lse and delta in registers, 64-key tiles of k and v by TMA, S "
+            "and dP SS, P = ex2(S c - lse log2e) and dS on the fragments, "
+            "dq += dS k as hi/lo planes (RS, k MN-major) into a fresh chain "
+            "a tile retired into an fp32 sum in registers; d 256 "
+            "split_bf16.cuh's mma.sync body"),
         "flash_bwd_dkv": (
             "d 64 and 128: wgmma.mma_async fed by TMA (csrc/attn_wgmma.cuh "
             "flash_dkv_kernel): a block per (bh, 128 keys; 64 at d 128), k "
@@ -3371,7 +3536,8 @@ def _attn_bf16_entries():
             "(RS); grid 2 dk, dv over 64-row query tiles, P^T dO SS with P "
             "MN-major, dS^T planes (RS); P gathered by the producer warp "
             "where T % 8 != 0")}
-    source = {"flash_bwd_dkv": "flash_attention_bwd"}
+    source = {"flash_bwd_dkv": "flash_attention_bwd",
+              "flash_bwd_dq": "flash_attention_bwd"}
     extra = {n: dict(design=d, ptxas={
         k: v for k, v in ptxas.items()
         if k.startswith(source.get(n, n) + ":")}, forms_rel_err=forms)

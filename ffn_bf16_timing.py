@@ -3,10 +3,12 @@
 #13 (``ffn_block_fwd_bf16``, ``ffn_block_bwd_bf16``), the attention
 kernels #2 (``flash_attention_fwd_bf16``), #3 + #4
 (``flash_attention_bwd_dq_bf16``, ``flash_attention_bwd_dkv_bf16``), #5
-(``sdpa_short_fwd_bf16``) and #6 (``sdpa_short_bwd_bf16``), and the
-training legs around them, from one checkout, on one card.
+(``sdpa_short_fwd_bf16``) and #6 (``sdpa_short_bwd_bf16``), the xent
+forward #7 (``xent_fwd``), and the training legs around them, from one
+checkout, on one card.
 
     python3 ffn_bf16_timing.py [--root DIR] [--kernels-only] [--legs L,...]
+                               [--parts kernels,attention,xent,bits]
 
 Imports DIR's ``chip_smoke.py`` and ``paddle_tpu_torch`` (default: this
 checkout), so that two checkouts compare in one call on one card: run
@@ -20,16 +22,19 @@ of #10 (without P and with it) and #11 under torch.profiler and lists
 their device activities in launch order with their device times: the
 stages of the kernels. It does the same for #2 at [16, 8, 1024, 64]
 (without lse, with it), #5 at [32, 8, 512, 64] (without P, with it), #6
-at [32, 8, 512, 64], #4 and #3 + #4 at [16, 8, 1024, 64], each also
-causal: the shapes of the bf16 training legs at seq 1024 and 512. It
-hashes the outputs of every kernel built on the shared headers
+at [32, 8, 512, 64], #3, #4 and #3 + #4 at [16, 8, 1024, 64], each also
+causal: the shapes of the bf16 training legs at seq 1024 and 512; and
+#7 at the MNIST head's [4096, 10] fp32 and the training shape [16384,
+32000] in bf16 and fp32. It hashes the outputs of every kernel built on
+the shared headers
 (``flash_fwd.cuh``: #2, #5, #10; ``attn_bwd_from_p.cuh``: #6, #11;
 ``split_bf16.cuh``: #2-#6 in bf16; ``hopper.cuh`` and
 ``wgmma_bf16.cuh``: #10-#13 in bf16; ``attn_wgmma.cuh``: #2, #4, #5 and
-#6 in bf16; ``tile_mma.cuh``: #10-#13 in fp32) on seeded inputs (#3 and
-#4 on the plain forward's out and lse, and on #2's; #6 on #5's P and on
-the plain forward's), so that two checkouts show which kernels kept
-their bits. Then, unless ``--kernels-only``, it runs DIR's
+#6 in bf16; ``tile_mma.cuh``: #10-#13 in fp32) and of the xent pair (#7
+and #8, at the MNIST head, the training shape and the forward's
+crossovers) on seeded inputs (#3 and #4 on the plain forward's out and
+lse, and on #2's; #6 on #5's P and on the plain forward's), so that two
+checkouts show which kernels kept their bits. Then, unless ``--kernels-only``, it runs DIR's
 chip_smoke.py training legs, each with its own gates (``--legs`` picks
 some, by the names below): phase 5's fp32 leg (seq 256, batch 64), the
 bf16 leg at the bench's settings (seq 256, batch 128), phase 8's fp32
@@ -55,6 +60,9 @@ ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
 ap.add_argument("--kernels-only", action="store_true")
 ap.add_argument("--legs", default=None,
                 help="comma-separated leg names (default: all)")
+ap.add_argument("--parts", default="kernels,attention,xent,bits",
+                help="comma-separated parts of the kernel timing to run "
+                     "(kernels, attention, xent, bits; default: all)")
 args = ap.parse_args()
 ROOT = os.path.abspath(args.root)
 sys.path.insert(0, ROOT)
@@ -193,6 +201,8 @@ def attention(cs):
                 o, lse = ka._flash_attention_launch(q, k, v, 0.125, causal,
                                                     True)
                 delta = ka.flash_delta(o, g)
+                run("flash_bwd_dq" + c, lambda: ka.flash_bwd_dq(
+                    q, k, v, g, lse, delta, 0.125, causal), shape, fl(3))
                 run("flash_bwd_dkv" + c, lambda: ka.flash_bwd_dkv(
                     q, k, v, g, lse, delta, 0.125, causal), shape, fl(4))
                 run("flash_bwd_dq_dkv" + c, lambda: (
@@ -208,6 +218,28 @@ def attention(cs):
                 run("sdpa_short_bwd" + c, lambda: ka.sdpa_short_bwd(
                     q, k, v, p, g, 0.125, causal), shape, fl(4))
         del q, k, v, g
+    return res
+
+
+def xent(cs):
+    """#7 (the xent forward) at the MNIST head's [4096, 10] fp32 (eps 0)
+    and at the training shape [16384, 32000] in bf16 and fp32 (eps 0.1),
+    as chip_smoke.py times it: the whole launch, the host's enqueue time
+    a call and the stages of one launch."""
+    kx = cs.KX
+    res = {}
+    for n, v, dt, eps in ((4096, 10, torch.float32, 0.0),
+                          (16384, 32000, BF, 0.1),
+                          (16384, 32000, torch.float32, 0.1)):
+        x, lab, _ = cs._xent_case(n, v, dt, 30, ignored=False)
+        fn = (lambda: kx.xent_forward(x, lab, eps))
+        tag = f"xent_forward [{n},{v}] {str(dt)[6:]}"
+        res[tag] = e = dict(ms=best_ms(cs, fn), host_us=host_us(fn),
+                            stages=stages(fn))
+        cs.log(f"ffn_bf16_timing {tag}: {e['ms']:.4f} ms (host "
+               f"{e['host_us']:.1f} us a call); stages: " + "; ".join(
+                   f"{a} {t:.4f}" for a, t in e["stages"]))
+        del x, lab
     return res
 
 
@@ -272,8 +304,18 @@ def bits(cs):
                 q, k, v, go, lse, delta, 0.125, causal))
             out[f"#4 {tag} causal={causal}"] = digest(*ka.flash_bwd_dkv(
                 q, k, v, go, lse, delta, 0.125, causal))
-        # the other head widths: #2 at d 128 and 256, #4 at d 128 and 256
-        # (an odd tq at 128), #5 and #6 at d 128
+        # the xent pair at the MNIST head, the training shape and the
+        # forward's crossovers (#7: loss and lse; #8: dx)
+        for n, v, eps in ((4096, 10, 0.0), (2048, 32000, 0.1), (64, 1, 0.0),
+                          (64, 32, 0.1), (64, 33, 0.1), (64, 4096, 0.1),
+                          (64, 4097, 0.1), (64, 8193, 0.1), (64, 1003, 0.1)):
+            x, lab, dl = cs._xent_case(n, v, dt, 150 + v)
+            out[f"#7 {tag} [{n},{v}]"] = digest(*cs.KX.xent_forward(
+                x, lab, eps))
+            out[f"#8 {tag} [{n},{v}]"] = digest(cs.KX.xent_backward(
+                x, lab, dl, eps))
+        # the other head widths: #2 at d 128 and 256, #3 and #4 at d 128
+        # and 256 (an odd tq at 128), #5 and #6 at d 128
         for d in (128, 256):
             q, k, v = (z.to(dt) for z in cs._qkv(2, 4, 300, 300, d,
                                                  seed=133 + d))
@@ -286,6 +328,8 @@ def bits(cs):
             o, lse = ka.flash_attention_plain(qo, k, v, d ** -0.5, True,
                                               with_lse=True)
             out[f"#4 {tag} d{d} tq {tq}"] = digest(*ka.flash_bwd_dkv(
+                qo, k, v, gq, lse, ka.flash_delta(o, gq), d ** -0.5, True))
+            out[f"#3 {tag} d{d} tq {tq}"] = digest(ka.flash_bwd_dq(
                 qo, k, v, gq, lse, ka.flash_delta(o, gq), d ** -0.5, True))
             if d == 128:
                 o, p = ka._sdpa_short_launch(q, k, v, d ** -0.5, True, True)
@@ -313,8 +357,9 @@ def main():
     assert os.path.dirname(os.path.abspath(cs.pf.__file__)).startswith(ROOT)
     name, _, card = cs.phase_device()
     cs.phase_build()
-    out = dict(root=ROOT, card=card, kernels=kernels(cs),
-               attention=attention(cs), bits=bits(cs))
+    parts = dict(kernels=kernels, attention=attention, xent=xent, bits=bits)
+    out = dict(root=ROOT, card=card) | {
+        n: parts[n](cs) for n in args.parts.split(",") if n}
     if not args.kernels_only:
         fp32 = {}
 

@@ -14,14 +14,15 @@ masking bottom-right aligned. ``sdpa_short``'s backward runs, in fp32, the
 attention stages it shares with the attention block's backward
 (``csrc/attn_bwd_from_p.cuh``). In bf16 at d 64 and 128, ``flash_attention``,
 ``sdpa_short`` (with P: the flash forward writing its lse, then a P
-kernel), the flash backward's dk/dv and ``sdpa_short``'s backward run
-their own Hopper design on wgmma fed by TMA (``csrc/attn_wgmma.cuh``;
-`flash_attention_tiles_plain`, `sdpa_short_tiles_plain`,
+kernel), the flash backward's dq and dk/dv and ``sdpa_short``'s backward
+run their own Hopper design on wgmma fed by TMA
+(``csrc/attn_wgmma.cuh``; `flash_attention_tiles_plain`,
+`sdpa_short_tiles_plain`, `flash_bwd_dq_tiles_plain`,
 `flash_bwd_dkv_tiles_plain` and `sdpa_short_bwd_tiles_plain` are its
 arithmetic in PyTorch); at d 256 ``flash_attention`` keeps
-``flash_fwd.cuh``'s body and the dk/dv kernel its ``mma.sync`` body, a
-dispatch by d (their accumulators leave a wgmma consumer no registers),
-and the flash backward's dq keeps its ``mma.sync`` body at every d.
+``flash_fwd.cuh``'s body and the dq and dk/dv kernels their ``mma.sync``
+bodies, a dispatch by d (their accumulators leave a wgmma consumer no
+registers).
 
 On the card both are differentiable, as the JAX package's ``custom_vjp``
 pair is: under a vjp the forward kernel also writes the residual its
@@ -220,6 +221,32 @@ def flash_bwd_dkv_tiles_plain(q, k, v, g, lse, delta, scale, causal,
         dk = dk + torch.einsum("bhqk,bhqd->bhkd", planes_sum(ds[:, :, sl]),
                                qf[:, :, sl])
     return (dk * scale).to(q.dtype), dv.to(q.dtype)
+
+
+def flash_bwd_dq_tiles_plain(q, k, v, g, lse, delta, scale, causal,
+                             key_tile=64, ds_terms=2):
+    """The arithmetic of bf16 #3 on wgmma (``csrc/attn_wgmma.cuh``
+    `flash_dq_kernel`), in fp32 from the bf16 values: P = exp2(s scale
+    log2e - lse log2e) from the forward's lse, dS = P (dP - delta) (0 on
+    a causally masked entry, so 0 on every key of a row that sees none,
+    found by index); dq = dS k with dS as `ds_terms` bf16 planes (2: hi
+    and lo; 1: one bf16 term, a design that must fail the bf16 gate),
+    summed a key tile of `key_tile` at a time (128 terms) into the
+    running sum, scaled once. Returns dq in q's dtype."""
+    tq, tk = q.shape[2], k.shape[2]
+    kf = k.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * (scale * LOG2E)
+    p = torch.exp2(s - lse[..., None] * LOG2E)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", g.float(), v.float())
+              - delta[..., None])
+    if causal:
+        ds = torch.where(causal_keep(tq, tk, q.device), ds, 0.0)
+    dq = torch.zeros_like(q.float())
+    for k0 in range(0, tk, key_tile):
+        sl = slice(k0, k0 + key_tile)
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd",
+                               planes_sum(ds[..., sl], ds_terms), kf[:, :, sl])
+    return (dq * scale).to(q.dtype)
 
 
 # The operand forms of csrc/attn_wgmma.cuh, each a [64, n] x depth-128

@@ -1,21 +1,24 @@
-// The bf16 attention kernels #2, #4, #5 and #6 for Hopper (sm_90a), on
+// The bf16 attention kernels #2-#6 for Hopper (sm_90a), on
 // wgmma.mma_async fed by TMA (hopper.cuh), at head widths d 64 and 128:
 // - #2, the flash forward (flash_attention.cu `flash_attention_fwd_bf16`):
 //   `fwd_kernel`;
 // - #5, the short-sequence forward (sdpa_short.cu `sdpa_short_fwd_bf16`):
 //   `fwd_kernel` at tq == tk, and with P asked for, `p_kernel` after it;
+// - #3, the flash backward's dq (flash_attention_bwd.cu
+//   `flash_attention_bwd_dq_bf16`): `flash_dq_kernel`;
 // - #4, the flash backward's dk and dv (flash_attention_bwd.cu
 //   `flash_attention_bwd_dkv_bf16`): `flash_dkv_kernel`;
 // - #6, the short-sequence backward from the saved P (sdpa_short_bwd.cu
 //   `sdpa_short_bwd_bf16`): `dq_kernel`, then `dkv_kernel`.
-// d 256 (#2 and #4 only) keeps the mma.sync bodies (flash_fwd.cuh,
+// d 256 (#2, #3 and #4 only) keeps the mma.sync bodies (flash_fwd.cuh,
 // split_bf16.cuh `Mma<E>`), a dispatch by d; fp32 inputs keep the split-TF32
-// kernels; #3 (dq) keeps split_bf16.cuh's body in bf16.
+// kernels.
 //
 // Replaces, on the bf16 path: paddle_tpu/ops/pallas/attention.py
-// `_flash_fwd_impl` / `_fwd_kernel` (#2), `_bwd_dkv_kernel` (#4),
-// `_sdpa_short_fwd_impl` (#5) and `_sdpa_short_bwd_impl` (#6), which
-// upcast their bf16 blocks and compute in fp32.
+// `_flash_fwd_impl` / `_fwd_kernel` (#2), `_bwd_dq_kernel` (#3),
+// `_bwd_dkv_kernel` (#4), `_sdpa_short_fwd_impl` (#5) and
+// `_sdpa_short_bwd_impl` (#6), which upcast their bf16 blocks and compute
+// in fp32.
 //
 // The bf16 contract of the port's attention kernels: a product of two
 // bf16 inputs (q k^T, dO v^T, v dO^T, P^T dO with the saved bf16 P) is
@@ -90,6 +93,25 @@
 // two chains and S^T, dP^T (128 registers), not two running sums besides.
 // 6 products as run against the function's 4.
 //
+// #3, the flash backward's dq (`flash_dq_kernel`): #6's grid 1 with P
+// recomputed from the lse, as #4 takes it, on #2's persistent grid and
+// items (the longest causal items first; the producer loads the next
+// item's q and dO into a second buffer while the consumers finish one):
+// an item is (bh, 128 query rows at D 64, 64 at D 128), q and dO
+// resident by TMA, each consumer thread's two rows of lse and delta
+// loaded into its registers (any tq, any alignment: they are not
+// streamed), 64-key tiles of k and v through the ring. S = q k^T and dP =
+// dO v^T run SS in one group; P = ex2(S c - lse log2e) and dS = P (dP -
+// delta) on the fragments (masks by index, as #4's: a row that sees no
+// key has dS 0 on every key, so dq 0); dq += dS k as two RS wgmmas (hi,
+// lo; k MN-major) into a fresh chain a key tile (128 terms) retired into
+// an fp32 running sum in registers: with 64-key tiles a thread holds S,
+// dP and the sum (96 registers) and then the planes, the chain and the
+// sum, where 128-key tiles would leave no room for the sum beside S and
+// dP, and a chain of two tiles kept live across S and dP spilled (168
+// registers, 72 bytes at d 64). dq is scaled once and rounded to bf16
+// once. 4 products as run against the function's 3.
+//
 // #6, the backward from the saved P (`dq_kernel`, `dkv_kernel`), as the
 // TPU kernel computes it: dv = P^T dO, dP = dO v^T, delta = rowsum(dP P),
 // dS = P (dP - delta), dq = scale dS k, dk = scale dS^T q; no exp, no O.
@@ -127,7 +149,8 @@
 // [16, 8, 1024, 64] does 34.4 GFLOP of products (51.5 as run: P v twice)
 // on 34 MB, 0.035 ms by its operations; #5 at [32, 8, 512, 64] 17.2
 // GFLOP on 34 MB (0.020 ms by its bytes), with P 201 MB (0.060 ms), P's
-// 134 MB written once; #4 at [16, 8, 1024, 64] 68.7 GFLOP (103 as run),
+// 134 MB written once; #3 at [16, 8, 1024, 64] 51.5 GFLOP (68.7 as run),
+// 0.0521 ms by its operations; #4 there 68.7 GFLOP (103 as run),
 // 0.0695 ms by its operations; #6 at [32, 8, 512, 64] the
 // function's 34.4 GFLOP (68.7 as run: dP three times, dq and dk twice) on
 // 134 MB of P and 117 MB of the rest, 0.075 ms by its bytes (P is read
@@ -1395,6 +1418,233 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// #3: the flash backward's dq, P recomputed from the lse
+// ---------------------------------------------------------------------------
+template <int D>
+struct FlashDq {
+  static constexpr int NS = D / 64;
+  static constexpr bool kSplitCols = D == 128;   // a warpgroup's 64 columns
+  static constexpr int R = D == 64 ? 128 : 64;   // query rows an item
+  static constexpr int KT = 64;                  // keys a tile
+  static constexpr int kQBytes = R * D * 2;      // q or dO of an item
+  static constexpr int kItemBytes = 2 * kQBytes;  // q, then dO; two buffers
+  static constexpr int kTileBytes = KT * D * 2;  // a k or a v tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStgBytes = 2 * kSlab;  // each warpgroup's dq tile
+  static constexpr int kStages =
+      (kSmemLimit - 2 * kItemBytes - kStgBytes) / kStageBytes;
+  static constexpr size_t kSmem = (size_t)2 * kItemBytes + kStgBytes +
+                                  kStages * kStageBytes + 1024;
+  static_assert(kStages >= 4 && kSmem <= 227 * 1024, "fits");
+};
+
+// #2's persistent grid and items (bh, R query rows), longest causal items
+// first: the producer loads an item's q and dO (two buffers, so that it
+// runs on into the next item) and streams its key tiles of k and v up to
+// the item's causal horizon through the ring. A warpgroup takes 64 rows
+// (at D 128 both take the same 64 rows and 64 dq columns each); its
+// threads load their rows' lse and delta into registers as the item
+// starts. A tile: S = q k^T and dP = dO v^T (SS, one group); P =
+// ex2(S c - lse log2e) and dS = P (dP - delta) on the fragments; dq += dS
+// k as two RS wgmmas (hi, lo; k MN-major) into a fresh chain (128 terms)
+// added to the fp32 running sum in registers. dq is scaled once,
+// staged as bf16 in the warpgroup's own tile of shared memory and written
+// in 16-byte chunks, rows past tq skipped. Masking by index: keys past tk
+// and, under causal masking (bottom-right), keys past a row's horizon
+// have dS 0, so a row that sees no key has dq 0 whatever its lse.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_dq_kernel(const __grid_constant__ CUtensorMap mq,
+                    const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv,
+                    const __grid_constant__ CUtensorMap mg,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    int tq, int tk, float scale, int causal, int nitems) {
+  using F = FlashDq<D>;
+  constexpr int R = F::R, KT = F::KT, NS = F::NS, S = F::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[S], empty[S], qfull[2], qempty[2];
+  uint8_t* qbuf = aligned(smem_raw);  // item buffer: q, then dO (NS slabs
+                                      // of [R][64] each)
+  uint8_t* stg = qbuf + 2 * F::kItemBytes;  // a warpgroup's dq: [64][64]
+  uint8_t* ring = stg + F::kStgBytes;       // stage: k, then v (NS slabs
+                                            // of [KT][64] each)
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&qfull[b], 1);
+      mbar_init(&qempty[b], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int nqt = (tq + R - 1) / R, offset = tk - tq;
+  const Items items{nqt, nitems / nqt, causal};
+  // the key tiles item (bh, q0) fetches: under causal masking the keys
+  // past its last row's horizon have dS 0 on every row
+  auto tiles_of = [&](int q0) {
+    const int kend = causal ? max(0, min(tk, q0 + R + offset)) : tk;
+    return (kend + KT - 1) / KT;
+  };
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      int it = 0;  // key tiles issued, across items
+      for (int item = blockIdx.x, k = 0; item < nitems;
+           item += gridDim.x, ++k) {
+        int bh, q0;
+        items.at(item, R, bh, q0);
+        const int qb = k & 1;
+        if (k >= 2) mbar_wait(&qempty[qb], ((k >> 1) - 1) & 1);
+        mbar_expect_tx(&qfull[qb], F::kItemBytes);
+        uint8_t* qs = qbuf + qb * F::kItemBytes;
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+#pragma unroll
+          for (int rc = 0; rc < R / 64; ++rc) {
+            const int at = s * R * 128 + rc * kSlab;
+            tma_load(qs + at, &mq, &qfull[qb], 64 * s, q0 + 64 * rc, bh);
+            tma_load(qs + F::kQBytes + at, &mg, &qfull[qb], 64 * s,
+                     q0 + 64 * rc, bh);
+          }
+        const int ntiles = tiles_of(q0);
+        for (int j = 0; j < ntiles; ++j, ++it) {
+          const int st = it % S;
+          if (it >= S) mbar_wait(&empty[st], ((it / S) - 1) & 1);
+          mbar_expect_tx(&full[st], F::kStageBytes);
+          uint8_t* ks = ring + st * F::kStageBytes;
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            tma_load(ks + s * kSlab, &mk, &full[st], 64 * s, j * KT, bh);
+            tma_load(ks + F::kTileBytes + s * kSlab, &mv, &full[st], 64 * s,
+                     j * KT, bh);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, lt = tid % 128, warp = lt / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int rb = F::kSplitCols ? 0 : 64 * wg;  // its first row in an item
+  const int cb = F::kSplitCols ? 64 * wg : 0;  // its first dq column
+  const float c = scale * kLog2e;
+  uint8_t* mine = stg + wg * kSlab;
+  int it = 0;  // key tiles consumed, across items
+  for (int item = blockIdx.x, k = 0; item < nitems; item += gridDim.x, ++k) {
+    int bh, q0;
+    items.at(item, R, bh, q0);
+    const int qb = k & 1, ntiles = tiles_of(q0);
+    const int r0 = q0 + rb;  // its first row
+    // the tiles past its last row's horizon have dS 0 on its rows
+    const int nw =
+        causal ? min(ntiles, (max(0, min(tk, r0 + 64 + offset)) + KT - 1) / KT)
+               : ntiles;
+    // its rows' lse (log2 domain) and delta; 0 past tq, whose dq is not
+    // written
+    float l2[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 16 * warp + g + 8 * h;
+      const bool in = row < tq;
+      l2[h] = in ? lse[(int64_t)bh * tq + row] * kLog2e : 0.f;
+      dl[h] = in ? delta[(int64_t)bh * tq + row] : 0.f;
+    }
+    const uint32_t qa =
+        smem_u32(qbuf + qb * F::kItemBytes) + (rb / 64) * kSlab;
+    const uint32_t ga = qa + F::kQBytes;
+    float acc[32];  // the running sum
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    mbar_wait(&qfull[qb], (k >> 1) & 1);
+
+    for (int j = 0; j < nw; ++j, ++it) {
+      const int st = it % S;
+      mbar_wait(&full[st], (it / S) & 1);
+      const uint32_t ka = smem_u32(ring) + st * F::kStageBytes;
+      const uint32_t va = ka + F::kTileBytes;
+      // S = q k^T and dP = dO v^T: query rows, key columns; all K-major
+      float s[KT / 2], dp[KT / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<KT, 0, 0>(
+            s, desc(qa + (kk / 4) * R * 128 + (kk % 4) * 32, 16, 1024),
+            desc(ka + (kk / 4) * kSlab + (kk % 4) * 32, 16, 1024), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<KT, 0, 0>(
+            dp, desc(ga + (kk / 4) * R * 128 + (kk % 4) * 32, 16, 1024),
+            desc(va + (kk / 4) * kSlab + (kk % 4) * 32, 16, 1024), kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      // dS at (row r0 + 16 warp + g (+ 8), key j KT + 8 (i / 4) + 2 t4
+      // (+ 1)), then its planes, a 16-key step at a time
+      const bool edge = (j + 1) * KT > tk ||
+                        (causal && (j + 1) * KT - 1 > r0 + offset);
+      uint32_t hi[KT / 16][4], lo[KT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+#pragma unroll
+        for (int i = 8 * kk; i < 8 * kk + 8; ++i) {
+          const int h = (i >> 1) & 1;
+          float ds = ex2(fmaf(s[i], c, -l2[h])) * (dp[i] - dl[h]);
+          if (edge) {
+            const int key = j * KT + 8 * (i / 4) + 2 * t4 + (i & 1);
+            const int row = r0 + 16 * warp + g + 8 * h;
+            ds = key < tk && !(causal && key > row + offset) ? ds : 0.f;
+          }
+          dp[i] = ds;
+        }
+        planes_of(hi[kk], lo[kk], dp, kk);
+      }
+      // dq += dS k, k MN-major (its 64 columns), two planes a step, into
+      // a fresh chain (64 keys, two planes: 128 terms)
+      const uint32_t kc = ka + (cb / 64) * kSlab;
+      float ch[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        const uint64_t db = desc(kc + kk * 2048, kSlab, 1024);
+        wgmma_rs<64, 1>(ch, hi[kk], db, kk > 0);
+        wgmma_rs<64, 1>(ch, lo[kk], db, 1);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_acc(ch);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += ch[i];
+    }
+    // q and dO are read (its wgmmas have retired): the buffer goes back
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&qempty[qb]);
+    // the tiles it does not compute: their stages go back in order
+    for (int j = nw; j < ntiles; ++j, ++it) {
+      mbar_wait(&full[it % S], (it / S) & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[it % S]);
+    }
+    // scale dq once, stage it as bf16 (once the last item's stores have
+    // read the tile), then 16-byte chunks of whole rows
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    stage_acc(mine, acc, scale, warp, lane);
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    store_slab(dq + ((int64_t)bh * tq + r0) * D + cb, D, mine, tq - r0, lt);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 // each kernel's dynamic shared memory limit, set once a process (internal
@@ -1428,6 +1678,12 @@ cudaError_t flash_dkv_attr() {
 template <int D>
 cudaError_t p_attr() {
   static const cudaError_t err = smem_attr(p_kernel<D>, Probs<D>::kSmem);
+  return err;
+}
+template <int D>
+cudaError_t flash_dq_attr() {
+  static const cudaError_t err =
+      smem_attr(flash_dq_kernel<D>, FlashDq<D>::kSmem);
   return err;
 }
 }  // namespace
@@ -1547,6 +1803,31 @@ cudaError_t flash_dkv(const bf16* q, const bf16* k, const bf16* v,
       <<<dim3((unsigned)((tk + F::KB - 1) / F::KB), (unsigned)bh), kThreads,
          F::kSmem, st>>>(mk, mv, mq, mg, lse, delta, dk, dv, tq, tk, scale,
                          causal, vec_tma);
+  return cudaGetLastError();
+}
+
+// #3 on contiguous q, g (dO), dq [bh, tq, D], k, v [bh, tk, D]; lse and
+// delta fp32 [bh, tq] (any alignment: the threads load their rows)
+template <int D>
+cudaError_t flash_dq(const bf16* q, const bf16* k, const bf16* v,
+                     const bf16* g, const float* lse, const float* delta,
+                     bf16* dq, int64_t bh, int tq, int tk, float scale,
+                     int causal, cudaStream_t st) {
+  if (tq < 1 || tk < 1 || bh < 1) return cudaErrorInvalidValue;
+  using F = FlashDq<D>;
+  CUtensorMap mq, mk, mv, mg;
+  cudaError_t err = map3(&mq, q, D, tq, bh);
+  if (err == cudaSuccess) err = map3(&mk, k, D, tk, bh);
+  if (err == cudaSuccess) err = map3(&mv, v, D, tk, bh);
+  if (err == cudaSuccess) err = map3(&mg, g, D, tq, bh);
+  if (err == cudaSuccess) err = flash_dq_attr<D>();
+  if (err != cudaSuccess) return err;
+  const int64_t items = bh * ((tq + F::R - 1) / F::R);
+  if (items >= (int64_t)1 << 31) return cudaErrorInvalidValue;
+  const int blocks = (int)(items < hopper::sm_count() ? items
+                                                      : hopper::sm_count());
+  flash_dq_kernel<D><<<blocks, kThreads, F::kSmem, st>>>(
+      mq, mk, mv, mg, lse, delta, dq, tq, tk, scale, causal, (int)items);
   return cudaGetLastError();
 }
 

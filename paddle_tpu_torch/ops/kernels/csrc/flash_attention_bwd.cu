@@ -82,13 +82,15 @@
 // dq kernel at D 256 streams 16 keys a tile in bf16 (8 in fp32): a bf16
 // step is 16 keys deep.
 //
-// Which design runs which instance: fp32 at every d, and bf16 dq at every
-// d, on the mma.sync kernels below; bf16 dk/dv at d 64 and 128 on
-// attn_wgmma.cuh's Hopper design (`flash_dkv_kernel`: wgmma fed by TMA,
-// P^T recomputed from the lse on the fragments, P^T and dS^T as hi/lo
-// planes for dv and dk), at d 256 on the mma.sync kernel below (its two
-// accumulators and a thread's share of S^T and dP^T exceed a wgmma
-// consumer's registers), a dispatch by d.
+// Which design runs which instance: fp32 at every d on the mma.sync
+// kernels below; bf16 dq and dk/dv at d 64 and 128 on attn_wgmma.cuh's
+// Hopper design (`flash_dq_kernel` and `flash_dkv_kernel`: wgmma fed by
+// TMA, P recomputed from the lse on the fragments, dS (and P^T for dv) as
+// hi/lo planes), at d 256 on the mma.sync kernels below, a dispatch by d:
+// there a wgmma consumer would hold a 64 x 128 slice of the dq
+// accumulator and its chain (64 registers each) beside its share of S and
+// dP, and the dk/dv kernel two accumulators beside S^T and dP^T, past the
+// 168 registers a thread of a 288-thread block gets.
 //
 // Registers a thread and bytes of spill stores (ptxas -v for sm_90a, as
 // chip_smoke.py's build phase prints them): dq 98 (D 64, none), 183 (128,
@@ -565,6 +567,8 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                         scale, causal, stream);
 }
 
+// bf16 dq at d 64 and 128 on attn_wgmma.cuh's `flash_dq_kernel` (q, k, v
+// and g on 16 bytes, TMA's rule); d 256 on the mma.sync body above
 extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
                                            const void* v, const void* g,
                                            const void* lse,
@@ -572,8 +576,28 @@ extern "C" int flash_attention_bwd_dq_bf16(const void* q, const void* k,
                                            int64_t bh, int tq, int tk, int d,
                                            float scale, int causal,
                                            void* stream) {
-  return bwd_dq<__nv_bfloat16>(q, k, v, g, lse, delta, dq, bh, tq, tk, d,
-                               scale, causal, stream);
+  using bf16 = __nv_bfloat16;
+  if (d == 64 || d == 128) {
+    const bf16* qe = static_cast<const bf16*>(q);
+    const bf16* ke = static_cast<const bf16*>(k);
+    const bf16* ve = static_cast<const bf16*>(v);
+    const bf16* ge = static_cast<const bf16*>(g);
+    const float* lf = static_cast<const float*>(lse);
+    const float* df = static_cast<const float*>(delta);
+    bf16* dqe = static_cast<bf16*>(dq);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return (int)(d == 64 ? attn_wgmma::flash_dq<64>(qe, ke, ve, ge, lf, df,
+                                                    dqe, bh, tq, tk, scale,
+                                                    causal, s)
+                         : attn_wgmma::flash_dq<128>(qe, ke, ve, ge, lf, df,
+                                                     dqe, bh, tq, tk, scale,
+                                                     causal, s));
+  }
+  if (d != 256 || tq < 1 || tk < 1) return (int)cudaErrorInvalidValue;
+  Args<bf16> a = make_args<bf16>(q, k, v, g, lse, delta, bh, tq, tk, scale,
+                                 causal, stream);
+  a.dq = static_cast<bf16*>(dq);
+  return launch_dq<bf16, 256>(a);
 }
 
 // bf16 dk/dv at d 64 and 128 on attn_wgmma.cuh's `flash_dkv_kernel` (q,

@@ -22,11 +22,26 @@
 // One exp and a few adds per element is about 0.5 operations a byte,
 // far below the ~20 a byte at which fp32 arithmetic would take over.
 //
-// What the design does about it. Forward: one block per row. Each thread
-// keeps a running (max, sum of exp) pair and the running row sum over a
-// strided slice of the row, so the forward reads the row from device
-// memory once and keeps no [N, V] intermediate; the pairs merge with warp
-// shuffles, then through shared memory.
+// What the design does about it. Forward: each row is read from device
+// memory once, and no [N, V] intermediate is kept. A plan chosen on the
+// host by V gives each row a group of threads (`fwd_lanes`):
+// - V <= 32: a group of lanes a row (as many lanes as the row has
+//   16-byte packs, rounded up to a power of two), 256 / lanes rows a
+//   block;
+// - V > 32 with rows of up to kFwdWarpMaxBytes (fp32 V 4096, bf16 V
+//   8192): a warp a row, 8 rows a block;
+// - wider rows: a block of 256 threads a row.
+// Each thread reads its columns with 16-byte loads (kFwdUnroll in flight),
+// scalar columns around them where the row starts off 16 bytes (fp32
+// V % 4, bf16 V % 8), and keeps a (max, sum of exp) pair in the log2
+// domain: a batch of loads takes its max first, rescales the sum once and
+// adds one ex2 an element (x log2e - max in one FFMA); the plain row sum
+// only when eps != 0; the thread whose columns hold the label keeps
+// x[label]. The pairs merge with warp shuffles in a fixed butterfly
+// order (the 8 warps of a block's row then through shared memory, in
+// warp order), so a second launch gives the same bits; a group's lane 0
+// (a block's thread 0) writes the row's loss and lse. The crossovers were
+// set by timing the plans at V 10 to 32000 on an H100 (PERF.md).
 //
 // Backward: each row crosses from device memory once and dx is written
 // once, the byte bound. A row is split over a thread-block cluster of
@@ -57,8 +72,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -99,76 +112,6 @@ __device__ __forceinline__ void merge(float& m, float& s, float m2, float s2) {
   const float mx = fmaxf(m, m2);
   s = s * expf(m - mx) + s2 * expf(m2 - mx);
   m = mx;
-}
-
-// The (max, sum of exp) pair and the plain sum of one row, over the
-// whole block; every thread gets the results. `red` holds 3 * 33 floats.
-template <typename T>
-__device__ void row_stats(const T* __restrict__ xr, int v, float* red,
-                          float& m_out, float& s_out, float& sum_out) {
-  float m = -INFINITY, s = 0.f, tot = 0.f;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < v; i += blockDim.x) {
-    const float xi = to_f(xr[i]);
-    push(m, s, xi);
-    tot += xi;
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
-    const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
-    merge(m, s, m2, s2);
-    tot += __shfl_xor_sync(0xffffffffu, tot, o);
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  if (lane == 0) {
-    red[warp] = m;
-    red[33 + warp] = s;
-    red[66 + warp] = tot;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    m = lane < nwarps ? red[lane] : -INFINITY;
-    s = lane < nwarps ? red[33 + lane] : 0.f;
-    tot = lane < nwarps ? red[66 + lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
-      merge(m, s, m2, s2);
-      tot += __shfl_xor_sync(0xffffffffu, tot, o);
-    }
-    if (lane == 0) {
-      red[32] = m;
-      red[65] = s;
-      red[98] = tot;
-    }
-  }
-  __syncthreads();
-  m_out = red[32];
-  s_out = red[65];
-  sum_out = red[98];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    xent_fwd_kernel(const T* __restrict__ x, const int64_t* __restrict__ lab,
-                    float* __restrict__ loss, float* __restrict__ lse_out,
-                    int v, float eps, int64_t ignore) {
-  __shared__ float red[99];
-  const int64_t row = blockIdx.x;
-  const T* xr = x + row * v;
-  float m, s, tot;
-  row_stats(xr, v, red, m, s, tot);
-  if (threadIdx.x == 0) {
-    const float lse = m + logf(s);
-    const int64_t l = lab[row];
-    const float picked = (l >= 0 && l < v) ? to_f(xr[l]) : 0.f;
-    float out = lse - picked;
-    if (eps != 0.f) out = (1.f - eps) * out + eps * (lse - tot / v);
-    loss[row] = l == ignore ? 0.f : out;
-    lse_out[row] = lse;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -511,27 +454,295 @@ __global__ void __launch_bounds__(kBwdThreads, 4)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Forward.
+constexpr int kFwdThreads = 256;
+constexpr int kFwdUnroll = 8;  // 16-byte loads a thread keeps in flight
+// The widest row, in bytes, a warp takes (fp32 V 4096, bf16 V 8192);
+// wider rows take a block. Chosen by timing a warp and a block a row at
+// 16384 rows on an H100 (chip_smoke.py `_xent_fwd_plans`, PERF.md): a
+// warp is faster at V 10 to 4096 in both types (V 4096 fp32 0.0906
+// against 0.0939 ms) and at V 8192 in bf16 (0.0927 against 0.1366), a
+// block at V 8192 in fp32 (0.1709 against 0.1776) and at V 32000 in both.
+constexpr int kFwdWarpMaxBytes = 16384;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The running pair (ml, s): ml the largest value taken times log2(e)
+// (-inf before any), s the sum of 2^(x log2(e) - ml). A batch whose max
+// is bm rescales s once; returns what each of the batch's values
+// subtracts before its ex2 (0 while ml is -inf: the values are all -inf).
+__device__ __forceinline__ float rebase(float& ml, float& s, float bm) {
+  const float mn = fmaxf(ml, bm * kLog2e);
+  s = mn == ml ? s : s * ex2(ml - mn);
+  ml = mn;
+  return mn == -INFINITY ? 0.f : mn;
+}
+
+// Folds the pair (ml2, s2) into (ml, s): the same bits whichever of the
+// two is folded into the other.
+__device__ __forceinline__ void fold(float& ml, float& s, float ml2,
+                                     float s2) {
+  const float mx = fmaxf(ml, ml2);
+  s = (ml == mx ? s : s * ex2(ml - mx)) + (ml2 == mx ? s2 : s2 * ex2(ml2 - mx));
+  ml = mx;
+}
+
+// One row's pair over the columns of thread `li` of the `nl` that share
+// it, its plain sum (kEps) and x[l] (left as it is unless this thread's
+// columns hold column l): scalar head and tail columns, then kUnroll
+// 16-byte packs at a time, each batch's max first.
+template <typename T, int kUnroll, bool kEps>
+__device__ __forceinline__ void row_sweep(const T* __restrict__ xr, int len,
+                                          int64_t l, int li, int nl,
+                                          float& ml, float& s, float& tot,
+                                          float& picked) {
+  constexpr int kN = Pack<T>::kN;
+  const Slice xs = slice_of(xr, len);
+  for (int k = li; k < xs.scalars(); k += nl) {
+    const int j = xs.scalar_col(k);
+    const float xi = to_f(xr[j]);
+    const float sub = rebase(ml, s, xi);
+    s += ex2(fmaf(xi, kLog2e, -sub));
+    if (kEps) tot += xi;
+    if (j == l) picked = xi;
+  }
+  const uint4* src = reinterpret_cast<const uint4*>(xr + xs.head);
+  // the pack that holds the label's column, and its place there
+  const int64_t lbody = l - xs.head;
+  const int lpack = lbody >= 0 && lbody < (int64_t)xs.nvec * kN
+                        ? (int)(lbody / kN) : -1;
+  const int lq = (int)(lbody - (int64_t)lpack * kN);
+  for (int c0 = li; c0 < xs.nvec; c0 += kUnroll * nl) {
+    uint4 r[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int c = c0 + u * nl;
+      if (c < xs.nvec) r[u] = __ldcs(src + c);
+    }
+    float bm = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (c0 + u * nl >= xs.nvec) break;
+      float f[kN];
+      unpack16(r[u], f, xr);
+#pragma unroll
+      for (int q = 0; q < kN; ++q) bm = fmaxf(bm, f[q]);
+    }
+    const float sub = rebase(ml, s, bm);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int c = c0 + u * nl;
+      if (c >= xs.nvec) break;
+      float f[kN], e[kN];
+      unpack16(r[u], f, xr);
+#pragma unroll
+      for (int q = 0; q < kN; ++q) e[q] = ex2(fmaf(f[q], kLog2e, -sub));
+      // pairwise, in a fixed order
+#pragma unroll
+      for (int w = 1; w < kN; w *= 2)
+#pragma unroll
+        for (int q = 0; q < kN; q += 2 * w) {
+          e[q] += e[q + w];
+          if (kEps) f[q] += f[q + w];
+        }
+      s += e[0];
+      if (kEps) tot += f[0];
+      if (c == lpack) {
+        unpack16(r[u], f, xr);
+#pragma unroll
+        for (int q = 0; q < kN; ++q) picked = q == lq ? f[q] : picked;
+      }
+    }
+  }
+}
+
+// loss and lse of rows of v columns: `lanes` threads a row (a power of
+// two up to 32, 256 / lanes rows a block), or with kRow == kFwdThreads a
+// block a row. The row's threads merge their pairs, sums and picks by
+// warp shuffles in a fixed butterfly order (a block's 8 warps then in
+// warp order through shared memory); its first thread writes.
+template <typename T, int kRow, int kUnroll, bool kEps>
+__global__ void __launch_bounds__(kFwdThreads)
+    xent_fwd_kernel(const T* __restrict__ x, const int64_t* __restrict__ lab,
+                    float* __restrict__ loss, float* __restrict__ lse_out,
+                    int64_t n, int v, int lanes, float eps, int64_t ignore) {
+  const int tid = threadIdx.x;
+  const int nl = kRow == kFwdThreads ? kFwdThreads : lanes;
+  const int64_t row = (int64_t)blockIdx.x * (kFwdThreads / nl) + tid / nl;
+  // a row past n takes part in its warp's shuffles with no columns
+  const bool live = row < n;
+  const int64_t l = live ? lab[row] : -1;
+  float ml = -INFINITY, s = 0.f, tot = 0.f, picked = 0.f;
+  row_sweep<T, kUnroll, kEps>(x + (live ? row : 0) * (int64_t)v,
+                              live ? v : 0, l, tid % nl, nl, ml, s, tot,
+                              picked);
+  const int width = kRow == kFwdThreads ? 32 : nl;
+  for (int o = 1; o < width; o <<= 1) {
+    const float ml2 = __shfl_xor_sync(0xffffffffu, ml, o);
+    const float s2 = __shfl_xor_sync(0xffffffffu, s, o);
+    fold(ml, s, ml2, s2);
+    if (kEps) tot += __shfl_xor_sync(0xffffffffu, tot, o);
+    picked += __shfl_xor_sync(0xffffffffu, picked, o);
+  }
+  if constexpr (kRow == kFwdThreads) {
+    constexpr int kWarps = kFwdThreads / 32;
+    __shared__ float red[4][kWarps];
+    if (tid % 32 == 0) {
+      red[0][tid / 32] = ml;
+      red[1][tid / 32] = s;
+      red[2][tid / 32] = tot;
+      red[3][tid / 32] = picked;
+    }
+    __syncthreads();
+    if (tid != 0) return;
+    ml = red[0][0], s = red[1][0], tot = red[2][0], picked = red[3][0];
+    for (int w = 1; w < kWarps; ++w) {
+      fold(ml, s, red[0][w], red[1][w]);
+      tot += red[2][w];
+      picked += red[3][w];
+    }
+  } else if (tid % nl != 0 || !live) {
+    return;
+  }
+  const float lse = ml * kLn2 + logf(s);
+  float out = lse - picked;
+  if (kEps) out = (1.f - eps) * out + eps * (lse - tot / v);
+  loss[row] = l == ignore ? 0.f : out;
+  lse_out[row] = lse;
+}
+
+__global__ void empty_kernel() {}
+
 }  // namespace
 
-// x: [n, v] device pointer, fp32 (bf16 when `bf16` is nonzero); lab:
-// int64 [n]; loss, lse: fp32 [n]. Launches on `stream` and returns
-// cudaGetLastError() of the launch.
-extern "C" int xent_fwd(const void* x, const void* lab, void* loss, void* lse,
-                        int64_t n, int v, float eps, int64_t ignore, int bf16,
-                        void* stream) {
-  const dim3 grid((unsigned)n);
+namespace {
+
+// Threads a row of v columns of T in the forward: a power of two up to 32
+// (lanes of a warp: 32 from V 33 up to kFwdWarpMaxBytes a row), or
+// kFwdThreads (a block). At V <= 32, as many lanes as the row has 16-byte
+// packs.
+template <typename T>
+int fwd_lanes(int v) {
+  if (v > 32)
+    return (int64_t)v * sizeof(T) <= kFwdWarpMaxBytes ? 32 : kFwdThreads;
+  const int packs = (v + Pack<T>::kN - 1) / Pack<T>::kN;
+  int l = 1;
+  while (l < packs) l *= 2;
+  return l;
+}
+
+template <typename T, int kRow, int kUnroll>
+cudaError_t launch_fwd(const void* x, const int64_t* lab, float* loss,
+                       float* lse, int64_t n, int v, int lanes, float eps,
+                       int64_t ignore, cudaStream_t st) {
+  const int64_t rows = kRow == kFwdThreads ? 1 : kFwdThreads / lanes;
+  const int64_t blocks = (n + rows - 1) / rows;
+  if (blocks >= ((int64_t)1 << 31)) return cudaErrorInvalidValue;
+  const T* xt = static_cast<const T*>(x);
+  if (eps != 0.f)
+    xent_fwd_kernel<T, kRow, kUnroll, true><<<(unsigned)blocks, kFwdThreads,
+                                               0, st>>>(
+        xt, lab, loss, lse, n, v, lanes, eps, ignore);
+  else
+    xent_fwd_kernel<T, kRow, kUnroll, false><<<(unsigned)blocks,
+                                                kFwdThreads, 0, st>>>(
+        xt, lab, loss, lse, n, v, lanes, eps, ignore);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t fwd_with(const void* x, const int64_t* lab, float* loss,
+                     float* lse, int64_t n, int v, float eps, int64_t ignore,
+                     int lanes, int unroll, cudaStream_t st) {
+  if (lanes == kFwdThreads) {
+    switch (unroll) {
+      case 1:
+        return launch_fwd<T, kFwdThreads, 1>(x, lab, loss, lse, n, v, lanes,
+                                             eps, ignore, st);
+      case 2:
+        return launch_fwd<T, kFwdThreads, 2>(x, lab, loss, lse, n, v, lanes,
+                                             eps, ignore, st);
+      case 4:
+        return launch_fwd<T, kFwdThreads, 4>(x, lab, loss, lse, n, v, lanes,
+                                             eps, ignore, st);
+      case kFwdUnroll:
+        return launch_fwd<T, kFwdThreads, kFwdUnroll>(x, lab, loss, lse, n, v,
+                                                      lanes, eps, ignore, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) != 0 ||
+      unroll != kFwdUnroll)
+    return cudaErrorInvalidValue;
+  return launch_fwd<T, 32, kFwdUnroll>(x, lab, loss, lse, n, v, lanes, eps,
+                                       ignore, st);
+}
+
+}  // namespace
+
+// The forward with its plan given: `lanes` threads a row (a power of two
+// up to 32, or 256: a block a row) and, for a block a row, `unroll`
+// 16-byte loads in flight a thread (1, 2, 4 or 8; else 8), as the timing
+// of the plans needs. x: [n, v] device pointer, fp32 (bf16 when `bf16` is
+// nonzero); lab: int64 [n]; loss, lse: fp32 [n]. Launches on `stream` and
+// returns cudaGetLastError() of the launch (1, cudaErrorInvalidValue, for
+// a plan it does not take).
+extern "C" int xent_fwd_with(const void* x, const void* lab, void* loss,
+                             void* lse, int64_t n, int v, float eps,
+                             int64_t ignore, int bf16, int lanes, int unroll,
+                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t* lb = static_cast<const int64_t*>(lab);
   float* lo = static_cast<float*>(loss);
   float* ls = static_cast<float*>(lse);
-  if (bf16) {
-    xent_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), lb, lo, ls, v, eps, ignore);
-  } else {
-    xent_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), lb, lo, ls, v, eps, ignore);
-  }
-  return (int)cudaGetLastError();
+  return (int)(bf16 ? fwd_with<__nv_bfloat16>(x, lb, lo, ls, n, v, eps,
+                                              ignore, lanes, unroll, st)
+                    : fwd_with<float>(x, lb, lo, ls, n, v, eps, ignore,
+                                      lanes, unroll, st));
+}
+
+// The forward on the plan xent_fwd_plan gives for v.
+extern "C" int xent_fwd(const void* x, const void* lab, void* loss, void* lse,
+                        int64_t n, int v, float eps, int64_t ignore, int bf16,
+                        void* stream) {
+  const int lanes = bf16 ? fwd_lanes<__nv_bfloat16>(v) : fwd_lanes<float>(v);
+  return xent_fwd_with(x, lab, loss, lse, n, v, eps, ignore, bf16, lanes,
+                       kFwdUnroll, stream);
+}
+
+// The threads a row (1-32 lanes of a warp, or 256: a block) that
+// xent_fwd takes for rows of v columns (bf16 nonzero: bf16 logits).
+extern "C" int xent_fwd_plan(int v, int bf16) {
+  return bf16 ? fwd_lanes<__nv_bfloat16>(v) : fwd_lanes<float>(v);
+}
+
+// An empty kernel launched as `blocks` blocks of 256 threads in clusters
+// of one, as the xent backward launches its CTAs at V <= kSliceTarget:
+// the launch's own cost, to set beside the kernels' times at small V.
+extern "C" int xent_empty(int64_t blocks, void* stream) {
+  if (blocks < 1 || blocks >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, empty_kernel);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 namespace {

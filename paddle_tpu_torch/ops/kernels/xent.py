@@ -10,7 +10,10 @@ ignore_index; dlogits = (softmax - (1-eps)onehot - eps/V)·g, a zero row
 where label == ignore_index, in the logits' dtype. A label outside
 [0, V) picks 0 and matches no column. Logits are fp32 or bf16; the
 arithmetic is fp32. Neither direction keeps an [N, V] intermediate:
-the backward recomputes lse from the logits.
+the backward recomputes lse from the logits. The forward kernel takes
+a plan by V (a group of lanes a row at V <= 32, a warp a row, a block a
+row for wide rows; ``csrc/xent.cu`` `fwd_lanes`), the backward one by
+V too (CTAs a row in a cluster, `bwd_plan`).
 """
 from __future__ import annotations
 

@@ -1,11 +1,13 @@
 """The bf16 attention kernels on wgmma (``csrc/attn_wgmma.cuh``): #2 (flash
-forward), #5 (sdpa_short forward, with and without P), #4 (flash dk/dv)
-and #6 (sdpa_short backward). The arithmetic of their designs in PyTorch
-(`flash_attention_tiles_plain`, `sdpa_short_tiles_plain`,
-`flash_bwd_dkv_tiles_plain`, `sdpa_short_bwd_tiles_plain`) against the JAX
-package's Pallas kernels in interpret mode on bf16 inputs, with the card's
-gates; the designs that must fail them; and (marked ``gpu``) the
-kernels' operand forms against float64 on the card.
+forward), #5 (sdpa_short forward, with and without P), #3 (flash dq), #4
+(flash dk/dv) and #6 (sdpa_short backward). The arithmetic of their
+designs in PyTorch (`flash_attention_tiles_plain`,
+`sdpa_short_tiles_plain`, `flash_bwd_dq_tiles_plain`,
+`flash_bwd_dkv_tiles_plain`, `sdpa_short_bwd_tiles_plain`) against the
+JAX package's Pallas kernels in interpret mode on bf16 inputs, with the
+card's gates; the designs that must fail them; and (marked ``gpu``) the
+kernels' operand forms against float64 and #3's kernel against its
+design on the card.
 
 The gates are the card's (chip_smoke.py `_bf16_ulp_ok`): within one bf16
 ulp of the largest |reference| (2^-8 to 2^-7 of it, by where it lies in
@@ -16,6 +18,7 @@ tests also run where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_attn_wgmma.py
 """
+import functools
 import math
 
 import numpy as np
@@ -311,7 +314,7 @@ def test_sdpa_tiles_plain_fails_with_p_from_the_running_max():
 
 
 # ---------------------------------------------------------------------------
-# #4: the flash dk/dv design against `_flash_bwd_impl`
+# #4 and #3: the flash dk/dv and dq designs against `_flash_bwd_impl`
 # ---------------------------------------------------------------------------
 def _flash_bwd_case(tq, tk, d, causal, seed):
     q, g = (_randn(1, 2, tq, d, seed=seed + i) for i in (0, 3))
@@ -319,55 +322,95 @@ def _flash_bwd_case(tq, tk, d, causal, seed):
     return q, k, v, g
 
 
-@pytest.mark.parametrize("tq,tk,d,causal", [
+@functools.lru_cache(maxsize=None)
+def _pallas_flash_bwd(tq, tk, d, causal, seed, scale):
+    """The Pallas forward's out and lse and `_flash_bwd_impl`'s (dq, dk,
+    dv) in interpret mode on the bf16 case's inputs, as torch tensors
+    (fp32 values), with delta = rowsum(dO out) in fp32 as the JAX package
+    takes it; computed once a case, for #4's and #3's tests alike."""
+    jattn = _pallas()
+    jq, jk, jv, jg = _jnp_bf16(*_flash_bwd_case(tq, tk, d, causal, seed))
+    jattn.force_interpret(True)
+    try:
+        out, lse = jattn._flash_fwd_impl(jq, jk, jv, scale, causal)
+        grads = jattn._flash_bwd_impl(jq, jk, jv, out, lse, jg, scale,
+                                      causal)
+    finally:
+        jattn.force_interpret(False)
+    g = _bf16(_flash_bwd_case(tq, tk, d, causal, seed)[3])
+    delta = KA.flash_delta(_torch(out).to(torch.bfloat16), g)
+    return (torch.from_numpy(np.array(lse)), delta,
+            *(_torch(x) for x in grads))
+
+
+FLASH_BWD_SHAPES = [
     (264, 264, 64, False),   # 64-row query tiles over a ragged T
     (512, 512, 64, True),
     (512, 512, 128, False),  # d 128: both warpgroups on the same keys
     (264, 512, 128, True),   # causal with tq < tk, bottom-right aligned
     (512, 264, 64, False),   # tq > tk
-])
+]
+
+
+@pytest.mark.parametrize("tq,tk,d,causal", FLASH_BWD_SHAPES)
 def test_flash_dkv_tiles_plain_matches_pallas_interpret(tq, tk, d, causal):
     """P recomputed from the forward's lse over 64-row query tiles, P and
     dS as planes in chains of two tiles, against `_flash_bwd_impl`'s dk
     and dv in interpret mode (the same bf16 q, k, v, dO, the Pallas
     forward's out and lse; delta = rowsum(dO out) in fp32 as the JAX
     package takes it)."""
-    jattn = _pallas()
-    q, k, v, g = _flash_bwd_case(tq, tk, d, causal, seed=200 + tq + d)
-    scale = d ** -0.5
-    jq, jk, jv, jg = _jnp_bf16(q, k, v, g)
-    jattn.force_interpret(True)
-    try:
-        out, lse = jattn._flash_fwd_impl(jq, jk, jv, scale, causal)
-        _, wdk, wdv = jattn._flash_bwd_impl(jq, jk, jv, out, lse, jg, scale,
-                                            causal)
-    finally:
-        jattn.force_interpret(False)
-    delta = KA.flash_delta(_torch(out).to(torch.bfloat16), _bf16(g))
-    dk, dv = KA.flash_bwd_dkv_tiles_plain(
-        _bf16(q), _bf16(k), _bf16(v), _bf16(g),
-        torch.from_numpy(np.array(lse)), delta, scale, causal)
-    for name, a, w in (("dk", dk, _torch(wdk)), ("dv", dv, _torch(wdv))):
+    seed, scale = 200 + tq + d, d ** -0.5
+    lse, delta, _, wdk, wdv = _pallas_flash_bwd(tq, tk, d, causal, seed,
+                                                scale)
+    q, k, v, g = (_bf16(x) for x in _flash_bwd_case(tq, tk, d, causal,
+                                                    seed))
+    dk, dv = KA.flash_bwd_dkv_tiles_plain(q, k, v, g, lse, delta, scale,
+                                          causal)
+    for name, a, w in (("dk", dk, wdk), ("dv", dv, wdv)):
         assert a.dtype == torch.bfloat16, name
         assert _passes(a, w), (name, _gate(a, w))
 
 
-@pytest.mark.parametrize("tq,tk,d,causal", [
+@pytest.mark.parametrize("tq,tk,d,causal", FLASH_BWD_SHAPES)
+def test_flash_dq_tiles_plain_matches_pallas_interpret(tq, tk, d, causal):
+    """#3's design: P recomputed from the forward's lse over 64-key tiles,
+    dS as planes in a fresh chain a tile, dq scaled once, against
+    `_flash_bwd_impl`'s dq in interpret mode on the same inputs as #4's
+    test."""
+    seed, scale = 200 + tq + d, d ** -0.5
+    lse, delta, wdq, _, _ = _pallas_flash_bwd(tq, tk, d, causal, seed,
+                                              scale)
+    q, k, v, g = (_bf16(x) for x in _flash_bwd_case(tq, tk, d, causal,
+                                                    seed))
+    dq = KA.flash_bwd_dq_tiles_plain(q, k, v, g, lse, delta, scale, causal)
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    assert _passes(dq, wdq), _gate(dq, wdq)
+
+
+FLASH_PLAIN_SHAPES = [
     (300, 300, 128, False),  # T 300: no Pallas block divides it
     (301, 264, 64, True),    # an odd tq: lse rows off 16 bytes on the card
     (200, 72, 64, True),     # 128 rows that see no key: P = 1/tk, dS = 0
-])
-def test_flash_dkv_tiles_plain_matches_plain(tq, tk, d, causal):
-    """Shapes the Pallas kernel does not take (T 300, an odd tq) and fully
-    masked rows (causal, tq > tk: the port's C5 rule, which the Pallas
-    kernel does not follow): against the port's plain version, the TPU
-    kernel's function, from the plain forward's out and lse."""
+]
+
+
+def _flash_plain_case(tq, tk, d, causal):
     q, k, v, g = (_bf16(x) for x in _flash_bwd_case(tq, tk, d, causal,
                                                     seed=230 + tq))
     scale = d ** -0.5
     out, lse = KA.flash_attention_plain(q, k, v, scale, causal,
                                         with_lse=True)
-    delta = KA.flash_delta(out, g)
+    return q, k, v, g, out, lse, KA.flash_delta(out, g), scale
+
+
+@pytest.mark.parametrize("tq,tk,d,causal", FLASH_PLAIN_SHAPES)
+def test_flash_dkv_tiles_plain_matches_plain(tq, tk, d, causal):
+    """Shapes the Pallas kernel does not take (T 300, an odd tq) and fully
+    masked rows (causal, tq > tk: the port's C5 rule, which the Pallas
+    kernel does not follow): against the port's plain version, the TPU
+    kernel's function, from the plain forward's out and lse."""
+    q, k, v, g, out, lse, delta, scale = _flash_plain_case(tq, tk, d,
+                                                           causal)
     got = KA.flash_bwd_dkv_tiles_plain(q, k, v, g, lse, delta, scale,
                                        causal)
     want = KA.flash_bwd_dkv_plain(q, k, v, g, lse, delta, scale, causal)
@@ -384,27 +427,91 @@ def test_flash_dkv_tiles_plain_matches_plain(tq, tk, d, causal):
         assert bool((dk2 == 0).all())
 
 
+@pytest.mark.parametrize("tq,tk,d,causal", FLASH_PLAIN_SHAPES)
+def test_flash_dq_tiles_plain_matches_plain(tq, tk, d, causal):
+    """#3's design at the shapes the Pallas kernel does not take and with
+    rows that see no key (causal, tq > tk): against the port's plain
+    version from the plain forward's out and lse; those rows' dq is 0
+    exactly, whatever their lse (-FLT_MAX)."""
+    q, k, v, g, _, lse, delta, scale = _flash_plain_case(tq, tk, d, causal)
+    got = KA.flash_bwd_dq_tiles_plain(q, k, v, g, lse, delta, scale, causal)
+    want = KA.flash_bwd_dq_plain(q, k, v, g, lse, delta, scale, causal)
+    assert _passes(got, want), _gate(got, want)
+    if tq > tk and causal:
+        blind = tq - tk
+        assert bool((lse[:, :, :blind] == -KA.FLT_MAX).all())
+        assert bool((got[:, :, :blind] == 0).all())
+        assert bool((got[:, :, blind:] != 0).any())
+
+
+def _pallas_fault_case():
+    q, k, v, g = (_bf16(x) for x in _flash_bwd_case(1024, 1024, 64, False,
+                                                    seed=260))
+    return (q, k, v, g, *_pallas_flash_bwd(1024, 1024, 64, False, 260,
+                                           0.125))
+
+
 def test_flash_dkv_tiles_plain_fails_with_p_as_one_bf16_term():
     """The planted design: P^T fed to dv as one bf16 term fails the gate
     on dv (dk, from dS's planes, still passes)."""
-    jattn = _pallas()
-    q, k, v, g = _flash_bwd_case(1024, 1024, 64, False, seed=260)
-    jq, jk, jv, jg = _jnp_bf16(q, k, v, g)
-    jattn.force_interpret(True)
-    try:
-        out, lse = jattn._flash_fwd_impl(jq, jk, jv, 0.125, False)
-        _, wdk, wdv = jattn._flash_bwd_impl(jq, jk, jv, out, lse, jg, 0.125,
-                                            False)
-    finally:
-        jattn.force_interpret(False)
-    delta = KA.flash_delta(_torch(out).to(torch.bfloat16), _bf16(g))
-    args = (_bf16(q), _bf16(k), _bf16(v), _bf16(g),
-            torch.from_numpy(np.array(lse)), delta, 0.125, False)
+    q, k, v, g, lse, delta, _, wdk, wdv = _pallas_fault_case()
+    args = (q, k, v, g, lse, delta, 0.125, False)
     good = KA.flash_bwd_dkv_tiles_plain(*args)
     bad = KA.flash_bwd_dkv_tiles_plain(*args, p_terms=1)
-    assert _passes(good[0], _torch(wdk)) and _passes(good[1], _torch(wdv))
-    assert _passes(bad[0], _torch(wdk))
-    assert not _passes(bad[1], _torch(wdv)), _gate(bad[1], _torch(wdv))
+    assert _passes(good[0], wdk) and _passes(good[1], wdv)
+    assert _passes(bad[0], wdk)
+    assert not _passes(bad[1], wdv), _gate(bad[1], wdv)
+
+
+def test_flash_dq_tiles_plain_fails_with_ds_as_one_bf16_term():
+    """The planted design: dS fed to dq as one bf16 term moves dq by ~2^-9
+    of itself before its rounding and fails the gate; two planes pass."""
+    q, k, v, g, lse, delta, wdq, _, _ = _pallas_fault_case()
+    args = (q, k, v, g, lse, delta, 0.125, False)
+    good = KA.flash_bwd_dq_tiles_plain(*args)
+    bad = KA.flash_bwd_dq_tiles_plain(*args, ds_terms=1)
+    assert _passes(good, wdq), _gate(good, wdq)
+    assert not _passes(bad, wdq), _gate(bad, wdq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq,tk,d,causal", [
+    (1024, 1024, 64, False),
+    (1024, 1024, 64, True),
+    (301, 264, 64, True),    # an odd tq: lse and delta rows off 16 bytes
+    (264, 300, 128, False),  # tq != tk, ragged tiles, d 128
+    (333, 200, 128, True),   # causal with tq > tk: rows that see no key
+    (200, 72, 64, True),
+    (100, 40, 256, True),    # d 256: the mma.sync body, by dispatch
+])
+def test_flash_dq_kernel_matches_its_design_on_the_card(tq, tk, d, causal):
+    """bf16 #3 on the card against its design's arithmetic
+    (`flash_bwd_dq_tiles_plain`) and the function (`flash_bwd_dq_plain`),
+    both within one bf16 ulp of the largest in at most 5% of the
+    elements, from the plain forward's out and lse; the same bits on a
+    second launch; 0 exactly on the rows that see no key; one launch a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, g = (_bf16(x).cuda() for x in _flash_bwd_case(
+        tq, tk, d, causal, seed=300 + tq + d))
+    scale = d ** -0.5
+    out, lse = KA.flash_attention_plain(q, k, v, scale, causal,
+                                        with_lse=True)
+    delta = KA.flash_delta(out, g)
+    before = KA.flash_bwd_dq.launches
+    got = KA.flash_bwd_dq(q, k, v, g, lse, delta, scale, causal)
+    again = KA.flash_bwd_dq(q, k, v, g, lse, delta, scale, causal)
+    torch.cuda.synchronize()
+    assert KA.flash_bwd_dq.launches == before + 2
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    design = KA.flash_bwd_dq_tiles_plain(q, k, v, g, lse, delta, scale,
+                                         causal)
+    want = KA.flash_bwd_dq_plain(q, k, v, g, lse, delta, scale, causal)
+    assert _passes(got, design), _gate(got, design)
+    assert _passes(got, want), _gate(got, want)
+    if causal and tq > tk:
+        assert bool((got[:, :, :tq - tk] == 0).all())
 
 
 # ---------------------------------------------------------------------------

@@ -621,7 +621,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     # wide for them (the backward's streamed body)
     (64, 1001, 0.1, torch.float32), (64, 1003, 0.1, torch.bfloat16),
     (64, 10, 0.0, torch.float32), (64, 300000, 0.1, torch.float32),
-    (64, 524288, 0.1, torch.float32)])
+    (64, 524288, 0.1, torch.float32),
+    # the forward's plans on each side of its crossovers (csrc/xent.cu
+    # `fwd_lanes`): a lane a row, groups of lanes, a warp a row, a block
+    (64, 1, 0.0, torch.float32), (64, 31, 0.1, torch.bfloat16),
+    (64, 32, 0.1, torch.float32), (64, 33, 0.1, torch.float32),
+    (64, 4096, 0.1, torch.float32), (64, 4097, 0.1, torch.float32),
+    (64, 8192, 0.1, torch.bfloat16), (64, 8193, 0.1, torch.bfloat16)])
 def test_xent_kernels_match_plain(cuda, n, v, eps, dtype):
     x, lab, g = _xent_inputs(n, v, seed=20)
     lab[1] = v + 3  # out of range: picks 0, matches no column
@@ -648,6 +654,8 @@ def test_xent_kernels_match_plain(cuda, n, v, eps, dtype):
     assert (dx[lab == -100] == 0).all() and (loss[lab == -100] == 0).all()
     # the row's (max, sum) pairs merge in a fixed order: the same bits
     assert torch.equal(KX.xent_backward(x, lab, g, eps), dx)
+    again = KX.xent_forward(x, lab, eps)
+    assert torch.equal(again[0], loss) and torch.equal(again[1], lse)
 
 
 @pytest.mark.gpu
@@ -1516,7 +1524,11 @@ BF16_FWD_CASES = [
     # odd tq: #4's lse and delta rows lie off 16 bytes and are gathered by
     # its producer warp
     ("flash", 1, 4, 301, 264, 64, True),
-    ("flash", 1, 4, 257, 300, 128, False)]
+    ("flash", 1, 4, 257, 300, 128, False),
+    # #3 on wgmma: an odd tq with rows that see no key at d 128, and a tq
+    # whose second warpgroup's rows all lie past it
+    ("flash", 1, 4, 333, 200, 128, True),
+    ("flash", 1, 2, 40, 300, 64, False)]
 
 
 def _bf16_inputs(cuda, b, h, tq, tk, d):
@@ -1597,8 +1609,10 @@ def test_bf16_attention_kernels_fail_planted_faults(cuda, causal):
     off by 1e-2, either forward or backward launched with the causal flag
     dropped (causal cases), #6's dS taken as a single bf16 term (the
     plain version so computed, against the float64 oracle), #4's design
-    with P^T fed to dv as one bf16 term and #5's with P normalized by the
-    running max (`flash_bwd_dkv_tiles_plain(p_terms=1)`,
+    with P^T fed to dv as one bf16 term, #3's with dS fed to dq as one
+    bf16 term and #5's with P normalized by the running max
+    (`flash_bwd_dkv_tiles_plain(p_terms=1)`,
+    `flash_bwd_dq_tiles_plain(ds_terms=1)`,
     `sdpa_short_tiles_plain(p_max="running")`)."""
     q, k, v, g = _bf16_inputs(cuda, 2, 8, 1024, 1024, 64)
     out, lse = KA._flash_attention_launch(q, k, v, 0.125, causal, True)
@@ -1609,6 +1623,9 @@ def test_bf16_attention_kernels_fail_planted_faults(cuda, causal):
     _, dv1 = KA.flash_bwd_dkv_tiles_plain(q, k, v, g, lse, delta, 0.125,
                                           causal, p_terms=1)
     assert not _bf16_passes(dv1, want[2]), _bf16_gate(dv1, want[2])
+    dq1 = KA.flash_bwd_dq_tiles_plain(q, k, v, g, lse, delta, 0.125, causal,
+                                      ds_terms=1)
+    assert not _bf16_passes(dq1, want[0]), _bf16_gate(dq1, want[0])
     if causal:
         wout = KA.flash_attention_plain(q, k, v, 0.125, True)
         assert not _bf16_passes(KA.flash_attention(q, k, v, 0.125, False),
