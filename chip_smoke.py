@@ -16,7 +16,11 @@ Phases (a failing phase fails the script; none is caught):
    on and off, ignored rows, an out-of-range label, odd N and V, bf16
    logits, rows off a 16-byte boundary (V 1001 fp32, 1003 bf16), the
    MNIST head (V 10, at 64 rows with ignored and out-of-range labels and
-   at phase 10's [4096, 10]), the forward's plans on each side of its
+   at phase 10's [4096, 10]), layer_norm also on bf16 rows at [8192,
+   512] and at the predictor's [4096, 512] (one bf16 ulp of the largest
+   |plain| in at most 5% of the elements, the same bits twice; the
+   planted fault, the variance taken without the mean subtracted, must
+   fail), the forward's plans on each side of its
    crossovers (V 1, 31, 32, 33, fp32 4096 and 4097, bf16 8192 and 8193:
    a group of lanes, a warp, a block a row), eight CTAs a row (V 300000) and a row too wide to
    stage (V 524288, the backward's streamed body); their dx is held
@@ -271,12 +275,38 @@ Phases (a failing phase fails the script; none is caught):
    step within 1e-6 relative and moving. Phase 3 holds #7 and #8
    against their plain versions at this phase's [4096, 10] and times
    them there.
+11. predict (after phase 9): the deployment path. Transformer-base
+   (MODEL, vocab 30000) built by build_program(seq_len, with_optimizer=
+   False, dropout_rate=0.1), cloned for test, seeded weights, saved by
+   save_inference_model(dir, [src_ids, tgt_ids], [the logits.w mul's
+   output]) and loaded by create_paddle_predictor(AnalysisConfig(dir))
+   on the card: the op count before and after the IR passes (no dropout
+   left, each FFN's mul + add (+ relu) an fc). At seq 512 / batch 8
+   (#1, #5) and seq 1024 / batch 4 (#1, #2), fp32 with TF32 off: the
+   launches as predicted; 2 rows against the CPU predictor
+   (disable_gpu()) on the same directory within PREDICT_TOL of the
+   largest |CPU logit|, the argmax equal except at ties under that top-2
+   margin, the same with TF32 on failing; switch_ir_optim(False) within
+   the same bound; zero_copy_run and clone() the same bits as run (the
+   clone's params the same tensors); Executor.close() drops the prepared
+   programs and the next run prepares again. bf16 (enable_tpu_bf16) at
+   both lengths: every float tensor of the predictor's scope bf16, #1,
+   #5 and #2 launched in bf16 (their bf16 counters), the logits fp32
+   within PREDICT_BF16 of the largest |fp32 card logit|, the argmax
+   equal wherever the fp32 top-2 margin exceeds it. Then
+   InferenceServer(predictor, max_batch_size=8, max_wait_ms=2.0) at seq
+   512, 32 threaded batch-1 submits: each reply within PREDICT_TOL of
+   the largest |logit| of predictor.run on the same rows, fewer batches
+   than requests, a clean close; requests/s and p50 latency beside the
+   naive per-request predictor.run loop's requests/s.
 
 The script prints its whole wall time; the second-to-last line lists
 the kernels as JSON, each with its launches on the serving (`served`),
 training (`trained`, phases 5-8 together), MNIST training
-(`trained_mnist`, phase 10's eager SGD leg) and paged serving
-(`served_paged`, phase 9) paths; the last
+(`trained_mnist`, phase 10's eager SGD leg), paged serving
+(`served_paged`, phase 9) and predictor (`served_predictor`, phase 11's
+timed runs and served requests; `served_predictor_bf16`: the bf16
+launches among them) paths; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result.
 """
@@ -287,8 +317,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -298,7 +330,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import paddle_tpu_torch as pf  # noqa: E402
-from paddle_tpu_torch import amp, unique_name  # noqa: E402
+from paddle_tpu_torch import amp, inference, unique_name  # noqa: E402
 from paddle_tpu_torch.core import registry  # noqa: E402
 from paddle_tpu_torch.core.executor import RNG_VAR  # noqa: E402
 from paddle_tpu_torch.inference import serving  # noqa: E402
@@ -362,6 +394,18 @@ CLIP_BELOW = 0.5
 MODEL = dict(d_model=512, n_heads=8, n_layers=6, d_inner=2048,
              vocab=30000, max_out_len=32, start_id=0, end_id=1)
 BATCH = 8
+# phase 11, the predictor: (seq_len, batch) of its legs (#5 at 512, #2
+# at 1024), the rows its CPU reference runs, the threaded batch-1
+# requests of its served leg. fp32 logits against the CPU predictor:
+# phase 4's serving gate, relative to the largest |CPU logit|; bf16
+# logits (bf16 weights and activations through 12 layers: each product
+# rounds its inputs to 2^-9 relative) against the fp32 card logits
+PREDICT_RUNS = ((512, 8), (1024, 4))
+PREDICT_CPU_ROWS = 2
+PREDICT_REQUESTS = 32
+PREDICT_TOL = 1e-5
+PREDICT_BF16 = 2.0 ** -4
+PREDICT_ROWS = 4096           # tokens of a predictor batch: #1's rows
 # the repo's training configuration (bench.py bench_transformer) in
 # fp32 at half its batch: fp32 activations take twice bf16's bytes
 TRAIN = dict(vocab=32000, d_model=512, n_heads=8, n_layers=6,
@@ -624,6 +668,64 @@ def _ln_case(n, d, seed):
     torch.cuda.synchronize()
     err = max(max_err(g_, w_) for g_, w_ in zip(got, want))
     return x, s, b, err
+
+
+def _ln_var_without_mean(x, scale, bias, eps):
+    """The planted fault of #1 in bf16: the plain version with the
+    variance taken as mean(x^2), the mean not subtracted."""
+    x32 = x.float()
+    mean = x32.mean(dim=1, keepdim=True)
+    var = x32.square().mean(dim=1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float()[None] + bias.float()[None]).to(x.dtype)
+
+
+def _ln_bf16_entry():
+    """#1 on bf16 rows, as the bf16 predictor runs it: at [8192, 512] and
+    at the predictor's [PREDICT_ROWS, 512], y within one bf16 ulp of the
+    largest |plain| in at most BF16_SHARE of the elements, the fp32 mean
+    and variance within LN_TOL, a second launch the same bits; the
+    planted fault (the variance without the mean subtracted) must fail
+    the gate. Each shape timed beside the plain version, F.layer_norm in
+    bf16 and its bound (bytes / 3.35 TB/s)."""
+    bf = torch.bfloat16
+    res, errs, fault_ulps = {}, [], []
+    for n, d in ((BATCH * 1024, 512), (PREDICT_ROWS, 512)):
+        g = torch.Generator(device="cuda").manual_seed(90 + n)
+        x = (torch.randn(n, d, device="cuda", generator=g) * 3 + 0.5).to(bf)
+        s_, b_ = (torch.randn(d, device="cuda", generator=g).to(bf)
+                  for _ in range(2))
+        y, mean, var = KL.layer_norm(x, s_, b_, 1e-5)
+        y2 = KL.layer_norm(x, s_, b_, 1e-5)[0]
+        py, pmean, pvar = KL.layer_norm_plain(x, s_, b_, 1e-5)
+        bad = _ln_var_without_mean(x, s_, b_, 1e-5)
+        torch.cuda.synchronize()
+        ulps, share = _bf16_ulps(y, py)
+        stat = max(max_err(mean, pmean), max_err(var, pvar))
+        f_ulps, f_share = _bf16_ulps(bad, py)
+        log(f"  layer_norm bf16 [{n},{d}]: {ulps:.2f} ulp in {share:.4f} "
+            f"of the elements, mean/var max_abs_err {stat:.3e}; planted "
+            f"'variance without the mean subtracted' {f_ulps:.2f} ulp in "
+            f"{f_share:.4f}")
+        assert _bf16_ulp_ok(y, py) and stat <= LN_TOL, (ulps, share, stat)
+        assert torch.equal(y, y2), "layer_norm bf16: bits differ"
+        assert not _bf16_ulp_ok(bad, py), "the planted fault passed"
+        errs.append(max_err(y, py))
+        fault_ulps.append(f_ulps)
+        ms = time_ms(lambda: KL.layer_norm(x, s_, b_, 1e-5), iters=50)
+        plain_ms = time_ms(lambda: KL.layer_norm_plain(x, s_, b_, 1e-5),
+                           iters=50)
+        lib_ms = time_ms(lambda: torch.nn.functional.layer_norm(
+            x, (d,), s_, b_, 1e-5), iters=50)
+        bms, by = bound_ms(2 * (2 * n * d + 2 * d) + 4 * 2 * n, 8 * n * d)
+        log(f"  layer_norm bf16 [{n},{d}]: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library F.layer_norm {lib_ms:.4f} ms, "
+            f"bound {bms:.5f} ms ({by})")
+        res[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                      library_ms=lib_ms, shape=[n, d], ulps=ulps,
+                      share=share)
+    return dict(max_abs_err=max(errs), fault_ulps=min(fault_ulps),
+                **res[BATCH * 1024], predictor_rows=res[PREDICT_ROWS])
 
 
 def _qkv(b, h, tq, tk, d, seed):
@@ -1682,7 +1784,8 @@ def phase_kernels():
                         bound_by=by, library_ms=lib_ms, shape=[n, d])
     entries["layer_norm"] = dict(max_abs_err=max(errs),
                                  **timed[BATCH * 1024],
-                                 decoder_step=timed[BATCH])
+                                 decoder_step=timed[BATCH],
+                                 bf16=_ln_bf16_entry())
     entries["sdpa_short"] = _attn_entry(
         "sdpa_short", KA.sdpa_short, KA.sdpa_short_plain,
         [(BATCH, 8, 512, 512, 64, False), (BATCH, 8, 512, 512, 64, True)],
@@ -4753,6 +4856,362 @@ def phase_train_mnist(card_name, card):
         examples_per_s=MNIST_BATCH / (step_ms / 1e3), profile=prof,
         legs=legs, card=card)
 
+# ---------------------------------------------------------------------------
+PREDICT_KERNELS = (KL.layer_norm, KA.sdpa_short, KA.flash_attention)
+PREDICT_FEEDS = ("src_ids", "tgt_ids")
+
+
+def _zero_predict_launches():
+    for k in PREDICT_KERNELS:
+        k.launches = k.launches_bf16 = 0
+
+
+def _predict_launches():
+    return {k.__name__: (k.launches, k.launches_bf16)
+            for k in PREDICT_KERNELS}
+
+
+def _predictor(d, gpu=True, ir=True, bf16=False):
+    cfg = inference.AnalysisConfig(d)
+    if not gpu:
+        cfg.disable_gpu()
+    cfg.switch_ir_optim(ir)
+    if bf16:
+        cfg.enable_tpu_bf16()
+    return inference.create_paddle_predictor(cfg)
+
+
+def _pred_run(pred, feed):
+    return pred.run([inference.PaddleTensor(v, name=n)
+                     for n, v in feed.items()])[0].data
+
+
+def _predict_split(pred, feed, reps=3):
+    """Where a predictor.run's wall time goes, best of `reps` each: the
+    run up to its outputs on the card (synchronized), and their one
+    copy to the host (`predictor._to_host`), in ms."""
+    from paddle_tpu_torch.inference import predictor as pred_mod
+
+    run_ms, copy_ms = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        outs = pred._prepared.lookup(dict(feed)).run(dict(feed),
+                                                     return_numpy=False)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        pred_mod._to_host(outs)
+        t2 = time.monotonic()
+        run_ms.append((t1 - t0) * 1e3)
+        copy_ms.append((t2 - t1) * 1e3)
+    return min(run_ms), min(copy_ms)
+
+
+def _readback_ms(nbytes, reps=3):
+    """What the predictor's logits copy is made of, best of `reps` each:
+    `nbytes` on the card copied to a fresh pageable host buffer (as
+    `_to_host` does), into a reused pinned buffer, and the host alone
+    touching a fresh numpy array of that size (its page faults)."""
+    src = torch.ones(nbytes // 4, device="cuda").view(torch.uint8)
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def best(fn):
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.monotonic() - t0) * 1e3)
+        return min(ms)
+
+    return dict(fresh_pageable_ms=best(lambda: src.cpu()),
+                reused_pinned_ms=best(lambda: pinned.copy_(src)),
+                host_touch_ms=best(
+                    lambda: np.empty(nbytes, np.uint8).fill(1)))
+
+
+def _top2_margin(logits):
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    return top2[..., 1] - top2[..., 0]
+
+
+def _argmax_off(got, want, margin):
+    """(positions whose argmax differs, those where `want`'s top-2
+    margin exceeds `margin`: not ties)."""
+    off = got.argmax(-1) != want.argmax(-1)
+    return int(off.sum()), int((off & (_top2_margin(want) > margin)).sum())
+
+
+def _export(tmp, seq_len):
+    """Transformer-base at `seq_len`, cloned for test, its seeded startup
+    run on the card, saved by save_inference_model into tmp/t<seq_len>:
+    (dir, the logits' name, the saved program's op count)."""
+    t0 = time.monotonic()
+    with unique_name.guard():
+        main, startup, _ = transformer.build_program(
+            seq_len=seq_len, with_optimizer=False,
+            dropout_rate=DROPOUT_RATE,
+            **{k: MODEL[k] for k in ("d_model", "n_heads", "n_layers",
+                                     "d_inner", "vocab")})
+    test = main.clone(for_test=True)
+    lname = next(op.outputs["Out"][0] for op in test.global_block.ops
+                 if op.type == "mul" and op.inputs["Y"] == ["logits.w"])
+    startup.random_seed = SEED
+    exe = pf.Executor(pf.CUDAPlace(0))
+    scope = pf.Scope()
+    exe.run(startup, scope=scope)
+    d = os.path.join(tmp, f"t{seq_len}")
+    with pf.scope_guard(scope):
+        pf.save_inference_model(d, list(PREDICT_FEEDS),
+                                [test.global_block.var(lname)], exe,
+                                main_program=test)
+    n_ops = len(test._prune([lname]).global_block.ops)
+    mb = sum(os.path.getsize(os.path.join(d, f))
+             for f in os.listdir(d)) / 2 ** 20
+    log(f"predict T={seq_len}: built, ran the startup and saved in "
+        f"{time.monotonic() - t0:.1f} s ({n_ops} ops, {mb:.0f} MiB)")
+    return d, lname, n_ops
+
+
+def _predict_fp32(tag, d, pred, raw, feed, attn):
+    """One fp32 leg: the launches, the CPU parity (and its TF32 control),
+    ir_optim off, zero copy, clone and Executor.close."""
+    layers = MODEL["n_layers"]
+    _pred_run(pred, feed)  # set-up: the first use of cuBLAS and the pool
+    _zero_predict_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = _pred_run(pred, feed)
+    wall = time.monotonic() - t0
+    counts = _predict_launches()
+    want = {k.__name__: (0, 0) for k in PREDICT_KERNELS}
+    want["layer_norm"] = (5 * layers, 0)
+    want[attn] = (3 * layers, 0)
+    assert counts == want, (counts, want)
+    run_ms, copy_ms = _predict_split(pred, feed)
+    _, prof = _device_profile(tag, lambda: _pred_run(pred, feed))
+    log(f"{tag}: the run on the card {run_ms:.1f} ms, the logits' copy to "
+        f"the host {copy_ms:.1f} ms (best of 3 each)")
+    small = {k: v[:PREDICT_CPU_ROWS] for k, v in feed.items()}
+    t0 = time.monotonic()
+    ref = _pred_run(_predictor(d, gpu=False), small)
+    cpu_s = time.monotonic() - t0
+    bound = PREDICT_TOL * float(np.abs(ref).max())
+    err = float(np.abs(out[:PREDICT_CPU_ROWS] - ref).max())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = _pred_run(pred, small)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    terr = float(np.abs(tf32 - ref).max())
+    off, not_ties = _argmax_off(out[:PREDICT_CPU_ROWS], ref, bound)
+    log(f"{tag}: logits {tuple(out.shape)} {out.dtype} in {wall * 1e3:.1f} "
+        f"ms; launches {counts}; {PREDICT_CPU_ROWS} rows against the CPU "
+        f"predictor ({cpu_s:.1f} s): max_abs_err {err:.3e}, bound "
+        f"{bound:.3e} ({PREDICT_TOL:g} of the largest |CPU logit|), TF32 on "
+        f"{terr:.3e}; argmax other at {off} positions, {not_ties} of them "
+        f"above a top-2 margin of the bound")
+    assert np.isfinite(out).all() and err <= bound, (err, bound)
+    assert terr > bound, "the logits check cannot see TF32"
+    assert not_ties == 0, "an argmax differs where it is no tie"
+    noir = _pred_run(raw, feed)
+    nerr = float(np.abs(noir - out).max())
+    nbound = PREDICT_TOL * float(np.abs(out).max())
+    log(f"{tag}: switch_ir_optim(False) max_abs_err {nerr:.3e} (bound "
+        f"{nbound:.3e})")
+    assert nerr <= nbound, (nerr, nbound)
+    del noir
+    for n, v in feed.items():
+        pred.get_input_tensor(n).copy_from_cpu(v)
+    pred.zero_copy_run()
+    zc = pred.get_output_tensor(pred.get_output_names()[0]).copy_to_cpu()
+    assert np.array_equal(zc, out), "zero_copy_run: bits differ"
+    del zc
+    twin = pred.clone()
+    params = [v.name for v in pred.program().list_vars() if v.persistable]
+    assert all(twin._scope._get(n) is pred._scope._get(n)
+               and pred._scope._get(n).is_cuda for n in params), \
+        "the clone's params are not the predictor's tensors on the card"
+    assert np.array_equal(_pred_run(twin, feed), out), "clone: bits differ"
+    before = pred._prepared.prepare_count
+    pred._exe.close()
+    again = _pred_run(pred, feed)
+    assert pred._prepared.prepare_count == before + 1, \
+        "Executor.close() left the prepared program in place"
+    assert np.array_equal(again, out), "after close: bits differ"
+    log(f"{tag}: zero_copy_run, clone() and the run after "
+        f"Executor.close() (prepared again) give the same bits")
+    return out, counts, dict(ms=wall * 1e3, run_ms=run_ms, copy_ms=copy_ms,
+                             max_abs_err=err, bound=bound, tf32_err=terr,
+                             argmax_off=off, noir_err=nerr, cpu_s=cpu_s,
+                             profile=prof)
+
+
+def _predict_bf16(tag, d, feed, fp32_out, attn):
+    """One bf16 leg against the fp32 card logits of the same feed."""
+    layers = MODEL["n_layers"]
+    pred = _predictor(d, bf16=True)
+    floats = [t for t in (pred._scope._get(n)
+                          for n in pred._scope.local_var_names())
+              if t is not None and t.is_floating_point()]
+    assert floats and all(t.dtype == torch.bfloat16 for t in floats), \
+        "a float tensor of the bf16 predictor's scope is not bf16"
+    _pred_run(pred, feed)
+    _zero_predict_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = _pred_run(pred, feed)
+    wall = time.monotonic() - t0
+    counts = _predict_launches()
+    want = {k.__name__: (0, 0) for k in PREDICT_KERNELS}
+    want["layer_norm"] = (5 * layers, 5 * layers)
+    want[attn] = (3 * layers, 3 * layers)
+    assert counts == want, (counts, want)
+    run_ms, copy_ms = _predict_split(pred, feed)
+    _, prof = _device_profile(tag, lambda: _pred_run(pred, feed))
+    log(f"{tag}: the run on the card {run_ms:.1f} ms, the logits' copy to "
+        f"the host {copy_ms:.1f} ms (best of 3 each)")
+    bound = PREDICT_BF16 * float(np.abs(fp32_out).max())
+    err = float(np.abs(out - fp32_out).max())
+    off, not_ties = _argmax_off(out, fp32_out, bound)
+    log(f"{tag}: {len(floats)} scope tensors, all bf16; logits {out.dtype} "
+        f"in {wall * 1e3:.1f} ms; launches {counts}; against the fp32 card "
+        f"logits max_abs_err {err:.3e}, bound {bound:.3e} ({PREDICT_BF16:g} "
+        f"of the largest |fp32 logit|); argmax other at {off} of "
+        f"{out[..., 0].size} positions, {not_ties} where the fp32 top-2 "
+        f"margin exceeds the bound")
+    assert out.dtype == np.float32 and np.isfinite(out).all()
+    assert err <= bound, (err, bound)
+    assert not_ties == 0, "a bf16 argmax differs beyond the bound"
+    return counts, dict(ms=wall * 1e3, run_ms=run_ms, copy_ms=copy_ms,
+                        max_abs_err=err, bound=bound, argmax_off=off,
+                        profile=prof)
+
+
+def _predict_served(pred, card_name, card, seq_len):
+    """InferenceServer over the predictor: PREDICT_REQUESTS threaded
+    batch-1 submits, against predictor.run on the same rows."""
+    rs = np.random.RandomState(SEED + 11)
+    rows = {n: rs.randint(2, MODEL["vocab"], (PREDICT_REQUESTS, seq_len))
+            .astype("int64") for n in PREDICT_FEEDS}
+    want = np.concatenate([
+        _pred_run(pred, {k: v[i:i + BATCH] for k, v in rows.items()})
+        for i in range(0, PREDICT_REQUESTS, BATCH)])
+    got = [None] * PREDICT_REQUESTS
+    _zero_predict_launches()
+    srv = inference.InferenceServer(pred, max_batch_size=BATCH,
+                                    max_wait_ms=2.0)
+
+    def one(i):
+        got[i] = srv.infer({k: v[i:i + 1] for k, v in rows.items()},
+                           timeout=600)[0]
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(PREDICT_REQUESTS)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+            assert not t.is_alive(), "infer() did not return"
+        wall = time.monotonic() - t0
+        st = srv.stats()
+    finally:
+        srv.close()
+    assert srv._thread is None and not srv._running, "unclean close"
+    counts = _predict_launches()
+    bound = PREDICT_TOL * float(np.abs(want).max())
+    err = max(float(np.abs(g[0] - w).max()) for g, w in zip(got, want))
+    assert st["requests"] == st["completed"] == PREDICT_REQUESTS, st
+    assert st["batches"] < st["requests"], st
+    assert err <= bound, (err, bound)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i in range(PREDICT_REQUESTS):
+        _pred_run(pred, {k: v[i:i + 1] for k, v in rows.items()})
+    naive = time.monotonic() - t0
+    one_run_ms, one_copy_ms = _predict_split(
+        pred, {k: v[:1] for k, v in rows.items()})
+    log(f"predict served T={seq_len}: a batch-1 run on the card "
+        f"{one_run_ms:.1f} ms, its logits' copy {one_copy_ms:.1f} ms")
+    rps, naive_rps = PREDICT_REQUESTS / wall, PREDICT_REQUESTS / naive
+    log(f"predict served T={seq_len}: {PREDICT_REQUESTS} requests in "
+        f"{st['batches']} batches (rows {st['rows']}, padded "
+        f"{st['padded_rows']}), replies within {err:.3e} of predictor.run "
+        f"(bound {bound:.3e}); {rps:.2f} requests/s, p50 latency "
+        f"{st['latency_ms']['p50']:.1f} ms; the naive per-request "
+        f"predictor.run loop {naive_rps:.2f} requests/s; launches {counts} "
+        f"on {card_name} ({card})")
+    return counts, dict(requests_per_s=rps, p50_ms=st["latency_ms"]["p50"],
+                        naive_requests_per_s=naive_rps,
+                        batches=st["batches"], max_abs_err=err,
+                        batch1_run_ms=one_run_ms,
+                        batch1_copy_ms=one_copy_ms)
+
+
+def phase_predict(card_name, card):
+    """Phase 11: export, load and serve Transformer-base through the
+    predictor (module docstring)."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_predict_")
+    launches = {k.__name__: [0, 0] for k in PREDICT_KERNELS}
+    res = {}
+
+    def add(counts):
+        for n, (c, c16) in counts.items():
+            launches[n][0] += c
+            launches[n][1] += c16
+
+    try:
+        for seq_len, batch in PREDICT_RUNS:
+            attn = "sdpa_short" if seq_len <= 512 else "flash_attention"
+            d, lname, n_saved = _export(tmp, seq_len)
+            raw = _predictor(d, ir=False)
+            pred = _predictor(d)
+            ops_raw = [o.type for o in raw.program().global_block.ops]
+            ops = [o.type for o in pred.program().global_block.ops]
+            n_ffn = 2 * MODEL["n_layers"]  # encoder and decoder FFNs
+            log(f"predict T={seq_len}: {len(ops_raw)} ops loaded "
+                f"({ops_raw.count('dropout')} dropout, "
+                f"{ops_raw.count('mul')} mul), {len(ops)} after the passes "
+                f"({ops.count('fc')} fc, {ops.count('mul')} mul); fingerprint "
+                f"{pred.fingerprint()[:16]}")
+            assert len(ops_raw) == n_saved and "dropout" not in ops
+            assert ops.count("fc") == 2 * n_ffn and \
+                ops.count("mul") == ops_raw.count("mul") - 2 * n_ffn
+            rs = np.random.RandomState(SEED + seq_len)
+            feed = {n: rs.randint(2, MODEL["vocab"], (batch, seq_len))
+                    .astype("int64") for n in PREDICT_FEEDS}
+            tag = f"predict fp32 T={seq_len} B={batch}"
+            out, counts, r32 = _predict_fp32(tag, d, pred, raw, feed, attn)
+            add(counts)
+            del raw
+            tag = f"predict bf16 T={seq_len} B={batch}"
+            counts, r16 = _predict_bf16(tag, d, feed, out, attn)
+            add(counts)
+            res[seq_len] = dict(ops_loaded=len(ops_raw),
+                                ops_after_passes=len(ops), fp32=r32,
+                                bf16=r16)
+            nbytes = out.nbytes
+            del out
+            if seq_len == PREDICT_RUNS[0][0]:
+                res["readback"] = _readback_ms(nbytes)
+                log(f"predict readback of {nbytes / 2 ** 20:.0f} MiB: "
+                    + ", ".join(f"{k} {v:.1f}" for k, v in
+                                res["readback"].items()))
+                counts, res["served"] = _predict_served(pred, card_name,
+                                                        card, seq_len)
+                add(counts)
+            del pred
+            shutil.rmtree(d)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for n, (c, c16) in launches.items():
+        assert c > 0 and c16 > 0, f"{n} never launched in phase 11"
+    return launches, res
+
 
 def main():
     t_start = time.monotonic()
@@ -4838,13 +5297,19 @@ def main():
     mnist_launches, trained["mnist"] = phase_train_mnist(name, card)
     phase("paged serve")
     paged_launches, paged = phase_paged(name, card)
+    phase("predict")
+    predict_launches, predicted = phase_predict(name, card)
+    entries["layer_norm"]["bf16"]["launches"] = \
+        predict_launches["layer_norm"][1]
     line = []
     for kname, (src, replaces) in KERNEL_META.items():
         e = entries[kname]
         on_paths = dict(served=served_launches.get(kname, 0),
                         trained=trained_launches[kname],
                         trained_mnist=mnist_launches.get(kname, 0),
-                        served_paged=paged_launches.get(kname, 0))
+                        served_paged=paged_launches.get(kname, 0),
+                        served_predictor=predict_launches.get(
+                            kname, [0, 0])[0])
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
         extra = {x: e[x] for x in ("max_rel_err", "residual", "library",
                                    "p_max_abs_err", "library_rel_err",
@@ -4864,10 +5329,13 @@ def main():
                          ms=e["ms"], plain_ms=e["plain_ms"],
                          bound_ms=e["bound_ms"], bound_by=e["bound_by"],
                          library_ms=e["library_ms"], shape=e["shape"],
+                         served_predictor_bf16=predict_launches.get(
+                             kname, [0, 0])[1],
                          **extra, ok=True))
     log(json.dumps({"served": served}))
     log(json.dumps({"trained": trained}))
     log(json.dumps({"paged": paged}))
+    log(json.dumps({"predicted": predicted}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall in all on "
         f"{name} ({card})")
     log(json.dumps({"kernels": line}))

@@ -17,6 +17,12 @@ checkpointing), run the startup program, then ``exe.run(main, feed,
 fetch_list)`` once per step, or ``exe.run_steps(main, feed, fetch_list,
 steps=K)`` for K steps at once (on the card, one step captured in a CUDA
 graph and replayed).
+
+Serving an exported model follows the reference's deployment path:
+``fluid.save_inference_model(dir, feeds, targets, exe, program)``, then
+``inference.create_paddle_predictor(inference.AnalysisConfig(dir))`` (on
+the card; ``config.disable_gpu()`` for the host) and ``predictor.run``,
+or ``inference.InferenceServer(predictor)`` for batched serving.
 """
 from . import ops  # noqa: F401  (registers every op)
 from . import (backward, clip, layers, optimizer,  # noqa: F401
@@ -26,6 +32,10 @@ from .core.program import (Program, default_main_program,  # noqa: F401
                            default_startup_program, program_guard)
 from .core.scope import (Scope, _reset_global_scope,  # noqa: F401
                          global_scope, scope_guard)
+from . import inference, io, ir  # noqa: F401
+from .io import (load_inference_model, load_params,  # noqa: F401
+                 load_persistables, load_vars, save_inference_model,
+                 save_params, save_persistables, save_vars)
 from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,  # noqa: F401
                    GradientClipByNorm, GradientClipByValue,
                    set_gradient_clip)

@@ -43,6 +43,7 @@ CPU unless asked to.
 """
 from __future__ import annotations
 
+import collections
 import warnings
 import weakref
 from typing import Dict, List, Optional
@@ -288,6 +289,9 @@ class Executor:
         self.device = self.place.device()
         self.compile_count = 0
         self.cache_hit_count = 0
+        # close() calls: a PreparedCache over this executor drops its
+        # handles when it moves
+        self.close_count = 0
         self.last_run_steps_fallback: Optional[str] = None
         self._cache: Dict[tuple, PreparedProgram] = \
             {} if cache is None else cache
@@ -415,6 +419,13 @@ class Executor:
                                _to_fetch_names(fetch_list),
                                scope or global_scope(),
                                steps=None if steps is None else int(steps))
+
+    def close(self):
+        """Drop every prepared program this executor cached, with the
+        steps they captured (``Executor.close`` in the JAX package clears
+        its executable cache). A later run prepares again."""
+        self._cache.clear()
+        self.close_count += 1
 
     # --- the program cache ---------------------------------------------
     def _block_cache_key(self, program, feed_specs, fetch_names, scope):
@@ -781,3 +792,53 @@ class PreparedProgram:
         if self.steps is None:
             return self.exe._run_block(self, feed, return_numpy)
         return self.exe._run_steps(self, feed, False, return_numpy)
+
+
+class PreparedCache:
+    """Feed-spec-keyed LRU of PreparedPrograms, the serving hot loop's
+    helper (``PreparedCache`` in the JAX package): the predictor looks a
+    batch's PreparedProgram up by its feeds' names, shapes and dtypes,
+    and prepares it on first sight. Capped, so traffic of many shapes
+    cannot hold one handle a shape for ever."""
+
+    CAPACITY = 32
+
+    def __init__(self, executor: Executor, program, fetch_names, scope):
+        self._exe = executor
+        self._program = program
+        self._fetch_names = list(fetch_names)
+        self._scope = scope
+        self._d: "collections.OrderedDict" = collections.OrderedDict()
+        self._closes = executor.close_count
+        # the handles prepared (lookups that missed)
+        self.prepare_count = 0
+
+    def lookup(self, feed) -> PreparedProgram:
+        """The PreparedProgram for this feed's spec. Feed values that
+        are not arrays or tensors become numpy arrays in place. After
+        the executor's ``close()`` every handle is prepared again."""
+        if self._exe.close_count != self._closes:
+            self._d.clear()
+            self._closes = self._exe.close_count
+        key = []
+        for n in sorted(feed):
+            v = feed[n]
+            if not isinstance(v, (np.ndarray, torch.Tensor)):
+                v = feed[n] = np.asarray(v)
+            key.append((n, tuple(v.shape), str(v.dtype)))
+        key = tuple(key)
+        prepared = self._d.get(key)
+        if prepared is not None:
+            self._d.move_to_end(key)
+            return prepared
+        prepared = self._exe.prepare(self._program, feed,
+                                     fetch_list=self._fetch_names,
+                                     scope=self._scope)
+        self.prepare_count += 1
+        self._d[key] = prepared
+        while len(self._d) > self.CAPACITY:
+            self._d.popitem(last=False)
+        return prepared
+
+    def __len__(self):
+        return len(self._d)

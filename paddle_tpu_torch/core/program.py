@@ -6,19 +6,50 @@ python/paddle/fluid/framework.py:327,877,1339,2660). The structure is
 the same, so the two packages build identical programs; here the
 Executor interprets a Block op by op over torch tensors, as the
 reference Fluid executor does (framework/executor.cc:377).
+
+``to_dict``/``from_dict`` take the JAX package's dict schema key for key,
+so a program written by either package loads in the other;
+``fingerprint()`` is the sha256 of that dict, canonicalized as the JAX
+package canonicalizes it (``canonical_digest``).
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import itertools
-from typing import Dict, List, Optional
+import json
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from .types import VarType, as_datatype
 
 GRAD_SUFFIX = "@GRAD"
+
+
+def _canon(o):
+    """json.dumps default= hook: numpy values, enums and sets in a
+    process-stable form (``paddle_tpu/core/compile_cache.py`` ``_canon``,
+    of which the port keeps this copy and nothing else)."""
+    if isinstance(o, np.generic):
+        return o.item()
+    if isinstance(o, np.ndarray):
+        return {"__ndarray__": o.reshape(-1).tolist(),
+                "dtype": str(o.dtype), "shape": list(o.shape)}
+    if isinstance(o, (set, frozenset)):
+        return sorted(map(repr, o))
+    value = getattr(o, "value", None)
+    if value is not None and isinstance(value, (str, int)):
+        return value
+    return repr(o)
+
+
+def canonical_digest(parts: Dict[str, Any]) -> str:
+    """Stable sha256 of a JSON-canonicalized structure (the digest the
+    JAX package's ``Program.fingerprint`` takes)."""
+    blob = json.dumps(parts, sort_keys=True, default=_canon).encode()
+    return hashlib.sha256(blob).hexdigest()
 
 
 def grad_var_name(name: str) -> str:
@@ -101,10 +132,38 @@ class Variable:
 
         return layers.scale(self, scale=-1.0)
 
+    @property
+    def grad_name(self):
+        return grad_var_name(self.name)
+
     def __repr__(self):
         return (f"Variable(name={self.name!r}, shape={self.shape}, "
                 f"dtype={self.dtype.value if self.dtype else None}, "
                 f"persistable={self.persistable})")
+
+    def to_dict(self):
+        return {
+            "name": self.name,
+            "shape": list(self.shape) if self.shape is not None else None,
+            "dtype": self.dtype.value if self.dtype else None,
+            "lod_level": self.lod_level,
+            "persistable": self.persistable,
+            "stop_gradient": self.stop_gradient,
+            "trainable": self.trainable,
+            "type": self.type.value,
+            "is_data": self.is_data,
+        }
+
+    @staticmethod
+    def from_dict(block, d):
+        return Variable(
+            block, d["name"], shape=d["shape"], dtype=d["dtype"],
+            lod_level=d.get("lod_level", 0),
+            persistable=d.get("persistable", False),
+            stop_gradient=d.get("stop_gradient", False),
+            trainable=d.get("trainable", True),
+            type=VarType(d.get("type", "lod_tensor")),
+            is_data=d.get("is_data", False))
 
 class Operator:
     """One op invocation (reference framework.py:877 / op_desc.h).
@@ -129,6 +188,12 @@ class Operator:
         self.outputs = {k: list(v) for k, v in outputs.items()}
         self.attrs = dict(attrs or {})
 
+    def input(self, slot):
+        return self.inputs.get(slot, [])
+
+    def output(self, slot):
+        return self.outputs.get(slot, [])
+
     @property
     def input_arg_names(self):
         return [n for v in self.inputs.values() for n in v]
@@ -142,6 +207,41 @@ class Operator:
 
     def __repr__(self):
         return f"Op({self.type}: {self.inputs} -> {self.outputs})"
+
+    def to_dict(self):
+        attrs = {}
+        for k, v in self.attrs.items():
+            if k.startswith("__"):
+                continue  # runtime-only attrs (the grad op's forward link)
+            if isinstance(v, Block):
+                attrs[k] = {"__block__": v.idx}
+            elif isinstance(v, np.ndarray):
+                attrs[k] = {"__ndarray__": v.reshape(-1).tolist(),
+                            "dtype": str(v.dtype),
+                            "shape": list(v.shape)}
+            else:
+                attrs[k] = v
+        # the structural uid: sampling ops salt their draws with it
+        return {"type": self.type, "inputs": self.inputs,
+                "outputs": self.outputs, "attrs": attrs, "uid": self._uid}
+
+    @staticmethod
+    def from_dict(block, d, program):
+        attrs = {}
+        for k, v in d["attrs"].items():
+            if isinstance(v, dict) and "__block__" in v:
+                attrs[k] = program.blocks[v["__block__"]]
+            elif isinstance(v, dict) and "__ndarray__" in v:
+                arr = np.asarray(v["__ndarray__"], dtype=v["dtype"])
+                if "shape" in v:
+                    arr = arr.reshape(v["shape"])
+                attrs[k] = arr
+            else:
+                attrs[k] = v
+        op = Operator(block, d["type"], d["inputs"], d["outputs"], attrs)
+        if "uid" in d:
+            op._uid = d["uid"]
+        return op
 
 class Block:
     """A sequence of ops + a var table (reference framework.py:1339)."""
@@ -218,6 +318,14 @@ class Block:
         del self.ops[index]
         self.program._version += 1
 
+    def to_dict(self):
+        return {
+            "idx": self.idx,
+            "parent_idx": self.parent_idx,
+            "vars": [v.to_dict() for v in self.vars.values()],
+            "ops": [op.to_dict() for op in self.ops],
+        }
+
 def _normalize_io(io) -> Dict[str, List[str]]:
     """Accept {slot: Variable | name | list of either} and normalize."""
     out: Dict[str, List[str]] = {}
@@ -277,6 +385,12 @@ class Program:
     def all_parameters(self) -> List[Variable]:
         return list(self._parameters.values())
 
+    def list_vars(self):
+        """Every var of every block, block by block in declaration
+        order (reference framework.py Program.list_vars)."""
+        for blk in self.blocks:
+            yield from blk.vars.values()
+
     def rollback(self):
         self.current_block_idx = self.current_block().parent_idx
 
@@ -327,6 +441,63 @@ class Program:
         p.current_block_idx = 0
         p._seed = self._seed
         p._version = self._version
+        return p
+
+    def _prune(self, targets: Sequence[str]) -> "Program":
+        """Keep only the global block's ops that the target vars need,
+        and the vars those ops name (reference Program._prune, which
+        save_inference_model calls, io.py:865)."""
+        p = self.clone()
+        blk = p.global_block
+        needed = set(targets)
+        kept = []
+        for op in reversed(blk.ops):
+            if set(op.output_arg_names) & needed:
+                kept.append(op)
+                needed.update(op.input_arg_names)
+        blk.ops = list(reversed(kept))
+        used = set()
+        for op in blk.ops:
+            used.update(op.input_arg_names)
+            used.update(op.output_arg_names)
+        blk.vars = {n: v for n, v in blk.vars.items() if n in used}
+        p._parameters = {n: v for n, v in p._parameters.items()
+                         if n in blk.vars}
+        return p
+
+    def fingerprint(self) -> str:
+        """Process-stable content hash of the program: op descs and
+        attrs, op uids (sampling ops salt their draws with them) and var
+        metadata, through ``to_dict`` (``Program.fingerprint`` in the JAX
+        package, whose digest it equals for the same program). Cached per
+        `_version`: a pass bumps it."""
+        cached = getattr(self, "_fingerprint_cache", None)
+        if cached is not None and cached[0] == self._version:
+            return cached[1]
+        digest = canonical_digest(self.to_dict())
+        self._fingerprint_cache = (self._version, digest)
+        return digest
+
+    # --- serialization -----------------------------------------------------
+    def to_dict(self):
+        return {"blocks": [b.to_dict() for b in self.blocks],
+                "parameters": list(self._parameters),
+                "version": 1}
+
+    @staticmethod
+    def from_dict(d) -> "Program":
+        p = Program()
+        p.blocks = []
+        for bd in d["blocks"]:
+            p.blocks.append(Block(p, bd["idx"], bd["parent_idx"]))
+        for bd, blk in zip(d["blocks"], p.blocks):
+            for vd in bd["vars"]:
+                blk.vars[vd["name"]] = Variable.from_dict(blk, vd)
+            for od in bd["ops"]:
+                blk.ops.append(Operator.from_dict(blk, od, p))
+        for name in d.get("parameters", []):
+            if name in p.global_block.vars:
+                p._parameters[name] = p.global_block.vars[name]
         return p
 
     def __repr__(self):

@@ -1,7 +1,13 @@
-"""Serving front ends of the port."""
+"""Inference of the port: the predictor over an exported model and the
+serving front ends. The JAX package's ``export.py`` (StableHLO through
+``jax.export``) has no counterpart here (ROADMAP A6)."""
+from .config import AnalysisConfig, NativeConfig, PaddleDType  # noqa: F401
+from .predictor import (AnalysisPredictor, PaddlePredictor,  # noqa: F401
+                        PaddleTensor, ZeroCopyTensor,
+                        create_paddle_predictor)
 from .serving import (BlockPoolExhausted,  # noqa: F401
                       ContinuousGenerationServer, DeadlineExceeded,
                       GenerationServer, InferenceServer,
                       PagedContinuousGenerationServer, RequestCancelled,
                       ServerClosed, ServerQuiesced, apply_eos_sentinel,
-                      count_generated_tokens)
+                      count_generated_tokens, default_batch_buckets)

@@ -1,12 +1,13 @@
 """Serving front ends (the port's subset of
 paddle_tpu/inference/serving.py).
 
-* ``InferenceServer`` — a thread-safe request queue; one batcher thread
-  forms micro-batches up to ``max_batch_size`` rows or ``max_wait_ms``
-  after the oldest queued request, pads the batch up a fixed ladder
-  (1, 2, 4, ... max_batch_size) by replicating the last real row, runs
-  the program once, and hands each caller its own rows back. Requests
-  batch together when their non-batch shapes and dtypes agree.
+* ``InferenceServer`` — a thread-safe request queue over a predictor or
+  a runner; one batcher thread forms micro-batches up to
+  ``max_batch_size`` rows or ``max_wait_ms`` after the oldest queued
+  request, pads the batch up a bucket ladder (by default 1, 2, 4, ...
+  max_batch_size) by replicating the last real row, runs the program
+  once, and hands each caller its own rows back. Requests batch together
+  when their non-batch shapes and dtypes agree.
 * ``GenerationServer`` — routes generation requests through the
   KV-cached incremental decode program
   (models/decode_engine.build_incremental_decode_program), so a
@@ -21,8 +22,8 @@ paddle_tpu/inference/serving.py).
   pausing and recompute-preemption under pool pressure, and the named
   retryable ``BlockPoolExhausted``.
 
-Sequence-length buckets, AOT warmup (there is nothing to compile
-ahead), streaming replies, chat sessions, speculation, chunked and
+Sequence-length buckets, a group-selection hook, AOT warmup, streaming
+replies, chat sessions, speculation, chunked and
 disaggregated prefill, and the observability spans and metrics
 providers belong to later slices.
 """
@@ -140,22 +141,76 @@ class ProgramRunner:
         return [o.cpu().numpy() for o in outs]
 
 
+class _PredictorRunner:
+    """Adapts an AnalysisPredictor to the server's runner protocol."""
+
+    def __init__(self, predictor):
+        self._predictor = predictor
+        self.feed_names = list(predictor.get_input_names())
+        self.fetch_names = list(predictor.get_output_names())
+        self.program = predictor.program()
+
+    def run_batch(self, feed):
+        return self._predictor._run_feed(feed)
+
+
 class InferenceServer:
-    """Dynamic-batching server over a runner (an
-    object with ``program``, ``feed_names``, ``fetch_names`` and
-    ``run_batch(feed) -> [np.ndarray]``).
+    """Dynamic-batching server over a predictor (an AnalysisPredictor)
+    or a runner (an object with ``program``, ``feed_names``,
+    ``fetch_names`` and ``run_batch(feed) -> [np.ndarray]``), with the
+    JAX package's parameters in its order.
 
     Requests are feed dicts whose arrays carry a leading batch axis;
     fetched outputs must be batch-major the same way. ``submit``
     enqueues and returns a future; ``infer`` blocks for one request.
+
+    Each setting comes from the argument, else from the predictor
+    config's ``serving_options()`` (``enable_dynamic_batching``), else
+    the default (8 rows, 2.0 ms, the power-of-two ladder).
+    ``batch_buckets`` must cover ``max_batch_size``. Sequence buckets and
+    a group-selection hook (``seq_buckets``, ``select_group``) and
+    ``aot_warmup`` are not ported yet (ROADMAP A7 step 11).
     """
 
-    def __init__(self, runner, max_batch_size: int = 8,
-                 max_wait_ms: float = 2.0, start: bool = True):
+    def __init__(self, predictor_or_runner,
+                 max_batch_size: Optional[int] = None,
+                 max_wait_ms: Optional[float] = None,
+                 batch_buckets: Optional[Sequence[int]] = None,
+                 seq_buckets: Optional[Sequence[int]] = None,
+                 select_group=None, start: bool = True):
+        knobs = None
+        if hasattr(predictor_or_runner, "run_batch"):
+            runner = predictor_or_runner
+        else:
+            runner = _PredictorRunner(predictor_or_runner)
+            cfg = getattr(predictor_or_runner, "_config", None)
+            knobs = getattr(cfg, "serving_options", lambda: None)()
+        if knobs:
+            if max_batch_size is None:
+                max_batch_size = knobs.get("max_batch_size")
+            if max_wait_ms is None:
+                max_wait_ms = knobs.get("max_wait_ms")
+            if batch_buckets is None:
+                batch_buckets = knobs.get("batch_buckets")
+            if seq_buckets is None and knobs.get("seq_buckets"):
+                seq_buckets = knobs["seq_buckets"]
+        for name, val in (("seq_buckets", seq_buckets),
+                          ("select_group", select_group)):
+            if val is not None:
+                raise NotImplementedError(
+                    f"InferenceServer({name}=...) is not ported yet "
+                    f"(ROADMAP A7 step 11)")
         self._runner = runner
-        self.max_batch_size = int(max_batch_size)
-        self.max_wait_ms = float(max_wait_ms)
-        self.batch_buckets = default_batch_buckets(self.max_batch_size)
+        self.max_batch_size = int(
+            max_batch_size if max_batch_size is not None else 8)
+        self.max_wait_ms = float(
+            max_wait_ms if max_wait_ms is not None else 2.0)
+        self.batch_buckets = sorted(set(
+            batch_buckets or default_batch_buckets(self.max_batch_size)))
+        if self.batch_buckets[-1] < self.max_batch_size:
+            raise ValueError(
+                f"batch_buckets {self.batch_buckets} do not cover "
+                f"max_batch_size={self.max_batch_size}")
         self._feed_names = list(runner.feed_names)
 
         self._cv = threading.Condition()

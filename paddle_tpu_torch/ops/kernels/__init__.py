@@ -11,7 +11,8 @@ Every wrapper dispatches on the device of the tensors it is given:
 
 Each wrapper carries a plain integer ``launches`` attribute that it
 bumps once per kernel launch, so a run can show that its path went
-through the kernels.
+through the kernels; the layer_norm, sdpa_short and flash_attention
+wrappers also count their bf16 launches apart (``launches_bf16``).
 """
 import torch
 

@@ -440,6 +440,7 @@ def _sdpa_short_launch(q, k, v, scale, causal, save_p):
         _ptr(lse), b * h, t, d, float(scale), int(bool(causal)),
         current_stream(q))
     sdpa_short.launches += 1
+    sdpa_short.launches_bf16 += q.dtype == torch.bfloat16
     check_launch("sdpa_short", err)
     return (out, p) if save_p else out
 
@@ -531,6 +532,7 @@ def _flash_attention_launch(q, k, v, scale, causal, with_lse):
         _ptr(lse), b * h, tq, k.shape[2], d, float(scale),
         int(bool(causal)), current_stream(q))
     flash_attention.launches += 1
+    flash_attention.launches_bf16 += q.dtype == torch.bfloat16
     check_launch("flash_attention", err)
     return (out, lse) if with_lse else out
 
@@ -630,5 +632,8 @@ class FlashAttentionFn(torch.autograd.Function):
 sdpa_short.launches = 0
 sdpa_short_bwd.launches = 0
 flash_attention.launches = 0
+# the launches of the bf16 instances (also counted in `launches`)
+sdpa_short.launches_bf16 = 0
+flash_attention.launches_bf16 = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0

@@ -65,6 +65,7 @@ def _launch(x, scale, bias, eps):
         mean.data_ptr(), var.data_ptr(), n, d, eps,
         int(x.dtype == torch.bfloat16), current_stream(x))
     layer_norm.launches += 1
+    layer_norm.launches_bf16 += x.dtype == torch.bfloat16
     check_launch("layer_norm", err)
     return y, mean, var
 
@@ -111,3 +112,5 @@ def layer_norm(x, scale, bias, eps=1e-5):
 
 
 layer_norm.launches = 0
+# the launches of the bf16 instance (also counted in `launches`)
+layer_norm.launches_bf16 = 0

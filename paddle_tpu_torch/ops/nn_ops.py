@@ -1,6 +1,7 @@
 """NN ops of the serving and training slices: layer_norm, softmax,
 softmax_with_cross_entropy, lookup_table, dropout, attention and the fused
-attention_block and ffn_block, and the accuracy metric (the subset of
+attention_block and ffn_block, the accuracy metric and the inference
+passes' fc (the subset of
 ``paddle_tpu/ops/nn_ops.py`` the paths run; reference layer_norm_op.cc,
 softmax_op.cc, softmax_with_cross_entropy_op.cc, lookup_table_op.cc,
 dropout_op.cc, metrics/accuracy_op.cc).
@@ -23,6 +24,7 @@ from .kernels import ffn_block as K_ffn
 from .kernels import layer_norm as K_ln
 from .kernels import reference_attention
 from .kernels import xent as K_xent
+from .math_ops import _flatten2d
 from .tensor_ops import _take_fill
 
 
@@ -347,6 +349,34 @@ def attention(ctx):
     if layout == "bthd":
         return _sdpa(q, k, v, scale, causal, "bthd")
     return reference_attention(q, k, v, scale, causal)
+
+
+@register_op("fc")
+def fc(ctx):
+    """mul + bias + activation as one op (``fc`` in the JAX package's
+    nn_ops.py, which ``ir.fc_fuse_pass`` writes, as the reference's
+    ir/fc_fuse_pass.cc does): Input flattened to 2-D at
+    `in_num_col_dims`, times W, plus Bias when given, the leading dims
+    restored, then `activation_type` relu, tanh or softmax ("" none).
+    A plain product, as in the JAX package, where it runs outside any
+    Pallas kernel."""
+    x, w, b = ctx.input("Input"), ctx.input("W"), ctx.input("Bias")
+    ncd = ctx.attr("in_num_col_dims", 1)
+    x2 = _flatten2d(x, ncd)
+    out = torch.matmul(x2, w.reshape(x2.shape[-1], -1))
+    if b is not None:
+        out = out + b.reshape(1, -1)
+    out = out.reshape(tuple(x.shape[:ncd]) + (out.shape[-1],))
+    act = ctx.attr("activation_type", "")
+    if act == "relu":
+        out = torch.relu(out)
+    elif act == "tanh":
+        out = torch.tanh(out)
+    elif act == "softmax":
+        out = torch.softmax(out, dim=-1)
+    elif act:
+        raise ValueError(f"fc: unsupported activation {act!r}")
+    return {"Out": out}
 
 
 @register_op("ffn_block")

@@ -513,6 +513,48 @@ def test_layer_norm_kernel_matches_plain(cuda, n, d):
         torch.testing.assert_close(g, w, rtol=0, atol=ATOL)
 
 
+def _ln_var_without_mean(x, scale, bias, eps=1e-5):
+    """#1's planted fault in bf16: the variance as mean(x^2)."""
+    x32 = x.float()
+    mean = x32.mean(dim=1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(x32.square().mean(dim=1, keepdim=True)
+                                   + eps)
+    return (y * scale.float()[None] + bias.float()[None]).to(x.dtype)
+
+
+def _ln_bf16_case(device, n, d):
+    g = torch.Generator().manual_seed(n + d)
+    x = (torch.randn(n, d, generator=g) * 3 + 0.5).to(torch.bfloat16)
+    s, b = (torch.randn(d, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    return x.to(device), s.to(device), b.to(device)
+
+
+def test_layer_norm_bf16_gate_sees_the_planted_fault():
+    """The card's gate for #1 in bf16 (one ulp of the largest |plain| in
+    at most 5% of the elements) on the CPU: the plain version passes
+    against itself, the variance without the mean subtracted fails."""
+    x, s, b = _ln_bf16_case("cpu", 512, 512)
+    want = KL.layer_norm_plain(x, s, b)[0]
+    assert _bf16_passes(KL.layer_norm(x, s, b)[0], want)
+    assert not _bf16_passes(_ln_var_without_mean(x, s, b), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d", [(8192, 512), (4096, 512), (33, 300)])
+def test_layer_norm_kernel_bf16_one_ulp(cuda, n, d):
+    """#1 in bf16 at the predictor's rows: one ulp of the largest |plain|
+    in at most 5% of the elements, the same bits twice."""
+    x, s, b = _ln_bf16_case(cuda, n, d)
+    before = KL.layer_norm.launches_bf16
+    y = KL.layer_norm(x, s, b)[0]
+    assert KL.layer_norm.launches_bf16 == before + 1
+    want = KL.layer_norm_plain(x, s, b)[0]
+    assert _bf16_passes(y, want)
+    assert torch.equal(y, KL.layer_norm(x, s, b)[0])
+    assert not _bf16_passes(_ln_var_without_mean(x, s, b), want)
+
+
 @pytest.mark.gpu
 def test_layer_norm_kernel_bf16(cuda):
     x = _cuda_randn(cuda, 64, 512, seed=4, dtype=torch.bfloat16)
