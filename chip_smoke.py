@@ -245,7 +245,8 @@ Phases (a failing phase fails the script; none is caught):
    the paged cache (16 lanes, 256 blocks of 16 positions, 16 prompt
    entries, prompts and buffers of 256 tokens) under
    PagedContinuousGenerationServer(steps_per_tick=8): 32 threaded
-   submits, 8 shared prompts 3 times each and 8 unique ones, then the
+   submits, 8 shared prompts 3 times each and 8 unique ones (with
+   radix_reuse=False: the prefix cache's hit and miss tiers), then the
    same requests through the dense ContinuousGenerationServer on the
    same 16 lanes. The paged decode-attention kernel must launch n_layers
    times a tick (the device's tick counter); the copies of a shared
@@ -300,11 +301,43 @@ Phases (a failing phase fails the script; none is caught):
    than requests, a clean close; requests/s and p50 latency beside the
    naive per-request predictor.run loop's requests/s.
 
+12. radix and beam (after phase 9): phase 9's bundle (it builds the
+   ("radix", A) serves, the COW and the probe programs) and seeded
+   weights, the word embeddings scaled by RADIX_EMB_SCALE and the
+   decoder's branch outputs by RADIX_BRANCH_SCALE (as seeded, the
+   decode emits one token over and over), and end_id's logit column
+   given a constant bias so that turns end (the last decoder layer's
+   output LayerNorm holds its first feature at 1: scale 0, shift 1;
+   logits.w row 0 takes RADIX_EOS_BIAS in end_id's column). Prompts
+   and extension tokens from RADIX_PROMPT_SEED, the rows fixed up front
+   (radix_scan.py's scan on the card chose them); the phase asserts
+   that each session's turn-1 decode stops on end_id after at least 16
+   tokens (one full block shared) and that each turn leaves room for
+   the next extension. (a) 8 chat sessions x 3 turns (turns 2 and 3
+   each add 4 extend_tokens) on PagedContinuousGenerationServer with
+   radix_reuse and again on a fresh one without: every turn's tokens
+   and histories equal, 16 radix admissions on each, every reuse
+   admission sharing >= 1 block and none on the other; after
+   close_session and an evict of the whole tree the pool and the prompt
+   entries drain; turn-2 and turn-3 p50 latency and requests/s of
+   both. (b) the 8 prompts sent plain twice: the second submit admits
+   through the radix tier (8 plain radix admissions), both equal to
+   turn 1. (c) n_best=4 on 2 prompts: identical replies on one prompt
+   entry. (d) PagedBeamDecoder, beam 4 on 2 prompts, on the card and
+   then on the CPU (plain versions): scores within 1e-4, hypotheses
+   equal except candidates whose score lies within that bound of the
+   other side's last (printed); >= 1 COW block; the pool free after
+   each decode; beam 1 equals the server's greedy tokens with 0 COW;
+   ms a decode. Kernel #9 launches n_layers times a device tick on
+   every leg (the device's tick counter).
+
 The script prints its whole wall time; the second-to-last line lists
 the kernels as JSON, each with its launches on the serving (`served`),
 training (`trained`, phases 5-8 together), MNIST training
 (`trained_mnist`, phase 10's eager SGD leg), paged serving
-(`served_paged`, phase 9) and predictor (`served_predictor`, phase 11's
+(`served_paged`, phase 9), radix serving (`served_radix`, phase 12's
+session, plain-reuse and n_best legs), beam decoding (`served_beam`,
+phase 12's card decodes) and predictor (`served_predictor`, phase 11's
 timed runs and served requests; `served_predictor_bf16`: the bf16
 launches among them) paths; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -485,6 +518,38 @@ PAGED = dict(seq_len=256, max_out_len=256, n_slots=16, block_size=16,
              n_blocks=256, n_prompt_entries=16, steps_per_tick=8)
 PAGED_SHARED, PAGED_REPEATS, PAGED_UNIQUE = 8, 3, 8
 PAGED_CPU_ROWS = 8   # distinct prompts held against the CPU whole loop
+# phase 12, the radix tier and the beam decoder on phase 9's bundle and
+# seeded weights, changed in three places. As seeded, the decode barely
+# depends on its input: the decoder's attention and FFN branches,
+# averaged over 256 prompt and history positions, swamp a token's
+# embedding, and the card emits one token over and over (end_id's logit
+# margin moved by ~3e-3 across prompts and steps). So the word
+# embeddings are scaled by RADIX_EMB_SCALE and the decoder's branch
+# outputs (self_out, cross_out, fc2) by RADIX_BRANCH_SCALE: each step's
+# token then follows from the last token, the position, the history and
+# the prompt. And end_id's output column gets a constant bias so that
+# turns end: the last decoder layer's output LayerNorm holds its first
+# feature at 1 (scale 0, shift 1) and logits.w row 0 takes
+# RADIX_EOS_BIAS in end_id's column (its seeded values elsewhere).
+# Prompts of 256 tokens from RADIX_PROMPT_SEED; the rows below were
+# fixed once, from radix_scan.py's scan of the candidates on the card,
+# and the phase asserts what it needs of them before relying on it
+RADIX_EMB_SCALE = 6.0
+RADIX_BRANCH_SCALE = 0.2
+RADIX_EOS_BIAS = 0.55
+RADIX_PROMPT_SEED = SEED + 12
+RADIX_CANDIDATES = 48
+RADIX_SESSION_ROWS = (7, 9, 11, 14, 16, 22, 23, 32)
+RADIX_TURNS = 3                # turn 1 the prompt, then two extensions
+RADIX_EXTEND = 4               # extend_tokens of turns 2 and 3
+RADIX_MIN_TURN1 = 16           # tokens before end_id: one full block
+RADIX_NBEST = 4
+RADIX_NBEST_ROWS = (1, 4)
+RADIX_BEAM = 4
+RADIX_BEAM_ROWS = (19, 24)
+# beam scores (sums of up to 255 fp32 log-probs) card against CPU: the
+# JAX package's own beam pin (tests/test_radix_reuse.py:223)
+RADIX_BEAM_TOL = 1e-4
 # the MNIST fc net (BASELINE.md config 1; models/mnist.py build_program
 # with use_conv=False: 784-128-64-10) at bench.py bench_mnist's batch,
 # 4096, on its synthetic separable batch (bench.py:375-377) as [784]
@@ -3247,9 +3312,13 @@ def phase_paged(card_name, card):
                   KA.flash_attention):
             k.launches = 0
         if leg == "paged":
+            # radix_reuse=False: this phase is the prefix cache's hit and
+            # miss tiers, and its pool must drain (phase 12 serves the
+            # radix tier)
             srv = serving.PagedContinuousGenerationServer(
                 paged, executor=gpu, scope=gscope,
-                steps_per_tick=PAGED["steps_per_tick"], start=False)
+                steps_per_tick=PAGED["steps_per_tick"], start=False,
+                radix_reuse=False)
         else:
             srv = serving.ContinuousGenerationServer(
                 dense, executor=gpu, scope=gscope,
@@ -3297,7 +3366,8 @@ def phase_paged(card_name, card):
     legs["paged"]["profile"] = _profile_paged_burst(
         serving.PagedContinuousGenerationServer(
             paged, executor=gpu, scope=gscope,
-            steps_per_tick=PAGED["steps_per_tick"], start=False),
+            steps_per_tick=PAGED["steps_per_tick"], start=False,
+            radix_reuse=False),
         distinct[:PAGED["n_slots"]])
 
     # every served copy of a shared prompt is the same row (miss and
@@ -3339,6 +3409,291 @@ def phase_paged(card_name, card):
     return launches, dict(legs=legs, ties_cpu=ties_cpu,
                           ties_dense=ties_dense, cpu_s=cpu_s,
                           longest=steps)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the radix tier (chat sessions, plain-prompt reuse, n_best) and
+# the paged beam decoder
+# ---------------------------------------------------------------------------
+RADIX_KERNELS = (KL.layer_norm, KPA.paged_decode_attention, KA.sdpa_short,
+                 KA.flash_attention)
+
+
+def _radix_setup(gpu):
+    """Phase 12's bundle (phase 9's paged bundle), its weights (phase 9's
+    seeded ones, changed as the constants RADIX_* say) on the card and on
+    the CPU, the candidate prompts [RADIX_CANDIDATES, 256] and each
+    candidate's extension tokens [RADIX_CANDIDATES, turns - 1, 4]."""
+    paged, _, _, startup, _ = _paged_programs()
+    gscope = _paged_weights(gpu, startup)
+    params = [v.name for v in startup.global_block.vars.values()
+              if v.persistable]
+    host = pf.scope_to_numpy(gscope, params)
+    for emb in ("src_word_emb", "tgt_word_emb"):
+        host[emb] *= RADIX_EMB_SCALE
+    for li in range(MODEL["n_layers"]):
+        for w in ("self_out.w", "cross_out.w", "fc2.w", "fc2.b"):
+            host[f"dec{li}_{w}"] *= RADIX_BRANCH_SCALE
+    ln = f"dec{MODEL['n_layers'] - 1}_c_ln"
+    host[f"{ln}.w"][0] = 0.0
+    host[f"{ln}.b"][0] = 1.0
+    host["logits.w"][0, MODEL["end_id"]] = RADIX_EOS_BIAS
+    pf.load_numpy_params(gscope, host, gpu.device)
+    cscope = pf.Scope()
+    pf.load_numpy_params(cscope, host, pf.CPUPlace())
+    rng = np.random.RandomState(RADIX_PROMPT_SEED)
+    cands = rng.randint(2, MODEL["vocab"], (
+        RADIX_CANDIDATES, PAGED["seq_len"])).astype(np.int64)
+    exts = rng.randint(2, MODEL["vocab"], (
+        RADIX_CANDIDATES, RADIX_TURNS - 1, RADIX_EXTEND)).astype(np.int64)
+    return paged, gscope, cscope, cands, exts
+
+
+def _radix_server(paged, gpu, gscope, reuse):
+    return serving.PagedContinuousGenerationServer(
+        paged, executor=gpu, scope=gscope,
+        steps_per_tick=PAGED["steps_per_tick"], radix_reuse=reuse)
+
+
+def _radix_turns(srv, rows, cands, exts, check):
+    """RADIX_TURNS turns of one session per row, each turn a wave of
+    every session's submit; a session's next turn extends its history by
+    its extension tokens. `check`: assert what the fixed data must give
+    before relying on it: every turn-1 decode ends on end_id after at
+    least RADIX_MIN_TURN1 tokens, and every turn but the last leaves room
+    for the next extension under max_out_len - 1. Returns per turn the
+    rows, the histories and the wave's wall time, requests/s and p50
+    latency."""
+    turns = []
+    for t in range(RADIX_TURNS):
+        srv.stats(reset=True)
+        t0 = time.monotonic()
+        replies = [srv.submit(cands[r], session_id=f"s{r}",
+                              extend_tokens=None if t == 0
+                              else exts[r, t - 1]) for r in rows]
+        toks = np.stack([rep.result(timeout=600) for rep in replies])
+        wall = time.monotonic() - t0
+        st = srv.stats()
+        hists = [srv.session_history(f"s{r}") for r in rows]
+        turns.append(dict(toks=toks, hists=hists, wall_s=wall,
+                          requests_per_s=len(rows) / wall,
+                          p50_ms=st["latency_ms"]["p50"]))
+        for i, (row, hist) in enumerate(zip(toks, hists)):
+            if not check:
+                break
+            assert t or (len(hist) >= RADIX_MIN_TURN1 + 1
+                         and row[len(hist)] == MODEL["end_id"]), \
+                f"row {rows[i]}: turn 1 gave {len(hist) - 1} tokens " \
+                f"before end_id (the fixed data needs >= " \
+                f"{RADIX_MIN_TURN1} and end_id)"
+            assert t == RADIX_TURNS - 1 or len(hist) + RADIX_EXTEND \
+                <= PAGED["max_out_len"] - 1, \
+                f"row {rows[i]}: turn {t + 1} leaves no room to extend"
+    return turns
+
+
+def _launch_counts():
+    return {k.__name__: k.launches for k in RADIX_KERNELS}
+
+
+def _zero_launches():
+    for k in RADIX_KERNELS:
+        k.launches = 0
+
+
+def _drain_radix(srv, sessions):
+    """Close the sessions, evict the whole tree: the pool and the prompt
+    entries must drain."""
+    for sid in sessions:
+        srv.close_session(sid)
+    with srv._cv:
+        srv._radix.evict(PAGED["n_blocks"])
+    ps = srv.pool_stats()
+    assert ps["blocks_in_use"] == 0 and ps["prompt_entries_in_use"] == 0 \
+        and ps["radix_nodes"] == 0, ps
+    return ps
+
+
+def _beam_agree(tag, got, want):
+    """Card hypotheses against the CPU's: a hypothesis in both sets
+    within RADIX_BEAM_TOL of its CPU score; one in a single set only
+    where its score lies within that bound of the other set's last (a
+    near tie at the cut), printed. Returns those candidates."""
+    g = {tuple(int(x) for x in t): s for t, s in got}
+    w = {tuple(int(x) for x in t): s for t, s in want}
+    for t in g.keys() & w.keys():
+        assert abs(g[t] - w[t]) <= RADIX_BEAM_TOL, (tag, g[t], w[t])
+    ties = []
+    for mine, other, side in ((g, w, "card"), (w, g, "CPU")):
+        cut = min(other.values())
+        for t in mine.keys() - other.keys():
+            log(f"{tag}: a {side} hypothesis the other side lacks, score "
+                f"{mine[t]:.6f} against the other's last {cut:.6f}")
+            assert abs(mine[t] - cut) <= RADIX_BEAM_TOL, (tag, side)
+            ties.append((side, mine[t], cut))
+    return ties
+
+
+def phase_radix(card_name, card):
+    """The radix tier and the paged beam decoder on Transformer-base
+    (phase 9's bundle and seeded weights, end_id's column biased so that
+    turns end). (a) 8 chat sessions of 3 turns (turns 2 and 3 extend 4
+    tokens) on a server with radix_reuse and on one without: the same
+    tokens and histories, 16 radix admissions each, every reuse admission
+    sharing >= 1 block and none on the other; then the sessions close,
+    the tree is evicted and the pool and prompt entries drain. (b) the 8
+    prompts sent plain, then again: the second submit admits through the
+    radix tier with the same tokens. (c) n_best=4 on 2 prompts: identical
+    replies on one prompt entry. (d) PagedBeamDecoder, beam 4 on 2
+    prompts, against the same decoder on the CPU (plain versions): scores
+    within RADIX_BEAM_TOL, hypotheses equal but for near ties; >= 1 COW
+    block; the pool free after each decode; beam 1 is the server's greedy
+    decode with no COW. Kernel #9 launches n_layers times a device tick
+    on every leg. Returns (launches by kernel on the radix legs, on the
+    beam leg, results)."""
+    L = MODEL["n_layers"]
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    cpu = pf.Executor(pf.CPUPlace())
+    t0 = time.monotonic()
+    paged, gscope, cscope, cands, exts = _radix_setup(gpu)
+    log(f"radix: built the bundle ({len(paged.serves)} serves, cow and "
+        f"probe programs) and the weights in {time.monotonic() - t0:.1f} s")
+    rows = list(RADIX_SESSION_ROWS)
+    sessions = [f"s{r}" for r in rows]
+    res = {}
+    radix_launches = dict.fromkeys(_launch_counts(), 0)
+    legs = {}
+    for reuse in (True, False):
+        tag = "reuse" if reuse else "replay"
+        _zero_launches()
+        srv = _radix_server(paged, gpu, gscope, reuse)
+        try:
+            turns = _radix_turns(srv, rows, cands, exts, check=reuse)
+            ps = srv.pool_stats()
+            n_radix = len(rows) * (RADIX_TURNS - 1)
+            assert ps["radix_admissions"] == n_radix, ps
+            assert srv._devtel.totals["tel_admit_radix"] == n_radix
+            depth = ps["prefix_hit_depth"]
+            if reuse:
+                # every radix admission shared at least one block
+                assert depth["0"] == 0 and depth["+Inf"] == n_radix, ps
+            else:
+                assert depth["0"] == n_radix and \
+                    ps["radix_hit_blocks"] == 0, ps
+            _drain_radix(srv, sessions)
+            extra = {}
+            if reuse:
+                # (b) the prompts sent plain twice: the second admits
+                # through the radix tier over the harvested chain
+                plain = []
+                for _ in range(2):
+                    replies = [srv.submit(cands[r]) for r in rows]
+                    plain.append(np.stack([x.result(timeout=600)
+                                           for x in replies]))
+                ps2 = srv.pool_stats()
+                assert ps2["plain_radix_admissions"] == len(rows), ps2
+                for p in plain:
+                    np.testing.assert_array_equal(p, turns[0]["toks"])
+                # (c) n_best: identical greedy replies on one entry
+                nbest = []
+                for r in RADIX_NBEST_ROWS:
+                    srv.stats(reset=True)
+                    outs = [x.result(timeout=600) for x in
+                            srv.submit(cands[r], n_best=RADIX_NBEST)]
+                    st = srv.stats()
+                    for o in outs[1:]:
+                        np.testing.assert_array_equal(o, outs[0])
+                    assert st["device_telemetry"][
+                        "prompt_entries_hwm"] == 1, st
+                    nbest.append(int(serving.count_generated_tokens(
+                        outs[0][None], MODEL["end_id"])[0]))
+                with srv._cv:
+                    srv._radix.evict(PAGED["n_blocks"])
+                ps3 = srv.pool_stats()
+                assert ps3["blocks_in_use"] == 0 \
+                    and ps3["prompt_entries_in_use"] == 0, ps3
+                extra = dict(plain_radix_admissions=ps2[
+                    "plain_radix_admissions"], nbest_tokens=nbest)
+            ticks = srv._devtel.totals["tel_ticks"]
+        finally:
+            srv.close()
+        counts = _launch_counts()
+        assert counts["paged_decode_attention"] == L * ticks, (counts, ticks)
+        assert counts["layer_norm"] > 0
+        assert counts["sdpa_short"] == counts["flash_attention"] == 0
+        for n, c in counts.items():
+            radix_launches[n] += c
+        legs[tag] = dict(turns=turns, pool=ps, ticks=ticks,
+                         launches=counts, **extra)
+        for t, tr in enumerate(turns):
+            log(f"radix {tag}: turn {t + 1}: {len(rows)} sessions in "
+                f"{tr['wall_s']:.3f} s, {tr['requests_per_s']:.2f} "
+                f"requests/s, p50 latency {tr['p50_ms']} ms, history "
+                f"lengths {[len(h) for h in tr['hists']]} on {card_name} "
+                f"({card})")
+        log(f"radix {tag}: {ticks} ticks, launches {counts}; pool {ps}")
+    for t in range(RADIX_TURNS):
+        np.testing.assert_array_equal(legs["reuse"]["turns"][t]["toks"],
+                                      legs["replay"]["turns"][t]["toks"])
+        assert legs["reuse"]["turns"][t]["hists"] == \
+            legs["replay"]["turns"][t]["hists"]
+    log(f"radix: every turn's tokens equal with and without reuse; "
+        f"reuse hit blocks {legs['reuse']['pool']['radix_hit_blocks']}, "
+        f"plain radix admissions {legs['reuse']['plain_radix_admissions']}"
+        f", n_best generations {legs['reuse']['nbest_tokens']} tokens")
+
+    # (d) the beam decoder on the card, then the same decodes on the CPU
+    _zero_launches()
+    tel = paged.state["tel_ticks"]
+    gdec = serving.PagedBeamDecoder(paged, RADIX_BEAM, executor=gpu,
+                                    scope=gscope)
+    ticks, got, ms = 0, [], []
+    for r in RADIX_BEAM_ROWS:
+        tick0 = int(gscope._get(tel).item())
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        got.append(gdec.decode(cands[r], return_all=True))
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t1) * 1e3)
+        ticks += int(gscope._get(tel).item()) - tick0
+        assert gdec._pool.free_count == PAGED["n_blocks"]
+    assert gdec.cow_blocks >= 1, "no beam diverged inside a block"
+    one = serving.PagedBeamDecoder(paged, 1, executor=gpu, scope=gscope)
+    toks, _ = one.decode(cands[rows[0]])
+    ticks += int(gscope._get(tel).item())
+    np.testing.assert_array_equal(toks, legs["reuse"]["turns"][0]["toks"][0])
+    assert one.cow_blocks == 0 and one._pool.free_count == PAGED["n_blocks"]
+    beam_launches = _launch_counts()
+    assert beam_launches["paged_decode_attention"] == L * ticks, \
+        (beam_launches, ticks)
+    log(f"radix beam: {gdec.cow_blocks} COW blocks, shared block peak "
+        f"{gdec.shared_block_peak}; beam 1 equals the greedy server with 0 "
+        f"COW; {ticks} probe ticks, launches {beam_launches}")
+    cdec = serving.PagedBeamDecoder(paged, RADIX_BEAM, executor=cpu,
+                                    scope=cscope)
+    beams = []
+    for r, hyps, t_ms in zip(RADIX_BEAM_ROWS, got, ms):
+        t1 = time.monotonic()
+        want = cdec.decode(cands[r], return_all=True)
+        cpu_s = time.monotonic() - t1
+        assert cdec._pool.free_count == PAGED["n_blocks"]
+        ties = _beam_agree(f"beam row {r}", hyps, want)
+        beams.append(dict(ms=t_ms, cpu_s=cpu_s, ties=ties,
+                          scores=[s for _, s in hyps],
+                          cpu_scores=[s for _, s in want],
+                          lengths=[int(serving.count_generated_tokens(
+                              t[None], MODEL["end_id"])[0])
+                              for t, _ in hyps]))
+        log(f"radix beam {RADIX_BEAM}, row {r}: {t_ms:.1f} ms a decode on "
+            f"{card_name} ({card}); CPU {cpu_s:.1f} s; scores "
+            f"{beams[-1]['scores']} (CPU {beams[-1]['cpu_scores']}), "
+            f"lengths {beams[-1]['lengths']}, near ties {ties}")
+    for leg in legs.values():
+        for tr in leg["turns"]:
+            del tr["toks"], tr["hists"]
+    res = dict(legs=legs, beam=beams, cow_blocks=gdec.cow_blocks,
+               shared_block_peak=gdec.shared_block_peak, beam_ticks=ticks)
+    return radix_launches, beam_launches, res
 
 
 # ---------------------------------------------------------------------------
@@ -5297,6 +5652,8 @@ def main():
     mnist_launches, trained["mnist"] = phase_train_mnist(name, card)
     phase("paged serve")
     paged_launches, paged = phase_paged(name, card)
+    phase("radix and beam")
+    radix_launches, beam_launches, radix = phase_radix(name, card)
     phase("predict")
     predict_launches, predicted = phase_predict(name, card)
     entries["layer_norm"]["bf16"]["launches"] = \
@@ -5308,6 +5665,8 @@ def main():
                         trained=trained_launches[kname],
                         trained_mnist=mnist_launches.get(kname, 0),
                         served_paged=paged_launches.get(kname, 0),
+                        served_radix=radix_launches.get(kname, 0),
+                        served_beam=beam_launches.get(kname, 0),
                         served_predictor=predict_launches.get(
                             kname, [0, 0])[0])
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
@@ -5335,6 +5694,7 @@ def main():
     log(json.dumps({"served": served}))
     log(json.dumps({"trained": trained}))
     log(json.dumps({"paged": paged}))
+    log(json.dumps({"radix": radix}))
     log(json.dumps({"predicted": predicted}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall in all on "
         f"{name} ({card})")

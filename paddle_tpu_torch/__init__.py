@@ -23,6 +23,9 @@ Serving an exported model follows the reference's deployment path:
 ``inference.create_paddle_predictor(inference.AnalysisConfig(dir))`` (on
 the card; ``config.disable_gpu()`` for the host) and ``predictor.run``,
 or ``inference.InferenceServer(predictor)`` for batched serving.
+Generation is served from a ``models.decode_engine`` decode-step bundle
+by ``PagedContinuousGenerationServer`` (chat sessions and prefix reuse
+over a ``RadixBlockTree``) or decoded by ``PagedBeamDecoder``.
 """
 from . import ops  # noqa: F401  (registers every op)
 from . import (backward, clip, layers, optimizer,  # noqa: F401
@@ -32,7 +35,10 @@ from .core.program import (Program, default_main_program,  # noqa: F401
                            default_startup_program, program_guard)
 from .core.scope import (Scope, _reset_global_scope,  # noqa: F401
                          global_scope, scope_guard)
-from . import inference, io, ir  # noqa: F401
+from . import analysis, inference, io, ir  # noqa: F401
+from .inference import (PagedBeamDecoder,  # noqa: F401
+                        PagedContinuousGenerationServer)
+from .models.decode_engine import RadixBlockTree  # noqa: F401
 from .io import (load_inference_model, load_params,  # noqa: F401
                  load_persistables, load_vars, save_inference_model,
                  save_params, save_persistables, save_vars)

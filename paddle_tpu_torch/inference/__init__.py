@@ -5,9 +5,10 @@ from .config import AnalysisConfig, NativeConfig, PaddleDType  # noqa: F401
 from .predictor import (AnalysisPredictor, PaddlePredictor,  # noqa: F401
                         PaddleTensor, ZeroCopyTensor,
                         create_paddle_predictor)
-from .serving import (BlockPoolExhausted,  # noqa: F401
-                      ContinuousGenerationServer, DeadlineExceeded,
-                      GenerationServer, InferenceServer,
-                      PagedContinuousGenerationServer, RequestCancelled,
-                      ServerClosed, ServerQuiesced, apply_eos_sentinel,
-                      count_generated_tokens, default_batch_buckets)
+from .serving import (AdmissionInfeasible,  # noqa: F401
+                      BlockPoolExhausted, ContinuousGenerationServer,
+                      DeadlineExceeded, GenerationServer, InferenceServer,
+                      PagedBeamDecoder, PagedContinuousGenerationServer,
+                      RequestCancelled, ServerClosed, ServerQuiesced,
+                      apply_eos_sentinel, count_generated_tokens,
+                      default_batch_buckets)

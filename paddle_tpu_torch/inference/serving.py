@@ -18,14 +18,21 @@ paddle_tpu/inference/serving.py).
   advances in one fused dispatch, and finished lanes retire at once.
 * ``PagedContinuousGenerationServer`` — the same scheduler over the
   paged KV layout: host-allocated block tables over a shared pool,
-  prefix-cache admission (a repeated prompt is encoded once), lane
-  pausing and recompute-preemption under pool pressure, and the named
-  retryable ``BlockPoolExhausted``.
+  prefix-cache admission (a repeated prompt is encoded once), the radix
+  tier (chat sessions, n-best fan-out and retired plain prompts admit
+  over shared self-KV block chains), lane pausing and
+  recompute-preemption under pool pressure, and the named retryable
+  ``BlockPoolExhausted``.
+* ``PagedBeamDecoder`` — beam search over the paged pool: the device
+  publishes each lane's next-token distribution (the bundle's probe
+  program), the host expands the beams, and branching shares full
+  blocks by refcount and copies a partial tail block through the
+  bundle's COW program.
 
 Sequence-length buckets, a group-selection hook, AOT warmup, streaming
-replies, chat sessions, speculation, chunked and
-disaggregated prefill, and the observability spans and metrics
-providers belong to later slices.
+replies, sampled emission, speculation, chunked and disaggregated
+prefill, and the observability spans and metrics providers belong to
+later slices.
 """
 from __future__ import annotations
 
@@ -41,8 +48,11 @@ import torch
 
 from ..core.executor import CUDAPlace, Executor
 from ..core.scope import global_scope
-from ..models.decode_engine import (BlockPoolExhausted, HostBlockPool,
-                                    PromptPrefixCache, ServingUnavailable)
+from ..analysis.liveness import session_feasibility
+from ..models.decode_engine import (AdmissionInfeasible,
+                                    BlockPoolExhausted, HostBlockPool,
+                                    PromptPrefixCache, RadixBlockTree,
+                                    ServingUnavailable)
 from ..observability import devtel as obs_devtel
 from ..observability.metrics import Histogram
 
@@ -573,14 +583,26 @@ class GenerationReply(futures.Future):
 
 class _GenRequest:
     __slots__ = ("src", "reply", "t_arrival", "t_first", "t_admit",
-                 "deadline", "cancel_reason", "finalized")
+                 "seed", "session", "harvest", "radix", "deadline",
+                 "cancel_reason", "finalized")
 
-    def __init__(self, src, reply, deadline=None):
+    def __init__(self, src, reply, seed=0, session=None, harvest=True,
+                 deadline=None):
         self.src = src
         self.reply = reply
         self.t_arrival = time.monotonic()
         self.t_first = None  # when its first token landed
         self.t_admit = None  # when a slot admitted it
+        # the seed as submitted: kept for sampled emission (not ported)
+        self.seed = seed
+        # chat-session id (paged radix tier); the branches of an n-best
+        # fan-out carry harvest=False: they never extend the session's
+        # history
+        self.session = session
+        self.harvest = harvest
+        # the admission's radix plan (history, resume step, history
+        # length), written by the paged scheduler under its lock
+        self.radix = None
         self.deadline = deadline  # absolute time.monotonic() instant
         # the one-way teardown mark ("cancelled" | "deadline"), and the
         # scheduler's commit, under its lock, that the outcome is decided
@@ -616,12 +638,14 @@ class ContinuousGenerationServer:
     the whole-loop body and every op is row-wise.
 
     Cancellation (``reply.cancel()``) and ``deadline_ms`` tear a request
-    down at the next planning pass or burst boundary. Left out of this
-    slice, and raising where a caller asks for them: streaming replies
-    (``stream`` / ``stream_cb``), chat sessions and n-best fan-out (they
-    need the radix serves, which the port's bundles do not build), the
-    admit_select hook, the adaptive speculation controller, request
-    traces, the cost model, and the metrics providers.
+    down at the next planning pass or burst boundary. Chat sessions and
+    n-best fan-out need the radix serves of a paged bundle
+    (``PagedContinuousGenerationServer``); this server refuses them, as
+    the JAX package's does. Left out of this slice, and raising where a
+    caller asks for them: streaming replies (``stream`` /
+    ``stream_cb``), the admit_select hook, the adaptive speculation
+    controller, request traces, the cost model, and the metrics
+    providers.
     """
 
     def __init__(self, bundle, executor=None, scope=None,
@@ -660,9 +684,8 @@ class ContinuousGenerationServer:
         self._admit_buckets = sorted(
             {k for k in self._serves if isinstance(k, int) and k > 0}
             | {k[1] for k in self._serves if isinstance(k, tuple)})
-        # the radix tier needs ("radix", A) serves, which the port's
-        # bundles do not build: off, as in the JAX package for a bundle
-        # without them
+        # the radix tier (sessions, n_best, plain-prompt reuse) needs
+        # ("radix", A) serves, which only paged bundles build
         self._radix_ok = any(isinstance(k, tuple) and k[0] == "radix"
                              for k in self._serves)
         self._warmed_compiles = 0
@@ -772,11 +795,29 @@ class ContinuousGenerationServer:
         """Enqueue one prompt row of exactly seq_len tokens; returns a
         ``GenerationReply``. ``deadline_ms`` is a completion budget from
         now: a request still queued or decoding past it is torn down and
-        fails with ``DeadlineExceeded``. ``seed`` is accepted and unused
-        (greedy bundles draw nothing). ``session_id``, ``extend_tokens``
-        and ``n_best > 1`` need the radix tier and raise, as in the JAX
-        package on a bundle without it; ``stream`` / ``stream_cb`` are
-        not ported yet."""
+        fails with ``DeadlineExceeded``. ``seed`` is kept on the request
+        for sampled emission, which is not ported: greedy bundles draw
+        nothing. ``stream`` / ``stream_cb`` are not ported yet.
+
+        Paged servers (the radix tier; elsewhere these raise):
+
+        * ``session_id``: a multi-turn chat session. The first turn
+          decodes as a plain request; when it retires, the full blocks
+          behind its tokens join the server's radix tree and its history
+          is kept. The next submit with the same session_id (and the
+          same prompt: the bidirectional encoder ties every KV chain to
+          the whole prompt) admits through the encoder-free radix tier:
+          the longest shared block prefix is mapped read-only, only the
+          divergent tail is replayed teacher-forced, and decoding
+          resumes where the history ends.
+        * ``extend_tokens``: appended to the session's history before
+          the turn runs (the user's turn in the decoder stream); needs a
+          session with a retired turn. Submit the next turn after the
+          previous one resolved.
+        * ``n_best``: n requests sharing the prompt entry (and, in a
+          session, the chain); returns a list of replies. The branches never extend the session's
+          history. Greedy branches are identical.
+        """
         arr = np.asarray(src_ids)
         if arr.ndim == 1:
             arr = arr[None]
@@ -791,8 +832,8 @@ class ContinuousGenerationServer:
             raise ValueError(f"n_best must be >= 1, got {n_best}")
         if (session_id is not None or n_best > 1) and not self._radix_ok:
             raise ValueError(
-                "session_id/n_best need the radix serve tier, which the "
-                "port's bundles do not build yet")
+                "session_id/n_best need the radix serve tier: a PAGED "
+                "bundle served by PagedContinuousGenerationServer")
         if extend_tokens is not None and session_id is None:
             raise ValueError(
                 "extend_tokens extends an existing chat session; pass "
@@ -805,10 +846,15 @@ class ContinuousGenerationServer:
             raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
         deadline = (time.monotonic() + float(deadline_ms) / 1e3
                     if deadline_ms is not None else None)
-        reply = GenerationReply()
-        req = _GenRequest(arr, reply, deadline=deadline)
-        reply._gen_server = self
-        reply._gen_req = req
+        reqs = []
+        for _ in range(n_best):
+            reply = GenerationReply()
+            req = _GenRequest(arr, reply, seed=seed,
+                              session=session_id, harvest=(n_best == 1),
+                              deadline=deadline)
+            reply._gen_server = self
+            reply._gen_req = req
+            reqs.append(req)
         with self._cv:
             if self._closed:
                 raise ServerClosed("ContinuousGenerationServer is closed")
@@ -816,12 +862,15 @@ class ContinuousGenerationServer:
                 raise ServerQuiesced(
                     "ContinuousGenerationServer is quiesced (draining); "
                     "retry against its replacement")
-            self._queue.append(req)
-            self._n_requests += 1
+            if session_id is not None:  # paged only: the gate above
+                self._session_submit_locked(session_id, arr,
+                                            extend_tokens)
+            self._queue.extend(reqs)
+            self._n_requests += len(reqs)
             if self._t_first_arrival is None:
-                self._t_first_arrival = req.t_arrival
+                self._t_first_arrival = reqs[0].t_arrival
             self._cv.notify_all()
-        return reply
+        return reqs[0].reply if n_best == 1 else [r.reply for r in reqs]
 
     def generate(self, src_ids, timeout: Optional[float] = 120.0,
                  seed=None):
@@ -874,7 +923,9 @@ class ContinuousGenerationServer:
 
     def _cancel_lane_locked(self, slot, req, reason: str):
         """Burst-boundary teardown of a live lane: its holds go back
-        through _release_lane, as at retirement."""
+        through _release_lane, as at retirement, without the harvest (a
+        torn-down turn must not extend a session's history)."""
+        req.harvest = False
         req.finalized = True
         self._release_lane(slot, req)
         self._lanes[slot] = None
@@ -1115,9 +1166,9 @@ class ContinuousGenerationServer:
 class PagedContinuousGenerationServer(ContinuousGenerationServer):
     """Continuous batching over the paged KV layout
     (``serving.py:2458`` in the JAX package; vLLM-style block tables
-    and prefix reuse). The base scheduler's fused admit-and-burst
-    cycles and immediate retirement carry over; this subclass adds the
-    host side of paging:
+    and prefix reuse, SGLang-style radix reuse). The base scheduler's
+    fused admit-and-burst cycles and immediate retirement carry over;
+    this subclass adds the host side of paging:
 
     * block allocation: a lane starts with one block from the
       ``HostBlockPool`` and grows lazily as it crosses block boundaries
@@ -1129,17 +1180,34 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
       once into an entry later hits reuse. One admission flavor a
       cycle; a duplicate cold prompt in one batch waits a cycle and
       comes back a hit;
+    * the radix tier: a lane's table is a read-only shared prefix of
+      radix-tree blocks followed by its exclusive writable tail. A
+      retiring session turn, or (with ``radix_reuse``) a retiring plain
+      request, gives its full blocks to the ``RadixBlockTree``; the
+      next turn of the session, an n-best branch or the same plain
+      prompt sent again admits through the ``("radix", A)`` serves over
+      the longest shared chain and replays the rest of its history
+      teacher-forced. Tree-only blocks are reclaimable: an allocation
+      that finds the free list empty evicts the deepest one.
+      ``radix_reuse=False`` keeps the session API but replays every
+      turn's whole history into fresh blocks and harvests no plain
+      request (the re-prefill baseline);
     * pressure: admission waits; a lane that cannot get its next block
       is paused for the cycle (its active flag host-masked, so it
-      writes nothing); when every live lane is blocked the youngest is
-      recompute-preempted (blocks freed, request re-queued at the
-      front; greedy decode re-decodes it byte-identically). Only a lone
-      request that outgrows the whole pool fails, with the named
-      retryable ``BlockPoolExhausted``: never a hang.
+      writes nothing); when every live lane is blocked the tree's
+      tree-only leaves go first, then the lane that loses the least work
+      (deepest shared prefix, then youngest) is recompute-preempted
+      (blocks freed, request re-queued at the front; greedy decode
+      re-decodes it byte-identically). Only a lone request that outgrows
+      the whole pool fails, with the named retryable
+      ``BlockPoolExhausted``: never a hang.
 
-    FIFO admission. ``radix_reuse``
-    is accepted and, with no radix serves in the bundle, changes
-    nothing, as in the JAX package. ``chunked_prefill=True`` and a
+    FIFO admission. A bundle that declares its session workload
+    (``bundle.workload = {"distinct_session_prompts": K, ...}``) is
+    checked at construction by ``analysis.liveness.session_feasibility``
+    and refused with the named ``AdmissionInfeasible``; an open session
+    that would pin more distinct prompts than the entry pool holds is
+    refused at its submit. ``chunked_prefill=True`` and a
     ``prefill_worker`` raise NotImplementedError: chunked prefill and
     its disaggregated worker belong to a later slice.
     """
@@ -1164,6 +1232,18 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 "prefill_worker")
         self._radix_reuse = bool(radix_reuse)
         self.cache = cache
+        workload = getattr(bundle, "workload", None)
+        if isinstance(workload, dict) \
+                and "distinct_session_prompts" in workload:
+            # a provably infeasible session workload is refused here,
+            # not left to wedge admissions at run time
+            chk = session_feasibility(
+                cache.n_prompt_entries,
+                int(workload["distinct_session_prompts"]),
+                sessions_close=bool(workload.get("sessions_close", False)),
+                cold_traffic=bool(workload.get("cold_traffic", False)))
+            if not chk.feasible:
+                raise AdmissionInfeasible(chk.witness)
         self._bs = cache.block_size
         self._blocks = HostBlockPool(cache.n_blocks)
         self._prefix = PromptPrefixCache(cache.n_prompt_entries,
@@ -1172,10 +1252,33 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
         self._tab = np.zeros((rows, cache.pages(bundle.max_out_len)),
                              np.int32)
         self._pref = np.full((rows,), cache.n_prompt_entries, np.int32)
+        # a lane's chain: the read-only shared radix prefix (one pool ref
+        # a block) and the exclusive writable tail
+        self._lane_shared = [[] for _ in range(bundle.n_slots)]
         self._lane_blocks = [[] for _ in range(bundle.n_slots)]
         self._lane_entry: List[Optional[int]] = [None] * bundle.n_slots
+        self._lane_sess: List[Optional[object]] = [None] * bundle.n_slots
         self._lane_step = np.zeros((rows,), np.int64)
         self._admit_tier = None
+        self._radix = RadixBlockTree(self._blocks, self._bs)
+        self._sessions: Dict[object, dict] = {}
+        # the harvest's source: the last dispatch's token buffer, valid
+        # only between a dispatch's _post_dispatch and the next
+        # _pre_dispatch (a failed dispatch must not graft a stale row)
+        self._last_tok = None
+        self._harvest_ok = False
+        self._radix_admits = 0
+        # retired plain greedy generations, prompt -> history (bounded
+        # LRU): an identical sessionless prompt re-admits through the
+        # radix tier
+        self._plain_hist: "collections.OrderedDict[tuple, list]" = \
+            collections.OrderedDict()
+        self._plain_hist_cap = 32
+        self._plain_radix_admits = 0
+        # how deep radix admissions share, in blocks
+        self._hit_depth = Histogram(
+            "paddle_tpu_blockpool_prefix_hit_depth",
+            buckets=(0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0))
         self._pause_events = 0  # lanes parked for >= 1 cycle
         self._preemptions = 0   # recompute-preempted lanes
         self._blocks_hwm = 0
@@ -1183,6 +1286,96 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
         self._pause_base = 0
         self._preempt_base = 0
         super().__init__(bundle, **kwargs)
+
+    # --- chat sessions (the radix tier) -------------------------------
+    def _session_submit_locked(self, session_id, arr, extend_tokens):
+        prompt = tuple(int(x) for x in arr.reshape(-1))
+        sess = self._sessions.get(session_id)
+        if sess is None:
+            if extend_tokens is not None:
+                raise ValueError(
+                    f"session {session_id!r} has no retired turn to "
+                    f"extend; submit its first turn plain")
+            # every open session pins one prompt entry per distinct
+            # prompt for its lifetime: a session past the entry pool
+            # could never be admitted until another closes
+            open_prompts = {s["prompt"] for s in self._sessions.values()}
+            open_prompts.add(prompt)
+            chk = session_feasibility(self.cache.n_prompt_entries,
+                                      len(open_prompts))
+            if not chk.feasible:
+                raise AdmissionInfeasible(
+                    f"opening session {session_id!r} would pin "
+                    f"{len(open_prompts)} distinct prompts against "
+                    f"n_prompt_entries={self.cache.n_prompt_entries}; "
+                    f"close a session (close_session) or grow the entry "
+                    f"pool. {chk.witness}")
+            self._sessions[session_id] = {
+                "prompt": prompt, "hist": None, "entry": None,
+                "turns": 0}
+            return
+        if sess["prompt"] != prompt:
+            raise ValueError(
+                f"session {session_id!r} was opened with a different "
+                f"prompt: sessions are keyed by PROMPT content (the "
+                f"bidirectional encoder pins every KV chain to the whole "
+                f"prompt); open a new session for a new prompt")
+        if extend_tokens is not None:
+            if sess["hist"] is None:
+                raise ValueError(
+                    f"session {session_id!r}'s first turn has not retired "
+                    f"yet; extend after its reply resolves")
+            ext = [int(t) for t in np.asarray(extend_tokens).reshape(-1)]
+            maxT = self.bundle.max_out_len
+            if len(sess["hist"]) + len(ext) > maxT - 1:
+                raise ValueError(
+                    f"session {session_id!r} history "
+                    f"({len(sess['hist'])} + {len(ext)} tokens) exceeds "
+                    f"the decode buffer (max_out_len-1 = {maxT - 1}); "
+                    f"close_session and restart")
+            sess["hist"] = sess["hist"] + ext
+
+    def close_session(self, session_id):
+        """Drop a chat session: releases its prompt-entry pin and forgets
+        its history. Its radix nodes stay as shared cache until evicted.
+        Idempotent; an in-flight turn finishes (without its harvest)."""
+        with self._cv:
+            sess = self._sessions.pop(session_id, None)
+            if sess is not None and sess["entry"] is not None:
+                self._prefix.release(sess["entry"])
+
+    def session_history(self, session_id):
+        """The session's decoded-token history (ints, the GO token first,
+        the terminator left out), or None before its first turn retired
+        and for an unknown session."""
+        with self._cv:
+            sess = self._sessions.get(session_id)
+            if sess is None or sess["hist"] is None:
+                return None
+            return list(sess["hist"])
+
+    def _alloc_block_locked(self):
+        """Pool alloc with the radix tree as reclaimable capacity: a miss
+        first evicts the deepest tree-only leaf."""
+        b = self._blocks.alloc()
+        if b is None and self._radix.evict(1):
+            b = self._blocks.alloc()
+        return b
+
+    # --- admission -----------------------------------------------------
+    def _admit_lane_locked(self, slot, req, shared, blk, entry, t_admit):
+        h = len(shared)
+        self._lane_shared[slot] = shared
+        self._lane_blocks[slot] = [blk]
+        self._lane_entry[slot] = entry
+        self._lane_sess[slot] = req.session
+        self._lane_step[slot] = h * self._bs
+        self._tab[slot, :] = 0
+        self._tab[slot, :h] = shared
+        self._tab[slot, h] = blk
+        self._pref[slot] = entry
+        self._lanes[slot] = req
+        req.t_admit = t_admit
 
     def _plan_admissions_locked(self, failures):
         admits = []
@@ -1205,7 +1398,20 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 break
             prompt = tuple(int(x) for x in req.src.reshape(-1))
             tier, _entry = self._prefix.lookup(prompt)
-            flavor = "hit" if tier == "hit" else "miss"
+            sess = self._sessions.get(req.session) \
+                if req.session is not None else None
+            if sess is not None and sess["hist"] is not None \
+                    and sess["entry"] is not None:
+                # a session with a retired turn: the radix tier
+                flavor = "radix"
+            else:
+                flavor = "hit" if tier == "hit" else "miss"
+                if flavor == "hit" and req.session is None \
+                        and self._radix_ok and self._radix_reuse \
+                        and prompt in self._plain_hist:
+                    # a plain prompt sent again replays its own retired
+                    # greedy generation over the chain the tree holds
+                    flavor = "radix"
             if self._admit_tier is None:
                 self._admit_tier = flavor
             if flavor != self._admit_tier:
@@ -1216,13 +1422,46 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 continue
             # admission watermark: one spare block must remain per
             # already-live lane, or growth turns into preempt/re-admit
-            # thrash
+            # thrash; tree-only blocks are reclaimed first
             live_now = self.n_slots - len(free_slots)
+            if self._blocks.free_count - 1 < live_now:
+                self._radix.evict(live_now + 1 - self._blocks.free_count)
             if self._blocks.free_count - 1 < live_now:
                 blocked_reason = ("free KV blocks below the live-lane "
                                   "watermark")
                 break
-            blk = self._blocks.alloc()
+            if flavor == "radix":
+                if sess is not None:
+                    hist = list(sess["hist"])
+                else:
+                    hist = list(self._plain_hist[prompt])
+                    self._plain_hist.move_to_end(prompt)
+                    self._plain_radix_admits += 1
+                P = len(hist)
+                # at most (P-1)//BS shared blocks: at least one history
+                # position is replayed, so the first device write lands
+                # in the fresh exclusive block, never a shared one
+                shared = self._radix.acquire(
+                    prompt, hist, max_blocks=(P - 1) // self._bs) \
+                    if self._radix_reuse else []
+                blk = self._alloc_block_locked()
+                if blk is None:
+                    self._radix.release(shared)
+                    blocked_reason = "no free KV block"
+                    break
+                # the session's (or the retired plain prompt's) entry is
+                # resident: always a hit
+                entry = self._prefix.acquire_hit(prompt)
+                slot = free_slots.pop(0)
+                taken.append(req)
+                self._admit_lane_locked(slot, req, shared, blk, entry,
+                                        t_admit)
+                req.radix = (hist, len(shared) * self._bs, P)
+                self._radix_admits += 1
+                self._hit_depth.observe(float(len(shared)))
+                admits.append((slot, req))
+                continue
+            blk = self._alloc_block_locked()
             if blk is None:
                 blocked_reason = "no free KV block"
                 break
@@ -1238,14 +1477,7 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 seen_cold.add(prompt)
             slot = free_slots.pop(0)
             taken.append(req)
-            self._lane_blocks[slot] = [blk]
-            self._lane_entry[slot] = entry
-            self._lane_step[slot] = 0
-            self._tab[slot, :] = 0
-            self._tab[slot, 0] = blk
-            self._pref[slot] = entry
-            self._lanes[slot] = req
-            req.t_admit = t_admit
+            self._admit_lane_locked(slot, req, [], blk, entry, t_admit)
             admits.append((slot, req))
         if taken:
             taken_ids = {id(r) for r in taken}
@@ -1270,7 +1502,22 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
         feed = {"slots": np.array(
             [slot for slot, _ in admits]
             + [self.bundle.dustbin] * (A - len(admits)), np.int64)}
-        if tier == "miss":
+        if tier == "radix":
+            # teacher-forced resume: each lane replays its history from
+            # resume (the first position past the shared prefix) and
+            # decodes from step P-1 on; padded rows feed zero rows
+            maxT = self.bundle.max_out_len
+            hist = np.zeros((A, maxT), np.int64)
+            resume = np.zeros((A,), np.int64)
+            until = np.zeros((A,), np.int64)
+            for i, (_slot, req) in enumerate(admits):
+                htoks, r, n = req.radix
+                hist[i, :n] = htoks
+                resume[i] = r
+                until[i] = n
+            feed.update(hist_toks=hist, resume_steps=resume,
+                        prefill_until=until)
+        elif tier == "miss":
             feed["src_ids"] = np.concatenate(
                 [req.src for _, req in admits]
                 + [admits[-1][1].src] * (A - len(admits)), axis=0)
@@ -1284,22 +1531,30 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
     # --- burst planning: coverage, pausing, exhaustion -----------------
     def _grow_blocks_locked(self, slot, upto_pos):
         need = upto_pos // self._bs + 1
+        # the shared prefix is never grown or written
+        base = len(self._lane_shared[slot])
         blocks = self._lane_blocks[slot]
-        while len(blocks) < need:
-            b = self._blocks.alloc()
+        while base + len(blocks) < need:
+            b = self._alloc_block_locked()
             if b is None:
                 return
-            self._tab[slot, len(blocks)] = b
+            self._tab[slot, base + len(blocks)] = b
             blocks.append(b)
 
     def _free_lane_locked(self, slot):
-        # decref from refcount 1 is the strict free; newest block first
+        # the lane's refs on its shared prefix (the tree keeps its own)
+        self._radix.release(self._lane_shared[slot])
+        self._lane_shared[slot] = []
+        # decref from refcount 1 is the strict free; a block the tree
+        # adopted at the harvest (refcount 2) stays tree-owned. Newest
+        # block first
         for b in reversed(self._lane_blocks[slot]):
             self._blocks.decref(b)
         self._lane_blocks[slot] = []
         if self._lane_entry[slot] is not None:
             self._prefix.release(self._lane_entry[slot])
             self._lane_entry[slot] = None
+        self._lane_sess[slot] = None
         self._paused.discard(slot)
 
     def _plan_burst_locked(self, admits, drain, failures):
@@ -1321,7 +1576,8 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 # a K-tick burst writes KV at positions st..st+K-1
                 self._grow_blocks_locked(s, min(st + n_steps - 1,
                                                 maxT - 1))
-                covered = len(self._lane_blocks[s]) * self._bs
+                covered = (len(self._lane_shared[s])
+                           + len(self._lane_blocks[s])) * self._bs
                 coverable = n_steps if covered >= maxT else covered - st
                 if coverable <= 0:
                     blocked.append(s)
@@ -1329,9 +1585,15 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                     k = min(k, coverable)
             if blocked and len(blocked) == len(live):
                 # every live lane sits at a block boundary with an empty
-                # free list: preempt the youngest by recompute
+                # free list: drop cached tree-only blocks before work
+                if self._radix.evict(len(blocked)):
+                    continue
+                # then preempt the lane that loses the least work: the
+                # deepest shared prefix (its re-admission resumes past
+                # it), the youngest on a tie
                 victim = max(blocked,
-                             key=lambda s: self._lanes[s].t_admit or 0)
+                             key=lambda s: (len(self._lane_shared[s]),
+                                            self._lanes[s].t_admit or 0))
                 req = self._lanes[victim]
                 self._free_lane_locked(victim)
                 self._lanes[victim] = None
@@ -1380,16 +1642,70 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                           (names["prompt_ref"], self._pref),
                           (names["active"], act)):
             self.scope._set(name, torch.from_numpy(val.copy()).to(dev))
+        self._harvest_ok = False  # until this dispatch's outs land
 
     def _post_dispatch(self, outs):
         self._lane_step = np.asarray(outs[1]).astype(np.int64).copy()
+        self._last_tok = np.asarray(outs[0])
+        self._harvest_ok = True
 
     def _release_lane(self, slot, req):
+        sid = self._lane_sess[slot]
+        if req.harvest and self._harvest_ok:
+            if sid is not None:
+                self._harvest_session_locked(slot, sid)
+            elif self._radix_ok and self._radix_reuse:
+                self._harvest_plain_locked(slot, req)
         self._free_lane_locked(slot)
+
+    def _retired_history(self, slot):
+        """The lane's row up to its terminator: (history, full blocks)."""
+        row = np.asarray(self._last_tok[slot]).reshape(-1)
+        hit = row[1:] == self._end_id
+        e = int(hit.argmax()) + 1 if hit.any() else row.shape[0] - 1
+        return [int(t) for t in row[:e]], e // self._bs
+
+    def _harvest_session_locked(self, slot, sid):
+        """Adopt a retiring session turn: the full blocks behind its
+        tokens become tree nodes (existing nodes win, so replayed chunks
+        are idempotent), and its history, the terminator left out so the
+        next turn can extend past it, is kept for the next turn."""
+        sess = self._sessions.get(sid)
+        if sess is None:
+            return  # closed mid-flight: nothing to extend
+        hist, f = self._retired_history(slot)
+        if f and self._radix_reuse:
+            chain = self._lane_shared[slot] + self._lane_blocks[slot]
+            self._radix.insert(sess["prompt"], hist, chain[:f])
+        sess["hist"] = hist
+        sess["turns"] += 1
+        if sess["entry"] is None:
+            # the session keeps the lane's entry ref for its lifetime,
+            # so later turns admit as hits (the lane free below must not
+            # release it)
+            sess["entry"] = self._lane_entry[slot]
+            self._lane_entry[slot] = None
+
+    def _harvest_plain_locked(self, slot, req):
+        """The sessionless harvest: a retired greedy generation's full
+        blocks join the tree under its prompt and its history is
+        memoized (bounded LRU), so the same prompt sent again admits
+        through the radix tier, replaying its own deterministic output.
+        The entry ref is not kept: the entry stays cached like any
+        retired one."""
+        hist, f = self._retired_history(slot)
+        prompt = tuple(int(x) for x in req.src.reshape(-1))
+        if f:
+            chain = self._lane_shared[slot] + self._lane_blocks[slot]
+            self._radix.insert(prompt, hist, chain[:f])
+        self._plain_hist.pop(prompt, None)
+        self._plain_hist[prompt] = hist
+        while len(self._plain_hist) > self._plain_hist_cap:
+            self._plain_hist.popitem(last=False)
 
     # --- observability ------------------------------------------------
     def pool_stats(self) -> dict:
-        """Block-pool and prefix-cache counters."""
+        """Block-pool, prefix-cache and radix counters."""
         with self._cv:
             return {
                 "layout": "paged",
@@ -1407,6 +1723,22 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 "paused_lanes": len(self._paused),
                 "pause_events": self._pause_events,
                 "preemptions": self._preemptions,
+                # the radix tier: shared (refcount > 1) residency, the
+                # tree, and its admissions
+                "shared_blocks": len(self._blocks.shared_blocks()),
+                "radix_nodes": self._radix.n_nodes,
+                "radix_hit_blocks": self._radix.hit_blocks,
+                "radix_inserts": self._radix.inserts,
+                "radix_adoptions": self._radix.adoptions,
+                "radix_evicted_blocks": self._radix.evicted_blocks,
+                "radix_admissions": self._radix_admits,
+                "plain_radix_admissions": self._plain_radix_admits,
+                "sessions_open": len(self._sessions),
+                # radix admissions by shared depth in blocks,
+                # cumulative at each bucket's upper edge
+                "prefix_hit_depth": {
+                    ("+Inf" if math.isinf(e) else f"{e:g}"): n
+                    for e, n in self._hit_depth.cumulative_counts()},
                 "chunked_prefill": False,
             }
 
@@ -1429,3 +1761,240 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
         st = super().stats(reset=reset)
         st["block_pool"] = self.pool_stats()
         return st
+
+
+class PagedBeamDecoder:
+    """Beam search where beam branching is copy-on-write block branching
+    (``serving.py:3844`` in the JAX package; the reference's beam_search,
+    tests/unittests/dist_transformer.py:1523, holds beam_size whole
+    dense histories, where the paged pool stores each shared hypothesis
+    prefix once).
+
+    It drives the bundle's probe program: one device tick that runs the
+    cached decoder over every lane and publishes each lane's
+    next-token distribution (``probe_probs``), with ``prefill_until``
+    pinned to ``max_out_len`` so the device never emits a token or
+    latches a lane. The host owns the tokens, scores, block tables and
+    refcounts. At each expansion step:
+
+    * a child shares its parent's full blocks read-only (``incref``);
+    * the parent's partial tail block is copied through the bundle's
+      COW program into a fresh exclusive block for each diverging
+      child, the only write path into branched state;
+    * a parent with a single heir hands its tail over without a copy
+      (beam_size 1 is greedy decoding with no copy at all).
+
+    The expansion mirrors the ``beam_search`` op
+    (``paddle_tpu/ops/decode_ops.py:21``) in numpy: 2*beam candidates,
+    accumulated log-probs, EOS freezing, and the lower index first on
+    ties. ``cow_blocks`` counts the copied blocks and
+    ``shared_block_peak`` the most blocks shared at once.
+
+    It owns the bundle's slot state between calls: do not serve the
+    same bundle and scope from a continuous server at the same time.
+    """
+
+    def __init__(self, bundle, beam_size, executor=None, scope=None):
+        cache = getattr(bundle, "cache", None)
+        if cache is None or cache.layout != "paged" \
+                or getattr(bundle, "probe", None) is None:
+            raise ValueError(
+                "PagedBeamDecoder needs a paged bundle (its probe and "
+                "cow programs); build with CacheConfig(layout='paged')")
+        if not 1 <= int(beam_size) <= bundle.n_slots:
+            raise ValueError(
+                f"beam_size {beam_size} must fit the bundle's "
+                f"{bundle.n_slots} lanes")
+        self.bundle = bundle
+        self.beam = int(beam_size)
+        self.executor = executor or Executor(CUDAPlace(0))
+        self.scope = scope or global_scope()
+        self.cache = cache
+        self._bs = cache.block_size
+        self._pool = HostBlockPool(cache.n_blocks)
+        bundle.init_slot_state(self.scope, self.executor.device)
+        st = bundle.state
+        self._st = st
+        self._rows = bundle.n_slots + 1
+        self._probe = self.executor.prepare(
+            bundle.probe, feed=[],
+            fetch_list=[st["probe_probs"], st["step"]], scope=self.scope)
+        self._cow = self.executor.prepare(
+            bundle.cow, feed=bundle.cow_feed_spec(),
+            fetch_list=[st["step"]], scope=self.scope)
+        # admission reuses the fused serves at n_steps=0 (prefill and
+        # lane reset, no tick): beam 0 encodes the prompt into entry 0
+        # (a miss), beams 1.. reset as hits
+        buckets = sorted({k[1] for k in bundle.serves
+                          if isinstance(k, tuple)})
+        mk = ("miss", _bucket_for(1, buckets, "beam admission"))
+        self._miss = self.executor.prepare(
+            bundle.serves[mk], feed=bundle.serve_feed_spec(mk),
+            fetch_list=[st["step"]], scope=self.scope)
+        self._miss_A = mk[1]
+        self._hit = None
+        if self.beam > 1:
+            hk = ("hit", _bucket_for(self.beam - 1, buckets,
+                                     "beam fan-out"))
+            self._hit = self.executor.prepare(
+                bundle.serves[hk], feed=bundle.serve_feed_spec(hk),
+                fetch_list=[st["step"]], scope=self.scope)
+            self._hit_A = hk[1]
+        self.cow_blocks = 0
+        self.shared_block_peak = 0
+
+    def _set(self, name, val):
+        self.scope._set(self._st[name], torch.from_numpy(
+            np.ascontiguousarray(val)).to(self.executor.device))
+
+    def _alloc(self):
+        b = self._pool.alloc()
+        if b is None:
+            raise BlockPoolExhausted(
+                f"beam branching exhausted the KV block pool "
+                f"(n_blocks={self._pool.n_blocks}, beam={self.beam}); "
+                f"retryable against a larger pool")
+        return b
+
+    def _admit(self, arr, tab, pref):
+        self._set("block_tab", tab)
+        self._set("prompt_ref", pref)
+        zero = np.array([0], np.int64)
+        A = self._miss_A
+        slots = np.full((A,), self.bundle.dustbin, np.int64)
+        pslots = np.full((A,), self.cache.n_prompt_entries, np.int64)
+        slots[0] = pslots[0] = 0
+        self._miss.run({"src_ids": np.repeat(arr, A, axis=0),
+                        "slots": slots, "prompt_slots": pslots,
+                        "n_steps": zero, "min_active": zero},
+                       return_numpy=True)
+        if self._hit is not None:
+            slots = np.full((self._hit_A,), self.bundle.dustbin, np.int64)
+            slots[:self.beam - 1] = np.arange(1, self.beam)
+            self._hit.run({"slots": slots, "n_steps": zero,
+                           "min_active": zero}, return_numpy=True)
+
+    def decode(self, src_ids, return_all=False):
+        """One prompt row in; the best hypothesis out as ``(tokens
+        [max_out_len] sentinel-normalized, score)``, or every hypothesis
+        best first with ``return_all=True``."""
+        W, maxT, bs = self.beam, self.bundle.max_out_len, self._bs
+        end_id = self.bundle.end_id
+        arr = np.asarray(src_ids)
+        if arr.ndim == 1:
+            arr = arr[None]
+        if arr.shape != (1, self.bundle.seq_len):
+            raise ValueError(
+                f"beam decode takes one prompt row of exactly "
+                f"seq_len={self.bundle.seq_len} tokens; got "
+                f"{tuple(np.asarray(src_ids).shape)}")
+        arr = arr.astype(np.int64)
+        rows = self._rows
+        tab = np.zeros((rows, self.cache.pages(maxT)), np.int32)
+        pref = np.full((rows,), self.cache.n_prompt_entries, np.int32)
+        pref[:W] = 0
+        tables = []
+        for b in range(W):
+            blk = self._alloc()
+            tables.append([blk])
+            tab[b, 0] = blk
+        self._admit(arr, tab, pref)
+        # probe mode, set after the admission (its lane reset clears
+        # prefill_until): the device computes KV and distributions but
+        # never emits
+        until = np.zeros((rows,), np.int64)
+        until[:W] = maxT
+        self._set("prefill_until", until)
+        buf = np.zeros((rows, maxT), np.int64)
+        buf[:W, 0] = self.bundle.start_id
+        scores = np.full((W,), -1e9, np.float32)
+        scores[0] = 0.0  # a single live seed
+        act = np.zeros((rows,), np.int64)
+        act[:W] = 1
+        neg = np.finfo(np.float32).min
+        for s in range(maxT - 1):
+            self._set("tok_buf", buf)
+            self._set("active", act)
+            self._set("block_tab", tab)
+            probs = np.asarray(self._probe.run({}, return_numpy=True)[0])[:W]
+            k2 = min(2 * W, probs.shape[1])
+            finished = buf[:W, s] == end_id
+            cand_ids = np.empty((W, k2), np.int64)
+            cand_tot = np.empty((W, k2), np.float32)
+            for b in range(W):
+                if finished[b]:
+                    # a frozen beam's only candidate is end_id at its
+                    # unchanged score
+                    cand_ids[b] = end_id
+                    cand_tot[b] = neg
+                    cand_tot[b, 0] = scores[b]
+                else:
+                    order = np.argsort(-probs[b], kind="stable")[:k2]
+                    cand_ids[b] = order
+                    with np.errstate(divide="ignore"):
+                        cand_tot[b] = np.log(probs[b, order]) + scores[b]
+            flat = cand_tot.reshape(-1)
+            top = np.argsort(-flat, kind="stable")[:W]
+            parents = top // k2
+            toks = cand_ids.reshape(-1)[top]
+            scores = flat[top].astype(np.float32)
+            # reassignment: sharing, inheritance, COW
+            boundary = (s + 1) % bs == 0
+            c = s // bs  # the block holding position s (just written)
+            heirs = collections.Counter(int(p) for p in parents)
+            new_tables, cow_src, cow_dst = [], [], []
+            for b in range(W):
+                pt = tables[int(parents[b])]
+                if boundary:
+                    # block c is full: shared read-only; the next write
+                    # opens a fresh block either way
+                    share, tail = pt[:c + 1], None
+                elif heirs[int(parents[b])] == 1:
+                    # a sole heir inherits the partial tail
+                    share, tail = pt, []
+                else:
+                    # each diverging child copies the partial block
+                    share = pt[:c]
+                    tail = [self._alloc()]
+                    cow_src.append(pt[c])
+                    cow_dst.append(tail[0])
+                for blk in share:
+                    self._pool.incref(blk)
+                if tail is None:
+                    tail = [self._alloc()]
+                new_tables.append(share + tail)
+            if cow_src:
+                # the copy runs before the old refs drop: the sources
+                # stay pinned while read
+                csrc = np.zeros((rows,), np.int64)
+                cdst = np.full((rows,), -1, np.int64)
+                cgate = np.zeros((rows,), np.float32)
+                csrc[:len(cow_src)] = cow_src
+                cdst[:len(cow_dst)] = cow_dst
+                cgate[:len(cow_src)] = 1.0
+                self._cow.run({"cow_src": csrc, "cow_dst": cdst,
+                               "cow_gate": cgate}, return_numpy=True)
+                self.cow_blocks += len(cow_src)
+            for pt in tables:
+                for blk in reversed(pt):
+                    self._pool.decref(blk)
+            tables = new_tables
+            tab[:W, :] = 0
+            for b in range(W):
+                tab[b, :len(tables[b])] = tables[b]
+            self.shared_block_peak = max(self.shared_block_peak,
+                                         len(self._pool.shared_blocks()))
+            newbuf = buf.copy()
+            for b in range(W):
+                newbuf[b] = buf[int(parents[b])]
+                newbuf[b, s + 1] = toks[b]
+            buf = newbuf
+            if np.all(toks == end_id):
+                break  # every hypothesis frozen: later steps change nothing
+        order = np.argsort(-scores, kind="stable")
+        hyps = [(apply_eos_sentinel(buf[b:b + 1], end_id)[0],
+                 float(scores[b])) for b in order]
+        for pt in tables:
+            for blk in reversed(pt):
+                self._pool.decref(blk)
+        return hyps if return_all else hyps[0]

@@ -16,6 +16,11 @@ paged serving discipline of Orca and vLLM).
   of prompt entries for the cross K/V).
 * ``HostBlockPool`` and ``PromptPrefixCache`` are the host allocators
   of the paged layout; the device only reads the tables they fill.
+* ``RadixBlockTree`` shares the full blocks of decoded-token self-KV
+  chains between the turns of a chat session, the branches of an
+  n-best fan-out and identical plain prompts (the radix tier: the
+  bundle's ``("radix", A)`` serves admit a lane over a shared chain
+  and teacher-force the rest of its history).
 
 Parameter names are the JAX package's explicit ones, so weights carry
 over by name. One place differs on purpose: the paged step's
@@ -23,9 +28,8 @@ self-attention. The JAX package gathers a dense [R,H,maxT,Dh] view of
 each lane's pages and runs the biased softmax over it; the port runs
 one ``paged_decode_attention`` op a layer instead (kernel #9 on the
 card), which computes the same function without the view. Sampling,
-speculative drafts, tensor-parallel sharding, chunked prefill, the
-radix tier, the COW and probe programs and the beam front belong to
-later slices.
+speculative drafts, tensor-parallel sharding, chunked prefill and the
+whole-loop beam program belong to later slices.
 """
 from __future__ import annotations
 
@@ -484,11 +488,15 @@ class DecodeStepBundle:
       body (absent at key 0) followed by a While that runs the step
       body until ``n_steps`` ticks ran or the live-lane count drops to
       ``min_active`` (both fed as [1] int64). Keys are admission buckets
-      (ints) for dense bundles and ``("hit"|"miss", A)`` plus 0 for
-      paged ones; ``serve_feed_spec(key)`` names each feed signature.
-      The port builds no ``("radix", A)`` serves, so a server's radix
-      tier stays off, as it does in the JAX package for a bundle
-      without them.
+      (ints) for dense bundles and ``("hit"|"miss"|"radix", A)`` plus 0
+      for paged ones; ``serve_feed_spec(key)`` names each feed
+      signature. A radix admission scatters a lane's token history
+      into ``tok_buf`` and resumes it past the shared blocks its table
+      maps, teacher-forced up to ``prefill_until``.
+    * ``cow`` (paged): copies shared self-KV blocks into fresh exclusive
+      ones in every layer's pool (feeds ``cow_feed_spec()``); ``probe``
+      (paged): one step tick that also publishes every lane's softmax
+      row to ``state["probe_probs"]``. ``PagedBeamDecoder`` runs both.
 
     ``state`` maps logical names to scope var names;
     ``init_slot_state(scope, device)`` seeds the pool. ``startup`` holds
@@ -498,7 +506,7 @@ class DecodeStepBundle:
 
     def __init__(self, prefills, step, serves, startup, state, n_slots,
                  seq_len, max_out_len, start_id, end_id, cache=None,
-                 hit_prefills=None):
+                 hit_prefills=None, cow=None, probe=None):
         self.prefills = dict(prefills)
         self.prefill = self.prefills[min(self.prefills)]
         self.hit_prefills = dict(hit_prefills or {})
@@ -513,14 +521,17 @@ class DecodeStepBundle:
         self.start_id = start_id
         self.end_id = end_id
         self.cache = cache or CacheConfig()
+        self.cow = cow        # COW block-copy Program (paged)
+        self.probe = probe    # probe-step Program (paged)
         self._state_specs: Dict[str, tuple] = {}
 
     def programs(self):
         """Every program of the bundle, in a stable order (prefills, hit
-        prefills, step, serves)."""
+        prefills, step, cow, probe, serves)."""
         out = [p for _a, p in sorted(self.prefills.items())]
         out += [p for _a, p in sorted(self.hit_prefills.items())]
         out.append(self.step)
+        out += [p for p in (self.cow, self.probe) if p is not None]
         out += [p for _k, p in sorted(self.serves.items(),
                                       key=lambda kv: str(kv[0]))]
         return out
@@ -537,6 +548,11 @@ class DecodeStepBundle:
         if key == 0:
             return feed
         tier, A = key if isinstance(key, tuple) else ("miss", key)
+        if tier == "radix":
+            return [("hist_toks", (A, self.max_out_len), "int64"),
+                    ("resume_steps", (A,), "int64"),
+                    ("prefill_until", (A,), "int64"),
+                    ("slots", (A,), "int64")] + feed
         pre = []
         if tier == "miss":
             pre.append(("src_ids", (A, self.seq_len), "int64"))
@@ -544,6 +560,15 @@ class DecodeStepBundle:
         if tier == "miss" and self.cache.layout == "paged":
             pre.append(("prompt_slots", (A,), "int64"))
         return pre + feed
+
+    def cow_feed_spec(self) -> List[tuple]:
+        """Feed signature of the COW program: per row the shared source
+        block, the fresh exclusive destination block and a 0/1 gate.
+        Padded rows feed gate 0 and destination -1 (the trash row)."""
+        rows = self.n_slots + 1
+        return [("cow_src", (rows,), "int64"),
+                ("cow_dst", (rows,), "int64"),
+                ("cow_gate", (rows,), "float32")]
 
     def kv_state_bytes(self) -> int:
         """Persistable KV bytes of the bundle (self and cross KV with the
@@ -608,9 +633,8 @@ def _slot_state_specs(prefix, rows, maxT, seq_len, n_heads, head_dim,
     # tick a real decode tick.
     specs[f"{prefix}prefill_until"] = ((rows,), "int64")
     if vocab is not None:
-        # the JAX package's probe-step output (one softmax row a lane,
-        # read by its beam front); declared so both packages hold the
-        # same slot state, though the port builds no probe program yet
+        # the probe step's output: one softmax row a lane, which the
+        # beam decoder branches on
         specs[f"{prefix}probe_probs"] = ((rows, vocab), "float32")
     for li in range(n_layers):
         specs[f"{prefix}self_k{li}{POOL_MARK}"] = (
@@ -837,10 +861,55 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         _, _, any_i, _, keep_i = _lane_onehots(slots, A)
         _reset_lane_state(sv, any_i, keep_i, tier="hit")
 
+    def _admit_body_paged_radix(sv, A):
+        """Radix-resume admission (chat sessions, n-best fan-out, a
+        retired plain prompt sent again): the prompt's cross-KV entry is
+        pooled (a hit) and the host maps the longest shared block prefix
+        of the lane's token history read-only into its table, so those
+        positions are neither encoded nor replayed. The lane's row takes
+        the whole history, its step the first position past the shared
+        blocks (every write lands in a fresh exclusive block) and its
+        prefill_until the history length: the divergent tail replays
+        teacher-forced before real decoding starts."""
+        hist = layers.data("hist_toks", shape=[A, maxT], dtype="int64",
+                           append_batch_size=False)
+        resume = layers.data("resume_steps", shape=[A], dtype="int64",
+                             append_batch_size=False)
+        until = layers.data("prefill_until", shape=[A], dtype="int64",
+                            append_batch_size=False)
+        slots = layers.data("slots", shape=[A], dtype="int64",
+                            append_batch_size=False)
+        oh, _, any_i, _, keep_i = _lane_onehots(slots, A)
+        _reset_lane_state(sv, any_i, keep_i, tier="radix")
+        # overwrite the reset's cold-start row and counters with the
+        # history: token ids < vocab << 2^24, so the float32 one-hot
+        # product scatters them exactly; the counters take the integer
+        # scatter
+        ohT = layers.transpose(oh, perm=[1, 0])            # [rows, A]
+        hist_scat = layers.cast(
+            layers.matmul(ohT, layers.cast(hist, "float32")),
+            "int64")                                       # [R,maxT]
+        any_col = layers.reshape(any_i, [rows, 1])
+        keep_col = layers.reshape(keep_i, [rows, 1])
+        tok_buf = sv[f"{state_prefix}tok_buf"]
+        layers.assign(layers.elementwise_add(
+            layers.elementwise_mul(tok_buf, keep_col),
+            layers.elementwise_mul(hist_scat, any_col)), output=tok_buf)
+        oh_i = layers.cast(oh, "int64")
+        for feed_v, state_name in ((resume, "step"),
+                                   (until, "prefill_until")):
+            var = sv[f"{state_prefix}{state_name}"]
+            scat = layers.reduce_sum(
+                layers.elementwise_mul(
+                    oh_i, layers.reshape(feed_v, [-1, 1])), dim=0)
+            layers.assign(layers.elementwise_add(
+                layers.elementwise_mul(var, keep_i), scat), output=var)
+
     admit_bodies = {"miss": _admit_body_paged_miss if paged
                     else _admit_body_dense}
     if paged:
         admit_bodies["hit"] = _admit_body_paged_hit
+        admit_bodies["radix"] = _admit_body_paged_radix
 
     prefills, hit_prefills = {}, {}
     startup = None
@@ -858,9 +927,10 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                     _declare_slot_state(hprog.global_block, specs), A)
             hit_prefills[A] = hprog
 
-    def _step_body(sv):
-        """One token over every lane (the standalone step program and
-        the serve programs' While share it)."""
+    def _step_body(sv, probe=False):
+        """One token over every lane (the standalone step program, the
+        serve programs' While and, with ``probe``, the probe program
+        share it)."""
         tok_buf = sv[f"{state_prefix}tok_buf"]
         stepv = sv[f"{state_prefix}step"]
         fin = sv[f"{state_prefix}finished"]
@@ -959,6 +1029,11 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                                 n_heads, d_inner)
         logits_v = layers.fc(layers.reshape(x, [0, d_model]), vocab,
                              bias_attr=False, param_attr="logits.w")
+        if probe:
+            # every lane's next-token distribution, for the host to
+            # branch on (the beam decoder's expansion oracle)
+            layers.assign(layers.softmax(logits_v),
+                          output=sv[f"{state_prefix}probe_probs"])
         # per-lane greedy emit (emit_token_step vectorized over lane
         # counters; same freeze and write semantics)
         ones_n = layers.fill_constant([rows], "int64", 1.0)
@@ -1070,8 +1145,42 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         if paged:
             serves[("miss", A)] = _serve_program("miss", A)
             serves[("hit", A)] = _serve_program("hit", A)
+            serves[("radix", A)] = _serve_program("radix", A)
         else:
             serves[A] = _serve_program("miss", A)
+
+    cow_prog = probe_prog = None
+    if paged:
+        # COW block copy: gather the shared source blocks of every self
+        # pool and write them into fresh exclusive blocks, the one way a
+        # lane diverges from a shared chain (beam branching). Padded
+        # rows feed gate 0 and destination -1, so one fixed-shape
+        # program serves any copy count.
+        cow_prog = Program()
+        with program_guard(cow_prog, Program()):
+            sv = _declare_slot_state(cow_prog.global_block, specs)
+            csrc = layers.data("cow_src", shape=[rows], dtype="int64",
+                               append_batch_size=False)
+            cdst = layers.data("cow_dst", shape=[rows], dtype="int64",
+                               append_batch_size=False)
+            cgate = layers.data("cow_gate", shape=[rows],
+                                dtype="float32", append_batch_size=False)
+            for li in range(n_layers):
+                for tag in ("k", "v"):
+                    pool = sv[f"{state_prefix}self_{tag}{li}{POOL_MARK}"]
+                    layers.masked_pool_write(
+                        pool, layers.gather(pool, csrc), cdst, cgate,
+                        leading_dims=1, exclusive_via="cow_dst")
+            _tel_add(sv, "tel_cow_blocks",
+                     layers.reduce_sum(layers.cast(cgate, "int64"),
+                                       keep_dim=True))
+        # probe step: one tick that also publishes every lane's softmax
+        # row; under teacher forcing over the whole buffer it never
+        # writes tok_buf or latches fin (the host owns the tokens)
+        probe_prog = Program()
+        with program_guard(probe_prog, Program()):
+            _step_body(_declare_slot_state(probe_prog.global_block,
+                                           specs), probe=True)
 
     state = {"tok_buf": f"{state_prefix}tok_buf",
              "step": f"{state_prefix}step",
@@ -1081,10 +1190,12 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         state["block_tab"] = f"{state_prefix}block_tab"
         state["prompt_ref"] = f"{state_prefix}prompt_ref"
         state["prefill_until"] = f"{state_prefix}prefill_until"
+        state["probe_probs"] = f"{state_prefix}probe_probs"
     state.update(devtel.state_entries(state_prefix, paged))
     bundle = DecodeStepBundle(prefills, step_prog, serves, startup, state,
                               n_slots, seq_len, maxT, start_id, end_id,
-                              cache=cache, hit_prefills=hit_prefills)
+                              cache=cache, hit_prefills=hit_prefills,
+                              cow=cow_prog, probe=probe_prog)
     bundle._state_specs = dict(specs)
     return bundle
 
@@ -1318,3 +1429,163 @@ class PromptPrefixCache:
     @property
     def in_use(self) -> int:
         return sum(1 for r in self._refs.values() if r > 0)
+
+
+class _RadixNode:
+    __slots__ = ("chunk", "block", "children", "parent")
+
+    def __init__(self, chunk, block, parent):
+        self.chunk = chunk        # the BS-token tuple this edge spells
+        self.block = block        # pool block holding its self-KV
+        self.children = {}        # chunk tuple -> _RadixNode
+        self.parent = parent
+
+
+class RadixBlockTree:
+    """Host-side radix tree from decoded-token chunks to self-KV blocks
+    (``decode_engine.py:3753`` in the JAX package; the longest shared
+    prefix of SGLang's RadixAttention over vLLM-style block tables).
+
+    Granularity is one full block (``block_size`` tokens): a node is a
+    block whose KV is fixed by the root prompt and the token chunks
+    spelling the path to it. Roots are keyed by the prompt's content:
+    the encoder is bidirectional, so every self-KV row also attends
+    cross-attention values of the whole prompt, and only requests with
+    the same prompt share chains.
+
+    Refcounts live in the ``HostBlockPool``: the tree holds one ref per
+    adopted node (``insert``), and every lane that maps a chain
+    read-only holds one ref per block (``acquire`` / ``release``). A
+    node whose block is at refcount 1 is tree-only; ``evict`` drops
+    such leaves, never an interior node (its children's KV depends on
+    it)."""
+
+    def __init__(self, pool: HostBlockPool, block_size: int):
+        self.pool = pool
+        self.block_size = max(1, int(block_size))
+        self._roots: Dict[tuple, _RadixNode] = {}
+        self.inserts = 0
+        self.adoptions = 0
+        self.hit_blocks = 0
+        self.evicted_blocks = 0
+
+    def _chunks(self, tokens):
+        toks = tuple(int(t) for t in tokens)
+        bs = self.block_size
+        return [toks[i:i + bs]
+                for i in range(0, len(toks) - len(toks) % bs, bs)]
+
+    def _walk(self, prompt, tokens):
+        """The matched nodes of the longest-prefix walk."""
+        node = self._roots.get(tuple(int(t) for t in prompt))
+        path = []
+        if node is None:
+            return path
+        for chunk in self._chunks(tokens):
+            nxt = node.children.get(chunk)
+            if nxt is None:
+                break
+            path.append(nxt)
+            node = nxt
+        return path
+
+    def match(self, prompt, tokens) -> int:
+        """Longest shared prefix, in blocks, of this (prompt, tokens)
+        pair; no refcount moves."""
+        return len(self._walk(prompt, tokens))
+
+    def acquire(self, prompt, tokens, max_blocks=None):
+        """Map the longest shared prefix (at most ``max_blocks``) into a
+        lane: one ``incref`` per block. Returns the blocks, shallowest
+        first."""
+        path = self._walk(prompt, tokens)
+        if max_blocks is not None:
+            path = path[:max_blocks]
+        blocks = [n.block for n in path]
+        for b in blocks:
+            self.pool.incref(b)
+        self.hit_blocks += len(blocks)
+        return blocks
+
+    def release(self, blocks):
+        """Drop a lane's refs on a chain, deepest first."""
+        for b in reversed(list(blocks)):
+            self.pool.decref(b)
+
+    def insert(self, prompt, tokens, blocks) -> int:
+        """Adopt a retiring lane's full-block chain. Where a node exists
+        the existing block wins (the lane's copy stays lane-owned and is
+        freed with the lane); elsewhere the tree adopts the lane's block
+        with its own ``incref``. Returns the blocks newly adopted."""
+        key = tuple(int(t) for t in prompt)
+        chunks = self._chunks(tokens)
+        if not chunks:
+            return 0
+        blocks = list(blocks)
+        if len(blocks) < len(chunks):
+            raise BlockLifetimeError(
+                f"radix insert of {len(chunks)} full chunks backed by "
+                f"only {len(blocks)} blocks: a node without its KV block "
+                f"would serve garbage to every later hit")
+        root = self._roots.get(key)
+        if root is None:
+            root = self._roots[key] = _RadixNode(None, None, None)
+        node, adopted = root, 0
+        for chunk, block in zip(chunks, blocks):
+            nxt = node.children.get(chunk)
+            if nxt is None:
+                self.pool.incref(block)
+                nxt = _RadixNode(chunk, block, node)
+                node.children[chunk] = nxt
+                adopted += 1
+            node = nxt
+        self.inserts += 1
+        self.adoptions += adopted
+        return adopted
+
+    def evict(self, need: int) -> int:
+        """Free up to ``need`` blocks by dropping tree-only (refcount 1)
+        leaves, the deepest first (the first root's on a tie). Returns
+        how many were freed; a subtree a lane maps is never touched."""
+        freed = 0
+        while freed < need:
+            victim = None
+            for root in self._roots.values():
+                stack = [(c, 1) for c in root.children.values()]
+                best = None
+                while stack:
+                    n, d = stack.pop()
+                    if n.children:
+                        stack.extend((c, d + 1)
+                                     for c in n.children.values())
+                    elif self.pool.refcount(n.block) == 1:
+                        if best is None or d > best[1]:
+                            best = (n, d)
+                if best is not None and (victim is None
+                                         or best[1] > victim[1]):
+                    victim = best
+            if victim is None:
+                break
+            node = victim[0]
+            del node.parent.children[node.chunk]
+            self.pool.decref(node.block)
+            freed += 1
+            self.evicted_blocks += 1
+        for key in [k for k, r in self._roots.items() if not r.children]:
+            del self._roots[key]
+        return freed
+
+    def tree_blocks(self) -> set:
+        """Every block a node holds (the tree's own refs)."""
+        out = set()
+        for root in self._roots.values():
+            stack = list(root.children.values())
+            while stack:
+                n = stack.pop()
+                out.add(n.block)
+                stack.extend(n.children.values())
+        return out
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.tree_blocks())

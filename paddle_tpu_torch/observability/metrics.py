@@ -9,7 +9,7 @@ from __future__ import annotations
 import bisect
 import math
 import threading
-from typing import Iterable, Optional
+from typing import Iterable, List, Optional, Tuple
 
 
 def default_ms_buckets():
@@ -80,6 +80,17 @@ class Histogram:
                     est = lo + (hi - lo) * (rank - (seen - c)) / c
                     return min(est, self._max)
             return self._max
+
+    def cumulative_counts(self) -> List[Tuple[float, int]]:
+        """[(upper edge, cumulative count)], +inf last: the Prometheus
+        histogram's shape."""
+        with self._lock:
+            out, cum = [], 0
+            for edge, c in zip(self.buckets, self._counts):
+                cum += c
+                out.append((edge, cum))
+            out.append((math.inf, cum + self._counts[-1]))
+            return out
 
     def percentile_dict(self) -> dict:
         p50 = self.percentile(0.50)

@@ -77,7 +77,8 @@ def main():
     def leg():
         srv = serving.PagedContinuousGenerationServer(
             paged, executor=gpu, scope=scope,
-            steps_per_tick=C.PAGED["steps_per_tick"], start=False)
+            steps_per_tick=C.PAGED["steps_per_tick"], start=False,
+            radix_reuse=False)  # phase 9's leg: the hit and miss tiers
         return C._serve_continuous(srv, prompts)
 
     leg()

@@ -51,6 +51,11 @@ def world():
 
 
 def _paged(world, **kw):
+    # radix_reuse=False, as tests/test_paged_decode.py serves: these
+    # tests pin the hit/miss tiers and the pool's drain, and a retired
+    # plain request's blocks would otherwise stay in the radix tree as
+    # cache (tests/test_torch_radix.py holds the radix tier)
+    kw.setdefault("radix_reuse", False)
     return PS.PagedContinuousGenerationServer(
         world["paged"], executor=world["m"].exe, scope=world["m"].scope,
         **kw)
@@ -251,8 +256,10 @@ def test_lifecycle_and_what_is_not_ported(world):
     try:
         with pytest.raises(ValueError, match="seq_len"):
             srv.submit(world["srcs"][0][:5])
-        with pytest.raises(ValueError, match="radix"):
-            srv.submit(world["srcs"][0], session_id="chat")
+        # a paged server takes a chat session's first turn
+        np.testing.assert_array_equal(
+            srv.submit(world["srcs"][1], session_id="chat").result(
+                timeout=60), world["want"][1])
         with pytest.raises(NotImplementedError, match="streaming"):
             srv.submit(world["srcs"][0], stream=True)
         srv.quiesce()
@@ -263,5 +270,14 @@ def test_lifecycle_and_what_is_not_ported(world):
         srv.close()
     with pytest.raises(PS.ServerClosed):
         srv.submit(world["srcs"][0])
+    # the dense server's bundle has no radix serves: it refuses sessions
+    # and n-best fan-out, as the JAX package's does
+    dense = PS.ContinuousGenerationServer(world["dense"], executor=m.exe,
+                                          scope=m.scope, start=False)
+    with pytest.raises(ValueError, match="radix"):
+        dense.submit(world["srcs"][0], session_id="chat")
+    with pytest.raises(ValueError, match="radix"):
+        dense.submit(world["srcs"][0], n_best=2)
+    dense.close()
     assert issubclass(PD.BlockPoolExhausted, PS.ServingUnavailable)
     assert PD.BlockPoolExhausted.retryable

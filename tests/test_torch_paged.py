@@ -285,15 +285,16 @@ def test_bundle_state_feeds_and_serve_keys_match(bundles):
     assert pb._state_specs == {
         n: (tuple(s), d) for n, (s, d) in jb._state_specs.items()}
     assert pb.kv_state_bytes() == jb.kv_state_bytes()
-    want_keys = {k for k in jb.serves
-                 if not (isinstance(k, tuple) and k[0] == "radix")}
-    assert set(pb.serves) == want_keys
+    # the whole serve-key set, ("radix", A) included
+    assert set(pb.serves) == set(jb.serves)
+    assert any(isinstance(k, tuple) and k[0] == "radix" for k in pb.serves)
     for key in pb.serves:
         assert pb.serve_feed_spec(key) == jb.serve_feed_spec(key), key
-    # the port builds no probe program, so no state entry points at
-    # probe_probs (its spec is declared all the same)
-    assert {k: v for k, v in jb.state.items() if k != "probe_probs"} \
-        == pb.state
+    assert pb.cow_feed_spec() == jb.cow_feed_spec()
+    assert pb.cow is not None and pb.probe is not None
+    assert len(pb.programs()) == len(jb.programs())
+    # the whole state map, probe_probs included
+    assert jb.state == pb.state and "probe_probs" in pb.state
     assert pb.cache_token() == jb.cache_token()
 
 
@@ -486,10 +487,13 @@ def model():
 
 
 def _tight(m, n_slots, n_blocks, n_entries, prefix):
+    # radix_reuse=False, as tests/test_paged_decode.py serves: these
+    # tests pin the pool's own contracts, and a retired plain request's
+    # blocks would otherwise stay in the radix tree as cache
     return PS.PagedContinuousGenerationServer(
         m.bundle(n_slots, paged_cache(n_blocks, n_entries),
                  state_prefix=prefix, admit_buckets=[1, n_slots]),
-        executor=m.exe, scope=m.scope, start=False)
+        executor=m.exe, scope=m.scope, start=False, radix_reuse=False)
 
 
 def test_parity_under_block_pressure_with_pausing(model):
@@ -537,7 +541,7 @@ def test_block_exhaustion_named_retryable_error_not_hang(model):
     long_row, short_row = LONG_ROWS[0], LENGTHS.index(8)
     srv = PS.PagedContinuousGenerationServer(
         m.bundle(2, paged_cache(1, 2), state_prefix="@tiny/"),
-        executor=m.exe, scope=m.scope)
+        executor=m.exe, scope=m.scope, radix_reuse=False)
     try:
         t0 = time.monotonic()
         with pytest.raises(PS.BlockPoolExhausted) as ei:
@@ -562,7 +566,8 @@ def test_unrouted_paged_path_matches(model):
     assert types_["expand"] == 1 and types_["gather"] == 2 * (
         MODEL["n_layers"] + 1)
     with PS.PagedContinuousGenerationServer(b, executor=m.exe,
-                                            scope=m.scope) as srv:
+                                            scope=m.scope,
+                                            radix_reuse=False) as srv:
         got = np.stack([r.result(timeout=120)
                         for r in [srv.submit(s) for s in srcs[:4]]])
         assert srv.pool_stats()["blocks_in_use"] == 0
