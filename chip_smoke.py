@@ -40,7 +40,10 @@ Phases (a failing phase fails the script; none is caught):
    2, 4, 8 CTAs a row) and in its streamed body, beside a copy of the
    same bytes; the
    attention forwards also with the residuals their backward kernels
-   read, saved P and lse, and the three attention backward kernels at
+   read, saved P and lse, flash's forward also at the chunked prefill's
+   shape, 1024 queries over 2048 keys (timed in its entry's
+   `non_square` field, with whether its rows are the same bits as at
+   tq = tk = 2048), and the three attention backward kernels at
    the training shapes, causal and not, sdpa_short also at d 128,
    ragged tiles and T 13 (odd rows of P), flash also at d 128 and 256,
    tq < tk, rows that see no key and ragged tiles, each grad held
@@ -330,6 +333,30 @@ Phases (a failing phase fails the script; none is caught):
    each decode; beam 1 equals the server's greedy tokens with 0 COW;
    ms a decode. Kernel #9 launches n_layers times a device tick on
    every leg (the device's tick counter).
+13. chunked and sampled (after phase 12): Transformer-base with phase
+   9's seeded weights. Chunked leg (CHUNK: prompts of 2048 tokens in
+   chunks of 1024, 8 lanes, 4 prompt entries, 64 tokens out): one
+   prompt walked through every ("chunked", p) phase at every chunk
+   cursor into one entry and admitted monolithically into another, the
+   cross-KV rows held within ATTN_TOL (how many values differ is
+   logged); then 8 requests over 4 distinct prompts in CHUNK_ORDER
+   through a chunked PagedContinuousGenerationServer, the same bundle's
+   monolithic server (chunked_prefill=False), a server fed by a
+   DisaggregatedPrefillWorker (its own scope and executor on the same
+   card, its own thread) and the chunked server again under
+   torch.profiler: the tokens equal on every leg, the chunk dispatches
+   exactly jobs x n_chunks x phases on the host and on the device's
+   tel_chunks, #2 launched 6 a chunk cursor of the attention phases,
+   #9 n_layers a decode tick, the pool drained; 2 prompts against the
+   CPU whole-loop decode under phase 4's tie rule. Sampled leg: phase
+   9's bundle with SAMPLED (base_seed SEED) on 4 of phase 9's shared
+   prompts with SAMPLED_SEEDS: the tokens against the CPU server's
+   (the same bundle, plain versions), the same wave reversed at
+   SAMPLED_STEPS_B a burst under torch.profiler, both under the tie
+   rule on the card's top-2 margin of g + log p at the diverging draw;
+   the least such margin over the wave's draws; a temperature-0 bundle
+   equal to phase 9's greedy rows. Walls, idle shares and launches of
+   every leg.
 
 The script prints its whole wall time; the second-to-last line lists
 the kernels as JSON, each with its launches on the serving (`served`),
@@ -337,7 +364,10 @@ training (`trained`, phases 5-8 together), MNIST training
 (`trained_mnist`, phase 10's eager SGD leg), paged serving
 (`served_paged`, phase 9), radix serving (`served_radix`, phase 12's
 session, plain-reuse and n_best legs), beam decoding (`served_beam`,
-phase 12's card decodes) and predictor (`served_predictor`, phase 11's
+phase 12's card decodes), chunked prefill (`served_chunked`, phase 13's
+chunked, monolithic and worker-fed legs), sampled emission
+(`served_sampled`, phase 13's sampled waves) and predictor
+(`served_predictor`, phase 11's
 timed runs and served requests; `served_predictor_bf16`: the bf16
 launches among them) paths; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
@@ -550,6 +580,24 @@ RADIX_BEAM_ROWS = (19, 24)
 # beam scores (sums of up to 255 fp32 log-probs) card against CPU: the
 # JAX package's own beam pin (tests/test_radix_reuse.py:223)
 RADIX_BEAM_TOL = 1e-4
+# phase 13, chunked prefill and sampled emission on Transformer-base
+# (MODEL) and phase 9's paged geometry. The chunked leg: prompts of 2048
+# tokens streamed in chunks of 1024 (2 chunks a phase, 2L + 2 = 14
+# phases; 2048 is suggest_chunk_tokens's worked example), 4 prompt
+# entries, 64 tokens out so the decode stays short; four distinct
+# prompts in tests/test_chunked_prefill.py's mixed miss/hit order
+CHUNK = dict(seq_len=2048, max_out_len=64, n_slots=8, block_size=16,
+             n_blocks=64, n_prompt_entries=4, chunk_tokens=1024,
+             steps_per_tick=8)
+CHUNK_ORDER = (0, 1, 0, 2, 1, 3, 2, 0)
+CHUNK_CPU_ROWS = 2   # prompts held against the CPU whole-loop decode
+# the sampled leg: phase 9's bundle with this sampling policy (base_seed
+# SEED), four of phase 9's shared prompts with these seeds (none 0: a
+# lane that was never admitted holds seed 0), served again in reverse
+# order at SAMPLED_STEPS_B a burst
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.9)
+SAMPLED_SEEDS = (7, 2 ** 31 + 5, 2 ** 32 - 1, 123456789)
+SAMPLED_STEPS_B = 3
 # the MNIST fc net (BASELINE.md config 1; models/mnist.py build_program
 # with use_conv=False: 784-128-64-10) at bench.py bench_mnist's batch,
 # 4096, on its synthetic separable batch (bench.py:375-377) as [784]
@@ -860,6 +908,57 @@ def _attn_entry(name, kern, plain, cases, main_shape, tf32=False):
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=bms, bound_by=by, library_ms=lib_ms,
                 shape=list(main_shape), **extra)
+
+
+def _flash_non_square_entry():
+    """#2 at the chunked prefill's attention shape (phase 13): a chunk of
+    1024 queries over the layer's 2048 keys, non-causal. Held against
+    the plain version at ATTN_TOL; whether each query row's output has
+    the same bits at tq 1024 as in the monolithic encoder's launch at
+    tq = tk = 2048; timed behind the sleep kernel beside the plain
+    version, the library's SDPA and the bound."""
+    b, h = 1, MODEL["n_heads"]
+    tq, tk = CHUNK["chunk_tokens"], CHUNK["seq_len"]
+    d = MODEL["d_model"] // MODEL["n_heads"]
+    scale = d ** -0.5
+    q, k, v = _qkv(b, h, tk, tk, d, seed=tq + tk)
+    qc = q[:, :, :tq].contiguous()
+    qt = q[:, :, tq:].contiguous()
+    got = KA.flash_attention(qc, k, v, scale, False)
+    want = KA.flash_attention_plain(qc, k, v, scale, False)
+    full = KA.flash_attention(q, k, v, scale, False)
+    tail = KA.flash_attention(qt, k, v, scale, False)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    finite = bool(torch.isfinite(got).all())
+    assert finite and err <= ATTN_TOL, err
+    same = bool(torch.equal(got, full[:, :, :tq])
+                and torch.equal(tail, full[:, :, tq:]))
+    rows_diff = max(max_err(got, full[:, :, :tq]),
+                    max_err(tail, full[:, :, tq:]))
+    ms = time_ms(lambda: KA.flash_attention(qc, k, v, scale, False))
+    plain_ms = time_ms(lambda: KA.flash_attention_plain(qc, k, v, scale,
+                                                        False))
+    lib = _lib_sdpa(qc, k, v, scale)
+    torch.cuda.synchronize()
+    lib_err = max_err(lib, want)
+    lib_ms = time_ms(lambda: _lib_sdpa(qc, k, v, scale))
+    nbytes = 4 * (2 * qc.numel() + k.numel() + v.numel())
+    bms, by = bound_ms(nbytes, b * h * tq * tk * (4 * d + 5))
+    products = 4 * b * h * tq * tk * d
+    log(f"  flash_attention [{b},{h},{tq},{tk},{d}] non-causal (the "
+        f"chunked prefill's shape): max_abs_err {err:.3e} (tol "
+        f"{ATTN_TOL:g}); rows the same bits as at tq = tk = {tk}: {same} "
+        f"(largest difference {rows_diff:.3e}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library sdpa {lib_ms:.4f} ms (its error "
+        f"{lib_err:.3e}), bound {bms:.4f} ms ({by}), split-TF32 bound "
+        f"{_tf32x3_ms(products):.4f} ms, {products / ms / 1e9:.2f} TFLOP/s "
+        f"of fp32 products")
+    return dict(shape=[b, h, tq, tk, d], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, tf32x3_bound_ms=_tf32x3_ms(products),
+                tflops=products / ms / 1e9, rows_bit_identical=same,
+                rows_max_diff=rows_diff)
 
 
 def _randn_like(x, seed):
@@ -1862,6 +1961,7 @@ def phase_kernels():
          (1, 8, 256, 1024, 64, True),      # tq < tk, bottom-right
          (1, 8, 1024, 256, 64, True)],     # tq > tk: fully masked rows
         (BATCH, 8, 1024, 64), tf32=True)
+    entries["flash_attention"]["non_square"] = _flash_non_square_entry()
     entries.update(_xent_entries())
     residual = _attn_bwd_entries()
     for name in ("sdpa_short", "flash_attention"):
@@ -2395,7 +2495,7 @@ def _port_kernel(name):
 PROFILE_WARMUP = 32  # sleep kernels run under the profiler before `run`
 
 
-def _device_profile(tag, run, match=None):
+def _device_profile(tag, run, match=None, host=True):
     """`run()` once under torch.profiler: its wall time, the card's busy
     time (device-side activities: kernels, copies, memsets), the idle
     share, the kernels that took most of it, every kernel of the port's
@@ -2405,11 +2505,16 @@ def _device_profile(tag, run, match=None):
     The profiler can miss the first activities after it starts (an eager
     fused step's first 25, in one call), so PROFILE_WARMUP short sleep
     kernels and 20 ms of host time come first; they are left out of
-    every number, and how many of them were recorded is kept."""
+    every number, and how many of them were recorded is kept. `host`
+    False records the device's activities only: a run of many thousand
+    host ops (a whole serving wave) then takes seconds, not minutes, to
+    read back; every number above comes from the device's side."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    kinds = [ProfilerActivity.CUDA]
+    if host:
+        kinds.append(ProfilerActivity.CPU)
+    with profile(activities=kinds) as prof:
         for _ in range(PROFILE_WARMUP):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
@@ -3134,14 +3239,16 @@ def phase_train_fused(card_name, card, unfused):
     return counts, res
 
 
-def _serve_continuous(srv, prompts):
+def _serve_continuous(srv, prompts, seeds=None):
     """All `prompts` submitted from their own threads to a server built
-    with start=False; the server starts once every request is queued.
-    Returns (rows in request order, stats, wall seconds)."""
+    with start=False (with `seeds`, request i draws with seeds[i]); the
+    server starts once every request is queued. Returns (rows in request
+    order, stats, wall seconds)."""
     results = [None] * len(prompts)
 
     def call(i):
-        results[i] = srv.submit(prompts[i]).result(timeout=900)
+        seed = None if seeds is None else seeds[i]
+        results[i] = srv.submit(prompts[i], seed=seed).result(timeout=900)
 
     threads = [threading.Thread(target=call, args=(i,))
                for i in range(len(prompts))]
@@ -3165,14 +3272,14 @@ def _serve_continuous(srv, prompts):
     return np.stack(results), st, wall
 
 
-def _profile_paged_burst(srv, prompts):
+def _profile_paged_burst(srv, prompts, tag="paged serve", seeds=None):
     """One decode burst of the paged server under torch.profiler, driven
     from this thread: a first cycle admits a full pool of requests and
     runs steps_per_tick ticks, the second cycle (admitting nothing, a
     burst of steps_per_tick ticks over every lane) is profiled. The
     server is then closed."""
-    for p in prompts:
-        srv.submit(p)
+    for i, p in enumerate(prompts):
+        srv.submit(p, seed=None if seeds is None else seeds[i])
     try:
         for profiled in (False, True):
             failures = []
@@ -3185,7 +3292,7 @@ def _profile_paged_burst(srv, prompts):
                 continue
             t0 = srv._devtel.totals["tel_ticks"]
             n0 = KPA.paged_decode_attention.launches
-            _, res = _device_profile("paged serve: one burst",
+            _, res = _device_profile(f"{tag}: one burst",
                                      lambda: srv._cycle(admits, n, m),
                                      match="paged_decode")
     finally:
@@ -3196,7 +3303,7 @@ def _profile_paged_burst(srv, prompts):
                paged_kernel_ms=paged_ms,
                paged_share=(paged_ms / res["device_busy_ms"]
                             if res["device_busy_ms"] else None))
-    log(f"paged serve: the profiled burst ran {res['ticks']} ticks of "
+    log(f"{tag}: the profiled burst ran {res['ticks']} ticks of "
         f"{len(prompts)} lanes; paged_decode_attention {paged_ms:.3f} ms "
         f"in {res['paged_launches']} launches, share of the busy time "
         f"{res['paged_share']}")
@@ -3385,7 +3492,11 @@ def phase_paged(card_name, card):
     ref = serving.apply_eos_sentinel(ref, MODEL["end_id"])
     cpu_s = time.monotonic() - t0
     lname = _logits_name(whole)
-    first = {i: int(np.nonzero(ids == i)[0][0]) for i in pick}
+
+    def first_of(i):
+        return int(np.nonzero(ids == i)[0][0])
+
+    first = {i: first_of(i) for i in pick}
 
     def tie(prompt_of_row):
         return lambda r, pos: _tie_margin(cpu, whole, lname, cscope,
@@ -3404,11 +3515,16 @@ def phase_paged(card_name, card):
         f"ties; CPU run {cpu_s:.1f} s) and the dense leg in "
         f"{len(prompts) - ties_dense}/{len(prompts)} ({ties_dense} ties); "
         f"longest generation {steps} tokens")
+    # phase 13's temperature-0 check reads the paged leg's rows of the
+    # first shared prompts (main drops them before the JSON)
+    greedy = (distinct[:len(SAMPLED_SEEDS)],
+              legs["paged"]["toks"][[first_of(i) for i in
+                                     range(len(SAMPLED_SEEDS))]])
     for leg in legs.values():
         del leg["toks"]
     return launches, dict(legs=legs, ties_cpu=ties_cpu,
                           ties_dense=ties_dense, cpu_s=cpu_s,
-                          longest=steps)
+                          longest=steps, _greedy=greedy)
 
 
 # ---------------------------------------------------------------------------
@@ -3694,6 +3810,420 @@ def phase_radix(card_name, card):
     res = dict(legs=legs, beam=beams, cow_blocks=gdec.cow_blocks,
                shared_block_peak=gdec.shared_block_peak, beam_ticks=ticks)
     return radix_launches, beam_launches, res
+
+
+# ---------------------------------------------------------------------------
+# phase 13: chunked prefill (on the server and on a disaggregated prefill
+# worker) and sampled emission
+# ---------------------------------------------------------------------------
+CHUNK_PREFIX = "@ck/"
+
+
+def _chunk_programs():
+    """Phase 13's chunked bundle (8 lanes, 64 blocks of 16, 4 prompt
+    entries, prompts of 2048 in chunks of 1024, 64 tokens out) and the
+    whole-loop decode program of the same lengths, with its startup and
+    output."""
+    cfg = dict(MODEL, seq_len=CHUNK["seq_len"],
+               max_out_len=CHUNK["max_out_len"])
+    cache = decode_engine.CacheConfig(
+        layout="paged", block_size=CHUNK["block_size"],
+        n_blocks=CHUNK["n_blocks"],
+        n_prompt_entries=CHUNK["n_prompt_entries"],
+        chunk_tokens=CHUNK["chunk_tokens"])
+    with unique_name.guard():
+        bundle = decode_engine.build_decode_step_program(
+            n_slots=CHUNK["n_slots"], state_prefix=CHUNK_PREFIX,
+            cache=cache, **cfg)
+    with unique_name.guard():
+        whole, startup, _, out = \
+            decode_engine.build_incremental_decode_program(**cfg)
+    return bundle, whole, startup, out
+
+
+def _chunk_walk_rows(bundle, exe, scope, src):
+    """Entry 0 filled by the monolithic miss admission (its encoder runs
+    #2 at tq = tk = 2048), entry 1 by the walk of every phase at every
+    chunk cursor (#2 at tq 1024 over tk 2048). Returns (how many values
+    of the cross-KV rows differ, of how many, their largest difference,
+    the largest |value|)."""
+    bundle.init_slot_state(scope, "cuda")
+    zero = np.array([0], np.int64)
+    fetch = [bundle.state["active"]]
+    exe.run(bundle.serves[("miss", 1)],
+            feed={"src_ids": src[None], "slots": zero,
+                  "prompt_slots": zero, "n_steps": zero,
+                  "min_active": zero}, fetch_list=fetch, scope=scope)
+    C = CHUNK["chunk_tokens"]
+    for key in bundle.chunk_phase_keys:
+        for ci in range(bundle.cache.n_chunks(CHUNK["seq_len"])):
+            feed = {"chunk_entry": np.array([1], np.int64),
+                    "chunk_pos": np.array([ci * C], np.int64),
+                    "n_steps": zero, "min_active": zero}
+            if key[1] == 0:
+                feed["chunk_toks"] = src[None, ci * C:(ci + 1) * C]
+            exe.run(bundle.serves[key], feed=feed, fetch_list=fetch,
+                    scope=scope)
+    torch.cuda.synchronize()
+    differ = total = 0
+    diff = top = 0.0
+    for name in bundle._state_specs:
+        if re.fullmatch(re.escape(CHUNK_PREFIX) + r"cross_[kv]\d+"
+                        + re.escape(decode_engine.POOL_MARK), name):
+            pool = scope._get(name)
+            a, b = pool[0], pool[1]
+            differ += int((a != b).sum())
+            total += a.numel()
+            diff = max(diff, max_err(a, b))
+            top = max(top, float(a.abs().max()))
+    return differ, total, diff, top
+
+
+def _idle_share(prof):
+    return None if prof is None else prof["idle_share"]
+
+
+def _chunk_leg(tag, bundle, gpu, gscope, prompts, profiled=False,
+               worker=None, chunked_prefill=None):
+    """One wave of `prompts` through a PagedContinuousGenerationServer
+    over the chunked bundle: its rows, wall, pool and host chunk counts,
+    the device's tel_chunks (the worker's scope's, with a worker), the
+    launches by kernel and, `profiled`, the profile of the wave."""
+    _zero_launches()
+    srv = serving.PagedContinuousGenerationServer(
+        bundle, executor=gpu, scope=gscope,
+        steps_per_tick=CHUNK["steps_per_tick"], start=False,
+        radix_reuse=False, chunked_prefill=chunked_prefill,
+        prefill_worker=worker)
+    prof = None
+    if profiled:
+        (toks, st, wall), prof = _device_profile(
+            f"chunked prefill, {tag}", lambda: _serve_continuous(
+                srv, prompts), host=False)
+    else:
+        toks, st, wall = _serve_continuous(srv, prompts)
+    counts = _launch_counts()
+    ps = srv.pool_stats()
+    tel = st["device_telemetry"]
+    tel_scope = worker.scope if worker is not None else gscope
+    dev_chunks = int(tel_scope._get(
+        bundle.state["tel_ticks"].replace("tel_ticks",
+                                          "tel_chunks")).item())
+    L = MODEL["n_layers"]
+    assert st["completed"] == len(prompts), st
+    assert counts["paged_decode_attention"] == L * tel["ticks"], \
+        (counts, tel["ticks"])
+    assert counts["layer_norm"] > 0 and counts["flash_attention"] > 0, \
+        counts
+    assert counts["sdpa_short"] == 0, counts
+    assert ps["blocks_in_use"] == 0 and ps["prompt_entries_in_use"] == 0, ps
+    log(f"chunked prefill, {tag}: {len(prompts)} requests in {wall:.2f} s "
+        f"({'under the profiler, ' if profiled else ''}idle share "
+        f"{_idle_share(prof)}), p50 latency {st['latency_ms']['p50']} ms, "
+        f"ttft p50 {st['ttft_ms']['p50']} ms; {st['ticks']} dispatches, "
+        f"{tel['ticks']} decode ticks; chunk jobs {ps['chunk_jobs']}, "
+        f"chunk dispatches {ps['chunk_ticks']} (device {dev_chunks}), "
+        f"handoffs {ps['disagg_handoffs']}; launches {counts}")
+    return toks, dict(wall_s=wall, p50_ms=st["latency_ms"]["p50"],
+                      ttft_p50_ms=st["ttft_ms"]["p50"],
+                      dispatches=st["ticks"], ticks=tel["ticks"],
+                      chunk_jobs=ps["chunk_jobs"],
+                      chunk_ticks=ps["chunk_ticks"],
+                      device_chunks=dev_chunks,
+                      handoffs=ps["disagg_handoffs"], launches=counts,
+                      profile=prof)
+
+
+def _record_margins(records):
+    """Wrap the sample_categorical op's kernel: each call also records,
+    for every row, (seed, pos, the top-2 margin of g + log p), without
+    a sync. Returns the function that restores the kernel."""
+    from paddle_tpu_torch.ops import spec_ops as SO
+
+    info = registry.get_op_info("sample_categorical")
+    real = info.kernel
+
+    def kernel(ctx):
+        probs = ctx.input("Probs")
+        keys = SO.lane_keys(
+            SO.base_key(ctx.attr("base_seed", 0), ctx.attr("noise_tag", 0),
+                        probs.device), ctx.input("Seed"), ctx.input("Pos"))
+        z = -torch.log(-torch.log(SO.uniform(keys, probs.shape[-1]))) \
+            + torch.log(probs.float() + 1e-20)
+        top2 = torch.topk(z, 2, dim=-1).values
+        records.append(torch.stack([
+            ctx.input("Seed").reshape(-1).double(),
+            ctx.input("Pos").reshape(-1).double(),
+            (top2[:, 0] - top2[:, 1]).double()], dim=1))
+        return real(ctx)
+
+    info.kernel = kernel
+
+    def restore():
+        info.kernel = real
+    return restore
+
+
+def _least_margin(records, seeds, rows):
+    """The least top-2 margin over the draws of the real lanes: each
+    (seed, position) that a request's row holds, first draw only."""
+    rec = torch.cat(records).cpu().numpy()
+    seen, least, n = set(), math.inf, 0
+    lengths = serving.count_generated_tokens(rows, MODEL["end_id"])
+    for seed, pos, margin in rec:
+        key = (int(seed), int(pos))
+        if key in seen or int(seed) not in seeds:
+            continue
+        i = seeds.index(int(seed))
+        if not 1 <= int(pos) <= int(lengths[i]):
+            continue
+        seen.add(key)
+        least = min(least, float(margin))
+        n += 1
+    return least, n
+
+
+def _sampled_server(bundle, exe, scope, steps):
+    return serving.PagedContinuousGenerationServer(
+        bundle, executor=exe, scope=scope, steps_per_tick=steps,
+        start=False, radix_reuse=False)
+
+
+def _sampled_rows_agree(tag, got, want, margins):
+    """Rows equal, or first diverging at a draw whose card top-2 margin
+    lies below LOGITS_TOL (`margins`: (seed index, pos) -> margin).
+    Returns the ties."""
+    ties = 0
+    for r in range(len(got)):
+        diff = np.nonzero(got[r] != want[r])[0]
+        if not len(diff):
+            continue
+        pos = int(diff[0])
+        m = margins.get((r, pos))
+        log(f"{tag}: row {r} diverges at position {pos}: card top-2 "
+            f"margin {m}")
+        assert m is not None and m < LOGITS_TOL, f"{tag}: not a tie"
+        ties += 1
+    return ties
+
+
+def phase_chunked_sampled(card_name, card, greedy):
+    """Chunked prefill and sampled emission on Transformer-base.
+    Chunked leg (CHUNK): the cross-KV rows of one prompt's phase walk
+    against the monolithic miss admission's; then 8 requests over 4
+    distinct 2048-token prompts in CHUNK_ORDER through a chunked server,
+    the same bundle's monolithic server (chunked_prefill=False) and a
+    server fed by a DisaggregatedPrefillWorker on a second scope and
+    executor: tokens equal, chunk dispatches exactly jobs x n_chunks x
+    phases on the host and the device, #1, #2 and #9 launched; two
+    prompts against the CPU whole loop. Sampled leg: phase 9's bundle
+    with SAMPLED (base_seed SEED) on 4 of phase 9's shared prompts with
+    SAMPLED_SEEDS: the card's tokens against the CPU server's, the same
+    wave reversed at SAMPLED_STEPS_B a burst, the least top-2 margin of
+    the draws; a temperature-0 bundle against phase 9's greedy rows.
+    Returns (launches on the chunked leg, on the sampled leg, results)."""
+    L = MODEL["n_layers"]
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    cpu = pf.Executor(pf.CPUPlace())
+    t0 = time.monotonic()
+
+    def at():
+        return f"[{time.monotonic() - t0:.1f} s into the phase]"
+
+    bundle, whole, startup, out = _chunk_programs()
+    gscope = _paged_weights(gpu, startup)
+    params = [v.name for v in startup.global_block.vars.values()
+              if v.persistable]
+    cscope = pf.Scope()
+    pf.load_numpy_params(cscope, pf.scope_to_numpy(gscope, params),
+                         pf.CPUPlace())
+    log(f"chunked prefill: built the bundle ({len(bundle.serves)} serves, "
+        f"{len(bundle.chunk_phase_keys)} chunk phases) and the weights in "
+        f"{time.monotonic() - t0:.1f} s")
+    rng = np.random.RandomState(SEED + 13)
+    distinct = rng.randint(2, MODEL["vocab"], (
+        4, CHUNK["seq_len"])).astype(np.int64)
+    prompts = distinct[list(CHUNK_ORDER)]
+    t1 = time.monotonic()
+    differ, total, diff, top = _chunk_walk_rows(bundle, gpu, gscope,
+                                                distinct[0])
+    log(f"chunked prefill: the rows check in {time.monotonic() - t1:.1f} s")
+    log(f"chunked prefill: the phase walk's cross-KV rows against the "
+        f"monolithic admission's: {differ} of {total} values differ, "
+        f"largest difference {diff:.3e} (tol {ATTN_TOL:g}), largest "
+        f"|value| {top:.3f}")
+    assert diff <= ATTN_TOL, diff
+    n_chunks = bundle.cache.n_chunks(CHUNK["seq_len"])
+    phases = len(bundle.chunk_phase_keys)
+    legs, toks = {}, {}
+    chunked_launches = {}
+    for tag, kw in (("chunked", {}), ("monolithic",
+                                       dict(chunked_prefill=False))):
+        toks[tag], legs[tag] = _chunk_leg(tag, bundle, gpu, gscope,
+                                          prompts, **kw)
+        log(f"chunked prefill: the {tag} leg done {at()}")
+    t1 = time.monotonic()
+    worker = serving.DisaggregatedPrefillWorker(
+        bundle, executor=pf.Executor(pf.CUDAPlace(0)), scope=pf.Scope(),
+        params_from=gscope)
+    log(f"chunked prefill: the worker's scope and programs in "
+        f"{time.monotonic() - t1:.1f} s")
+    try:
+        toks["worker"], legs["worker"] = _chunk_leg(
+            "worker-fed", bundle, gpu, gscope, prompts, worker=worker)
+        ws = worker.stats()
+    finally:
+        worker.close()
+    log(f"chunked prefill: the worker-fed leg done {at()}")
+    toks["profiled"], legs["chunked_profiled"] = _chunk_leg(
+        "chunked, profiled", bundle, gpu, gscope, prompts, profiled=True)
+    log(f"chunked prefill: the profiled leg done {at()}")
+    jobs = len(distinct)
+    for tag in ("chunked", "chunked_profiled"):
+        leg = legs[tag]
+        assert leg["chunk_jobs"] == jobs, leg
+        assert leg["chunk_ticks"] == jobs * n_chunks * phases \
+            == leg["device_chunks"], leg
+        # the chunk's attention phases launch #2: L a chunk cursor
+        assert leg["launches"]["flash_attention"] == jobs * L * n_chunks, leg
+    assert legs["monolithic"]["chunk_jobs"] == 0
+    assert legs["worker"]["handoffs"] == jobs and ws["jobs_done"] == jobs \
+        and ws["chunk_ticks"] == jobs * n_chunks * phases \
+        == legs["worker"]["device_chunks"], (legs["worker"], ws)
+    assert legs["worker"]["launches"]["flash_attention"] \
+        == jobs * L * n_chunks, legs["worker"]
+    for tag in ("monolithic", "worker", "profiled"):
+        np.testing.assert_array_equal(toks[tag], toks["chunked"],
+                                      err_msg=tag)
+    for leg in legs.values():
+        for n, c in leg["launches"].items():
+            chunked_launches[n] = chunked_launches.get(n, 0) + c
+    t1 = time.monotonic()
+    ref = cpu.run(whole, feed={"src_ids": distinct[:CHUNK_CPU_ROWS]},
+                  fetch_list=[out], scope=cscope)[0]
+    ref = serving.apply_eos_sentinel(ref, MODEL["end_id"])
+    cpu_s = time.monotonic() - t1
+    lname = _logits_name(whole)
+    rows = toks["chunked"][[CHUNK_ORDER.index(i)
+                            for i in range(CHUNK_CPU_ROWS)]]
+    ties = _rows_agree("chunked prefill vs CPU", rows, ref,
+                       lambda r, pos: _tie_margin(cpu, whole, lname, cscope,
+                                                  distinct[r], pos))
+    log(f"chunked prefill: the chunked, monolithic and worker-fed tokens "
+        f"equal; {CHUNK_CPU_ROWS - ties}/{CHUNK_CPU_ROWS} prompts equal "
+        f"the CPU whole loop ({ties} ties; CPU run {cpu_s:.1f} s); worker "
+        f"{ws}; on {card_name} ({card})")
+    chunked = dict(legs=legs, walk_rows=dict(
+        differ=differ, of=total, max_diff=diff, max_abs=top),
+        worker=ws, ties_cpu=ties, cpu_s=cpu_s)
+    del bundle, gscope, worker  # the chunked slot state and pools
+    torch.cuda.empty_cache()
+
+    # the sampled leg
+    cfg = dict(MODEL, seq_len=PAGED["seq_len"],
+               max_out_len=PAGED["max_out_len"])
+    cache = decode_engine.CacheConfig(
+        layout="paged", block_size=PAGED["block_size"],
+        n_blocks=PAGED["n_blocks"],
+        n_prompt_entries=PAGED["n_prompt_entries"])
+    built = {}
+    t1 = time.monotonic()
+    # the CPU's server takes the sampled bundle at 4 lanes: a lane's
+    # tokens do not depend on how many lanes its bundle has
+    for tag, samp, lanes in (
+            ("sampled", dict(SAMPLED, base_seed=SEED), PAGED["n_slots"]),
+            ("greedy", dict(temperature=0.0), PAGED["n_slots"]),
+            ("cpu", dict(SAMPLED, base_seed=SEED), len(SAMPLED_SEEDS))):
+        with unique_name.guard():
+            built[tag] = decode_engine.build_decode_step_program(
+                n_slots=lanes, state_prefix=f"@s{tag[0]}/",
+                cache=cache,
+                sampling=decode_engine.SamplingConfig(**samp), **cfg)
+    log(f"sampled: built the sampled, temperature-0 and CPU bundles in "
+        f"{time.monotonic() - t1:.1f} s")
+    sb = built["sampled"]
+    gscope = _paged_weights(gpu, startup)
+    srcs, greedy_rows = greedy
+    seeds = list(SAMPLED_SEEDS)
+    sampled_launches = {}
+    res = {}
+    records = []
+    restore = _record_margins(records)
+    try:
+        _zero_launches()
+        a_rows, st, wall = _serve_continuous(
+            _sampled_server(sb, gpu, gscope, PAGED["steps_per_tick"]),
+            srcs, seeds)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    counts = _launch_counts()
+    least, n_draws = _least_margin(records, seeds, a_rows)
+    margins = {}
+    rec = torch.cat(records).cpu().numpy()
+    for seed, pos, m in rec:
+        if int(seed) in seeds:
+            margins.setdefault((seeds.index(int(seed)), int(pos)), float(m))
+    res["a"] = dict(wall_s=wall, ticks=st["device_telemetry"]["ticks"],
+                    tokens=st["tokens"], launches=counts,
+                    least_margin=least, draws=n_draws)
+    log(f"sampled, wave A: {len(srcs)} requests in {wall:.2f} s, "
+        f"{st['tokens'] / wall:.1f} tokens/s, {res['a']['ticks']} ticks; "
+        f"least top-2 margin of g + log p over its {n_draws} draws "
+        f"{least:.3e}; launches {counts}")
+    for tag, steps, order in (
+            ("b", SAMPLED_STEPS_B, list(reversed(range(len(srcs))))),
+            ("greedy", PAGED["steps_per_tick"], list(range(len(srcs))))):
+        _zero_launches()
+        srv = _sampled_server(built["sampled" if tag == "b" else "greedy"],
+                              gpu, gscope, steps)
+        rows, st, wall = _serve_continuous(srv, srcs[order],
+                                           [seeds[i] for i in order])
+        back = np.empty_like(rows)
+        back[order] = rows
+        counts = _launch_counts()
+        res[tag] = dict(wall_s=wall, ticks=st["device_telemetry"]["ticks"],
+                        tokens=st["tokens"], launches=counts,
+                        steps_per_tick=steps)
+        log(f"sampled, wave {tag} done {at()}")
+        log(f"sampled, wave {tag}: {len(srcs)} requests in {wall:.2f} s, "
+            f"{res[tag]['ticks']} ticks at {steps} a burst; launches "
+            f"{counts}")
+        if tag == "b":
+            res["b"]["ties"] = _sampled_rows_agree(
+                "sampled, reversed wave vs wave A", back, a_rows, margins)
+        else:
+            np.testing.assert_array_equal(back, greedy_rows)
+    for r in ("a", "b", "greedy"):
+        counts = res[r]["launches"]
+        assert counts["paged_decode_attention"] == L * res[r]["ticks"], \
+            (r, counts)
+        assert counts["layer_norm"] > 0 and counts["sdpa_short"] == 0 \
+            and counts["flash_attention"] == 0, (r, counts)
+        for n, c in counts.items():
+            sampled_launches[n] = sampled_launches.get(n, 0) + c
+    assert (a_rows != greedy_rows).any(), "the draws moved nothing"
+    # where a sampled tick's time goes: one burst over the 4 lanes
+    res["burst_profile"] = _profile_paged_burst(
+        _sampled_server(sb, gpu, gscope, PAGED["steps_per_tick"]), srcs,
+        tag="sampled", seeds=seeds)
+    log(f"sampled: the profiled burst done {at()}")
+    t1 = time.monotonic()
+    cpu_rows, _, _ = _serve_continuous(
+        _sampled_server(built["cpu"], cpu, cscope, PAGED["steps_per_tick"]),
+        srcs, seeds)
+    res["cpu_s"] = time.monotonic() - t1
+    res["ties_cpu"] = _sampled_rows_agree("sampled, card vs CPU", a_rows,
+                                          cpu_rows, margins)
+    log(f"sampled: the CPU wave done {at()}")
+    log(f"sampled: the card's tokens equal the CPU server's on "
+        f"{len(srcs) - res['ties_cpu']}/{len(srcs)} requests ({res['ties_cpu']} "
+        f"ties; CPU {res['cpu_s']:.1f} s), the reversed wave at "
+        f"{SAMPLED_STEPS_B} a burst on {len(srcs) - res['b']['ties']}/"
+        f"{len(srcs)}; the temperature-0 bundle equals phase 9's greedy "
+        f"rows; on {card_name} ({card})")
+    return chunked_launches, sampled_launches, dict(chunked=chunked,
+                                                    sampled=res)
 
 
 # ---------------------------------------------------------------------------
@@ -5654,6 +6184,9 @@ def main():
     paged_launches, paged = phase_paged(name, card)
     phase("radix and beam")
     radix_launches, beam_launches, radix = phase_radix(name, card)
+    phase("chunked and sampled")
+    chunked_launches, sampled_launches, chunked_sampled = \
+        phase_chunked_sampled(name, card, paged.pop("_greedy"))
     phase("predict")
     predict_launches, predicted = phase_predict(name, card)
     entries["layer_norm"]["bf16"]["launches"] = \
@@ -5667,6 +6200,8 @@ def main():
                         served_paged=paged_launches.get(kname, 0),
                         served_radix=radix_launches.get(kname, 0),
                         served_beam=beam_launches.get(kname, 0),
+                        served_chunked=chunked_launches.get(kname, 0),
+                        served_sampled=sampled_launches.get(kname, 0),
                         served_predictor=predict_launches.get(
                             kname, [0, 0])[0])
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
@@ -5680,7 +6215,7 @@ def main():
                                    "by_step", "cluster", "body",
                                    "copy_ms",
                                    "cluster_ms", "streamed_ms", "bf16",
-                                   "mnist")
+                                   "mnist", "non_square")
                  if x in e}
         line.append(dict(name=kname, route="cuda", source=src,
                          replaces=replaces, launches=sum(on_paths.values()),
@@ -5695,6 +6230,7 @@ def main():
     log(json.dumps({"trained": trained}))
     log(json.dumps({"paged": paged}))
     log(json.dumps({"radix": radix}))
+    log(json.dumps({"chunked_sampled": chunked_sampled}))
     log(json.dumps({"predicted": predicted}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall in all on "
         f"{name} ({card})")

@@ -25,7 +25,9 @@ the card; ``config.disable_gpu()`` for the host) and ``predictor.run``,
 or ``inference.InferenceServer(predictor)`` for batched serving.
 Generation is served from a ``models.decode_engine`` decode-step bundle
 by ``PagedContinuousGenerationServer`` (chat sessions and prefix reuse
-over a ``RadixBlockTree``) or decoded by ``PagedBeamDecoder``.
+over a ``RadixBlockTree``; chunked prefill, on the server or on a
+``DisaggregatedPrefillWorker``; sampled emission under a
+``SamplingConfig``) or decoded by ``PagedBeamDecoder``.
 """
 from . import ops  # noqa: F401  (registers every op)
 from . import (backward, clip, layers, optimizer,  # noqa: F401
@@ -36,9 +38,10 @@ from .core.program import (Program, default_main_program,  # noqa: F401
 from .core.scope import (Scope, _reset_global_scope,  # noqa: F401
                          global_scope, scope_guard)
 from . import analysis, inference, io, ir  # noqa: F401
-from .inference import (PagedBeamDecoder,  # noqa: F401
-                        PagedContinuousGenerationServer)
-from .models.decode_engine import RadixBlockTree  # noqa: F401
+from .inference import (DisaggregatedPrefillWorker,  # noqa: F401
+                        PagedBeamDecoder, PagedContinuousGenerationServer)
+from .models.decode_engine import (RadixBlockTree,  # noqa: F401
+                                   SamplingConfig)
 from .io import (load_inference_model, load_params,  # noqa: F401
                  load_persistables, load_vars, save_inference_model,
                  save_params, save_persistables, save_vars)

@@ -7,7 +7,8 @@ from .predictor import (AnalysisPredictor, PaddlePredictor,  # noqa: F401
                         create_paddle_predictor)
 from .serving import (AdmissionInfeasible,  # noqa: F401
                       BlockPoolExhausted, ContinuousGenerationServer,
-                      DeadlineExceeded, GenerationServer, InferenceServer,
+                      DeadlineExceeded, DisaggregatedPrefillWorker,
+                      GenerationServer, InferenceServer,
                       PagedBeamDecoder, PagedContinuousGenerationServer,
                       RequestCancelled, ServerClosed, ServerQuiesced,
                       apply_eos_sentinel, count_generated_tokens,

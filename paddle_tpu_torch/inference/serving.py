@@ -22,24 +22,33 @@ paddle_tpu/inference/serving.py).
   tier (chat sessions, n-best fan-out and retired plain prompts admit
   over shared self-KV block chains), lane pausing and
   recompute-preemption under pool pressure, and the named retryable
-  ``BlockPoolExhausted``.
+  ``BlockPoolExhausted``; with a chunked bundle, cold prompts prefill a
+  chunk a dispatch beside the decode bursts (chunked prefill), on this
+  server or on a ``DisaggregatedPrefillWorker``.
+* ``DisaggregatedPrefillWorker`` — runs the chunked-prefill phase
+  programs on a scope and thread of its own and hands each finished
+  prompt entry's cross-KV rows to the paged server (disaggregated
+  prefill, unsharded).
 * ``PagedBeamDecoder`` — beam search over the paged pool: the device
   publishes each lane's next-token distribution (the bundle's probe
   program), the host expands the beams, and branching shares full
   blocks by refcount and copies a partial tail block through the
   bundle's COW program.
 
-Sequence-length buckets, a group-selection hook, AOT warmup, streaming
-replies, sampled emission, speculation, chunked and disaggregated
-prefill, and the observability spans and metrics providers belong to
-later slices.
+Both continuous servers serve sampled bundles (``SamplingConfig``): each
+request's seed, ``zlib.crc32`` of its prompt unless the caller gives one,
+keys its draws. Sequence-length buckets, a group-selection hook, AOT
+warmup, streaming replies, speculation, the sharded prefill worker, and
+the observability spans and metrics providers belong to later slices.
 """
 from __future__ import annotations
 
 import collections
 import math
+import re
 import threading
 import time
+import zlib
 from concurrent import futures
 from typing import Dict, List, Optional, Sequence
 
@@ -47,9 +56,9 @@ import numpy as np
 import torch
 
 from ..core.executor import CUDAPlace, Executor
-from ..core.scope import global_scope
+from ..core.scope import Scope, global_scope
 from ..analysis.liveness import session_feasibility
-from ..models.decode_engine import (AdmissionInfeasible,
+from ..models.decode_engine import (POOL_MARK, AdmissionInfeasible,
                                     BlockPoolExhausted, HostBlockPool,
                                     PromptPrefixCache, RadixBlockTree,
                                     ServingUnavailable)
@@ -593,7 +602,7 @@ class _GenRequest:
         self.t_arrival = time.monotonic()
         self.t_first = None  # when its first token landed
         self.t_admit = None  # when a slot admitted it
-        # the seed as submitted: kept for sampled emission (not ported)
+        # the noise seed of a sampled bundle's draws (fed at admission)
         self.seed = seed
         # chat-session id (paged radix tier); the branches of an n-best
         # fan-out carry harvest=False: they never extend the session's
@@ -637,6 +646,10 @@ class ContinuousGenerationServer:
     prompt, whatever the admission order or slot: the step's math is
     the whole-loop body and every op is row-wise.
 
+    Sampled bundles: each request's draws are keyed on its seed and the
+    position alone, so its tokens do not depend on the admission order,
+    the slot or the burst length.
+
     Cancellation (``reply.cancel()``) and ``deadline_ms`` tear a request
     down at the next planning pass or burst boundary. Chat sessions and
     n-best fan-out need the radix serves of a paged bundle
@@ -647,6 +660,10 @@ class ContinuousGenerationServer:
     controller, request traces, the cost model, and the metrics
     providers.
     """
+
+    # how long a cycle with nothing to dispatch sleeps before it plans
+    # again (a handoff, a submit or a cancel wakes it at once)
+    _IDLE_WAIT_S = 0.01
 
     def __init__(self, bundle, executor=None, scope=None,
                  steps_per_tick: Optional[int] = None,
@@ -672,6 +689,8 @@ class ContinuousGenerationServer:
         self.n_slots = bundle.n_slots
         self._end_id = bundle.end_id
         bundle.init_slot_state(self.scope, self.executor.device)
+        # sampled bundles: per-request seeds in every admission feed
+        self._needs_seeds = bool(getattr(bundle, "needs_seeds", False))
         self._devtel = obs_devtel.DeviceTelemetry(bundle)
         st = bundle.state
         self._fetches = [st["tok_buf"], st["step"], st["active"],
@@ -680,10 +699,12 @@ class ContinuousGenerationServer:
             key: self.executor.prepare(
                 prog, feed=bundle.serve_feed_spec(key),
                 fetch_list=self._fetches, scope=self.scope)
-            for key, prog in bundle.serves.items()}
+            for key, prog in bundle.serves.items()
+            if not self._skip_serve_key(key)}
         self._admit_buckets = sorted(
             {k for k in self._serves if isinstance(k, int) and k > 0}
-            | {k[1] for k in self._serves if isinstance(k, tuple)})
+            | {k[1] for k in self._serves if isinstance(k, tuple)
+               and k[0] != "chunked"})
         # the radix tier (sessions, n_best, plain-prompt reuse) needs
         # ("radix", A) serves, which only paged bundles build
         self._radix_ok = any(isinstance(k, tuple) and k[0] == "radix"
@@ -745,7 +766,9 @@ class ContinuousGenerationServer:
         with self._cv:
             def dirty():
                 return (self._queue or self._busy
-                        or any(l is not None for l in self._lanes))
+                        or any(l is not None for l in self._lanes)
+                        or self._has_background_work_locked()
+                        or self._has_pending_external_locked())
 
             while self._running and dirty():
                 if deadline is None:
@@ -769,8 +792,12 @@ class ContinuousGenerationServer:
                     self._release_lane(slot, r)
                     pending.append(r)
             self._lanes = [None] * self.n_slots
+            bg = self._background_abort_locked()
+            if bg is not None:
+                pending.append(bg)
             for r in pending:
                 r.finalized = True
+            self._flush_requests_locked(pending)
             self._cv.notify_all()
         for r in pending:
             try:
@@ -795,9 +822,10 @@ class ContinuousGenerationServer:
         """Enqueue one prompt row of exactly seq_len tokens; returns a
         ``GenerationReply``. ``deadline_ms`` is a completion budget from
         now: a request still queued or decoding past it is torn down and
-        fails with ``DeadlineExceeded``. ``seed`` is kept on the request
-        for sampled emission, which is not ported: greedy bundles draw
-        nothing. ``stream`` / ``stream_cb`` are not ported yet.
+        fails with ``DeadlineExceeded``. ``seed`` keys a sampled bundle's
+        draws (default: ``zlib.crc32`` of the prompt's int64 bytes, as the
+        JAX package computes it); greedy bundles draw nothing. ``stream``
+        / ``stream_cb`` are not ported yet.
 
         Paged servers (the radix tier; elsewhere these raise):
 
@@ -815,8 +843,10 @@ class ContinuousGenerationServer:
           session with a retired turn. Submit the next turn after the
           previous one resolved.
         * ``n_best``: n requests sharing the prompt entry (and, in a
-          session, the chain); returns a list of replies. The branches never extend the session's
-          history. Greedy branches are identical.
+          session, the chain); returns a list of replies. Branch i draws
+          with seed ``seed + i``, so sampled branches differ; greedy
+          branches are identical. The branches never extend the
+          session's history.
         """
         arr = np.asarray(src_ids)
         if arr.ndim == 1:
@@ -846,10 +876,12 @@ class ContinuousGenerationServer:
             raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
         deadline = (time.monotonic() + float(deadline_ms) / 1e3
                     if deadline_ms is not None else None)
+        if seed is None:
+            seed = zlib.crc32(arr.tobytes())
         reqs = []
-        for _ in range(n_best):
+        for i in range(n_best):
             reply = GenerationReply()
-            req = _GenRequest(arr, reply, seed=seed,
+            req = _GenRequest(arr, reply, seed=int(seed) + i,
                               session=session_id, harvest=(n_best == 1),
                               deadline=deadline)
             reply._gen_server = self
@@ -904,6 +936,11 @@ class ContinuousGenerationServer:
         else:
             self._n_cancelled += 1
 
+    def _drop_queued_locked(self, req):
+        """Hook: a queued request is being shed (cancel or deadline); drop
+        what it holds without a lane (the paged server: the entry ref of a
+        disaggregated handoff). Called under _cv."""
+
     def _shed_cancelled_locked(self, now: float):
         """Drop cancelled and expired requests from the queue before
         admission; returns the (req, reason) pairs to fail outside the
@@ -916,6 +953,7 @@ class ContinuousGenerationServer:
                 kept.append(req)
             else:
                 req.finalized = True
+                self._drop_queued_locked(req)
                 self._count_cancel_locked(reason)
                 out.append((req, reason))
         self._queue = kept
@@ -982,13 +1020,60 @@ class ContinuousGenerationServer:
             "slots": np.array(
                 [slot for slot, _ in admits]
                 + [self.bundle.dustbin] * (A - len(admits)), np.int64)}
+        if self._needs_seeds:
+            # padded rows' seeds land on the dustbin lane, which never
+            # activates
+            feed["seeds"] = self._seeds_feed(admits, A)
         return A, feed
+
+    @staticmethod
+    def _seeds_feed(admits, A):
+        return np.array([req.seed for _, req in admits]
+                        + [0] * (A - len(admits)), np.int64)
 
     def _pre_dispatch(self):
         """Hook: publish host-owned state just before the dispatch."""
 
     def _post_dispatch(self, outs):
         """Hook: absorb fetched state right after a dispatch."""
+
+    # --- background work (chunked prefill) ----------------------------
+    # A cycle that admits nothing may still carry device work fused with
+    # the decode burst (the paged server's chunked prefill: one phase
+    # program a dispatch). The hooks keep the loop generic: the wait
+    # stays awake while a job is in flight, the cycle swaps the serve
+    # key, and a failed dispatch aborts the job with the lanes.
+    def _has_background_work_locked(self) -> bool:
+        """Hook: True while a background job needs dispatches even with
+        an empty queue and no live lane. Called under _cv."""
+        return False
+
+    def _has_pending_external_locked(self) -> bool:
+        """Hook: True while requests are in flight outside this
+        scheduler (a disaggregated prefill worker): drain() waits on
+        them, the cycle loop does not wake for them (their completion
+        callback notifies _cv). Called under _cv."""
+        return False
+
+    def _skip_serve_key(self, key) -> bool:
+        """Hook: True to leave a serve program unprepared (the paged
+        server's chunked phases when a prefill worker runs them)."""
+        return False
+
+    def _background_feed(self):
+        """Hook: (serve key, extra feeds) of this cycle's background
+        work, or None. Consulted only when the cycle admits nothing."""
+        return None
+
+    def _background_abort_locked(self):
+        """Hook: a dispatch raised, or the server is closing: drop the
+        in-flight background job and return its request (failed by the
+        caller), or None. Called under _cv."""
+        return None
+
+    def _flush_requests_locked(self, pending):
+        """Hook: the listed requests are being failed wholesale
+        (close()); drop their per-request holds. Called under _cv."""
 
     def _release_lane(self, slot, req):
         """Hook: a lane stopped serving `req` (retired, cancelled or
@@ -1007,7 +1092,8 @@ class ContinuousGenerationServer:
             failures = []
             with self._cv:
                 while self._running and not self._queue \
-                        and all(l is None for l in self._lanes):
+                        and all(l is None for l in self._lanes) \
+                        and not self._has_background_work_locked():
                     self._cv.wait()
                 if not self._running:
                     return
@@ -1018,6 +1104,14 @@ class ContinuousGenerationServer:
                     admits, drain, failures)
                 if run:
                     self._busy = True
+                elif not (cancels or failures):
+                    # nothing to dispatch: the queued requests wait on
+                    # work outside this scheduler (a prefill worker's
+                    # jobs), whose handoff notifies. Sleep instead of
+                    # spinning on the lock, which starves the worker's
+                    # thread of the interpreter; wake now and then for
+                    # the queue's deadlines
+                    self._cv.wait(self._IDLE_WAIT_S)
             # futures' done-callbacks run synchronously: never under
             # the scheduler lock
             self._finalize_cancelled(cancels)
@@ -1040,6 +1134,11 @@ class ContinuousGenerationServer:
         if admits:
             key, extra = self._admission_feed(admits)
             feed.update(extra)
+        else:
+            bg = self._background_feed()
+            if bg is not None:
+                key, extra = bg
+                feed.update(extra)
         self._pre_dispatch()
         try:
             outs = self._serves[key].run(feed, return_numpy=True)
@@ -1054,6 +1153,10 @@ class ContinuousGenerationServer:
                     r.finalized = True
                     self._release_lane(slot, r)
                 self._lanes = [None] * self.n_slots
+                bg_req = self._background_abort_locked()
+                if bg_req is not None:
+                    bg_req.finalized = True
+                    lanes.append((None, bg_req))
             self._fail_requests([(r, e) for _, r in lanes])
             return
         self._post_dispatch(outs)
@@ -1192,6 +1295,18 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
       ``radix_reuse=False`` keeps the session API but replays every
       turn's whole history into fresh blocks and harvests no plain
       request (the re-prefill baseline);
+    * chunked prefill (a bundle built with ``CacheConfig(chunk_tokens=C)``,
+      on unless ``chunked_prefill=False``): a cold plain prompt becomes
+      the server's one chunk job, which takes a fresh entry and fills it
+      one ``("chunked", p)`` phase program a dispatch, phase-major, each
+      dispatch also running the live lanes' decode burst; admissions and
+      the job take cycles in turn, so prompts whose entries are cached
+      keep admitting while a long one prefills. The finished request
+      comes back to the queue's front and admits as a prefix hit. A
+      ``prefill_worker`` (``DisaggregatedPrefillWorker``) runs the jobs
+      on its own scope and thread instead, and its finished cross-KV
+      rows are copied into this server's pools. A cancelled or failed
+      job releases and invalidates its part-written entry;
     * pressure: admission waits; a lane that cannot get its next block
       is paused for the cycle (its active flag host-masked, so it
       writes nothing); when every live lane is blocked the tree's
@@ -1207,9 +1322,8 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
     checked at construction by ``analysis.liveness.session_feasibility``
     and refused with the named ``AdmissionInfeasible``; an open session
     that would pin more distinct prompts than the entry pool holds is
-    refused at its submit. ``chunked_prefill=True`` and a
-    ``prefill_worker`` raise NotImplementedError: chunked prefill and
-    its disaggregated worker belong to a later slice.
+    refused at its submit. Sampled bundles take no plain-prompt radix
+    reuse: a resubmitted prompt draws anew from its own seed.
     """
 
     # how deep past the queue head the tier-grouped admission scan
@@ -1224,12 +1338,26 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 "PagedContinuousGenerationServer needs a bundle built "
                 "with CacheConfig(layout='paged') -- for dense bundles "
                 "use ContinuousGenerationServer")
-        if chunked_prefill or prefill_worker is not None:
-            raise NotImplementedError(
-                "chunked prefill and the disaggregated prefill worker "
-                "are not ported yet (a later slice of the serving "
-                "port); serve with chunked_prefill=None and no "
-                "prefill_worker")
+        chunk_keys = bundle.chunk_phase_keys
+        if prefill_worker is not None:
+            if chunked_prefill is False:
+                raise ValueError(
+                    "prefill_worker implies chunked scheduling; "
+                    "chunked_prefill=False contradicts it")
+            if prefill_worker.bundle is not bundle:
+                raise ValueError(
+                    "prefill_worker must serve the SAME bundle (the "
+                    "handoff copies cross-KV rows between scopes by the "
+                    "bundle's state names)")
+            chunked_prefill = True
+        if chunked_prefill is None:
+            chunked_prefill = bool(chunk_keys)
+        if chunked_prefill and not chunk_keys:
+            raise ValueError(
+                "chunked_prefill=True needs a bundle built with "
+                "CacheConfig(chunk_tokens=C): this bundle carries no "
+                "('chunked', phase) serve programs")
+        self._chunked = bool(chunked_prefill)
         self._radix_reuse = bool(radix_reuse)
         self.cache = cache
         workload = getattr(bundle, "workload", None)
@@ -1285,6 +1413,25 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
         self._entries_hwm = 0
         self._pause_base = 0
         self._preempt_base = 0
+        # chunked prefill: one job at a time, {req, prompt, entry, phase,
+        # ci}, one phase program a dispatch
+        self._chunk_keys = chunk_keys
+        self._prefill_job = None
+        self._chunk_turn = False     # the next cycle belongs to the job
+        self._bg_ticked = False      # this dispatch carried a chunk
+        self._handoff: Dict[int, int] = {}  # id(req) -> the job's entry ref
+        self._chunk_jobs = 0
+        self._chunk_ticks_host = 0
+        self._n_chunks = cache.n_chunks(bundle.seq_len)
+        self._prefill_blocked = False
+        # disaggregated prefill: cold prompts go to the worker; finished
+        # rows come back through the inbox, landed on this scheduler's
+        # thread
+        self._prefill_worker = prefill_worker
+        self._disagg_inbox: "collections.deque" = collections.deque()
+        self._disagg_prompts: set = set()
+        self._disagg_out = 0
+        self._disagg_handoffs = 0
         super().__init__(bundle, **kwargs)
 
     # --- chat sessions (the radix tier) -------------------------------
@@ -1362,6 +1509,223 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
             b = self._blocks.alloc()
         return b
 
+    # --- chunked prefill: the job and the disaggregated handoff --------
+    def _has_background_work_locked(self):
+        return self._prefill_job is not None or bool(self._disagg_inbox)
+
+    def _has_pending_external_locked(self):
+        return self._disagg_out > 0
+
+    def _skip_serve_key(self, key):
+        return (self._prefill_worker is not None
+                and isinstance(key, tuple) and key[0] == "chunked")
+
+    def _prefill_inflight_locked(self, prompt) -> bool:
+        """True while `prompt`'s entry is registered but still filling
+        (the local job or the worker): lookup says hit, but admitting
+        against it would read a part-written entry."""
+        if self._prefill_worker is not None:
+            return prompt in self._disagg_prompts
+        return self._prefill_job is not None \
+            and prompt == self._prefill_job["prompt"]
+
+    def _maybe_start_prefill_locked(self, failures):
+        """Make the first cold plain prompt in the scan window the chunk
+        job: its entry is acquired fresh now and filled a phase program
+        a dispatch; the request comes back to the queue as a hit when the
+        last phase lands. With a prefill worker, every such prompt goes
+        to the worker instead (_route_prefills_locked)."""
+        if self._prefill_worker is not None:
+            self._route_prefills_locked(failures)
+            return
+        if self._prefill_job is not None or not self._queue:
+            return
+        for pos, req in enumerate(self._queue):
+            if pos >= self._ADMIT_SCAN_DEPTH:
+                return
+            if req.session is not None:
+                continue  # session turns keep the monolithic path
+            prompt = tuple(int(x) for x in req.src.reshape(-1))
+            tier, _entry = self._prefix.lookup(prompt)
+            if tier == "hit":
+                continue
+            entry = self._prefix.acquire_fresh(
+                prompt, partial=(tier == "partial"))
+            if entry is None:
+                # every entry pinned: the idle-pool exhaustion check reads
+                # this flag (with nothing in flight, waiting would hang)
+                self._prefill_blocked = True
+                return
+            del self._queue[pos]
+            self._prefill_job = {"req": req, "prompt": prompt,
+                                 "entry": entry, "phase": 0, "ci": 0}
+            self._chunk_jobs += 1
+            return
+
+    def _route_prefills_locked(self, failures):
+        """Send every cold plain prompt in the scan window to the prefill
+        worker. This server owns the entry cache: it acquires the entry
+        fresh here; the worker fills it on its own scope and hands the
+        rows back through the inbox, which lands them in order."""
+        pos = scanned = 0
+        while pos < len(self._queue) and scanned < self._ADMIT_SCAN_DEPTH:
+            req = self._queue[pos]
+            scanned += 1
+            prompt = tuple(int(x) for x in req.src.reshape(-1))
+            tier = self._prefix.lookup(prompt)[0]
+            if req.session is not None or prompt in self._disagg_prompts \
+                    or tier == "hit":
+                pos += 1
+                continue
+            entry = self._prefix.acquire_fresh(
+                prompt, partial=(tier == "partial"))
+            if entry is None:
+                self._prefill_blocked = True
+                return
+            try:
+                self._prefill_worker.submit_job(
+                    req, prompt, entry, self._disagg_done,
+                    self._disagg_fail)
+            except BaseException as e:
+                self._prefix.release(entry)
+                self._prefix.invalidate(entry)
+                del self._queue[pos]
+                failures.append((req, e))
+                return
+            del self._queue[pos]
+            self._disagg_prompts.add(prompt)
+            self._disagg_out += 1
+            self._chunk_jobs += 1
+
+    def _disagg_done(self, req, prompt, entry, rows):
+        """The worker's thread: a job finished. Queue the handoff for the
+        scheduler's thread, which owns this scope between dispatches."""
+        fail = None
+        with self._cv:
+            self._disagg_prompts.discard(prompt)
+            self._disagg_out -= 1
+            if self._closed:
+                self._prefix.release(entry)
+                fail = ServerClosed(
+                    "server closed while its prompt prefilled")
+            else:
+                self._disagg_inbox.append((req, entry, rows))
+            self._cv.notify_all()
+        if fail is not None:
+            self._fail_requests([(req, fail)])
+
+    def _disagg_fail(self, req, prompt, entry, exc):
+        """The worker's thread: a job died with the entry part-written;
+        unmap it so the prompt never hits it, and fail the request."""
+        with self._cv:
+            self._disagg_prompts.discard(prompt)
+            self._disagg_out -= 1
+            self._prefix.release(entry)
+            self._prefix.invalidate(entry)
+            self._cv.notify_all()
+        self._fail_requests([(req, exc)])
+
+    def _drain_disagg_inbox_locked(self):
+        """Land finished prefills: copy each entry's cross-KV rows into
+        this scope's pools, then put the requests back at the queue's
+        front, each with the job's entry ref held (the handoff) until its
+        hit admission takes its own."""
+        if not self._disagg_inbox:
+            return
+        drained = []
+        while self._disagg_inbox:
+            drained.append(self._disagg_inbox.popleft())
+        dev = self.executor.device
+        for _req, entry, rows in drained:
+            for name, row in rows.items():
+                self.scope._get(name)[entry].copy_(row.to(dev))
+            self._disagg_handoffs += 1
+        for req, entry, _rows in reversed(drained):
+            self._handoff[id(req)] = entry
+            self._queue.appendleft(req)
+
+    def _background_feed(self):
+        job = self._prefill_job
+        if job is None:
+            return None
+        C = self.cache.chunk_tokens
+        key = self._chunk_keys[job["phase"]]
+        feed = {"chunk_entry": np.array([job["entry"]], np.int64),
+                "chunk_pos": np.array([job["ci"] * C], np.int64)}
+        if key[1] == 0:
+            # only the embed phase reads tokens; the ragged last chunk is
+            # zero-padded (its rows past seq_len select nothing)
+            toks = np.zeros((1, C), np.int64)
+            seg = np.asarray(job["req"].src).reshape(-1)[
+                job["ci"] * C: job["ci"] * C + C]
+            toks[0, :len(seg)] = seg
+            feed["chunk_toks"] = toks
+        self._bg_ticked = True
+        return key, feed
+
+    def _advance_prefill(self):
+        """A chunk dispatch landed: walk the cursor phase-major. After the
+        last phase the entry holds the prompt's cross-KV: the request goes
+        back to the queue's front and admits as a prefix hit, the job's
+        entry ref held until that admission takes its own."""
+        with self._cv:
+            self._chunk_ticks_host += 1
+            job = self._prefill_job
+            job["ci"] += 1
+            if job["ci"] < self._n_chunks:
+                return
+            job["ci"] = 0
+            job["phase"] += 1
+            if job["phase"] < len(self._chunk_keys):
+                return
+            req = job["req"]
+            self._handoff[id(req)] = job["entry"]
+            self._prefill_job = None
+            self._chunk_turn = False
+            self._queue.appendleft(req)
+            self._cv.notify_all()
+
+    def _background_abort_locked(self):
+        job = self._prefill_job
+        if job is None:
+            return None
+        self._prefill_job = None
+        self._chunk_turn = False
+        # the entry is part-written: unmap it so the prompt can never be
+        # looked up as a hit against it
+        self._prefix.release(job["entry"])
+        self._prefix.invalidate(job["entry"])
+        return job["req"]
+
+    def _flush_requests_locked(self, pending):
+        while self._disagg_inbox:
+            # finished handoffs never landed: drop the job's ref and fail
+            # the request with the rest
+            req, entry, _rows = self._disagg_inbox.popleft()
+            self._prefix.release(entry)
+            pending.append(req)
+        for r in pending:
+            e = self._handoff.pop(id(r), None)
+            if e is not None:
+                self._prefix.release(e)
+
+    def _drop_queued_locked(self, req):
+        e = self._handoff.pop(id(req), None)
+        if e is not None:
+            self._prefix.release(e)
+
+    def _shed_cancelled_locked(self, now: float):
+        out = super()._shed_cancelled_locked(now)
+        job = self._prefill_job
+        if job is not None:
+            reason = self._expired_locked(job["req"], now)
+            if reason is not None:
+                req = self._background_abort_locked()
+                req.finalized = True
+                self._count_cancel_locked(reason)
+                out.append((req, reason))
+        return out
+
     # --- admission -----------------------------------------------------
     def _admit_lane_locked(self, slot, req, shared, blk, entry, t_admit):
         h = len(shared)
@@ -1380,6 +1744,16 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
     def _plan_admissions_locked(self, failures):
         admits = []
         self._admit_tier = None
+        self._prefill_blocked = False
+        if self._prefill_worker is not None:
+            self._drain_disagg_inbox_locked()
+        if self._chunked:
+            self._maybe_start_prefill_locked(failures)
+        if self._prefill_job is not None and self._chunk_turn:
+            # the job's cycle: admit nothing, so the cycle runs the phase
+            # program (the live lanes' burst rides along)
+            self._chunk_turn = False
+            return admits
         if not self._queue:
             return admits
         t_admit = time.monotonic()
@@ -1397,6 +1771,10 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                     or len(admits) >= max_A:
                 break
             prompt = tuple(int(x) for x in req.src.reshape(-1))
+            if self._prefill_inflight_locked(prompt):
+                # registered by the in-flight prefill, so lookup says hit,
+                # but the entry is still filling: wait for the handoff
+                continue
             tier, _entry = self._prefix.lookup(prompt)
             sess = self._sessions.get(req.session) \
                 if req.session is not None else None
@@ -1406,8 +1784,14 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 flavor = "radix"
             else:
                 flavor = "hit" if tier == "hit" else "miss"
+                if flavor == "miss" and self._chunked \
+                        and req.session is None:
+                    # cold plain prompts go through the chunk job; the
+                    # requests behind them admit this cycle
+                    continue
                 if flavor == "hit" and req.session is None \
                         and self._radix_ok and self._radix_reuse \
+                        and not self._needs_seeds \
                         and prompt in self._plain_hist:
                     # a plain prompt sent again replays its own retired
                     # greedy generation over the chain the tree holds
@@ -1483,11 +1867,24 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
             taken_ids = {id(r) for r in taken}
             self._queue = collections.deque(
                 r for r in self._queue if id(r) not in taken_ids)
-        if blocked_reason and not admits \
+            for r in taken:
+                e = self._handoff.pop(id(r), None)
+                if e is not None:
+                    # the job held the filled entry until this admission
+                    # took its own ref
+                    self._prefix.release(e)
+        if admits and self._prefill_job is not None:
+            self._chunk_turn = True  # the next cycle belongs to the job
+        if blocked_reason is None and self._prefill_blocked:
+            blocked_reason = "every prompt entry is pinned"
+        if blocked_reason and not admits and self._queue \
+                and self._prefill_job is None and self._disagg_out == 0 \
+                and not self._disagg_inbox \
                 and all(l is None for l in self._lanes):
             # nothing in flight can ever free a block or an entry: fail
             # the head with the named retryable error instead of hanging
             req = self._queue.popleft()
+            self._drop_queued_locked(req)
             failures.append((req, BlockPoolExhausted(
                 f"cannot admit prompt: {blocked_reason} with the pool "
                 f"otherwise idle (n_blocks={self._blocks.n_blocks}, "
@@ -1526,6 +1923,8 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 [self._lane_entry[slot] for slot, _ in admits]
                 + [self.cache.n_prompt_entries] * (A - len(admits)),
                 np.int64)
+        if self._needs_seeds:
+            feed["seeds"] = self._seeds_feed(admits, A)
         return (tier, A), feed
 
     # --- burst planning: coverage, pausing, exhaustion -----------------
@@ -1561,6 +1960,10 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
         n_steps, min_active, run = super()._plan_burst_locked(
             admits, drain, failures)
         if not run:
+            if self._prefill_job is not None:
+                # a chunk-only dispatch: the phase body runs before the
+                # decode While, which exits at once (no live lane)
+                return 0, 0, True
             return n_steps, min_active, run
         maxT = self.bundle.max_out_len
         while True:
@@ -1648,13 +2051,17 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
         self._lane_step = np.asarray(outs[1]).astype(np.int64).copy()
         self._last_tok = np.asarray(outs[0])
         self._harvest_ok = True
+        if self._bg_ticked:
+            self._bg_ticked = False
+            self._advance_prefill()
 
     def _release_lane(self, slot, req):
         sid = self._lane_sess[slot]
         if req.harvest and self._harvest_ok:
             if sid is not None:
                 self._harvest_session_locked(slot, sid)
-            elif self._radix_ok and self._radix_reuse:
+            elif self._radix_ok and self._radix_reuse \
+                    and not self._needs_seeds:
                 self._harvest_plain_locked(slot, req)
         self._free_lane_locked(slot)
 
@@ -1739,7 +2146,15 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 "prefix_hit_depth": {
                     ("+Inf" if math.isinf(e) else f"{e:g}"): n
                     for e, n in self._hit_depth.cumulative_counts()},
-                "chunked_prefill": False,
+                # chunked prefill (the host's count; the device counter
+                # tel_chunks agrees)
+                "chunked_prefill": self._chunked,
+                "chunk_jobs": self._chunk_jobs,
+                "chunk_ticks": self._chunk_ticks_host,
+                # disaggregated prefill
+                "disaggregated": self._prefill_worker is not None,
+                "disagg_outstanding": self._disagg_out,
+                "disagg_handoffs": self._disagg_handoffs,
             }
 
     def _host_tel_locked(self, reset: bool) -> dict:
@@ -1761,6 +2176,210 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
         st = super().stats(reset=reset)
         st["block_pool"] = self.pool_stats()
         return st
+
+
+class DisaggregatedPrefillWorker:
+    """The prefill half of disaggregated serving
+    (``serving.py:3634`` in the JAX package; DistServe's phase split):
+    a dispatcher of the bundle's ``("chunked", p)`` phase programs on a
+    scope and a thread of its own.
+
+    The decode server owns the host allocators: it acquires a cold
+    prompt's cross-KV entry and sends the prompt here
+    (``PagedContinuousGenerationServer(prefill_worker=...)``). The worker
+    runs every phase at every chunk cursor back to back with
+    ``n_steps=0`` (each phase program carries the decode While, which
+    exits at once: this scope's slot state is never decoded), copies the
+    finished entry's cross-KV rows off its scope, waits for its stream to
+    finish writing them, and hands them to the server's callback; the
+    server copies them into its own pools and admits the request as a
+    prefix hit.
+
+    Unsharded two-scope mode: ``params_from=`` copies the weights (every
+    value of that scope the worker's scope lacks) into its scope. The
+    default executor is the card's, ``Executor()``. A bundle that carries
+    phase sharding plans (``prefill_plan``) is refused: the sharded mode
+    is serving step 10 of the port.
+    """
+
+    def __init__(self, bundle, executor=None, scope=None,
+                 params_from=None, start: bool = True):
+        cache = getattr(bundle, "cache", None)
+        if cache is None or cache.layout != "paged" or not cache.chunked:
+            raise ValueError(
+                "DisaggregatedPrefillWorker needs a paged bundle built "
+                "with CacheConfig(chunk_tokens=C): the phase split is the "
+                "chunk-program set")
+        if getattr(bundle, "prefill_plan", None) is not None:
+            raise NotImplementedError(
+                "DisaggregatedPrefillWorker over a bundle with phase "
+                "sharding plans: the sharded mode is not ported yet "
+                "(serving step 10 of the port: apply_phase_sharding, "
+                "place_disaggregated_bundle); use the unsharded "
+                "two-scope mode (params_from=)")
+        self.bundle = bundle
+        self.executor = executor or Executor(CUDAPlace(0))
+        self.scope = scope or Scope()
+        dev = self.executor.device
+        if params_from is not None:
+            for name in params_from.local_var_names():
+                # the slot state is seeded fresh below
+                if name not in bundle._state_specs \
+                        and self.scope._get(name) is None:
+                    val = params_from._get(name)
+                    if torch.is_tensor(val):
+                        self.scope._set(name, val.detach().to(dev).clone())
+        bundle.init_slot_state(self.scope, dev)
+        self._chunk_keys = bundle.chunk_phase_keys
+        self._n_chunks = cache.n_chunks(bundle.seq_len)
+        prefix = bundle.state["tok_buf"][:-len("tok_buf")]
+        pat = re.compile(re.escape(prefix) + r"cross_[kv]\d+"
+                         + re.escape(POOL_MARK))
+        self._cross_names = sorted(
+            n for n in bundle._state_specs if pat.fullmatch(n))
+        before = self.executor.compile_count
+        fetches = [bundle.state["step"]]
+        self._serves = {
+            k: self.executor.prepare(
+                bundle.serves[k], feed=bundle.serve_feed_spec(k),
+                fetch_list=fetches, scope=self.scope)
+            for k in self._chunk_keys}
+        self._warmed_compiles = self.executor.compile_count - before
+        self._cv = threading.Condition()
+        self._jobs: "collections.deque" = collections.deque()
+        self._running = False
+        self._closed = False
+        self._busy = False
+        self._jobs_done = 0
+        self._jobs_failed = 0
+        self._ticks = 0
+        self._thread: Optional[threading.Thread] = None
+        if start:
+            self.start()
+
+    # --- lifecycle ----------------------------------------------------
+    def start(self):
+        with self._cv:
+            if self._running:
+                return
+            if self._closed:
+                raise ServerClosed("DisaggregatedPrefillWorker closed")
+            self._running = True
+            self._thread = threading.Thread(
+                target=self._loop, name="paddle-tpu-prefill-worker",
+                daemon=True)
+            self._thread.start()
+
+    def drain(self, timeout: Optional[float] = 60.0) -> bool:
+        deadline = None if timeout is None \
+            else time.monotonic() + timeout
+        with self._cv:
+            while self._running and (self._jobs or self._busy):
+                if deadline is None:
+                    self._cv.wait()
+                    continue
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cv.wait(left)
+            return not (self._jobs or self._busy)
+
+    def close(self, timeout: float = 5.0):
+        with self._cv:
+            self._running = False
+            self._closed = True
+            dropped = list(self._jobs)
+            self._jobs.clear()
+            self._cv.notify_all()
+        for req, prompt, entry, _done, fail in dropped:
+            fail(req, prompt, entry,
+                 ServerClosed("DisaggregatedPrefillWorker closed"))
+        if self._thread is not None:
+            self._thread.join(timeout)
+            self._thread = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # --- the job surface the decode server routes to ------------------
+    def submit_job(self, req, prompt, entry, on_done, on_fail):
+        """Queue one prefill job. ``on_done(req, prompt, entry, rows)`` or
+        ``on_fail(req, prompt, entry, exc)`` runs on the worker's thread,
+        outside the worker's lock; ``rows`` maps each cross-pool state
+        name to the entry's finished [H, S, Dh] row (a tensor on the
+        worker's device, written before the callback runs)."""
+        with self._cv:
+            if not self._running or self._closed:
+                raise ServerClosed("DisaggregatedPrefillWorker closed")
+            self._jobs.append((req, prompt, entry, on_done, on_fail))
+            self._cv.notify_all()
+
+    def _loop(self):
+        while True:
+            with self._cv:
+                while self._running and not self._jobs:
+                    self._cv.wait()
+                if not self._running:
+                    return
+                job = self._jobs.popleft()
+                self._busy = True
+            req, prompt, entry, on_done, on_fail = job
+            try:
+                rows = self._run_job(req, entry)
+            except BaseException as e:
+                with self._cv:
+                    self._busy = False
+                    self._jobs_failed += 1
+                    self._cv.notify_all()
+                on_fail(req, prompt, entry, e)
+            else:
+                with self._cv:
+                    self._busy = False
+                    self._jobs_done += 1
+                    self._cv.notify_all()
+                on_done(req, prompt, entry, rows)
+
+    def _run_job(self, req, entry):
+        """The phase-major walk (every chunk of phase p before phase p+1),
+        one dispatch per (phase, chunk), in the decode server's own
+        chunk-job order, so the entry is the one its local job writes."""
+        C = self.bundle.cache.chunk_tokens
+        src = np.asarray(req.src).reshape(-1)
+        for key in self._chunk_keys:
+            for ci in range(self._n_chunks):
+                feed = {"n_steps": np.array([0], np.int64),
+                        "min_active": np.array([0], np.int64),
+                        "chunk_entry": np.array([entry], np.int64),
+                        "chunk_pos": np.array([ci * C], np.int64)}
+                if key[1] == 0:
+                    toks = np.zeros((1, C), np.int64)
+                    seg = src[ci * C: ci * C + C]
+                    toks[0, :len(seg)] = seg
+                    feed["chunk_toks"] = toks
+                self._serves[key].run(feed, return_numpy=False)
+                with self._cv:
+                    self._ticks += 1
+        rows = {name: self.scope._get(name)[entry].clone()
+                for name in self._cross_names}
+        dev = self.executor.device
+        if dev.type == "cuda":
+            # the server's thread reads the rows on its own stream: they
+            # must be written before the handoff
+            torch.cuda.current_stream(dev).synchronize()
+        return rows
+
+    def stats(self) -> dict:
+        with self._cv:
+            return {
+                "jobs_done": self._jobs_done,
+                "jobs_failed": self._jobs_failed,
+                "jobs_queued": len(self._jobs),
+                "chunk_ticks": self._ticks,
+                "warmed_compiles": self._warmed_compiles,
+            }
 
 
 class PagedBeamDecoder:
@@ -1864,15 +2483,21 @@ class PagedBeamDecoder:
         slots = np.full((A,), self.bundle.dustbin, np.int64)
         pslots = np.full((A,), self.cache.n_prompt_entries, np.int64)
         slots[0] = pslots[0] = 0
-        self._miss.run({"src_ids": np.repeat(arr, A, axis=0),
-                        "slots": slots, "prompt_slots": pslots,
-                        "n_steps": zero, "min_active": zero},
-                       return_numpy=True)
+        feed = {"src_ids": np.repeat(arr, A, axis=0), "slots": slots,
+                "prompt_slots": pslots, "n_steps": zero,
+                "min_active": zero}
+        # a sampled bundle's admissions take seeds; the probe ticks
+        # never sample (the host picks every token)
+        if self.bundle.needs_seeds:
+            feed["seeds"] = np.zeros((A,), np.int64)
+        self._miss.run(feed, return_numpy=True)
         if self._hit is not None:
             slots = np.full((self._hit_A,), self.bundle.dustbin, np.int64)
             slots[:self.beam - 1] = np.arange(1, self.beam)
-            self._hit.run({"slots": slots, "n_steps": zero,
-                           "min_active": zero}, return_numpy=True)
+            feed = {"slots": slots, "n_steps": zero, "min_active": zero}
+            if self.bundle.needs_seeds:
+                feed["seeds"] = np.zeros((self._hit_A,), np.int64)
+            self._hit.run(feed, return_numpy=True)
 
     def decode(self, src_ids, return_all=False):
         """One prompt row in; the best hypothesis out as ``(tokens

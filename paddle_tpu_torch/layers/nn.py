@@ -19,6 +19,7 @@ __all__ = [
     "attention_block", "ffn_block", "gather", "expand",
     "masked_pool_write", "paged_decode_attention", "dropout", "clip",
     "clip_by_norm", "elementwise_div", "elementwise_pow", "topk",
+    "concat", "filtered_softmax", "sample_categorical",
 ]
 
 
@@ -287,6 +288,13 @@ def transpose(x, perm, name=None):
     return _single("transpose2", x, {"axis": list(perm)}, name=name)
 
 
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", input=input[0], name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", {"X": input}, {"Out": out}, {"axis": axis})
+    return out
+
+
 def split(input, num_or_sections, dim=-1, name=None):
     helper = LayerHelper("split", input=input, name=name)
     axis = dim if dim >= 0 else dim + len(input.shape)
@@ -393,4 +401,34 @@ def paged_decode_attention(q, pool_k, pool_v, block_tab, step, scale=1.0,
                      {"Q": q, "PoolK": pool_k, "PoolV": pool_v,
                       "BlockTab": block_tab, "Step": step},
                      {"Out": out}, {"scale": float(scale)})
+    return out
+
+
+def filtered_softmax(logits, temperature=1.0, top_k=0, top_p=1.0,
+                     name=None):
+    """Temperature/top-k/top-p filtered, renormalized probabilities over
+    the last axis of `logits` (ops/spec_ops.py). temperature=0 is the
+    greedy case: a one-hot at the argmax."""
+    helper = LayerHelper("filtered_softmax", input=logits, name=name)
+    out = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op("filtered_softmax", {"X": logits}, {"Out": out},
+                     {"temperature": float(temperature),
+                      "top_k": int(top_k), "top_p": float(top_p)})
+    return out
+
+
+def sample_categorical(probs, seed, pos, noise_tag=0, base_seed=0,
+                       name=None):
+    """One token a lane from [R, V] probabilities (ops/spec_ops.py). The
+    noise is a pure function of (base_seed, noise_tag, seed[r], pos[r]),
+    not of the executor's step key, so the same (request seed, position)
+    draws the same token in every serve program: admission order, burst
+    boundaries and preemption replay cannot move a sampled token."""
+    helper = LayerHelper("sample_categorical", input=probs, name=name)
+    out = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("sample_categorical",
+                     {"Probs": probs, "Seed": seed, "Pos": pos},
+                     {"Out": out},
+                     {"noise_tag": int(noise_tag),
+                      "base_seed": int(base_seed)})
     return out

@@ -1,1 +1,3 @@
 """Models of the port."""
+from .decode_engine import (CacheConfig, DecodeStepBundle,  # noqa: F401
+                            SamplingConfig)

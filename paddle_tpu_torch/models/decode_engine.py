@@ -27,9 +27,15 @@ over by name. One place differs on purpose: the paged step's
 self-attention. The JAX package gathers a dense [R,H,maxT,Dh] view of
 each lane's pages and runs the biased softmax over it; the port runs
 one ``paged_decode_attention`` op a layer instead (kernel #9 on the
-card), which computes the same function without the view. Sampling,
-speculative drafts, tensor-parallel sharding, chunked prefill and the
-whole-loop beam program belong to later slices.
+card), which computes the same function without the view.
+
+The bundle also samples (``SamplingConfig``: temperature, top-k and
+top-p lanes keyed on per-request seeds, with JAX's own threefry noise,
+ops/spec_ops.py) and prefills in chunks (``CacheConfig(chunk_tokens=C)``:
+the ``("chunked", p)`` phase programs stream a prompt's encoder through
+the prompt-entry pool C tokens a dispatch, fused with the decode burst).
+Speculative drafts, tensor-parallel sharding and the whole-loop beam
+program belong to later slices.
 """
 from __future__ import annotations
 
@@ -410,9 +416,9 @@ class CacheConfig:
     in a pool of ``n_prompt_entries`` whole-prompt entries (+1 dustbin),
     shared and refcounted across lanes with identical prompts
     (``PromptPrefixCache``), so a repeated prompt is encoded once.
-    ``chunk_tokens`` > 0 (chunked prefill) validates as in the JAX
-    package, but ``build_decode_step_program`` refuses it: chunked
-    prefill belongs to a later slice.
+    ``chunk_tokens`` > 0 (paged only) adds the ``("chunked", p)`` phase
+    programs, which stream a cold prompt's encoder into its entry this
+    many prompt tokens a dispatch (chunked prefill).
     """
 
     layout: str = "dense"
@@ -451,6 +457,12 @@ class CacheConfig:
     def chunked(self) -> bool:
         return self.layout == "paged" and self.chunk_tokens > 0
 
+    def n_chunks(self, seq_len: int) -> int:
+        """Dispatches one phase takes to stream a seq_len prompt at
+        chunk_tokens a dispatch (the last chunk may be ragged)."""
+        c = self.chunk_tokens
+        return (seq_len + c - 1) // c if c else 0
+
     def pages(self, max_out_len: int) -> int:
         return max_out_len // self.block_size
 
@@ -464,6 +476,70 @@ class CacheConfig:
         if self.chunk_tokens:
             tok = tok + ("chunk", self.chunk_tokens)
         return tok
+
+    @staticmethod
+    def suggest_chunk_tokens(bundle, tick_budget_ms: float,
+                             prefill_ms: float = 150.0) -> int:
+        """The largest power-of-two chunk size whose per-dispatch
+        prefill slice fits ``tick_budget_ms``
+        (``decode_engine.py:244`` in the JAX package). One chunk
+        dispatch runs one of the ``2L+2`` phases over C prompt tokens,
+        and a monolithic prefill runs all of them over seq_len tokens in
+        ``prefill_ms`` (pass a measurement of the shape at hand), so a
+        chunk costs about ``prefill_ms * C / (seq_len * (2L+2))``. L is
+        read off the bundle's state specs (one cross_k pool a layer);
+        the floor is C = 2, since ``validate`` rejects C = 1. Worked
+        example: seq_len 2048, L = 1 (4 phases) and a 5.0 ms budget give
+        C = 256 (4.69 ms; 512 would take 9.38)."""
+        if tick_budget_ms <= 0:
+            raise ValueError(
+                f"tick_budget_ms must be > 0, got {tick_budget_ms}")
+        seq_len = int(bundle.seq_len)
+        n_layers = sum(1 for name in bundle._state_specs
+                       if "cross_k" in name)
+        n_phases = 2 * max(n_layers, 1) + 2
+
+        def tick(c):
+            return prefill_ms * c / (seq_len * n_phases)
+
+        c = 2
+        while c * 2 <= seq_len and tick(c * 2) <= tick_budget_ms:
+            c *= 2
+        return c
+
+
+@dataclass(frozen=True)
+class SamplingConfig:
+    """Sampling policy of a decode bundle's emission lanes
+    (``decode_engine.py:518`` in the JAX package): temperature, top-k and
+    top-p filtering, then a draw keyed on the request's seed and the
+    position (ops/spec_ops.py). temperature 0 is greedy argmax;
+    ``base_seed`` is the bundle's noise root, into which the per-request
+    seeds fold, so two bundles with different base seeds sample
+    independently."""
+
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+    base_seed: int = 0
+
+    def validate(self):
+        if self.temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got "
+                             f"{self.temperature}")
+        if self.top_p <= 0 or self.top_p > 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got "
+                             f"{self.top_p}")
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature == 0.0
+
+    def token(self) -> tuple:
+        return ("sample", float(self.temperature), int(self.top_k),
+                float(self.top_p), int(self.base_seed))
 
 
 class DecodeStepBundle:
@@ -497,6 +573,13 @@ class DecodeStepBundle:
       ones in every layer's pool (feeds ``cow_feed_spec()``); ``probe``
       (paged): one step tick that also publishes every lane's softmax
       row to ``state["probe_probs"]``. ``PagedBeamDecoder`` runs both.
+    * ``("chunked", p)`` serves (``CacheConfig(chunk_tokens=C)``): phase
+      p of a cold prompt's encoder over C prompt positions, written into
+      the prompt entry's staging rows, followed by the same decode While
+      as key 0 (``chunk_phase_keys`` lists them in phase order).
+    * ``sampling`` (``SamplingConfig``): the step draws each lane's token
+      from the filtered distribution, keyed on the lane's seed (fed as
+      ``seeds`` at every admission: ``needs_seeds``) and position.
 
     ``state`` maps logical names to scope var names;
     ``init_slot_state(scope, device)`` seeds the pool. ``startup`` holds
@@ -506,7 +589,7 @@ class DecodeStepBundle:
 
     def __init__(self, prefills, step, serves, startup, state, n_slots,
                  seq_len, max_out_len, start_id, end_id, cache=None,
-                 hit_prefills=None, cow=None, probe=None):
+                 hit_prefills=None, sampling=None, cow=None, probe=None):
         self.prefills = dict(prefills)
         self.prefill = self.prefills[min(self.prefills)]
         self.hit_prefills = dict(hit_prefills or {})
@@ -521,6 +604,7 @@ class DecodeStepBundle:
         self.start_id = start_id
         self.end_id = end_id
         self.cache = cache or CacheConfig()
+        self.sampling = sampling  # SamplingConfig, or None (greedy)
         self.cow = cow        # COW block-copy Program (paged)
         self.probe = probe    # probe-step Program (paged)
         self._state_specs: Dict[str, tuple] = {}
@@ -536,10 +620,31 @@ class DecodeStepBundle:
                                       key=lambda kv: str(kv[0]))]
         return out
 
+    @property
+    def chunk_phase_keys(self):
+        """The ``("chunked", p)`` serve keys in phase order (empty on an
+        unchunked bundle). A prompt walks them phase-major: phase p at
+        every chunk cursor before phase p+1, since an attention phase
+        reads its layer's K/V at every prompt position. A prompt takes
+        ``n_chunks * len(chunk_phase_keys)`` dispatches."""
+        return sorted((k for k in self.serves
+                       if isinstance(k, tuple) and k[0] == "chunked"),
+                      key=lambda kv: kv[1])
+
+    @property
+    def needs_seeds(self) -> bool:
+        """Whether admissions feed per-request noise seeds (sampled
+        emission)."""
+        return self.sampling is not None
+
     def cache_token(self) -> tuple:
-        """Content identity for the servers (the KV layout; sampling and
-        drafts, which would extend it, are not ported)."""
-        return self.cache.token()
+        """Content identity for the servers: the KV layout, plus the
+        sampling policy (a sampled and a greedy bundle over the same
+        weights serve different token streams)."""
+        tok = self.cache.token()
+        if self.sampling is not None:
+            tok = tok + self.sampling.token()
+        return tok
 
     def serve_feed_spec(self, key) -> List[tuple]:
         """Feed signature (name, shape, dtype) of ``serves[key]``."""
@@ -548,18 +653,28 @@ class DecodeStepBundle:
         if key == 0:
             return feed
         tier, A = key if isinstance(key, tuple) else ("miss", key)
+        seeds = [("seeds", (A,), "int64")] if self.needs_seeds else []
         if tier == "radix":
             return [("hist_toks", (A, self.max_out_len), "int64"),
                     ("resume_steps", (A,), "int64"),
                     ("prefill_until", (A,), "int64"),
-                    ("slots", (A,), "int64")] + feed
+                    ("slots", (A,), "int64")] + seeds + feed
+        if tier == "chunked":
+            # A is the phase here: 0 embeds, 1 + 2l and 2 + 2l are layer
+            # l's K/V and attention phases, 2L + 1 installs the cross K/V
+            pre = [("chunk_entry", (1,), "int64"),
+                   ("chunk_pos", (1,), "int64")]
+            if A == 0:
+                pre.append(("chunk_toks", (1, self.cache.chunk_tokens),
+                            "int64"))
+            return pre + feed
         pre = []
         if tier == "miss":
             pre.append(("src_ids", (A, self.seq_len), "int64"))
         pre.append(("slots", (A,), "int64"))
         if tier == "miss" and self.cache.layout == "paged":
             pre.append(("prompt_slots", (A,), "int64"))
-        return pre + feed
+        return pre + seeds + feed
 
     def cow_feed_spec(self) -> List[tuple]:
         """Feed signature of the COW program: per row the shared source
@@ -600,16 +715,20 @@ class DecodeStepBundle:
 
 
 def _slot_state_specs(prefix, rows, maxT, seq_len, n_heads, head_dim,
-                      n_layers, cache, vocab=None):
+                      n_layers, cache, sampling=None, vocab=None):
     """name -> (shape, dtype) of every slot-state persistable
-    (``decode_engine.py:1223`` in the JAX package, without the sampling
-    and draft state)."""
+    (``decode_engine.py:1223`` in the JAX package, without the draft
+    state)."""
     specs = {
         f"{prefix}tok_buf": ((rows, maxT), "int64"),
         f"{prefix}step": ((rows,), "int64"),
         f"{prefix}finished": ((rows,), "int64"),
         f"{prefix}active": ((rows,), "int64"),
     }
+    if sampling is not None:
+        # each lane's noise seed, written at admission from the fed
+        # per-request seeds
+        specs[f"{prefix}seed"] = ((rows,), "int64")
     specs.update(devtel.counter_specs(prefix, cache.layout == "paged",
                                       chunked=cache.chunked))
     if cache.layout == "dense":
@@ -632,6 +751,20 @@ def _slot_state_specs(prefix, rows, maxT, seq_len, n_heads, head_dim,
     # token dropped, EOS never latched). 0, the default, makes every
     # tick a real decode tick.
     specs[f"{prefix}prefill_until"] = ((rows,), "int64")
+    if cache.chunked:
+        # chunked-prefill staging, one row per prompt entry (+1 dustbin),
+        # as the cross pools: the encoder is bidirectional (layer l+1
+        # reads layer l at every position), so a resumable prefill keeps
+        # whole-prompt activations. a and b hold a layer's input and
+        # output in turn; kv holds the layer's self-attention K and V
+        # (every position's, before any query chunk attends)
+        d_model = n_heads * head_dim
+        specs[f"{prefix}chunk_stage_a{POOL_MARK}"] = (
+            (E + 1, seq_len, d_model), "float32")
+        specs[f"{prefix}chunk_stage_b{POOL_MARK}"] = (
+            (E + 1, seq_len, d_model), "float32")
+        specs[f"{prefix}chunk_stage_kv{POOL_MARK}"] = (
+            (E + 1, seq_len, 2 * d_model), "float32")
     if vocab is not None:
         # the probe step's output: one softmax row a lane, which the
         # beam decoder branches on
@@ -674,29 +807,33 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
 
     ``admit_buckets`` bounds the admission specializations (default:
     1, 2, 4, ... capped at n_slots); padded rows of a bucket land on
-    the dustbin lane. ``cache`` (CacheConfig) selects the KV layout.
-    Greedy only: ``sampling``, ``draft`` and ``sharding``, and a cache
-    with ``chunk_tokens > 0``, raise NotImplementedError.
+    the dustbin lane. ``cache`` (CacheConfig) selects the KV layout and,
+    with ``chunk_tokens > 0``, adds the chunked-prefill phase programs.
+    ``sampling`` (SamplingConfig) replaces the greedy argmax with
+    temperature/top-k/top-p lanes keyed on per-request seeds, which every
+    admission then feeds. ``draft`` (speculative decoding, serving step
+    9 of the port) and ``sharding`` (tensor-parallel bundles, step 10)
+    raise NotImplementedError.
 
     Returns a DecodeStepBundle.
     """
     from . import transformer as T
 
-    for what, val in (("sampling", sampling), ("draft", draft),
-                      ("sharding", sharding)):
-        if val is not None:
-            raise NotImplementedError(
-                f"build_decode_step_program({what}=...): sampled "
-                f"emission, speculative drafts and tensor-parallel "
-                f"sharding are not ported yet (later slices of the "
-                f"serving port); build a greedy bundle")
+    if draft is not None:
+        raise NotImplementedError(
+            "build_decode_step_program(draft=...): speculative drafts are "
+            "not ported yet (serving step 9 of the port: DraftConfig, "
+            "the speculative step body); build without a draft")
+    if sharding is not None:
+        raise NotImplementedError(
+            "build_decode_step_program(sharding=...): tensor-parallel "
+            "bundles are not ported yet (serving step 10 of the port: "
+            "ShardingConfig); build an unsharded bundle")
     cache = cache or CacheConfig()
     cache.validate(max_out_len)
-    if cache.chunk_tokens:
-        raise NotImplementedError(
-            f"CacheConfig(chunk_tokens={cache.chunk_tokens}): chunked "
-            f"prefill is not ported yet (a later slice of the serving "
-            f"port); build with chunk_tokens=0")
+    if sampling is not None:
+        sampling.validate()
+    needs_seeds = sampling is not None
     paged = cache.layout == "paged"
     head_dim = d_model // n_heads
     maxT = max_out_len
@@ -714,6 +851,7 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
             f"[1, n_slots={n_slots}]")
     specs = _slot_state_specs(state_prefix, rows, maxT, seq_len,
                               n_heads, head_dim, n_layers, cache,
+                              sampling=sampling,
                               vocab=vocab if paged else None)
     if paged:
         NP, BS, NB = cache.pages(maxT), cache.block_size, cache.n_blocks
@@ -751,7 +889,8 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
             layers.fill_constant([rows], "int64", 1.0), any_i)
         return oh, any_f, any_i, keep_f, keep_i
 
-    def _reset_lane_state(sv, any_i, keep_i, tier="miss"):
+    def _reset_lane_state(sv, any_i, keep_i, oh=None, seeds=None,
+                          tier="miss"):
         # token buffer rows: start_id at position 0, zeros elsewhere
         positions = layers.cast(layers.range(0, maxT, 1), "int64")
         start_col = layers.cast(
@@ -775,6 +914,18 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         if pfu is not None:
             layers.assign(layers.elementwise_mul(pfu, keep_i),
                           output=pfu)
+        if seeds is not None:
+            # per-request noise seeds scatter to their lanes in integer
+            # arithmetic (a float32 one-hot product would round 32-bit
+            # seeds past 2^24); dustbin duplicates sum to garbage there
+            oh_i = layers.cast(oh, "int64")  # [A, rows]
+            scat = layers.reduce_sum(
+                layers.elementwise_mul(
+                    oh_i, layers.reshape(seeds, [-1, 1])), dim=0)
+            seedv = sv[f"{state_prefix}seed"]
+            layers.assign(layers.elementwise_add(
+                layers.elementwise_mul(seedv, keep_i), scat),
+                output=seedv)
         act = sv[f"{state_prefix}active"]
         # the dustbin lane never activates: it must not hold the serve
         # While open nor count against min_active
@@ -785,6 +936,12 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         _tel_add(sv, f"tel_admit_{tier}",
                  layers.reduce_sum(layers.elementwise_mul(any_i, valid),
                                    keep_dim=True))
+
+    def _seeds_data(A):
+        if not needs_seeds:
+            return None
+        return layers.data("seeds", shape=[A], dtype="int64",
+                           append_batch_size=False)
 
     def _encode_prompts(A):
         src = layers.data("src_ids", shape=[A, seq_len], dtype="int64",
@@ -809,6 +966,7 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         _, enc = _encode_prompts(A)
         slots = layers.data("slots", shape=[A], dtype="int64",
                             append_batch_size=False)
+        seeds = _seeds_data(A)
         oh, _, any_i, keep_f, keep_i = _lane_onehots(slots, A)
         keep4 = layers.reshape(keep_f, [rows, 1, 1, 1])
         ohT = layers.transpose(oh, perm=[1, 0])  # [rows, A]
@@ -829,7 +987,7 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                         sv[f"{state_prefix}self_v{li}"]):
                 layers.assign(layers.elementwise_mul(var, keep4),
                               output=var)
-        _reset_lane_state(sv, any_i, keep_i)
+        _reset_lane_state(sv, any_i, keep_i, oh=oh, seeds=seeds)
 
     def _admit_body_paged_miss(sv, A):
         """Cold-prompt admission: encode, write the cross-KV into the
@@ -841,6 +999,7 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                             append_batch_size=False)
         pslots = layers.data("prompt_slots", shape=[A], dtype="int64",
                              append_batch_size=False)
+        seeds = _seeds_data(A)
         for li in range(n_layers):
             kh, vh = _cross_proj(enc, li)
             for var, new in (
@@ -849,8 +1008,8 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                 layers.masked_pool_write(var, new, pslots,
                                          leading_dims=1,
                                          exclusive_via="host_indices")
-        _, _, any_i, _, keep_i = _lane_onehots(slots, A)
-        _reset_lane_state(sv, any_i, keep_i)
+        oh, _, any_i, _, keep_i = _lane_onehots(slots, A)
+        _reset_lane_state(sv, any_i, keep_i, oh=oh, seeds=seeds)
 
     def _admit_body_paged_hit(sv, A):
         """Prefix-hit admission: the prompt's cross-KV entry is already
@@ -858,8 +1017,10 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         reset only: no encoder, no pool write."""
         slots = layers.data("slots", shape=[A], dtype="int64",
                             append_batch_size=False)
-        _, _, any_i, _, keep_i = _lane_onehots(slots, A)
-        _reset_lane_state(sv, any_i, keep_i, tier="hit")
+        seeds = _seeds_data(A)
+        oh, _, any_i, _, keep_i = _lane_onehots(slots, A)
+        _reset_lane_state(sv, any_i, keep_i, oh=oh, seeds=seeds,
+                          tier="hit")
 
     def _admit_body_paged_radix(sv, A):
         """Radix-resume admission (chat sessions, n-best fan-out, a
@@ -879,8 +1040,10 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                             append_batch_size=False)
         slots = layers.data("slots", shape=[A], dtype="int64",
                             append_batch_size=False)
+        seeds = _seeds_data(A)
         oh, _, any_i, _, keep_i = _lane_onehots(slots, A)
-        _reset_lane_state(sv, any_i, keep_i, tier="radix")
+        _reset_lane_state(sv, any_i, keep_i, oh=oh, seeds=seeds,
+                          tier="radix")
         # overwrite the reset's cold-start row and counters with the
         # history: token ids < vocab << 2^24, so the float32 one-hot
         # product scatters them exactly; the counters take the integer
@@ -1034,10 +1197,21 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
             # branch on (the beam decoder's expansion oracle)
             layers.assign(layers.softmax(logits_v),
                           output=sv[f"{state_prefix}probe_probs"])
-        # per-lane greedy emit (emit_token_step vectorized over lane
-        # counters; same freeze and write semantics)
+        # per-lane emit (emit_token_step vectorized over lane counters;
+        # same freeze and write semantics). A sampled lane draws from the
+        # filtered distribution keyed on its seed and the position it
+        # writes, whichever serve program runs the tick
         ones_n = layers.fill_constant([rows], "int64", 1.0)
-        tok = layers.cast(layers.argmax(logits_v, axis=-1), "int64")
+        if sampling is not None and not sampling.greedy:
+            probs_v = layers.filtered_softmax(
+                logits_v, temperature=sampling.temperature,
+                top_k=sampling.top_k, top_p=sampling.top_p)
+            tok = layers.sample_categorical(
+                probs_v, sv[f"{state_prefix}seed"],
+                layers.elementwise_add(stepv, ones_n),
+                noise_tag=0, base_seed=sampling.base_seed)   # [R]
+        else:
+            tok = layers.cast(layers.argmax(logits_v, axis=-1), "int64")
         not_fin = layers.elementwise_sub(ones_n, fin)
         tok = layers.elementwise_add(
             layers.elementwise_mul(tok, not_fin),
@@ -1090,14 +1264,20 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
     with program_guard(step_prog, Program()):
         _step_body(_declare_slot_state(step_prog.global_block, specs))
 
-    def _serve_program(tier, A):
-        """[admission +] a decode-burst While: the loop exits when
-        n_steps ticks ran or the live-lane count drops to min_active."""
+    def _build_serve(tier, A):
+        def pre(sv):
+            if A > 0:
+                admit_bodies[tier](sv, A)
+        return _serve_program(pre)
+
+    def _serve_program(pre_body):
+        """`pre_body` (an admission, a prefill chunk, or nothing) and then
+        a decode-burst While: the loop exits when n_steps ticks ran or the
+        live-lane count drops to min_active."""
         prog = Program()
         with program_guard(prog, Program()):
             sv = _declare_slot_state(prog.global_block, specs)
-            if A > 0:
-                admit_bodies[tier](sv, A)
+            pre_body(sv)
             n_steps = layers.data("n_steps", shape=[1], dtype="int64",
                                   append_batch_size=False)
             min_active = layers.data("min_active", shape=[1],
@@ -1140,14 +1320,154 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                          not_ran, layers.elementwise_sub(one, idle)))
         return prog
 
-    serves = {0: _serve_program("miss", 0)}
+    def _chunk_phase_body(sv, p):
+        """Phase p of a cold prompt's encoder over C prompt positions
+        from ``chunk_pos`` (``decode_engine.py:2964`` in the JAX package).
+        Phases: 0 embeds the chunk and adds the positional table into
+        stage a; 1 + 2l stages layer l's self-attention K and V of the
+        chunk; 2 + 2l runs the chunk's C queries over the layer's K and V
+        at every position (kernel #2 on the card when C > 512), then the
+        encoder tail, into the other stage; 2L + 1 projects the chunk's
+        cross K/V for every decoder layer into the prompt entry's cross
+        pools. Outside ``layers.attention`` every op is per position, and
+        attention reads complete staged K/V, so the walk writes the
+        monolithic miss admission's cross-KV rows. A merge replaces the
+        chunk's positions of the entry's row and keeps the others: the
+        one-hot products select exactly (one nonzero a column, fp32 with
+        TF32 off), and the ragged last chunk's rows past seq_len select
+        nothing, so its zero padding never lands."""
+        C, S, L = cache.chunk_tokens, seq_len, n_layers
+        entry = layers.data("chunk_entry", shape=[1], dtype="int64",
+                            append_batch_size=False)
+        pos0 = layers.data("chunk_pos", shape=[1], dtype="int64",
+                           append_batch_size=False)
+        # one chunk ran; how many decode lanes were live while it did
+        _tel_add(sv, "tel_chunks", layers.fill_constant([1], "int64", 1.0))
+        _tel_add(sv, "tel_prefill_occupancy",
+                 layers.reduce_sum(sv[f"{state_prefix}active"],
+                                   keep_dim=True))
+        # [C, S] chunk-position one-hot: row c selects position pos0 + c
+        sr = layers.cast(layers.range(0, S, 1), "int64")
+        cr = layers.cast(layers.range(0, C, 1), "int64")
+        csel = layers.cast(
+            layers.equal(sr, layers.elementwise_add(
+                layers.reshape(cr, [C, 1]), pos0)), "float32")
+        cselT = layers.transpose(csel, perm=[1, 0])        # [S, C]
+        keep = layers.reshape(
+            layers.elementwise_sub(
+                layers.fill_constant([S], "float32", 1.0),
+                layers.reduce_sum(csel, dim=0)), [S, 1])
+        stage = [sv[f"{state_prefix}chunk_stage_a{POOL_MARK}"],
+                 sv[f"{state_prefix}chunk_stage_b{POOL_MARK}"]]
+        stage_kv = sv[f"{state_prefix}chunk_stage_kv{POOL_MARK}"]
+
+        def _stage_row(pool, width):                       # [S, width]
+            return layers.reshape(layers.gather(pool, entry), [S, width])
+
+        def _chunk_of(row, width):                         # [1, C, width]
+            return layers.reshape(layers.matmul(csel, row), [1, C, width])
+
+        def _stage_merge(pool, row, chunk2d):
+            merged = layers.elementwise_add(
+                layers.elementwise_mul(row, keep),
+                layers.matmul(cselT, chunk2d))
+            layers.masked_pool_write(
+                pool, layers.unsqueeze(merged, [0]), entry,
+                leading_dims=1, exclusive_via="host_indices")
+
+        if p == 0:
+            toks = layers.data("chunk_toks", shape=[1, C], dtype="int64",
+                               append_batch_size=False)
+            emb = layers.embedding(toks, size=[vocab, d_model],
+                                   param_attr=ParamAttr(
+                                       name="src_word_emb"))
+            emb = layers.reshape(emb, [1, C, d_model])
+            emb = layers.scale(emb, scale=d_model ** 0.5)
+            pos_tab = layers.assign(
+                T._position_encoding(max(S, maxT), d_model)[:S])
+            x = layers.elementwise_add(
+                emb, layers.matmul(csel, pos_tab), axis=1)
+            _stage_merge(stage[0], _stage_row(stage[0], d_model),
+                         layers.reshape(x, [C, d_model]))
+            return
+        if p <= 2 * L:
+            l = (p - 1) // 2
+            xrow = _stage_row(stage[l % 2], d_model)
+            x = _chunk_of(xrow, d_model)
+            # encoder_layer's fused qkv parameter
+            qkv = layers.fc(x, 3 * d_model, num_flatten_dims=2,
+                            bias_attr=False,
+                            param_attr=T._attn_proj_attr(
+                                f"enc{l}_self", "qkv", d_model))
+            q, k, v = layers.split(qkv, 3, dim=2)
+            if (p - 1) % 2 == 0:
+                # K/V phase: stage the chunk's K and V (the next phase
+                # recomputes q)
+                _stage_merge(
+                    stage_kv, _stage_row(stage_kv, 2 * d_model),
+                    layers.reshape(layers.concat([k, v], axis=2),
+                                   [C, 2 * d_model]))
+                return
+            kvrow = _stage_row(stage_kv, 2 * d_model)      # [S, 2D]
+            kf, vf = layers.split(kvrow, 2, dim=1)
+            q4 = layers.reshape(q, [0, 0, n_heads, head_dim])
+            k4 = layers.reshape(kf, [1, S, n_heads, head_dim])
+            v4 = layers.reshape(vf, [1, S, n_heads, head_dim])
+            ctx = layers.attention(q4, k4, v4, causal=False,
+                                   scale=head_dim ** -0.5,
+                                   dropout_rate=0.0, layout="bthd")
+            ctx = layers.reshape(ctx, [0, 0, d_model])
+            attn = layers.fc(ctx, d_model, num_flatten_dims=2,
+                             bias_attr=False,
+                             param_attr=f"enc{l}_self_out.w")
+            x1 = T._add_norm(attn, x, 0.0, True, name=f"enc{l}_a")
+            ffn = T._ffn(x1, d_model, d_inner, 0.0, True, name=f"enc{l}")
+            x2 = T._add_norm(ffn, x1, 0.0, True, name=f"enc{l}_b")
+            out_pool = stage[(l + 1) % 2]
+            _stage_merge(out_pool, _stage_row(out_pool, d_model),
+                         layers.reshape(x2, [C, d_model]))
+            return
+        # the last phase: the entry's layout is heads_of's [H, S, Dh], so
+        # the positional merge runs in a [S, H*Dh] view
+        xrow = _stage_row(stage[L % 2], d_model)
+        x = _chunk_of(xrow, d_model)
+        for li in range(n_layers):
+            kvp = layers.fc(x, 2 * d_model, num_flatten_dims=2,
+                            bias_attr=False,
+                            param_attr=T._attn_proj_attr(
+                                f"dec{li}_cross", "kv", d_model))
+            k, v = layers.split(kvp, 2, dim=2)
+            for tag, val in (("k", k), ("v", v)):
+                pool = sv[f"{state_prefix}cross_{tag}{li}{POOL_MARK}"]
+                row = layers.reshape(
+                    layers.transpose(layers.gather(pool, entry),
+                                     perm=[0, 2, 1, 3]), [S, d_model])
+                merged = layers.elementwise_add(
+                    layers.elementwise_mul(row, keep),
+                    layers.matmul(cselT,
+                                  layers.reshape(val, [C, d_model])))
+                layers.masked_pool_write(
+                    pool,
+                    layers.transpose(
+                        layers.reshape(merged,
+                                       [1, S, n_heads, head_dim]),
+                        perm=[0, 2, 1, 3]),
+                    entry, leading_dims=1, exclusive_via="host_indices")
+
+    serves = {0: _build_serve("miss", 0)}
     for A in admit_buckets:
         if paged:
-            serves[("miss", A)] = _serve_program("miss", A)
-            serves[("hit", A)] = _serve_program("hit", A)
-            serves[("radix", A)] = _serve_program("radix", A)
+            serves[("miss", A)] = _build_serve("miss", A)
+            serves[("hit", A)] = _build_serve("hit", A)
+            serves[("radix", A)] = _build_serve("radix", A)
         else:
-            serves[A] = _serve_program("miss", A)
+            serves[A] = _build_serve("miss", A)
+    if cache.chunked:
+        # one serve program a phase, each the chunk followed by key 0's
+        # decode While: live lanes keep ticking while a prompt prefills
+        for p in range(2 * n_layers + 2):
+            serves[("chunked", p)] = _serve_program(
+                lambda sv, _p=p: _chunk_phase_body(sv, _p))
 
     cow_prog = probe_prog = None
     if paged:
@@ -1191,11 +1511,14 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         state["prompt_ref"] = f"{state_prefix}prompt_ref"
         state["prefill_until"] = f"{state_prefix}prefill_until"
         state["probe_probs"] = f"{state_prefix}probe_probs"
+    if needs_seeds:
+        state["seed"] = f"{state_prefix}seed"
     state.update(devtel.state_entries(state_prefix, paged))
     bundle = DecodeStepBundle(prefills, step_prog, serves, startup, state,
                               n_slots, seq_len, maxT, start_id, end_id,
                               cache=cache, hit_prefills=hit_prefills,
-                              cow=cow_prog, probe=probe_prog)
+                              sampling=sampling, cow=cow_prog,
+                              probe=probe_prog)
     bundle._state_specs = dict(specs)
     return bundle
 

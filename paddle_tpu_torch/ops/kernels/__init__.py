@@ -10,11 +10,27 @@ Every wrapper dispatches on the device of the tensors it is given:
   shape inference); nothing is launched.
 
 Each wrapper carries a plain integer ``launches`` attribute that it
-bumps once per kernel launch, so a run can show that its path went
-through the kernels; the layer_norm, sdpa_short and flash_attention
-wrappers also count their bf16 launches apart (``launches_bf16``).
+bumps once per kernel launch (``count_launch``, under a lock: a serving
+thread and a prefill worker's thread launch the same kernels), so a run
+can show that its path went through the kernels; the layer_norm,
+sdpa_short and flash_attention wrappers also count their bf16 launches
+apart (``launches_bf16``).
 """
+import threading
+
 import torch
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, bf16: bool = False) -> None:
+    """One launch of `wrapper`'s kernel (and of its bf16 instance when
+    `bf16`): a read-modify-write of the wrapper's counters that two
+    threads cannot interleave."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if bf16:
+            wrapper.launches_bf16 += 1
 
 
 def causal_keep(tq, tk, device):

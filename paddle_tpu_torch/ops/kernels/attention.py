@@ -38,8 +38,9 @@ import functools
 
 import torch
 
-from . import (causal_keep, check_launch, current_stream, masked_logits,
-               reference_attention, require_cuda_inputs, storage_tensor)
+from . import (causal_keep, check_launch, count_launch, current_stream,
+               masked_logits, reference_attention, require_cuda_inputs,
+               storage_tensor)
 from . import on_card as _on_card
 from .bf16_planes import planes_sum
 
@@ -439,8 +440,7 @@ def _sdpa_short_launch(q, k, v, scale, causal, save_p):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(p),
         _ptr(lse), b * h, t, d, float(scale), int(bool(causal)),
         current_stream(q))
-    sdpa_short.launches += 1
-    sdpa_short.launches_bf16 += q.dtype == torch.bfloat16
+    count_launch(sdpa_short, q.dtype == torch.bfloat16)
     check_launch("sdpa_short", err)
     return (out, p) if save_p else out
 
@@ -476,7 +476,7 @@ def _sdpa_short_bwd_launch(q, k, v, p, g, scale, causal):
                   q.dtype)(*(x.data_ptr() for x in ptrs), b * h, t, d,
                            float(scale), int(bool(causal)),
                            current_stream(q))
-    sdpa_short_bwd.launches += 1
+    count_launch(sdpa_short_bwd)
     check_launch("sdpa_short_bwd", err)
     return dq, dk, dv
 
@@ -531,8 +531,7 @@ def _flash_attention_launch(q, k, v, scale, causal, with_lse):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _ptr(lse), b * h, tq, k.shape[2], d, float(scale),
         int(bool(causal)), current_stream(q))
-    flash_attention.launches += 1
-    flash_attention.launches_bf16 += q.dtype == torch.bfloat16
+    count_launch(flash_attention, q.dtype == torch.bfloat16)
     check_launch("flash_attention", err)
     return (out, lse) if with_lse else out
 
@@ -565,7 +564,7 @@ def _flash_bwd_dq_launch(q, k, v, g, lse, delta, scale, causal):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, tq,
         k.shape[2], d, float(scale), int(bool(causal)), current_stream(q))
-    flash_bwd_dq.launches += 1
+    count_launch(flash_bwd_dq)
     check_launch("flash_bwd_dq", err)
     return dq
 
@@ -591,7 +590,7 @@ def _flash_bwd_dkv_launch(q, k, v, g, lse, delta, scale, causal):
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b * h, tq, k.shape[2], d, float(scale), int(bool(causal)),
         current_stream(q))
-    flash_bwd_dkv.launches += 1
+    count_launch(flash_bwd_dkv)
     check_launch("flash_bwd_dkv", err)
     return dk, dv
 

@@ -54,8 +54,8 @@ import functools
 
 import torch
 
-from . import (check_launch, current_stream, masked_logits, on_card,
-               require_block_inputs, storage_tensor)
+from . import (check_launch, count_launch, current_stream, masked_logits,
+               on_card, require_block_inputs, storage_tensor)
 from .bf16_planes import planes_sum
 
 MAX_T = 512
@@ -235,7 +235,7 @@ def _attention_block_launch(x, wqkv, wo, n_heads, scale, causal, save_p):
         x.data_ptr(), wqkv.data_ptr(), wo.data_ptr(), out.data_ptr(),
         0 if p is None else p.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
         b, t, d, n_heads, float(scale), int(bool(causal)), current_stream(x))
-    attention_block.launches += 1
+    count_launch(attention_block)
     check_launch("attention_block", err)
     return (out, p) if save_p else out
 
@@ -265,7 +265,7 @@ def attention_block_bwd(x, wqkv, wo, p, g, n_heads, scale, causal=False):
                                  dctx, dqkv, rowsum, ws)),
         WORKSPACE_FLOATS, b, t, d, n_heads, float(scale), int(bool(causal)),
         current_stream(x))
-    attention_block_bwd.launches += 1
+    count_launch(attention_block_bwd)
     check_launch("attention_block_bwd", err)
     return dx, dwqkv, dwo
 

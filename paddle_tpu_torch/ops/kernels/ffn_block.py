@@ -36,8 +36,8 @@ import functools
 
 import torch
 
-from . import check_launch, current_stream, require_block_inputs, \
-    require_cuda_inputs, storage_tensor
+from . import (check_launch, count_launch, current_stream,
+               require_block_inputs, require_cuda_inputs, storage_tensor)
 from .bf16_planes import planes_sum
 
 # the weight gradients' row slices and the column sums (tile_mma.cuh,
@@ -155,7 +155,7 @@ def _ffn_block_launch(x, w1, b1, w2, b2):
     err = _kernel("ffn_block_fwd", 7, False, x.dtype)(
         *(a.data_ptr() for a in (x, w1, b1, w2, b2, out, h)), n, d, f,
         current_stream(x))
-    ffn_block.launches += 1
+    count_launch(ffn_block)
     check_launch("ffn_block", err)
     return out
 
@@ -181,7 +181,7 @@ def ffn_block_bwd(x, w1, b1, w2, g):
     err = _kernel("ffn_block_bwd", 12, True, x.dtype)(
         *(a.data_ptr() for a in (x, w1, b1, w2, g, dx, dw1, db1, dw2, db2, h,
                                  ws)), ws_floats, n, d, f, current_stream(x))
-    ffn_block_bwd.launches += 1
+    count_launch(ffn_block_bwd)
     check_launch("ffn_block_bwd", err)
     return dx, dw1, db1, dw2, db2
 

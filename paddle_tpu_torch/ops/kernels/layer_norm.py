@@ -16,7 +16,8 @@ import functools
 
 import torch
 
-from . import check_launch, current_stream, require_cuda_inputs
+from . import (check_launch, count_launch, current_stream,
+               require_cuda_inputs)
 
 
 def layer_norm_plain(x, scale, bias, eps=1e-5):
@@ -64,8 +65,7 @@ def _launch(x, scale, bias, eps):
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
         mean.data_ptr(), var.data_ptr(), n, d, eps,
         int(x.dtype == torch.bfloat16), current_stream(x))
-    layer_norm.launches += 1
-    layer_norm.launches_bf16 += x.dtype == torch.bfloat16
+    count_launch(layer_norm, x.dtype == torch.bfloat16)
     check_launch("layer_norm", err)
     return y, mean, var
 

@@ -27,7 +27,8 @@ import functools
 
 import torch
 
-from . import check_launch, current_stream, require_cuda_inputs
+from . import (check_launch, count_launch, current_stream,
+               require_cuda_inputs)
 
 MAX_HEAD_DIM = 256
 
@@ -110,7 +111,7 @@ def _launch(q, pool_k, pool_v, block_tab, step, scale):
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tab.data_ptr(),
         st.data_ptr(), out.data_ptr(), r, h, d, bs, n_pages, float(scale),
         current_stream(q))
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention)
     check_launch("paged_decode_attention", err)
     return out
 

@@ -22,7 +22,8 @@ import functools
 
 import torch
 
-from . import check_launch, current_stream, require_cuda_inputs
+from . import (check_launch, count_launch, current_stream,
+               require_cuda_inputs)
 
 
 def _target_parts(logits, label):
@@ -106,7 +107,7 @@ def xent_forward(logits, label, eps=0.0, ignore_index=-100):
         logits.data_ptr(), lab.data_ptr(), loss.data_ptr(), lse.data_ptr(),
         n, logits.shape[1], float(eps), int(ignore_index),
         int(logits.dtype == torch.bfloat16), current_stream(logits))
-    xent_forward.launches += 1
+    count_launch(xent_forward)
     check_launch("xent_forward", err)
     return loss, lse
 
@@ -135,7 +136,7 @@ def xent_backward(logits, label, dloss, eps=0.0, ignore_index=-100):
         logits.data_ptr(), lab.data_ptr(), g.data_ptr(), dx.data_ptr(), n,
         logits.shape[1], float(eps), int(ignore_index),
         int(logits.dtype == torch.bfloat16), current_stream(logits))
-    xent_backward.launches += 1
+    count_launch(xent_backward)
     check_launch("xent_backward", err)
     return dx
 

@@ -142,6 +142,11 @@ def unsqueeze2(ctx):
     return _with_xshape(ctx, out)
 
 
+@register_op("concat")
+def concat(ctx):
+    return torch.cat(ctx.inputs("X"), dim=ctx.attr("axis", 0))
+
+
 @register_op("split")
 def split(ctx):
     x = ctx.input("X")

@@ -250,7 +250,8 @@ def test_lifecycle_and_what_is_not_ported(world):
     with pytest.raises(ValueError, match="paged"):
         PS.PagedContinuousGenerationServer(world["dense"], executor=m.exe,
                                            scope=m.scope, start=False)
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
+    # chunked prefill needs a bundle built with chunk_tokens > 0
+    with pytest.raises(ValueError, match="chunk_tokens"):
         _paged(world, chunked_prefill=True, start=False)
     srv = _paged(world)
     try:

@@ -387,13 +387,15 @@ def test_step_program_ticks_match_jax(bundles):
 
 
 def test_builder_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="sampled"):
-        PD.build_decode_step_program(sampling=object(), **MODEL)
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        PD.build_decode_step_program(
-            cache=PD.CacheConfig(layout="paged", block_size=BS,
-                                 n_blocks=NB, n_prompt_entries=E,
-                                 chunk_tokens=4), **MODEL)
+    # drafts and sharding are serving steps 9 and 10 of the port
+    with pytest.raises(NotImplementedError, match="step 9"):
+        PD.build_decode_step_program(draft=object(), **MODEL)
+    with pytest.raises(NotImplementedError, match="step 10"):
+        PD.build_decode_step_program(sharding=object(), **MODEL)
+    # chunked prefill is ported: CacheConfig still rejects a chunk of 1
+    with pytest.raises(ValueError, match="chunk_tokens == 1"):
+        PD.CacheConfig(layout="paged", block_size=BS, n_blocks=NB,
+                       n_prompt_entries=E, chunk_tokens=1).validate(32)
     with pytest.raises(ValueError, match="must divide"):
         PD.CacheConfig(layout="paged", block_size=5, n_blocks=4,
                        n_prompt_entries=1).validate(32)

@@ -63,18 +63,27 @@ def jax_executor():
 
 
 def drive(srv):
-    """Run a server built with start=False on the calling thread (plan,
-    fail, cycle) until its queue and lanes are empty, so both packages'
-    servers take the same admission decisions. Works for the port's
-    server and the JAX package's."""
-    for _ in range(500):
-        if not (srv._queue or any(l is not None for l in srv._lanes)):
-            return
-        failures = []
+    """Run a server built with start=False on the calling thread (shed,
+    plan, fail, cycle) until nothing is queued, live, prefilling or out at
+    a prefill worker, so both packages' servers take the same admission
+    decisions; a pass with nothing to run while a worker's job is out
+    waits for its handoff. Works for the port's server and the JAX
+    package's."""
+    for _ in range(2000):
         with srv._cv:
+            if not (srv._queue or srv._has_background_work_locked()
+                    or srv._has_pending_external_locked()
+                    or any(l is not None for l in srv._lanes)):
+                return
+            failures = []
+            cancels = srv._shed_cancelled_locked(0.0)
             admits = srv._plan_admissions_locked(failures)
             n, m, run = srv._plan_burst_locked(admits, not srv._queue,
                                                failures)
+            if not (run or cancels or failures):
+                assert srv._has_pending_external_locked(), "stalled"
+                srv._cv.wait(10.0)
+        srv._finalize_cancelled(cancels)
         srv._fail_requests(failures)
         if run:
             srv._cycle(admits, n, m)
