@@ -254,8 +254,9 @@ Phases (a failing phase fails the script; none is caught):
    same 16 lanes. The paged decode-attention kernel must launch n_layers
    times a tick (the device's tick counter); the copies of a shared
    prompt give one row; the tokens must equal the CPU whole-loop decode
-   (build_incremental_decode_program, plain versions) on 8 distinct
-   prompts and the dense leg on every request, under phase 4's tie
+   (build_incremental_decode_program, plain versions) on 4 distinct
+   prompts (8 earlier, cut for time) and the dense leg on every
+   request, under phase 4's tie
    rule; the block pool and the prompt entries drain. Requests/s,
    tokens/s and latency of both legs, and one burst of the paged server
    under torch.profiler.
@@ -326,8 +327,9 @@ Phases (a failing phase fails the script; none is caught):
    both. (b) the 8 prompts sent plain twice: the second submit admits
    through the radix tier (8 plain radix admissions), both equal to
    turn 1. (c) n_best=4 on 2 prompts: identical replies on one prompt
-   entry. (d) PagedBeamDecoder, beam 4 on 2 prompts, on the card and
-   then on the CPU (plain versions): scores within 1e-4, hypotheses
+   entry. (d) PagedBeamDecoder, beam 4 on 2 prompts on the card, the
+   first of them then on the CPU (plain versions; the second's CPU
+   decode was cut for time): scores within 1e-4, hypotheses
    equal except candidates whose score lies within that bound of the
    other side's last (printed); >= 1 COW block; the pool free after
    each decode; beam 1 equals the server's greedy tokens with 0 COW;
@@ -343,20 +345,40 @@ Phases (a failing phase fails the script; none is caught):
    through a chunked PagedContinuousGenerationServer, the same bundle's
    monolithic server (chunked_prefill=False), a server fed by a
    DisaggregatedPrefillWorker (its own scope and executor on the same
-   card, its own thread) and the chunked server again under
-   torch.profiler: the tokens equal on every leg, the chunk dispatches
+   card, its own thread): the tokens equal on every leg, the chunk dispatches
    exactly jobs x n_chunks x phases on the host and on the device's
    tel_chunks, #2 launched 6 a chunk cursor of the attention phases,
    #9 n_layers a decode tick, the pool drained; 2 prompts against the
    CPU whole-loop decode under phase 4's tie rule. Sampled leg: phase
    9's bundle with SAMPLED (base_seed SEED) on 4 of phase 9's shared
-   prompts with SAMPLED_SEEDS: the tokens against the CPU server's
-   (the same bundle, plain versions), the same wave reversed at
-   SAMPLED_STEPS_B a burst under torch.profiler, both under the tie
-   rule on the card's top-2 margin of g + log p at the diverging draw;
+   prompts with SAMPLED_SEEDS, the same wave reversed at
+   SAMPLED_STEPS_B a burst, under the tie rule on the card's top-2
+   margin of g + log p at the diverging draw (the CPU server's wave and
+   the chunked leg's profiled rerun were cut for time);
    the least such margin over the wave's draws; a temperature-0 bundle
    equal to phase 9's greedy rows. Walls, idle shares and launches of
    every leg.
+14. speculative (after phase 13): Transformer-base with phase 12's
+   weights and a draft of SPEC_DRAFT (d 256, 4 heads, 2 layers, d_inner
+   1024, params seeded under draft_) over phase 9's paged geometry at
+   128 tokens out; 16 requests (phase 12's session rows and
+   SPEC_EXTRA_ROWS). Bundles: plain, the model draft's ladder (k 3 of
+   (0, 3, 4)), the n-gram proposer (k 2 of (0, 2)) and the model draft
+   at k 3 with SAMPLED. Legs: the plain wave; the ladder pinned at k 0
+   (the plain rows bit for bit, #9 n_layers a tick, the draft keepalive
+   writes its cache); pinned at 3 and at 4 with the raw draft;
+   distill_draft (4 rounds of batch 8, 4 inner steps, the plain server
+   the teacher: the loss falls, the target's params keep their bytes,
+   #7 and #8 once a replayed step in the last round's trace); pinned at
+   3 and the automatic controller after it; the n-gram bundle under its
+   controller (no draft step); sampled speculation on 2 prompts against
+   the CPU server of the same bundle, and reversed at SAMPLED_STEPS_B a
+   burst; 2 rows of the distilled k 3 wave against the CPU whole loop.
+   Rows equal the plain wave's or the CPU's under phase 4's tie rule
+   (sampled: the card's least margin at the diverging draw or
+   acceptance test); every divergence printed. Walls, tokens/s, idle
+   shares (each wave under torch.profiler), acceptance, emitted a
+   verify and the rungs' dispatch shares of every leg.
 
 The script prints its whole wall time; the second-to-last line lists
 the kernels as JSON, each with its launches on the serving (`served`),
@@ -366,7 +388,10 @@ training (`trained`, phases 5-8 together), MNIST training
 session, plain-reuse and n_best legs), beam decoding (`served_beam`,
 phase 12's card decodes), chunked prefill (`served_chunked`, phase 13's
 chunked, monolithic and worker-fed legs), sampled emission
-(`served_sampled`, phase 13's sampled waves) and predictor
+(`served_sampled`, phase 13's sampled waves), speculative serving
+(`served_spec`, phase 14's card waves), draft distillation
+(`trained_distill`, phase 14's distillation leg, its teacher's decodes
+included) and predictor
 (`served_predictor`, phase 11's
 timed runs and served requests; `served_predictor_bf16`: the bf16
 launches among them) paths; the last
@@ -547,7 +572,7 @@ FUSED_RTOL = 1e-5
 PAGED = dict(seq_len=256, max_out_len=256, n_slots=16, block_size=16,
              n_blocks=256, n_prompt_entries=16, steps_per_tick=8)
 PAGED_SHARED, PAGED_REPEATS, PAGED_UNIQUE = 8, 3, 8
-PAGED_CPU_ROWS = 8   # distinct prompts held against the CPU whole loop
+PAGED_CPU_ROWS = 4   # distinct prompts held against the CPU whole loop
 # phase 12, the radix tier and the beam decoder on phase 9's bundle and
 # seeded weights, changed in three places. As seeded, the decode barely
 # depends on its input: the decoder's attention and FFN branches,
@@ -577,6 +602,7 @@ RADIX_NBEST = 4
 RADIX_NBEST_ROWS = (1, 4)
 RADIX_BEAM = 4
 RADIX_BEAM_ROWS = (19, 24)
+RADIX_BEAM_CPU_ROWS = 1   # of them decoded again on the CPU
 # beam scores (sums of up to 255 fp32 log-probs) card against CPU: the
 # JAX package's own beam pin (tests/test_radix_reuse.py:223)
 RADIX_BEAM_TOL = 1e-4
@@ -598,6 +624,22 @@ CHUNK_CPU_ROWS = 2   # prompts held against the CPU whole-loop decode
 SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.9)
 SAMPLED_SEEDS = (7, 2 ** 31 + 5, 2 ** 32 - 1, 123456789)
 SAMPLED_STEPS_B = 3
+# phase 14, speculative decoding on Transformer-base (MODEL) with phase
+# 12's weights and phase 9's paged geometry, 128 tokens out. The draft: a
+# quarter of the target's width and a third of its depth (head dim 64),
+# params seeded under draft_; the ladder and its default k; the n-gram
+# proposer of bench.py; 16 prompts (phase 12's 8 session rows and 8 more
+# candidates); distillation rounds at batch 8 with 4 inner steps
+SPEC_MAX_OUT = 128
+SPEC_DRAFT = dict(d_model=256, n_heads=4, n_layers=2, d_inner=1024)
+SPEC_K = 3
+SPEC_LADDER = (0, 3, 4)
+SPEC_NGRAM = dict(k=2, kind="ngram", ngram=2, k_options=(0, 2))
+SPEC_EXTRA_ROWS = (0, 1, 2, 3, 4, 5, 6, 8)
+SPEC_DISTILL = dict(rounds=4, batch=8, inner_steps=4, learning_rate=0.005)
+SPEC_SAMPLED_ROWS = 2  # prompts of the sampled leg, against the CPU
+SPEC_BURST = 2         # ticks of a leg's profiled burst (its idle share)
+SPEC_CPU_ROWS = 2      # prompts of the k = 3 leg against the CPU
 # the MNIST fc net (BASELINE.md config 1; models/mnist.py build_program
 # with use_conv=False: 784-128-64-10) at bench.py bench_mnist's batch,
 # 4096, on its synthetic separable batch (bench.py:375-377) as [784]
@@ -3272,12 +3314,13 @@ def _serve_continuous(srv, prompts, seeds=None):
     return np.stack(results), st, wall
 
 
-def _profile_paged_burst(srv, prompts, tag="paged serve", seeds=None):
+def _profile_paged_burst(srv, prompts, tag="paged serve", seeds=None,
+                         host=True):
     """One decode burst of the paged server under torch.profiler, driven
     from this thread: a first cycle admits a full pool of requests and
     runs steps_per_tick ticks, the second cycle (admitting nothing, a
-    burst of steps_per_tick ticks over every lane) is profiled. The
-    server is then closed."""
+    burst of steps_per_tick ticks over every lane) is profiled (`host`
+    False: the device's activities only). The server is then closed."""
     for i, p in enumerate(prompts):
         srv.submit(p, seed=None if seeds is None else seeds[i])
     try:
@@ -3294,7 +3337,7 @@ def _profile_paged_burst(srv, prompts, tag="paged serve", seeds=None):
             n0 = KPA.paged_decode_attention.launches
             _, res = _device_profile(f"{tag}: one burst",
                                      lambda: srv._cycle(admits, n, m),
-                                     match="paged_decode")
+                                     match="paged_decode", host=host)
     finally:
         srv.close()
     paged_ms = res.pop("matched_ms")
@@ -3388,8 +3431,8 @@ def phase_paged(card_name, card):
     PagedContinuousGenerationServer(steps_per_tick=8), 32 threaded
     submits (8 shared prompts 3 times each, 8 unique ones). Kernel #9
     must launch n_layers times a tick; the tokens must equal the CPU
-    whole-loop decode on 8 of the distinct prompts and the dense
-    ContinuousGenerationServer leg on the card (same 16 lanes, same
+    whole-loop decode on PAGED_CPU_ROWS of the distinct prompts and the
+    dense ContinuousGenerationServer leg on the card (same 16 lanes, same
     requests), under the tie rule; the pool must drain. Returns
     (launches by kernel over both legs, results)."""
     L = MODEL["n_layers"]
@@ -3541,6 +3584,18 @@ def _radix_setup(gpu):
     the CPU, the candidate prompts [RADIX_CANDIDATES, 256] and each
     candidate's extension tokens [RADIX_CANDIDATES, turns - 1, 4]."""
     paged, _, _, startup, _ = _paged_programs()
+    gscope, host = _radix_weights(gpu, startup)
+    cscope = pf.Scope()
+    pf.load_numpy_params(cscope, host, pf.CPUPlace())
+    cands, exts = _radix_candidates()
+    return paged, gscope, cscope, cands, exts
+
+
+def _radix_weights(gpu, startup):
+    """Phase 9's seeded weights in a scope on the card, changed as the
+    constants RADIX_* say (word embeddings scaled, the decoder's branch
+    outputs scaled down, end_id's column biased): (scope, the host
+    arrays)."""
     gscope = _paged_weights(gpu, startup)
     params = [v.name for v in startup.global_block.vars.values()
               if v.persistable]
@@ -3555,14 +3610,18 @@ def _radix_setup(gpu):
     host[f"{ln}.b"][0] = 1.0
     host["logits.w"][0, MODEL["end_id"]] = RADIX_EOS_BIAS
     pf.load_numpy_params(gscope, host, gpu.device)
-    cscope = pf.Scope()
-    pf.load_numpy_params(cscope, host, pf.CPUPlace())
+    return gscope, host
+
+
+def _radix_candidates():
+    """The candidate prompts [RADIX_CANDIDATES, 256] and each one's
+    extension tokens [RADIX_CANDIDATES, turns - 1, 4]."""
     rng = np.random.RandomState(RADIX_PROMPT_SEED)
     cands = rng.randint(2, MODEL["vocab"], (
         RADIX_CANDIDATES, PAGED["seq_len"])).astype(np.int64)
     exts = rng.randint(2, MODEL["vocab"], (
         RADIX_CANDIDATES, RADIX_TURNS - 1, RADIX_EXTEND)).astype(np.int64)
-    return paged, gscope, cscope, cands, exts
+    return cands, exts
 
 
 def _radix_server(paged, gpu, gscope, reuse):
@@ -3788,7 +3847,8 @@ def phase_radix(card_name, card):
     cdec = serving.PagedBeamDecoder(paged, RADIX_BEAM, executor=cpu,
                                     scope=cscope)
     beams = []
-    for r, hyps, t_ms in zip(RADIX_BEAM_ROWS, got, ms):
+    for r, hyps, t_ms in zip(RADIX_BEAM_ROWS[:RADIX_BEAM_CPU_ROWS], got,
+                             ms):
         t1 = time.monotonic()
         want = cdec.decode(cands[r], return_all=True)
         cpu_s = time.monotonic() - t1
@@ -3883,25 +3943,19 @@ def _idle_share(prof):
     return None if prof is None else prof["idle_share"]
 
 
-def _chunk_leg(tag, bundle, gpu, gscope, prompts, profiled=False,
-               worker=None, chunked_prefill=None):
+def _chunk_leg(tag, bundle, gpu, gscope, prompts, worker=None,
+               chunked_prefill=None):
     """One wave of `prompts` through a PagedContinuousGenerationServer
     over the chunked bundle: its rows, wall, pool and host chunk counts,
-    the device's tel_chunks (the worker's scope's, with a worker), the
-    launches by kernel and, `profiled`, the profile of the wave."""
+    the device's tel_chunks (the worker's scope's, with a worker) and
+    the launches by kernel."""
     _zero_launches()
     srv = serving.PagedContinuousGenerationServer(
         bundle, executor=gpu, scope=gscope,
         steps_per_tick=CHUNK["steps_per_tick"], start=False,
         radix_reuse=False, chunked_prefill=chunked_prefill,
         prefill_worker=worker)
-    prof = None
-    if profiled:
-        (toks, st, wall), prof = _device_profile(
-            f"chunked prefill, {tag}", lambda: _serve_continuous(
-                srv, prompts), host=False)
-    else:
-        toks, st, wall = _serve_continuous(srv, prompts)
+    toks, st, wall = _serve_continuous(srv, prompts)
     counts = _launch_counts()
     ps = srv.pool_stats()
     tel = st["device_telemetry"]
@@ -3917,9 +3971,8 @@ def _chunk_leg(tag, bundle, gpu, gscope, prompts, profiled=False,
         counts
     assert counts["sdpa_short"] == 0, counts
     assert ps["blocks_in_use"] == 0 and ps["prompt_entries_in_use"] == 0, ps
-    log(f"chunked prefill, {tag}: {len(prompts)} requests in {wall:.2f} s "
-        f"({'under the profiler, ' if profiled else ''}idle share "
-        f"{_idle_share(prof)}), p50 latency {st['latency_ms']['p50']} ms, "
+    log(f"chunked prefill, {tag}: {len(prompts)} requests in {wall:.2f} s, "
+        f"p50 latency {st['latency_ms']['p50']} ms, "
         f"ttft p50 {st['ttft_ms']['p50']} ms; {st['ticks']} dispatches, "
         f"{tel['ticks']} decode ticks; chunk jobs {ps['chunk_jobs']}, "
         f"chunk dispatches {ps['chunk_ticks']} (device {dev_chunks}), "
@@ -3930,8 +3983,7 @@ def _chunk_leg(tag, bundle, gpu, gscope, prompts, profiled=False,
                       chunk_jobs=ps["chunk_jobs"],
                       chunk_ticks=ps["chunk_ticks"],
                       device_chunks=dev_chunks,
-                      handoffs=ps["disagg_handoffs"], launches=counts,
-                      profile=prof)
+                      handoffs=ps["disagg_handoffs"], launches=counts)
 
 
 def _record_margins(records):
@@ -4018,9 +4070,9 @@ def phase_chunked_sampled(card_name, card, greedy):
     phases on the host and the device, #1, #2 and #9 launched; two
     prompts against the CPU whole loop. Sampled leg: phase 9's bundle
     with SAMPLED (base_seed SEED) on 4 of phase 9's shared prompts with
-    SAMPLED_SEEDS: the card's tokens against the CPU server's, the same
-    wave reversed at SAMPLED_STEPS_B a burst, the least top-2 margin of
-    the draws; a temperature-0 bundle against phase 9's greedy rows.
+    SAMPLED_SEEDS, the same wave reversed at SAMPLED_STEPS_B a burst,
+    the least top-2 margin of the draws; a temperature-0 bundle against
+    phase 9's greedy rows.
     Returns (launches on the chunked leg, on the sampled leg, results)."""
     L = MODEL["n_layers"]
     gpu = pf.Executor(pf.CUDAPlace(0))
@@ -4075,24 +4127,20 @@ def phase_chunked_sampled(card_name, card, greedy):
     finally:
         worker.close()
     log(f"chunked prefill: the worker-fed leg done {at()}")
-    toks["profiled"], legs["chunked_profiled"] = _chunk_leg(
-        "chunked, profiled", bundle, gpu, gscope, prompts, profiled=True)
-    log(f"chunked prefill: the profiled leg done {at()}")
     jobs = len(distinct)
-    for tag in ("chunked", "chunked_profiled"):
-        leg = legs[tag]
-        assert leg["chunk_jobs"] == jobs, leg
-        assert leg["chunk_ticks"] == jobs * n_chunks * phases \
-            == leg["device_chunks"], leg
-        # the chunk's attention phases launch #2: L a chunk cursor
-        assert leg["launches"]["flash_attention"] == jobs * L * n_chunks, leg
+    leg = legs["chunked"]
+    assert leg["chunk_jobs"] == jobs, leg
+    assert leg["chunk_ticks"] == jobs * n_chunks * phases \
+        == leg["device_chunks"], leg
+    # the chunk's attention phases launch #2: L a chunk cursor
+    assert leg["launches"]["flash_attention"] == jobs * L * n_chunks, leg
     assert legs["monolithic"]["chunk_jobs"] == 0
     assert legs["worker"]["handoffs"] == jobs and ws["jobs_done"] == jobs \
         and ws["chunk_ticks"] == jobs * n_chunks * phases \
         == legs["worker"]["device_chunks"], (legs["worker"], ws)
     assert legs["worker"]["launches"]["flash_attention"] \
         == jobs * L * n_chunks, legs["worker"]
-    for tag in ("monolithic", "worker", "profiled"):
+    for tag in ("monolithic", "worker"):
         np.testing.assert_array_equal(toks[tag], toks["chunked"],
                                       err_msg=tag)
     for leg in legs.values():
@@ -4128,18 +4176,17 @@ def phase_chunked_sampled(card_name, card, greedy):
         n_prompt_entries=PAGED["n_prompt_entries"])
     built = {}
     t1 = time.monotonic()
-    # the CPU's server takes the sampled bundle at 4 lanes: a lane's
-    # tokens do not depend on how many lanes its bundle has
-    for tag, samp, lanes in (
-            ("sampled", dict(SAMPLED, base_seed=SEED), PAGED["n_slots"]),
-            ("greedy", dict(temperature=0.0), PAGED["n_slots"]),
-            ("cpu", dict(SAMPLED, base_seed=SEED), len(SAMPLED_SEEDS))):
+    # (the CPU server's wave of these bundles was cut for time:
+    # phase 14 holds sampled speculation, whose draws include these, on
+    # the card against the CPU)
+    for tag, samp in (("sampled", dict(SAMPLED, base_seed=SEED)),
+                      ("greedy", dict(temperature=0.0))):
         with unique_name.guard():
             built[tag] = decode_engine.build_decode_step_program(
-                n_slots=lanes, state_prefix=f"@s{tag[0]}/",
+                n_slots=PAGED["n_slots"], state_prefix=f"@s{tag[0]}/",
                 cache=cache,
                 sampling=decode_engine.SamplingConfig(**samp), **cfg)
-    log(f"sampled: built the sampled, temperature-0 and CPU bundles in "
+    log(f"sampled: built the sampled and temperature-0 bundles in "
         f"{time.monotonic() - t1:.1f} s")
     sb = built["sampled"]
     gscope = _paged_weights(gpu, startup)
@@ -4208,22 +4255,471 @@ def phase_chunked_sampled(card_name, card, greedy):
         _sampled_server(sb, gpu, gscope, PAGED["steps_per_tick"]), srcs,
         tag="sampled", seeds=seeds)
     log(f"sampled: the profiled burst done {at()}")
-    t1 = time.monotonic()
-    cpu_rows, _, _ = _serve_continuous(
-        _sampled_server(built["cpu"], cpu, cscope, PAGED["steps_per_tick"]),
-        srcs, seeds)
-    res["cpu_s"] = time.monotonic() - t1
-    res["ties_cpu"] = _sampled_rows_agree("sampled, card vs CPU", a_rows,
-                                          cpu_rows, margins)
-    log(f"sampled: the CPU wave done {at()}")
-    log(f"sampled: the card's tokens equal the CPU server's on "
-        f"{len(srcs) - res['ties_cpu']}/{len(srcs)} requests ({res['ties_cpu']} "
-        f"ties; CPU {res['cpu_s']:.1f} s), the reversed wave at "
-        f"{SAMPLED_STEPS_B} a burst on {len(srcs) - res['b']['ties']}/"
-        f"{len(srcs)}; the temperature-0 bundle equals phase 9's greedy "
-        f"rows; on {card_name} ({card})")
+    log(f"sampled: the reversed wave at {SAMPLED_STEPS_B} a burst equals "
+        f"wave A on {len(srcs) - res['b']['ties']}/{len(srcs)} requests; "
+        f"the temperature-0 bundle equals phase 9's greedy rows; on "
+        f"{card_name} ({card})")
     return chunked_launches, sampled_launches, dict(chunked=chunked,
                                                     sampled=res)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: speculative decoding (the model draft's ladder, the n-gram
+# proposer, sampled speculation) and draft distillation
+# ---------------------------------------------------------------------------
+SPEC_KERNELS = (KL.layer_norm, KPA.paged_decode_attention, KA.sdpa_short,
+                KA.flash_attention, KX.xent_forward, KX.xent_backward)
+
+
+def _spec_launches():
+    return {k.__name__: k.launches for k in SPEC_KERNELS}
+
+
+def _zero_spec_launches():
+    for k in SPEC_KERNELS:
+        k.launches = 0
+
+
+class _PinnedK:
+    """A controller that runs every dispatch at one rung."""
+
+    def __init__(self, k):
+        self.k = int(k)
+
+    def choose(self):
+        return self.k
+
+    def observe(self, accepted_delta, ticks_delta, k):
+        pass
+
+    def reset_lane(self, lane):
+        pass
+
+    def stats(self):
+        return {"pinned": self.k}
+
+
+def _spec_programs():
+    """Phase 14's bundles over phase 9's paged geometry at SPEC_MAX_OUT
+    tokens out (16 lanes, admissions of 16): plain, the model draft's
+    ladder, the n-gram proposer, the model draft at fixed k with SAMPLED
+    (base_seed SEED), and that sampled bundle at SPEC_SAMPLED_ROWS lanes
+    for the CPU; the whole-loop program with its startup and output."""
+    cfg = dict(MODEL, seq_len=PAGED["seq_len"], max_out_len=SPEC_MAX_OUT)
+    cache = decode_engine.CacheConfig(
+        layout="paged", block_size=PAGED["block_size"],
+        n_blocks=PAGED["n_blocks"],
+        n_prompt_entries=PAGED["n_prompt_entries"])
+    model_draft = decode_engine.DraftConfig(k=SPEC_K, **SPEC_DRAFT)
+    sampled = dict(draft=model_draft, sampling=decode_engine.SamplingConfig(
+        **SAMPLED, base_seed=SEED))
+    built = {}
+    for tag, lanes, kw in (
+            ("plain", PAGED["n_slots"], {}),
+            ("ladder", PAGED["n_slots"], dict(
+                draft=decode_engine.DraftConfig(
+                    k=SPEC_K, k_options=SPEC_LADDER, **SPEC_DRAFT))),
+            ("ngram", PAGED["n_slots"], dict(
+                draft=decode_engine.DraftConfig(**SPEC_NGRAM))),
+            ("sampled", PAGED["n_slots"], sampled),
+            ("cpu", SPEC_SAMPLED_ROWS, sampled)):
+        with unique_name.guard():
+            built[tag] = decode_engine.build_decode_step_program(
+                n_slots=lanes, admit_buckets=[lanes],
+                state_prefix=f"@x{tag[0]}/", cache=cache, **kw, **cfg)
+    with unique_name.guard():
+        whole, startup, _, out = \
+            decode_engine.build_incremental_decode_program(**cfg)
+    return built, whole, startup, out
+
+
+def _spec_weights(gpu, startup):
+    """Phase 12's weights with the draft's params seeded under draft_
+    (the port's initializers, startup seed SEED + 14): the card's scope,
+    the CPU's, and the draft's param names."""
+    gscope, host = _radix_weights(gpu, startup)
+    with unique_name.guard():
+        _, dst, _ = transformer.build_program(
+            seq_len=PAGED["seq_len"], vocab=MODEL["vocab"],
+            with_optimizer=False, dropout_rate=0.0, name_prefix="draft_",
+            **SPEC_DRAFT)
+    dst.random_seed = SEED + 14
+    tmp = pf.Scope()
+    gpu.run(dst, scope=tmp)
+    names = [v.name for v in dst.global_block.vars.values()
+             if v.persistable and v.name.startswith("draft_")]
+    draft = pf.scope_to_numpy(tmp, names)
+    pf.load_numpy_params(gscope, draft, gpu.device)
+    host.update(draft)
+    cscope = pf.Scope()
+    pf.load_numpy_params(cscope, host, pf.CPUPlace())
+    return gscope, cscope, names
+
+
+def _record_spec_margins(records):
+    """Wrap the spec_accept op's kernel: each call also records, without
+    a sync, (seed, position, margin) for every lane's acceptance tests
+    (|log p(x) - log(u q(x))| at pos+1+j) and its correction or bonus
+    draw (the top-2 margin of g + log p at pos+1+a). Returns the
+    function that restores the kernel."""
+    from paddle_tpu_torch.ops import spec_ops as SO
+
+    info = registry.get_op_info("spec_accept")
+    real = info.kernel
+
+    def kernel(ctx):
+        out = real(ctx)
+        k = int(ctx.attr("k"))
+        tag, base = int(ctx.attr("noise_tag", 0)), ctx.attr("base_seed", 0)
+        tp = ctx.input("TargetProbs").float()
+        dp = ctx.input("DraftProbs").float()
+        seed = ctx.input("Seed").reshape(-1)
+        pos = ctx.input("Pos").reshape(-1).long()
+        props = ctx.input("Proposals").long()
+        dev = tp.device
+        lanes = torch.arange(tp.shape[0], device=dev)
+        posj = pos[:, None] + 1 + torch.arange(k, device=dev)[None]
+        u = SO.uniform_scalar(SO.lane_keys(
+            SO.base_key(base, tag + SO._TAG_ACCEPT, dev), seed, posj))
+        px = torch.gather(tp[:, :k], 2, props[..., None])[..., 0]
+        qx = torch.gather(dp, 2, props[..., None])[..., 0]
+        acc_m = (torch.log(px + 1e-30) - torch.log(u * qx + 1e-30)).abs()
+        a = torch.cumprod((u * qx < px).long(), dim=1).sum(dim=1)
+        ai = a.clamp(0, k - 1)
+        resid = (tp[lanes, ai] - dp[lanes, ai]).clamp_min(0.0)
+        rs = resid.sum(-1, keepdim=True)
+        resid = torch.where(rs > 0, resid / rs.clamp_min(1e-30),
+                            tp[lanes, ai])
+        dist = torch.where((a < k)[:, None], resid, tp[:, k])
+        keys = SO.lane_keys(SO.base_key(base, tag + SO._TAG_RESID, dev),
+                            seed, pos + 1 + a)
+        z = -torch.log(-torch.log(SO.uniform(keys, dist.shape[-1]))) \
+            + torch.log(dist + 1e-20)
+        top2 = torch.topk(z, 2, dim=-1).values
+        sd = seed.double()
+        records.append(torch.cat([
+            torch.stack([sd[:, None].expand_as(posj).reshape(-1),
+                         posj.reshape(-1).double(),
+                         acc_m.reshape(-1).double()], dim=1),
+            torch.stack([sd, (pos + 1 + a).double(),
+                         (top2[:, 0] - top2[:, 1]).double()], dim=1)]))
+        return out
+
+    info.kernel = kernel
+
+    def restore():
+        info.kernel = real
+    return restore
+
+
+def _margins_by_row(records, seeds):
+    """(row, position) -> the least recorded margin there, for the rows'
+    seeds."""
+    out = {}
+    if not records:
+        return out
+    for seed, pos, m in torch.cat(records).cpu().numpy():
+        if int(seed) in seeds:
+            key = (seeds.index(int(seed)), int(pos))
+            out[key] = min(out.get(key, math.inf), float(m))
+    return out
+
+
+def phase_speculative(card_name, card):
+    """Speculative decoding on Transformer-base (phase 12's weights, the
+    draft SPEC_DRAFT seeded under draft_) over phase 9's paged geometry
+    at SPEC_MAX_OUT tokens out, 16 requests (phase 12's session rows and
+    SPEC_EXTRA_ROWS). Legs: (1) the plain bundle: the reference rows;
+    (2) the ladder pinned at k = 0: the plain rows bit for bit, #9
+    n_layers a tick, the draft's keepalive writes its cache; (3) pinned
+    at k = 3 and at k = 4 with the raw draft; (4) distill_draft on the
+    plain server's rows (SPEC_DISTILL): the loss falls, the target's
+    params keep their bytes, #7 and #8 once a replayed step (profiled);
+    (5) pinned k = 3 and the automatic controller after distillation;
+    (6) the n-gram bundle under its automatic controller, no draft step;
+    (7) sampled speculation (the draft at k = 3, SAMPLED) on
+    SPEC_SAMPLED_ROWS prompts against the CPU server of the same bundle,
+    and again in reverse at SAMPLED_STEPS_B a burst; (8) two prompts of
+    leg 5's k = 3 wave against the CPU whole loop. Rows equal the plain
+    rows (legs 3, 5, 6) or the CPU's (7, 8) under phase 4's tie rule
+    (sampled: the least card margin at the diverging draw or test).
+    Every card wave runs under torch.profiler (device activities only)
+    for its idle share. Returns (launches on the serving legs 1-3 and
+    5-7, on the distillation leg, results)."""
+    from paddle_tpu_torch.models.distill import distill_draft
+
+    L = MODEL["n_layers"]
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    cpu = pf.Executor(pf.CPUPlace())
+    t0 = time.monotonic()
+
+    def at():
+        return f"[{time.monotonic() - t0:.1f} s into the phase]"
+
+    built, whole, startup, out = _spec_programs()
+    log(f"speculative: built the bundles ({', '.join(f'{t} {len(b.serves)}' for t, b in built.items())} serves) in "
+        f"{time.monotonic() - t0:.1f} s")
+    gscope, cscope, draft_names = _spec_weights(gpu, startup)
+    cands, _ = _radix_candidates()
+    wave_rows = list(RADIX_SESSION_ROWS) + list(SPEC_EXTRA_ROWS)
+    srcs = cands[wave_rows]
+    held_out = [r for r in range(RADIX_CANDIDATES) if r not in wave_rows]
+    lname = _logits_name(whole)
+    served, res = {}, {}
+
+    def tie(r, pos, rows_src=srcs):
+        return _tie_margin(cpu, whole, lname, cscope, rows_src[r], pos)
+
+    def server(bundle, ctl, steps, drain=None):
+        return serving.PagedContinuousGenerationServer(
+            bundle, executor=gpu, scope=gscope, steps_per_tick=steps,
+            drain_steps=drain, start=False, radix_reuse=False,
+            spec_controller=ctl)
+
+    def wave(tag, bundle, ctl=None, prompts=srcs, seeds=None,
+             steps=PAGED["steps_per_tick"], drain=None, burst=True,
+             host=False):
+        """The wave's rows and numbers; then, `burst`, a profiled burst
+        of SPEC_BURST ticks over the same prompts on a fresh server (the
+        device's activities only unless `host`) for the leg's idle share:
+        a whole wave's profile takes ~0.2 ms a device activity to read
+        back, and a speculative tick has ~2000 of them."""
+        _zero_spec_launches()
+        rows, st, wall = _serve_continuous(
+            server(bundle, ctl, steps, drain), prompts, seeds)
+        counts = _spec_launches()
+        prof = None
+        if burst:
+            fresh = _PinnedK(ctl.k) if isinstance(ctl, _PinnedK) else None
+            prof = _profile_paged_burst(
+                server(bundle, fresh, SPEC_BURST), prompts,
+                tag=f"speculative, {tag}", seeds=seeds, host=host)
+        tel = st["device_telemetry"]
+        sp = st.get("speculative")
+        assert st["completed"] == len(prompts), st
+        assert counts["sdpa_short"] == counts["flash_attention"] == 0, \
+            counts
+        for n, c in counts.items():
+            served[n] = served.get(n, 0) + c
+        r = dict(wall_s=wall, tokens=st["tokens"],
+                 tokens_per_s=st["tokens"] / wall, ticks=tel["ticks"],
+                 dispatches=st["ticks"], idle_share=_idle_share(prof),
+                 burst=prof,
+                 launches=counts, speculative=sp,
+                 spec_ticks={k: v for k, v in tel.items()
+                             if k.startswith("spec_ticks_k")})
+        if sp is not None:
+            r["acceptance"] = sp["acceptance_rate"]
+            # a lane's tokens a verify; under a ladder over the rungs that
+            # verify (stats' mean_accepted_len reads the default k)
+            verifies, emitted = sp["proposed"] / bundle.spec_k, \
+                sp["emitted"]
+            if "per_k" in sp:
+                pos = {kv: w for kv, w in sp["per_k"].items() if kv > 0}
+                verifies = sum(w["proposed"] / kv for kv, w in pos.items())
+                emitted = sum(w["emitted"] for w in pos.values())
+            r["emitted_per_verify"] = emitted / verifies if verifies \
+                else None
+        log(f"speculative, {tag}: {len(prompts)} requests in {wall:.2f} s, "
+            f"{r['tokens_per_s']:.1f} tokens/s, idle share of a "
+            f"{SPEC_BURST}-tick burst {r['idle_share']}, {tel['ticks']} "
+            f"ticks in "
+            f"{st['ticks']} dispatches; accepted/proposed "
+            f"{r.get('acceptance')}, emitted a verify "
+            f"{r.get('emitted_per_verify')}; launches {counts} {at()}")
+        return rows, r
+
+    # (1) plain
+    plain_rows, res["plain"] = wave("plain", built["plain"])
+    assert res["plain"]["launches"]["paged_decode_attention"] \
+        == L * res["plain"]["ticks"]
+    # (2) the ladder pinned at k = 0: the plain body, bit for bit
+    lb = built["ladder"]
+    kv0 = f"{lb.state['tok_buf'][:-len('tok_buf')]}draft_self_k0"
+    rows, res["k0"] = wave("ladder pinned at k=0", lb, _PinnedK(0))
+    np.testing.assert_array_equal(rows, plain_rows)
+    assert res["k0"]["launches"]["paged_decode_attention"] \
+        == L * res["k0"]["ticks"] == L * res["k0"]["spec_ticks"][
+            "spec_ticks_k0"], res["k0"]
+    assert float(gscope._get(kv0).abs().sum()) > 0, "no keepalive write"
+    assert res["k0"]["speculative"]["proposed"] == 0
+    # (3) the raw draft at k = 3 and k = 4
+    ties = {}
+    for kv in (3, 4):
+        tag = f"raw k={kv}"
+        rows, res[tag] = wave(f"ladder pinned at k={kv}, raw draft", lb,
+                              _PinnedK(kv))
+        ties[tag] = _rows_agree(f"speculative {tag} vs plain", rows,
+                                plain_rows, tie)
+        assert res[tag]["launches"]["paged_decode_attention"] == 0
+        assert res[tag]["speculative"]["draft_steps"] \
+            == kv * res[tag]["speculative"]["target_steps"]
+
+    # (4) distillation, the plain server on the card the teacher
+    dcfg = lb.draft
+    target = {v.name: gscope._get(v.name).clone()
+              for v in startup.global_block.vars.values() if v.persistable}
+    teacher = serving.PagedContinuousGenerationServer(
+        built["plain"], executor=gpu, scope=gscope,
+        steps_per_tick=PAGED["steps_per_tick"], radix_reuse=False)
+
+    def decode_fn(b):
+        replies = [teacher.submit(row) for row in b]
+        return np.stack([x.result(timeout=600) for x in replies])
+
+    def prompts_fn(rng, n):
+        return cands[rng.choice(held_out, n, replace=False)]
+
+    # the last round's inner steps run under the profiler: they replay
+    # the captured step, whose launches the counters never see
+    profs, calls = [], []
+    real_run_steps = gpu.run_steps
+
+    def run_steps(*a, **kw):
+        calls.append(1)
+        if len(calls) < SPEC_DISTILL["rounds"]:
+            return real_run_steps(*a, **kw)
+        got, prof = _device_profile(
+            "distillation, the last round's inner steps",
+            lambda: real_run_steps(*a, **kw), host=False)
+        profs.append(prof)
+        return got
+
+    _zero_spec_launches()
+    gpu.run_steps = run_steps
+    t1 = time.monotonic()
+    try:
+        dres = distill_draft(
+            gpu, gscope, dcfg, decode_fn, prompts_fn, seed=SEED,
+            seq_len=PAGED["seq_len"],
+            **dict(MODEL, max_out_len=SPEC_MAX_OUT), **SPEC_DISTILL)
+        distill_s = time.monotonic() - t1
+    finally:
+        del gpu.run_steps
+        teacher.close()
+    distill_counts = _spec_launches()
+    dprof = profs[0]
+    for n, t in target.items():
+        assert torch.equal(gscope._get(n), t), f"distillation moved {n}"
+    del target
+    assert dres["loss_last"] < dres["loss_first"], dres
+    traced = dprof["port_kernel_launches"]
+    xf = sum(c for n, c in traced.items() if "xent" in n and "fwd" in n)
+    xb = sum(c for n, c in traced.items() if "xent" in n and "bwd" in n)
+    assert xf >= SPEC_DISTILL["inner_steps"] \
+        and xb >= SPEC_DISTILL["inner_steps"], traced
+    assert distill_counts["layer_norm"] > 0 \
+        and distill_counts["xent_forward"] > 0 \
+        and distill_counts["xent_backward"] > 0, distill_counts
+    res["distill"] = dict(wall_s=distill_s, loss=dres["loss"],
+                          loss_first_step=dres["loss_first"],
+                          agree=dres["agree"], launches=distill_counts,
+                          traced_xent=[xf, xb],
+                          fallback=gpu.last_run_steps_fallback,
+                          idle_share_round=_idle_share(dprof))
+    log(f"speculative, distillation: {SPEC_DISTILL['rounds']} rounds in "
+        f"{distill_s:.1f} s, loss {dres['loss_first']:.4f} at the first "
+        f"step, {dres['loss']} at each round's last, agreement "
+        f"{dres['agree']}; the target's params kept their bytes; the "
+        f"profiled round's xent launches {xf} forward, {xb} backward "
+        f"({SPEC_DISTILL['inner_steps']} steps); capture fallback "
+        f"{gpu.last_run_steps_fallback}; launches {distill_counts} {at()}")
+    # the CPU's draft follows the card's
+    pf.load_numpy_params(cscope, pf.scope_to_numpy(gscope, draft_names),
+                         pf.CPUPlace())
+
+    # (5) after distillation: pinned k = 3, then the automatic controller
+    # this leg's burst is the phase's host-and-device profile of a
+    # speculative tick
+    k3_rows, res["distilled k=3"] = wave(
+        "ladder pinned at k=3, distilled draft", lb, _PinnedK(3),
+        host=True)
+    ties["distilled k=3"] = _rows_agree(
+        "speculative distilled k=3 vs plain", k3_rows, plain_rows, tie)
+    # the controller picks a rung a dispatch: bursts of steps_per_tick
+    # ticks while the pool drains give it choices to make
+    rows, res["auto"] = wave("ladder, automatic controller", lb,
+                             drain=PAGED["steps_per_tick"])
+    ties["auto"] = _rows_agree("speculative auto vs plain", rows,
+                               plain_rows, tie)
+    # (6) the n-gram proposer
+    rows, res["ngram"] = wave("n-gram, automatic controller",
+                              built["ngram"],
+                              drain=PAGED["steps_per_tick"])
+    ties["ngram"] = _rows_agree("speculative n-gram vs plain", rows,
+                                plain_rows, tie)
+    assert res["ngram"]["speculative"]["draft_steps"] == 0
+    assert res["ngram"]["speculative"]["proposed"] > 0
+
+    # (7) sampled speculation against the CPU
+    sp_src = srcs[:SPEC_SAMPLED_ROWS]
+    seeds = list(SAMPLED_SEEDS[:SPEC_SAMPLED_ROWS])
+    records = []
+    restores = [_record_margins(records), _record_spec_margins(records)]
+    try:
+        a_rows, res["sampled"] = wave("sampled k=3", built["sampled"],
+                                      prompts=sp_src, seeds=seeds,
+                                      burst=False)
+        torch.cuda.synchronize()
+    finally:
+        for restore in restores:
+            restore()
+    order = list(reversed(range(SPEC_SAMPLED_ROWS)))
+    b_rows, res["sampled reversed"] = wave(
+        f"sampled k=3, reversed at {SAMPLED_STEPS_B} a burst",
+        built["sampled"], prompts=sp_src[order],
+        seeds=[seeds[i] for i in order], steps=SAMPLED_STEPS_B)
+    back = np.empty_like(b_rows)
+    back[order] = b_rows
+    margins = _margins_by_row(records, seeds)
+    least = min(margins.values())
+    res["sampled"]["least_margin"] = least
+    res["sampled reversed"]["ties"] = _sampled_rows_agree(
+        "speculative sampled, reversed vs first", back, a_rows, margins)
+    t1 = time.monotonic()
+    cpu_rows, _, _ = _serve_continuous(
+        serving.PagedContinuousGenerationServer(
+            built["cpu"], executor=cpu, scope=cscope,
+            steps_per_tick=PAGED["steps_per_tick"], start=False,
+            radix_reuse=False), sp_src, seeds)
+    res["sampled"]["cpu_s"] = time.monotonic() - t1
+    res["sampled"]["ties_cpu"] = _sampled_rows_agree(
+        "speculative sampled, card vs CPU", a_rows, cpu_rows, margins)
+    log(f"speculative sampled: least card margin {least:.3e} over "
+        f"{len(margins)} (row, position) draws and tests; the CPU server "
+        f"in {res['sampled']['cpu_s']:.1f} s {at()}")
+    # (8) the distilled k = 3 rows against the CPU whole loop
+    t1 = time.monotonic()
+    ref = cpu.run(whole, feed={"src_ids": srcs[:SPEC_CPU_ROWS]},
+                  fetch_list=[out], scope=cscope)[0]
+    ref = serving.apply_eos_sentinel(ref, MODEL["end_id"])
+    res["cpu_whole_s"] = time.monotonic() - t1
+    ties["k=3 vs CPU"] = _rows_agree("speculative k=3 vs CPU",
+                                     k3_rows[:SPEC_CPU_ROWS], ref, tie)
+    res["ties"] = ties
+    shares = {}
+    for tag in ("auto", "ngram"):
+        sp = res[tag]["speculative"]
+        n = sum(w["dispatches"] for w in sp["per_k"].values())
+        shares[tag] = {kv: w["dispatches"] / n
+                       for kv, w in sp["per_k"].items()} if n else None
+    res["per_k_shares"] = shares
+    for leg in res.values():
+        if isinstance(leg, dict) and leg.get("speculative"):
+            leg["speculative"] = {
+                k: v for k, v in leg["speculative"].items()
+                if k in ("proposed", "accepted", "emitted", "draft_steps",
+                         "target_steps", "acceptance_rate",
+                         "mean_accepted_len", "per_k", "controller")}
+    assert served["layer_norm"] > 0 and \
+        served["paged_decode_attention"] > 0, served
+    log(f"speculative: acceptance raw k=3 {res['raw k=3']['acceptance']}, "
+        f"distilled k=3 {res['distilled k=3']['acceptance']}, auto "
+        f"{res['auto']['acceptance']} (rung shares {shares['auto']}), "
+        f"n-gram {res['ngram']['acceptance']} ({shares['ngram']}); ties "
+        f"{ties}; the whole-loop CPU rows in {res['cpu_whole_s']:.1f} s; "
+        f"on {card_name} ({card}) {at()}")
+    return served, distill_counts, res
 
 
 # ---------------------------------------------------------------------------
@@ -6187,6 +6683,9 @@ def main():
     phase("chunked and sampled")
     chunked_launches, sampled_launches, chunked_sampled = \
         phase_chunked_sampled(name, card, paged.pop("_greedy"))
+    phase("speculative")
+    spec_launches, distill_launches, speculative = \
+        phase_speculative(name, card)
     phase("predict")
     predict_launches, predicted = phase_predict(name, card)
     entries["layer_norm"]["bf16"]["launches"] = \
@@ -6202,6 +6701,8 @@ def main():
                         served_beam=beam_launches.get(kname, 0),
                         served_chunked=chunked_launches.get(kname, 0),
                         served_sampled=sampled_launches.get(kname, 0),
+                        served_spec=spec_launches.get(kname, 0),
+                        trained_distill=distill_launches.get(kname, 0),
                         served_predictor=predict_launches.get(
                             kname, [0, 0])[0])
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
@@ -6231,6 +6732,7 @@ def main():
     log(json.dumps({"paged": paged}))
     log(json.dumps({"radix": radix}))
     log(json.dumps({"chunked_sampled": chunked_sampled}))
+    log(json.dumps({"speculative": speculative}, default=str))
     log(json.dumps({"predicted": predicted}))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall in all on "
         f"{name} ({card})")

@@ -27,7 +27,9 @@ Generation is served from a ``models.decode_engine`` decode-step bundle
 by ``PagedContinuousGenerationServer`` (chat sessions and prefix reuse
 over a ``RadixBlockTree``; chunked prefill, on the server or on a
 ``DisaggregatedPrefillWorker``; sampled emission under a
-``SamplingConfig``) or decoded by ``PagedBeamDecoder``.
+``SamplingConfig``; speculative decoding under a ``DraftConfig``, with
+a ``SpecController`` over a ladder of draft lengths and a draft trained
+on the target by ``distill_draft``) or decoded by ``PagedBeamDecoder``.
 """
 from . import ops  # noqa: F401  (registers every op)
 from . import (backward, clip, layers, optimizer,  # noqa: F401
@@ -40,8 +42,10 @@ from .core.scope import (Scope, _reset_global_scope,  # noqa: F401
 from . import analysis, inference, io, ir  # noqa: F401
 from .inference import (DisaggregatedPrefillWorker,  # noqa: F401
                         PagedBeamDecoder, PagedContinuousGenerationServer)
-from .models.decode_engine import (RadixBlockTree,  # noqa: F401
-                                   SamplingConfig)
+from .models.decode_engine import (DraftConfig,  # noqa: F401
+                                   RadixBlockTree, SamplingConfig)
+from .models.distill import distill_draft  # noqa: F401
+from .inference.spec_controller import SpecController  # noqa: F401
 from .io import (load_inference_model, load_params,  # noqa: F401
                  load_persistables, load_vars, save_inference_model,
                  save_params, save_persistables, save_vars)

@@ -13,3 +13,4 @@ from .serving import (AdmissionInfeasible,  # noqa: F401
                       RequestCancelled, ServerClosed, ServerQuiesced,
                       apply_eos_sentinel, count_generated_tokens,
                       default_batch_buckets)
+from .spec_controller import SpecController  # noqa: F401

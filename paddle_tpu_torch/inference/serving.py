@@ -64,6 +64,7 @@ from ..models.decode_engine import (POOL_MARK, AdmissionInfeasible,
                                     ServingUnavailable)
 from ..observability import devtel as obs_devtel
 from ..observability.metrics import Histogram
+from .spec_controller import SpecController
 
 
 def default_batch_buckets(max_batch_size: int) -> List[int]:
@@ -590,6 +591,11 @@ class GenerationReply(futures.Future):
         return super().cancel()
 
 
+# the device's speculative counters, in fetch order
+_SPEC_COUNTERS = ("proposed", "accepted", "emitted", "draft_steps",
+                  "target_steps")
+
+
 class _GenRequest:
     __slots__ = ("src", "reply", "t_arrival", "t_first", "t_admit",
                  "seed", "session", "harvest", "radix", "deadline",
@@ -650,15 +656,25 @@ class ContinuousGenerationServer:
     position alone, so its tokens do not depend on the admission order,
     the slot or the burst length.
 
+    Speculative bundles (``DraftConfig``): a tick verifies k proposals a
+    lane and emits 1..k+1 tokens; greedy speculation is token-exact
+    against the plain decode. ``stats()["speculative"]`` holds the
+    window's proposed, accepted and emitted counts and the draft and
+    target steps. A bundle with a k ladder (``k_options``) runs under a
+    ``spec_controller`` (a ``SpecController`` built from the ladder
+    unless the caller passes one), which picks the rung of every
+    admission or tick-only dispatch from the per-lane acceptance; the
+    per-rung windows are in ``stats()["speculative"]["per_k"]``.
+
     Cancellation (``reply.cancel()``) and ``deadline_ms`` tear a request
     down at the next planning pass or burst boundary. Chat sessions and
     n-best fan-out need the radix serves of a paged bundle
     (``PagedContinuousGenerationServer``); this server refuses them, as
-    the JAX package's does. Left out of this slice, and raising where a
-    caller asks for them: streaming replies (``stream`` /
-    ``stream_cb``), the admit_select hook, the adaptive speculation
-    controller, request traces, the cost model, and the metrics
-    providers.
+    the JAX package's does. Left out, and raising where a caller asks
+    for them: streaming replies (``stream`` / ``stream_cb``) and the
+    ``admit_select`` hook (serving step 11 of the port), ``mesh_devices``
+    (step 10); request traces, the cost model and the metrics providers
+    (step 12) are not there.
     """
 
     # how long a cycle with nothing to dispatch sleeps before it plans
@@ -668,13 +684,24 @@ class ContinuousGenerationServer:
     def __init__(self, bundle, executor=None, scope=None,
                  steps_per_tick: Optional[int] = None,
                  drain_steps: Optional[int] = None,
-                 exit_on_retire: bool = False, start: bool = True):
+                 exit_on_retire: bool = False, admit_select=None,
+                 start: bool = True, mesh_devices=None,
+                 spec_controller=None):
         if type(self) is ContinuousGenerationServer \
                 and bundle.cache.layout != "dense":
             raise ValueError(
                 f"ContinuousGenerationServer serves DENSE bundles; this "
                 f"bundle's KV layout is {bundle.cache.layout!r} -- use "
                 f"PagedContinuousGenerationServer")
+        if admit_select is not None:
+            raise NotImplementedError(
+                "admit_select (a pluggable admission order) is not ported "
+                "yet (serving step 11 of the port); the port admits FIFO")
+        if mesh_devices is not None:
+            raise NotImplementedError(
+                "mesh_devices places a tensor-parallel bundle, which is "
+                "not ported yet (serving step 10 of the port: "
+                "ShardingConfig)")
         self.bundle = bundle
         self.executor = executor or Executor(CUDAPlace(0))
         self.scope = scope or global_scope()
@@ -689,12 +716,57 @@ class ContinuousGenerationServer:
         self.n_slots = bundle.n_slots
         self._end_id = bundle.end_id
         bundle.init_slot_state(self.scope, self.executor.device)
-        # sampled bundles: per-request seeds in every admission feed
+        # sampled and speculative bundles: per-request seeds in every
+        # admission feed
         self._needs_seeds = bool(getattr(bundle, "needs_seeds", False))
+        # speculation: tokens a lane may emit a tick (the paged scheduler
+        # sizes block coverage by it) and the device counters
+        self._spec_k = int(getattr(bundle, "spec_k", 0))
+        self._toks_per_tick = int(getattr(bundle, "tokens_per_tick", 1))
+        spec = self._spec_k > 0
+        self._spec_names = [bundle.state[c] for c in (
+            "spec_proposed", "spec_accepted", "spec_emitted",
+            "spec_draft_steps", "spec_target_steps")] if spec else []
+        self._spec_tot = dict.fromkeys(_SPEC_COUNTERS, 0)
+        self._spec_base = dict(self._spec_tot)
+        # the per-lane acceptance counters, the controller's signal
+        self._lane_names = [bundle.state[c] for c in (
+            "spec_lane_accepted", "spec_lane_ticks")] if spec else []
+        self._lane_tot = [None] * len(self._lane_names)
+        self._spec_k_options = tuple(
+            getattr(bundle, "spec_k_options", ()) or ())
+        if spec_controller is None and self._spec_k_options:
+            draft = bundle.draft
+            spec_controller = SpecController(
+                self._spec_k_options, default_k=self._spec_k,
+                draft_cost_ratio=0.0 if draft.kind == "ngram" else 0.25)
+        self._spec_ctl = spec_controller
+        if self._spec_ctl is not None and not self._spec_k_options:
+            raise ValueError(
+                "spec_controller given but the bundle has no k ladder -- "
+                "build it with DraftConfig(k_options=...)")
+        # per-rung windows: a fused dispatch runs the whole pool at one
+        # rung, so its counter deltas belong to that rung
+        self._per_k_tot: Dict[int, dict] = {
+            k: dict.fromkeys(("dispatches", "proposed", "accepted",
+                              "emitted"), 0)
+            for k in self._spec_k_options}
+        self._per_k_base = {k: dict(v) for k, v in self._per_k_tot.items()}
+        acc_buckets = tuple(round(0.1 * i, 1) for i in range(1, 11))
+        self._acc_hist_k = {
+            k: Histogram(f"paddle_tpu_spec_acceptance_rate_k{k}",
+                         buckets=acc_buckets)
+            for k in self._spec_k_options if k > 0}
+        # accepted over proposed, one sample a dispatch
+        self._acc_hist = Histogram("paddle_tpu_spec_acceptance_rate",
+                                   buckets=acc_buckets)
         self._devtel = obs_devtel.DeviceTelemetry(bundle)
         st = bundle.state
         self._fetches = [st["tok_buf"], st["step"], st["active"],
-                         st["finished"]] + self._devtel.fetch_names
+                         st["finished"]] + self._spec_names \
+            + self._lane_names + self._devtel.fetch_names
+        # where the device telemetry starts in a dispatch's fetches
+        self._tel_off = 4 + len(self._spec_names) + len(self._lane_names)
         self._serves = {
             key: self.executor.prepare(
                 prog, feed=bundle.serve_feed_spec(key),
@@ -704,7 +776,7 @@ class ContinuousGenerationServer:
         self._admit_buckets = sorted(
             {k for k in self._serves if isinstance(k, int) and k > 0}
             | {k[1] for k in self._serves if isinstance(k, tuple)
-               and k[0] != "chunked"})
+               and k[0] not in ("chunked", "k")})
         # the radix tier (sessions, n_best, plain-prompt reuse) needs
         # ("radix", A) serves, which only paged bundles build
         self._radix_ok = any(isinstance(k, tuple) and k[0] == "radix"
@@ -1131,6 +1203,7 @@ class ContinuousGenerationServer:
         feed = {"n_steps": np.array([n_steps], np.int64),
                 "min_active": np.array([max(0, min_active)], np.int64)}
         key = 0
+        background = False
         if admits:
             key, extra = self._admission_feed(admits)
             feed.update(extra)
@@ -1139,12 +1212,29 @@ class ContinuousGenerationServer:
             if bg is not None:
                 key, extra = bg
                 feed.update(extra)
+                background = True
+        k_used = self._spec_k
+        if self._spec_ctl is not None and not background:
+            # the controller picks the rung the whole pool runs; another
+            # rung than the default routes through its ("k", kv, key)
+            # serve. A chunk dispatch keeps the default body
+            for slot, _req in admits:
+                self._spec_ctl.reset_lane(slot)
+            kv = int(self._spec_ctl.choose())
+            if kv != self._spec_k and ("k", kv, key) in self._serves:
+                key = ("k", kv, key)
+                k_used = kv
         self._pre_dispatch()
         try:
             outs = self._serves[key].run(feed, return_numpy=True)
             if self._devtel.active:
                 with self._cv:
-                    self._devtel.absorb(outs[4:])
+                    self._devtel.absorb(outs[self._tel_off:])
+            if self._spec_names:
+                d = self._absorb_spec_counters(outs)
+                self._absorb_lane_counters(outs, d, k_used)
+                if d["proposed"] > 0:
+                    self._acc_hist.observe(d["accepted"] / d["proposed"])
         except BaseException as e:
             with self._cv:
                 lanes = [(slot, r) for slot, r in enumerate(self._lanes)
@@ -1206,6 +1296,83 @@ class ContinuousGenerationServer:
                 pass
         self._finalize_cancelled(cancels)
 
+    # --- speculation --------------------------------------------------
+    def _absorb_spec_counters(self, outs) -> dict:
+        """This dispatch's deltas of the device's speculative counters
+        (cumulative since init_slot_state)."""
+        vals = {key: int(np.asarray(outs[4 + i]).reshape(-1)[0])
+                for i, key in enumerate(_SPEC_COUNTERS)}
+        with self._cv:
+            deltas = {k: vals[k] - self._spec_tot[k] for k in vals}
+            self._spec_tot = vals
+        return deltas
+
+    def _absorb_lane_counters(self, outs, spec_deltas, k_used):
+        """Delta the per-lane acceptance counters, feed the controller,
+        and book this dispatch's deltas to the rung it ran."""
+        off = 4 + len(self._spec_names)
+        lane_deltas = []
+        with self._cv:
+            for i in range(len(self._lane_names)):
+                cur = np.asarray(outs[off + i]).reshape(-1).astype(
+                    np.int64)
+                prev = self._lane_tot[i]
+                lane_deltas.append(cur if prev is None else cur - prev)
+                self._lane_tot[i] = cur
+            per_k = self._per_k_tot.get(int(k_used))
+            if per_k is not None:
+                per_k["dispatches"] += 1
+                for c in ("proposed", "accepted", "emitted"):
+                    per_k[c] += spec_deltas[c]
+            hist = self._acc_hist_k.get(int(k_used))
+            if hist is not None and spec_deltas["proposed"] > 0:
+                hist.observe(spec_deltas["accepted"]
+                             / spec_deltas["proposed"])
+        if self._spec_ctl is not None:
+            self._spec_ctl.observe(lane_deltas[0], lane_deltas[1],
+                                   k=int(k_used))
+
+    def _speculative_stats_locked(self) -> Optional[dict]:
+        """``stats()["speculative"]`` over the window (reset=True
+        re-bases the counters and clears the histograms together)."""
+        if self._spec_k <= 0:
+            return None
+        t = {key: self._spec_tot[key] - self._spec_base[key]
+             for key in self._spec_tot}
+        out = {
+            "k": self._spec_k,
+            "proposed": t["proposed"],
+            "accepted": t["accepted"],
+            "emitted": t["emitted"],
+            "draft_steps": t["draft_steps"],
+            "target_steps": t["target_steps"],
+            "acceptance_rate": (round(t["accepted"] / t["proposed"], 4)
+                                if t["proposed"] else None),
+            # tokens a lane advances a verify, in [1, k+1] (proposed / k
+            # is the live lane-ticks)
+            "mean_accepted_len": (
+                round(t["emitted"] * self._spec_k / t["proposed"], 3)
+                if t["proposed"] else None),
+            "acceptance_rate_hist": self._acc_hist.percentile_dict(),
+        }
+        if self._spec_k_options:
+            per_k = {}
+            for kv in self._spec_k_options:
+                w = {c: self._per_k_tot[kv][c] - self._per_k_base[kv][c]
+                     for c in self._per_k_tot[kv]}
+                w["acceptance_rate"] = (
+                    round(w["accepted"] / w["proposed"], 4)
+                    if w["proposed"] else None)
+                hist = self._acc_hist_k.get(kv)
+                if hist is not None:
+                    w["acceptance_rate_hist"] = hist.percentile_dict()
+                per_k[kv] = w
+            out["per_k"] = per_k
+            out["k_options"] = list(self._spec_k_options)
+            if self._spec_ctl is not None:
+                out["controller"] = self._spec_ctl.stats()
+        return out
+
     # --- observability ------------------------------------------------
     def _host_tel_locked(self, reset: bool) -> dict:
         """Host-side supplement to stats()['device_telemetry'] (the
@@ -1248,6 +1415,9 @@ class ContinuousGenerationServer:
                 "cancelled": self._n_cancelled,
                 "deadline_expired": self._n_deadline,
             }
+            spec = self._speculative_stats_locked()
+            if spec is not None:
+                snap["speculative"] = spec
             if self._devtel.active:
                 dt = self._devtel.stats_dict(self._devtel.window())
                 dt.update(self._host_tel_locked(reset))
@@ -1259,6 +1429,12 @@ class ContinuousGenerationServer:
                 self._latencies.clear()
                 self._ttft.clear()
                 self._per_token.clear()
+                self._acc_hist.clear()
+                self._spec_base = dict(self._spec_tot)
+                self._per_k_base = {k: dict(v) for k, v in
+                                    self._per_k_tot.items()}
+                for hist in self._acc_hist_k.values():
+                    hist.clear()
                 self._devtel.rebase()
                 self._t_first_arrival = None
                 self._t_last_done = None
@@ -1350,13 +1526,19 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                     "handoff copies cross-KV rows between scopes by the "
                     "bundle's state names)")
             chunked_prefill = True
+        spec_k = int(getattr(bundle, "spec_k", 0))
         if chunked_prefill is None:
-            chunked_prefill = bool(chunk_keys)
+            chunked_prefill = bool(chunk_keys) and spec_k == 0
         if chunked_prefill and not chunk_keys:
             raise ValueError(
                 "chunked_prefill=True needs a bundle built with "
                 "CacheConfig(chunk_tokens=C): this bundle carries no "
                 "('chunked', phase) serve programs")
+        if chunked_prefill and spec_k > 0:
+            raise ValueError(
+                "chunked prefill does not compose with speculative "
+                "bundles (the draft's encoder runs over the whole prompt "
+                "at admission); pass chunked_prefill=False")
         self._chunked = bool(chunked_prefill)
         self._radix_reuse = bool(radix_reuse)
         self.cache = cache
@@ -1791,7 +1973,7 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                     continue
                 if flavor == "hit" and req.session is None \
                         and self._radix_ok and self._radix_reuse \
-                        and not self._needs_seeds \
+                        and self._spec_k == 0 and not self._needs_seeds \
                         and prompt in self._plain_hist:
                     # a plain prompt sent again replays its own retired
                     # greedy generation over the chain the tree holds
@@ -1914,10 +2096,13 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 until[i] = n
             feed.update(hist_toks=hist, resume_steps=resume,
                         prefill_until=until)
-        elif tier == "miss":
+        elif tier == "miss" or self._spec_k > 0:
+            # a speculative hit feeds src_ids too: its program skips only
+            # the target's encoder, the draft's runs per lane
             feed["src_ids"] = np.concatenate(
                 [req.src for _, req in admits]
                 + [admits[-1][1].src] * (A - len(admits)), axis=0)
+        if tier == "miss":
             # padded rows write the dustbin entry (index E)
             feed["prompt_slots"] = np.array(
                 [self._lane_entry[slot] for slot, _ in admits]
@@ -1966,6 +2151,7 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 return 0, 0, True
             return n_steps, min_active, run
         maxT = self.bundle.max_out_len
+        tpt = self._toks_per_tick
         while True:
             live = [s for s in range(self.n_slots)
                     if self._lanes[s] is not None]
@@ -1976,12 +2162,19 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
             blocked = []
             for s in live:
                 st = int(self._lane_step[s])
-                # a K-tick burst writes KV at positions st..st+K-1
-                self._grow_blocks_locked(s, min(st + n_steps - 1,
+                # a K-tick burst writes KV at positions st..st+K*tpt-1: a
+                # speculative tick verifies tpt = k+1 positions however
+                # few it accepts, so coverage is sized by the worst case,
+                # or a rejected run's verify would write through
+                # unallocated table rows into another lane's blocks
+                self._grow_blocks_locked(s, min(st + n_steps * tpt - 1,
                                                 maxT - 1))
                 covered = (len(self._lane_shared[s])
                            + len(self._lane_blocks[s])) * self._bs
-                coverable = n_steps if covered >= maxT else covered - st
+                # a lane whose blocks cover the whole buffer never writes
+                # outside them (the verify gates positions past maxT-1)
+                coverable = n_steps if covered >= maxT \
+                    else (covered - st) // tpt
                 if coverable <= 0:
                     blocked.append(s)
                 else:
@@ -2061,7 +2254,7 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
             if sid is not None:
                 self._harvest_session_locked(slot, sid)
             elif self._radix_ok and self._radix_reuse \
-                    and not self._needs_seeds:
+                    and self._spec_k == 0 and not self._needs_seeds:
                 self._harvest_plain_locked(slot, req)
         self._free_lane_locked(slot)
 
@@ -2418,8 +2611,9 @@ class PagedBeamDecoder:
         if cache is None or cache.layout != "paged" \
                 or getattr(bundle, "probe", None) is None:
             raise ValueError(
-                "PagedBeamDecoder needs a paged bundle (its probe and "
-                "cow programs); build with CacheConfig(layout='paged')")
+                "PagedBeamDecoder needs a paged bundle without a draft "
+                "(its probe and cow programs); build with "
+                "CacheConfig(layout='paged') and no DraftConfig")
         if not 1 <= int(beam_size) <= bundle.n_slots:
             raise ValueError(
                 f"beam_size {beam_size} must fit the bundle's "

@@ -19,7 +19,8 @@ __all__ = [
     "attention_block", "ffn_block", "gather", "expand",
     "masked_pool_write", "paged_decode_attention", "dropout", "clip",
     "clip_by_norm", "elementwise_div", "elementwise_pow", "topk",
-    "concat", "filtered_softmax", "sample_categorical",
+    "concat", "filtered_softmax", "sample_categorical", "one_hot",
+    "reduce_max", "span_scatter", "spec_accept",
 ]
 
 
@@ -261,6 +262,22 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return _single("reduce_sum", input, attrs, name=name)
 
 
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    if dim is None:
+        attrs = {"dim": [0], "reduce_all": True, "keep_dim": keep_dim}
+    else:
+        if not isinstance(dim, (list, tuple)):
+            dim = [dim]
+        attrs = {"dim": list(dim), "reduce_all": False,
+                 "keep_dim": keep_dim}
+    return _single("reduce_max", input, attrs, name=name)
+
+
+def one_hot(input, depth):
+    """float32 one-hot rows of `depth` over int ids."""
+    return _single("one_hot", input, {"depth": depth}, dtype="float32")
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
            name=None):
     helper = LayerHelper("matmul", input=x, name=name)
@@ -432,3 +449,36 @@ def sample_categorical(probs, seed, pos, noise_tag=0, base_seed=0,
                      {"noise_tag": int(noise_tag),
                       "base_seed": int(base_seed)})
     return out
+
+
+def span_scatter(buf, vals, start, count, name=None):
+    """buf[r, start[r]:start[r]+count[r]] = vals[r, :count[r]], into the
+    buf var itself: the speculative step's accepted-prefix token write
+    (ops/spec_ops.py)."""
+    helper = LayerHelper("span_scatter", input=buf, name=name)
+    helper.append_op("span_scatter",
+                     {"X": buf, "Vals": vals, "Start": start,
+                      "Count": count}, {"Out": buf}, {})
+    return buf
+
+
+def spec_accept(proposals, draft_probs, target_probs, seed, pos, k,
+                end_id, max_len, greedy=True, base_seed=0, noise_tag=0,
+                name=None):
+    """Draft-and-verify acceptance for one batched speculative step
+    (ops/spec_ops.py; greedy=True is token-exact greedy). Returns
+    (advance, tokens, accepted, fin)."""
+    helper = LayerHelper("spec_accept", input=proposals, name=name)
+    outs = [helper.create_variable_for_type_inference("int64", True)
+            for _ in range(4)]
+    helper.append_op("spec_accept",
+                     {"Proposals": proposals, "DraftProbs": draft_probs,
+                      "TargetProbs": target_probs, "Seed": seed,
+                      "Pos": pos},
+                     dict(zip(("Advance", "Tokens", "Accepted", "Fin"),
+                              outs)),
+                     {"k": int(k), "end_id": int(end_id),
+                      "max_len": int(max_len), "greedy": bool(greedy),
+                      "base_seed": int(base_seed),
+                      "noise_tag": int(noise_tag)})
+    return tuple(outs)

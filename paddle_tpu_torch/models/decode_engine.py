@@ -31,11 +31,17 @@ card), which computes the same function without the view.
 
 The bundle also samples (``SamplingConfig``: temperature, top-k and
 top-p lanes keyed on per-request seeds, with JAX's own threefry noise,
-ops/spec_ops.py) and prefills in chunks (``CacheConfig(chunk_tokens=C)``:
+ops/spec_ops.py), prefills in chunks (``CacheConfig(chunk_tokens=C)``:
 the ``("chunked", p)`` phase programs stream a prompt's encoder through
-the prompt-entry pool C tokens a dispatch, fused with the decode burst).
-Speculative drafts, tensor-parallel sharding and the whole-loop beam
-program belong to later slices.
+the prompt-entry pool C tokens a dispatch, fused with the decode burst)
+and decodes speculatively (``DraftConfig``: a small draft model, or the
+model-free n-gram proposer, proposes k tokens a lane, one k+1-query
+target step verifies them through ``spec_accept``, and an optional
+ladder of k values gives the host controller pre-built serves to choose
+from). The verify step attends over the gathered dense view with a
+plain matmul, as the JAX package's does; kernel #9 computes one query a
+lane and serves the plain one-token step only. Tensor-parallel sharding
+and the whole-loop beam program belong to later slices.
 """
 from __future__ import annotations
 
@@ -203,17 +209,80 @@ class _PagedLaneCache:
         return self._view(self.pool_k), self._view(self.pool_v)
 
 
+class _DenseSpanCache:
+    """Per-layer dense self-KV access for a multi-position write (the
+    speculative verify step: q = k+1 query rows a lane land at cache
+    positions t..t+k in one update). ``pos_oh`` is the [R,q,maxT]
+    one-hot of each query's position (an all-zero row past the buffer
+    writes nothing); the scatter is a one-hot matmul and the read view
+    is the var itself, as in _DenseLaneCache."""
+
+    def __init__(self, kc, vc, pos_oh, keep_mask):
+        self.kc, self.vc = kc, vc
+        # [R,1,maxT,q] scatter operand (matmul against [R,H,q,Dh])
+        self.scat = layers.unsqueeze(
+            layers.transpose(pos_oh, perm=[0, 2, 1]), [1])
+        self.keep_mask = keep_mask  # [R,1,maxT,1]
+
+    def update(self, kh, vh):
+        for var, new in ((self.kc, kh), (self.vc, vh)):
+            scat = layers.matmul(self.scat, new)  # [R,H,maxT,Dh]
+            layers.assign(layers.elementwise_add(
+                layers.elementwise_mul(var, self.keep_mask), scat),
+                output=var)
+        return self.kc, self.vc
+
+
+class _PagedSpanCache(_PagedLaneCache):
+    """Per-layer paged self-KV access for the multi-position verify
+    write: the q positions of every lane flatten to R*q
+    ``masked_pool_write`` rows (distinct cells: a lane's positions are
+    distinct and lanes own disjoint blocks), with the gate extended by
+    each position's validity, so a position past the buffer never
+    touches the pool. Reads gather the dense [R,H,maxT,Dh] view, as an
+    unrouted lane cache does."""
+
+    def __init__(self, pool_k, pool_v, write_idx_rq, gate_rq, flat_pos,
+                 rows, q, n_heads, head_dim, maxT, n_cells):
+        # write_idx_rq and gate_rq: [R*q], a lane's q positions in turn
+        super().__init__(pool_k, pool_v, write_idx_rq, gate_rq, rows,
+                         n_heads, head_dim, maxT, n_cells, None, None,
+                         flat_pos=flat_pos)
+        self.q = q
+
+    def update(self, kh, vh):
+        for pool, new in ((self.pool_k, kh), (self.pool_v, vh)):
+            # [R,H,q,Dh] -> [R*q, H, Dh] write rows
+            rows_new = layers.reshape(
+                layers.transpose(new, perm=[0, 2, 1, 3]),
+                [self.rows * self.q, self.n_heads, self.head_dim])
+            layers.masked_pool_write(
+                pool, rows_new, self.write_idx, gate=self.gate,
+                leading_dims=2, exclusive_via="block_table")
+        return self._view(self.pool_k), self._view(self.pool_v)
+
+
 def cached_decoder_step(x, caches, cross_kv, att_bias, d_model,
-                        n_heads, d_inner, prefix=""):
-    """One KV-cached decoder-stack step over a [R,1,D] row batch.
-    ``caches``: per-layer cache-access objects; ``cross_kv``: per-layer
-    (ck, cv) [R,H,S,Dh] encoder projections; ``att_bias``: the 0/-1e9
-    validity bias added to the [R,H,1,maxT] scores (None when every
-    cache is a routed paged cache, which masks by its step). Returns
-    the [R,1,D] hidden rows after all layers."""
+                        n_heads, d_inner, prefix="", q=1,
+                        qkv_interleaved=False):
+    """One KV-cached decoder-stack step over a [R,q,D] row batch
+    (``decode_engine.py:659`` in the JAX package). ``caches``: per-layer
+    cache-access objects (the lane caches for q = 1, the span caches for
+    the speculative q = k+1 verify step); ``cross_kv``: per-layer (ck,
+    cv) [R,H,S,Dh] encoder projections; ``att_bias``: the 0/-1e9
+    validity bias added to the [R,H,q,maxT] scores, per query for q > 1
+    ([R,1,q,maxT]: query j masks positions past t+j), None when every
+    cache is a routed paged cache, which masks by its step (q = 1 only).
+    ``prefix`` names a draft model's parameters. The head-interleaved
+    fused qkv weight (``qkv_interleaved``) belongs to the tensor-parallel
+    step and raises. Returns the [R,q,D] hidden rows after all layers."""
     from . import transformer as T
 
-    q = 1
+    if qkv_interleaved:
+        raise NotImplementedError(
+            "cached_decoder_step(qkv_interleaved=True): the "
+            "head-interleaved fused qkv weight belongs to tensor-parallel "
+            "bundles (serving step 10 of the port: ShardingConfig)")
     head_dim = d_model // n_heads
     scale = head_dim ** -0.5
     for li, cache in enumerate(caches):
@@ -225,7 +294,7 @@ def cached_decoder_step(x, caches, cross_kv, att_bias, d_model,
         qh = heads_of(qv, q, n_heads, head_dim)
         kh = heads_of(k, q, n_heads, head_dim)
         vh = heads_of(v, q, n_heads, head_dim)
-        if getattr(cache, "routed", False):
+        if getattr(cache, "routed", False) and q == 1:
             cache.write(kh, vh)
             ctx = layers.paged_decode_attention(
                 qh, cache.pool_k, cache.pool_v, cache.block_tab,
@@ -542,6 +611,95 @@ class SamplingConfig:
                 float(self.top_p), int(self.base_seed))
 
 
+@dataclass(frozen=True)
+class DraftConfig:
+    """The draft of a speculative (draft-and-verify) decode bundle
+    (``decode_engine.py:552`` in the JAX package; Leviathan et al.). The
+    draft is a smaller encoder-decoder Transformer that lives with the
+    target in one scope, every parameter named under ``prefix`` (the
+    builder refuses a prefix whose parameters collide with the
+    target's). ``k`` proposals a lane a step; k = 0 is the plain
+    one-token step.
+
+    * ``kind="ngram"`` replaces the draft model with the model-free
+      prompt-lookup proposer: each tick proposes the continuation of the
+      rightmost ``ngram``-token suffix match over the prompt and the
+      history, as one-hot distributions through the same verify. No
+      draft parameters, KV or model steps.
+    * ``k_options`` is the adaptive ladder: for every other rung the
+      bundle builds its serves again keyed ``("k", kv, base_key)`` over
+      the same slot state, so the host controller
+      (inference/spec_controller.py) switches rungs by choosing a
+      program. ``k`` must be a rung of a non-empty ladder.
+    * ``sharded`` opts the draft into a tensor-parallel plan; without
+      ``sharding=`` it changes nothing but the token.
+    """
+
+    d_model: int = 32
+    n_heads: int = 2
+    n_layers: int = 1
+    d_inner: int = 64
+    k: int = 3
+    prefix: str = "draft_"
+    kind: str = "model"       # "model" | "ngram"
+    ngram: int = 2            # suffix-match length for kind="ngram"
+    k_options: tuple = ()     # adaptive ladder; () = fixed-k bundle
+    sharded: bool = False     # shard draft params and KV under tp
+
+    def validate(self, max_out_len: int):
+        if self.k < 0:
+            raise ValueError(f"draft k must be >= 0, got {self.k}")
+        if self.k + 1 > max_out_len:
+            raise ValueError(
+                f"draft k={self.k} proposes past the decode buffer "
+                f"(max_out_len={max_out_len})")
+        if self.kind not in ("model", "ngram"):
+            raise ValueError(
+                f"draft kind must be 'model' or 'ngram', got "
+                f"{self.kind!r}")
+        if self.kind == "ngram":
+            if self.ngram < 1:
+                raise ValueError(
+                    f"ngram suffix length must be >= 1, got {self.ngram}")
+            if self.sharded:
+                raise ValueError(
+                    "DraftConfig(kind='ngram') has no draft params to "
+                    "shard: sharded=True is meaningless")
+        elif self.d_model % self.n_heads:
+            raise ValueError(
+                f"draft d_model={self.d_model} not divisible by "
+                f"n_heads={self.n_heads}")
+        if self.k_options:
+            opts = tuple(int(v) for v in self.k_options)
+            if list(opts) != sorted(set(opts)):
+                raise ValueError(
+                    f"k_options must be sorted unique ints, got "
+                    f"{self.k_options!r}")
+            for kv in opts:
+                if kv < 0 or kv + 1 > max_out_len:
+                    raise ValueError(
+                        f"k_options entry {kv} out of range for "
+                        f"max_out_len={max_out_len}")
+            if self.k not in opts:
+                raise ValueError(
+                    f"default k={self.k} must be a rung of "
+                    f"k_options={self.k_options!r} (the serve keys the "
+                    f"controller starts from)")
+            if self.k == 0:
+                raise ValueError(
+                    "adaptive bundles need a speculative default (k > 0): "
+                    "the k=0 rung is the degradation target, and every "
+                    "draft state spec keys off the default")
+
+    def token(self) -> tuple:
+        return ("spec", int(self.k), int(self.d_model),
+                int(self.n_heads), int(self.n_layers),
+                int(self.d_inner), self.prefix, self.kind,
+                int(self.ngram),
+                tuple(int(v) for v in self.k_options),
+                int(self.sharded))
+
+
 class DecodeStepBundle:
     """Program set for slot-pool continuous batching
     (``decode_engine.py:972`` in the JAX package).
@@ -580,6 +738,11 @@ class DecodeStepBundle:
     * ``sampling`` (``SamplingConfig``): the step draws each lane's token
       from the filtered distribution, keyed on the lane's seed (fed as
       ``seeds`` at every admission: ``needs_seeds``) and position.
+    * ``draft`` (``DraftConfig``): the step proposes k tokens a lane and
+      verifies them in one k+1-query target step; every admission feeds
+      ``seeds`` and ``src_ids`` (hits too: the draft's encoder runs per
+      lane). With ``k_options`` the serves also hold ``("k", kv,
+      base_key)`` variants, one set a rung, over the same slot state.
 
     ``state`` maps logical names to scope var names;
     ``init_slot_state(scope, device)`` seeds the pool. ``startup`` holds
@@ -589,7 +752,8 @@ class DecodeStepBundle:
 
     def __init__(self, prefills, step, serves, startup, state, n_slots,
                  seq_len, max_out_len, start_id, end_id, cache=None,
-                 hit_prefills=None, sampling=None, cow=None, probe=None):
+                 hit_prefills=None, sampling=None, draft=None, cow=None,
+                 probe=None):
         self.prefills = dict(prefills)
         self.prefill = self.prefills[min(self.prefills)]
         self.hit_prefills = dict(hit_prefills or {})
@@ -605,6 +769,7 @@ class DecodeStepBundle:
         self.end_id = end_id
         self.cache = cache or CacheConfig()
         self.sampling = sampling  # SamplingConfig, or None (greedy)
+        self.draft = draft        # DraftConfig, or None
         self.cow = cow        # COW block-copy Program (paged)
         self.probe = probe    # probe-step Program (paged)
         self._state_specs: Dict[str, tuple] = {}
@@ -632,16 +797,40 @@ class DecodeStepBundle:
                       key=lambda kv: kv[1])
 
     @property
+    def spec_k(self) -> int:
+        """Draft proposals a lane a step (0: plain decode)."""
+        return self.draft.k if self.draft is not None else 0
+
+    @property
+    def spec_k_options(self) -> tuple:
+        """The pre-built adaptive-k ladder (empty on fixed-k and plain
+        bundles)."""
+        if self.draft is None:
+            return ()
+        return tuple(int(v) for v in self.draft.k_options)
+
+    @property
+    def tokens_per_tick(self) -> int:
+        """The most tokens one device tick emits a lane (k accepted
+        proposals and the correction or bonus); the paged scheduler sizes
+        block coverage by it. A ladder sizes by its top rung."""
+        return max((self.spec_k,) + self.spec_k_options) + 1
+
+    @property
     def needs_seeds(self) -> bool:
         """Whether admissions feed per-request noise seeds (sampled
-        emission)."""
-        return self.sampling is not None
+        emission, or any draft: the acceptance draws are keyed on
+        them)."""
+        return self.sampling is not None or self.draft is not None
 
     def cache_token(self) -> tuple:
         """Content identity for the servers: the KV layout, plus the
-        sampling policy (a sampled and a greedy bundle over the same
-        weights serve different token streams)."""
+        draft and the sampling policy (a speculative, a sampled and a
+        plain bundle over the same weights serve different token
+        streams)."""
         tok = self.cache.token()
+        if self.draft is not None:
+            tok = tok + self.draft.token()
         if self.sampling is not None:
             tok = tok + self.sampling.token()
         return tok
@@ -650,6 +839,9 @@ class DecodeStepBundle:
         """Feed signature (name, shape, dtype) of ``serves[key]``."""
         feed = [("n_steps", (1,), "int64"),
                 ("min_active", (1,), "int64")]
+        if isinstance(key, tuple) and key[0] == "k":
+            # a ladder rung: the base key's admission and feeds
+            return self.serve_feed_spec(key[2])
         if key == 0:
             return feed
         tier, A = key if isinstance(key, tuple) else ("miss", key)
@@ -669,7 +861,9 @@ class DecodeStepBundle:
                             "int64"))
             return pre + feed
         pre = []
-        if tier == "miss":
+        if tier == "miss" or self.spec_k > 0:
+            # a speculative hit feeds src_ids too: the draft's encoder
+            # runs per lane, only the target's is skipped
             pre.append(("src_ids", (A, self.seq_len), "int64"))
         pre.append(("slots", (A,), "int64"))
         if tier == "miss" and self.cache.layout == "paged":
@@ -692,7 +886,8 @@ class DecodeStepBundle:
         for name, (shape, dt) in self._state_specs.items():
             short = name.split("/")[-1]
             if short.startswith(("self_", "cross_", "block_tab",
-                                 "prompt_ref")):
+                                 "prompt_ref", "draft_self_",
+                                 "draft_cross_")):
                 total += int(np.prod(shape)) * np.dtype(dt).itemsize
         return total
 
@@ -715,20 +910,46 @@ class DecodeStepBundle:
 
 
 def _slot_state_specs(prefix, rows, maxT, seq_len, n_heads, head_dim,
-                      n_layers, cache, sampling=None, vocab=None):
+                      n_layers, cache, sampling=None, vocab=None,
+                      draft=None):
     """name -> (shape, dtype) of every slot-state persistable
-    (``decode_engine.py:1223`` in the JAX package, without the draft
-    state)."""
+    (``decode_engine.py:1223`` in the JAX package)."""
     specs = {
         f"{prefix}tok_buf": ((rows, maxT), "int64"),
         f"{prefix}step": ((rows,), "int64"),
         f"{prefix}finished": ((rows,), "int64"),
         f"{prefix}active": ((rows,), "int64"),
     }
-    if sampling is not None:
+    if sampling is not None or draft is not None:
         # each lane's noise seed, written at admission from the fed
         # per-request seeds
         specs[f"{prefix}seed"] = ((rows,), "int64")
+    if draft is not None and draft.k > 0:
+        if draft.kind == "model":
+            dh = draft.d_model // draft.n_heads
+            # the draft's self-KV stays dense per lane in both target
+            # layouts (the draft is small), and so does its cross-KV
+            # (its encoder runs at every admission, hits included)
+            for li in range(draft.n_layers):
+                for kind, t in (("self", maxT), ("cross", seq_len)):
+                    for kv in ("k", "v"):
+                        specs[f"{prefix}draft_{kind}_{kv}{li}"] = (
+                            (rows, draft.n_heads, t, dh), "float32")
+        else:
+            # the n-gram proposer's per-lane prompt copy (tok_buf holds
+            # the history)
+            specs[f"{prefix}prompt_toks"] = ((rows, seq_len), "int64")
+        # speculative accounting ([1] int64 counters the servers delta a
+        # dispatch), and per lane the accepted proposals and verify
+        # ticks (the adaptive controller's signal)
+        for c in ("spec_proposed", "spec_accepted", "spec_emitted",
+                  "spec_draft_steps", "spec_target_steps"):
+            specs[f"{prefix}{c}"] = ((1,), "int64")
+        specs[f"{prefix}spec_lane_accepted"] = ((rows,), "int64")
+        specs[f"{prefix}spec_lane_ticks"] = ((rows,), "int64")
+        if draft.k_options:
+            specs.update(devtel.spec_k_counter_specs(prefix,
+                                                     draft.k_options))
     specs.update(devtel.counter_specs(prefix, cache.layout == "paged",
                                       chunked=cache.chunked))
     if cache.layout == "dense":
@@ -765,7 +986,7 @@ def _slot_state_specs(prefix, rows, maxT, seq_len, n_heads, head_dim,
             (E + 1, seq_len, d_model), "float32")
         specs[f"{prefix}chunk_stage_kv{POOL_MARK}"] = (
             (E + 1, seq_len, 2 * d_model), "float32")
-    if vocab is not None:
+    if vocab is not None and (draft is None or draft.k == 0):
         # the probe step's output: one softmax row a lane, which the
         # beam decoder branches on
         specs[f"{prefix}probe_probs"] = ((rows, vocab), "float32")
@@ -792,6 +1013,85 @@ def _declare_slot_state(block, specs):
             for name, (shape, dt) in specs.items()}
 
 
+def _param_probe(prefix, seq_len, max_out_len, d_model, n_heads,
+                 n_layers, d_inner, vocab):
+    """A throwaway program that creates every parameter the
+    ``prefix``-named encoder-decoder decode stack owns, through the code
+    that creates them in the bundle (``decode_engine.py:1661`` in the
+    JAX package), so the name set cannot drift from the builders."""
+    from . import transformer as T
+
+    head_dim = d_model // n_heads
+    maxT = max_out_len
+    main = Program()
+    with program_guard(main, Program()):
+        src = layers.data("src_ids", shape=[1, seq_len], dtype="int64",
+                          append_batch_size=False)
+        enc = T._embed(src, vocab, d_model, max(seq_len, maxT), 0.0,
+                       True, f"{prefix}src_word_emb")
+        for li in range(n_layers):
+            enc = T.encoder_layer(enc, d_model, n_heads, d_inner, 0.0,
+                                  is_test=True, name=f"{prefix}enc{li}")
+        cross = []
+        for li in range(n_layers):
+            kvp = layers.fc(enc, 2 * d_model, num_flatten_dims=2,
+                            bias_attr=False,
+                            param_attr=T._attn_proj_attr(
+                                f"{prefix}dec{li}_cross", "kv", d_model))
+            k, v = layers.split(kvp, 2, dim=2)
+            cross.append((heads_of(k, seq_len, n_heads, head_dim),
+                          heads_of(v, seq_len, n_heads, head_dim)))
+        ids = layers.assign(np.zeros((1, 1), "int64"))
+        x = layers.unsqueeze(
+            layers.embedding(ids, size=[vocab, d_model],
+                             param_attr=ParamAttr(
+                                 name=f"{prefix}tgt_word_emb")), [1])
+        wm = layers.assign(np.zeros((1, 1, maxT, 1), "float32"))
+        km = layers.assign(np.ones((1, 1, maxT, 1), "float32"))
+        caches = [_DenseLaneCache(
+            layers.assign(np.zeros((1, n_heads, maxT, head_dim),
+                                   "float32")),
+            layers.assign(np.zeros((1, n_heads, maxT, head_dim),
+                                   "float32")), wm, km)
+            for _ in range(n_layers)]
+        bias = layers.assign(np.zeros((maxT,), "float32"))
+        x = cached_decoder_step(x, caches, cross, bias, d_model, n_heads,
+                                d_inner, prefix=prefix)
+        layers.fc(layers.reshape(x, [0, d_model]), vocab,
+                  bias_attr=False, param_attr=f"{prefix}logits.w")
+    return main
+
+
+def _pair_lint_draft_target(draft, *, seq_len, max_out_len, d_model,
+                            n_heads, n_layers, d_inner, vocab):
+    """The draft lives with the target in one scope, so any persistable
+    name the two share would alias or clobber a weight (the JAX
+    package's PTA100 check, ``check_cross_model_collision``). Raises
+    ValueError naming every shared persistable; a distinct
+    ``draft.prefix`` keeps it silent."""
+    def persistables(prog):
+        return {v.name: v for v in prog.list_vars()
+                if getattr(v, "persistable", False)}
+
+    target = persistables(_param_probe(
+        "", seq_len, max_out_len, d_model, n_heads, n_layers, d_inner,
+        vocab))
+    probe = persistables(_param_probe(
+        draft.prefix, seq_len, max_out_len, draft.d_model, draft.n_heads,
+        draft.n_layers, draft.d_inner, vocab))
+    shared = sorted(set(target) & set(probe))
+    if shared:
+        lines = [f"  PTA100 error: both models declare persistable "
+                 f"{name!r} (target shape {tuple(target[name].shape)}, "
+                 f"draft shape {tuple(probe[name].shape)})"
+                 for name in shared]
+        raise ValueError(
+            f"speculative draft (prefix {draft.prefix!r}) collides with "
+            f"the target model's persistables: co-residence in one scope "
+            f"would alias or clobber weights (PTA100):\n"
+            + "\n".join(lines))
+
+
 def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                               n_heads=4, n_layers=2, d_inner=128,
                               vocab=1000, start_id=0, end_id=1,
@@ -811,19 +1111,21 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
     with ``chunk_tokens > 0``, adds the chunked-prefill phase programs.
     ``sampling`` (SamplingConfig) replaces the greedy argmax with
     temperature/top-k/top-p lanes keyed on per-request seeds, which every
-    admission then feeds. ``draft`` (speculative decoding, serving step
-    9 of the port) and ``sharding`` (tensor-parallel bundles, step 10)
-    raise NotImplementedError.
+    admission then feeds. ``draft`` (DraftConfig) makes the step
+    speculative: k unrolled cached draft steps (or the n-gram proposer)
+    propose tokens a lane, one k+1-query target step verifies them, and
+    each lane advances by its accepted prefix and the correction or
+    bonus token. Greedy speculation is token-exact against the whole-loop
+    decode; sampled speculation keeps the target's filtered distribution
+    by the rejection rule; k = 0 is the plain step. The draft's
+    parameters are refused at build when their names collide with the
+    target's. ``sharding`` (tensor-parallel bundles, serving step 10 of
+    the port) raises NotImplementedError.
 
     Returns a DecodeStepBundle.
     """
     from . import transformer as T
 
-    if draft is not None:
-        raise NotImplementedError(
-            "build_decode_step_program(draft=...): speculative drafts are "
-            "not ported yet (serving step 9 of the port: DraftConfig, "
-            "the speculative step body); build without a draft")
     if sharding is not None:
         raise NotImplementedError(
             "build_decode_step_program(sharding=...): tensor-parallel "
@@ -833,7 +1135,18 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
     cache.validate(max_out_len)
     if sampling is not None:
         sampling.validate()
-    needs_seeds = sampling is not None
+    if draft is not None:
+        draft.validate(max_out_len)
+        if draft.kind == "model":
+            _pair_lint_draft_target(
+                draft, seq_len=seq_len, max_out_len=max_out_len,
+                d_model=d_model, n_heads=n_heads, n_layers=n_layers,
+                d_inner=d_inner, vocab=vocab)
+    spec = draft is not None and draft.k > 0
+    ngram = spec and draft.kind == "ngram"
+    greedy = sampling is None or sampling.greedy
+    samp = sampling or SamplingConfig(temperature=0.0)
+    needs_seeds = sampling is not None or draft is not None
     paged = cache.layout == "paged"
     head_dim = d_model // n_heads
     maxT = max_out_len
@@ -852,7 +1165,8 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
     specs = _slot_state_specs(state_prefix, rows, maxT, seq_len,
                               n_heads, head_dim, n_layers, cache,
                               sampling=sampling,
-                              vocab=vocab if paged else None)
+                              vocab=vocab if paged else None,
+                              draft=draft)
     if paged:
         NP, BS, NB = cache.pages(maxT), cache.block_size, cache.n_blocks
         E = cache.n_prompt_entries
@@ -943,6 +1257,62 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         return layers.data("seeds", shape=[A], dtype="int64",
                            append_batch_size=False)
 
+    def _draft_admit(sv, src, A, oh, keep_f):
+        """Speculative admission tail: the draft's encoder over the
+        admitted prompts, its per-lane cross-KV installed and its self-KV
+        zeroed. Runs on every admission flavor, paged hits included: the
+        draft's cross-KV is per-lane state."""
+        dd = draft.d_model
+        dh = dd // draft.n_heads
+        denc = T._embed(src, vocab, dd, max(seq_len, maxT), 0.0, True,
+                        f"{draft.prefix}src_word_emb")
+        for li in range(draft.n_layers):
+            denc = T.encoder_layer(denc, dd, draft.n_heads, draft.d_inner,
+                                   0.0, is_test=True,
+                                   name=f"{draft.prefix}enc{li}")
+        keep4 = layers.reshape(keep_f, [rows, 1, 1, 1])
+        ohT = layers.transpose(oh, perm=[1, 0])  # [rows, A]
+        flat = draft.n_heads * seq_len * dh
+        for li in range(draft.n_layers):
+            kvp = layers.fc(denc, 2 * dd, num_flatten_dims=2,
+                            bias_attr=False,
+                            param_attr=T._attn_proj_attr(
+                                f"{draft.prefix}dec{li}_cross", "kv", dd))
+            k, v = layers.split(kvp, 2, dim=2)
+            for var, new in (
+                    (sv[f"{state_prefix}draft_cross_k{li}"],
+                     heads_of(k, seq_len, draft.n_heads, dh)),
+                    (sv[f"{state_prefix}draft_cross_v{li}"],
+                     heads_of(v, seq_len, draft.n_heads, dh))):
+                scat = layers.reshape(
+                    layers.matmul(ohT, layers.reshape(new, [A, flat])),
+                    [rows, draft.n_heads, seq_len, dh])
+                layers.assign(layers.elementwise_add(
+                    layers.elementwise_mul(var, keep4), scat), output=var)
+            for var in (sv[f"{state_prefix}draft_self_k{li}"],
+                        sv[f"{state_prefix}draft_self_v{li}"]):
+                layers.assign(layers.elementwise_mul(var, keep4),
+                              output=var)
+
+    def _ngram_admit(sv, src, A, oh, keep_f):
+        """Model-free draft admission: the prompts scatter into the
+        admitted lanes' ``prompt_toks`` copies, the text the suffix
+        matcher scans (token ids < vocab << 2^24, so the float32 one-hot
+        matmul scatter is exact)."""
+        ohT = layers.transpose(oh, perm=[1, 0])            # [rows, A]
+        scat = layers.cast(
+            layers.matmul(ohT, layers.cast(src, "float32")), "int64")
+        keep_col = layers.reshape(layers.cast(keep_f, "int64"), [rows, 1])
+        var = sv[f"{state_prefix}prompt_toks"]
+        layers.assign(layers.elementwise_add(
+            layers.elementwise_mul(var, keep_col), scat), output=var)
+
+    def _spec_admit(sv, src, A, oh, keep_f):
+        if ngram:
+            _ngram_admit(sv, src, A, oh, keep_f)
+        else:
+            _draft_admit(sv, src, A, oh, keep_f)
+
     def _encode_prompts(A):
         src = layers.data("src_ids", shape=[A, seq_len], dtype="int64",
                           append_batch_size=False)
@@ -963,7 +1333,7 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                 heads_of(v, seq_len, n_heads, head_dim))
 
     def _admit_body_dense(sv, A):
-        _, enc = _encode_prompts(A)
+        src, enc = _encode_prompts(A)
         slots = layers.data("slots", shape=[A], dtype="int64",
                             append_batch_size=False)
         seeds = _seeds_data(A)
@@ -987,6 +1357,8 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                         sv[f"{state_prefix}self_v{li}"]):
                 layers.assign(layers.elementwise_mul(var, keep4),
                               output=var)
+        if spec:
+            _spec_admit(sv, src, A, oh, keep_f)
         _reset_lane_state(sv, any_i, keep_i, oh=oh, seeds=seeds)
 
     def _admit_body_paged_miss(sv, A):
@@ -994,7 +1366,7 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         fed prompt-pool entries (host-distinct; padded rows aim at the
         dustbin entry E), reset the lanes. Fresh lanes need no self-pool
         zeroing: every position <= step is written before it is read."""
-        _, enc = _encode_prompts(A)
+        src, enc = _encode_prompts(A)
         slots = layers.data("slots", shape=[A], dtype="int64",
                             append_batch_size=False)
         pslots = layers.data("prompt_slots", shape=[A], dtype="int64",
@@ -1008,17 +1380,25 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                 layers.masked_pool_write(var, new, pslots,
                                          leading_dims=1,
                                          exclusive_via="host_indices")
-        oh, _, any_i, _, keep_i = _lane_onehots(slots, A)
+        oh, _, any_i, keep_f, keep_i = _lane_onehots(slots, A)
+        if spec:
+            _spec_admit(sv, src, A, oh, keep_f)
         _reset_lane_state(sv, any_i, keep_i, oh=oh, seeds=seeds)
 
     def _admit_body_paged_hit(sv, A):
         """Prefix-hit admission: the prompt's cross-KV entry is already
         pooled (its refcount bumped by the host), so admission is a lane
-        reset only: no encoder, no pool write."""
+        reset only: no target encoder, no pool write. A speculative
+        bundle feeds src_ids here too and runs the draft's admission."""
+        if spec:
+            src = layers.data("src_ids", shape=[A, seq_len],
+                              dtype="int64", append_batch_size=False)
         slots = layers.data("slots", shape=[A], dtype="int64",
                             append_batch_size=False)
         seeds = _seeds_data(A)
-        oh, _, any_i, _, keep_i = _lane_onehots(slots, A)
+        oh, _, any_i, keep_f, keep_i = _lane_onehots(slots, A)
+        if spec:
+            _spec_admit(sv, src, A, oh, keep_f)
         _reset_lane_state(sv, any_i, keep_i, oh=oh, seeds=seeds,
                           tier="hit")
 
@@ -1072,7 +1452,11 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                     else _admit_body_dense}
     if paged:
         admit_bodies["hit"] = _admit_body_paged_hit
-        admit_bodies["radix"] = _admit_body_paged_radix
+        if not spec:
+            # the radix tier rides the plain step: a speculative lane
+            # advances by variable lengths, which the block-aligned
+            # resume does not model
+            admit_bodies["radix"] = _admit_body_paged_radix
 
     prefills, hit_prefills = {}, {}
     startup = None
@@ -1089,6 +1473,23 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                 admit_bodies["hit"](
                     _declare_slot_state(hprog.global_block, specs), A)
             hit_prefills[A] = hprog
+
+    def _paged_cross_kv(sv):
+        """Every lane's cross-KV of each layer, gathered from the prompt
+        pools through its prompt_ref: [(ck, cv)] of [R,H,S,Dh]."""
+        pref = sv[f"{state_prefix}prompt_ref"]
+        cross_kv = []
+        for li in range(n_layers):
+            pair = []
+            for tag in ("k", "v"):
+                pool = sv[f"{state_prefix}cross_{tag}{li}{POOL_MARK}"]
+                flat = layers.reshape(
+                    pool, [E + 1, n_heads * seq_len * head_dim])
+                got = layers.gather(flat, pref)             # [R, HSD]
+                pair.append(layers.reshape(
+                    got, [rows, n_heads, seq_len, head_dim]))
+            cross_kv.append(tuple(pair))
+        return cross_kv
 
     def _step_body(sv, probe=False):
         """One token over every lane (the standalone step program, the
@@ -1176,18 +1577,7 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
                 sv[f"{state_prefix}self_v{li}{POOL_MARK}"],
                 write_idx, gate, rows, n_heads, head_dim, maxT, NB * BS,
                 tab, stepv, flat_pos=flat_pos) for li in range(n_layers)]
-            pref = sv[f"{state_prefix}prompt_ref"]
-            cross_kv = []
-            for li in range(n_layers):
-                pair = []
-                for tag in ("k", "v"):
-                    pool = sv[f"{state_prefix}cross_{tag}{li}{POOL_MARK}"]
-                    flat = layers.reshape(
-                        pool, [E + 1, n_heads * seq_len * head_dim])
-                    got = layers.gather(flat, pref)         # [R, HSD]
-                    pair.append(layers.reshape(
-                        got, [rows, n_heads, seq_len, head_dim]))
-                cross_kv.append(tuple(pair))
+            cross_kv = _paged_cross_kv(sv)
         x = cached_decoder_step(x, caches, cross_kv, att_bias, d_model,
                                 n_heads, d_inner)
         logits_v = layers.fc(layers.reshape(x, [0, d_model]), vocab,
@@ -1260,20 +1650,335 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         layers.assign(new_act, output=act)
         layers.assign(new_fin, output=fin)
 
+    def _draft_step(sv, tok, stepj):
+        """One cached draft-model step over every lane at position
+        ``stepj`` from token ``tok`` [R,1]: the draft's KV at stepj is
+        written; returns the [R,1,dd] hidden rows."""
+        dd = draft.d_model
+        positions = layers.cast(layers.range(0, maxT, 1), "int64")
+        posf = layers.cast(positions, "float32")
+        dpos_table = layers.assign(
+            T._position_encoding(max(seq_len, maxT), dd)[:maxT])
+        stepj2 = layers.reshape(stepj, [rows, 1])
+        t_mask = layers.cast(layers.equal(positions, stepj2),
+                             "float32")                     # [R,maxT]
+        x = layers.embedding(tok, size=[vocab, dd], param_attr=ParamAttr(
+            name=f"{draft.prefix}tgt_word_emb"))
+        x = layers.scale(layers.unsqueeze(x, [1]), scale=dd ** 0.5)
+        x = layers.elementwise_add(
+            x, layers.unsqueeze(layers.matmul(t_mask, dpos_table), [1]))
+        dbias = layers.reshape(
+            layers.scale(layers.cast(layers.greater_than(
+                posf, layers.cast(stepj2, "float32")), "float32"),
+                scale=-1e9),
+            [rows, 1, 1, maxT])
+        wm = layers.reshape(t_mask, [rows, 1, maxT, 1])
+        km = layers.reshape(
+            layers.elementwise_sub(
+                layers.fill_constant([rows, maxT], "float32", 1.0),
+                t_mask), [rows, 1, maxT, 1])
+        dcaches = [_DenseLaneCache(sv[f"{state_prefix}draft_self_k{li}"],
+                                   sv[f"{state_prefix}draft_self_v{li}"],
+                                   wm, km)
+                   for li in range(draft.n_layers)]
+        dcross = [(sv[f"{state_prefix}draft_cross_k{li}"],
+                   sv[f"{state_prefix}draft_cross_v{li}"])
+                  for li in range(draft.n_layers)]
+        return cached_decoder_step(x, dcaches, dcross, dbias, dd,
+                                   draft.n_heads, draft.d_inner,
+                                   prefix=draft.prefix)
+
+    def _ngram_propose(sv, tok_buf, step2, cur_tok, k):
+        """The model-free proposer (prompt-lookup decoding): the
+        rightmost occurrence of the lane's last-n-token suffix in
+        prompt + history, strictly left of the live end, and its
+        continuation; a proposal past the committed text falls back to
+        the current token. Returns (proposals [R] each, one-hot draft
+        rows [R,1,V] each): the verify's accept test is exact for a
+        one-hot draft under greedy and sampled emission alike."""
+        n = draft.ngram
+        ctx_len = seq_len + maxT
+        ctx_f = layers.cast(layers.concat(
+            [sv[f"{state_prefix}prompt_toks"], tok_buf], axis=1),
+            "float32")                                      # [R,CTX]
+        ctx_posf = layers.assign(np.arange(ctx_len, dtype="float32"))
+        step2f = layers.cast(step2, "float32")              # [R,1]
+        # a match end j needs a full suffix left of it (j >= n-1) and
+        # lies strictly left of the live end (j < S + step)
+        j_ok = layers.cast(layers.greater_than(
+            ctx_posf, layers.fill_constant([1], "float32",
+                                           float(n - 2))), "float32")
+        end_ok = layers.cast(layers.less_than(
+            ctx_posf, layers.scale(step2f, bias=float(seq_len))),
+            "float32")                                      # [R,CTX]
+        score = layers.elementwise_mul(end_ok, j_ok, axis=1)
+        for i in range(n):
+            # suffix token i back from the live end, ctx[S + step - i],
+            # against ctx shifted right by i
+            m_i = layers.cast(layers.equal(
+                ctx_posf, layers.scale(step2f, bias=float(seq_len - i))),
+                "float32")
+            s_i = layers.reduce_sum(layers.elementwise_mul(ctx_f, m_i),
+                                    dim=1, keep_dim=True)   # [R,1]
+            shifted = layers.matmul(ctx_f, layers.assign(
+                np.eye(ctx_len, dtype="float32", k=i)))
+            score = layers.elementwise_mul(score, layers.cast(
+                layers.equal(shifted, s_i), "float32"))
+        # the rightmost match end: max of score * (j + 1); 0 is none
+        best = layers.reduce_max(
+            layers.elementwise_mul(score, layers.scale(ctx_posf, bias=1.0),
+                                   axis=1), dim=1, keep_dim=True)
+        has = layers.cast(layers.greater_than(
+            best, layers.fill_constant([1], "float32", 0.0)), "float32")
+        idx = layers.scale(best, bias=-1.0)                 # [R,1]
+        cur_f = layers.cast(cur_tok, "float32")
+        proposals, dprob_rows = [], []
+        for m in range(k):
+            pm = layers.scale(idx, bias=float(1 + m))
+            # the proposed position must itself be committed text
+            ok_m = layers.elementwise_mul(has, layers.cast(
+                layers.less_than(pm, layers.scale(
+                    step2f, bias=float(seq_len + 1))), "float32"))
+            got = layers.reduce_sum(layers.elementwise_mul(
+                ctx_f, layers.cast(layers.equal(ctx_posf, pm),
+                                   "float32")), dim=1, keep_dim=True)
+            tok_m = layers.cast(layers.reshape(
+                layers.elementwise_add(
+                    layers.elementwise_mul(got, ok_m),
+                    layers.elementwise_mul(
+                        cur_f, layers.scale(ok_m, scale=-1.0, bias=1.0))),
+                [rows]), "int64")                           # [R]
+            proposals.append(tok_m)
+            dprob_rows.append(layers.unsqueeze(
+                layers.one_hot(tok_m, vocab), [1]))         # [R,1,V]
+        return proposals, dprob_rows
+
+    def _model_propose(sv, stepv, cur_tok, k):
+        """k+1 unrolled cached draft steps over positions step..step+k.
+        Steps 0..k-1 propose; step k only writes the draft's KV at
+        step+k. Without it a full-acceptance tick advances the lane past
+        a position the draft never processed, a hole its cache keeps for
+        the lane's lifetime, and acceptance collapses after the first
+        burst while the tokens stay right."""
+        proposals, dprob_rows = [], []
+        prev = cur_tok
+        for j in range(k + 1):
+            stepj = stepv if j == 0 else layers.elementwise_add(
+                stepv, layers.fill_constant([1], "int64", float(j)))
+            x = _draft_step(sv, prev, stepj)
+            if j == k:
+                break
+            dlogits = layers.fc(layers.reshape(x, [0, draft.d_model]),
+                                vocab, bias_attr=False,
+                                param_attr=f"{draft.prefix}logits.w")
+            dprobs = layers.filtered_softmax(
+                dlogits, temperature=samp.temperature, top_k=samp.top_k,
+                top_p=samp.top_p)
+            if greedy:
+                tok_j = layers.cast(layers.argmax(dprobs, axis=-1),
+                                    "int64")
+            else:
+                tok_j = layers.sample_categorical(
+                    dprobs, sv[f"{state_prefix}seed"],
+                    layers.elementwise_add(
+                        stepj, layers.fill_constant([1], "int64", 1.0)),
+                    noise_tag=1, base_seed=samp.base_seed)
+            proposals.append(tok_j)
+            dprob_rows.append(layers.unsqueeze(dprobs, [1]))
+            prev = layers.reshape(tok_j, [rows, 1])
+        return proposals, dprob_rows
+
+    def _spec_step_body(sv, k_run=None):
+        """The speculative tick (``decode_engine.py:2412`` in the JAX
+        package): propose k tokens a lane, verify [current token, k
+        proposals] in one Q = k+1-query target step over the span caches,
+        then ``spec_accept``, the accepted run's token write and the
+        counters. KV cells past the accepted prefix hold rejected-token
+        values, which the per-query bias masks and the lane rewrites
+        when it gets there. ``k_run``: this ladder rung's k."""
+        k = draft.k if k_run is None else int(k_run)
+        Q = k + 1
+        tok_buf = sv[f"{state_prefix}tok_buf"]
+        stepv = sv[f"{state_prefix}step"]
+        fin = sv[f"{state_prefix}finished"]
+        act = sv[f"{state_prefix}active"]
+        seedv = sv[f"{state_prefix}seed"]
+        _tel_add(sv, "tel_ticks", layers.fill_constant([1], "int64", 1.0))
+        _tel_add(sv, "tel_occupancy", layers.reduce_sum(act,
+                                                        keep_dim=True))
+        # which rung ticked (a fixed-k bundle carries no such counter)
+        _tel_add(sv, devtel.spec_k_logical(k),
+                 layers.fill_constant([1], "int64", 1.0))
+        positions = layers.cast(layers.range(0, maxT, 1), "int64")
+        posf = layers.cast(positions, "float32")
+        pos_table = layers.assign(
+            T._position_encoding(max(seq_len, maxT), d_model)[:maxT])
+        ones_n = layers.fill_constant([rows], "int64", 1.0)
+        step2 = layers.reshape(stepv, [rows, 1])            # [R,1]
+        t_mask0 = layers.cast(layers.equal(positions, step2), "float32")
+        cur_tok = layers.reduce_sum(
+            layers.elementwise_mul(tok_buf, layers.cast(t_mask0, "int64")),
+            dim=1, keep_dim=True)                           # [R,1]
+        if ngram:
+            proposals, dprob_rows = _ngram_propose(sv, tok_buf, step2,
+                                                   cur_tok, k)
+        else:
+            proposals, dprob_rows = _model_propose(sv, stepv, cur_tok, k)
+
+        # the target's verify over [current token, k proposals]
+        toks_q = layers.concat(
+            [cur_tok] + [layers.reshape(t, [rows, 1]) for t in proposals],
+            axis=1)                                         # [R,Q]
+        x = layers.embedding(toks_q, size=[vocab, d_model],
+                             param_attr=ParamAttr(name="tgt_word_emb"))
+        x = layers.scale(x, scale=d_model ** 0.5)           # [R,Q,D]
+        posq = layers.elementwise_add(
+            step2, layers.assign(np.arange(Q).astype("int64")))
+        posq3 = layers.reshape(posq, [rows, Q, 1])
+        t_mask_q = layers.cast(layers.equal(positions, posq3),
+                               "float32")                   # [R,Q,maxT]
+        x = layers.elementwise_add(x, layers.matmul(t_mask_q, pos_table))
+        # query j attends positions <= step+j; a position past the
+        # buffer has an all-zero one-hot and writes nothing
+        bias = layers.reshape(
+            layers.scale(layers.cast(layers.greater_than(
+                posf, layers.cast(posq3, "float32")), "float32"),
+                scale=-1e9),
+            [rows, 1, Q, maxT])
+        if not paged:
+            keep = layers.reshape(
+                layers.elementwise_sub(
+                    layers.fill_constant([rows, maxT], "float32", 1.0),
+                    layers.reduce_sum(t_mask_q, dim=1)),
+                [rows, 1, maxT, 1])
+            caches = [_DenseSpanCache(sv[f"{state_prefix}self_k{li}"],
+                                      sv[f"{state_prefix}self_v{li}"],
+                                      t_mask_q, keep)
+                      for li in range(n_layers)]
+            cross_kv = [(sv[f"{state_prefix}cross_k{li}"],
+                         sv[f"{state_prefix}cross_v{li}"])
+                        for li in range(n_layers)]
+        else:
+            tabf = layers.cast(sv[f"{state_prefix}block_tab"], "float32")
+            base = layers.expand(
+                layers.unsqueeze(layers.scale(tabf, scale=float(BS)), [2]),
+                [1, 1, BS])                                 # [R,NP,BS]
+            offs = layers.assign(np.arange(BS, dtype="float32"))
+            flat_pos = layers.cast(layers.reshape(
+                layers.elementwise_add(base, offs, axis=2),
+                [rows * maxT]), "int32")
+            t_pages_q = layers.reshape(t_mask_q, [rows, Q, NP, BS])
+            page_oh = layers.reduce_sum(t_pages_q, dim=3)   # [R,Q,NP]
+            off_oh = layers.reduce_sum(t_pages_q, dim=2)    # [R,Q,BS]
+            cur_block = layers.reduce_sum(
+                layers.elementwise_mul(layers.unsqueeze(tabf, [1]),
+                                       page_oh), dim=2)     # [R,Q]
+            cur_off = layers.reduce_sum(
+                layers.elementwise_mul(off_oh, offs), dim=2)
+            write_idx = layers.cast(layers.reshape(
+                layers.elementwise_add(
+                    layers.scale(cur_block, scale=float(BS)), cur_off),
+                [rows * Q]), "int32")
+            # gate = active AND position in the buffer: an out-of-range
+            # query's all-zero one-hot would alias cell 0 of block 0,
+            # another lane's KV
+            validq = layers.reduce_sum(t_mask_q, dim=2)     # [R,Q]
+            gate = layers.reshape(layers.elementwise_mul(
+                layers.reshape(layers.cast(act, "float32"), [rows, 1]),
+                validq), [rows * Q])
+            caches = [_PagedSpanCache(
+                sv[f"{state_prefix}self_k{li}{POOL_MARK}"],
+                sv[f"{state_prefix}self_v{li}{POOL_MARK}"],
+                write_idx, gate, flat_pos, rows, Q, n_heads, head_dim,
+                maxT, NB * BS) for li in range(n_layers)]
+            cross_kv = _paged_cross_kv(sv)
+        x = cached_decoder_step(x, caches, cross_kv, bias, d_model,
+                                n_heads, d_inner, q=Q)      # [R,Q,D]
+        logits_q = layers.fc(x, vocab, num_flatten_dims=2,
+                             bias_attr=False, param_attr="logits.w")
+        tprobs = layers.filtered_softmax(
+            logits_q, temperature=samp.temperature, top_k=samp.top_k,
+            top_p=samp.top_p)                               # [R,Q,V]
+        adv, toks, accepted, fin_new = layers.spec_accept(
+            layers.concat([layers.reshape(t, [rows, 1])
+                           for t in proposals], axis=1),
+            layers.concat(dprob_rows, axis=1), tprobs, seedv, stepv, k=k,
+            end_id=end_id, max_len=maxT, greedy=greedy,
+            base_seed=samp.base_seed, noise_tag=8)
+        adv_g = layers.elementwise_mul(adv, act)            # [R]
+        layers.span_scatter(tok_buf, toks,
+                            layers.elementwise_add(stepv, ones_n), adv_g)
+        new_fin = layers.elementwise_max(
+            fin, layers.elementwise_mul(fin_new, act))
+        new_step = layers.elementwise_add(stepv, adv_g)
+        room = layers.cast(layers.less_than(
+            new_step, layers.fill_constant([1], "int64",
+                                           float(maxT - 1))), "int64")
+        new_act = layers.elementwise_mul(
+            layers.elementwise_mul(
+                act, layers.elementwise_sub(ones_n, new_fin)), room)
+        # the counters read this tick's act: summed before the in-place
+        # act update below
+        live = layers.reduce_sum(act, keep_dim=True)
+        k_const = layers.fill_constant([1], "int64", float(k))
+        acc_live = layers.elementwise_mul(accepted, act)
+        bumps = [("spec_proposed", layers.elementwise_mul(live, k_const)),
+                 ("spec_accepted", layers.reduce_sum(acc_live,
+                                                     keep_dim=True)),
+                 ("spec_emitted", layers.reduce_sum(adv_g,
+                                                    keep_dim=True)),
+                 ("spec_target_steps",
+                  layers.fill_constant([1], "int64", 1.0))]
+        if not ngram:
+            # the n-gram lane runs no draft-model step
+            bumps.append(("spec_draft_steps", k_const))
+        bumps += [("spec_lane_accepted", acc_live),
+                  ("spec_lane_ticks", act)]
+        for name, delta in bumps:
+            var = sv[f"{state_prefix}{name}"]
+            layers.assign(layers.elementwise_add(var, delta), output=var)
+        layers.assign(new_step, output=stepv)
+        layers.assign(new_act, output=act)
+        layers.assign(new_fin, output=fin)
+
+    def _k0_body(sv):
+        """The ladder's k = 0 rung: the plain step, after one draft step
+        at the current position for a model draft (the keepalive: a lane
+        parked at k = 0 must not leave holes in the draft's cache for a
+        later rung to propose from). The spec counters do not move; the
+        rung's tick counter does."""
+        if draft.kind == "model":
+            tok_buf = sv[f"{state_prefix}tok_buf"]
+            stepv = sv[f"{state_prefix}step"]
+            positions = layers.cast(layers.range(0, maxT, 1), "int64")
+            t_mask = layers.cast(layers.equal(
+                positions, layers.reshape(stepv, [rows, 1])), "int64")
+            cur_tok = layers.reduce_sum(
+                layers.elementwise_mul(tok_buf, t_mask), dim=1,
+                keep_dim=True)
+            _draft_step(sv, cur_tok, stepv)
+        _step_body(sv)
+        _tel_add(sv, devtel.spec_k_logical(0),
+                 layers.fill_constant([1], "int64", 1.0))
+
+    body = _spec_step_body if spec else _step_body
+
     step_prog = Program()
     with program_guard(step_prog, Program()):
-        _step_body(_declare_slot_state(step_prog.global_block, specs))
+        body(_declare_slot_state(step_prog.global_block, specs))
 
-    def _build_serve(tier, A):
+    def _build_serve(tier, A, step_body=None):
         def pre(sv):
             if A > 0:
                 admit_bodies[tier](sv, A)
-        return _serve_program(pre)
+        return _serve_program(pre, step_body)
 
-    def _serve_program(pre_body):
+    def _serve_program(pre_body, step_body=None):
         """`pre_body` (an admission, a prefill chunk, or nothing) and then
-        a decode-burst While: the loop exits when n_steps ticks ran or the
-        live-lane count drops to min_active."""
+        a decode-burst While of `step_body` (the bundle's tick body
+        unless a ladder rung names its own): the loop exits when n_steps
+        ticks ran or the live-lane count drops to min_active."""
+        step_body = body if step_body is None else step_body
         prog = Program()
         with program_guard(prog, Program()):
             sv = _declare_slot_state(prog.global_block, specs)
@@ -1299,7 +2004,7 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
             cond = _serve_cond()
             w = layers.While(cond)
             with w.block():
-                _step_body(sv)
+                step_body(sv)
                 layers.increment(k, 1)
                 _serve_cond(cond=cond)
             # classify this burst's exit once: ran all n_steps ticks >
@@ -1459,7 +2164,8 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         if paged:
             serves[("miss", A)] = _build_serve("miss", A)
             serves[("hit", A)] = _build_serve("hit", A)
-            serves[("radix", A)] = _build_serve("radix", A)
+            if "radix" in admit_bodies:
+                serves[("radix", A)] = _build_serve("radix", A)
         else:
             serves[A] = _build_serve("miss", A)
     if cache.chunked:
@@ -1468,6 +2174,22 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         for p in range(2 * n_layers + 2):
             serves[("chunked", p)] = _serve_program(
                 lambda sv, _p=p: _chunk_phase_body(sv, _p))
+    if spec and draft.k_options:
+        # the adaptive ladder: every other rung rebuilds each admission
+        # flavor and bucket with its own tick body over the same slot
+        # state, so the controller switches rungs by choosing a program
+        base_keys = [bk for bk in serves
+                     if not (isinstance(bk, tuple) and bk[0] == "chunked")]
+        for kv in draft.k_options:
+            if kv == draft.k:
+                continue
+            kv_body = _k0_body if kv == 0 else (
+                lambda sv, _k=kv: _spec_step_body(sv, _k))
+            for bk in base_keys:
+                tier, A = (bk, 0) if bk == 0 else (
+                    ("miss", bk) if isinstance(bk, int) else bk)
+                serves[("k", kv, bk)] = _build_serve(tier, A,
+                                                     step_body=kv_body)
 
     cow_prog = probe_prog = None
     if paged:
@@ -1494,6 +2216,7 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
             _tel_add(sv, "tel_cow_blocks",
                      layers.reduce_sum(layers.cast(cgate, "int64"),
                                        keep_dim=True))
+    if paged and not spec:
         # probe step: one tick that also publishes every lane's softmax
         # row; under teacher forcing over the whole buffer it never
         # writes tok_buf or latches fin (the host owns the tokens)
@@ -1510,15 +2233,24 @@ def build_decode_step_program(seq_len=16, max_out_len=16, d_model=64,
         state["block_tab"] = f"{state_prefix}block_tab"
         state["prompt_ref"] = f"{state_prefix}prompt_ref"
         state["prefill_until"] = f"{state_prefix}prefill_until"
-        state["probe_probs"] = f"{state_prefix}probe_probs"
+        if probe_prog is not None:
+            state["probe_probs"] = f"{state_prefix}probe_probs"
     if needs_seeds:
         state["seed"] = f"{state_prefix}seed"
+    if spec:
+        for c in ("spec_proposed", "spec_accepted", "spec_emitted",
+                  "spec_draft_steps", "spec_target_steps",
+                  "spec_lane_accepted", "spec_lane_ticks"):
+            state[c] = f"{state_prefix}{c}"
+        if draft.k_options:
+            state.update(devtel.spec_k_state_entries(state_prefix,
+                                                     draft.k_options))
     state.update(devtel.state_entries(state_prefix, paged))
     bundle = DecodeStepBundle(prefills, step_prog, serves, startup, state,
                               n_slots, seq_len, maxT, start_id, end_id,
                               cache=cache, hit_prefills=hit_prefills,
-                              sampling=sampling, cow=cow_prog,
-                              probe=probe_prog)
+                              sampling=sampling, draft=draft,
+                              cow=cow_prog, probe=probe_prog)
     bundle._state_specs = dict(specs)
     return bundle
 

@@ -12,8 +12,9 @@ them into per-dispatch deltas and ``stats()`` windows.
 
 ``BUNDLE_COUNTERS`` is the one table of names: the decode builder's
 slot-state specs and state map, and the servers' fetch lists, all come
-from it. The per-k speculative counters, the host-side counters'
-metric samples and the pull-provider exposition belong to later slices.
+from it. A speculative bundle with a k ladder adds one tick counter a
+rung (``spec_k_counter_specs``). The host-side counters' metric samples
+and the pull-provider exposition belong to a later slice.
 """
 from __future__ import annotations
 
@@ -106,6 +107,32 @@ def state_entries(prefix: str, paged: bool,
             for c in bundle_counters(paged, chunked)}
 
 
+_SPEC_K_STEM = "tel_spec_ticks_k"
+
+
+def spec_k_logical(k: int) -> str:
+    """Logical name of the per-k speculative tick counter, bumped once
+    a step-body run of the serve variant built at draft length k: the
+    rungs of the adaptive ladder that ran, seen from the device."""
+    return f"{_SPEC_K_STEM}{int(k)}"
+
+
+def spec_k_counter_specs(prefix: str,
+                         k_options: Iterable[int]) -> Dict[str, tuple]:
+    """Slot-state spec entries of the per-k tick counters, one a rung of
+    the bundle's ladder ([1] int64, @TEL-marked as counter_specs')."""
+    return {f"{prefix}{spec_k_logical(k)}{TEL_MARK}": ((1,), "int64")
+            for k in k_options}
+
+
+def spec_k_state_entries(prefix: str,
+                         k_options: Iterable[int]) -> Dict[str, str]:
+    """logical -> var name entries of ``DecodeStepBundle.state`` for the
+    per-k tick counters."""
+    return {spec_k_logical(k): f"{prefix}{spec_k_logical(k)}{TEL_MARK}"
+            for k in k_options}
+
+
 class DeviceTelemetry:
     """The servers' half of the counters: ``absorb(values)`` takes one
     dispatch's fetched values (in ``fetch_names`` order) and returns its
@@ -120,6 +147,11 @@ class DeviceTelemetry:
         self._counters = [(c.logical, state[c.logical])
                           for c in bundle_counters(paged)
                           if c.logical in state]
+        # the ladder's per-k tick counters join sorted by k
+        self._counters += [
+            (logical, state[logical]) for logical in sorted(
+                (n for n in state if n.startswith(_SPEC_K_STEM)),
+                key=lambda n: int(n[len(_SPEC_K_STEM):]))]
         self.totals: Dict[str, int] = {
             logical: 0 for logical, _ in self._counters}
         self._base: Dict[str, int] = dict(self.totals)
@@ -151,8 +183,9 @@ class DeviceTelemetry:
         """``stats()['device_telemetry']`` from a window() snapshot: the
         counters under their stat keys and the mean live lanes."""
         by_logical = {c.logical: c.stat for c in BUNDLE_COUNTERS}
-        out = {by_logical[logical]: window[logical]
-               for logical, _ in self._counters}
+        # a per-k counter reads as spec_ticks_k<k>
+        out = {by_logical.get(logical, logical[len("tel_"):]):
+               window[logical] for logical, _ in self._counters}
         ticks = window.get("tel_ticks", 0)
         occ = window.get("tel_occupancy", 0)
         out["mean_live_lanes"] = (round(occ / ticks, 4)

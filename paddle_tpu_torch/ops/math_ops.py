@@ -199,6 +199,18 @@ def reduce_sum(ctx):
     return torch.sum(x, dim=dims, keepdim=ctx.attr("keep_dim", False))
 
 
+@register_op("reduce_max", differentiable=False)
+def reduce_max(ctx):
+    x = ctx.input("X")
+    if ctx.attr("reduce_all", False):
+        dims = tuple(range(x.dim()))
+    else:
+        dims = tuple(d % x.dim() for d in ctx.attr("dim", [0]))
+        if not dims:
+            return x
+    return torch.amax(x, dim=dims, keepdim=ctx.attr("keep_dim", False))
+
+
 @register_op("mean")
 def mean(ctx):
     """Output shape [1], as fluid's mean_op.cc. An integer or bool X

@@ -209,6 +209,20 @@ def arg_max(ctx):
     return torch.argmax(ctx.input("X"), dim=ctx.attr("axis", -1))
 
 
+@register_op("one_hot", differentiable=False)
+def one_hot(ctx):
+    """float32 one-hot rows of depth `depth` (a trailing axis of 1 on
+    the ids is dropped, as in the JAX package); ids outside [0, depth)
+    give a zero row, as ``jax.nn.one_hot`` does."""
+    x = ctx.input("X")
+    depth = int(ctx.attr("depth"))
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x[..., 0]
+    x = x.to(torch.int64)
+    return (x[..., None] == torch.arange(depth, device=x.device)).to(
+        torch.float32)
+
+
 @register_op("top_k", differentiable=False)
 def top_k(ctx):
     """The k largest of each row along the last axis, largest first, and

@@ -387,11 +387,16 @@ def test_step_program_ticks_match_jax(bundles):
 
 
 def test_builder_refuses_what_is_not_ported():
-    # drafts and sharding are serving steps 9 and 10 of the port
-    with pytest.raises(NotImplementedError, match="step 9"):
-        PD.build_decode_step_program(draft=object(), **MODEL)
+    # drafts are ported (serving step 9; tests/test_torch_speculative.py)
+    # and validated at build; sharding and the head-interleaved qkv
+    # weight are serving step 10 of the port
+    with pytest.raises(ValueError, match="draft k"):
+        PD.build_decode_step_program(draft=PD.DraftConfig(k=-1), **MODEL)
     with pytest.raises(NotImplementedError, match="step 10"):
         PD.build_decode_step_program(sharding=object(), **MODEL)
+    with pytest.raises(NotImplementedError, match="step 10"):
+        PD.cached_decoder_step(None, [], [], None, 32, 2, 64,
+                               qkv_interleaved=True)
     # chunked prefill is ported: CacheConfig still rejects a chunk of 1
     with pytest.raises(ValueError, match="chunk_tokens == 1"):
         PD.CacheConfig(layout="paged", block_size=BS, n_blocks=NB,
