@@ -640,6 +640,36 @@ SPEC_DISTILL = dict(rounds=4, batch=8, inner_steps=4, learning_rate=0.005)
 SPEC_SAMPLED_ROWS = 2  # prompts of the sampled leg, against the CPU
 SPEC_BURST = 2         # ticks of a leg's profiled burst (its idle share)
 SPEC_CPU_ROWS = 2      # prompts of the k = 3 leg against the CPU
+# #1 (layer_norm) in phase 3: the shapes the main path runs it at (a
+# census of a whole run's launches by phase and shape, recorded in
+# PERF.md), each held against the plain version on every plan and timed,
+# and bf16 at 32768 rows, whose 67 MB do not fit the 50 MB L2 (its share
+# of the HBM bound). Bulk rows (rows, D, dtype):
+# a turn's or a draft's prompt and the 2-row parity steps (256-2048), the
+# encoder at prompt 512 and 1024 (4096, 8192; phase 4), a training step's
+# 16384 target tokens and the batch-128 legs' 32768 (phases 5-8), the
+# predictor's rows in bf16 (4096; phase 11) and bf16 at 8192, the draft's
+# prompts at its d 256 (phase 14), the ragged D 300. Decoder-step rows
+# (rows, D; fp32): GenerationServer's batch (8), a tick's lanes and the
+# dustbin lane (9 in phase 13, 17 in phases 9 and 12-14), the verify's
+# k + 1 positions a lane at k = 2, 3, 4 (51, 68, 85), the draft's steps
+LN_BULK = tuple((n, 512, torch.float32)
+                for n in (256, 512, 1024, 2048, 4096, 8192, 16384, 32768)) \
+    + ((PREDICT_ROWS, 512, torch.bfloat16),
+       (BATCH * 1024, 512, torch.bfloat16), (32768, 512, torch.bfloat16)) \
+    + tuple((n, SPEC_DRAFT["d_model"], torch.float32)
+            for n in (1024, 2048, 4096)) \
+    + ((4096, 300, torch.float32), (4096, 300, torch.bfloat16))
+_LANES = PAGED["n_slots"] + 1
+LN_STEP = ((BATCH, 512), (CHUNK["n_slots"] + 1, 512), (_LANES, 512),
+           (3 * _LANES, 512), ((SPEC_K + 1) * _LANES, 512),
+           (5 * _LANES, 512), (_LANES, SPEC_DRAFT["d_model"]))
+# the planted fault that leaves the ragged tail out of the statistics: at
+# D 300 the last load a lane makes (columns 256-299) dropped
+LN_TAIL_COLS = 256
+# the grids, in CTAs an SM, at which the chosen warp plan is also timed
+# at [8192, 512] (its own: KL.CTAS_PER_SM, its launch bound)
+LN_GRIDS = (1, 4)
 # the MNIST fc net (BASELINE.md config 1; models/mnist.py build_program
 # with use_conv=False: 784-128-64-10) at bench.py bench_mnist's batch,
 # 4096, on its synthetic separable batch (bench.py:375-377) as [784]
@@ -813,74 +843,252 @@ def phase_build():
 
 
 # ---------------------------------------------------------------------------
-def _ln_case(n, d, seed):
+def _ln_inputs(n, d, dtype, seed, offset=0):
+    """x [n, d] of `dtype` starting `offset` elements into its storage,
+    scale and bias [d], seeded."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(n, d, device="cuda", generator=g) * 3 + 0.5
-    s = torch.randn(d, device="cuda", generator=g)
-    b = torch.randn(d, device="cuda", generator=g)
+    flat = torch.randn(offset + n * d, device="cuda", generator=g) * 3 + 0.5
+    x = flat.to(dtype)[offset:].view(n, d)
+    s = torch.randn(d, device="cuda", generator=g).to(dtype)
+    b = torch.randn(d, device="cuda", generator=g).to(dtype)
+    return x, s, b
+
+
+def _ln_case(n, d, seed):
+    """#1 once through the wrapper on fp32 [n, d]: (x, scale, bias, the
+    largest |kernel - plain| over y, mean and var)."""
+    x, s, b = _ln_inputs(n, d, torch.float32, seed)
     got = KL.layer_norm(x, s, b, 1e-5)
-    want = KL.layer_norm_plain(x, s, b, 1e-5)
     torch.cuda.synchronize()
-    err = max(max_err(g_, w_) for g_, w_ in zip(got, want))
-    return x, s, b, err
+    want = KL.layer_norm_plain(x, s, b, 1e-5)
+    return x, s, b, max(max_err(g_, w_) for g_, w_ in zip(got, want))
 
 
-def _ln_var_without_mean(x, scale, bias, eps):
-    """The planted fault of #1 in bf16: the plain version with the
-    variance taken as mean(x^2), the mean not subtracted."""
+def _ln_fault(x, scale, bias, eps, fault):
+    """The plain version with a planted fault: "var" the variance as
+    mean(x^2), the mean not subtracted; "tail" the statistics from the
+    first LN_TAIL_COLS columns only."""
     x32 = x.float()
-    mean = x32.mean(dim=1, keepdim=True)
-    var = x32.square().mean(dim=1, keepdim=True)
+    part = x32[:, :LN_TAIL_COLS] if fault == "tail" else x32
+    mean = part.mean(dim=1, keepdim=True)
+    sq = part.square() if fault == "var" else (part - mean).square()
+    var = sq.mean(dim=1, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float()[None] + bias.float()[None]).to(x.dtype)
+    y = y * scale.float()[None] + bias.float()[None]
+    return y.to(x.dtype), mean.reshape(-1), var.reshape(-1)
 
 
-def _ln_bf16_entry():
-    """#1 on bf16 rows, as the bf16 predictor runs it: at [8192, 512] and
-    at the predictor's [PREDICT_ROWS, 512], y within one bf16 ulp of the
-    largest |plain| in at most BF16_SHARE of the elements, the fp32 mean
-    and variance within LN_TOL, a second launch the same bits; the
-    planted fault (the variance without the mean subtracted) must fail
-    the gate. Each shape timed beside the plain version, F.layer_norm in
-    bf16 and its bound (bytes / 3.35 TB/s)."""
-    bf = torch.bfloat16
-    res, errs, fault_ulps = {}, [], []
-    for n, d in ((BATCH * 1024, 512), (PREDICT_ROWS, 512)):
-        g = torch.Generator(device="cuda").manual_seed(90 + n)
-        x = (torch.randn(n, d, device="cuda", generator=g) * 3 + 0.5).to(bf)
-        s_, b_ = (torch.randn(d, device="cuda", generator=g).to(bf)
-                  for _ in range(2))
-        y, mean, var = KL.layer_norm(x, s_, b_, 1e-5)
-        y2 = KL.layer_norm(x, s_, b_, 1e-5)[0]
-        py, pmean, pvar = KL.layer_norm_plain(x, s_, b_, 1e-5)
-        bad = _ln_var_without_mean(x, s_, b_, 1e-5)
+def _ln_gate(got, want):
+    """#1's gate: (passes, measures). fp32: y, mean and var within LN_TOL
+    of the plain version; bf16: y within one bf16 ulp of the largest
+    |plain| in at most BF16_SHARE of the elements, mean and var (fp32)
+    within LN_TOL."""
+    (y, mean, var), (wy, wmean, wvar) = got, want
+    stat = max(max_err(mean, wmean), max_err(var, wvar))
+    finite = bool(torch.isfinite(y.float()).all())
+    if y.dtype == torch.bfloat16:
+        ulps, share = _bf16_ulps(y, wy)
+        return (finite and _bf16_ulp_ok(y, wy) and stat <= LN_TOL,
+                dict(ulps=ulps, share=share, stat_err=stat,
+                     max_abs_err=max_err(y, wy)))
+    err = max(max_err(y, wy), stat)
+    return finite and err <= LN_TOL, dict(max_abs_err=err)
+
+
+def _ln_plan_name(p):
+    if p.body == "block":
+        return "block"
+    return f"warp {p.vec_bytes}B x{p.loads} grid {p.grid}"
+
+
+def _ln_plans(x, s, b):
+    """The wrapper's plan for x (y on a fresh, aligned allocation) and
+    the plans to hold and time beside it: the warp body and the block
+    body (a block a row, the design the warp body replaced)."""
+    n, d = x.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = KL.ln_plan(n, d, x.dtype, (x.data_ptr(), 0, s.data_ptr(),
+                                        b.data_ptr()), sms)
+    return chosen, {"warp": chosen,
+                    "block": KL.LnPlan("block", x.element_size(), 0, n)}
+
+
+def _ln_empty_ms(blocks):
+    """An empty kernel's launch of `blocks` CTAs of 256 threads, timed as
+    the kernels are (back to back behind a sleep kernel)."""
+    fn = build.library("layer_norm").layer_norm_empty
+    fn.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run():
+        err = fn(blocks, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"layer_norm_empty: CUDA error {err}"
+    return time_ms(run, iters=50)
+
+
+def _ln_shape(n, d, dtype, step):
+    """#1 at [n, d] of `dtype`: every plan held against the plain version
+    (the gate, a second launch the same bits), the wrapper's launch
+    counted once; each plan, F.layer_norm and the plain version timed
+    warm, the plans and the library also cold (`time_cold_ms`); at a
+    decoder step (`step`) an empty launch of the plan's grid beside
+    them. The bound: bytes (x and y, scale and bias, mean and var) /
+    3.35 TB/s against 8 fp32 operations an element / 67 TFLOP/s."""
+    x, s, b = _ln_inputs(n, d, dtype, seed=n + d + (dtype == torch.bfloat16))
+    want = KL.layer_norm_plain(x, s, b, 1e-5)
+    chosen, plans = _ln_plans(x, s, b)
+    before = KL.layer_norm.launches
+    got = KL.layer_norm(x, s, b, 1e-5)
+    torch.cuda.synchronize()
+    assert KL.layer_norm.launches == before + 1
+    ok, gate = _ln_gate(got, want)
+    tag = f"layer_norm {str(dtype)[6:]} [{n},{d}]"
+    log(f"  {tag}: the wrapper's plan {_ln_plan_name(chosen)}; "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gate.items()))
+    assert ok, (tag, gate)
+    times = {}
+    for name, plan in plans.items():
+        one = KL.layer_norm_with(x, s, b, 1e-5, plan)
+        two = KL.layer_norm_with(x, s, b, 1e-5, plan)
         torch.cuda.synchronize()
-        ulps, share = _bf16_ulps(y, py)
-        stat = max(max_err(mean, pmean), max_err(var, pvar))
-        f_ulps, f_share = _bf16_ulps(bad, py)
-        log(f"  layer_norm bf16 [{n},{d}]: {ulps:.2f} ulp in {share:.4f} "
-            f"of the elements, mean/var max_abs_err {stat:.3e}; planted "
-            f"'variance without the mean subtracted' {f_ulps:.2f} ulp in "
-            f"{f_share:.4f}")
-        assert _bf16_ulp_ok(y, py) and stat <= LN_TOL, (ulps, share, stat)
-        assert torch.equal(y, y2), "layer_norm bf16: bits differ"
-        assert not _bf16_ulp_ok(bad, py), "the planted fault passed"
-        errs.append(max_err(y, py))
-        fault_ulps.append(f_ulps)
-        ms = time_ms(lambda: KL.layer_norm(x, s_, b_, 1e-5), iters=50)
-        plain_ms = time_ms(lambda: KL.layer_norm_plain(x, s_, b_, 1e-5),
-                           iters=50)
-        lib_ms = time_ms(lambda: torch.nn.functional.layer_norm(
-            x, (d,), s_, b_, 1e-5), iters=50)
-        bms, by = bound_ms(2 * (2 * n * d + 2 * d) + 4 * 2 * n, 8 * n * d)
-        log(f"  layer_norm bf16 [{n},{d}]: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library F.layer_norm {lib_ms:.4f} ms, "
-            f"bound {bms:.5f} ms ({by})")
-        res[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                      library_ms=lib_ms, shape=[n, d], ulps=ulps,
-                      share=share)
-    return dict(max_abs_err=max(errs), fault_ulps=min(fault_ulps),
-                **res[BATCH * 1024], predictor_rows=res[PREDICT_ROWS])
+        p_ok, p_gate = _ln_gate(one, want)
+        assert p_ok, (tag, name, p_gate)
+        assert all(torch.equal(u, v) for u, v in zip(one, two)), \
+            f"{tag} {name}: a second launch gave other bits"
+        run = functools.partial(KL.layer_norm_with, x, s, b, 1e-5, plan)
+        times[name] = dict(ms=time_ms(run, iters=50),
+                           cold_ms=time_cold_ms(run))
+    lib = functools.partial(torch.nn.functional.layer_norm, x, (d,), s, b,
+                            1e-5)
+    res = dict(shape=[n, d], dtype=str(dtype)[6:], plan=_ln_plan_name(chosen),
+               plans=times, library_ms=time_ms(lib, iters=50),
+               library_cold_ms=time_cold_ms(lib),
+               plain_ms=time_ms(lambda: KL.layer_norm_plain(x, s, b, 1e-5),
+                                iters=20), **gate)
+    res["ms"] = times["warp"]["ms"]
+    res["cold_ms"] = times["warp"]["cold_ms"]
+    item = x.element_size()
+    res["bound_ms"], res["bound_by"] = bound_ms(
+        item * (2 * n * d + 2 * d) + 4 * 2 * n, 8 * n * d)
+    if step:
+        res["empty_ms"] = _ln_empty_ms(chosen.grid)
+    log(f"  {tag}: " + ", ".join(
+        f"{k} {v['ms']:.4f} ms (cold {v['cold_ms']:.4f})"
+        for k, v in times.items())
+        + f"; F.layer_norm {res['library_ms']:.4f} ms (cold "
+        f"{res['library_cold_ms']:.4f}), plain {res['plain_ms']:.4f} ms, "
+        f"bound {res['bound_ms']:.5f} ms ({res['bound_by']})"
+        + (f", an empty launch of {chosen.grid} CTAs {res['empty_ms']:.4f}"
+           " ms" if step else ""))
+    return res, (x, s, b, chosen, want)
+
+
+def _ln_faults(x, s, b, want, faults):
+    """The planted faults must fail #1's gate; returns each one's
+    measures."""
+    out = {}
+    for fault in faults:
+        ok, gate = _ln_gate(_ln_fault(x, s, b, 1e-5, fault), want)
+        log(f"  layer_norm {str(x.dtype)[6:]} {list(x.shape)} planted "
+            f"fault '{fault}': " + ", ".join(
+                f"{k} {v:.3e}" for k, v in gate.items()) + " (must fail)")
+        assert not ok, f"the layer_norm gate passed the fault {fault}"
+        out[fault] = gate
+    return out
+
+
+def _ln_views():
+    """Row views off a 16-byte boundary take narrower loads and pass the
+    gate: x[1:] of [4097, 300] bf16 (8-byte loads), [4096, 512] at element
+    offsets 1 (bf16 2-byte, fp32 4-byte) and 2 (fp32 8-byte); on each a
+    forced 16-byte plan is refused."""
+    cases = (("x[1:] of [4097,300] bf16", 4097, 300, torch.bfloat16, 0, 8),
+             ("[4096,512] bf16 at element 1", 4096, 512, torch.bfloat16, 1,
+              2),
+             ("[4096,512] fp32 at element 1", 4096, 512, torch.float32, 1,
+              4),
+             ("[4096,512] fp32 at element 2", 4096, 512, torch.float32, 2,
+              8))
+    out = {}
+    for tag, n, d, dtype, offset, width in cases:
+        x, s, b = _ln_inputs(n, d, dtype, seed=7 + offset, offset=offset)
+        if offset == 0:
+            x = x[1:]
+        want = KL.layer_norm_plain(x, s, b, 1e-5)
+        chosen, _ = _ln_plans(x, s, b)
+        got = KL.layer_norm(x, s, b, 1e-5)
+        torch.cuda.synchronize()
+        ok, gate = _ln_gate(got, want)
+        refused = False
+        try:
+            KL.layer_norm_with(x, s, b, 1e-5,
+                               chosen._replace(vec_bytes=16))
+        except RuntimeError:
+            refused = True
+        log(f"  layer_norm {tag}: plan {_ln_plan_name(chosen)}; "
+            + ", ".join(f"{k} {v:.3e}" for k, v in gate.items())
+            + f"; a 16-byte plan refused {refused}")
+        assert ok and chosen.vec_bytes == width and refused, (tag, gate)
+        out[tag] = dict(plan=_ln_plan_name(chosen), **gate)
+    return out
+
+
+def _ln_entry():
+    """#1 at every shape of LN_BULK and LN_STEP, its planted faults, the
+    row views and the grids; the kernels line's entry (fp32 [8192, 512],
+    the decoder step [8, 512], bf16 [8192, 512] with the predictor's
+    rows) and the whole table for the log."""
+    table, fp32_errs, bf16_errs, fault_ulps = {}, [], [], []
+    faults = {}
+    for n, d, dtype in LN_BULK + tuple((n, d, torch.float32)
+                                       for n, d in LN_STEP):
+        step = (n, d) in LN_STEP
+        res, (x, s, b, chosen, want) = _ln_shape(n, d, dtype, step)
+        key = f"{str(dtype)[6:]} [{n},{d}]"
+        table[key] = res
+        (bf16_errs if dtype == torch.bfloat16 else fp32_errs).append(
+            res["max_abs_err"])
+        kinds = (("var",) if n == BATCH * 1024 else ()) + (
+            ("tail",) if d == 300 else ())
+        if kinds:
+            faults[key] = _ln_faults(x, s, b, want, kinds)
+            fault_ulps += [f["ulps"] for f in faults[key].values()
+                           if "ulps" in f]
+        if n == BATCH * 1024 and d == 512:
+            for k in LN_GRIDS:
+                plan = chosen._replace(grid=k * torch.cuda.get_device_properties(
+                    0).multi_processor_count)
+                one = KL.layer_norm_with(x, s, b, 1e-5, plan)
+                torch.cuda.synchronize()
+                assert _ln_gate(one, want)[0], (key, plan)
+                run = functools.partial(KL.layer_norm_with, x, s, b, 1e-5,
+                                        plan)
+                res["plans"][f"{k} CTAs an SM"] = dict(
+                    ms=time_ms(run, iters=50), cold_ms=time_cold_ms(run))
+            log(f"  layer_norm {key}: the chosen plan at 1 / "
+                f"{KL.CTAS_PER_SM} / 4 CTAs an SM: " + " / ".join(
+                    f"{res['plans'][f'{k} CTAs an SM']['ms']:.4f}"
+                    if k != KL.CTAS_PER_SM else f"{res['ms']:.4f}"
+                    for k in sorted(LN_GRIDS + (KL.CTAS_PER_SM,))) + " ms")
+        del x, s, b, want
+    views = _ln_views()
+    log(json.dumps({"layer_norm_plans": table, "faults": faults,
+                    "views": views}))
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    main = table[f"float32 [{BATCH * 1024},512]"]
+    bf16 = table[f"bfloat16 [{BATCH * 1024},512]"]
+    pred = table[f"bfloat16 [{PREDICT_ROWS},512]"]
+    return dict(max_abs_err=max(fp32_errs),
+                **{k: main[k] for k in keep},
+                decoder_step={k: table[f"float32 [{BATCH},512]"][k]
+                              for k in keep},
+                bf16=dict(max_abs_err=max(bf16_errs),
+                          fault_ulps=min(fault_ulps),
+                          ulps=bf16["ulps"], share=bf16["share"],
+                          **{k: bf16[k] for k in keep},
+                          predictor_rows=dict(
+                              ulps=pred["ulps"], share=pred["share"],
+                              **{k: pred[k] for k in keep})))
 
 
 def _qkv(b, h, tq, tk, d, seed):
@@ -1964,34 +2172,7 @@ def _paged_entries():
 
 
 def phase_kernels():
-    entries = {}
-    # layer_norm: encoder rows at prompt 1024, a decoder step, ragged D
-    errs = []
-    timed = {}
-    for n, d in ((BATCH * 1024, 512), (BATCH, 512), (BATCH * 512, 300)):
-        x, s, b, err = _ln_case(n, d, seed=n + d)
-        log(f"  layer_norm [{n},{d}]: max_abs_err {err:.3e} "
-            f"(tol {LN_TOL:g})")
-        assert err <= LN_TOL, err
-        errs.append(err)
-        if d != 512:
-            continue
-        ms = time_ms(lambda: KL.layer_norm(x, s, b, 1e-5), iters=50)
-        plain_ms = time_ms(lambda: KL.layer_norm_plain(x, s, b, 1e-5),
-                           iters=50)
-        lib_ms = time_ms(lambda: torch.nn.functional.layer_norm(
-            x, (d,), s, b, 1e-5), iters=50)
-        nbytes = 4 * (2 * n * d + 2 * d + 2 * n)
-        bms, by = bound_ms(nbytes, 8 * n * d)
-        log(f"  layer_norm [{n},{d}]: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library F.layer_norm {lib_ms:.4f} ms, "
-            f"bound {bms:.5f} ms ({by})")
-        timed[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                        bound_by=by, library_ms=lib_ms, shape=[n, d])
-    entries["layer_norm"] = dict(max_abs_err=max(errs),
-                                 **timed[BATCH * 1024],
-                                 decoder_step=timed[BATCH],
-                                 bf16=_ln_bf16_entry())
+    entries = {"layer_norm": _ln_entry()}
     entries["sdpa_short"] = _attn_entry(
         "sdpa_short", KA.sdpa_short, KA.sdpa_short_plain,
         [(BATCH, 8, 512, 512, 64, False), (BATCH, 8, 512, 512, 64, True)],

@@ -570,6 +570,97 @@ def test_layer_norm_kernel_bf16(cuda):
     torch.testing.assert_close(var, wvar, rtol=0, atol=ATOL)
 
 
+def _ln_forced_plans(x, s, b):
+    """Every plan #1 can take at x's shape: the wrapper's (`ln_plan`'s),
+    the warp body with each narrower load width, on one CTA an SM, and
+    the block body (a block a row)."""
+    n, d = x.shape
+    item = x.element_size()
+    ptrs = (x.data_ptr(), 0, s.data_ptr(), b.data_ptr())
+    chosen = KL.ln_plan(n, d, x.dtype, ptrs)
+    plans = {"chosen": chosen, "block": KL.LnPlan("block", item, 0, n)}
+    if chosen.body == "block":
+        return plans
+    plans["1 CTA an SM"] = chosen._replace(grid=min(chosen.grid, 132))
+    width = chosen.vec_bytes // 2
+    while width >= item:
+        plans[f"{width}B"] = KL.ln_plan(n, d, x.dtype, (width,))._replace(
+            grid=chosen.grid)
+        width //= 2
+    return plans
+
+
+def _ln_agrees(got, want):
+    y, mean, var = got
+    wy, wmean, wvar = want
+    torch.testing.assert_close(mean, wmean, rtol=0, atol=ATOL)
+    torch.testing.assert_close(var, wvar, rtol=0, atol=ATOL)
+    if y.dtype == torch.bfloat16:
+        assert _bf16_passes(y, wy)
+    else:
+        torch.testing.assert_close(y, wy, rtol=0, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,dtype", [
+    (8192, 512, torch.float32), (32768, 512, torch.float32),
+    (8, 512, torch.float32), (9, 512, torch.float32),
+    (17, 512, torch.float32), (85, 512, torch.float32),
+    (17, 256, torch.float32), (4096, 256, torch.float32),
+    (1, 512, torch.float32), (4096, 300, torch.float32),
+    (8192, 512, torch.bfloat16), (4096, 512, torch.bfloat16),
+    (33, 300, torch.bfloat16), (7, 511, torch.bfloat16),
+    (3000, 1024, torch.float32),
+    (5, 1023, torch.bfloat16), (6, 1025, torch.float32),
+    (3, 2048, torch.bfloat16)])
+def test_layer_norm_kernel_each_plan_matches_plain(cuda, n, d, dtype):
+    """#1 on every plan it can take, forced through the wrapper: against
+    the plain version (fp32 1e-5; bf16 one ulp of the largest |plain| in
+    at most 5%, mean and var 1e-5), the same bits on a second launch, one
+    launch counted each."""
+    g = torch.Generator().manual_seed(n + d)
+    x = (torch.randn(n, d, generator=g) * 3 + 0.5).to(cuda, dtype)
+    s, b = (torch.randn(d, generator=g).to(cuda, dtype) for _ in range(2))
+    want = KL.layer_norm_plain(x, s, b)
+    for name, plan in _ln_forced_plans(x, s, b).items():
+        before = KL.layer_norm.launches
+        one = KL.layer_norm_with(x, s, b, 1e-5, plan)
+        two = KL.layer_norm_with(x, s, b, 1e-5, plan)
+        torch.cuda.synchronize()
+        assert KL.layer_norm.launches == before + 2, name
+        _ln_agrees(one, want)
+        assert all(torch.equal(u, v) for u, v in zip(one, two)), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,dtype,offset,width", [
+    (4097, 300, torch.bfloat16, None, 8),   # x[1:]
+    (4096, 512, torch.bfloat16, 1, 2), (4096, 512, torch.float32, 1, 4),
+    (4096, 512, torch.float32, 2, 8), (17, 512, torch.float32, 3, 4)])
+def test_layer_norm_kernel_on_row_views_off_16_bytes(cuda, n, d, dtype,
+                                                     offset, width):
+    """A row view off a 16-byte boundary (x[1:] of [4097, 300] bf16, or x
+    `offset` elements into its storage) takes the narrower loads its
+    address allows and agrees with the plain version; a forced 16-byte
+    plan on it is refused before any launch (no count)."""
+    g = torch.Generator().manual_seed(n + d)
+    flat = (torch.randn((offset or 0) + n * d, generator=g) * 3 + 0.5).to(
+        cuda, dtype)
+    if offset is None:
+        x = flat.view(n, d)[1:]
+    else:
+        x = flat[offset:].view(n, d)
+    s, b = (torch.randn(d, generator=g).to(cuda, dtype) for _ in range(2))
+    plan = KL.ln_plan(*x.shape, dtype, (x.data_ptr(), 0, s.data_ptr(),
+                                         b.data_ptr()))
+    assert plan.vec_bytes == width
+    _ln_agrees(KL.layer_norm(x, s, b), KL.layer_norm_plain(x, s, b))
+    before = KL.layer_norm.launches
+    with pytest.raises(RuntimeError):
+        KL.layer_norm_with(x, s, b, 1e-5, plan._replace(vec_bytes=16))
+    assert KL.layer_norm.launches == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,t,d,causal", [
     (2, 8, 512, 64, False), (2, 8, 512, 64, True), (1, 4, 300, 128, True),
