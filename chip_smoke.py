@@ -379,6 +379,29 @@ Phases (a failing phase fails the script; none is caught):
    acceptance test); every divergence printed. Walls, tokens/s, idle
    shares (each wave under torch.profiler), acceptance, emitted a
    verify and the rungs' dispatch shares of every leg.
+15. front door (after phase 11): Transformer-base on phase 9's
+   geometry. Streamed: 16 streamed submits on the paged server (7 of
+   phase 12's session rows twice, a chat session's two turns; phase 12's
+   weights) and 12 on the dense one (8 streams, 4 stream_cb), each
+   stream equal to its whole-response row's generated region, each row
+   to a whole-response wave's on a fresh server, no PreparedProgram
+   built; the streamed TTFT p50 beside the whole response's latency p50;
+   a stream cancelled after its first burst and one past its deadline
+   (phase 9's weights: typed errors, the pool back where it started,
+   both flight-recorder incidents); 4 streams of the n-gram speculative
+   bundle. admit_select: 8 prompts of different lengths admitted longest
+   first, the FIFO server's rows. Buckets: InferenceServer over a
+   Transformer-base encoder forward fed [-1, -1] ids and positions,
+   seq_buckets (512, 1024), batch buckets (1, 2, 4): aot_warmup builds
+   6, 32 requests of 300-1024 tokens build none, two replies within 1e-5
+   of the largest |CPU value| at their bucket, a select_group hook's
+   longer bucket first (#5 and #2). Observability: the same dense wave
+   (8 prompts, 32 tokens out) at off, metrics and trace, interleaved, 5
+   each, under torch.profiler: median walls and idle shares;
+   expected_service_ms set after the first metrics wave; the calibrated
+   bursts' expected and actual tick times; dump_trace's chrome JSON, one
+   span tree a request; expose() lists every live server's families,
+   the speculative ones too.
 
 The script prints its whole wall time; the second-to-last line lists
 the kernels as JSON, each with its launches on the serving (`served`),
@@ -394,7 +417,8 @@ chunked, monolithic and worker-fed legs), sampled emission
 included) and predictor
 (`served_predictor`, phase 11's
 timed runs and served requests; `served_predictor_bf16`: the bf16
-launches among them) paths; the last
+launches among them) and front-door (`served_frontdoor`, phase 15)
+paths; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result.
 """
@@ -6775,6 +6799,661 @@ def phase_predict(card_name, card):
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the front door (streamed replies, admit_select, sequence
+# buckets with AOT warm-up) and its observability
+# ---------------------------------------------------------------------------
+FRONT_KERNELS = RADIX_KERNELS
+# the streamed legs run on phase 12's weights (its session rows end on
+# end_id, so a wave is short), their servers' bursts steps_per_tick long
+# also when the queue is empty (drain_steps): the paged wave streams 7 rows twice (the
+# repeats admit through the prefix cache or the radix tier) and a chat
+# session's two turns on the 8th; the dense wave streams the 8 rows and
+# sends the first FRONT_CB of them again with a stream_cb
+FRONT_SESSION_ROW = RADIX_SESSION_ROWS[-1]
+FRONT_PLAIN_ROWS = RADIX_SESSION_ROWS[:-1] * 2
+FRONT_CB = 4
+# the teardowns run on phase 9's weights (no end_id: 255 tokens, ~32
+# bursts); the deadline expires a few bursts in
+FRONT_DEADLINE_MS = 1000.0
+# the admit_select and observability legs: a dense bundle of 8 lanes at
+# MODEL's 32 tokens out, prompts of 256 on phase 9's weights
+FRONT_LANES = 8
+FRONT_OBS_ROUNDS = 5
+FRONT_LEVELS = ("off", "metrics", "trace")
+# the buckets leg: a Transformer-base encoder forward fed [-1, -1]
+# source ids and positions
+FRONT_SEQ_BUCKETS = (512, 1024)
+FRONT_BATCH_BUCKETS = (1, 2, 4)
+FRONT_REQUESTS = 32
+FRONT_LENGTHS = (300, 1024)
+FRONT_TOL = 1e-5     # phase 11's gate, relative to the largest |CPU value|
+# the speculative leg: the n-gram proposer (bench.py's) over 4 lanes
+FRONT_SPEC_LANES = 4
+
+
+def _front_programs():
+    """Phase 15's own programs: the dense bundle of the admit_select and
+    observability legs (FRONT_LANES lanes, prompts of 256, MODEL's 32
+    tokens out), the n-gram speculative bundle (paged, FRONT_SPEC_LANES
+    lanes, 32 tokens out) and the buckets leg's encoder forward (main,
+    startup, output)."""
+    cfg = dict(MODEL, seq_len=PAGED["seq_len"])
+    with unique_name.guard():
+        dense = decode_engine.build_decode_step_program(
+            n_slots=FRONT_LANES, state_prefix="@fd/", **cfg)
+    pages = cfg["max_out_len"] // PAGED["block_size"]
+    cache = decode_engine.CacheConfig(
+        layout="paged", block_size=PAGED["block_size"],
+        n_blocks=2 * FRONT_SPEC_LANES * pages,
+        n_prompt_entries=FRONT_SPEC_LANES)
+    with unique_name.guard():
+        ngram = decode_engine.build_decode_step_program(
+            n_slots=FRONT_SPEC_LANES, state_prefix="@fn/", cache=cache,
+            draft=decode_engine.DraftConfig(**SPEC_NGRAM), **cfg)
+    main, startup = pf.Program(), pf.Program()
+    d = MODEL["d_model"]
+    with unique_name.guard(), pf.program_guard(main, startup):
+        src = pf.layers.data("src_ids", shape=[-1], dtype="int64")
+        pos = pf.layers.data("src_pos", shape=[-1], dtype="int64")
+        x = pf.layers.elementwise_add(
+            pf.layers.scale(pf.layers.embedding(
+                src, size=[MODEL["vocab"], d],
+                param_attr=pf.ParamAttr(name="src_word_emb")),
+                scale=d ** 0.5),
+            pf.layers.embedding(
+                pos, size=[FRONT_SEQ_BUCKETS[-1], d],
+                param_attr=pf.ParamAttr(name="src_pos_enc")))
+        for li in range(MODEL["n_layers"]):
+            x = transformer.encoder_layer(
+                x, d, MODEL["n_heads"], MODEL["d_inner"], 0.0, True,
+                name=f"enc{li}")
+    return dense, ngram, (main, startup, x)
+
+
+def _gen_len(row):
+    return int(serving.count_generated_tokens(np.asarray(row)[None],
+                                              MODEL["end_id"])[0])
+
+
+def _stream_ok(tag, reply, seqs, toks, row):
+    """One streamed reply's byte parity: its tokens are the generated
+    region row[1:1+n] of its whole-response row, its sequence numbers run
+    from 0 and its finish reason agrees with the row."""
+    row = np.asarray(row)
+    n = _gen_len(row)
+    assert seqs == list(range(len(seqs))), (tag, seqs[:8])
+    assert toks == [int(t) for t in row[1:1 + n]], (tag, toks[:8], row[:9])
+    fin = "eos" if n < row.shape[0] and row[n] == MODEL["end_id"] \
+        else "length"
+    assert reply.finish_reason == fin, (tag, reply.finish_reason, fin)
+
+
+def _ms_list(xs, digits=1):
+    return " / ".join(f"{x:.{digits}f}" for x in xs)
+
+
+def _drain_stream(reply):
+    seqs, toks = [], []
+    for seq, tok in reply:
+        seqs.append(seq)
+        toks.append(tok)
+    return seqs, toks
+
+
+class _CbStream:
+    """A stream_cb: keeps every call (chunk, first_seq, finish reason)
+    and the instant of the first."""
+
+    def __init__(self):
+        self.calls = []
+        self.t_first = None
+
+    def __call__(self, chunk, first_seq, fin):
+        if self.t_first is None and len(chunk):
+            self.t_first = time.monotonic()
+        self.calls.append((np.asarray(chunk).copy(), int(first_seq), fin))
+
+    def check(self, tag, row):
+        """The callback form's contract: data chunks tile the sequence
+        numbers from 0, the last call is empty and carries the finish
+        reason, and together they are the row's generated region."""
+        *chunks, (tail, tail_seq, fin) = self.calls
+        toks, seq = [], 0
+        for chunk, first_seq, cfin in chunks:
+            assert cfin is None and first_seq == seq, (tag, first_seq, seq)
+            seq += len(chunk)
+            toks += [int(t) for t in chunk]
+        row = np.asarray(row)
+        n = _gen_len(row)
+        assert tail.size == 0 and tail_seq == n, (tag, tail_seq, n)
+        assert toks == [int(t) for t in row[1:1 + n]], tag
+        assert fin == ("eos" if n < row.shape[0]
+                       and row[n] == MODEL["end_id"] else "length"), fin
+
+
+def _front_submit(srv, prompt, mode, kw):
+    """A submit as `mode` says: "stream" (a StreamingReply), "cb" (a
+    stream_cb) or "plain". Returns (the future, the stream or None)."""
+    if mode == "stream":
+        rep = srv.submit(prompt, stream=True, **kw)
+        return rep._future, rep
+    if mode == "cb":
+        cb = _CbStream()
+        return srv.submit(prompt, stream_cb=cb, **kw), cb
+    return srv.submit(prompt, **kw), None
+
+
+def _front_streamed(tag, make, subs, turn2=None):
+    """One streamed leg: `subs` ((prompt, mode, submit keywords)) queued
+    on a fresh server built with start=False, which then starts; then
+    `turn2` ((prompt, keywords), a session's next turn, streamed when the
+    wave is). Four waves, each on a fresh server: whole-response,
+    streamed, streamed, whole-response (a wave's first run pays for the
+    process's first use of its shapes, so the order is balanced). Each
+    stream is held to its own row, each row to the first wave's, and no
+    wave may build a PreparedProgram. Returns the leg's numbers: each
+    streamed wave's first tokens and each whole-response wave's replies,
+    in ms from the wave's start."""
+    rows, res = [], dict(stream_ttft_ms=[], whole_latency_ms=[],
+                         stream_wall_s=[], plain_wall_s=[])
+    for streamed in (False, True, True, False):
+        srv = make()
+        # the cost model counts a serve program at its first lookup: count
+        # them all now, not inside the wave's dispatches
+        for prog in srv.bundle.serves.values():
+            pf.observability.costmodel.lookup(prog)
+        n_prep = srv.executor.prepare_count
+        done = [None] * len(subs)
+        futs, streams = [], []
+        for i, (p, mode, kw) in enumerate(subs):
+            fut, st = _front_submit(srv, p, mode if streamed else "plain",
+                                    kw)
+            fut.add_done_callback(
+                lambda f, i=i: done.__setitem__(i, time.monotonic()))
+            futs.append(fut)
+            streams.append(st)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        srv.start()
+        got = [np.asarray(f.result(timeout=600)) for f in futs]
+        wall = time.monotonic() - t0
+        if turn2 is not None:
+            fut, st = _front_submit(srv, turn2[0],
+                                    "stream" if streamed else "plain",
+                                    turn2[1])
+            got.append(np.asarray(fut.result(timeout=600)))
+            streams.append(st)
+        assert srv.executor.prepare_count == n_prep, \
+            f"{tag}: a wave built a PreparedProgram"
+        tokens = srv.stats()["tokens"]
+        srv.close()
+        rows.append(got)
+        if streamed:
+            for i, (s, row) in enumerate(zip(streams, got)):
+                if isinstance(s, _CbStream):
+                    s.check(f"{tag} cb {i}", row)
+                else:
+                    _stream_ok(f"{tag} {i}", s, *_drain_stream(s), row)
+            res["stream_ttft_ms"].append(float(np.median(
+                [(s.t_first - t0) * 1e3 for s in streams[:len(subs)]])))
+            res["stream_wall_s"].append(wall)
+        else:
+            res["whole_latency_ms"].append(float(np.median(
+                [(t - t0) * 1e3 for t in done])))
+            res["plain_wall_s"].append(wall)
+        res["tokens"] = tokens
+    for w, got in enumerate(rows[1:], 1):
+        for i, (a, b) in enumerate(zip(got, rows[0])):
+            assert (a == b).all(), f"{tag}: wave {w} moved row {i}"
+    res["submits"] = len(rows[0])
+    res["generated"] = [_gen_len(r) for r in rows[0]]
+    return res
+
+
+def _front_teardown(paged, gpu, gscope, prompts):
+    """A live stream cancelled after its first burst and a live one past
+    its deadline, on a paged server over phase 9's weights: each ends
+    with its typed error and its finish reason, the pool comes back to
+    where it started, and both are flight-recorder incidents."""
+    srv = serving.PagedContinuousGenerationServer(
+        paged, executor=gpu, scope=gscope,
+        steps_per_tick=PAGED["steps_per_tick"],
+        drain_steps=PAGED["steps_per_tick"], radix_reuse=False)
+    try:
+        ps0 = srv.pool_stats()
+        a = srv.submit(prompts[0], stream=True)
+        first = next(a)  # the first burst landed: the lane is live
+        assert first[0] == 0 and a.cancel()
+        seqs, toks = _drain_stream(a)
+        try:
+            a.result(timeout=60)
+            raise AssertionError("a cancelled stream returned a row")
+        except serving.RequestCancelled:
+            pass
+        assert a.finish_reason == "cancelled", a.finish_reason
+        n_a = 1 + len(toks)
+        b = srv.submit(prompts[1], stream=True,
+                       deadline_ms=FRONT_DEADLINE_MS)
+        seqs, toks = _drain_stream(b)
+        try:
+            b.result(timeout=60)
+            raise AssertionError("an expired stream returned a row")
+        except serving.DeadlineExceeded:
+            pass
+        assert b.finish_reason == "deadline", b.finish_reason
+        assert 0 < len(toks) < PAGED["max_out_len"] - 1, len(toks)
+        assert srv.drain(timeout=60)
+        ps = srv.pool_stats()
+        for k in ("blocks_in_use", "prompt_entries_in_use"):
+            assert ps[k] == ps0[k], (k, ps[k], ps0[k])
+        st = srv.stats()
+        assert st["cancelled"] == 1 and st["deadline_expired"] == 1, st
+        inc = [e for e in pf.observability.incident_report()["incidents"]
+               if e.get("server") == srv._obs_id]
+        reasons = sorted(e.get("reason") for e in inc)
+        assert reasons == ["cancelled", "deadline"], reasons
+    finally:
+        srv.close()
+    log(f"front door, teardown: a stream cancelled after {n_a} tokens and "
+        f"one expired after {len(toks)} ({FRONT_DEADLINE_MS:.0f} ms), both "
+        f"typed, both incidents; blocks in use {ps['blocks_in_use']} and "
+        f"prompt entries {ps['prompt_entries_in_use']} as at the start")
+    return dict(cancelled_after=n_a, expired_after=len(toks),
+                incidents=len(inc))
+
+
+def _front_admit_select(dense, gpu, gscope, cands):
+    """admit_select: 8 prompts of different lengths (end_id past the
+    length) queued on a dense server with a longest-first hook. The slots
+    they took (their traces' queue spans) must follow the hook's order,
+    and their rows equal a FIFO server's."""
+    lengths = [PAGED["seq_len"] * (8 - i) // 8
+               for i in (3, 0, 6, 1, 5, 2, 7, 4)]
+    prompts = cands[:FRONT_LANES].copy()
+    for p, n in zip(prompts, lengths):
+        p[n:] = MODEL["end_id"]
+
+    def longest(queue):
+        return max(range(len(queue)), key=lambda i: int(
+            (queue[i].src != MODEL["end_id"]).sum()))
+
+    rows = {}
+    for hook in (longest, None):
+        srv = serving.ContinuousGenerationServer(
+            dense, executor=gpu, scope=gscope, admit_select=hook,
+            steps_per_tick=PAGED["steps_per_tick"], start=False)
+        reps = [srv.submit(p) for p in prompts]
+        srv.start()
+        rows[hook is None] = np.stack([r.result(timeout=600) for r in reps])
+        if hook is not None:
+            slot = [next(s.attrs["slot"] for s in r._gen_req.trace.spans
+                         if s.name == "slotpool.queue") for r in reps]
+            order = [lengths[i] for i in np.argsort(slot)]
+            assert order == sorted(lengths, reverse=True), order
+        srv.close()
+    assert (rows[True] == rows[False]).all(), \
+        "admit_select moved a token"
+    log(f"front door, admit_select: 8 prompts of {sorted(lengths)} tokens "
+        f"admitted longest first (slots 0-7 in the hook's order); rows "
+        f"equal the FIFO server's")
+    return dict(lengths=lengths)
+
+
+def _front_observability(dense, gpu, gscope, cands, card_name, card):
+    """The same dense wave (8 prompts, 32 tokens out, bursts of
+    steps_per_tick ticks) at each observability level, interleaved,
+    FRONT_OBS_ROUNDS times each, every wave under torch.profiler (device
+    activities only): the median wall and idle share a level; the rows
+    may not move. The cost model
+    calibrates on the metrics and trace waves: expected_service_ms is
+    set after the first, and the trace waves' bursts carry expected
+    against actual tick times."""
+    srv = serving.ContinuousGenerationServer(
+        dense, executor=gpu, scope=gscope,
+        steps_per_tick=PAGED["steps_per_tick"],
+        drain_steps=PAGED["steps_per_tick"])
+    pf.set_flags({"FLAGS_observability": "metrics"})
+    for prog in dense.serves.values():
+        pf.observability.costmodel.lookup(prog)
+    prompts = cands[FRONT_LANES:2 * FRONT_LANES]
+    walls = {lv: [] for lv in FRONT_LEVELS}
+    idle = {lv: [] for lv in FRONT_LEVELS}
+    ref = None
+    expected = None
+    for rnd in range(FRONT_OBS_ROUNDS):
+        for lv in FRONT_LEVELS:
+            pf.set_flags({"FLAGS_observability": lv})
+
+            def wave():
+                reps = [srv.submit(p) for p in prompts]
+                return np.stack([r.result(timeout=600) for r in reps])
+
+            rows, prof = _device_profile(
+                f"front door, {lv} wave {rnd + 1}", wave, host=False)
+            walls[lv].append(prof["profiled_wall_ms"])
+            idle[lv].append(prof["idle_share"])
+            if ref is None:
+                ref = rows
+            assert (rows == ref).all(), f"{lv}: the wave's rows moved"
+            if lv == "metrics" and expected is None:
+                expected = srv.expected_service_ms()
+                assert expected is not None, \
+                    "expected_service_ms() is None after a metrics wave"
+    pf.set_flags({"FLAGS_observability": "off"})
+    res = {lv: dict(wall_ms=float(np.median(walls[lv])),
+                    walls_ms=walls[lv],
+                    idle_share=float(np.median(idle[lv]))
+                    if None not in idle[lv] else None)
+           for lv in FRONT_LEVELS}
+    bursts = []
+    for tr in pf.observability.TRACER.completed:
+        if tr.attrs.get("server") != srv._obs_id:
+            continue
+        for s in tr.spans:
+            if s.name == "slotpool.dispatch" \
+                    and "tick_time_ratio" in s.attrs:
+                bursts.append((s.attrs["expected_tick_ms"],
+                               s.attrs["actual_tick_ms"],
+                               s.attrs["tick_time_ratio"]))
+    bursts = sorted(set(bursts))
+    assert bursts, "no calibrated burst in the trace waves"
+    ratios = [b[2] for b in bursts]
+    res.update(expected_service_ms=srv.expected_service_ms(),
+               expected_service_ms_first=expected,
+               calibrated_bursts=len(bursts),
+               expected_tick_ms=[b[0] for b in bursts],
+               actual_tick_ms=[b[1] for b in bursts],
+               tick_time_ratio=dict(min=min(ratios),
+                                    p50=float(np.median(ratios)),
+                                    max=max(ratios)))
+    for lv in FRONT_LEVELS:
+        log(f"front door, observability {lv}: wave wall median "
+            f"{res[lv]['wall_ms']:.1f} ms ({', '.join(f'{w:.1f}' for w in walls[lv])}), "
+            f"idle share median {res[lv]['idle_share']} on {card_name} "
+            f"({card})")
+    log(f"front door, cost model: {len(bursts)} calibrated bursts, "
+        f"expected tick {min(res['expected_tick_ms']):.3f}-"
+        f"{max(res['expected_tick_ms']):.3f} ms against actual "
+        f"{min(res['actual_tick_ms']):.3f}-{max(res['actual_tick_ms']):.3f}, "
+        f"tick_time_ratio {res['tick_time_ratio']}; expected_service_ms "
+        f"{expected:.1f} after the first metrics wave, "
+        f"{res['expected_service_ms']:.1f} at the end")
+    return srv, res
+
+
+def _front_trace_tree(path):
+    """dump_trace's chrome JSON: every request's spans form one tree
+    (one root, every parent a span of the same request). Returns the
+    number of requests."""
+    pf.observability.dump_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    by_req = {}
+    for e in trace["traceEvents"]:
+        if e.get("pid") == 1 and e.get("ph") == "X":
+            by_req.setdefault(e["args"]["request_id"], []).append(e)
+    assert by_req, "dump_trace holds no request"
+    for rid, evs in by_req.items():
+        ids = {e["args"]["span"] for e in evs}
+        roots = [e for e in evs if e["args"]["parent"] is None]
+        assert len(roots) == 1 and roots[0]["name"] == "request", \
+            (rid, [e["name"] for e in roots])
+        assert all(e["args"]["parent"] in ids for e in evs
+                   if e["args"]["parent"] is not None), rid
+        assert len(evs) > 1, (rid, "a root alone")
+    return len(by_req)
+
+
+def _front_buckets(enc, gpu, card_name, card):
+    """InferenceServer over a ProgramRunner of the Transformer-base
+    encoder forward (source ids and positions fed [-1, -1]) with
+    seq_buckets FRONT_SEQ_BUCKETS and batch buckets FRONT_BATCH_BUCKETS:
+    aot_warmup builds the 6 PreparedPrograms, FRONT_REQUESTS requests of
+    FRONT_LENGTHS tokens build none, two replies (one a bucket) agree
+    with the CPU port at the same bucket, and a select_group hook that
+    prefers the longer bucket is dispatched first. Launches #5 (bucket
+    512) and #2 (1024)."""
+    main, startup, out = enc
+    startup.random_seed = SEED + 15
+    scope = pf.Scope()
+    gpu.run(startup, scope=scope)
+    table = transformer._position_encoding(FRONT_SEQ_BUCKETS[-1],
+                                           MODEL["d_model"])
+    pf.load_numpy_params(scope, {"src_pos_enc": table}, gpu.device)
+    params = [v.name for v in startup.global_block.vars.values()
+              if v.persistable]
+    cscope = pf.Scope()
+    pf.load_numpy_params(cscope, pf.scope_to_numpy(scope, params),
+                         pf.CPUPlace())
+    feeds = ["src_ids", "src_pos"]
+    runner = serving.ProgramRunner(main, feeds, [out.name], executor=gpu,
+                                   scope=scope)
+    srv = serving.InferenceServer(
+        runner, max_batch_size=FRONT_BATCH_BUCKETS[-1], max_wait_ms=5.0,
+        batch_buckets=FRONT_BATCH_BUCKETS, seq_buckets=FRONT_SEQ_BUCKETS)
+    _zero_launches()
+    t0 = time.monotonic()
+    warmed = srv.aot_warmup()
+    warm_s = time.monotonic() - t0
+    assert warmed == len(FRONT_SEQ_BUCKETS) * len(FRONT_BATCH_BUCKETS), \
+        warmed
+    rng = np.random.RandomState(SEED + 15)
+    lengths = rng.randint(FRONT_LENGTHS[0], FRONT_LENGTHS[1] + 1,
+                          FRONT_REQUESTS)
+    lengths[:2] = (FRONT_LENGTHS[0], FRONT_LENGTHS[1])  # one a bucket
+    reqs = [{"src_ids": rng.randint(2, MODEL["vocab"], (1, n)).astype(
+        np.int64), "src_pos": np.arange(n, dtype=np.int64)[None]}
+        for n in lengths]
+    n_prep = gpu.prepare_count
+    t0 = time.monotonic()
+    replies = [srv.submit(r) for r in reqs]
+    outs = [r.result(timeout=600)[0] for r in replies]
+    wall = time.monotonic() - t0
+    counts = _launch_counts()
+    st = srv.stats()
+    srv.close()
+    assert gpu.prepare_count == n_prep, "a bucketed request built a program"
+    assert counts["sdpa_short"] > 0 and counts["flash_attention"] > 0, \
+        counts
+    cpu = pf.Executor(pf.CPUPlace())
+    errs = []
+    for i in range(2):
+        bucket = next(b for b in FRONT_SEQ_BUCKETS if lengths[i] <= b)
+        feed = {k: np.pad(v, ((0, 0), (0, bucket - lengths[i])))
+                for k, v in reqs[i].items()}
+        want = cpu.run(main, feed=feed, fetch_list=[out], scope=cscope)[0]
+        assert outs[i].shape == want.shape, (outs[i].shape, want.shape)
+        err = float(np.abs(outs[i] - want).max() / np.abs(want).max())
+        assert err <= FRONT_TOL, (bucket, err)
+        errs.append(err)
+    # select_group: two groups queued, the shorter bucket first; the hook
+    # picks the longer, whose reply completes first
+    order = []
+    hooked = serving.InferenceServer(
+        runner, max_batch_size=FRONT_BATCH_BUCKETS[-1], max_wait_ms=5.0,
+        batch_buckets=FRONT_BATCH_BUCKETS, seq_buckets=FRONT_SEQ_BUCKETS,
+        select_group=lambda groups: max(groups, key=lambda k: k[0][1][0]),
+        start=False)
+    for i in range(2):
+        hooked.submit(reqs[i]).add_done_callback(
+            lambda f, i=i: order.append(lengths[i]))
+    hooked.start()
+    assert hooked.drain(timeout=120)
+    hooked.close()
+    assert order == [lengths[1], lengths[0]], order
+    assert gpu.prepare_count == n_prep
+    log(f"front door, buckets: aot_warmup built {warmed} PreparedPrograms "
+        f"in {warm_s:.1f} s; {FRONT_REQUESTS} requests of "
+        f"{lengths.min()}-{lengths.max()} tokens built none, in "
+        f"{wall:.2f} s ({st['batches']} batches, occupancy "
+        f"{st['batch_occupancy']}, p50 {st['latency_ms']['p50']} ms); "
+        f"against the CPU at buckets {FRONT_SEQ_BUCKETS}: {errs} of the "
+        f"largest |value|; select_group dispatched {order[0]} tokens "
+        f"first; launches {counts} on {card_name} ({card})")
+    return srv, counts, dict(warmed=warmed, warm_s=warm_s, wall_s=wall,
+                        batches=st["batches"],
+                        occupancy=st["batch_occupancy"],
+                        p50_ms=st["latency_ms"]["p50"], rel_err=errs,
+                        launches=counts)
+
+
+def phase_frontdoor(card_name, card):
+    """Phase 15, the front door and its observability on Transformer-base
+    (phase 9's bundles and geometry, phase 12's weights for the streamed
+    legs, phase 9's for the rest). (1) Streamed: 16 streamed submits on
+    the paged server (14 plain, a chat session's two turns) and 12 on the
+    dense one (8 streams, FRONT_CB stream_cb), each stream equal to its
+    row's generated region and each row to the plain wave's, no
+    PreparedProgram built; then a stream cancelled mid-decode and one past
+    its deadline: typed errors, the pool back where it was, two
+    incidents; the n-gram speculative bundle streams 4. (2) admit_select:
+    the hook's admission order, the FIFO rows. (3) Buckets: aot_warmup
+    6, 32 requests build nothing, the CPU at each bucket, select_group.
+    (4) Observability: the dense wave at off, metrics and trace,
+    interleaved, FRONT_OBS_ROUNDS each: median walls and idle shares;
+    dump_trace's request trees; expose() lists every server's families,
+    the speculative ones too. Returns (launches by kernel over the
+    phase, results)."""
+    t_phase = time.monotonic()
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    paged, dense, _, startup, _ = _paged_programs()
+    fdense, ngram, enc = _front_programs()
+    log(f"front door: built the programs in "
+        f"{time.monotonic() - t_phase:.1f} s")
+    gscope = _paged_weights(gpu, startup)
+    rscope, _ = _radix_weights(gpu, startup)
+    cands, exts = _radix_candidates()
+    plain_prompts, _ = _paged_requests()
+    launches = dict.fromkeys((k.__name__ for k in FRONT_KERNELS), 0)
+
+    def add(counts):
+        for n, c in counts.items():
+            launches[n] += c
+
+    res = {}
+    pf.observability.reset()
+    try:
+        # (1) streamed legs, at trace (every request a span tree)
+        pf.set_flags({"FLAGS_observability": "trace"})
+        _zero_launches()
+        sess = cands[FRONT_SESSION_ROW]
+        subs = [(cands[r], "stream", {}) for r in FRONT_PLAIN_ROWS] \
+            + [(sess, "stream", {"session_id": "fd"})]
+        res["paged"] = _front_streamed(
+            "front door, paged stream",
+            lambda: serving.PagedContinuousGenerationServer(
+                paged, executor=gpu, scope=rscope, start=False,
+                steps_per_tick=PAGED["steps_per_tick"],
+                drain_steps=PAGED["steps_per_tick"]),
+            subs, turn2=(sess, {"session_id": "fd",
+                                "extend_tokens": exts[FRONT_SESSION_ROW, 0]}))
+        c = _launch_counts()
+        assert c["paged_decode_attention"] > 0 and c["layer_norm"] > 0, c
+        res["paged"]["launches"] = c
+        add(c)
+        _zero_launches()
+        rows8 = list(RADIX_SESSION_ROWS)
+        subs = [(cands[r], "stream", {}) for r in rows8] \
+            + [(cands[r], "cb", {}) for r in rows8[:FRONT_CB]]
+        res["dense"] = _front_streamed(
+            "front door, dense stream",
+            lambda: serving.ContinuousGenerationServer(
+                dense, executor=gpu, scope=rscope, start=False,
+                steps_per_tick=PAGED["steps_per_tick"],
+                drain_steps=PAGED["steps_per_tick"]), subs)
+        res["dense"]["launches"] = c = _launch_counts()
+        add(c)
+        for leg in ("paged", "dense"):
+            r = res[leg]
+            log(f"front door, {leg}: {r['submits']} streamed submits "
+                f"({r['generated']} tokens), every stream its row's "
+                f"tokens, every row the first wave's; streamed TTFT p50 "
+                f"{_ms_list(r['stream_ttft_ms'])} ms against the whole "
+                f"response's latency p50 {_ms_list(r['whole_latency_ms'])} "
+                f"ms (waves 2 and 3 against 1 and 4, from each wave's "
+                f"start); walls {_ms_list(r['stream_wall_s'], 2)} s "
+                f"streamed, {_ms_list(r['plain_wall_s'], 2)} s whole; "
+                f"launches {r['launches']} on {card_name} ({card})")
+        _zero_launches()
+        res["teardown"] = _front_teardown(paged, gpu, gscope,
+                                          plain_prompts)
+        add(_launch_counts())
+        # the n-gram speculative bundle streams: a verify emits 1..k+1
+        # tokens a tick, the sequence stays monotone
+        _zero_launches()
+        spec = serving.PagedContinuousGenerationServer(
+            ngram, executor=gpu, scope=rscope,
+            steps_per_tick=PAGED["steps_per_tick"],
+            drain_steps=PAGED["steps_per_tick"])
+        reps = [spec.submit(cands[r], stream=True)
+                for r in rows8[:FRONT_SPEC_LANES]]
+        for i, rep in enumerate(reps):
+            _stream_ok(f"front door, n-gram {i}", rep,
+                       *_drain_stream(rep), rep.result(timeout=600))
+        sp = spec.stats()["speculative"]
+        assert sp["proposed"] > 0, sp
+        add(_launch_counts())
+        res["spec"] = dict(streams=len(reps), proposed=sp["proposed"],
+                           accepted=sp["accepted"], emitted=sp["emitted"])
+        log(f"front door, n-gram: {len(reps)} streams equal their rows; "
+            f"proposed {sp['proposed']}, accepted {sp['accepted']}")
+        # (2) admit_select (its slots read from the traces)
+        _zero_launches()
+        res["admit_select"] = _front_admit_select(fdense, gpu, gscope,
+                                                  cands)
+        add(_launch_counts())
+        # (3) buckets
+        pf.set_flags({"FLAGS_observability": "off"})
+        bucket_srv, counts, res["buckets"] = _front_buckets(
+            enc, gpu, card_name, card)
+        add(counts)
+        # (4) observability's cost
+        _zero_launches()
+        obs_srv, res["observability"] = _front_observability(
+            fdense, gpu, gscope, cands, card_name, card)
+        add(_launch_counts())
+        pf.set_flags({"FLAGS_observability": "trace"})
+        path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_trace_"),
+                            "frontdoor.json")
+        res["trace_requests"] = _front_trace_tree(path)
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+        text = pf.observability.metrics.expose()
+        families = {ln.split("{")[0].split(" ")[0]
+                    for ln in text.splitlines() if ln and ln[0] != "#"}
+        need = ("paddle_tpu_server_requests_total",
+                "paddle_tpu_server_ticks_total",
+                "paddle_tpu_server_batches_total",
+                "paddle_tpu_request_latency_ms_count",
+                "paddle_tpu_blockpool_blocks_in_use",
+                "paddle_tpu_devtel_ticks_total",
+                "paddle_tpu_executor_prepares_total",
+                "paddle_tpu_flight_incidents_total",
+                "paddle_tpu_costmodel_flops_per_s",
+                "paddle_tpu_spec_proposed_total",
+                "paddle_tpu_spec_k_dispatches_total",
+                "paddle_tpu_spec_acceptance_rate_count")
+        missing = [f for f in need if f not in families]
+        assert not missing, missing
+        for alive in (obs_srv, spec, bucket_srv):
+            assert f'server="{alive._obs_id}"' in text, alive._obs_id
+        spec.close()
+        obs_srv.close()
+        res["families"] = len(families)
+    finally:
+        pf.set_flags({"FLAGS_observability": "off"})
+        pf.observability.reset()
+    wall = time.monotonic() - t_phase
+    res["wall_s"] = wall
+    log(f"front door: dump_trace held {res['trace_requests']} request "
+        f"trees, expose() {res['families']} families; the phase took "
+        f"{wall:.1f} s; launches {launches}")
+    for k in ("layer_norm", "paged_decode_attention", "sdpa_short",
+              "flash_attention"):
+        assert launches[k] > 0, f"{k} never launched in phase 15"
+    return launches, res
+
+
 def main():
     t_start = time.monotonic()
 
@@ -6869,6 +7548,8 @@ def main():
         phase_speculative(name, card)
     phase("predict")
     predict_launches, predicted = phase_predict(name, card)
+    phase("front door")
+    front_launches, front = phase_frontdoor(name, card)
     entries["layer_norm"]["bf16"]["launches"] = \
         predict_launches["layer_norm"][1]
     line = []
@@ -6885,7 +7566,8 @@ def main():
                         served_spec=spec_launches.get(kname, 0),
                         trained_distill=distill_launches.get(kname, 0),
                         served_predictor=predict_launches.get(
-                            kname, [0, 0])[0])
+                            kname, [0, 0])[0],
+                        served_frontdoor=front_launches.get(kname, 0))
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
         extra = {x: e[x] for x in ("max_rel_err", "residual", "library",
                                    "p_max_abs_err", "library_rel_err",
@@ -6915,6 +7597,7 @@ def main():
     log(json.dumps({"chunked_sampled": chunked_sampled}))
     log(json.dumps({"speculative": speculative}, default=str))
     log(json.dumps({"predicted": predicted}))
+    log(json.dumps({"front_door": front}, default=str))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall in all on "
         f"{name} ({card})")
     log(json.dumps({"kernels": line}))

@@ -30,6 +30,14 @@ over a ``RadixBlockTree``; chunked prefill, on the server or on a
 ``SamplingConfig``; speculative decoding under a ``DraftConfig``, with
 a ``SpecController`` over a ladder of draft lengths and a draft trained
 on the target by ``distill_draft``) or decoded by ``PagedBeamDecoder``.
+
+Observability follows ``FLAGS_observability`` (``off | metrics |
+trace``; the environment variable, or ``fluid.set_flags``):
+``observability.metrics.expose()`` is the Prometheus text of every
+executor and server, ``observability.dump_trace(path)`` a chrome trace of
+the requests' span trees, the PreparedProgram builds and the
+``profiler``'s host events, ``observability.incident_report()`` the
+flight recorder's cancelled, expired and failed requests.
 """
 from . import ops  # noqa: F401  (registers every op)
 from . import (backward, clip, layers, optimizer,  # noqa: F401
@@ -55,3 +63,5 @@ from .clip import (ErrorClipByValue, GradientClipByGlobalNorm,  # noqa: F401
 from .param_attr import ParamAttr  # noqa: F401
 from .regularizer import L1Decay, L2Decay  # noqa: F401
 from .weights import load_numpy_params, scope_to_numpy  # noqa: F401
+from . import flags, observability, profiler  # noqa: F401
+from .flags import get_flags, set_flags  # noqa: F401

@@ -34,6 +34,15 @@ interpret their sub-blocks the same way.
   program prepared or captured with AMP on never runs with it off, nor
   the other way round.
 
+* ``prepare_count`` counts the PreparedPrograms built (the port's
+  counterpart of an XLA compile, which is what the JAX package's
+  ``compile_count`` counts; serving never captures, so it reads this
+  one). Each build is noted in the executable cost model
+  (``observability.costmodel``) and, under ``FLAGS_observability=trace``,
+  recorded as a global ``compile`` event. The cache of PreparedPrograms
+  holds at most ``FLAGS_executor_cache_capacity`` entries (least
+  recently used first out; ``cache_evict_count``).
+
 The on-disk compile cache, native builds and sharding of the JAX package
 have no counterpart here yet.
 
@@ -44,6 +53,8 @@ CPU unless asked to.
 from __future__ import annotations
 
 import collections
+import itertools
+import time
 import warnings
 import weakref
 from typing import Dict, List, Optional
@@ -52,6 +63,10 @@ import numpy as np
 import torch
 
 from .. import amp
+from ..flags import FLAGS
+from ..observability import costmodel as obs_costmodel
+from ..observability import metrics as obs_metrics
+from ..observability import tracing as obs_tracing
 from .program import Block, Program, Variable, default_main_program
 from .registry import (EMPTY_VAR, advance_key_t, get_op_info, is_registered,
                        run_op, splitmix64)
@@ -266,15 +281,18 @@ def _draws_on_device(program) -> bool:
 class Executor:
     """fluid.Executor parity (reference python/paddle/fluid/executor.py:451).
 
-    ``compile_count`` counts the steps captured in CUDA graphs (the
-    port's counterpart of an XLA compile: serving never captures),
+    ``compile_count`` counts the steps captured in CUDA graphs,
+    ``prepare_count`` the PreparedPrograms built (every lookup that
+    missed the cache, every ``prepare`` and every handle a
+    ``PreparedCache`` makes: the port's counterpart of an XLA compile),
     ``cache_hit_count`` the calls that found their PreparedProgram
-    cached. ``disk_load_count`` and ``cache_evict_count`` stay 0: the
-    port has no disk cache, and an entry leaves the cache only with its
-    scope or when its program's `_version` moves on."""
+    cached and ``cache_evict_count`` the entries the cache's bound
+    (``FLAGS_executor_cache_capacity``) pushed out. ``disk_load_count``
+    stays 0: the port has no disk cache. The counters are read at
+    ``observability.metrics.expose()`` time (a weakref provider)."""
 
     disk_load_count = 0
-    cache_evict_count = 0
+    _obs_seq = itertools.count(1)
 
     def __init__(self, place=None, donate: bool = True,
                  cache: Optional[Dict] = None):
@@ -288,7 +306,10 @@ class Executor:
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
         self.compile_count = 0
+        self.prepare_count = 0
         self.cache_hit_count = 0
+        self.cache_evict_count = 0
+        self._cache_inserts = 0
         # close() calls: a PreparedCache over this executor drops its
         # handles when it moves
         self.close_count = 0
@@ -301,6 +322,49 @@ class Executor:
         # (program uid, scope uid): the prepared program whose captured
         # step is alive for them
         self._capture_owner: Dict[tuple, weakref.ref] = {}
+        n = next(Executor._obs_seq)
+        self._obs_id = f"executor-{n}"
+        self._obs_cache_id = f"exe-cache-{n}"
+        obs_metrics.register_provider(self)
+
+    def _metrics_samples(self):
+        """Pull-provider for observability.metrics.expose(): the counters
+        above and the PreparedProgram cache's residency."""
+        lab = {"executor": self._obs_id}
+        cache = {"cache": self._obs_cache_id}
+        cap = FLAGS.executor_cache_capacity
+        return [
+            ("paddle_tpu_executor_compiles_total", lab,
+             self.compile_count),
+            ("paddle_tpu_executor_prepares_total", lab,
+             self.prepare_count),
+            ("paddle_tpu_executor_cache_hits_total", lab,
+             self.cache_hit_count),
+            ("paddle_tpu_executor_disk_loads_total", lab,
+             self.disk_load_count),
+            ("paddle_tpu_executor_cache_evictions_total", lab,
+             self.cache_evict_count),
+            ("paddle_tpu_executable_cache_size", cache, len(self._cache)),
+            ("paddle_tpu_executable_cache_capacity", cache,
+             cap if cap > 0 else 0),
+            ("paddle_tpu_executable_cache_inserts_total", cache,
+             self._cache_inserts),
+            ("paddle_tpu_executable_cache_evictions_total", cache,
+             self.cache_evict_count),
+        ]
+
+    def _note_build(self, program, kind, feed_specs, t0):
+        """One PreparedProgram built: counted, noted in the cost model
+        (counted there at the first metrics-on lookup) and, under
+        ``trace``, recorded as a global ``compile`` event."""
+        self.prepare_count += 1
+        specs = obs_costmodel.feed_specs_of(program, feed_specs) or ()
+        obs_costmodel.note_executable(program, kind, specs)
+        if obs_tracing.trace_on():
+            obs_tracing.record_global_event(
+                "compile", t0, time.monotonic(), kind=kind, tier="cold",
+                fingerprint=program.fingerprint()[:16],
+                executor=self._obs_id)
 
     def _committed(self, scope: Scope, name: str) -> torch.Tensor:
         v = scope._get(name)
@@ -330,8 +394,8 @@ class Executor:
         key = self._block_cache_key(program, _feed_specs(feed),
                                     fetch_names, scope)
         prepared = self._prepared(key, scope, lambda: PreparedProgram(
-            self, program, list(feed), fetch_names, scope),
-            use_program_cache)
+            self, program, list(feed), fetch_names, scope,
+            feed_specs=feed), use_program_cache)
         return prepared.run(feed, return_numpy=return_numpy)
 
     def run_steps(self, program: Optional[Program] = None, feed=None,
@@ -390,8 +454,8 @@ class Executor:
         key = self._block_cache_key(program, _feed_specs(first),
                                     fetch_names, scope) + (steps, stacked)
         prepared = self._prepared(key, scope, lambda: PreparedProgram(
-            self, program, list(first), fetch_names, scope, steps=steps),
-            use_program_cache)
+            self, program, list(first), fetch_names, scope, steps=steps,
+            feed_specs=first), use_program_cache)
         return self._run_steps(prepared, feed, stacked, return_numpy)
 
     def prepare(self, program: Program, feed=None, fetch_list=None,
@@ -410,15 +474,19 @@ class Executor:
         the caller keeps it."""
         if isinstance(feed, dict):
             feed_names = list(feed)
+            specs = feed
         else:
             feed_names = [f[0] if isinstance(f, (tuple, list)) else f
                           for f in (feed or ())]
+            specs = [f for f in (feed or ())
+                     if isinstance(f, (tuple, list)) and len(f) == 3]
         if steps is not None and int(steps) < 1:
             raise ValueError(f"prepare: steps must be >= 1, got {steps}")
         return PreparedProgram(self, program, feed_names,
                                _to_fetch_names(fetch_list),
                                scope or global_scope(),
-                               steps=None if steps is None else int(steps))
+                               steps=None if steps is None else int(steps),
+                               feed_specs=specs)
 
     def close(self):
         """Drop every prepared program this executor cached, with the
@@ -440,20 +508,29 @@ class Executor:
     def _prepared(self, key, scope, make, use_cache=True):
         """The PreparedProgram cached under `key`, or `make()`'s, kept
         in the cache until `scope` is gone (with it go the tensors of a
-        captured step) or the program's `_version` moves on: a new entry
-        drops those of the program's older versions for this scope.
-        Without `use_cache`, `make()`'s, neither looked up nor kept."""
+        captured step), the program's `_version` moves on (a new entry
+        drops those of the program's older versions for this scope) or
+        FLAGS_executor_cache_capacity newer entries push it out (least
+        recently used first). Without `use_cache`, `make()`'s, neither
+        looked up nor kept."""
         if not use_cache:
             return make()
         prepared = self._cache.get(key)
         if prepared is not None:
             self.cache_hit_count += 1
+            # the most recently used entry goes last
+            self._cache[key] = self._cache.pop(key, prepared)
             return prepared
         uid, version, scope_uid = key[0], key[1], key[4]
         for old in [k for k in self._cache if k[0] == uid
                     and k[4] == scope_uid and k[1] != version]:
             del self._cache[old]
         prepared = self._cache[key] = make()
+        self._cache_inserts += 1
+        cap = FLAGS.executor_cache_capacity
+        while cap > 0 and len(self._cache) > cap:
+            self._cache.pop(next(iter(self._cache)))
+            self.cache_evict_count += 1
         weakref.finalize(scope, _forget, weakref.ref(self), key)
         return prepared
 
@@ -729,7 +806,10 @@ class PreparedProgram:
 
     def __init__(self, exe: Executor, program: Program, feed_names,
                  fetch_names: List[str], scope: Scope,
-                 steps: Optional[int] = None):
+                 steps: Optional[int] = None, feed_specs=()):
+        """`feed_specs`: a feed dict or (name, shape, dtype) entries, the
+        shapes the cost model counts this build at."""
+        t0 = time.monotonic()
         self.exe = exe
         self.program = program
         self.feed_names = list(feed_names)
@@ -737,6 +817,8 @@ class PreparedProgram:
         self.steps = steps
         self._scope = weakref.ref(scope)
         self._bind()
+        exe._note_build(program, "block" if steps is None else "steps",
+                        feed_specs, t0)
 
     def _bind(self):
         program = self.program

@@ -11,6 +11,6 @@ from .serving import (AdmissionInfeasible,  # noqa: F401
                       GenerationServer, InferenceServer,
                       PagedBeamDecoder, PagedContinuousGenerationServer,
                       RequestCancelled, ServerClosed, ServerQuiesced,
-                      apply_eos_sentinel, count_generated_tokens,
+                      StreamingReply, apply_eos_sentinel, count_generated_tokens,
                       default_batch_buckets)
 from .spec_controller import SpecController  # noqa: F401

@@ -30,6 +30,7 @@ import torch
 from ..core.executor import CPUPlace, CUDAPlace, Executor, PreparedCache
 from ..core.scope import Scope, scope_guard
 from ..core.types import DataType
+from ..observability import tracing as obs_tracing
 from .config import AnalysisConfig, NativeConfig, PaddleDType
 
 # ops whose float32 output comes from an attr, cast with the params in
@@ -235,11 +236,16 @@ class AnalysisPredictor(PaddlePredictor):
             feed = {k: (torch.as_tensor(v).to(torch.bfloat16)
                         if np.asarray(v).dtype == np.float32 else v)
                     for k, v in feed.items()}
-        # the JAX package wraps this in its execute and readback tracing
-        # spans; the port's tracing is not ported yet (ROADMAP A8)
-        prepared = self._prepared.lookup(feed)
-        outs = prepared.run(feed, return_numpy=False)
-        return _to_host(outs)
+        # the execute and readback spans attach to every request of the
+        # batch a server parked in the ambient context (one thread-local
+        # read when none is); execute_span names the cache tier from the
+        # executor's build counter, the prepared lookup's miss included
+        with obs_tracing.execute_span(self._exe, program=self._program,
+                                      feed=feed):
+            prepared = self._prepared.lookup(feed)
+            outs = prepared.run(feed, return_numpy=False)
+        with obs_tracing.span("readback"):
+            return _to_host(outs)
 
     def run(self, inputs: List[PaddleTensor]) -> List[PaddleTensor]:
         """Copy-in/copy-out path (reference AnalysisPredictor::Run:192)."""

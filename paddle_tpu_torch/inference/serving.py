@@ -37,17 +37,25 @@ paddle_tpu/inference/serving.py).
 
 Both continuous servers serve sampled bundles (``SamplingConfig``): each
 request's seed, ``zlib.crc32`` of its prompt unless the caller gives one,
-keys its draws. Sequence-length buckets, a group-selection hook, AOT
-warmup, streaming replies, speculation, the sharded prefill worker, and
-the observability spans and metrics providers belong to later slices.
+keys its draws.
+
+The front door (``submit(stream=True)`` returns a ``StreamingReply``;
+``stream_cb``; ``admit_select`` and ``select_group`` hooks; sequence
+buckets and ``aot_warmup``; ``expected_service_ms``) and the
+observability of the JAX package (request traces, flight-recorder
+incidents, the metrics providers, the burst annotation with the cost
+model's expected tick time) are the JAX package's contracts. The
+sharded prefill worker and tensor-parallel bundles are not ported.
 """
 from __future__ import annotations
 
 import collections
+import itertools
 import math
 import re
 import threading
 import time
+import warnings
 import zlib
 from concurrent import futures
 from typing import Dict, List, Optional, Sequence
@@ -55,16 +63,24 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.executor import CUDAPlace, Executor
+from ..core.executor import CUDAPlace, Executor, PreparedCache
 from ..core.scope import Scope, global_scope
+from ..core.types import to_np_dtype
 from ..analysis.liveness import session_feasibility
 from ..models.decode_engine import (POOL_MARK, AdmissionInfeasible,
                                     BlockPoolExhausted, HostBlockPool,
                                     PromptPrefixCache, RadixBlockTree,
                                     ServingUnavailable)
+from ..observability import costmodel as obs_costmodel
 from ..observability import devtel as obs_devtel
+from ..observability import flight as obs_flight
+from ..observability import metrics as obs_metrics
+from ..observability import tracing as obs_tracing
 from ..observability.metrics import Histogram
+from ..observability.tracing import cache_tier as _cache_tier
 from .spec_controller import SpecController
+
+SEQ_SUFFIX = "@SEQ_LEN"
 
 
 def default_batch_buckets(max_batch_size: int) -> List[int]:
@@ -101,6 +117,17 @@ def _pad_rows(arr: np.ndarray, rows: int) -> np.ndarray:
     return np.concatenate([arr, reps], axis=0)
 
 
+def _pad_axis(arr: np.ndarray, axis: int, size: int) -> np.ndarray:
+    """Zero-pad `axis` up to `size` (sequence bucketing; the real lengths
+    ride the @SEQ_LEN companion untouched)."""
+    have = arr.shape[axis]
+    if have == size:
+        return arr
+    widths = [(0, 0)] * arr.ndim
+    widths[axis] = (0, size - have)
+    return np.pad(arr, widths)
+
+
 _Reply = futures.Future
 
 
@@ -128,23 +155,56 @@ def _pct(sorted_vals, p):
 
 
 def _pct_dict(vals):
+    """p50/p99 of a fixed-bucket Histogram, or of raw samples."""
+    if isinstance(vals, Histogram):
+        return vals.percentile_dict()
     lat = sorted(vals)
     return {"p50": _pct(lat, 0.50), "p99": _pct(lat, 0.99)}
 
 
-class _Request:
-    __slots__ = ("feed", "rows", "reply", "t_arrival")
+def _call_scheduling_hook(server, hook, arg, hook_name, fallback):
+    """Run a queue-selection hook; on any exception warn once a server
+    (its ``_hook_warned`` latch) and return (False, None), so the caller
+    falls back to its default policy. A pick the caller finds invalid is
+    a silent decline."""
+    try:
+        return True, hook(arg)
+    except Exception as e:
+        if not server._hook_warned:
+            server._hook_warned = True
+            warnings.warn(
+                f"{hook_name} hook failed ({type(e).__name__}: {e}); "
+                f"falling back to {fallback} for this server")
+        return False, None
 
-    def __init__(self, feed, rows, reply):
+
+_obs_server_seq = itertools.count(1)
+
+
+def _obs_server_id(server) -> str:
+    """A stable metrics label for one server instance, e.g.
+    InferenceServer-3."""
+    return f"{type(server).__name__}-{next(_obs_server_seq)}"
+
+
+class _Request:
+    __slots__ = ("feed", "rows", "reply", "t_arrival", "trace")
+
+    def __init__(self, feed, rows, reply, trace=None):
         self.feed = feed
         self.rows = rows
         self.reply = reply
         self.t_arrival = time.monotonic()
+        # the request's Trace (observability.tracing), None below
+        # FLAGS_observability=trace; a server-owned one is finished at
+        # demux
+        self.trace = trace
 
 
 class ProgramRunner:
-    """Runs a Program through an Executor against a scope, with one
-    device-to-host copy per fetch per batch."""
+    """Runs a Program through an Executor against a scope: one
+    PreparedProgram a bucket shape (``PreparedCache``) and one
+    device-to-host copy a fetch a batch."""
 
     def __init__(self, program, feed_names, fetch_names, executor=None,
                  scope=None):
@@ -153,12 +213,19 @@ class ProgramRunner:
         self.fetch_names = list(fetch_names)
         self.executor = executor or Executor(CUDAPlace(0))
         self.scope = scope or global_scope()
+        self._prepared = PreparedCache(self.executor, program,
+                                       self.fetch_names, self.scope)
 
     def run_batch(self, feed):
-        outs = self.executor.run(self.program, feed=feed,
-                                 fetch_list=self.fetch_names,
-                                 scope=self.scope, return_numpy=False)
-        return [o.cpu().numpy() for o in outs]
+        # the execute and readback spans attach to every request of the
+        # batch the server parked in the ambient context; the execute
+        # span's cache tier counts a prepared lookup's miss
+        with obs_tracing.execute_span(self.executor, program=self.program,
+                                      feed=feed):
+            prepared = self._prepared.lookup(feed)
+            outs = prepared.run(feed, return_numpy=False)
+        with obs_tracing.span("readback"):
+            return [o.cpu().numpy() for o in outs]
 
 
 class _PredictorRunner:
@@ -169,27 +236,44 @@ class _PredictorRunner:
         self.feed_names = list(predictor.get_input_names())
         self.fetch_names = list(predictor.get_output_names())
         self.program = predictor.program()
+        self.executor = predictor._exe
 
     def run_batch(self, feed):
         return self._predictor._run_feed(feed)
 
 
 class InferenceServer:
-    """Dynamic-batching server over a predictor (an AnalysisPredictor)
-    or a runner (an object with ``program``, ``feed_names``,
-    ``fetch_names`` and ``run_batch(feed) -> [np.ndarray]``), with the
-    JAX package's parameters in its order.
+    """Dynamic-batching, shape-bucketing server over a predictor (an
+    AnalysisPredictor) or a runner (an object with ``program``,
+    ``executor``, ``feed_names``, ``fetch_names`` and ``run_batch(feed)
+    -> [np.ndarray]``), with the JAX package's parameters in its order.
 
     Requests are feed dicts whose arrays carry a leading batch axis;
     fetched outputs must be batch-major the same way. ``submit``
-    enqueues and returns a future; ``infer`` blocks for one request.
+    enqueues and returns a future; ``infer`` blocks for one request. One
+    batcher thread groups requests of the same post-bucketing shape
+    signature, pads the batch up the bucket ladder, runs the program
+    once and hands each caller its own rows back.
+
+    * ``seq_buckets``: declared -1 dims past the batch axis are
+      zero-padded up this ladder (a ``name@SEQ_LEN`` companion keeps the
+      real lengths), so the PreparedPrograms are bounded by batch buckets
+      x sequence buckets whatever the traffic's lengths; outputs come
+      back at the padded length.
+    * ``select_group``: ``callable({group key: tuple of queued
+      requests}) -> key`` picks the group dispatched next (called under
+      the server lock: fast, and never calling back into the server); an
+      exception warns once and falls back to oldest-request-first.
+    * ``aot_warmup()``: one synthetic batch a (sequence bucket, batch
+      bucket) pair through the runner at the padded shape the batcher
+      will dispatch, so every PreparedProgram is built before traffic;
+      returns the builds it caused (``Executor.prepare_count``, the
+      port's counterpart of the JAX package's compiles).
 
     Each setting comes from the argument, else from the predictor
     config's ``serving_options()`` (``enable_dynamic_batching``), else
-    the default (8 rows, 2.0 ms, the power-of-two ladder).
-    ``batch_buckets`` must cover ``max_batch_size``. Sequence buckets and
-    a group-selection hook (``seq_buckets``, ``select_group``) and
-    ``aot_warmup`` are not ported yet (ROADMAP A7 step 11).
+    the default (8 rows, 2.0 ms, the power-of-two ladder, no sequence
+    buckets). ``batch_buckets`` must cover ``max_batch_size``.
     """
 
     def __init__(self, predictor_or_runner,
@@ -214,12 +298,6 @@ class InferenceServer:
                 batch_buckets = knobs.get("batch_buckets")
             if seq_buckets is None and knobs.get("seq_buckets"):
                 seq_buckets = knobs["seq_buckets"]
-        for name, val in (("seq_buckets", seq_buckets),
-                          ("select_group", select_group)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"InferenceServer({name}=...) is not ported yet "
-                    f"(ROADMAP A7 step 11)")
         self._runner = runner
         self.max_batch_size = int(
             max_batch_size if max_batch_size is not None else 8)
@@ -231,7 +309,9 @@ class InferenceServer:
             raise ValueError(
                 f"batch_buckets {self.batch_buckets} do not cover "
                 f"max_batch_size={self.max_batch_size}")
+        self.seq_buckets = sorted(set(int(s) for s in seq_buckets or ()))
         self._feed_names = list(runner.feed_names)
+        self._block = runner.program.global_block
 
         self._cv = threading.Condition()
         # group key -> FIFO of pending requests
@@ -241,6 +321,8 @@ class InferenceServer:
         self._accepting = True
         self._inflight = 0
         self._thread: Optional[threading.Thread] = None
+        self._select_group_hook = select_group
+        self._hook_warned = False
 
         # counters, under _cv
         self._n_requests = 0
@@ -249,12 +331,19 @@ class InferenceServer:
         self._n_padded_rows = 0
         self._n_done = 0
         self._n_tokens = 0
-        self._latencies: List[float] = []
-        self._per_token: List[float] = []
+        self._latencies = Histogram("paddle_tpu_request_latency_ms")
+        # one-shot inference delivers its first token with its last: the
+        # TTFT histogram equals the latency's, kept so that every
+        # server's stats() has one shape
+        self._ttft = Histogram("paddle_tpu_request_ttft_ms")
+        self._per_token = Histogram("paddle_tpu_per_token_ms")
         self._t_first_arrival = None
         self._t_last_done = None
+        self._warmed_compiles = 0
         self._t_start = time.monotonic()
         self._t_window = self._t_start
+        self._obs_id = _obs_server_id(self)
+        obs_metrics.register_provider(self)
         if start:
             self.start()
 
@@ -332,10 +421,15 @@ class InferenceServer:
             raise ValueError(
                 f"request of {rows} rows exceeds max_batch_size="
                 f"{self.max_batch_size}; split it client-side")
-        key = tuple((n, feed[n].shape[1:], str(feed[n].dtype))
-                    for n in sorted(feed))
+        feed, key = self._bucket_seq(feed)
         reply = _Reply()
-        req = _Request(feed, rows, reply)
+        # adopt a caller's trace parked in the request context, else (at
+        # FLAGS_observability=trace) open a server-owned one
+        trace = obs_tracing.current_request_trace()
+        if trace is None:
+            trace = obs_tracing.start_request(owner="server",
+                                              server=self._obs_id)
+        req = _Request(feed, rows, reply, trace=trace)
         with self._cv:
             if self._closed:
                 raise ServerClosed("InferenceServer is closed")
@@ -354,6 +448,31 @@ class InferenceServer:
               timeout: Optional[float] = 60.0) -> List[np.ndarray]:
         return self.submit(feed).result(timeout)
 
+    # --- bucketing ----------------------------------------------------
+    def _declared_shape(self, name):
+        v = self._block._find_var_recursive(name)
+        return tuple(v.shape) if v is not None and v.shape else None
+
+    def _bucket_seq(self, feed):
+        """Pad the declared -1 dims past the batch axis up the sequence
+        ladder; returns (padded feed, group key). @SEQ_LEN companions
+        keep the real lengths."""
+        out = {}
+        key = []
+        for name in sorted(feed):
+            arr = feed[name]
+            want = self._declared_shape(name)
+            if want is not None and not name.endswith(SEQ_SUFFIX) \
+                    and len(want) == arr.ndim and self.seq_buckets:
+                for ax in range(1, arr.ndim):
+                    if want[ax] == -1:
+                        arr = _pad_axis(arr, ax, _bucket_for(
+                            arr.shape[ax], self.seq_buckets,
+                            f"sequence dim of {name!r}"))
+            out[name] = arr
+            key.append((name, arr.shape[1:], str(arr.dtype)))
+        return out, tuple(key)
+
     # --- batcher thread -----------------------------------------------
     def _oldest_group(self):
         best = None
@@ -364,6 +483,19 @@ class InferenceServer:
                 best = key
         return best
 
+    def _pick_group(self):
+        """The next group to dispatch: the hook's pick when set and
+        valid, else oldest-request-first. Called under _cv."""
+        hook = self._select_group_hook
+        if hook is not None and any(self._groups.values()):
+            ok, key = _call_scheduling_hook(
+                self, hook,
+                {k: tuple(g) for k, g in self._groups.items() if g},
+                "select_group", "oldest-first")
+            if ok and key in self._groups and self._groups[key]:
+                return key
+        return self._oldest_group()
+
     def _loop(self):
         while True:
             with self._cv:
@@ -371,7 +503,7 @@ class InferenceServer:
                     self._cv.wait()
                 if not self._running:
                     return
-                key = self._oldest_group()
+                key = self._pick_group()
                 grp = self._groups[key]
                 deadline = grp[0].t_arrival + self.max_wait_ms / 1e3
                 while self._running:
@@ -405,6 +537,10 @@ class InferenceServer:
 
     def _dispatch(self, batch: List[_Request], rows: int):
         bucket = _bucket_for(rows, self.batch_buckets, "batch rows")
+        traces = [r.trace for r in batch if r.trace is not None]
+        exe = self._runner.executor
+        c0, d0 = exe.prepare_count, exe.disk_load_count
+        t_d0 = time.monotonic()
         try:
             feed = {
                 name: _pad_rows(
@@ -412,12 +548,28 @@ class InferenceServer:
                     if len(batch) > 1 else batch[0].feed[name],
                     bucket)
                 for name in batch[0].feed}
-            outs = self._runner.run_batch(feed)
+            with obs_tracing.ambient(traces):
+                outs = self._runner.run_batch(feed)
         except Exception as e:  # the caller of each request gets it
             for r in batch:
+                # the span before the future: its done-callback may
+                # finish a caller-owned trace, which then takes no more
+                if r.trace is not None:
+                    r.trace.add_span("server.queue", r.t_arrival, t_d0)
                 r.reply.set_exception(e)
+                if r.trace is not None and r.trace.owner == "server":
+                    r.trace.finish(status="error", error=repr(e))
             return
         done_t = time.monotonic()
+        for r in batch:
+            if r.trace is not None:
+                # queue: arrival to the batch; dispatch: the padded
+                # batch's runner call (its execute and readback spans
+                # were recorded inside run_batch)
+                r.trace.add_span("server.queue", r.t_arrival, t_d0)
+                r.trace.add_span("server.dispatch", t_d0, done_t,
+                                 rows=rows, bucket=bucket,
+                                 cache=_cache_tier(exe, c0, d0))
         # counters BEFORE fulfilling the futures: a caller unblocked by
         # set_result may read stats() at once and must see this batch
         with self._cv:
@@ -427,11 +579,12 @@ class InferenceServer:
             off = 0
             for r in batch:
                 lat = (done_t - r.t_arrival) * 1e3
-                self._latencies.append(lat)
+                self._latencies.observe(lat)
+                self._ttft.observe(lat)
                 ntok = self._tokens_in_rows(outs[0][off:off + r.rows])
                 if ntok:
                     self._n_tokens += ntok
-                    self._per_token.append(lat / ntok)
+                    self._per_token.observe(lat / ntok)
                 self._n_done += 1
                 off += r.rows
             self._t_last_done = done_t
@@ -439,16 +592,82 @@ class InferenceServer:
         for r in batch:
             r.reply.set_result([o[off:off + r.rows] for o in outs])
             off += r.rows
+            if r.trace is not None and r.trace.owner == "server":
+                r.trace.finish()
 
     def _tokens_in_rows(self, rows) -> Optional[int]:
         """Generated-token count of one request's output rows, or None
         for a program that does not generate."""
         return None
 
+    # --- AOT warmup ---------------------------------------------------
+    def _warmup_feed_specs(self):
+        """A synthetic feed a bucket pair, from the program's declared
+        shapes: the batch -1 takes each batch bucket, the other -1 dims
+        each sequence bucket (every sequence-bucketed input moves
+        together)."""
+        shapes = {}
+        needs_seq = False
+        for name in self._feed_names:
+            want = self._declared_shape(name)
+            if want is None:
+                raise ValueError(
+                    f"aot_warmup: feed {name!r} has no declared shape in "
+                    f"the program; warm manually via infer()")
+            if any(d == -1 for d in want[1:]):
+                needs_seq = True
+            shapes[name] = want
+        if needs_seq and not self.seq_buckets:
+            raise ValueError(
+                "aot_warmup: the program declares -1 sequence dims; pass "
+                "seq_buckets=(...) so warmup knows the ladder")
+        for seq in (self.seq_buckets if needs_seq else [None]):
+            for b in self.batch_buckets:
+                feed = {}
+                for name, want in shapes.items():
+                    v = self._block._find_var_recursive(name)
+                    dt = to_np_dtype(v.dtype) if v is not None \
+                        and v.dtype is not None else np.float32
+                    if name.endswith(SEQ_SUFFIX):
+                        bw = shapes.get(name[:-len(SEQ_SUFFIX)])
+                        full = seq if (bw is not None and any(
+                            d == -1 for d in bw[1:])) \
+                            else (bw[1] if bw and len(bw) > 1 else 1)
+                        feed[name] = np.full((b,), full, dtype=dt)
+                    else:
+                        feed[name] = np.zeros(
+                            [b] + [seq if d == -1 else d
+                                   for d in want[1:]], dtype=dt)
+                yield feed
+
+    def aot_warmup(self) -> int:
+        """Build every bucket's PreparedProgram before traffic: one
+        synthetic batch a (sequence bucket x batch bucket) pair goes
+        straight through the runner at the padded shape the batcher will
+        dispatch (queued probes would coalesce into one batch). Returns
+        the PreparedPrograms built (``Executor.prepare_count``)."""
+        exe = self._runner.executor
+        before = exe.prepare_count
+        evict_before = exe.cache_evict_count
+        for feed in self._warmup_feed_specs():
+            self._runner.run_batch(feed)
+        if exe.cache_evict_count > evict_before:
+            warnings.warn(
+                f"aot_warmup: the bucket ladder overflowed the executor's "
+                f"bounded cache ({exe.cache_evict_count - evict_before} "
+                f"eviction(s)); early buckets will be built again inside "
+                f"the traffic. Raise FLAGS_executor_cache_capacity above "
+                f"the ladder's size.")
+        self._warmed_compiles = exe.prepare_count - before
+        return self._warmed_compiles
+
     # --- observability ------------------------------------------------
     def stats(self, reset: bool = False) -> dict:
         """Atomic snapshot of the serving counters; reset=True zeroes
-        the window counters under the same lock."""
+        the window counters under the same lock. The executor's counters
+        are cumulative: ``compile_count`` its CUDA-graph captures,
+        ``prepare_count`` its PreparedProgram builds."""
+        exe = self._runner.executor
         with self._cv:
             now = time.monotonic()
             occ = (self._n_rows / self._n_padded_rows
@@ -467,10 +686,17 @@ class InferenceServer:
                 "queue_depth": sum(len(g) for g in self._groups.values()),
                 "uptime_s": round(now - self._t_start, 3),
                 "window_s": round(now - self._t_window, 3),
+                "compile_count": exe.compile_count,
+                "prepare_count": exe.prepare_count,
+                "cache_hit_count": exe.cache_hit_count,
+                "disk_load_count": exe.disk_load_count,
+                "cache_evict_count": exe.cache_evict_count,
+                "warmed_compiles": self._warmed_compiles,
                 "latency_ms": _pct_dict(self._latencies),
+                "ttft_ms": _pct_dict(self._ttft),
                 "per_token_ms": _pct_dict(self._per_token),
                 "tokens": self._n_tokens,
-                "retired_per_s": (self._n_done / done_span
+                "retired_per_s": (round(self._n_done / done_span, 1)
                                   if done_span else None),
             }
             if reset:
@@ -478,11 +704,33 @@ class InferenceServer:
                 self._n_rows = self._n_padded_rows = 0
                 self._n_done = self._n_tokens = 0
                 self._latencies.clear()
+                self._ttft.clear()
                 self._per_token.clear()
                 self._t_first_arrival = None
                 self._t_last_done = None
                 self._t_window = now
             return snap
+
+    def _metrics_samples(self):
+        """Pull-provider for observability.metrics.expose(): the
+        counters stats() reports, as Prometheus samples."""
+        lab = {"server": self._obs_id}
+        with self._cv:
+            occ = (self._n_rows / self._n_padded_rows
+                   if self._n_padded_rows else 0.0)
+            return [
+                ("paddle_tpu_server_requests_total", lab,
+                 self._n_requests),
+                ("paddle_tpu_server_completed_total", lab, self._n_done),
+                ("paddle_tpu_server_batches_total", lab, self._n_batches),
+                ("paddle_tpu_server_queue_depth", lab,
+                 sum(len(g) for g in self._groups.values())),
+                ("paddle_tpu_server_batch_occupancy", lab, occ),
+                ("paddle_tpu_server_tokens_total", lab, self._n_tokens),
+                ("paddle_tpu_request_latency_ms", lab, self._latencies),
+                ("paddle_tpu_request_ttft_ms", lab, self._ttft),
+                ("paddle_tpu_per_token_ms", lab, self._per_token),
+            ]
 
 
 class GenerationServer(InferenceServer):
@@ -591,6 +839,92 @@ class GenerationReply(futures.Future):
         return super().cancel()
 
 
+class StreamingReply:
+    """The per-token delivery handle ``submit(stream=True)`` returns.
+
+    Iterating yields ``(seq, token)`` pairs as bursts land: ``seq`` a
+    monotone 0-based sequence number, ``token`` a python int. Tokens come
+    from the per-burst readback the scheduler already performs: streaming
+    adds no fetch and no program. Iteration ends after the final token;
+    ``finish_reason`` then reads "eos" | "length" | "cancelled" |
+    "deadline" | "error".
+
+    Byte parity: the streamed tokens, concatenated, equal the generated
+    region ``row[1:1+n]`` of the sentinel-normalized row the
+    whole-response path returns for the same submit (``n`` =
+    ``count_generated_tokens``; position 0, the GO token, and the -1
+    tail are not streamed), and ``result(timeout)`` returns that row.
+
+    ``cancel()`` tears the request down as ``GenerationReply.cancel``
+    does (iteration ends with "cancelled" and ``result`` raises
+    ``RequestCancelled``). ``ttft_s`` is the wall time from submit to the
+    first token's arrival here. One scheduler produces; any number of
+    consumer threads may iterate (each event is delivered once)."""
+
+    def __init__(self, server):
+        self._cond = threading.Condition()
+        self._events = collections.deque()  # (seq, int token)
+        self._fin = None        # finish_reason once decided
+        self._exc = None
+        self._server = server
+        self._req = None        # set by submit()
+        self._future = None     # the underlying GenerationReply
+        self.t_submit = time.monotonic()
+        self.t_first = None     # when the first token landed
+
+    # --- consumer side -------------------------------------------------
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        with self._cond:
+            while not self._events and self._fin is None:
+                self._cond.wait()
+            if self._events:
+                return self._events.popleft()
+            raise StopIteration
+
+    def result(self, timeout: Optional[float] = None):
+        """The whole sentinel-normalized row (raises RequestCancelled,
+        DeadlineExceeded or the dispatch's error on teardown)."""
+        return self._future.result(timeout)
+
+    def done(self) -> bool:
+        return self._future.done()
+
+    def cancel(self) -> bool:
+        return self._server._cancel_request(self._req, "cancelled")
+
+    @property
+    def finish_reason(self) -> Optional[str]:
+        with self._cond:
+            return self._fin
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        with self._cond:
+            if self.t_first is None:
+                return None
+            return self.t_first - self.t_submit
+
+    # --- producer side (the scheduler thread, outside the server lock) -
+    def _push(self, first_seq: int, toks) -> None:
+        now = time.monotonic()
+        with self._cond:
+            if self.t_first is None:
+                self.t_first = now
+            for i, t in enumerate(toks):
+                self._events.append((first_seq + i, int(t)))
+            self._cond.notify_all()
+
+    def _finish(self, reason: str, exc=None) -> None:
+        with self._cond:
+            if self._fin is None:
+                self._fin = reason
+                self._exc = exc
+            self._cond.notify_all()
+
+
 # the device's speculative counters, in fetch order
 _SPEC_COUNTERS = ("proposed", "accepted", "emitted", "draft_steps",
                   "target_steps")
@@ -598,16 +932,18 @@ _SPEC_COUNTERS = ("proposed", "accepted", "emitted", "draft_steps",
 
 class _GenRequest:
     __slots__ = ("src", "reply", "t_arrival", "t_first", "t_admit",
-                 "seed", "session", "harvest", "radix", "deadline",
-                 "cancel_reason", "finalized")
+                 "trace", "seed", "session", "harvest", "radix", "stream",
+                 "stream_cb", "deadline", "cancel_reason", "finalized",
+                 "emitted", "n_streamed")
 
-    def __init__(self, src, reply, seed=0, session=None, harvest=True,
-                 deadline=None):
+    def __init__(self, src, reply, trace=None, seed=0, session=None,
+                 harvest=True, stream=None, stream_cb=None, deadline=None):
         self.src = src
         self.reply = reply
         self.t_arrival = time.monotonic()
         self.t_first = None  # when its first token landed
         self.t_admit = None  # when a slot admitted it
+        self.trace = trace   # see _Request.trace
         # the noise seed of a sampled bundle's draws (fed at admission)
         self.seed = seed
         # chat-session id (paged radix tier); the branches of an n-best
@@ -618,11 +954,21 @@ class _GenRequest:
         # the admission's radix plan (history, resume step, history
         # length), written by the paged scheduler under its lock
         self.radix = None
+        # streaming: the StreamingReply (None: whole response only) and
+        # the callback form; `emitted` is the highest token-buffer
+        # position delivered (0: only the GO token, never streamed) and
+        # survives a preemption, whose byte-exact re-decode then resumes
+        # delivery without duplicates; `n_streamed` is the next sequence
+        # number
+        self.stream = stream
+        self.stream_cb = stream_cb
         self.deadline = deadline  # absolute time.monotonic() instant
         # the one-way teardown mark ("cancelled" | "deadline"), and the
         # scheduler's commit, under its lock, that the outcome is decided
         self.cancel_reason = None
         self.finalized = False
+        self.emitted = 0
+        self.n_streamed = 0
 
 
 class ContinuousGenerationServer:
@@ -670,11 +1016,17 @@ class ContinuousGenerationServer:
     down at the next planning pass or burst boundary. Chat sessions and
     n-best fan-out need the radix serves of a paged bundle
     (``PagedContinuousGenerationServer``); this server refuses them, as
-    the JAX package's does. Left out, and raising where a caller asks
-    for them: streaming replies (``stream`` / ``stream_cb``) and the
-    ``admit_select`` hook (serving step 11 of the port), ``mesh_devices``
-    (step 10); request traces, the cost model and the metrics providers
-    (step 12) are not there.
+    the JAX package's does. ``admit_select`` (``callable(tuple of queued
+    requests) -> index``) picks the next admission instead of FIFO; an
+    exception warns once and falls back to FIFO. ``mesh_devices`` (a
+    tensor-parallel bundle) is not ported and raises.
+
+    Observability (``FLAGS_observability``): at ``trace`` a request
+    carries a span tree (queue, dispatch with the burst's ticks, exit
+    reason and expected against actual tick time, decode); cancels,
+    deadlines and errors are flight-recorder incidents from ``metrics``
+    up; ``expected_service_ms`` estimates a request's decode time from
+    the cost model calibrated on this server's own bursts.
     """
 
     # how long a cycle with nothing to dispatch sleeps before it plans
@@ -693,10 +1045,6 @@ class ContinuousGenerationServer:
                 f"ContinuousGenerationServer serves DENSE bundles; this "
                 f"bundle's KV layout is {bundle.cache.layout!r} -- use "
                 f"PagedContinuousGenerationServer")
-        if admit_select is not None:
-            raise NotImplementedError(
-                "admit_select (a pluggable admission order) is not ported "
-                "yet (serving step 11 of the port); the port admits FIFO")
         if mesh_devices is not None:
             raise NotImplementedError(
                 "mesh_devices places a tensor-parallel bundle, which is "
@@ -761,6 +1109,10 @@ class ContinuousGenerationServer:
         self._acc_hist = Histogram("paddle_tpu_spec_acceptance_rate",
                                    buckets=acc_buckets)
         self._devtel = obs_devtel.DeviceTelemetry(bundle)
+        # the cost model's snapshot of each serve key, resolved at the
+        # key's first dispatch at FLAGS_observability >= metrics
+        self._cost_snaps: Dict[object, dict] = {}
+        before = self.executor.prepare_count
         st = bundle.state
         self._fetches = [st["tok_buf"], st["step"], st["active"],
                          st["finished"]] + self._spec_names \
@@ -781,7 +1133,7 @@ class ContinuousGenerationServer:
         # ("radix", A) serves, which only paged bundles build
         self._radix_ok = any(isinstance(k, tuple) and k[0] == "radix"
                              for k in self._serves)
-        self._warmed_compiles = 0
+        self._warmed_compiles = self.executor.prepare_count - before
         # lanes the paged scheduler parked for lack of a KV block
         # (always empty on the dense server); retirement skips them
         self._paused: set = set()
@@ -795,6 +1147,10 @@ class ContinuousGenerationServer:
         self._accepting = True
         self._busy = False      # a fused cycle is mid-dispatch
         self._thread: Optional[threading.Thread] = None
+        # admission order: callable(tuple of queued requests) -> index,
+        # called under the server lock; FIFO when None
+        self._admit_select = admit_select
+        self._hook_warned = False
 
         self._n_requests = 0
         self._n_done = 0
@@ -810,6 +1166,8 @@ class ContinuousGenerationServer:
         self._t_last_done = None
         self._t_start = time.monotonic()
         self._t_window = self._t_start
+        self._obs_id = _obs_server_id(self)
+        obs_metrics.register_provider(self)
         if start:
             self.start()
 
@@ -871,12 +1229,8 @@ class ContinuousGenerationServer:
                 r.finalized = True
             self._flush_requests_locked(pending)
             self._cv.notify_all()
-        for r in pending:
-            try:
-                r.reply.set_exception(ServerClosed(
-                    "ContinuousGenerationServer closed"))
-            except futures.InvalidStateError:
-                pass
+        self._fail_requests([(r, ServerClosed(
+            "ContinuousGenerationServer closed")) for r in pending])
         if self._thread is not None:
             self._thread.join(timeout)
             self._thread = None
@@ -896,8 +1250,17 @@ class ContinuousGenerationServer:
         now: a request still queued or decoding past it is torn down and
         fails with ``DeadlineExceeded``. ``seed`` keys a sampled bundle's
         draws (default: ``zlib.crc32`` of the prompt's int64 bytes, as the
-        JAX package computes it); greedy bundles draw nothing. ``stream``
-        / ``stream_cb`` are not ported yet.
+        JAX package computes it); greedy bundles draw nothing.
+
+        * ``stream=True`` returns a ``StreamingReply`` instead: tokens
+          arrive a burst at a time from the readback the scheduler
+          already does (a speculative burst delivers each tick's accepted
+          run), so TTFT becomes the first burst's latency.
+        * ``stream_cb``: ``cb(tokens, first_seq, finish_reason)`` is
+          called from the scheduler thread, outside its lock, with a
+          fresh int64 chunk and the sequence number of its first token;
+          the last call carries an empty chunk and the finish reason. The
+          whole-response reply is returned as without it.
 
         Paged servers (the radix tier; elsewhere these raise):
 
@@ -940,10 +1303,11 @@ class ContinuousGenerationServer:
             raise ValueError(
                 "extend_tokens extends an existing chat session; pass "
                 "session_id")
-        if stream or stream_cb is not None:
-            raise NotImplementedError(
-                "streaming replies are not ported yet (a later slice "
-                "of the serving port); submit without stream")
+        if (stream or stream_cb is not None) and n_best > 1:
+            raise ValueError(
+                "streaming delivers one ordered token sequence; n_best "
+                "fan-out returns whole-response replies -- submit the "
+                "branches separately to stream them")
         if deadline_ms is not None and deadline_ms <= 0:
             raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
         deadline = (time.monotonic() + float(deadline_ms) / 1e3
@@ -952,12 +1316,22 @@ class ContinuousGenerationServer:
             seed = zlib.crc32(arr.tobytes())
         reqs = []
         for i in range(n_best):
+            trace = obs_tracing.current_request_trace() if i == 0 \
+                else None
+            if trace is None:
+                trace = obs_tracing.start_request(owner="server",
+                                                  server=self._obs_id)
             reply = GenerationReply()
-            req = _GenRequest(arr, reply, seed=int(seed) + i,
+            sreply = StreamingReply(self) if stream else None
+            req = _GenRequest(arr, reply, trace=trace, seed=int(seed) + i,
                               session=session_id, harvest=(n_best == 1),
+                              stream=sreply, stream_cb=stream_cb,
                               deadline=deadline)
             reply._gen_server = self
             reply._gen_req = req
+            if sreply is not None:
+                sreply._req = req
+                sreply._future = reply
             reqs.append(req)
         with self._cv:
             if self._closed:
@@ -974,6 +1348,8 @@ class ContinuousGenerationServer:
             if self._t_first_arrival is None:
                 self._t_first_arrival = reqs[0].t_arrival
             self._cv.notify_all()
+        if stream:
+            return reqs[0].stream
         return reqs[0].reply if n_best == 1 else [r.reply for r in reqs]
 
     def generate(self, src_ids, timeout: Optional[float] = 120.0,
@@ -981,6 +1357,24 @@ class ContinuousGenerationServer:
         """One prompt row in, one sentinel-normalized [max_out_len] row
         out."""
         return self.submit(src_ids, seed=seed).result(timeout)
+
+    def expected_service_ms(self, n_tokens=None) -> Optional[float]:
+        """The cost model's estimate of one request's decode time for
+        ``n_tokens`` (default the bundle's max_out_len): the expected
+        wall of one tick of the key-0 serve (its While body costed once,
+        divided by the achieved rate calibrated on this process's
+        bursts, whose samples are tick-flops x ticks over a burst's wall,
+        so the host's per-burst cost is already in the per-tick figure)
+        times the ticks the request needs. None until calibrated. Lanes
+        decode in lockstep, so co-residents do not stretch it; queue wait
+        is the caller's term."""
+        snap = obs_costmodel.lookup(self.bundle.serves[0]) or {}
+        per_tick = obs_costmodel.expected_ms(snap.get("flops"))
+        if per_tick is None:
+            return None
+        toks = self.bundle.max_out_len if n_tokens is None \
+            else max(1, int(n_tokens))
+        return per_tick * math.ceil(toks / max(1, self._toks_per_tick))
 
     # --- cancellation and deadlines -----------------------------------
     def _cancel_request(self, req, reason: str) -> bool:
@@ -1042,32 +1436,97 @@ class ContinuousGenerationServer:
         self._paused.discard(slot)
         self._count_cancel_locked(reason)
 
+    def _deliver_stream(self, req, first_seq: int, chunk):
+        """Push one burst's new tokens to the request's streams (the
+        scheduler thread, outside the lock: stream_cb is user code)."""
+        if req.stream is not None:
+            req.stream._push(first_seq, chunk)
+        if req.stream_cb is not None:
+            try:
+                req.stream_cb(chunk, first_seq, None)
+            except Exception as e:
+                if not self._hook_warned:
+                    self._hook_warned = True
+                    warnings.warn(
+                        f"stream_cb raised ({type(e).__name__}: {e}); "
+                        f"further failures are silent")
+
     @staticmethod
-    def _finalize_cancelled(cancels):
+    def _finish_stream(req, reason: str, exc=None):
+        """The terminal stream event (outside the lock): ends the
+        StreamingReply's iteration and makes the last stream_cb call (an
+        empty chunk and the finish reason)."""
+        if req.stream is not None:
+            req.stream._finish(reason, exc)
+        if req.stream_cb is not None:
+            try:
+                req.stream_cb(np.empty(0, np.int64), req.n_streamed, reason)
+            except Exception:
+                pass
+
+    def _finalize_cancelled(self, cancels):
+        """Fail torn-down requests with the typed error and seal their
+        record (outside the lock): the span tree carries the reason and
+        the request is kept as a flight-recorder incident."""
         for req, reason in cancels:
             exc = DeadlineExceeded(
                 "deadline_ms expired before completion; request torn "
                 "down") if reason == "deadline" else RequestCancelled(
                 "request cancelled by client")
+            self._finish_stream(req, reason, exc)
             try:
                 req.reply.set_exception(exc)
             except futures.InvalidStateError:
                 pass
+            if req.trace is not None and req.trace.owner == "server":
+                req.trace.finish(status="cancelled", reason=reason,
+                                 error=repr(exc))
+            elif obs_metrics.metrics_on():
+                obs_flight.RECORDER.record(
+                    {"request_id": obs_tracing.TRACER.next_request_id(),
+                     "status": "cancelled", "reason": reason,
+                     "server": self._obs_id, "error": repr(exc)},
+                    incident=True)
 
     # --- scheduler ----------------------------------------------------
+    def _pop_next(self):
+        """The next queued request to admit: FIFO, or the admit_select
+        hook's pick (an index into the queue). Called under _cv with a
+        non-empty queue."""
+        hook = self._admit_select
+        idx = 0
+        if hook is not None and len(self._queue) > 1:
+            # an int() failure counts as the hook's (warned), an index out
+            # of range as a silent decline
+            ok, raw = _call_scheduling_hook(
+                self, lambda q: int(hook(q)), tuple(self._queue),
+                "admit_select", "FIFO admission")
+            if ok and 0 <= raw < len(self._queue):
+                idx = raw
+        if idx == 0:
+            return self._queue.popleft()
+        self._queue.rotate(-idx)
+        req = self._queue.popleft()
+        self._queue.rotate(idx)
+        return req
+
     def _plan_admissions_locked(self, failures):
-        """FIFO admission into free slots, lowest slot first, at most
-        the largest admission bucket a cycle. Called under _cv;
-        `failures` collects (req, exc) pairs to fail outside the lock."""
+        """Admission into free slots (FIFO, or admit_select's order),
+        lowest slot first, at most the largest admission bucket a cycle.
+        Called under _cv; `failures` collects (req, exc) pairs to fail
+        outside the lock."""
         admits = []
         t_admit = time.monotonic()
         for slot in range(self.n_slots):
             if not self._queue or len(admits) >= self._admit_buckets[-1]:
                 break
             if self._lanes[slot] is None:
-                req = self._queue.popleft()
+                req = self._pop_next()
                 self._lanes[slot] = req
                 req.t_admit = t_admit
+                if req.trace is not None:
+                    req.trace.add_span("slotpool.queue", req.t_arrival,
+                                       t_admit, slot=slot)
                 admits.append((slot, req))
         return admits
 
@@ -1151,13 +1610,15 @@ class ContinuousGenerationServer:
         """Hook: a lane stopped serving `req` (retired, cancelled or
         failed)."""
 
-    @staticmethod
-    def _fail_requests(failures):
+    def _fail_requests(self, failures):
         for req, exc in failures:
+            self._finish_stream(req, "error", exc)
             try:
                 req.reply.set_exception(exc)
             except futures.InvalidStateError:
                 pass
+            if req.trace is not None and req.trace.owner == "server":
+                req.trace.finish(status="error", error=repr(exc))
 
     def _loop(self):
         while True:
@@ -1226,15 +1687,34 @@ class ContinuousGenerationServer:
                 k_used = kv
         self._pre_dispatch()
         try:
-            outs = self._serves[key].run(feed, return_numpy=True)
-            if self._devtel.active:
-                with self._cv:
-                    self._devtel.absorb(outs[self._tel_off:])
-            if self._spec_names:
-                d = self._absorb_spec_counters(outs)
-                self._absorb_lane_counters(outs, d, k_used)
-                if d["proposed"] > 0:
-                    self._acc_hist.observe(d["accepted"] / d["proposed"])
+            c0 = self.executor.prepare_count
+            d0 = self.executor.disk_load_count
+            with obs_tracing.ambient(
+                    [r.trace for r in self._lanes
+                     if r is not None and r.trace is not None]):
+                with obs_tracing.span("slotpool.dispatch",
+                                      admits=len(admits),
+                                      n_steps=n_steps) as sp:
+                    t_run0 = time.monotonic()
+                    outs = self._serves[key].run(feed, return_numpy=True)
+                    wall_s = time.monotonic() - t_run0
+                    sp.attrs["cache"] = _cache_tier(self.executor, c0, d0)
+                    if self._devtel.active:
+                        # the burst's interior: ticks, exit reason,
+                        # occupancy, expected against actual tick time
+                        self._absorb_devtel(key, outs, wall_s, sp)
+                    if self._spec_names:
+                        d = self._absorb_spec_counters(outs)
+                        self._absorb_lane_counters(outs, d, k_used)
+                        if d["proposed"] > 0:
+                            self._acc_hist.observe(
+                                d["accepted"] / d["proposed"])
+                            # tokens a lane advanced a verify: a low value
+                            # explains a slow burst
+                            sp.attrs["mean_accepted_len"] = round(
+                                d["emitted"] * k_used / d["proposed"], 3)
+                        if self._spec_ctl is not None:
+                            sp.attrs["spec_k"] = k_used
         except BaseException as e:
             with self._cv:
                 lanes = [(slot, r) for slot, r in enumerate(self._lanes)
@@ -1250,9 +1730,9 @@ class ContinuousGenerationServer:
             self._fail_requests([(r, e) for _, r in lanes])
             return
         self._post_dispatch(outs)
-        tok_buf, _step, active = outs[:3]
+        tok_buf, step, active = outs[:3]
         done_t = time.monotonic()
-        retired, cancels = [], []
+        retired, cancels, stream_out = [], [], []
         with self._cv:
             occupied = 0
             for slot in range(self.n_slots):
@@ -1269,31 +1749,62 @@ class ContinuousGenerationServer:
                     self._cancel_lane_locked(slot, req, reason)
                     cancels.append((req, reason))
                     continue
-                if not retiring:
-                    continue
-                toks = apply_eos_sentinel(tok_buf[slot:slot + 1],
-                                          self._end_id)[0]
-                ntok = int(count_generated_tokens(toks[None],
-                                                  self._end_id)[0])
-                lat = (done_t - req.t_arrival) * 1e3
-                self._latencies.observe(lat)
-                self._ttft.observe((req.t_first - req.t_arrival) * 1e3)
-                if ntok:
-                    self._per_token.observe(lat / ntok)
-                    self._n_tokens += ntok
-                self._n_done += 1
-                self._t_last_done = done_t
-                req.finalized = True
-                self._release_lane(slot, req)
-                self._lanes[slot] = None
-                retired.append((req, toks))
+                if retiring:
+                    toks = apply_eos_sentinel(tok_buf[slot:slot + 1],
+                                              self._end_id)[0]
+                    ntok = int(count_generated_tokens(toks[None],
+                                                      self._end_id)[0])
+                    lat = (done_t - req.t_arrival) * 1e3
+                    self._latencies.observe(lat)
+                    self._ttft.observe((req.t_first - req.t_arrival) * 1e3)
+                    if ntok:
+                        self._per_token.observe(lat / ntok)
+                        self._n_tokens += ntok
+                    self._n_done += 1
+                    self._t_last_done = done_t
+                    req.finalized = True
+                    self._release_lane(slot, req)
+                    self._lanes[slot] = None
+                    if req.trace is not None:
+                        req.trace.add_span(
+                            "slotpool.decode",
+                            req.t_admit if req.t_admit is not None
+                            else req.t_arrival, done_t, slot=slot,
+                            tokens=ntok)
+                    fin = "eos" if (ntok < toks.shape[0]
+                                    and toks[ntok] == self._end_id) \
+                        else "length"
+                    retired.append((req, toks, fin))
+                    # stream through the terminator: the row is
+                    # sentinel-normalized, nothing past ntok is real
+                    hi, row = ntok, toks
+                else:
+                    # a live lane: step[slot] is the next write position,
+                    # so step - 1 is the newest token. A preempted lane's
+                    # re-decode repeats its prefix byte for byte, and the
+                    # monotone `emitted` mark skips what was delivered
+                    hi, row = int(step[slot]) - 1, tok_buf[slot]
+                if (req.stream is not None or req.stream_cb is not None) \
+                        and hi > req.emitted:
+                    chunk = np.asarray(
+                        row[req.emitted + 1:hi + 1]).astype(np.int64)
+                    stream_out.append((req, req.n_streamed, chunk))
+                    req.n_streamed += len(chunk)
+                    req.emitted = hi
             self._n_ticks += 1
             self._occ_sum += occupied / self.n_slots
-        for req, toks in retired:
+        # in order, outside the lock: a burst's tokens land before its
+        # finish marker, which lands before the whole-response future
+        for req, first_seq, chunk in stream_out:
+            self._deliver_stream(req, first_seq, chunk)
+        for req, toks, fin in retired:
+            self._finish_stream(req, fin)
             try:
                 req.reply.set_result(toks)
             except futures.InvalidStateError:
                 pass
+            if req.trace is not None and req.trace.owner == "server":
+                req.trace.finish()
         self._finalize_cancelled(cancels)
 
     # --- speculation --------------------------------------------------
@@ -1331,6 +1842,61 @@ class ContinuousGenerationServer:
         if self._spec_ctl is not None:
             self._spec_ctl.observe(lane_deltas[0], lane_deltas[1],
                                    k=int(k_used))
+
+    def _cost_snapshot(self, key) -> Optional[dict]:
+        """The cost model's snapshot of serves[key], counted at the key's
+        first dispatch at FLAGS_observability >= metrics and kept on the
+        server after."""
+        snap = self._cost_snaps.get(key)
+        if snap is None and obs_metrics.metrics_on():
+            snap = obs_costmodel.lookup(self.bundle.serves[key])
+            if snap is not None:
+                self._cost_snaps[key] = snap
+        return snap
+
+    def _absorb_devtel(self, key, outs, wall_s, sp):
+        """Delta the device counters of this dispatch and annotate the
+        burst span: the ticks run, the exit reason, the occupancy
+        integral and, once the cost model is calibrated, the expected
+        against the actual tick time; feed the calibration."""
+        with self._cv:
+            deltas = self._devtel.absorb(outs[self._tel_off:])
+        ticks = deltas.get("tel_ticks", 0)
+        if not ticks:
+            return
+        sp.attrs["ticks"] = ticks
+        sp.attrs["occupancy_integral"] = deltas.get("tel_occupancy", 0)
+        reason = obs_devtel.DeviceTelemetry.exit_reason(deltas)
+        if reason is not None:
+            sp.attrs["exit_reason"] = reason
+        if not obs_metrics.metrics_on():
+            return
+        # a tick's cost is the key-0 serve's (no admission body: its
+        # While body counted once is one tick); a per-key snapshot would
+        # fold the admission prologue into every tick
+        flops = (self._cost_snapshot(0) or {}).get("flops")
+        actual_tick_ms = wall_s * 1e3 / ticks
+        # the rate calibrated before this dispatch: a burst does not
+        # vouch for itself
+        expected = obs_costmodel.expected_ms(flops)
+        sp.attrs["actual_tick_ms"] = round(actual_tick_ms, 3)
+        if expected is not None:
+            sp.attrs["expected_tick_ms"] = round(expected, 3)
+            if expected > 0:
+                sp.attrs["tick_time_ratio"] = round(
+                    actual_tick_ms / expected, 3)
+        if flops:
+            # the burst's work: tick-flops x ticks, plus an admission
+            # dispatch's prologue (its key's flops less one tick); a
+            # prologue of unknown cost skips the sample rather than
+            # depress the median
+            work = flops * ticks
+            if sp.attrs.get("admits", 0) and key != 0:
+                kflops = (self._cost_snapshot(key) or {}).get("flops")
+                work = None if kflops is None \
+                    else work + max(0.0, kflops - flops)
+            if work:
+                obs_costmodel.observe(work, wall_s)
 
     def _speculative_stats_locked(self) -> Optional[dict]:
         """``stats()["speculative"]`` over the window (reset=True
@@ -1381,7 +1947,9 @@ class ContinuousGenerationServer:
 
     def stats(self, reset: bool = False) -> dict:
         """Atomic snapshot; reset=True zeroes the window counters under
-        the scheduler lock (uptime_s keeps counting)."""
+        the scheduler lock (uptime_s keeps counting). ``compile_count``
+        is the executor's CUDA-graph captures (serving captures none),
+        ``prepare_count`` its PreparedProgram builds."""
         exe = self.executor
         with self._cv:
             now = time.monotonic()
@@ -1402,6 +1970,7 @@ class ContinuousGenerationServer:
                 "uptime_s": round(now - self._t_start, 3),
                 "window_s": round(now - self._t_window, 3),
                 "compile_count": exe.compile_count,
+                "prepare_count": exe.prepare_count,
                 "cache_hit_count": exe.cache_hit_count,
                 "disk_load_count": exe.disk_load_count,
                 "cache_evict_count": exe.cache_evict_count,
@@ -1440,6 +2009,48 @@ class ContinuousGenerationServer:
                 self._t_last_done = None
                 self._t_window = now
             return snap
+
+    def _metrics_samples(self):
+        """Pull-provider for observability.metrics.expose()."""
+        lab = {"server": self._obs_id}
+        with self._cv:
+            occ = (self._occ_sum / self._n_ticks
+                   if self._n_ticks else 0.0)
+            samples = [
+                ("paddle_tpu_server_requests_total", lab,
+                 self._n_requests),
+                ("paddle_tpu_server_completed_total", lab, self._n_done),
+                ("paddle_tpu_server_queue_depth", lab, len(self._queue)),
+                ("paddle_tpu_server_slot_occupancy", lab, occ),
+                ("paddle_tpu_server_ticks_total", lab, self._n_ticks),
+                ("paddle_tpu_server_tokens_total", lab, self._n_tokens),
+                ("paddle_tpu_server_cancelled_total", lab,
+                 self._n_cancelled),
+                ("paddle_tpu_server_deadline_expired_total", lab,
+                 self._n_deadline),
+                ("paddle_tpu_request_latency_ms", lab, self._latencies),
+                ("paddle_tpu_request_ttft_ms", lab, self._ttft),
+                ("paddle_tpu_per_token_ms", lab, self._per_token),
+            ]
+            if self._spec_k > 0:
+                t = self._spec_tot
+                samples += [
+                    (f"paddle_tpu_spec_{c}_total", lab, t[c])
+                    for c in _SPEC_COUNTERS]
+                samples.append(("paddle_tpu_spec_acceptance_rate", lab,
+                                self._acc_hist))
+                for kv in self._spec_k_options:
+                    klab = dict(lab, k=str(kv))
+                    samples.append(
+                        ("paddle_tpu_spec_k_dispatches_total", klab,
+                         self._per_k_tot[kv]["dispatches"]))
+                    hist = self._acc_hist_k.get(kv)
+                    if hist is not None:
+                        samples.append(
+                            ("paddle_tpu_spec_acceptance_rate_k", klab,
+                             hist))
+            samples += self._devtel.metric_samples(lab)
+            return samples
 
 
 class PagedContinuousGenerationServer(ContinuousGenerationServer):
@@ -1493,7 +2104,8 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
       the whole pool fails, with the named retryable
       ``BlockPoolExhausted``: never a hang.
 
-    FIFO admission. A bundle that declares its session workload
+    FIFO admission: ``admit_select`` is refused (the prefix tiers own the
+    admission order). A bundle that declares its session workload
     (``bundle.workload = {"distinct_session_prompts": K, ...}``) is
     checked at construction by ``analysis.liveness.session_feasibility``
     and refused with the named ``AdmissionInfeasible``; an open session
@@ -1539,6 +2151,10 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
                 "chunked prefill does not compose with speculative "
                 "bundles (the draft's encoder runs over the whole prompt "
                 "at admission); pass chunked_prefill=False")
+        if kwargs.get("admit_select") is not None:
+            raise ValueError(
+                "paged serving owns the admission order (prefix-tier "
+                "grouping); admit_select hooks are not supported")
         self._chunked = bool(chunked_prefill)
         self._radix_reuse = bool(radix_reuse)
         self.cache = cache
@@ -1922,6 +2538,13 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
         self._pref[slot] = entry
         self._lanes[slot] = req
         req.t_admit = t_admit
+        if req.trace is not None:
+            # the prefix tier explains a slow (miss: the encoder runs) or
+            # fast (hit: a lane reset) admission; blocks_reused is the
+            # radix tier's win
+            req.trace.add_span(
+                "slotpool.queue", req.t_arrival, t_admit, slot=slot,
+                prefix=self._admit_tier, blocks_reused=h)
 
     def _plan_admissions_locked(self, failures):
         admits = []
@@ -2370,6 +2993,43 @@ class PagedContinuousGenerationServer(ContinuousGenerationServer):
         st["block_pool"] = self.pool_stats()
         return st
 
+    def _metrics_samples(self):
+        samples = super()._metrics_samples()
+        lab = {"server": self._obs_id}
+        host_tel = {
+            "blocks_hwm": self._blocks_hwm,
+            "prompt_entries_hwm": self._entries_hwm,
+            "pause_events": self._pause_events,
+            "preemptions": self._preemptions,
+        }
+        samples += [(c.metric, lab, host_tel[c.stat])
+                    for c in obs_devtel.HOST_COUNTERS]
+        b, p = self._blocks, self._prefix
+        samples += [
+            ("paddle_tpu_blockpool_blocks_in_use", lab, b.in_use),
+            ("paddle_tpu_blockpool_blocks_free", lab, b.free_count),
+            ("paddle_tpu_blockpool_prompt_entries_in_use", lab, p.in_use),
+            ("paddle_tpu_blockpool_prefix_hits_total", lab, p.hits),
+            ("paddle_tpu_blockpool_prefix_misses_total", lab, p.misses),
+            ("paddle_tpu_blockpool_cow_copies_total", lab, p.partials),
+            ("paddle_tpu_blockpool_evictions_total", lab, p.evictions),
+            # how much KV the pool holds once for many readers
+            ("paddle_tpu_blockpool_shared_blocks", lab,
+             len(b.shared_blocks())),
+            ("paddle_tpu_blockpool_radix_nodes", lab, self._radix.n_nodes),
+            ("paddle_tpu_blockpool_radix_hit_blocks_total", lab,
+             self._radix.hit_blocks),
+            ("paddle_tpu_blockpool_radix_evicted_blocks_total", lab,
+             self._radix.evicted_blocks),
+            ("paddle_tpu_blockpool_radix_admissions_total", lab,
+             self._radix_admits),
+            ("paddle_tpu_blockpool_sessions_open", lab,
+             len(self._sessions)),
+            ("paddle_tpu_blockpool_prefix_hit_depth", lab,
+             self._hit_depth),
+        ]
+        return samples
+
 
 class DisaggregatedPrefillWorker:
     """The prefill half of disaggregated serving
@@ -2430,14 +3090,14 @@ class DisaggregatedPrefillWorker:
                          + re.escape(POOL_MARK))
         self._cross_names = sorted(
             n for n in bundle._state_specs if pat.fullmatch(n))
-        before = self.executor.compile_count
+        before = self.executor.prepare_count
         fetches = [bundle.state["step"]]
         self._serves = {
             k: self.executor.prepare(
                 bundle.serves[k], feed=bundle.serve_feed_spec(k),
                 fetch_list=fetches, scope=self.scope)
             for k in self._chunk_keys}
-        self._warmed_compiles = self.executor.compile_count - before
+        self._warmed_compiles = self.executor.prepare_count - before
         self._cv = threading.Condition()
         self._jobs: "collections.deque" = collections.deque()
         self._running = False

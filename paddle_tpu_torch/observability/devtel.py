@@ -13,17 +13,24 @@ them into per-dispatch deltas and ``stats()`` windows.
 ``BUNDLE_COUNTERS`` is the one table of names: the decode builder's
 slot-state specs and state map, and the servers' fetch lists, all come
 from it. A speculative bundle with a k ladder adds one tick counter a
-rung (``spec_k_counter_specs``). The host-side counters' metric samples
-and the pull-provider exposition belong to a later slice.
+rung (``spec_k_counter_specs``). ``HOST_COUNTERS`` are the paged
+scheduler's host-side supplement (block and prompt-entry high-water marks,
+pause and preemption events): host decisions the device cannot see that
+explain the same slow bursts, so they share the ``device_telemetry``
+stats and the ``paddle_tpu_devtel_*`` metric names.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
 TEL_MARK = "@TEL"
+
+# burst exit reasons, in reporting order (a serve program bumps one a
+# burst)
+EXIT_REASONS = ("n_steps", "all_idle", "min_active")
 
 
 @dataclass(frozen=True)
@@ -81,6 +88,31 @@ BUNDLE_COUNTERS: Tuple[CounterSpec, ...] = (
                 "prefill_occupancy_integral",
                 "live decode lanes summed over chunk dispatches",
                 paged_only=True, chunked_only=True),
+)
+
+
+# the paged server's host-side counters: `stat` is its stats key and
+# the name of the count it reads
+HOST_COUNTERS: Tuple[CounterSpec, ...] = (
+    CounterSpec("host_blocks_hwm", "paddle_tpu_devtel_blocks_hwm",
+                "blocks_hwm",
+                "high-water mark of KV blocks in use (window-scoped: "
+                "stats(reset=True) re-bases it to the current "
+                "residency)", paged_only=True),
+    CounterSpec("host_prompt_entries_hwm",
+                "paddle_tpu_devtel_prompt_entries_hwm",
+                "prompt_entries_hwm",
+                "high-water mark of prompt-pool entries in use",
+                paged_only=True),
+    CounterSpec("host_pause_events",
+                "paddle_tpu_devtel_pause_events_total",
+                "pause_events",
+                "lanes parked for >= 1 cycle by pool pressure",
+                paged_only=True),
+    CounterSpec("host_preemptions",
+                "paddle_tpu_devtel_preemptions_total", "preemptions",
+                "recompute-preempted lanes (vLLM-style requeue)",
+                paged_only=True),
 )
 
 
@@ -147,11 +179,16 @@ class DeviceTelemetry:
         self._counters = [(c.logical, state[c.logical])
                           for c in bundle_counters(paged)
                           if c.logical in state]
+        self._metric_by_logical = {
+            c.logical: c.metric for c in BUNDLE_COUNTERS}
         # the ladder's per-k tick counters join sorted by k
-        self._counters += [
-            (logical, state[logical]) for logical in sorted(
+        for logical in sorted(
                 (n for n in state if n.startswith(_SPEC_K_STEM)),
-                key=lambda n: int(n[len(_SPEC_K_STEM):]))]
+                key=lambda n: int(n[len(_SPEC_K_STEM):])):
+            self._counters.append((logical, state[logical]))
+            self._metric_by_logical[logical] = \
+                f"paddle_tpu_devtel_spec_ticks_k" \
+                f"{logical[len(_SPEC_K_STEM):]}_total"
         self.totals: Dict[str, int] = {
             logical: 0 for logical, _ in self._counters}
         self._base: Dict[str, int] = dict(self.totals)
@@ -179,6 +216,15 @@ class DeviceTelemetry:
     def rebase(self):
         self._base = dict(self.totals)
 
+    @staticmethod
+    def exit_reason(deltas: Dict[str, int]) -> Optional[str]:
+        """Which exit ended a dispatch's burst ('n_steps', 'all_idle' or
+        'min_active') from its deltas; None when no burst ran."""
+        for reason in EXIT_REASONS:
+            if deltas.get(f"tel_exit_{reason}", 0) > 0:
+                return reason
+        return None
+
     def stats_dict(self, window: Dict[str, int]) -> dict:
         """``stats()['device_telemetry']`` from a window() snapshot: the
         counters under their stat keys and the mean live lanes."""
@@ -191,3 +237,10 @@ class DeviceTelemetry:
         out["mean_live_lanes"] = (round(occ / ticks, 4)
                                   if ticks else None)
         return out
+
+    def metric_samples(self, labels: Dict[str, str]) -> List[tuple]:
+        """Pull-provider samples of the cumulative totals (``_total``
+        series never reset; a window is the scraper's delta)."""
+        return [(self._metric_by_logical[logical], labels,
+                 self.totals[logical])
+                for logical, _ in self._counters]

@@ -261,8 +261,15 @@ def test_lifecycle_and_what_is_not_ported(world):
         np.testing.assert_array_equal(
             srv.submit(world["srcs"][1], session_id="chat").result(
                 timeout=60), world["want"][1])
-        with pytest.raises(NotImplementedError, match="streaming"):
-            srv.submit(world["srcs"][0], stream=True)
+        # a streamed reply: its tokens are the whole-response row's
+        # generated region, and result() is that row
+        rep = srv.submit(world["srcs"][0], stream=True)
+        toks = [t for _, t in rep]
+        row = rep.result(timeout=60)
+        n = int(PS.count_generated_tokens(row[None], MODEL["end_id"])[0])
+        np.testing.assert_array_equal(row, world["want"][0])
+        assert toks == [int(t) for t in row[1:1 + n]]
+        assert rep.finish_reason in ("eos", "length")
         srv.quiesce()
         with pytest.raises(PS.ServerQuiesced):
             srv.submit(world["srcs"][0])

@@ -319,9 +319,10 @@ def test_server_takes_the_reference_parameter_order(t40_dir):
     srv.close()
     with pytest.raises(ValueError, match="do not cover"):
         InferenceServer(pred, 8, 1.0, [1, 2, 4], start=False)
-    for kw in ({"seq_buckets": [64]}, {"select_group": lambda g: None}):
-        with pytest.raises(NotImplementedError, match="A7 step 11"):
-            InferenceServer(pred, start=False, **kw)
+    # the 5th and 6th: the sequence ladder and the group hook
+    hook = lambda groups: None  # noqa: E731
+    srv = InferenceServer(pred, 4, 1.0, None, [64, 48], hook, False)
+    assert srv.seq_buckets == [48, 64] and srv._select_group_hook is hook
 
 
 def test_server_settings_precedence(t40_dir):
@@ -341,5 +342,7 @@ def test_server_settings_precedence(t40_dir):
     assert (srv.max_batch_size, srv.max_wait_ms, srv.batch_buckets) == \
         (8, 2.0, [1, 2, 4, 8])
     cfg.enable_dynamic_batching(seq_buckets=[64])
-    with pytest.raises(NotImplementedError, match="A7 step 11"):
-        InferenceServer(create_paddle_predictor(cfg), start=False)
+    srv = InferenceServer(create_paddle_predictor(cfg), start=False)
+    assert srv.seq_buckets == [64]
+    assert InferenceServer(create_paddle_predictor(cfg), seq_buckets=[48],
+                           start=False).seq_buckets == [48]
