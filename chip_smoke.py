@@ -402,6 +402,24 @@ Phases (a failing phase fails the script; none is caught):
    bursts' expected and actual tick times; dump_trace's chrome JSON, one
    span tree a request; expose() lists every live server's families,
    the speculative ones too.
+16. whole loop and conv (after phase 15): the greedy whole-loop decode
+   program (build_greedy_decode_program) at phase 4's configuration,
+   weights and prompts, 512 (#5) and 1024 (#2): tokens equal phase 4's
+   incremental card rows under phase 4's tie rule, #1 2L + 3L a loop
+   step; its wall and idle share. The beam whole loop
+   (build_beam_decode_program, beam RADIX_BEAM) at phase 12's weights
+   and geometry (prompts of 256, 256 out) on RADIX_BEAM_ROWS in one
+   batch: each row's hypotheses phase 12's PagedBeamDecoder's, scores
+   within RADIX_BEAM_TOL (near ties at the cut printed); one row at
+   phase 4's geometry (#5) against the CPU. The MNIST conv net at batch
+   4096 under SGD (conv2d and pool2d through cuDNN, deterministic, TF32
+   off): step 1 on 2 rows against the CPU (loss and grads within 1e-5
+   norm-wise), two fresh runs of 2 steps the same bits, 20 eager steps
+   (#7 and #8 once a step; the loss falls) and run_steps (one capture),
+   the eager and captured step times and the convolutions' share of a
+   profiled step; GradientMergeOptimizer(k 4) over micro-batches of
+   1024 against one SGD step on the 4096 batch within 1e-5, eager and
+   through run_steps (one capture); EMA and ModelAverage against numpy.
 
 The script prints its whole wall time; the second-to-last line lists
 the kernels as JSON, each with its launches on the serving (`served`),
@@ -417,8 +435,10 @@ chunked, monolithic and worker-fed legs), sampled emission
 included) and predictor
 (`served_predictor`, phase 11's
 timed runs and served requests; `served_predictor_bf16`: the bf16
-launches among them) and front-door (`served_frontdoor`, phase 15)
-paths; the last
+launches among them), front-door (`served_frontdoor`, phase 15),
+whole-loop greedy and beam (`served_whole_greedy`, `served_whole_beam`,
+phase 16's first run of each program) and conv MNIST (`trained_conv`,
+phase 16's eager steps) paths; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the
 script exits 2 and prints no result.
 """
@@ -2755,7 +2775,8 @@ def _device_profile(tag, run, match=None, host=True):
     every number, and how many of them were recorded is kept. `host`
     False records the device's activities only: a run of many thousand
     host ops (a whole serving wave) then takes seconds, not minutes, to
-    read back; every number above comes from the device's side."""
+    read back; every number above comes from the device's side. `match`
+    may also be a tuple of strings, any of which selects an activity."""
     from torch.profiler import ProfilerActivity, profile
 
     kinds = [ProfilerActivity.CUDA]
@@ -2794,8 +2815,9 @@ def _device_profile(tag, run, match=None, host=True):
                port_kernels_ms={n: ms for n, (ms, _) in port.items()},
                port_kernel_launches={n: c for n, (_, c) in port.items()})
     if match is not None:
+        marks = (match,) if isinstance(match, str) else tuple(match)
         res["matched_ms"] = sum(ms for n, ms in by_name.items()
-                                if match in n)
+                                if any(m in n for m in marks))
     if acts:
         log(f"{tag}: profiled wall {wall_ms:.1f} ms, device busy "
             f"{busy_ms:.1f} ms, idle share {res['idle_share']:.3f}, "
@@ -2855,6 +2877,8 @@ def phase_slice(card_name, card):
     kernels = (KL.layer_norm, KA.sdpa_short, KA.flash_attention)
     launches = {k.__name__: 0 for k in kernels}
     served = {}
+    whole = dict(rows={}, gscope=gscope, cscope=cscope)
+    served["_whole_loop"] = whole
     for seq_len, (prog, _, _, out) in main_progs.items():
         src = np.random.RandomState(SEED + seq_len).randint(
             2, MODEL["vocab"], (BATCH, seq_len)).astype("int64")
@@ -2935,6 +2959,8 @@ def phase_slice(card_name, card):
                                p50_ms=st["latency_ms"]["p50"],
                                steps=steps, ties=ties, logits_err=lerr,
                                logits_err_tf32=terr)
+        # phase 16's greedy whole loop reads these rows and weights
+        whole["rows"][seq_len] = (src, toks, (prog, lname))
         if seq_len == 1024:
             served[seq_len]["profile"] = _profile(
                 gpu, prog, out, one, lname, gscope, src, steps)
@@ -4073,7 +4099,8 @@ def phase_radix(card_name, card):
         for tr in leg["turns"]:
             del tr["toks"], tr["hists"]
     res = dict(legs=legs, beam=beams, cow_blocks=gdec.cow_blocks,
-               shared_block_peak=gdec.shared_block_peak, beam_ticks=ticks)
+               shared_block_peak=gdec.shared_block_peak, beam_ticks=ticks,
+               _whole_loop=dict(gscope=gscope, cands=cands, got=got))
     return radix_launches, beam_launches, res
 
 
@@ -7454,6 +7481,410 @@ def phase_frontdoor(card_name, card):
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the whole-loop decode programs and the conv MNIST net
+# ---------------------------------------------------------------------------
+# the conv net (BASELINE.md config 1's other form, models/mnist.py
+# build_program(use_conv=True): two 5x5 conv + ReLU + 2x2 max-pool stages
+# of 20 and 50 filters, fc to 10) at MNIST_BATCH under SGD; CONV_CPU_ROWS
+# rows of step 1 against the CPU, the loss and each grad norm-wise within
+# CONV_TOL (fp32, cuDNN's sums in its own order); GradientMerge of
+# CONV_MERGE_K micro-batches of MNIST_BATCH / CONV_MERGE_K against one
+# SGD step on the whole batch within CONV_TOL relative; the EMA and
+# ModelAverage of CONV_AVG_STEPS steps against numpy within 1e-6 relative
+CONV_LR = 0.05
+CONV_STEPS = 20
+CONV_CPU_ROWS = 2
+CONV_TOL = 1e-5
+CONV_MERGE_K = 4
+CONV_AVG_STEPS = 5
+CONV_EMA_DECAY = 0.9
+AVG_TOL = 1e-6
+CONV_TIMED_CALLS = 3
+# cuDNN's convolution kernels (forward, data and weight gradients) by
+# name, for the conv's share of a profiled step
+CONV_KERNEL_MARKS = ("conv", "xmma", "cudnn", "fprop", "dgrad", "wgrad",
+                     "implicit_gemm")
+WHOLE_KERNELS = (KL.layer_norm, KA.sdpa_short, KA.flash_attention)
+CONV_KERNELS = (KX.xent_forward, KX.xent_backward)
+
+
+def _launch_snapshot(kernels):
+    return {k.__name__: k.launches for k in kernels}
+
+
+def _zero(kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def _timed_run(exe, prog, feed, fetch, scope):
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def _whole_greedy(card_name, card, slice_state):
+    """The greedy whole loop at phase 4's configuration, weights and
+    prompts (512: #5 in the encoder; 1024: #2): tokens equal phase 4's
+    incremental card rows under phase 4's tie rule (the CPU incremental
+    program's top-2 margin at a diverging position); #1 12 + 18 a step,
+    #5 or #2 6; the decode's wall and idle share."""
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    cpu = pf.Executor(pf.CPUPlace())
+    gscope, cscope = slice_state["gscope"], slice_state["cscope"]
+    L = MODEL["n_layers"]
+    launches = dict.fromkeys(_launch_snapshot(WHOLE_KERNELS), 0)
+    res = {}
+    for seq_len, (src, want, inc) in slice_state["rows"].items():
+        with unique_name.guard():
+            prog, _, _, out = decode_engine.build_greedy_decode_program(
+                seq_len=seq_len, **MODEL)
+        _zero(WHOLE_KERNELS)
+        toks, steps = gpu.run(
+            prog, feed={"src_ids": src},
+            fetch_list=[out, decode_engine.DECODE_STEPS_VAR], scope=gscope)
+        counts = _launch_snapshot(WHOLE_KERNELS)
+        _, wall = _timed_run(gpu, prog, {"src_ids": src}, [out], gscope)
+        for n, c in counts.items():
+            launches[n] += c
+        steps = int(steps[0])
+        attn = "sdpa_short" if seq_len <= 512 else "flash_attention"
+        expect = {"layer_norm": 2 * L + 3 * L * steps, "sdpa_short": 0,
+                  "flash_attention": 0}
+        expect[attn] = L
+        assert counts == expect, (seq_len, counts, expect)
+        got = serving.apply_eos_sentinel(toks, MODEL["end_id"])
+        inc_prog, lname = inc
+        ties = _rows_agree(
+            f"whole greedy seq_len={seq_len}", got, want,
+            lambda r, pos: _tie_margin(cpu, inc_prog, lname, cscope,
+                                       src[r], pos))
+        _, prof = _device_profile(
+            f"whole greedy seq_len={seq_len} profile",
+            lambda: gpu.run(prog, feed={"src_ids": src}, fetch_list=[out],
+                            scope=gscope), host=False)
+        log(f"whole greedy seq_len={seq_len}: batch {len(src)}, {steps} "
+            f"loop steps, wall {wall * 1e3:.1f} ms ({wall * 1e3 / steps:.2f}"
+            f" ms a step), idle share {prof['idle_share']}; tokens equal "
+            f"phase 4's incremental rows in {len(src) - ties}/{len(src)} "
+            f"rows ({ties} ties); launches {counts} on {card_name} "
+            f"({card})")
+        res[seq_len] = dict(wall_ms=wall * 1e3, steps=steps, ties=ties,
+                            launches=counts, profile=prof)
+    return launches, res
+
+
+def _beam_rows(ids, scores, beam):
+    """[(tokens, score)] per source of a whole-loop beam decode, the
+    tokens sentinel-normalized as the paged decoder gives them."""
+    rows = serving.apply_eos_sentinel(np.asarray(ids).T, MODEL["end_id"])
+    scores = np.asarray(scores).reshape(-1)
+    return [[(rows[s * beam + j], float(scores[s * beam + j]))
+             for j in range(beam)] for s in range(len(rows) // beam)]
+
+
+def _whole_beam(card_name, card, radix_state, slice_state):
+    """The beam whole loop (a) at phase 12's weights and geometry, beam
+    RADIX_BEAM, on RADIX_BEAM_ROWS in one batch: each row's hypotheses
+    the set PagedBeamDecoder gave in phase 12, scores within
+    RADIX_BEAM_TOL (near ties at the cut printed, as phase 12 allows
+    them); #1 12 + 18 a step; (b) one row at phase 4's geometry (prompt
+    512: #5 in the encoder) against the same program on the CPU."""
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    cpu = pf.Executor(pf.CPUPlace())
+    L = MODEL["n_layers"]
+    geo = {k: v for k, v in MODEL.items() if k not in ("max_out_len",)}
+    rows = list(RADIX_BEAM_ROWS)
+    with unique_name.guard():
+        prog, _, _, (ids_v, sc_v) = decode_engine.build_beam_decode_program(
+            seq_len=PAGED["seq_len"], max_out_len=PAGED["max_out_len"],
+            beam_size=RADIX_BEAM, batch_size=len(rows), **geo)
+    src = radix_state["cands"][rows]
+    _zero(WHOLE_KERNELS)
+    ids, scores = gpu.run(prog, feed={"src_ids": src},
+                          fetch_list=[ids_v, sc_v],
+                          scope=radix_state["gscope"])
+    counts = _launch_snapshot(WHOLE_KERNELS)
+    _, wall = _timed_run(gpu, prog, {"src_ids": src}, [ids_v, sc_v],
+                         radix_state["gscope"])
+    steps = PAGED["max_out_len"] - 1
+    assert counts == {"layer_norm": 2 * L + 3 * L * steps,
+                      "sdpa_short": 0, "flash_attention": 0}, counts
+    ties = []
+    for r, hyps, want in zip(rows, _beam_rows(ids, scores, RADIX_BEAM),
+                             radix_state["got"]):
+        ties += _beam_agree(f"whole beam row {r}", hyps, want)
+    _, prof = _device_profile(
+        "whole beam profile", lambda: gpu.run(
+            prog, feed={"src_ids": src}, fetch_list=[ids_v, sc_v],
+            scope=radix_state["gscope"]), host=False)
+    log(f"whole beam {RADIX_BEAM} at seq {PAGED['seq_len']}, "
+        f"{PAGED['max_out_len']} out, rows {rows} in one batch: wall "
+        f"{wall * 1e3:.1f} ms ({wall * 1e3 / steps:.2f} ms a step), idle "
+        f"share {prof['idle_share']}; hypotheses equal phase 12's paged "
+        f"beam decoder's but for {len(ties)} near ties; launches {counts} "
+        f"on {card_name} ({card})")
+    res = dict(wall_ms=wall * 1e3, steps=steps, ties=ties, launches=counts,
+               profile=prof)
+    launches = dict(counts)
+    # (b) phase 4's geometry, one prompt of 512
+    src4, _, _ = slice_state["rows"][512]
+    with unique_name.guard():
+        prog4, _, _, (i4, s4) = decode_engine.build_beam_decode_program(
+            seq_len=512, beam_size=RADIX_BEAM, batch_size=1, **MODEL)
+    _zero(WHOLE_KERNELS)
+    ids, scores = gpu.run(prog4, feed={"src_ids": src4[:1]},
+                          fetch_list=[i4, s4], scope=slice_state["gscope"])
+    counts4 = _launch_snapshot(WHOLE_KERNELS)
+    _, wall4 = _timed_run(gpu, prog4, {"src_ids": src4[:1]}, [i4, s4],
+                          slice_state["gscope"])
+    steps4 = MODEL["max_out_len"] - 1
+    assert counts4 == {"layer_norm": 2 * L + 3 * L * steps4,
+                       "sdpa_short": L, "flash_attention": 0}, counts4
+    t0 = time.monotonic()
+    want = cpu.run(prog4, feed={"src_ids": src4[:1]}, fetch_list=[i4, s4],
+                   scope=slice_state["cscope"])
+    cpu_s = time.monotonic() - t0
+    ties4 = _beam_agree("whole beam seq_len=512", _beam_rows(
+        ids, scores, RADIX_BEAM)[0], _beam_rows(*want, RADIX_BEAM)[0])
+    log(f"whole beam {RADIX_BEAM} at seq 512, {MODEL['max_out_len']} out, "
+        f"one row: wall {wall4 * 1e3:.1f} ms, CPU {cpu_s:.1f} s; "
+        f"hypotheses equal the CPU's but for {len(ties4)} near ties; "
+        f"launches {counts4} on {card_name} ({card})")
+    for n, c in counts4.items():
+        launches[n] += c
+    res["seq512"] = dict(wall_ms=wall4 * 1e3, cpu_s=cpu_s, ties=ties4,
+                         launches=counts4)
+    return launches, res
+
+
+def _conv_feed(seed=0):
+    """A synthetic separable batch of MNIST_BATCH [1, 28, 28] images:
+    noise of 0.1, and 1.0 added on a 4x4 patch at a place the label
+    names."""
+    r = np.random.RandomState(seed)
+    lab = r.randint(0, 10, (MNIST_BATCH, 1)).astype(np.int64)
+    img = r.randn(MNIST_BATCH, 1, 28, 28).astype(np.float32) * 0.1
+    for c in range(10):
+        img[lab[:, 0] == c, 0, 2 + 2 * c:6 + 2 * c, 4:8] += 1.0
+    return {"img": img, "label": lab}
+
+
+def _conv_program(merge_k=None, averages=False):
+    """The conv net under SGD (inside a GradientMergeOptimizer of
+    `merge_k` steps; with `averages`, an EMA and a ModelAverage of every
+    parameter after it): (main, loss, params, averagers, seeded initial
+    state)."""
+    with unique_name.guard():
+        main, startup, loss, _ = mnist.build_program(use_conv=True)
+        with pf.program_guard(main, startup):
+            opt = pf.optimizer.SGD(learning_rate=CONV_LR)
+            if merge_k is not None:
+                opt = pf.optimizer.GradientMergeOptimizer(opt, merge_k)
+            opt.minimize(loss)
+            avgs = None
+            if averages:
+                for p in main.all_parameters():
+                    p.do_model_average = True
+                avgs = (pf.optimizer.ExponentialMovingAverage(
+                    CONV_EMA_DECAY), pf.optimizer.ModelAverage(0.15))
+    startup.random_seed = SEED
+    names = [n for n, v in startup.global_block.vars.items()
+             if v.persistable]
+    scope = pf.Scope()
+    pf.Executor(pf.CPUPlace()).run(startup, scope=scope)
+    params = sorted(p.name for p in main.all_parameters())
+    return main, loss, params, avgs, pf.scope_to_numpy(scope, names)
+
+
+def _params_of(scope, params):
+    return {n: scope._get(n).detach().cpu().numpy().copy() for n in params}
+
+
+def _conv_parity(main, loss, params, state):
+    """Step 1 on CONV_CPU_ROWS rows, card against CPU: loss and grads."""
+    feed = {k: v[:CONV_CPU_ROWS] for k, v in _conv_feed().items()}
+    fetch = [loss] + [p + "@GRAD" for p in params]
+    ref = pf.Executor(pf.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=_fresh(state,
+                                                        pf.CPUPlace()))
+    got = pf.Executor(pf.CUDAPlace(0)).run(
+        main, feed=feed, fetch_list=fetch,
+        scope=_fresh(state, pf.CUDAPlace(0)))
+    lerr = abs(float(got[0][0]) - float(ref[0][0])) / abs(float(ref[0][0]))
+    gerrs = {p: _rel(g, w) for p, g, w in zip(params, got[1:], ref[1:])}
+    log(f"conv mnist: step 1 on {CONV_CPU_ROWS} rows, card against the "
+        f"CPU: loss rel err {lerr:.3e}, grads norm-wise "
+        + ", ".join(f"{p} {e:.3e}" for p, e in gerrs.items())
+        + f" (tol {CONV_TOL:g})")
+    assert lerr <= CONV_TOL, lerr
+    assert all(e <= CONV_TOL for e in gerrs.values()), gerrs
+    return lerr, gerrs
+
+
+def _conv_merge(gpu, init, full_params):
+    """GradientMerge of CONV_MERGE_K micro-batches from the parameters
+    `init` against one SGD step on the whole batch (`full_params`),
+    eager and through run_steps (one capture)."""
+    main, loss, params, _, state = _conv_program(merge_k=CONV_MERGE_K)
+    state.update({p: init[p] for p in params})
+    feed = _conv_feed()
+    m = MNIST_BATCH // CONV_MERGE_K
+    micro = [{k: v[i * m:(i + 1) * m] for k, v in feed.items()}
+             for i in range(CONV_MERGE_K)]
+    out = {}
+    for leg in ("eager", "run_steps"):
+        scope = _fresh(state, pf.CUDAPlace(0))
+        compiles = gpu.compile_count
+        if leg == "eager":
+            for f in micro:
+                gpu.run(main, feed=f, fetch_list=[loss], scope=scope)
+        else:
+            gpu.run_steps(main, feed=micro, fetch_list=[loss], scope=scope)
+            assert gpu.last_run_steps_fallback is None, \
+                gpu.last_run_steps_fallback
+            assert gpu.compile_count == compiles + 1, gpu.compile_count
+        got = _params_of(scope, params)
+        errs = {p: _rel(got[p], full_params[p]) for p in params}
+        log(f"conv mnist GradientMerge k={CONV_MERGE_K} ({leg}): params "
+            f"against one SGD step on the {MNIST_BATCH} batch, norm-wise "
+            + ", ".join(f"{p} {e:.3e}" for p, e in errs.items())
+            + f" (tol {CONV_TOL:g})")
+        assert all(e <= CONV_TOL for e in errs.values()), (leg, errs)
+        out[leg] = errs
+    return out
+
+
+def _conv_averages(gpu):
+    """EMA and ModelAverage over CONV_AVG_STEPS steps: the values inside
+    apply() against numpy from the parameters fetched each step, and the
+    parameters back after it."""
+    main, loss, params, (ema, mavg), state = _conv_program(averages=True)
+    feed = _conv_feed()
+    scope = _fresh(state, pf.CUDAPlace(0))
+    hist = []
+    for _ in range(CONV_AVG_STEPS):
+        vals = gpu.run(main, feed=feed, fetch_list=[loss] + params,
+                       scope=scope)
+        hist.append(dict(zip(params, vals[1:])))
+    errs = {}
+    for tag, avg in (("ema", ema), ("model_average", mavg)):
+        with avg.apply(scope=scope):
+            inside = _params_of(scope, params)
+        after = _params_of(scope, params)
+        worst = 0.0
+        for p in params:
+            if tag == "ema":
+                want = np.zeros_like(hist[0][p])
+                for h in hist:
+                    want = np.float32(CONV_EMA_DECAY) * want + \
+                        np.float32(1 - CONV_EMA_DECAY) * h[p]
+            else:
+                want = np.sum([h[p] for h in hist], axis=0) / CONV_AVG_STEPS
+            worst = max(worst, _rel(inside[p], want))
+            np.testing.assert_array_equal(after[p], hist[-1][p])
+        log(f"conv mnist {tag} after {CONV_AVG_STEPS} steps: norm-wise "
+            f"against numpy {worst:.3e} (tol {AVG_TOL:g}); restored")
+        assert worst <= AVG_TOL, (tag, worst)
+        errs[tag] = worst
+    return errs
+
+
+def _conv_mnist(card_name, card):
+    """The conv net at MNIST_BATCH under SGD: step-1 parity on
+    CONV_CPU_ROWS rows; two fresh runs of 2 steps the same bits; then the
+    main path, CONV_STEPS eager steps (the counters set to 0 just
+    before: #7 and #8 once each a step; the loss falls), one run_steps
+    call of CONV_STEPS (one capture) within STEPS_RTOL of the eager
+    losses and CONV_TIMED_CALLS replaying calls timed; the conv's share
+    of a profiled eager step; GradientMerge, EMA and ModelAverage."""
+    assert not torch.backends.cudnn.allow_tf32
+    main, loss, params, _, state = _conv_program()
+    lerr, gerrs = _conv_parity(main, loss, params, state)
+    gpu = pf.Executor(pf.CUDAPlace(0))
+    feed = _conv_feed()
+    twice = []
+    for _ in range(2):
+        scope = _fresh(state, pf.CUDAPlace(0))
+        ls = [gpu.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+              for _ in range(2)]
+        twice.append((ls, _params_of(scope, params)))
+    assert torch.backends.cudnn.deterministic \
+        and not torch.backends.cudnn.benchmark
+    for a, b in zip(twice[0][0], twice[1][0]):
+        np.testing.assert_array_equal(a, b)
+    for p in params:
+        np.testing.assert_array_equal(twice[0][1][p], twice[1][1][p])
+    # one SGD step on the whole batch, GradientMerge's target
+    scope = _fresh(state, pf.CUDAPlace(0))
+    gpu.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    one_step = _params_of(scope, params)
+    # the main path: eager steps, the counters set to 0 just before
+    scope = _fresh(state, pf.CUDAPlace(0))
+    torch.cuda.synchronize()
+    _zero(CONV_KERNELS)
+    t0 = time.monotonic()
+    eager = [gpu.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+             for _ in range(CONV_STEPS)]
+    torch.cuda.synchronize()
+    eager_ms = (time.monotonic() - t0) * 1e3 / CONV_STEPS
+    launches = _launch_snapshot(CONV_KERNELS)
+    losses = np.array([float(x[0]) for x in eager])
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert launches == dict.fromkeys(launches, CONV_STEPS), launches
+    scope = _fresh(state, pf.CUDAPlace(0))
+    compiles = gpu.compile_count
+    walls = []
+    for i in range(1 + CONV_TIMED_CALLS):
+        pf.load_numpy_params(scope, state, pf.CUDAPlace(0))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = gpu.run_steps(main, feed=feed, fetch_list=[loss],
+                            steps=CONV_STEPS, scope=scope)[0].reshape(-1)
+        torch.cuda.synchronize()
+        if i:
+            walls.append((time.monotonic() - t0) * 1e3 / CONV_STEPS)
+        assert gpu.last_run_steps_fallback is None
+        assert gpu.compile_count == compiles + 1, gpu.compile_count
+        err = float(np.max(np.abs(out - losses) / np.abs(losses)))
+        assert err <= STEPS_RTOL, err
+    captured_ms = float(np.median(walls))
+    _, prof = _device_profile(
+        "conv mnist eager step profile",
+        lambda: gpu.run(main, feed=feed, fetch_list=[loss], scope=scope),
+        match=CONV_KERNEL_MARKS)
+    share = prof["matched_ms"] / prof["device_busy_ms"] \
+        if prof["device_busy_ms"] else None
+    log(f"conv mnist: losses " + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; eager step {eager_ms:.3f} ms, captured step {captured_ms:.3f}"
+        f" ms (median of {CONV_TIMED_CALLS} replaying calls, host clock); "
+        f"cuDNN conv share of the profiled eager step's device time "
+        f"{share}; launches {launches} on {card_name} ({card})")
+    merge = _conv_merge(gpu, state, one_step)
+    avgs = _conv_averages(gpu)
+    return launches, dict(
+        batch=MNIST_BATCH, loss_rel_err=lerr, grad_rel_errs=gerrs,
+        losses=losses.tolist(), eager_step_ms=eager_ms,
+        captured_step_ms=captured_ms, captured_steps_ms=walls,
+        conv_share=share, profile=prof, merge=merge, averages=avgs)
+
+
+def phase_whole_loop_conv(card_name, card, slice_state, radix_state):
+    """Phase 16: the greedy and beam whole-loop decode programs at
+    Transformer-base (phase 4's and phase 12's weights), then the conv
+    MNIST net. Returns (launches of the greedy legs, of the beam legs,
+    of the conv leg's eager steps, results)."""
+    greedy_launches, greedy = _whole_greedy(card_name, card, slice_state)
+    beam_launches, beam = _whole_beam(card_name, card, radix_state,
+                                      slice_state)
+    conv_launches, conv = _conv_mnist(card_name, card)
+    return greedy_launches, beam_launches, conv_launches, dict(
+        greedy=greedy, beam=beam, conv=conv, card=card)
+
+
 def main():
     t_start = time.monotonic()
 
@@ -7471,6 +7902,7 @@ def main():
     phase_step_key()
     phase("slice")
     served_launches, served = phase_slice(name, card)
+    slice_state = served.pop("_whole_loop")
     trained_launches = dict.fromkeys(KERNEL_META, 0)
     trained = {}
     for seq_len, batch in TRAIN_RUNS:
@@ -7540,6 +7972,7 @@ def main():
     paged_launches, paged = phase_paged(name, card)
     phase("radix and beam")
     radix_launches, beam_launches, radix = phase_radix(name, card)
+    radix_state = radix.pop("_whole_loop")
     phase("chunked and sampled")
     chunked_launches, sampled_launches, chunked_sampled = \
         phase_chunked_sampled(name, card, paged.pop("_greedy"))
@@ -7550,6 +7983,10 @@ def main():
     predict_launches, predicted = phase_predict(name, card)
     phase("front door")
     front_launches, front = phase_frontdoor(name, card)
+    phase("whole loop and conv")
+    whole_greedy_launches, whole_beam_launches, conv_launches, whole = \
+        phase_whole_loop_conv(name, card, slice_state, radix_state)
+    del slice_state, radix_state
     entries["layer_norm"]["bf16"]["launches"] = \
         predict_launches["layer_norm"][1]
     line = []
@@ -7567,7 +8004,11 @@ def main():
                         trained_distill=distill_launches.get(kname, 0),
                         served_predictor=predict_launches.get(
                             kname, [0, 0])[0],
-                        served_frontdoor=front_launches.get(kname, 0))
+                        served_frontdoor=front_launches.get(kname, 0),
+                        served_whole_greedy=whole_greedy_launches.get(
+                            kname, 0),
+                        served_whole_beam=whole_beam_launches.get(kname, 0),
+                        trained_conv=conv_launches.get(kname, 0))
         assert sum(on_paths.values()) > 0, f"{kname} never launched"
         extra = {x: e[x] for x in ("max_rel_err", "residual", "library",
                                    "p_max_abs_err", "library_rel_err",
@@ -7598,6 +8039,7 @@ def main():
     log(json.dumps({"speculative": speculative}, default=str))
     log(json.dumps({"predicted": predicted}))
     log(json.dumps({"front_door": front}, default=str))
+    log(json.dumps({"whole_loop_conv": whole}, default=str))
     log(f"chip_smoke: {time.monotonic() - t_start:.1f} s wall in all on "
         f"{name} ({card})")
     log(json.dumps({"kernels": line}))

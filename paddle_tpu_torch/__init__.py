@@ -40,7 +40,7 @@ the requests' span trees, the PreparedProgram builds and the
 flight recorder's cancelled, expired and failed requests.
 """
 from . import ops  # noqa: F401  (registers every op)
-from . import (backward, clip, layers, optimizer,  # noqa: F401
+from . import (backward, clip, layers, nets, optimizer,  # noqa: F401
                regularizer, unique_name)
 from .core.executor import CPUPlace, CUDAPlace, Executor, seed  # noqa: F401
 from .core.program import (Program, default_main_program,  # noqa: F401

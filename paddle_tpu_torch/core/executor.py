@@ -255,18 +255,29 @@ def _last_use_plan_py(block, feed_names, fetch_names):
     return [sorted(p) for p in plan]
 
 
-def _capture_fallback_reason(program) -> Optional[str]:
+# control-flow ops that read nothing back to the host (they select their
+# sub-block's results on the device): a CUDA graph captures them
+_CAPTURED_BLOCK_OPS = ("run_block_if",)
+
+
+def _capture_fallback_reason(program, ops=None) -> Optional[str]:
     """Why one step of `program` cannot be captured in a CUDA graph
     (``_scan_fallback_reason`` in the JAX package), or None. An op that
-    draws from the device step key is captured."""
-    for op in program.global_block.ops:
-        if any(isinstance(v, Block) for v in op.attrs.values()):
+    draws from the device step key is captured, and so is a
+    ``run_block_if`` whose sub-block is."""
+    for op in program.global_block.ops if ops is None else ops:
+        blocks = [v for v in op.attrs.values() if isinstance(v, Block)]
+        if blocks and op.type not in _CAPTURED_BLOCK_OPS:
             return (f"op {op.type!r} reads its condition back to the "
                     f"host every iteration, which a CUDA graph cannot "
                     f"replay")
         if is_registered(op.type) and get_op_info(op.type).host_rng:
             return (f"op {op.type!r} draws on a CPU generator; a "
                     f"captured draw would repeat on every replay")
+        for blk in blocks:
+            reason = _capture_fallback_reason(program, blk.ops)
+            if reason is not None:
+                return reason
     return None
 
 

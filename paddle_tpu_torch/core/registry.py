@@ -49,8 +49,8 @@ class OpInfo:
         self.differentiable = differentiable
         # input slots that take no gradient whatever their dtype
         self.stop_gradient_slots = tuple(stop_gradient_slots)
-        # draws random numbers: from OpContext.keep_mask (on the device,
-        # from the step key the Executor keeps there) or, with
+        # draws random numbers: from OpContext.keep_mask or .normal (on
+        # the device, from the step key the Executor keeps there) or, with
         # `host_rng`, from OpContext.generator() (a CPU generator)
         self.needs_rng = needs_rng or host_rng
         self.host_rng = host_rng
@@ -137,24 +137,39 @@ class OpContext:
         recompute (the same uid, calls counted from 0) draws its forward's
         mask again. A nonzero `seed` (the op's attr) pins the draw in place
         of the program seed and step key."""
+        if device.type == "meta":
+            self._rng_calls += 1
+            return torch.empty(shape, dtype=dtype, device=device)
+        key, salt = self._device_draw(device, seed)
+        return keep_bits(key, salt, shape, keep_prob).to(dtype)
+
+    def normal(self, shape, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+        """Standard normal values of `shape` in `dtype` on `device`
+        (``normal_bits``), keyed as `keep_mask` keys its mask: drawn on the
+        device with no host round trip, anew every step, the same values
+        in a replayed step as in the eager one."""
+        if device.type == "meta":
+            self._rng_calls += 1
+            return torch.empty(shape, dtype=dtype, device=device)
+        key, salt = self._device_draw(device, 0)
+        return normal_bits(key, salt, shape).to(dtype)
+
+    def _device_draw(self, device, seed):
+        """(key tensor on `device`, salt) of this op's next device draw."""
         call = self._rng_calls
         self._rng_calls += 1
-        if device.type == "meta":
-            return torch.empty(shape, dtype=dtype, device=device)
         if seed:
             # a fill, not a host copy: capturable
             key = torch.full((), _signed(mix64(seed, 0)), dtype=torch.int64,
                              device=device)
-            salt = mix64(self.op._uid, call)
-        else:
-            if self.dkey is None:
-                raise RuntimeError(
-                    f"op {self.op.type!r} draws on the device but was run "
-                    f"without a device step key (run it through the "
-                    f"Executor)")
-            key = self.dkey.to(device)
-            salt = mix64(self.seed, self.op._uid, call)
-        return keep_bits(key, salt, shape, keep_prob).to(dtype)
+            return key, mix64(self.op._uid, call)
+        if self.dkey is None:
+            raise RuntimeError(
+                f"op {self.op.type!r} draws on the device but was run "
+                f"without a device step key (run it through the "
+                f"Executor)")
+        return self.dkey.to(device), mix64(self.seed, self.op._uid, call)
 
 
 _MASK64 = (1 << 64) - 1
@@ -204,22 +219,42 @@ def advance_key_t(key: torch.Tensor) -> torch.Tensor:
     return _shr(splitmix64_t(key), 1)
 
 
-def keep_bits(key: torch.Tensor, salt: int, shape, keep_prob: float
-              ) -> torch.Tensor:
-    """A bool keep mask of `shape`: element i keeps where the top 24 bits
-    of SplitMix64(splitmix64(key ^ salt) + i * golden) fall below
-    `keep_prob` * 2^24 (SplitMix64's own stream, started from the key
-    mixed with the salt). `key` is a 0-d int64 tensor on the mask's
-    device; the arithmetic is int64 tensor ops, so the same key gives the
-    same mask on the CPU and on the card."""
+def _stream24(key: torch.Tensor, salt: int, n: int) -> torch.Tensor:
+    """n int64 values in [0, 2^24): element i the top 24 bits of
+    SplitMix64(splitmix64(key ^ salt) + i * golden) (SplitMix64's own
+    stream, started from the key mixed with the salt). `key` is a 0-d
+    int64 tensor; the arithmetic is int64 tensor ops, so the same key
+    gives the same values on the CPU and on the card."""
+    base = splitmix64_t(key ^ _signed(salt))
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    return _shr(splitmix64_t(base + idx * _signed(0x9E3779B97F4A7C15)), 40)
+
+
+def _numel(shape) -> int:
     n = 1
     for d in shape:
         n *= int(d)
-    base = splitmix64_t(key ^ _signed(salt))
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
-    z = splitmix64_t(base + idx * _signed(0x9E3779B97F4A7C15))
+    return n
+
+
+def keep_bits(key: torch.Tensor, salt: int, shape, keep_prob: float
+              ) -> torch.Tensor:
+    """A bool keep mask of `shape`: element i keeps where the i-th value
+    of `_stream24` falls below `keep_prob` * 2^24."""
     thresh = int(round(float(keep_prob) * (1 << 24)))
-    return (_shr(z, 40) < thresh).reshape(tuple(shape))
+    return (_stream24(key, salt, _numel(shape)) < thresh).reshape(
+        tuple(shape))
+
+
+def normal_bits(key: torch.Tensor, salt: int, shape) -> torch.Tensor:
+    """fp32 standard normal values of `shape` from `_stream24` by
+    Box-Muller: element i from stream values 2i and 2i+1 as uniforms in
+    (0, 1] and [0, 1), so |value| stays below sqrt(2 ln 2^24), 5.77."""
+    n = _numel(shape)
+    z = _stream24(key, salt, 2 * n).to(torch.float32) * 2.0 ** -24
+    u1, u2 = 1.0 - z[0::2], z[1::2]
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    return (r * torch.cos((2.0 * torch.pi) * u2)).reshape(tuple(shape))
 
 
 def register_op(type: str, *, infer_shape=None, grad_maker=None,

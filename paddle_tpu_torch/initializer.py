@@ -1,10 +1,10 @@
 """Parameter initializers (reference python/paddle/fluid/initializer.py;
-the port's copy of the subset of paddle_tpu/initializer.py that the
-serving slice uses).
+the port's copy of the subset of paddle_tpu/initializer.py that its
+models use).
 
 Each initializer appends an op to the startup program. Random ones
-emit ``uniform_random``, which draws from a seeded ``torch.Generator``
-(see ``OpContext.generator``).
+emit ``uniform_random`` or ``gaussian_random``, which draw from a seeded
+``torch.Generator`` (see ``OpContext.generator``).
 """
 from __future__ import annotations
 
@@ -40,6 +40,17 @@ class UniformInitializer(Initializer):
                    "min": self.low, "max": self.high, "seed": self.seed})
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "gaussian_random", outputs={"Out": var.name},
+            attrs={"shape": list(var.shape), "dtype": var.dtype.value,
+                   "mean": self.loc, "std": self.scale, "seed": self.seed})
+
+
 def _fan_in_out(var):
     shape = var.shape
     if len(shape) == 2:
@@ -54,14 +65,12 @@ def _fan_in_out(var):
 
 
 class XavierInitializer(Initializer):
-    """Glorot init (reference initializer.py XavierInitializer). Only
-    the uniform form: the serving slice has no normal initializer."""
+    """Glorot init (reference initializer.py XavierInitializer): uniform
+    within sqrt(6 / (fan_in + fan_out)), or normal of std
+    sqrt(2 / (fan_in + fan_out))."""
 
     def __init__(self, uniform=True, fan_in=None, fan_out=None, seed=0):
-        if not uniform:
-            raise NotImplementedError(
-                "XavierInitializer(uniform=False) needs gaussian_random, "
-                "which this package does not have yet")
+        self.uniform = uniform
         self.fan_in, self.fan_out = fan_in, fan_out
         self.seed = seed
 
@@ -69,8 +78,12 @@ class XavierInitializer(Initializer):
         fi, fo = _fan_in_out(var)
         fi = self.fan_in if self.fan_in is not None else fi
         fo = self.fan_out if self.fan_out is not None else fo
-        limit = math.sqrt(6.0 / (fi + fo))
-        UniformInitializer(-limit, limit, self.seed)(var, block)
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fi + fo))
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / (fi + fo))
+            NormalInitializer(0.0, std, self.seed)(var, block)
 
 
 class NumpyArrayInitializer(Initializer):
@@ -87,4 +100,5 @@ class NumpyArrayInitializer(Initializer):
 
 Constant = ConstantInitializer
 Uniform = UniformInitializer
+Normal = NormalInitializer
 Xavier = XavierInitializer

@@ -44,6 +44,22 @@ def increment(x, value=1.0, in_place=True):
     return nn.increment(x, value, in_place)
 
 
+def _block_io_analysis(sub, parent):
+    """(carried, externals) of sub-block `sub`: the parent-visible vars
+    it writes, and the parent-visible vars it reads before writing that
+    are not carried."""
+    reads, writes = set(), set()
+    for op in sub.ops:
+        for n in op.input_arg_names:
+            if n not in writes and parent._find_var_recursive(n) \
+                    is not None:
+                reads.add(n)
+        writes.update(op.output_arg_names)
+    carried = sorted(n for n in writes if n not in sub.vars
+                     and parent._find_var_recursive(n) is not None)
+    return carried, sorted(reads - set(carried))
+
+
 class While:
     """reference layers/control_flow.py:492 While."""
 
@@ -72,25 +88,14 @@ class _WhileBlockGuard:
         sub = prog.current_block()
         prog.rollback()
         parent = prog.current_block()
-        reads, writes = set(), set()
-        for op in sub.ops:
-            for n in op.input_arg_names:
-                if n not in writes and parent._find_var_recursive(n) \
-                        is not None:
-                    reads.add(n)
-            writes.update(op.output_arg_names)
+        carried, externals = _block_io_analysis(sub, parent)
         cond_name = self.w.cond_var.name
-        if cond_name not in writes:
+        if not any(cond_name in op.output_arg_names for op in sub.ops):
             raise ValueError(
                 "While: the loop body never writes the condition var "
                 f"{cond_name!r} -- the loop would spin forever. Update "
                 "it inside the block, e.g. "
                 "layers.less_than(i, limit, cond=cond).")
-        carried = sorted(
-            n for n in writes
-            if n not in sub.vars
-            and parent._find_var_recursive(n) is not None)
-        externals = sorted(reads - set(carried))
         parent.append_op(
             "while",
             {"Condition": self.w.cond_var.name, "X": externals,

@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.types import as_datatype
-from ..initializer import ConstantInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
@@ -20,7 +20,8 @@ __all__ = [
     "masked_pool_write", "paged_decode_attention", "dropout", "clip",
     "clip_by_norm", "elementwise_div", "elementwise_pow", "topk",
     "concat", "filtered_softmax", "sample_categorical", "one_hot",
-    "reduce_max", "span_scatter", "spec_accept",
+    "reduce_max", "span_scatter", "spec_accept", "conv2d", "pool2d",
+    "scatter", "gaussian_random", "elementwise_mod",
 ]
 
 
@@ -54,6 +55,56 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         "lookup_table", {"Ids": input, "W": w}, {"Out": out},
         {"is_sparse": is_sparse, "is_distributed": is_distributed,
          "padding_idx": -1 if padding_idx is None else padding_idx})
+    return out
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0,
+           dilation=1, groups=1, param_attr=None, bias_attr=None,
+           use_cudnn=True, act=None, name=None):
+    """NCHW convolution (reference layers/nn.py conv2d): an OIHW filter
+    initialized He-normal (std sqrt(2 / (kh kw C))) unless `param_attr`
+    says otherwise, a per-channel bias, then `act`."""
+    helper = LayerHelper("conv2d", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    num_channels = input.shape[1]
+    fs = _pair(filter_size)
+    std = (2.0 / (fs[0] * fs[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr, [num_filters, num_channels // groups, fs[0],
+                            fs[1]], input.dtype,
+        default_initializer=NormalInitializer(0.0, std))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "conv2d", {"Input": input, "Filter": w}, {"Output": out},
+        {"strides": _pair(stride), "paddings": _pair(padding),
+         "dilations": _pair(dilation), "groups": groups})
+    b = helper.create_parameter(helper.bias_attr, [out.shape[1]],
+                                out.dtype, is_bias=True)
+    if b is not None:
+        biased = helper.create_variable_for_type_inference(out.dtype)
+        helper.append_op("elementwise_add", {"X": out, "Y": b},
+                         {"Out": biased}, {"axis": 1})
+        out = biased
+    return helper.append_activation(out)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    """Max or average pooling over NCHW windows (reference layers/nn.py
+    pool2d)."""
+    helper = LayerHelper("pool2d", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        "pool2d", {"X": input}, {"Out": out},
+        {"pooling_type": pool_type, "ksize": _pair(pool_size),
+         "strides": _pair(pool_stride), "paddings": _pair(pool_padding),
+         "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+         "exclusive": exclusive})
     return out
 
 
@@ -238,6 +289,7 @@ elementwise_div = _make_elementwise("elementwise_div")
 elementwise_max = _make_elementwise("elementwise_max")
 elementwise_min = _make_elementwise("elementwise_min")
 elementwise_pow = _make_elementwise("elementwise_pow")
+elementwise_mod = _make_elementwise("elementwise_mod")
 
 
 def topk(input, k, name=None):
@@ -367,6 +419,27 @@ def gather(input, index, overwrite=True):
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op("gather", {"X": input, "Index": index},
                      {"Out": out}, {})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    """`input` with the rows at `index` set to (`overwrite`) or added to
+    by `updates`."""
+    helper = LayerHelper("scatter", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("scatter",
+                     {"X": input, "Ids": index, "Updates": updates},
+                     {"Out": out}, {"overwrite": overwrite})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    """Normal values of `shape` (a nonzero `seed` pins the draw)."""
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("gaussian_random", {}, {"Out": out},
+                     {"shape": list(shape), "mean": mean, "std": std,
+                      "seed": seed, "dtype": as_datatype(dtype).value})
     return out
 
 

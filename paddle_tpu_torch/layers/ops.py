@@ -4,8 +4,8 @@ from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-_UNARY = ["exp", "sqrt", "rsqrt", "square", "floor", "ceil", "cos",
-          "sign"]
+_UNARY = ["exp", "log", "sqrt", "rsqrt", "square", "floor", "ceil",
+          "cos", "sign"]
 
 __all__ = list(_UNARY)
 

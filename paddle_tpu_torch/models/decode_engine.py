@@ -3,6 +3,13 @@ paddle_tpu/models/decode_engine.py (reference
 tests/unittests/dist_transformer.py:1498 fast_decode; the slot-pool and
 paged serving discipline of Orca and vLLM).
 
+* ``build_greedy_decode_program`` and ``build_beam_decode_program``
+  build the JAX package's whole-loop fronts: an encoder pass, then a
+  ``while`` loop that re-runs the causally masked decoder over the whole
+  token buffer each step and emits the greedy token (with EOS freezing)
+  or extends the beams (``beam_search``, the histories reordered by
+  parent, ``beam_search_decode`` after the loop). No KV cache: the
+  greedy one is the oracle of the incremental program.
 * ``build_incremental_decode_program`` builds the same Program as the
   JAX package's builder of that name: an encoder pass, per-layer cross
   K/V, then a ``while`` loop that embeds one token, runs the cached
@@ -41,7 +48,11 @@ ladder of k values gives the host controller pre-built serves to choose
 from). The verify step attends over the gathered dense view with a
 plain matmul, as the JAX package's does; kernel #9 computes one query a
 lane and serves the plain one-token step only. Tensor-parallel sharding
-and the whole-loop beam program belong to later slices.
+belongs to a later slice.
+
+Every ``while`` of these programs runs on the interpreting executor: it
+reads its condition back to the host once an iteration and is never
+captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -132,6 +143,26 @@ def emit_token_step(src, step_logits_v, positions, tgt_buf, finished,
         layers.elementwise_min(
             layers.elementwise_sub(limit, counter), unfinished),
         layers.fill_constant([1], "int64", 0.0), cond=cond)
+
+
+def step_logits(dec, positions, counter, vocab):
+    """Step t's logits [rows, V]: the decoder's hidden row at t picked
+    out (a one-hot sum over positions) before the vocab projection, so
+    the product is [rows, D] x [D, V], not [rows, maxT, D] x [D, V]."""
+    t_mask = layers.cast(layers.equal(positions, counter), "float32")
+    step_hidden = layers.reduce_sum(
+        layers.elementwise_mul(dec, layers.unsqueeze(t_mask, [1]),
+                               axis=1), dim=1)
+    return layers.fc(step_hidden, vocab, bias_attr=False,
+                     param_attr="logits.w")
+
+
+def _refuse_sharding(fn_name, sharding):
+    if sharding is not None:
+        raise NotImplementedError(
+            f"{fn_name}(sharding=...): tensor-parallel programs are not "
+            f"ported yet (ROADMAP Queue A item 10, A10: serving step 10, "
+            f"ShardingConfig); build an unsharded program")
 
 
 def heads_of(x, t, n_heads, head_dim):
@@ -334,6 +365,166 @@ def cached_decoder_step(x, caches, cross_kv, att_bias, d_model,
                      name=f"{prefix}dec{li}")
         x = T._add_norm(ffn, x, 0.0, True, name=f"{prefix}dec{li}_c")
     return x
+
+
+def build_greedy_decode_program(seq_len=16, max_out_len=16,
+                                d_model=64, n_heads=4, n_layers=2,
+                                d_inner=128, vocab=1000, start_id=0,
+                                end_id=1, sharding=None):
+    """Autoregressive greedy generation over the full decoder
+    (decode_engine.py:767 in the JAX package; reference
+    tests/unittests/dist_transformer.py:1498 fast_decode at beam 1): each
+    step re-runs the causally masked decoder on the [B, max_out_len]
+    token buffer and writes position t+1; positions past t are masked
+    out, so no KV cache is needed. A row that emits end_id keeps
+    emitting it, and the loop ends early once every row has.
+
+    Weights are shared with a training program by their explicit names.
+    `sharding` other than None raises NotImplementedError.
+    Returns (program, startup, feeds, out_ids_var)."""
+    from . import transformer as T
+
+    _refuse_sharding("build_greedy_decode_program", sharding)
+    main = Program()
+    startup = Program()
+    with program_guard(main, startup):
+        src = layers.data("src_ids", shape=[seq_len], dtype="int64")
+        enc = T._embed(src, vocab, d_model, max(seq_len, max_out_len),
+                       0.0, True, "src_word_emb")
+        for li in range(n_layers):
+            enc = T.encoder_layer(enc, d_model, n_heads, d_inner, 0.0,
+                                  is_test=True, name=f"enc{li}")
+        positions = layers.cast(layers.range(0, max_out_len, 1), "int64")
+        tgt_buf = init_token_buffer(src, positions, max_out_len, start_id)
+        counter = declare_decode_steps(main.global_block)
+        limit = layers.fill_constant([1], "int64", float(max_out_len - 1))
+        finished = layers.assign(layers.fill_constant_batch_size_like(
+            src, [-1], "int64", 0.0))
+        cond = layers.less_than(counter, limit)
+        w = layers.While(cond)
+        with w.block():
+            dec = T._embed(tgt_buf, vocab, d_model,
+                           max(seq_len, max_out_len), 0.0, True,
+                           "tgt_word_emb")
+            for li in range(n_layers):
+                dec = T.decoder_layer(dec, enc, d_model, n_heads, d_inner,
+                                      0.0, is_test=True, name=f"dec{li}")
+            logits_v = step_logits(dec, positions, counter, vocab)
+            emit_token_step(src, logits_v, positions, tgt_buf, finished,
+                            counter, limit, cond, max_out_len, end_id)
+    return main, startup, ["src_ids"], tgt_buf
+
+
+def build_beam_decode_program(seq_len=16, max_out_len=16, d_model=64,
+                              n_heads=4, n_layers=2, d_inner=128,
+                              vocab=1000, start_id=0, end_id=1,
+                              beam_size=4, batch_size=1):
+    """Batched beam-search generation (decode_engine.py:3253 in the JAX
+    package; reference tests/unittests/dist_transformer.py:1523). Beams
+    ride the batch axis at static [batch*beam, maxT] shapes, batch-major:
+    every step runs the causally masked decoder over all rows, takes the
+    top 2*beam tokens of each row's softmax, lets the beam_search op pick
+    each source's beams (accumulated log-probs, EOS freezing), reorders
+    each hypothesis' history by its absolute parent row and, after the
+    loop, backtracks with beam_search_decode. Step 0 has one live beam a
+    source (the others start at -1e9), or the beams would never split.
+
+    Weights are shared by their explicit names. Returns (program,
+    startup, feeds, (sentence_ids [T, batch*beam], sentence_scores
+    [batch*beam]))."""
+    from . import transformer as T
+
+    maxT = max_out_len
+    rows = batch_size * beam_size
+    main = Program()
+    startup = Program()
+    with program_guard(main, startup):
+        src = layers.data("src_ids", shape=[batch_size, seq_len],
+                          dtype="int64", append_batch_size=False)
+        enc1 = T._embed(src, vocab, d_model, max(seq_len, maxT), 0.0,
+                        True, "src_word_emb")
+        for li in range(n_layers):
+            enc1 = T.encoder_layer(enc1, d_model, n_heads, d_inner, 0.0,
+                                   is_test=True, name=f"enc{li}")
+        # each source's encoding beam_size times, batch-major rows
+        enc = layers.reshape(
+            layers.expand(layers.unsqueeze(enc1, [1]),
+                          [1, beam_size, 1, 1]),
+            [rows, seq_len, d_model])
+        positions = layers.cast(layers.range(0, maxT, 1), "int64")
+        tgt_buf = layers.assign(layers.fill_constant(
+            [rows, maxT], "int64", 0.0))
+        if start_id:
+            start_col = layers.cast(
+                layers.equal(positions,
+                             layers.fill_constant([1], "int64", 0.0)),
+                "int64")
+            tgt_buf = layers.assign(layers.elementwise_add(
+                tgt_buf, layers.cast(
+                    layers.scale(start_col, scale=float(start_id)),
+                    "int64")))
+        pre_ids = layers.assign(layers.fill_constant(
+            [rows, 1], "int64", float(start_id)))
+        pre_scores = layers.assign(np.where(
+            np.arange(rows) % beam_size == 0, 0.0,
+            -1e9).astype("float32").reshape(rows, 1))
+        # the step buffers of the backtrack, [maxT, rows, 1]
+        ids_buf = layers.assign(layers.fill_constant(
+            [maxT, rows, 1], "int64", float(end_id)))
+        scores_buf = layers.assign(layers.fill_constant(
+            [maxT, rows, 1], "float32", 0.0))
+        parents_buf = layers.assign(layers.fill_constant(
+            [maxT, rows, 1], "int64", 0.0))
+        zero = layers.fill_constant([1], "int64", 0)
+        ids_buf = layers.assign(layers.scatter(
+            ids_buf, zero, layers.reshape(pre_ids, [1, rows, 1])))
+        counter = layers.fill_constant([1], "int64", 0)
+        limit = layers.fill_constant([1], "int64", float(maxT - 1))
+        cond = layers.less_than(counter, limit)
+        w = layers.While(cond)
+        with w.block():
+            dec = T._embed(tgt_buf, vocab, d_model, max(seq_len, maxT),
+                           0.0, True, "tgt_word_emb")
+            for li in range(n_layers):
+                dec = T.decoder_layer(dec, enc, d_model, n_heads, d_inner,
+                                      0.0, is_test=True, name=f"dec{li}")
+            logits_v = step_logits(dec, positions, counter, vocab)
+            probs = layers.softmax(logits_v)
+            topk_scores, topk_ids = layers.topk(
+                probs, min(2 * beam_size, vocab))
+            acc = layers.elementwise_add(layers.log(topk_scores),
+                                         pre_scores)
+            sel_ids, sel_scores, parent = layers.beam_search(
+                pre_ids, pre_scores, topk_ids, acc, beam_size=beam_size,
+                end_id=end_id, return_parent_idx=True)
+            parent_flat = layers.reshape(parent, shape=[rows])
+            # each surviving hypothesis inherits its parent's history
+            layers.assign(layers.gather(tgt_buf, parent_flat),
+                          output=tgt_buf)
+            layers.increment(counter, 1)
+            next_mask = layers.cast(layers.equal(positions, counter),
+                                    "int64")
+            keep = layers.elementwise_sub(
+                layers.fill_constant([maxT], "int64", 1.0), next_mask)
+            layers.assign(layers.elementwise_add(
+                layers.elementwise_mul(tgt_buf, keep),
+                layers.elementwise_mul(
+                    layers.reshape(sel_ids, [rows, 1]), next_mask)),
+                output=tgt_buf)
+            for buf, val in ((ids_buf, sel_ids), (scores_buf, sel_scores),
+                             (parents_buf, parent)):
+                layers.assign(layers.scatter(
+                    buf, counter, layers.reshape(val, [1, rows, 1])),
+                    output=buf)
+            layers.assign(layers.reshape(sel_ids, [rows, 1]),
+                          output=pre_ids)
+            layers.assign(layers.reshape(sel_scores, [rows, 1]),
+                          output=pre_scores)
+            layers.less_than(counter, limit, cond=cond)
+        out_ids, out_scores = layers.beam_search_decode(
+            ids_buf, scores_buf, beam_size=beam_size, end_id=end_id,
+            parents=parents_buf)
+    return main, startup, ["src_ids"], (out_ids, out_scores)
 
 
 def build_incremental_decode_program(seq_len=16, max_out_len=16,

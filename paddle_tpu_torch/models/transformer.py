@@ -30,7 +30,9 @@ from ..param_attr import ParamAttr
 # re-exports, as the JAX module makes them: the decode builders live in
 # decode_engine
 from .decode_engine import (CacheConfig, DecodeStepBundle,  # noqa: F401
+                            build_beam_decode_program,
                             build_decode_step_program,
+                            build_greedy_decode_program,
                             build_incremental_decode_program)
 
 

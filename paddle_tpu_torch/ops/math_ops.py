@@ -1,5 +1,5 @@
 """Dense math, elementwise ops with fluid axis broadcasting, relu,
-rsqrt, sqrt, exp, square, cos, floor, ceil, sign, reduce_sum,
+rsqrt, sqrt, exp, log, square, cos, floor, ceil, sign, reduce_sum,
 squared_l2_norm, mean and comparisons: the port's subset of
 ``paddle_tpu/ops/math_ops.py`` (reference mul_op.cc, matmul_op.cc,
 elementwise_op_function.h, activation_op.cc, reduce_ops/,
@@ -81,6 +81,8 @@ register_op("elementwise_mul")(_ew(torch.mul))
 register_op("elementwise_div")(_ew(torch.div))
 register_op("elementwise_min")(_ew(torch.minimum))
 register_op("elementwise_max")(_ew(torch.maximum))
+# the floored remainder, the divisor's sign, as ``jnp.mod``
+register_op("elementwise_mod", differentiable=False)(_ew(torch.remainder))
 
 
 def _sum_to(g, shape):
@@ -147,6 +149,11 @@ def sqrt(ctx):
 @register_op("exp")
 def exp(ctx):
     return torch.exp(ctx.input("X"))
+
+
+@register_op("log")
+def log(ctx):
+    return torch.log(ctx.input("X"))
 
 
 @register_op("square")

@@ -1,10 +1,17 @@
-"""NN ops of the serving and training slices: layer_norm, softmax,
-softmax_with_cross_entropy, lookup_table, dropout, attention and the fused
-attention_block and ffn_block, the accuracy metric and the inference
-passes' fc (the subset of
-``paddle_tpu/ops/nn_ops.py`` the paths run; reference layer_norm_op.cc,
-softmax_op.cc, softmax_with_cross_entropy_op.cc, lookup_table_op.cc,
-dropout_op.cc, metrics/accuracy_op.cc).
+"""NN ops of the serving and training slices: conv2d, depthwise_conv2d
+and pool2d, layer_norm, softmax, softmax_with_cross_entropy,
+lookup_table, dropout, attention and the fused attention_block and
+ffn_block, the accuracy metric and the inference passes' fc (the subset
+of ``paddle_tpu/ops/nn_ops.py`` the paths run; reference conv_op.cc,
+pool_op.cc, layer_norm_op.cc, softmax_op.cc,
+softmax_with_cross_entropy_op.cc, lookup_table_op.cc, dropout_op.cc,
+metrics/accuracy_op.cc).
+
+The JAX package computes the convolutions and poolings in XLA, outside
+any Pallas kernel, so here they call ``F.conv2d``, ``F.max_pool2d`` and
+``F.avg_pool2d`` as the products call ``torch.matmul``. On the card
+cuDNN runs them with TF32 off and its deterministic algorithms only
+(``_cudnn_exact``): a training step repeats bit for bit.
 
 layer_norm, attention, attention_block, ffn_block and
 softmax_with_cross_entropy (hard labels) route to the hand-written kernels
@@ -15,6 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.program import Operator, grad_var_name
 from ..core.registry import make_vjp_grad_kernel, register_op
@@ -58,6 +66,74 @@ def _layer_norm(ctx, affine):
 @register_op("layer_norm")
 def layer_norm(ctx):
     return _layer_norm(ctx, K_ln.layer_norm)
+
+
+def _pair(v):
+    return [int(x) for x in v] if isinstance(v, (list, tuple)) \
+        else [int(v), int(v)]
+
+
+def _cudnn_exact(x):
+    """On the card: no TF32 in cuDNN and no algorithm that sums with
+    atomics (a weight gradient's split reductions), nor one picked by
+    timing, so a conv step gives the same bits every time."""
+    if x.is_cuda:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+
+@register_op("conv2d")
+def conv2d(ctx):
+    """NCHW input, OIHW filter ([out_c, in_c / groups, kh, kw]),
+    symmetric `paddings`, `strides`, `dilations` and `groups`
+    (``lax.conv_general_dilated`` in the JAX package)."""
+    x, w = ctx.input("Input"), ctx.input("Filter")
+    _cudnn_exact(x)
+    out = F.conv2d(x, w, stride=_pair(ctx.attr("strides", [1, 1])),
+                   padding=_pair(ctx.attr("paddings", [0, 0])),
+                   dilation=_pair(ctx.attr("dilations", [1, 1])),
+                   groups=int(ctx.attr("groups", 1)))
+    return {"Output": out}
+
+
+@register_op("depthwise_conv2d")
+def depthwise_conv2d(ctx):
+    """conv2d with `groups` the input's channels, as the JAX package
+    computes it."""
+    return conv2d(ctx)
+
+
+@register_op("pool2d")
+def pool2d(ctx):
+    """Max or average pooling over NCHW windows (``_pool2d_impl`` in the
+    JAX package, a ``reduce_window``): `global_pooling` takes the whole
+    plane; padding is -inf for max and 0 for avg, an avg over padded
+    windows divides by the valid count when `exclusive`, else by the
+    window's size. `ceil_mode` is taken and ignored, as there. A max's
+    gradient goes to the first maximum of its window, as JAX's
+    select-and-scatter sends it."""
+    x = ctx.input("X")
+    ksize = _pair(ctx.attr("ksize", [2, 2]))
+    strides = _pair(ctx.attr("strides", [1, 1]))
+    pads = _pair(ctx.attr("paddings", [0, 0]))
+    if ctx.attr("global_pooling", False):
+        ksize, pads, strides = [x.shape[2], x.shape[3]], [0, 0], [1, 1]
+    _cudnn_exact(x)
+    padded = pads[0] or pads[1]
+    if ctx.attr("pooling_type", "max") == "max":
+        if padded:
+            x = F.pad(x, (pads[1], pads[1], pads[0], pads[0]),
+                      value=float("-inf"))
+        return F.max_pool2d(x, ksize, strides)
+    if padded:
+        x = F.pad(x, (pads[1], pads[1], pads[0], pads[0]))
+    s = F.avg_pool2d(x, ksize, strides, divisor_override=1)
+    if padded and ctx.attr("exclusive", True):
+        ones = F.pad(torch.ones_like(ctx.input("X")),
+                     (pads[1], pads[1], pads[0], pads[0]))
+        return s / F.avg_pool2d(ones, ksize, strides, divisor_override=1)
+    return s / (ksize[0] * ksize[1])
 
 
 # The grad recomputes the forward with the plain version and takes its

@@ -1,10 +1,12 @@
 """Optimizer update ops: sgd, momentum, lars_momentum, adam, adamax,
-adagrad, decayed_adagrad, adadelta, rmsprop and ftrl (the port's subset
-of ``paddle_tpu/ops/optimizer_ops.py``, its formulas in the same order
+adagrad, decayed_adagrad, adadelta, rmsprop, ftrl, dpsgd and Deep
+Gradient Compression's dgc_momentum, dgc and dgc_clip_by_norm (the
+port's subset of ``paddle_tpu/ops/optimizer_ops.py``, and
+dgc_clip_by_norm of ``extra_ops2.py``, their formulas in the same order
 of operations; reference operators/optimizers/sgd_op.cc,
 momentum_op.cc, lars_momentum_op.cc, adam_op.cc, adamax_op.cc,
 adagrad_op.cc, decayed_adagrad_op.cc, adadelta_op.cc, rmsprop_op.cc,
-ftrl_op.cc).
+ftrl_op.cc, dpsgd_op.cc, dgc_op.cc, dgc_clip_by_norm_op.h).
 
 Optimizers are graph ops, as in the reference: each reads Param and its
 accumulators and writes ParamOut and the accumulator outs, which the
@@ -15,9 +17,12 @@ read (a scope tensor may share its memory with a caller's numpy array).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.registry import register_op
+from ..parallel import dgc as _dgc
+from .tensor_ops import _constant
 
 
 @register_op("sgd", differentiable=False)
@@ -192,3 +197,79 @@ def ftrl(ctx):
                         torch.zeros_like(p))
     return {"ParamOut": p_out, "SquaredAccumOut": new_sq,
             "LinearAccumOut": lin_out}
+
+
+def _sparsity(ctx):
+    """The `sparsity` attr as a float32 tensor on the op's device, made
+    once (a host copy at every step could not be captured)."""
+    return _constant(ctx, lambda: torch.from_numpy(np.asarray(
+        ctx.attr("sparsity", [0.999]), np.float32)).to(ctx.device))
+
+
+def _step(ctx, slot):
+    return ctx.input(slot).reshape(()).to(torch.int32)
+
+
+@register_op("dgc_momentum", differentiable=False)
+def dgc_momentum(ctx):
+    """Deep Gradient Compression momentum (``parallel.dgc
+    .dgc_momentum_step``): before rampup_begin_step the momentum op's
+    update, then the update from the top (1 - sparsity) share of the
+    accumulated velocity. CurrentStep is advanced once a step by the
+    optimizer's own increment op, not here."""
+    p_out, u_out, v_out = _dgc.dgc_momentum_step(
+        ctx.input("Param"), ctx.input("Grad"), ctx.input("U"),
+        ctx.input("V"), ctx.input("LearningRate").reshape(()),
+        mu=ctx.attr("mu"), step=_step(ctx, "CurrentStep"),
+        sparsity=_sparsity(ctx),
+        rampup_begin_step=ctx.attr("rampup_begin_step", 0),
+        rampup_step=ctx.attr("rampup_step", 1),
+        use_nesterov=ctx.attr("use_nesterov", False))
+    return {"ParamOut": p_out, "UOut": u_out, "VOut": v_out}
+
+
+@register_op("dgc", differentiable=False)
+def dgc(ctx):
+    """DGC's gradient encode (reference dgc_op.h:38; ``parallel.dgc
+    .dgc_encode``)."""
+    u_out, v_out, encode, grad_out, k = _dgc.dgc_encode(
+        ctx.input("U"), ctx.input("V"), ctx.input("Grad"),
+        m=ctx.attr("m", 0.9), step=_step(ctx, "current_step"),
+        sparsity=_sparsity(ctx),
+        rampup_begin_step=int(ctx.attr("rampup_begin_step", 0.0)),
+        rampup_step=int(ctx.attr("rampup_step", 1.0)),
+        use_nesterov=ctx.attr("use_nesterov", True))
+    return {"U_out": u_out, "V_out": v_out, "EncodeGrad": encode,
+            "Grad_out": grad_out, "k": k}
+
+
+@register_op("dgc_clip_by_norm", differentiable=False)
+def dgc_clip_by_norm(ctx):
+    """clip_by_norm from rampup_begin_step on; before it (read from the
+    device step, current_step) X passes through."""
+    x = ctx.input("X")
+    maxn = ctx.attr("max_norm")
+    norm = torch.sqrt(torch.sum(x * x))
+    clipped = torch.where(norm > maxn, x * (maxn / norm), x)
+    step = ctx.input("current_step")
+    if step is None:
+        return clipped
+    return torch.where(step.reshape(()) < ctx.attr("rampup_begin_step", 0.0),
+                       x, clipped)
+
+
+@register_op("dpsgd", differentiable=False, needs_rng=True)
+def dpsgd(ctx):
+    """Differentially private SGD (reference dpsgd_op.cc): the gradient
+    clipped to L2 norm `clip`, plus Gaussian noise of std sigma * clip
+    drawn on the device from the step key (``OpContext.normal``: each
+    step draws anew, a replayed step draws what the eager one does; the
+    JAX package's threefry noise is matched in distribution only)."""
+    p, g = ctx.input("Param"), ctx.input("Grad")
+    lr = ctx.input("LearningRate").reshape(())
+    clip = ctx.attr("clip", 10.0)
+    sigma = ctx.attr("sigma", 1.0)
+    norm = torch.sqrt(torch.sum(g * g))
+    g = g * torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
+    noise = sigma * clip * ctx.normal(g.shape, g.dtype, g.device)
+    return {"ParamOut": p - lr * (g + noise)}

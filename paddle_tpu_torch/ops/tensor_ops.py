@@ -1,9 +1,9 @@
 """Tensor creation / manipulation ops: the port's subset of
 ``paddle_tpu/ops/tensor_ops.py`` (reference fill_constant_op.cc,
-fill_any_like_op.cc, uniform_random_op.cc, reshape_op.cc,
-transpose_op.cc, split_op.cc, sum_op.cc, cast_op.cc, assign_op.cc,
-scale_op.cc, range_op.cc, arg_max, gather_op.cc, expand_op.cc,
-clip_op.cc, clip_by_norm_op.cc, ...).
+fill_any_like_op.cc, uniform_random_op.cc, gaussian_random_op.cc,
+reshape_op.cc, transpose_op.cc, split_op.cc, sum_op.cc, cast_op.cc,
+assign_op.cc, scale_op.cc, range_op.cc, arg_max, gather_op.cc,
+scatter_op.cc, expand_op.cc, clip_op.cc, clip_by_norm_op.cc, ...).
 
 Creation ops allocate on ``ctx.device``; at build time that is the meta
 device, so shape inference allocates nothing.
@@ -32,6 +32,15 @@ def fill_any_like(ctx):
     return torch.full_like(x, ctx.attr("value", 0.0))
 
 
+def _seeded_generator(ctx):
+    """A nonzero ``seed`` attr pins the draw; else the op's generator."""
+    if ctx.attr("seed", 0):
+        gen = torch.Generator()
+        gen.manual_seed(int(ctx.attr("seed")))
+        return gen
+    return ctx.generator()
+
+
 @register_op("uniform_random", differentiable=False, host_rng=True)
 def uniform_random(ctx):
     """Draws on the CPU from the op's generator (the program's seed, the
@@ -42,14 +51,25 @@ def uniform_random(ctx):
     dtype = to_torch_dtype(ctx.attr("dtype", "float32"))
     if ctx.device.type == "meta":
         return torch.empty(shape, dtype=dtype, device=ctx.device)
-    if ctx.attr("seed", 0):
-        gen = torch.Generator()
-        gen.manual_seed(int(ctx.attr("seed")))
-    else:
-        gen = ctx.generator()
     out = torch.empty(shape, dtype=torch.float32)
     out.uniform_(ctx.attr("min", -1.0), ctx.attr("max", 1.0),
-                 generator=gen)
+                 generator=_seeded_generator(ctx))
+    return out.to(device=ctx.device, dtype=dtype)
+
+
+@register_op("gaussian_random", differentiable=False, host_rng=True)
+def gaussian_random(ctx):
+    """Normal values of `mean` and `std`, drawn in fp32 on the CPU as
+    ``uniform_random`` draws (the same seed gives the same values on
+    every device) and cast to `dtype`. The bits are torch's, not JAX's
+    threefry: the JAX package's draw is matched in distribution only."""
+    shape = [int(s) for s in ctx.attr("shape")]
+    dtype = to_torch_dtype(ctx.attr("dtype", "float32"))
+    if ctx.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=ctx.device)
+    out = torch.randn(shape, dtype=torch.float32,
+                      generator=_seeded_generator(ctx))
+    out = out * ctx.attr("std", 1.0) + ctx.attr("mean", 0.0)
     return out.to(device=ctx.device, dtype=dtype)
 
 
@@ -285,6 +305,31 @@ def gather(ctx):
     rows = rows.reshape(*idx.shape, *x.shape[1:])
     valid = valid.reshape(*idx.shape, *[1] * (x.dim() - 1))
     return torch.where(valid, rows, _take_fill(x.dtype))
+
+
+@register_op("scatter", stop_gradient_slots=("Ids",))
+def scatter(ctx):
+    """X with the rows at Ids replaced by Updates (`overwrite`) or
+    Updates added to them (reference scatter_op.cc; ``x.at[ids].set`` /
+    ``.add`` in the JAX package). JAX's index rule: an id in [-N, 0)
+    counts from the end, and an update at any other id outside [0, N) is
+    dropped. The dropped rows go to a spare row past the end, so the
+    card needs no device assert and no host sync. Under `overwrite` the
+    row of an id given twice takes one of its updates, as in XLA, which
+    defines no order either."""
+    x = ctx.input("X")
+    ids = ctx.input("Ids").to(torch.int64).reshape(-1)
+    n = x.shape[0]
+    ids = torch.where(ids < 0, ids + n, ids)
+    ids = torch.where((ids >= 0) & (ids < n), ids, n)
+    upd = torch.broadcast_to(ctx.input("Updates").to(x.dtype),
+                             (ids.shape[0], *x.shape[1:]))
+    padded = torch.cat([x, x.new_zeros((1, *x.shape[1:]))])
+    if ctx.attr("overwrite", True):
+        out = torch.index_copy(padded, 0, ids, upd)
+    else:
+        out = torch.index_add(padded, 0, ids, upd)
+    return out[:n]
 
 
 @register_op("expand")

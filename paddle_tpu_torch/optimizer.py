@@ -1,7 +1,8 @@
 """Optimizers (reference python/paddle/fluid/optimizer.py; the port's
 subset of paddle_tpu/optimizer.py: the Optimizer pipeline, SGD, Momentum,
-LarsMomentum, Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp,
-Ftrl and RecomputeOptimizer).
+DGCMomentum, LarsMomentum, Adagrad, Adam, Adamax, DecayedAdagrad,
+Adadelta, RMSProp, Ftrl, RecomputeOptimizer and GradientMergeOptimizer,
+and the parameter averages ModelAverage and ExponentialMovingAverage).
 
 minimize() = append_backward + gradient clipping + regularization + one
 optimizer op per parameter + the optimizer's `_finish_update` ops, the
@@ -11,12 +12,14 @@ Executor commits their new values to the scope.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import defaultdict
 
 from . import unique_name
 from .backward import append_backward
 from .clip import append_gradient_clip_ops, error_clip_callback
 from .core.program import Variable, default_main_program
+from .core.scope import global_scope
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
@@ -27,7 +30,9 @@ __all__ = ["SGD", "Momentum", "Adagrad", "Adam", "Adamax",
            "AdamOptimizer", "AdamaxOptimizer",
            "DecayedAdagradOptimizer", "AdadeltaOptimizer",
            "RMSPropOptimizer", "FtrlOptimizer", "LarsMomentum",
-           "LarsMomentumOptimizer", "RecomputeOptimizer", "Optimizer"]
+           "LarsMomentumOptimizer", "RecomputeOptimizer", "Optimizer",
+           "DGCMomentumOptimizer", "GradientMergeOptimizer",
+           "ModelAverage", "ExponentialMovingAverage"]
 
 
 class Optimizer:
@@ -163,6 +168,64 @@ class MomentumOptimizer(Optimizer):
             {"ParamOut": p, "VelocityOut": v},
             {"mu": self._momentum, "use_nesterov": self._use_nesterov,
              "op_role": "optimize"})
+
+
+class DGCMomentumOptimizer(MomentumOptimizer):
+    """Deep Gradient Compression momentum (reference optimizer.py:589):
+    per parameter a velocity U and a residual V for the ``dgc_momentum``
+    op (momentum correction, residual accumulation, selection by the
+    sparsity's quantile under the rampup schedule, momentum factor
+    masking; ``parallel.dgc``), one step counter shared by all, advanced
+    after the updates. Before rampup_begin_step the op is the momentum
+    op. `local_grad_clip_norm` clips each gradient first. The collective
+    form of the JAX package (``dgc_allreduce_step``) is not ported
+    yet."""
+
+    def __init__(self, learning_rate, momentum, rampup_begin_step=0,
+                 rampup_step=1, sparsity=(0.999,), use_nesterov=False,
+                 local_grad_clip_norm=None, num_trainers=None, **kwargs):
+        super().__init__(learning_rate, momentum, use_nesterov, **kwargs)
+        self._sparsity = list(sparsity)
+        self._rampup_begin_step = rampup_begin_step
+        self._rampup_step = rampup_step
+        self._local_grad_clip_norm = local_grad_clip_norm
+        self._step_var = None
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("dgc_u", p)
+            self._add_accumulator("dgc_v", p)
+        if self._step_var is None:
+            helper = LayerHelper("dgc_step")
+            self._step_var = helper.create_global_variable(
+                [1], "float32", persistable=True,
+                name=unique_name.generate("dgc_counter"))
+            helper.set_variable_initializer(self._step_var,
+                                            ConstantInitializer(0.0))
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        if self._local_grad_clip_norm is not None:
+            from . import layers
+
+            g = layers.clip_by_norm(g, self._local_grad_clip_norm)
+        return block.append_op(
+            "dgc_momentum",
+            {"Param": p, "Grad": g, "U": self._get_accumulator("dgc_u", p),
+             "V": self._get_accumulator("dgc_v", p),
+             "CurrentStep": self._step_var,
+             "LearningRate": self._create_param_lr(param_and_grad)},
+            {"ParamOut": p, "UOut": self._get_accumulator("dgc_u", p),
+             "VOut": self._get_accumulator("dgc_v", p)},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov,
+             "sparsity": self._sparsity,
+             "rampup_begin_step": self._rampup_begin_step,
+             "rampup_step": self._rampup_step, "op_role": "optimize"})
+
+    def _finish_update(self, block, parameters_and_grads):
+        block.append_op("increment", {"X": self._step_var},
+                        {"Out": self._step_var},
+                        {"step": 1.0, "op_role": "optimize"})
 
 
 class LarsMomentumOptimizer(Optimizer):
@@ -449,6 +512,200 @@ class RecomputeOptimizer(Optimizer):
 
     def apply_gradients(self, params_grads):
         return self._inner.apply_gradients(params_grads)
+
+
+class GradientMergeOptimizer(Optimizer):
+    """Gradient accumulation: each step adds its gradients into
+    persistable accumulators; every k_steps-th step the inner optimizer
+    applies their mean (`avg`) or sum, then the accumulators clear
+    (reference ir/multi_batch_merge_pass.cc; paddle_tpu/optimizer.py:537).
+    The optimize section is a ``run_block_if`` gated on the step count,
+    so one program runs every micro-step, the inner optimizer's state
+    (moments, step counters) moves only on the steps that apply, and the
+    step stays capturable in a CUDA graph."""
+
+    def __init__(self, inner_optimizer, k_steps, avg=True):
+        if k_steps < 1:
+            raise ValueError("k_steps must be >= 1")
+        super().__init__(0.0)
+        self._inner = inner_optimizer
+        self._k = int(k_steps)
+        self._avg = avg
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from . import layers
+        from .layers.control_flow import _block_io_analysis
+
+        prog = default_main_program()
+        block = prog.global_block
+        params_grads = self._inner.backward(
+            loss, startup_program, parameter_list, no_grad_set)
+        params_grads = sorted(params_grads, key=lambda x: x[0].name)
+        helper = LayerHelper("gradient_merge")
+        accs = {}
+        for p, g in params_grads:
+            if g is None:
+                continue
+            acc = helper.create_global_variable(
+                list(p.shape), p.dtype, persistable=True,
+                name=unique_name.generate(p.name + "@GRAD@MERGE"))
+            helper.set_variable_initializer(acc, ConstantInitializer(0.0))
+            block.append_op("elementwise_add", {"X": acc, "Y": g},
+                            {"Out": acc}, {"op_role": "optimize"})
+            accs[p.name] = acc
+        step_var = helper.create_global_variable(
+            [1], "float32", persistable=True,
+            name=unique_name.generate("gmerge_step"))
+        helper.set_variable_initializer(step_var, ConstantInitializer(0.0))
+        block.append_op("increment", {"X": step_var}, {"Out": step_var},
+                        {"step": 1.0, "op_role": "optimize"})
+        pred = layers.equal(
+            layers.elementwise_mod(
+                step_var, layers.fill_constant([1], "float32",
+                                               float(self._k))),
+            layers.fill_constant([1], "float32", 0.0))
+        # the rate must exist before the sub-block reads it
+        self._inner._create_global_learning_rate()
+
+        sub = prog.create_block()
+        merged = []
+        for p, g in params_grads:
+            if g is None:
+                continue
+            mg = accs[p.name]
+            if self._avg:
+                mg = layers.scale(mg, scale=1.0 / self._k)
+            merged.append((p, mg))
+        merged = append_gradient_clip_ops(merged)
+        merged = append_regularization_ops(merged,
+                                           self._inner.regularization)
+        self._inner._create_accumulators(
+            sub, [p for p, g in merged if g is not None])
+        optimize_ops = [self._inner._append_optimize_op(sub, pg)
+                        for pg in merged
+                        if pg[1] is not None and pg[0].trainable]
+        self._inner._finish_update(sub, merged)
+        for acc in accs.values():
+            sub.append_op("scale", {"X": acc}, {"Out": acc},
+                          {"scale": 0.0, "op_role": "optimize"})
+        prog.rollback()
+        parent = prog.current_block()
+        carried, externals = _block_io_analysis(sub, parent)
+        parent.append_op(
+            "run_block_if",
+            {"Condition": pred.name, "X": externals, "Init": carried},
+            {"Out": carried},
+            {"sub_block": sub, "carried": carried,
+             "externals": externals, "op_role": "optimize"})
+        return optimize_ops, params_grads
+
+
+def _scope_swap(scope, values, need_restore):
+    """A context manager that puts `values` ({param name: tensor}) into
+    `scope` (default: the global scope) and, with `need_restore`, puts the
+    old values back on exit."""
+
+    @contextlib.contextmanager
+    def guard():
+        sc = scope or global_scope()
+        backups = {n: sc._get(n) for n in values}
+        for n, v in values.items():
+            sc._set(n, v)
+        try:
+            yield
+        finally:
+            if need_restore:
+                for n, v in backups.items():
+                    sc._set(n, v)
+
+    return guard()
+
+
+class ModelAverage(Optimizer):
+    """The running sum of each parameter and the count of steps summed,
+    advanced every step (reference optimizer.py:1789; the JAX package's
+    plain form: one window, no rotation). ``apply()`` swaps the averages
+    into the scope for evaluation, and puts the parameters back on exit
+    (`need_restore`); a parameter with nothing summed yet keeps its
+    value."""
+
+    def __init__(self, average_window_rate, min_average_window=10000,
+                 max_average_window=10000, **kwargs):
+        super().__init__(0.0, **kwargs)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        self.params_grads = []
+        program = default_main_program()
+        block = program.global_block
+        for param in program.all_parameters():
+            if param.do_model_average is not False:
+                self._append_average_accumulate_op(block, param)
+
+    def _append_average_accumulate_op(self, block, param):
+        sum_1 = self._add_accumulator("sum_1", param)
+        num_acc = self._add_accumulator("num_accumulates", param,
+                                        shape=[1])
+        block.append_op("sum", {"X": [sum_1, param]}, {"Out": sum_1},
+                        {"op_role": "optimize"})
+        block.append_op("increment", {"X": num_acc}, {"Out": num_acc},
+                        {"step": 1.0, "op_role": "optimize"})
+
+    def apply(self, executor=None, need_restore=True, scope=None):
+        sc = scope or global_scope()
+        values = {}
+        for pname, sum_var in self._accumulators["sum_1"].items():
+            n = sc._get(self._accumulators["num_accumulates"][pname].name)
+            if float(n.reshape(-1)[0]) > 0:
+                values[pname] = sc._get(sum_var.name) / n.reshape(())
+        return _scope_swap(sc, values, need_restore)
+
+    def restore(self, executor=None):
+        pass
+
+
+class ExponentialMovingAverage:
+    """The exponential moving average of each trainable parameter,
+    ema = decay * ema + (1 - decay) * param after every step, from 0 (no
+    bias correction, as in the JAX package). ``apply()`` swaps the
+    averages into the scope, and puts the parameters back on exit
+    (`need_restore`)."""
+
+    def __init__(self, decay=0.999, thres_steps=None, name=None):
+        from . import layers
+
+        self._decay = decay
+        self._name = name or ""
+        self._ema_vars = {}
+        program = default_main_program()
+        block = program.global_block
+        helper = LayerHelper("ema")
+        for param in program.all_parameters():
+            if not param.trainable:
+                continue
+            ema = helper.create_global_variable(
+                list(param.shape), param.dtype, persistable=True,
+                name=unique_name.generate(param.name + ".ema"))
+            helper.set_variable_initializer(ema, ConstantInitializer(0.0))
+            self._ema_vars[param.name] = ema
+            scaled_e = layers.scale(ema, scale=self._decay)
+            scaled_p = layers.scale(param, scale=1.0 - self._decay)
+            block.append_op("elementwise_add",
+                            {"X": scaled_e, "Y": scaled_p}, {"Out": ema},
+                            {"op_role": "optimize"})
+
+    def update(self):
+        pass
+
+    def apply(self, executor=None, need_restore=True, scope=None):
+        sc = scope or global_scope()
+        values = {p: sc._get(e.name) for p, e in self._ema_vars.items()
+                  if sc._get(e.name) is not None}
+        return _scope_swap(sc, values, need_restore)
+
+    def restore(self, executor=None):
+        pass
 
 
 # fluid exposes both Foo and FooOptimizer names

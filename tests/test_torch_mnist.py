@@ -127,8 +127,8 @@ def test_correct_matches_reference_but_for_ties(trained):
 
 def test_build_program_matches_reference_ops():
     """build_program(use_conv=False): the same ops, in order, with the
-    same parameter names as the JAX package's; the conv net names what it
-    lacks."""
+    same parameter names as the JAX package's; the default builds the
+    conv net (held op by op in tests/test_torch_conv_mnist.py)."""
     jf, jm = _jax_pkg()
     with jf.unique_name.guard():
         jmain, jstart, _, _ = jm.build_program(use_conv=False)
@@ -140,8 +140,10 @@ def test_build_program_matches_reference_ops():
         sorted(p.name for p in jmain.all_parameters())
     assert [p.shape for p in pmain.all_parameters()] == [
         (784, 128), (128,), (128, 64), (64,), (64, 10), (10,)]
-    with pytest.raises(NotImplementedError, match="conv2d.*pool2d"):
-        PM.build_program()
+    with pf.unique_name.guard():
+        cmain = PM.build_program()[0]
+    assert [o.type for o in cmain.global_block.ops][:4] == [
+        "conv2d", "elementwise_add", "relu", "pool2d"]
 
 
 # ---------------------------------------------------------------------------
